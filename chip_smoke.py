@@ -1,0 +1,562 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py      # from the root of a checkout, on a machine with a CUDA card
+
+1. Prints the card's name and power limit (nvidia-smi).
+2. Builds every CUDA kernel of the serving path from the package's
+   ``csrc/`` (one nvcc per source, all started together).
+3. Holds each kernel against its plain PyTorch version at the serving
+   path's shapes, with the tolerances stated below, and times the kernel,
+   the plain version and one PyTorch library call with CUDA events.
+4. Exports a synthetic artifact directory at the full width of the
+   reference model (two 2-layer bidirectional GRU towers, H=256, bf16
+   compute, a 400,000 x 100 word table, 70,000 passages) through the port's
+   doc tower, and checks the embeddings against the plain version on the
+   CPU.
+5. Serves ``/search`` over HTTP through the port's server (the entry point
+   behind ``ttr-torch-serve``), checks the responses' contract and their
+   results against the port's engine on the CPU (plain PyTorch), and checks
+   that every kernel was launched while serving.
+
+The second-last line is the ``kernels`` record (JSON), the last line
+``{"ok": true, "device": {...}}``. A failed check exits non-zero and prints
+neither, as does a run without a CUDA device or outside a checkout of the
+repository.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import shutil
+import statistics
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+ARTIFACTS = ROOT / "_smoke_artifacts"  # listed in .gitignore; removed at the end
+
+# Published peaks of one H100 SXM: HBM3 bandwidth and the dense bf16
+# tensor-core rate.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+
+# The reference model (configs/msmarco_reference.json, Config defaults).
+H = 256
+QUERY_LEN, DOC_LEN = 32, 128
+SERVE_ROWS = 16  # the engine encodes micro-batches of >= 16 rows
+EXPORT_ROWS = 1024  # TextEncoder's corpus batch
+FANOUT = 50
+VOCAB, EMBED = 400_000, 100  # the shape of GloVe 6B 100d
+PASSAGES = 70_000  # not a multiple of the 8192-row index tile: padding is live
+SCAN_ROWS = 1 << 20  # 1,048,576 x 256 bf16 = 512 MiB for the scan alone
+SCAN_VALID = SCAN_ROWS - 3001
+
+# Tolerances, kernel against plain version on the same inputs.
+# rnn_fwd, bf16 compute: both round h to bf16 before each step's product and
+# sum the 256 products in f32, in another order. A last-bit difference in a
+# sum can move a value across a bf16 rounding boundary, changing the next
+# step's operand by one bf16 ulp (<= 2^-8 for |h| < 1), and the contracting
+# recurrence carries it on. A CPU run of the plain version against itself
+# with float64 products found 1.5e-4 in h_final and one bf16 ulp (3.9e-3) in
+# the bf16 history at B=256, T=128.
+RNN_FINAL_ATOL = 2e-3
+RNN_HIST_ATOL = 1e-2
+# segmax: f32 sums of 256 products of unit-norm rows in two orders differ
+# by at most about 2 * 256 * 2^-24 < 3e-5.
+SEGMAX_ATOL = 3e-5
+# Embeddings and /search scores, card against CPU: the rnn differences
+# above pass through the projection and the L2 normalization.
+EMBED_ATOL = 2e-2
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def log(msg: str) -> None:
+    print(f"[smoke] {msg}", flush=True)
+
+
+def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median of ``reps`` single calls, each timed with CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes: int, flops: int):
+    """Least time on the card: the larger of bytes over the memory rate and
+    bf16 operations over the tensor-core rate. Returns (ms, "bytes" |
+    "operations")."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip()
+
+
+# ---------------------------------------------------------------------------
+# phase 2: build
+# ---------------------------------------------------------------------------
+
+
+def phase_build() -> None:
+    from twotowermlretrieval_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    log(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"{name}: {line.strip()}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+_GATES = {"GRU": 3, "LSTM": 4, "RNN": 1}
+
+
+def _rnn_inputs(cell, B, T, seed, dev):
+    """Per-direction xp (bf16, as the kernel reads it), ragged lengths with
+    0, 1 and T among them, W_hh and b_hh at torch.nn.GRU's init scale."""
+    G = _GATES[cell]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lim = 1.0 / math.sqrt(H)
+    xps = [(torch.randn((T, B, G * H), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+           for _ in range(2)]
+    lengths = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
+    lengths[:3] = torch.tensor([0, 1, T], device=dev)
+    mask = (torch.arange(T, device=dev)[:, None] < lengths[None, :]).float()
+    w_hh = ((torch.rand((2, H, G * H), generator=gen, device=dev) * 2 - 1) * lim).to(torch.bfloat16)
+    b_hh = (torch.rand((2, G * H), generator=gen, device=dev) * 2 - 1) * lim
+    return xps, mask, w_hh, b_hh
+
+
+def check_rnn(cell: str, B: int, T: int, seed: int, dev, timed: bool) -> dict:
+    from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
+        rnn_fwd_bound,
+        rnn_layer_fwd,
+        rnn_layer_fwd_reference,
+    )
+
+    args = _rnn_inputs(cell, B, T, seed, dev)
+    kw = dict(compute_dtype="bfloat16", history_in_cdt=True)
+    outs, c_hist, fin = rnn_layer_fwd(cell, *args, **kw)
+    r_outs, r_c, r_fin = rnn_layer_fwd_reference(cell, *args, **kw)
+    torch.cuda.synchronize()
+    err_final = (fin - r_fin).abs().max().item()
+    err_hist = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs, r_outs))
+    # the LSTM cell state may exceed 1: one bf16 ulp relative
+    c_ok = all(
+        ((a.float() - b.float()).abs() <= RNN_HIST_ATOL + 2 ** -7 * b.float().abs()).all().item()
+        for a, b in zip(c_hist, r_c)
+    )
+    finite = bool(torch.isfinite(fin).all()) and all(bool(torch.isfinite(o.float()).all()) for o in outs)
+    zero_row = bool((fin[:, 0] == 0).all()) and all(bool((o[:, 0] == 0).all()) for o in outs)
+    shape = f"{cell} D=2 B={B} T={T} H={H} bf16"
+    log(f"rnn_fwd {shape}: |h_final diff| {err_final:.3g}, |history diff| {err_hist:.3g}")
+    check(finite, f"rnn_fwd {shape}: non-finite output")
+    check(zero_row, f"rnn_fwd {shape}: a zero-length row is not exactly zero")
+    check(err_final <= RNN_FINAL_ATOL, f"rnn_fwd {shape}: h_final off by {err_final}")
+    check(err_hist <= RNN_HIST_ATOL, f"rnn_fwd {shape}: history off by {err_hist}")
+    check(c_ok, f"rnn_fwd {shape}: LSTM cell history off")
+    rec = {"shape": shape, "max_abs_err": max(err_final, err_hist)}
+    if timed:
+        rec["ms"] = time_ms(lambda: rnn_layer_fwd(cell, *args, **kw))
+        rec["plain_ms"] = time_ms(lambda: rnn_layer_fwd_reference(cell, *args, **kw),
+                                  reps=5, warmup=1)
+        # One cuDNN call over the same layer: one bidirectional GRU layer,
+        # which also computes the input projection (input width 2H, the
+        # second layer's). fp16: cuDNN's RNN takes fp16 on every version;
+        # bytes and tensor-core rate are bf16's.
+        gru = torch.nn.GRU(2 * H, H, num_layers=1, bidirectional=True).to(dev, torch.float16)
+        x = torch.randn((T, B, 2 * H), device=dev, dtype=torch.float16)
+        rec["library_ms"] = time_ms(lambda: gru(x))
+        nbytes, flops = rnn_fwd_bound(T, B, H, 2, _GATES[cell], 2, 2)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+        log(f"rnn_fwd {shape}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+            f"cuDNN GRU {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
+            f"({rec['bound_by']})")
+    return rec
+
+
+def _unit_rows(gen, n, dev, chunk=1 << 18):
+    """[n, H] bf16 rows of unit norm, made in chunks to bound the f32
+    temporaries."""
+    out = torch.empty((n, H), dtype=torch.bfloat16, device=dev)
+    for i in range(0, n, chunk):
+        x = torch.randn((min(chunk, n - i), H), generator=gen, device=dev)
+        out[i : i + chunk] = (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    return out
+
+
+def check_segmax(npad: int, n_valid: int, B: int, seed: int, dev, timed: bool) -> dict:
+    from twotowermlretrieval_tpu_torch.ops.topk import (
+        NEG_INF,
+        fused_topk_segmax,
+        segmax,
+        segmax_bound,
+        segmax_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    docs = _unit_rows(gen, npad, dev)
+    q = _unit_rows(gen, B, dev)
+    shape = f"B={B} Npad={npad} n_valid={n_valid} H={H} bf16"
+    err = 0.0
+    for with_cache in (False, True):
+        seg, cache = segmax(q, docs, n_valid, with_cache=with_cache)
+        r_seg, r_cache = segmax_reference(q, docs, n_valid, with_cache=with_cache)
+        torch.cuda.synchronize()
+        err = max(err, (seg - r_seg).abs().max().item())
+        check(bool((seg[(n_valid + 127) // 128 :] == NEG_INF).all()),
+              f"segmax {shape}: a padding segment is not NEG_INF")
+        if with_cache:
+            err = max(err, (cache - r_cache).abs().max().item())
+            check(bool((cache[n_valid:] == NEG_INF).all()), f"segmax {shape}: padding rows")
+        del seg, cache, r_seg, r_cache
+    log(f"segmax {shape}: |diff| {err:.3g}")
+    check(err <= SEGMAX_ATOL, f"segmax {shape}: off by {err}")
+
+    # The whole search against a full f32 product and torch.topk: values
+    # equal within the tolerance, and every id is a real row whose score is
+    # within the tolerance of the k-th best (ties may order differently).
+    full = torch.matmul(q.float(), docs[:n_valid].float().T)
+    r_vals, _ = torch.topk(full, FANOUT)
+    for phase2 in ("rescore", "gather"):
+        vals, ids = fused_topk_segmax(q, docs, k=FANOUT, n_valid=n_valid, phase2=phase2)
+        check(bool(((ids >= 0) & (ids < n_valid)).all()), f"top-k {shape}: an id out of range")
+        picked = full.gather(1, ids.long())
+        top_err = max((vals - r_vals).abs().max().item(), (picked - vals).abs().max().item())
+        check(top_err <= SEGMAX_ATOL, f"top-{FANOUT} {shape} ({phase2}): off by {top_err}")
+        check(bool((picked >= r_vals[:, -1:] - SEGMAX_ATOL).all()),
+              f"top-{FANOUT} {shape} ({phase2}): an id outside the true top-{FANOUT}")
+        err = max(err, top_err)
+    log(f"top-{FANOUT} {shape}: matches torch.topk over the full f32 scores")
+    del full
+    rec = {"shape": shape, "max_abs_err": err}
+    if timed:
+        rec["ms"] = time_ms(lambda: segmax(q, docs, n_valid))
+        rec["plain_ms"] = time_ms(lambda: segmax_reference(q, docs, n_valid), reps=5, warmup=1)
+        # one library product over the corpus (bf16 in, bf16 out, f32
+        # accumulation in cuBLAS) plus the segment max
+        rec["library_ms"] = time_ms(
+            lambda: torch.matmul(docs, q.T).view(-1, 128, B).amax(dim=1)
+        )
+        rec["search_ms"] = time_ms(lambda: fused_topk_segmax(q, docs, k=FANOUT, n_valid=n_valid))
+        rec["library_topk_ms"] = time_ms(
+            lambda: torch.topk(torch.matmul(q, docs[:n_valid].T).float(), FANOUT)
+        )
+        nbytes, flops = segmax_bound(B, H, npad, 2)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+        log(f"segmax {shape}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+            f"matmul+amax {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
+            f"({rec['bound_by']}); whole top-{FANOUT} {rec['search_ms']:.4f} ms, "
+            f"matmul+topk {rec['library_topk_ms']:.4f} ms")
+    del docs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_kernels(dev) -> dict:
+    with torch.inference_mode():
+        rnn = [
+            check_rnn("GRU", SERVE_ROWS, QUERY_LEN, 1, dev, timed=True),  # every /search
+            check_rnn("GRU", EXPORT_ROWS, DOC_LEN, 2, dev, timed=True),  # every export batch
+            check_rnn("LSTM", SERVE_ROWS, QUERY_LEN, 3, dev, timed=False),
+            check_rnn("RNN", SERVE_ROWS, QUERY_LEN, 4, dev, timed=False),
+        ]
+        npad_serve = -(-PASSAGES // 8192) * 8192
+        seg = [
+            check_segmax(SCAN_ROWS, SCAN_VALID, SERVE_ROWS, 5, dev, timed=True),
+            check_segmax(npad_serve, PASSAGES, SERVE_ROWS, 6, dev, timed=True),
+        ]
+    return {"rnn_fwd": rnn, "segmax": seg}
+
+
+# ---------------------------------------------------------------------------
+# phase 4: a synthetic artifact directory at full width
+# ---------------------------------------------------------------------------
+
+
+def make_corpus(seed: int):
+    """(vocabulary, word table, passages, triplets): PASSAGES passages of
+    24-159 words (some beyond the 128-token cut) drawn Zipf-like from the
+    vocabulary, and one query per (positive, negative) pair made from the
+    positive's first words."""
+    rng = np.random.default_rng(seed)
+    words = np.array([f"w{i}" for i in range(VOCAB - 1)] + ["<UNK>"])
+    table = (rng.standard_normal((VOCAB, EMBED), dtype=np.float32) * 0.4)
+    lengths = rng.integers(24, 160, PASSAGES)
+    ids = (rng.zipf(1.2, int(lengths.sum())) - 1) % (VOCAB - 1)
+    ends = np.cumsum(lengths)
+    passages = [" ".join(words[ids[e - n : e]]) for e, n in zip(ends, lengths)]
+    triplets = [
+        (" ".join(passages[2 * i].split()[:6]), passages[2 * i], passages[2 * i + 1])
+        for i in range(PASSAGES // 2)
+    ]
+    return {w: i for i, w in enumerate(words.tolist())}, table, passages, triplets
+
+
+def phase_export(dev):
+    from twotowermlretrieval_tpu_torch.config import Config
+    from twotowermlretrieval_tpu_torch.encoder import TextEncoder
+    from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec, init_two_tower
+    from twotowermlretrieval_tpu_torch.ops.rnn_scan import rnn_layer_fwd
+    from twotowermlretrieval_tpu_torch.ops.topk import segmax
+    from twotowermlretrieval_tpu_torch.tokenizer import Tokenizer
+    from twotowermlretrieval_tpu_torch.train.artifacts import save_inference_artifacts
+
+    t0 = time.perf_counter()
+    word_to_idx, table, passages, triplets = make_corpus(0)
+    tok = Tokenizer(word_to_idx)
+    check(tok.vocab_size() == VOCAB, "the vocabulary holds the <UNK> row")
+    # hidden_dim is the default; every other field is the reference's too
+    cfg = Config(vocab_size=VOCAB, embed_dim=EMBED, hidden_dim=H)
+    spec = TwoTowerSpec.from_config(cfg)
+    params = init_two_tower(torch.Generator().manual_seed(0), spec, pretrained_embeddings=table)
+    log(f"corpus: {len(passages)} passages, {len(triplets)} triplets, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    if ARTIFACTS.exists():
+        shutil.rmtree(ARTIFACTS)
+    rnn_layer_fwd.launches = segmax.launches = 0
+    t0 = time.perf_counter()
+    save_inference_artifacts(ARTIFACTS, params, cfg, tok, {"train": triplets}, device=dev)
+    export_s = time.perf_counter() - t0
+    export_launches = {"rnn_fwd": rnn_layer_fwd.launches, "segmax": segmax.launches}
+    batches = -(-PASSAGES // EXPORT_ROWS)
+    log(f"export: {export_s:.1f} s, launches {export_launches} "
+        f"({batches} doc batches of {EXPORT_ROWS} x {DOC_LEN}, 2 layers)")
+    check(export_launches["rnn_fwd"] == 2 * batches, "export: one rnn launch per layer and batch")
+
+    emb = np.load(ARTIFACTS / "document_embeddings.npy")
+    check(emb.shape == (PASSAGES, H) and emb.dtype == np.float32, f"embeddings {emb.shape}")
+    check(bool(np.isfinite(emb).all()), "embeddings: non-finite values")
+    check(np.abs(np.linalg.norm(emb, axis=1) - 1).max() < 1e-3, "embeddings are not unit rows")
+    # the doc tower on the CPU (plain versions of the kernels) on the first
+    # passages gives the same embeddings
+    ref = TextEncoder(params, spec, tok, max_doc_len=DOC_LEN, device="cpu")
+    cpu = ref.encode_documents(passages[:128])
+    err = float(np.abs(cpu - emb[:128]).max())
+    log(f"export: doc embeddings vs the CPU doc tower: |diff| {err:.3g}")
+    check(err <= EMBED_ATOL, f"doc embeddings off by {err}")
+    return {"export_s": export_s, "launches": export_launches, "embed_err": err}, triplets
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serve /search over HTTP
+# ---------------------------------------------------------------------------
+
+_RESULT_KEYS = {"rank", "id", "doc", "score", "dense_score", "tfidf_score"}
+
+
+def _post(url: str, payload: dict):
+    req = urllib.request.Request(
+        url + "/search", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST",
+    )
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        body = json.loads(resp.read())
+        return resp.status, body, (time.perf_counter() - t0) * 1e3
+
+
+def _get(url: str, path: str):
+    with urllib.request.urlopen(url + path, timeout=60) as resp:
+        return resp.status, resp.read().decode()
+
+
+def _same_results(got, want, tol: float) -> bool:
+    """Same documents in the same order up to near-ties within ``tol``."""
+    if len(got) != len(want):
+        return False
+    gs = np.array([r["score"] for r in got])
+    ws = np.array([r["score"] for r in want])
+    if len(gs) and np.abs(gs - ws).max() > tol:
+        return False
+    by_doc = {r["doc"]: r for r in want}
+    for r in got:
+        twin = by_doc.get(r["doc"])
+        if twin is None:  # cut off at the boundary by a near-tie
+            if r["score"] > ws[-1] + tol:
+                return False
+            continue
+        if any(abs(r[k] - twin[k]) > tol for k in ("score", "dense_score", "tfidf_score")):
+            return False
+    return True
+
+
+def phase_serve(dev, triplets) -> dict:
+    from twotowermlretrieval_tpu_torch.ops.rnn_scan import rnn_layer_fwd
+    from twotowermlretrieval_tpu_torch.ops.topk import segmax
+    from twotowermlretrieval_tpu_torch.serve.app import serve
+    from twotowermlretrieval_tpu_torch.serve.engine import SearchEngine
+
+    requests = [
+        {"query": triplets[0][0], "alpha": 0.5},
+        {"query": triplets[1][0], "alpha": 0.0},
+        {"query": triplets[2][0], "alpha": 1.0},
+        {"query": triplets[3][0] + " w1 w2", "alpha": 0.5},
+        {"query": "nothing in the vocabulary here", "alpha": 0.7},
+    ]
+    # the main path: the server as `ttr-torch-serve --artifacts ...` starts it
+    # (device cuda, bf16 corpus), driven with the launch counts at 0
+    rnn_layer_fwd.launches = segmax.launches = 0
+    t0 = time.perf_counter()
+    server = serve(str(ARTIFACTS), port=0, host="127.0.0.1")
+    startup_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        status, health = _get(url, "/health")
+        responses = [_post(url, r) for r in requests]
+        m_status, metrics = _get(url, "/metrics")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    launches = {"rnn_fwd": rnn_layer_fwd.launches, "segmax": segmax.launches}
+    log(f"serve: startup {startup_s:.1f} s, request ms "
+        f"{[round(ms, 3) for _, _, ms in responses]}, launches {launches}")
+
+    check(status == 200 and json.loads(health) == {"status": "ok", "num_docs": PASSAGES},
+          f"/health: {status} {health}")
+    check(m_status == 200 and f"ttr_searches_total {len(requests)}" in metrics,
+          "/metrics does not count the searches")
+    dense = sum(1 for r in requests if r["alpha"] != 0.0)
+    check(launches["rnn_fwd"] == 2 * dense and launches["segmax"] == dense,
+          f"serving launched {launches}, expected 2 rnn and 1 segmax per dense search")
+
+    # the same requests through the port's engine on the CPU (plain versions)
+    reference = SearchEngine(ARTIFACTS, device="cpu")
+    for req, (code, body, _) in zip(requests, responses):
+        q = req["query"][:40]
+        check(code == 200, f"/search {q!r}: HTTP {code}")
+        check(body["query"] == req["query"] and body["alpha"] == req["alpha"], "echo")
+        results = body["results"]
+        check(0 < len(results) <= 10 or req["alpha"] == 0.0, f"{q!r}: {len(results)} results")
+        for i, r in enumerate(results):
+            check(set(r) == _RESULT_KEYS, f"{q!r}: result keys {sorted(r)}")
+            check(r["rank"] == i + 1 and r["id"] == f"result-{i + 1}", f"{q!r}: rank {i}")
+            check(all(math.isfinite(r[k]) for k in ("score", "dense_score", "tfidf_score")),
+                  f"{q!r}: a non-finite score")
+        scores = [r["score"] for r in results]
+        check(scores == sorted(scores, reverse=True), f"{q!r}: scores not descending")
+        if req["alpha"] == 0.0:
+            check(all(r["dense_score"] == 0.0 for r in results), "keyword branch: dense score")
+        if req["alpha"] == 1.0:
+            check(all(r["score"] == r["dense_score"] for r in results), "alpha 1: pure dense")
+        want = reference.search(req["query"], alpha=req["alpha"])["results"]
+        tol = 0.0 if req["alpha"] == 0.0 else EMBED_ATOL
+        check(_same_results(results, want, tol),
+              f"{q!r} alpha {req['alpha']}: results differ from the CPU engine's")
+    log(f"serve: {len(requests)} /search responses match the CPU engine")
+    return {"startup_s": startup_s, "request_ms": [ms for _, _, ms in responses],
+            "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script measures the port on a GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    try:
+        import twotowermlretrieval_tpu_torch as pkg
+    except ImportError as e:
+        print(f"chip_smoke: run from the root of a checkout of the repository ({e})",
+              file=sys.stderr)
+        return 1
+    if Path(pkg.__file__).resolve().parent.parent != ROOT:
+        print(f"chip_smoke: the package must come from this checkout, not {pkg.__file__}",
+              file=sys.stderr)
+        return 1
+    from twotowermlretrieval_tpu_torch.utils.dtypes import resolve_device
+
+    dev = resolve_device("cuda")  # also turns TF32 off
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t_start = time.perf_counter()
+    try:
+        phase_build()
+        kern = phase_kernels(dev)
+        export, triplets = phase_export(dev)
+        served = phase_serve(dev, triplets)
+    finally:
+        shutil.rmtree(ARTIFACTS, ignore_errors=True)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+
+    sources = {
+        "rnn_fwd": ("twotowermlretrieval_tpu_torch/csrc/rnn_fwd.cu",
+                    "twotowermlretrieval_tpu/ops/rnn_scan.py:212"),
+        "segmax": ("twotowermlretrieval_tpu_torch/csrc/segmax.cu",
+                   "twotowermlretrieval_tpu/ops/topk.py:334"),
+    }
+    kernels = []
+    for name, recs in kern.items():
+        main_rec = recs[0]  # rnn_fwd: every query encode; segmax: the 1M-row scan
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": sources[name][0],
+            "replaces": sources[name][1],
+            "launches": served["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "ms": main_rec["ms"],
+            "plain_ms": main_rec["plain_ms"],
+            "bound_ms": main_rec["bound_ms"],
+            "bound_by": main_rec["bound_by"],
+            "library_ms": main_rec["library_ms"],
+            "shape": main_rec["shape"],
+            "export_launches": export["launches"][name],
+            "other_shapes": recs[1:],
+        })
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

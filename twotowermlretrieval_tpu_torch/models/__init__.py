@@ -1,0 +1,8 @@
+from twotowermlretrieval_tpu_torch.models.rnn import RNNSpec, init_rnn_encoder, rnn_encode  # noqa: F401
+from twotowermlretrieval_tpu_torch.models.two_tower import (  # noqa: F401
+    TwoTowerSpec,
+    encode_document,
+    encode_query,
+    init_two_tower,
+    params_from_jax,
+)

@@ -1,0 +1,185 @@
+"""Masked recurrent text encoders (GRU / LSTM / RNN), forward, in PyTorch.
+
+The port of the JAX package's ``models/rnn.py`` for inference
+(``train=False``): embedding gather, an N-layer optionally bidirectional
+recurrent stack whose time loop is :func:`ops.rnn_scan.rnn_layer_fwd`
+(the CUDA kernel on the card), the final hidden state of the last layer
+(bidirectional: concat fwd+bwd, then Linear(2H -> H)), zero-length rows
+forced to exact zeros, and L2 normalization with a 1e-12 guard.
+
+Parameters are the JAX package's tree with torch tensors as leaves:
+``{'embedding': [V, E], 'layers': ({'fwd'|'bwd': {'w_ih': [I, G*H],
+'w_hh': [H, G*H], 'b_ih': [G*H], 'b_hh': [G*H]}}, ...), 'projection':
+{'w': [2H, H], 'b': [H]}}``, weights stored [in, out] as in ``model.npz``.
+Dropout is training-only and comes with the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from twotowermlretrieval_tpu_torch.ops.rnn_scan import rnn_layer_fwd
+from twotowermlretrieval_tpu_torch.utils.dtypes import matmul_f32, torch_dtype
+
+_GATES = {"GRU": 3, "LSTM": 4, "RNN": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class RNNSpec:
+    """Static architecture description (field meanings as in the JAX
+    package's ``RNNSpec``)."""
+
+    vocab_size: int
+    embed_dim: int
+    hidden_dim: int
+    rnn_type: str = "GRU"
+    num_layers: int = 1
+    dropout: float = 0.0
+    bidirectional: bool = False
+    normalize_output: bool = True
+    compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.rnn_type not in _GATES:
+            raise ValueError(f"rnn_type must be one of {list(_GATES)}")
+
+    @property
+    def num_gates(self) -> int:
+        return _GATES[self.rnn_type]
+
+    @classmethod
+    def from_config(cls, config) -> "RNNSpec":
+        return cls(
+            vocab_size=config.vocab_size,
+            embed_dim=config.embed_dim,
+            hidden_dim=config.hidden_dim,
+            rnn_type=config.rnn_type,
+            num_layers=config.num_layers,
+            dropout=config.dropout,
+            bidirectional=config.bidirectional,
+            normalize_output=config.normalize_output,
+            compute_dtype=config.compute_dtype,
+        )
+
+
+def init_rnn_encoder(
+    generator: torch.Generator,
+    spec: RNNSpec,
+    pretrained_embeddings: Optional[np.ndarray] = None,
+) -> Dict[str, Any]:
+    """Encoder params as f32 CPU tensors: uniform(-1/sqrt(H), 1/sqrt(H))
+    like ``torch.nn.GRU``; the embedding table copied from the pretrained
+    array or drawn N(0, 1). The numbers differ from the JAX package's for
+    the same seed (another generator); the layout is the same."""
+    h = spec.hidden_dim
+    g = spec.num_gates
+    scale = 1.0 / math.sqrt(h)
+    directions = ("fwd", "bwd") if spec.bidirectional else ("fwd",)
+
+    def uniform(shape, lim):
+        return (torch.rand(shape, generator=generator, dtype=torch.float32) * 2.0 - 1.0) * lim
+
+    if pretrained_embeddings is not None:
+        if pretrained_embeddings.shape != (spec.vocab_size, spec.embed_dim):
+            raise ValueError(
+                f"pretrained table {pretrained_embeddings.shape} != "
+                f"({spec.vocab_size}, {spec.embed_dim})"
+            )
+        embedding = torch.as_tensor(np.asarray(pretrained_embeddings, np.float32)).clone()
+    else:
+        embedding = torch.randn(
+            (spec.vocab_size, spec.embed_dim), generator=generator, dtype=torch.float32
+        )
+
+    layers = []
+    for layer in range(spec.num_layers):
+        in_dim = spec.embed_dim if layer == 0 else h * len(directions)
+        layers.append({
+            d: {
+                "w_ih": uniform((in_dim, g * h), scale),
+                "w_hh": uniform((h, g * h), scale),
+                "b_ih": uniform((g * h,), scale),
+                "b_hh": uniform((g * h,), scale),
+            }
+            for d in directions
+        })
+    params: Dict[str, Any] = {"embedding": embedding, "layers": tuple(layers)}
+    if spec.bidirectional:
+        lim = 1.0 / math.sqrt(2 * h)
+        params["projection"] = {"w": uniform((2 * h, h), lim), "b": uniform((h,), lim)}
+    return params
+
+
+def rnn_encode(
+    params: Dict[str, Any],
+    tokens: torch.Tensor,  # int [B, T]
+    lengths: torch.Tensor,  # int [B]
+    spec: RNNSpec,
+    *,
+    train: bool = False,
+) -> torch.Tensor:
+    """Encode token batches to [B, H] f32 embeddings on the params' device."""
+    if train:
+        raise NotImplementedError("training comes with the training slice (ROADMAP Queue 1)")
+    cdt = torch_dtype(spec.compute_dtype)
+    B, T = tokens.shape
+    x = params["embedding"][tokens.long()]  # [B, T, E] f32
+    lengths = lengths.to(x.device)
+    mask2 = (torch.arange(T, device=x.device)[:, None] < lengths[None, :]).float()  # [T, B]
+    directions = ("fwd", "bwd") if spec.bidirectional else ("fwd",)
+    # Saved history in the compute dtype when that is 16-bit (the JAX
+    # package's default); the next layer rounds its input to cdt anyway.
+    hist = cdt.itemsize == 2
+
+    # The layer input is carried as per-direction parts (the previous
+    # layer's fwd/bwd outputs): the input projection contracts each part
+    # against its row block of w_ih, so no [T, B, 2H] concat is made, and
+    # it is hoisted out of the time loop as one product per part.
+    # torch.matmul on bf16 would return bf16 where JAX asks for f32
+    # (preferred_element_type), so matmul_f32 multiplies the cdt-rounded
+    # operands in f32.
+    # On the card the kernel then reads xp rounded to cdt (as the TPU
+    # kernel does); the XLA scan JAX runs on the CPU keeps xp in f32, so
+    # the two agree exactly only at f32 compute.
+    parts = (x.transpose(0, 1),)  # tuple of [T, B, *]
+    finals = {}
+    for layer in params["layers"]:
+        w_hh = torch.stack([layer[d]["w_hh"] for d in directions])  # [D, H, G*H]
+        b_hh = torch.stack([layer[d]["b_hh"] for d in directions])  # [D, G*H]
+        xps = []
+        for d in directions:
+            w_ih = layer[d]["w_ih"]
+            acc = None
+            row = 0
+            for p in parts:
+                term = matmul_f32(p, w_ih[row : row + p.shape[-1]], cdt)
+                acc = term if acc is None else acc + term
+                row += p.shape[-1]
+            xps.append(acc + layer[d]["b_ih"])  # [T, B, G*H] f32
+        outs, _, h_final = rnn_layer_fwd(
+            spec.rnn_type, xps, mask2, w_hh, b_hh,
+            compute_dtype=spec.compute_dtype, history_in_cdt=hist,
+        )
+        for di, d in enumerate(directions):
+            finals[d] = h_final[di]
+        parts = outs
+
+    if spec.bidirectional:
+        hidden = torch.cat([finals["fwd"], finals["bwd"]], dim=-1)  # [B, 2H]
+        proj = params["projection"]
+        hidden = matmul_f32(hidden, proj["w"], cdt) + proj["b"]
+    else:
+        hidden = finals["fwd"]
+
+    # Zero-length rows encode to exactly zero (the projection bias would
+    # otherwise leak through).
+    hidden = hidden * (lengths > 0).float()[:, None]
+    if spec.normalize_output:
+        norm = torch.linalg.vector_norm(hidden, dim=-1, keepdim=True).clamp_min(1e-12)
+        hidden = hidden / norm
+    return hidden

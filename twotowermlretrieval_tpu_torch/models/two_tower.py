@@ -1,0 +1,85 @@
+"""Two-tower retrieval model: independent query and document encoders.
+
+The port of the JAX package's ``models/two_tower.py``: params are
+``{'query': ..., 'doc': ...}``, each an encoder tree of torch tensors
+(``models/rnn.py``); the spec is a frozen dataclass. Only the rnn tower is
+ported; the transformer tower waits for its slice (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from twotowermlretrieval_tpu_torch.models.rnn import RNNSpec, init_rnn_encoder, rnn_encode
+from twotowermlretrieval_tpu_torch.utils.pytree import unflatten_params
+
+_TRANSFORMER_TODO = (
+    "the transformer tower is not ported yet (ROADMAP Queue 1, transformer towers)"
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class TwoTowerSpec:
+    tower_type: str = "rnn"
+    rnn: Optional[RNNSpec] = None
+
+    def __post_init__(self):
+        if self.tower_type != "rnn":
+            raise NotImplementedError(_TRANSFORMER_TODO)
+
+    @classmethod
+    def from_config(cls, config) -> "TwoTowerSpec":
+        if config.tower_type == "transformer":
+            raise NotImplementedError(_TRANSFORMER_TODO)
+        return cls(tower_type="rnn", rnn=RNNSpec.from_config(config))
+
+    @property
+    def hidden_dim(self) -> int:
+        return self.rnn.hidden_dim
+
+
+def init_two_tower(
+    generator: torch.Generator,
+    spec: TwoTowerSpec,
+    pretrained_embeddings: Optional[np.ndarray] = None,
+) -> Dict[str, Any]:
+    """Two independently initialized towers from one spec, drawn in turn
+    from ``generator``; both get a copy of the pretrained table."""
+    return {
+        "query": init_rnn_encoder(generator, spec.rnn, pretrained_embeddings),
+        "doc": init_rnn_encoder(generator, spec.rnn, pretrained_embeddings),
+    }
+
+
+def encode_query(params, tokens, lengths, spec: TwoTowerSpec) -> torch.Tensor:
+    return rnn_encode(params["query"], tokens, lengths, spec.rnn)
+
+
+def encode_document(params, tokens, lengths, spec: TwoTowerSpec) -> torch.Tensor:
+    return rnn_encode(params["doc"], tokens, lengths, spec.rnn)
+
+
+def params_from_jax(tree_or_flat, device="cpu") -> Dict[str, Any]:
+    """The JAX package's parameters as the port's: a nested tree of numpy
+    arrays (``init_two_tower``'s output, fetched to the host) or the flat
+    '/'-keyed dict of ``model.npz``, to a tree of f32 tensors on
+    ``device``. The layout is the same, so this only converts leaves."""
+    tree = tree_or_flat
+    if isinstance(tree, dict) and any("/" in k for k in tree):
+        tree = unflatten_params(tree)
+    return to_device(tree, device)
+
+
+def to_device(tree, device) -> Any:
+    """Every leaf of a params tree as an f32 tensor on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(to_device(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device=device, dtype=torch.float32)
+    return torch.tensor(np.asarray(tree, dtype=np.float32), device=device)

@@ -1,0 +1,104 @@
+"""Word-level tokenizer over a pretrained (GloVe) vocabulary.
+
+A copy of the Python path of the JAX package's tokenizer, kept here so the
+port imports nothing from that package. Semantics: lowercase, regex
+``\\w+|[.,!?;]``, dict lookup with OOV -> ``<UNK>`` (appended at the end of
+the vocab if missing). Batches carry an explicit length channel; the pad id
+only fills dead slots and is never used to infer lengths.
+
+The C++ batch tokenizer of the JAX package is not ported yet (ROADMAP);
+``encode_batch`` always takes the Python path, whose results the native
+path reproduces exactly.
+"""
+
+from __future__ import annotations
+
+import pickle
+import re
+from collections import Counter
+from pathlib import Path
+from typing import Dict, Iterable, List, Sequence, Tuple
+
+import numpy as np
+
+_TOKEN_RE = re.compile(r"\w+|[.,!?;]")
+
+UNK_TOKEN = "<UNK>"
+PAD_ID = 0  # fills dead slots only; masks carry the truth
+
+
+def tokenize_text(text: str) -> List[str]:
+    """Lowercase + regex split."""
+    return _TOKEN_RE.findall(str(text).lower())
+
+
+class Tokenizer:
+    """Vocabulary-backed word tokenizer."""
+
+    def __init__(self, word_to_idx: Dict[str, int]):
+        self.word2idx = dict(word_to_idx)
+        self.unk_token = UNK_TOKEN
+        if self.unk_token not in self.word2idx:
+            self.word2idx[self.unk_token] = len(self.word2idx)
+        self.unk_token_id = self.word2idx[self.unk_token]
+        self.idx2word = {idx: word for word, idx in self.word2idx.items()}
+
+    # --- constructors ---------------------------------------------------
+    @classmethod
+    def from_pickle(cls, word_to_idx_path: str | Path) -> "Tokenizer":
+        """Load a pickled word->index map (the artifact's word_to_idx.pkl)."""
+        with open(word_to_idx_path, "rb") as f:
+            return cls(pickle.load(f))
+
+    @classmethod
+    def from_corpus(cls, texts: Iterable[str], max_vocab: int | None = None) -> "Tokenizer":
+        """Build a frequency-ordered vocab from raw text."""
+        counts: Counter = Counter()
+        for t in texts:
+            counts.update(tokenize_text(t))
+        words = [w for w, _ in counts.most_common(max_vocab)]
+        return cls({w: i for i, w in enumerate(words)})
+
+    def save(self, path: str | Path) -> None:
+        """Persist the word->index map as a pickle (artifact contract)."""
+        with open(path, "wb") as f:
+            pickle.dump(self.word2idx, f)
+
+    # --- lookup API ---------------------------------------------------------
+    def encode(self, sentence: str) -> List[int]:
+        """Token ids with OOV -> UNK."""
+        return [self.word2idx.get(w, self.unk_token_id) for w in tokenize_text(sentence)]
+
+    def decode(self, token_ids: Sequence[int]) -> str:
+        return " ".join(self.idx2word.get(int(i), self.unk_token) for i in token_ids)
+
+    def vocab_size(self) -> int:
+        return len(self.word2idx)
+
+    def get_word_index(self, word: str) -> int:
+        return self.word2idx.get(word, -1)
+
+    def get_index_word(self, index: int) -> str:
+        return self.idx2word.get(int(index), self.unk_token)
+
+    def contains_word(self, word: str) -> bool:
+        return word in self.word2idx
+
+    # --- batch API ------------------------------------------------------------
+    def encode_batch(
+        self, texts: Sequence[str], max_len: int, pad_id: int = PAD_ID
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Encode to a fixed-shape ``[B, max_len]`` int32 array + lengths.
+
+        Sequences longer than ``max_len`` are truncated. Returns
+        ``tokens`` int32 [B, max_len] and ``lengths`` int32 [B] (0 for
+        texts without tokens; the towers encode those to exact zeros).
+        """
+        batch = np.full((len(texts), max_len), pad_id, dtype=np.int32)
+        lengths = np.zeros((len(texts),), dtype=np.int32)
+        for row, text in enumerate(texts):
+            ids = self.encode(text)[:max_len]
+            lengths[row] = len(ids)
+            if ids:
+                batch[row, : len(ids)] = ids
+        return batch, lengths
