@@ -4,10 +4,10 @@
     python3 chip_smoke.py      # from the root of a checkout, on a machine with a CUDA card
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds every CUDA kernel of the serving path from the package's
+2. Builds every CUDA kernel of the port from the package's
    ``csrc/`` (one nvcc per source, all started together).
 3. Holds each kernel against its plain PyTorch version at the serving
-   path's shapes, with the tolerances stated below, and times the kernel,
+   and training paths' shapes, with the tolerances stated below, and times the kernel,
    the plain version and one PyTorch library call with CUDA events.
 4. Exports a synthetic artifact directory at the full width of the
    reference model (two 2-layer bidirectional GRU towers, H=256, bf16
@@ -17,7 +17,20 @@
 5. Serves ``/search`` over HTTP through the port's server (the entry point
    behind ``ttr-torch-serve``), checks the responses' contract and their
    results against the port's engine on the CPU (plain PyTorch), and checks
-   that every kernel was launched while serving.
+   that the serving kernels, and not the backward, were launched while
+   serving.
+6. Trains the reference model at full width (the same towers, dropout
+   0.2, B=64, doc-length buckets 32/64/128, the frozen 400,000 x 100
+   table written to disk and read back) for one epoch of 2,112 in-memory
+   triplets through the port's training driver (the function behind
+   ``ttr-torch-train`` after its parquet reading), and checks: the first
+   step on the card against the CPU (plain versions) within a stated
+   envelope, a finite loss at every step, exactly 4 backward launches per
+   step, a bit-exact checkpoint round trip on the card, and that the
+   exported directory serves. Prints the steady steps/s and examples/s.
+
+Step 3 covers the backward kernel too (``csrc/rnn_bwd.cu``, both modes),
+timed at the training shapes beside cuDNN's GRU backward.
 
 The second-last line is the ``kernels`` record (JSON), the last line
 ``{"ok": true, "device": {...}}``. A failed check exits non-zero and prints
@@ -53,6 +66,7 @@ PEAK_BF16_FLOPS = 989e12
 H = 256
 QUERY_LEN, DOC_LEN = 32, 128
 SERVE_ROWS = 16  # the engine encodes micro-batches of >= 16 rows
+TRAIN_ROWS = 64  # BATCH_SIZE: the query tower's rows; the doc tower runs pos ++ neg
 EXPORT_ROWS = 1024  # TextEncoder's corpus batch
 FANOUT = 50
 VOCAB, EMBED = 400_000, 100  # the shape of GloVe 6B 100d
@@ -76,6 +90,25 @@ SEGMAX_ATOL = 3e-5
 # Embeddings and /search scores, card against CPU: the rnn differences
 # above pass through the projection and the L2 normalization.
 EMBED_ATOL = 2e-2
+# rnn_bwd, bf16 compute and bf16 history: a CPU run of the plain version
+# against itself with float64 products (GRU D=2 B=128 T=128 H=256, and
+# LSTM/RNN at B=16 T=32) differed by at most 6.3e-4 of the dxp scale
+# (max |dxp|) and by 2.4e-4 norm-relative in dW and db. The kernel sums in
+# yet another order, so the bounds are about 10x that: one bf16 ulp of the
+# scale on dxp, 2e-3 norm-relative on dW and db.
+BWD_DXP_REL = 2 ** -7
+BWD_W_REL = 2e-3
+# The first train step, card against CPU (plain versions), from the same
+# state and batch with dropout off: the same CPU experiment on a whole
+# bf16 step (H=256, B=64, doc width 64) moved the loss by 6e-7 and each
+# per-leaf gradient norm by at most 1.0e-3 relative (a bias vector, whose
+# norm is small). Envelope: 1e-3 on the loss, 2e-2 relative per leaf.
+STEP_LOSS_ATOL = 1e-3
+STEP_GRAD_REL = 2e-2
+# The training phase: the reference configuration at full width, on
+# in-memory triplets cut from the export corpus.
+TRAIN_TRIPLETS, VAL_TRIPLETS, TEST_TRIPLETS = 2112, 320, 48
+TRAIN_DIR = ROOT / "_smoke_train"  # word table, checkpoints, artifacts; listed in .gitignore
 
 
 class SmokeFailure(Exception):
@@ -295,6 +328,8 @@ def phase_kernels(dev) -> dict:
         rnn = [
             check_rnn("GRU", SERVE_ROWS, QUERY_LEN, 1, dev, timed=True),  # every /search
             check_rnn("GRU", EXPORT_ROWS, DOC_LEN, 2, dev, timed=True),  # every export batch
+            check_rnn("GRU", TRAIN_ROWS, QUERY_LEN, 7, dev, timed=True),  # train: query tower
+            check_rnn("GRU", 2 * TRAIN_ROWS, DOC_LEN, 8, dev, timed=True),  # train: doc tower
             check_rnn("LSTM", SERVE_ROWS, QUERY_LEN, 3, dev, timed=False),
             check_rnn("RNN", SERVE_ROWS, QUERY_LEN, 4, dev, timed=False),
         ]
@@ -304,6 +339,116 @@ def phase_kernels(dev) -> dict:
             check_segmax(npad_serve, PASSAGES, SERVE_ROWS, 6, dev, timed=True),
         ]
     return {"rnn_fwd": rnn, "segmax": seg}
+
+
+def _bwd_inputs(cell, B, T, seed, dev):
+    """The forward's inputs, its bf16 history (from the forward kernel) and
+    random cotangents: bf16 for the history, f32 for h_final."""
+    from twotowermlretrieval_tpu_torch.ops.rnn_scan import rnn_layer_fwd
+
+    xps, mask, w_hh, b_hh = _rnn_inputs(cell, B, T, seed, dev)
+    with torch.no_grad():
+        outs, c_hist, _ = rnn_layer_fwd(cell, xps, mask, w_hh, b_hh, "bfloat16", True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 100)
+    douts = [torch.randn((T, B, H), generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(2)]
+    d_hfinal = torch.randn((2, B, H), generator=gen, device=dev)
+    return xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _cudnn_gru_backward_ms(B, T, dev) -> float:
+    """cuDNN's backward of one bidirectional GRU layer (input width 2H,
+    fp16): forward+backward minus forward, each timed alone."""
+    gru = torch.nn.GRU(2 * H, H, num_layers=1, bidirectional=True).to(dev, torch.float16)
+    x = torch.randn((T, B, 2 * H), device=dev, dtype=torch.float16, requires_grad=True)
+    g = torch.randn((T, B, 2 * H), device=dev, dtype=torch.float16)
+    with torch.enable_grad():
+        fwd = time_ms(lambda: gru(x))
+        both = time_ms(lambda: torch.autograd.backward(gru(x)[0], g))
+    return both - fwd
+
+
+def check_rnn_bwd(cell: str, B: int, T: int, seed: int, dev, timed: bool) -> dict:
+    from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
+        rnn_bwd_bound,
+        rnn_layer_bwd,
+        rnn_layer_bwd_reference,
+    )
+
+    args = _bwd_inputs(cell, B, T, seed, dev)
+    kw = dict(compute_dtype="bfloat16")
+    dxps, dw, db = rnn_layer_bwd(cell, *args, **kw)
+    r_dxps, r_dw, r_db = rnn_layer_bwd_reference(cell, *args, **kw)
+    torch.cuda.synchronize()
+    dxp_err = max((a - b).abs().max().item() for a, b in zip(dxps, r_dxps))
+    dxp_scale = max(b.abs().max().item() for b in r_dxps)
+    w_rel, b_rel = _rel(dw, r_dw), _rel(db, r_db)
+    finite = all(bool(torch.isfinite(t).all()) for t in (*dxps, dw, db))
+    zero_row = all(bool((d[:, 0] == 0).all()) for d in dxps)  # row 0 has length 0
+    shape = f"{cell} D=2 B={B} T={T} H={H} bf16, bf16 history"
+    log(f"rnn_bwd {shape}: |dxp diff| {dxp_err:.3g} (scale {dxp_scale:.3g}), "
+        f"dW {w_rel:.3g}, db {b_rel:.3g} norm-relative")
+    check(finite, f"rnn_bwd {shape}: non-finite output")
+    check(zero_row, f"rnn_bwd {shape}: a zero-length row has a gate cotangent")
+    check(dxp_err <= BWD_DXP_REL * dxp_scale, f"rnn_bwd {shape}: dxp off by {dxp_err}")
+    check(w_rel <= BWD_W_REL and b_rel <= BWD_W_REL, f"rnn_bwd {shape}: dW/db off")
+    max_abs = max(dxp_err, (dw - r_dw).abs().max().item(), (db - r_db).abs().max().item())
+    rec = {"shape": shape, "max_abs_err": max_abs, "dxp_err_of_scale": dxp_err / dxp_scale,
+           "dw_rel": w_rel, "db_rel": b_rel}
+    if timed:
+        rec["ms"] = time_ms(lambda: rnn_layer_bwd(cell, *args, **kw))
+        rec["plain_ms"] = time_ms(lambda: rnn_layer_bwd_reference(cell, *args, **kw),
+                                  reps=3, warmup=1)
+        rec["library_ms"] = _cudnn_gru_backward_ms(B, T, dev)
+        nbytes, flops = rnn_bwd_bound(T, B, H, 2, _GATES[cell], 2, 2)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+        log(f"rnn_bwd {shape}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+            f"cuDNN GRU backward (fwd+bwd - fwd, fp16) {rec['library_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+    return rec
+
+
+def check_rnn_bwd_split(B: int, T: int, seed: int, dev) -> dict:
+    """Split mode (dxp and dhp out, both directions in one launch) against
+    its plain version, and the hoisted weight gradient against the
+    combined kernel's own accumulation."""
+    from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
+        _bwd_hoisted_call,
+        _bwd_reference,
+        rnn_layer_bwd,
+        rnn_layer_bwd_hoisted,
+    )
+
+    args = _bwd_inputs("GRU", B, T, seed, dev)
+    dxps, dhps = _bwd_hoisted_call("GRU", *args, compute_dtype="bfloat16")
+    r_dxps, r_dhps, _, _ = _bwd_reference("GRU", *args, "bfloat16", split=True)
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(dxps + dhps, r_dxps + r_dhps))
+    scale = max(b.float().abs().max().item() for b in r_dxps + r_dhps)
+    _, h_dw, h_db = rnn_layer_bwd_hoisted("GRU", *args, compute_dtype="bfloat16")
+    _, c_dw, c_db = rnn_layer_bwd("GRU", *args, compute_dtype="bfloat16")
+    w_rel, b_rel = _rel(h_dw, c_dw), _rel(h_db, c_db)
+    shape = f"GRU D=2 B={B} T={T} H={H} bf16, split mode"
+    log(f"rnn_bwd {shape}: |dxp, dhp diff| {err:.3g} (scale {scale:.3g}); hoisted dW "
+        f"against the kernel's {w_rel:.3g}, db {b_rel:.3g} norm-relative")
+    check(err <= BWD_DXP_REL * scale, f"rnn_bwd {shape}: dxp/dhp off by {err}")
+    # db differs by design: the hoisted sum reads the bf16-rounded dhp
+    check(w_rel <= BWD_W_REL and b_rel <= 2 * BWD_DXP_REL, f"rnn_bwd {shape}: hoisted dW/db")
+    return {"shape": shape, "max_abs_err": err, "hoisted_dw_rel": w_rel, "hoisted_db_rel": b_rel}
+
+
+def phase_bwd_kernels(dev) -> list:
+    return [
+        check_rnn_bwd("GRU", TRAIN_ROWS, QUERY_LEN, 11, dev, timed=True),  # query tower
+        check_rnn_bwd("GRU", 2 * TRAIN_ROWS, DOC_LEN, 12, dev, timed=True),  # doc tower
+        check_rnn_bwd("LSTM", SERVE_ROWS, QUERY_LEN, 13, dev, timed=False),
+        check_rnn_bwd("RNN", SERVE_ROWS, QUERY_LEN, 14, dev, timed=False),
+        check_rnn_bwd_split(TRAIN_ROWS, QUERY_LEN, 15, dev),
+    ]
 
 
 # ---------------------------------------------------------------------------
@@ -373,7 +518,8 @@ def phase_export(dev):
     err = float(np.abs(cpu - emb[:128]).max())
     log(f"export: doc embeddings vs the CPU doc tower: |diff| {err:.3g}")
     check(err <= EMBED_ATOL, f"doc embeddings off by {err}")
-    return {"export_s": export_s, "launches": export_launches, "embed_err": err}, triplets
+    return {"export_s": export_s, "launches": export_launches, "embed_err": err}, (
+        word_to_idx, table, triplets)
 
 
 # ---------------------------------------------------------------------------
@@ -420,7 +566,7 @@ def _same_results(got, want, tol: float) -> bool:
 
 
 def phase_serve(dev, triplets) -> dict:
-    from twotowermlretrieval_tpu_torch.ops.rnn_scan import rnn_layer_fwd
+    from twotowermlretrieval_tpu_torch.ops.rnn_scan import rnn_layer_bwd, rnn_layer_fwd
     from twotowermlretrieval_tpu_torch.ops.topk import segmax
     from twotowermlretrieval_tpu_torch.serve.app import serve
     from twotowermlretrieval_tpu_torch.serve.engine import SearchEngine
@@ -434,7 +580,7 @@ def phase_serve(dev, triplets) -> dict:
     ]
     # the main path: the server as `ttr-torch-serve --artifacts ...` starts it
     # (device cuda, bf16 corpus), driven with the launch counts at 0
-    rnn_layer_fwd.launches = segmax.launches = 0
+    rnn_layer_fwd.launches = rnn_layer_bwd.launches = segmax.launches = 0
     t0 = time.perf_counter()
     server = serve(str(ARTIFACTS), port=0, host="127.0.0.1")
     startup_s = time.perf_counter() - t0
@@ -449,7 +595,8 @@ def phase_serve(dev, triplets) -> dict:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
-    launches = {"rnn_fwd": rnn_layer_fwd.launches, "segmax": segmax.launches}
+    launches = {"rnn_fwd": rnn_layer_fwd.launches, "rnn_bwd": rnn_layer_bwd.launches,
+                "segmax": segmax.launches}
     log(f"serve: startup {startup_s:.1f} s, request ms "
         f"{[round(ms, 3) for _, _, ms in responses]}, launches {launches}")
 
@@ -460,6 +607,7 @@ def phase_serve(dev, triplets) -> dict:
     dense = sum(1 for r in requests if r["alpha"] != 0.0)
     check(launches["rnn_fwd"] == 2 * dense and launches["segmax"] == dense,
           f"serving launched {launches}, expected 2 rnn and 1 segmax per dense search")
+    check(launches["rnn_bwd"] == 0, "serving launched the backward kernel")
 
     # the same requests through the port's engine on the CPU (plain versions)
     reference = SearchEngine(ARTIFACTS, device="cpu")
@@ -490,6 +638,153 @@ def phase_serve(dev, triplets) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: train the reference model through the port's training driver
+# ---------------------------------------------------------------------------
+
+
+def _train_config(word_to_idx, table):
+    """The reference configuration (Config defaults: two 2-layer
+    bidirectional GRU towers, H=256, dropout 0.2, B=64, bf16, a frozen
+    table) with the doc-length buckets of configs/msmarco_reference.json,
+    reading its word table from TRAIN_DIR; returns it after the driver's
+    ``setup`` (the table and vocabulary read back from disk)."""
+    from twotowermlretrieval_tpu_torch.config import Config
+    from twotowermlretrieval_tpu_torch.data.glove import save_embedding_artifacts
+    from twotowermlretrieval_tpu_torch.train.loop import setup
+
+    save_embedding_artifacts(TRAIN_DIR, table, word_to_idx)
+    cfg = Config(
+        embeddings_path=str(TRAIN_DIR / "embeddings.npy"),
+        word_to_idx_path=str(TRAIN_DIR / "word_to_idx.pkl"),
+        hidden_dim=H, length_buckets=[32, 64, 128], epochs=1,
+    )
+    check(cfg.batch_size == TRAIN_ROWS and cfg.compute_dtype == "bfloat16"
+          and cfg.dropout == 0.2 and cfg.freeze_embeddings, "the reference configuration")
+    return setup(cfg)
+
+
+def phase_first_step(dev, cfg, tok, table, train_triplets) -> dict:
+    """One train step on the card and one on the CPU (plain versions) from
+    the same initial state and the epoch's first batch, dropout off: the
+    loss and every per-leaf gradient norm within the stated envelope."""
+    from twotowermlretrieval_tpu_torch.data.batching import TripletBatcher, pack_batch, unpack_batch
+    from twotowermlretrieval_tpu_torch.models.two_tower import (
+        TwoTowerSpec,
+        init_two_tower,
+        to_device,
+    )
+    from twotowermlretrieval_tpu_torch.train.train_step import create_train_state, make_train_step
+
+    cfg = cfg.replace(dropout=0.0, log_param_stats=True)
+    spec = TwoTowerSpec.from_config(cfg)
+    batcher = TripletBatcher(train_triplets, tok, cfg.batch_size, cfg.max_query_len,
+                             cfg.max_doc_len, length_buckets=cfg.length_buckets)
+    packed = pack_batch(next(batcher.batches(seed=cfg.seed + 1000)))
+    params = init_two_tower(torch.Generator().manual_seed(cfg.seed), spec,
+                            pretrained_embeddings=table)
+    step = make_train_step(spec, cfg)
+    out = {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        state = create_train_state(torch.Generator(device=where).manual_seed(1),
+                                   to_device(params, where), cfg)
+        t0 = time.perf_counter()
+        _, m = step(state, unpack_batch(torch.from_numpy(packed).to(where), cfg.max_query_len))
+        out[label] = {k: float(v) for k, v in m.items()}
+        log(f"first step on the {label}: loss {out[label]['loss']:.6f}, "
+            f"{time.perf_counter() - t0:.1f} s")
+    card, cpu = out["card"], out["cpu"]
+    loss_err = abs(card["loss"] - cpu["loss"])
+    rels = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30)
+            for k in cpu if k.startswith("grad_norm")}
+    worst = max(rels, key=rels.get)
+    log(f"first step, card against CPU: |loss diff| {loss_err:.3g}; gradient norms "
+        f"{len(rels)}, worst {worst} {rels[worst]:.3g} relative (doc width "
+        f"{(packed.shape[1] - cfg.max_query_len - 4) // 2})")
+    check(all(math.isfinite(v) for v in card.values()), "first step: a non-finite metric")
+    check(loss_err <= STEP_LOSS_ATOL, f"first step: loss off by {loss_err}")
+    check(rels[worst] <= STEP_GRAD_REL, f"first step: {worst} off by {rels[worst]}")
+    return {"loss_err": loss_err, "worst_grad_norm_rel": rels[worst], "worst_leaf": worst}
+
+
+def phase_train(dev, corpus) -> dict:
+    from twotowermlretrieval_tpu_torch.models.two_tower import (
+        TwoTowerSpec,
+        init_two_tower,
+        to_device,
+    )
+    from twotowermlretrieval_tpu_torch.ops.rnn_scan import rnn_layer_bwd, rnn_layer_fwd
+    from twotowermlretrieval_tpu_torch.ops.topk import segmax
+    from twotowermlretrieval_tpu_torch.serve.engine import SearchEngine
+    from twotowermlretrieval_tpu_torch.train.checkpoint import CheckpointManager
+    from twotowermlretrieval_tpu_torch.train.loop import train_on_datasets
+    from twotowermlretrieval_tpu_torch.train.train_step import create_train_state
+    from twotowermlretrieval_tpu_torch.utils.pytree import named_leaves
+
+    word_to_idx, table, triplets = corpus
+    if TRAIN_DIR.exists():
+        shutil.rmtree(TRAIN_DIR)
+    cfg, tok, table = _train_config(word_to_idx, table)
+    a, b = TRAIN_TRIPLETS, TRAIN_TRIPLETS + VAL_TRIPLETS
+    datasets = {"train": triplets[:a], "validation": triplets[a:b],
+                "test": triplets[b : b + TEST_TRIPLETS]}
+    first = phase_first_step(dev, cfg, tok, table, datasets["train"])
+
+    # the main path: the driver behind `ttr-torch-train`, with the counts at 0
+    rnn_layer_fwd.launches = rnn_layer_bwd.launches = segmax.launches = 0
+    t0 = time.perf_counter()
+    res = train_on_datasets(cfg, tok, table, datasets, output_root=TRAIN_DIR / "artifacts",
+                            checkpoint_dir=TRAIN_DIR / "ckpt", device=dev)
+    train_s = time.perf_counter() - t0
+    launches = {"rnn_fwd": rnn_layer_fwd.launches, "rnn_bwd": rnn_layer_bwd.launches,
+                "segmax": segmax.launches}
+    steps, losses = res["steps"], res["step_losses"]
+    log(f"train: {steps} steps in one epoch, {train_s:.1f} s with evaluation and export; "
+        f"launches {launches}; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    log(f"train: steady {res['steady_steps_per_sec']:.2f} steps/s, "
+        f"{res['steady_examples_per_sec']:.1f} examples/s (after a first group of "
+        f"{res['compile_seconds']:.2f} s); epoch {json.dumps(res['epochs'][-1])}")
+    check(steps >= 32, f"train: only {steps} steps")
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          "train: a non-finite loss")
+    check(launches["rnn_bwd"] == 4 * steps, f"train: {launches['rnn_bwd']} rnn_bwd launches "
+          f"for {steps} steps, expected 4 per step")
+
+    # the epoch-end checkpoint restores bit for bit on the card
+    manager = CheckpointManager(TRAIN_DIR / "ckpt")
+    spec = TwoTowerSpec.from_config(cfg)
+    template = create_train_state(
+        torch.Generator(device=dev).manual_seed(7),
+        to_device(init_two_tower(torch.Generator().manual_seed(99), spec,
+                                 pretrained_embeddings=table), dev), cfg)
+    restored, position = manager.restore(template)
+    state = res["state"]
+    trees = [(state.trainable, restored.trainable), (state.frozen, restored.frozen),
+             (state.opt_state["mu"], restored.opt_state["mu"]),
+             (state.opt_state["nu"], restored.opt_state["nu"])]
+    same = all(torch.equal(x, y) for t1, t2 in trees
+               for (_, x), (_, y) in zip(named_leaves(t1), named_leaves(t2)))
+    same = same and torch.equal(state.opt_state["count"], restored.opt_state["count"])
+    same = same and restored.step == state.step == steps
+    same = same and torch.equal(state.generator.get_state(), restored.generator.get_state())
+    log(f"checkpoint step {restored.step}, position {position}: restores bit for bit: {same}")
+    check(same, "train: the checkpoint does not round-trip")
+
+    # the exported directory serves through the port's engine on the card
+    engine = SearchEngine(res["artifacts_dir"], device=dev)
+    try:
+        out = engine.search(datasets["test"][0][0], alpha=0.5)["results"]
+    finally:
+        engine.close()
+    check(0 < len(out) <= 10 and all(math.isfinite(r["score"]) for r in out),
+          "train: the exported directory does not serve")
+    log(f"train: the exported directory serves ({len(out)} results)")
+    return {"steps": steps, "launches": launches, "train_s": train_s, "first_step": first,
+            "steady_steps_per_sec": res["steady_steps_per_sec"],
+            "steady_examples_per_sec": res["steady_examples_per_sec"],
+            "loss_first_last": [losses[0], losses[-1]]}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -517,10 +812,13 @@ def main() -> int:
     try:
         phase_build()
         kern = phase_kernels(dev)
-        export, triplets = phase_export(dev)
-        served = phase_serve(dev, triplets)
+        bwd = phase_bwd_kernels(dev)
+        export, corpus = phase_export(dev)
+        served = phase_serve(dev, corpus[2])
+        trained = phase_train(dev, corpus)
     finally:
         shutil.rmtree(ARTIFACTS, ignore_errors=True)
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     sources = {
@@ -528,16 +826,22 @@ def main() -> int:
                     "twotowermlretrieval_tpu/ops/rnn_scan.py:212"),
         "segmax": ("twotowermlretrieval_tpu_torch/csrc/segmax.cu",
                    "twotowermlretrieval_tpu/ops/topk.py:334"),
+        "rnn_bwd": ("twotowermlretrieval_tpu_torch/csrc/rnn_bwd.cu",
+                    "twotowermlretrieval_tpu/ops/rnn_scan.py:397"),
     }
     kernels = []
-    for name, recs in kern.items():
-        main_rec = recs[0]  # rnn_fwd: every query encode; segmax: the 1M-row scan
+    for name, recs in (*kern.items(), ("rnn_bwd", bwd)):
+        # rnn_fwd: every query encode; segmax: the 1M-row scan; rnn_bwd:
+        # the query tower's train step
+        main_rec = recs[0]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": sources[name][0],
             "replaces": sources[name][1],
-            "launches": served["launches"][name],
+            # serving is the main path of rnn_fwd and segmax, training that
+            # of rnn_bwd; each count is read just after its path ran
+            "launches": (trained if name == "rnn_bwd" else served)["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": main_rec["ms"],
             "plain_ms": main_rec["plain_ms"],
@@ -545,9 +849,14 @@ def main() -> int:
             "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],
             "shape": main_rec["shape"],
-            "export_launches": export["launches"][name],
+            "serve_launches": served["launches"][name],
+            "train_launches": trained["launches"][name],
+            "export_launches": export["launches"].get(name, 0),
             "other_shapes": recs[1:],
         })
+    log(f"train: first step card-vs-CPU {json.dumps(trained['first_step'])}; "
+        f"steady {trained['steady_steps_per_sec']:.3f} steps/s, "
+        f"{trained['steady_examples_per_sec']:.1f} examples/s ({card})")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

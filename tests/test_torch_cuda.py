@@ -14,7 +14,16 @@ import math
 import pytest
 import torch
 
-from twotowermlretrieval_tpu_torch.ops.rnn_scan import rnn_layer_fwd, rnn_layer_fwd_reference
+from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
+    _bwd_hoisted_call,
+    _bwd_reference,
+    _hoisted_weight_grad,
+    rnn_layer_bwd,
+    rnn_layer_bwd_reference,
+    rnn_layer_bwd_split_full,
+    rnn_layer_fwd,
+    rnn_layer_fwd_reference,
+)
 from twotowermlretrieval_tpu_torch.ops.topk import (
     NEG_INF,
     fused_topk_segmax,
@@ -97,6 +106,94 @@ def test_rnn_wrapper_rejects_bad_shapes(dev):
         rnn_layer_fwd("GRU", xps, mask[:, :3], w_hh, b_hh)
     with pytest.raises(ValueError):
         rnn_layer_fwd("GRU", xps, mask.cpu(), w_hh, b_hh)
+
+
+def _bwd_case(dev, cell, D, T, B, H, seed, cdt="float32", history_in_cdt=False):
+    """Forward inputs, the plain forward's history and random cotangents
+    (in the history's dtype, as the autograd Function delivers them)."""
+    xps, mask, w_hh, b_hh = _rnn_case(dev, cell, D, T, B, H, seed)
+    outs, c_hist, _ = rnn_layer_fwd_reference(cell, xps, mask, w_hh, b_hh, cdt, history_in_cdt)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    douts = [torch.randn((T, B, H), generator=gen, device=dev).to(outs[0].dtype)
+             for _ in range(D)]
+    d_hfinal = torch.randn((D, B, H), generator=gen, device=dev)
+    return xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM", "RNN"])
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("H,B", [(256, 16), (128, 40), (320, 3)])
+def test_rnn_bwd_kernel_matches_plain_version_f32(dev, cell, D, H, B):
+    """f32 compute: the same arithmetic summed in another order over 12
+    steps (dW over 12 * B outer products)."""
+    args = _bwd_case(dev, cell, D, 12, B, H, seed=D * 10 + B)
+    before = rnn_layer_bwd.launches
+    dxps, dw, db = rnn_layer_bwd(cell, *args, compute_dtype="float32")
+    assert rnn_layer_bwd.launches == before + 1
+    r_dxps, r_dw, r_db = rnn_layer_bwd_reference(cell, *args, compute_dtype="float32")
+    for a, b in zip(dxps, r_dxps):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dw, r_dw, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(db, r_db, rtol=1e-4, atol=1e-3)
+    # the zero-length row 0 and the masked steps get no gate cotangent
+    assert all((d[:, 0] == 0).all() for d in dxps)
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM", "RNN"])
+@pytest.mark.parametrize("history_in_cdt", [False, True])
+def test_rnn_bwd_kernel_matches_plain_version_bf16(dev, cell, history_in_cdt):
+    """bf16 compute at the query tower's training shape (B=64, T=32). The
+    plain version against itself with float64 products on the CPU differs
+    by 6e-4 of the dxp scale and 2e-4 (norm-relative) in dW/db; the bounds
+    are about 10x that: one bf16 ulp of the dxp scale (2^-7 max|dxp|), and
+    2e-3 norm-relative on dW and db."""
+    args = _bwd_case(dev, cell, 2, 32, 64, 256, seed=7, cdt="bfloat16",
+                     history_in_cdt=history_in_cdt)
+    dxps, dw, db = rnn_layer_bwd(cell, *args, compute_dtype="bfloat16")
+    r_dxps, r_dw, r_db = rnn_layer_bwd_reference(cell, *args, compute_dtype="bfloat16")
+    for a, b in zip(dxps, r_dxps):
+        assert (a - b).abs().max().item() <= 2 ** -7 * b.abs().max().item()
+    assert _rel(dw, r_dw) <= 2e-3 and _rel(db, r_db) <= 2e-3
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM", "RNN"])
+def test_rnn_bwd_split_mode_matches_plain_and_combined(dev, cell):
+    """Split mode (both directions in one launch, and one launch per
+    direction) against its plain version, and the hoisted weight gradient
+    against the kernel's own accumulation."""
+    args = _bwd_case(dev, cell, 2, 12, 40, 128, seed=3)
+    dxps, dhps = _bwd_hoisted_call(cell, *args, compute_dtype="float32")
+    r_dxps, r_dhps, _, _ = _bwd_reference(cell, *args, "float32", split=True)
+    for a, b in zip(dxps + dhps, r_dxps + r_dhps):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    c_dxps, c_dw, c_db = rnn_layer_bwd(cell, *args, compute_dtype="float32")
+    outs = args[4]
+    for d in range(2):
+        dw, db = _hoisted_weight_grad(outs[d], dhps[d], d, "float32")
+        torch.testing.assert_close(dw, c_dw[d], rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(db, c_db[d], rtol=1e-4, atol=1e-3)
+    s_dxps, s_dw, s_db = rnn_layer_bwd_split_full(cell, *args, compute_dtype="float32")
+    for a, b in zip(s_dxps, c_dxps):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s_dw, c_dw, rtol=1e-4, atol=1e-3)
+
+
+def test_rnn_bwd_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    args = list(_bwd_case(dev, "LSTM", 2, 4, 4, 32, seed=0))
+    with pytest.raises(ValueError):
+        rnn_layer_bwd("LSTM", *args[:4], args[4], (), *args[6:])  # no cell history
+    args[7] = args[7].cpu()
+    with pytest.raises(ValueError):
+        rnn_layer_bwd("LSTM", *args)
+    wide = _rnn_case(dev, "LSTM", 1, 2, 3, 512, seed=0)
+    outs, c_hist, _ = rnn_layer_fwd_reference("LSTM", *wide, "float32")
+    with pytest.raises(ValueError, match="shared memory"):
+        rnn_layer_bwd("LSTM", *wide, outs, c_hist, [torch.zeros_like(outs[0])],
+                      torch.zeros((1, 3, 512), device=dev))
 
 
 def _unit_rows(gen, n, h, dev):

@@ -97,12 +97,13 @@ def test_k_beyond_candidates_pads_with_minus_one():
 
 
 def test_ties_go_to_the_lower_doc_id():
-    """Duplicate docs score identically; the lower id ranks first, as
-    lax.top_k orders the oracle's ties."""
+    """Duplicate docs score identically; with the candidates in ascending
+    id order (sort_candidates) the lower id ranks first, as lax.top_k
+    orders the oracle's ties."""
     q, d = _data(8, B=3, N=600, H=16)
     d[450] = d[17]
     d[300] = d[17]
-    vals, ids = _port(q, d, k=600, tile_n=128)
+    vals, ids = _port(q, d, k=600, tile_n=128, sort_candidates=True)
     o_vals, o_ids = jax_topk_oracle(jnp.asarray(q), jnp.asarray(d), 600)
     np.testing.assert_array_equal(ids, np.asarray(o_ids))
 
@@ -139,3 +140,29 @@ def test_cpu_wrapper_is_the_plain_version():
     torch.testing.assert_close(seg, r_seg, rtol=0, atol=0)
     torch.testing.assert_close(cache, r_cache, rtol=0, atol=0)
     assert seg.shape == (2, 4) and (cache[200:] == NEG_INF).all()
+
+
+@pytest.mark.parametrize("phase2", ["rescore", "gather"])
+@pytest.mark.parametrize("sort_candidates", [False, True])
+def test_bitwise_tie_at_the_k_boundary_resolves_as_jax(sort_candidates, phase2):
+    """Docs 10 (segment 0) and 400 (segment 3) score exactly 0.5 for a
+    one-hot query, tied for third place; segment 3 holds the best score,
+    so it ranks before segment 0. Unsorted candidates keep that rank order
+    and the tie goes to doc 400; sorted candidates go by id and it goes to
+    doc 10. The port matches the JAX kernel id for id either way."""
+    rng = np.random.default_rng(12)
+    d = rng.uniform(-0.4, 0.4, size=(512, 16)).astype(np.float32)
+    d[:, 0] = rng.uniform(-0.4, 0.4, size=512).astype(np.float32)
+    d[450, 0], d[200, 0] = 0.9, 0.8  # segments 3 and 1
+    d[400] = d[10]
+    d[10, 0] = d[400, 0] = 0.5
+    q = np.zeros((2, 16), np.float32)
+    q[:, 0] = 1.0  # scores are d[:, 0] exactly
+    vals, ids = _port(q, d, k=3, tile_n=128, phase2=phase2, sort_candidates=sort_candidates)
+    j_vals, j_ids = jax_fused_topk_segmax(
+        jnp.asarray(q), jnp.asarray(d), k=3, tile_n=128, interpret=True, phase2=phase2,
+        sort_candidates=sort_candidates,
+    )
+    np.testing.assert_array_equal(ids, np.asarray(j_ids))
+    np.testing.assert_array_equal(vals, np.asarray(j_vals))
+    assert list(ids[0]) == [450, 200, 10 if sort_candidates else 400]

@@ -1,30 +1,45 @@
-"""Masked recurrent text encoders (GRU / LSTM / RNN), forward, in PyTorch.
+"""Masked recurrent text encoders (GRU / LSTM / RNN) in PyTorch.
 
-The port of the JAX package's ``models/rnn.py`` for inference
-(``train=False``): embedding gather, an N-layer optionally bidirectional
-recurrent stack whose time loop is :func:`ops.rnn_scan.rnn_layer_fwd`
-(the CUDA kernel on the card), the final hidden state of the last layer
-(bidirectional: concat fwd+bwd, then Linear(2H -> H)), zero-length rows
-forced to exact zeros, and L2 normalization with a 1e-12 guard.
+The port of the JAX package's ``models/rnn.py``: embedding gather, an
+N-layer optionally bidirectional recurrent stack whose time loop is
+:func:`ops.rnn_scan.rnn_layer_fwd` (the CUDA kernel on the card), the
+final hidden state of the last layer (bidirectional: concat fwd+bwd, then
+Linear(2H -> H)), zero-length rows forced to exact zeros, and L2
+normalization with a 1e-12 guard. With ``train=True`` inter-layer dropout
+applies, as torch's: on every layer's output except the last, only when
+``num_layers > 1``, kept units scaled by 1 / keep.
+
+Each layer's time loop is :class:`_ScanLayer`, the counterpart of the JAX
+``_scan_layer`` custom VJP: its backward is :func:`ops.rnn_scan.
+rnn_layer_bwd`, the ``csrc/rnn_bwd.cu`` kernel with the weight gradients
+accumulated inside it. ``TTMR_RNN_BWD_PLAN=hoisted`` swaps in the
+split-mode kernel with the weight gradient as one product outside, as in
+the JAX package. Hopper has no VMEM budget, so the JAX package's
+``'split'`` shape rule for wide towers has no counterpart: every width the
+kernels hold runs the combined kernel.
 
 Parameters are the JAX package's tree with torch tensors as leaves:
 ``{'embedding': [V, E], 'layers': ({'fwd'|'bwd': {'w_ih': [I, G*H],
 'w_hh': [H, G*H], 'b_ih': [G*H], 'b_hh': [G*H]}}, ...), 'projection':
 {'w': [2H, H], 'b': [H]}}``, weights stored [in, out] as in ``model.npz``.
-Dropout is training-only and comes with the training slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from twotowermlretrieval_tpu_torch.ops.rnn_scan import rnn_layer_fwd
-from twotowermlretrieval_tpu_torch.utils.dtypes import matmul_f32, torch_dtype
+from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
+    rnn_layer_bwd,
+    rnn_layer_bwd_hoisted,
+    rnn_layer_fwd,
+)
+from twotowermlretrieval_tpu_torch.utils.dtypes import bernoulli_mask, matmul_f32, torch_dtype
 
 _GATES = {"GRU": 3, "LSTM": 4, "RNN": 1}
 
@@ -115,6 +130,52 @@ def init_rnn_encoder(
     return params
 
 
+class _ScanLayer(torch.autograd.Function):
+    """One recurrent layer over all directions: ``apply(rnn_type,
+    compute_dtype, history_in_cdt, mask2, w_hh, b_hh, *xps)`` returns
+    ``(*outs, h_final)``. Saves ``(xps, mask, w_hh, b_hh, outs, c_hist)``
+    as the JAX custom VJP does; the mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, rnn_type, compute_dtype, history_in_cdt, mask2, w_hh, b_hh, *xps):
+        outs, c_hist, h_final = rnn_layer_fwd(
+            rnn_type, xps, mask2, w_hh, b_hh,
+            compute_dtype=compute_dtype, history_in_cdt=history_in_cdt,
+        )
+        ctx.rnn_type, ctx.compute_dtype = rnn_type, compute_dtype
+        ctx.n_dir = len(xps)
+        ctx.save_for_backward(mask2, w_hh, b_hh, *xps, *outs, *c_hist)
+        return (*outs, h_final)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        D = ctx.n_dir
+        mask2, w_hh, b_hh, *rest = ctx.saved_tensors
+        xps, outs, c_hist = rest[:D], rest[D : 2 * D], rest[2 * D :]
+        # an output nothing read (the last layer's history) has no cotangent
+        douts = [torch.zeros_like(o) if g is None else g for g, o in zip(grads[:D], outs)]
+        d_hfinal = grads[D]
+        if d_hfinal is None:
+            d_hfinal = torch.zeros((D, *outs[0].shape[1:]), dtype=torch.float32,
+                                   device=outs[0].device)
+        bwd = (rnn_layer_bwd_hoisted if os.environ.get("TTMR_RNN_BWD_PLAN") == "hoisted"
+               else rnn_layer_bwd)
+        dxps, dw_hh, db_hh = bwd(
+            ctx.rnn_type, xps, mask2, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
+            compute_dtype=ctx.compute_dtype,
+        )
+        dxps = [d.to(x.dtype) for d, x in zip(dxps, xps)]
+        return (None, None, None, None, dw_hh.to(w_hh.dtype), db_hh.to(b_hh.dtype), *dxps)
+
+
+def dropout_parts(parts, keep: float, generator: torch.Generator):
+    """Inverted dropout on each per-direction part: x * Bernoulli(keep) /
+    keep, one draw per part in order."""
+    return tuple(
+        p * bernoulli_mask(generator, keep, p.shape, p.device) / keep for p in parts
+    )
+
+
 def rnn_encode(
     params: Dict[str, Any],
     tokens: torch.Tensor,  # int [B, T]
@@ -122,16 +183,22 @@ def rnn_encode(
     spec: RNNSpec,
     *,
     train: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Encode token batches to [B, H] f32 embeddings on the params' device."""
-    if train:
-        raise NotImplementedError("training comes with the training slice (ROADMAP Queue 1)")
+    """Encode token batches to [B, H] f32 embeddings on the params' device.
+
+    ``train=True`` turns inter-layer dropout on (when ``spec.dropout > 0``
+    and there is more than one layer); its masks are drawn from
+    ``generator``, which must live on the params' device."""
     cdt = torch_dtype(spec.compute_dtype)
     B, T = tokens.shape
     x = params["embedding"][tokens.long()]  # [B, T, E] f32
     lengths = lengths.to(x.device)
     mask2 = (torch.arange(T, device=x.device)[:, None] < lengths[None, :]).float()  # [T, B]
     directions = ("fwd", "bwd") if spec.bidirectional else ("fwd",)
+    use_dropout = train and spec.dropout > 0.0 and spec.num_layers > 1
+    if use_dropout and generator is None:
+        raise ValueError("a dropout generator is required when train=True and dropout > 0")
     # Saved history in the compute dtype when that is 16-bit (the JAX
     # package's default); the next layer rounds its input to cdt anyway.
     hist = cdt.itemsize == 2
@@ -148,7 +215,7 @@ def rnn_encode(
     # the two agree exactly only at f32 compute.
     parts = (x.transpose(0, 1),)  # tuple of [T, B, *]
     finals = {}
-    for layer in params["layers"]:
+    for li, layer in enumerate(params["layers"]):
         w_hh = torch.stack([layer[d]["w_hh"] for d in directions])  # [D, H, G*H]
         b_hh = torch.stack([layer[d]["b_hh"] for d in directions])  # [D, G*H]
         xps = []
@@ -161,13 +228,14 @@ def rnn_encode(
                 acc = term if acc is None else acc + term
                 row += p.shape[-1]
             xps.append(acc + layer[d]["b_ih"])  # [T, B, G*H] f32
-        outs, _, h_final = rnn_layer_fwd(
-            spec.rnn_type, xps, mask2, w_hh, b_hh,
-            compute_dtype=spec.compute_dtype, history_in_cdt=hist,
+        *outs, h_final = _ScanLayer.apply(
+            spec.rnn_type, spec.compute_dtype, hist, mask2, w_hh, b_hh, *xps
         )
         for di, d in enumerate(directions):
             finals[d] = h_final[di]
-        parts = outs
+        parts = tuple(outs)
+        if use_dropout and li < spec.num_layers - 1:
+            parts = dropout_parts(parts, 1.0 - spec.dropout, generator)
 
     if spec.bidirectional:
         hidden = torch.cat([finals["fwd"], finals["bwd"]], dim=-1)  # [B, 2H]

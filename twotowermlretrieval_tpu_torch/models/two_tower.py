@@ -9,7 +9,7 @@ ported; the transformer tower waits for its slice (ROADMAP Queue 1).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,12 +55,35 @@ def init_two_tower(
     }
 
 
-def encode_query(params, tokens, lengths, spec: TwoTowerSpec) -> torch.Tensor:
-    return rnn_encode(params["query"], tokens, lengths, spec.rnn)
+def encode_query(params, tokens, lengths, spec: TwoTowerSpec, *, train=False,
+                 generator=None) -> torch.Tensor:
+    return rnn_encode(params["query"], tokens, lengths, spec.rnn, train=train,
+                      generator=generator)
 
 
-def encode_document(params, tokens, lengths, spec: TwoTowerSpec) -> torch.Tensor:
-    return rnn_encode(params["doc"], tokens, lengths, spec.rnn)
+def encode_document(params, tokens, lengths, spec: TwoTowerSpec, *, train=False,
+                    generator=None) -> torch.Tensor:
+    return rnn_encode(params["doc"], tokens, lengths, spec.rnn, train=train,
+                      generator=generator)
+
+
+def two_tower_forward(
+    params,
+    q_tokens,
+    q_lengths,
+    d_tokens,
+    d_lengths,
+    spec: TwoTowerSpec,
+    *,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(query_emb, doc_emb); with dropout the query tower draws its masks
+    from ``generator`` first, then the doc tower."""
+    return (
+        encode_query(params, q_tokens, q_lengths, spec, train=train, generator=generator),
+        encode_document(params, d_tokens, d_lengths, spec, train=train, generator=generator),
+    )
 
 
 def params_from_jax(tree_or_flat, device="cpu") -> Dict[str, Any]:

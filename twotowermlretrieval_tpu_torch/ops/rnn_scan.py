@@ -1,4 +1,5 @@
-"""Recurrent time loop (GRU / LSTM / RNN), forward: CUDA kernel + plain version.
+"""Recurrent time loop (GRU / LSTM / RNN), forward and backward: CUDA
+kernels + plain versions.
 
 :func:`rnn_layer_fwd` keeps the JAX package's signature (``ops/rnn_scan.py``
 ``rnn_layer_fwd``): per-direction ``xps`` [T, B, G*H] in original time
@@ -13,6 +14,22 @@ it runs :func:`rnn_layer_fwd_reference`, the plain PyTorch version of the
 same arithmetic. Both read xp rounded to the compute dtype, as the TPU
 kernel does (its caller casts xp before the call), and round h to the
 compute dtype before every step's product.
+
+The backward keeps the JAX signatures too. :func:`rnn_layer_bwd` takes the
+forward's inputs, its saved ``outs`` / ``c_hist``, the cotangents
+``douts`` (read in the history's dtype, as the custom VJP delivers them)
+and ``d_hfinal``, and returns ``(dxps, dw_hh, db_hh)`` in f32, the weight
+gradients accumulated inside ``csrc/rnn_bwd.cu``. The same kernel in split
+mode emits dxp and, for GRU, the recurrent pre-activation cotangent dhp
+instead (:func:`rnn_layer_bwd_split`, :func:`_bwd_hoisted_call`); the
+weight gradient is then one product outside
+(:func:`_hoisted_weight_grad`), as in the JAX package. On CPU tensors all
+of them run :func:`rnn_layer_bwd_reference`'s plain loop.
+
+The kernels hold the whole per-block state in shared memory, which bounds
+the width: the backward takes H up to 700 for GRU, 500 for LSTM and 1185
+for RNN, and raises beyond (the TPU's VMEM plans, ``plan_fused``, have no
+counterpart here).
 """
 
 from __future__ import annotations
@@ -23,7 +40,7 @@ from typing import Sequence, Tuple
 import torch
 
 from twotowermlretrieval_tpu_torch.ops import _build
-from twotowermlretrieval_tpu_torch.utils.dtypes import torch_dtype
+from twotowermlretrieval_tpu_torch.utils.dtypes import matmul_f32, torch_dtype
 
 _GATES = {"GRU": 3, "LSTM": 4, "RNN": 1}
 _CELL_CODE = {"RNN": 0, "GRU": 1, "LSTM": 2}
@@ -195,3 +212,360 @@ def rnn_fwd_bound(T: int, B: int, H: int, D: int, G: int, cdt_bytes: int, hist_b
     )
     flops = 2 * T * D * B * H * G * H
     return nbytes, flops
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+_SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
+_BWD_ROWS = 16  # batch rows per block of the backward kernel
+
+
+def _bwd_lib():
+    lib = _build.load("rnn_bwd")
+    if not getattr(lib, "_ttr_bound", False):
+        lib.rnn_bwd_launch.restype = _INT
+        lib.rnn_bwd_launch.argtypes = [
+            _INT, _INT, _INT, _INT, _INT,  # device, cell, cdt_bf16, hist_bf16, split
+            _INT, _INT, _INT, _INT, _INT,  # T, B, H, D, dir0
+            _VOIDP, _VOIDP, _VOIDP,  # xp0, xp1, mask
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # out0, out1, c0, c1
+            _VOIDP, _VOIDP,  # dout0, dout1
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # w_hh, w_hhT, b_hh, d_hfinal
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # dxp0, dxp1, dhp0, dhp1
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # ws_w, ws_b, dw, db
+            _VOIDP,  # stream
+        ]
+        lib.rnn_bwd_error_string.restype = ctypes.c_char_p
+        lib.rnn_bwd_error_string.argtypes = [_INT]
+        lib._ttr_bound = True
+    return lib
+
+
+def _bwd_smem_bytes(cell: str, H: int) -> int:
+    """Shared memory of one backward block: the dh (and dc) carry, h_prev
+    and dhp tiles, and the db partial, all f32."""
+    G = _GATES[cell]
+    carries = 2 if cell == "LSTM" else 1
+    return 4 * ((carries + 1) * _BWD_ROWS * H + G * H * _BWD_ROWS + G * H)
+
+
+def _check_bwd_args(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal):
+    D, T, B, H, GH = _check_args(cell, xps, mask, w_hh, b_hh)
+    if len(outs) != D or len(douts) != D or len(c_hist) != (D if cell == "LSTM" else 0):
+        raise ValueError(
+            f"{D} directions need {D} outs and douts and "
+            f"{D if cell == 'LSTM' else 0} cell histories"
+        )
+    for name, ts in (("outs", outs), ("c_hist", c_hist), ("douts", douts)):
+        if any(tuple(x.shape) != (T, B, H) for x in ts):
+            raise ValueError(f"{name} must be [T, B, H] = {(T, B, H)}")
+    if tuple(d_hfinal.shape) != (D, B, H):
+        raise ValueError(f"d_hfinal must be {(D, B, H)}, got {tuple(d_hfinal.shape)}")
+    return D, T, B, H, GH
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain backward's f32 products (operands already rounded)."""
+    return torch.matmul(a, b)
+
+
+def _bwd_reference(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
+                   compute_dtype, split: bool, dir0: int = 0):
+    """Plain PyTorch version of the backward kernel, both modes: a Python
+    loop over time with the kernel's rounding points. Returns (dxps, dhps)
+    in the compute dtype and, unless ``split``, (dw [D, H, G*H], db
+    [D, G*H]) f32."""
+    D, T, B, H, GH = _check_bwd_args(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal)
+    cdt = torch_dtype(compute_dtype)
+    hist = outs[0].dtype
+    dev = xps[0].device
+
+    def rnd(x):  # rounded to the compute dtype, computed on in f32
+        return x.to(cdt).float()
+
+    xs = [rnd(x) for x in xps]
+    w = rnd(w_hh)
+    b = b_hh.float()
+    m_all = mask.float()
+    hs = [o.float() for o in outs]
+    cs = [c.float() for c in c_hist]
+    dos = [d.to(hist).float() for d in douts]
+    dh = [d_hfinal[e].float() for e in range(D)]
+    dc = [torch.zeros((B, H), dtype=torch.float32, device=dev) for _ in range(D)]
+    dxps = [torch.empty((T, B, GH), dtype=cdt, device=dev) for _ in range(D)]
+    dhps = [torch.empty((T, B, GH), dtype=cdt, device=dev) for _ in range(D)] \
+        if split and cell == "GRU" else dxps
+    dw = None if split else torch.zeros((D, H, GH), dtype=torch.float32, device=dev)
+    db = None if split else torch.zeros((D, GH), dtype=torch.float32, device=dev)
+    zeros = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    for step in range(T):
+        first = step == T - 1  # each direction's first position
+        for e in range(D):
+            dabs = dir0 + e
+            t = T - 1 - step if dabs == 0 else step
+            tprev = t - 1 if dabs == 0 else t + 1
+            h_prev = zeros if first else hs[e][tprev]
+            xp = xs[e][t]
+            m = m_all[t][:, None]
+            dh_t = dh[e] + dos[e][t]
+            dh_new = dh_t * m
+            dh_direct = dh_t * (1.0 - m)
+            if cell == "GRU":
+                hp = _mm(rnd(h_prev), w[e]) + b[e]
+                r = torch.sigmoid(xp[:, :H] + hp[:, :H])
+                z = torch.sigmoid(xp[:, H : 2 * H] + hp[:, H : 2 * H])
+                n = torch.tanh(xp[:, 2 * H :] + r * hp[:, 2 * H :])
+                h_n = hp[:, 2 * H :]
+                dz = dh_new * (h_prev - n)
+                dn_pre = dh_new * (1.0 - z) * (1.0 - n * n)
+                dr_pre = dn_pre * h_n * r * (1.0 - r)
+                dz_pre = dz * z * (1.0 - z)
+                dxp = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1)
+                dhp = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=-1)
+                dh[e] = _mm(rnd(dhp), w[e].T) + dh_new * z + dh_direct
+            elif cell == "LSTM":
+                c_prev = zeros if first else cs[e][tprev]
+                dc_new = dc[e] * m
+                dc_direct = dc[e] * (1.0 - m)
+                g_all = xp + (_mm(rnd(h_prev), w[e]) + b[e])
+                i_g = torch.sigmoid(g_all[:, :H])
+                f_g = torch.sigmoid(g_all[:, H : 2 * H])
+                g_g = torch.tanh(g_all[:, 2 * H : 3 * H])
+                o_g = torch.sigmoid(g_all[:, 3 * H :])
+                c_new = f_g * c_prev + i_g * g_g
+                tanh_c = torch.tanh(c_new)
+                do = dh_new * tanh_c
+                dc_new = dc_new + dh_new * o_g * (1.0 - tanh_c * tanh_c)
+                dxp = dhp = torch.cat([
+                    dc_new * g_g * i_g * (1.0 - i_g),
+                    dc_new * c_prev * f_g * (1.0 - f_g),
+                    dc_new * i_g * (1.0 - g_g * g_g),
+                    do * o_g * (1.0 - o_g),
+                ], dim=-1)
+                dc[e] = dc_new * f_g + dc_direct
+                dh[e] = _mm(rnd(dhp), w[e].T) + dh_direct
+            else:  # RNN: the saved output stands in for h_new where m == 1
+                h_t = hs[e][t]
+                dxp = dhp = dh_new * (1.0 - h_t * h_t)
+                dh[e] = _mm(rnd(dhp), w[e].T) + dh_direct
+            dxps[e][t] = dxp.to(cdt)
+            if split:
+                dhps[e][t] = dhp.to(cdt)
+            else:
+                dw[e] += _mm(rnd(h_prev).T, rnd(dhp))
+                db[e] += dhp.sum(dim=0)
+    return tuple(dxps), tuple(dhps), dw, db
+
+
+def _bwd_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
+              compute_dtype, split: bool, dir0: int = 0):
+    """Launch the backward kernel on CUDA tensors, or run its plain version
+    on CPU tensors; returns what :func:`_bwd_reference` returns."""
+    D, T, B, H, GH = _check_bwd_args(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal)
+    if dir0 not in (0, 1) or dir0 + D > 2:
+        raise ValueError(f"dir0={dir0} with {D} directions")
+    dev = xps[0].device
+    for name, t in (("mask", mask), ("w_hh", w_hh), ("b_hh", b_hh), ("d_hfinal", d_hfinal),
+                    *(("outs/c_hist/douts", x) for x in (*outs, *c_hist, *douts))):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, xps[0] on {dev}")
+    if dev.type == "cpu":
+        return _bwd_reference(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
+                              compute_dtype, split, dir0)
+    if dev.type != "cuda":
+        raise ValueError(f"the rnn backward runs on cpu or cuda tensors, not {dev}")
+    if _bwd_smem_bytes(cell, H) > _SMEM_LIMIT:
+        raise ValueError(
+            f"{cell} H={H}: the backward kernel's block state "
+            f"({_bwd_smem_bytes(cell, H)} bytes) exceeds shared memory"
+        )
+
+    cdt = torch_dtype(compute_dtype)
+    hist = outs[0].dtype
+    if hist not in (torch.float32, cdt):
+        raise ValueError(f"the history must be f32 or the compute dtype, got {hist}")
+    xs = [x.to(cdt).contiguous() for x in xps]
+    hs = [o.contiguous() for o in outs]
+    cs = [c.to(hist).contiguous() for c in c_hist]
+    dos = [d.to(hist).contiguous() for d in douts]
+    m = mask.to(torch.float32).contiguous()
+    w = w_hh.to(cdt).contiguous()
+    wT = w_hh.transpose(1, 2).to(cdt).contiguous()
+    b = b_hh.to(torch.float32).contiguous()
+    dhf = d_hfinal.to(torch.float32).contiguous()
+    dxps = [torch.empty((T, B, GH), dtype=cdt, device=dev) for _ in range(D)]
+    dhps = [torch.empty((T, B, GH), dtype=cdt, device=dev) for _ in range(D)] \
+        if split and cell == "GRU" else []
+    nrb = -(-B // _BWD_ROWS)
+    if split:
+        ws_w = ws_b = dw = db = None
+    else:
+        ws_w = torch.empty((D, nrb, H, GH), dtype=torch.float32, device=dev)
+        ws_b = torch.empty((D, nrb, GH), dtype=torch.float32, device=dev)
+        dw = torch.empty((D, H, GH), dtype=torch.float32, device=dev)
+        db = torch.empty((D, GH), dtype=torch.float32, device=dev)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    def at(ts, i):
+        return ts[i].data_ptr() if i < len(ts) else None
+
+    lib = _bwd_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rnn_bwd_launch(
+            torch.cuda.current_device(), _CELL_CODE[cell], int(cdt == torch.bfloat16),
+            int(hist == torch.bfloat16), int(split), T, B, H, D, dir0,
+            at(xs, 0), at(xs, 1), m.data_ptr(),
+            at(hs, 0), at(hs, 1), at(cs, 0), at(cs, 1), at(dos, 0), at(dos, 1),
+            w.data_ptr(), wT.data_ptr(), b.data_ptr(), dhf.data_ptr(),
+            at(dxps, 0), at(dxps, 1), at(dhps, 0), at(dhps, 1),
+            ptr(ws_w), ptr(ws_b), ptr(dw), ptr(db), stream,
+        )
+    if err:
+        raise RuntimeError(f"rnn_bwd kernel launch failed: {lib.rnn_bwd_error_string(err).decode()}")
+    rnn_layer_bwd.launches += 1
+    return tuple(dxps), (tuple(dhps) if dhps else tuple(dxps)), dw, db
+
+
+def rnn_layer_bwd(
+    cell: str,
+    xps: Sequence[torch.Tensor],
+    mask: torch.Tensor,
+    w_hh: torch.Tensor,
+    b_hh: torch.Tensor,
+    outs: Sequence[torch.Tensor],
+    c_hist: Sequence[torch.Tensor],
+    douts: Sequence[torch.Tensor],
+    d_hfinal: torch.Tensor,
+    compute_dtype="bfloat16",
+) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]:
+    """One recurrent layer's backward, weight gradients accumulated in the
+    kernel: (dxps per direction [T, B, G*H], dw_hh [D, H, G*H], db_hh
+    [D, G*H]), all f32 (dxp is computed in the compute dtype)."""
+    dxps, _, dw, db = _bwd_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
+                                compute_dtype, split=False)
+    return tuple(d.float() for d in dxps), dw, db
+
+
+rnn_layer_bwd.launches = 0  # kernel launches (either mode), counted where launched
+
+
+def rnn_layer_bwd_reference(
+    cell: str,
+    xps: Sequence[torch.Tensor],
+    mask: torch.Tensor,
+    w_hh: torch.Tensor,
+    b_hh: torch.Tensor,
+    outs: Sequence[torch.Tensor],
+    c_hist: Sequence[torch.Tensor],
+    douts: Sequence[torch.Tensor],
+    d_hfinal: torch.Tensor,
+    compute_dtype="bfloat16",
+):
+    """Plain PyTorch version of :func:`rnn_layer_bwd`, on any device."""
+    dxps, _, dw, db = _bwd_reference(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts,
+                                     d_hfinal, compute_dtype, split=False)
+    return tuple(d.float() for d in dxps), dw, db
+
+
+def rnn_layer_bwd_split(
+    cell: str,
+    xp: torch.Tensor,  # [T, B, G*H], original time order
+    mask: torch.Tensor,
+    w_hh1: torch.Tensor,  # [1, H, G*H]
+    b_hh1: torch.Tensor,  # [1, G*H]
+    out: torch.Tensor,  # [T, B, H] this direction's history
+    c_hist1,  # [T, B, H] (LSTM) or None
+    dout: torch.Tensor,
+    d_hfinal1: torch.Tensor,  # [1, B, H]
+    direction: int = 0,
+    compute_dtype="bfloat16",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One direction in split mode: (dxp, dhp) [T, B, G*H] in the compute
+    dtype (dhp is dxp except in GRU's candidate third)."""
+    dxps, dhps, _, _ = _bwd_call(
+        cell, (xp,), mask, w_hh1, b_hh1, (out,), () if c_hist1 is None else (c_hist1,),
+        (dout,), d_hfinal1, compute_dtype, split=True, dir0=direction,
+    )
+    return dxps[0], dhps[0]
+
+
+def _hoisted_weight_grad(out: torch.Tensor, dhp: torch.Tensor, direction: int, cdt):
+    """(dw [H, G*H], db [G*H]) f32 for one direction from its emitted dhp:
+    dw = sum_t h_prev(t)^T dhp(t) as one [H, T*B] x [T*B, G*H] product.
+    h_prev in original time order is the saved output shifted by the
+    direction's processing order; masked steps have zero dhp."""
+    cdt = torch_dtype(cdt)
+    H = out.shape[-1]
+    zero = torch.zeros_like(out[:1])
+    h_prev = torch.cat([zero, out[:-1]]) if direction == 0 else torch.cat([out[1:], zero])
+    dhp2 = dhp.reshape(-1, dhp.shape[-1])
+    dw = matmul_f32(h_prev.reshape(-1, H).T, dhp2, cdt)
+    db = dhp2.float().sum(dim=0)
+    return dw, db
+
+
+def _bwd_hoisted_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
+                      compute_dtype="bfloat16"):
+    """Both directions in one split-mode launch: (dxps, dhps) per direction
+    in the compute dtype."""
+    dxps, dhps, _, _ = _bwd_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
+                                 compute_dtype, split=True)
+    return dxps, dhps
+
+
+def rnn_layer_bwd_hoisted(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
+                          compute_dtype="bfloat16"):
+    """Drop-in equivalent of :func:`rnn_layer_bwd`: one split-mode launch
+    for both directions, weight gradients as one product per direction."""
+    dxps, dhps = _bwd_hoisted_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts,
+                                   d_hfinal, compute_dtype)
+    grads = [_hoisted_weight_grad(outs[d], dhps[d], d, compute_dtype) for d in range(len(xps))]
+    return (
+        tuple(d.float() for d in dxps),
+        torch.stack([g[0] for g in grads]),
+        torch.stack([g[1] for g in grads]),
+    )
+
+
+def rnn_layer_bwd_split_full(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
+                             compute_dtype="bfloat16"):
+    """The JAX package's split plan: one split-mode launch per direction,
+    then the hoisted weight gradients. Same results as
+    :func:`rnn_layer_bwd_hoisted`."""
+    dxps, dws, dbs = [], [], []
+    for d in range(len(xps)):
+        dxp, dhp = rnn_layer_bwd_split(
+            cell, xps[d], mask, w_hh[d : d + 1], b_hh[d : d + 1], outs[d],
+            c_hist[d] if c_hist else None, douts[d], d_hfinal[d : d + 1],
+            direction=d, compute_dtype=compute_dtype,
+        )
+        dw, db = _hoisted_weight_grad(outs[d], dhp, d, compute_dtype)
+        dxps.append(dxp.float())
+        dws.append(dw)
+        dbs.append(db)
+    return tuple(dxps), torch.stack(dws), torch.stack(dbs)
+
+
+def rnn_bwd_bound(T: int, B: int, H: int, D: int, G: int, cdt_bytes: int, hist_bytes: int,
+                  split: bool = False):
+    """Bytes (each input read once, each output written once) and
+    operations of one backward call. Returns (bytes, flops). The gate
+    recompute is a product only for GRU and LSTM; split mode does no
+    weight-gradient product and writes dhp (GRU) instead of dW/db."""
+    GH = G * H
+    stream = D * T * B * GH * cdt_bytes  # one [T, B, G*H] tensor per direction
+    nbytes = (
+        stream  # xp
+        + T * B * 4  # mask
+        + D * T * B * H * hist_bytes * (3 if G == 4 else 2)  # outs, douts (+ c history)
+        + D * H * GH * cdt_bytes + D * GH * 4 + D * B * H * 4  # w_hh, b_hh, d_hfinal
+        + stream  # dxp
+    )
+    nbytes += stream * (G == 3) if split else D * H * GH * 4 + D * GH * 4
+    products = (1 if G > 1 else 0) + 1 + (0 if split else 1)
+    return nbytes, 2 * products * T * D * B * H * GH

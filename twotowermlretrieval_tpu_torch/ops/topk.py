@@ -14,9 +14,10 @@ k * 128 candidates and taking their top-k is exact.
 
 Ties: ``lax.top_k`` breaks ties toward the lower index and ``torch.topk``
 on CUDA promises no order. Every selection here is a stable descending
-sort, and the final one runs over candidates laid out in ascending doc id
-order, so equal scores resolve to the lower doc id, exactly as
-:func:`topk_oracle` (and the JAX oracle) order them.
+sort, so each breaks ties by position as ``lax.top_k`` does. The final one
+runs over the candidates in the layout ``sort_candidates`` picks (see
+:func:`_select_segments`), the same as the JAX package's, so even a
+bitwise tie at the k boundary resolves as there.
 """
 
 from __future__ import annotations
@@ -130,13 +131,16 @@ def segmax_reference(
 def _select_segments(segmax_bs: torch.Tensor, k_seg: int, sort_candidates: bool):
     """Winning segments per query row: [B, S] maxima -> [B, k_seg] ids.
 
-    Candidates are always laid out in ascending segment order, so the
-    final stable selection sends ties to the lower doc id;
-    ``sort_candidates`` (ascending-address gathers in the JAX package) is
-    therefore what this port always does."""
-    del sort_candidates
+    Without ``sort_candidates`` the ids keep the rank order of their
+    maxima (ties to the lower segment id, as ``lax.top_k`` orders them);
+    with it they are in ascending id order. The final stable selection
+    breaks exact score ties by candidate position, so the two layouts can
+    resolve a bitwise tie at the k boundary differently, exactly as they
+    do in the JAX package."""
     _, seg_idx = _stable_topk(segmax_bs, k_seg)
-    return torch.sort(seg_idx, dim=-1).values
+    if sort_candidates:
+        seg_idx = torch.sort(seg_idx, dim=-1).values
+    return seg_idx
 
 
 def _gather_cached_scores(sc_full: torch.Tensor, seg_idx: torch.Tensor, seg: int):

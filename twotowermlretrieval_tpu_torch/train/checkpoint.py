@@ -1,0 +1,129 @@
+"""Checkpoint / resume for params + optimizer state + data-order position.
+
+The port of the JAX package's ``train/checkpoint.py`` for one process:
+every save writes the whole :class:`TrainState` (trainable and frozen
+params, Adam moments and count, step, the dropout generator's state) into
+``step_XXXXXXXX/state.pt`` (``torch.save`` of CPU tensors), written to a
+temporary directory and renamed into place, plus the data-iterator
+position in ``step_XXXXXXXX.position.json``, written atomically, beside
+it. The newest ``max_to_keep`` steps are kept. Restore copies the values
+into a template state built with the same config, so they land on the
+template's device bit for bit. The JAX package's Orbax directories are a
+different format and are not read (ROADMAP Queue 1 item 8).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from twotowermlretrieval_tpu_torch.train.train_step import TrainState
+from twotowermlretrieval_tpu_torch.utils.pytree import named_leaves
+
+STATE_FILE = "state.pt"
+
+
+def _flat(tree) -> Dict[str, torch.Tensor]:
+    return {name: leaf.detach().cpu() for name, leaf in named_leaves(tree)}
+
+
+def _load_into(tree, flat: Dict[str, torch.Tensor], what: str) -> None:
+    leaves = named_leaves(tree)
+    if sorted(flat) != sorted(name for name, _ in leaves):
+        raise ValueError(f"checkpoint {what} does not match the state's structure")
+    with torch.no_grad():
+        for name, leaf in leaves:
+            src = flat[name]
+            if src.shape != leaf.shape or src.dtype != leaf.dtype:
+                raise ValueError(f"checkpoint {what}/{name}: {src.shape} {src.dtype} "
+                                 f"!= {leaf.shape} {leaf.dtype}")
+            leaf.copy_(src)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str | Path, max_to_keep: int = 3):
+        self.directory = Path(directory).resolve()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.max_to_keep = max_to_keep
+
+    def save(self, state: TrainState, data_position: Optional[Dict[str, Any]] = None) -> Path:
+        step = int(state.step)
+        path = self.directory / f"step_{step:08d}"
+        payload = {
+            "trainable": _flat(state.trainable),
+            "frozen": _flat(state.frozen),
+            "opt_state": {
+                "count": state.opt_state["count"].detach().cpu(),
+                "mu": _flat(state.opt_state["mu"]),
+                "nu": _flat(state.opt_state["nu"]),
+            },
+            "step": step,
+            "generator": state.generator.get_state(),
+        }
+        tmp = self.directory / f".tmp_step_{step:08d}.{os.getpid()}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir()
+        torch.save(payload, tmp / STATE_FILE)
+        if path.exists():
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+        # atomic position write: a crash mid-write must not leave a torn
+        # JSON that resumes from epoch 0 with mid-training params
+        pos_file = self._position_file(step)
+        tmp_pos = pos_file.with_suffix(f".tmp.{os.getpid()}")
+        tmp_pos.write_text(json.dumps(data_position or {}))
+        os.replace(tmp_pos, pos_file)
+        self._gc()
+        return path
+
+    def restore(self, template: TrainState, step: Optional[int] = None
+                ) -> Tuple[TrainState, Dict[str, Any]]:
+        """Copy a saved state into ``template`` (built by create_train_state
+        with the same config; it is updated in place and returned)."""
+        path = self._step_path(step)
+        payload = torch.load(path / STATE_FILE, map_location="cpu", weights_only=True)
+        _load_into(template.trainable, payload["trainable"], "trainable")
+        _load_into(template.frozen, payload["frozen"], "frozen")
+        _load_into(template.opt_state["mu"], payload["opt_state"]["mu"], "mu")
+        _load_into(template.opt_state["nu"], payload["opt_state"]["nu"], "nu")
+        template.opt_state["count"].copy_(payload["opt_state"]["count"])
+        template.step = int(payload["step"])
+        template.generator.set_state(payload["generator"])
+        pos_file = self._position_file(template.step)
+        position: Dict[str, Any] = {}
+        if pos_file.exists():
+            try:
+                position = json.loads(pos_file.read_text())
+            except json.JSONDecodeError:
+                print(f"WARNING: corrupt data-position file {pos_file}; "
+                      "resuming from the epoch start", flush=True)
+        return template, position
+
+    def all_steps(self):
+        return sorted(
+            int(p.name.split("_")[1]) for p in self.directory.glob("step_*") if p.is_dir()
+        )
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def _step_path(self, step: Optional[int]) -> Path:
+        if step is None:
+            step = self.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        return self.directory / f"step_{step:08d}"
+
+    def _position_file(self, step: int) -> Path:
+        return self.directory / f"step_{step:08d}.position.json"
+
+    def _gc(self) -> None:
+        for old in self.all_steps()[: -self.max_to_keep]:
+            shutil.rmtree(self.directory / f"step_{old:08d}", ignore_errors=True)
+            self._position_file(old).unlink(missing_ok=True)

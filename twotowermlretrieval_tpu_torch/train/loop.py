@@ -1,0 +1,411 @@
+"""End-to-end training driver, behind ``ttr-torch-train``: the port of the
+JAX package's ``train/loop.py`` for one device.
+
+Pipeline: tokenizer + GloVe table -> triplet datasets -> train steps ->
+per-epoch batch and corpus evaluation -> artifact export -> qualitative
+test eval. What it keeps from the JAX driver:
+
+- the per-epoch shuffle seed ``config.seed + 1000 + epoch``;
+- the per-width buffered grouping of ``STEPS_PER_DISPATCH`` batches
+  (:func:`packed_groups`). It fixes the order in which batches run and
+  what a resume skips; here the K steps of a group run as a plain loop,
+  one packed host-to-device copy per group;
+- metrics stay on the device and are fetched at log boundaries and at the
+  end of an epoch; throughput counts real (not repeat-padded) rows;
+- checkpoints with the data position, and a deterministic resume;
+- the eval-only ``--model_path`` mode (test evaluation only, no training,
+  no export);
+- export through ``train/artifacts.py``.
+
+It runs on ``cuda`` unless the caller asks for ``--device cpu`` (the
+kernels' plain versions). Parameters are initialized from a CPU generator
+seeded with ``config.seed`` and the dropout stream is a generator on the
+device seeded with ``config.seed + 1``; the numbers differ from the JAX
+package's for the same seed.
+
+:func:`train` reads the datasets from parquet; :func:`train_on_datasets`
+is the part after that and takes the datasets as a dict of triplet lists.
+Not ported: a device mesh (``MESH_DATA``/``MESH_MODEL`` > 1, ROADMAP
+Queue 1 item 10), ``--profile_dir`` (ROADMAP Queue 1 item 8) and the
+transformer tower (item 11); each raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from twotowermlretrieval_tpu_torch.config import Config
+from twotowermlretrieval_tpu_torch.data.batching import TripletBatcher, pack_batch, unpack_batch
+from twotowermlretrieval_tpu_torch.data.glove import load_embedding_table
+from twotowermlretrieval_tpu_torch.data.loader import TripletBuilder
+from twotowermlretrieval_tpu_torch.encoder import TextEncoder
+from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec, init_two_tower, to_device
+from twotowermlretrieval_tpu_torch.tokenizer import Tokenizer
+from twotowermlretrieval_tpu_torch.train.artifacts import save_inference_artifacts
+from twotowermlretrieval_tpu_torch.train.checkpoint import CheckpointManager
+from twotowermlretrieval_tpu_torch.train.evaluators import (
+    BatchEvaluator,
+    CorpusEvaluator,
+    TestEvaluator,
+)
+from twotowermlretrieval_tpu_torch.train.metrics import MetricLogger
+from twotowermlretrieval_tpu_torch.train.train_step import (
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+    merge_params,
+)
+from twotowermlretrieval_tpu_torch.utils.dtypes import resolve_device
+
+# The data-position tag saved with checkpoints: it names the group yield
+# order of packed_groups (per-width buffering), the JAX driver's. A resume
+# from a checkpoint with another tag restarts its epoch instead of
+# skipping a different batch prefix.
+_DATA_GROUPING = "per-width-v1"
+
+
+def setup(config: Config):
+    """Tokenizer + embedding table + the runtime-derived config keys."""
+    tokenizer = Tokenizer.from_pickle(config.word_to_idx_path)
+    table = load_embedding_table(config.embeddings_path, tokenizer.vocab_size(), seed=config.seed)
+    config = config.replace(vocab_size=tokenizer.vocab_size(), embed_dim=table.shape[1])
+    return config, tokenizer, table
+
+
+def _check_supported(config: Config, profile_dir) -> None:
+    if config.mesh_data not in (-1, 1) or config.mesh_model != 1:
+        raise NotImplementedError(
+            f"a device mesh (MESH_DATA={config.mesh_data}, MESH_MODEL={config.mesh_model}) "
+            "is not ported yet (ROADMAP Queue 1 item 10); use MESH_DATA 1 or -1 "
+            "and MESH_MODEL 1"
+        )
+    if profile_dir is not None:
+        raise NotImplementedError("--profile_dir is not ported yet (ROADMAP Queue 1 item 8)")
+    if config.tower_type != "rnn":
+        raise NotImplementedError(
+            "the transformer tower is not ported yet (ROADMAP Queue 1 item 11)"
+        )
+
+
+def packed_groups(batches, K: int) -> Iterator[Tuple[np.ndarray, int]]:
+    """Stack K same-shape packed buffers into ([k, B, W] array,
+    real-example count) pairs, buffering per width as the JAX driver does,
+    so the yield order (and so the order of the steps) is the same. The
+    count excludes repeat-padded rows."""
+    pending: Dict[tuple, list] = {}
+
+    def flush(buf):
+        stack = np.stack(buf)
+        return stack, int(stack[:, :, -1].sum())  # last column = example_mask
+
+    for b in batches:
+        p = pack_batch(b)
+        buf = pending.setdefault(p.shape, [])
+        buf.append(p)
+        if len(buf) == K:
+            yield flush(buf)
+            pending[p.shape] = []
+    for buf in pending.values():
+        if buf:
+            yield flush(buf)
+
+
+def _skip_group_batches(groups, n: int):
+    skipped = 0
+    for stack, n_real in groups:
+        if skipped < n:
+            skipped += stack.shape[0]
+            continue
+        yield stack, n_real
+
+
+def _fetch(metrics: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Metric tensors to host values: scalars as floats, histograms as
+    numpy vectors."""
+    out = {}
+    for k, v in metrics.items():
+        v = v.detach().cpu()
+        out[k] = float(v) if v.numel() == 1 else v.numpy()
+    return out
+
+
+def _scalars(m: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Drop histogram vectors and their range bounds from the epoch-mean
+    accumulator."""
+    return {k: v for k, v in m.items() if "hist/" not in k and "hist_max/" not in k}
+
+
+def train(
+    config: Config,
+    use_wandb: bool = False,
+    output_root: str | Path = "artifacts",
+    checkpoint_dir: Optional[str | Path] = None,
+    resume: bool = False,
+    model_path: Optional[str | Path] = None,
+    run_name: Optional[str] = None,
+    profile_dir: Optional[str | Path] = None,
+    device="cuda",
+) -> Dict[str, Any]:
+    """Train (or, with ``model_path``, only test-evaluate) from the
+    config's parquet splits; see :func:`train_on_datasets`."""
+    _check_supported(config, profile_dir)
+    resolve_device(device)
+    config, tokenizer, table = setup(config)
+    datasets = TripletBuilder(config).load_datasets(subsample_ratio=config.subsample_ratio)
+    return train_on_datasets(
+        config, tokenizer, table, datasets, use_wandb=use_wandb, output_root=output_root,
+        checkpoint_dir=checkpoint_dir, resume=resume, model_path=model_path,
+        run_name=run_name, device=device,
+    )
+
+
+def train_on_datasets(
+    config: Config,
+    tokenizer: Tokenizer,
+    table: np.ndarray,
+    datasets: Dict[str, Any],
+    *,
+    use_wandb: bool = False,
+    output_root: str | Path = "artifacts",
+    checkpoint_dir: Optional[str | Path] = None,
+    resume: bool = False,
+    model_path: Optional[str | Path] = None,
+    run_name: Optional[str] = None,
+    device="cuda",
+) -> Dict[str, Any]:
+    """The driver after the datasets are loaded: ``datasets`` maps 'train',
+    'validation' and 'test' to lists of (query, positive, negative)
+    triplets; ``config`` and ``table`` come from :func:`setup`.
+
+    Returns the JAX driver's results (run name, throughput, per-epoch
+    metrics, artifacts directory, test eval) plus ``steps``,
+    ``step_losses`` (every step's loss, fetched once per epoch),
+    ``steady_steps_per_sec`` and the final ``state``."""
+    _check_supported(config, None)
+    dev = resolve_device(device)
+    if config.log_param_stats is None:
+        config = config.replace(log_param_stats=use_wandb)
+    if config.log_param_histograms is None:
+        config = config.replace(log_param_histograms=use_wandb)
+    spec = TwoTowerSpec.from_config(config)
+
+    def encoder_for(params):
+        return TextEncoder(params, spec, tokenizer, batch_size=config.batch_size,
+                           max_query_len=config.max_query_len,
+                           max_doc_len=config.max_doc_len, device=dev)
+
+    if model_path is not None:
+        # eval-only mode: the saved weights, the test evaluator, nothing else
+        from twotowermlretrieval_tpu_torch.utils.pytree import load_params_npz
+
+        logger = MetricLogger(use_wandb=use_wandb, wandb_config=config.to_dict(),
+                              run_name=run_name)
+        results = {
+            "run_name": logger.run_name,
+            "test_eval": TestEvaluator(seed=config.seed).evaluate(
+                encoder_for(load_params_npz(model_path)), datasets.get("test", [])
+            ),
+        }
+        logger.finish()
+        return results
+
+    params = init_two_tower(torch.Generator().manual_seed(config.seed), spec,
+                            pretrained_embeddings=table)
+    generator = torch.Generator(device=dev).manual_seed(config.seed + 1)
+    state = create_train_state(generator, to_device(params, dev), config)
+    del params
+
+    logger = MetricLogger(use_wandb=use_wandb, wandb_config=config.to_dict(), run_name=run_name)
+    results: Dict[str, Any] = {"run_name": logger.run_name}
+    eval_step = make_eval_step(spec, config)
+    batch_evaluator = BatchEvaluator()
+    corpus_evaluator = CorpusEvaluator(seed=config.seed)
+    train_batcher = TripletBatcher(
+        datasets["train"], tokenizer, config.batch_size, config.max_query_len,
+        config.max_doc_len, length_buckets=config.length_buckets,
+    )
+    val_batcher = TripletBatcher(
+        datasets["validation"], tokenizer, config.batch_size, config.max_query_len,
+        config.max_doc_len, length_buckets=config.length_buckets,
+    )
+    K = max(1, int(config.steps_per_dispatch))
+    # Histograms bucket every grad/param element; they are computed only in
+    # groups that cross a log boundary, as in the JAX driver.
+    train_step = make_train_step(spec, config.replace(log_param_histograms=False))
+    train_step_hist = (make_train_step(spec, config) if config.log_param_histograms
+                       else train_step)
+
+    ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
+    start_epoch, skip_batches = 0, 0
+    if resume and ckpt and ckpt.latest_step() is not None:
+        state, position = ckpt.restore(state)
+        start_epoch = position.get("epoch", 0)
+        skip_batches = position.get("batch_index", 0)
+        if skip_batches and position.get("grouping") != _DATA_GROUPING:
+            print(f"checkpoint data-grouping {position.get('grouping')!r} != "
+                  f"{_DATA_GROUPING!r}; restarting epoch {start_epoch} from batch 0")
+            skip_batches = 0
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t_start = time.time()
+    examples_seen = 0
+    epoch_metrics_history = []
+    step_losses = []
+    step = state.step
+    first_group_done = False
+    compile_seconds = None
+    steady_baseline = steady_steps_baseline = 0
+    steps_run = 0
+    train_elapsed = steady_elapsed = 0.0
+    for epoch in range(start_epoch, config.epochs):
+        epoch_seed = config.seed + 1000 + epoch  # deterministic shuffle per epoch
+        running = None
+        num_batches = 0
+        epoch_losses = []
+        t_epoch = time.time()
+        t_epoch_steady = t_epoch if first_group_done else None
+        groups = packed_groups(train_batcher.batches(seed=epoch_seed), K)
+        batch_index = 0
+        if epoch == start_epoch and skip_batches:
+            # replay the shuffle and the buffered grouping, then drop the
+            # done groups; checkpoints land on group boundaries
+            groups = _skip_group_batches(groups, skip_batches)
+            batch_index = skip_batches
+        for stack, n_real in groups:
+            k = stack.shape[0]
+            t_group0 = None if first_group_done else time.time()
+            crosses_log = step // config.log_every_steps != (step + k) // config.log_every_steps
+            fn = train_step_hist if crosses_log else train_step
+            packed = torch.from_numpy(stack).to(dev)
+            for i in range(k):
+                state, metrics = fn(state, unpack_batch(packed[i], config.max_query_len))
+                epoch_losses.append(metrics["loss"])
+                scalars = _scalars(metrics)
+                running = (dict(scalars) if running is None
+                           else {n: running[n] + v for n, v in scalars.items()})
+            prev_step = step
+            step += k
+            steps_run += k
+            batch_index += k
+            num_batches += k
+            examples_seen += n_real
+            if t_group0 is not None:
+                # the first group pays the kernels' build and first launches;
+                # steady throughput is counted after it
+                sync()
+                compile_seconds = time.time() - t_group0
+                t_epoch_steady = time.time()
+                steady_baseline, steady_steps_baseline = examples_seen, steps_run
+                first_group_done = True
+            if step // config.log_every_steps != prev_step // config.log_every_steps:
+                host_metrics = _fetch(metrics)
+                loop_time = train_elapsed + (time.time() - t_epoch)
+                host_metrics["examples_per_sec"] = examples_seen / max(loop_time, 1e-9)
+                logger.log({"epoch": epoch + 1,
+                            **{f"train_{n}": v for n, v in host_metrics.items()}}, step)
+            if ckpt and (step // config.checkpoint_every_steps
+                         != prev_step // config.checkpoint_every_steps):
+                ckpt.save(state, {"epoch": epoch, "batch_index": batch_index,
+                                  "grouping": _DATA_GROUPING})
+
+        if epoch_losses:
+            step_losses.extend(torch.stack(epoch_losses).cpu().tolist())  # synchronizes
+        sync()
+        now = time.time()
+        train_elapsed += now - t_epoch
+        if t_epoch_steady is not None:
+            steady_elapsed += now - t_epoch_steady
+        avg_train = ({n: v / max(num_batches, 1) for n, v in _fetch(running).items()}
+                     if running is not None else {})
+
+        batch_metrics, avg_val_loss = batch_evaluator.evaluate(
+            eval_step, state, val_batcher, dev, config.max_query_len
+        )
+        corpus_metrics = corpus_evaluator.evaluate(
+            encoder_for(merge_params(state.trainable, state.frozen)), datasets["validation"]
+        )
+        log_data = {"epoch": epoch + 1, "avg_train_loss": avg_train.get("loss", 0.0),
+                    "avg_val_loss": avg_val_loss}
+        log_data.update({f"batch_{n}": v for n, v in batch_metrics.items()})
+        log_data.update({f"corpus_{n}": v for n, v in corpus_metrics.items()})
+        logger.log(log_data, step)
+        epoch_metrics_history.append(log_data)
+        if ckpt:
+            ckpt.save(state, {"epoch": epoch + 1, "batch_index": 0, "grouping": _DATA_GROUPING})
+
+    results["train_seconds"] = time.time() - t_start  # wall, evals included
+    results["train_loop_seconds"] = train_elapsed
+    results["examples_per_sec"] = examples_seen / max(train_elapsed, 1e-9)
+    results["steps"] = steps_run
+    results["step_losses"] = step_losses
+    if first_group_done:
+        results["compile_seconds"] = compile_seconds
+        results["steady_examples_per_sec"] = (
+            (examples_seen - steady_baseline) / max(steady_elapsed, 1e-9)
+        )
+        results["steady_steps_per_sec"] = (
+            (steps_run - steady_steps_baseline) / max(steady_elapsed, 1e-9)
+        )
+    results["epochs"] = epoch_metrics_history
+    results["state"] = state
+
+    final_params = merge_params(state.trainable, state.frozen)
+    output_dir = Path(output_root) / logger.run_name
+    export_encoder = encoder_for(final_params)
+    save_inference_artifacts(output_dir, final_params, config, tokenizer, datasets,
+                             encoder=export_encoder)
+    results["artifacts_dir"] = str(output_dir)
+    if datasets.get("test"):
+        results["test_eval"] = TestEvaluator(seed=config.seed).evaluate(
+            export_encoder, datasets["test"]
+        )
+    logger.finish()
+    return results
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description="Two-tower training & evaluation (PyTorch/CUDA)")
+    parser.add_argument("--config", "-c", type=str, required=True, help="JSON config path")
+    parser.add_argument("--model_path", "-m", type=str, default=None,
+                        help="saved model (.npz) for eval-only mode, skipping training")
+    parser.add_argument("--wandb", action="store_true", help="log to W&B if available")
+    parser.add_argument("--output", type=str, default="artifacts")
+    parser.add_argument("--checkpoint_dir", type=str, default=None)
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="not ported yet: raises NotImplementedError")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu (the kernels' plain versions)")
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    config = Config.from_json(args.config)
+    results = train(
+        config,
+        use_wandb=args.wandb,
+        output_root=args.output,
+        checkpoint_dir=args.checkpoint_dir,
+        resume=args.resume,
+        model_path=args.model_path,
+        profile_dir=args.profile_dir,
+        device=args.device,
+    )
+    if "examples_per_sec" in results:
+        print(f"training finished: {results['examples_per_sec']:.1f} examples/s")
+    if "artifacts_dir" in results:
+        print(f"artifacts: {results['artifacts_dir']}")
+
+
+if __name__ == "__main__":
+    main()

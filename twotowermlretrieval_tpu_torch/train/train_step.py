@@ -1,0 +1,264 @@
+"""The training step: forward 3 towers -> loss -> grad -> clip -> Adam.
+
+The port of the JAX package's ``train/train_step.py`` for one device:
+
+- frozen embedding tables are partitioned out of the trained params, so
+  they get no gradient and no Adam state (the reference's
+  ``requires_grad=False``);
+- the gradient clip is optax's ``clip_by_global_norm`` formula, ``scale =
+  min(1, max_norm / max(|g|, 1e-16))`` (not ``torch.nn.utils.
+  clip_grad_norm_``, which adds 1e-6 to the norm);
+- Adam is optax's with its defaults (b1 0.9, b2 0.999, eps 1e-8 added
+  after the square root, bias-corrected), ``-lr`` times the update;
+- the metric set is the JAX step's, ``grad_norm`` taken before the clip;
+  per-leaf norms and fixed-bin histograms when the config asks for them.
+
+State is a plain dataclass (trainable and frozen trees of tensors, the
+Adam moments, the step, the dropout generator). Unlike the JAX step,
+which returns a new state, :func:`make_train_step`'s function updates the
+parameters and moments in place and returns the same state object.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from twotowermlretrieval_tpu_torch.data.batching import Batch
+from twotowermlretrieval_tpu_torch.models.losses import (
+    combined_loss,
+    triplet_loss_cosine,
+    weighted_mean,
+)
+from twotowermlretrieval_tpu_torch.models.two_tower import (
+    TwoTowerSpec,
+    encode_document,
+    encode_query,
+)
+from twotowermlretrieval_tpu_torch.utils.pytree import named_leaves, tree_map
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+HISTOGRAM_BINS = 64
+
+
+@dataclasses.dataclass
+class TrainState:
+    trainable: Any  # differentiated params (leaves require grad)
+    frozen: Any  # non-differentiated params (the GloVe tables)
+    opt_state: Dict[str, Any]  # {'count': int32 scalar, 'mu': tree, 'nu': tree}
+    step: int
+    generator: torch.Generator  # the dropout stream, on the params' device
+
+
+def partition_params(params: Dict[str, Any], freeze_embeddings: bool):
+    """Split two-tower params into (trainable, frozen): frozen [V, E]
+    tables move to the frozen tree and never see autograd."""
+    if not freeze_embeddings:
+        return params, {}
+    trainable, frozen = {}, {}
+    for tower, tower_params in params.items():
+        t = dict(tower_params)
+        frozen[tower] = {"embedding": t.pop("embedding")}
+        trainable[tower] = t
+    return trainable, frozen
+
+
+def merge_params(trainable: Dict[str, Any], frozen: Dict[str, Any]) -> Dict[str, Any]:
+    if not frozen:
+        return trainable
+    return {tower: {**trainable[tower], **frozen.get(tower, {})} for tower in trainable}
+
+
+def create_train_state(generator: torch.Generator, params: Dict[str, Any], config) -> TrainState:
+    """State over ``params`` (already on their device); ``generator`` is the
+    dropout stream and must live on the same device."""
+    trainable, frozen = partition_params(params, config.freeze_embeddings)
+    trainable = tree_map(lambda p: p.detach().clone().requires_grad_(True), trainable)
+    frozen = tree_map(lambda p: p.detach(), frozen)
+    leaves = [p for _, p in named_leaves(trainable)]
+    device = leaves[0].device
+    return TrainState(
+        trainable=trainable,
+        frozen=frozen,
+        opt_state={
+            "count": torch.zeros((), dtype=torch.int32, device=device),
+            "mu": tree_map(lambda p: torch.zeros_like(p, requires_grad=False), trainable),
+            "nu": tree_map(lambda p: torch.zeros_like(p, requires_grad=False), trainable),
+        },
+        step=0,
+        generator=generator,
+    )
+
+
+# ---------------------------------------------------------------------------
+# optimizer
+# ---------------------------------------------------------------------------
+
+
+def global_norm(leaves) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g)) for g in leaves))
+
+
+def clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm's factor: min(1, max_norm / max(|g|, 1e-16))."""
+    return torch.clamp(max_norm / gnorm.clamp_min(1e-16), max=1.0)
+
+
+@torch.no_grad()
+def apply_clip_and_adam(state: TrainState, grads, config) -> torch.Tensor:
+    """clip_by_global_norm(grad_clip_norm) then Adam(lr), in place on the
+    state's params and moments, in optax's arithmetic. ``grads`` is the
+    list of gradients in :func:`named_leaves` order. Returns the global
+    norm of ``grads`` (before the clip)."""
+    gnorm = global_norm(grads)
+    scale = clip_scale(gnorm, config.grad_clip_norm)
+    opt = state.opt_state
+    opt["count"] += 1
+    count = opt["count"].float()
+    bc1 = 1.0 - torch.pow(torch.tensor(ADAM_B1, device=count.device), count)
+    bc2 = 1.0 - torch.pow(torch.tensor(ADAM_B2, device=count.device), count)
+    params = [p for _, p in named_leaves(state.trainable)]
+    mus = [m for _, m in named_leaves(opt["mu"])]
+    nus = [v for _, v in named_leaves(opt["nu"])]
+    for p, g, mu, nu in zip(params, grads, mus, nus):
+        g = g * scale
+        mu.mul_(ADAM_B1).add_((1.0 - ADAM_B1) * g)  # (1-b1) g + b1 mu, as optax
+        nu.mul_(ADAM_B2).add_((1.0 - ADAM_B2) * (g * g))
+        update = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
+        p.add_(-config.lr * update)
+    return gnorm
+
+
+# ---------------------------------------------------------------------------
+# steps
+# ---------------------------------------------------------------------------
+
+
+def _forward_and_metrics(params, batch: Batch, spec: TwoTowerSpec, config,
+                         generator: Optional[torch.Generator], train: bool):
+    q = encode_query(params, batch.q_tokens, batch.q_len, spec, train=train,
+                     generator=generator)
+    B = batch.pos_tokens.shape[0]
+    # With a pure in-batch loss the explicit negative never reaches the
+    # gradient; only the triplet metric set reads it. TRIPLET_METRICS=false
+    # skips its forward too: the doc tower encodes [B] rows, not [2B].
+    need_neg = config.loss_type != "in_batch" or getattr(config, "triplet_metrics", True)
+    if need_neg:
+        # one doc-tower call over [2B, T] (pos ++ neg)
+        d = encode_document(
+            params, torch.cat([batch.pos_tokens, batch.neg_tokens]),
+            torch.cat([batch.pos_len, batch.neg_len]), spec, train=train, generator=generator,
+        )
+        p, n = d[:B], d[B:]
+    else:
+        p = encode_document(params, batch.pos_tokens, batch.pos_len, spec, train=train,
+                            generator=generator)
+        n = None
+    w = batch.example_mask
+
+    loss = combined_loss(q, p, n if n is not None else p, config.loss_type, config.margin,
+                         config.temperature, weights=w)
+
+    with torch.no_grad():
+        pos_sim = torch.sum(q * p, dim=-1)
+        metrics = {
+            "loss": loss.detach(),
+            "pos_similarity": weighted_mean(pos_sim, w),
+            "query_magnitude": weighted_mean(torch.linalg.vector_norm(q, dim=-1), w),
+            "doc_magnitude": weighted_mean(torch.linalg.vector_norm(p, dim=-1), w),
+        }
+        if n is not None:
+            neg_sim = torch.sum(q * n, dim=-1)
+            metrics["triplet_accuracy"] = weighted_mean((pos_sim > neg_sim).float(), w)
+            metrics["similarity_gap"] = weighted_mean(pos_sim - neg_sim, w)
+            metrics["neg_similarity"] = weighted_mean(neg_sim, w)
+        if "in_batch" in config.loss_type:
+            # top-1 retrieval accuracy over the in-batch similarity matrix
+            # (positive on the diagonal); padded columns excluded as in the loss
+            logits = torch.matmul(q, p.T)
+            eye = torch.eye(B, dtype=torch.bool, device=q.device)
+            col_ok = (w > 0)[None, :] | eye
+            logits = torch.where(col_ok, logits, torch.full_like(logits, -torch.inf))
+            hit = (torch.argmax(logits, dim=-1) == torch.arange(B, device=q.device)).float()
+            metrics["in_batch_accuracy"] = weighted_mean(hit, w)
+    return loss, metrics
+
+
+def _leaf_histogram(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-bin histogram over [-absmax, absmax]: (counts [BINS] f32,
+    absmax), the JAX step's binning."""
+    absmax = torch.max(torch.abs(x))
+    scale = absmax.clamp_min(1e-30)
+    idx = ((x.reshape(-1) + scale) * (HISTOGRAM_BINS / (2.0 * scale))).to(torch.int32)
+    idx = idx.clamp(0, HISTOGRAM_BINS - 1).long()
+    counts = torch.bincount(idx, minlength=HISTOGRAM_BINS).float()
+    return counts, absmax
+
+
+@torch.no_grad()
+def _add_param_stats(metrics, names, grads, params, histograms: bool, norms: bool) -> None:
+    for name, g, p in zip(names, grads, params):
+        if norms:
+            metrics[f"grad_norm/{name}"] = torch.sqrt(torch.sum(torch.square(g)))
+            metrics[f"param_norm/{name}"] = torch.sqrt(torch.sum(torch.square(p)))
+        if histograms:
+            metrics[f"grad_hist/{name}"], metrics[f"grad_hist_max/{name}"] = _leaf_histogram(g)
+            metrics[f"param_hist/{name}"], metrics[f"param_hist_max/{name}"] = _leaf_histogram(p)
+
+
+def make_train_step(spec: TwoTowerSpec, config, axis_name: Optional[str] = None):
+    """The train-step function ``step(state, batch) -> (state, metrics)``.
+    Metrics are scalar (or histogram) tensors on the device; nothing is
+    fetched to the host. ``axis_name`` (the data-parallel step) belongs to
+    the multi-device slice."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "the data-parallel train step is not ported yet (ROADMAP Queue 1 item 10)"
+        )
+
+    def train_step(state: TrainState, batch: Batch):
+        named = named_leaves(state.trainable)
+        names = [n for n, _ in named]
+        leaves = [p for _, p in named]
+        with torch.enable_grad():
+            params = merge_params(state.trainable, state.frozen)
+            loss, metrics = _forward_and_metrics(params, batch, spec, config, state.generator,
+                                                 train=True)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+        norms = bool(getattr(config, "log_param_stats", False))
+        hists = bool(getattr(config, "log_param_histograms", False))
+        if norms or hists:  # of the params before this step's update, as JAX's
+            _add_param_stats(metrics, names, grads, leaves, hists, norms)
+        metrics["grad_norm"] = apply_clip_and_adam(state, grads, config)
+        state.step += 1
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step(spec: TwoTowerSpec, config, axis_name: Optional[str] = None):
+    """Validation step: no dropout, no update. Returns (q_emb, pos_emb,
+    {'val_loss'}); the validation loss is the triplet loss whatever the
+    training loss."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "the data-parallel eval step is not ported yet (ROADMAP Queue 1 item 10)"
+        )
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Batch):
+        params = merge_params(state.trainable, state.frozen)
+        q = encode_query(params, batch.q_tokens, batch.q_len, spec)
+        B = batch.pos_tokens.shape[0]
+        d = encode_document(
+            params, torch.cat([batch.pos_tokens, batch.neg_tokens]),
+            torch.cat([batch.pos_len, batch.neg_len]), spec,
+        )
+        p, n = d[:B], d[B:]
+        loss = triplet_loss_cosine((q, p, n), config.margin, weights=batch.example_mask)
+        return q, p, {"val_loss": loss}
+
+    return eval_step

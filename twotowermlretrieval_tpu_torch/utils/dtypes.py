@@ -42,6 +42,17 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor, cdt: torch.dtype) -> torch.Tens
     return torch.matmul(a.to(cdt).float(), b.to(cdt).float())
 
 
+def bernoulli_mask(generator: torch.Generator, p: float, shape, device) -> torch.Tensor:
+    """Bernoulli(p) bool mask drawn from ``generator``, which lives on
+    ``device`` (a CUDA generator for CUDA tensors).
+
+    The counterpart of the JAX package's ``fast_bernoulli``. The streams
+    differ (torch's Philox or CPU generator against JAX's rbg bits), so
+    masks agree with JAX's in law, not bit for bit; given the generator's
+    state they are reproducible."""
+    return torch.rand(shape, generator=generator, device=device) < p
+
+
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on. Raises when CUDA is asked for
     and there is none: the port never carries on quietly on the CPU."""

@@ -10,7 +10,7 @@ params_from_jax`` turns a loaded tree into tensors).
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
@@ -38,6 +38,35 @@ def flatten_params(tree: Any) -> Dict[str, np.ndarray]:
 
     visit(tree, [])
     return flat
+
+
+def named_leaves(tree: Any) -> List[Tuple[str, Any]]:
+    """(path, leaf) pairs in :func:`flatten_params`'s order (sorted dict
+    keys, tuple positions), paths '/'-joined as ``jax.tree_util`` names
+    them; the leaves are returned as they are."""
+    out: List[Tuple[str, Any]] = []
+
+    def visit(node, prefix):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                visit(node[k], prefix + [str(k)])
+        elif isinstance(node, (tuple, list)):
+            for i, v in enumerate(node):
+                visit(v, prefix + [str(i)])
+        else:
+            out.append(("/".join(prefix), node))
+
+    visit(tree, [])
+    return out
+
+
+def tree_map(fn, tree: Any) -> Any:
+    """``fn`` applied to every leaf, the structure kept."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree_map(fn, v) for v in tree)
+    return fn(tree)
 
 
 def unflatten_params(flat: Dict[str, np.ndarray]) -> Any:
