@@ -29,8 +29,16 @@
    step, a bit-exact checkpoint round trip on the card, and that the
    exported directory serves. Prints the steady steps/s and examples/s.
 
-Step 3 covers the backward kernel too (``csrc/rnn_bwd.cu``, both modes),
-timed at the training shapes beside cuDNN's GRU backward.
+Step 3 covers the backward kernel too (``csrc/rnn_bwd.cu``, both modes,
+each timed at the training shapes beside cuDNN's GRU backward) and the
+int8 and running top-k kernels (``csrc/segmax_s8.cu``, the per-row int8
+path of ``csrc/segmax.cu``, ``csrc/topk_stream.cu``) over 1,048,576 rows,
+each driven once through its public function with the counts at 0. Step 5
+serves a second time as ``ttr-torch-serve --storage-dtype int8`` starts
+it: the s8 scan kernel on every dense search, the results against the
+port's int8 engine on the CPU and, bit for bit, against the two-phase path
+on the card; then a boot with ``--autotune-retrieval`` persists its choice
+and a second boot applies it without timing.
 
 The second-last line is the ``kernels`` record (JSON), the last line
 ``{"ok": true, "device": {...}}``. A failed check exits non-zero and prints
@@ -57,10 +65,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 ARTIFACTS = ROOT / "_smoke_artifacts"  # listed in .gitignore; removed at the end
 
-# Published peaks of one H100 SXM: HBM3 bandwidth and the dense bf16
-# tensor-core rate.
+# Published peaks of one H100 SXM: HBM3 bandwidth and the dense bf16 and
+# int8 tensor-core rates.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 
 # The reference model (configs/msmarco_reference.json, Config defaults).
 H = 256
@@ -90,6 +99,18 @@ SEGMAX_ATOL = 3e-5
 # Embeddings and /search scores, card against CPU: the rnn differences
 # above pass through the projection and the L2 normalization.
 EMBED_ATOL = 2e-2
+# The per-row int8 scan (segmax_int8) and the running top-k over int8 rows:
+# exact products (int8 times bf16) summed in f32 in two orders, then times
+# the row scale. sum |q_i v_i| * scale is at most about |q| |d| = 1 for
+# unit rows, so the sums differ by at most about 2 * 256 * 2^-24 < 4e-5.
+INT8_ATOL = 4e-5
+# int8 /search, card against the CPU engine: the query embeddings differ by
+# up to EMBED_ATOL, which moves a dense score as in bf16, and may flip the
+# int8 rounding of query elements; each flip moves a score by one
+# quantization step, q_scale * |d_i| <= max|q| * max|d| / 127, in either
+# direction. The tolerance allows EMBED_ATOL once more for the flips.
+INT8_SERVE_TOL = 2 * EMBED_ATOL
+S8_SEGS = (128, 64)  # the index's segment width, and a narrower one
 # rnn_bwd, bf16 compute and bf16 history: a CPU run of the plain version
 # against itself with float64 products (GRU D=2 B=128 T=128 H=256, and
 # LSTM/RNN at B=16 T=32) differed by at most 6.3e-4 of the dxp scale
@@ -140,12 +161,12 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: int, flops: int):
+def bound(nbytes: int, flops: int, peak: float = PEAK_BF16_FLOPS):
     """Least time on the card: the larger of bytes over the memory rate and
-    bf16 operations over the tensor-core rate. Returns (ms, "bytes" |
-    "operations")."""
+    operations over the tensor-core rate of their type (bf16 by default).
+    Returns (ms, "bytes" | "operations")."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -341,6 +362,256 @@ def phase_kernels(dev) -> dict:
     return {"rnn_fwd": rnn, "segmax": seg}
 
 
+# Every kernel of the port: its launch counter (the wrapper's attribute),
+# its source and the TPU kernel it replaces.
+def kernel_table():
+    from twotowermlretrieval_tpu_torch.ops import rnn_scan, topk
+
+    return {
+        "rnn_fwd": (rnn_scan.rnn_layer_fwd, "twotowermlretrieval_tpu_torch/csrc/rnn_fwd.cu",
+                    "twotowermlretrieval_tpu/ops/rnn_scan.py:212"),
+        "segmax": (topk.segmax, "twotowermlretrieval_tpu_torch/csrc/segmax.cu",
+                   "twotowermlretrieval_tpu/ops/topk.py:334"),
+        "rnn_bwd": (rnn_scan.rnn_layer_bwd, "twotowermlretrieval_tpu_torch/csrc/rnn_bwd.cu",
+                    "twotowermlretrieval_tpu/ops/rnn_scan.py:397"),
+        "segmax_s8": (topk.segmax_s8, "twotowermlretrieval_tpu_torch/csrc/segmax_s8.cu",
+                      "twotowermlretrieval_tpu/ops/topk.py:684"),
+        "segmax_int8": (topk.segmax_int8, "twotowermlretrieval_tpu_torch/csrc/segmax.cu",
+                        "twotowermlretrieval_tpu/ops/topk.py:548"),
+        "topk_stream": (topk.topk_stream, "twotowermlretrieval_tpu_torch/csrc/topk_stream.cu",
+                        "twotowermlretrieval_tpu/ops/topk.py:183"),
+        "topk_stream_int8": (topk.topk_stream_int8,
+                             "twotowermlretrieval_tpu_torch/csrc/topk_stream.cu",
+                             "twotowermlretrieval_tpu/ops/topk.py:1009"),
+    }
+
+
+def zero_counts() -> None:
+    for fn, _, _ in kernel_table().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, (fn, _, _) in kernel_table().items()}
+
+
+def _unit_rows_f32(gen, n, dev, chunk=1 << 18):
+    out = torch.empty((n, H), dtype=torch.float32, device=dev)
+    for i in range(0, n, chunk):
+        x = torch.randn((min(chunk, n - i), H), generator=gen, device=dev)
+        out[i : i + chunk] = x / x.norm(dim=1, keepdim=True)
+    return out
+
+
+def _check_topk(what, vals, ids, full, n_valid, atol):
+    """vals/ids against torch.topk of the full f32 scores: values within
+    atol, every id a valid row whose score is its value within atol and no
+    worse than the k-th best minus atol (near-ties may order differently)."""
+    r_vals, _ = torch.topk(full[:, :n_valid], vals.shape[1])
+    check(bool(((ids >= 0) & (ids < n_valid)).all()), f"{what}: an id out of range")
+    picked = full.gather(1, ids.long())
+    err = max((vals - r_vals).abs().max().item(), (picked - vals).abs().max().item())
+    check(err <= atol, f"{what}: off by {err}")
+    check(bool((picked >= r_vals[:, -1:] - atol).all()), f"{what}: an id outside the true top-k")
+    return err
+
+
+def check_segmax_s8(docs_f32, n_valid: int, q, dev, timed: bool) -> dict:
+    """Kernel 5 over the rows of ``docs_f32`` (rows >= n_valid zero, as the
+    index pads), quantized per segment on the host with the index's own
+    quantize_segments: segment maxima and cache bitwise equal to the plain
+    version at seg 128 and 64; the whole search with the kernel bitwise
+    equal to the same search with the plain phase 1 and to the two-phase
+    path; top-50 recall against exact f32 search."""
+    from twotowermlretrieval_tpu_torch.ops.topk import (
+        fused_topk_segmax_s8,
+        quantize_query_rows,
+        quantize_segments,
+        s8_phase2,
+        segmax_s8,
+        segmax_s8_bound,
+        segmax_s8_reference,
+        topk_segmented_s8,
+    )
+
+    npad, B = docs_f32.shape[0], q.shape[0]
+    host = docs_f32.cpu().numpy()
+    q_i8, q_scale = quantize_query_rows(q)
+    shape = f"B={B} Npad={npad} n_valid={n_valid} H={H} int8"
+    full = torch.matmul(q, docs_f32[:n_valid].T)
+    _, exact_ids = torch.topk(full, FANOUT)
+    rec = {"shape": shape, "max_abs_err": 0.0}
+
+    def err(a, b) -> float:
+        return (a - b).abs().max().item() if a.numel() else 0.0
+    for seg in S8_SEGS:
+        values_np, scales_np = quantize_segments(host, seg=seg)
+        values = torch.from_numpy(values_np).to(dev)
+        scales = torch.from_numpy(scales_np).to(dev)
+        del values_np
+        for with_cache in (False, True):
+            got, cache = segmax_s8(q_i8, values, seg, with_cache=with_cache)
+            want, r_cache = segmax_s8_reference(q_i8, values, seg, with_cache=with_cache)
+            same = torch.equal(got, want) and (not with_cache or torch.equal(cache, r_cache))
+            check(same, f"segmax_s8 {shape} seg {seg} cache {with_cache}: not bitwise equal")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err(got, want),
+                                     err(cache, r_cache) if with_cache else 0.0)
+            del got, cache, want, r_cache
+        for phase2 in ("rescore", "gather"):
+            vals, ids = fused_topk_segmax_s8(q, values, scales, k=FANOUT, n_valid=n_valid,
+                                             seg=seg, phase2=phase2)
+            maxima, cache = segmax_s8_reference(q_i8, values, seg, with_cache=phase2 == "gather")
+            r_vals, r_ids = s8_phase2(maxima, cache, q_i8, q_scale, values, scales, FANOUT,
+                                      n_valid, seg)
+            check(torch.equal(vals, r_vals) and torch.equal(ids, r_ids),
+                  f"top-{FANOUT} {shape} seg {seg} ({phase2}): differs from the plain phase 1")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err(vals, r_vals))
+            del maxima, cache
+        t_vals, t_ids = topk_segmented_s8(q, values, scales, k=FANOUT, n_valid=n_valid, seg=seg)
+        check(torch.equal(vals, t_vals) and torch.equal(ids, t_ids),
+              f"top-{FANOUT} {shape} seg {seg}: differs from the two-phase path")
+        check(bool(((ids >= 0) & (ids < n_valid)).all()), f"s8 {shape}: an id out of range")
+        recall = float(np.mean([len(set(a) & set(b)) / FANOUT for a, b in
+                                zip(ids.tolist(), exact_ids.tolist())]))
+        rec[f"recall_at_{FANOUT}_seg{seg}"] = recall
+        log(f"segmax_s8 {shape} seg {seg}: bitwise equal to the plain version (maxima, cache, "
+            f"top-{FANOUT} rescore/gather, two-phase path); top-{FANOUT} recall against exact "
+            f"f32 {recall:.4f}")
+        check(recall >= 0.5, f"s8 {shape} seg {seg}: recall {recall}")
+        if timed and seg == 128:
+            rec["ms"] = time_ms(lambda: segmax_s8(q_i8, values, seg))
+            rec["cache_ms"] = time_ms(lambda: segmax_s8(q_i8, values, seg, with_cache=True))
+            rec["plain_ms"] = time_ms(lambda: segmax_s8_reference(q_i8, values, seg),
+                                      reps=5, warmup=1)
+            # one library call: cuBLASLt's int8 product (int32 out) + the segment max
+            qt = q_i8.t()  # column-major [H, B], as _int_mm takes it
+            rec["library_ms"] = time_ms(
+                lambda: torch._int_mm(values, qt).view(-1, seg, B).amax(dim=1))
+            rec["search_ms"] = time_ms(lambda: fused_topk_segmax_s8(
+                q, values, scales, k=FANOUT, n_valid=n_valid, seg=seg))
+            nbytes, ops = segmax_s8_bound(B, H, npad, seg)
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, PEAK_INT8_OPS)
+            log(f"segmax_s8 {shape}: kernel {rec['ms']:.4f} ms (with the cache "
+                f"{rec['cache_ms']:.4f}), plain {rec['plain_ms']:.4f} ms, _int_mm+amax "
+                f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}); "
+                f"whole top-{FANOUT} {rec['search_ms']:.4f} ms")
+        del values, scales
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_int8_rows(docs_f32, n_valid: int, q, dev) -> dict:
+    """Kernels 6, 7 and 8 over the rows of ``docs_f32``: segmax_int8 (the
+    per-row int8 corpus, quantize_rows) and the running top-k over bf16 and
+    per-row int8 storage, each against its plain version and torch.topk of
+    the full f32 scores, each driven once through its public function with
+    the counts at 0, and timed."""
+    from twotowermlretrieval_tpu_torch.ops.topk import (
+        NEG_INF,
+        fused_topk,
+        fused_topk_int8,
+        fused_topk_segmax_int8,
+        quantize_rows,
+        segmax_int8,
+        segmax_int8_bound,
+        segmax_int8_reference,
+        topk_stream,
+        topk_stream_bound,
+        topk_stream_int8,
+        topk_stream_reference,
+    )
+
+    npad, B = docs_f32.shape[0], q.shape[0]
+    values_np, scales_np = quantize_rows(docs_f32.cpu().numpy())
+    values, scales = torch.from_numpy(values_np).to(dev), torch.from_numpy(scales_np).to(dev)
+    del values_np
+    qb = q.bfloat16()
+    docs = docs_f32.bfloat16()
+    recs = {}
+
+    # kernel 6: the per-row int8 segment max
+    shape = f"B={B} Npad={npad} n_valid={n_valid} H={H} int8 per row"
+    got = segmax_int8(qb, values, scales, n_valid)
+    want = segmax_int8_reference(qb, values, scales, n_valid)
+    err = (got - want).abs().max().item()
+    check(err <= INT8_ATOL, f"segmax_int8 {shape}: off by {err}")
+    check(bool((got[(n_valid + 127) // 128 :] == NEG_INF).all()), "segmax_int8: padding")
+    full = torch.matmul(qb.float(), values.float().T) * scales
+    zero_counts()
+    vals, ids = fused_topk_segmax_int8(qb, values, scales, k=FANOUT, n_valid=n_valid)
+    launches = read_counts()["segmax_int8"]
+    err = max(err, _check_topk(f"segmax_int8 top-{FANOUT}", vals, ids, full, n_valid, INT8_ATOL))
+    rec = {"shape": shape, "max_abs_err": err, "launches": launches}
+    rec["ms"] = time_ms(lambda: segmax_int8(qb, values, scales, n_valid))
+    rec["plain_ms"] = time_ms(lambda: segmax_int8_reference(qb, values, scales, n_valid),
+                              reps=5, warmup=1)
+    rec["library_ms"] = time_ms(lambda: (torch.matmul(values.to(torch.bfloat16), qb.T).float()
+                                         * scales[:, None]).view(-1, 128, B).amax(dim=1))
+    rec["bound_ms"], rec["bound_by"] = bound(*segmax_int8_bound(B, H, npad))
+    recs["segmax_int8"] = rec
+
+    # kernels 7 and 8: the running top-k over bf16 and over per-row int8
+    f_bf16 = torch.matmul(q.bfloat16().float(), docs.float().T)
+    for name, args, public, plain, tol, lib, nbytes_ops, f in (
+        ("topk_stream", (qb, docs), lambda: fused_topk(qb, docs, k=FANOUT, n_valid=n_valid),
+         lambda: topk_stream_reference(qb, docs, FANOUT, n_valid), SEGMAX_ATOL,
+         lambda: torch.topk(torch.matmul(qb, docs[:n_valid].T).float(), FANOUT),
+         topk_stream_bound(B, H, npad, FANOUT, 2), f_bf16),
+        ("topk_stream_int8", (qb, values, scales),
+         lambda: fused_topk_int8(qb, values, scales, k=FANOUT, n_valid=n_valid),
+         lambda: topk_stream_reference(qb, values, FANOUT, n_valid, scales), INT8_ATOL,
+         lambda: torch.topk(torch.matmul(qb, values[:n_valid].to(torch.bfloat16).T).float()
+                            * scales[:n_valid], FANOUT),
+         topk_stream_bound(B, H, npad, FANOUT, 1, scaled=True), full),
+    ):
+        kernel = topk_stream if name == "topk_stream" else topk_stream_int8
+        k_vals, k_ids = kernel(*args, FANOUT, n_valid)
+        r_vals, r_ids = plain()
+        err = (k_vals - r_vals).abs().max().item()
+        check(err <= tol, f"{name}: off its plain version by {err}")
+        err = max(err, _check_topk(f"{name} (kernel)", k_vals, k_ids, f, n_valid, tol))
+        zero_counts()
+        vals, ids = public()
+        launches = read_counts()[name]
+        err = max(err, _check_topk(f"{name} top-{FANOUT}", vals, ids, f, n_valid, tol))
+        same_ids = float((k_ids == r_ids).float().mean().item())
+        rec = {"shape": f"B={B} Npad={npad} n_valid={n_valid} H={H} k={FANOUT} "
+                        f"{'bf16' if name == 'topk_stream' else 'int8 per row'}",
+               "max_abs_err": err, "launches": launches, "ids_equal_plain": same_ids}
+        rec["ms"] = time_ms(lambda: kernel(*args, FANOUT, n_valid))
+        rec["plain_ms"] = time_ms(plain, reps=5, warmup=1)
+        rec["library_ms"] = time_ms(lib)
+        rec["bound_ms"], rec["bound_by"] = bound(*nbytes_ops)
+        recs[name] = rec
+    for name, rec in recs.items():
+        log(f"{name} {rec['shape']}: |diff| {rec['max_abs_err']:.3g}, {rec['launches']} launch "
+            f"from its public function; kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+            f"ms, library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
+            f"({rec['bound_by']})")
+    del values, scales, docs, full, f_bf16
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_int8_kernels(dev) -> dict:
+    npad_serve = -(-PASSAGES // 8192) * 8192
+    out = {"segmax_s8": []}
+    with torch.inference_mode():
+        gen = torch.Generator(device=dev).manual_seed(20)
+        q = _unit_rows_f32(gen, SERVE_ROWS, dev)
+        for npad, n_valid, timed in ((SCAN_ROWS, SCAN_VALID, True),
+                                     (npad_serve, PASSAGES, True)):
+            docs = _unit_rows_f32(gen, npad, dev)
+            docs[n_valid:] = 0.0
+            out["segmax_s8"].append(check_segmax_s8(docs, n_valid, q, dev, timed))
+            if npad == SCAN_ROWS:
+                for name, rec in check_int8_rows(docs, n_valid, q, dev).items():
+                    out[name] = [rec]
+            del docs
+            torch.cuda.empty_cache()
+    return out
+
+
 def _bwd_inputs(cell, B, T, seed, dev):
     """The forward's inputs, its bf16 history (from the forward kernel) and
     random cotangents: bf16 for the history, f32 for h_final."""
@@ -415,10 +686,14 @@ def check_rnn_bwd(cell: str, B: int, T: int, seed: int, dev, timed: bool) -> dic
 def check_rnn_bwd_split(B: int, T: int, seed: int, dev) -> dict:
     """Split mode (dxp and dhp out, both directions in one launch) against
     its plain version, and the hoisted weight gradient against the
-    combined kernel's own accumulation."""
+    combined kernel's own accumulation; timed: the split-mode launch, the
+    whole hoisted route (``TTMR_RNN_BWD_PLAN=hoisted``: the launch plus one
+    weight-gradient product per direction), the plain split version and
+    cuDNN's GRU backward."""
     from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
         _bwd_hoisted_call,
         _bwd_reference,
+        rnn_bwd_bound,
         rnn_layer_bwd,
         rnn_layer_bwd_hoisted,
     )
@@ -438,7 +713,19 @@ def check_rnn_bwd_split(B: int, T: int, seed: int, dev) -> dict:
     check(err <= BWD_DXP_REL * scale, f"rnn_bwd {shape}: dxp/dhp off by {err}")
     # db differs by design: the hoisted sum reads the bf16-rounded dhp
     check(w_rel <= BWD_W_REL and b_rel <= 2 * BWD_DXP_REL, f"rnn_bwd {shape}: hoisted dW/db")
-    return {"shape": shape, "max_abs_err": err, "hoisted_dw_rel": w_rel, "hoisted_db_rel": b_rel}
+    rec = {"shape": shape, "max_abs_err": err, "hoisted_dw_rel": w_rel, "hoisted_db_rel": b_rel}
+    kw = dict(compute_dtype="bfloat16")
+    rec["ms"] = time_ms(lambda: _bwd_hoisted_call("GRU", *args, **kw))
+    rec["route_ms"] = time_ms(lambda: rnn_layer_bwd_hoisted("GRU", *args, **kw))
+    rec["plain_ms"] = time_ms(lambda: _bwd_reference("GRU", *args, "bfloat16", split=True),
+                              reps=3, warmup=1)
+    rec["library_ms"] = _cudnn_gru_backward_ms(B, T, dev)
+    nbytes, flops = rnn_bwd_bound(T, B, H, 2, 3, 2, 2, split=True)
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+    log(f"rnn_bwd {shape}: kernel {rec['ms']:.4f} ms, hoisted route {rec['route_ms']:.4f} ms, "
+        f"plain {rec['plain_ms']:.4f} ms, cuDNN GRU backward {rec['library_ms']:.4f} ms, "
+        f"bound {rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+    return rec
 
 
 def phase_bwd_kernels(dev) -> list:
@@ -447,7 +734,8 @@ def phase_bwd_kernels(dev) -> list:
         check_rnn_bwd("GRU", 2 * TRAIN_ROWS, DOC_LEN, 12, dev, timed=True),  # doc tower
         check_rnn_bwd("LSTM", SERVE_ROWS, QUERY_LEN, 13, dev, timed=False),
         check_rnn_bwd("RNN", SERVE_ROWS, QUERY_LEN, 14, dev, timed=False),
-        check_rnn_bwd_split(TRAIN_ROWS, QUERY_LEN, 15, dev),
+        check_rnn_bwd_split(TRAIN_ROWS, QUERY_LEN, 15, dev),  # query tower, split mode
+        check_rnn_bwd_split(2 * TRAIN_ROWS, DOC_LEN, 16, dev),  # doc tower, split mode
     ]
 
 
@@ -479,8 +767,6 @@ def phase_export(dev):
     from twotowermlretrieval_tpu_torch.config import Config
     from twotowermlretrieval_tpu_torch.encoder import TextEncoder
     from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec, init_two_tower
-    from twotowermlretrieval_tpu_torch.ops.rnn_scan import rnn_layer_fwd
-    from twotowermlretrieval_tpu_torch.ops.topk import segmax
     from twotowermlretrieval_tpu_torch.tokenizer import Tokenizer
     from twotowermlretrieval_tpu_torch.train.artifacts import save_inference_artifacts
 
@@ -497,11 +783,11 @@ def phase_export(dev):
 
     if ARTIFACTS.exists():
         shutil.rmtree(ARTIFACTS)
-    rnn_layer_fwd.launches = segmax.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     save_inference_artifacts(ARTIFACTS, params, cfg, tok, {"train": triplets}, device=dev)
     export_s = time.perf_counter() - t0
-    export_launches = {"rnn_fwd": rnn_layer_fwd.launches, "segmax": segmax.launches}
+    export_launches = read_counts()
     batches = -(-PASSAGES // EXPORT_ROWS)
     log(f"export: {export_s:.1f} s, launches {export_launches} "
         f"({batches} doc batches of {EXPORT_ROWS} x {DOC_LEN}, 2 layers)")
@@ -565,24 +851,25 @@ def _same_results(got, want, tol: float) -> bool:
     return True
 
 
-def phase_serve(dev, triplets) -> dict:
-    from twotowermlretrieval_tpu_torch.ops.rnn_scan import rnn_layer_bwd, rnn_layer_fwd
-    from twotowermlretrieval_tpu_torch.ops.topk import segmax
-    from twotowermlretrieval_tpu_torch.serve.app import serve
-    from twotowermlretrieval_tpu_torch.serve.engine import SearchEngine
-
-    requests = [
+def _requests(triplets):
+    return [
         {"query": triplets[0][0], "alpha": 0.5},
         {"query": triplets[1][0], "alpha": 0.0},
         {"query": triplets[2][0], "alpha": 1.0},
         {"query": triplets[3][0] + " w1 w2", "alpha": 0.5},
         {"query": "nothing in the vocabulary here", "alpha": 0.7},
     ]
-    # the main path: the server as `ttr-torch-serve --artifacts ...` starts it
-    # (device cuda, bf16 corpus), driven with the launch counts at 0
-    rnn_layer_fwd.launches = rnn_layer_bwd.launches = segmax.launches = 0
+
+
+def _drive_server(requests, **serve_kwargs):
+    """The main path: the server as ``ttr-torch-serve --artifacts ...``
+    starts it (device cuda), driven over HTTP with every launch count at 0
+    and read just after. Returns (result record, the server's engine)."""
+    from twotowermlretrieval_tpu_torch.serve.app import serve
+
+    zero_counts()
     t0 = time.perf_counter()
-    server = serve(str(ARTIFACTS), port=0, host="127.0.0.1")
+    server = serve(str(ARTIFACTS), port=0, host="127.0.0.1", **serve_kwargs)
     startup_s = time.perf_counter() - t0
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -595,22 +882,22 @@ def phase_serve(dev, triplets) -> dict:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
-    launches = {"rnn_fwd": rnn_layer_fwd.launches, "rnn_bwd": rnn_layer_bwd.launches,
-                "segmax": segmax.launches}
-    log(f"serve: startup {startup_s:.1f} s, request ms "
+    launches = read_counts()
+    what = f"serve {serve_kwargs.get('storage_dtype', 'bfloat16')}"
+    log(f"{what}: startup {startup_s:.1f} s, request ms "
         f"{[round(ms, 3) for _, _, ms in responses]}, launches {launches}")
-
     check(status == 200 and json.loads(health) == {"status": "ok", "num_docs": PASSAGES},
           f"/health: {status} {health}")
     check(m_status == 200 and f"ttr_searches_total {len(requests)}" in metrics,
           "/metrics does not count the searches")
-    dense = sum(1 for r in requests if r["alpha"] != 0.0)
-    check(launches["rnn_fwd"] == 2 * dense and launches["segmax"] == dense,
-          f"serving launched {launches}, expected 2 rnn and 1 segmax per dense search")
-    check(launches["rnn_bwd"] == 0, "serving launched the backward kernel")
+    rec = {"startup_s": startup_s, "request_ms": [ms for _, _, ms in responses],
+           "launches": launches, "responses": responses}
+    return rec, server.RequestHandlerClass.engine
 
-    # the same requests through the port's engine on the CPU (plain versions)
-    reference = SearchEngine(ARTIFACTS, device="cpu")
+
+def _check_responses(requests, responses, reference, tol: float) -> None:
+    """The HTTP contract of every response, and its results against the
+    same request through ``reference`` (an engine on the CPU)."""
     for req, (code, body, _) in zip(requests, responses):
         q = req["query"][:40]
         check(code == 200, f"/search {q!r}: HTTP {code}")
@@ -629,12 +916,103 @@ def phase_serve(dev, triplets) -> dict:
         if req["alpha"] == 1.0:
             check(all(r["score"] == r["dense_score"] for r in results), "alpha 1: pure dense")
         want = reference.search(req["query"], alpha=req["alpha"])["results"]
-        tol = 0.0 if req["alpha"] == 0.0 else EMBED_ATOL
-        check(_same_results(results, want, tol),
+        check(_same_results(results, want, 0.0 if req["alpha"] == 0.0 else tol),
               f"{q!r} alpha {req['alpha']}: results differ from the CPU engine's")
+
+
+def phase_serve(dev, triplets) -> dict:
+    from twotowermlretrieval_tpu_torch.serve.engine import SearchEngine
+
+    requests = _requests(triplets)
+    rec, _ = _drive_server(requests)  # bf16 corpus, the default
+    launches = rec["launches"]
+    dense = sum(1 for r in requests if r["alpha"] != 0.0)
+    check(launches["rnn_fwd"] == 2 * dense and launches["segmax"] == dense,
+          f"serving launched {launches}, expected 2 rnn and 1 segmax per dense search")
+    check(launches["rnn_bwd"] == 0 and launches["segmax_s8"] == 0,
+          "bf16 serving launched the backward or the int8 scan")
+    # the same requests through the port's engine on the CPU (plain versions)
+    _check_responses(requests, rec.pop("responses"), SearchEngine(ARTIFACTS, device="cpu"),
+                     EMBED_ATOL)
     log(f"serve: {len(requests)} /search responses match the CPU engine")
-    return {"startup_s": startup_s, "request_ms": [ms for _, _, ms in responses],
-            "launches": launches}
+    return rec
+
+
+def phase_serve_int8(dev, triplets) -> dict:
+    """``ttr-torch-serve --storage-dtype int8``: 2 rnn_fwd and 1 segmax_s8
+    launch per dense search and nothing else; results against the port's
+    int8 engine on the CPU and, bit for bit, against the same engine on the
+    card with use_kernel=False (the two-phase path); then a boot with
+    autotune_retrieval persists its choice and a second boot applies it
+    without timing."""
+    from twotowermlretrieval_tpu_torch.serve import index as index_mod
+    from twotowermlretrieval_tpu_torch.serve.engine import SearchEngine
+
+    requests = _requests(triplets)
+    rec, engine = _drive_server(requests, storage_dtype="int8")
+    launches = rec["launches"]
+    dense = sum(1 for r in requests if r["alpha"] != 0.0)
+    check(launches["rnn_fwd"] == 2 * dense and launches["segmax_s8"] == dense,
+          f"int8 serving launched {launches}, expected 2 rnn_fwd and 1 segmax_s8 per dense "
+          f"search")
+    check(all(n == 0 for name, n in launches.items() if name not in ("rnn_fwd", "segmax_s8")),
+          f"int8 serving launched another kernel: {launches}")
+    _check_responses(requests, rec.pop("responses"),
+                     SearchEngine(ARTIFACTS, device="cpu", storage_dtype="int8"), INT8_SERVE_TOL)
+    log(f"serve int8: {len(requests)} /search responses match the CPU int8 engine "
+        f"(within {INT8_SERVE_TOL})")
+
+    dense_reqs = [{"query": r["query"], "fanout": FANOUT} for r in requests]
+    two_phase = SearchEngine(ARTIFACTS, device=dev, storage_dtype="int8", use_kernel=False)
+    for (a_s, a_i), (b_s, b_i) in zip(engine._dense_batch(dense_reqs),
+                                      two_phase._dense_batch(dense_reqs)):
+        check(np.array_equal(a_i, b_i) and np.array_equal(a_s, b_s),
+              "int8 dense results: the kernel path differs from the two-phase path")
+    log("serve int8: dense results equal the two-phase path's (use_kernel=False) bit for bit")
+
+    tuning = ARTIFACTS / index_mod.RETRIEVAL_TUNING_FILE
+    tuning.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    tuned = SearchEngine(ARTIFACTS, device=dev, storage_dtype="int8", autotune_retrieval=True)
+    rec["autotune_boot_s"] = time.perf_counter() - t0
+    saved = json.loads(tuning.read_text())
+    check(saved["decision"] == tuned.index.decision()
+          and saved["decision_signature"] == tuned.index.tuning_signature()
+          and len(saved["timings_ms"]) == 4 and "two_phase" not in saved["timings_ms"]
+          and saved["decision"]["use_pallas"] is not False,
+          f"autotune record {saved}: a card index times the four fused variants only")
+    rec["autotune_ms"] = saved["timings_ms"]
+
+    def no_timing(*a, **k):
+        raise SmokeFailure("a boot with a persisted decision ran a timing")
+
+    timer = index_mod.RetrievalIndex._time_variant
+    index_mod.RetrievalIndex._time_variant = no_timing
+    try:
+        again = SearchEngine(ARTIFACTS, device=dev, storage_dtype="int8")
+    finally:
+        index_mod.RetrievalIndex._time_variant = timer
+    check(again.index.decision() == saved["decision"], "the persisted decision was not applied")
+    # a record of the two-phase path winning (written by a CPU index) does
+    # not take a card index off its kernel
+    tuning.write_text(json.dumps({**saved, "decision": {**saved["decision"],
+                                                        "use_pallas": False}}))
+    off = SearchEngine(ARTIFACTS, device=dev, storage_dtype="int8")
+    check(off.index.kernel_on(), "a persisted use_pallas=false took the card index off the kernel")
+    for eng in (again, off):
+        zero_counts()
+        out = eng.search(requests[0]["query"], alpha=0.5)["results"]
+        counts = read_counts()
+        check(0 < len(out) <= 10, "the tuned engine does not serve")
+        check(counts["segmax_s8"] == 1 and counts["rnn_fwd"] == 2
+              and sum(counts.values()) == 3,
+              f"a dense search after a persisted decision launched {counts}, expected 2 "
+              f"rnn_fwd and 1 segmax_s8")
+    tuning.unlink()
+    log(f"serve int8: autotune boot {rec['autotune_boot_s']:.1f} s chose "
+        f"{saved['decision']}; the next boot applied it without timing, and each dense "
+        f"search after it launched segmax_s8 once")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -712,8 +1090,6 @@ def phase_train(dev, corpus) -> dict:
         init_two_tower,
         to_device,
     )
-    from twotowermlretrieval_tpu_torch.ops.rnn_scan import rnn_layer_bwd, rnn_layer_fwd
-    from twotowermlretrieval_tpu_torch.ops.topk import segmax
     from twotowermlretrieval_tpu_torch.serve.engine import SearchEngine
     from twotowermlretrieval_tpu_torch.train.checkpoint import CheckpointManager
     from twotowermlretrieval_tpu_torch.train.loop import train_on_datasets
@@ -730,13 +1106,12 @@ def phase_train(dev, corpus) -> dict:
     first = phase_first_step(dev, cfg, tok, table, datasets["train"])
 
     # the main path: the driver behind `ttr-torch-train`, with the counts at 0
-    rnn_layer_fwd.launches = rnn_layer_bwd.launches = segmax.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     res = train_on_datasets(cfg, tok, table, datasets, output_root=TRAIN_DIR / "artifacts",
                             checkpoint_dir=TRAIN_DIR / "ckpt", device=dev)
     train_s = time.perf_counter() - t0
-    launches = {"rnn_fwd": rnn_layer_fwd.launches, "rnn_bwd": rnn_layer_bwd.launches,
-                "segmax": segmax.launches}
+    launches = read_counts()
     steps, losses = res["steps"], res["step_losses"]
     log(f"train: {steps} steps in one epoch, {train_s:.1f} s with evaluation and export; "
         f"launches {launches}; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
@@ -812,36 +1187,40 @@ def main() -> int:
     try:
         phase_build()
         kern = phase_kernels(dev)
-        bwd = phase_bwd_kernels(dev)
+        kern.update(phase_int8_kernels(dev))
+        kern["rnn_bwd"] = phase_bwd_kernels(dev)
         export, corpus = phase_export(dev)
         served = phase_serve(dev, corpus[2])
+        served_int8 = phase_serve_int8(dev, corpus[2])
         trained = phase_train(dev, corpus)
     finally:
         shutil.rmtree(ARTIFACTS, ignore_errors=True)
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    sources = {
-        "rnn_fwd": ("twotowermlretrieval_tpu_torch/csrc/rnn_fwd.cu",
-                    "twotowermlretrieval_tpu/ops/rnn_scan.py:212"),
-        "segmax": ("twotowermlretrieval_tpu_torch/csrc/segmax.cu",
-                   "twotowermlretrieval_tpu/ops/topk.py:334"),
-        "rnn_bwd": ("twotowermlretrieval_tpu_torch/csrc/rnn_bwd.cu",
-                    "twotowermlretrieval_tpu/ops/rnn_scan.py:397"),
-    }
+    # each kernel's path, its counts read just after it ran: bf16 serving
+    # for rnn_fwd and segmax, training for rnn_bwd, int8 serving for
+    # segmax_s8, and for the kernels no serving or training path reaches,
+    # one call of their public function (fused_topk_segmax_int8,
+    # fused_topk, fused_topk_int8)
+    phases = {"export": export["launches"], "serve": served["launches"],
+              "serve_int8": served_int8["launches"], "train": trained["launches"]}
+    main_launches = {"rnn_fwd": served["launches"]["rnn_fwd"],
+                     "segmax": served["launches"]["segmax"],
+                     "rnn_bwd": trained["launches"]["rnn_bwd"],
+                     "segmax_s8": served_int8["launches"]["segmax_s8"]}
     kernels = []
-    for name, recs in (*kern.items(), ("rnn_bwd", bwd)):
-        # rnn_fwd: every query encode; segmax: the 1M-row scan; rnn_bwd:
-        # the query tower's train step
-        main_rec = recs[0]
+    for name, (_, source, replaces) in kernel_table().items():
+        recs = kern[name]
+        main_rec = recs[0]  # the shape of the kernel's main path (PERF.md's first row)
+        launches = main_launches.get(name, main_rec.get("launches", 0))
+        check(launches > 0, f"{name} was not launched on its path")
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": sources[name][0],
-            "replaces": sources[name][1],
-            # serving is the main path of rnn_fwd and segmax, training that
-            # of rnn_bwd; each count is read just after its path ran
-            "launches": (trained if name == "rnn_bwd" else served)["launches"][name],
+            "source": source,
+            "replaces": replaces,
+            "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": main_rec["ms"],
             "plain_ms": main_rec["plain_ms"],
@@ -849,11 +1228,11 @@ def main() -> int:
             "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],
             "shape": main_rec["shape"],
-            "serve_launches": served["launches"][name],
-            "train_launches": trained["launches"][name],
-            "export_launches": export["launches"].get(name, 0),
+            "launches_by_phase": {phase: counts[name] for phase, counts in phases.items()},
             "other_shapes": recs[1:],
         })
+    log(f"serve int8: request ms {[round(ms, 3) for ms in served_int8['request_ms']]}, "
+        f"autotune {json.dumps(served_int8['autotune_ms'])} ({card})")
     log(f"train: first step card-vs-CPU {json.dumps(trained['first_step'])}; "
         f"steady {trained['steady_steps_per_sec']:.3f} steps/s, "
         f"{trained['steady_examples_per_sec']:.1f} examples/s ({card})")

@@ -26,10 +26,26 @@ from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
 )
 from twotowermlretrieval_tpu_torch.ops.topk import (
     NEG_INF,
+    fused_topk,
+    fused_topk_int8,
     fused_topk_segmax,
+    fused_topk_segmax_int8,
+    fused_topk_segmax_s8,
+    quantize_query_rows,
+    quantize_rows,
+    quantize_segments,
+    s8_phase2,
     segmax,
+    segmax_int8,
+    segmax_int8_reference,
     segmax_reference,
+    segmax_s8,
+    segmax_s8_reference,
     topk_oracle,
+    topk_segmented_s8,
+    topk_stream,
+    topk_stream_int8,
+    topk_stream_reference,
 )
 from twotowermlretrieval_tpu_torch.utils.dtypes import resolve_device
 
@@ -248,3 +264,175 @@ def test_segmax_wrapper_rejects_what_the_kernel_does_not_take(dev):
         segmax(_unit_rows(gen, 4, 64, dev), docs, 256)  # dtype mismatch
     with pytest.raises(ValueError):
         segmax(_unit_rows(gen, 4, 64, dev).to(torch.bfloat16), docs[:200], 200)
+
+
+# ---------------------------------------------------------------------------
+# int8 scans and the running top-k
+# ---------------------------------------------------------------------------
+
+
+def _s8_case(dev, B, N, H, seed, seg=128):
+    """Unit rows quantized per segment (on the host, as the index does) and
+    per-row int8 queries, on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    d = torch.randn((N, H), generator=gen)
+    d = d / d.norm(dim=1, keepdim=True)
+    values, scales = quantize_segments(d.numpy(), seg=seg)
+    q = torch.randn((B, H), generator=gen)
+    q = q / q.norm(dim=1, keepdim=True)
+    q_i8, q_scale = quantize_query_rows(q)
+    return (q.to(dev), q_i8.to(dev), q_scale.to(dev), torch.from_numpy(values).to(dev),
+            torch.from_numpy(scales).to(dev))
+
+
+@pytest.mark.parametrize("seg", [32, 64, 128])
+@pytest.mark.parametrize("B", [1, 5, 16, 32])
+@pytest.mark.parametrize("with_cache", [False, True])
+def test_segmax_s8_kernel_equals_plain_version_bitwise(dev, seg, B, with_cache):
+    """Integer sums are exact in both (|score| < 2^24 at H=256), so the
+    segment maxima and the cache agree to the bit."""
+    _, q_i8, _, values, _ = _s8_case(dev, B, 8192, 256, seed=B + seg)
+    before = segmax_s8.launches
+    got, cache = segmax_s8(q_i8, values, seg, with_cache=with_cache)
+    assert segmax_s8.launches == before + 1
+    want, r_cache = segmax_s8_reference(q_i8, values, seg, with_cache=with_cache)
+    assert got.shape == (8192 // seg, B) and torch.equal(got, want)
+    assert (cache is None) == (not with_cache)
+    if with_cache:
+        assert torch.equal(cache, r_cache)
+
+
+@pytest.mark.parametrize("phase2", ["rescore", "gather"])
+@pytest.mark.parametrize("seg", [64, 128])
+def test_s8_search_on_the_card_equals_plain_phase1_and_two_phase(dev, phase2, seg):
+    """fused_topk_segmax_s8 with the kernel equals the same search with the
+    plain phase 1, and the two-phase path, in every bit."""
+    q, q_i8, q_scale, values, scales = _s8_case(dev, 16, 20480, 256, seed=seg, seg=seg)
+    kw = dict(k=50, n_valid=20000, seg=seg)
+    vals, ids = fused_topk_segmax_s8(q, values, scales, phase2=phase2, **kw)
+    maxima, cache = segmax_s8_reference(q_i8, values, seg, with_cache=phase2 == "gather")
+    r_vals, r_ids = s8_phase2(maxima, cache, q_i8, q_scale, values, scales, 50, 20000, seg)
+    assert torch.equal(ids, r_ids) and torch.equal(vals, r_vals)
+    t_vals, t_ids = topk_segmented_s8(q, values, scales, **kw)
+    assert torch.equal(ids, t_ids) and torch.equal(vals, t_vals)
+    assert ((ids >= 0) & (ids < 20000)).all()
+
+
+def test_segmax_s8_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    _, q_i8, _, values, _ = _s8_case(dev, 4, 256, 64, seed=0)
+    with pytest.raises(ValueError):
+        segmax_s8(q_i8, values, seg=16)  # segment width
+    with pytest.raises(ValueError):
+        segmax_s8(torch.cat([q_i8] * 9), values)  # 36 query rows
+    with pytest.raises(ValueError):
+        segmax_s8(q_i8[:, :40], values[:, :40].contiguous())  # H not a multiple of 16
+    with pytest.raises(ValueError):
+        segmax_s8(q_i8.float(), values)  # not int8
+    with pytest.raises(ValueError):
+        segmax_s8(q_i8.cpu(), values)  # devices differ
+    wide = torch.zeros((128, 1056), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="1040"):
+        segmax_s8(wide[:2], wide)  # integer scores no longer exact in f32
+
+
+@pytest.mark.parametrize("B", [1, 5, 16, 32])
+def test_segmax_int8_kernel_matches_plain_version(dev, B):
+    """Exact products summed in f32 in another order, times the row scale:
+    the sums of |q_i v_i| scale(row) are at most about 1 for unit rows, so
+    the two differ by at most about 2 * 256 * 2^-24 < 4e-5."""
+    gen = torch.Generator(device=dev).manual_seed(B)
+    d = _unit_rows(gen, 8192, 256, dev)
+    values, scales = (torch.from_numpy(a).to(dev) for a in quantize_rows(d.cpu().numpy()))
+    q = _unit_rows(gen, B, 256, dev).bfloat16()
+    before = segmax_int8.launches
+    got = segmax_int8(q, values, scales, 8000)
+    assert segmax_int8.launches == before + 1
+    want = segmax_int8_reference(q, values, scales, 8000)
+    torch.testing.assert_close(got, want, rtol=0, atol=4e-5)
+    assert (got[(8000 + 127) // 128 :] == NEG_INF).all()
+    vals, ids = fused_topk_segmax_int8(q, values, scales, k=50, n_valid=8000)
+    full = (torch.matmul(q.float(), values.float().T) * scales)[:, :8000]
+    torch.testing.assert_close(vals, torch.topk(full, 50).values, rtol=0, atol=4e-5)
+    torch.testing.assert_close(full.gather(1, ids.long()), vals, rtol=0, atol=4e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
+@pytest.mark.parametrize("B,k", [(1, 1), (5, 50), (16, 128), (32, 7)])
+def test_topk_stream_kernel_matches_plain_version(dev, dtype, B, k):
+    """The running top-k against the full product and a stable sort: the
+    values within the summation-order tolerance (4e-5, as above), every id
+    scoring its value, and -- where no two scores are that close -- the
+    same ids. 20,000 valid rows of 20,480 span several chunks."""
+    gen = torch.Generator(device=dev).manual_seed(B * 7 + k)
+    d = _unit_rows(gen, 20480, 256, dev)
+    q = _unit_rows(gen, B, 256, dev)
+    if dtype == torch.int8:
+        values, scales = (torch.from_numpy(a).to(dev) for a in quantize_rows(d.cpu().numpy()))
+        q = q.bfloat16()
+        fn, args, counter = topk_stream_int8, (q, values, scales), topk_stream_int8
+        r_vals, r_ids = topk_stream_reference(q, values, k, 20000, scales)
+        full = torch.matmul(q.float(), values.float().T) * scales
+    else:
+        docs, q = d.to(dtype), q.to(dtype)
+        fn, args, counter = topk_stream, (q, docs), topk_stream
+        r_vals, r_ids = topk_stream_reference(q, docs, k, 20000)
+        full = torch.matmul(q.float(), docs.float().T)
+    before = counter.launches
+    vals, ids = fn(*args, k, 20000)
+    assert counter.launches == before + 1
+    torch.testing.assert_close(vals, r_vals, rtol=0, atol=4e-5)
+    assert ((ids >= 0) & (ids < 20000)).all()
+    torch.testing.assert_close(full.gather(1, ids.long()), vals, rtol=0, atol=4e-5)
+    assert (vals[:, 1:] <= vals[:, :-1]).all()
+    top = torch.sort(full[:, :20000], dim=1, descending=True).values[:, : k + 1]
+    if (top[:, :-1] - top[:, 1:]).min().item() > 1e-4:  # no near-tie in or at the top k
+        assert torch.equal(ids, r_ids)
+
+
+def test_topk_stream_ties_and_short_corpus(dev):
+    """Bit-identical duplicate rows rank by id; fewer valid rows than k pad
+    with NEG_INF / -1; the public functions agree with the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    docs = _unit_rows(gen, 4096, 128, dev)
+    docs[3000] = docs[1000]
+    docs[2000] = docs[1000]
+    q = _unit_rows(gen, 4, 128, dev)
+    vals, ids = fused_topk(q, docs, k=128)
+    r_vals, r_ids = topk_stream_reference(q, docs, 128, 4096)
+    for row in ids.tolist():
+        pos = [row.index(i) for i in (1000, 2000, 3000) if i in row]
+        assert pos == sorted(pos)
+    vals, ids = fused_topk(q, docs, k=10, n_valid=3)
+    assert (ids[:, 3:] == -1).all() and (vals[:, 3:] <= NEG_INF).all()
+    assert sorted(ids[0, :3].tolist()) == [0, 1, 2]
+    values, scales = (torch.from_numpy(a).to(dev) for a in quantize_rows(docs.cpu().numpy()))
+    vals, ids = fused_topk_int8(q, values, scales, k=20, n_valid=4000)
+    r_vals, _ = topk_stream_reference(q.bfloat16(), values, 20, 4000, scales)
+    torch.testing.assert_close(vals, r_vals, rtol=0, atol=4e-5)
+
+
+def test_topk_stream_wrappers_reject_what_the_kernel_does_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    docs = _unit_rows(gen, 256, 64, dev).bfloat16()
+    q = _unit_rows(gen, 4, 64, dev).bfloat16()
+    with pytest.raises(ValueError, match="k in"):
+        topk_stream(q, docs, 129, 256)  # beyond the 128 keys the kernel keeps
+    with pytest.raises(ValueError):
+        topk_stream(torch.cat([q] * 9), docs, 10, 256)  # 36 query rows
+    with pytest.raises(ValueError):
+        topk_stream(q, docs[:200], 10, 200)  # rows not a multiple of 128
+    with pytest.raises(ValueError):
+        topk_stream(q.float(), docs, 10, 256)  # dtypes differ
+    wide = torch.zeros((256, 1024), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(RuntimeError, match="topk_stream_launch failed"):
+        topk_stream(wide[:32], wide, 10, 256)  # 32 query rows at H=1024: too much shared memory
+    vals, ids = topk_stream(wide[:16], wide, 10, 256)  # the refusal left no error behind
+    assert ids.tolist() == [list(range(10))] * 16
+    values = torch.zeros((256, 64), dtype=torch.int8, device=dev)
+    scales = torch.ones(256, device=dev)
+    with pytest.raises(ValueError):
+        topk_stream_int8(q.float(), values, scales, 10, 256)  # queries not bf16
+    with pytest.raises(ValueError):
+        topk_stream_int8(q, values, scales[:128], 10, 256)  # scales not per row
+    with pytest.raises(ValueError):
+        segmax_int8(torch.cat([q] * 9), values, scales, 256)

@@ -102,7 +102,7 @@ def test_unported_options_point_at_roadmap():
     from twotowermlretrieval_tpu_torch.serve.index import RetrievalIndex
 
     docs = np.zeros((4, 8), np.float32)
-    for kw in ({"storage_dtype": "int8"}, {"index_type": "ivf"}, {"mesh": object()}):
+    for kw in ({"index_type": "ivf"}, {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             RetrievalIndex(docs, device="cpu", **kw)
 

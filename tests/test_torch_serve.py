@@ -144,7 +144,7 @@ def test_port_artifacts_serve_through_jax_loader(synth_dir, datasets, tmp_path):
         )
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_index_search_matches_jax_index(dtype):
     """RetrievalIndex.search on host queries (5 rows, padded to 8 inside)
     returns the JAX index's ids and scores (f32 sums in another order)."""
@@ -160,6 +160,207 @@ def test_index_search_matches_jax_index(dtype):
     assert vals.shape == ids.shape == (5, 20)
     np.testing.assert_array_equal(ids, j_ids)
     np.testing.assert_allclose(vals, j_vals, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("use_kernel", [None, True, False])
+def test_int8_index_equals_jax_index_bitwise(use_kernel):
+    """The int8 index (rows padded to 8192, then one scale per 128-row
+    segment) returns the JAX index's ids and values to the bit, on the
+    fused path (JAX's s8 kernel in interpret mode) and the two-phase path
+    alike. On the CPU use_kernel=None takes the two-phase path, as JAX's
+    use_pallas=None does off the TPU."""
+    from twotowermlretrieval_tpu.serve.index import RetrievalIndex as JaxRetrievalIndex
+    from twotowermlretrieval_tpu_torch.serve.index import RetrievalIndex
+
+    rng = np.random.default_rng(22)
+    docs = rng.normal(size=(3000, 32)).astype(np.float32)
+    docs /= np.linalg.norm(docs, axis=1, keepdims=True)
+    q = rng.normal(size=(5, 32)).astype(np.float32)
+    port = RetrievalIndex(docs, storage_dtype="int8", device="cpu", use_kernel=use_kernel)
+    assert port.kernel_on() is bool(use_kernel)
+    ref = JaxRetrievalIndex(docs, storage_dtype="int8", use_pallas=use_kernel, interpret=True)
+    np.testing.assert_array_equal(port._docs.numpy(), np.asarray(ref._docs))
+    np.testing.assert_array_equal(port._scales.numpy(), np.asarray(ref._scales))
+    for phase2, srt in RetrievalIndex._AUTOTUNE_VARIANTS[:4]:
+        port.phase2, port.sort_candidates = ref.phase2, ref.sort_candidates = phase2, srt
+        vals, ids = port.search(q, 20)
+        j_vals, j_ids = ref.search(q, 20)
+        np.testing.assert_array_equal(ids, j_ids)
+        np.testing.assert_array_equal(vals, j_vals)
+
+
+# int8 engine against the JAX int8 engine: the f32 towers agree within
+# 1e-5, which can flip the int8 rounding of a query element lying on a
+# rounding boundary; one flip moves a score by one quantization step,
+# q_scale * |d_i| <= (0.5 / 127) * 0.6 < 2.5e-3 for these unit rows. The
+# tolerance allows two.
+INT8_ENGINE_TOL = 5e-3
+
+
+def test_int8_engine_matches_jax_engine(jax_artifacts_float32):
+    port = SearchEngine(jax_artifacts_float32, device="cpu", storage_dtype="int8")
+    ref = JaxSearchEngine(jax_artifacts_float32, storage_dtype="int8")
+    for q in QUERIES:
+        for alpha in ALPHAS:
+            p, j = port.search(q, alpha=alpha), ref.search(q, alpha=alpha)
+            _assert_same_results(p["results"], j["results"], INT8_ENGINE_TOL)
+            if alpha == 0.0:
+                assert p["results"] == j["results"]
+    fused = SearchEngine(jax_artifacts_float32, device="cpu", storage_dtype="int8",
+                         use_kernel=True)
+    requests = [{"query": q, "fanout": 50} for q in QUERIES]
+    for (a_s, a_i), (b_s, b_i) in zip(port._dense_batch(requests), fused._dense_batch(requests)):
+        np.testing.assert_array_equal(a_i, b_i)  # two-phase and fused: the same bits
+        np.testing.assert_array_equal(a_s, b_s)
+
+
+# ---------------------------------------------------------------------------
+# autotune and the persisted decision (retrieval_tuning.json)
+# ---------------------------------------------------------------------------
+
+
+def _unit_docs(seed, n, h):
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, h)).astype(np.float32)
+    return d / np.linalg.norm(d, axis=1, keepdims=True), rng
+
+
+def test_autotune_selects_fastest_variant_and_search_agrees():
+    """autotune keeps the variant the (injected) timer says is fastest, and
+    search under that variant returns the default's results bit for bit
+    (s8 scores are exact integers); the two-phase path winning routes
+    search off the fused path."""
+    from twotowermlretrieval_tpu_torch.serve.index import RetrievalIndex
+
+    d, rng = _unit_docs(23, 700, 16)
+    q = rng.normal(size=(3, 16)).astype(np.float32)
+    index = RetrievalIndex(d, storage_dtype="int8", device="cpu", use_kernel=True)
+    base_vals, base_ids = index.search(q, k=20)
+    canned = {
+        ("rescore", False): 3e-3, ("rescore", True): 2e-3,
+        ("gather", False): 4e-3, ("gather", True): 1e-3,
+        ("two_phase", False): 5e-3,
+    }
+    timings = index.autotune(timer=lambda p, s, B, k, iters: canned[(p, s)])
+    assert timings == canned
+    assert (index.phase2, index.sort_candidates) == ("gather", True)
+    vals, ids = index.search(q, k=20)
+    np.testing.assert_array_equal(ids, base_ids)
+    np.testing.assert_array_equal(vals, base_vals)
+
+    canned[("two_phase", False)] = 1e-4
+    index.autotune(timer=lambda p, s, B, k, iters: canned[(p, s)])
+    assert index.use_kernel is False and not index.kernel_on()
+    assert index.decision() == {"phase2": "rescore", "sort_candidates": False,
+                                "use_pallas": False}
+    vals, ids = index.search(q, k=20)
+    np.testing.assert_array_equal(ids, base_ids)
+    np.testing.assert_array_equal(vals, base_vals)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_autotune_on_a_card_index_keeps_the_kernel(dtype):
+    """A CUDA index times the four fused variants only, and a persisted
+    decision that turns the fused path off is not applied to it: no timing
+    takes a card's searches off the kernel. (The index is built on the CPU
+    and relabelled; only the decision logic runs, no search.)"""
+    from twotowermlretrieval_tpu_torch.serve.index import RetrievalIndex
+
+    d, _ = _unit_docs(26, 300, 16)
+    index = RetrievalIndex(d, storage_dtype=dtype, device="cpu")
+    index.device = torch.device("cuda")
+    assert index.kernel_on()
+    canned = {
+        ("rescore", False): 3e-3, ("rescore", True): 2e-3,
+        ("gather", False): 4e-3, ("gather", True): 1e-3,
+        ("two_phase", False): 1e-4,
+    }
+    timings = index.autotune(timer=lambda p, s, B, k, iters: canned[(p, s)])
+    assert set(timings) == set(RetrievalIndex._AUTOTUNE_VARIANTS[:4])
+    assert index.decision() == {"phase2": "gather", "sort_candidates": True,
+                                "use_pallas": None}
+    index.apply_decision({"phase2": "rescore", "sort_candidates": False, "use_pallas": False})
+    assert index.use_kernel is None and index.kernel_on()
+    assert (index.phase2, index.sort_candidates) == ("rescore", False)
+    index.apply_decision({"phase2": "gather", "sort_candidates": False, "use_pallas": True})
+    assert index.use_kernel is True
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_autotune_real_timer_runs_all_variants(dtype):
+    """The measurement path itself times every variant and picks one (tiny
+    sizes, host clock on the CPU); search still answers under the winner."""
+    from twotowermlretrieval_tpu_torch.serve.index import RetrievalIndex
+
+    d, rng = _unit_docs(24, 600, 8)
+    index = RetrievalIndex(d, storage_dtype=dtype, device="cpu", use_kernel=True)
+    timings = index.autotune(B=2, k=5, iters=3)
+    assert set(timings) == set(RetrievalIndex._AUTOTUNE_VARIANTS)
+    assert all(t > 0 for t in timings.values())
+    assert (index.phase2, index.sort_candidates) in timings or index.use_kernel is False
+    vals, ids = index.search(rng.normal(size=(2, 8)).astype(np.float32), k=5)
+    assert vals.shape == ids.shape == (2, 5)
+
+
+def test_autotune_noop_off_the_fused_path():
+    from twotowermlretrieval_tpu_torch.serve.index import RetrievalIndex
+
+    d, _ = _unit_docs(25, 100, 8)
+    for use_kernel in (False, None):  # None on a CPU index: the two-phase path
+        index = RetrievalIndex(d, storage_dtype="int8", device="cpu", use_kernel=use_kernel)
+        assert index.autotune() == {}
+        assert (index.phase2, index.sort_candidates) == ("rescore", False)
+
+
+def test_autotune_decision_persisted_and_applied(jax_artifacts_float32, tmp_path, monkeypatch):
+    """autotune_retrieval writes its winner into the artifact directory;
+    the next boot applies it and runs no timing."""
+    import shutil
+
+    from twotowermlretrieval_tpu_torch.serve import index as index_mod
+
+    art = tmp_path / "art_tuned"
+    shutil.copytree(jax_artifacts_float32, art)
+    eng = SearchEngine(art, device="cpu", storage_dtype="int8", use_kernel=True,
+                       autotune_retrieval=True)
+    rec = json.loads((art / index_mod.RETRIEVAL_TUNING_FILE).read_text())
+    assert rec["decision_signature"] == eng.index.tuning_signature()
+    assert rec["decision"] == eng.index.decision()
+    assert set(rec["timings_ms"]) == {"rescore", "rescore+sorted", "gather", "gather+sorted",
+                                      "two_phase"}
+
+    def boom(*a, **k):
+        raise AssertionError("a restart ran a timing")
+
+    monkeypatch.setattr(index_mod.RetrievalIndex, "_time_variant", boom)
+    eng2 = SearchEngine(art, device="cpu", storage_dtype="int8")
+    assert eng2.index.decision() == rec["decision"]
+    assert len(eng2.search("t0w1 t0w2", alpha=0.7, top_k=5)["results"]) == 5
+    # an explicit use_kernel wins over the record, as an explicit use_pallas does in JAX
+    eng3 = SearchEngine(art, device="cpu", storage_dtype="int8", use_kernel=False)
+    assert eng3.index.decision() == {"phase2": "rescore", "sort_candidates": False,
+                                     "use_pallas": False}
+
+
+def test_stale_tuning_record_is_ignored(jax_artifacts_float32, tmp_path):
+    """A record measured for another corpus shape or backend is not
+    applied, and neither is a decision of the JAX package's TPU runs."""
+    import shutil
+
+    from twotowermlretrieval_tpu_torch.serve import index as index_mod
+
+    art = tmp_path / "art_stale"
+    shutil.copytree(jax_artifacts_float32, art)
+    n = np.load(art / "document_embeddings.npy").shape
+    for sig in ({"num_docs": 999999, "dim": 4}, {"num_docs": n[0], "dim": n[1]}):
+        index_mod.save_retrieval_tuning(art, {
+            "decision_signature": {**sig, "storage_dtype": "int8", "index_type": "exact",
+                                   "backend": "tpu"},
+            "decision": {"phase2": "gather", "sort_candidates": True, "use_pallas": True},
+        })
+        eng = SearchEngine(art, device="cpu", storage_dtype="int8")
+        assert eng.index.decision() == {"phase2": "rescore", "sort_candidates": False,
+                                        "use_pallas": None}
 
 
 def test_inferencer_matches_jax_inferencer(jax_artifacts_float32):

@@ -1,11 +1,12 @@
 """TwoTowerMLRetrieval, PyTorch/CUDA port of the JAX/TPU package.
 
 Trains the two towers (``ttr-torch-train``) and serves hybrid dense +
-TF-IDF search from an artifact directory (``ttr-torch-serve``) on an NVIDIA
-Hopper card. The recurrent time loop (forward and backward) and the
-segment-max top-k scan are CUDA C++ kernels under ``csrc/``, built with
-nvcc at first use (``ops/_build.py``); everything around them is plain
-PyTorch. The package imports neither ``jax`` nor the JAX package: the host
+TF-IDF search from an artifact directory (``ttr-torch-serve``, over a
+bf16, f32 or int8 corpus index) on an NVIDIA Hopper card. The recurrent
+time loop (forward and backward), the segment-max top-k scans (bf16/f32,
+per-row int8, per-segment s8) and the running top-k are CUDA C++ kernels
+under ``csrc/``, built with nvcc at first use (``ops/_build.py``);
+everything around them is plain PyTorch. The package imports neither ``jax`` nor the JAX package: the host
 modules it needs (config, tokenizer, TF-IDF, telemetry, the triplet
 loader, GloVe and synthetic-data helpers, the metric logger) are its own
 copies.

@@ -1,120 +1,64 @@
 // Segment-max scan of the corpus: phase 1 of the exact top-k search.
 //
-// Replaces: twotowermlretrieval_tpu/ops/topk.py _segmax_kernel (called
-// through fused_topk_segmax). Same contract: queries q [B, H] and docs
-// [Npad, H] in the storage dtype (bf16 or f32), Npad a multiple of the
-// 128-row segment. Scores docs . q^T are summed in f32; rows >= n_valid
-// score NEG_INF (-3e38). Writes the maximum of each 128-row segment as
-// segmax [S, B] f32 and, when asked (phase2="gather"), every masked score
-// as cache [Npad, B] f32.
+// Replaces two TPU kernels of twotowermlretrieval_tpu/ops/topk.py:
+// - _segmax_kernel (called through fused_topk_segmax): queries q [B, H] and
+//   docs [Npad, H] in the storage dtype (bf16 or f32);
+// - _segmax_int8_kernel (called through fused_topk_segmax_int8): docs
+//   [Npad, H] int8 quantized per row with scales [Npad] f32, queries bf16;
+//   each score is multiplied by its row's scale after the sum.
+// Same contract for both: Npad a multiple of the 128-row segment; scores
+// docs . q^T are summed in f32; rows >= n_valid score NEG_INF (-3e38).
+// Writes the maximum of each 128-row segment as segmax [S, B] f32 and, when
+// asked (phase2="gather", bf16/f32 only), every masked score as cache
+// [Npad, B] f32.
 //
 // What bounds it on Hopper: the bytes of the corpus. At 1,048,576 x 256
-// bf16 the scan reads 512 MiB, 0.16 ms at 3.35 TB/s, while the products
-// (2*B*H per row) are far below the card's rate; only [S, B] floats go
-// back to memory.
+// bf16 the scan reads 512 MiB, 0.16 ms at 3.35 TB/s (int8: 256 MiB and the
+// 4 MiB of scales, 0.081 ms), while the products (2*B*H per row) are far
+// below the card's rate; only [S, B] floats go back to memory.
 //
 // Design (the simple, correct first version): a block of 128 threads owns
-// one segment at a time (grid-stride over segments); thread i owns doc row
-// i of the segment and keeps its B running sums in registers, so the
-// segment max is one block reduction and no score tile ever leaves the
-// chip. The queries sit in shared memory as f32 for the block's lifetime
-// (at most 32 x 256 x 4 = 32 KiB), read as broadcasts. Doc rows stream
-// through shared memory in 128-byte column chunks, loaded with coalesced
-// 16-byte loads and a 16-byte row pad so the per-row reads are free of
-// bank conflicts. Products are f32 FMAs (a bf16 x bf16 product is exact in
-// f32). Tensor-core products, TMA and double-buffered chunks are later
-// work.
+// one segment at a time (grid-stride over segments) and scores it with
+// doc_tile.cuh (thread i owns doc row i, B sums in registers, rows staged
+// through shared memory), so the segment max is one block reduction and no
+// score tile ever leaves the chip. The int8 rows are converted to f32 in
+// registers (exact); the per-row scale multiplies the f32 sum, as the TPU
+// kernel does. Tensor-core products, TMA and double-buffered chunks are
+// later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "doc_tile.cuh"
 
 namespace {
 
-constexpr int SEG = 128;          // rows per segment == threads per block
-constexpr int CHUNK_BYTES = 128;  // bytes of each doc row per staged chunk
-constexpr int PITCH = CHUNK_BYTES + 16;
+using doc_tile::ROWS;
+constexpr int SEG = ROWS;  // rows per segment == threads per block
 constexpr float NEG_INF = -3.0e38f;
 
-__device__ __forceinline__ void unpack(const uint4& raw, float (&x)[8]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(p[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void unpack(const uint4& raw, float (&x)[4]) {
-  const float4 f = *reinterpret_cast<const float4*>(&raw);
-  x[0] = f.x;
-  x[1] = f.y;
-  x[2] = f.z;
-  x[3] = f.w;
-}
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// T: storage dtype; BQ: query rows held per thread (B <= BQ).
-template <typename T, int BQ>
+// T: storage dtype; TQ: query dtype; BQ: query rows held per thread (B <= BQ).
+template <typename T, typename TQ, int BQ>
 __global__ void __launch_bounds__(SEG) segmax_kernel(
     int B, int H, long long S, long long n_valid,
-    const T* __restrict__ q, const T* __restrict__ docs,
+    const TQ* __restrict__ q, const T* __restrict__ docs, const float* __restrict__ scales,
     float* __restrict__ segmax, float* __restrict__ cache) {
-  constexpr int VEC = 16 / sizeof(T);          // elements per 16-byte load
-  constexpr int KC = CHUNK_BYTES / sizeof(T);  // elements per staged chunk
-  const int QP = H + 4;                        // padded query row (floats)
-
   extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);                  // [BQ][QP]
-  unsigned char* tile = smem + (size_t)BQ * QP * sizeof(float);  // [SEG][PITCH]
-  float* red = reinterpret_cast<float*>(tile + SEG * PITCH);     // [SEG/32][BQ]
+  float* q_s = reinterpret_cast<float*>(smem);                        // [BQ][H + 4]
+  unsigned char* tile = smem + (size_t)BQ * (H + 4) * sizeof(float);  // [SEG][PITCH]
+  float* red = reinterpret_cast<float*>(tile + doc_tile::TILE_BYTES); // [SEG/32][BQ]
 
-  for (int i = threadIdx.x; i < BQ * QP; i += SEG) {
-    const int b = i / QP, k = i % QP;
-    q_s[i] = (b < B && k < H) ? to_f(q[(size_t)b * H + k]) : 0.0f;
-  }
+  doc_tile::load_queries<TQ, BQ>(B, H, q, q_s);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (long long s = blockIdx.x; s < S; s += gridDim.x) {
     const long long seg_row0 = s * SEG;
     float acc[BQ];
-#pragma unroll
-    for (int b = 0; b < BQ; ++b) acc[b] = 0.0f;
-
-    for (int k0 = 0; k0 < H; k0 += KC) {
-      const int vpr = (H - k0 < KC ? H - k0 : KC) / VEC;  // 16-byte vectors per row
-      __syncthreads();  // the previous chunk (and the query load) is complete
-      for (int i = threadIdx.x; i < SEG * vpr; i += SEG) {
-        const int r = i / vpr, v = i % vpr;
-        const uint4 val = *reinterpret_cast<const uint4*>(
-            docs + (size_t)(seg_row0 + r) * H + k0 + v * VEC);
-        *reinterpret_cast<uint4*>(tile + r * PITCH + v * 16) = val;
-      }
-      __syncthreads();
-      for (int v = 0; v < vpr; ++v) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(tile + threadIdx.x * PITCH + v * 16);
-        float x[VEC];
-        unpack(raw, x);
-        const float* qk = q_s + k0 + v * VEC;
-#pragma unroll
-        for (int b = 0; b < BQ; ++b) {
-          const float4* qv = reinterpret_cast<const float4*>(qk + b * QP);
-#pragma unroll
-          for (int e = 0; e < VEC / 4; ++e) {
-            const float4 qq = qv[e];
-            acc[b] = fmaf(x[4 * e + 0], qq.x, acc[b]);
-            acc[b] = fmaf(x[4 * e + 1], qq.y, acc[b]);
-            acc[b] = fmaf(x[4 * e + 2], qq.z, acc[b]);
-            acc[b] = fmaf(x[4 * e + 3], qq.w, acc[b]);
-          }
-        }
-      }
-    }
+    doc_tile::score_tile<T, BQ>(H, docs, seg_row0, q_s, tile, acc);
 
     const long long row = seg_row0 + threadIdx.x;
+    if (scales != nullptr) {
+      const float sc = scales[row];
+#pragma unroll
+      for (int b = 0; b < BQ; ++b) acc[b] *= sc;
+    }
     if (row >= n_valid) {
 #pragma unroll
       for (int b = 0; b < BQ; ++b) acc[b] = NEG_INF;
@@ -140,17 +84,17 @@ __global__ void __launch_bounds__(SEG) segmax_kernel(
       for (int w = 1; w < SEG / 32; ++w) m = fmaxf(m, red[w * BQ + threadIdx.x]);
       segmax[s * B + threadIdx.x] = m;
     }
-    // the next segment's first __syncthreads orders these reads of red
-    // before its writes
+    // the next segment's first __syncthreads (in score_tile) orders these
+    // reads of red before its writes
   }
 }
 
-template <typename T, int BQ>
+template <typename T, typename TQ, int BQ>
 int launch(int B, int H, long long npad, long long n_valid, const void* q, const void* docs,
-           float* segmax, float* cache, cudaStream_t stream) {
-  auto kernel = segmax_kernel<T, BQ>;
+           const float* scales, float* segmax, float* cache, cudaStream_t stream) {
+  auto kernel = segmax_kernel<T, TQ, BQ>;
   const size_t smem =
-      (size_t)BQ * (H + 4) * sizeof(float) + SEG * PITCH + (SEG / 32) * BQ * sizeof(float);
+      (size_t)BQ * (H + 4) * sizeof(float) + doc_tile::TILE_BYTES + (SEG / 32) * BQ * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -162,17 +106,20 @@ int launch(int B, int H, long long npad, long long n_valid, const void* q, const
   const long long S = npad / SEG;
   long long grid = (long long)sms * 4;
   if (grid > S) grid = S;
-  kernel<<<(unsigned)grid, SEG, smem, stream>>>(B, H, S, n_valid, static_cast<const T*>(q),
-                                                static_cast<const T*>(docs), segmax, cache);
+  kernel<<<(unsigned)grid, SEG, smem, stream>>>(B, H, S, n_valid, static_cast<const TQ*>(q),
+                                                static_cast<const T*>(docs), scales, segmax,
+                                                cache);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TQ>
 int dispatch_bq(int B, int H, long long npad, long long n_valid, const void* q, const void* docs,
-                float* segmax, float* cache, cudaStream_t stream) {
-  if (B <= 8) return launch<T, 8>(B, H, npad, n_valid, q, docs, segmax, cache, stream);
-  if (B <= 16) return launch<T, 16>(B, H, npad, n_valid, q, docs, segmax, cache, stream);
-  return launch<T, 32>(B, H, npad, n_valid, q, docs, segmax, cache, stream);
+                const float* scales, float* segmax, float* cache, cudaStream_t stream) {
+  if (B <= 8)
+    return launch<T, TQ, 8>(B, H, npad, n_valid, q, docs, scales, segmax, cache, stream);
+  if (B <= 16)
+    return launch<T, TQ, 16>(B, H, npad, n_valid, q, docs, scales, segmax, cache, stream);
+  return launch<T, TQ, 32>(B, H, npad, n_valid, q, docs, scales, segmax, cache, stream);
 }
 
 }  // namespace
@@ -193,8 +140,23 @@ int segmax_launch(int device, int is_bf16, int B, int H, long long npad, long lo
   if (set != cudaSuccess) return (int)set;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch_bq<__nv_bfloat16>(B, H, npad, n_valid, q, docs, segmax, cache, s);
-  return dispatch_bq<float>(B, H, npad, n_valid, q, docs, segmax, cache, s);
+    return dispatch_bq<__nv_bfloat16, __nv_bfloat16>(B, H, npad, n_valid, q, docs, nullptr,
+                                                     segmax, cache, s);
+  return dispatch_bq<float, float>(B, H, npad, n_valid, q, docs, nullptr, segmax, cache, s);
+}
+
+// The per-row int8 index: q [B, H] bf16, docs [npad, H] int8, scales
+// [npad] f32. 1 <= B <= 32; H a multiple of 16; npad a multiple of 128.
+int segmax_int8_launch(int device, int B, int H, long long npad, long long n_valid,
+                       const void* q, const void* docs, const float* scales, float* segmax,
+                       void* stream) {
+  if (B < 1 || B > 32 || npad % SEG != 0 || H % 16 != 0 || scales == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (npad == 0) return 0;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  return dispatch_bq<int8_t, __nv_bfloat16>(B, H, npad, n_valid, q, docs, scales, segmax,
+                                            nullptr, static_cast<cudaStream_t>(stream));
 }
 
 const char* segmax_error_string(int err) {

@@ -1,16 +1,36 @@
-"""Exact top-k retrieval: segment-max scan (CUDA kernel) + torch phase 2.
+"""Exact top-k retrieval: CUDA scan kernels + torch selection.
 
-:func:`fused_topk_segmax` is the port of the JAX package's function of the
-same name (``ops/topk.py``). Phase 1 scores every doc row against the
-queries in the storage dtype with f32 sums, masks rows >= ``n_valid``
-with ``NEG_INF`` and keeps only the maximum of each 128-row segment
-([S, B] f32), plus optionally every masked score ([Npad, B] f32,
-``phase2="gather"``). On a CUDA tensor phase 1 is ``csrc/segmax.cu``; on a
-CPU tensor it is :func:`segmax_reference`. Phase 2 is plain torch: the k
-segments with the largest maxima per query cover the true top-k (the
-segment holding the i-th best score has a maximum >= it, and fewer than i
-other segments can beat that), so re-scoring (or gathering) those
-k * 128 candidates and taking their top-k is exact.
+The port of the JAX package's ``ops/topk.py``. Five kernel wrappers over
+three CUDA sources, each with a plain PyTorch version beside it (a CPU
+tensor takes the plain version, a CUDA tensor launches the kernel or
+raises) and a launch count:
+
+- :func:`segmax` (``csrc/segmax.cu``): phase 1 of :func:`fused_topk_segmax`
+  over a bf16/f32 corpus. Scores every doc row against the queries in the
+  storage dtype with f32 sums, masks rows >= ``n_valid`` with ``NEG_INF``
+  and keeps only the maximum of each 128-row segment ([S, B] f32), plus
+  optionally every masked score ([Npad, B] f32, ``phase2="gather"``).
+- :func:`segmax_int8` (``csrc/segmax.cu``): the same over a corpus
+  quantized per row (:func:`quantize_rows`), each sum times its row's scale;
+  phase 1 of :func:`fused_topk_segmax_int8`.
+- :func:`segmax_s8` (``csrc/segmax_s8.cu``): phase 1 of int8 serving
+  (:func:`fused_topk_segmax_s8`) over a corpus quantized per segment
+  (:func:`quantize_segments`) with per-row int8 queries: exact integer
+  scores, integer segment maxima, no padding mask.
+- :func:`topk_stream` / :func:`topk_stream_int8` (``csrc/topk_stream.cu``):
+  the running top-k behind :func:`fused_topk` / :func:`fused_topk_int8`.
+
+Phase 2 of the segment-max searches is plain torch: the k segments with
+the largest maxima per query cover the true top-k (the segment holding the
+i-th best score has a maximum >= it, and fewer than i other segments can
+beat that), so re-scoring (or gathering) those candidates and taking their
+top-k is exact. :func:`topk_segmented` and its int8 siblings are the
+two-phase path over a full [B, N] product, as the JAX package has them.
+
+The int8 paths keep the JAX package's arithmetic to the bit: integer
+scores are exact (int32 products on the CPU; f32 products with TF32 off on
+a card, exact while |sum| <= 127 * 127 * H < 2^24, i.e. H <= 1040), and
+the dequantizing multiplies run in the same order.
 
 Ties: ``lax.top_k`` breaks ties toward the lower index and ``torch.topk``
 on CUDA promises no order. Every selection here is a stable descending
@@ -25,33 +45,82 @@ from __future__ import annotations
 import ctypes
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from twotowermlretrieval_tpu_torch.ops import _build
 
 NEG_INF = float(-3.0e38)  # fits f32; safer than -inf for max/compare chains
 _SEG = 128  # covering-segment width; int8 index files of the JAX package use it too
-# The kernel holds at most this many query rows (in registers and shared
+# The kernels hold at most this many query rows (in registers and shared
 # memory); larger batches run one corpus pass per block of queries.
 _MAX_KERNEL_B = 32
+_S8_SEGS = (32, 64, 128)  # segment widths the s8 kernel takes
+_S8_MAX_H = 1040  # 127 * 127 * H < 2^24: integer scores exact in f32
+_TOPK_MAX_K = 128  # keys the running top-k kernel keeps per query row
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))  # exact in f32
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
 _LL = ctypes.c_longlong
 
+# C entry points of each kernel library; each begins with the device
+# ordinal and ends with the stream.
+_SIGNATURES = {
+    "segmax": {
+        # device, is_bf16, B, H, npad, n_valid, q, docs, segmax, cache, stream
+        "segmax_launch": [_INT, _INT, _INT, _INT, _LL, _LL] + [_VOIDP] * 5,
+        # device, B, H, npad, n_valid, q, docs, scales, segmax, stream
+        "segmax_int8_launch": [_INT, _INT, _INT, _LL, _LL] + [_VOIDP] * 5,
+    },
+    "segmax_s8": {
+        # device, B, H, npad, seg, q, docs, segmax, cache, stream
+        "segmax_s8_launch": [_INT, _INT, _INT, _LL, _INT] + [_VOIDP] * 5,
+    },
+    "topk_stream": {
+        # device, storage, B, H, k, npad, n_valid, tiles_per_chunk,
+        # q, docs, scales, cand, vals, ids, stream
+        "topk_stream_launch": [_INT, _INT, _INT, _INT, _INT, _LL, _LL, _INT] + [_VOIDP] * 7,
+    },
+}
 
-def _lib():
-    lib = _build.load("segmax")
+
+def _lib(name: str):
+    lib = _build.load(name)
     if not getattr(lib, "_ttr_bound", False):
-        lib.segmax_launch.restype = _INT
-        lib.segmax_launch.argtypes = [
-            _INT, _INT, _INT, _INT, _LL, _LL,  # device, is_bf16, B, H, npad, n_valid
-            _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # q, docs, segmax, cache, stream
-        ]
-        lib.segmax_error_string.restype = ctypes.c_char_p
-        lib.segmax_error_string.argtypes = [_INT]
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).restype = _INT
+            getattr(lib, fn).argtypes = argtypes
+        err = getattr(lib, f"{name}_error_string")
+        err.restype = ctypes.c_char_p
+        err.argtypes = [_INT]
         lib._ttr_bound = True
     return lib
+
+
+def _launch(name: str, fn: str, device: torch.device, *args) -> None:
+    """Call the C launcher ``fn`` of library ``name`` on ``device``'s
+    current stream; raise on a non-zero CUDA error."""
+    lib = _lib(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        # the tensors' device (inside the with): the library carries its own runtime
+        err = getattr(lib, fn)(torch.cuda.current_device(), *args, stream)
+    if err:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{fn} failed: {msg}")
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _require_cuda(fn: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{fn} runs on cpu or cuda tensors, not {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{fn}: every tensor must be contiguous and 16-byte aligned")
 
 
 def _stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -60,10 +129,113 @@ def _stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _block_queries(fn, queries, *args, **kwargs):
+    """Batches beyond the kernels' 32 query rows run one call (one corpus
+    pass) per block of rows; every result row depends on its query alone."""
+    parts = [fn(queries[i : i + _MAX_KERNEL_B], *args, **kwargs)
+             for i in range(0, queries.shape[0], _MAX_KERNEL_B)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _pad_docs(docs: torch.Tensor, tile_n: int, *extra: Tuple[torch.Tensor, float]):
+    """Zero-pad rows to a multiple of ``tile_n`` (a no-op for the serving
+    index, which pads once); ``extra`` pairs (per-row or per-segment
+    vector, fill value) are padded alongside, in proportion."""
+    n_pad = (-docs.shape[0]) % tile_n
+    if not n_pad:
+        return (docs, *(v for v, _ in extra))
+    out = [torch.cat([docs, docs.new_zeros((n_pad, docs.shape[1]))])]
+    for vec, fill in extra:
+        per = docs.shape[0] // vec.shape[0]  # rows per entry: 1 or the segment width
+        out.append(torch.cat([vec, vec.new_full((n_pad // per,), fill)]))
+    return tuple(out)
+
+
+def _check_search_args(B, H, docs, k, tile_n, seg=_SEG, phase2="rescore"):
+    N = docs.shape[0]
+    if docs.shape[1] != H:
+        raise ValueError(f"dim mismatch: queries H={H}, docs H={docs.shape[1]}")
+    if k > N:
+        raise ValueError(f"k={k} larger than corpus N={N}")
+    if tile_n % seg:
+        raise ValueError(f"tile_n={tile_n} must be a multiple of {seg}")
+    if phase2 not in ("rescore", "gather"):
+        raise ValueError(f"phase2 must be 'rescore' or 'gather': {phase2!r}")
+
+
 def topk_oracle(queries: torch.Tensor, docs: torch.Tensor, k: int):
     """Exact top-k by a full f32 product and a stable sort."""
     scores = torch.matmul(queries.float(), docs.float().T)
     return _stable_topk(scores, k)
+
+
+# ---------------------------------------------------------------------------
+# quantization (numpy on the host, bit for bit the JAX package's)
+# ---------------------------------------------------------------------------
+
+
+def quantize_segments(x: np.ndarray, seg: int = _SEG) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-SEGMENT int8 quantization: values [N, H] int8 +
+    scales [N/seg] f32 with ``x[i] ~= values[i] * scales[i // seg]``.
+    N must be a multiple of ``seg`` (the serving index pads rows first;
+    all-zero padding segments get scale 1.0 -> values 0)."""
+    x = np.asarray(x, np.float32)
+    N, H = x.shape
+    if N % seg:
+        raise ValueError(f"rows {N} must be a multiple of segment {seg}")
+    blocks = x.reshape(N // seg, seg * H)
+    scales = np.abs(blocks).max(axis=1) / 127.0
+    scales = np.where(scales == 0.0, 1.0, scales).astype(np.float32)
+    values = np.clip(
+        np.rint(x / np.repeat(scales, seg)[:, None]), -127, 127
+    ).astype(np.int8)
+    return values, scales
+
+
+def quantize_rows(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-row int8 quantization: values [N, H] int8 + scales
+    [N] f32 with ``x ~= values * scales[:, None]``."""
+    x = np.asarray(x, np.float32)
+    scales = np.abs(x).max(axis=1) / 127.0
+    scales = np.where(scales == 0.0, 1.0, scales).astype(np.float32)
+    values = np.clip(np.rint(x / scales[:, None]), -127, 127).astype(np.int8)
+    return values, scales
+
+
+def quantize_query_rows(queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 query quantization: (q_i8 [B, H], scales
+    [B, 1] f32). ``torch.round`` rounds half to even, as ``jnp.round``
+    does. The scale is ``absmax`` times the f32 reciprocal of 127: the JAX
+    package writes ``absmax / 127.0``, and XLA compiles that division by a
+    constant into this product inside every jitted search. A per-row
+    positive factor never changes that row's ranking, so phase-1 segment
+    selection ignores the scale."""
+    q32 = queries.float()
+    q_absmax = q32.abs().amax(dim=1, keepdim=True)
+    q_scale = torch.where(q_absmax == 0.0, torch.ones_like(q_absmax), q_absmax * _INV_127)
+    q_i8 = torch.clamp(torch.round(q32 / q_scale), -127, 127).to(torch.int8)
+    return q_i8, q_scale
+
+
+def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer product of int8 operands ``a`` [..., M, H] and ``b``
+    [..., H, N], as f32. ``torch.matmul`` of int8 CPU tensors wraps in
+    int8, so the CPU takes int32; a card takes f32 with TF32 off (as
+    ``resolve_device`` leaves it), exact while every partial sum stays below
+    2^24 (H <= 1040)."""
+    if a.device.type == "cpu":
+        return torch.matmul(a.int(), b.int()).float()
+    if a.shape[-1] > _S8_MAX_H:
+        raise ValueError(f"exact int8 scores on a card need H <= {_S8_MAX_H}, got {a.shape[-1]}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("exact int8 scores need TF32 off: torch.backends.cuda.matmul."
+                           "allow_tf32 is set (resolve_device('cuda') clears it)")
+    return torch.matmul(a.float(), b.float())
+
+
+# ---------------------------------------------------------------------------
+# phase-1 kernels and their plain versions
+# ---------------------------------------------------------------------------
 
 
 def segmax(
@@ -84,32 +256,20 @@ def segmax(
         )
     if docs.device.type == "cpu":
         return segmax_reference(q, docs, n_valid, with_cache)
-    if docs.device.type != "cuda":
-        raise ValueError(f"segmax runs on cpu or cuda tensors, not {docs.device}")
     if docs.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"storage dtype must be bfloat16 or float32, got {docs.dtype}")
     if not 1 <= B <= _MAX_KERNEL_B:
         raise ValueError(f"the kernel takes 1..{_MAX_KERNEL_B} query rows, got {B}")
     if H % (8 if docs.dtype == torch.bfloat16 else 4):
         raise ValueError(f"the kernel needs 16-byte doc rows; H={H} with {docs.dtype}")
-    if not docs.is_contiguous() or docs.data_ptr() % 16:
-        raise ValueError("docs must be contiguous and 16-byte aligned")
     q = q.contiguous()
+    _require_cuda("segmax", q, docs)
     out = torch.empty((npad // _SEG, B), dtype=torch.float32, device=docs.device)
     cache = (
         torch.empty((npad, B), dtype=torch.float32, device=docs.device) if with_cache else None
     )
-    lib = _lib()
-    with torch.cuda.device(docs.device):
-        stream = torch.cuda.current_stream(docs.device).cuda_stream
-        err = lib.segmax_launch(
-            torch.cuda.current_device(),  # the tensors' device (inside the with)
-            int(docs.dtype == torch.bfloat16), B, H, npad, int(n_valid),
-            q.data_ptr(), docs.data_ptr(), out.data_ptr(),
-            cache.data_ptr() if cache is not None else None, stream,
-        )
-    if err:
-        raise RuntimeError(f"segmax kernel launch failed: {lib.segmax_error_string(err).decode()}")
+    _launch("segmax", "segmax_launch", docs.device, int(docs.dtype == torch.bfloat16), B, H,
+            npad, int(n_valid), q.data_ptr(), docs.data_ptr(), out.data_ptr(), _ptr(cache))
     segmax.launches += 1
     return out, cache
 
@@ -122,10 +282,110 @@ def segmax_reference(
 ):
     """Plain PyTorch phase 1: full [Npad, B] f32 scores, mask, segment max."""
     scores = torch.matmul(docs.float(), q.float().T)  # [Npad, B]
-    rows = torch.arange(docs.shape[0], device=docs.device)[:, None]
+    return _mask_rows_segmax(scores, n_valid, with_cache)
+
+
+def _mask_rows_segmax(scores: torch.Tensor, n_valid: int, with_cache: bool):
+    rows = torch.arange(scores.shape[0], device=scores.device)[:, None]
     scores = torch.where(rows < n_valid, scores, torch.full_like(scores, NEG_INF))
     seg = scores.reshape(-1, _SEG, scores.shape[1]).amax(dim=1)
     return seg, (scores if with_cache else None)
+
+
+def segmax_int8(
+    q: torch.Tensor, doc_values: torch.Tensor, doc_scales: torch.Tensor, n_valid: int
+) -> torch.Tensor:
+    """Phase 1 over the per-row int8 corpus: [S, B] maxima of
+    ``(q . v) * scale`` per 128-row segment, rows >= ``n_valid`` NEG_INF.
+
+    ``q`` [B, H] bf16, ``doc_values`` [Npad, H] int8, ``doc_scales``
+    [Npad] f32. CUDA tensors launch the kernel (at most 32 query rows),
+    CPU tensors run :func:`segmax_int8_reference`."""
+    B, H = q.shape
+    npad = doc_values.shape[0]
+    if doc_values.shape[1] != H or npad % _SEG or doc_scales.shape != (npad,):
+        raise ValueError(f"doc_values must be [Npad % {_SEG} == 0, {H}] with [Npad] scales")
+    if (q.dtype, doc_values.dtype, doc_scales.dtype) != (torch.bfloat16, torch.int8,
+                                                          torch.float32):
+        raise ValueError("segmax_int8 takes bf16 queries, int8 values and f32 scales")
+    if not q.device == doc_values.device == doc_scales.device:
+        raise ValueError("q, doc_values and doc_scales must share a device")
+    if doc_values.device.type == "cpu":
+        return segmax_int8_reference(q, doc_values, doc_scales, n_valid)
+    if not 1 <= B <= _MAX_KERNEL_B:
+        raise ValueError(f"the kernel takes 1..{_MAX_KERNEL_B} query rows, got {B}")
+    if H % 16:
+        raise ValueError(f"the kernel needs 16-byte doc rows; H={H} with int8")
+    q = q.contiguous()
+    _require_cuda("segmax_int8", q, doc_values, doc_scales)
+    out = torch.empty((npad // _SEG, B), dtype=torch.float32, device=q.device)
+    _launch("segmax", "segmax_int8_launch", q.device, B, H, npad, int(n_valid), q.data_ptr(),
+            doc_values.data_ptr(), doc_scales.data_ptr(), out.data_ptr())
+    segmax_int8.launches += 1
+    return out
+
+
+segmax_int8.launches = 0
+
+
+def segmax_int8_reference(q, doc_values, doc_scales, n_valid: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`segmax_int8`: int8 values and bf16
+    queries upcast to f32 (exactly), f32 product, times the row scale."""
+    scores = torch.matmul(doc_values.float(), q.float().T) * doc_scales[:, None]
+    return _mask_rows_segmax(scores, n_valid, False)[0]
+
+
+def segmax_s8(
+    q_i8: torch.Tensor, doc_values: torch.Tensor, seg: int = _SEG, with_cache: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor | None]:
+    """Phase 1 of int8 serving: ([Npad/seg, B] f32 maxima of the exact
+    integer scores ``doc_values . q_i8^T`` per ``seg``-row segment,
+    [Npad, B] f32 scores or None). No padding mask.
+
+    ``q_i8`` [B, H] and ``doc_values`` [Npad, H] int8. CUDA tensors launch
+    the kernel (1..32 query rows, H a multiple of 16 up to 1040, Npad a
+    multiple of 128, seg 32/64/128); CPU tensors run
+    :func:`segmax_s8_reference`."""
+    B, H = q_i8.shape
+    npad = doc_values.shape[0]
+    if doc_values.shape[1] != H or npad % seg:
+        raise ValueError(f"doc_values must be [Npad % {seg} == 0, {H}], got "
+                         f"{tuple(doc_values.shape)}")
+    if q_i8.dtype != torch.int8 or doc_values.dtype != torch.int8:
+        raise ValueError("segmax_s8 takes int8 queries and int8 doc values")
+    if q_i8.device != doc_values.device:
+        raise ValueError("q_i8 and doc_values must share a device")
+    if doc_values.device.type == "cpu":
+        return segmax_s8_reference(q_i8, doc_values, seg, with_cache)
+    if not 1 <= B <= _MAX_KERNEL_B:
+        raise ValueError(f"the kernel takes 1..{_MAX_KERNEL_B} query rows, got {B}")
+    if H % 16 or H > _S8_MAX_H:
+        raise ValueError(f"the kernel takes H a multiple of 16 up to {_S8_MAX_H}, got {H}")
+    if seg not in _S8_SEGS or npad % _SEG:
+        raise ValueError(f"the kernel takes seg in {_S8_SEGS} and Npad % {_SEG} == 0")
+    q_i8 = q_i8.contiguous()
+    _require_cuda("segmax_s8", q_i8, doc_values)
+    out = torch.empty((npad // seg, B), dtype=torch.float32, device=q_i8.device)
+    cache = torch.empty((npad, B), dtype=torch.float32, device=q_i8.device) if with_cache else None
+    _launch("segmax_s8", "segmax_s8_launch", q_i8.device, B, H, npad, seg, q_i8.data_ptr(),
+            doc_values.data_ptr(), out.data_ptr(), _ptr(cache))
+    segmax_s8.launches += 1
+    return out, cache
+
+
+segmax_s8.launches = 0
+
+
+def segmax_s8_reference(q_i8, doc_values, seg: int = _SEG, with_cache: bool = False):
+    """Plain PyTorch version of :func:`segmax_s8`: the exact integer
+    scores as f32, segment max, no mask."""
+    scores = _int_matmul(doc_values, q_i8.T)  # [Npad, B]
+    return scores.reshape(-1, seg, scores.shape[1]).amax(dim=1), (scores if with_cache else None)
+
+
+# ---------------------------------------------------------------------------
+# phase 2 (plain torch)
+# ---------------------------------------------------------------------------
 
 
 def _select_segments(segmax_bs: torch.Tensor, k_seg: int, sort_candidates: bool):
@@ -153,16 +413,20 @@ def _gather_cached_scores(sc_full: torch.Tensor, seg_idx: torch.Tensor, seg: int
     return sc3[seg_idx[:, :, None], rows, cols]
 
 
+def _winning_rows(docs_padded: torch.Tensor, seg_idx: torch.Tensor, seg: int):
+    """[B, k_seg * seg, H] rows of the winning segments."""
+    H = docs_padded.shape[1]
+    return docs_padded.reshape(-1, seg, H)[seg_idx].reshape(seg_idx.shape[0], -1, H)
+
+
 def _rescore(q: torch.Tensor, docs_padded: torch.Tensor, seg_idx: torch.Tensor):
     """Phase 2, re-score form: the winning segments' rows times the query,
     with phase 1's arithmetic. torch.matmul on bf16 would round the scores
     to bf16 (JAX asks for f32 results), so the storage-dtype operands are
     upcast to f32 (exactly) and multiplied in f32 with TF32 off."""
-    B, H = q.shape
-    d3 = docs_padded.reshape(-1, _SEG, H)
-    blocks = d3[seg_idx].reshape(B, -1, H).float()  # [B, k_seg*SEG, H]
+    blocks = _winning_rows(docs_padded, seg_idx, _SEG).float()  # [B, k_seg*SEG, H]
     scores = torch.bmm(blocks, q.float()[:, :, None])[..., 0]
-    return scores.reshape(B, seg_idx.shape[1], _SEG)
+    return scores.reshape(q.shape[0], seg_idx.shape[1], _SEG)
 
 
 def _candidate_union_topk(scores, seg_idx, seg, n_valid, k):
@@ -182,10 +446,10 @@ def _candidate_union_topk(scores, seg_idx, seg, n_valid, k):
     return vals, torch.where(vals <= NEG_INF, torch.full_like(ids, -1), ids)
 
 
-def _segmax_phase2(segmax_sb, q, docs_padded, n_valid, k, *, sc_full=None,
+def _segmax_phase2(segmax_sb, q, docs_padded, n_valid, k, *, scales=None, sc_full=None,
                    sort_candidates=False):
-    """Pick the k winning segments per row, gather or re-score them, final
-    top-k."""
+    """Pick the k winning segments per row, gather or re-score them (times
+    the per-row dequant ``scales`` of the int8 corpus), final top-k."""
     S = segmax_sb.shape[0]
     k_seg = min(k, S)
     seg_idx = _select_segments(segmax_sb.T, k_seg, sort_candidates)  # [B, k_seg]
@@ -193,7 +457,44 @@ def _segmax_phase2(segmax_sb, q, docs_padded, n_valid, k, *, sc_full=None,
         scores = _gather_cached_scores(sc_full, seg_idx, _SEG)
     else:
         scores = _rescore(q, docs_padded, seg_idx)
+    if scales is not None:
+        scores = scores * scales.reshape(S, _SEG)[seg_idx]
     return _candidate_union_topk(scores, seg_idx, _SEG, n_valid, k)
+
+
+def s8_phase2(segmax_sb, cache, q_i8, q_scale, doc_values, seg_scales, k, n_valid, seg,
+              sort_candidates=False):
+    """Phases 1.5 and 2 of :func:`fused_topk_segmax_s8`, given phase 1's
+    outputs (from the kernel or its plain version).
+
+    Phase 1.5 dequantizes the [S, B] integer maxima with the segment
+    scales and sets to NEG_INF only the segments wholly in padding; the
+    one partially padded segment stays (its zero rows can only inflate its
+    maximum, pushing each real segment down one rank at most), so k + 1
+    segments cover the top k. Phase 2 gathers their cached scores or
+    re-scores them under the same quantized metric, dequantizes in the JAX
+    package's order (``scores * seg_scale * q_scale``) and masks by
+    ``n_valid``."""
+    S = segmax_sb.shape[0]
+    s_valid = (n_valid + seg - 1) // seg
+    maxima = segmax_sb * seg_scales[:, None]  # [S, B]
+    rows = torch.arange(S, device=maxima.device)[:, None]
+    maxima = torch.where(rows < s_valid, maxima, torch.full_like(maxima, NEG_INF))
+    k_seg = min(k + 1, S)
+    seg_idx = _select_segments(maxima.T, k_seg, sort_candidates)  # [B, k_seg]
+    if cache is not None:
+        scores_f = _gather_cached_scores(cache, seg_idx, seg)
+    else:
+        blocks = _winning_rows(doc_values, seg_idx, seg)  # [B, k_seg*seg, H] int8
+        scores_f = _int_matmul(blocks, q_i8[:, :, None])[..., 0]
+        scores_f = scores_f.reshape(q_i8.shape[0], k_seg, seg)
+    scores = scores_f * seg_scales[seg_idx][..., None] * q_scale[:, :, None]
+    return _candidate_union_topk(scores, seg_idx, seg, n_valid, k)
+
+
+# ---------------------------------------------------------------------------
+# the segment-max searches
+# ---------------------------------------------------------------------------
 
 
 def fused_topk_segmax(
@@ -213,37 +514,291 @@ def fused_topk_segmax(
     the kernel's 32 query rows run one scan per block of queries; beyond
     32 rows phase 2 always re-scores, as in the JAX package."""
     B, H = queries.shape
-    N = docs.shape[0]
-    if docs.shape[1] != H:
-        raise ValueError(f"dim mismatch: queries H={H}, docs H={docs.shape[1]}")
-    if k > N:
-        raise ValueError(f"k={k} larger than corpus N={N}")
-    if tile_n % _SEG:
-        raise ValueError(f"tile_n={tile_n} must be a multiple of {_SEG}")
-    if phase2 not in ("rescore", "gather"):
-        raise ValueError(f"phase2 must be 'rescore' or 'gather': {phase2!r}")
+    _check_search_args(B, H, docs, k, tile_n, phase2=phase2)
     if B > _MAX_KERNEL_B:
-        parts = [
-            fused_topk_segmax(queries[i : i + _MAX_KERNEL_B], docs, k=k, tile_n=tile_n,
+        return _block_queries(fused_topk_segmax, queries, docs, k=k, tile_n=tile_n,
                               n_valid=n_valid, phase2="rescore",
                               sort_candidates=sort_candidates)
-            for i in range(0, B, _MAX_KERNEL_B)
-        ]
-        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
-
-    n_pad = (-N) % tile_n
-    if n_pad:
-        docs = torch.cat([docs, docs.new_zeros((n_pad, H))])
-    n_valid = N if n_valid is None else int(n_valid)
+    n_valid = docs.shape[0] if n_valid is None else int(n_valid)
+    (docs,) = _pad_docs(docs, tile_n)
     q = queries.to(docs.dtype)
     seg, sc_full = segmax(q, docs, n_valid, with_cache=phase2 == "gather")
     return _segmax_phase2(seg, q, docs, n_valid, k, sc_full=sc_full,
                           sort_candidates=sort_candidates)
 
 
+def fused_topk_segmax_int8(
+    queries: torch.Tensor,  # [B, H] float
+    doc_values: torch.Tensor,  # [N, H] int8 (quantize_rows)
+    doc_scales: torch.Tensor,  # [N] f32
+    k: int = 50,
+    tile_n: int = 8192,
+    n_valid=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over the per-row int8 corpus under the metric
+    ``(q_bf16 . v) * scale``: :func:`segmax_int8` + the re-scoring phase
+    2. Same results contract as :func:`fused_topk_segmax`."""
+    B, H = queries.shape
+    _check_search_args(B, H, doc_values, k, tile_n)
+    if B > _MAX_KERNEL_B:
+        return _block_queries(fused_topk_segmax_int8, queries, doc_values, doc_scales, k=k,
+                              tile_n=tile_n, n_valid=n_valid)
+    n_valid = doc_values.shape[0] if n_valid is None else int(n_valid)
+    doc_values, doc_scales = _pad_docs(doc_values, tile_n, (doc_scales, 0.0))
+    q = queries.to(torch.bfloat16)
+    seg = segmax_int8(q, doc_values, doc_scales, n_valid)
+    return _segmax_phase2(seg, q, doc_values, n_valid, k, scales=doc_scales)
+
+
+def fused_topk_segmax_s8(
+    queries: torch.Tensor,  # [B, H] float
+    doc_values: torch.Tensor,  # [N, H] int8, per-SEGMENT quantized
+    seg_scales: torch.Tensor,  # [N / seg] f32 (quantize_segments)
+    k: int = 50,
+    tile_n: int = 8192,
+    n_valid=None,  # true corpus size when docs carry zero-padding rows
+    seg: int = _SEG,  # covering-segment width of the quantized index
+    phase2: str = "rescore",  # "rescore" | "gather" (score-cache phase 1)
+    sort_candidates: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over the per-segment int8 index under the doubly
+    quantized metric ``(q_i8 . d_i8) * scale_seg * scale_q``: the queries
+    are quantized per row (:func:`quantize_query_rows`), :func:`segmax_s8`
+    scans the corpus, and :func:`s8_phase2` selects and re-scores.
+    ``phase2="gather"`` reads phase 1's [Npad, B] score cache instead of
+    re-scoring; both give the same bits. Values and ids equal the JAX
+    package's ``fused_topk_segmax_s8`` and :func:`topk_segmented_s8`."""
+    B, H = queries.shape
+    N = doc_values.shape[0]
+    _check_search_args(B, H, doc_values, k, tile_n, seg=seg, phase2=phase2)
+    if N % seg or N // seg != seg_scales.shape[0]:
+        raise ValueError(f"per-segment index malformed: N={N}, scales={seg_scales.shape[0]}")
+    if B > _MAX_KERNEL_B:
+        return _block_queries(fused_topk_segmax_s8, queries, doc_values, seg_scales, k=k,
+                              tile_n=tile_n, n_valid=n_valid, seg=seg, phase2="rescore",
+                              sort_candidates=sort_candidates)
+    n_valid = N if n_valid is None else int(n_valid)
+    # tile padding adds whole all-zero segments, scale 1 (masked in phase 1.5)
+    doc_values, seg_scales = _pad_docs(doc_values, tile_n, (seg_scales, 1.0))
+    q_i8, q_scale = quantize_query_rows(queries)
+    maxima, cache = segmax_s8(q_i8, doc_values, seg, with_cache=phase2 == "gather")
+    return s8_phase2(maxima, cache, q_i8, q_scale, doc_values, seg_scales, k, n_valid, seg,
+                     sort_candidates)
+
+
+# ---------------------------------------------------------------------------
+# the two-phase path over a full [B, N] product
+# ---------------------------------------------------------------------------
+
+
+def _mask_invalid(scores: torch.Tensor, n_valid) -> torch.Tensor:
+    """NEG_INF out score columns >= n_valid (zero-padded corpus rows)."""
+    if n_valid is None:
+        return scores
+    cols = torch.arange(scores.shape[1], device=scores.device)[None, :]
+    return torch.where(cols < n_valid, scores, torch.full_like(scores, NEG_INF))
+
+
+def _segmented_topk_from_scores(scores: torch.Tensor, k: int, segment: int):
+    """Segment-max covering top-k over a dense [B, N] score matrix: the
+    segment holding the true i-th value has segment-max >= v_i, and fewer
+    than i other segments can have a larger max, so the top-k segments
+    (by max) always cover the true top-k elements."""
+    B = scores.shape[0]
+    n_pad = (-scores.shape[1]) % segment
+    if n_pad:
+        scores = torch.nn.functional.pad(scores, (0, n_pad), value=NEG_INF)
+    S = scores.shape[1] // segment
+    seg_scores = scores.reshape(B, S, segment)
+    k_seg = min(k, S)
+    _, seg_idx = _stable_topk(seg_scores.amax(dim=-1), k_seg)  # [B, k_seg]
+    cand = torch.gather(seg_scores, 1, seg_idx[..., None].expand(-1, -1, segment))
+    cand_ids = seg_idx[..., None] * segment + torch.arange(segment, device=scores.device)
+    vals, loc = _stable_topk(cand.reshape(B, -1), k)
+    ids = torch.gather(cand_ids.reshape(B, -1), 1, loc).to(torch.int32)
+    # padding never wins (scores NEG_INF), but guard ids anyway
+    return vals, torch.where(vals <= NEG_INF, torch.full_like(ids, -1), ids)
+
+
+def topk_segmented(queries, docs, k: int = 50, segment: int = 128, n_valid=None):
+    """Exact top-k via the segment-max covering argument over one [B, N]
+    product (queries cast to the storage dtype, f32 sums)."""
+    if k > docs.shape[0]:
+        raise ValueError(f"k={k} larger than corpus N={docs.shape[0]}")
+    scores = torch.matmul(queries.to(docs.dtype).float(), docs.float().T)  # [B, N]
+    return _segmented_topk_from_scores(_mask_invalid(scores, n_valid), k, segment)
+
+
+def topk_segmented_s8(queries, doc_values, seg_scales, k: int = 50, n_valid=None,
+                      seg: int = _SEG):
+    """Two-phase path over the per-segment int8 index: the SAME doubly
+    quantized metric as :func:`fused_topk_segmax_s8`, so the two agree in
+    every bit. Materializes the [B, N] scores."""
+    N = doc_values.shape[0]
+    if k > N:
+        raise ValueError(f"k={k} larger than corpus N={N}")
+    if N % seg or N // seg != seg_scales.shape[0]:
+        raise ValueError(f"per-segment index malformed: N={N}")
+    q_i8, q_scale = quantize_query_rows(queries)
+    scores = _int_matmul(q_i8, doc_values.T)  # [B, N]
+    scores = scores * seg_scales.repeat_interleave(seg)[None, :] * q_scale
+    return _segmented_topk_from_scores(_mask_invalid(scores, n_valid), k, seg)
+
+
+def topk_segmented_int8(queries, doc_values, doc_scales, k: int = 50, segment: int = 128,
+                        n_valid=None):
+    """Two-phase path over the per-row int8 corpus: bf16 queries times the
+    int8 values in f32, times the row scale."""
+    if k > doc_values.shape[0]:
+        raise ValueError(f"k={k} larger than corpus N={doc_values.shape[0]}")
+    scores = torch.matmul(queries.to(torch.bfloat16).float(), doc_values.float().T)
+    scores = scores * doc_scales[None, :]
+    return _segmented_topk_from_scores(_mask_invalid(scores, n_valid), k, segment)
+
+
+# ---------------------------------------------------------------------------
+# the running top-k (fused_topk, fused_topk_int8)
+# ---------------------------------------------------------------------------
+
+
+def _topk_stream_call(q, docs, scales, k: int, n_valid: int, storage: int):
+    """Launch ``csrc/topk_stream.cu`` (chunk kernel + merge kernel)."""
+    B, H = q.shape
+    npad = docs.shape[0]
+    if not 1 <= B <= _MAX_KERNEL_B:
+        raise ValueError(f"the kernel takes 1..{_MAX_KERNEL_B} query rows, got {B}")
+    if not 1 <= k <= _TOPK_MAX_K:
+        raise ValueError(f"the kernel holds k in 1..{_TOPK_MAX_K}, got {k}")
+    if (H * docs.element_size()) % 16:
+        raise ValueError(f"the kernel needs 16-byte doc rows; H={H} with {docs.dtype}")
+    if npad % _SEG or not _SEG <= npad < 2 ** 31:
+        raise ValueError(f"the kernel needs Npad a multiple of {_SEG} below 2^31, got {npad}")
+    q = q.contiguous()
+    _require_cuda("topk_stream", q, docs, *([] if scales is None else [scales]))
+    tiles = npad // _SEG
+    sms = torch.cuda.get_device_properties(docs.device).multi_processor_count
+    per_chunk = -(-tiles // min(tiles, 2 * sms))  # about two chunk blocks per SM
+    chunks = -(-tiles // per_chunk)
+    cand = torch.empty((chunks, B, k), dtype=torch.int64, device=docs.device)
+    vals = torch.empty((B, k), dtype=torch.float32, device=docs.device)
+    ids = torch.empty((B, k), dtype=torch.int32, device=docs.device)
+    _launch("topk_stream", "topk_stream_launch", docs.device, storage, B, H, k, npad,
+            int(n_valid), per_chunk, q.data_ptr(), docs.data_ptr(), _ptr(scales),
+            cand.data_ptr(), vals.data_ptr(), ids.data_ptr())
+    return vals, ids
+
+
+def topk_stream(q: torch.Tensor, docs: torch.Tensor, k: int, n_valid: int):
+    """Running top-k: ([B, k] f32 values, [B, k] int32 ids) of ``q . d``
+    over rows < ``n_valid``, descending, ties to the lower id, NEG_INF /
+    -1 beyond the valid rows. ``q`` and ``docs`` share the storage dtype
+    (bf16 or f32); Npad is a multiple of 128. CUDA tensors launch the
+    kernel (1..32 query rows, k <= 128), CPU tensors run
+    :func:`topk_stream_reference`."""
+    if q.dtype != docs.dtype or q.device != docs.device or q.shape[1] != docs.shape[1]:
+        raise ValueError("q and docs must share dtype, device and width")
+    if docs.device.type == "cpu":
+        return topk_stream_reference(q, docs, k, n_valid)
+    if docs.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"storage dtype must be bfloat16 or float32, got {docs.dtype}")
+    out = _topk_stream_call(q, docs, None, k, n_valid, int(docs.dtype == torch.bfloat16))
+    topk_stream.launches += 1
+    return out
+
+
+topk_stream.launches = 0
+
+
+def topk_stream_int8(q: torch.Tensor, doc_values: torch.Tensor, doc_scales: torch.Tensor,
+                     k: int, n_valid: int):
+    """:func:`topk_stream` over the per-row int8 corpus: ``q`` [B, H] bf16,
+    ``doc_values`` [Npad, H] int8, ``doc_scales`` [Npad] f32; each score
+    is ``(q . v) * scale``."""
+    if (q.dtype, doc_values.dtype, doc_scales.dtype) != (torch.bfloat16, torch.int8,
+                                                          torch.float32):
+        raise ValueError("topk_stream_int8 takes bf16 queries, int8 values and f32 scales")
+    if not q.device == doc_values.device == doc_scales.device:
+        raise ValueError("q, doc_values and doc_scales must share a device")
+    if q.shape[1] != doc_values.shape[1] or doc_scales.shape != (doc_values.shape[0],):
+        raise ValueError("doc_values must be [Npad, H] with [Npad] scales")
+    if doc_values.device.type == "cpu":
+        return topk_stream_reference(q, doc_values, k, n_valid, doc_scales)
+    out = _topk_stream_call(q, doc_values, doc_scales, k, n_valid, 2)
+    topk_stream_int8.launches += 1
+    return out
+
+
+topk_stream_int8.launches = 0
+
+
+def topk_stream_reference(q, docs, k: int, n_valid: int, scales=None):
+    """Plain PyTorch version of :func:`topk_stream` (and, with ``scales``,
+    of :func:`topk_stream_int8`): the full [B, Npad] f32 product, masked,
+    stable-sorted."""
+    scores = torch.matmul(q.float(), docs.float().T)  # [B, Npad]
+    if scales is not None:
+        scores = scores * scales[None, :]
+    vals, ids = _stable_topk(_mask_invalid(scores, n_valid), k)
+    ids = ids.to(torch.int32)
+    return vals, torch.where(vals <= NEG_INF, torch.full_like(ids, -1), ids)
+
+
+def fused_topk(queries, docs, k: int = 50, tile_n: int = 8192, n_valid=None):
+    """Streaming exact top-k: ([B, k] f32 values, [B, k] int32 ids), sorted
+    descending, ties to the lower id; the queries are cast to the storage
+    dtype. Rows are zero-padded to a multiple of ``tile_n`` (a multiple of
+    128) and masked by ``n_valid``."""
+    B, H = queries.shape
+    _check_search_args(B, H, docs, k, tile_n)
+    if B > _MAX_KERNEL_B:
+        return _block_queries(fused_topk, queries, docs, k=k, tile_n=tile_n, n_valid=n_valid)
+    n_valid = docs.shape[0] if n_valid is None else int(n_valid)
+    (docs,) = _pad_docs(docs, tile_n)
+    return topk_stream(queries.to(docs.dtype), docs, k, n_valid)
+
+
+def fused_topk_int8(queries, doc_values, doc_scales, k: int = 50, tile_n: int = 8192,
+                    n_valid=None):
+    """:func:`fused_topk` over the per-row int8 corpus: bf16 queries times
+    the int8 values summed in f32, times the row scale."""
+    B, H = queries.shape
+    _check_search_args(B, H, doc_values, k, tile_n)
+    if B > _MAX_KERNEL_B:
+        return _block_queries(fused_topk_int8, queries, doc_values, doc_scales, k=k,
+                              tile_n=tile_n, n_valid=n_valid)
+    n_valid = doc_values.shape[0] if n_valid is None else int(n_valid)
+    doc_values, doc_scales = _pad_docs(doc_values, tile_n, (doc_scales, 0.0))
+    return topk_stream_int8(queries.to(torch.bfloat16), doc_values, doc_scales, k, n_valid)
+
+
+# ---------------------------------------------------------------------------
+# bytes and operations of one kernel call (each input read once, each
+# output written once), for the bounds chip_smoke.py reports
+# ---------------------------------------------------------------------------
+
+
 def segmax_bound(B: int, H: int, npad: int, storage_bytes: int):
-    """Bytes and operations of one phase-1 call without the score cache
-    (each input read once, each output written once). Returns (bytes,
-    flops)."""
+    """Phase 1 without the score cache. Returns (bytes, flops)."""
     nbytes = npad * H * storage_bytes + B * H * storage_bytes + (npad // _SEG) * B * 4
+    return nbytes, 2 * B * H * npad
+
+
+def segmax_int8_bound(B: int, H: int, npad: int):
+    """:func:`segmax_int8`: int8 rows, f32 scales, bf16 queries. Returns
+    (bytes, bf16 flops)."""
+    return npad * (H + 4) + B * H * 2 + (npad // _SEG) * B * 4, 2 * B * H * npad
+
+
+def segmax_s8_bound(B: int, H: int, npad: int, seg: int, with_cache: bool = False):
+    """:func:`segmax_s8`. Returns (bytes, int8 operations)."""
+    nbytes = npad * H + B * H + (npad // seg) * B * 4 + (npad * B * 4 if with_cache else 0)
+    return nbytes, 2 * B * H * npad
+
+
+def topk_stream_bound(B: int, H: int, npad: int, k: int, storage_bytes: int,
+                      scaled: bool = False):
+    """:func:`topk_stream` (``scaled``: :func:`topk_stream_int8`, bf16
+    queries and f32 row scales). Returns (bytes, flops)."""
+    q_bytes = 2 if scaled else storage_bytes
+    nbytes = npad * H * storage_bytes + (npad * 4 if scaled else 0) + B * H * q_bytes + B * k * 8
     return nbytes, 2 * B * H * npad

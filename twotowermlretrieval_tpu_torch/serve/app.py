@@ -419,8 +419,15 @@ def main():
                         help="coalesce concurrent requests into one device "
                              "batch, waiting up to this long (0 = off)")
     parser.add_argument("--storage-dtype", default="bfloat16",
-                        choices=["float32", "bfloat16"],
-                        help="corpus storage: bf16 halves the scan's bytes vs f32")
+                        choices=["float32", "bfloat16", "int8"],
+                        help="corpus storage: bf16 halves the scan's bytes vs f32, "
+                             "int8 (one scale per 128-row segment) halves them again")
+    parser.add_argument("--autotune-retrieval", action="store_true",
+                        help="at startup, time the search variants (phase-2 "
+                             "re-score vs score-cache gather, sorted vs unsorted "
+                             "candidates, the two-phase path) on the live corpus, "
+                             "serve with the fastest and persist the choice in "
+                             "the artifact directory for later boots")
     parser.add_argument("--cache-size", type=int, default=0,
                         help="LRU response cache entries (0 = off)")
     parser.add_argument("--warmup", action=argparse.BooleanOptionalAction,
@@ -436,6 +443,7 @@ def main():
         storage_dtype=args.storage_dtype,
         warmup=args.warmup,
         cache_size=args.cache_size,
+        autotune_retrieval=args.autotune_retrieval,
     )
 
     # graceful shutdown: docker stop / Ctrl-C finish in-flight requests

@@ -11,8 +11,12 @@ The port of the JAX package's ``serve/engine.py``, with the same two
   sort, top-10.
 
 A micro-batch of queries is encoded and searched as one chain of device
-work (query tower with the recurrent kernel, then the segment-max scan and
-phase 2) ending in one host fetch of a packed [rows, 2k] f32 buffer.
+work (query tower with the recurrent kernel, then the index's segment-max
+scan, bf16 or int8, and phase 2) ending in one host fetch of a packed
+[rows, 2k] f32 buffer. With ``autotune_retrieval`` the engine times the
+index's search variants at boot and persists the winner with the
+artifacts; a later boot applies a persisted decision whose signature
+matches, without timing.
 """
 
 from __future__ import annotations
@@ -28,7 +32,12 @@ import torch
 
 from twotowermlretrieval_tpu_torch.models.two_tower import encode_query
 from twotowermlretrieval_tpu_torch.ops.tfidf import cosine_similarity, hybrid_blend
-from twotowermlretrieval_tpu_torch.serve.index import RetrievalIndex, load_retrieval_tuning
+from twotowermlretrieval_tpu_torch.serve.index import (
+    RetrievalIndex,
+    load_retrieval_tuning,
+    save_retrieval_tuning,
+    variant_name,
+)
 from twotowermlretrieval_tpu_torch.serve.inferencer import QueryInferencer
 from twotowermlretrieval_tpu_torch.train.artifacts import load_artifacts
 
@@ -96,6 +105,8 @@ class SearchEngine:
         index_type: str = "exact",
         warmup: Optional[bool] = None,  # run every micro-batch bucket once up front
         cache_size: int = 0,  # >0 enables the LRU response cache
+        use_kernel: Optional[bool] = None,  # None: the fused path where the index is on a card
+        autotune_retrieval: bool = False,  # time the search variants at boot, persist the winner
     ):
         loaded = load_artifacts(artifacts_path, require_index=True)
         self.config = loaded.config
@@ -105,13 +116,22 @@ class SearchEngine:
         self.inferencer = QueryInferencer(artifacts_path, device=device)
         self.index = RetrievalIndex(
             loaded.doc_embeddings, storage_dtype=storage_dtype, device=device,
-            index_type=index_type,
+            index_type=index_type, use_kernel=use_kernel,
         )
         tuning = load_retrieval_tuning(artifacts_path)
-        if tuning and tuning.get("decision"):
-            # a decision measured for this exact corpus and backend applies
+        if autotune_retrieval:
+            self._autotune(artifacts_path)
+        elif tuning and tuning.get("decision") and use_kernel is None:
+            # a previous --autotune-retrieval boot persisted its winner; it
+            # applies only if it was measured for this corpus and backend
             if tuning.get("decision_signature") == self.index.tuning_signature():
                 self.index.apply_decision(tuning["decision"])
+                print(f"retrieval tuning: applied the persisted decision "
+                      f"({self._chosen()}), no timing at startup")
+            else:
+                print("retrieval tuning: the persisted record is stale (corpus or "
+                      "backend signature differs); serving with the defaults, re-run "
+                      "with --autotune-retrieval to refresh it")
         self._batcher = (
             _MicroBatcher(self._dense_batch, window_ms=batch_window_ms)
             if batch_window_ms > 0
@@ -132,6 +152,31 @@ class SearchEngine:
         if warmup:
             for bucket in self._BATCH_BUCKETS:
                 self._dense_batch([{"query": "warmup", "fanout": 50}] * bucket)
+
+    def _chosen(self) -> str:
+        """The search variant the index serves with."""
+        if not self.index.kernel_on():
+            return "two-phase"
+        return f"phase2={variant_name(self.index.phase2, self.index.sort_candidates)}"
+
+    def _autotune(self, artifacts_path) -> None:
+        """Time the search variants on the live corpus, keep the fastest
+        and persist it with the artifacts: the next boot without
+        ``--autotune-retrieval`` applies it and times nothing."""
+        timings = self.index.autotune()
+        if not timings:
+            print("retrieval autotune: no-op, the fused path is off for this index "
+                  "(use_kernel=False, or a CPU index); serving with the defaults")
+            return
+        named = {variant_name(p, s): t * 1e3 for (p, s), t in timings.items()}
+        save_retrieval_tuning(artifacts_path, {
+            "decision_signature": self.index.tuning_signature(),
+            "decision": self.index.decision(),
+            "timings_ms": named,
+        })
+        print("retrieval autotune: "
+              + ", ".join(f"{name} {ms:.3f} ms" for name, ms in sorted(named.items()))
+              + f" -> serving with {self._chosen()}")
 
     def close(self):
         """End-of-life hook of the serving CLI (nothing to finalize yet)."""

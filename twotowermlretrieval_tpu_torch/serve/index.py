@@ -1,27 +1,45 @@
 """Device-side exact retrieval index over raw document embeddings.
 
 The port of the JAX package's ``serve/index.py`` for one device and the
-exact index: the corpus embedding matrix lives in device memory (bf16 by
-default, or f32), zero-padded once to a multiple of the 8192-row tile, and
-every search is :func:`ops.topk.fused_topk_segmax` (the segment-max CUDA
-kernel + torch phase 2) with the padding masked by ``n_valid``. Scores are
-inner products (cosine for normalized towers).
+exact index. The corpus embedding matrix lives in device memory, zero-padded
+once to a multiple of the 8192-row tile: bf16 by default, or f32, or int8
+quantized with one scale per 128-row segment (``quantize_segments``, half
+the bytes of bf16). Every search is exact over the stored corpus, with the
+padding masked by ``n_valid``:
 
-Not ported yet (ROADMAP): int8 storage, the IVF index, a device mesh, and
-``autotune()``. A persisted autotune decision (``retrieval_tuning.json``)
-is still honoured when its signature matches this index.
+- the fused path (``use_kernel`` None on a CUDA index, or True): the
+  segment-max scan kernel (``fused_topk_segmax``, or ``fused_topk_segmax_s8``
+  for int8, whose queries are quantized per row) + torch phase 2;
+- the two-phase path (``use_kernel`` False, or None on a CPU index): one
+  [B, N] product and the covering top-k in torch (``topk_segmented[_s8]``),
+  as the JAX package's XLA path. For int8 both paths give the same bits.
+
+Scores are inner products (cosine for normalized towers). ``autotune()``
+times the phase-2 variants (and, on a CPU index, the two-phase path) on the
+live corpus and keeps the fastest; ``save_retrieval_tuning`` persists the
+decision with the artifacts, in the JAX package's file format.
+
+Not ported yet (ROADMAP): the IVF index and a device mesh.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import time
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from twotowermlretrieval_tpu_torch.ops.topk import fused_topk_segmax
+from twotowermlretrieval_tpu_torch.ops.topk import (
+    fused_topk_segmax,
+    fused_topk_segmax_s8,
+    quantize_segments,
+    topk_segmented,
+    topk_segmented_s8,
+)
 from twotowermlretrieval_tpu_torch.utils.dtypes import resolve_device, torch_dtype
 
 _SUBLANE = 8  # query batches are padded to a multiple of this
@@ -40,6 +58,17 @@ def load_retrieval_tuning(artifacts_path) -> Optional[dict]:
         return None  # unreadable records never block serving
 
 
+def save_retrieval_tuning(artifacts_path, record: dict) -> None:
+    """Merge ``record`` into the artifact directory's tuning file (atomic
+    publish: a reader never sees a half-written file)."""
+    p = Path(artifacts_path) / RETRIEVAL_TUNING_FILE
+    merged = load_retrieval_tuning(artifacts_path) or {}
+    merged.update(record)
+    tmp = p.with_suffix(".json.tmp")
+    tmp.write_text(json.dumps(merged, indent=2))
+    os.replace(tmp, p)
+
+
 def _pad_rows(x: np.ndarray) -> np.ndarray:
     pad = (-x.shape[0]) % _ROW_TILE
     if not pad:
@@ -47,17 +76,20 @@ def _pad_rows(x: np.ndarray) -> np.ndarray:
     return np.pad(x, ((0, pad),) + ((0, 0),) * (x.ndim - 1))
 
 
+def variant_name(phase2: str, sort_candidates: bool) -> str:
+    return f"{phase2}{'+sorted' if sort_candidates else ''}"
+
+
 class RetrievalIndex:
     def __init__(
         self,
         doc_embeddings: np.ndarray,  # [N, H] f32 (host)
-        storage_dtype: str = "bfloat16",  # 'float32' | 'bfloat16'
+        storage_dtype: str = "bfloat16",  # 'float32' | 'bfloat16' | 'int8'
         device="cuda",
         mesh=None,
         index_type: str = "exact",
+        use_kernel: Optional[bool] = None,  # None: the fused path where the index is on a card
     ):
-        if storage_dtype == "int8":
-            raise NotImplementedError("int8 corpus storage is not ported yet (ROADMAP Queue 2)")
         if index_type != "exact":
             raise NotImplementedError("the IVF index is not ported yet (ROADMAP Queue 1, IVF)")
         if mesh is not None:
@@ -68,13 +100,27 @@ class RetrievalIndex:
         self.num_docs = int(doc_embeddings.shape[0])
         self.dim = int(doc_embeddings.shape[1])
         self.storage_dtype = storage_dtype
-        # phase-2 strategy (ops.topk): re-score the winning segments or
-        # gather their phase-1-cached scores
+        # phase-2 strategy of the fused path (ops.topk): re-score the
+        # winning segments or gather their phase-1-cached scores, with the
+        # candidates optionally in ascending address order; autotune()
+        # measures and flips these, and use_kernel
         self.phase2 = "rescore"
         self.sort_candidates = False
+        self.use_kernel = use_kernel
+        self.quantized = storage_dtype == "int8"
         self._n_valid = self.num_docs
         padded = _pad_rows(np.asarray(doc_embeddings, np.float32))
-        self._docs = torch.from_numpy(padded).to(self.device).to(torch_dtype(storage_dtype))
+        self._scales = None
+        if self.quantized:
+            values, seg_scales = quantize_segments(padded)
+            self._docs = torch.from_numpy(values).to(self.device)
+            self._scales = torch.from_numpy(seg_scales).to(self.device)
+        else:
+            self._docs = torch.from_numpy(padded).to(self.device).to(torch_dtype(storage_dtype))
+
+    def kernel_on(self) -> bool:
+        """Whether searches take the fused path (its CUDA kernel on a card)."""
+        return self.use_kernel if self.use_kernel is not None else self.device.type == "cuda"
 
     def search(self, query_embeddings: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """[B, H] queries -> ([B, k] scores, [B, k] doc ids), exact, sorted
@@ -92,12 +138,22 @@ class RetrievalIndex:
         """Device search: ``q`` [Bp, H] f32 on the index's device -> ([Bp, k]
         f32, [Bp, k] int32) device tensors. The engine calls it right after
         the query encode, so encode and search run as one chain with one
-        host fetch."""
-        k = min(k, self.num_docs)
-        return fused_topk_segmax(
-            q.to(self._docs.dtype), self._docs, k=k, n_valid=self._n_valid,
-            phase2=self.phase2, sort_candidates=self.sort_candidates,
-        )
+        host fetch. The int8 path quantizes the f32 queries itself."""
+        variant = self.phase2 if self.kernel_on() else "two_phase"
+        return self._search_variant(q, min(k, self.num_docs), variant, self.sort_candidates)
+
+    def _search_variant(self, q: torch.Tensor, k: int, phase2: str, sort_candidates: bool):
+        kw = dict(k=k, n_valid=self._n_valid)
+        if self.quantized:
+            if phase2 == "two_phase":
+                return topk_segmented_s8(q, self._docs, self._scales, **kw)
+            return fused_topk_segmax_s8(q, self._docs, self._scales, phase2=phase2,
+                                        sort_candidates=sort_candidates, **kw)
+        q = q.to(self._docs.dtype)
+        if phase2 == "two_phase":
+            return topk_segmented(q, self._docs, **kw)
+        return fused_topk_segmax(q, self._docs, phase2=phase2, sort_candidates=sort_candidates,
+                                 **kw)
 
     def tuning_signature(self) -> dict:
         """What a persisted tuning decision is valid for."""
@@ -110,7 +166,12 @@ class RetrievalIndex:
         }
 
     def decision(self) -> dict:
-        return {"phase2": self.phase2, "sort_candidates": self.sort_candidates}
+        # "use_pallas" is the JAX package's key for the same switch
+        return {
+            "phase2": self.phase2,
+            "sort_candidates": self.sort_candidates,
+            "use_pallas": self.use_kernel,
+        }
 
     def apply_decision(self, decision: dict) -> None:
         """Apply a persisted autotune decision (the caller has validated its
@@ -119,3 +180,69 @@ class RetrievalIndex:
         if phase2 in ("rescore", "gather"):  # anything else keeps the default
             self.phase2 = phase2
         self.sort_candidates = bool(decision.get("sort_candidates", self.sort_candidates))
+        use = decision.get("use_pallas")
+        # a CUDA index always searches through its kernel: a record that
+        # turns the fused path off applies to a CPU index only
+        if use is not None and (use or self.device.type != "cuda"):
+            self.use_kernel = bool(use)
+
+    _AUTOTUNE_VARIANTS = (
+        ("rescore", False), ("rescore", True),
+        ("gather", False), ("gather", True),
+        ("two_phase", False),  # one [B, N] product, the JAX package's XLA path
+    )
+
+    def autotune(self, B: int = 16, k: int = 50, iters: int = 20, timer=None) -> dict:
+        """Time the search variants on the live corpus and keep the fastest:
+        the fused path's phase-2 strategies (sets ``phase2`` /
+        ``sort_candidates``) and, on a CPU index only, the two-phase path
+        (sets ``use_kernel = False`` when it wins). A CUDA index times the
+        four fused variants alone, so a timing never takes its searches off
+        the kernel. A no-op returning {} where the fused path is off. ``B``
+        defaults to the engine's smallest encode batch (16 rows). Returns
+        {(phase2, sort_candidates): seconds per call}.
+
+        ``timer``: optional ``f(phase2, sort_candidates, B, k, iters) ->
+        seconds`` override (tests inject canned values)."""
+        if not self.kernel_on():
+            return {}
+        k = min(k, self.num_docs)
+        timer = timer or self._time_variant
+        variants = self._AUTOTUNE_VARIANTS[:4] if self.device.type == "cuda" else \
+            self._AUTOTUNE_VARIANTS
+        results = {v: timer(*v, B, k, iters) for v in variants}
+        best = min(results, key=results.get)
+        if best[0] == "two_phase":
+            self.use_kernel = False
+            self.phase2, self.sort_candidates = "rescore", False
+        else:
+            self.phase2, self.sort_candidates = best
+        return results
+
+    def _time_variant(self, phase2, srt, B, k, iters) -> float:
+        """Seconds per search call for one variant: one warm-up call, then
+        ``iters`` calls back to back between two CUDA events (the host clock
+        for a CPU index), on unit-norm random queries."""
+        rng = np.random.default_rng(0)
+        q = rng.standard_normal((B, self.dim)).astype(np.float32)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        qt = torch.from_numpy(q).to(self.device)
+
+        def run():
+            for _ in range(iters):
+                self._search_variant(qt, k, phase2, srt)
+
+        with torch.inference_mode():
+            self._search_variant(qt, k, phase2, srt)
+            if self.device.type != "cuda":
+                t0 = time.perf_counter()
+                run()
+                return (time.perf_counter() - t0) / iters
+            with torch.cuda.device(self.device):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                run()
+                end.record()
+                end.synchronize()
+                return start.elapsed_time(end) / 1e3 / iters
