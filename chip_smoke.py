@@ -29,11 +29,22 @@
    step, a bit-exact checkpoint round trip on the card, and that the
    exported directory serves. Prints the steady steps/s and examples/s.
 
+7. Trains the transformer tower of config 5 (``configs/transformer_tp.json``:
+   6 blocks, H=256, 8 heads of width 32, FFN 1024, dropout 0.1, the in_batch
+   loss at B=512, a trainable table) at full width with the fused attention
+   kernels for one epoch of 8,192 triplets, holds its first step against
+   the CPU and against the torch attention route, checks 12 attention
+   backward launches per step and the checkpoint, and serves its export
+   over HTTP (6 attention forward and 1 segmax launches per dense search).
+
 Step 3 covers the backward kernel too (``csrc/rnn_bwd.cu``, both modes,
 each timed at the training shapes beside cuDNN's GRU backward) and the
 int8 and running top-k kernels (``csrc/segmax_s8.cu``, the per-row int8
 path of ``csrc/segmax.cu``, ``csrc/topk_stream.cu``) over 1,048,576 rows,
-each driven once through its public function with the counts at 0. Step 5
+each driven once through its public function with the counts at 0, and the
+fused attention kernels (``csrc/attention.cu``) at the transformer's
+training and serving shapes, each timed beside
+``torch.nn.functional.scaled_dot_product_attention`` as a yardstick. Step 5
 serves a second time as ``ttr-torch-serve --storage-dtype int8`` starts
 it: the s8 scan kernel on every dense search, the results against the
 port's int8 engine on the CPU and, bit for bit, against the two-phase path
@@ -130,6 +141,34 @@ STEP_GRAD_REL = 2e-2
 # in-memory triplets cut from the export corpus.
 TRAIN_TRIPLETS, VAL_TRIPLETS, TEST_TRIPLETS = 2112, 320, 48
 TRAIN_DIR = ROOT / "_smoke_train"  # word table, checkpoints, artifacts; listed in .gitignore
+
+# Fused attention, kernel against plain version on the same inputs, as a
+# share of the plain result's largest magnitude. A CPU run of the plain
+# version against itself with float64 sums (hd=32; R=512 at T=128 and 32,
+# R=64 at T=512) differed by at most 6.1e-4 of it at bf16 compute, where a
+# last-bit change of an f32 sum can move p or ds across a bf16 rounding
+# boundary. Tolerance: one bf16 ulp, 2^-8.
+ATTN_REL = 2 ** -8
+# The transformer tower of config 5, as configs/transformer_tp.json gives
+# it; its phase trains on the triplets after those the GRU phase takes.
+TF_CONFIG = ROOT / "configs" / "transformer_tp.json"
+TF_HEADS, TF_HD = 8, 32  # H=256 over 8 heads
+TF_ROWS = 512  # BATCH_SIZE; TRIPLET_METRICS false, so the doc tower runs [B] rows too
+TF_TRAIN, TF_VAL, TF_TEST = 8192, 512, 64
+TF_CPU_ROWS = 64  # the first step's cut of the first batch, card and CPU alike
+TF_DIR = TRAIN_DIR / "transformer"
+# The transformer's first step, card against CPU (plain versions) on the
+# same 64-row cut, dropout off: a CPU run of the same step at full width
+# (64 rows, a 20,000-row table) with every product summed in float64 moved
+# the loss by 8.7e-5 and each per-leaf gradient norm by at most 6.1e-4
+# relative (a layer-norm shift). Envelope: 1e-3 on the loss, 2e-2 relative
+# per leaf, as for the GRU towers.
+TF_STEP_LOSS_ATOL = 1e-3
+TF_STEP_GRAD_REL = 2e-2
+# Transformer /search scores, card against CPU engine: the attention
+# kernels and the plain versions differ in a sum's last bit, which can flip
+# a bf16 rounding that six blocks carry on into the query embedding.
+TF_SERVE_ATOL = EMBED_ATOL
 
 
 class SmokeFailure(Exception):
@@ -365,7 +404,7 @@ def phase_kernels(dev) -> dict:
 # Every kernel of the port: its launch counter (the wrapper's attribute),
 # its source and the TPU kernel it replaces.
 def kernel_table():
-    from twotowermlretrieval_tpu_torch.ops import rnn_scan, topk
+    from twotowermlretrieval_tpu_torch.ops import attention, rnn_scan, topk
 
     return {
         "rnn_fwd": (rnn_scan.rnn_layer_fwd, "twotowermlretrieval_tpu_torch/csrc/rnn_fwd.cu",
@@ -383,6 +422,12 @@ def kernel_table():
         "topk_stream_int8": (topk.topk_stream_int8,
                              "twotowermlretrieval_tpu_torch/csrc/topk_stream.cu",
                              "twotowermlretrieval_tpu/ops/topk.py:1009"),
+        "attention_fwd": (attention.attention_fwd,
+                          "twotowermlretrieval_tpu_torch/csrc/attention.cu",
+                          "twotowermlretrieval_tpu/ops/attention.py:73"),
+        "attention_bwd": (attention.attention_bwd,
+                          "twotowermlretrieval_tpu_torch/csrc/attention.cu",
+                          "twotowermlretrieval_tpu/ops/attention.py:80"),
     }
 
 
@@ -739,6 +784,102 @@ def phase_bwd_kernels(dev) -> list:
     ]
 
 
+def check_attention(B: int, T: int, in_dtype, seed: int, dev) -> tuple:
+    """Both attention kernels at B rows of 8 heads (R = 8B), hd=32, bf16
+    compute, against their plain versions; rows of batch element 0 have
+    length 0 (fully masked), 1 has length 1, 2 all of T. Timed beside SDPA
+    with the same additive mask (forward, and forward+backward minus
+    forward). Returns the (forward, backward) records."""
+    import torch.nn.functional as F
+
+    from twotowermlretrieval_tpu_torch.ops.attention import (
+        attention_bound,
+        attention_bwd,
+        attention_bwd_reference,
+        attention_fwd,
+        attention_fwd_reference,
+    )
+
+    R = B * TF_HEADS
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn((R, T, TF_HD), generator=gen, device=dev) for _ in range(4))
+    q, k, v = (t.to(in_dtype) for t in (q, k, v))
+    lengths = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
+    lengths[:3] = torch.tensor([0, 1, T], device=dev)
+    bias = torch.where(torch.arange(T, device=dev)[None, :] < lengths[:, None], 0.0, -1e9)
+    bias = bias.repeat_interleave(TF_HEADS, dim=0)  # [R, T], row b * heads + h
+    scale = float(1.0 / np.sqrt(TF_HD))
+    args = (q, k, v, bias)
+    out = attention_fwd(*args, scale, "bfloat16")
+    grads = attention_bwd(*args, do, scale, "bfloat16")
+    r_out = attention_fwd_reference(*args, scale, "bfloat16")
+    r_grads = attention_bwd_reference(*args, do, scale, "bfloat16")
+    torch.cuda.synchronize()
+    shape = (f"R={R} (B={B} x {TF_HEADS} heads) T={T} hd={TF_HD} "
+             f"{'bf16' if in_dtype == torch.bfloat16 else 'f32'} in, bf16 compute")
+    fwd_err = (out - r_out).abs().max().item()
+    bwd_err = max((a - b).abs().max().item() for a, b in zip(grads, r_grads))
+    fwd_rel = fwd_err / r_out.abs().max().item()
+    bwd_rel = max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(grads, r_grads))
+    # the fully masked rows attend uniformly: each output row is v's mean
+    uniform = v[:TF_HEADS].to(torch.bfloat16).float().mean(dim=1, keepdim=True)
+    masked_err = (out[:TF_HEADS] - uniform).abs().max().item()
+    log(f"attention {shape}: |fwd diff| {fwd_err:.3g} ({fwd_rel:.3g} of the scale), "
+        f"|bwd diff| {bwd_err:.3g} ({bwd_rel:.3g}), fully masked rows off uniform by "
+        f"{masked_err:.3g}")
+    check(all(bool(torch.isfinite(t).all()) for t in (out, *grads)),
+          f"attention {shape}: non-finite output")
+    check(fwd_rel <= ATTN_REL and bwd_rel <= ATTN_REL, f"attention {shape}: off its plain version")
+    check(masked_err <= 4 * ATTN_REL * v[:TF_HEADS].float().abs().max().item(),
+          f"attention {shape}: a fully masked row is not uniform")
+    fwd = {"shape": shape, "max_abs_err": fwd_err, "rel_err": fwd_rel}
+    bwd = {"shape": shape, "max_abs_err": bwd_err, "rel_err": bwd_rel}
+    in_bytes = 2 if in_dtype == torch.bfloat16 else 4
+    fwd["ms"] = time_ms(lambda: attention_fwd(*args, scale, "bfloat16"))
+    bwd["ms"] = time_ms(lambda: attention_bwd(*args, do, scale, "bfloat16"))
+    fwd["plain_ms"] = time_ms(lambda: attention_fwd_reference(*args, scale, "bfloat16"),
+                              reps=5, warmup=1)
+    bwd["plain_ms"] = time_ms(lambda: attention_bwd_reference(*args, do, scale, "bfloat16"),
+                              reps=5, warmup=1)
+    # the yardstick: one library call on the same inputs and additive mask
+    mask = bias[:, None, :].to(in_dtype)
+    with torch.enable_grad():
+        ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, scale=scale)
+
+        fwd["library_ms"] = time_ms(sdpa)
+        both = time_ms(lambda: torch.autograd.grad(sdpa(), (ql, kl, vl), do.to(in_dtype)))
+    bwd["library_ms"] = both - fwd["library_ms"]
+    bwd["library_fwd_bwd_ms"] = both
+    for rec, backward in ((fwd, False), (bwd, True)):
+        rec["bound_ms"], rec["bound_by"] = bound(*attention_bound(R, T, TF_HD, in_bytes, backward))
+    log(f"attention {shape}: forward {fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}, SDPA "
+        f"{fwd['library_ms']:.4f}, bound {fwd['bound_ms']:.6f} {fwd['bound_by']}); backward "
+        f"{bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.4f}, SDPA fwd+bwd - fwd "
+        f"{bwd['library_ms']:.4f}, bound {bwd['bound_ms']:.6f} {bwd['bound_by']})")
+    del out, grads, r_out, r_grads
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def phase_attention_kernels(dev) -> dict:
+    """The transformer's shapes: the doc tower in training (B=512, T=128,
+    the main row), its query tower (T=32), one serving batch (16 rows,
+    T=32) and one T=512 case; each with f32 inputs (the f32 residual
+    stream) and with bf16 inputs (RESIDUAL_DTYPE bfloat16)."""
+    fwd, bwd = [], []
+    with torch.no_grad():
+        for in_dtype in (torch.float32, torch.bfloat16):
+            for i, (B, T) in enumerate(((TF_ROWS, DOC_LEN), (TF_ROWS, QUERY_LEN),
+                                        (SERVE_ROWS, QUERY_LEN), (32, 512))):
+                f, b = check_attention(B, T, in_dtype, 30 + i, dev)
+                fwd.append(f)
+                bwd.append(b)
+    return {"attention_fwd": fwd, "attention_bwd": bwd}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: a synthetic artifact directory at full width
 # ---------------------------------------------------------------------------
@@ -861,15 +1002,17 @@ def _requests(triplets):
     ]
 
 
-def _drive_server(requests, **serve_kwargs):
-    """The main path: the server as ``ttr-torch-serve --artifacts ...``
+def _drive_server(requests, path=None, num_docs=None, **serve_kwargs):
+    """The main path: the server as ``ttr-torch-serve --artifacts path``
     starts it (device cuda), driven over HTTP with every launch count at 0
-    and read just after. Returns (result record, the server's engine)."""
+    and read just after. Returns (result record, the server's engine).
+    By default it serves the export of phase 4."""
     from twotowermlretrieval_tpu_torch.serve.app import serve
 
+    path, num_docs = path or ARTIFACTS, num_docs or PASSAGES
     zero_counts()
     t0 = time.perf_counter()
-    server = serve(str(ARTIFACTS), port=0, host="127.0.0.1", **serve_kwargs)
+    server = serve(str(path), port=0, host="127.0.0.1", **serve_kwargs)
     startup_s = time.perf_counter() - t0
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -883,10 +1026,10 @@ def _drive_server(requests, **serve_kwargs):
         server.server_close()
         thread.join(timeout=30)
     launches = read_counts()
-    what = f"serve {serve_kwargs.get('storage_dtype', 'bfloat16')}"
+    what = f"serve {Path(path).name} {serve_kwargs.get('storage_dtype', 'bfloat16')}"
     log(f"{what}: startup {startup_s:.1f} s, request ms "
         f"{[round(ms, 3) for _, _, ms in responses]}, launches {launches}")
-    check(status == 200 and json.loads(health) == {"status": "ok", "num_docs": PASSAGES},
+    check(status == 200 and json.loads(health) == {"status": "ok", "num_docs": num_docs},
           f"/health: {status} {health}")
     check(m_status == 200 and f"ttr_searches_total {len(requests)}" in metrics,
           "/metrics does not count the searches")
@@ -1041,26 +1184,26 @@ def _train_config(word_to_idx, table):
     return setup(cfg)
 
 
-def phase_first_step(dev, cfg, tok, table, train_triplets) -> dict:
+def _first_batch(cfg, tok, train_triplets) -> np.ndarray:
+    """The epoch's first packed batch, as the training loop draws it."""
+    from twotowermlretrieval_tpu_torch.data.batching import TripletBatcher, pack_batch
+
+    batcher = TripletBatcher(train_triplets, tok, cfg.batch_size, cfg.max_query_len,
+                             cfg.max_doc_len, length_buckets=cfg.length_buckets)
+    return pack_batch(next(batcher.batches(seed=cfg.seed + 1000)))
+
+
+def _first_step_card_vs_cpu(dev, cfg, params, packed, loss_atol: float, grad_rel: float,
+                            what: str) -> dict:
     """One train step on the card and one on the CPU (plain versions) from
-    the same initial state and the epoch's first batch, dropout off: the
-    loss and every per-leaf gradient norm within the stated envelope."""
-    from twotowermlretrieval_tpu_torch.data.batching import TripletBatcher, pack_batch, unpack_batch
-    from twotowermlretrieval_tpu_torch.models.two_tower import (
-        TwoTowerSpec,
-        init_two_tower,
-        to_device,
-    )
+    the same initial state and packed batch, dropout off: the loss and
+    every per-leaf gradient norm within the stated envelope."""
+    from twotowermlretrieval_tpu_torch.data.batching import unpack_batch
+    from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec, to_device
     from twotowermlretrieval_tpu_torch.train.train_step import create_train_state, make_train_step
 
     cfg = cfg.replace(dropout=0.0, log_param_stats=True)
-    spec = TwoTowerSpec.from_config(cfg)
-    batcher = TripletBatcher(train_triplets, tok, cfg.batch_size, cfg.max_query_len,
-                             cfg.max_doc_len, length_buckets=cfg.length_buckets)
-    packed = pack_batch(next(batcher.batches(seed=cfg.seed + 1000)))
-    params = init_two_tower(torch.Generator().manual_seed(cfg.seed), spec,
-                            pretrained_embeddings=table)
-    step = make_train_step(spec, cfg)
+    step = make_train_step(TwoTowerSpec.from_config(cfg), cfg)
     out = {}
     for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
         state = create_train_state(torch.Generator(device=where).manual_seed(1),
@@ -1068,64 +1211,44 @@ def phase_first_step(dev, cfg, tok, table, train_triplets) -> dict:
         t0 = time.perf_counter()
         _, m = step(state, unpack_batch(torch.from_numpy(packed).to(where), cfg.max_query_len))
         out[label] = {k: float(v) for k, v in m.items()}
-        log(f"first step on the {label}: loss {out[label]['loss']:.6f}, "
+        log(f"{what} first step on the {label}: loss {out[label]['loss']:.6f}, "
             f"{time.perf_counter() - t0:.1f} s")
+        del state
     card, cpu = out["card"], out["cpu"]
     loss_err = abs(card["loss"] - cpu["loss"])
     rels = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30)
             for k in cpu if k.startswith("grad_norm")}
     worst = max(rels, key=rels.get)
-    log(f"first step, card against CPU: |loss diff| {loss_err:.3g}; gradient norms "
-        f"{len(rels)}, worst {worst} {rels[worst]:.3g} relative (doc width "
-        f"{(packed.shape[1] - cfg.max_query_len - 4) // 2})")
-    check(all(math.isfinite(v) for v in card.values()), "first step: a non-finite metric")
-    check(loss_err <= STEP_LOSS_ATOL, f"first step: loss off by {loss_err}")
-    check(rels[worst] <= STEP_GRAD_REL, f"first step: {worst} off by {rels[worst]}")
+    log(f"{what} first step, card against CPU: |loss diff| {loss_err:.3g}; gradient norms "
+        f"{len(rels)}, worst {worst} {rels[worst]:.3g} relative ({packed.shape[0]} rows, doc "
+        f"width {(packed.shape[1] - cfg.max_query_len - 4) // 2})")
+    check(all(math.isfinite(v) for v in card.values()), f"{what} first step: a non-finite metric")
+    check(loss_err <= loss_atol, f"{what} first step: loss off by {loss_err}")
+    check(rels[worst] <= grad_rel, f"{what} first step: {worst} off by {rels[worst]}")
     return {"loss_err": loss_err, "worst_grad_norm_rel": rels[worst], "worst_leaf": worst}
 
 
-def phase_train(dev, corpus) -> dict:
+def phase_first_step(dev, cfg, tok, table, train_triplets) -> dict:
+    from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec, init_two_tower
+
+    params = init_two_tower(torch.Generator().manual_seed(cfg.seed),
+                            TwoTowerSpec.from_config(cfg), pretrained_embeddings=table)
+    return _first_step_card_vs_cpu(dev, cfg, params, _first_batch(cfg, tok, train_triplets),
+                                   STEP_LOSS_ATOL, STEP_GRAD_REL, "train")
+
+
+def _check_checkpoint(ckpt_dir, cfg, table, res, dev, what: str) -> None:
+    """The epoch-end checkpoint restores bit for bit on the card."""
     from twotowermlretrieval_tpu_torch.models.two_tower import (
         TwoTowerSpec,
         init_two_tower,
         to_device,
     )
-    from twotowermlretrieval_tpu_torch.serve.engine import SearchEngine
     from twotowermlretrieval_tpu_torch.train.checkpoint import CheckpointManager
-    from twotowermlretrieval_tpu_torch.train.loop import train_on_datasets
     from twotowermlretrieval_tpu_torch.train.train_step import create_train_state
     from twotowermlretrieval_tpu_torch.utils.pytree import named_leaves
 
-    word_to_idx, table, triplets = corpus
-    if TRAIN_DIR.exists():
-        shutil.rmtree(TRAIN_DIR)
-    cfg, tok, table = _train_config(word_to_idx, table)
-    a, b = TRAIN_TRIPLETS, TRAIN_TRIPLETS + VAL_TRIPLETS
-    datasets = {"train": triplets[:a], "validation": triplets[a:b],
-                "test": triplets[b : b + TEST_TRIPLETS]}
-    first = phase_first_step(dev, cfg, tok, table, datasets["train"])
-
-    # the main path: the driver behind `ttr-torch-train`, with the counts at 0
-    zero_counts()
-    t0 = time.perf_counter()
-    res = train_on_datasets(cfg, tok, table, datasets, output_root=TRAIN_DIR / "artifacts",
-                            checkpoint_dir=TRAIN_DIR / "ckpt", device=dev)
-    train_s = time.perf_counter() - t0
-    launches = read_counts()
-    steps, losses = res["steps"], res["step_losses"]
-    log(f"train: {steps} steps in one epoch, {train_s:.1f} s with evaluation and export; "
-        f"launches {launches}; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
-    log(f"train: steady {res['steady_steps_per_sec']:.2f} steps/s, "
-        f"{res['steady_examples_per_sec']:.1f} examples/s (after a first group of "
-        f"{res['compile_seconds']:.2f} s); epoch {json.dumps(res['epochs'][-1])}")
-    check(steps >= 32, f"train: only {steps} steps")
-    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
-          "train: a non-finite loss")
-    check(launches["rnn_bwd"] == 4 * steps, f"train: {launches['rnn_bwd']} rnn_bwd launches "
-          f"for {steps} steps, expected 4 per step")
-
-    # the epoch-end checkpoint restores bit for bit on the card
-    manager = CheckpointManager(TRAIN_DIR / "ckpt")
+    manager = CheckpointManager(ckpt_dir)
     spec = TwoTowerSpec.from_config(cfg)
     template = create_train_state(
         torch.Generator(device=dev).manual_seed(7),
@@ -1139,10 +1262,53 @@ def phase_train(dev, corpus) -> dict:
     same = all(torch.equal(x, y) for t1, t2 in trees
                for (_, x), (_, y) in zip(named_leaves(t1), named_leaves(t2)))
     same = same and torch.equal(state.opt_state["count"], restored.opt_state["count"])
-    same = same and restored.step == state.step == steps
+    same = same and restored.step == state.step == res["steps"]
     same = same and torch.equal(state.generator.get_state(), restored.generator.get_state())
-    log(f"checkpoint step {restored.step}, position {position}: restores bit for bit: {same}")
-    check(same, "train: the checkpoint does not round-trip")
+    log(f"{what}: checkpoint step {restored.step}, position {position}: restores bit for bit: "
+        f"{same}")
+    check(same, f"{what}: the checkpoint does not round-trip")
+
+
+def _train_main_path(cfg, tok, table, datasets, out_dir, dev, what: str):
+    """The training loop behind `ttr-torch-train`, with the counts at 0 just
+    before it and read just after: (results, launches, seconds)."""
+    from twotowermlretrieval_tpu_torch.train.loop import train_on_datasets
+
+    zero_counts()
+    t0 = time.perf_counter()
+    res = train_on_datasets(cfg, tok, table, datasets, output_root=out_dir / "artifacts",
+                            checkpoint_dir=out_dir / "ckpt", device=dev)
+    train_s = time.perf_counter() - t0
+    launches = read_counts()
+    steps, losses = res["steps"], res["step_losses"]
+    log(f"{what}: {steps} steps in one epoch, {train_s:.1f} s with evaluation and export; "
+        f"launches {launches}; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    log(f"{what}: steady {res['steady_steps_per_sec']:.2f} steps/s, "
+        f"{res['steady_examples_per_sec']:.1f} examples/s (after a first group of "
+        f"{res['compile_seconds']:.2f} s); epoch {json.dumps(res['epochs'][-1])}")
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"{what}: a non-finite loss")
+    _check_checkpoint(out_dir / "ckpt", cfg, table, res, dev, what)
+    return res, launches, train_s
+
+
+def phase_train(dev, corpus) -> dict:
+    from twotowermlretrieval_tpu_torch.serve.engine import SearchEngine
+
+    word_to_idx, table, triplets = corpus
+    if TRAIN_DIR.exists():
+        shutil.rmtree(TRAIN_DIR)
+    cfg, tok, table = _train_config(word_to_idx, table)
+    a, b = TRAIN_TRIPLETS, TRAIN_TRIPLETS + VAL_TRIPLETS
+    datasets = {"train": triplets[:a], "validation": triplets[a:b],
+                "test": triplets[b : b + TEST_TRIPLETS]}
+    first = phase_first_step(dev, cfg, tok, table, datasets["train"])
+
+    res, launches, train_s = _train_main_path(cfg, tok, table, datasets, TRAIN_DIR, dev, "train")
+    steps, losses = res["steps"], res["step_losses"]
+    check(steps >= 32, f"train: only {steps} steps")
+    check(launches["rnn_bwd"] == 4 * steps, f"train: {launches['rnn_bwd']} rnn_bwd launches "
+          f"for {steps} steps, expected 4 per step")
 
     # the exported directory serves through the port's engine on the card
     engine = SearchEngine(res["artifacts_dir"], device=dev)
@@ -1157,6 +1323,139 @@ def phase_train(dev, corpus) -> dict:
             "steady_steps_per_sec": res["steady_steps_per_sec"],
             "steady_examples_per_sec": res["steady_examples_per_sec"],
             "loss_first_last": [losses[0], losses[-1]]}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the transformer tower of config 5, trained and served
+# ---------------------------------------------------------------------------
+
+
+def _transformer_config(word_to_idx, table):
+    """configs/transformer_tp.json (6 blocks, H=256, 8 heads, FFN 1024,
+    dropout 0.1, in_batch at temperature 0.05, LR 1e-4, B=512, max query
+    32, max doc 128, TRIPLET_METRICS false, FREEZE_EMBEDDINGS false, bf16
+    compute) on the smoke's word table, with its cuts: MESH_MODEL 1 and
+    SHARD_EMBEDDING_TABLE false (one card; the tensor-parallel mesh is not
+    ported), CROSS_DEVICE_NEGATIVES moot on one device, FUSED_ATTENTION
+    true (the JAX package's own switch, without which it never reaches its
+    attention kernel) and one epoch."""
+    from twotowermlretrieval_tpu_torch.config import Config
+    from twotowermlretrieval_tpu_torch.data.glove import save_embedding_artifacts
+    from twotowermlretrieval_tpu_torch.train.loop import setup
+
+    save_embedding_artifacts(TF_DIR, table, word_to_idx)
+    cfg = Config.from_json(TF_CONFIG).replace(
+        embeddings_path=str(TF_DIR / "embeddings.npy"),
+        word_to_idx_path=str(TF_DIR / "word_to_idx.pkl"),
+        mesh_model=1, shard_embedding_table=False, fused_attention=True, epochs=1,
+    )
+    check(cfg.tower_type == "transformer" and cfg.hidden_dim == H and cfg.num_layers == 6
+          and cfg.num_heads == TF_HEADS and cfg.ffn_dim == 1024 and cfg.dropout == 0.1
+          and cfg.loss_type == "in_batch" and cfg.temperature == 0.05 and cfg.lr == 1e-4
+          and cfg.batch_size == TF_ROWS and cfg.max_query_len == QUERY_LEN
+          and cfg.max_doc_len == DOC_LEN and not cfg.triplet_metrics
+          and not cfg.freeze_embeddings and cfg.compute_dtype == "bfloat16",
+          "config 5 (configs/transformer_tp.json)")
+    return setup(cfg)
+
+
+def _routes_step(dev, cfg, params, packed) -> dict:
+    """One full-batch train step from the same state through the attention
+    kernels (FUSED_ATTENTION true) and through the torch route
+    (FUSED_ATTENTION null), dropout off: the loss difference, and each
+    route's step time (a second step, host clock around a synchronized
+    step). The kernel route launches 12 forward and 12 backward
+    attention kernels per step."""
+    from twotowermlretrieval_tpu_torch.data.batching import unpack_batch
+    from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec, to_device
+    from twotowermlretrieval_tpu_torch.train.train_step import create_train_state, make_train_step
+
+    batch = unpack_batch(torch.from_numpy(packed).to(dev), cfg.max_query_len)
+    out = {}
+    for route, fused in (("kernels", True), ("torch", None)):
+        rcfg = cfg.replace(dropout=0.0, fused_attention=fused)
+        step = make_train_step(TwoTowerSpec.from_config(rcfg), rcfg)
+        state = create_train_state(torch.Generator(device=dev).manual_seed(1),
+                                   to_device(params, dev), rcfg)
+        zero_counts()
+        _, m = step(state, batch)
+        loss = float(m["loss"])
+        counts = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        out[route] = {"loss": loss, "step_ms": (time.perf_counter() - t0) * 1e3,
+                      "launches": counts}
+        del state, step
+        torch.cuda.empty_cache()
+    k, t = out["kernels"], out["torch"]
+    out["loss_diff"] = abs(k["loss"] - t["loss"])
+    log(f"transformer first step at B={packed.shape[0]}: loss {k['loss']:.6f} through the "
+        f"kernels, {t['loss']:.6f} through the torch route (|diff| {out['loss_diff']:.3g}); "
+        f"second step {k['step_ms']:.1f} ms against {t['step_ms']:.1f} ms")
+    check(k["launches"]["attention_fwd"] == 12 and k["launches"]["attention_bwd"] == 12,
+          f"the kernel route's step launched {k['launches']}, expected 12 attention forward "
+          f"and 12 backward")
+    check(t["launches"]["attention_fwd"] == 0 and t["launches"]["attention_bwd"] == 0,
+          "the torch route launched an attention kernel")
+    check(math.isfinite(k["loss"]) and math.isfinite(t["loss"]), "a non-finite first loss")
+    return out
+
+
+def phase_transformer(dev, corpus) -> dict:
+    """Config 5 on one card: the first step against the CPU and the torch
+    route, one epoch of TF_TRAIN triplets through the training loop (12 attention
+    backward launches per step, no rnn kernel, the checkpoint), then its
+    export served over HTTP (6 attention forward + 1 segmax per dense
+    search) and checked against the port's CPU engine."""
+    from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec, init_two_tower
+    from twotowermlretrieval_tpu_torch.serve.engine import SearchEngine
+    from twotowermlretrieval_tpu_torch.train.artifacts import collect_unique_documents
+
+    word_to_idx, table, triplets = corpus
+    cfg, tok, table = _transformer_config(word_to_idx, table)
+    a = TRAIN_TRIPLETS + VAL_TRIPLETS + TEST_TRIPLETS  # after the GRU phase's
+    b, c = a + TF_TRAIN, a + TF_TRAIN + TF_VAL
+    datasets = {"train": triplets[a:b], "validation": triplets[b:c],
+                "test": triplets[c : c + TF_TEST]}
+    params = init_two_tower(torch.Generator().manual_seed(cfg.seed),
+                            TwoTowerSpec.from_config(cfg), pretrained_embeddings=table)
+    packed = _first_batch(cfg, tok, datasets["train"])
+    first = _first_step_card_vs_cpu(dev, cfg, params, packed[:TF_CPU_ROWS], TF_STEP_LOSS_ATOL,
+                                    TF_STEP_GRAD_REL, "transformer")
+    routes = _routes_step(dev, cfg, params, packed)
+    del params
+
+    res, launches, train_s = _train_main_path(cfg, tok, table, datasets, TF_DIR, dev,
+                                              "transformer train")
+    steps = res["steps"]
+    check(steps == TF_TRAIN // TF_ROWS, f"transformer train: {steps} steps")
+    check(launches["attention_bwd"] == 12 * steps,
+          f"transformer train: {launches['attention_bwd']} attention_bwd launches for {steps} "
+          f"steps, expected 6 per step per tower")
+    check(launches["attention_fwd"] >= 12 * steps and launches["attention_fwd"] % 6 == 0,
+          f"transformer train: {launches['attention_fwd']} attention_fwd launches")
+    check(launches["rnn_fwd"] == 0 and launches["rnn_bwd"] == 0,
+          "transformer train: a recurrent kernel was launched")
+
+    requests = _requests(datasets["train"])
+    served, _ = _drive_server(requests, path=res["artifacts_dir"],
+                              num_docs=len(collect_unique_documents(datasets)))
+    counts = served["launches"]
+    dense = sum(1 for r in requests if r["alpha"] != 0.0)
+    check(counts["attention_fwd"] == 6 * dense and counts["segmax"] == dense
+          and sum(counts.values()) == 7 * dense,
+          f"transformer serving launched {counts}, expected 6 attention_fwd and 1 segmax per "
+          f"dense search")
+    _check_responses(requests, served.pop("responses"),
+                     SearchEngine(res["artifacts_dir"], device="cpu"), TF_SERVE_ATOL)
+    log(f"serve transformer: {len(requests)} /search responses match the CPU engine")
+    return {"steps": steps, "launches": launches, "train_s": train_s, "first_step": first,
+            "routes": routes, "serve": served,
+            "steady_steps_per_sec": res["steady_steps_per_sec"],
+            "steady_examples_per_sec": res["steady_examples_per_sec"],
+            "loss_first_last": [res["step_losses"][0], res["step_losses"][-1]]}
 
 
 # ---------------------------------------------------------------------------
@@ -1189,10 +1488,12 @@ def main() -> int:
         kern = phase_kernels(dev)
         kern.update(phase_int8_kernels(dev))
         kern["rnn_bwd"] = phase_bwd_kernels(dev)
+        kern.update(phase_attention_kernels(dev))
         export, corpus = phase_export(dev)
         served = phase_serve(dev, corpus[2])
         served_int8 = phase_serve_int8(dev, corpus[2])
         trained = phase_train(dev, corpus)
+        tf = phase_transformer(dev, corpus)
     finally:
         shutil.rmtree(ARTIFACTS, ignore_errors=True)
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
@@ -1200,15 +1501,19 @@ def main() -> int:
 
     # each kernel's path, its counts read just after it ran: bf16 serving
     # for rnn_fwd and segmax, training for rnn_bwd, int8 serving for
-    # segmax_s8, and for the kernels no serving or training path reaches,
-    # one call of their public function (fused_topk_segmax_int8,
-    # fused_topk, fused_topk_int8)
+    # segmax_s8, transformer serving for attention_fwd and transformer
+    # training for attention_bwd, and for the kernels no serving or
+    # training path reaches, one call of their public function
+    # (fused_topk_segmax_int8, fused_topk, fused_topk_int8)
     phases = {"export": export["launches"], "serve": served["launches"],
-              "serve_int8": served_int8["launches"], "train": trained["launches"]}
+              "serve_int8": served_int8["launches"], "train": trained["launches"],
+              "transformer_train": tf["launches"], "transformer_serve": tf["serve"]["launches"]}
     main_launches = {"rnn_fwd": served["launches"]["rnn_fwd"],
                      "segmax": served["launches"]["segmax"],
                      "rnn_bwd": trained["launches"]["rnn_bwd"],
-                     "segmax_s8": served_int8["launches"]["segmax_s8"]}
+                     "segmax_s8": served_int8["launches"]["segmax_s8"],
+                     "attention_fwd": tf["serve"]["launches"]["attention_fwd"],
+                     "attention_bwd": tf["launches"]["attention_bwd"]}
     kernels = []
     for name, (_, source, replaces) in kernel_table().items():
         recs = kern[name]
@@ -1236,6 +1541,13 @@ def main() -> int:
     log(f"train: first step card-vs-CPU {json.dumps(trained['first_step'])}; "
         f"steady {trained['steady_steps_per_sec']:.3f} steps/s, "
         f"{trained['steady_examples_per_sec']:.1f} examples/s ({card})")
+    routes = tf["routes"]
+    log(f"transformer: first step card-vs-CPU {json.dumps(tf['first_step'])}; kernel route "
+        f"against torch route: |loss diff| {routes['loss_diff']:.3g}, step "
+        f"{routes['kernels']['step_ms']:.1f} ms against {routes['torch']['step_ms']:.1f} ms; "
+        f"steady {tf['steady_steps_per_sec']:.3f} steps/s, "
+        f"{tf['steady_examples_per_sec']:.1f} examples/s; request ms "
+        f"{[round(ms, 3) for ms in tf['serve']['request_ms']]} ({card})")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,130 @@
+"""The port's fused attention (plain versions, on the CPU) against the JAX
+package's kernel run in interpret mode and its ``jax.grad``.
+
+Tolerances:
+
+- f32 compute: rtol 1e-5 / atol 1e-6 forward and 1e-4 / 1e-5 gradients,
+  the bounds tests/test_models.py holds the JAX kernel to against its XLA
+  path (the same arithmetic, sums in another order);
+- bf16 compute: one bf16 ulp of the result's scale, 2^-8 * max|JAX|. Both
+  round the same operands to bf16, but a last-bit difference of an f32 sum
+  can move p or ds across a bf16 rounding boundary (measured at these
+  shapes: 4.5e-8 of the scale; the plain version against itself with
+  float64 sums at R=512, T=128: 6.1e-4).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from twotowermlretrieval_tpu.ops.attention import fused_attention as jax_fused_attention
+from twotowermlretrieval_tpu.ops.attention import use_fused_attention as jax_use_fused_attention
+from twotowermlretrieval_tpu_torch.ops.attention import (
+    attention_bwd,
+    attention_bwd_reference,
+    attention_fwd,
+    fused_attention,
+    use_fused_attention,
+)
+
+_TOL = {"float32": dict(fwd=(1e-5, 1e-6), grad=(1e-4, 1e-5)), "bfloat16": 2 ** -8}
+
+
+def _case(R, T, hd, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, ct = (rng.standard_normal((R, T, hd)).astype(np.float32) for _ in range(4))
+    lens = rng.integers(1, T + 1, R)
+    lens[:3] = [0, 1, T]  # a fully masked row, a single key, every key
+    bias = np.where(np.arange(T)[None, :] < lens[:, None], 0.0, -1e9).astype(np.float32)
+    return q, k, v, bias, ct, float(1.0 / np.sqrt(hd))
+
+
+def _jax(q, k, v, bias, ct, scale, cdt, in_dtype):
+    args = [jnp.asarray(x).astype(in_dtype) for x in (q, k, v)]
+
+    def f(*a):
+        return jax_fused_attention(*a, jnp.asarray(bias), scale, cdt, True)
+
+    out, vjp = jax.vjp(f, *args)
+    return [np.asarray(x, np.float32) for x in (out, *vjp(jnp.asarray(ct)))]
+
+
+def _port(q, k, v, bias, ct, scale, cdt, in_dtype):
+    """Through the autograd Function; bf16 inputs round inside it, so the
+    gradients stay f32 as the JAX custom VJP returns them."""
+    ts = [torch.from_numpy(x.copy()).requires_grad_(True) for x in (q, k, v)]
+    out = fused_attention(*ts, torch.from_numpy(bias), scale, cdt,
+                          input_dtype=None if in_dtype == np.float32 else torch.bfloat16)
+    out.backward(torch.from_numpy(ct))
+    return [out.detach().numpy()] + [t.grad.numpy() for t in ts]
+
+
+def _assert_close(got, want, cdt):
+    names = ("out", "dq", "dk", "dv")
+    for name, a, b in zip(names, got, want):
+        if cdt == "float32":
+            rtol, atol = _TOL[cdt]["fwd" if name == "out" else "grad"]
+            np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=name)
+        else:
+            assert np.abs(a - b).max() <= _TOL[cdt] * np.abs(b).max(), name
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("in_dtype", [np.float32, jnp.bfloat16], ids=["f32-in", "bf16-in"])
+@pytest.mark.parametrize("R,T,hd", [(8, 16, 8), (6, 21, 16)])
+def test_plain_attention_matches_jax_kernel(cdt, in_dtype, R, T, hd):
+    case = _case(R, T, hd, seed=R * T)
+    before = attention_fwd.launches, attention_bwd.launches
+    got = _port(*case, cdt, in_dtype)
+    _assert_close(got, _jax(*case, cdt, in_dtype), cdt)
+    # CPU tensors take the plain versions: no kernel was launched
+    assert (attention_fwd.launches, attention_bwd.launches) == before
+    assert all(np.isfinite(x).all() for x in got)
+    # the fully masked row attends uniformly (the -1e9 bias absorbs every score)
+    v = case[2] if in_dtype == np.float32 else np.asarray(jnp.asarray(case[2]).astype(in_dtype),
+                                                          np.float32)
+    np.testing.assert_allclose(got[0][0], np.broadcast_to(v[0].mean(0), (T, hd)),
+                               atol=1e-5 if cdt == "float32" else 2e-2)
+
+
+def test_bf16_inputs_without_input_dtype_give_bf16_gradients():
+    """Handing the Function bf16 tensors gives the JAX forward exactly as
+    with input_dtype, and gradients rounded to bf16 (torch keeps a gradient
+    in its input's dtype)."""
+    q, k, v, bias, ct, scale = _case(8, 16, 8, seed=5)
+    ts = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True) for x in (q, k, v)]
+    out = fused_attention(*ts, torch.from_numpy(bias), scale, "bfloat16")
+    out.backward(torch.from_numpy(ct))
+    want = _jax(q, k, v, bias, ct, scale, "bfloat16", jnp.bfloat16)
+    np.testing.assert_allclose(out.detach().numpy(), want[0], rtol=1e-5, atol=1e-6)
+    for t, w in zip(ts, want[1:]):
+        assert t.grad.dtype == torch.bfloat16
+        np.testing.assert_allclose(t.grad.float().numpy(), w, rtol=2 ** -8, atol=1e-6)
+
+
+def test_backward_wrapper_is_the_plain_backward_on_the_cpu():
+    q, k, v, bias, ct, scale = _case(6, 12, 8, seed=9)
+    args = [torch.from_numpy(x) for x in (q, k, v, bias, ct)]
+    for a, b in zip(attention_bwd(*args, scale, "float32"),
+                    attention_bwd_reference(*args, scale, "float32")):
+        assert torch.equal(a, b)
+
+
+def test_policy_matches_jax():
+    for force in (None, True, False):
+        for T, hd in ((32, 32), (128, 32), (512, 64)):
+            assert use_fused_attention(T, hd, force) == jax_use_fused_attention(T, hd, force)
+
+
+def test_wrappers_reject_bad_shapes():
+    x = torch.zeros((2, 4, 8))
+    with pytest.raises(ValueError):
+        attention_fwd(x, x, x[:, :3], torch.zeros((2, 4)), 0.3)
+    with pytest.raises(ValueError):
+        attention_fwd(x, x, x, torch.zeros((2, 5)), 0.3)
+    with pytest.raises(ValueError):
+        attention_fwd(x, x, x.double(), torch.zeros((2, 4)), 0.3)
+    with pytest.raises(ValueError):
+        attention_bwd(x, x, x, torch.zeros((2, 4)), x[:1], 0.3)

@@ -11,9 +11,17 @@ port is installed:
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
+from twotowermlretrieval_tpu_torch.ops.attention import (
+    attention_bwd,
+    attention_bwd_reference,
+    attention_fwd,
+    attention_fwd_reference,
+    fused_attention,
+)
 from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
     _bwd_hoisted_call,
     _bwd_reference,
@@ -436,3 +444,129 @@ def test_topk_stream_wrappers_reject_what_the_kernel_does_not_take(dev):
         topk_stream_int8(q, values, scales[:128], 10, 256)  # scales not per row
     with pytest.raises(ValueError):
         segmax_int8(torch.cat([q] * 9), values, scales, 256)
+
+
+# ---------------------------------------------------------------------------
+# fused attention (csrc/attention.cu)
+# ---------------------------------------------------------------------------
+
+# Kernel against plain version, as a share of the plain result's largest
+# magnitude. A CPU run of the plain version against itself with float64
+# sums (the same rounding points; R=512 T=128 and T=32, R=64 T=512, hd=32)
+# differed by at most 5e-7 of it at f32 compute, and by 6.1e-4 at bf16
+# compute, where a last-bit change of a sum can move p or ds across a bf16
+# rounding boundary. Hence 1e-5 (f32) and one bf16 ulp, 2^-8 (bf16).
+_ATTN_REL = {"float32": 1e-5, "bfloat16": 2 ** -8}
+
+
+def _attention_case(dev, R, T, hd, in_dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn((R, T, hd), generator=gen, device=dev) for _ in range(4))
+    lengths = torch.randint(1, T + 1, (R,), generator=gen, device=dev)
+    lengths[: min(R, 3)] = torch.tensor([0, 1, T], device=dev)[: min(R, 3)]
+    bias = torch.where(torch.arange(T, device=dev)[None, :] < lengths[:, None], 0.0, -1e9)
+    return (q.to(in_dtype), k.to(in_dtype), v.to(in_dtype), bias), do
+
+
+def _close(got, want, rel, what):
+    err = (got - want).abs().max().item()
+    assert err <= rel * want.abs().max().item(), (what, err, want.abs().max().item())
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,T,hd", [(8, 16, 8), (6, 33, 16), (128, 32, 32), (64, 128, 32),
+                                    (16, 512, 32), (4, 200, 64)])
+def test_attention_kernels_match_plain_version(dev, cdt, in_dtype, R, T, hd):
+    """Forward and backward, rows of length 0, 1 and T among them; T=33 and
+    T=200 leave a partial tile of rows, T=512 runs four query tiles."""
+    args, do = _attention_case(dev, R, T, hd, in_dtype, seed=R + T + hd)
+    scale = float(1.0 / np.sqrt(hd))
+    before = attention_fwd.launches, attention_bwd.launches
+    out = attention_fwd(*args, scale, cdt)
+    grads = attention_bwd(*args, do, scale, cdt)
+    assert (attention_fwd.launches, attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    _close(out, attention_fwd_reference(*args, scale, cdt), _ATTN_REL[cdt], "out")
+    for name, g, r in zip("qkv", grads, attention_bwd_reference(*args, do, scale, cdt)):
+        _close(g, r, _ATTN_REL[cdt], f"d{name}")
+    assert all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+    # row 0 is fully masked: it attends uniformly, so every output row is
+    # the mean of v (p = 1/T rounded to the compute dtype)
+    v0 = args[2][0].to(torch.bfloat16 if cdt == "bfloat16" else torch.float32).float()
+    torch.testing.assert_close(out[0], v0.mean(0).expand(T, hd), rtol=0, atol=4 * _ATTN_REL[cdt])
+
+
+def test_attention_kernels_are_deterministic(dev):
+    args, do = _attention_case(dev, 512, 128, 32, torch.float32, seed=3)
+    a = attention_bwd(*args, do, 0.17, "bfloat16")
+    b = attention_bwd(*args, do, 0.17, "bfloat16")
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(attention_fwd(*args, 0.17, "bfloat16"), attention_fwd(*args, 0.17, "bfloat16"))
+
+
+def test_fused_attention_autograd_on_the_card(dev):
+    """The autograd Function on the card against itself on the CPU, with
+    bf16 inputs kept as f32 gradients (input_dtype)."""
+    args, do = _attention_case(dev, 32, 64, 32, torch.float32, seed=5)
+    outs = {}
+    for where in (dev, torch.device("cpu")):
+        q, k, v = (t.detach().to(where).requires_grad_(True) for t in args[:3])
+        o = fused_attention(q, k, v, args[3].to(where), 0.2, "bfloat16", input_dtype=torch.bfloat16)
+        o.backward(do.to(where))
+        outs[where.type] = [o.detach().cpu(), q.grad.cpu(), k.grad.cpu(), v.grad.cpu()]
+        assert q.grad.dtype == torch.float32
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        _close(got, want, _ATTN_REL["bfloat16"], "autograd")
+
+
+def test_attention_wrappers_reject_what_the_kernel_does_not_take(dev):
+    args, do = _attention_case(dev, 4, 16, 32, torch.float32, seed=0)
+    q, k, v, bias = args
+    with pytest.raises(ValueError, match="head widths"):
+        attention_fwd(q[..., :24], k[..., :24], v[..., :24], bias, 0.2)
+    long = torch.zeros((1, 513, 32), device=dev)
+    with pytest.raises(ValueError, match="T <= 512"):
+        attention_fwd(long, long, long, torch.zeros((1, 513), device=dev), 0.2)
+    with pytest.raises(ValueError):
+        attention_fwd(q, k.cpu(), v, bias, 0.2)
+    with pytest.raises(ValueError):
+        attention_bwd(q, k, v, bias, do[:, :8], 0.2)
+    wide = torch.zeros((1, 512, 64), device=dev)
+    with pytest.raises(RuntimeError, match="attention_fwd_launch failed"):
+        attention_fwd(wide, wide, wide, torch.zeros((1, 512), device=dev), 0.1)  # shared memory
+    out = attention_fwd(q, k, v, bias, 0.2)  # the refusal left no error behind
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("fused", [True, None])
+def test_transformer_tower_on_the_card_matches_the_cpu(dev, fused):
+    """A small transformer two-tower, f32: encodes and gradients on the card
+    (the kernels, or the torch route) equal the CPU's plain versions."""
+    from twotowermlretrieval_tpu_torch.models.transformer import (
+        TransformerSpec,
+        init_transformer_encoder,
+        transformer_encode,
+    )
+    from twotowermlretrieval_tpu_torch.models.two_tower import to_device
+    from twotowermlretrieval_tpu_torch.utils.pytree import named_leaves
+
+    spec = TransformerSpec(vocab_size=60, embed_dim=16, hidden_dim=64, num_layers=2,
+                           num_heads=2, ffn_dim=128, compute_dtype="float32", max_len=40,
+                           fused_attention=fused)
+    params = init_transformer_encoder(torch.Generator().manual_seed(0), spec)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, 60, (12, 40), generator=gen)
+    lengths = torch.randint(1, 41, (12,), generator=gen)
+    lengths[:2] = torch.tensor([0, 40])
+    res = {}
+    for where in (dev, torch.device("cpu")):
+        p = to_device(params, where)
+        leaves = [t.requires_grad_(True) for _, t in named_leaves(p)]
+        before = attention_bwd.launches
+        out = transformer_encode(p, tokens.to(where), lengths.to(where), spec)
+        grads = torch.autograd.grad((out * torch.arange(64.0, device=where)).sum(), leaves)
+        if where.type == "cuda" and fused:
+            assert attention_bwd.launches == before + 2
+        res[where.type] = [out.detach().cpu()] + [g.cpu() for g in grads]
+    for got, want in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)

@@ -135,8 +135,14 @@ def test_seeded_init_is_deterministic():
 
 
 def test_spec_from_config_and_transformer_not_ported():
+    """Both tower types build from a config; what the transformer still
+    lacks, tensor parallelism and a sharded table, raises naming the
+    ROADMAP item."""
     cfg = Config(vocab_size=V, embed_dim=E, hidden_dim=H)
     spec = TwoTowerSpec.from_config(cfg)
     assert spec.rnn.num_layers == 2 and spec.rnn.bidirectional and spec.hidden_dim == H
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TwoTowerSpec.from_config(cfg.replace(tower_type="transformer"))
+    tf = TwoTowerSpec.from_config(cfg.replace(tower_type="transformer"))
+    assert tf.tower_type == "transformer" and tf.rnn is None and tf.hidden_dim == H
+    for kw in ({"mesh_model": 2}, {"shard_embedding_table": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TwoTowerSpec.from_config(cfg.replace(tower_type="transformer", **kw))

@@ -11,7 +11,9 @@ Tolerances: f32 compute and storage, scores within 1e-5 (the same
 arithmetic, sums in another order) and the same documents in the same
 order up to ties; bf16, scores within 2e-2 (the JAX CPU scan keeps the
 input projection in f32, the port rounds it to bf16 as the TPU kernel
-does), order compared only where scores differ by more than that.
+does), order compared only where scores differ by more than that. A
+third directory holds a JAX transformer two-tower (f32, its default
+attention route): scores within 1e-5.
 """
 
 import json
@@ -48,10 +50,10 @@ QUERIES = ["t0w1 t0w2", "t3w4 t5w6 t5w7", "t11w19", "nothing known here", "t7w2 
 ALPHAS = [0.0, 0.5, 1.0]
 
 
-def _config(synth_dir, compute_dtype):
+def _config(synth_dir, compute_dtype, **tower):
     cfg = synthetic_config(
         synth_dir, hidden_dim=32, num_layers=2, bidirectional=True,
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, **tower,
     )
     tok = JaxTokenizer.from_pickle(cfg.word_to_idx_path)
     return cfg.replace(vocab_size=tok.vocab_size(), embed_dim=16), tok
@@ -63,8 +65,8 @@ def datasets(synth_dir):
     return TripletBuilder(cfg).load_datasets()
 
 
-def _export_jax(synth_dir, datasets, out, compute_dtype):
-    cfg, tok = _config(synth_dir, compute_dtype)
+def _export_jax(synth_dir, datasets, out, compute_dtype, **tower):
+    cfg, tok = _config(synth_dir, compute_dtype, **tower)
     params = jax_init_two_tower(jax.random.key(0), JaxTwoTowerSpec.from_config(cfg))
     jax_save_inference_artifacts(out, params, cfg, tok, datasets)
     return out
@@ -78,6 +80,13 @@ def jax_artifacts_float32(synth_dir, datasets, tmp_path_factory):
 @pytest.fixture(scope="module")
 def jax_artifacts_bfloat16(synth_dir, datasets, tmp_path_factory):
     return _export_jax(synth_dir, datasets, tmp_path_factory.mktemp("jax_bf16"), "bfloat16")
+
+
+@pytest.fixture(scope="module")
+def jax_artifacts_transformer(synth_dir, datasets, tmp_path_factory):
+    """A JAX transformer two-tower (2 blocks, 4 heads of width 8), f32."""
+    return _export_jax(synth_dir, datasets, tmp_path_factory.mktemp("jax_tf"), "float32",
+                       tower_type="transformer", num_heads=4, ffn_dim=64)
 
 
 def _assert_same_results(p_res, j_res, tol):
@@ -99,12 +108,14 @@ def _assert_same_results(p_res, j_res, tol):
                 assert abs(r[key] - twin[key]) <= tol, (key, r, twin)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "transformer"])
 def test_search_matches_jax_engine(request, dtype):
     path = request.getfixturevalue(f"jax_artifacts_{dtype}")
-    tol = 1e-5 if dtype == "float32" else 2e-2
-    port = SearchEngine(path, device="cpu", storage_dtype=dtype)
-    ref = JaxSearchEngine(path, storage_dtype=dtype)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    storage = "float32" if dtype == "transformer" else dtype
+    port = SearchEngine(path, device="cpu", storage_dtype=storage)
+    ref = JaxSearchEngine(path, storage_dtype=storage)
+    assert port.inferencer.spec.tower_type == ("transformer" if dtype == "transformer" else "rnn")
     assert port.index.num_docs == ref.index.num_docs
     for q in QUERIES:
         for alpha in ALPHAS:

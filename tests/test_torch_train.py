@@ -390,5 +390,6 @@ def test_train_defaults_to_cuda_and_unported_options_raise(corpus):
             train(cfg.replace(**kw), device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         train(cfg, device="cpu", profile_dir="p")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train(cfg.replace(tower_type="transformer"), device="cpu")
+    for tower in ("rnn", "transformer"):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            train(cfg.replace(tower_type=tower, shard_embedding_table=True), device="cpu")

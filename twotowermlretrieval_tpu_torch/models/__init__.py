@@ -1,4 +1,9 @@
 from twotowermlretrieval_tpu_torch.models.rnn import RNNSpec, init_rnn_encoder, rnn_encode  # noqa: F401
+from twotowermlretrieval_tpu_torch.models.transformer import (  # noqa: F401
+    TransformerSpec,
+    init_transformer_encoder,
+    transformer_encode,
+)
 from twotowermlretrieval_tpu_torch.models.two_tower import (  # noqa: F401
     TwoTowerSpec,
     encode_document,

@@ -1,9 +1,10 @@
 """Two-tower retrieval model: independent query and document encoders.
 
 The port of the JAX package's ``models/two_tower.py``: params are
-``{'query': ..., 'doc': ...}``, each an encoder tree of torch tensors
-(``models/rnn.py``); the spec is a frozen dataclass. Only the rnn tower is
-ported; the transformer tower waits for its slice (ROADMAP Queue 1).
+``{'query': ..., 'doc': ...}``, each an encoder tree of torch tensors; the
+spec is a frozen dataclass whose ``tower_type`` picks the encoder, the
+recurrent tower of ``models/rnn.py`` or the transformer of
+``models/transformer.py``.
 """
 
 from __future__ import annotations
@@ -15,31 +16,43 @@ import numpy as np
 import torch
 
 from twotowermlretrieval_tpu_torch.models.rnn import RNNSpec, init_rnn_encoder, rnn_encode
-from twotowermlretrieval_tpu_torch.utils.pytree import unflatten_params
-
-_TRANSFORMER_TODO = (
-    "the transformer tower is not ported yet (ROADMAP Queue 1, transformer towers)"
+from twotowermlretrieval_tpu_torch.models.transformer import (
+    TransformerSpec,
+    init_transformer_encoder,
+    transformer_encode,
 )
+from twotowermlretrieval_tpu_torch.utils.pytree import unflatten_params
 
 
 @dataclasses.dataclass(frozen=True)
 class TwoTowerSpec:
-    tower_type: str = "rnn"
+    tower_type: str = "rnn"  # 'rnn' | 'transformer'
     rnn: Optional[RNNSpec] = None
+    transformer: Optional[TransformerSpec] = None
 
     def __post_init__(self):
-        if self.tower_type != "rnn":
-            raise NotImplementedError(_TRANSFORMER_TODO)
+        if self.tower_type not in ("rnn", "transformer"):
+            raise ValueError(f"tower_type must be rnn|transformer, got {self.tower_type!r}")
 
     @classmethod
     def from_config(cls, config) -> "TwoTowerSpec":
         if config.tower_type == "transformer":
-            raise NotImplementedError(_TRANSFORMER_TODO)
+            return cls(tower_type="transformer", transformer=TransformerSpec.from_config(config))
         return cls(tower_type="rnn", rnn=RNNSpec.from_config(config))
 
     @property
     def hidden_dim(self) -> int:
-        return self.rnn.hidden_dim
+        return (self.rnn or self.transformer).hidden_dim
+
+    def _encode_fn(self):
+        if self.tower_type == "transformer":
+            return transformer_encode, self.transformer
+        return rnn_encode, self.rnn
+
+    def _init_fn(self):
+        if self.tower_type == "transformer":
+            return init_transformer_encoder, self.transformer
+        return init_rnn_encoder, self.rnn
 
 
 def init_two_tower(
@@ -49,22 +62,23 @@ def init_two_tower(
 ) -> Dict[str, Any]:
     """Two independently initialized towers from one spec, drawn in turn
     from ``generator``; both get a copy of the pretrained table."""
+    init_fn, sub = spec._init_fn()
     return {
-        "query": init_rnn_encoder(generator, spec.rnn, pretrained_embeddings),
-        "doc": init_rnn_encoder(generator, spec.rnn, pretrained_embeddings),
+        "query": init_fn(generator, sub, pretrained_embeddings),
+        "doc": init_fn(generator, sub, pretrained_embeddings),
     }
 
 
 def encode_query(params, tokens, lengths, spec: TwoTowerSpec, *, train=False,
                  generator=None) -> torch.Tensor:
-    return rnn_encode(params["query"], tokens, lengths, spec.rnn, train=train,
-                      generator=generator)
+    encode_fn, sub = spec._encode_fn()
+    return encode_fn(params["query"], tokens, lengths, sub, train=train, generator=generator)
 
 
 def encode_document(params, tokens, lengths, spec: TwoTowerSpec, *, train=False,
                     generator=None) -> torch.Tensor:
-    return rnn_encode(params["doc"], tokens, lengths, spec.rnn, train=train,
-                      generator=generator)
+    encode_fn, sub = spec._encode_fn()
+    return encode_fn(params["doc"], tokens, lengths, sub, train=train, generator=generator)
 
 
 def two_tower_forward(

@@ -25,9 +25,10 @@ package's for the same seed.
 
 :func:`train` reads the datasets from parquet; :func:`train_on_datasets`
 is the part after that and takes the datasets as a dict of triplet lists.
-Not ported: a device mesh (``MESH_DATA``/``MESH_MODEL`` > 1, ROADMAP
-Queue 1 item 10), ``--profile_dir`` (ROADMAP Queue 1 item 8) and the
-transformer tower (item 11); each raises ``NotImplementedError``.
+Both tower types train (the recurrent and the transformer tower). Not
+ported: a device mesh (``MESH_DATA``/``MESH_MODEL`` > 1) and a row-sharded
+embedding table (``SHARD_EMBEDDING_TABLE``), ROADMAP Queue 1 item 10, and
+``--profile_dir`` (item 8); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -85,12 +86,13 @@ def _check_supported(config: Config, profile_dir) -> None:
             "is not ported yet (ROADMAP Queue 1 item 10); use MESH_DATA 1 or -1 "
             "and MESH_MODEL 1"
         )
+    if config.shard_embedding_table:
+        raise NotImplementedError(
+            "a row-sharded embedding table (SHARD_EMBEDDING_TABLE) needs the mesh, not ported "
+            "yet (ROADMAP Queue 1 item 10); use SHARD_EMBEDDING_TABLE false"
+        )
     if profile_dir is not None:
         raise NotImplementedError("--profile_dir is not ported yet (ROADMAP Queue 1 item 8)")
-    if config.tower_type != "rnn":
-        raise NotImplementedError(
-            "the transformer tower is not ported yet (ROADMAP Queue 1 item 11)"
-        )
 
 
 def packed_groups(batches, K: int) -> Iterator[Tuple[np.ndarray, int]]:
