@@ -38,7 +38,8 @@
    over HTTP (6 attention forward and 1 segmax launches per dense search).
 
 Step 3 covers the backward kernel too (``csrc/rnn_bwd.cu``, both modes,
-each timed at the training shapes beside cuDNN's GRU backward) and the
+each timed at the training shapes beside cuDNN's GRU backward, with the
+layout it launches logged and two calls held bit-identical) and the
 int8 and running top-k kernels (``csrc/segmax_s8.cu``, the per-row int8
 path of ``csrc/segmax.cu``, ``csrc/topk_stream.cu``) over 1,048,576 rows,
 each driven once through its public function with the counts at 0, and the
@@ -688,6 +689,21 @@ def _cudnn_gru_backward_ms(B, T, dev) -> float:
     return both - fwd
 
 
+def _bwd_design(cell: str, B: int, T: int) -> dict:
+    """The layout the backward kernel launches at this shape (bf16 compute
+    and history, both directions), logged."""
+    from twotowermlretrieval_tpu_torch.ops.rnn_scan import bwd_plan
+
+    plan = bwd_plan(cell, T, B, H, 2, "bfloat16", torch.bfloat16)
+    w = ("resident" if plan["resident"]
+         else f"streamed in chunks of {plan['kc']} columns every step")
+    log(f"rnn_bwd design, {cell} B={B} T={T}: clusters of {plan['nc']} CTAs x {plan['hc']} "
+        f"hidden columns, {plan['rows']} batch rows a cluster, {plan['clusters']} clusters a "
+        f"direction, W rows {w}, {plan['stages']} staging buffers, {plan['smem']} bytes of "
+        f"shared memory a CTA; weight gradient in {plan['nsplit']} slices of T*B")
+    return plan
+
+
 def check_rnn_bwd(cell: str, B: int, T: int, seed: int, dev, timed: bool) -> dict:
     from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
         rnn_bwd_bound,
@@ -699,6 +715,9 @@ def check_rnn_bwd(cell: str, B: int, T: int, seed: int, dev, timed: bool) -> dic
     kw = dict(compute_dtype="bfloat16")
     dxps, dw, db = rnn_layer_bwd(cell, *args, **kw)
     r_dxps, r_dw, r_db = rnn_layer_bwd_reference(cell, *args, **kw)
+    # no atomics: a second call gives the same bits (resume relies on it)
+    a_dxps, a_dw, a_db = rnn_layer_bwd(cell, *args, **kw)
+    bitwise = all(torch.equal(x, y) for x, y in zip((*dxps, dw, db), (*a_dxps, a_dw, a_db)))
     torch.cuda.synchronize()
     dxp_err = max((a - b).abs().max().item() for a, b in zip(dxps, r_dxps))
     dxp_scale = max(b.abs().max().item() for b in r_dxps)
@@ -712,10 +731,13 @@ def check_rnn_bwd(cell: str, B: int, T: int, seed: int, dev, timed: bool) -> dic
     check(zero_row, f"rnn_bwd {shape}: a zero-length row has a gate cotangent")
     check(dxp_err <= BWD_DXP_REL * dxp_scale, f"rnn_bwd {shape}: dxp off by {dxp_err}")
     check(w_rel <= BWD_W_REL and b_rel <= BWD_W_REL, f"rnn_bwd {shape}: dW/db off")
+    check(bitwise, f"rnn_bwd {shape}: two calls differ")
+    log(f"rnn_bwd {shape}: two calls bit-identical in dxp, dW and db")
     max_abs = max(dxp_err, (dw - r_dw).abs().max().item(), (db - r_db).abs().max().item())
     rec = {"shape": shape, "max_abs_err": max_abs, "dxp_err_of_scale": dxp_err / dxp_scale,
-           "dw_rel": w_rel, "db_rel": b_rel}
+           "dw_rel": w_rel, "db_rel": b_rel, "bitwise_repeatable": bitwise}
     if timed:
+        rec["design"] = _bwd_design(cell, B, T)
         rec["ms"] = time_ms(lambda: rnn_layer_bwd(cell, *args, **kw))
         rec["plain_ms"] = time_ms(lambda: rnn_layer_bwd_reference(cell, *args, **kw),
                                   reps=3, warmup=1)

@@ -26,8 +26,10 @@ from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
     _bwd_hoisted_call,
     _bwd_reference,
     _hoisted_weight_grad,
+    bwd_plan,
     rnn_layer_bwd,
     rnn_layer_bwd_reference,
+    rnn_layer_bwd_split,
     rnn_layer_bwd_split_full,
     rnn_layer_fwd,
     rnn_layer_fwd_reference,
@@ -75,7 +77,10 @@ def _rnn_case(dev, cell, D, T, B, H, seed):
     lim = 1.0 / math.sqrt(H)
     xps = [torch.randn((T, B, G * H), generator=gen, device=dev) * 0.5 for _ in range(D)]
     lengths = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
-    lengths[:3] = torch.tensor([0, 1, T], device=dev)
+    if B >= 3:
+        lengths[:3] = torch.tensor([0, 1, T], device=dev)
+    else:
+        lengths[:] = T
     mask = (torch.arange(T, device=dev)[:, None] < lengths[None, :]).float()
     w_hh = (torch.rand((D, H, G * H), generator=gen, device=dev) * 2 - 1) * lim
     b_hh = (torch.rand((D, G * H), generator=gen, device=dev) * 2 - 1) * lim
@@ -206,6 +211,95 @@ def test_rnn_bwd_split_mode_matches_plain_and_combined(dev, cell):
     torch.testing.assert_close(s_dw, c_dw, rtol=1e-4, atol=1e-3)
 
 
+def _check_bwd(got, want, cdt):
+    """Kernel against plain version: dxp within 2^-7 of its scale and dW/db
+    within 2e-3 norm-relative at bf16 (see the bf16 test above); 1e-4 at
+    f32 (dW/db atol 1e-3: sums over T*B outer products)."""
+    (dxps, dw, db), (r_dxps, r_dw, r_db) = got, want
+    if cdt == "float32":
+        for a, b in zip(dxps, r_dxps):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(dw, r_dw, rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(db, r_db, rtol=1e-4, atol=1e-3)
+    else:
+        for a, b in zip(dxps, r_dxps):
+            assert (a - b).abs().max().item() <= 2 ** -7 * b.abs().max().item()
+        for a, b in ((dw, r_dw), (db, r_db)):  # at T=1 every h_prev, so dW, is 0
+            assert _rel(a, b) <= 2e-3 if b.norm() > 0 else torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("split", [False, True], ids=["combined", "split"])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM"])
+def test_rnn_bwd_is_bitwise_repeatable(dev, cell, split, cdt):
+    """No atomics: two calls give the same bits (resume relies on it)."""
+    args = _bwd_case(dev, cell, 2, 12, 40, 128, seed=5, cdt=cdt)
+    if split:
+        a, b = (_bwd_hoisted_call(cell, *args, compute_dtype=cdt) for _ in range(2))
+        pairs = zip(a[0] + a[1], b[0] + b[1])
+    else:
+        a, b = (rnn_layer_bwd(cell, *args, compute_dtype=cdt) for _ in range(2))
+        pairs = zip((*a[0], a[1], a[2]), (*b[0], b[1], b[2]))
+    for x, y in pairs:
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("cdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM", "RNN"])
+@pytest.mark.parametrize("B,T", [(1, 12), (37, 12), (130, 12), (37, 1)])
+def test_rnn_bwd_ragged_batches_and_one_step(dev, B, T, cell, cdt):
+    """Batches that leave a cluster's row block partly empty (B=1, 37, 130
+    with 16 or 32 rows a cluster; B=1 has one full-length row), and T=1
+    (every row at its first position)."""
+    args = _bwd_case(dev, cell, 2, T, B, 128, seed=B + T, cdt=cdt)
+    _check_bwd(rnn_layer_bwd(cell, *args, compute_dtype=cdt),
+               rnn_layer_bwd_reference(cell, *args, compute_dtype=cdt), cdt)
+
+
+# the widest width the previous backward took, and the widest the planner
+# takes now (f32 history), per cell and compute dtype
+_WIDEST = {("GRU", "bfloat16"): (700, 816), ("GRU", "float32"): (700, 916),
+           ("LSTM", "bfloat16"): (500, 608), ("LSTM", "float32"): (500, 700),
+           ("RNN", "bfloat16"): (1184, 2048), ("RNN", "float32"): (1184, 2048)}
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["previous", "new"])
+@pytest.mark.parametrize("cell,cdt", list(_WIDEST), ids=[f"{c}-{d}" for c, d in _WIDEST])
+def test_rnn_bwd_widest_widths(dev, cell, cdt, which):
+    """The widest layers stream their rows of W through shared memory."""
+    H = _WIDEST[cell, cdt][which]
+    assert bwd_plan(cell, 4, 3, H, 1, cdt, torch.float32) is not None
+    assert which == 0 or bwd_plan(cell, 4, 3, H + 4, 1, cdt, torch.float32) is None
+    args = _bwd_case(dev, cell, 1, 4, 3, H, seed=H, cdt=cdt)
+    _check_bwd(rnn_layer_bwd(cell, *args, compute_dtype=cdt),
+               rnn_layer_bwd_reference(cell, *args, compute_dtype=cdt), cdt)
+
+
+@pytest.mark.parametrize("cdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM", "RNN"])
+def test_rnn_bwd_lone_direction_1(dev, cell, cdt):
+    """The backward tower direction alone (dir0=1): it walks t = 0..T-1 and
+    reads h_prev at t+1."""
+    xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal = _bwd_case(
+        dev, cell, 2, 12, 37, 128, seed=9, cdt=cdt)
+    one = ((xps[1],), mask, w_hh[1:], b_hh[1:], (outs[1],), tuple(c_hist[1:]), (douts[1],),
+           d_hfinal[1:])
+    dxp, dhp = rnn_layer_bwd_split(cell, xps[1], mask, w_hh[1:], b_hh[1:], outs[1],
+                                   c_hist[1] if c_hist else None, douts[1], d_hfinal[1:],
+                                   direction=1, compute_dtype=cdt)
+    r_dxps, r_dhps, _, _ = _bwd_reference(cell, *one, cdt, split=True, dir0=1)
+    for a, b in ((dxp, r_dxps[0]), (dhp, r_dhps[0])):
+        if cdt == "float32":
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        else:
+            assert (a.float() - b.float()).abs().max().item() <= \
+                2 ** -7 * b.float().abs().max().item()
+    # and the two-direction call's second half agrees with it
+    both, _ = _bwd_hoisted_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
+                                compute_dtype=cdt)
+    assert torch.equal(both[1], dxp)
+
+
 def test_rnn_bwd_wrapper_rejects_what_the_kernel_does_not_take(dev):
     args = list(_bwd_case(dev, "LSTM", 2, 4, 4, 32, seed=0))
     with pytest.raises(ValueError):
@@ -213,11 +307,12 @@ def test_rnn_bwd_wrapper_rejects_what_the_kernel_does_not_take(dev):
     args[7] = args[7].cpu()
     with pytest.raises(ValueError):
         rnn_layer_bwd("LSTM", *args)
-    wide = _rnn_case(dev, "LSTM", 1, 2, 3, 512, seed=0)
+    # one width step beyond the widest LSTM layout of either compute dtype
+    wide = _rnn_case(dev, "LSTM", 1, 2, 3, 704, seed=0)
     outs, c_hist, _ = rnn_layer_fwd_reference("LSTM", *wide, "float32")
     with pytest.raises(ValueError, match="shared memory"):
         rnn_layer_bwd("LSTM", *wide, outs, c_hist, [torch.zeros_like(outs[0])],
-                      torch.zeros((1, 3, 512), device=dev))
+                      torch.zeros((1, 3, 704), device=dev))
 
 
 def _unit_rows(gen, n, h, dev):

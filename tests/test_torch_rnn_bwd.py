@@ -25,6 +25,7 @@ from twotowermlretrieval_tpu.models.rnn import init_rnn_encoder as jax_init_rnn_
 from twotowermlretrieval_tpu.models.rnn import rnn_encode as jax_rnn_encode
 from twotowermlretrieval_tpu.ops.rnn_scan import rnn_layer_bwd as jax_rnn_layer_bwd
 from twotowermlretrieval_tpu.ops.rnn_scan import rnn_layer_bwd_hoisted as jax_bwd_hoisted
+from twotowermlretrieval_tpu.ops.rnn_scan import rnn_layer_bwd_split as jax_rnn_layer_bwd_split
 from twotowermlretrieval_tpu.ops.rnn_scan import rnn_layer_bwd_split_full as jax_bwd_split_full
 from twotowermlretrieval_tpu.ops.rnn_scan import rnn_layer_fwd as jax_rnn_layer_fwd
 from twotowermlretrieval_tpu_torch.models.rnn import RNNSpec, dropout_parts, rnn_encode
@@ -35,6 +36,7 @@ from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
     rnn_layer_bwd,
     rnn_layer_bwd_hoisted,
     rnn_layer_bwd_reference,
+    rnn_layer_bwd_split,
     rnn_layer_bwd_split_full,
 )
 from twotowermlretrieval_tpu_torch.utils.dtypes import bernoulli_mask
@@ -45,7 +47,7 @@ CASES = [(1, "GRU"), (2, "GRU"), (1, "LSTM"), (2, "LSTM"), (1, "RNN"), (2, "RNN"
 IDS = [f"{'bidir' if d == 2 else 'unidir'}-{c}" for d, c in CASES]
 
 
-def _case(D, cell, T=12, B=16, H=128, seed=0):
+def _case(D, cell, T=12, B=16, H=128, seed=0, b_block=0):
     """Inputs, the forward's saved history (JAX's kernel, interpret mode)
     and random cotangents, all numpy."""
     G = {"GRU": 3, "LSTM": 4, "RNN": 1}[cell]
@@ -62,7 +64,7 @@ def _case(D, cell, T=12, B=16, H=128, seed=0):
     d_hfinal = rng.normal(size=(D, B, H)).astype(np.float32)
     outs, c_hist, _ = jax_rnn_layer_fwd(
         cell, tuple(jnp.asarray(x) for x in xps), jnp.asarray(mask), jnp.asarray(w_hh),
-        jnp.asarray(b_hh), compute_dtype="float32", interpret=True,
+        jnp.asarray(b_hh), compute_dtype="float32", interpret=True, b_block=b_block,
     )
     outs = tuple(np.asarray(o) for o in outs)
     c_hist = tuple(np.asarray(c) for c in c_hist)
@@ -109,6 +111,35 @@ def test_bwd_matches_jax_multi_block(D, cell):
     ref = jax_rnn_layer_bwd(cell, *[_j(a) for a in args], compute_dtype="float32",
                             interpret=True, b_block=16)
     _check(port, ref)
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM", "RNN"])
+@pytest.mark.parametrize("B,T", [(37, 12), (16, 1)], ids=["B37", "T1"])
+def test_bwd_matches_jax_ragged_batch_and_one_step(B, T, cell):
+    """B=37 is no multiple of a row block (the JAX kernel runs it as one
+    block of 37 rows); at T=1 every row is at its first position, where
+    h_prev is 0 and so is dW."""
+    cell, *args = _case(2, cell, T=T, B=B, seed=6, b_block=B)
+    port = rnn_layer_bwd(cell, *[_t(a) for a in args], compute_dtype="float32")
+    ref = jax_rnn_layer_bwd(cell, *[_j(a) for a in args], compute_dtype="float32",
+                            interpret=True, b_block=B)
+    _check(port, ref)
+
+
+@pytest.mark.parametrize("cell", ["GRU", "LSTM", "RNN"])
+def test_split_lone_direction_1_matches_jax(cell):
+    """The backward tower direction alone (direction=1: it walks t = 0..T-1
+    and reads h_prev at t+1), in split mode: dxp and dhp."""
+    cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal = _case(2, cell, seed=7)
+    one = (xps[1], mask, w_hh[1:], b_hh[1:], outs[1])
+    rest = (douts[1], d_hfinal[1:])
+    port = rnn_layer_bwd_split(cell, *map(_t, one), _t(c_hist[1]) if c_hist else None,
+                               *map(_t, rest), direction=1, compute_dtype="float32")
+    ref = jax_rnn_layer_bwd_split(cell, *map(_j, one), _j(c_hist[1]) if c_hist else None,
+                                  *map(_j, rest), direction=1, compute_dtype="float32",
+                                  interpret=True)
+    for a, b in zip(port, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL, atol=ATOL_DX)
 
 
 @pytest.mark.parametrize("D,cell", CASES, ids=IDS)

@@ -1,5 +1,5 @@
 // Masked recurrent time loop (GRU / LSTM / RNN), backward, for all
-// directions of one layer in one launch.
+// directions of one layer in one call.
 //
 // Replaces: twotowermlretrieval_tpu/ops/rnn_scan.py _bwd_kernel, both of
 // its modes: split=False (called through rnn_layer_bwd: dW_hh and db_hh
@@ -10,47 +10,89 @@
 // Contract (as the TPU kernel's): per direction, xp [T, B, G*H] in the
 // compute dtype (CT), the saved state history outs [T, B, H] (HT: f32, or
 // the compute dtype), the LSTM cell history, the cotangents douts
-// [T, B, H] (HT), and a [T, B] f32 mask; W_hh [D, H, G*H] and its
-// transposed copy [D, G*H, H] in CT, b_hh [D, G*H] f32, d_hfinal
-// [D, B, H] f32. Direction d walks its own processing order backwards:
-// absolute direction 0 visits t = T-1..0, direction 1 t = 0..T-1, and
-// h_prev is the saved state at the neighbouring position (t-1, or t+1 for
-// direction 1), zero at each direction's first position. Per step:
+// [T, B, H] (HT), and a [T, B] f32 mask; W_hh [D, H, G*H] in CT, b_hh
+// [D, G*H] f32, d_hfinal [D, B, H] f32. Direction d walks its own
+// processing order backwards: absolute direction 0 visits t = T-1..0,
+// direction 1 t = 0..T-1, and h_prev is the saved state at the
+// neighbouring position (t-1, or t+1 for direction 1), zero at each
+// direction's first position. Per step:
 //   dh_t = dh + dout[t]; dh_new = m*dh_t; dh_direct = (1-m)*dh_t
 //   hp = round_ct(h_prev) . round_ct(W) + b          (gate recompute)
 //   gate cotangents dxp and dhp (they differ in GRU's candidate third)
 //   dh = round_ct(dhp) . round_ct(W)^T + (GRU: dh_new*z) + dh_direct
-//   dW += round_ct(h_prev)^T . round_ct(dhp), db += sum_rows dhp
-// dxp (and, split, dhp) are written in CT. The rounding points are the
-// TPU kernel's (_mm, _outer_acc and the cdt outputs).
+//   dW = sum_t round_ct(h_prev)^T . round_ct(dhp), db = sum_t,rows dhp (f32)
+// dxp (and GRU's dhp) are written in CT. The rounding points are the TPU
+// kernel's (_mm, _outer_acc and the cdt outputs).
 //
-// What bounds it on Hopper: like the forward, a chain of T dependent
-// steps, each three [BB, H] x [H, G*H]-sized products per block (two for
-// RNN, one fewer in split mode); latency- and FMA-bound, far from the
-// bytes and tensor-core bounds.
+// What bounds it on Hopper: the chain. Only dh_{t+1} <- dhp_t . W^T
+// depends on the step before; at the main path's shapes the call moves
+// 40-60 us worth of bytes and its products take 30-60 us at the
+// tensor-core rate, while T = 128 dependent steps each pay a staging copy,
+// the gate math, an exchange between SMs, a barrier and a product, none of
+// them large enough to fill an SM. Per-step latency and instruction issue,
+// not bytes or operations, set the time. So the design takes everything
+// that is not on the chain out of the loop, and keeps one step short:
 //
-// Design (the simple, correct first version; the forward kernel's
-// layout): one block per (direction, BB = 16 batch rows) walks all of T.
-// The dh (and dc) carry stays in shared memory as f32. W_hh and W_hh^T are
-// read from L2 at every step, each with consecutive threads on
-// consecutive columns. Thread j owns hidden column j for the gate math;
-// the rounded dhp goes to shared memory for the chain product. The TPU
-// grid runs its B blocks one after another into one VMEM accumulator;
-// here blocks run concurrently and one [H, G*H] f32 partial (768 KiB at
-// H=256) exceeds a block's shared memory, so every block accumulates its
-// own partial dW in a global f32 workspace (each element owned by one
-// thread: no atomics), and a second launch from this file sums the
-// partials over the blocks in a fixed order. The result is the same run
-// to run, which resume relies on.
+// 1. Gate recompute, off the chain: before the loop one product per
+//    direction, hp = round(h_prev) . round(W) + b over all T*B rows
+//    ([T*B, H] x [H, G*H], f32 into a workspace; the shifted history is
+//    read in place). Chosen over a producer warpgroup computing step t+1's
+//    hp beside step t's chain: the workspace (100 MB at D=2, T=128, B=128,
+//    H=256) is cheap on an 80 GB card, the product runs on every SM at
+//    once instead of on the chain's few, and the chain's SMs keep their
+//    issue slots for the chain.
+// 2. The serial loop carries only dh (and LSTM's dc). One thread-block
+//    cluster of NC CTAs (NC <= 8, launched with the cluster attribute)
+//    walks all T steps for R batch rows of one direction; CTA q owns HC
+//    hidden columns j and the G gate columns g*H + j. Each CTA keeps its
+//    rows of W, round(W[j, :]) for its j (W^T's columns, exactly the
+//    col-major B operand of mma.sync), resident in shared memory for all T
+//    steps (at H=256, bf16: 48 KiB per CTA for 32 columns). Per step:
+//    cp.async brings the next step's hp, xp, h_prev, dout and mask for the
+//    CTA's rows and columns into a second staging buffer; the gate math of
+//    the CTA's own columns writes dxp (and GRU's dhp) to global memory,
+//    adds the f32 dhp to a db partial and stores the rounded dhp in its
+//    shared row block; the CTA pushes its slice of that block into every
+//    peer's copy through distributed shared memory (16-byte stores, each
+//    word read once); one cluster barrier (release/acquire), the row
+//    blocks double-buffered so the next step's pushes cannot land on a
+//    block a peer still reads; then dh[:, own] += round(dhp)[R, G*H] .
+//    round(W)^T[G*H, own] on the tensor cores (ldmatrix and mma.sync
+//    m16n8k16 bf16, f32 accumulation, four accumulators per tile for
+//    latency; with few tiles two warps share one, each taking half of k).
+//    Every index map is worked out once before the loop: all of a CTA's
+//    warps issue through the same four schedulers, and bookkeeping
+//    repeated per step cost more than the copies it drove.
+//    The alternatives: exchanging the rounded dhp through L2 (global
+//    writes, the barrier, cp.async reads of the whole row block) saved
+//    little over the push when both were measured on the card; splitting
+//    the product over k and reduce-scattering f32 partials moves R*H f32
+//    per CTA per step instead of its G*R*HC dhp values. Both keep the
+//    barrier; the push is the simplest.
+// 3. Weight gradient, off the chain (split=False only): after the loop one
+//    product per direction, dW = round(h_prev)^T . round(dhp) over all T*B
+//    rows ([H, T*B] x [T*B, G*H]), split over T*B into S slices whose
+//    partials a last launch sums in a fixed order together with the
+//    clusters' db partials. No atomics anywhere: every call gives the same
+//    bits, which resume relies on.
+//
+// Both products (bf16) stream 128 x 128 tiles through a three-stage
+// cp.async ring into ldmatrix and mma.sync. f32 compute keeps full f32
+// products (FMA on the CUDA cores, no TF32) in the same structure. Where a
+// CTA's W rows do not fit beside the rest (wide layers), the chain streams
+// them through shared memory in chunks of KC columns each step. The
+// wrapper (ops/rnn_scan.py, bwd_plan) picks NC, R, KC, the staging depth
+// and S, and knows the shared-memory layout below; the launcher refuses a
+// plan that does not fit.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+namespace cg = cooperative_groups;
 
-constexpr int BB = 16;        // batch rows per block
-constexpr int THREADS = 256;  // hidden columns handled concurrently
+namespace {
 
 enum Cell { kRNN = 0, kGRU = 1, kLSTM = 2 };
 
@@ -58,6 +100,14 @@ template <int CELL> struct NumGates;
 template <> struct NumGates<kRNN> { static constexpr int G = 1; };
 template <> struct NumGates<kGRU> { static constexpr int G = 3; };
 template <> struct NumGates<kLSTM> { static constexpr int G = 4; };
+
+constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory one block may use
+constexpr int CHAIN_THREADS = 256;
+constexpr int CHAIN_WARPS = CHAIN_THREADS / 32;
+constexpr int UNITS_MAX = 4;  // (16 x 8) chain-product tiles per warp, bf16
+constexpr int OUTS_MAX = 8;   // chain-product outputs per thread, f32
+
+__host__ __device__ constexpr size_t a16(size_t n) { return (n + 15) & ~size_t(15); }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -68,367 +118,959 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);  // round to nearest even, as XLA's convert
 }
 
-// f32 value rounded to the compute dtype and back (exact upcast)
-template <typename CT> __device__ __forceinline__ float round_ct(float x) {
-  return to_f(from_f<CT>(x));
+__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src));
+}
+// a copy of `width` = 16, 8 or 4 bytes (the same across the block)
+__device__ __forceinline__ void cp_async_n(void* smem_dst, const void* gmem_src, int width) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  if (width == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
+  else if (width == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(gmem_src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src));
+}
+// the widest copy (16, 8 or 4 bytes) dividing `bits`, the byte offsets or-ed together
+__device__ __forceinline__ int copy_width(int bits) {
+  return bits % 16 == 0 ? 16 : bits % 8 == 0 ? 8 : 4;
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+// d += a . b, one m16n8k16 tile: bf16 operands, f32 accumulation
+__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
 
 struct Ptrs {
   const void* xp[2];
   const void* out[2];
+  const void* hr[2];  // the history rounded to the compute dtype (the products' operand)
   const void* c[2];
   const void* dout[2];
   void* dxp[2];
   void* dhp[2];
 };
 
-// CT: compute dtype of xp, W_hh, dxp, dhp; HT: dtype of the saved history
-// and of the cotangents. dir0: the absolute direction of entry 0 (a
-// one-direction call may run the backward tower direction alone).
+// ---------------------------------------------------------------------------
+// the two chain-free products
+// ---------------------------------------------------------------------------
+
+struct GemmArgs {
+  int T, B, H, GH, dir0, nsplit, klen;  // klen: rows of T*B per slice (MODE 1), a multiple of the K tile
+  const void* hr[2];   // the state history rounded to CT, per direction
+  const void* rhs[2];  // [K][GH] in CT per direction: W_hh (MODE 0), the rounded dhp (MODE 1)
+  const float* bias;   // [D][GH] (MODE 0)
+  float* c;            // MODE 0: hp [D][T*B][GH]; MODE 1: partials [D][S][H][GH]
+};
+
+// Both products, per direction e (blockIdx.z = e * nsplit + slice):
+// MODE 0, the gate recompute: hp[m][n] = sum_k round(h_prev(m))[k] W[k][n]
+//   + b[n] over the T*B rows m = t*B + b, K = H.
+// MODE 1, the weight gradient: part[s][i][n] = sum over the rows k = t*B + b
+//   of slice s of round(h_prev(k))[i] dhp(k)[n].
+// h_prev of row q = t*B + b is the history's row q - B (direction 0) or
+// q + B (direction 1), zero where that falls outside [0, T*B): the
+// shifted history is read in place.
+
+// bf16: 128 x 128 tiles, 8 warps of 64 x 32, K in tiles of 32 through a
+// three-stage cp.async ring (8-byte copies: rows are 8-byte aligned for
+// any H divisible by 4; out-of-range rows and the shift's edge are
+// zero-filled). Every operand is copied in its global layout and ldmatrix
+// (.trans where the layout is k-major) forms the mma.sync fragments; rows
+// are padded by 16 bytes, so the ldmatrix reads are free of bank conflicts.
+constexpr int TM = 128, TN = 128, TK = 32, TSTAGES = 3, TTHREADS = 256;
+constexpr int A_LD_MK = TK + 8;  // A as [m][k] (MODE 0: history rows)
+constexpr int A_LD_KM = TM + 8;  // A as [k][m] (MODE 1: history rows)
+constexpr int B_LD = TN + 8;     // B as [k][n]
+constexpr int A_TILE = TM * A_LD_MK > TK * A_LD_KM ? TM * A_LD_MK : TK * A_LD_KM;
+constexpr int B_TILE = TK * B_LD;
+constexpr int GEMM_BF16_SMEM = TSTAGES * (A_TILE + B_TILE) * 2;
+
+__device__ __forceinline__ void cp_async8_zfill(void* smem_dst, const void* src, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 8 : 0));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(TTHREADS) rnn_bwd_gemm_bf16(GemmArgs a) {
+  extern __shared__ __align__(16) unsigned char gsm[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(gsm);  // [TSTAGES][A_TILE]
+  __nv_bfloat16* Bs = As + TSTAGES * A_TILE;                  // [TSTAGES][B_TILE]
+  const int B = a.B, H = a.H, GH = a.GH, TB = a.T * a.B;
+  const int e = blockIdx.z / a.nsplit, s = blockIdx.z % a.nsplit;
+  const int shift = a.dir0 + e == 0 ? -B : B;
+  const int M = MODE == 0 ? TB : H;
+  const int k_begin = MODE == 0 ? 0 : s * a.klen;
+  const int k_end = MODE == 0 ? H : min(TB, k_begin + a.klen);
+  const int m0 = blockIdx.x * TM, n0 = blockIdx.y * TN;
+  const __nv_bfloat16* hr = static_cast<const __nv_bfloat16*>(a.hr[e]);
+  const __nv_bfloat16* rhs = static_cast<const __nv_bfloat16*>(a.rhs[e]);
+  const int tid = threadIdx.x;
+
+  auto load_tile = [&](int k0, int st) {
+    __nv_bfloat16* as = As + st * A_TILE;
+    __nv_bfloat16* bs = Bs + st * B_TILE;
+#pragma unroll
+    for (int i = 0; i < TM * TK / 4 / TTHREADS; ++i) {
+      const int c = tid + i * TTHREADS;
+      if (MODE == 0) {  // 128 rows m of 8 four-element chunks along k
+        const int ml = c / 8, kl = (c % 8) * 4;
+        const int q = m0 + ml, k = k0 + kl, src = q + shift;
+        const bool ok = q < M && k < k_end && src >= 0 && src < TB;
+        cp_async8_zfill(as + ml * A_LD_MK + kl, ok ? hr + (size_t)src * H + k : hr, ok);
+      } else {  // 32 rows k of 32 chunks along m
+        const int kl = c / 32, ml = (c % 32) * 4;
+        const int q = k0 + kl, m = m0 + ml, src = q + shift;
+        const bool ok = q < k_end && m < M && src >= 0 && src < TB;
+        cp_async8_zfill(as + kl * A_LD_KM + ml, ok ? hr + (size_t)src * H + m : hr, ok);
+      }
+      const int kl = c / 32, nl = (c % 32) * 4;  // B: 32 rows k of 32 chunks along n
+      const int k = k0 + kl, n = n0 + nl;
+      const bool ok = k < k_end && n < GH;
+      cp_async8_zfill(bs + kl * B_LD + nl, ok ? rhs + (size_t)k * GH + n : rhs, ok);
+    }
+  };
+
+  const int warp = tid / 32, lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+  const int lm = lane / 8, lr = lane % 8;  // the ldmatrix matrix this lane addresses, and its row
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+  const int nk = k_end > k_begin ? (k_end - k_begin + TK - 1) / TK : 0;
+#pragma unroll
+  for (int i = 0; i < TSTAGES - 1; ++i) {
+    if (i < nk) load_tile(k_begin + i * TK, i);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<TSTAGES - 2>();
+    __syncthreads();  // tile kt has landed; nobody reads tile kt - 1's stage any more
+    const int nx = kt + TSTAGES - 1;
+    if (nx < nk) load_tile(k_begin + nx * TK, nx % TSTAGES);
+    cp_async_commit();
+    const __nv_bfloat16* as = As + (kt % TSTAGES) * A_TILE;
+    const __nv_bfloat16* bs = Bs + (kt % TSTAGES) * B_TILE;
+#pragma unroll
+    for (int ks = 0; ks < TK; ks += 16) {
+      uint32_t af[4][4], bfr[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (MODE == 0)
+          ldsm_x4(af[mt], as + (wm + mt * 16 + lane % 16) * A_LD_MK + ks + (lane / 16) * 8);
+        else
+          ldsm_x4_t(af[mt], as + (ks + (lm / 2) * 8 + lr) * A_LD_KM + wm + mt * 16 + (lm % 2) * 8);
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t t4[4];
+        ldsm_x4_t(t4, bs + (ks + (lm % 2) * 8 + lr) * B_LD + wn + np * 16 + (lm / 2) * 8);
+        bfr[2 * np][0] = t4[0];
+        bfr[2 * np][1] = t4[1];
+        bfr[2 * np + 1][0] = t4[2];
+        bfr[2 * np + 1][1] = t4[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_bf16(acc[mt][nt], af[mt][0], af[mt][1], af[mt][2], af[mt][3], bfr[nt][0],
+                   bfr[nt][1]);
+    }
+  }
+  cp_async_wait<0>();
+
+  float* out = a.c + (MODE == 0 ? (size_t)e * M * GH : ((size_t)e * a.nsplit + s) * M * GH);
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + mt * 16 + gid + h * 8, n = n0 + wn + nt * 8 + tig * 2;
+        if (m < M && n < GH) {  // n and n + 1 (G*H is even)
+          float2 v = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+          if (MODE == 0) {
+            v.x += a.bias[(size_t)e * GH + n];
+            v.y += a.bias[(size_t)e * GH + n + 1];
+          }
+          *reinterpret_cast<float2*>(out + (size_t)m * GH + n) = v;
+        }
+      }
+}
+
+// f32 (full f32 products, no TF32): 64 x 64 tiles, K in tiles of 64 read
+// as 4-vectors along each operand's contiguous axis into registers while
+// the current tile is multiplied; each thread FMAs an 8 x 4 block.
+constexpr int GM = 64, GN = 64, GK = 64, GEMM_THREADS = 128;
+constexpr int GEMM_VECS = GM * GK / 4 / GEMM_THREADS;  // 4-vectors of A (and B) a thread loads per tile
+
+template <int MODE>
+__global__ void __launch_bounds__(GEMM_THREADS) rnn_bwd_gemm_f32(GemmArgs a) {
+  constexpr int LDF = GM + 4;  // [k][m] and [k][n] tiles
+  __shared__ __align__(16) float As[GK * LDF], Bs[GK * LDF];
+  const int B = a.B, H = a.H, GH = a.GH, TB = a.T * a.B;
+  const int e = blockIdx.z / a.nsplit, s = blockIdx.z % a.nsplit;
+  const int shift = a.dir0 + e == 0 ? -B : B;
+  const int M = MODE == 0 ? TB : H;
+  const int k_begin = MODE == 0 ? 0 : s * a.klen;
+  const int k_end = MODE == 0 ? H : min(TB, k_begin + a.klen);
+  const int m0 = blockIdx.x * GM, n0 = blockIdx.y * GN;
+  const float* hr = static_cast<const float*>(a.hr[e]);
+  const float* rhs = static_cast<const float*>(a.rhs[e]);
+  const int tid = threadIdx.x;
+
+  // vector v = tid + i * GEMM_THREADS of a tile: (x, y) = (4 * (v % 16), v / 16);
+  // A's vectors run along k (MODE 0) or m (MODE 1), B's along n
+  float4 ra[GEMM_VECS], rb[GEMM_VECS];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < GEMM_VECS; ++i) {
+      const int v = tid + i * GEMM_THREADS;
+      const int x = (v % 16) * 4, y = v / 16;
+      const int q = MODE == 0 ? m0 + y : k0 + y;  // the T*B row
+      const int col = MODE == 0 ? k0 + x : m0 + x;
+      const int src = q + shift;
+      const bool ok = q < (MODE == 0 ? M : k_end) && col < (MODE == 0 ? k_end : M) && src >= 0 &&
+                      src < TB;
+      ra[i] = ok ? *reinterpret_cast<const float4*>(hr + (size_t)src * H + col)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      const int kb = k0 + y, n = n0 + x;
+      rb[i] = (kb < k_end && n < GH) ? *reinterpret_cast<const float4*>(rhs + (size_t)kb * GH + n)
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto store = [&]() {
+#pragma unroll
+    for (int i = 0; i < GEMM_VECS; ++i) {
+      const int v = tid + i * GEMM_THREADS;
+      const int x = (v % 16) * 4, y = v / 16;
+      if (MODE == 0) {
+        As[(x + 0) * LDF + y] = ra[i].x;
+        As[(x + 1) * LDF + y] = ra[i].y;
+        As[(x + 2) * LDF + y] = ra[i].z;
+        As[(x + 3) * LDF + y] = ra[i].w;
+      } else {
+        *reinterpret_cast<float4*>(As + y * LDF + x) = ra[i];
+      }
+      *reinterpret_cast<float4*>(Bs + y * LDF + x) = rb[i];
+    }
+  };
+
+  const int tm = tid / 16, tn = tid % 16;  // the thread's 8 x 4 outputs
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  load(k_begin);
+  for (int k0 = k_begin; k0 < k_end; k0 += GK) {
+    __syncthreads();  // nobody reads the previous tile any more
+    store();
+    __syncthreads();
+    if (k0 + GK < k_end) load(k0 + GK);
+#pragma unroll 4
+    for (int k = 0; k < GK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(As + k * LDF + tm * 8);
+      const float4 a1 = *reinterpret_cast<const float4*>(As + k * LDF + tm * 8 + 4);
+      const float4 b4 = *reinterpret_cast<const float4*>(Bs + k * LDF + tn * 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r * 4 + c] = fmaf(av[r], bv[c], acc[r * 4 + c]);
+    }
+  }
+
+  float* out = a.c + (MODE == 0 ? (size_t)e * M * GH : ((size_t)e * a.nsplit + s) * M * GH);
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int m = m0 + tm * 8 + r, n = n0 + tn * 4 + c;
+      if (m < M && n < GH)
+        out[(size_t)m * GH + n] = MODE == 0 ? acc[r * 4 + c] + a.bias[(size_t)e * GH + n]
+                                            : acc[r * 4 + c];
+    }
+}
+
+// one of the two products over all D directions (and nsplit slices)
+template <int MODE, typename CT>
+cudaError_t gemm(const GemmArgs& g, int D, cudaStream_t stream) {
+  const int M = MODE == 0 ? g.T * g.B : g.H;
+  if (sizeof(CT) == 2) {
+    auto kernel = rnn_bwd_gemm_bf16<MODE>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           GEMM_BF16_SMEM);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((M + TM - 1) / TM, (g.GH + TN - 1) / TN, D * g.nsplit);
+    kernel<<<grid, TTHREADS, GEMM_BF16_SMEM, stream>>>(g);
+  } else {
+    const dim3 grid((M + GM - 1) / GM, (g.GH + GN - 1) / GN, D * g.nsplit);
+    rnn_bwd_gemm_f32<MODE><<<grid, GEMM_THREADS, 0, stream>>>(g);
+  }
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the serial loop: the dh (and dc) chain, one cluster per (direction, R rows)
+// ---------------------------------------------------------------------------
+
+struct ChainArgs {
+  int T, B, H, dir0, split;
+  int R, hc, kp, kc, stages;  // the plan (kp: G*H rounded up to 16; kc == kp: W resident)
+  Ptrs p;
+  const float* mask;      // [T][B]
+  const void* w_hh;       // [D][H][GH] CT
+  const float* hp;        // [D][T*B][GH] f32 (GRU, LSTM)
+  const float* d_hfinal;  // [D][B][H]
+  float* db_part;         // [D][clusters][GH] (split == 0)
+};
+
+// Byte offsets of one chain CTA's shared memory (ops/rnn_scan.py's
+// _bwd_smem_bytes mirrors the sizes): round(W) rows [hc][kc + pad], the
+// rounded dhp row blocks [2][R][kp + pad], the staging buffers, the dh
+// (and dc) carry [R][hc] and the db partial [G][R][hc], all f32 but W and
+// dhp. One staging buffer: hp [G][R][hc] f32 and xp [G][R][hc] CT (GRU,
+// LSTM), h1 [R][hc] HT (GRU h_prev, LSTM c_prev, RNN h_t), dout [R][hc]
+// HT, mask [R] f32.
+struct ChainSmem {
+  size_t w, dhp, stage, dh, dc, db, total;
+  size_t st_hp, st_xp, st_h1, st_do, st_m, st_size;
+};
+
 template <int CELL, typename CT, typename HT>
-__global__ void __launch_bounds__(THREADS) rnn_bwd_kernel(
-    int T, int B, int H, int dir0, int split, Ptrs p, const float* __restrict__ mask,
-    const CT* __restrict__ w_hh, const CT* __restrict__ w_hhT, const float* __restrict__ b_hh,
-    const float* __restrict__ d_hfinal, float* __restrict__ ws_w, float* __restrict__ ws_b) {
+__host__ __device__ ChainSmem chain_smem(int R, int hc, int kp, int kc, int stages) {
   constexpr int G = NumGates<CELL>::G;
-  const int e = blockIdx.y;  // entry of the per-direction arrays
-  const int dabs = dir0 + e;
-  const int rb = blockIdx.x;
-  const int nrb = gridDim.x;
-  const int row0 = rb * BB;
-  const int GH = G * H;
-  const CT* xp = static_cast<const CT*>(p.xp[e]);
-  const HT* out = static_cast<const HT*>(p.out[e]);
-  const HT* chist = static_cast<const HT*>(p.c[e]);
-  const HT* dout = static_cast<const HT*>(p.dout[e]);
-  CT* dxp = static_cast<CT*>(p.dxp[e]);
-  CT* dhp_out = static_cast<CT*>(p.dhp[e]);
-  const CT* w = w_hh + (size_t)e * H * GH;
-  const CT* wT = w_hhT + (size_t)e * GH * H;
-  const float* bias = b_hh + (size_t)e * GH;
-  // this block's partials: [H][GH] and [GH]
-  float* pw = split ? nullptr : ws_w + ((size_t)e * nrb + rb) * H * GH;
-  float* pb = split ? nullptr : ws_b + ((size_t)e * nrb + rb) * GH;
+  constexpr size_t padk = 16 / sizeof(CT);
+  ChainSmem s;
+  size_t o = 0;
+  s.st_hp = o;
+  if (CELL != kRNN) o += a16((size_t)G * R * hc * 4);
+  s.st_xp = o;
+  if (CELL != kRNN) o += a16((size_t)G * R * hc * sizeof(CT));
+  s.st_h1 = o;
+  o += a16((size_t)R * hc * sizeof(HT));
+  s.st_do = o;
+  o += a16((size_t)R * hc * sizeof(HT));
+  s.st_m = o;
+  o += a16((size_t)R * 4);
+  s.st_size = o;
+  o = 0;
+  s.w = o;
+  o += a16((size_t)hc * (kc + padk) * sizeof(CT));
+  s.dhp = o;
+  o += a16((size_t)2 * R * (kp + padk) * sizeof(CT));
+  s.stage = o;
+  o += (size_t)stages * s.st_size;
+  s.dh = o;
+  o += a16((size_t)R * hc * 4);
+  s.dc = o;
+  if (CELL == kLSTM) o += a16((size_t)R * hc * 4);
+  s.db = o;
+  o += a16((size_t)G * R * hc * 4);
+  s.total = o;
+  return s;
+}
 
-  extern __shared__ __align__(16) float smem[];
-  float* dh_s = smem;                   // [BB][H] dh carry, f32
-  float* hT_s = dh_s + BB * H;          // [H][BB] h_prev rounded to CT, transposed
-  float* dhp_s = hT_s + BB * H;         // [GH][BB] dhp rounded to CT, transposed
-  float* db_s = dhp_s + (size_t)GH * BB;  // [GH] this block's db partial
-  float* dc_s = db_s + GH;              // [BB][H] LSTM dc carry, f32
+// A thread's fixed share of copying rows of `bytes_per_row` bytes: word
+// wd (of `width` bytes) of rows r, r + rstep, ... (none unless active).
+// `align_bits`: the byte offsets and strides involved, or-ed together.
+struct RowCopy {
+  int width, wd, r, rstep;
+  bool active;
+};
+__device__ __forceinline__ RowCopy row_copy(int bytes_per_row, int align_bits, int tid) {
+  RowCopy c;
+  c.width = copy_width(align_bits | bytes_per_row);
+  const int words = bytes_per_row / c.width;  // <= CHAIN_THREADS: own <= 256, 4 bytes
+  c.rstep = CHAIN_THREADS / words;
+  c.wd = tid % words;
+  c.r = tid / words;
+  c.active = c.r < c.rstep;
+  return c;
+}
 
-  for (int i = threadIdx.x; i < BB * H; i += blockDim.x) {
-    const int r = i / H, j = i % H;
-    const int row = row0 + r;
-    dh_s[i] = row < B ? d_hfinal[((size_t)e * B + row) * H + j] : 0.0f;
+// Every index map below is fixed for the whole loop and worked out before
+// it: a step spends its instructions on copies and arithmetic, since all of
+// the CTA's warps issue through the same four schedulers.
+template <int CELL, typename CT, typename HT>
+__global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainArgs a) {
+  constexpr int G = NumGates<CELL>::G;
+  constexpr bool kMma = sizeof(CT) == 2;
+  constexpr int padk = 16 / sizeof(CT);
+  constexpr int NT = CHAIN_THREADS;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int T = a.T, B = a.B, H = a.H, GH = G * H;
+  const int R = a.R, hc = a.hc, kp = a.kp, kc = a.kc;
+  const int nc = (int)cluster.num_blocks();
+  const int q = (int)cluster.block_rank();
+  const int cl = blockIdx.x / nc, ncl = gridDim.x / nc;
+  const int e = blockIdx.y, dabs = a.dir0 + e;
+  const int r0 = cl * R, j0 = q * hc;
+  const int own = max(0, min(hc, H - j0));  // hidden columns this CTA owns (a multiple of 4)
+  const int nrows = min(R, B - r0);         // rows of the cluster's block that exist
+  const int tid = threadIdx.x;
+  const int wstride = kc + padk, dstride = kp + padk;
+  const bool resident = kc >= kp;
+
+  const CT* xp = static_cast<const CT*>(a.p.xp[e]);
+  const HT* out = static_cast<const HT*>(a.p.out[e]);
+  const HT* chist = static_cast<const HT*>(a.p.c[e]);
+  const HT* dout = static_cast<const HT*>(a.p.dout[e]);
+  CT* dxp = static_cast<CT*>(a.p.dxp[e]);
+  CT* dhp_out = static_cast<CT*>(a.p.dhp[e]);
+  const CT* w = static_cast<const CT*>(a.w_hh) + (size_t)e * H * GH;
+  const float* hp = CELL == kRNN ? nullptr : a.hp + (size_t)e * T * B * GH;
+
+  const ChainSmem L = chain_smem<CELL, CT, HT>(R, hc, kp, kc, a.stages);
+  extern __shared__ __align__(16) unsigned char smem[];
+  CT* wbuf = reinterpret_cast<CT*>(smem + L.w);
+  CT* dhpb = reinterpret_cast<CT*>(smem + L.dhp);
+  float* dh_s = reinterpret_cast<float*>(smem + L.dh);
+  float* dc_s = reinterpret_cast<float*>(smem + L.dc);
+  float* dbacc = reinterpret_cast<float*>(smem + L.db);
+
+  // round(W)[j0 + n][k0 + k] -> wbuf[n][k] for n < hc, k < kc; zero past
+  // the owned columns and past G*H
+  auto load_w = [&](int k0) {
+    const int words = kc * (int)sizeof(CT) / 4;
+#pragma unroll 1
+    for (int idx = tid; idx < hc * words; idx += NT) {
+      const int n = idx / words, wd = idx % words;
+      const int k = k0 + wd * (4 / (int)sizeof(CT));
+      unsigned char* dst = reinterpret_cast<unsigned char*>(wbuf + (size_t)n * wstride) + wd * 4;
+      if (n < own && k < GH)
+        cp_async4(dst, w + (size_t)(j0 + n) * GH + k);
+      else
+        *reinterpret_cast<uint32_t*>(dst) = 0u;
+    }
+    cp_async_commit();
+  };
+
+  // staging: hp and xp per gate (GRU, LSTM), h1 (GRU h_prev, LSTM c_prev,
+  // RNN h_t), dout and the mask of one step, for the block's rows and the
+  // CTA's columns; copies of 16 bytes on the main path
+  const RowCopy c_hp = row_copy(own * 4, (GH | H | j0 | hc) * 4, tid);
+  const RowCopy c_xp = row_copy(own * (int)sizeof(CT), (GH | H | j0 | hc) * (int)sizeof(CT), tid);
+  const RowCopy c_h = row_copy(own * (int)sizeof(HT), (H | j0 | hc) * (int)sizeof(HT), tid);
+  auto copy_rows = [&](const RowCopy& m, unsigned char* dst, const void* src, int ld_bytes,
+                       int dst_row_bytes) {
+    if (m.active)
+#pragma unroll 1
+      for (int r = m.r; r < nrows; r += m.rstep)
+        cp_async_n(dst + r * dst_row_bytes + m.wd * m.width,
+                   static_cast<const unsigned char*>(src) + (size_t)r * ld_bytes + m.wd * m.width,
+                   m.width);
+  };
+  auto issue = [&](int step, int buf) {
+    const int t = dabs == 0 ? T - 1 - step : step;
+    const int tp = dabs == 0 ? t - 1 : t + 1;
+    unsigned char* st = smem + L.stage + (size_t)buf * L.st_size;
+    const size_t row0 = (size_t)t * B + r0;  // the block's first row at time t
+    constexpr int hsz = sizeof(HT);
+    if constexpr (CELL != kRNN) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        copy_rows(c_hp, st + L.st_hp + (size_t)g * R * hc * 4, hp + row0 * GH + g * H + j0,
+                  GH * 4, hc * 4);
+        copy_rows(c_xp, st + L.st_xp + (size_t)g * R * hc * sizeof(CT),
+                  xp + row0 * GH + g * H + j0, GH * (int)sizeof(CT), hc * (int)sizeof(CT));
+      }
+      if (step != T - 1)  // h_prev / c_prev: zero at the first position
+        copy_rows(c_h, st + L.st_h1, (CELL == kGRU ? out : chist) + ((size_t)tp * B + r0) * H + j0,
+                  H * hsz, hc * hsz);
+    } else {
+      copy_rows(c_h, st + L.st_h1, out + row0 * H + j0, H * hsz, hc * hsz);
+    }
+    copy_rows(c_h, st + L.st_do, dout + row0 * H + j0, H * hsz, hc * hsz);
+    if (tid < nrows) cp_async4(st + L.st_m + tid * 4, a.mask + row0 + tid);
+    cp_async_commit();
+  };
+
+  // gate math: pairs (row, owned column) tid, tid + NT, ... in row-major order
+  const int gm_r = tid / own, gm_c = tid % own, gm_dr = NT / own, gm_dc = NT % own;
+  // the push: words of `pw` bytes (16 on the main path; 8 always divide:
+  // own and H are multiples of 4, j0 of 8) of the CTA's G column ranges;
+  // pu_tpr threads per row, rows pu_r, pu_r + pu_rstep, ...
+  const int pw = ((own | H | j0) * (int)sizeof(CT)) % 16 == 0 ? 16 : 8;
+  const int pu_words = own * (int)sizeof(CT) / pw, pu_lpr = G * pu_words;
+  const int pu_tpr = min(pu_lpr, NT), pu_rstep = NT / pu_tpr;
+  const int pu_l = tid % pu_tpr, pu_r = tid / pu_tpr;
+
+  for (int i = tid; i < R * hc; i += NT) {
+    const int r = i / hc, c = i % hc;
+    dh_s[i] = (r < nrows && c < own) ? a.d_hfinal[((size_t)e * B + r0 + r) * H + j0 + c] : 0.0f;
     if constexpr (CELL == kLSTM) dc_s[i] = 0.0f;
   }
-  for (int k = threadIdx.x; k < GH; k += blockDim.x) db_s[k] = 0.0f;
-  if (!split)  // zero the partial dW: the same thread updates each element later
-    for (int k = threadIdx.x; k < GH; k += blockDim.x)
-      for (int i = 0; i < H; ++i) pw[(size_t)i * GH + k] = 0.0f;
+  for (int i = tid; i < G * R * hc; i += NT) dbacc[i] = 0.0f;
+  // rows past the batch and columns past G*H stay zero in both blocks
+  for (int i = tid; i < 2 * R * dstride; i += NT) dhpb[i] = from_f<CT>(0.0f);
+  if (resident) load_w(0);
+  if (a.stages == 2) issue(0, 0);
+  cluster.sync();  // every CTA of the cluster runs, buffers zeroed, before the first push
 
+  const int warp = tid / 32, lane = tid % 32, gid = lane / 4, tig = lane % 4;
   for (int step = 0; step < T; ++step) {
     const int t = dabs == 0 ? T - 1 - step : step;
     const bool first = step == T - 1;  // the direction's first position
-    const int tprev = dabs == 0 ? t - 1 : t + 1;
+    int buf = 0;
+    if (a.stages == 2) {
+      buf = step & 1;
+      if (step + 1 < T) {
+        issue(step + 1, buf ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {
+      issue(step, 0);
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned char* st = smem + L.stage + (size_t)buf * L.st_size;
+    const float* hp_st = reinterpret_cast<const float*>(st + L.st_hp);
+    const CT* xp_st = reinterpret_cast<const CT*>(st + L.st_xp);
+    const HT* h1_st = reinterpret_cast<const HT*>(st + L.st_h1);
+    const HT* do_st = reinterpret_cast<const HT*>(st + L.st_do);
+    const float* m_st = reinterpret_cast<const float*>(st + L.st_m);
+    CT* mine = dhpb + (size_t)(step & 1) * R * dstride;  // this step's dhp row block
+    const int RH = R * hc;
 
-    // h_prev (rounded to CT) for the gate recompute and the dW product
-    for (int i = threadIdx.x; i < BB * H; i += blockDim.x) {
-      const int r = i / H, j = i % H;  // consecutive threads read consecutive j
-      const int row = row0 + r;
-      float h = 0.0f;
-      if (!first && row < B) h = to_f(out[((size_t)tprev * B + row) * H + j]);
-      hT_s[j * BB + r] = round_ct<CT>(h);
+#pragma unroll 1
+    for (int r = gm_r, c = gm_c; r < nrows;) {
+      const int j = j0 + c, sc = r * hc + c;
+      const size_t tb = (size_t)t * B + r0 + r;
+      const float m = m_st[r];
+      const float dh_t = dh_s[sc] + to_f(do_st[sc]);
+      const float dh_new = dh_t * m;
+      const float dh_direct = dh_t * (1.0f - m);
+      float dxv[G], dhp[G];
+      if constexpr (CELL == kGRU) {
+        const float h_prev = first ? 0.0f : to_f(h1_st[sc]);
+        const float h_r = hp_st[sc], h_z = hp_st[RH + sc], h_n = hp_st[2 * RH + sc];
+        const float rg = sigmoid(to_f(xp_st[sc]) + h_r);
+        const float zg = sigmoid(to_f(xp_st[RH + sc]) + h_z);
+        const float ng = tanhf(to_f(xp_st[2 * RH + sc]) + rg * h_n);
+        const float dz = dh_new * (h_prev - ng);
+        const float dn_pre = dh_new * (1.0f - zg) * (1.0f - ng * ng);
+        const float dr_pre = dn_pre * h_n * rg * (1.0f - rg);
+        const float dz_pre = dz * zg * (1.0f - zg);
+        dxv[0] = dr_pre;
+        dxv[1] = dz_pre;
+        dxv[2] = dn_pre;
+        dhp[0] = dr_pre;
+        dhp[1] = dz_pre;
+        dhp[2] = dn_pre * rg;
+        dh_s[sc] = dh_new * zg + dh_direct;
+      } else if constexpr (CELL == kLSTM) {
+        const float c_prev = first ? 0.0f : to_f(h1_st[sc]);
+        const float dc_t = dc_s[sc];
+        float dc_new = dc_t * m;
+        const float dc_direct = dc_t * (1.0f - m);
+        const float ig = sigmoid(to_f(xp_st[sc]) + hp_st[sc]);
+        const float fg = sigmoid(to_f(xp_st[RH + sc]) + hp_st[RH + sc]);
+        const float gg = tanhf(to_f(xp_st[2 * RH + sc]) + hp_st[2 * RH + sc]);
+        const float og = sigmoid(to_f(xp_st[3 * RH + sc]) + hp_st[3 * RH + sc]);
+        const float c_new = fg * c_prev + ig * gg;
+        const float tanh_c = tanhf(c_new);
+        const float d_o = dh_new * tanh_c;
+        dc_new = dc_new + dh_new * og * (1.0f - tanh_c * tanh_c);
+        dxv[0] = dc_new * gg * ig * (1.0f - ig);
+        dxv[1] = dc_new * c_prev * fg * (1.0f - fg);
+        dxv[2] = dc_new * ig * (1.0f - gg * gg);
+        dxv[3] = d_o * og * (1.0f - og);
+#pragma unroll
+        for (int g = 0; g < G; ++g) dhp[g] = dxv[g];
+        dc_s[sc] = dc_new * fg + dc_direct;
+        dh_s[sc] = dh_direct;
+      } else {
+        // h_new equals the saved output wherever m == 1, and dh_new is 0
+        // wherever m == 0
+        const float h_t = to_f(h1_st[sc]);
+        dxv[0] = dh_new * (1.0f - h_t * h_t);
+        dhp[0] = dxv[0];
+        dh_s[sc] = dh_direct;
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        dxp[tb * GH + g * H + j] = from_f<CT>(dxv[g]);
+        if constexpr (CELL == kGRU) dhp_out[tb * GH + g * H + j] = from_f<CT>(dhp[g]);
+        dbacc[g * RH + sc] += dhp[g];
+        mine[r * dstride + g * H + j] = from_f<CT>(dhp[g]);
+      }
+      c += gm_dc;
+      r += gm_dr;
+      if (c >= own) {
+        c -= own;
+        ++r;
+      }
     }
     __syncthreads();
 
-    // gate recompute and the gate cotangents; thread j owns column j
-    for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      float acc[G][BB];
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-#pragma unroll
-        for (int r = 0; r < BB; ++r) acc[g][r] = 0.0f;
-      if constexpr (CELL != kRNN) {  // RNN reads the saved output instead
-#pragma unroll 4
-        for (int k = 0; k < H; ++k) {
-          float wv[G];
-#pragma unroll
-          for (int g = 0; g < G; ++g) wv[g] = to_f(w[(size_t)k * GH + g * H + j]);
-          const float4* hv = reinterpret_cast<const float4*>(hT_s + k * BB);
-          float hk[BB];
-#pragma unroll
-          for (int q = 0; q < BB / 4; ++q) {
-            const float4 v = hv[q];
-            hk[4 * q + 0] = v.x;
-            hk[4 * q + 1] = v.y;
-            hk[4 * q + 2] = v.z;
-            hk[4 * q + 3] = v.w;
-          }
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-#pragma unroll
-            for (int r = 0; r < BB; ++r) acc[g][r] = fmaf(hk[r], wv[g], acc[g][r]);
-        }
-      }
-
-      float dbsum[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) dbsum[g] = 0.0f;
-#pragma unroll
-      for (int r = 0; r < BB; ++r) {
-        const int row = row0 + r;
-        float dhp[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) dhp[g] = 0.0f;
-        if (row < B) {
-          const size_t tb = (size_t)t * B + row;
-          const float m = mask[tb];
-          const float dh_t = dh_s[r * H + j] + to_f(dout[tb * H + j]);
-          const float dh_new = dh_t * m;
-          const float dh_direct = dh_t * (1.0f - m);
-          const CT* x = xp + tb * GH;
-          CT* dx = dxp + tb * GH;
-          float h_prev = 0.0f;
-          if (!first) h_prev = to_f(out[((size_t)tprev * B + row) * H + j]);
-          float dxv[G];
-          if constexpr (CELL == kGRU) {
-            const float h_r = acc[0][r] + bias[j];
-            const float h_z = acc[1][r] + bias[H + j];
-            const float h_n = acc[2][r] + bias[2 * H + j];
-            const float rg = sigmoid(to_f(x[j]) + h_r);
-            const float zg = sigmoid(to_f(x[H + j]) + h_z);
-            const float ng = tanhf(to_f(x[2 * H + j]) + rg * h_n);
-            const float dz = dh_new * (h_prev - ng);
-            const float dn_pre = dh_new * (1.0f - zg) * (1.0f - ng * ng);
-            const float dr_pre = dn_pre * h_n * rg * (1.0f - rg);
-            const float dz_pre = dz * zg * (1.0f - zg);
-            dxv[0] = dr_pre;
-            dxv[1] = dz_pre;
-            dxv[2] = dn_pre;
-            dhp[0] = dr_pre;
-            dhp[1] = dz_pre;
-            dhp[2] = dn_pre * rg;
-            dh_s[r * H + j] = dh_new * zg + dh_direct;
-          } else if constexpr (CELL == kLSTM) {
-            float c_prev = 0.0f;
-            if (!first) c_prev = to_f(chist[((size_t)tprev * B + row) * H + j]);
-            const float dc_t = dc_s[r * H + j];
-            float dc_new = dc_t * m;
-            const float dc_direct = dc_t * (1.0f - m);
-            const float ig = sigmoid(to_f(x[j]) + (acc[0][r] + bias[j]));
-            const float fg = sigmoid(to_f(x[H + j]) + (acc[1][r] + bias[H + j]));
-            const float gg = tanhf(to_f(x[2 * H + j]) + (acc[2][r] + bias[2 * H + j]));
-            const float og = sigmoid(to_f(x[3 * H + j]) + (acc[3][r] + bias[3 * H + j]));
-            const float c_new = fg * c_prev + ig * gg;
-            const float tanh_c = tanhf(c_new);
-            const float d_o = dh_new * tanh_c;
-            dc_new = dc_new + dh_new * og * (1.0f - tanh_c * tanh_c);
-            dxv[0] = dc_new * gg * ig * (1.0f - ig);
-            dxv[1] = dc_new * c_prev * fg * (1.0f - fg);
-            dxv[2] = dc_new * ig * (1.0f - gg * gg);
-            dxv[3] = d_o * og * (1.0f - og);
-#pragma unroll
-            for (int g = 0; g < G; ++g) dhp[g] = dxv[g];
-            dc_s[r * H + j] = dc_new * fg + dc_direct;
-            dh_s[r * H + j] = dh_direct;
-          } else {
-            // h_new equals the saved output wherever m == 1, and dh_new
-            // is 0 wherever m == 0
-            const float h_t = to_f(out[tb * H + j]);
-            dxv[0] = dh_new * (1.0f - h_t * h_t);
-            dhp[0] = dxv[0];
-            dh_s[r * H + j] = dh_direct;
-          }
-#pragma unroll
-          for (int g = 0; g < G; ++g) {
-            dx[g * H + j] = from_f<CT>(dxv[g]);
-            if (CELL == kGRU && split) dhp_out[tb * GH + g * H + j] = from_f<CT>(dhp[g]);
-            dbsum[g] += dhp[g];
-          }
-        }
-#pragma unroll
-        for (int g = 0; g < G; ++g) dhp_s[(g * H + j) * BB + r] = round_ct<CT>(dhp[g]);
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) db_s[g * H + j] += dbsum[g];
-    }
-    __syncthreads();
-
-    // dh chain: dh[r][j] += sum_k dhp[r][k] * W[j][k], read through W^T
-    for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      float acc[BB];
-#pragma unroll
-      for (int r = 0; r < BB; ++r) acc[r] = 0.0f;
-#pragma unroll 4
-      for (int k = 0; k < GH; ++k) {
-        const float wv = to_f(wT[(size_t)k * H + j]);
-        const float4* dv = reinterpret_cast<const float4*>(dhp_s + k * BB);
-#pragma unroll
-        for (int q = 0; q < BB / 4; ++q) {
-          const float4 v = dv[q];
-          acc[4 * q + 0] = fmaf(v.x, wv, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(v.y, wv, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(v.z, wv, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(v.w, wv, acc[4 * q + 3]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < BB; ++r) dh_s[r * H + j] += acc[r];
-    }
-
-    // dW partial: each thread owns whole columns k of [H][GH]
-    if (!split) {
-      for (int k = threadIdx.x; k < GH; k += blockDim.x) {
-        float dk[BB];
-        const float4* dv = reinterpret_cast<const float4*>(dhp_s + k * BB);
-#pragma unroll
-        for (int q = 0; q < BB / 4; ++q) {
-          const float4 v = dv[q];
-          dk[4 * q + 0] = v.x;
-          dk[4 * q + 1] = v.y;
-          dk[4 * q + 2] = v.z;
-          dk[4 * q + 3] = v.w;
-        }
-        // four rows at a time: their loads are in flight together (H % 4 == 0)
-        for (int i0 = 0; i0 < H; i0 += 4) {
-          float old[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) old[u] = pw[(size_t)(i0 + u) * GH + k];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const float4* hv = reinterpret_cast<const float4*>(hT_s + (i0 + u) * BB);
-            float a = 0.0f;
-#pragma unroll
-            for (int q = 0; q < BB / 4; ++q) {
-              const float4 v = hv[q];
-              a = fmaf(v.x, dk[4 * q + 0], a);
-              a = fmaf(v.y, dk[4 * q + 1], a);
-              a = fmaf(v.z, dk[4 * q + 2], a);
-              a = fmaf(v.w, dk[4 * q + 3], a);
+    // push this CTA's columns of the row block into every peer's copy: each
+    // word is read once and stored to every peer
+    if (pu_r < pu_rstep) {
+      unsigned char* blk = reinterpret_cast<unsigned char*>(mine);
+#pragma unroll 1
+      for (int r = pu_r; r < nrows; r += pu_rstep)
+#pragma unroll 1
+        for (int l = pu_l; l < pu_lpr; l += pu_tpr) {
+          const int g = l / pu_words, wd = l - g * pu_words;
+          unsigned char* src = blk + ((size_t)r * dstride + g * H + j0) * sizeof(CT) + wd * pw;
+          if (pw == 16) {
+            const uint4 v = *reinterpret_cast<const uint4*>(src);
+#pragma unroll 1
+            for (int pr = 1; pr < nc; ++pr) {
+              const int peer = q + pr < nc ? q + pr : q + pr - nc;
+              *reinterpret_cast<uint4*>(cluster.map_shared_rank(src, peer)) = v;
             }
-            pw[(size_t)(i0 + u) * GH + k] = old[u] + a;
+          } else {
+            const uint2 v = *reinterpret_cast<const uint2*>(src);
+#pragma unroll 1
+            for (int pr = 1; pr < nc; ++pr) {
+              const int peer = q + pr < nc ? q + pr : q + pr - nc;
+              *reinterpret_cast<uint2*>(cluster.map_shared_rank(src, peer)) = v;
+            }
+          }
+        }
+    }
+    cluster.sync();  // release the pushes, acquire the peers'
+
+    // the chain: dh[:, own] += round(dhp)[R, kp] . round(W)^T[kp, own]
+    if constexpr (kMma) {
+      // (16 x 8) output tiles, one warp each; with fewer tiles than half the
+      // warps (and W resident), two warps share a tile, each taking half of
+      // k: the second half's sums pass through this step's staging buffer
+      // (read by now) and are added in a fixed order
+      const int ntn = hc / 8, units = (R / 16) * ntn;
+      const bool halves = resident && 2 * units <= CHAIN_WARPS;
+      const int khalf = (kp / 16 + 1) / 2 * 16;
+      float acc[UNITS_MAX][4][4];  // four accumulators: four k16 steps in flight
+#pragma unroll
+      for (int u = 0; u < UNITS_MAX; ++u)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[u][j][i] = 0.0f;
+      for (int k0 = 0; k0 < kp; k0 += kc) {
+        const int klen = min(kc, kp - k0);
+        if (!resident) {
+          load_w(k0);
+          cp_async_wait<0>();
+          __syncthreads();
+        }
+#pragma unroll
+        for (int u = 0; u < UNITS_MAX; ++u) {
+          const int slot = warp + u * CHAIN_WARPS;
+          const int unit = halves ? slot % units : slot;
+          const bool second = halves && slot >= units;
+          if (slot < (halves ? 2 * units : units)) {
+            const int mt = unit / ntn, nt = unit % ntn;
+            const int kb = second ? khalf : 0, ke = halves && !second ? khalf : klen;
+            // ldmatrix rows: A's 16 rows by two k halves, B's 8 rows (n) by four k quarters
+            const CT* ap = mine + (size_t)(mt * 16 + lane % 16) * dstride + k0 + (lane / 16) * 8;
+            const CT* bp = wbuf + (size_t)(nt * 8 + lane % 8) * wstride + (lane / 8) * 8;
+            for (int kk = kb; kk < ke; kk += 64) {
+              uint32_t a0[4], a1[4], a2[4], a3[4], b01[4], b23[4];
+              ldsm_x4(a0, ap + kk);
+              ldsm_x4(b01, bp + kk);  // B of the k16 steps at kk and kk + 16
+              if (kk + 16 < ke) ldsm_x4(a1, ap + kk + 16);
+              if (kk + 32 < ke) {
+                ldsm_x4(a2, ap + kk + 32);
+                ldsm_x4(b23, bp + kk + 32);
+              }
+              if (kk + 48 < ke) ldsm_x4(a3, ap + kk + 48);
+              mma_bf16(acc[u][0], a0[0], a0[1], a0[2], a0[3], b01[0], b01[1]);
+              if (kk + 16 < ke) mma_bf16(acc[u][1], a1[0], a1[1], a1[2], a1[3], b01[2], b01[3]);
+              if (kk + 32 < ke) mma_bf16(acc[u][2], a2[0], a2[1], a2[2], a2[3], b23[0], b23[1]);
+              if (kk + 48 < ke) mma_bf16(acc[u][3], a3[0], a3[1], a3[2], a3[3], b23[2], b23[3]);
+            }
+          }
+        }
+        if (!resident) __syncthreads();  // the next chunk overwrites wbuf
+      }
+      float* xpart = reinterpret_cast<float*>(smem + L.stage + (size_t)buf * L.st_size);
+#pragma unroll
+      for (int u = 0; u < UNITS_MAX; ++u) {
+        const int slot = warp + u * CHAIN_WARPS;
+        const int unit = halves ? slot % units : slot;
+        if (halves && slot >= units && slot < 2 * units) {
+          const int mt = unit / ntn, nt = unit % ntn;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = mt * 16 + gid + (i >= 2 ? 8 : 0), c = nt * 8 + tig * 2 + (i & 1);
+            xpart[r * hc + c] = (acc[u][0][i] + acc[u][1][i]) + (acc[u][2][i] + acc[u][3][i]);
           }
         }
       }
+      if (halves) __syncthreads();
+#pragma unroll
+      for (int u = 0; u < UNITS_MAX; ++u) {
+        const int slot = warp + u * CHAIN_WARPS;
+        if (slot < units) {
+          const int mt = slot / ntn, nt = slot % ntn;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = mt * 16 + gid + (i >= 2 ? 8 : 0), c = nt * 8 + tig * 2 + (i & 1);
+            float v = (acc[u][0][i] + acc[u][1][i]) + (acc[u][2][i] + acc[u][3][i]);
+            if (halves) v += xpart[r * hc + c];
+            if (c < own) dh_s[r * hc + c] += v;
+          }
+        }
+      }
+      if (halves) __syncthreads();  // the next step's copies overwrite the staging buffer
+    } else {
+      const int nout = R * own;
+      float acc[OUTS_MAX];
+#pragma unroll
+      for (int o = 0; o < OUTS_MAX; ++o) acc[o] = 0.0f;
+      for (int k0 = 0; k0 < kp; k0 += kc) {
+        const int klen = min(kc, kp - k0);
+        if (!resident) {
+          load_w(k0);
+          cp_async_wait<0>();
+          __syncthreads();
+        }
+#pragma unroll
+        for (int o = 0; o < OUTS_MAX; ++o) {
+          const int pidx = tid + o * CHAIN_THREADS;
+          if (pidx < nout) {
+            const int r = pidx / own, c = pidx % own;
+            const float* ap = reinterpret_cast<const float*>(mine) + (size_t)r * dstride + k0;
+            const float* bp = reinterpret_cast<const float*>(wbuf) + (size_t)c * wstride;
+            float s = acc[o];
+            for (int k = 0; k < klen; ++k) s = fmaf(ap[k], bp[k], s);
+            acc[o] = s;
+          }
+        }
+        if (!resident) __syncthreads();
+      }
+#pragma unroll
+      for (int o = 0; o < OUTS_MAX; ++o) {
+        const int pidx = tid + o * CHAIN_THREADS;
+        if (pidx < nout) dh_s[(pidx / own) * hc + pidx % own] += acc[o];
+      }
     }
-    __syncthreads();  // dhp_s, hT_s and dh_s are rewritten next step
   }
 
-  if (!split)
-    for (int k = threadIdx.x; k < GH; k += blockDim.x) pb[k] = db_s[k];
+  if (!a.split) {  // db partial of this cluster's rows, summed over r in order
+    __syncthreads();
+    for (int idx = tid; idx < G * own; idx += CHAIN_THREADS) {
+      const int g = idx / own, c = idx % own;
+      float s = 0.0f;
+      for (int r = 0; r < R; ++r) s += dbacc[(g * R + r) * hc + c];
+      a.db_part[((size_t)e * ncl + cl) * GH + g * H + j0 + c] = s;
+    }
+  }
 }
 
-// dw[e][i] = sum over row blocks rb (in order) of ws_w[e][rb][i]; db alike.
-__global__ void rnn_bwd_reduce_kernel(int D, int nrb, long long nw, long long nb,
-                                      const float* __restrict__ ws_w,
-                                      const float* __restrict__ ws_b, float* __restrict__ dw,
+// dw[e][i] = sum over slices s (in order) of part[e][s][i]; db[e][k] = sum
+// over clusters (in order) of db_part[e][cl][k].
+__global__ void rnn_bwd_reduce_kernel(int D, int nsplit, int ncl, int nw, int nb,
+                                      const float* __restrict__ part,
+                                      const float* __restrict__ db_part, float* __restrict__ dw,
                                       float* __restrict__ db) {
-  const long long total = (long long)D * (nw + nb);
-  for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x; idx < total;
-       idx += (long long)gridDim.x * blockDim.x) {
-    if (idx < (long long)D * nw) {
-      const long long e = idx / nw, i = idx % nw;
-      const float* src = ws_w + e * nrb * nw + i;
+  const int total = D * (nw + nb);
+  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += gridDim.x * blockDim.x) {
+    if (idx < D * nw) {
+      const int e = idx / nw, i = idx % nw;
+      const float* src = part + (size_t)e * nsplit * nw + i;
       float s = 0.0f;
-      for (int rb = 0; rb < nrb; ++rb) s += src[rb * nw];
+      for (int k = 0; k < nsplit; ++k) s += src[(size_t)k * nw];
       dw[idx] = s;
     } else {
-      const long long k = idx - (long long)D * nw;
-      const long long e = k / nb, i = k % nb;
-      const float* src = ws_b + e * nrb * nb + i;
+      const int k = idx - D * nw;
+      const int e = k / nb, i = k % nb;
+      const float* src = db_part + (size_t)e * ncl * nb + i;
       float s = 0.0f;
-      for (int rb = 0; rb < nrb; ++rb) s += src[rb * nb];
+      for (int c = 0; c < ncl; ++c) s += src[(size_t)c * nb];
       db[k] = s;
     }
   }
 }
 
+struct Plan {
+  int nc, R, hc, kc, stages, nsplit;
+};
+
+template <int CELL, typename CT>
+bool plan_ok(const Plan& pl, int H, int kp) {
+  if (pl.nc < 1 || pl.nc > 8 || pl.hc < 8 || pl.hc % 8 || pl.nc * pl.hc < H ||
+      (pl.nc - 1) * pl.hc >= H || pl.R < 8 || pl.R % 8 || pl.kc < 16 || pl.kc % 16 ||
+      (pl.stages != 1 && pl.stages != 2) || pl.nsplit < 1)
+    return false;
+  if (sizeof(CT) == 2)
+    return pl.R % 16 == 0 && (pl.R / 16) * (pl.hc / 8) <= UNITS_MAX * CHAIN_WARPS;
+  return pl.R * pl.hc <= OUTS_MAX * CHAIN_THREADS;
+}
+
 template <int CELL, typename CT, typename HT>
-int launch(int T, int B, int H, int D, int dir0, int split, const Ptrs& p, const float* mask,
-           const void* w_hh, const void* w_hhT, const float* b_hh, const float* d_hfinal,
-           float* ws_w, float* ws_b, float* dw, float* db, cudaStream_t stream) {
+int launch(int T, int B, int H, int D, int dir0, int split, const Plan& pl, const Ptrs& p,
+           const float* mask, const void* w_hh, const float* b_hh, const float* d_hfinal,
+           float* hp_ws, float* ws_w, float* ws_b, float* dw, float* db, cudaStream_t stream) {
   constexpr int G = NumGates<CELL>::G;
-  auto kernel = rnn_bwd_kernel<CELL, CT, HT>;
-  const size_t GH = (size_t)G * H;
-  const size_t smem =
-      ((size_t)(CELL == kLSTM ? 3 : 2) * BB * H + GH * BB + GH) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  const int GH = G * H, kp = (GH + 15) / 16 * 16;
+  if (!plan_ok<CELL, CT>(pl, H, kp)) return (int)cudaErrorInvalidValue;
+  const int kc = pl.kc < kp ? pl.kc : kp;
+  const ChainSmem L = chain_smem<CELL, CT, HT>(pl.R, pl.hc, kp, kc, pl.stages);
+  if (L.total > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const int ncl = (B + pl.R - 1) / pl.R;
+  cudaError_t err;
+
+  GemmArgs g = {};
+  g.T = T;
+  g.B = B;
+  g.H = H;
+  g.GH = GH;
+  g.dir0 = dir0;
+  for (int e = 0; e < 2; ++e) g.hr[e] = p.hr[e];
+  if (CELL != kRNN) {  // the gate recompute, all T*B rows at once
+    g.nsplit = 1;
+    g.klen = H;
+    for (int e = 0; e < D; ++e) g.rhs[e] = static_cast<const CT*>(w_hh) + (size_t)e * H * GH;
+    g.bias = b_hh;
+    g.c = hp_ws;
+    if ((err = gemm<0, CT>(g, D, stream)) != cudaSuccess) return (int)err;
   }
-  int threads = ((H + 31) / 32) * 32;
-  if (threads > THREADS) threads = THREADS;
-  const int nrb = (B + BB - 1) / BB;
-  const dim3 grid(nrb, D);
-  kernel<<<grid, threads, smem, stream>>>(
-      T, B, H, dir0, split, p, mask, static_cast<const CT*>(w_hh),
-      static_cast<const CT*>(w_hhT), b_hh, d_hfinal, ws_w, ws_b);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || split) return (int)e;
-  const long long nw = (long long)H * GH, nb = (long long)GH;
-  const long long total = (long long)D * (nw + nb);
-  int blocks = (int)((total + 255) / 256);
+
+  ChainArgs c = {};
+  c.T = T;
+  c.B = B;
+  c.H = H;
+  c.dir0 = dir0;
+  c.split = split;
+  c.R = pl.R;
+  c.hc = pl.hc;
+  c.kp = kp;
+  c.kc = kc;
+  c.stages = pl.stages;
+  c.p = p;
+  c.mask = mask;
+  c.w_hh = w_hh;
+  c.hp = hp_ws;
+  c.d_hfinal = d_hfinal;
+  c.db_part = ws_b;
+  auto kernel = rnn_bwd_chain_kernel<CELL, CT, HT>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(pl.nc * ncl, D, 1);
+  cfg.blockDim = dim3(CHAIN_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = L.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = pl.nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((err = cudaLaunchKernelEx(&cfg, kernel, c)) != cudaSuccess) return (int)err;
+  if ((err = cudaGetLastError()) != cudaSuccess || split) return (int)err;
+
+  // the weight gradient over T*B rows in nsplit slices, then the fixed-order sums
+  g.nsplit = pl.nsplit;
+  g.klen = ((T * B + pl.nsplit - 1) / pl.nsplit + GK - 1) / GK * GK;  // a multiple of TK too
+  for (int e = 0; e < D; ++e) g.rhs[e] = CELL == kGRU ? p.dhp[e] : p.dxp[e];
+  g.bias = nullptr;
+  g.c = ws_w;
+  if ((err = gemm<1, CT>(g, D, stream)) != cudaSuccess) return (int)err;
+  const int nw = H * GH, nb = GH;
+  const int total = D * (nw + nb);
+  int blocks = (total + 255) / 256;
   if (blocks > 4096) blocks = 4096;
-  rnn_bwd_reduce_kernel<<<blocks, 256, 0, stream>>>(D, nrb, nw, nb, ws_w, ws_b, dw, db);
+  rnn_bwd_reduce_kernel<<<blocks, 256, 0, stream>>>(D, pl.nsplit, ncl, nw, nb, ws_w, ws_b, dw,
+                                                     db);
   return (int)cudaGetLastError();
 }
 
-template <int CELL>
-int dispatch_types(int cdt_bf16, int hist_bf16, int T, int B, int H, int D, int dir0, int split,
-                   const Ptrs& p, const float* mask, const void* w_hh, const void* w_hhT,
-                   const float* b_hh, const float* d_hfinal, float* ws_w, float* ws_b,
-                   float* dw, float* db, cudaStream_t stream) {
-  if (!cdt_bf16)
-    return launch<CELL, float, float>(T, B, H, D, dir0, split, p, mask, w_hh, w_hhT, b_hh,
-                                      d_hfinal, ws_w, ws_b, dw, db, stream);
-  if (hist_bf16)
-    return launch<CELL, __nv_bfloat16, __nv_bfloat16>(T, B, H, D, dir0, split, p, mask, w_hh,
-                                                      w_hhT, b_hh, d_hfinal, ws_w, ws_b, dw,
-                                                      db, stream);
-  return launch<CELL, __nv_bfloat16, float>(T, B, H, D, dir0, split, p, mask, w_hh, w_hhT,
-                                            b_hh, d_hfinal, ws_w, ws_b, dw, db, stream);
+// the launch for the cell and the (CT, HT) pair the flags name
+template <typename... Args>
+int dispatch(int cell, int cdt_bf16, int hist_bf16, Args... args) {
+  if (cell == kGRU) {
+    if (!cdt_bf16) return launch<kGRU, float, float>(args...);
+    if (hist_bf16) return launch<kGRU, __nv_bfloat16, __nv_bfloat16>(args...);
+    return launch<kGRU, __nv_bfloat16, float>(args...);
+  }
+  if (cell == kLSTM) {
+    if (!cdt_bf16) return launch<kLSTM, float, float>(args...);
+    if (hist_bf16) return launch<kLSTM, __nv_bfloat16, __nv_bfloat16>(args...);
+    return launch<kLSTM, __nv_bfloat16, float>(args...);
+  }
+  if (!cdt_bf16) return launch<kRNN, float, float>(args...);
+  if (hist_bf16) return launch<kRNN, __nv_bfloat16, __nv_bfloat16>(args...);
+  return launch<kRNN, __nv_bfloat16, float>(args...);
 }
 
 }  // namespace
 
 extern "C" {
 
-// cell: 0 RNN, 1 GRU, 2 LSTM. cdt_bf16: xp, W_hh, W_hh^T, dxp and dhp are
-// bf16 (else f32). hist_bf16: the history and the cotangents are bf16
-// (only with cdt_bf16). dir0: absolute direction of entry 0. split: 0
-// accumulates dW/db (workspaces ws_w [D, ceil(B/16), H, G*H] and ws_b
-// [D, ceil(B/16), G*H] f32, results dw [D, H, G*H] and db [D, G*H]); 1
-// emits dhp (GRU) instead and touches no workspace. Per-direction
-// pointers the call does not use may be null. device: the CUDA ordinal
-// the tensors live on. Returns cudaGetLastError() after the launches (0
-// on success).
+// cell: 0 RNN, 1 GRU, 2 LSTM. cdt_bf16: xp, W_hh, dxp and dhp are bf16
+// (else f32). hist_bf16: the history and the cotangents are bf16 (only
+// with cdt_bf16). dir0: absolute direction of entry 0. The plan (from
+// ops/rnn_scan.py bwd_plan): nc CTAs per cluster of hc hidden columns
+// each, rows batch rows per cluster, W rows streamed in chunks of kc
+// columns (kc >= G*H: resident), 1 or 2 staging buffers, nsplit slices of
+// the weight-gradient product. hr0, hr1: the history in the compute dtype
+// (the history itself when it is in that dtype already), the products'
+// operand. hp_ws: [D, T*B, G*H] f32 (GRU, LSTM). dhp0, dhp1: GRU's dhp
+// [T, B, G*H] in the compute dtype, in both modes (an output in split
+// mode, the weight-gradient product's operand otherwise).
+// split: 0 also computes dw [D, H, G*H] and db [D, G*H] through ws_w
+// [D, nsplit, H, G*H] and ws_b [D, ceil(B/rows), G*H] f32; 1 touches
+// neither. Per-direction pointers the call does not use may be null.
+// device: the CUDA ordinal the tensors live on. Returns cudaGetLastError()
+// after the launches (0 on success).
 int rnn_bwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int split, int T, int B,
-                   int H, int D, int dir0, const void* xp0, const void* xp1, const float* mask,
-                   const void* out0, const void* out1, const void* c0, const void* c1,
-                   const void* dout0, const void* dout1, const void* w_hh, const void* w_hhT,
-                   const float* b_hh, const float* d_hfinal, void* dxp0, void* dxp1,
-                   void* dhp0, void* dhp1, float* ws_w, float* ws_b, float* dw, float* db,
+                   int H, int D, int dir0, int nc, int rows, int hc, int kc, int stages,
+                   int nsplit, const void* xp0, const void* xp1, const float* mask,
+                   const void* out0, const void* out1, const void* hr0, const void* hr1,
+                   const void* c0, const void* c1,
+                   const void* dout0, const void* dout1, const void* w_hh, const float* b_hh,
+                   const float* d_hfinal, void* dxp0, void* dxp1, void* dhp0, void* dhp1,
+                   float* hp_ws, float* ws_w, float* ws_b, float* dw, float* db,
                    void* stream) {
   if (T <= 0 || B <= 0) return 0;
   if (H % 4 != 0 || D < 1 || D > 2 || dir0 < 0 || dir0 + D > 2 || cell < 0 || cell > 2)
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  Ptrs p = {{xp0, xp1}, {out0, out1}, {c0, c1}, {dout0, dout1}, {dxp0, dxp1}, {dhp0, dhp1}};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cell == kGRU)
-    return dispatch_types<kGRU>(cdt_bf16, hist_bf16, T, B, H, D, dir0, split, p, mask, w_hh,
-                                w_hhT, b_hh, d_hfinal, ws_w, ws_b, dw, db, s);
-  if (cell == kLSTM)
-    return dispatch_types<kLSTM>(cdt_bf16, hist_bf16, T, B, H, D, dir0, split, p, mask, w_hh,
-                                 w_hhT, b_hh, d_hfinal, ws_w, ws_b, dw, db, s);
-  return dispatch_types<kRNN>(cdt_bf16, hist_bf16, T, B, H, D, dir0, split, p, mask, w_hh,
-                              w_hhT, b_hh, d_hfinal, ws_w, ws_b, dw, db, s);
+  const Ptrs p = {{xp0, xp1}, {out0, out1}, {hr0, hr1}, {c0, c1}, {dout0, dout1}, {dxp0, dxp1},
+                  {dhp0, dhp1}};
+  const Plan pl = {nc, rows, hc, kc, stages, nsplit};
+  return dispatch(cell, cdt_bf16, hist_bf16, T, B, H, D, dir0, split, pl, p, mask, w_hh, b_hh,
+                  d_hfinal, hp_ws, ws_w, ws_b, dw, db, static_cast<cudaStream_t>(stream));
 }
 
 const char* rnn_bwd_error_string(int err) {

@@ -19,17 +19,23 @@ The backward keeps the JAX signatures too. :func:`rnn_layer_bwd` takes the
 forward's inputs, its saved ``outs`` / ``c_hist``, the cotangents
 ``douts`` (read in the history's dtype, as the custom VJP delivers them)
 and ``d_hfinal``, and returns ``(dxps, dw_hh, db_hh)`` in f32, the weight
-gradients accumulated inside ``csrc/rnn_bwd.cu``. The same kernel in split
+gradients computed inside ``csrc/rnn_bwd.cu``. The same kernel in split
 mode emits dxp and, for GRU, the recurrent pre-activation cotangent dhp
 instead (:func:`rnn_layer_bwd_split`, :func:`_bwd_hoisted_call`); the
 weight gradient is then one product outside
 (:func:`_hoisted_weight_grad`), as in the JAX package. On CPU tensors all
-of them run :func:`rnn_layer_bwd_reference`'s plain loop.
+of them run :func:`_bwd_reference`'s plain loop.
 
-The kernels hold the whole per-block state in shared memory, which bounds
-the width: the backward takes H up to 700 for GRU, 500 for LSTM and 1185
-for RNN, and raises beyond (the TPU's VMEM plans, ``plan_fused``, have no
-counterpart here).
+The backward runs in three parts (see the note in ``csrc/rnn_bwd.cu``):
+the gate recompute as one product before the time loop, the dh chain in
+thread-block clusters that keep their rows of W in shared memory, and the
+weight gradient as one product after it. :func:`bwd_plan` picks the
+layout; where a CTA's rows of W do not fit, the kernel streams them. The
+forward takes H up to 700 for GRU, 500 for LSTM and 1184 for RNN (its
+block state in shared memory); the backward takes H divisible by 4 up to
+816 for GRU, 608 for LSTM and 2048 for RNN at bf16 compute (832 and 628
+with a bf16 history), 916, 700 and 2048 at f32, and raises beyond (the
+TPU's VMEM plans, ``plan_fused``, have no counterpart here).
 """
 
 from __future__ import annotations
@@ -219,7 +225,14 @@ def rnn_fwd_bound(T: int, B: int, H: int, D: int, G: int, cdt_bytes: int, hist_b
 # ---------------------------------------------------------------------------
 
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
-_BWD_ROWS = 16  # batch rows per block of the backward kernel
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+_UNITS_MAX = 4 * 8  # (16 x 8) tiles of the bf16 chain product one CTA holds (4 per warp)
+_OUTS_MAX = 8 * 256  # outputs of the f32 chain product one CTA holds (8 per thread)
+_GEMM_TILE = {2: 128, 4: 64}  # output tile of the two chain-free products, by compute dtype size
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def _bwd_lib():
@@ -229,12 +242,13 @@ def _bwd_lib():
         lib.rnn_bwd_launch.argtypes = [
             _INT, _INT, _INT, _INT, _INT,  # device, cell, cdt_bf16, hist_bf16, split
             _INT, _INT, _INT, _INT, _INT,  # T, B, H, D, dir0
+            _INT, _INT, _INT, _INT, _INT, _INT,  # nc, rows, hc, kc, stages, nsplit
             _VOIDP, _VOIDP, _VOIDP,  # xp0, xp1, mask
-            _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # out0, out1, c0, c1
-            _VOIDP, _VOIDP,  # dout0, dout1
-            _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # w_hh, w_hhT, b_hh, d_hfinal
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # out0, out1, hr0, hr1
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # c0, c1, dout0, dout1
+            _VOIDP, _VOIDP, _VOIDP,  # w_hh, b_hh, d_hfinal
             _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # dxp0, dxp1, dhp0, dhp1
-            _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # ws_w, ws_b, dw, db
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # hp_ws, ws_w, ws_b, dw, db
             _VOIDP,  # stream
         ]
         lib.rnn_bwd_error_string.restype = ctypes.c_char_p
@@ -243,12 +257,69 @@ def _bwd_lib():
     return lib
 
 
-def _bwd_smem_bytes(cell: str, H: int) -> int:
-    """Shared memory of one backward block: the dh (and dc) carry, h_prev
-    and dhp tiles, and the db partial, all f32."""
+def _bwd_smem_bytes(cell: str, H: int, cdt_bytes: int, hist_bytes: int, rows: int, hc: int,
+                    kc: int, stages: int) -> int:
+    """Shared memory of one CTA of the backward's chain kernel: the CTA's
+    rows of round(W) (``kc`` columns of them at a time), two rounded dhp
+    row blocks, the staging buffers, the dh (and dc) carry and the db
+    partial (``chain_smem`` in csrc/rnn_bwd.cu, region by region)."""
     G = _GATES[cell]
+    kp = _up(G * H, 16)
+    padk = 16 // cdt_bytes
+    stage = 2 * _up(rows * hc * hist_bytes, 16) + _up(rows * 4, 16)
+    if cell != "RNN":
+        stage += _up(G * rows * hc * 4, 16) + _up(G * rows * hc * cdt_bytes, 16)
     carries = 2 if cell == "LSTM" else 1
-    return 4 * ((carries + 1) * _BWD_ROWS * H + G * H * _BWD_ROWS + G * H)
+    return (_up(hc * (min(kc, kp) + padk) * cdt_bytes, 16)
+            + _up(2 * rows * (kp + padk) * cdt_bytes, 16) + stages * stage
+            + carries * _up(rows * hc * 4, 16) + _up(G * rows * hc * 4, 16))
+
+
+def bwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16",
+             history_dtype=torch.float32):
+    """The backward kernel's layout for one call, or None when none fits
+    shared memory. ``nc`` CTAs per cluster (at most 8), each owning ``hc``
+    hidden columns; ``rows`` batch rows per cluster (``clusters`` of them
+    per direction); ``kc`` columns of the CTA's W rows held at a time
+    (``resident``: all of G*H, loaded once; else streamed every step);
+    ``stages`` staging buffers (2: a step's inputs load during the step
+    before); ``nsplit`` slices of the weight-gradient product; ``smem``
+    bytes per CTA. The kernel checks the plan and refuses one that does not
+    fit."""
+    G = _GATES[cell]
+    GH = G * H
+    kp = _up(GH, 16)
+    cb = torch_dtype(compute_dtype).itemsize
+    hb = history_dtype.itemsize
+    nc = max(1, min(8, H // 16))
+    hc = _up(-(-H // nc), 8)
+    nc = -(-H // hc)  # no CTA without columns
+    rows_options = (32, 16) if cb == 2 else (16, 8)
+    if B <= rows_options[1]:
+        rows_options = rows_options[1:]
+    for rows in rows_options:
+        held = (rows // 16) * (hc // 8) if cb == 2 else rows * hc
+        if held > (_UNITS_MAX if cb == 2 else _OUTS_MAX):
+            continue
+        for resident in (True, False):
+            for stages in (2, 1):
+                if resident:
+                    kc = kp
+                else:  # the widest chunk that fits beside the rest
+                    rest = _bwd_smem_bytes(cell, H, cb, hb, rows, hc, 0, stages)
+                    rest -= _up(hc * (16 // cb) * cb, 16)
+                    kc = min(kp - 16, ((_SMEM_LIMIT - rest) // (hc * cb) - 16 // cb) // 16 * 16)
+                    if kc < 16:
+                        continue
+                smem = _bwd_smem_bytes(cell, H, cb, hb, rows, hc, kc, stages)
+                if smem > _SMEM_LIMIT:
+                    continue
+                tile = _GEMM_TILE[cb]
+                tiles = D * -(-H // tile) * -(-GH // tile)
+                nsplit = max(1, min(-(-2 * _SMS // tiles), -(-T * B // 64)))
+                return {"nc": nc, "hc": hc, "rows": rows, "clusters": -(-B // rows), "kc": kc,
+                        "resident": resident, "stages": stages, "nsplit": nsplit, "smem": smem}
+    return None
 
 
 def _check_bwd_args(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal):
@@ -271,11 +342,21 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b)
 
 
+def _prev(x: torch.Tensor, direction: int) -> torch.Tensor:
+    """h_prev (or c_prev) in original time order: the saved history shifted
+    by the direction's processing order, zero at its first position."""
+    zero = torch.zeros_like(x[:1])
+    return torch.cat([zero, x[:-1]]) if direction == 0 else torch.cat([x[1:], zero])
+
+
 def _bwd_reference(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
                    compute_dtype, split: bool, dir0: int = 0):
-    """Plain PyTorch version of the backward kernel, both modes: a Python
-    loop over time with the kernel's rounding points. Returns (dxps, dhps)
-    in the compute dtype and, unless ``split``, (dw [D, H, G*H], db
+    """Plain PyTorch version of the backward kernel, both modes, in the
+    kernel's order and with its rounding points: the gate recompute for all
+    steps as one product before the loop, a Python loop over time that
+    carries only dh (and dc), and, unless ``split``, the weight gradient as
+    one product after it. Returns (dxps, dhps) in the compute dtype (dhps
+    is dxps but for GRU) and, unless ``split``, (dw [D, H, G*H], db
     [D, G*H]) f32."""
     D, T, B, H, GH = _check_bwd_args(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal)
     cdt = torch_dtype(compute_dtype)
@@ -287,33 +368,31 @@ def _bwd_reference(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
 
     xs = [rnd(x) for x in xps]
     w = rnd(w_hh)
-    b = b_hh.float()
     m_all = mask.float()
     hs = [o.float() for o in outs]
-    cs = [c.float() for c in c_hist]
+    h_prevs = [_prev(h, dir0 + e) for e, h in enumerate(hs)]
+    c_prevs = [_prev(c.float(), dir0 + e) for e, c in enumerate(c_hist)]
     dos = [d.to(hist).float() for d in douts]
+    # the gate recompute, off the chain: [T, B, H] x [H, G*H] per direction
+    hps = [_mm(rnd(h_prevs[e]), w[e]) + b_hh[e].float() for e in range(D)] \
+        if cell != "RNN" else None
     dh = [d_hfinal[e].float() for e in range(D)]
     dc = [torch.zeros((B, H), dtype=torch.float32, device=dev) for _ in range(D)]
     dxps = [torch.empty((T, B, GH), dtype=cdt, device=dev) for _ in range(D)]
     dhps = [torch.empty((T, B, GH), dtype=cdt, device=dev) for _ in range(D)] \
-        if split and cell == "GRU" else dxps
-    dw = None if split else torch.zeros((D, H, GH), dtype=torch.float32, device=dev)
-    db = None if split else torch.zeros((D, GH), dtype=torch.float32, device=dev)
-    zeros = torch.zeros((B, H), dtype=torch.float32, device=dev)
+        if cell == "GRU" else dxps
+    dhp32 = None if split else torch.empty((D, T, B, GH), dtype=torch.float32, device=dev)
     for step in range(T):
-        first = step == T - 1  # each direction's first position
         for e in range(D):
-            dabs = dir0 + e
-            t = T - 1 - step if dabs == 0 else step
-            tprev = t - 1 if dabs == 0 else t + 1
-            h_prev = zeros if first else hs[e][tprev]
+            t = T - 1 - step if dir0 + e == 0 else step
+            h_prev = h_prevs[e][t]
             xp = xs[e][t]
             m = m_all[t][:, None]
             dh_t = dh[e] + dos[e][t]
             dh_new = dh_t * m
             dh_direct = dh_t * (1.0 - m)
             if cell == "GRU":
-                hp = _mm(rnd(h_prev), w[e]) + b[e]
+                hp = hps[e][t]
                 r = torch.sigmoid(xp[:, :H] + hp[:, :H])
                 z = torch.sigmoid(xp[:, H : 2 * H] + hp[:, H : 2 * H])
                 n = torch.tanh(xp[:, 2 * H :] + r * hp[:, 2 * H :])
@@ -325,11 +404,12 @@ def _bwd_reference(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
                 dxp = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1)
                 dhp = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=-1)
                 dh[e] = _mm(rnd(dhp), w[e].T) + dh_new * z + dh_direct
+                dhps[e][t] = dhp.to(cdt)
             elif cell == "LSTM":
-                c_prev = zeros if first else cs[e][tprev]
+                c_prev = c_prevs[e][t]
                 dc_new = dc[e] * m
                 dc_direct = dc[e] * (1.0 - m)
-                g_all = xp + (_mm(rnd(h_prev), w[e]) + b[e])
+                g_all = xp + hps[e][t]
                 i_g = torch.sigmoid(g_all[:, :H])
                 f_g = torch.sigmoid(g_all[:, H : 2 * H])
                 g_g = torch.tanh(g_all[:, 2 * H : 3 * H])
@@ -351,11 +431,14 @@ def _bwd_reference(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
                 dxp = dhp = dh_new * (1.0 - h_t * h_t)
                 dh[e] = _mm(rnd(dhp), w[e].T) + dh_direct
             dxps[e][t] = dxp.to(cdt)
-            if split:
-                dhps[e][t] = dhp.to(cdt)
-            else:
-                dw[e] += _mm(rnd(h_prev).T, rnd(dhp))
-                db[e] += dhp.sum(dim=0)
+            if not split:
+                dhp32[e, t] = dhp
+    if split:
+        return tuple(dxps), tuple(dhps), None, None
+    # the weight gradient, off the chain: [H, T*B] x [T*B, G*H] per direction
+    dw = torch.stack([_mm(rnd(h_prevs[e]).reshape(-1, H).T, rnd(dhp32[e]).reshape(-1, GH))
+                      for e in range(D)])
+    db = dhp32.reshape(D, -1, GH).sum(dim=1)
     return tuple(dxps), tuple(dhps), dw, db
 
 
@@ -376,36 +459,38 @@ def _bwd_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
                               compute_dtype, split, dir0)
     if dev.type != "cuda":
         raise ValueError(f"the rnn backward runs on cpu or cuda tensors, not {dev}")
-    if _bwd_smem_bytes(cell, H) > _SMEM_LIMIT:
-        raise ValueError(
-            f"{cell} H={H}: the backward kernel's block state "
-            f"({_bwd_smem_bytes(cell, H)} bytes) exceeds shared memory"
-        )
 
     cdt = torch_dtype(compute_dtype)
     hist = outs[0].dtype
     if hist not in (torch.float32, cdt):
         raise ValueError(f"the history must be f32 or the compute dtype, got {hist}")
+    if H % 4:
+        raise ValueError(f"the backward kernel takes H divisible by 4, got {H}")
+    plan = bwd_plan(cell, T, B, H, D, compute_dtype, hist)
+    if plan is None:
+        raise ValueError(f"{cell} H={H}: no layout of the backward kernel fits shared memory")
     xs = [x.to(cdt).contiguous() for x in xps]
     hs = [o.contiguous() for o in outs]
+    hr = [h if hist == cdt else h.to(cdt) for h in hs]  # the products' operand
     cs = [c.to(hist).contiguous() for c in c_hist]
     dos = [d.to(hist).contiguous() for d in douts]
     m = mask.to(torch.float32).contiguous()
     w = w_hh.to(cdt).contiguous()
-    wT = w_hh.transpose(1, 2).to(cdt).contiguous()
     b = b_hh.to(torch.float32).contiguous()
     dhf = d_hfinal.to(torch.float32).contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
     dxps = [torch.empty((T, B, GH), dtype=cdt, device=dev) for _ in range(D)]
+    # GRU's dhp: an output in split mode, the weight-gradient operand otherwise
     dhps = [torch.empty((T, B, GH), dtype=cdt, device=dev) for _ in range(D)] \
-        if split and cell == "GRU" else []
-    nrb = -(-B // _BWD_ROWS)
+        if cell == "GRU" else []
+    hp_ws = torch.empty((D, T * B, GH), **f32) if cell != "RNN" else None
     if split:
         ws_w = ws_b = dw = db = None
     else:
-        ws_w = torch.empty((D, nrb, H, GH), dtype=torch.float32, device=dev)
-        ws_b = torch.empty((D, nrb, GH), dtype=torch.float32, device=dev)
-        dw = torch.empty((D, H, GH), dtype=torch.float32, device=dev)
-        db = torch.empty((D, GH), dtype=torch.float32, device=dev)
+        ws_w = torch.empty((D, plan["nsplit"], H, GH), **f32)
+        ws_b = torch.empty((D, plan["clusters"], GH), **f32)
+        dw = torch.empty((D, H, GH), **f32)
+        db = torch.empty((D, GH), **f32)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -419,11 +504,13 @@ def _bwd_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
         err = lib.rnn_bwd_launch(
             torch.cuda.current_device(), _CELL_CODE[cell], int(cdt == torch.bfloat16),
             int(hist == torch.bfloat16), int(split), T, B, H, D, dir0,
+            plan["nc"], plan["rows"], plan["hc"], plan["kc"], plan["stages"], plan["nsplit"],
             at(xs, 0), at(xs, 1), m.data_ptr(),
-            at(hs, 0), at(hs, 1), at(cs, 0), at(cs, 1), at(dos, 0), at(dos, 1),
-            w.data_ptr(), wT.data_ptr(), b.data_ptr(), dhf.data_ptr(),
+            at(hs, 0), at(hs, 1), at(hr, 0), at(hr, 1), at(cs, 0), at(cs, 1),
+            at(dos, 0), at(dos, 1),
+            w.data_ptr(), b.data_ptr(), dhf.data_ptr(),
             at(dxps, 0), at(dxps, 1), at(dhps, 0), at(dhps, 1),
-            ptr(ws_w), ptr(ws_b), ptr(dw), ptr(db), stream,
+            ptr(hp_ws), ptr(ws_w), ptr(ws_b), ptr(dw), ptr(db), stream,
         )
     if err:
         raise RuntimeError(f"rnn_bwd kernel launch failed: {lib.rnn_bwd_error_string(err).decode()}")
@@ -501,8 +588,7 @@ def _hoisted_weight_grad(out: torch.Tensor, dhp: torch.Tensor, direction: int, c
     direction's processing order; masked steps have zero dhp."""
     cdt = torch_dtype(cdt)
     H = out.shape[-1]
-    zero = torch.zeros_like(out[:1])
-    h_prev = torch.cat([zero, out[:-1]]) if direction == 0 else torch.cat([out[1:], zero])
+    h_prev = _prev(out, direction)
     dhp2 = dhp.reshape(-1, dhp.shape[-1])
     dw = matmul_f32(h_prev.reshape(-1, H).T, dhp2, cdt)
     db = dhp2.float().sum(dim=0)
