@@ -28,6 +28,9 @@
    envelope, a finite loss at every step, exactly 4 backward launches per
    step, a bit-exact checkpoint round trip on the card, and that the
    exported directory serves. Prints the steady steps/s and examples/s.
+   Then the same configuration at HIDDEN_DIM 150, a width off the kernels'
+   multiples: its first step against the CPU and an export of a small
+   corpus searched on the card, all through the recurrent kernels.
 
 7. Trains the transformer tower of config 5 (``configs/transformer_tp.json``:
    6 blocks, H=256, 8 heads of width 32, FFN 1024, dropout 0.1, the in_batch
@@ -37,9 +40,13 @@
    backward launches per step and the checkpoint, and serves its export
    over HTTP (6 attention forward and 1 segmax launches per dense search).
 
-Step 3 covers the backward kernel too (``csrc/rnn_bwd.cu``, both modes,
-each timed at the training shapes beside cuDNN's GRU backward, with the
-layout it launches logged and two calls held bit-identical) and the
+Step 3 holds the forward kernel at four shapes (the query encode, the
+export, the training query and doc towers), each timed beside cuDNN's GRU,
+its layout logged and two calls held bit-identical. Step 3 covers the
+backward kernel too (``csrc/rnn_bwd.cu``, both modes, each timed at the
+training shapes beside cuDNN's GRU backward, and at H=1024, where it keeps
+one dhp row block, with the layout it launches logged and two calls held
+bit-identical) and the
 int8 and running top-k kernels (``csrc/segmax_s8.cu``, the per-row int8
 path of ``csrc/segmax.cu``, ``csrc/topk_stream.cu``) over 1,048,576 rows,
 each driven once through its public function with the counts at 0, and the
@@ -142,6 +149,13 @@ STEP_GRAD_REL = 2e-2
 # in-memory triplets cut from the export corpus.
 TRAIN_TRIPLETS, VAL_TRIPLETS, TEST_TRIPLETS = 2112, 320, 48
 TRAIN_DIR = ROOT / "_smoke_train"  # word table, checkpoints, artifacts; listed in .gitignore
+# A GRU model at a width off the kernels' multiples (the model pads each
+# layer once to 152, and the index pads its columns): the reference
+# configuration with HIDDEN_DIM 150, its first step and an export of the
+# documents of ODD_TRIPLETS training triplets served on the card.
+ODD_H = 150
+ODD_TRIPLETS = 1000
+WIDE_H = 1024  # a wide GRU layer: the backward keeps one dhp row block
 
 # Fused attention, kernel against plain version on the same inputs, as a
 # share of the plain result's largest magnitude. A CPU run of the plain
@@ -242,7 +256,7 @@ def phase_build() -> None:
 _GATES = {"GRU": 3, "LSTM": 4, "RNN": 1}
 
 
-def _rnn_inputs(cell, B, T, seed, dev):
+def _rnn_inputs(cell, B, T, seed, dev, H=H):
     """Per-direction xp (bf16, as the kernel reads it), ragged lengths with
     0, 1 and T among them, W_hh and b_hh at torch.nn.GRU's init scale."""
     G = _GATES[cell]
@@ -269,6 +283,9 @@ def check_rnn(cell: str, B: int, T: int, seed: int, dev, timed: bool) -> dict:
     kw = dict(compute_dtype="bfloat16", history_in_cdt=True)
     outs, c_hist, fin = rnn_layer_fwd(cell, *args, **kw)
     r_outs, r_c, r_fin = rnn_layer_fwd_reference(cell, *args, **kw)
+    # no atomics, a fixed summation order: a second call gives the same bits
+    a_outs, a_c, a_fin = rnn_layer_fwd(cell, *args, **kw)
+    bitwise = all(torch.equal(x, y) for x, y in zip((*outs, *c_hist, fin), (*a_outs, *a_c, a_fin)))
     torch.cuda.synchronize()
     err_final = (fin - r_fin).abs().max().item()
     err_hist = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs, r_outs))
@@ -286,8 +303,11 @@ def check_rnn(cell: str, B: int, T: int, seed: int, dev, timed: bool) -> dict:
     check(err_final <= RNN_FINAL_ATOL, f"rnn_fwd {shape}: h_final off by {err_final}")
     check(err_hist <= RNN_HIST_ATOL, f"rnn_fwd {shape}: history off by {err_hist}")
     check(c_ok, f"rnn_fwd {shape}: LSTM cell history off")
-    rec = {"shape": shape, "max_abs_err": max(err_final, err_hist)}
+    check(bitwise, f"rnn_fwd {shape}: two calls differ")
+    log(f"rnn_fwd {shape}: two calls bit-identical in the history and h_final")
+    rec = {"shape": shape, "max_abs_err": max(err_final, err_hist), "bitwise_repeatable": bitwise}
     if timed:
+        rec["design"] = _fwd_design(cell, B, T)
         rec["ms"] = time_ms(lambda: rnn_layer_fwd(cell, *args, **kw))
         rec["plain_ms"] = time_ms(lambda: rnn_layer_fwd_reference(cell, *args, **kw),
                                   reps=5, warmup=1)
@@ -300,10 +320,27 @@ def check_rnn(cell: str, B: int, T: int, seed: int, dev, timed: bool) -> dict:
         rec["library_ms"] = time_ms(lambda: gru(x))
         nbytes, flops = rnn_fwd_bound(T, B, H, 2, _GATES[cell], 2, 2)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
-        log(f"rnn_fwd {shape}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-            f"cuDNN GRU {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
-            f"({rec['bound_by']})")
+        rec["step_us"] = rec["ms"] / T * 1e3
+        log(f"rnn_fwd {shape}: kernel {rec['ms']:.4f} ms ({rec['step_us']:.2f} us a step), "
+            f"plain {rec['plain_ms']:.4f} ms, cuDNN GRU {rec['library_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.6f} ms ({rec['bound_by']})")
     return rec
+
+
+def _fwd_design(cell: str, B: int, T: int) -> dict:
+    """The layout the forward kernel launches at this shape (bf16 compute
+    and history, both directions), logged with the number of co-resident
+    clusters the plan assumed when it chose its rows."""
+    from twotowermlretrieval_tpu_torch.ops.rnn_scan import _CLUSTER_SLOTS, fwd_plan
+
+    plan = fwd_plan(cell, T, B, H, 2, "bfloat16", torch.bfloat16)
+    w = ("resident" if plan["resident"]
+         else f"streamed in chunks of {plan['kc']} rows every step")
+    log(f"rnn_fwd design, {cell} B={B} T={T}: clusters of {plan['nc']} CTAs x {plan['hc']} "
+        f"hidden columns, {plan['rows']} batch rows a cluster, {plan['clusters']} clusters a "
+        f"direction ({2 * plan['clusters']} in all; the plan takes the card to hold "
+        f"{_CLUSTER_SLOTS} at once), W columns {w}, {plan['smem']} bytes of shared memory a CTA")
+    return plan
 
 
 def _unit_rows(gen, n, dev, chunk=1 << 18):
@@ -438,6 +475,7 @@ def zero_counts() -> None:
 
 
 def read_counts() -> dict:
+    """Every kernel's launch count."""
     return {name: fn.launches for name, (fn, _, _) in kernel_table().items()}
 
 
@@ -658,12 +696,12 @@ def phase_int8_kernels(dev) -> dict:
     return out
 
 
-def _bwd_inputs(cell, B, T, seed, dev):
+def _bwd_inputs(cell, B, T, seed, dev, H=H):
     """The forward's inputs, its bf16 history (from the forward kernel) and
     random cotangents: bf16 for the history, f32 for h_final."""
     from twotowermlretrieval_tpu_torch.ops.rnn_scan import rnn_layer_fwd
 
-    xps, mask, w_hh, b_hh = _rnn_inputs(cell, B, T, seed, dev)
+    xps, mask, w_hh, b_hh = _rnn_inputs(cell, B, T, seed, dev, H)
     with torch.no_grad():
         outs, c_hist, _ = rnn_layer_fwd(cell, xps, mask, w_hh, b_hh, "bfloat16", True)
     gen = torch.Generator(device=dev).manual_seed(seed + 100)
@@ -677,7 +715,7 @@ def _rel(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def _cudnn_gru_backward_ms(B, T, dev) -> float:
+def _cudnn_gru_backward_ms(B, T, dev, H=H) -> float:
     """cuDNN's backward of one bidirectional GRU layer (input width 2H,
     fp16): forward+backward minus forward, each timed alone."""
     gru = torch.nn.GRU(2 * H, H, num_layers=1, bidirectional=True).to(dev, torch.float16)
@@ -689,7 +727,7 @@ def _cudnn_gru_backward_ms(B, T, dev) -> float:
     return both - fwd
 
 
-def _bwd_design(cell: str, B: int, T: int) -> dict:
+def _bwd_design(cell: str, B: int, T: int, H=H) -> dict:
     """The layout the backward kernel launches at this shape (bf16 compute
     and history, both directions), logged."""
     from twotowermlretrieval_tpu_torch.ops.rnn_scan import bwd_plan
@@ -699,19 +737,20 @@ def _bwd_design(cell: str, B: int, T: int) -> dict:
          else f"streamed in chunks of {plan['kc']} columns every step")
     log(f"rnn_bwd design, {cell} B={B} T={T}: clusters of {plan['nc']} CTAs x {plan['hc']} "
         f"hidden columns, {plan['rows']} batch rows a cluster, {plan['clusters']} clusters a "
-        f"direction, W rows {w}, {plan['stages']} staging buffers, {plan['smem']} bytes of "
-        f"shared memory a CTA; weight gradient in {plan['nsplit']} slices of T*B")
+        f"direction, W rows {w}, {plan['stages']} staging buffers, {plan['blocks']} dhp row "
+        f"block(s), {plan['smem']} bytes of shared memory a CTA; weight gradient in "
+        f"{plan['nsplit']} slices of T*B")
     return plan
 
 
-def check_rnn_bwd(cell: str, B: int, T: int, seed: int, dev, timed: bool) -> dict:
+def check_rnn_bwd(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H) -> dict:
     from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
         rnn_bwd_bound,
         rnn_layer_bwd,
         rnn_layer_bwd_reference,
     )
 
-    args = _bwd_inputs(cell, B, T, seed, dev)
+    args = _bwd_inputs(cell, B, T, seed, dev, H)
     kw = dict(compute_dtype="bfloat16")
     dxps, dw, db = rnn_layer_bwd(cell, *args, **kw)
     r_dxps, r_dw, r_db = rnn_layer_bwd_reference(cell, *args, **kw)
@@ -737,16 +776,18 @@ def check_rnn_bwd(cell: str, B: int, T: int, seed: int, dev, timed: bool) -> dic
     rec = {"shape": shape, "max_abs_err": max_abs, "dxp_err_of_scale": dxp_err / dxp_scale,
            "dw_rel": w_rel, "db_rel": b_rel, "bitwise_repeatable": bitwise}
     if timed:
-        rec["design"] = _bwd_design(cell, B, T)
+        rec["design"] = _bwd_design(cell, B, T, H)
         rec["ms"] = time_ms(lambda: rnn_layer_bwd(cell, *args, **kw))
         rec["plain_ms"] = time_ms(lambda: rnn_layer_bwd_reference(cell, *args, **kw),
                                   reps=3, warmup=1)
-        rec["library_ms"] = _cudnn_gru_backward_ms(B, T, dev)
+        rec["library_ms"] = _cudnn_gru_backward_ms(B, T, dev, H)
         nbytes, flops = rnn_bwd_bound(T, B, H, 2, _GATES[cell], 2, 2)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
-        log(f"rnn_bwd {shape}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-            f"cuDNN GRU backward (fwd+bwd - fwd, fp16) {rec['library_ms']:.4f} ms, "
-            f"bound {rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+        rec["step_us"] = rec["ms"] / T * 1e3
+        log(f"rnn_bwd {shape}: kernel {rec['ms']:.4f} ms ({rec['step_us']:.2f} us a step, the "
+            f"two products included), plain {rec['plain_ms']:.4f} ms, cuDNN GRU backward "
+            f"(fwd+bwd - fwd, fp16) {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
+            f"({rec['bound_by']})")
     return rec
 
 
@@ -803,6 +844,8 @@ def phase_bwd_kernels(dev) -> list:
         check_rnn_bwd("RNN", SERVE_ROWS, QUERY_LEN, 14, dev, timed=False),
         check_rnn_bwd_split(TRAIN_ROWS, QUERY_LEN, 15, dev),  # query tower, split mode
         check_rnn_bwd_split(2 * TRAIN_ROWS, DOC_LEN, 16, dev),  # doc tower, split mode
+        # the width the JAX package's split plan keeps on its kernel: one dhp row block
+        check_rnn_bwd("GRU", TRAIN_ROWS, QUERY_LEN, 17, dev, timed=True, H=WIDE_H),
     ]
 
 
@@ -1344,7 +1387,100 @@ def phase_train(dev, corpus) -> dict:
     return {"steps": steps, "launches": launches, "train_s": train_s, "first_step": first,
             "steady_steps_per_sec": res["steady_steps_per_sec"],
             "steady_examples_per_sec": res["steady_examples_per_sec"],
-            "loss_first_last": [losses[0], losses[-1]]}
+            "loss_first_last": [losses[0], losses[-1]]}, (cfg, tok, table, datasets)
+
+
+def phase_odd_width(dev, setup) -> dict:
+    """The reference model at HIDDEN_DIM = ODD_H: the first train step on
+    the card against the CPU (4 forward and 4 backward launches), then an
+    export of a small corpus and dense searches on the card against the
+    CPU engine."""
+    from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec, init_two_tower
+    from twotowermlretrieval_tpu_torch.serve.engine import SearchEngine
+    from twotowermlretrieval_tpu_torch.train.artifacts import save_inference_artifacts
+
+    cfg, tok, table, datasets = setup
+    cfg = cfg.replace(hidden_dim=ODD_H)
+    what = f"odd width H={ODD_H}"
+    params = init_two_tower(torch.Generator().manual_seed(cfg.seed),
+                            TwoTowerSpec.from_config(cfg), pretrained_embeddings=table)
+    zero_counts()
+    first = _first_step_card_vs_cpu(dev, cfg, params, _first_batch(cfg, tok, datasets["train"]),
+                                    STEP_LOSS_ATOL, STEP_GRAD_REL, what)
+    step = read_counts()
+    check(step["rnn_fwd"] == 4 and step["rnn_bwd"] == 4,
+          f"{what}: the first step launched {step}, expected 4 rnn_fwd and 4 rnn_bwd")
+
+    out_dir = TRAIN_DIR / "odd_width"
+    zero_counts()
+    save_inference_artifacts(out_dir, params, cfg, tok, {"train": datasets["train"][:ODD_TRIPLETS]},
+                             device=dev)
+    export = read_counts()
+    docs = np.load(out_dir / "document_embeddings.npy")
+    batches = -(-docs.shape[0] // EXPORT_ROWS)
+    check(docs.shape[1] == ODD_H and bool(np.isfinite(docs).all()), f"{what}: embeddings")
+    check(export["rnn_fwd"] == 2 * batches, f"{what}: the export launched {export}")
+
+    requests = _requests(datasets["train"])
+    dense = [r for r in requests if r["alpha"] != 0.0]
+    engine = SearchEngine(out_dir, device=dev)
+    cpu = SearchEngine(out_dir, device="cpu")
+    try:
+        zero_counts()
+        got = [engine.search(r["query"], alpha=r["alpha"])["results"] for r in dense]
+        served = read_counts()
+    finally:
+        engine.close()
+    check(served["rnn_fwd"] == 2 * len(dense) and served["segmax"] == len(dense),
+          f"{what}: {len(dense)} dense searches launched {served}")
+    for r, results in zip(dense, got):
+        want = cpu.search(r["query"], alpha=r["alpha"])["results"]
+        check(0 < len(results) <= 10 and _same_results(results, want, EMBED_ATOL),
+              f"{what}: /search {r['query'][:40]!r} differs from the CPU engine's")
+    log(f"{what}: first step card-vs-CPU {json.dumps(first)}, launches {step}; export of "
+        f"{docs.shape[0]} passages launched {export['rnn_fwd']} rnn_fwd; {len(dense)} dense "
+        f"searches match the CPU engine, launches {served}")
+    return {"first_step": first, "launches": served, "step_launches": step,
+            "export_launches": export, "padding": _odd_width_padding_cost(dev)}
+
+
+def _odd_width_padding_cost(dev) -> dict:
+    """What the zero padding costs at ODD_H at the training doc tower's
+    shape (GRU D=2 B=128 T=128, bf16): the model pads a layer's weights
+    (``pad_layer``, ``pad_units``: W_hh, b_hh and the second layer's W_ih
+    and b_ih per direction), so its input projection yields the padded xp
+    and no activation is copied; and the forward call at the kernel width
+    on that xp."""
+    from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
+        kernel_width,
+        pad_layer,
+        pad_units,
+        rnn_layer_fwd,
+    )
+
+    B, T, G = 2 * TRAIN_ROWS, DOC_LEN, _GATES["GRU"]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    Hk = kernel_width(ODD_H)
+    w_ih = [torch.randn((2 * ODD_H, G * ODD_H), generator=gen, device=dev) for _ in range(2)]
+    b_ih = [torch.zeros(G * ODD_H, device=dev) for _ in range(2)]
+    w_hh = torch.randn((2, ODD_H, G * ODD_H), generator=gen, device=dev) / math.sqrt(ODD_H)
+    b_hh = torch.zeros((2, G * ODD_H), device=dev)
+
+    def pad():
+        return (pad_layer("GRU", Hk, w_hh, b_hh),
+                [pad_units(x, G, ODD_H, Hk) for x in (*w_ih, *b_ih)])
+
+    (w, b, _), _ = pad()
+    xps = [torch.randn((T, B, G * Hk), generator=gen, device=dev) * 0.5 for _ in range(2)]
+    mask = torch.ones((T, B), device=dev)
+    rec = {
+        "shape": f"GRU D=2 B={B} T={T} H={ODD_H} bf16 (kernel width {Hk})",
+        "call_ms": time_ms(lambda: rnn_layer_fwd("GRU", xps, mask, w, b, "bfloat16", True)),
+        "pad_ms": time_ms(pad),
+    }
+    log(f"odd width: {rec['shape']}: forward call at the kernel width {rec['call_ms']:.4f} ms; "
+        f"padding the layer's weights {rec['pad_ms']:.4f} ms (no activation is padded)")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1514,7 +1650,9 @@ def main() -> int:
         export, corpus = phase_export(dev)
         served = phase_serve(dev, corpus[2])
         served_int8 = phase_serve_int8(dev, corpus[2])
-        trained = phase_train(dev, corpus)
+        trained, setup = phase_train(dev, corpus)
+        odd = phase_odd_width(dev, setup)
+        del setup
         tf = phase_transformer(dev, corpus)
     finally:
         shutil.rmtree(ARTIFACTS, ignore_errors=True)
@@ -1529,6 +1667,7 @@ def main() -> int:
     # (fused_topk_segmax_int8, fused_topk, fused_topk_int8)
     phases = {"export": export["launches"], "serve": served["launches"],
               "serve_int8": served_int8["launches"], "train": trained["launches"],
+              "odd_width_serve": odd["launches"],
               "transformer_train": tf["launches"], "transformer_serve": tf["serve"]["launches"]}
     main_launches = {"rnn_fwd": served["launches"]["rnn_fwd"],
                      "segmax": served["launches"]["segmax"],

@@ -27,6 +27,7 @@ from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
     _bwd_reference,
     _hoisted_weight_grad,
     bwd_plan,
+    fwd_plan,
     rnn_layer_bwd,
     rnn_layer_bwd_reference,
     rnn_layer_bwd_split,
@@ -127,6 +128,80 @@ def test_rnn_kernel_matches_plain_version_bf16(dev, cell, history_in_cdt):
         torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=1e-2)
     for a, b in zip(c_hist, r_c):
         torch.testing.assert_close(a.float(), b.float(), rtol=2 ** -6, atol=1e-2)
+
+
+def _check_fwd(got, want, cdt):
+    """Kernel against plain version at the tolerances above: 1e-4 at f32;
+    at bf16 2e-3 on h_final, 1e-2 on the history and relative 2^-6 on the
+    LSTM cell history."""
+    (outs, c_hist, fin), (r_outs, r_c, r_fin) = got, want
+    tf, th = (1e-4, 1e-4) if cdt == "float32" else (2e-3, 1e-2)
+    torch.testing.assert_close(fin, r_fin, rtol=0, atol=tf)
+    for a, b in zip(outs, r_outs):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=th)
+    for a, b in zip(c_hist, r_c):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0 if cdt == "float32" else 2 ** -6,
+                                   atol=th)
+
+
+# the widest forward layer of each cell and compute dtype (ops/rnn_scan.py)
+_FWD_WIDEST = {("GRU", "bfloat16"): 2048, ("GRU", "float32"): 2016,
+               ("LSTM", "bfloat16"): 2048, ("LSTM", "float32"): 1760,
+               ("RNN", "bfloat16"): 2048, ("RNN", "float32"): 2048}
+
+
+@pytest.mark.parametrize("cdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("H", [30, 50, 150, 1024])
+def test_rnn_fwd_every_width(dev, H, cdt):
+    """Widths off the kernel's multiple of 8 (zero-padded by the wrapper)
+    and a wide layer whose W columns stream through shared memory: the
+    kernel is launched and holds the plain version."""
+    args = _rnn_case(dev, "GRU", 2, 12, 37, H, seed=H)
+    hist = cdt == "bfloat16"
+    before = rnn_layer_fwd.launches
+    got = rnn_layer_fwd("GRU", *args, compute_dtype=cdt, history_in_cdt=hist)
+    assert rnn_layer_fwd.launches == before + 1
+    assert got[0][0].shape == (12, 37, H) and got[2].shape == (2, 37, H)
+    _check_fwd(got, rnn_layer_fwd_reference("GRU", *args, compute_dtype=cdt,
+                                            history_in_cdt=hist), cdt)
+
+
+@pytest.mark.parametrize("cell,cdt", list(_FWD_WIDEST), ids=[f"{c}-{d}" for c, d in _FWD_WIDEST])
+def test_rnn_fwd_widest_widths(dev, cell, cdt):
+    """The widest planned layer of each cell runs on the kernel."""
+    H = _FWD_WIDEST[cell, cdt]
+    assert fwd_plan(cell, 3, 5, H, 1, cdt) is not None
+    args = _rnn_case(dev, cell, 1, 3, 5, H, seed=H)
+    before = rnn_layer_fwd.launches
+    got = rnn_layer_fwd(cell, *args, compute_dtype=cdt)
+    assert rnn_layer_fwd.launches == before + 1
+    _check_fwd(got, rnn_layer_fwd_reference(cell, *args, compute_dtype=cdt), cdt)
+
+
+@pytest.mark.parametrize("cdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM", "RNN"])
+def test_rnn_fwd_is_bitwise_repeatable(dev, cell, cdt):
+    """No atomics and a fixed summation order: two calls give the same
+    bits, at the training doc tower's batch (4 clusters a direction)."""
+    args = _rnn_case(dev, cell, 2, 12, 128, 256, seed=11)
+    a, b = (rnn_layer_fwd(cell, *args, compute_dtype=cdt, history_in_cdt=cdt == "bfloat16")
+            for _ in range(2))
+    for x, y in zip((*a[0], *a[1], a[2]), (*b[0], *b[1], b[2])):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("cell,cdt", list(_FWD_WIDEST), ids=[f"{c}-{d}" for c, d in _FWD_WIDEST])
+def test_rnn_fwd_beyond_its_widths_raises(dev, cell, cdt):
+    """One width past the widest layout: a ValueError naming the limit,
+    before any launch (the wrapper never runs the plain loop on the
+    card)."""
+    top = _FWD_WIDEST[cell, cdt]
+    assert fwd_plan(cell, 2, 3, top + 1, 1, cdt) is None
+    args = _rnn_case(dev, cell, 1, 2, 3, top + 1, seed=1)
+    before = rnn_layer_fwd.launches
+    with pytest.raises(ValueError, match=f"shared memory.*up to {top}"):
+        rnn_layer_fwd(cell, *args, compute_dtype=cdt)
+    assert rnn_layer_fwd.launches == before
 
 
 def test_rnn_wrapper_rejects_bad_shapes(dev):
@@ -256,17 +331,19 @@ def test_rnn_bwd_ragged_batches_and_one_step(dev, B, T, cell, cdt):
                rnn_layer_bwd_reference(cell, *args, compute_dtype=cdt), cdt)
 
 
-# the widest width the previous backward took, and the widest the planner
-# takes now (f32 history), per cell and compute dtype
-_WIDEST = {("GRU", "bfloat16"): (700, 816), ("GRU", "float32"): (700, 916),
-           ("LSTM", "bfloat16"): (500, 608), ("LSTM", "float32"): (500, 700),
-           ("RNN", "bfloat16"): (1184, 2048), ("RNN", "float32"): (1184, 2048)}
+# the widest width the previous backward took (with two dhp row blocks),
+# and the widest the planner takes now (one row block; f32 history), per
+# cell and compute dtype
+_WIDEST = {("GRU", "bfloat16"): (816, 1216), ("GRU", "float32"): (916, 1488),
+           ("LSTM", "bfloat16"): (608, 928), ("LSTM", "float32"): (700, 1148),
+           ("RNN", "bfloat16"): (2048, 2048), ("RNN", "float32"): (2048, 2048)}
 
 
 @pytest.mark.parametrize("which", [0, 1], ids=["previous", "new"])
 @pytest.mark.parametrize("cell,cdt", list(_WIDEST), ids=[f"{c}-{d}" for c, d in _WIDEST])
 def test_rnn_bwd_widest_widths(dev, cell, cdt, which):
-    """The widest layers stream their rows of W through shared memory."""
+    """The widest layers stream their rows of W through shared memory,
+    the widest of all with one dhp row block."""
     H = _WIDEST[cell, cdt][which]
     assert bwd_plan(cell, 4, 3, H, 1, cdt, torch.float32) is not None
     assert which == 0 or bwd_plan(cell, 4, 3, H + 4, 1, cdt, torch.float32) is None
@@ -300,6 +377,97 @@ def test_rnn_bwd_lone_direction_1(dev, cell, cdt):
     assert torch.equal(both[1], dxp)
 
 
+@pytest.mark.parametrize("cdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("cell", ["GRU", "LSTM", "RNN"])
+@pytest.mark.parametrize("H", [30, 150])
+def test_rnn_bwd_every_width(dev, H, cell, cdt):
+    """Widths off the kernel's multiple of 4, zero-padded by the wrapper:
+    the kernel is launched, in both modes, and holds the plain version."""
+    args = _bwd_case(dev, cell, 2, 12, 37, H, seed=H, cdt=cdt, history_in_cdt=cdt == "bfloat16")
+    before = rnn_layer_bwd.launches
+    got = rnn_layer_bwd(cell, *args, compute_dtype=cdt)
+    assert rnn_layer_bwd.launches == before + 1
+    assert got[0][0].shape == (12, 37, _GATES[cell] * H) and got[1].shape == (2, H, _GATES[cell] * H)
+    _check_bwd(got, rnn_layer_bwd_reference(cell, *args, compute_dtype=cdt), cdt)
+    dxps, dhps = _bwd_hoisted_call(cell, *args, compute_dtype=cdt)
+    r_dxps, r_dhps, _, _ = _bwd_reference(cell, *args, cdt, split=True)
+    for a, b in zip(dxps + dhps, r_dxps + r_dhps):
+        assert a.shape == b.shape
+        assert (a.float() - b.float()).abs().max().item() <= 2 ** -7 * b.float().abs().max().item()
+
+
+@pytest.mark.parametrize("cdt", ["bfloat16", "float32"])
+def test_rnn_bwd_one_row_block(dev, cdt):
+    """GRU at H=1024, the width the JAX package's split plan keeps on its
+    kernel: past two dhp row blocks, so one block and a second cluster
+    barrier a step. Both modes hold the plain version, and two calls give
+    the same bits."""
+    assert bwd_plan("GRU", 6, 20, 1024, 2, cdt, torch.float32)["blocks"] == 1
+    args = _bwd_case(dev, "GRU", 2, 6, 20, 1024, seed=4, cdt=cdt)
+    before = rnn_layer_bwd.launches
+    a, b = (rnn_layer_bwd("GRU", *args, compute_dtype=cdt) for _ in range(2))
+    assert rnn_layer_bwd.launches == before + 2
+    _check_bwd(a, rnn_layer_bwd_reference("GRU", *args, compute_dtype=cdt), cdt)
+    for x, y in zip((*a[0], a[1], a[2]), (*b[0], b[1], b[2])):
+        assert torch.equal(x, y)
+    dxps, dhps = _bwd_hoisted_call("GRU", *args, compute_dtype=cdt)
+    r_dxps, r_dhps, _, _ = _bwd_reference("GRU", *args, cdt, split=True)
+    for x, y in zip(dxps + dhps, r_dxps + r_dhps):
+        assert (x.float() - y.float()).abs().max().item() <= 2 ** -7 * y.float().abs().max().item()
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+@pytest.mark.parametrize("cdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("H", [30, 50, 150, 1024])
+def test_gru_tower_every_width_on_the_kernels(dev, H, cdt):
+    """A two-layer bidirectional GRU tower at widths off the kernels'
+    multiple and at H=1024: each layer, padded once to kernel_width(H),
+    launches the forward and the backward kernel once, and the encoding
+    and every parameter's gradient agree with the same tower on the CPU
+    (f32: atol 1e-4 and relative 1e-3; bf16: atol 2e-2 and relative 2e-2,
+    chip_smoke.py's card-against-CPU tolerances)."""
+    from twotowermlretrieval_tpu_torch.models.rnn import RNNSpec, init_rnn_encoder, rnn_encode
+
+    spec = RNNSpec(vocab_size=50, embed_dim=32, hidden_dim=H, num_layers=2, bidirectional=True,
+                   compute_dtype=cdt)
+    params = init_rnn_encoder(torch.Generator().manual_seed(H), spec)
+    rng = np.random.default_rng(H)
+    tokens = torch.from_numpy(rng.integers(0, 50, (20, 9)))
+    lengths = torch.from_numpy(np.r_[0, 1, 9, rng.integers(1, 10, 17)])
+    weights = torch.from_numpy(rng.standard_normal((20, H)).astype(np.float32))
+
+    def run(device):
+        p = _tree_map(lambda x: x.to(device).requires_grad_(True), params)
+        out = rnn_encode(p, tokens.to(device), lengths.to(device), spec)
+        (out * weights.to(device)).sum().backward()
+        return out.detach().cpu(), [x.grad.cpu() for x in _tree_leaves(p)]
+
+    fwd0, bwd0 = rnn_layer_fwd.launches, rnn_layer_bwd.launches
+    got, got_g = run(dev)
+    assert (rnn_layer_fwd.launches - fwd0, rnn_layer_bwd.launches - bwd0) == (2, 2)
+    want, want_g = run("cpu")
+    atol, rel = (1e-4, 1e-3) if cdt == "float32" else (2e-2, 2e-2)
+    assert got.shape == (20, H)
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    for g, w in zip(got_g, want_g):
+        assert _rel(g, w) <= rel
+
+
 def test_rnn_bwd_wrapper_rejects_what_the_kernel_does_not_take(dev):
     args = list(_bwd_case(dev, "LSTM", 2, 4, 4, 32, seed=0))
     with pytest.raises(ValueError):
@@ -307,12 +475,38 @@ def test_rnn_bwd_wrapper_rejects_what_the_kernel_does_not_take(dev):
     args[7] = args[7].cpu()
     with pytest.raises(ValueError):
         rnn_layer_bwd("LSTM", *args)
-    # one width step beyond the widest LSTM layout of either compute dtype
-    wide = _rnn_case(dev, "LSTM", 1, 2, 3, 704, seed=0)
+    # one width step beyond the widest LSTM layout of either compute dtype:
+    # refused before any launch, naming the limit
+    wide = _rnn_case(dev, "LSTM", 1, 2, 3, 1152, seed=0)
     outs, c_hist, _ = rnn_layer_fwd_reference("LSTM", *wide, "float32")
-    with pytest.raises(ValueError, match="shared memory"):
+    before = rnn_layer_bwd.launches
+    with pytest.raises(ValueError, match="shared memory.*up to 928"):
         rnn_layer_bwd("LSTM", *wide, outs, c_hist, [torch.zeros_like(outs[0])],
-                      torch.zeros((1, 3, 704), device=dev))
+                      torch.zeros((1, 3, 1152), device=dev))
+    assert rnn_layer_bwd.launches == before
+
+
+@pytest.mark.parametrize("storage", ["bfloat16", "int8"])
+def test_index_at_an_odd_width(dev, storage):
+    """A card index over H=150 embeddings (the scans read 16-byte rows, so
+    the index zero-pads its columns and the queries): the kernel path
+    equals the two-phase path."""
+    from twotowermlretrieval_tpu_torch.serve.index import RetrievalIndex
+
+    rng = np.random.default_rng(0)
+    docs = rng.standard_normal((9000, 150)).astype(np.float32)
+    docs /= np.linalg.norm(docs, axis=1, keepdims=True)
+    q = docs[:5] + 0.1 * rng.standard_normal((5, 150)).astype(np.float32)
+    before = segmax.launches + segmax_s8.launches
+    vals, ids = RetrievalIndex(docs, device=dev, storage_dtype=storage).search(q, 50)
+    assert segmax.launches + segmax_s8.launches == before + 1
+    r_vals, r_ids = RetrievalIndex(docs, device=dev, storage_dtype=storage,
+                                   use_kernel=False).search(q, 50)
+    assert (ids[:, 0] == np.arange(5)).all()
+    if storage == "int8":
+        assert np.array_equal(ids, r_ids) and np.array_equal(vals, r_vals)
+    else:
+        np.testing.assert_allclose(vals, r_vals, rtol=0, atol=3e-5)
 
 
 def _unit_rows(gen, n, h, dev):

@@ -39,8 +39,9 @@ from twotowermlretrieval_tpu_torch.utils.pytree import (
 V, E, H, T = 60, 16, 32, 10
 
 
-def _specs(rnn_type="GRU", num_layers=2, bidirectional=True, compute_dtype="float32"):
-    kw = dict(vocab_size=V, embed_dim=E, hidden_dim=H, rnn_type=rnn_type,
+def _specs(rnn_type="GRU", num_layers=2, bidirectional=True, compute_dtype="float32",
+           hidden_dim=H):
+    kw = dict(vocab_size=V, embed_dim=E, hidden_dim=hidden_dim, rnn_type=rnn_type,
               num_layers=num_layers, bidirectional=bidirectional,
               compute_dtype=compute_dtype)
     return JaxTwoTowerSpec(rnn=JaxRNNSpec(**kw)), TwoTowerSpec(rnn=RNNSpec(**kw))
@@ -71,11 +72,19 @@ def _encode_both(jspec, pspec, jparams, tokens, lengths):
 
 
 @pytest.mark.parametrize(
-    "rnn_type,num_layers,bidirectional",
-    [("GRU", 2, True), ("GRU", 1, False), ("LSTM", 1, True), ("RNN", 2, True)],
+    "rnn_type,num_layers,bidirectional,hidden_dim",
+    [
+        pytest.param("GRU", 2, True, H, id="GRU-2-True"),
+        pytest.param("GRU", 1, False, H, id="GRU-1-False"),
+        pytest.param("LSTM", 1, True, H, id="LSTM-1-True"),
+        pytest.param("RNN", 2, True, H, id="RNN-2-True"),
+        # an odd width: JAX takes its XLA scan (no Pallas plan for H % 128),
+        # the port's kernels zero-pad it (on the CPU: the plain versions)
+        pytest.param("GRU", 2, True, 50, id="GRU-2-True-H50"),
+    ],
 )
-def test_encoders_match_jax_f32(rnn_type, num_layers, bidirectional):
-    jspec, pspec = _specs(rnn_type, num_layers, bidirectional)
+def test_encoders_match_jax_f32(rnn_type, num_layers, bidirectional, hidden_dim):
+    jspec, pspec = _specs(rnn_type, num_layers, bidirectional, hidden_dim=hidden_dim)
     tokens, lengths = _batch(1)
     for name, (j, p) in _encode_both(jspec, pspec, _jax_params(jspec), tokens, lengths).items():
         np.testing.assert_allclose(p, j, rtol=0, atol=1e-5, err_msg=name)

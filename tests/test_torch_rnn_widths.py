@@ -1,0 +1,174 @@
+"""Every width on the recurrent kernels: their plans and the zero padding.
+
+The forward kernel runs H rounded up to 8 and the backward H rounded up to
+4; the model pads each layer once to ``kernel_width`` (H rounded up to 8)
+with ``pad_layer``, and so do the wrappers for a call at another width.
+A padded unit with zero xp, weights, bias and state stays zero and feeds
+nothing into the real units, so the padded run of the plain versions
+equals the unpadded one. Tolerance 1e-6: the same f32 arithmetic, the
+products' sums taken over extra zero terms (which may change the
+summation blocking of the CPU's matmul). The plans are pure functions of
+the shape, so this file needs no card; the kernels themselves are held at
+these widths on the card by tests/test_torch_cuda.py and chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
+    _SMEM_LIMIT,
+    _bwd_reference,
+    _bwd_smem_bytes,
+    _fwd_smem_bytes,
+    bwd_plan,
+    fwd_plan,
+    kernel_width,
+    pad_layer,
+    pad_units,
+    rnn_layer_fwd_reference,
+)
+
+_GATES = {"GRU": 3, "LSTM": 4, "RNN": 1}
+_BATCHES = (1, 16, 128, 1024)
+_CASES = [(c, d) for c in ("GRU", "LSTM", "RNN") for d in ("bfloat16", "float32")]
+
+
+def _fwd_layout_ok(cell, H, cdt, plan) -> bool:
+    cb = torch.tensor([], dtype=getattr(torch, cdt)).element_size()
+    Hk, nc, hc, R, kc = plan["H"], plan["nc"], plan["hc"], plan["rows"], plan["kc"]
+    kp = -(-Hk // 32) * 32
+    held = (R // 16) * (hc // 8) <= 32 and R % 16 == 0 if cb == 2 else R * hc <= 2048
+    return (Hk >= H and Hk % 8 == 0 and Hk - H < 8 and 1 <= nc <= 8 and hc % 8 == 0
+            and nc * hc >= Hk > (nc - 1) * hc and held and kc % 32 == 0
+            and plan["resident"] == (kc >= kp)
+            and plan["smem"] == _fwd_smem_bytes(cell, Hk, cb, R, hc, kc) <= _SMEM_LIMIT)
+
+
+@pytest.mark.parametrize("cell,cdt", _CASES, ids=[f"{c}-{d}" for c, d in _CASES])
+def test_fwd_plan_takes_every_width_up_to_1024(cell, cdt):
+    """A layout within shared memory for every H in 1..1024 at every batch
+    size the main path uses, both compute dtypes."""
+    for B in _BATCHES:
+        for H in range(1, 1025):
+            plan = fwd_plan(cell, 32, B, H, 2, cdt)
+            assert plan is not None and _fwd_layout_ok(cell, H, cdt, plan), (cell, cdt, B, H, plan)
+            assert plan["clusters"] * plan["rows"] >= B
+
+
+# the widest forward layer of each cell and compute dtype (module docstring)
+_FWD_WIDEST = {("GRU", "bfloat16"): 2048, ("GRU", "float32"): 2016,
+               ("LSTM", "bfloat16"): 2048, ("LSTM", "float32"): 1760,
+               ("RNN", "bfloat16"): 2048, ("RNN", "float32"): 2048}
+# the widest backward layer at an f32 history (bf16: the bf16 history too)
+_BWD_WIDEST = {("GRU", "bfloat16", "f32"): 1216, ("GRU", "bfloat16", "bf16"): 1280,
+               ("GRU", "float32", "f32"): 1488, ("LSTM", "bfloat16", "f32"): 928,
+               ("LSTM", "bfloat16", "bf16"): 960, ("LSTM", "float32", "f32"): 1148,
+               ("RNN", "bfloat16", "f32"): 2048, ("RNN", "bfloat16", "bf16"): 2048,
+               ("RNN", "float32", "f32"): 2048}
+
+
+@pytest.mark.parametrize("cell,cdt", _CASES, ids=[f"{c}-{d}" for c, d in _CASES])
+def test_fwd_plan_limit_and_beyond(cell, cdt):
+    """The stated widest layer has a plan at every batch size; the next
+    width has none (the wrapper refuses it), whatever the batch."""
+    top = _FWD_WIDEST[cell, cdt]
+    for B in _BATCHES:
+        plan = fwd_plan(cell, 4, B, top, 2, cdt)
+        assert plan is not None and _fwd_layout_ok(cell, top, cdt, plan)
+        assert fwd_plan(cell, 4, B, top + 1, 2, cdt) is None
+
+
+# the widest backward layer that two dhp row blocks leave room for
+_BWD_TWO_BLOCKS = {("GRU", "bfloat16", "f32"): 816, ("GRU", "bfloat16", "bf16"): 832,
+                   ("GRU", "float32", "f32"): 916, ("LSTM", "bfloat16", "f32"): 608,
+                   ("LSTM", "bfloat16", "bf16"): 628, ("LSTM", "float32", "f32"): 700,
+                   ("RNN", "bfloat16", "f32"): 2048, ("RNN", "bfloat16", "bf16"): 2048,
+                   ("RNN", "float32", "f32"): 2048}
+
+
+@pytest.mark.parametrize("cell,cdt,hist", list(_BWD_WIDEST),
+                         ids=[f"{c}-{d}-{h}" for c, d, h in _BWD_WIDEST])
+def test_bwd_plan_with_padding_takes_every_width_up_to_its_limit(cell, cdt, hist):
+    """Every H up to the stated limit, the ragged ones padded to a multiple
+    of 4, has a layout, and the next width has none. The main path's H=256
+    keeps W resident and two dhp row blocks; past the room two blocks leave
+    (816 / 608 / 2048 at bf16, 916 / 700 / 2048 at f32, f32 history) the
+    plan keeps one."""
+    hdt = torch.bfloat16 if hist == "bf16" else torch.float32
+    cb, hb = (2 if cdt == "bfloat16" else 4), hdt.itemsize
+    top = _BWD_WIDEST[cell, cdt, hist]
+    for B in _BATCHES:
+        for H in range(1, top + 1):
+            plan = bwd_plan(cell, 32, B, H, 2, cdt, hdt)
+            assert plan is not None, (cell, cdt, hist, B, H)
+            assert plan["H"] % 4 == 0 and 0 <= plan["H"] - H < 4
+            assert plan["smem"] == _bwd_smem_bytes(cell, plan["H"], cb, hb, plan["rows"],
+                                                   plan["hc"], plan["kc"], plan["stages"],
+                                                   plan["blocks"])
+            assert plan["smem"] <= _SMEM_LIMIT
+            assert plan["blocks"] == 1 or H <= _BWD_TWO_BLOCKS[cell, cdt, hist]
+    main = bwd_plan(cell, 32, 128, 256, 2, cdt, hdt)
+    assert main["resident"] and main["blocks"] == 2
+    assert bwd_plan(cell, 32, 128, top + 1, 2, cdt, hdt) is None
+
+
+def _layer(cell, D, T, B, H, seed):
+    G = _GATES[cell]
+    rng = np.random.default_rng(seed)
+    xps = [torch.from_numpy(rng.normal(size=(T, B, G * H)).astype(np.float32)) for _ in range(D)]
+    lengths = np.r_[T, 0, 1, rng.integers(1, T + 1, B - 3)]
+    mask = torch.from_numpy((np.arange(T)[:, None] < lengths[None, :]).astype(np.float32))
+    w_hh = torch.from_numpy((rng.normal(size=(D, H, G * H)) * 0.1).astype(np.float32))
+    b_hh = torch.from_numpy((rng.normal(size=(D, G * H)) * 0.1).astype(np.float32))
+    return xps, mask, w_hh, b_hh
+
+
+_PAD_CASES = [(c, h) for c in ("GRU", "LSTM", "RNN") for h in (30, 50, 150)]
+
+
+@pytest.mark.parametrize("cell,H", _PAD_CASES, ids=[f"{c}-H{h}" for c, h in _PAD_CASES])
+def test_zero_padding_is_exact_in_both_passes(cell, H):
+    """The plain versions at the kernels' padded widths, their results
+    sliced back, against the same plain versions at H: forward history,
+    cell history and h_final; backward dxp, dW and db, and split mode's
+    dxp and dhp."""
+    D, T, B = 2, 5, 6
+    cdt = "float32"
+    xps, mask, w_hh, b_hh = _layer(cell, D, T, B, H, seed=H)
+    outs, c_hist, fin = rnn_layer_fwd_reference(cell, xps, mask, w_hh, b_hh, cdt)
+
+    Hp = kernel_width(H)
+    assert Hp == fwd_plan(cell, T, B, H, D, cdt)["H"] and Hp % 8 == 0 and Hp > H
+    w, b, xs = pad_layer(cell, Hp, w_hh, b_hh, xps)
+    p_outs, p_c, p_fin = rnn_layer_fwd_reference(cell, xs, mask, w, b, cdt)
+    for got, want in zip((*p_outs, *p_c, p_fin), (*outs, *c_hist, fin)):
+        assert got.shape[-1] == Hp
+        assert (got[..., H:] == 0).all()  # the padded units stay at zero
+        torch.testing.assert_close(got[..., :H], want, rtol=0, atol=1e-6)
+
+    rng = np.random.default_rng(H + 1)
+    douts = [torch.from_numpy(rng.normal(size=(T, B, H)).astype(np.float32)) for _ in range(D)]
+    d_hfinal = torch.from_numpy(rng.normal(size=(D, B, H)).astype(np.float32))
+    G = _GATES[cell]
+    # the model's padding: both passes at the forward's width, the saved
+    # history as the padded forward left it, the cotangents padded
+    p_dos = [pad_units(d, 1, H, Hp) for d in douts]
+    p_dhf = pad_units(d_hfinal, 1, H, Hp)
+
+    def cut(x):
+        return x.unflatten(-1, (G, Hp))[..., :H].flatten(-2)
+
+    for split in (False, True):
+        want = _bwd_reference(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal, cdt,
+                              split)
+        got = _bwd_reference(cell, xs, mask, w, b, p_outs, p_c, p_dos, p_dhf, cdt, split)
+        assert all((cut_away == 0).all() for x in got[0] + got[1]
+                   for cut_away in [x.unflatten(-1, (G, Hp))[..., H:]])
+        got = ([cut(x) for x in got[0]], [cut(x) for x in got[1]],
+               None if split else cut(got[2][:, :H]), None if split else cut(got[3]))
+        for g, w_ in zip((*got[0], *got[1]), (*want[0], *want[1])):
+            torch.testing.assert_close(g.float(), w_.float(), rtol=0, atol=1e-6)
+        if not split:
+            torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-6)
+            torch.testing.assert_close(got[3], want[3], rtol=0, atol=1e-6)

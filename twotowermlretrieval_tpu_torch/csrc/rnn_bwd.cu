@@ -80,78 +80,32 @@
 // cp.async ring into ldmatrix and mma.sync. f32 compute keeps full f32
 // products (FMA on the CUDA cores, no TF32) in the same structure. Where a
 // CTA's W rows do not fit beside the rest (wide layers), the chain streams
-// them through shared memory in chunks of KC columns each step. The
-// wrapper (ops/rnn_scan.py, bwd_plan) picks NC, R, KC, the staging depth
-// and S, and knows the shared-memory layout below; the launcher refuses a
-// plan that does not fit.
+// them through shared memory in chunks of KC columns each step. Where
+// even the two rounded dhp row blocks do not fit (GRU past H=816 at bf16,
+// LSTM past 608), the chain keeps one and pays a second, split cluster
+// barrier a step: each CTA arrives after its product and waits before its
+// next push, so no push lands on a block a peer still reads. The
+// wrapper (ops/rnn_scan.py, bwd_plan) picks NC, R, KC, the staging depth,
+// the row blocks and S, and knows the shared-memory layout below; the
+// launcher refuses a plan that does not fit.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "recur_chain.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-enum Cell { kRNN = 0, kGRU = 1, kLSTM = 2 };
+using namespace recur_chain;
 
-template <int CELL> struct NumGates;
-template <> struct NumGates<kRNN> { static constexpr int G = 1; };
-template <> struct NumGates<kGRU> { static constexpr int G = 3; };
-template <> struct NumGates<kLSTM> { static constexpr int G = 4; };
-
-constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory one block may use
 constexpr int CHAIN_THREADS = 256;
 constexpr int CHAIN_WARPS = CHAIN_THREADS / 32;
 constexpr int UNITS_MAX = 4;  // (16 x 8) chain-product tiles per warp, bf16
 constexpr int OUTS_MAX = 8;   // chain-product outputs per thread, f32
-
-__host__ __device__ constexpr size_t a16(size_t n) { return (n + 15) & ~size_t(15); }
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as XLA's convert
-}
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src));
-}
-// a copy of `width` = 16, 8 or 4 bytes (the same across the block)
-__device__ __forceinline__ void cp_async_n(void* smem_dst, const void* gmem_src, int width) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  if (width == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
-  else if (width == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(gmem_src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src));
-}
-// the widest copy (16, 8 or 4 bytes) dividing `bits`, the byte offsets or-ed together
-__device__ __forceinline__ int copy_width(int bits) {
-  return bits % 16 == 0 ? 16 : bits % 8 == 0 ? 8 : 4;
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// d += a . b, one m16n8k16 tile: bf16 operands, f32 accumulation
-__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 struct Ptrs {
   const void* xp[2];
@@ -203,19 +157,6 @@ __device__ __forceinline__ void cp_async8_zfill(void* smem_dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 8 : 0));
 }
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
 template <int MODE>
 __global__ void __launch_bounds__(TTHREADS) rnn_bwd_gemm_bf16(GemmArgs a) {
   extern __shared__ __align__(16) unsigned char gsm[];
@@ -446,7 +387,8 @@ cudaError_t gemm(const GemmArgs& g, int D, cudaStream_t stream) {
 
 struct ChainArgs {
   int T, B, H, dir0, split;
-  int R, hc, kp, kc, stages;  // the plan (kp: G*H rounded up to 16; kc == kp: W resident)
+  int R, hc, kp, kc, stages, blocks;  // the plan (kp: G*H rounded up to 16; kc == kp: W
+                                      // resident; blocks: dhp row blocks, 2 or 1)
   Ptrs p;
   const float* mask;      // [T][B]
   const void* w_hh;       // [D][H][GH] CT
@@ -457,7 +399,7 @@ struct ChainArgs {
 
 // Byte offsets of one chain CTA's shared memory (ops/rnn_scan.py's
 // _bwd_smem_bytes mirrors the sizes): round(W) rows [hc][kc + pad], the
-// rounded dhp row blocks [2][R][kp + pad], the staging buffers, the dh
+// rounded dhp row blocks [blocks][R][kp + pad], the staging buffers, the dh
 // (and dc) carry [R][hc] and the db partial [G][R][hc], all f32 but W and
 // dhp. One staging buffer: hp [G][R][hc] f32 and xp [G][R][hc] CT (GRU,
 // LSTM), h1 [R][hc] HT (GRU h_prev, LSTM c_prev, RNN h_t), dout [R][hc]
@@ -468,7 +410,8 @@ struct ChainSmem {
 };
 
 template <int CELL, typename CT, typename HT>
-__host__ __device__ ChainSmem chain_smem(int R, int hc, int kp, int kc, int stages) {
+__host__ __device__ ChainSmem chain_smem(int R, int hc, int kp, int kc, int stages,
+                                         int blocks) {
   constexpr int G = NumGates<CELL>::G;
   constexpr size_t padk = 16 / sizeof(CT);
   ChainSmem s;
@@ -488,7 +431,7 @@ __host__ __device__ ChainSmem chain_smem(int R, int hc, int kp, int kc, int stag
   s.w = o;
   o += a16((size_t)hc * (kc + padk) * sizeof(CT));
   s.dhp = o;
-  o += a16((size_t)2 * R * (kp + padk) * sizeof(CT));
+  o += a16((size_t)blocks * R * (kp + padk) * sizeof(CT));
   s.stage = o;
   o += (size_t)stages * s.st_size;
   s.dh = o;
@@ -551,7 +494,8 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
   const CT* w = static_cast<const CT*>(a.w_hh) + (size_t)e * H * GH;
   const float* hp = CELL == kRNN ? nullptr : a.hp + (size_t)e * T * B * GH;
 
-  const ChainSmem L = chain_smem<CELL, CT, HT>(R, hc, kp, kc, a.stages);
+  const ChainSmem L = chain_smem<CELL, CT, HT>(R, hc, kp, kc, a.stages, a.blocks);
+  const bool one_block = a.blocks == 1;
   extern __shared__ __align__(16) unsigned char smem[];
   CT* wbuf = reinterpret_cast<CT*>(smem + L.w);
   CT* dhpb = reinterpret_cast<CT*>(smem + L.dhp);
@@ -560,16 +504,23 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
   float* dbacc = reinterpret_cast<float*>(smem + L.db);
 
   // round(W)[j0 + n][k0 + k] -> wbuf[n][k] for n < hc, k < kc; zero past
-  // the owned columns and past G*H
+  // the owned columns and past G*H. Copies of 16 bytes where W's rows
+  // allow them (G*H a multiple of 8 at bf16), else 8 or 4: a streamed
+  // chunk is on every step's path.
+  const int wcw = copy_width(GH * (int)sizeof(CT));
   auto load_w = [&](int k0) {
-    const int words = kc * (int)sizeof(CT) / 4;
+    const int words = kc * (int)sizeof(CT) / wcw;
 #pragma unroll 1
     for (int idx = tid; idx < hc * words; idx += NT) {
       const int n = idx / words, wd = idx % words;
-      const int k = k0 + wd * (4 / (int)sizeof(CT));
-      unsigned char* dst = reinterpret_cast<unsigned char*>(wbuf + (size_t)n * wstride) + wd * 4;
+      const int k = k0 + wd * (wcw / (int)sizeof(CT));
+      unsigned char* dst = reinterpret_cast<unsigned char*>(wbuf + (size_t)n * wstride) + wd * wcw;
       if (n < own && k < GH)
-        cp_async4(dst, w + (size_t)(j0 + n) * GH + k);
+        cp_async_n(dst, w + (size_t)(j0 + n) * GH + k, wcw);
+      else if (wcw == 16)
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      else if (wcw == 8)
+        *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
       else
         *reinterpret_cast<uint32_t*>(dst) = 0u;
     }
@@ -632,8 +583,8 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
     if constexpr (CELL == kLSTM) dc_s[i] = 0.0f;
   }
   for (int i = tid; i < G * R * hc; i += NT) dbacc[i] = 0.0f;
-  // rows past the batch and columns past G*H stay zero in both blocks
-  for (int i = tid; i < 2 * R * dstride; i += NT) dhpb[i] = from_f<CT>(0.0f);
+  // rows past the batch and columns past G*H stay zero in every block
+  for (int i = tid; i < a.blocks * R * dstride; i += NT) dhpb[i] = from_f<CT>(0.0f);
   if (resident) load_w(0);
   if (a.stages == 2) issue(0, 0);
   cluster.sync();  // every CTA of the cluster runs, buffers zeroed, before the first push
@@ -662,7 +613,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
     const HT* h1_st = reinterpret_cast<const HT*>(st + L.st_h1);
     const HT* do_st = reinterpret_cast<const HT*>(st + L.st_do);
     const float* m_st = reinterpret_cast<const float*>(st + L.st_m);
-    CT* mine = dhpb + (size_t)(step & 1) * R * dstride;  // this step's dhp row block
+    CT* mine = dhpb + (size_t)(one_block ? 0 : step & 1) * R * dstride;  // this step's row block
     const int RH = R * hc;
 
 #pragma unroll 1
@@ -735,6 +686,8 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
       }
     }
     __syncthreads();
+    // one row block: every peer has finished the last step's product on it
+    if (one_block && step > 0) cluster_wait();
 
     // push this CTA's columns of the row block into every peer's copy: each
     // word is read once and stored to every peer
@@ -880,7 +833,9 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
         if (pidx < nout) dh_s[(pidx / own) * hc + pidx % own] += acc[o];
       }
     }
+    if (one_block) cluster_arrive();  // this CTA no longer reads its row block
   }
+  if (one_block) cluster_wait();  // no peer pushes into this CTA any more
 
   if (!a.split) {  // db partial of this cluster's rows, summed over r in order
     __syncthreads();
@@ -920,14 +875,14 @@ __global__ void rnn_bwd_reduce_kernel(int D, int nsplit, int ncl, int nw, int nb
 }
 
 struct Plan {
-  int nc, R, hc, kc, stages, nsplit;
+  int nc, R, hc, kc, stages, blocks, nsplit;
 };
 
 template <int CELL, typename CT>
 bool plan_ok(const Plan& pl, int H, int kp) {
   if (pl.nc < 1 || pl.nc > 8 || pl.hc < 8 || pl.hc % 8 || pl.nc * pl.hc < H ||
       (pl.nc - 1) * pl.hc >= H || pl.R < 8 || pl.R % 8 || pl.kc < 16 || pl.kc % 16 ||
-      (pl.stages != 1 && pl.stages != 2) || pl.nsplit < 1)
+      (pl.stages != 1 && pl.stages != 2) || (pl.blocks != 1 && pl.blocks != 2) || pl.nsplit < 1)
     return false;
   if (sizeof(CT) == 2)
     return pl.R % 16 == 0 && (pl.R / 16) * (pl.hc / 8) <= UNITS_MAX * CHAIN_WARPS;
@@ -942,7 +897,7 @@ int launch(int T, int B, int H, int D, int dir0, int split, const Plan& pl, cons
   const int GH = G * H, kp = (GH + 15) / 16 * 16;
   if (!plan_ok<CELL, CT>(pl, H, kp)) return (int)cudaErrorInvalidValue;
   const int kc = pl.kc < kp ? pl.kc : kp;
-  const ChainSmem L = chain_smem<CELL, CT, HT>(pl.R, pl.hc, kp, kc, pl.stages);
+  const ChainSmem L = chain_smem<CELL, CT, HT>(pl.R, pl.hc, kp, kc, pl.stages, pl.blocks);
   if (L.total > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const int ncl = (B + pl.R - 1) / pl.R;
   cudaError_t err;
@@ -974,6 +929,7 @@ int launch(int T, int B, int H, int D, int dir0, int split, const Plan& pl, cons
   c.kp = kp;
   c.kc = kc;
   c.stages = pl.stages;
+  c.blocks = pl.blocks;
   c.p = p;
   c.mask = mask;
   c.w_hh = w_hh;
@@ -1041,8 +997,8 @@ extern "C" {
 // with cdt_bf16). dir0: absolute direction of entry 0. The plan (from
 // ops/rnn_scan.py bwd_plan): nc CTAs per cluster of hc hidden columns
 // each, rows batch rows per cluster, W rows streamed in chunks of kc
-// columns (kc >= G*H: resident), 1 or 2 staging buffers, nsplit slices of
-// the weight-gradient product. hr0, hr1: the history in the compute dtype
+// columns (kc >= G*H: resident), 1 or 2 staging buffers, 2 or 1 dhp row
+// blocks, nsplit slices of the weight-gradient product. hr0, hr1: the history in the compute dtype
 // (the history itself when it is in that dtype already), the products'
 // operand. hp_ws: [D, T*B, G*H] f32 (GRU, LSTM). dhp0, dhp1: GRU's dhp
 // [T, B, G*H] in the compute dtype, in both modes (an output in split
@@ -1054,7 +1010,7 @@ extern "C" {
 // after the launches (0 on success).
 int rnn_bwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int split, int T, int B,
                    int H, int D, int dir0, int nc, int rows, int hc, int kc, int stages,
-                   int nsplit, const void* xp0, const void* xp1, const float* mask,
+                   int blocks, int nsplit, const void* xp0, const void* xp1, const float* mask,
                    const void* out0, const void* out1, const void* hr0, const void* hr1,
                    const void* c0, const void* c1,
                    const void* dout0, const void* dout1, const void* w_hh, const float* b_hh,
@@ -1068,7 +1024,7 @@ int rnn_bwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int split,
   if (set != cudaSuccess) return (int)set;
   const Ptrs p = {{xp0, xp1}, {out0, out1}, {hr0, hr1}, {c0, c1}, {dout0, dout1}, {dxp0, dxp1},
                   {dhp0, dhp1}};
-  const Plan pl = {nc, rows, hc, kc, stages, nsplit};
+  const Plan pl = {nc, rows, hc, kc, stages, blocks, nsplit};
   return dispatch(cell, cdt_bf16, hist_bf16, T, B, H, D, dir0, split, pl, p, mask, w_hh, b_hh,
                   d_hfinal, hp_ws, ws_w, ws_b, dw, db, static_cast<cudaStream_t>(stream));
 }

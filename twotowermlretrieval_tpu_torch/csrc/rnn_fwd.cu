@@ -3,202 +3,571 @@
 //
 // Replaces: twotowermlretrieval_tpu/ops/rnn_scan.py _fwd_kernel (called
 // through rnn_layer_fwd). Same contract: per-direction input projections
-// xp [T, B, G*H] in original time order (already in the compute dtype),
-// a [T, B] f32 mask, W_hh [D, H, G*H] in the compute dtype, b_hh [D, G*H]
-// f32. Per step and direction: hp = round_cdt(h) . W_hh + b_hh (f32
-// accumulation), gates in torch order (GRU r,z,n; LSTM i,f,g,o; RNN tanh),
-// then the masked update h = m*h_new + (1-m)*h. Direction 1 walks time
-// T-1-i, so nobody makes flipped copies. Outputs: the state history per
-// direction [T, B, H] (f32, or the compute dtype), the LSTM cell history,
-// and h_final [D, B, H] f32.
+// xp [T, B, G*H] in original time order (already in the compute dtype CT),
+// a [T, B] f32 mask, W_hh [D, H, G*H] in CT, b_hh [D, G*H] f32. Per step
+// and direction: hp = round_ct(h) . W_hh + b_hh (f32 accumulation), gates
+// in torch order (GRU r,z,n; LSTM i,f,g,o; RNN tanh), then the masked
+// update h = m*h_new + (1-m)*h. Direction 1 walks time T-1-i, so nobody
+// makes flipped copies. Outputs: the state history per direction
+// [T, B, H] (HT: f32, or the compute dtype), the LSTM cell history, and
+// h_final [D, B, H] f32. H is a multiple of 8 here: the wrapper
+// (ops/rnn_scan.py) zero-pads other widths, which changes no real unit.
 //
-// What bounds it on Hopper: the recurrence is a chain of T dependent
-// [BB, H] x [H, G*H] products, so the kernel is latency-bound, far from
-// both the bytes and the operations roofline. The TPU kernel keeps W_hh
-// resident in VMEM; at the main-path shape W_hh is 256 x 768 bf16 =
-// 384 KiB per direction, more than one block's 227 KB of shared memory.
+// What bounds it on Hopper: the chain. Step t's product needs all of step
+// t-1's h, so T dependent steps each pay a product, the gate math, an
+// exchange of h between SMs and a barrier; at the main path's shapes the
+// call moves 20-160 us worth of bytes while T = 128 steps of even a few
+// microseconds cost far more. Per-step latency sets the time, so the
+// design keeps one step short and takes everything else off it:
 //
-// Design (the simple, correct first version): one block per (direction,
-// block of BB = 16 batch rows) loops over T inside the kernel. The state
-// h stays in shared memory as f32, with a transposed copy rounded to the
-// compute dtype for the product (the rounding the TPU kernel's _mm does).
-// W_hh is re-read from L2 every step (768 KiB for both directions; L2
-// holds 50 MB). Each thread owns one hidden column j and keeps the G*BB
-// gate sums of that column in registers, so the gate math needs no
-// exchange between threads; products are f32 FMAs (a bf16 x bf16 product
-// is exact in f32). At the serving shape (B=16) only D=2 blocks are busy:
-// splitting W_hh over a thread-block cluster (distributed shared memory)
-// and tensor-core products are later work.
+// One thread-block cluster of NC CTAs (NC <= 8, launched with the cluster
+// attribute) walks all T steps for R batch rows of one direction. CTA q
+// owns HC hidden columns j in [q*HC, (q+1)*HC) and their G gate columns
+// g*H + j. It keeps round(W_hh)[:, own] resident in shared memory for all
+// T steps, stored [k][g*HC + c] (k-major, read as mma.sync's col-major B
+// operand through ldmatrix.trans): at H=256 bf16 and HC=32, 53 KB; where
+// it does not fit beside the rest (wide layers) it streams through shared
+// memory in chunks of KC rows every step. Every CTA holds the whole
+// rounded h row block [R][H] twice (double-buffered). One step:
+//   1. Each thread loads its own elements of this step's xp and mask into
+//      registers (the next step's rows of xp are prefetched to L2 one step
+//      ahead, so the loads overlap the product and hit L2).
+//   2. hp[R, G*own] = round(h)[R, H] . round(W)[H, G*own] on the tensor
+//      cores (ldmatrix + mma.sync m16n8k16 bf16, f32 accumulation). A warp
+//      owns units of 16 rows x 8 columns with all G gates of them, so the
+//      gate pre-activations of an element sit in one thread's registers.
+//   3. The gate math in registers, with the f32 h carry (and LSTM's c) of
+//      the thread's elements kept in registers for all T steps; the history
+//      (and cell history) written to global memory.
+//   4. The rounded h of the unit goes to the CTA's next row block; after a
+//      __syncwarp the warp pushes its unit's 16-byte rows into every
+//      peer's copy through distributed shared memory (with a bf16 history,
+//      the same 16-byte words are the history's).
+//   5. One cluster barrier (release/acquire). The row blocks alternate, so
+//      a peer's push for step t+1 cannot land on a block still being read
+//      at step t.
+// No block-wide barrier on the resident path: everything but the cluster
+// barrier is warp-local. Every index map is worked out before the loop.
+// f32 compute keeps full f32 products (FMA on the CUDA cores, no TF32) in
+// the same structure, a thread owning up to 8 (row, column) elements, with
+// one block barrier before its push. No atomics and a fixed summation
+// order: two calls give the same bits, and a row of length 0 stays exactly
+// zero.
+//
+// The wrapper (ops/rnn_scan.py, fwd_plan) picks NC, HC, R and KC and knows
+// the shared-memory layout below (fwd_smem); the launcher refuses a plan
+// that does not fit.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "recur_chain.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int BB = 16;        // batch rows per block
-constexpr int THREADS = 256;  // hidden columns handled concurrently
+using namespace recur_chain;
 
-enum Cell { kRNN = 0, kGRU = 1, kLSTM = 2 };
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int UNITS_MAX = 4;  // (16 rows x 8 columns) units per warp, bf16 (G tiles each)
+constexpr int OUTS_MAX = 8;   // (row, column) elements per thread, f32
 
-template <int CELL> struct NumGates;
-template <> struct NumGates<kRNN> { static constexpr int G = 1; };
-template <> struct NumGates<kGRU> { static constexpr int G = 3; };
-template <> struct NumGates<kLSTM> { static constexpr int G = 4; };
+struct FwdArgs {
+  int T, B, H;         // H: a multiple of 8
+  int R, hc, kp, kc;   // the plan; kp: H rounded up to 32; kc >= kp: W resident
+  const void* xp[2];   // [T][B][G*H] CT per direction
+  const float* mask;   // [T][B]
+  const void* w_hh;    // [D][H][G*H] CT
+  const float* b_hh;   // [D][G*H]
+  void* out[2];        // [T][B][H] HT per direction
+  void* cout[2];       // LSTM cell history, as out
+  float* h_final;      // [D][B][H]
+};
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+// Byte offsets of one CTA's shared memory (ops/rnn_scan.py's
+// _fwd_smem_bytes mirrors the sizes): round(W)[:, own] as [kw][wld] (kw =
+// KC rows of k at a time, all kp when resident), the two rounded h row
+// blocks [2][R][hld], and the bias of the own gate columns [G][HC] f32.
+// The pads keep ldmatrix's eight 16-byte rows on distinct banks.
+struct FwdSmem {
+  size_t w, h, bias, total;
+  int wld, hld;
+};
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as XLA's convert
+template <int CELL, typename CT>
+__host__ __device__ FwdSmem fwd_smem(int R, int hc, int kp, int kc) {
+  constexpr int G = NumGates<CELL>::G;
+  constexpr int EPW = 16 / sizeof(CT);  // elements per 16 bytes
+  FwdSmem s;
+  s.wld = G * hc + (sizeof(CT) == 2 && (G * hc / 8) % 2 == 1 ? 2 * EPW : EPW);
+  s.hld = kp + EPW;
+  const int kw = kc < kp ? kc : kp;
+  size_t o = 0;
+  s.w = o;
+  o += a16((size_t)kw * s.wld * sizeof(CT));
+  s.h = o;
+  o += a16((size_t)2 * R * s.hld * sizeof(CT));
+  s.bias = o;
+  o += a16((size_t)G * hc * 4);
+  s.total = o;
+  return s;
 }
 
-__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-// CT: compute dtype of xp and W_hh; OT: dtype of the state history.
-template <int CELL, typename CT, typename OT>
-__global__ void __launch_bounds__(THREADS) rnn_fwd_kernel(
-    int T, int B, int H,
-    const CT* __restrict__ xp0, const CT* __restrict__ xp1,
-    const float* __restrict__ mask,
-    const CT* __restrict__ w_hh, const float* __restrict__ b_hh,
-    OT* __restrict__ out0, OT* __restrict__ out1,
-    OT* __restrict__ cout0, OT* __restrict__ cout1,
-    float* __restrict__ h_final) {
-  constexpr int G = NumGates<CELL>::G;
-  const int d = blockIdx.y;
-  const int row0 = blockIdx.x * BB;
-  const int GH = G * H;
-  const CT* xp = d == 0 ? xp0 : xp1;
-  OT* out = d == 0 ? out0 : out1;
-  OT* cout = d == 0 ? cout0 : cout1;
-  const CT* w = w_hh + (size_t)d * H * GH;
-  const float* bias = b_hh + (size_t)d * GH;
-
-  extern __shared__ __align__(16) float smem[];
-  float* h_s = smem;               // [BB][H] carried state, f32
-  float* hT_s = smem + BB * H;     // [H][BB] state rounded to CT, transposed
-  float* c_s = smem + 2 * BB * H;  // [BB][H] LSTM cell state, f32
-
-  for (int i = threadIdx.x; i < BB * H; i += blockDim.x) {
-    h_s[i] = 0.0f;
-    hT_s[i] = 0.0f;
-    if constexpr (CELL == kLSTM) c_s[i] = 0.0f;
+// One element's step: x[g] the input projection, p[g] the product plus the
+// bias, h (and LSTM's c) the f32 carry, updated under the mask m.
+template <int CELL>
+__device__ __forceinline__ void cell_update(const float* x, const float* p, float m, float& h,
+                                            float& c) {
+  float h_new;
+  if constexpr (CELL == kGRU) {
+    const float rg = sigmoid(x[0] + p[0]);
+    const float zg = sigmoid(x[1] + p[1]);
+    const float ng = tanhf(x[2] + rg * p[2]);
+    h_new = (1.0f - zg) * ng + zg * h;
+  } else if constexpr (CELL == kLSTM) {
+    const float ig = sigmoid(x[0] + p[0]);
+    const float fg = sigmoid(x[1] + p[1]);
+    const float gg = tanhf(x[2] + p[2]);
+    const float og = sigmoid(x[3] + p[3]);
+    const float c_new = fg * c + ig * gg;
+    h_new = og * tanhf(c_new);
+    c = m * c_new + (1.0f - m) * c;
+  } else {
+    h_new = tanhf(x[0] + p[0]);
   }
-  __syncthreads();
+  h = m * h_new + (1.0f - m) * h;
+}
 
-  for (int step = 0; step < T; ++step) {
-    const int t = d == 0 ? step : T - 1 - step;
-    for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      float acc[G][BB];
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-#pragma unroll
-        for (int r = 0; r < BB; ++r) acc[g][r] = 0.0f;
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
 
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        float wv[G];
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+template <int CELL, typename CT, typename HT>
+__global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
+  constexpr int G = NumGates<CELL>::G;
+  constexpr bool kMma = sizeof(CT) == 2;
+  constexpr int EPW = 16 / sizeof(CT);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int T = a.T, B = a.B, H = a.H, GH = G * H;
+  const int R = a.R, hc = a.hc, kp = a.kp, kc = a.kc < a.kp ? a.kc : a.kp;
+  const bool resident = kc >= kp;
+  const int nc = (int)cluster.num_blocks();
+  const int q = (int)cluster.block_rank();
+  const int cl = blockIdx.x / nc;
+  const int d = blockIdx.y;
+  const int r0 = cl * R, j0 = q * hc;
+  const int own = max(0, min(hc, H - j0));  // hidden columns this CTA owns (a multiple of 8)
+  const int nrows = min(R, B - r0);         // rows of the cluster's block that exist
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  const CT* xp = static_cast<const CT*>(a.xp[d]);
+  HT* out = static_cast<HT*>(a.out[d]);
+  HT* cout = static_cast<HT*>(a.cout[d]);
+  const CT* w = static_cast<const CT*>(a.w_hh) + (size_t)d * H * GH;
+  const float* bias = a.b_hh + (size_t)d * GH;
+
+  const FwdSmem L = fwd_smem<CELL, CT>(R, hc, kp, kc);
+  const int wld = L.wld, hld = L.hld;
+  extern __shared__ __align__(16) unsigned char smem[];
+  CT* wbuf = reinterpret_cast<CT*>(smem + L.w);
+  CT* hbuf = reinterpret_cast<CT*>(smem + L.h);
+  float* bias_s = reinterpret_cast<float*>(smem + L.bias);
+
+  // round(W)[k0 + k][g*H + j0 + c] -> wbuf[k][g*hc + c] for k < kc, c < hc;
+  // zero past the owned columns and past H
+  const int wpr = G * hc / EPW;  // 16-byte words of a wbuf row
+  auto load_w = [&](int k0) {
+#pragma unroll 1
+    for (int idx = tid; idx < kc * wpr; idx += THREADS) {
+      const int k = idx / wpr, n = (idx % wpr) * EPW;
+      const int g = n / hc, c = n % hc;
+      CT* dst = wbuf + (size_t)k * wld + n;
+      if (c < own && k0 + k < H)
+        cp_async16(dst, w + (size_t)(k0 + k) * GH + g * H + j0 + c);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    cp_async_commit();
+  };
+
+  // both h row blocks start at zero; rows past the batch and columns past
+  // H are never written and stay zero
+  {
+    uint4* hz = reinterpret_cast<uint4*>(hbuf);
+    const int words = (int)(2 * (size_t)R * hld * sizeof(CT) / 16);
+    for (int i = tid; i < words; i += THREADS) hz[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int i = tid; i < G * hc; i += THREADS) {
+    const int g = i / hc, c = i % hc;
+    bias_s[i] = c < own ? bias[g * H + j0 + c] : 0.0f;
+  }
+  if (resident) load_w(0);
+  cp_async_wait<0>();
+  cluster.sync();  // every CTA of the cluster runs, its buffers ready, before the first push
+
+  // the L2 prefetch of a step's xp rows: CTA q takes 1/nc of the cluster's
+  // contiguous block [nrows][G*H], in 128-byte lines
+  const size_t blk_bytes = (size_t)nrows * GH * sizeof(CT);
+  const size_t pf_slice = ((blk_bytes + nc - 1) / nc + 127) / 128 * 128;
+  const size_t pf_begin = (size_t)q * pf_slice;
+  const size_t pf_end = pf_begin + pf_slice < blk_bytes ? pf_begin + pf_slice : blk_bytes;
+  auto prefetch_step = [&](int t) {
+    const unsigned char* base =
+        reinterpret_cast<const unsigned char*>(xp + ((size_t)t * B + r0) * GH);
+#pragma unroll 1
+    for (size_t o = pf_begin + (size_t)tid * 128; o < pf_end; o += (size_t)THREADS * 128)
+      prefetch_l2(base + o);
+    if (q == 0 && tid * 32 < nrows) prefetch_l2(a.mask + (size_t)t * B + r0 + tid * 32);
+  };
+
+  if constexpr (kMma) {
+    const int gid = lane / 4, tig = lane % 4;
+    const int ntn = hc / 8, units = (R / 16) * ntn;
+    // this warp's units: u = warp + i * WARPS, rows mt*16.., columns nt*8..;
+    // units past the owned columns or the existing rows stay off
+    bool on[UNITS_MAX];
+    int ucol[UNITS_MAX];       // the unit's first column within the CTA (nt * 8)
+    int arow[UNITS_MAX];       // ldmatrix A row offset: (mt*16 + lane%16) * hld + (lane/16)*8
+    int prow[UNITS_MAX];       // the unit's row this lane pushes: mt*16 + lane%16
+    int erow[UNITS_MAX][2];    // the rows of this lane's elements: mt*16 + gid (+8)
+    size_t xoff[UNITS_MAX][2]; // xp offset of those rows' elements at t = 0, gate 0
 #pragma unroll
-        for (int g = 0; g < G; ++g) wv[g] = to_f(w[(size_t)k * GH + g * H + j]);
-        const float4* hv = reinterpret_cast<const float4*>(hT_s + k * BB);
-        float hk[BB];
+    for (int i = 0; i < UNITS_MAX; ++i) {
+      const int u = warp + i * WARPS;
+      const int mt = u / ntn, nt = u % ntn;
+      on[i] = u < units && nt * 8 < own && mt * 16 < nrows;
+      ucol[i] = nt * 8;
+      arow[i] = (mt * 16 + lane % 16) * hld + (lane / 16) * 8;
+      prow[i] = mt * 16 + lane % 16;
 #pragma unroll
-        for (int q = 0; q < BB / 4; ++q) {
-          const float4 v = hv[q];
-          hk[4 * q + 0] = v.x;
-          hk[4 * q + 1] = v.y;
-          hk[4 * q + 2] = v.z;
-          hk[4 * q + 3] = v.w;
+      for (int hh = 0; hh < 2; ++hh) {
+        erow[i][hh] = mt * 16 + gid + hh * 8;
+        xoff[i][hh] = (size_t)(r0 + erow[i][hh]) * GH + j0 + nt * 8 + tig * 2;
+      }
+    }
+    float hcar[UNITS_MAX][4], ccar[UNITS_MAX][4];
+#pragma unroll
+    for (int i = 0; i < UNITS_MAX; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hcar[i][e] = ccar[i][e] = 0.0f;
+
+#pragma unroll 1
+    for (int step = 0; step < T; ++step) {
+      const int t = d == 0 ? step : T - 1 - step;
+      const CT* cur = hbuf + (size_t)(step & 1) * R * hld;
+      CT* nxt = hbuf + (size_t)((step + 1) & 1) * R * hld;
+      if (step + 1 < T) prefetch_step(d == 0 ? t + 1 : t - 1);
+      const size_t tb = (size_t)t * B;
+
+      // 1. this step's xp (bf16 pairs) and mask of the thread's elements
+      uint32_t xr[UNITS_MAX][G][2];
+      float mk[UNITS_MAX][2];
+#pragma unroll
+      for (int i = 0; i < UNITS_MAX; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const bool ok = on[i] && erow[i][hh] < nrows;
+          mk[i][hh] = ok ? __ldg(a.mask + tb + r0 + erow[i][hh]) : 0.0f;
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            xr[i][g][hh] = ok ? __ldg(reinterpret_cast<const unsigned int*>(
+                                    xp + tb * GH + xoff[i][hh] + (size_t)g * H))
+                              : 0u;
         }
+
+      // 2. the product, one accumulator per (unit, gate)
+      float acc[UNITS_MAX][G][4];
+#pragma unroll
+      for (int i = 0; i < UNITS_MAX; ++i)
 #pragma unroll
         for (int g = 0; g < G; ++g)
 #pragma unroll
-          for (int r = 0; r < BB; ++r) acc[g][r] = fmaf(hk[r], wv[g], acc[g][r]);
+          for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.0f;
+#pragma unroll 1
+      for (int k0 = 0; k0 < kp; k0 += kc) {
+        const int klen = min(kc, kp - k0);
+        if (!resident) {
+          load_w(k0);
+          cp_async_wait<0>();
+          __syncthreads();
+        }
+#pragma unroll
+        for (int i = 0; i < UNITS_MAX; ++i) {
+          if (!on[i]) continue;
+          const CT* ap = cur + arow[i] + k0;
+          const CT* bp = wbuf + (size_t)lane * wld + ucol[i];  // k rows kk + lane
+#pragma unroll 2
+          for (int kk = 0; kk < klen; kk += 32) {
+            uint32_t a0[4], a1[4];
+            ldsm_x4(a0, ap + kk);
+            ldsm_x4(a1, ap + kk + 16);
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              uint32_t b[4];  // B of the k16 steps at kk and kk + 16
+              ldsm_x4_t(b, bp + (size_t)kk * wld + g * hc);
+              mma_bf16(acc[i][g], a0[0], a0[1], a0[2], a0[3], b[0], b[1]);
+              mma_bf16(acc[i][g], a1[0], a1[1], a1[2], a1[3], b[2], b[3]);
+            }
+          }
+        }
+        if (!resident) __syncthreads();  // the next chunk overwrites wbuf
       }
 
+      // 3. gate math, history, and the rounded h into the next row block
 #pragma unroll
-      for (int r = 0; r < BB; ++r) {
-        const int row = row0 + r;
-        if (row < B) {
-          const size_t tb = (size_t)t * B + row;
-          const float m = mask[tb];
-          const CT* x = xp + tb * GH;
-          const float h_prev = h_s[r * H + j];
-          float h_new;
-          if constexpr (CELL == kGRU) {
-            const float rg = sigmoid(to_f(x[j]) + (acc[0][r] + bias[j]));
-            const float zg = sigmoid(to_f(x[H + j]) + (acc[1][r] + bias[H + j]));
-            const float ng = tanhf(to_f(x[2 * H + j]) + rg * (acc[2][r] + bias[2 * H + j]));
-            h_new = (1.0f - zg) * ng + zg * h_prev;
-          } else if constexpr (CELL == kLSTM) {
-            const float ig = sigmoid(to_f(x[j]) + (acc[0][r] + bias[j]));
-            const float fg = sigmoid(to_f(x[H + j]) + (acc[1][r] + bias[H + j]));
-            const float gg = tanhf(to_f(x[2 * H + j]) + (acc[2][r] + bias[2 * H + j]));
-            const float og = sigmoid(to_f(x[3 * H + j]) + (acc[3][r] + bias[3 * H + j]));
-            const float c_prev = c_s[r * H + j];
-            const float c_new = fg * c_prev + ig * gg;
-            h_new = og * tanhf(c_new);
-            const float c = m * c_new + (1.0f - m) * c_prev;
-            c_s[r * H + j] = c;
-            cout[tb * H + j] = from_f<OT>(c);
-          } else {
-            h_new = tanhf(to_f(x[j]) + (acc[0][r] + bias[j]));
+      for (int i = 0; i < UNITS_MAX; ++i) {
+        if (!on[i]) continue;
+        const int col = ucol[i] + tig * 2;  // within the CTA
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = erow[i][hh];
+          float x[2][G], p[2][G];
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float2 bv = *reinterpret_cast<const float2*>(bias_s + g * hc + col);
+            x[0][g] = bf16_lo(xr[i][g][hh]);
+            x[1][g] = bf16_hi(xr[i][g][hh]);
+            p[0][g] = acc[i][g][2 * hh] + bv.x;
+            p[1][g] = acc[i][g][2 * hh + 1] + bv.y;
           }
-          const float h = m * h_new + (1.0f - m) * h_prev;
-          h_s[r * H + j] = h;  // column j is read and written by this thread only
-          out[tb * H + j] = from_f<OT>(h);
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            cell_update<CELL>(x[e], p[e], mk[i][hh], hcar[i][2 * hh + e], ccar[i][2 * hh + e]);
+          const float h0 = hcar[i][2 * hh], h1 = hcar[i][2 * hh + 1];
+          *reinterpret_cast<__nv_bfloat162*>(nxt + (size_t)row * hld + j0 + col) =
+              __floats2bfloat162_rn(h0, h1);
+          if (row < nrows) {
+            const size_t o = (tb + r0 + row) * H + j0 + col;
+            if constexpr (sizeof(HT) == 4)
+              *reinterpret_cast<float2*>(out + o) = make_float2(h0, h1);
+            if constexpr (CELL == kLSTM) {
+              const float c0 = ccar[i][2 * hh], c1 = ccar[i][2 * hh + 1];
+              if constexpr (sizeof(HT) == 4)
+                *reinterpret_cast<float2*>(cout + o) = make_float2(c0, c1);
+              else
+                *reinterpret_cast<__nv_bfloat162*>(cout + o) = __floats2bfloat162_rn(c0, c1);
+            }
+          }
         }
       }
-    }
-    __syncthreads();  // every thread is done reading hT_s for this step
-    for (int j = threadIdx.x; j < H; j += blockDim.x)
-#pragma unroll
-      for (int r = 0; r < BB; ++r) hT_s[j * BB + r] = to_f(from_f<CT>(h_s[r * H + j]));
-    __syncthreads();
-  }
+      __syncwarp();
 
-  for (int j = threadIdx.x; j < H; j += blockDim.x)
-    for (int r = 0; r < BB; ++r)
-      if (row0 + r < B) h_final[((size_t)d * B + row0 + r) * H + j] = h_s[r * H + j];
+      // 4. push the units' rows into every peer's next row block; lanes
+      // 0-15 and 16-31 take every other peer
+#pragma unroll
+      for (int i = 0; i < UNITS_MAX; ++i) {
+        if (!on[i] || prow[i] >= nrows) continue;
+        CT* src = nxt + (size_t)prow[i] * hld + j0 + ucol[i];
+        const uint4 v = *reinterpret_cast<const uint4*>(src);
+#pragma unroll 1
+        for (int pr = 1 + lane / 16; pr < nc; pr += 2) {
+          const int peer = q + pr < nc ? q + pr : q + pr - nc;
+          *reinterpret_cast<uint4*>(cluster.map_shared_rank(src, peer)) = v;
+        }
+        if constexpr (sizeof(HT) == 2)  // the bf16 history is the rounded h itself
+          if (lane < 16)
+            *reinterpret_cast<uint4*>(out + (tb + r0 + prow[i]) * H + j0 + ucol[i]) = v;
+      }
+      cluster.sync();  // 5. release the pushes, acquire the peers'
+    }
+
+#pragma unroll
+    for (int i = 0; i < UNITS_MAX; ++i) {
+      if (!on[i]) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        if (erow[i][hh] < nrows) {
+          float* hf = a.h_final + ((size_t)d * B + r0 + erow[i][hh]) * H + j0 + ucol[i] + tig * 2;
+          *reinterpret_cast<float2*>(hf) = make_float2(hcar[i][2 * hh], hcar[i][2 * hh + 1]);
+        }
+    }
+  } else {
+    // f32: elements p = tid + o * THREADS in row-major order over (row, owned column)
+    const int nout = nrows * own;
+    int er[OUTS_MAX], ec[OUTS_MAX];
+#pragma unroll
+    for (int o = 0; o < OUTS_MAX; ++o) {
+      const int p = tid + o * THREADS;
+      er[o] = p < nout ? p / own : R;  // R: no element
+      ec[o] = p < nout ? p % own : 0;
+    }
+    // the push: 16-byte words of the own columns of the existing rows
+    const int pwords = own / EPW;
+    float hcar[OUTS_MAX], ccar[OUTS_MAX];
+#pragma unroll
+    for (int o = 0; o < OUTS_MAX; ++o) hcar[o] = ccar[o] = 0.0f;
+
+#pragma unroll 1
+    for (int step = 0; step < T; ++step) {
+      const int t = d == 0 ? step : T - 1 - step;
+      const CT* cur = hbuf + (size_t)(step & 1) * R * hld;
+      CT* nxt = hbuf + (size_t)((step + 1) & 1) * R * hld;
+      if (step + 1 < T) prefetch_step(d == 0 ? t + 1 : t - 1);
+      const size_t tb = (size_t)t * B;
+
+      float xv[OUTS_MAX][G], mk[OUTS_MAX];
+#pragma unroll
+      for (int o = 0; o < OUTS_MAX; ++o) {
+        const bool ok = er[o] < R;
+        const size_t xo = (tb + r0 + er[o]) * GH + j0 + ec[o];
+        mk[o] = ok ? __ldg(a.mask + tb + r0 + er[o]) : 0.0f;
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          xv[o][g] = ok ? to_f(__ldg(xp + xo + (size_t)g * H)) : 0.0f;
+      }
+
+      float acc[OUTS_MAX][G];
+#pragma unroll
+      for (int o = 0; o < OUTS_MAX; ++o)
+#pragma unroll
+        for (int g = 0; g < G; ++g) acc[o][g] = 0.0f;
+#pragma unroll 1
+      for (int k0 = 0; k0 < kp; k0 += kc) {
+        const int klen = min(kc, kp - k0);
+        if (!resident) {
+          load_w(k0);
+          cp_async_wait<0>();
+          __syncthreads();
+        }
+#pragma unroll
+        for (int o = 0; o < OUTS_MAX; ++o) {
+          if (er[o] >= R) continue;
+          const float* hr = reinterpret_cast<const float*>(cur) + (size_t)er[o] * hld + k0;
+          const float* wc = reinterpret_cast<const float*>(wbuf) + ec[o];
+          float s[G];
+#pragma unroll
+          for (int g = 0; g < G; ++g) s[g] = acc[o][g];
+#pragma unroll 4
+          for (int k = 0; k < klen; ++k) {
+            const float hk = hr[k];
+#pragma unroll
+            for (int g = 0; g < G; ++g) s[g] = fmaf(hk, wc[(size_t)k * wld + g * hc], s[g]);
+          }
+#pragma unroll
+          for (int g = 0; g < G; ++g) acc[o][g] = s[g];
+        }
+        if (!resident) __syncthreads();
+      }
+
+#pragma unroll
+      for (int o = 0; o < OUTS_MAX; ++o) {
+        if (er[o] >= R) continue;
+        float p[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) p[g] = acc[o][g] + bias_s[g * hc + ec[o]];
+        cell_update<CELL>(xv[o], p, mk[o], hcar[o], ccar[o]);
+        const size_t ob = (tb + r0 + er[o]) * H + j0 + ec[o];
+        out[ob] = from_f<HT>(hcar[o]);
+        if constexpr (CELL == kLSTM) cout[ob] = from_f<HT>(ccar[o]);
+        reinterpret_cast<float*>(nxt)[(size_t)er[o] * hld + j0 + ec[o]] = hcar[o];
+      }
+      __syncthreads();
+#pragma unroll 1
+      for (int idx = tid; idx < nrows * pwords; idx += THREADS) {
+        const int r = idx / pwords, wd = idx - r * pwords;
+        CT* src = nxt + (size_t)r * hld + j0 + wd * EPW;
+        const uint4 v = *reinterpret_cast<const uint4*>(src);
+#pragma unroll 1
+        for (int pr = 1; pr < nc; ++pr) {
+          const int peer = q + pr < nc ? q + pr : q + pr - nc;
+          *reinterpret_cast<uint4*>(cluster.map_shared_rank(src, peer)) = v;
+        }
+      }
+      cluster.sync();
+    }
+
+#pragma unroll
+    for (int o = 0; o < OUTS_MAX; ++o)
+      if (er[o] < R) a.h_final[((size_t)d * B + r0 + er[o]) * H + j0 + ec[o]] = hcar[o];
+  }
 }
 
-template <int CELL, typename CT, typename OT>
-int launch(int T, int B, int H, int D, const void* xp0, const void* xp1, const float* mask,
-           const void* w_hh, const float* b_hh, void* out0, void* out1, void* c0, void* c1,
-           float* h_final, cudaStream_t stream) {
-  auto kernel = rnn_fwd_kernel<CELL, CT, OT>;
-  const size_t smem = (size_t)(CELL == kLSTM ? 3 : 2) * BB * H * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int threads = ((H + 31) / 32) * 32;
-  if (threads > THREADS) threads = THREADS;
-  const dim3 grid((B + BB - 1) / BB, D);
-  kernel<<<grid, threads, smem, stream>>>(
-      T, B, H, static_cast<const CT*>(xp0), static_cast<const CT*>(xp1), mask,
-      static_cast<const CT*>(w_hh), b_hh, static_cast<OT*>(out0), static_cast<OT*>(out1),
-      static_cast<OT*>(c0), static_cast<OT*>(c1), h_final);
+struct Plan {
+  int nc, R, hc, kc;
+};
+
+template <int CELL, typename CT>
+bool plan_ok(const Plan& pl, int H) {
+  if (H % 8 || pl.nc < 1 || pl.nc > 8 || pl.hc < 8 || pl.hc % 8 || pl.nc * pl.hc < H ||
+      (pl.nc - 1) * pl.hc >= H || pl.kc < 32 || pl.kc % 32)
+    return false;
+  if (sizeof(CT) == 2)
+    return pl.R >= 16 && pl.R % 16 == 0 && (pl.R / 16) * (pl.hc / 8) <= UNITS_MAX * WARPS;
+  return pl.R >= 8 && pl.R % 8 == 0 && pl.R * pl.hc <= OUTS_MAX * THREADS;
+}
+
+template <int CELL, typename CT, typename HT>
+int launch(int T, int B, int H, int D, const Plan& pl, const void* xp0, const void* xp1,
+           const float* mask, const void* w_hh, const float* b_hh, void* out0, void* out1,
+           void* c0, void* c1, float* h_final, cudaStream_t stream) {
+  const int kp = (H + 31) / 32 * 32;
+  if (!plan_ok<CELL, CT>(pl, H)) return (int)cudaErrorInvalidValue;
+  const int kc = pl.kc < kp ? pl.kc : kp;
+  const FwdSmem L = fwd_smem<CELL, CT>(pl.R, pl.hc, kp, kc);
+  if (L.total > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  auto kernel = rnn_fwd_kernel<CELL, CT, HT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  const int ncl = (B + pl.R - 1) / pl.R;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(pl.nc * ncl, D, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = L.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = pl.nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+
+  FwdArgs a = {};
+  a.T = T;
+  a.B = B;
+  a.H = H;
+  a.R = pl.R;
+  a.hc = pl.hc;
+  a.kp = kp;
+  a.kc = kc;
+  a.xp[0] = xp0;
+  a.xp[1] = xp1;
+  a.mask = mask;
+  a.w_hh = w_hh;
+  a.b_hh = b_hh;
+  a.out[0] = out0;
+  a.out[1] = out1;
+  a.cout[0] = c0;
+  a.cout[1] = c1;
+  a.h_final = h_final;
+  if ((err = cudaLaunchKernelEx(&cfg, kernel, a)) != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <int CELL>
-int dispatch_types(int cdt_bf16, int hist_bf16, int T, int B, int H, int D, const void* xp0,
-                   const void* xp1, const float* mask, const void* w_hh, const float* b_hh,
-                   void* out0, void* out1, void* c0, void* c1, float* h_final,
-                   cudaStream_t stream) {
-  if (!cdt_bf16)
-    return launch<CELL, float, float>(T, B, H, D, xp0, xp1, mask, w_hh, b_hh, out0, out1, c0,
-                                      c1, h_final, stream);
-  if (hist_bf16)
-    return launch<CELL, __nv_bfloat16, __nv_bfloat16>(T, B, H, D, xp0, xp1, mask, w_hh, b_hh,
-                                                      out0, out1, c0, c1, h_final, stream);
-  return launch<CELL, __nv_bfloat16, float>(T, B, H, D, xp0, xp1, mask, w_hh, b_hh, out0, out1,
-                                            c0, c1, h_final, stream);
+// the launch for the cell and the (CT, HT) pair the flags name
+template <typename... Args>
+int dispatch(int cell, int cdt_bf16, int hist_bf16, Args... args) {
+  if (cell == kGRU) {
+    if (!cdt_bf16) return launch<kGRU, float, float>(args...);
+    if (hist_bf16) return launch<kGRU, __nv_bfloat16, __nv_bfloat16>(args...);
+    return launch<kGRU, __nv_bfloat16, float>(args...);
+  }
+  if (cell == kLSTM) {
+    if (!cdt_bf16) return launch<kLSTM, float, float>(args...);
+    if (hist_bf16) return launch<kLSTM, __nv_bfloat16, __nv_bfloat16>(args...);
+    return launch<kLSTM, __nv_bfloat16, float>(args...);
+  }
+  if (!cdt_bf16) return launch<kRNN, float, float>(args...);
+  if (hist_bf16) return launch<kRNN, __nv_bfloat16, __nv_bfloat16>(args...);
+  return launch<kRNN, __nv_bfloat16, float>(args...);
 }
 
 }  // namespace
@@ -207,27 +576,23 @@ extern "C" {
 
 // cell: 0 RNN, 1 GRU, 2 LSTM. cdt_bf16: xp and W_hh are bf16 (else f32).
 // hist_bf16: the state history is stored in bf16 (only with cdt_bf16).
+// H: a multiple of 8. The plan (from ops/rnn_scan.py fwd_plan): nc CTAs per
+// cluster of hc hidden columns each, rows batch rows per cluster, W rows
+// streamed in chunks of kc rows of k (kc >= H rounded up to 32: resident).
 // device: the CUDA ordinal the tensors live on (this library carries its
 // own runtime, whose current device is not PyTorch's).
 // Returns cudaGetLastError() after the launch (0 on success).
 int rnn_fwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int T, int B, int H,
-                   int D, const void* xp0, const void* xp1, const float* mask,
-                   const void* w_hh, const float* b_hh, void* out0, void* out1, void* c0,
-                   void* c1, float* h_final, void* stream) {
+                   int D, int nc, int rows, int hc, int kc, const void* xp0, const void* xp1,
+                   const float* mask, const void* w_hh, const float* b_hh, void* out0,
+                   void* out1, void* c0, void* c1, float* h_final, void* stream) {
   if (T <= 0 || B <= 0) return 0;
-  if (H % 4 != 0 || D < 1 || D > 2 || cell < 0 || cell > 2)
-    return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > 2 || cell < 0 || cell > 2) return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cell == kGRU)
-    return dispatch_types<kGRU>(cdt_bf16, hist_bf16, T, B, H, D, xp0, xp1, mask, w_hh, b_hh,
-                                out0, out1, c0, c1, h_final, s);
-  if (cell == kLSTM)
-    return dispatch_types<kLSTM>(cdt_bf16, hist_bf16, T, B, H, D, xp0, xp1, mask, w_hh, b_hh,
-                                 out0, out1, c0, c1, h_final, s);
-  return dispatch_types<kRNN>(cdt_bf16, hist_bf16, T, B, H, D, xp0, xp1, mask, w_hh, b_hh,
-                              out0, out1, c0, c1, h_final, s);
+  const Plan pl = {nc, rows, hc, kc};
+  return dispatch(cell, cdt_bf16, hist_bf16, T, B, H, D, pl, xp0, xp1, mask, w_hh, b_hh, out0,
+                  out1, c0, c1, h_final, static_cast<cudaStream_t>(stream));
 }
 
 const char* rnn_fwd_error_string(int err) {

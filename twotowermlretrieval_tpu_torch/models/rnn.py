@@ -16,7 +16,12 @@ accumulated inside it. ``TTMR_RNN_BWD_PLAN=hoisted`` swaps in the
 split-mode kernel with the weight gradient as one product outside, as in
 the JAX package. Hopper has no VMEM budget, so the JAX package's
 ``'split'`` shape rule for wide towers has no counterpart: every width the
-kernels hold runs the combined kernel.
+kernels hold runs the combined kernel. Every layer runs at the kernels'
+width (``ops.rnn_scan.kernel_width``, H rounded up to 8): its weights are
+zero-padded to it, so the input projection already yields the padded xp,
+both passes run at that width with nothing padded or sliced between them,
+and the outputs are sliced back to H; a width beyond the kernels' limits
+raises on the card (``ops/rnn_scan.py``).
 
 Parameters are the JAX package's tree with torch tensors as leaves:
 ``{'embedding': [V, E], 'layers': ({'fwd'|'bwd': {'w_ih': [I, G*H],
@@ -37,6 +42,9 @@ import torch
 from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
     rnn_layer_bwd,
     rnn_layer_bwd_hoisted,
+    kernel_width,
+    pad_layer,
+    pad_units,
     rnn_layer_fwd,
 )
 from twotowermlretrieval_tpu_torch.utils.dtypes import bernoulli_mask, matmul_f32, torch_dtype
@@ -213,27 +221,34 @@ def rnn_encode(
     # On the card the kernel then reads xp rounded to cdt (as the TPU
     # kernel does); the XLA scan JAX runs on the CPU keeps xp in f32, so
     # the two agree exactly only at f32 compute.
+    # Each layer runs at the kernels' width Hk: its weights are zero-padded
+    # to Hk units (autograd slices the padded gradients away), a padded
+    # unit stays zero and feeds nothing into the real ones, and its outputs
+    # are sliced back to H.
     parts = (x.transpose(0, 1),)  # tuple of [T, B, *]
     finals = {}
+    G, H = spec.num_gates, spec.hidden_dim
+    Hk = kernel_width(H)
     for li, layer in enumerate(params["layers"]):
         w_hh = torch.stack([layer[d]["w_hh"] for d in directions])  # [D, H, G*H]
         b_hh = torch.stack([layer[d]["b_hh"] for d in directions])  # [D, G*H]
+        w_hh, b_hh, _ = pad_layer(spec.rnn_type, Hk, w_hh, b_hh, ())
         xps = []
         for d in directions:
-            w_ih = layer[d]["w_ih"]
+            w_ih = pad_units(layer[d]["w_ih"], G, H, Hk)
             acc = None
             row = 0
             for p in parts:
                 term = matmul_f32(p, w_ih[row : row + p.shape[-1]], cdt)
                 acc = term if acc is None else acc + term
                 row += p.shape[-1]
-            xps.append(acc + layer[d]["b_ih"])  # [T, B, G*H] f32
+            xps.append(acc + pad_units(layer[d]["b_ih"], G, H, Hk))  # [T, B, G*Hk] f32
         *outs, h_final = _ScanLayer.apply(
             spec.rnn_type, spec.compute_dtype, hist, mask2, w_hh, b_hh, *xps
         )
         for di, d in enumerate(directions):
-            finals[d] = h_final[di]
-        parts = tuple(outs)
+            finals[d] = h_final[di, :, :H]
+        parts = tuple(o[..., :H] for o in outs)
         if use_dropout and li < spec.num_layers - 1:
             parts = dropout_parts(parts, 1.0 - spec.dropout, generator)
 

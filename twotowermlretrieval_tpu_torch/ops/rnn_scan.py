@@ -8,12 +8,16 @@ returns ``(outs, c_hist, h_final)``: per-direction state histories
 [T, B, H] (f32, or the compute dtype under ``history_in_cdt``), the LSTM
 cell histories (else ``()``), and ``h_final`` [D, B, H] f32.
 
-On a CUDA tensor it launches ``csrc/rnn_fwd.cu`` (one block per direction
-and 16 batch rows, the whole time loop inside the kernel); on a CPU tensor
-it runs :func:`rnn_layer_fwd_reference`, the plain PyTorch version of the
-same arithmetic. Both read xp rounded to the compute dtype, as the TPU
-kernel does (its caller casts xp before the call), and round h to the
-compute dtype before every step's product.
+On a CUDA tensor it launches ``csrc/rnn_fwd.cu``: one thread-block cluster
+of up to 8 CTAs per (direction, block of batch rows) walks the whole time
+loop, each CTA keeping its hidden columns' slice of W_hh in shared memory
+(streamed through it for wide layers), the step's product on the tensor
+cores at bf16, and each step's rounded h exchanged through distributed
+shared memory with one cluster barrier a step. :func:`fwd_plan` picks the
+layout. On a CPU tensor it runs :func:`rnn_layer_fwd_reference`, the plain
+PyTorch version of the same arithmetic. Both read xp rounded to the
+compute dtype, as the TPU kernel does (its caller casts xp before the
+call), and round h to the compute dtype before every step's product.
 
 The backward keeps the JAX signatures too. :func:`rnn_layer_bwd` takes the
 forward's inputs, its saved ``outs`` / ``c_hist``, the cotangents
@@ -30,12 +34,25 @@ The backward runs in three parts (see the note in ``csrc/rnn_bwd.cu``):
 the gate recompute as one product before the time loop, the dh chain in
 thread-block clusters that keep their rows of W in shared memory, and the
 weight gradient as one product after it. :func:`bwd_plan` picks the
-layout; where a CTA's rows of W do not fit, the kernel streams them. The
-forward takes H up to 700 for GRU, 500 for LSTM and 1184 for RNN (its
-block state in shared memory); the backward takes H divisible by 4 up to
-816 for GRU, 608 for LSTM and 2048 for RNN at bf16 compute (832 and 628
-with a bf16 history), 916, 700 and 2048 at f32, and raises beyond (the
-TPU's VMEM plans, ``plan_fused``, have no counterpart here).
+layout; where a CTA's rows of W do not fit, the kernel streams them.
+
+Widths. The forward kernel takes H a multiple of 8 and the backward H a
+multiple of 4; the wrappers zero-pad other widths (:func:`pad_layer`: a
+padded unit with zero xp, weights, bias and state stays zero and feeds
+nothing into the real units) and slice the results back. The model runs
+each layer at :func:`kernel_width` (``models/rnn.py``: its weights are
+padded, so the input projection yields the padded xp), so on its path
+neither wrapper pads. The forward kernel takes every H up to 2048 at bf16
+compute in all three cells, and up to 2016 (GRU), 1760 (LSTM) and 2048
+(RNN) at f32; the backward every H up to 1216 (GRU), 928 (LSTM) and
+2048 (RNN) at bf16 compute with an f32 history (1280 and 960 with a bf16
+one, the model's), and 1488, 1148 and 2048 at f32. Beyond a limit, where the plan is None, a call on card tensors
+raises a ValueError that names the limit, before any launch: a wrapper
+launches its kernel or raises, and never runs the plain loop on the card.
+(The JAX package runs its XLA scan where ``plan_fused`` finds no plan; its
+Pallas kernels stop at 1536 / 1280 / 2560 at bf16, so the port covers
+every width they take but the GRU's 1408 and 1536, the LSTM's 1024-1280
+and the RNN's 2176-2560 at bf16.)
 """
 
 from __future__ import annotations
@@ -54,6 +71,22 @@ _CELL_CODE = {"RNN": 0, "GRU": 1, "LSTM": 2}
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
 
+_SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+_UNITS_MAX = 4 * 8  # (16 x 8) output units of a bf16 chain product one CTA holds (4 per warp)
+_OUTS_MAX = 8 * 256  # outputs of the f32 chain product one CTA holds (8 per thread)
+# clusters of 8 one-CTA-per-SM blocks an H100 SXM runs at once
+# (cudaOccupancyMaxActiveClusters of the forward kernel on an H100 80GB
+# HBM3: 15, not 132 / 8); fwd_plan's choice of rows, logged by chip_smoke.py
+_CLUSTER_SLOTS = 15
+_FWD_MULTIPLE = 8  # the forward kernel's H: whole (16 x 8) units, 16-byte pushes of bf16 h
+_BWD_MULTIPLE = 4  # the backward kernel's H: its rows copied in 8-byte words
+_GEMM_TILE = {2: 128, 4: 64}  # output tile of the two chain-free products, by compute dtype size
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
 
 def _lib():
     lib = _build.load("rnn_fwd")
@@ -62,6 +95,7 @@ def _lib():
         lib.rnn_fwd_launch.argtypes = [
             _INT, _INT, _INT, _INT,  # device, cell, cdt_bf16, hist_bf16
             _INT, _INT, _INT, _INT,  # T, B, H, D
+            _INT, _INT, _INT, _INT,  # nc, rows, hc, kc
             _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # xp0, xp1, mask, w_hh, b_hh
             _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # out0, out1, c0, c1, h_final
             _VOIDP,  # stream
@@ -92,6 +126,119 @@ def _check_args(cell, xps, mask, w_hh, b_hh):
     return D, T, B, H, GH
 
 
+def _fwd_smem_bytes(cell: str, H: int, cdt_bytes: int, rows: int, hc: int, kc: int) -> int:
+    """Shared memory of one CTA of the forward kernel: ``kc`` rows of the
+    CTA's columns of round(W), the two rounded h row blocks and the bias
+    of its gate columns (``fwd_smem`` in csrc/rnn_fwd.cu, region by
+    region). H is the kernel's width, a multiple of 8."""
+    G = _GATES[cell]
+    kp = _up(H, 32)
+    epw = 16 // cdt_bytes
+    wld = G * hc + (2 * epw if cdt_bytes == 2 and (G * hc // 8) % 2 else epw)
+    hld = kp + epw
+    return (_up(min(kc, kp) * wld * cdt_bytes, 16) + _up(2 * rows * hld * cdt_bytes, 16)
+            + _up(G * hc * 4, 16))
+
+
+def fwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16",
+             history_dtype=torch.float32):
+    """The forward kernel's layout for one call, or None when none fits
+    shared memory. ``H``: the kernel's width, the layer's rounded up to 8
+    (the wrapper zero-pads). ``nc`` CTAs per cluster (at
+    most 8, the portable cluster size), each owning ``hc`` hidden columns;
+    ``rows`` batch rows per cluster (``clusters`` of them per direction);
+    ``kc`` rows of the CTA's columns of W held at a time (``resident``:
+    all of them, loaded once; else streamed every step); ``smem`` bytes per
+    CTA. There is no staging depth to choose: a step's xp goes to
+    registers, the next step's is prefetched to L2. ``rows`` is the
+    smallest (at least 32 where the batch has them; 16 at bf16 or 8 at f32
+    for smaller batches) whose clusters all fit on the card at once, else
+    the largest: each further wave of clusters costs a whole time loop,
+    while a step of four times the rows costs less than four steps.
+    ``history_dtype`` changes no layout. The kernel checks the plan and
+    refuses one that does not fit."""
+    del T, history_dtype  # the layout depends on neither
+    G = _GATES[cell]
+    Hk = _up(max(H, 1), 8)
+    kp = _up(Hk, 32)
+    cb = torch_dtype(compute_dtype).itemsize
+    nc = max(1, min(8, Hk // 16))
+    hc = _up(-(-Hk // nc), 8)
+    nc = -(-Hk // hc)  # no CTA without columns
+    if cb == 2:
+        cands = (16, 32, 64, 128)
+        held = [R for R in cands if (R // 16) * (hc // 8) <= _UNITS_MAX]
+    else:
+        cands = (8, 16, 32, 64)
+        held = [R for R in cands if R * hc <= _OUTS_MAX]
+    epw = 16 // cb
+    wrow = (G * hc + (2 * epw if cb == 2 and (G * hc // 8) % 2 else epw)) * cb
+    layouts = []
+    for R in held:
+        smem = _fwd_smem_bytes(cell, Hk, cb, R, hc, kp)
+        kc = kp
+        if smem > _SMEM_LIMIT:  # stream W: the widest chunk that fits beside the rest
+            rest = _fwd_smem_bytes(cell, Hk, cb, R, hc, 0)
+            kc = min(kp - 32, (_SMEM_LIMIT - rest) // wrow // 32 * 32)
+            if kc < 32:
+                continue
+            smem = _fwd_smem_bytes(cell, Hk, cb, R, hc, kc)
+        layouts.append((R, kc, smem))
+    if not layouts:
+        return None
+    least = cands[0] if B <= cands[0] else cands[1]
+    big = [lay for lay in layouts if lay[0] >= least] or layouts[-1:]
+    R, kc, smem = next((lay for lay in big if D * -(-B // lay[0]) <= _CLUSTER_SLOTS), big[-1])
+    return {"H": Hk, "nc": nc, "hc": hc, "rows": R, "clusters": -(-B // R), "kc": kc,
+            "resident": kc >= kp, "smem": smem}
+
+
+def kernel_width(H: int) -> int:
+    """The width both recurrent kernels take as it is: H rounded up to 8.
+    ``models/rnn.py`` runs every layer at it, so that neither pass pads
+    or slices anything on the model's path."""
+    return _up(max(H, 1), _FWD_MULTIPLE)
+
+
+def pad_units(x: torch.Tensor, G: int, H: int, Hk: int) -> torch.Tensor:
+    """[..., G*H] -> [..., G*Hk]: each of the G gate blocks zero-padded from
+    H to Hk columns (``x`` itself where Hk == H); differentiable."""
+    if Hk == H:
+        return x
+    return torch.nn.functional.pad(x.unflatten(-1, (G, H)), (0, Hk - H)).flatten(-2)
+
+
+def pad_layer(cell: str, Hk: int, w_hh: torch.Tensor, b_hh: torch.Tensor, xps=()):
+    """One layer's (w_hh, b_hh, xps) zero-padded from H to Hk hidden units:
+    W_hh's rows and every gate's columns, b_hh and each xp per gate. A
+    padded unit has zero xp, weights, bias and state, so it stays at zero
+    (GRU: (1-0.5)*tanh(0) + 0.5*0; LSTM: c = 0.5*0 + 0.5*tanh(0); RNN:
+    tanh(0)) and, its row of W_hh being zero, feeds nothing into the real
+    units: the real outputs are unchanged, the padded ones are sliced away,
+    and so are the padded gradients."""
+    G, H = _GATES[cell], w_hh.shape[-2]
+    if Hk == H:
+        return w_hh, b_hh, tuple(xps)
+    # [D, H, G, H] -> [D, Hk, G, Hk]: rows and each gate's columns in one pad
+    w = torch.nn.functional.pad(w_hh.unflatten(-1, (G, H)), (0, Hk - H, 0, 0, 0, Hk - H))
+    return (w.flatten(-2), pad_units(b_hh, G, H, Hk),
+            tuple(pad_units(x, G, H, Hk) for x in xps))
+
+
+def _operand(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` in ``dtype``, contiguous and on the 16-byte alignment of the
+    kernels' vector copies."""
+    x = x.to(dtype).contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _widest(plan, cell: str, T: int, B: int, D: int, cdt, hist) -> int:
+    """The widest H that ``plan`` (fwd_plan or bwd_plan) lays out at these
+    other arguments, for the message of a refused call."""
+    return max((h for h in range(4, 4097, 4) if plan(cell, T, B, h, D, cdt, hist) is not None),
+               default=0)
+
+
 def rnn_layer_fwd(
     cell: str,
     xps: Sequence[torch.Tensor],
@@ -115,12 +262,25 @@ def rnn_layer_fwd(
         raise ValueError(f"rnn_layer_fwd runs on cpu or cuda tensors, not {dev}")
 
     cdt = torch_dtype(compute_dtype)
+    if cdt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the forward kernel computes in bfloat16 or float32, not {cdt}")
+    Hk = kernel_width(H)
+    if Hk != H:  # the kernel's width: the zero-padded layer, its results sliced back
+        w, b, xs = pad_layer(cell, Hk, w_hh, b_hh, xps)
+        outs, c_hist, h_final = rnn_layer_fwd(cell, xs, mask, w, b, compute_dtype, history_in_cdt)
+        return (tuple(o[..., :H] for o in outs), tuple(c[..., :H] for c in c_hist),
+                h_final[..., :H])
     hist = cdt if history_in_cdt else torch.float32
+    plan = fwd_plan(cell, T, B, H, D, cdt, hist)
+    if plan is None:
+        raise ValueError(
+            f"rnn_layer_fwd: no layout of the forward kernel fits shared memory at {cell} "
+            f"H={H} {cdt}; it takes H up to {_widest(fwd_plan, cell, T, B, D, cdt, hist)}")
     # the kernel reads xp in the compute dtype, as the TPU kernel does
-    xs = [x.to(cdt).contiguous() for x in xps]
-    m = mask.to(torch.float32).contiguous()
-    w = w_hh.to(cdt).contiguous()
+    xs = [_operand(x, cdt) for x in xps]
+    w = _operand(w_hh, cdt)
     b = b_hh.to(torch.float32).contiguous()
+    m = mask.to(torch.float32).contiguous()
     outs = [torch.empty((T, B, H), dtype=hist, device=dev) for _ in range(D)]
     c_hist = (
         [torch.empty((T, B, H), dtype=hist, device=dev) for _ in range(D)]
@@ -137,7 +297,7 @@ def rnn_layer_fwd(
         err = lib.rnn_fwd_launch(
             torch.cuda.current_device(),  # the tensors' device (inside the with)
             _CELL_CODE[cell], int(cdt == torch.bfloat16), int(hist == torch.bfloat16),
-            T, B, H, D,
+            T, B, H, D, plan["nc"], plan["rows"], plan["hc"], plan["kc"],
             ptr(xs, 0), ptr(xs, 1), m.data_ptr(), w.data_ptr(), b.data_ptr(),
             ptr(outs, 0), ptr(outs, 1), ptr(c_hist, 0), ptr(c_hist, 1),
             h_final.data_ptr(), stream,
@@ -224,17 +384,6 @@ def rnn_fwd_bound(T: int, B: int, H: int, D: int, G: int, cdt_bytes: int, hist_b
 # backward
 # ---------------------------------------------------------------------------
 
-_SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
-_SMS = 132  # streaming multiprocessors of an H100 SXM
-_UNITS_MAX = 4 * 8  # (16 x 8) tiles of the bf16 chain product one CTA holds (4 per warp)
-_OUTS_MAX = 8 * 256  # outputs of the f32 chain product one CTA holds (8 per thread)
-_GEMM_TILE = {2: 128, 4: 64}  # output tile of the two chain-free products, by compute dtype size
-
-
-def _up(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
 def _bwd_lib():
     lib = _build.load("rnn_bwd")
     if not getattr(lib, "_ttr_bound", False):
@@ -242,7 +391,7 @@ def _bwd_lib():
         lib.rnn_bwd_launch.argtypes = [
             _INT, _INT, _INT, _INT, _INT,  # device, cell, cdt_bf16, hist_bf16, split
             _INT, _INT, _INT, _INT, _INT,  # T, B, H, D, dir0
-            _INT, _INT, _INT, _INT, _INT, _INT,  # nc, rows, hc, kc, stages, nsplit
+            _INT, _INT, _INT, _INT, _INT, _INT, _INT,  # nc, rows, hc, kc, stages, blocks, nsplit
             _VOIDP, _VOIDP, _VOIDP,  # xp0, xp1, mask
             _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # out0, out1, hr0, hr1
             _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # c0, c1, dout0, dout1
@@ -258,10 +407,10 @@ def _bwd_lib():
 
 
 def _bwd_smem_bytes(cell: str, H: int, cdt_bytes: int, hist_bytes: int, rows: int, hc: int,
-                    kc: int, stages: int) -> int:
+                    kc: int, stages: int, blocks: int = 2) -> int:
     """Shared memory of one CTA of the backward's chain kernel: the CTA's
-    rows of round(W) (``kc`` columns of them at a time), two rounded dhp
-    row blocks, the staging buffers, the dh (and dc) carry and the db
+    rows of round(W) (``kc`` columns of them at a time), ``blocks`` rounded
+    dhp row blocks, the staging buffers, the dh (and dc) carry and the db
     partial (``chain_smem`` in csrc/rnn_bwd.cu, region by region)."""
     G = _GATES[cell]
     kp = _up(G * H, 16)
@@ -271,7 +420,7 @@ def _bwd_smem_bytes(cell: str, H: int, cdt_bytes: int, hist_bytes: int, rows: in
         stage += _up(G * rows * hc * 4, 16) + _up(G * rows * hc * cdt_bytes, 16)
     carries = 2 if cell == "LSTM" else 1
     return (_up(hc * (min(kc, kp) + padk) * cdt_bytes, 16)
-            + _up(2 * rows * (kp + padk) * cdt_bytes, 16) + stages * stage
+            + _up(blocks * rows * (kp + padk) * cdt_bytes, 16) + stages * stage
             + carries * _up(rows * hc * 4, 16) + _up(G * rows * hc * 4, 16))
 
 
@@ -283,10 +432,16 @@ def bwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16"
     per direction); ``kc`` columns of the CTA's W rows held at a time
     (``resident``: all of G*H, loaded once; else streamed every step);
     ``stages`` staging buffers (2: a step's inputs load during the step
-    before); ``nsplit`` slices of the weight-gradient product; ``smem``
-    bytes per CTA. The kernel checks the plan and refuses one that does not
-    fit."""
+    before); ``blocks`` dhp row blocks (2, or 1 with a second cluster
+    barrier a step); ``nsplit`` slices of the
+    weight-gradient product; ``smem`` bytes per CTA; ``H`` the kernel's
+    width, the layer's rounded up to 4 (the wrapper zero-pads). Of the
+    layouts that fit, the one that streams W in the fewest chunks a step
+    (1: resident), then the first of two row blocks before one, 32 rows
+    before 16 and two staging buffers before one. The kernel checks the
+    plan and refuses one that does not fit."""
     G = _GATES[cell]
+    H = _up(max(H, 1), _BWD_MULTIPLE)
     GH = G * H
     kp = _up(GH, 16)
     cb = torch_dtype(compute_dtype).itemsize
@@ -297,29 +452,40 @@ def bwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16"
     rows_options = (32, 16) if cb == 2 else (16, 8)
     if B <= rows_options[1]:
         rows_options = rows_options[1:]
-    for rows in rows_options:
-        held = (rows // 16) * (hc // 8) if cb == 2 else rows * hc
-        if held > (_UNITS_MAX if cb == 2 else _OUTS_MAX):
-            continue
-        for resident in (True, False):
-            for stages in (2, 1):
-                if resident:
-                    kc = kp
-                else:  # the widest chunk that fits beside the rest
-                    rest = _bwd_smem_bytes(cell, H, cb, hb, rows, hc, 0, stages)
-                    rest -= _up(hc * (16 // cb) * cb, 16)
-                    kc = min(kp - 16, ((_SMEM_LIMIT - rest) // (hc * cb) - 16 // cb) // 16 * 16)
-                    if kc < 16:
+    best = None
+    for blocks in (2, 1):
+        for rows in rows_options:
+            held = (rows // 16) * (hc // 8) if cb == 2 else rows * hc
+            if held > (_UNITS_MAX if cb == 2 else _OUTS_MAX):
+                continue
+            for resident in (True, False):
+                for stages in (2, 1):
+                    if resident:
+                        kc = kp
+                    else:  # the widest chunk that fits beside the rest
+                        rest = _bwd_smem_bytes(cell, H, cb, hb, rows, hc, 0, stages, blocks)
+                        rest -= _up(hc * (16 // cb) * cb, 16)
+                        kc = min(kp - 16,
+                                 ((_SMEM_LIMIT - rest) // (hc * cb) - 16 // cb) // 16 * 16)
+                        if kc < 16:
+                            continue
+                    smem = _bwd_smem_bytes(cell, H, cb, hb, rows, hc, kc, stages, blocks)
+                    if smem > _SMEM_LIMIT:
                         continue
-                smem = _bwd_smem_bytes(cell, H, cb, hb, rows, hc, kc, stages)
-                if smem > _SMEM_LIMIT:
-                    continue
-                tile = _GEMM_TILE[cb]
-                tiles = D * -(-H // tile) * -(-GH // tile)
-                nsplit = max(1, min(-(-2 * _SMS // tiles), -(-T * B // 64)))
-                return {"nc": nc, "hc": hc, "rows": rows, "clusters": -(-B // rows), "kc": kc,
-                        "resident": resident, "stages": stages, "nsplit": nsplit, "smem": smem}
-    return None
+                    # the fewest chunks of W a step (each costs a copy and two
+                    # block barriers), the first in this order on a tie
+                    chunks = -(-kp // kc)
+                    if best is None or chunks < best[0]:
+                        best = (chunks, blocks, rows, kc, resident, stages, smem)
+    if best is None:
+        return None
+    _, blocks, rows, kc, resident, stages, smem = best
+    tile = _GEMM_TILE[cb]
+    tiles = D * -(-H // tile) * -(-GH // tile)
+    nsplit = max(1, min(-(-2 * _SMS // tiles), -(-T * B // 64)))
+    return {"H": H, "nc": nc, "hc": hc, "rows": rows, "clusters": -(-B // rows), "kc": kc,
+            "resident": resident, "stages": stages, "blocks": blocks, "nsplit": nsplit,
+            "smem": smem}
 
 
 def _check_bwd_args(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal):
@@ -461,23 +627,39 @@ def _bwd_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
         raise ValueError(f"the rnn backward runs on cpu or cuda tensors, not {dev}")
 
     cdt = torch_dtype(compute_dtype)
+    if cdt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the backward kernel computes in bfloat16 or float32, not {cdt}")
     hist = outs[0].dtype
     if hist not in (torch.float32, cdt):
         raise ValueError(f"the history must be f32 or the compute dtype, got {hist}")
-    if H % 4:
-        raise ValueError(f"the backward kernel takes H divisible by 4, got {H}")
+    Hk = _up(H, _BWD_MULTIPLE)
+    if Hk != H:  # the kernel's width: the zero-padded layer, its results sliced back
+        G = _GATES[cell]
+        w, b, xs = pad_layer(cell, Hk, w_hh, b_hh, xps)
+        hs, cs, dos = ([pad_units(x, 1, H, Hk) for x in ts] for ts in (outs, c_hist, douts))
+        dxps, dhps, dw, db = _bwd_call(cell, xs, mask, w, b, hs, cs, dos,
+                                       pad_units(d_hfinal, 1, H, Hk), compute_dtype, split, dir0)
+
+        def cut(x):
+            return x.unflatten(-1, (G, Hk))[..., :H].flatten(-2)
+
+        return (tuple(cut(x) for x in dxps), tuple(cut(x) for x in dhps),
+                None if dw is None else cut(dw[:, :H]), None if db is None else cut(db))
     plan = bwd_plan(cell, T, B, H, D, compute_dtype, hist)
     if plan is None:
-        raise ValueError(f"{cell} H={H}: no layout of the backward kernel fits shared memory")
-    xs = [x.to(cdt).contiguous() for x in xps]
-    hs = [o.contiguous() for o in outs]
-    hr = [h if hist == cdt else h.to(cdt) for h in hs]  # the products' operand
-    cs = [c.to(hist).contiguous() for c in c_hist]
-    dos = [d.to(hist).contiguous() for d in douts]
-    m = mask.to(torch.float32).contiguous()
-    w = w_hh.to(cdt).contiguous()
+        raise ValueError(
+            f"rnn_layer_bwd: no layout of the backward kernel fits shared memory at {cell} "
+            f"H={H} {cdt} with a {hist} history; it takes H up to "
+            f"{_widest(bwd_plan, cell, T, B, D, cdt, hist)}")
+    xs = [_operand(x, cdt) for x in xps]
+    hs = [_operand(o, hist) for o in outs]
+    cs = [_operand(c, hist) for c in c_hist]
+    dos = [_operand(d, hist) for d in douts]
+    w = _operand(w_hh, cdt)
     b = b_hh.to(torch.float32).contiguous()
     dhf = d_hfinal.to(torch.float32).contiguous()
+    hr = [h if hist == cdt else h.to(cdt) for h in hs]  # the products' operand
+    m = mask.to(torch.float32).contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
     dxps = [torch.empty((T, B, GH), dtype=cdt, device=dev) for _ in range(D)]
     # GRU's dhp: an output in split mode, the weight-gradient operand otherwise
@@ -504,7 +686,8 @@ def _bwd_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
         err = lib.rnn_bwd_launch(
             torch.cuda.current_device(), _CELL_CODE[cell], int(cdt == torch.bfloat16),
             int(hist == torch.bfloat16), int(split), T, B, H, D, dir0,
-            plan["nc"], plan["rows"], plan["hc"], plan["kc"], plan["stages"], plan["nsplit"],
+            plan["nc"], plan["rows"], plan["hc"], plan["kc"], plan["stages"], plan["blocks"],
+            plan["nsplit"],
             at(xs, 0), at(xs, 1), m.data_ptr(),
             at(hs, 0), at(hs, 1), at(hr, 0), at(hr, 1), at(cs, 0), at(cs, 1),
             at(dos, 0), at(dos, 1),

@@ -44,6 +44,7 @@ from twotowermlretrieval_tpu_torch.utils.dtypes import resolve_device, torch_dty
 
 _SUBLANE = 8  # query batches are padded to a multiple of this
 _ROW_TILE = 8192  # corpus rows are padded once to this tile
+_COL_TILE = 16  # on a card, embedding widths are padded to this (the scans' 16-byte rows)
 
 RETRIEVAL_TUNING_FILE = "retrieval_tuning.json"
 
@@ -110,6 +111,11 @@ class RetrievalIndex:
         self.quantized = storage_dtype == "int8"
         self._n_valid = self.num_docs
         padded = _pad_rows(np.asarray(doc_embeddings, np.float32))
+        # the card's scan kernels read 16-byte rows: other widths get zero
+        # columns, which add nothing to any score (queries are padded alike)
+        self._col_pad = (-self.dim) % _COL_TILE if self.device.type == "cuda" else 0
+        if self._col_pad:
+            padded = np.pad(padded, ((0, 0), (0, self._col_pad)))
         self._scales = None
         if self.quantized:
             values, seg_scales = quantize_segments(padded)
@@ -144,6 +150,8 @@ class RetrievalIndex:
 
     def _search_variant(self, q: torch.Tensor, k: int, phase2: str, sort_candidates: bool):
         kw = dict(k=k, n_valid=self._n_valid)
+        if self._col_pad:
+            q = torch.nn.functional.pad(q, (0, self._col_pad))
         if self.quantized:
             if phase2 == "two_phase":
                 return topk_segmented_s8(q, self._docs, self._scales, **kw)
