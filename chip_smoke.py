@@ -46,12 +46,16 @@ its layout logged and two calls held bit-identical. Step 3 covers the
 backward kernel too (``csrc/rnn_bwd.cu``, both modes, each timed at the
 training shapes beside cuDNN's GRU backward, and at H=1024, where it keeps
 one dhp row block, with the layout it launches logged and two calls held
-bit-identical) and the
+bit-identical), the widths the JAX package keeps on its Pallas kernels that
+need clusters of 16 (GRU H=1792 and LSTM H=1536 backward, RNN H=3072 both
+passes, at B=16: each with its cluster size, the card's count of such
+clusters and cuDNN's time beside it), and the
 int8 and running top-k kernels (``csrc/segmax_s8.cu``, the per-row int8
 path of ``csrc/segmax.cu``, ``csrc/topk_stream.cu``) over 1,048,576 rows,
 each driven once through its public function with the counts at 0, and the
 fused attention kernels (``csrc/attention.cu``) at the transformer's
-training and serving shapes, each timed beside
+training and serving shapes and at T=512 (hd=32 and 64), each with its
+tiles logged, two calls held bit-identical and timed beside
 ``torch.nn.functional.scaled_dot_product_attention`` as a yardstick. Step 5
 serves a second time as ``ttr-torch-serve --storage-dtype int8`` starts
 it: the s8 scan kernel on every dense search, the results against the
@@ -272,14 +276,22 @@ def _rnn_inputs(cell, B, T, seed, dev, H=H):
     return xps, mask, w_hh, b_hh
 
 
-def check_rnn(cell: str, B: int, T: int, seed: int, dev, timed: bool) -> dict:
+def _cudnn_layer(cell: str, H: int, dev):
+    """One bidirectional cuDNN layer of the cell (input width 2H, the second
+    layer's), fp16: cuDNN's RNN takes fp16 on every version; bytes and
+    tensor-core rate are bf16's."""
+    make = {"GRU": torch.nn.GRU, "LSTM": torch.nn.LSTM, "RNN": torch.nn.RNN}[cell]
+    return make(2 * H, H, num_layers=1, bidirectional=True).to(dev, torch.float16)
+
+
+def check_rnn(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H) -> dict:
     from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
         rnn_fwd_bound,
         rnn_layer_fwd,
         rnn_layer_fwd_reference,
     )
 
-    args = _rnn_inputs(cell, B, T, seed, dev)
+    args = _rnn_inputs(cell, B, T, seed, dev, H)
     kw = dict(compute_dtype="bfloat16", history_in_cdt=True)
     outs, c_hist, fin = rnn_layer_fwd(cell, *args, **kw)
     r_outs, r_c, r_fin = rnn_layer_fwd_reference(cell, *args, **kw)
@@ -307,39 +319,40 @@ def check_rnn(cell: str, B: int, T: int, seed: int, dev, timed: bool) -> dict:
     log(f"rnn_fwd {shape}: two calls bit-identical in the history and h_final")
     rec = {"shape": shape, "max_abs_err": max(err_final, err_hist), "bitwise_repeatable": bitwise}
     if timed:
-        rec["design"] = _fwd_design(cell, B, T)
+        rec["design"] = _fwd_design(cell, B, T, dev, H)
         rec["ms"] = time_ms(lambda: rnn_layer_fwd(cell, *args, **kw))
         rec["plain_ms"] = time_ms(lambda: rnn_layer_fwd_reference(cell, *args, **kw),
                                   reps=5, warmup=1)
-        # One cuDNN call over the same layer: one bidirectional GRU layer,
-        # which also computes the input projection (input width 2H, the
-        # second layer's). fp16: cuDNN's RNN takes fp16 on every version;
-        # bytes and tensor-core rate are bf16's.
-        gru = torch.nn.GRU(2 * H, H, num_layers=1, bidirectional=True).to(dev, torch.float16)
+        # One cuDNN call over the same layer, which also computes the input
+        # projection
+        layer = _cudnn_layer(cell, H, dev)
         x = torch.randn((T, B, 2 * H), device=dev, dtype=torch.float16)
-        rec["library_ms"] = time_ms(lambda: gru(x))
+        rec["library_ms"] = time_ms(lambda: layer(x))
         nbytes, flops = rnn_fwd_bound(T, B, H, 2, _GATES[cell], 2, 2)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
         rec["step_us"] = rec["ms"] / T * 1e3
         log(f"rnn_fwd {shape}: kernel {rec['ms']:.4f} ms ({rec['step_us']:.2f} us a step), "
-            f"plain {rec['plain_ms']:.4f} ms, cuDNN GRU {rec['library_ms']:.4f} ms, bound "
+            f"plain {rec['plain_ms']:.4f} ms, cuDNN {cell} {rec['library_ms']:.4f} ms, bound "
             f"{rec['bound_ms']:.6f} ms ({rec['bound_by']})")
     return rec
 
 
-def _fwd_design(cell: str, B: int, T: int) -> dict:
+def _fwd_design(cell: str, B: int, T: int, dev, H=H) -> dict:
     """The layout the forward kernel launches at this shape (bf16 compute
-    and history, both directions), logged with the number of co-resident
-    clusters the plan assumed when it chose its rows."""
-    from twotowermlretrieval_tpu_torch.ops.rnn_scan import _CLUSTER_SLOTS, fwd_plan
+    and history, both directions), logged with the number of clusters of
+    its size the card holds at once (read from the card), by which the
+    plan chose its rows."""
+    from twotowermlretrieval_tpu_torch.ops.rnn_scan import cluster_slots, fwd_plan
 
-    plan = fwd_plan(cell, T, B, H, 2, "bfloat16", torch.bfloat16)
+    slots = cluster_slots("fwd", cell, "bfloat16", torch.bfloat16, dev)
+    plan = fwd_plan(cell, T, B, H, 2, "bfloat16", torch.bfloat16, slots)
     w = ("resident" if plan["resident"]
          else f"streamed in chunks of {plan['kc']} rows every step")
-    log(f"rnn_fwd design, {cell} B={B} T={T}: clusters of {plan['nc']} CTAs x {plan['hc']} "
-        f"hidden columns, {plan['rows']} batch rows a cluster, {plan['clusters']} clusters a "
-        f"direction ({2 * plan['clusters']} in all; the plan takes the card to hold "
-        f"{_CLUSTER_SLOTS} at once), W columns {w}, {plan['smem']} bytes of shared memory a CTA")
+    log(f"rnn_fwd design, {cell} B={B} T={T} H={H}: clusters of {plan['nc']} CTAs x "
+        f"{plan['hc']} hidden columns, {plan['rows']} batch rows a cluster, "
+        f"{plan['clusters']} clusters a direction ({2 * plan['clusters']} in all; the card "
+        f"holds {plan['slots']} clusters of {plan['nc']} at once), W columns {w}, "
+        f"{plan['smem']} bytes of shared memory a CTA")
     return plan
 
 
@@ -715,30 +728,36 @@ def _rel(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def _cudnn_gru_backward_ms(B, T, dev, H=H) -> float:
-    """cuDNN's backward of one bidirectional GRU layer (input width 2H,
-    fp16): forward+backward minus forward, each timed alone."""
-    gru = torch.nn.GRU(2 * H, H, num_layers=1, bidirectional=True).to(dev, torch.float16)
+def _cudnn_backward_ms(B, T, dev, H=H, cell="GRU") -> float:
+    """cuDNN's backward of one bidirectional layer of the cell (input width
+    2H, fp16): forward+backward minus forward, each timed alone."""
+    layer = _cudnn_layer(cell, H, dev)
     x = torch.randn((T, B, 2 * H), device=dev, dtype=torch.float16, requires_grad=True)
     g = torch.randn((T, B, 2 * H), device=dev, dtype=torch.float16)
     with torch.enable_grad():
-        fwd = time_ms(lambda: gru(x))
-        both = time_ms(lambda: torch.autograd.backward(gru(x)[0], g))
+        fwd = time_ms(lambda: layer(x))
+        both = time_ms(lambda: torch.autograd.backward(layer(x)[0], g))
     return both - fwd
 
 
-def _bwd_design(cell: str, B: int, T: int, H=H) -> dict:
+def _bwd_design(cell: str, B: int, T: int, dev, H=H) -> dict:
     """The layout the backward kernel launches at this shape (bf16 compute
-    and history, both directions), logged."""
-    from twotowermlretrieval_tpu_torch.ops.rnn_scan import bwd_plan
+    and history, both directions), logged with the card's count of
+    clusters of its size."""
+    from twotowermlretrieval_tpu_torch.ops.rnn_scan import bwd_plan, cluster_slots
 
-    plan = bwd_plan(cell, T, B, H, 2, "bfloat16", torch.bfloat16)
+    slots = cluster_slots("bwd", cell, "bfloat16", torch.bfloat16, dev)
+    plan = bwd_plan(cell, T, B, H, 2, "bfloat16", torch.bfloat16, slots)
     w = ("resident" if plan["resident"]
          else f"streamed in chunks of {plan['kc']} columns every step")
-    log(f"rnn_bwd design, {cell} B={B} T={T}: clusters of {plan['nc']} CTAs x {plan['hc']} "
-        f"hidden columns, {plan['rows']} batch rows a cluster, {plan['clusters']} clusters a "
-        f"direction, W rows {w}, {plan['stages']} staging buffers, {plan['blocks']} dhp row "
-        f"block(s), {plan['smem']} bytes of shared memory a CTA; weight gradient in "
+    kp = -(-_GATES[cell] * plan["H"] // 16) * 16
+    x = ("whole" if plan["xc"] >= kp
+         else f"exchanged in chunks of {plan['xc']} columns, a cluster barrier each")
+    log(f"rnn_bwd design, {cell} B={B} T={T} H={H}: clusters of {plan['nc']} CTAs x "
+        f"{plan['hc']} hidden columns (the card holds {plan['slots']} at once), "
+        f"{plan['rows']} batch rows a cluster, {plan['clusters']} clusters a direction, W rows "
+        f"{w}, {plan['stages']} staging buffers, {plan['blocks']} dhp row block(s) {x}, "
+        f"{plan['smem']} bytes of shared memory a CTA; weight gradient in "
         f"{plan['nsplit']} slices of T*B")
     return plan
 
@@ -776,16 +795,16 @@ def check_rnn_bwd(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H) -
     rec = {"shape": shape, "max_abs_err": max_abs, "dxp_err_of_scale": dxp_err / dxp_scale,
            "dw_rel": w_rel, "db_rel": b_rel, "bitwise_repeatable": bitwise}
     if timed:
-        rec["design"] = _bwd_design(cell, B, T, H)
+        rec["design"] = _bwd_design(cell, B, T, dev, H)
         rec["ms"] = time_ms(lambda: rnn_layer_bwd(cell, *args, **kw))
         rec["plain_ms"] = time_ms(lambda: rnn_layer_bwd_reference(cell, *args, **kw),
                                   reps=3, warmup=1)
-        rec["library_ms"] = _cudnn_gru_backward_ms(B, T, dev, H)
+        rec["library_ms"] = _cudnn_backward_ms(B, T, dev, H, cell)
         nbytes, flops = rnn_bwd_bound(T, B, H, 2, _GATES[cell], 2, 2)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
         rec["step_us"] = rec["ms"] / T * 1e3
         log(f"rnn_bwd {shape}: kernel {rec['ms']:.4f} ms ({rec['step_us']:.2f} us a step, the "
-            f"two products included), plain {rec['plain_ms']:.4f} ms, cuDNN GRU backward "
+            f"two products included), plain {rec['plain_ms']:.4f} ms, cuDNN {cell} backward "
             f"(fwd+bwd - fwd, fp16) {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
             f"({rec['bound_by']})")
     return rec
@@ -827,7 +846,7 @@ def check_rnn_bwd_split(B: int, T: int, seed: int, dev) -> dict:
     rec["route_ms"] = time_ms(lambda: rnn_layer_bwd_hoisted("GRU", *args, **kw))
     rec["plain_ms"] = time_ms(lambda: _bwd_reference("GRU", *args, "bfloat16", split=True),
                               reps=3, warmup=1)
-    rec["library_ms"] = _cudnn_gru_backward_ms(B, T, dev)
+    rec["library_ms"] = _cudnn_backward_ms(B, T, dev)
     nbytes, flops = rnn_bwd_bound(T, B, H, 2, 3, 2, 2, split=True)
     rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
     log(f"rnn_bwd {shape}: kernel {rec['ms']:.4f} ms, hoisted route {rec['route_ms']:.4f} ms, "
@@ -849,12 +868,29 @@ def phase_bwd_kernels(dev) -> list:
     ]
 
 
-def check_attention(B: int, T: int, in_dtype, seed: int, dev) -> tuple:
-    """Both attention kernels at B rows of 8 heads (R = 8B), hd=32, bf16
-    compute, against their plain versions; rows of batch element 0 have
+def phase_wide_kernels(dev) -> tuple:
+    """The widths the JAX package keeps on its Pallas kernels that clusters
+    of 8 do not hold, at the query encode's B=16, T=32 (bf16, bf16
+    history), each against its plain version and twice bit-identical, with
+    its layout (the cluster size and the card's count of such clusters) and
+    timed beside cuDNN: GRU H=1792 and LSTM H=1536 backward (the dhp row
+    block exchanged in chunks), RNN H=3072 both passes (W streamed).
+    Returns the (forward, backward) records."""
+    with torch.inference_mode():
+        fwd = [check_rnn("RNN", SERVE_ROWS, QUERY_LEN, 21, dev, timed=True, H=3072)]
+    bwd = [check_rnn_bwd("GRU", SERVE_ROWS, QUERY_LEN, 22, dev, timed=True, H=1792),
+           check_rnn_bwd("LSTM", SERVE_ROWS, QUERY_LEN, 23, dev, timed=True, H=1536),
+           check_rnn_bwd("RNN", SERVE_ROWS, QUERY_LEN, 24, dev, timed=True, H=3072)]
+    return fwd, bwd
+
+
+def check_attention(B: int, T: int, in_dtype, seed: int, dev, hd: int = TF_HD) -> tuple:
+    """Both attention kernels at B rows of 8 heads (R = 8B), head width hd,
+    bf16 compute, against their plain versions; rows of batch element 0 have
     length 0 (fully masked), 1 has length 1, 2 all of T. Timed beside SDPA
     with the same additive mask (forward, and forward+backward minus
-    forward). Returns the (forward, backward) records."""
+    forward); the kernels' tiles logged. Returns the (forward, backward)
+    records."""
     import torch.nn.functional as F
 
     from twotowermlretrieval_tpu_torch.ops.attention import (
@@ -863,25 +899,34 @@ def check_attention(B: int, T: int, in_dtype, seed: int, dev) -> tuple:
         attention_bwd_reference,
         attention_fwd,
         attention_fwd_reference,
+        attention_plan,
     )
 
     R = B * TF_HEADS
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v, do = (torch.randn((R, T, TF_HD), generator=gen, device=dev) for _ in range(4))
+    q, k, v, do = (torch.randn((R, T, hd), generator=gen, device=dev) for _ in range(4))
     q, k, v = (t.to(in_dtype) for t in (q, k, v))
     lengths = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
     lengths[:3] = torch.tensor([0, 1, T], device=dev)
     bias = torch.where(torch.arange(T, device=dev)[None, :] < lengths[:, None], 0.0, -1e9)
     bias = bias.repeat_interleave(TF_HEADS, dim=0)  # [R, T], row b * heads + h
-    scale = float(1.0 / np.sqrt(TF_HD))
+    scale = float(1.0 / np.sqrt(hd))
     args = (q, k, v, bias)
     out = attention_fwd(*args, scale, "bfloat16")
     grads = attention_bwd(*args, do, scale, "bfloat16")
     r_out = attention_fwd_reference(*args, scale, "bfloat16")
     r_grads = attention_bwd_reference(*args, do, scale, "bfloat16")
     torch.cuda.synchronize()
-    shape = (f"R={R} (B={B} x {TF_HEADS} heads) T={T} hd={TF_HD} "
+    shape = (f"R={R} (B={B} x {TF_HEADS} heads) T={T} hd={hd} "
              f"{'bf16' if in_dtype == torch.bfloat16 else 'f32'} in, bf16 compute")
+    plan = attention_plan(T, hd, "bfloat16")
+    def tile(t):
+        return (f"{t['rows']} query rows a block in {t['rows'] // 16 * t['ks']} warps"
+                f"{', V staged over K' if t['kv_shared'] else ''}, {t['smem']} bytes")
+
+    log(f"attention tiles, T={T} hd={hd}: forward {tile(plan['fwd'])}; backward "
+        f"{tile(plan['dq'])}, then {plan['dkv']['rows']} keys a block "
+        f"({plan['dkv']['smem']} bytes)")
     fwd_err = (out - r_out).abs().max().item()
     bwd_err = max((a - b).abs().max().item() for a, b in zip(grads, r_grads))
     fwd_rel = fwd_err / r_out.abs().max().item()
@@ -897,8 +942,15 @@ def check_attention(B: int, T: int, in_dtype, seed: int, dev) -> tuple:
     check(fwd_rel <= ATTN_REL and bwd_rel <= ATTN_REL, f"attention {shape}: off its plain version")
     check(masked_err <= 4 * ATTN_REL * v[:TF_HEADS].float().abs().max().item(),
           f"attention {shape}: a fully masked row is not uniform")
-    fwd = {"shape": shape, "max_abs_err": fwd_err, "rel_err": fwd_rel}
-    bwd = {"shape": shape, "max_abs_err": bwd_err, "rel_err": bwd_rel}
+    # no atomics, a fixed summation order: a second call gives the same bits
+    bitwise = (torch.equal(out, attention_fwd(*args, scale, "bfloat16"))
+               and all(torch.equal(a, b)
+                       for a, b in zip(grads, attention_bwd(*args, do, scale, "bfloat16"))))
+    check(bitwise, f"attention {shape}: two calls differ")
+    fwd = {"shape": shape, "max_abs_err": fwd_err, "rel_err": fwd_rel, "tiles": plan["fwd"],
+           "bitwise_repeatable": bitwise}
+    bwd = {"shape": shape, "max_abs_err": bwd_err, "rel_err": bwd_rel,
+           "tiles": {"dq": plan["dq"], "dkv": plan["dkv"]}, "bitwise_repeatable": bitwise}
     in_bytes = 2 if in_dtype == torch.bfloat16 else 4
     fwd["ms"] = time_ms(lambda: attention_fwd(*args, scale, "bfloat16"))
     bwd["ms"] = time_ms(lambda: attention_bwd(*args, do, scale, "bfloat16"))
@@ -919,7 +971,7 @@ def check_attention(B: int, T: int, in_dtype, seed: int, dev) -> tuple:
     bwd["library_ms"] = both - fwd["library_ms"]
     bwd["library_fwd_bwd_ms"] = both
     for rec, backward in ((fwd, False), (bwd, True)):
-        rec["bound_ms"], rec["bound_by"] = bound(*attention_bound(R, T, TF_HD, in_bytes, backward))
+        rec["bound_ms"], rec["bound_by"] = bound(*attention_bound(R, T, hd, in_bytes, backward))
     log(f"attention {shape}: forward {fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}, SDPA "
         f"{fwd['library_ms']:.4f}, bound {fwd['bound_ms']:.6f} {fwd['bound_by']}); backward "
         f"{bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.4f}, SDPA fwd+bwd - fwd "
@@ -932,14 +984,16 @@ def check_attention(B: int, T: int, in_dtype, seed: int, dev) -> tuple:
 def phase_attention_kernels(dev) -> dict:
     """The transformer's shapes: the doc tower in training (B=512, T=128,
     the main row), its query tower (T=32), one serving batch (16 rows,
-    T=32) and one T=512 case; each with f32 inputs (the f32 residual
-    stream) and with bf16 inputs (RESIDUAL_DTYPE bfloat16)."""
+    T=32) and two T=512 cases (hd=32, and hd=64 with V staged over K); each
+    with f32 inputs (the f32 residual stream) and with bf16 inputs
+    (RESIDUAL_DTYPE bfloat16)."""
     fwd, bwd = [], []
     with torch.no_grad():
         for in_dtype in (torch.float32, torch.bfloat16):
-            for i, (B, T) in enumerate(((TF_ROWS, DOC_LEN), (TF_ROWS, QUERY_LEN),
-                                        (SERVE_ROWS, QUERY_LEN), (32, 512))):
-                f, b = check_attention(B, T, in_dtype, 30 + i, dev)
+            for i, (B, T, hd) in enumerate(((TF_ROWS, DOC_LEN, TF_HD), (TF_ROWS, QUERY_LEN, TF_HD),
+                                            (SERVE_ROWS, QUERY_LEN, TF_HD), (32, 512, TF_HD),
+                                            (32, 512, 64))):
+                f, b = check_attention(B, T, in_dtype, 30 + i, dev, hd)
                 fwd.append(f)
                 bwd.append(b)
     return {"attention_fwd": fwd, "attention_bwd": bwd}
@@ -1646,6 +1700,9 @@ def main() -> int:
         kern = phase_kernels(dev)
         kern.update(phase_int8_kernels(dev))
         kern["rnn_bwd"] = phase_bwd_kernels(dev)
+        wide_fwd, wide_bwd = phase_wide_kernels(dev)
+        kern["rnn_fwd"] += wide_fwd
+        kern["rnn_bwd"] += wide_bwd
         kern.update(phase_attention_kernels(dev))
         export, corpus = phase_export(dev)
         served = phase_serve(dev, corpus[2])

@@ -22,7 +22,10 @@ import torch
 from twotowermlretrieval_tpu.ops.attention import fused_attention as jax_fused_attention
 from twotowermlretrieval_tpu.ops.attention import use_fused_attention as jax_use_fused_attention
 from twotowermlretrieval_tpu_torch.ops.attention import (
+    HEAD_DIMS,
+    MAX_T,
     attention_bwd,
+    attention_plan,
     attention_bwd_reference,
     attention_fwd,
     fused_attention,
@@ -87,6 +90,63 @@ def test_plain_attention_matches_jax_kernel(cdt, in_dtype, R, T, hd):
                                                           np.float32)
     np.testing.assert_allclose(got[0][0], np.broadcast_to(v[0].mean(0), (T, hd)),
                                atol=1e-5 if cdt == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("R,T,hd", [(3, 512, 64), (3, 1, 8), (4, 33, 16), (3, 130, 32)])
+def test_plain_attention_matches_jax_kernel_long_and_ragged(R, T, hd):
+    """bf16 compute, f32 inputs: hd = 64 at T = 512 (the card's kernels take
+    it under bf16 compute) and ragged T (a lone key; partial 16-key blocks
+    and query tiles on the card)."""
+    case = _case(R, T, hd, seed=T + hd)
+    got = _port(*case, "bfloat16", np.float32)
+    _assert_close(got, _jax(*case, "bfloat16", np.float32), "bfloat16")
+    assert all(np.isfinite(x).all() for x in got)
+
+
+def _staged_row(hd):  # a bf16 row in shared memory: the hd depth padded to 16, 16 bytes more
+    return (max(hd, 16) + 8) * 2
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_attention_plan_every_length(hd):
+    """Every T up to 512 has a tensor-core layout (bf16 compute) within the
+    SM's shared memory, region by region as csrc/attention.cu lays it out:
+    query tiles of 16 to 128 rows (a warp a 16), as large as fit beside the
+    tile's f32 scores [rows, T], and key tiles of up to 64; the forward and
+    the backward's first launch stage V over K only where both do not fit,
+    and split a tile's keys over two warps only where one block fills the
+    SM.
+    f32 compute keeps a row's K and V as f32: hd = 64 stops at T = 443
+    there."""
+    limit = 232_448
+    row = _staged_row(hd)
+    for T in range(1, MAX_T + 1):
+        Tp = -(-T // 16) * 16
+        plan = attention_plan(T, hd, "bfloat16")
+        assert plan is not None and plan["route"] == "mma", T
+        f, q, kv = plan["fwd"], plan["dq"], plan["dkv"]
+        for rows in (f["rows"], q["rows"], kv["rows"]):
+            assert rows % 16 == 0 and 16 <= rows <= min(128, Tp)
+        assert kv["rows"] == min(64, Tp)
+        for p_, staged in ((f, 1), (q, 2)):  # Q (and dO) rows, K and V, scores, bias, halves
+            assert p_["smem"] == staged * p_["rows"] * row \
+                + Tp * row * (1 if p_["kv_shared"] else 2) + p_["rows"] * Tp * 4 + Tp * 4 \
+                + p_["rows"] * 32 <= limit
+            # V over K only where K and V apart do not fit
+            assert not p_["kv_shared"] or p_["smem"] + Tp * row > limit
+            # two key halves only where one block fills the SM, in at most 8 warps
+            assert p_["ks"] == 1 or (p_["smem"] > limit // 2 and p_["rows"] <= 64
+                                     and Tp >= max(32, hd))
+        kt = kv["rows"]
+        assert kv["smem"] == 2 * kt * row + 2 * (2 * kt * row + -(-12 * kt // 16) * 16) \
+            + 2 * -(-kt * (kt + 8) * 2 // 16) * 16 + -(-kt * 4 // 16) * 16 <= limit
+        f32 = attention_plan(T, hd, "float32")
+        fits = (2 * T * hd + 3 * T) * 4 <= limit
+        assert (f32 is not None) == fits and (fits or (hd == 64 and T > 443))
+    wide = attention_plan(512, 64, "bfloat16")  # V over K keeps 64-row tiles
+    assert wide["fwd"]["rows"] == wide["dq"]["rows"] == 64 and wide["dq"]["kv_shared"]
+    assert wide["fwd"]["ks"] == wide["dq"]["ks"] == 2
+    assert attention_plan(443, 64, "float32") is not None
 
 
 def test_bf16_inputs_without_input_dtype_give_bf16_gradients():

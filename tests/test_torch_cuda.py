@@ -144,10 +144,11 @@ def _check_fwd(got, want, cdt):
                                    atol=th)
 
 
-# the widest forward layer of each cell and compute dtype (ops/rnn_scan.py)
-_FWD_WIDEST = {("GRU", "bfloat16"): 2048, ("GRU", "float32"): 2016,
-               ("LSTM", "bfloat16"): 2048, ("LSTM", "float32"): 1760,
-               ("RNN", "bfloat16"): 2048, ("RNN", "float32"): 2048}
+# the widest forward layer of each cell and compute dtype (ops/rnn_scan.py;
+# clusters of 16 past what clusters of 8 hold)
+_FWD_WIDEST = {("GRU", "bfloat16"): 2976, ("GRU", "float32"): 2560,
+               ("LSTM", "bfloat16"): 2816, ("LSTM", "float32"): 2336,
+               ("RNN", "bfloat16"): 3360, ("RNN", "float32"): 3200}
 
 
 @pytest.mark.parametrize("cdt", ["bfloat16", "float32"])
@@ -331,19 +332,20 @@ def test_rnn_bwd_ragged_batches_and_one_step(dev, B, T, cell, cdt):
                rnn_layer_bwd_reference(cell, *args, compute_dtype=cdt), cdt)
 
 
-# the widest width the previous backward took (with two dhp row blocks),
-# and the widest the planner takes now (one row block; f32 history), per
-# cell and compute dtype
-_WIDEST = {("GRU", "bfloat16"): (816, 1216), ("GRU", "float32"): (916, 1488),
-           ("LSTM", "bfloat16"): (608, 928), ("LSTM", "float32"): (700, 1148),
-           ("RNN", "bfloat16"): (2048, 2048), ("RNN", "float32"): (2048, 2048)}
+# the widest width the backward takes with two dhp row blocks, and the
+# widest the planner takes now (the row block exchanged in chunks in
+# clusters of 16; f32 history), per cell and compute dtype
+_WIDEST = {("GRU", "bfloat16"): (816, 4096), ("GRU", "float32"): (916, 4096),
+           ("LSTM", "bfloat16"): (608, 3328), ("LSTM", "float32"): (700, 4096),
+           ("RNN", "bfloat16"): (2048, 4096), ("RNN", "float32"): (2048, 4096)}
 
 
 @pytest.mark.parametrize("which", [0, 1], ids=["previous", "new"])
 @pytest.mark.parametrize("cell,cdt", list(_WIDEST), ids=[f"{c}-{d}" for c, d in _WIDEST])
 def test_rnn_bwd_widest_widths(dev, cell, cdt, which):
     """The widest layers stream their rows of W through shared memory,
-    the widest of all with one dhp row block."""
+    the widest of all in clusters of 16 with the dhp row block exchanged
+    in chunks."""
     H = _WIDEST[cell, cdt][which]
     assert bwd_plan(cell, 4, 3, H, 1, cdt, torch.float32) is not None
     assert which == 0 or bwd_plan(cell, 4, 3, H + 4, 1, cdt, torch.float32) is None
@@ -416,6 +418,36 @@ def test_rnn_bwd_one_row_block(dev, cdt):
         assert (x.float() - y.float()).abs().max().item() <= 2 ** -7 * y.float().abs().max().item()
 
 
+# the widths the JAX package keeps on its Pallas kernels that clusters of 8
+# do not hold: clusters of 16, W streamed, the backward's dhp row block
+# exchanged in chunks (GRU 1792, LSTM 1536) or held once (RNN)
+_WIDE = [("GRU", 1792, 16), ("LSTM", 1536, 16), ("RNN", 3072, 16), ("RNN", 2560, 128)]
+
+
+@pytest.mark.parametrize("cell,H,B", _WIDE, ids=[f"{c}-H{h}-B{b}" for c, h, b in _WIDE])
+def test_rnn_widest_jax_widths_on_the_kernels(dev, cell, H, B):
+    """Both passes at bf16 with the model's bf16 history hold their plain
+    versions within the tolerances above, and each gives the same bits
+    twice."""
+    cdt = "bfloat16"
+    fp = fwd_plan(cell, 6, B, H, 2, cdt, torch.bfloat16)
+    bp = bwd_plan(cell, 6, B, H, 2, cdt, torch.bfloat16)
+    assert fp["nc"] > 8 or bp["nc"] > 8
+    args = _rnn_case(dev, cell, 2, 6, B, H, seed=H + B)
+    before = rnn_layer_fwd.launches, rnn_layer_bwd.launches
+    got = [rnn_layer_fwd(cell, *args, compute_dtype=cdt, history_in_cdt=True) for _ in range(2)]
+    _check_fwd(got[0], rnn_layer_fwd_reference(cell, *args, compute_dtype=cdt,
+                                               history_in_cdt=True), cdt)
+    for x, y in zip((*got[0][0], *got[0][1], got[0][2]), (*got[1][0], *got[1][1], got[1][2])):
+        assert torch.equal(x, y)
+    bargs = _bwd_case(dev, cell, 2, 6, B, H, seed=H + B + 1, cdt=cdt, history_in_cdt=True)
+    a, b = (rnn_layer_bwd(cell, *bargs, compute_dtype=cdt) for _ in range(2))
+    assert (rnn_layer_fwd.launches, rnn_layer_bwd.launches) == (before[0] + 2, before[1] + 2)
+    _check_bwd(a, rnn_layer_bwd_reference(cell, *bargs, compute_dtype=cdt), cdt)
+    for x, y in zip((*a[0], a[1], a[2]), (*b[0], b[1], b[2])):
+        assert torch.equal(x, y)
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -477,12 +509,12 @@ def test_rnn_bwd_wrapper_rejects_what_the_kernel_does_not_take(dev):
         rnn_layer_bwd("LSTM", *args)
     # one width step beyond the widest LSTM layout of either compute dtype:
     # refused before any launch, naming the limit
-    wide = _rnn_case(dev, "LSTM", 1, 2, 3, 1152, seed=0)
+    wide = _rnn_case(dev, "LSTM", 1, 2, 3, 4100, seed=0)
     outs, c_hist, _ = rnn_layer_fwd_reference("LSTM", *wide, "float32")
     before = rnn_layer_bwd.launches
-    with pytest.raises(ValueError, match="shared memory.*up to 928"):
+    with pytest.raises(ValueError, match="shared memory.*up to 3328"):
         rnn_layer_bwd("LSTM", *wide, outs, c_hist, [torch.zeros_like(outs[0])],
-                      torch.zeros((1, 3, 1152), device=dev))
+                      torch.zeros((1, 3, 4100), device=dev))
     assert rnn_layer_bwd.launches == before
 
 
@@ -785,6 +817,31 @@ def test_attention_kernels_match_plain_version(dev, cdt, in_dtype, R, T, hd):
     torch.testing.assert_close(out[0], v0.mean(0).expand(T, hd), rtol=0, atol=4 * _ATTN_REL[cdt])
 
 
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16], ids=["f32-in", "bf16-in"])
+@pytest.mark.parametrize("hd", [8, 32, 64])
+@pytest.mark.parametrize("T", [1, 33, 128, 130, 512])
+def test_attention_tensor_core_kernels_every_shape(dev, T, hd, in_dtype):
+    """bf16 compute (the tensor-core kernels) at ragged and whole tiles up to
+    T = 512, hd = 8 (depth padded to 16) to 64: forward and backward hold
+    their plain versions within one bf16 ulp of the scale, row 0 (every key
+    masked) attends uniformly over its T keys, and two calls give the same
+    bits."""
+    R = 5
+    args, do = _attention_case(dev, R, T, hd, in_dtype, seed=T * hd)
+    scale = float(1.0 / np.sqrt(hd))
+    outs = [attention_fwd(*args, scale, "bfloat16") for _ in range(2)]
+    grads = [attention_bwd(*args, do, scale, "bfloat16") for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+    assert all(torch.equal(x, y) for x, y in zip(grads[0], grads[1]))
+    _close(outs[0], attention_fwd_reference(*args, scale, "bfloat16"), _ATTN_REL["bfloat16"], "out")
+    for name, g, r in zip("qkv", grads[0], attention_bwd_reference(*args, do, scale, "bfloat16")):
+        _close(g, r, _ATTN_REL["bfloat16"], f"d{name}")
+    assert all(bool(torch.isfinite(t).all()) for t in (outs[0], *grads[0]))
+    v0 = args[2][0].to(torch.bfloat16).float()
+    torch.testing.assert_close(outs[0][0], v0.mean(0).expand(T, hd), rtol=0,
+                               atol=4 * _ATTN_REL["bfloat16"])
+
+
 def test_attention_kernels_are_deterministic(dev):
     args, do = _attention_case(dev, 512, 128, 32, torch.float32, seed=3)
     a = attention_bwd(*args, do, 0.17, "bfloat16")
@@ -820,11 +877,16 @@ def test_attention_wrappers_reject_what_the_kernel_does_not_take(dev):
         attention_fwd(q, k.cpu(), v, bias, 0.2)
     with pytest.raises(ValueError):
         attention_bwd(q, k, v, bias, do[:, :8], 0.2)
-    wide = torch.zeros((1, 512, 64), device=dev)
-    with pytest.raises(RuntimeError, match="attention_fwd_launch failed"):
-        attention_fwd(wide, wide, wide, torch.zeros((1, 512), device=dev), 0.1)  # shared memory
-    out = attention_fwd(q, k, v, bias, 0.2)  # the refusal left no error behind
-    assert bool(torch.isfinite(out).all())
+    # hd = 64 at T = 512: bf16 compute stages bf16 operands and takes it;
+    # f32 compute stages a row's K and V as f32 and refuses it, naming its limit
+    wide = torch.randn((1, 512, 64), device=dev)
+    wbias = torch.zeros((1, 512), device=dev)
+    out = attention_fwd(wide, wide, wide, wbias, 0.1)
+    _close(out, attention_fwd_reference(wide, wide, wide, wbias, 0.1), _ATTN_REL["bfloat16"], "out")
+    before = attention_fwd.launches
+    with pytest.raises(ValueError, match="shared memory.*T up to 443"):
+        attention_fwd(wide, wide, wide, wbias, 0.1, "float32")
+    assert attention_fwd.launches == before
 
 
 @pytest.mark.parametrize("fused", [True, None])

@@ -16,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from twotowermlretrieval_tpu.ops.rnn_scan import plan_fused
 from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
     _SMEM_LIMIT,
+    H100_SXM_CLUSTER_SLOTS,
     _bwd_reference,
     _bwd_smem_bytes,
     _fwd_smem_bytes,
@@ -39,7 +41,8 @@ def _fwd_layout_ok(cell, H, cdt, plan) -> bool:
     Hk, nc, hc, R, kc = plan["H"], plan["nc"], plan["hc"], plan["rows"], plan["kc"]
     kp = -(-Hk // 32) * 32
     held = (R // 16) * (hc // 8) <= 32 and R % 16 == 0 if cb == 2 else R * hc <= 2048
-    return (Hk >= H and Hk % 8 == 0 and Hk - H < 8 and 1 <= nc <= 8 and hc % 8 == 0
+    return (Hk >= H and Hk % 8 == 0 and Hk - H < 8 and 1 <= nc <= 16 and hc % 8 == 0
+            and (nc <= 8 or H100_SXM_CLUSTER_SLOTS[nc] > 0)
             and nc * hc >= Hk > (nc - 1) * hc and held and kc % 32 == 0
             and plan["resident"] == (kc >= kp)
             and plan["smem"] == _fwd_smem_bytes(cell, Hk, cb, R, hc, kc) <= _SMEM_LIMIT)
@@ -56,16 +59,20 @@ def test_fwd_plan_takes_every_width_up_to_1024(cell, cdt):
             assert plan["clusters"] * plan["rows"] >= B
 
 
-# the widest forward layer of each cell and compute dtype (module docstring)
-_FWD_WIDEST = {("GRU", "bfloat16"): 2048, ("GRU", "float32"): 2016,
-               ("LSTM", "bfloat16"): 2048, ("LSTM", "float32"): 1760,
-               ("RNN", "bfloat16"): 2048, ("RNN", "float32"): 2048}
-# the widest backward layer at an f32 history (bf16: the bf16 history too)
-_BWD_WIDEST = {("GRU", "bfloat16", "f32"): 1216, ("GRU", "bfloat16", "bf16"): 1280,
-               ("GRU", "float32", "f32"): 1488, ("LSTM", "bfloat16", "f32"): 928,
-               ("LSTM", "bfloat16", "bf16"): 960, ("LSTM", "float32", "f32"): 1148,
-               ("RNN", "bfloat16", "f32"): 2048, ("RNN", "bfloat16", "bf16"): 2048,
-               ("RNN", "float32", "f32"): 2048}
+# the widest forward layer of each cell and compute dtype (module docstring;
+# clusters of 16 past what clusters of 8 hold)
+_FWD_WIDEST = {("GRU", "bfloat16"): 2976, ("GRU", "float32"): 2560,
+               ("LSTM", "bfloat16"): 2816, ("LSTM", "float32"): 2336,
+               ("RNN", "bfloat16"): 3360, ("RNN", "float32"): 3200}
+# the widest backward layer at an f32 history (bf16: the bf16 history too);
+# past one whole dhp row block the row block is exchanged in chunks, so the
+# limit is a CTA's units (16 x 8 tiles, 4096 at clusters of 16) or, for
+# LSTM at bf16, its staging buffers
+_BWD_WIDEST = {("GRU", "bfloat16", "f32"): 4096, ("GRU", "bfloat16", "bf16"): 4096,
+               ("GRU", "float32", "f32"): 4096, ("LSTM", "bfloat16", "f32"): 3328,
+               ("LSTM", "bfloat16", "bf16"): 3584, ("LSTM", "float32", "f32"): 4096,
+               ("RNN", "bfloat16", "f32"): 4096, ("RNN", "bfloat16", "bf16"): 4096,
+               ("RNN", "float32", "f32"): 4096}
 
 
 @pytest.mark.parametrize("cell,cdt", _CASES, ids=[f"{c}-{d}" for c, d in _CASES])
@@ -94,7 +101,8 @@ def test_bwd_plan_with_padding_takes_every_width_up_to_its_limit(cell, cdt, hist
     of 4, has a layout, and the next width has none. The main path's H=256
     keeps W resident and two dhp row blocks; past the room two blocks leave
     (816 / 608 / 2048 at bf16, 916 / 700 / 2048 at f32, f32 history) the
-    plan keeps one."""
+    plan keeps one, or exchanges the row block in chunks through two chunk
+    buffers."""
     hdt = torch.bfloat16 if hist == "bf16" else torch.float32
     cb, hb = (2 if cdt == "bfloat16" else 4), hdt.itemsize
     top = _BWD_WIDEST[cell, cdt, hist]
@@ -105,12 +113,51 @@ def test_bwd_plan_with_padding_takes_every_width_up_to_its_limit(cell, cdt, hist
             assert plan["H"] % 4 == 0 and 0 <= plan["H"] - H < 4
             assert plan["smem"] == _bwd_smem_bytes(cell, plan["H"], cb, hb, plan["rows"],
                                                    plan["hc"], plan["kc"], plan["stages"],
-                                                   plan["blocks"])
+                                                   plan["blocks"], plan["xc"])
             assert plan["smem"] <= _SMEM_LIMIT
-            assert plan["blocks"] == 1 or H <= _BWD_TWO_BLOCKS[cell, cdt, hist]
+            kp = -(-_GATES[cell] * plan["H"] // 16) * 16
+            chunked = plan["xc"] < kp
+            assert not chunked or (plan["kc"] == plan["xc"] and plan["blocks"] == 2
+                                   and plan["xc"] % 16 == 0)
+            assert plan["blocks"] == 1 or chunked or H <= _BWD_TWO_BLOCKS[cell, cdt, hist]
     main = bwd_plan(cell, 32, 128, 256, 2, cdt, hdt)
-    assert main["resident"] and main["blocks"] == 2
+    assert main["resident"] and main["blocks"] == 2 and main["nc"] == 8
     assert bwd_plan(cell, 32, 128, top + 1, 2, cdt, hdt) is None
+
+
+_JAX_CASES = [(c, d) for c in ("GRU", "LSTM", "RNN") for d in ("bfloat16", "float32")]
+
+
+@pytest.mark.parametrize("cell,cdt", _JAX_CASES, ids=[f"{c}-{d}" for c, d in _JAX_CASES])
+def test_every_width_jax_keeps_on_its_kernels_has_both_plans(cell, cdt):
+    """Wherever the JAX package's plan_fused keeps a layer on its Pallas
+    kernels (H a multiple of 128 up to 4096, D=2, B in 16, 64, 128, 1024),
+    both of the port's passes have a layout within shared memory at the
+    model's history dtype (bf16 under bf16 compute, f32 under f32), so a
+    card runs it on the hand-written kernels. The main path's H=256 keeps
+    its layouts: clusters of 8 and, at bf16, W resident and two dhp row
+    blocks."""
+    G = _GATES[cell]
+    cb = 2 if cdt == "bfloat16" else 4
+    hist = torch.bfloat16 if cdt == "bfloat16" else torch.float32
+    covered = 0
+    for B in (16, 64, 128, 1024):
+        for H in range(128, 4097, 128):
+            if plan_fused(B, H, G * H, 2, cb) is None:
+                continue
+            covered += 1
+            fwd = fwd_plan(cell, 32, B, H, 2, cdt, hist)
+            bwd = bwd_plan(cell, 32, B, H, 2, cdt, hist)
+            assert fwd is not None and _fwd_layout_ok(cell, H, cdt, fwd), (cell, cdt, B, H)
+            assert bwd is not None and bwd["smem"] <= _SMEM_LIMIT, (cell, cdt, B, H)
+            assert bwd["nc"] <= 16 and H100_SXM_CLUSTER_SLOTS[bwd["nc"]] > 0
+        main_f = fwd_plan(cell, 32, B, 256, 2, cdt, hist)
+        main_b = bwd_plan(cell, 32, B, 256, 2, cdt, hist)
+        assert main_f["nc"] == 8 and main_b["nc"] == 8
+        if cdt == "bfloat16":  # the main path's compute dtype
+            assert main_f["resident"] and main_b["resident"] and main_b["blocks"] == 2
+            assert main_b["xc"] == G * 256
+    assert covered >= 4 * 7  # every cell keeps H=128..896 on its kernels at every B
 
 
 def _layer(cell, D, T, B, H, seed):

@@ -2,6 +2,7 @@
 // rnn_bwd.cu): the cell codes and gate counts, the conversions between the
 // compute dtype and f32, and thin wrappers of the PTX both chains are built
 // from (cp.async, ldmatrix, mma.sync m16n8k16 bf16 with f32 accumulation).
+// attention.cu takes the PTX wrappers too.
 
 #pragma once
 
@@ -82,6 +83,13 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
 }
+// two 8x8 matrices (the addresses of lanes 0-15), transposed
+__device__ __forceinline__ void ldsm_x2_t(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
 
 // the two halves of a cluster barrier: arrive (release) and wait (acquire),
 // called in turn by every thread of every CTA of the cluster
@@ -90,6 +98,37 @@ __device__ __forceinline__ void cluster_arrive() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// How many clusters of nc CTAs of `kernel` (threads each, a whole SM's
+// shared memory each) the card holds at once, into *out. Clusters of more
+// than 8 are allowed on the kernel first (not portable).
+template <typename Kernel>
+int cluster_slots(Kernel kernel, int nc, int threads, int* out) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  if (err == cudaSuccess && nc > 8)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nc, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = SMEM_LIMIT;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  *out = n;
+  return 0;
 }
 
 }  // namespace recur_chain

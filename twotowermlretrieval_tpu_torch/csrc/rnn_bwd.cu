@@ -42,7 +42,8 @@
 //    once instead of on the chain's few, and the chain's SMs keep their
 //    issue slots for the chain.
 // 2. The serial loop carries only dh (and LSTM's dc). One thread-block
-//    cluster of NC CTAs (NC <= 8, launched with the cluster attribute)
+//    cluster of NC CTAs (NC <= 8, or up to 16 where 8 do not fit; launched
+//    with the cluster attribute)
 //    walks all T steps for R batch rows of one direction; CTA q owns HC
 //    hidden columns j and the G gate columns g*H + j. Each CTA keeps its
 //    rows of W, round(W[j, :]) for its j (W^T's columns, exactly the
@@ -84,9 +85,18 @@
 // even the two rounded dhp row blocks do not fit (GRU past H=816 at bf16,
 // LSTM past 608), the chain keeps one and pays a second, split cluster
 // barrier a step: each CTA arrives after its product and waits before its
-// next push, so no push lands on a block a peer still reads. The
-// wrapper (ops/rnn_scan.py, bwd_plan) picks NC, R, KC, the staging depth,
-// the row blocks and S, and knows the shared-memory layout below; the
+// next push, so no push lands on a block a peer still reads. Where even one
+// row block does not fit beside the rest (GRU past about H=1700 at bf16,
+// LSTM past about 1400, in clusters of 16), it is exchanged in chunks of
+// XC columns: the gate math keeps the CTA's rounded dhp [R][G][HC], and
+// per chunk the CTA pushes its words of the chunk into one of two
+// alternating chunk buffers (its own and every peer's), one cluster
+// barrier, then the chunk's product with W streamed in the same chunks. A
+// push for chunk n lands on the buffer of chunk n - 2, which every CTA
+// finished reading before the barrier of chunk n - 1; the accumulators
+// run across the chunks, so the sums keep their order. The wrapper
+// (ops/rnn_scan.py, bwd_plan) picks NC, R, KC, XC, the staging depth, the
+// row blocks and S, and knows the shared-memory layout below; the
 // launcher refuses a plan that does not fit.
 
 #include <cooperative_groups.h>
@@ -387,8 +397,9 @@ cudaError_t gemm(const GemmArgs& g, int D, cudaStream_t stream) {
 
 struct ChainArgs {
   int T, B, H, dir0, split;
-  int R, hc, kp, kc, stages, blocks;  // the plan (kp: G*H rounded up to 16; kc == kp: W
-                                      // resident; blocks: dhp row blocks, 2 or 1)
+  int R, hc, kp, kc, stages, blocks, xc;  // the plan (kp: G*H rounded up to 16; kc == kp: W
+                                          // resident; blocks: dhp row blocks, 2 or 1; xc < kp:
+                                          // the row block exchanged in chunks of xc columns)
   Ptrs p;
   const float* mask;      // [T][B]
   const void* w_hh;       // [D][H][GH] CT
@@ -399,19 +410,20 @@ struct ChainArgs {
 
 // Byte offsets of one chain CTA's shared memory (ops/rnn_scan.py's
 // _bwd_smem_bytes mirrors the sizes): round(W) rows [hc][kc + pad], the
-// rounded dhp row blocks [blocks][R][kp + pad], the staging buffers, the dh
-// (and dc) carry [R][hc] and the db partial [G][R][hc], all f32 but W and
-// dhp. One staging buffer: hp [G][R][hc] f32 and xp [G][R][hc] CT (GRU,
+// rounded dhp row blocks [blocks][R][kp + pad] (exchanged in chunks: two
+// chunk buffers [2][R][xc + pad] and the CTA's own rounded dhp [R][G][hc]),
+// the staging buffers, the dh (and dc) carry [R][hc] and the db partial
+// [G][R][hc], all f32 but W and dhp. One staging buffer: hp [G][R][hc] f32 and xp [G][R][hc] CT (GRU,
 // LSTM), h1 [R][hc] HT (GRU h_prev, LSTM c_prev, RNN h_t), dout [R][hc]
 // HT, mask [R] f32.
 struct ChainSmem {
-  size_t w, dhp, stage, dh, dc, db, total;
+  size_t w, dhp, own, stage, dh, dc, db, total;
   size_t st_hp, st_xp, st_h1, st_do, st_m, st_size;
 };
 
 template <int CELL, typename CT, typename HT>
 __host__ __device__ ChainSmem chain_smem(int R, int hc, int kp, int kc, int stages,
-                                         int blocks) {
+                                         int blocks, int xc) {
   constexpr int G = NumGates<CELL>::G;
   constexpr size_t padk = 16 / sizeof(CT);
   ChainSmem s;
@@ -430,8 +442,11 @@ __host__ __device__ ChainSmem chain_smem(int R, int hc, int kp, int kc, int stag
   o = 0;
   s.w = o;
   o += a16((size_t)hc * (kc + padk) * sizeof(CT));
+  const int xw = xc < kp ? xc : kp;  // the columns of a row block held at once
   s.dhp = o;
-  o += a16((size_t)blocks * R * (kp + padk) * sizeof(CT));
+  o += a16((size_t)blocks * R * (xw + padk) * sizeof(CT));
+  s.own = o;
+  if (xw < kp) o += a16((size_t)R * G * hc * sizeof(CT));
   s.stage = o;
   o += (size_t)stages * s.st_size;
   s.dh = o;
@@ -464,8 +479,10 @@ __device__ __forceinline__ RowCopy row_copy(int bytes_per_row, int align_bits, i
 
 // Every index map below is fixed for the whole loop and worked out before
 // it: a step spends its instructions on copies and arithmetic, since all of
-// the CTA's warps issue through the same four schedulers.
-template <int CELL, typename CT, typename HT>
+// the CTA's warps issue through the same four schedulers. CHUNKED (the
+// row block exchanged in chunks) is a template argument, so the whole-block
+// path compiles as if the chunked one did not exist.
+template <int CELL, typename CT, typename HT, bool CHUNKED>
 __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainArgs a) {
   constexpr int G = NumGates<CELL>::G;
   constexpr bool kMma = sizeof(CT) == 2;
@@ -482,7 +499,10 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
   const int own = max(0, min(hc, H - j0));  // hidden columns this CTA owns (a multiple of 4)
   const int nrows = min(R, B - r0);         // rows of the cluster's block that exist
   const int tid = threadIdx.x;
-  const int wstride = kc + padk, dstride = kp + padk;
+  // chunked: the row block is exchanged xc columns at a time, each chunk
+  // pushed, barriered and multiplied in turn (W streamed in the same chunks)
+  constexpr bool chunked = CHUNKED;
+  const int wstride = kc + padk, dstride = (chunked ? a.xc : kp) + padk;
   const bool resident = kc >= kp;
 
   const CT* xp = static_cast<const CT*>(a.p.xp[e]);
@@ -494,11 +514,12 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
   const CT* w = static_cast<const CT*>(a.w_hh) + (size_t)e * H * GH;
   const float* hp = CELL == kRNN ? nullptr : a.hp + (size_t)e * T * B * GH;
 
-  const ChainSmem L = chain_smem<CELL, CT, HT>(R, hc, kp, kc, a.stages, a.blocks);
+  const ChainSmem L = chain_smem<CELL, CT, HT>(R, hc, kp, kc, a.stages, a.blocks, a.xc);
   const bool one_block = a.blocks == 1;
   extern __shared__ __align__(16) unsigned char smem[];
   CT* wbuf = reinterpret_cast<CT*>(smem + L.w);
   CT* dhpb = reinterpret_cast<CT*>(smem + L.dhp);
+  CT* ownb = reinterpret_cast<CT*>(smem + L.own);  // chunked: [R][G][hc]
   float* dh_s = reinterpret_cast<float*>(smem + L.dh);
   float* dc_s = reinterpret_cast<float*>(smem + L.dc);
   float* dbacc = reinterpret_cast<float*>(smem + L.db);
@@ -576,6 +597,45 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
   const int pu_words = own * (int)sizeof(CT) / pw, pu_lpr = G * pu_words;
   const int pu_tpr = min(pu_lpr, NT), pu_rstep = NT / pu_tpr;
   const int pu_l = tid % pu_tpr, pu_r = tid / pu_tpr;
+  const int nx = chunked ? (kp + a.xc - 1) / a.xc : 1;  // exchange chunks a step
+  // chunked: push the CTA's words of columns [x0, x0 + xc) from ownb into
+  // chunk buffer `dst` of this CTA and of every peer; the tail past G*H of
+  // the last chunk is zeroed locally (it held an earlier chunk's values)
+  auto push_chunk = [&](CT* dst, int x0) {
+    if (pu_r < pu_rstep) {
+#pragma unroll 1
+      for (int r = pu_r; r < nrows; r += pu_rstep)
+#pragma unroll 1
+        for (int l = pu_l; l < pu_lpr; l += pu_tpr) {
+          const int g = l / pu_words, wd = l - g * pu_words;
+          const int k = g * H + j0 + wd * (pw / (int)sizeof(CT));
+          if (k < x0 || k >= x0 + a.xc) continue;
+          const unsigned char* src = reinterpret_cast<const unsigned char*>(
+              ownb + (size_t)r * G * hc + g * hc) + wd * pw;
+          CT* at = dst + (size_t)r * dstride + (k - x0);
+          if (pw == 16) {
+            const uint4 v = *reinterpret_cast<const uint4*>(src);
+#pragma unroll 1
+            for (int pr = 0; pr < nc; ++pr) {
+              const int peer = q + pr < nc ? q + pr : q + pr - nc;
+              *reinterpret_cast<uint4*>(cluster.map_shared_rank(at, peer)) = v;
+            }
+          } else {
+            const uint2 v = *reinterpret_cast<const uint2*>(src);
+#pragma unroll 1
+            for (int pr = 0; pr < nc; ++pr) {
+              const int peer = q + pr < nc ? q + pr : q + pr - nc;
+              *reinterpret_cast<uint2*>(cluster.map_shared_rank(at, peer)) = v;
+            }
+          }
+        }
+    }
+    if (x0 + a.xc > GH) {
+      const int c0 = GH - x0, cw = min(kp, x0 + a.xc) - GH;
+      for (int i = tid; i < nrows * cw; i += NT)
+        dst[(size_t)(i / cw) * dstride + c0 + i % cw] = from_f<CT>(0.0f);
+    }
+  };
 
   for (int i = tid; i < R * hc; i += NT) {
     const int r = i / hc, c = i % hc;
@@ -676,7 +736,10 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
         dxp[tb * GH + g * H + j] = from_f<CT>(dxv[g]);
         if constexpr (CELL == kGRU) dhp_out[tb * GH + g * H + j] = from_f<CT>(dhp[g]);
         dbacc[g * RH + sc] += dhp[g];
-        mine[r * dstride + g * H + j] = from_f<CT>(dhp[g]);
+        if (chunked)
+          ownb[(size_t)r * G * hc + g * hc + c] = from_f<CT>(dhp[g]);
+        else
+          mine[r * dstride + g * H + j] = from_f<CT>(dhp[g]);
       }
       c += gm_dc;
       r += gm_dr;
@@ -690,8 +753,8 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
     if (one_block && step > 0) cluster_wait();
 
     // push this CTA's columns of the row block into every peer's copy: each
-    // word is read once and stored to every peer
-    if (pu_r < pu_rstep) {
+    // word is read once and stored to every peer (chunked: in the product)
+    if (!chunked && pu_r < pu_rstep) {
       unsigned char* blk = reinterpret_cast<unsigned char*>(mine);
 #pragma unroll 1
       for (int r = pu_r; r < nrows; r += pu_rstep)
@@ -716,9 +779,23 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
           }
         }
     }
-    cluster.sync();  // release the pushes, acquire the peers'
+    if (!chunked) cluster.sync();  // release the pushes, acquire the peers'
 
-    // the chain: dh[:, own] += round(dhp)[R, kp] . round(W)^T[kp, own]
+    // the chain: dh[:, own] += round(dhp)[R, kp] . round(W)^T[kp, own]; the
+    // A operand from the row block at column k0 (chunked: chunk buffer
+    // step * nx + x alternating, its column 0)
+    auto a_block = [&](int k0, int& aoff) -> CT* {
+      if (!chunked) {
+        aoff = k0;
+        return mine;
+      }
+      const int x = k0 / a.xc;
+      CT* buf = dhpb + (size_t)((step * nx + x) & 1) * R * dstride;
+      push_chunk(buf, k0);
+      cluster.sync();  // release this chunk's pushes, acquire the peers'
+      aoff = 0;
+      return buf;
+    };
     if constexpr (kMma) {
       // (16 x 8) output tiles, one warp each; with fewer tiles than half the
       // warps (and W resident), two warps share a tile, each taking half of
@@ -736,6 +813,8 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
           for (int i = 0; i < 4; ++i) acc[u][j][i] = 0.0f;
       for (int k0 = 0; k0 < kp; k0 += kc) {
         const int klen = min(kc, kp - k0);
+        int aoff;
+        const CT* ablk = a_block(k0, aoff);
         if (!resident) {
           load_w(k0);
           cp_async_wait<0>();
@@ -750,7 +829,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
             const int mt = unit / ntn, nt = unit % ntn;
             const int kb = second ? khalf : 0, ke = halves && !second ? khalf : klen;
             // ldmatrix rows: A's 16 rows by two k halves, B's 8 rows (n) by four k quarters
-            const CT* ap = mine + (size_t)(mt * 16 + lane % 16) * dstride + k0 + (lane / 16) * 8;
+            const CT* ap = ablk + (size_t)(mt * 16 + lane % 16) * dstride + aoff + (lane / 16) * 8;
             const CT* bp = wbuf + (size_t)(nt * 8 + lane % 8) * wstride + (lane / 8) * 8;
             for (int kk = kb; kk < ke; kk += 64) {
               uint32_t a0[4], a1[4], a2[4], a3[4], b01[4], b23[4];
@@ -808,6 +887,8 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
       for (int o = 0; o < OUTS_MAX; ++o) acc[o] = 0.0f;
       for (int k0 = 0; k0 < kp; k0 += kc) {
         const int klen = min(kc, kp - k0);
+        int aoff;
+        const CT* ablk = a_block(k0, aoff);
         if (!resident) {
           load_w(k0);
           cp_async_wait<0>();
@@ -818,7 +899,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
           const int pidx = tid + o * CHAIN_THREADS;
           if (pidx < nout) {
             const int r = pidx / own, c = pidx % own;
-            const float* ap = reinterpret_cast<const float*>(mine) + (size_t)r * dstride + k0;
+            const float* ap = reinterpret_cast<const float*>(ablk) + (size_t)r * dstride + aoff;
             const float* bp = reinterpret_cast<const float*>(wbuf) + (size_t)c * wstride;
             float s = acc[o];
             for (int k = 0; k < klen; ++k) s = fmaf(ap[k], bp[k], s);
@@ -875,15 +956,18 @@ __global__ void rnn_bwd_reduce_kernel(int D, int nsplit, int ncl, int nw, int nb
 }
 
 struct Plan {
-  int nc, R, hc, kc, stages, blocks, nsplit;
+  int nc, R, hc, kc, stages, blocks, nsplit, xc;
 };
 
 template <int CELL, typename CT>
 bool plan_ok(const Plan& pl, int H, int kp) {
-  if (pl.nc < 1 || pl.nc > 8 || pl.hc < 8 || pl.hc % 8 || pl.nc * pl.hc < H ||
+  if (pl.nc < 1 || pl.nc > 16 || pl.hc < 8 || pl.hc % 8 || pl.nc * pl.hc < H ||
       (pl.nc - 1) * pl.hc >= H || pl.R < 8 || pl.R % 8 || pl.kc < 16 || pl.kc % 16 ||
-      (pl.stages != 1 && pl.stages != 2) || (pl.blocks != 1 && pl.blocks != 2) || pl.nsplit < 1)
+      (pl.stages != 1 && pl.stages != 2) || (pl.blocks != 1 && pl.blocks != 2) || pl.nsplit < 1 ||
+      pl.xc < 16 || pl.xc % 16)
     return false;
+  // chunked exchange: two chunk buffers, W streamed in the same chunks
+  if (pl.xc < kp && (pl.blocks != 2 || pl.kc != pl.xc)) return false;
   if (sizeof(CT) == 2)
     return pl.R % 16 == 0 && (pl.R / 16) * (pl.hc / 8) <= UNITS_MAX * CHAIN_WARPS;
   return pl.R * pl.hc <= OUTS_MAX * CHAIN_THREADS;
@@ -897,7 +981,8 @@ int launch(int T, int B, int H, int D, int dir0, int split, const Plan& pl, cons
   const int GH = G * H, kp = (GH + 15) / 16 * 16;
   if (!plan_ok<CELL, CT>(pl, H, kp)) return (int)cudaErrorInvalidValue;
   const int kc = pl.kc < kp ? pl.kc : kp;
-  const ChainSmem L = chain_smem<CELL, CT, HT>(pl.R, pl.hc, kp, kc, pl.stages, pl.blocks);
+  const ChainSmem L =
+      chain_smem<CELL, CT, HT>(pl.R, pl.hc, kp, kc, pl.stages, pl.blocks, pl.xc);
   if (L.total > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const int ncl = (B + pl.R - 1) / pl.R;
   cudaError_t err;
@@ -930,15 +1015,21 @@ int launch(int T, int B, int H, int D, int dir0, int split, const Plan& pl, cons
   c.kc = kc;
   c.stages = pl.stages;
   c.blocks = pl.blocks;
+  c.xc = pl.xc < kp ? pl.xc : kp;
   c.p = p;
   c.mask = mask;
   c.w_hh = w_hh;
   c.hp = hp_ws;
   c.d_hfinal = d_hfinal;
   c.db_part = ws_b;
-  auto kernel = rnn_bwd_chain_kernel<CELL, CT, HT>;
+  auto kernel = pl.xc < kp ? rnn_bwd_chain_kernel<CELL, CT, HT, true>
+                           : rnn_bwd_chain_kernel<CELL, CT, HT, false>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
+  if (pl.nc > 8 &&  // clusters of more than 8 CTAs are not portable: allowed per kernel
+      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+          cudaSuccess)
+    return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(pl.nc * ncl, D, 1);
   cfg.blockDim = dim3(CHAIN_THREADS, 1, 1);
@@ -970,23 +1061,38 @@ int launch(int T, int B, int H, int D, int dir0, int split, const Plan& pl, cons
   return (int)cudaGetLastError();
 }
 
-// the launch for the cell and the (CT, HT) pair the flags name
-template <typename... Args>
+// Op<CELL, CT, HT>::run(args...) for the cell and the (CT, HT) pair the flags name
+template <template <int, typename, typename> class Op, typename... Args>
 int dispatch(int cell, int cdt_bf16, int hist_bf16, Args... args) {
   if (cell == kGRU) {
-    if (!cdt_bf16) return launch<kGRU, float, float>(args...);
-    if (hist_bf16) return launch<kGRU, __nv_bfloat16, __nv_bfloat16>(args...);
-    return launch<kGRU, __nv_bfloat16, float>(args...);
+    if (!cdt_bf16) return Op<kGRU, float, float>::run(args...);
+    if (hist_bf16) return Op<kGRU, __nv_bfloat16, __nv_bfloat16>::run(args...);
+    return Op<kGRU, __nv_bfloat16, float>::run(args...);
   }
   if (cell == kLSTM) {
-    if (!cdt_bf16) return launch<kLSTM, float, float>(args...);
-    if (hist_bf16) return launch<kLSTM, __nv_bfloat16, __nv_bfloat16>(args...);
-    return launch<kLSTM, __nv_bfloat16, float>(args...);
+    if (!cdt_bf16) return Op<kLSTM, float, float>::run(args...);
+    if (hist_bf16) return Op<kLSTM, __nv_bfloat16, __nv_bfloat16>::run(args...);
+    return Op<kLSTM, __nv_bfloat16, float>::run(args...);
   }
-  if (!cdt_bf16) return launch<kRNN, float, float>(args...);
-  if (hist_bf16) return launch<kRNN, __nv_bfloat16, __nv_bfloat16>(args...);
-  return launch<kRNN, __nv_bfloat16, float>(args...);
+  if (!cdt_bf16) return Op<kRNN, float, float>::run(args...);
+  if (hist_bf16) return Op<kRNN, __nv_bfloat16, __nv_bfloat16>::run(args...);
+  return Op<kRNN, __nv_bfloat16, float>::run(args...);
 }
+
+template <int CELL, typename CT, typename HT>
+struct Launch {
+  template <typename... Args>
+  static int run(Args... args) { return launch<CELL, CT, HT>(args...); }
+};
+
+// the clusters of nc CTAs the card holds at once (the whole-SM bound all
+// the plans' layouts share)
+template <int CELL, typename CT, typename HT>
+struct Slots {
+  static int run(int nc, int* out) {
+    return cluster_slots(rnn_bwd_chain_kernel<CELL, CT, HT, false>, nc, CHAIN_THREADS, out);
+  }
+};
 
 }  // namespace
 
@@ -1005,12 +1111,16 @@ extern "C" {
 // mode, the weight-gradient product's operand otherwise).
 // split: 0 also computes dw [D, H, G*H] and db [D, G*H] through ws_w
 // [D, nsplit, H, G*H] and ws_b [D, ceil(B/rows), G*H] f32; 1 touches
-// neither. Per-direction pointers the call does not use may be null.
-// device: the CUDA ordinal the tensors live on. Returns cudaGetLastError()
-// after the launches (0 on success).
+// neither. Per-direction pointers the call does not use may be null. xc:
+// the columns of the dhp row block exchanged at a time (>= G*H: all; else
+// in chunks, with kc == xc and two blocks). nc > 8 asks for clusters of
+// more than 8 CTAs, which the launch allows. device: the CUDA ordinal the
+// tensors live on. Returns cudaGetLastError() after the launches (0 on
+// success).
 int rnn_bwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int split, int T, int B,
                    int H, int D, int dir0, int nc, int rows, int hc, int kc, int stages,
-                   int blocks, int nsplit, const void* xp0, const void* xp1, const float* mask,
+                   int blocks, int nsplit, int xc, const void* xp0, const void* xp1,
+                   const float* mask,
                    const void* out0, const void* out1, const void* hr0, const void* hr1,
                    const void* c0, const void* c1,
                    const void* dout0, const void* dout1, const void* w_hh, const float* b_hh,
@@ -1024,9 +1134,20 @@ int rnn_bwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int split,
   if (set != cudaSuccess) return (int)set;
   const Ptrs p = {{xp0, xp1}, {out0, out1}, {hr0, hr1}, {c0, c1}, {dout0, dout1}, {dxp0, dxp1},
                   {dhp0, dhp1}};
-  const Plan pl = {nc, rows, hc, kc, stages, blocks, nsplit};
-  return dispatch(cell, cdt_bf16, hist_bf16, T, B, H, D, dir0, split, pl, p, mask, w_hh, b_hh,
-                  d_hfinal, hp_ws, ws_w, ws_b, dw, db, static_cast<cudaStream_t>(stream));
+  const Plan pl = {nc, rows, hc, kc, stages, blocks, nsplit, xc};
+  return dispatch<Launch>(cell, cdt_bf16, hist_bf16, T, B, H, D, dir0, split, pl, p, mask, w_hh,
+                          b_hh, d_hfinal, hp_ws, ws_w, ws_b, dw, db,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of nc chain CTAs (one a whole SM's shared memory) the
+// card holds at once (cudaOccupancyMaxActiveClusters), into *out; the plans
+// never launch a cluster size the card holds none of. Returns the CUDA error.
+int rnn_bwd_cluster_slots(int device, int cell, int cdt_bf16, int hist_bf16, int nc, int* out) {
+  if (cell < 0 || cell > 2 || nc < 1 || nc > 16) return (int)cudaErrorInvalidValue;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  return dispatch<Slots>(cell, cdt_bf16, hist_bf16, nc, out);
 }
 
 const char* rnn_bwd_error_string(int err) {

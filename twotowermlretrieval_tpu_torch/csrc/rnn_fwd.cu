@@ -20,8 +20,10 @@
 // microseconds cost far more. Per-step latency sets the time, so the
 // design keeps one step short and takes everything else off it:
 //
-// One thread-block cluster of NC CTAs (NC <= 8, launched with the cluster
-// attribute) walks all T steps for R batch rows of one direction. CTA q
+// One thread-block cluster of NC CTAs (launched with the cluster
+// attribute; NC <= 8, the portable size, or up to 16 where 8 CTAs would
+// hold more columns than fit, allowed per kernel and only where the card
+// holds such clusters) walks all T steps for R batch rows of one direction. CTA q
 // owns HC hidden columns j in [q*HC, (q+1)*HC) and their G gate columns
 // g*H + j. It keeps round(W_hh)[:, own] resident in shared memory for all
 // T steps, stored [k][g*HC + c] (k-major, read as mma.sync's col-major B
@@ -56,7 +58,8 @@
 //
 // The wrapper (ops/rnn_scan.py, fwd_plan) picks NC, HC, R and KC and knows
 // the shared-memory layout below (fwd_smem); the launcher refuses a plan
-// that does not fit.
+// that does not fit. R is chosen by how many clusters of NC the card holds
+// at once (rnn_fwd_cluster_slots: cudaOccupancyMaxActiveClusters).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -495,7 +498,7 @@ struct Plan {
 
 template <int CELL, typename CT>
 bool plan_ok(const Plan& pl, int H) {
-  if (H % 8 || pl.nc < 1 || pl.nc > 8 || pl.hc < 8 || pl.hc % 8 || pl.nc * pl.hc < H ||
+  if (H % 8 || pl.nc < 1 || pl.nc > 16 || pl.hc < 8 || pl.hc % 8 || pl.nc * pl.hc < H ||
       (pl.nc - 1) * pl.hc >= H || pl.kc < 32 || pl.kc % 32)
     return false;
   if (sizeof(CT) == 2)
@@ -516,6 +519,10 @@ int launch(int T, int B, int H, int D, const Plan& pl, const void* xp0, const vo
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
+  if (pl.nc > 8 &&  // clusters of more than 8 CTAs are not portable: allowed per kernel
+      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+          cudaSuccess)
+    return (int)err;
   const int ncl = (B + pl.R - 1) / pl.R;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(pl.nc * ncl, D, 1);
@@ -552,23 +559,38 @@ int launch(int T, int B, int H, int D, const Plan& pl, const void* xp0, const vo
   return (int)cudaGetLastError();
 }
 
-// the launch for the cell and the (CT, HT) pair the flags name
-template <typename... Args>
+// Op<CELL, CT, HT>::run(args...) for the cell and the (CT, HT) pair the flags name
+template <template <int, typename, typename> class Op, typename... Args>
 int dispatch(int cell, int cdt_bf16, int hist_bf16, Args... args) {
   if (cell == kGRU) {
-    if (!cdt_bf16) return launch<kGRU, float, float>(args...);
-    if (hist_bf16) return launch<kGRU, __nv_bfloat16, __nv_bfloat16>(args...);
-    return launch<kGRU, __nv_bfloat16, float>(args...);
+    if (!cdt_bf16) return Op<kGRU, float, float>::run(args...);
+    if (hist_bf16) return Op<kGRU, __nv_bfloat16, __nv_bfloat16>::run(args...);
+    return Op<kGRU, __nv_bfloat16, float>::run(args...);
   }
   if (cell == kLSTM) {
-    if (!cdt_bf16) return launch<kLSTM, float, float>(args...);
-    if (hist_bf16) return launch<kLSTM, __nv_bfloat16, __nv_bfloat16>(args...);
-    return launch<kLSTM, __nv_bfloat16, float>(args...);
+    if (!cdt_bf16) return Op<kLSTM, float, float>::run(args...);
+    if (hist_bf16) return Op<kLSTM, __nv_bfloat16, __nv_bfloat16>::run(args...);
+    return Op<kLSTM, __nv_bfloat16, float>::run(args...);
   }
-  if (!cdt_bf16) return launch<kRNN, float, float>(args...);
-  if (hist_bf16) return launch<kRNN, __nv_bfloat16, __nv_bfloat16>(args...);
-  return launch<kRNN, __nv_bfloat16, float>(args...);
+  if (!cdt_bf16) return Op<kRNN, float, float>::run(args...);
+  if (hist_bf16) return Op<kRNN, __nv_bfloat16, __nv_bfloat16>::run(args...);
+  return Op<kRNN, __nv_bfloat16, float>::run(args...);
 }
+
+template <int CELL, typename CT, typename HT>
+struct Launch {
+  template <typename... Args>
+  static int run(Args... args) { return launch<CELL, CT, HT>(args...); }
+};
+
+// the clusters of nc CTAs the card holds at once (the whole-SM bound all
+// the plans' layouts share)
+template <int CELL, typename CT, typename HT>
+struct Slots {
+  static int run(int nc, int* out) {
+    return cluster_slots(rnn_fwd_kernel<CELL, CT, HT>, nc, THREADS, out);
+  }
+};
 
 }  // namespace
 
@@ -577,7 +599,8 @@ extern "C" {
 // cell: 0 RNN, 1 GRU, 2 LSTM. cdt_bf16: xp and W_hh are bf16 (else f32).
 // hist_bf16: the state history is stored in bf16 (only with cdt_bf16).
 // H: a multiple of 8. The plan (from ops/rnn_scan.py fwd_plan): nc CTAs per
-// cluster of hc hidden columns each, rows batch rows per cluster, W rows
+// cluster (up to 16; more than 8 is allowed on the kernel) of hc hidden
+// columns each, rows batch rows per cluster, W rows
 // streamed in chunks of kc rows of k (kc >= H rounded up to 32: resident).
 // device: the CUDA ordinal the tensors live on (this library carries its
 // own runtime, whose current device is not PyTorch's).
@@ -591,8 +614,19 @@ int rnn_fwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int T, int
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   const Plan pl = {nc, rows, hc, kc};
-  return dispatch(cell, cdt_bf16, hist_bf16, T, B, H, D, pl, xp0, xp1, mask, w_hh, b_hh, out0,
-                  out1, c0, c1, h_final, static_cast<cudaStream_t>(stream));
+  return dispatch<Launch>(cell, cdt_bf16, hist_bf16, T, B, H, D, pl, xp0, xp1, mask, w_hh, b_hh,
+                          out0, out1, c0, c1, h_final, static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of nc CTAs (one a whole SM's shared memory) the card
+// holds at once (cudaOccupancyMaxActiveClusters), into *out: fwd_plan's
+// choice of rows, and whether a cluster size runs at all. Returns the CUDA
+// error.
+int rnn_fwd_cluster_slots(int device, int cell, int cdt_bf16, int hist_bf16, int nc, int* out) {
+  if (cell < 0 || cell > 2 || nc < 1 || nc > 16) return (int)cudaErrorInvalidValue;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  return dispatch<Slots>(cell, cdt_bf16, hist_bf16, nc, out);
 }
 
 const char* rnn_fwd_error_string(int err) {

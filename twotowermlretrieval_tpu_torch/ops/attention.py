@@ -17,13 +17,16 @@ row term is ``rowsum(dp * p)`` with the f32 p (not FlashAttention's
 
 Two wrappers, each with a launch count and a plain PyTorch version beside
 it: :func:`attention_fwd` (``csrc/attention.cu``, forward) and
-:func:`attention_bwd` (the same source, backward: a launch per query row for
-dq and the row statistics, then one per key row for dk and dv, so every sum
-runs in a fixed order without atomics). A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises. The kernels hold one
-row's keys and values (or queries and output cotangents) for the whole T in
-shared memory as f32: they take head widths 8, 16, 32 and 64 and T up to
-512 (at hd = 64 the shared memory caps T at 440); the wrappers raise beyond.
+:func:`attention_bwd` (the same source, backward: a launch per query tile
+for dq and the row statistics, then one per key tile for dk and dv, so every
+sum runs in a fixed order without atomics). A CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises. Under bf16 compute the
+kernels run every product on the tensor cores (mma.sync) over bf16 operands
+staged in shared memory, each score computed once and kept there as f32 for
+its query tile; :func:`attention_plan` picks the tiles. They take head
+widths 8, 16, 32 and 64 and every T up to 512. Under f32 compute the
+kernels keep full f32 products on the CUDA cores, one row's keys and values
+staged as f32, so hd = 64 takes T up to 443 there; the wrappers raise beyond.
 """
 
 from __future__ import annotations
@@ -41,17 +44,21 @@ MAX_T = 512  # the whole-T range of the TPU kernel's design
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
-_COMMON = [_INT, _INT, _INT, _INT, _INT, _INT, ctypes.c_float]  # device, in_bf16, cdt_bf16, R, T, hd, scale
+# device, in_bf16, cdt_bf16, R, T, hd, scale, and the tile's rows, kv_shared, ks
+_COMMON = [_INT, _INT, _INT, _INT, _INT, _INT, ctypes.c_float, _INT, _INT, _INT]
+_SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
+_TILE, _KEY_TILE = 128, 64  # bf16 compute: query rows (keys) a block at most, 16 a warp
 
 
 def _lib():
     lib = _build.load("attention")
     if not getattr(lib, "_ttr_bound", False):
         lib.attention_fwd_launch.restype = _INT
-        lib.attention_fwd_launch.argtypes = _COMMON + [_VOIDP] * 6  # q, k, v, bias, out, stream
+        # q, k, v, bias, out, stream
+        lib.attention_fwd_launch.argtypes = _COMMON + [_VOIDP] * 6
         lib.attention_bwd_launch.restype = _INT
-        # q, k, v, bias, dout, dq, dk, dv, stats, stream
-        lib.attention_bwd_launch.argtypes = _COMMON + [_VOIDP] * 10
+        # kt, then q, k, v, bias, dout, dq, dk, dv, stats, stream
+        lib.attention_bwd_launch.argtypes = _COMMON + [_INT] + [_VOIDP] * 10
         lib.attention_error_string.restype = ctypes.c_char_p
         lib.attention_error_string.argtypes = [_INT]
         lib._ttr_bound = True
@@ -78,17 +85,89 @@ def _check_args(q, k, v, bias, *more):
     return R, T, hd
 
 
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def attention_plan(T: int, hd: int, compute_dtype="bfloat16"):
+    """The kernels' tiles and shared memory at (T, hd), or None where a
+    layout does not fit the SM. bf16 compute (``route`` "mma"): ``fwd``
+    and ``dq`` (the backward's first launch) take ``rows`` query rows a
+    block, 16 a warp, the largest of min(128, T rounded up to 16), 64, 32
+    and 16 that fits the block's scores [rows, T] f32 beside its staged
+    operands; both stage V over K (``kv_shared``; the backward then K over
+    V again for dq) where both do not fit, and split each tile's keys over
+    two warps (``ks`` 2) where one block fills the SM's shared memory, so
+    that a SM runs twice the warps; ``dkv`` (the second launch)
+    takes ``rows`` keys a block (at most 64) and query tiles of as many
+    rows. f32 compute (``route`` "fma"): one thread a row,
+    at most 128 a block, a row's K and V (or Q and dO) for the whole T in
+    shared memory as f32. ``smem``: bytes a block (``fwd_layout``,
+    ``dq_layout``, ``dkv_layout`` in csrc/attention.cu, region by region)."""
+    if torch_dtype(compute_dtype) != torch.bfloat16:
+        rows = min(128, _up(T, 32))
+        plan = {"route": "fma", "fwd": {"rows": rows, "smem": (2 * T * hd + T) * 4},
+                "dq": {"rows": rows, "smem": (2 * T * hd + T) * 4},
+                "dkv": {"rows": rows, "smem": (2 * T * hd + 3 * T) * 4}}
+        return plan if all(plan[k]["smem"] <= _SMEM_LIMIT for k in ("fwd", "dq", "dkv")) else None
+    Tp = _up(T, 16)
+    row = (max(hd, 16) + 8) * 2  # a staged bf16 row, 16 bytes of pad
+    top = min(_TILE, Tp)
+    cands = [top] + [r for r in (64, 32, 16) if r < top]
+
+    # the tile's query rows, its K and V (one of them where V goes over K),
+    # its f32 scores, the bias and where two key halves meet (rows * 32)
+    def fwd_smem(rows, shared):
+        return rows * row + Tp * row * (1 if shared else 2) + rows * Tp * 4 + Tp * 4 + rows * 32
+
+    def dq_smem(rows, shared):  # dO's rows too
+        return fwd_smem(rows, shared) + rows * row
+
+    def pick(smem):  # the largest tile that fits, V apart from K before V over K
+        r, sh = next(((r, sh) for r in cands for sh in (False, True)
+                      if smem(r, sh) <= _SMEM_LIMIT), (None, None))
+        if r is None:
+            return None
+        split = r <= 64 and smem(r, sh) > _SMEM_LIMIT // 2 and Tp >= max(32, hd)
+        return {"rows": r, "kv_shared": sh, "ks": 2 if split else 1, "smem": smem(r, sh)}
+
+    fwd, dq = pick(fwd_smem), pick(dq_smem)
+    kt = min(_KEY_TILE, Tp)
+    dkv = {"rows": kt, "smem": 2 * kt * row + 2 * (2 * kt * row + _up(3 * kt * 4, 16))
+           + 2 * _up(kt * (kt + 8) * 2, 16) + _up(kt * 4, 16)}
+    if fwd is None or dq is None or dkv["smem"] > _SMEM_LIMIT:
+        return None
+    return {"route": "mma", "fwd": fwd, "dq": dq, "dkv": dkv}
+
+
 def _kernel_args(fn, q, k, v, bias, compute_dtype):
-    """The arguments the C launchers take after the device: contiguous
-    inputs and the dtype flags. Raises on a shape the kernels do not take."""
+    """The arguments the C launchers take after the device: contiguous,
+    16-byte aligned inputs, the dtype flags and the plan. Raises on a shape
+    the kernels do not take."""
     R, T, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"{fn}: the kernel takes head widths {HEAD_DIMS}, got {hd}")
     if not 1 <= T <= MAX_T:
         raise ValueError(f"{fn}: the kernel takes 1 <= T <= {MAX_T}, got {T}")
     cdt = torch_dtype(compute_dtype)
-    ins = [t.contiguous() for t in (q, k, v)] + [bias.float().contiguous()]
-    return ins, int(q.dtype == torch.bfloat16), int(cdt == torch.bfloat16)
+    plan = attention_plan(T, hd, cdt)
+    if plan is None:
+        widest = max(t for t in range(1, MAX_T + 1) if attention_plan(t, hd, cdt) is not None)
+        raise ValueError(f"{fn}: no layout of the kernel fits shared memory at T={T} hd={hd} "
+                         f"{cdt}; it takes T up to {widest}")
+    ins = [_aligned(t) for t in (q, k, v)] + [bias.float().contiguous()]
+    return ins, int(q.dtype == torch.bfloat16), int(cdt == torch.bfloat16), plan
+
+
+def _tile_args(tile: dict):
+    """(rows, kv_shared, ks) of a plan's tile; the f32 kernels ignore them."""
+    return tile["rows"], int(tile.get("kv_shared", False)), tile.get("ks", 1)
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and on the 16-byte alignment of the kernels' vector copies."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _launch(fn: str, device: torch.device, *args) -> None:
@@ -106,12 +185,12 @@ def attention_fwd(q, k, v, bias, scale: float, compute_dtype="bfloat16") -> torc
     R, T, hd = _check_args(q, k, v, bias)
     if q.device.type == "cpu":
         return attention_fwd_reference(q, k, v, bias, scale, compute_dtype)
-    ins, in_bf16, cdt_bf16 = _kernel_args("attention_fwd", q, k, v, bias, compute_dtype)
+    ins, in_bf16, cdt_bf16, plan = _kernel_args("attention_fwd", q, k, v, bias, compute_dtype)
     out = torch.empty((R, T, hd), dtype=torch.float32, device=q.device)
     if R == 0:
         return out
     _launch("attention_fwd_launch", q.device, in_bf16, cdt_bf16, R, T, hd, float(scale),
-            *[t.data_ptr() for t in ins], out.data_ptr())
+            *_tile_args(plan["fwd"]), *[t.data_ptr() for t in ins], out.data_ptr())
     attention_fwd.launches += 1
     return out
 
@@ -126,14 +205,15 @@ def attention_bwd(
     R, T, hd = _check_args(q, k, v, bias, dout)
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, bias, dout, scale, compute_dtype)
-    ins, in_bf16, cdt_bf16 = _kernel_args("attention_bwd", q, k, v, bias, compute_dtype)
-    do = dout.float().contiguous()
+    ins, in_bf16, cdt_bf16, plan = _kernel_args("attention_bwd", q, k, v, bias, compute_dtype)
+    do = _aligned(dout.float())
     grads = [torch.empty((R, T, hd), dtype=torch.float32, device=q.device) for _ in range(3)]
     if R == 0:
         return tuple(grads)
     # per query row: the softmax maximum, the row sum and rowsum(dp * p)
     stats = torch.empty((3, R, T), dtype=torch.float32, device=q.device)
     _launch("attention_bwd_launch", q.device, in_bf16, cdt_bf16, R, T, hd, float(scale),
+            *_tile_args(plan["dq"]), plan["dkv"]["rows"],
             *[t.data_ptr() for t in (*ins, do, *grads, stats)])
     attention_bwd.launches += 1
     return tuple(grads)

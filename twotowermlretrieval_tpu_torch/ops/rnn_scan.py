@@ -9,7 +9,7 @@ returns ``(outs, c_hist, h_final)``: per-direction state histories
 cell histories (else ``()``), and ``h_final`` [D, B, H] f32.
 
 On a CUDA tensor it launches ``csrc/rnn_fwd.cu``: one thread-block cluster
-of up to 8 CTAs per (direction, block of batch rows) walks the whole time
+of up to 8 CTAs (16 for wide layers) per (direction, block of batch rows) walks the whole time
 loop, each CTA keeping its hidden columns' slice of W_hh in shared memory
 (streamed through it for wide layers), the step's product on the tensor
 cores at bf16, and each step's rounded h exchanged through distributed
@@ -42,17 +42,20 @@ padded unit with zero xp, weights, bias and state stays zero and feeds
 nothing into the real units) and slice the results back. The model runs
 each layer at :func:`kernel_width` (``models/rnn.py``: its weights are
 padded, so the input projection yields the padded xp), so on its path
-neither wrapper pads. The forward kernel takes every H up to 2048 at bf16
-compute in all three cells, and up to 2016 (GRU), 1760 (LSTM) and 2048
-(RNN) at f32; the backward every H up to 1216 (GRU), 928 (LSTM) and
-2048 (RNN) at bf16 compute with an f32 history (1280 and 960 with a bf16
-one, the model's), and 1488, 1148 and 2048 at f32. Beyond a limit, where the plan is None, a call on card tensors
-raises a ValueError that names the limit, before any launch: a wrapper
-launches its kernel or raises, and never runs the plain loop on the card.
-(The JAX package runs its XLA scan where ``plan_fused`` finds no plan; its
-Pallas kernels stop at 1536 / 1280 / 2560 at bf16, so the port covers
-every width they take but the GRU's 1408 and 1536, the LSTM's 1024-1280
-and the RNN's 2176-2560 at bf16.)
+neither wrapper pads. Both kernels run in clusters of up to 8 CTAs, and of
+up to 16 where 8 would hold more hidden columns than a CTA takes
+(:func:`cluster_slots` reads from the card how many clusters of each size
+it holds at once). The forward kernel takes every H up to 2976 (GRU), 2816
+(LSTM) and 3360 (RNN) at bf16 compute, and up to 2560, 2336 and 3200 at
+f32, streaming W where its columns do not fit; the backward every H up to
+4096 (LSTM at bf16: 3328 with an f32 history, 3584 with a bf16 one),
+exchanging its dhp row block in chunks where one whole block does not fit.
+That covers every width where the JAX package's ``plan_fused`` keeps a
+layer on its Pallas kernels. Beyond a limit, where the plan is None, a call
+on card tensors raises a ValueError that names the limit, before any
+launch: a wrapper launches its kernel or raises, and never runs the plain
+loop on the card. (The JAX package runs its XLA scan where ``plan_fused``
+finds no plan.)
 """
 
 from __future__ import annotations
@@ -75,10 +78,12 @@ _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _SMS = 132  # streaming multiprocessors of an H100 SXM
 _UNITS_MAX = 4 * 8  # (16 x 8) output units of a bf16 chain product one CTA holds (4 per warp)
 _OUTS_MAX = 8 * 256  # outputs of the f32 chain product one CTA holds (8 per thread)
-# clusters of 8 one-CTA-per-SM blocks an H100 SXM runs at once
-# (cudaOccupancyMaxActiveClusters of the forward kernel on an H100 80GB
-# HBM3: 15, not 132 / 8); fwd_plan's choice of rows, logged by chip_smoke.py
-_CLUSTER_SLOTS = 15
+# Clusters of nc one-CTA-per-SM blocks an H100 SXM (H100 80GB HBM3) holds at
+# once, by cluster size: cudaOccupancyMaxActiveClusters of both recurrent
+# kernels there, not 132 / nc (a cluster stays within one GPC). The plans'
+# default; on a card the wrappers read the card's own (cluster_slots).
+H100_SXM_CLUSTER_SLOTS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15,
+                          9: 9, 10: 7, 11: 7, 12: 7, 13: 7, 14: 7, 15: 7, 16: 7}
 _FWD_MULTIPLE = 8  # the forward kernel's H: whole (16 x 8) units, 16-byte pushes of bf16 h
 _BWD_MULTIPLE = 4  # the backward kernel's H: its rows copied in 8-byte words
 _GEMM_TILE = {2: 128, 4: 64}  # output tile of the two chain-free products, by compute dtype size
@@ -102,6 +107,9 @@ def _lib():
         ]
         lib.rnn_fwd_error_string.restype = ctypes.c_char_p
         lib.rnn_fwd_error_string.argtypes = [_INT]
+        lib.rnn_fwd_cluster_slots.restype = _INT
+        # device, cell, cdt_bf16, hist_bf16, nc, out
+        lib.rnn_fwd_cluster_slots.argtypes = [_INT] * 5 + [ctypes.POINTER(_INT)]
         lib._ttr_bound = True
     return lib
 
@@ -140,12 +148,27 @@ def _fwd_smem_bytes(cell: str, H: int, cdt_bytes: int, rows: int, hc: int, kc: i
             + _up(G * hc * 4, 16))
 
 
+def _cluster_sizes(Hk: int, slots):
+    """The cluster sizes a plan tries in turn, with each CTA's columns: at
+    most 8 CTAs (the portable size), then at most 16 where 8 hold more
+    columns than a CTA takes and the card holds clusters of that size."""
+    out = []
+    for most in (8, 16):
+        nc = max(1, min(most, Hk // 16))
+        hc = _up(-(-Hk // nc), 8)
+        nc = -(-Hk // hc)  # no CTA without columns
+        if (not out or nc > out[-1][0]) and slots.get(nc, 0) > 0:
+            out.append((nc, hc))
+    return out
+
+
 def fwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16",
-             history_dtype=torch.float32):
+             history_dtype=torch.float32, slots=H100_SXM_CLUSTER_SLOTS):
     """The forward kernel's layout for one call, or None when none fits
     shared memory. ``H``: the kernel's width, the layer's rounded up to 8
-    (the wrapper zero-pads). ``nc`` CTAs per cluster (at
-    most 8, the portable cluster size), each owning ``hc`` hidden columns;
+    (the wrapper zero-pads). ``nc`` CTAs per cluster (at most 8, the
+    portable size; 16 where 8 hold more columns than fit), each owning
+    ``hc`` hidden columns;
     ``rows`` batch rows per cluster (``clusters`` of them per direction);
     ``kc`` rows of the CTA's columns of W held at a time (``resident``:
     all of them, loaded once; else streamed every step); ``smem`` bytes per
@@ -155,6 +178,8 @@ def fwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16"
     for smaller batches) whose clusters all fit on the card at once, else
     the largest: each further wave of clusters costs a whole time loop,
     while a step of four times the rows costs less than four steps.
+    ``slots``: how many clusters of each size the card holds at once (the
+    H100 SXM's by default, the card's own from the wrapper).
     ``history_dtype`` changes no layout. The kernel checks the plan and
     refuses one that does not fit."""
     del T, history_dtype  # the layout depends on neither
@@ -162,35 +187,33 @@ def fwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16"
     Hk = _up(max(H, 1), 8)
     kp = _up(Hk, 32)
     cb = torch_dtype(compute_dtype).itemsize
-    nc = max(1, min(8, Hk // 16))
-    hc = _up(-(-Hk // nc), 8)
-    nc = -(-Hk // hc)  # no CTA without columns
-    if cb == 2:
-        cands = (16, 32, 64, 128)
-        held = [R for R in cands if (R // 16) * (hc // 8) <= _UNITS_MAX]
-    else:
-        cands = (8, 16, 32, 64)
-        held = [R for R in cands if R * hc <= _OUTS_MAX]
     epw = 16 // cb
-    wrow = (G * hc + (2 * epw if cb == 2 and (G * hc // 8) % 2 else epw)) * cb
-    layouts = []
-    for R in held:
-        smem = _fwd_smem_bytes(cell, Hk, cb, R, hc, kp)
-        kc = kp
-        if smem > _SMEM_LIMIT:  # stream W: the widest chunk that fits beside the rest
-            rest = _fwd_smem_bytes(cell, Hk, cb, R, hc, 0)
-            kc = min(kp - 32, (_SMEM_LIMIT - rest) // wrow // 32 * 32)
-            if kc < 32:
-                continue
-            smem = _fwd_smem_bytes(cell, Hk, cb, R, hc, kc)
-        layouts.append((R, kc, smem))
-    if not layouts:
-        return None
-    least = cands[0] if B <= cands[0] else cands[1]
-    big = [lay for lay in layouts if lay[0] >= least] or layouts[-1:]
-    R, kc, smem = next((lay for lay in big if D * -(-B // lay[0]) <= _CLUSTER_SLOTS), big[-1])
-    return {"H": Hk, "nc": nc, "hc": hc, "rows": R, "clusters": -(-B // R), "kc": kc,
-            "resident": kc >= kp, "smem": smem}
+    cands = (16, 32, 64, 128) if cb == 2 else (8, 16, 32, 64)
+    for nc, hc in _cluster_sizes(Hk, slots):
+        if cb == 2:
+            held = [R for R in cands if (R // 16) * (hc // 8) <= _UNITS_MAX]
+        else:
+            held = [R for R in cands if R * hc <= _OUTS_MAX]
+        wrow = (G * hc + (2 * epw if cb == 2 and (G * hc // 8) % 2 else epw)) * cb
+        layouts = []
+        for R in held:
+            smem = _fwd_smem_bytes(cell, Hk, cb, R, hc, kp)
+            kc = kp
+            if smem > _SMEM_LIMIT:  # stream W: the widest chunk that fits beside the rest
+                rest = _fwd_smem_bytes(cell, Hk, cb, R, hc, 0)
+                kc = min(kp - 32, (_SMEM_LIMIT - rest) // wrow // 32 * 32)
+                if kc < 32:
+                    continue
+                smem = _fwd_smem_bytes(cell, Hk, cb, R, hc, kc)
+            layouts.append((R, kc, smem))
+        if not layouts:
+            continue
+        least = cands[0] if B <= cands[0] else cands[1]
+        big = [lay for lay in layouts if lay[0] >= least] or layouts[-1:]
+        R, kc, smem = next((lay for lay in big if D * -(-B // lay[0]) <= slots[nc]), big[-1])
+        return {"H": Hk, "nc": nc, "hc": hc, "rows": R, "clusters": -(-B // R), "kc": kc,
+                "resident": kc >= kp, "smem": smem, "slots": slots[nc]}
+    return None
 
 
 def kernel_width(H: int) -> int:
@@ -232,11 +255,36 @@ def _operand(x: torch.Tensor, dtype) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _widest(plan, cell: str, T: int, B: int, D: int, cdt, hist) -> int:
+def _widest(plan, cell: str, T: int, B: int, D: int, cdt, hist, slots) -> int:
     """The widest H that ``plan`` (fwd_plan or bwd_plan) lays out at these
     other arguments, for the message of a refused call."""
-    return max((h for h in range(4, 4097, 4) if plan(cell, T, B, h, D, cdt, hist) is not None),
-               default=0)
+    return max((h for h in range(4, 4097, 4)
+                if plan(cell, T, B, h, D, cdt, hist, slots) is not None), default=0)
+
+
+_SLOTS = {}  # (which kernel, device index, cell, compute dtype, history dtype) -> slots
+
+
+def cluster_slots(which: str, cell: str, cdt, hist, device: torch.device) -> dict:
+    """How many clusters of each size (1 to 16 CTAs) the card holds at once
+    for the recurrent kernel ``which`` ("fwd" or "bwd") at this cell and
+    these dtypes: cudaOccupancyMaxActiveClusters, read once per device."""
+    cdt, hist = torch_dtype(cdt), torch_dtype(hist)
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    key = (which, idx, cell, cdt, hist)
+    if key not in _SLOTS:
+        lib = _lib() if which == "fwd" else _bwd_lib()
+        fn = getattr(lib, f"rnn_{which}_cluster_slots")
+        out, slots = ctypes.c_int(0), {}
+        for nc in range(1, 17):
+            err = fn(idx, _CELL_CODE[cell], int(cdt == torch.bfloat16),
+                     int(hist == torch.bfloat16), nc, ctypes.byref(out))
+            if err:
+                raise RuntimeError(f"rnn_{which}_cluster_slots failed: "
+                                   f"{getattr(lib, f'rnn_{which}_error_string')(err).decode()}")
+            slots[nc] = out.value
+        _SLOTS[key] = slots
+    return _SLOTS[key]
 
 
 def rnn_layer_fwd(
@@ -271,11 +319,13 @@ def rnn_layer_fwd(
         return (tuple(o[..., :H] for o in outs), tuple(c[..., :H] for c in c_hist),
                 h_final[..., :H])
     hist = cdt if history_in_cdt else torch.float32
-    plan = fwd_plan(cell, T, B, H, D, cdt, hist)
+    slots = cluster_slots("fwd", cell, cdt, hist, dev)
+    plan = fwd_plan(cell, T, B, H, D, cdt, hist, slots)
     if plan is None:
         raise ValueError(
             f"rnn_layer_fwd: no layout of the forward kernel fits shared memory at {cell} "
-            f"H={H} {cdt}; it takes H up to {_widest(fwd_plan, cell, T, B, D, cdt, hist)}")
+            f"H={H} {cdt}; it takes H up to "
+            f"{_widest(fwd_plan, cell, T, B, D, cdt, hist, slots)}")
     # the kernel reads xp in the compute dtype, as the TPU kernel does
     xs = [_operand(x, cdt) for x in xps]
     w = _operand(w_hh, cdt)
@@ -391,7 +441,8 @@ def _bwd_lib():
         lib.rnn_bwd_launch.argtypes = [
             _INT, _INT, _INT, _INT, _INT,  # device, cell, cdt_bf16, hist_bf16, split
             _INT, _INT, _INT, _INT, _INT,  # T, B, H, D, dir0
-            _INT, _INT, _INT, _INT, _INT, _INT, _INT,  # nc, rows, hc, kc, stages, blocks, nsplit
+            _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,  # nc, rows, hc, kc, stages, blocks,
+                                                             # nsplit, xc
             _VOIDP, _VOIDP, _VOIDP,  # xp0, xp1, mask
             _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # out0, out1, hr0, hr1
             _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # c0, c1, dout0, dout1
@@ -402,90 +453,114 @@ def _bwd_lib():
         ]
         lib.rnn_bwd_error_string.restype = ctypes.c_char_p
         lib.rnn_bwd_error_string.argtypes = [_INT]
+        lib.rnn_bwd_cluster_slots.restype = _INT
+        lib.rnn_bwd_cluster_slots.argtypes = [_INT] * 5 + [ctypes.POINTER(_INT)]
         lib._ttr_bound = True
     return lib
 
 
 def _bwd_smem_bytes(cell: str, H: int, cdt_bytes: int, hist_bytes: int, rows: int, hc: int,
-                    kc: int, stages: int, blocks: int = 2) -> int:
+                    kc: int, stages: int, blocks: int = 2, xc: int = None) -> int:
     """Shared memory of one CTA of the backward's chain kernel: the CTA's
     rows of round(W) (``kc`` columns of them at a time), ``blocks`` rounded
-    dhp row blocks, the staging buffers, the dh (and dc) carry and the db
-    partial (``chain_smem`` in csrc/rnn_bwd.cu, region by region)."""
+    dhp row blocks (``xc`` columns of each held at once: where fewer than
+    G*H, the CTA's own rounded dhp too), the staging buffers, the dh (and
+    dc) carry and the db partial (``chain_smem`` in csrc/rnn_bwd.cu, region
+    by region)."""
     G = _GATES[cell]
     kp = _up(G * H, 16)
+    xw = kp if xc is None else min(xc, kp)
     padk = 16 // cdt_bytes
     stage = 2 * _up(rows * hc * hist_bytes, 16) + _up(rows * 4, 16)
     if cell != "RNN":
         stage += _up(G * rows * hc * 4, 16) + _up(G * rows * hc * cdt_bytes, 16)
     carries = 2 if cell == "LSTM" else 1
+    own = _up(rows * G * hc * cdt_bytes, 16) if xw < kp else 0
     return (_up(hc * (min(kc, kp) + padk) * cdt_bytes, 16)
-            + _up(blocks * rows * (kp + padk) * cdt_bytes, 16) + stages * stage
+            + _up(blocks * rows * (xw + padk) * cdt_bytes, 16) + own + stages * stage
             + carries * _up(rows * hc * 4, 16) + _up(G * rows * hc * 4, 16))
 
 
 def bwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16",
-             history_dtype=torch.float32):
+             history_dtype=torch.float32, slots=H100_SXM_CLUSTER_SLOTS):
     """The backward kernel's layout for one call, or None when none fits
-    shared memory. ``nc`` CTAs per cluster (at most 8), each owning ``hc``
-    hidden columns; ``rows`` batch rows per cluster (``clusters`` of them
-    per direction); ``kc`` columns of the CTA's W rows held at a time
+    shared memory. ``nc`` CTAs per cluster (at most 8; 16 where 8 do not
+    fit and the card holds clusters of 16), each owning ``hc`` hidden
+    columns; ``rows`` batch rows per cluster (``clusters`` of them per
+    direction); ``kc`` columns of the CTA's W rows held at a time
     (``resident``: all of G*H, loaded once; else streamed every step);
     ``stages`` staging buffers (2: a step's inputs load during the step
     before); ``blocks`` dhp row blocks (2, or 1 with a second cluster
-    barrier a step); ``nsplit`` slices of the
+    barrier a step); ``xc`` the columns of the row block exchanged at a
+    time (G*H rounded up to 16: all of it; fewer where even one row block
+    does not fit, in chunks of ``xc``, each with its own cluster barrier and
+    W streamed in the same chunks); ``nsplit`` slices of the
     weight-gradient product; ``smem`` bytes per CTA; ``H`` the kernel's
-    width, the layer's rounded up to 4 (the wrapper zero-pads). Of the
-    layouts that fit, the one that streams W in the fewest chunks a step
-    (1: resident), then the first of two row blocks before one, 32 rows
-    before 16 and two staging buffers before one. The kernel checks the
-    plan and refuses one that does not fit."""
+    width, the layer's rounded up to 4 (the wrapper zero-pads). Tried in
+    turn: the whole row block in clusters of 8, then of 16, then the
+    chunked exchange in clusters of 16, then of 8. Of the layouts that fit
+    one of these, the one that streams W in the fewest chunks a step (1:
+    resident), then the first of two row blocks before one, 32 rows before
+    16 and two staging buffers before one. ``slots``: as fwd_plan's. The
+    kernel checks the plan and refuses one that does not fit."""
     G = _GATES[cell]
     H = _up(max(H, 1), _BWD_MULTIPLE)
     GH = G * H
     kp = _up(GH, 16)
     cb = torch_dtype(compute_dtype).itemsize
     hb = history_dtype.itemsize
-    nc = max(1, min(8, H // 16))
-    hc = _up(-(-H // nc), 8)
-    nc = -(-H // hc)  # no CTA without columns
-    rows_options = (32, 16) if cb == 2 else (16, 8)
-    if B <= rows_options[1]:
-        rows_options = rows_options[1:]
+    sizes = _cluster_sizes(H, slots)
+    rows_all = (32, 16) if cb == 2 else (16, 8)
+    if B <= rows_all[1]:
+        rows_all = rows_all[1:]
     best = None
-    for blocks in (2, 1):
-        for rows in rows_options:
-            held = (rows // 16) * (hc // 8) if cb == 2 else rows * hc
-            if held > (_UNITS_MAX if cb == 2 else _OUTS_MAX):
-                continue
-            for resident in (True, False):
-                for stages in (2, 1):
-                    if resident:
-                        kc = kp
-                    else:  # the widest chunk that fits beside the rest
-                        rest = _bwd_smem_bytes(cell, H, cb, hb, rows, hc, 0, stages, blocks)
-                        rest -= _up(hc * (16 // cb) * cb, 16)
-                        kc = min(kp - 16,
-                                 ((_SMEM_LIMIT - rest) // (hc * cb) - 16 // cb) // 16 * 16)
-                        if kc < 16:
+    for chunked, (nc, hc) in [(False, x) for x in sizes] + [(True, x) for x in sizes[::-1]]:
+        for blocks in ((2,) if chunked else (2, 1)):
+            for rows in rows_all:
+                held = (rows // 16) * (hc // 8) if cb == 2 else rows * hc
+                if held > (_UNITS_MAX if cb == 2 else _OUTS_MAX):
+                    continue
+                for resident in ((False,) if chunked else (True, False)):
+                    for stages in (2, 1):
+                        xc = kp
+                        if chunked:  # the widest chunk, of W and the row block alike
+                            base = _bwd_smem_bytes(cell, H, cb, hb, rows, hc, 0, stages, 2, 0)
+                            xc = min(kp - 16, (_SMEM_LIMIT - base) // ((hc + 2 * rows) * cb)
+                                     // 16 * 16)
+                            while xc >= 16 and _bwd_smem_bytes(cell, H, cb, hb, rows, hc, xc,
+                                                               stages, 2, xc) > _SMEM_LIMIT:
+                                xc -= 16
+                            if xc < 16:
+                                continue
+                            kc = xc
+                        elif resident:
+                            kc = kp
+                        else:  # the widest chunk that fits beside the rest
+                            rest = _bwd_smem_bytes(cell, H, cb, hb, rows, hc, 0, stages, blocks)
+                            rest -= _up(hc * (16 // cb) * cb, 16)
+                            kc = min(kp - 16,
+                                     ((_SMEM_LIMIT - rest) // (hc * cb) - 16 // cb) // 16 * 16)
+                            if kc < 16:
+                                continue
+                        smem = _bwd_smem_bytes(cell, H, cb, hb, rows, hc, kc, stages, blocks, xc)
+                        if smem > _SMEM_LIMIT:
                             continue
-                    smem = _bwd_smem_bytes(cell, H, cb, hb, rows, hc, kc, stages, blocks)
-                    if smem > _SMEM_LIMIT:
-                        continue
-                    # the fewest chunks of W a step (each costs a copy and two
-                    # block barriers), the first in this order on a tie
-                    chunks = -(-kp // kc)
-                    if best is None or chunks < best[0]:
-                        best = (chunks, blocks, rows, kc, resident, stages, smem)
+                        # the fewest chunks of W a step (each costs a copy and two
+                        # block barriers), the first in this order on a tie
+                        chunks = -(-kp // kc)
+                        if best is None or chunks < best[0]:
+                            best = (chunks, nc, hc, blocks, rows, kc, resident, stages, xc, smem)
+        if best is not None:
+            break
     if best is None:
         return None
-    _, blocks, rows, kc, resident, stages, smem = best
+    _, nc, hc, blocks, rows, kc, resident, stages, xc, smem = best
     tile = _GEMM_TILE[cb]
     tiles = D * -(-H // tile) * -(-GH // tile)
     nsplit = max(1, min(-(-2 * _SMS // tiles), -(-T * B // 64)))
     return {"H": H, "nc": nc, "hc": hc, "rows": rows, "clusters": -(-B // rows), "kc": kc,
-            "resident": resident, "stages": stages, "blocks": blocks, "nsplit": nsplit,
-            "smem": smem}
+            "resident": resident, "stages": stages, "blocks": blocks, "xc": xc,
+            "nsplit": nsplit, "smem": smem, "slots": slots[nc]}
 
 
 def _check_bwd_args(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal):
@@ -645,12 +720,13 @@ def _bwd_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
 
         return (tuple(cut(x) for x in dxps), tuple(cut(x) for x in dhps),
                 None if dw is None else cut(dw[:, :H]), None if db is None else cut(db))
-    plan = bwd_plan(cell, T, B, H, D, compute_dtype, hist)
+    slots = cluster_slots("bwd", cell, cdt, hist, dev)
+    plan = bwd_plan(cell, T, B, H, D, compute_dtype, hist, slots)
     if plan is None:
         raise ValueError(
             f"rnn_layer_bwd: no layout of the backward kernel fits shared memory at {cell} "
             f"H={H} {cdt} with a {hist} history; it takes H up to "
-            f"{_widest(bwd_plan, cell, T, B, D, cdt, hist)}")
+            f"{_widest(bwd_plan, cell, T, B, D, cdt, hist, slots)}")
     xs = [_operand(x, cdt) for x in xps]
     hs = [_operand(o, hist) for o in outs]
     cs = [_operand(c, hist) for c in c_hist]
@@ -687,7 +763,7 @@ def _bwd_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
             torch.cuda.current_device(), _CELL_CODE[cell], int(cdt == torch.bfloat16),
             int(hist == torch.bfloat16), int(split), T, B, H, D, dir0,
             plan["nc"], plan["rows"], plan["hc"], plan["kc"], plan["stages"], plan["blocks"],
-            plan["nsplit"],
+            plan["nsplit"], plan["xc"],
             at(xs, 0), at(xs, 1), m.data_ptr(),
             at(hs, 0), at(hs, 1), at(hr, 0), at(hr, 1), at(cs, 0), at(cs, 1),
             at(dos, 0), at(dos, 1),
