@@ -52,11 +52,17 @@ passes, at B=16: each with its cluster size, the card's count of such
 clusters and cuDNN's time beside it), and the
 int8 and running top-k kernels (``csrc/segmax_s8.cu``, the per-row int8
 path of ``csrc/segmax.cu``, ``csrc/topk_stream.cu``) over 1,048,576 rows,
-each driven once through its public function with the counts at 0, and the
+each driven once through its public function with the counts at 0; the
+four scans redesigned for the tensor cores (``segmax``, ``segmax_int8``,
+``topk_stream``, ``topk_stream_int8``) also at B=1 and B=32 over the same
+1,048,576 rows and at B=16 over the served 73,728 rows, each with its
+layout logged (``ops/topk.py`` scan_plan), two calls held bit-identical and
+timed beside its library call; and the
 fused attention kernels (``csrc/attention.cu``) at the transformer's
 training and serving shapes and at T=512 (hd=32 and 64), each with its
 tiles logged, two calls held bit-identical and timed beside
-``torch.nn.functional.scaled_dot_product_attention`` as a yardstick. Step 5
+``torch.nn.functional.scaled_dot_product_attention`` as a yardstick, and
+at f32 compute at hd=64, T=512. Step 5
 serves a second time as ``ttr-torch-serve --storage-dtype int8`` starts
 it: the s8 scan kernel on every dense search, the results against the
 port's int8 engine on the CPU and, bit for bit, against the two-phase path
@@ -88,11 +94,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 ARTIFACTS = ROOT / "_smoke_artifacts"  # listed in .gitignore; removed at the end
 
-# Published peaks of one H100 SXM: HBM3 bandwidth and the dense bf16 and
-# int8 tensor-core rates.
+# Published peaks of one H100 SXM: HBM3 bandwidth, the dense bf16 and int8
+# tensor-core rates and the f32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
 
 # The reference model (configs/msmarco_reference.json, Config defaults).
 H = 256
@@ -105,6 +112,7 @@ VOCAB, EMBED = 400_000, 100  # the shape of GloVe 6B 100d
 PASSAGES = 70_000  # not a multiple of the 8192-row index tile: padding is live
 SCAN_ROWS = 1 << 20  # 1,048,576 x 256 bf16 = 512 MiB for the scan alone
 SCAN_VALID = SCAN_ROWS - 3001
+SCAN_BATCHES = (1, 32)  # the scans' other batch sizes: /search may carry one query
 
 # Tolerances, kernel against plain version on the same inputs.
 # rnn_fwd, bf16 compute: both round h to bf16 before each step's product and
@@ -168,6 +176,10 @@ WIDE_H = 1024  # a wide GRU layer: the backward keeps one dhp row block
 # last-bit change of an f32 sum can move p or ds across a bf16 rounding
 # boundary. Tolerance: one bf16 ulp, 2^-8.
 ATTN_REL = 2 ** -8
+# f32 compute: full f32 products in another summation order. The same CPU
+# experiment at f32 compute differed by at most 5e-7 of the largest
+# magnitude; the card tests hold 1e-5.
+ATTN_F32_REL = 1e-5
 # The transformer tower of config 5, as configs/transformer_tp.json gives
 # it; its phase trains on the triplets after those the GRU phase takes.
 TF_CONFIG = ROOT / "configs" / "transformer_tp.json"
@@ -393,6 +405,11 @@ def check_segmax(npad: int, n_valid: int, B: int, seed: int, dev, timed: bool) -
         del seg, cache, r_seg, r_cache
     log(f"segmax {shape}: |diff| {err:.3g}")
     check(err <= SEGMAX_ATOL, f"segmax {shape}: off by {err}")
+    scan_layout("segmax", B, torch.bfloat16)
+    # no atomics: a second call gives the same bits, the cache too
+    bitwise = all(torch.equal(a, b) for a, b in zip(segmax(q, docs, n_valid, with_cache=True),
+                                                    segmax(q, docs, n_valid, with_cache=True)))
+    check(bitwise, f"segmax {shape}: two calls differ")
 
     # The whole search against a full f32 product and torch.topk: values
     # equal within the tolerance, and every id is a real row whose score is
@@ -410,7 +427,7 @@ def check_segmax(npad: int, n_valid: int, B: int, seed: int, dev, timed: bool) -
         err = max(err, top_err)
     log(f"top-{FANOUT} {shape}: matches torch.topk over the full f32 scores")
     del full
-    rec = {"shape": shape, "max_abs_err": err}
+    rec = {"shape": shape, "max_abs_err": err, "bitwise_repeatable": bitwise}
     if timed:
         rec["ms"] = time_ms(lambda: segmax(q, docs, n_valid))
         rec["plain_ms"] = time_ms(lambda: segmax_reference(q, docs, n_valid), reps=5, warmup=1)
@@ -513,6 +530,103 @@ def _check_topk(what, vals, ids, full, n_valid, atol):
     return err
 
 
+def scan_layout(name: str, B: int, storage, k=None) -> dict:
+    """Log the layout the scan kernel ``name`` launches at B query rows
+    (``ops/topk.py`` scan_plan) and return it."""
+    from twotowermlretrieval_tpu_torch.ops.topk import scan_plan
+
+    plan = scan_plan(B, H, storage, k)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    what = f"{name} layout, B={B} H={H} {str(storage).split('.')[-1]}" + (
+        "" if k is None else f" k={k}")
+    if plan["route"] == "mma":
+        log(f"{what}: tensor cores, {plan['stages']} cp.async stages of 16 KiB, "
+            f"{plan['blocks_per_sm']} blocks a SM ({plan['blocks_per_sm'] * sms} persistent), "
+            f"query fragments in shared memory ({plan['nt']} n8 tiles), {plan['k_tail']} zero "
+            f"columns past H, {plan['smem']} bytes a block")
+    else:
+        log(f"{what}: CUDA-core sums, {plan['bq']} query rows a thread, "
+            f"{plan['blocks_per_sm']} blocks a SM, {plan['smem']} bytes a block")
+    return plan
+
+
+def check_scans_at(B: int, docs, values, scales, n_valid: int, dev, seed: int) -> dict:
+    """The four redesigned scans (segmax over bf16 rows, segmax_int8, the
+    running top-k over bf16 and over per-row int8 rows) at B query rows:
+    each against its plain version (SEGMAX_ATOL / INT8_ATOL; the top-k's
+    ids against the full f32 scores), two calls bit-identical, its layout
+    logged, timed beside its library call. Returns a record per kernel."""
+    from twotowermlretrieval_tpu_torch.ops.topk import (
+        NEG_INF,
+        segmax,
+        segmax_bound,
+        segmax_int8,
+        segmax_int8_bound,
+        segmax_int8_reference,
+        segmax_reference,
+        topk_stream,
+        topk_stream_bound,
+        topk_stream_int8,
+        topk_stream_reference,
+    )
+
+    npad = docs.shape[0]
+    qb = _unit_rows(torch.Generator(device=dev).manual_seed(seed), B, dev)
+    f_bf16 = torch.matmul(qb.float(), docs.float().T)
+    f_int8 = torch.matmul(qb.float(), values.float().T) * scales
+    v16 = values[:n_valid].to(torch.bfloat16)
+    cases = {  # kernel, plain version, tolerance, library call, (bytes, flops), layout, full scores
+        "segmax": (lambda: segmax(qb, docs, n_valid)[0],
+                   lambda: segmax_reference(qb, docs, n_valid)[0], SEGMAX_ATOL,
+                   lambda: torch.matmul(docs, qb.T).view(-1, 128, B).amax(dim=1),
+                   segmax_bound(B, H, npad, 2), (torch.bfloat16, None), None),
+        "segmax_int8": (lambda: segmax_int8(qb, values, scales, n_valid),
+                        lambda: segmax_int8_reference(qb, values, scales, n_valid), INT8_ATOL,
+                        lambda: (torch.matmul(values.to(torch.bfloat16), qb.T).float()
+                                 * scales[:, None]).view(-1, 128, B).amax(dim=1),
+                        segmax_int8_bound(B, H, npad), (torch.int8, None), None),
+        "topk_stream": (lambda: topk_stream(qb, docs, FANOUT, n_valid),
+                        lambda: topk_stream_reference(qb, docs, FANOUT, n_valid), SEGMAX_ATOL,
+                        lambda: torch.topk(torch.matmul(qb, docs[:n_valid].T).float(), FANOUT),
+                        topk_stream_bound(B, H, npad, FANOUT, 2), (torch.bfloat16, FANOUT),
+                        f_bf16),
+        "topk_stream_int8": (lambda: topk_stream_int8(qb, values, scales, FANOUT, n_valid),
+                             lambda: topk_stream_reference(qb, values, FANOUT, n_valid, scales),
+                             INT8_ATOL,
+                             lambda: torch.topk(torch.matmul(qb, v16.T).float()
+                                                * scales[:n_valid], FANOUT),
+                             topk_stream_bound(B, H, npad, FANOUT, 1, scaled=True),
+                             (torch.int8, FANOUT), f_int8),
+    }
+    recs = {}
+    for name, (kernel, plain, tol, lib, nbytes_ops, (storage, k), full) in cases.items():
+        shape = f"B={B} Npad={npad} n_valid={n_valid} H={H} " + (
+            "bf16" if storage == torch.bfloat16 else "int8 per row") + (
+            "" if k is None else f" k={k}")
+        plan = scan_layout(name, B, storage, k)
+        got, again, want = kernel(), kernel(), plain()
+        got, again, want = ((t,) if torch.is_tensor(t) else t for t in (got, again, want))
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(bitwise, f"{name} {shape}: two calls differ")
+        err = (got[0] - want[0]).abs().max().item()
+        check(err <= tol, f"{name} {shape}: off its plain version by {err}")
+        if full is not None:
+            err = max(err, _check_topk(f"{name} {shape}", got[0], got[1], full, n_valid, tol))
+        else:
+            check(bool((got[0][(n_valid + 127) // 128:] == NEG_INF).all()),
+                  f"{name} {shape}: a padding segment is not NEG_INF")
+        rec = {"shape": shape, "max_abs_err": err, "bitwise_repeatable": bitwise,
+               "layout": plan, "ms": time_ms(kernel), "library_ms": time_ms(lib)}
+        rec["bound_ms"], rec["bound_by"] = bound(*nbytes_ops)
+        log(f"{name} {shape}: |diff| {err:.3g}, two calls bit-identical; kernel {rec['ms']:.4f} "
+            f"ms, library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
+            f"({rec['bound_by']})")
+        recs[name] = rec
+    del f_bf16, f_int8, v16
+    torch.cuda.empty_cache()
+    return recs
+
+
 def check_segmax_s8(docs_f32, n_valid: int, q, dev, timed: bool) -> dict:
     """Kernel 5 over the rows of ``docs_f32`` (rows >= n_valid zero, as the
     index pads), quantized per segment on the host with the index's own
@@ -601,8 +715,10 @@ def check_int8_rows(docs_f32, n_valid: int, q, dev) -> dict:
     """Kernels 6, 7 and 8 over the rows of ``docs_f32``: segmax_int8 (the
     per-row int8 corpus, quantize_rows) and the running top-k over bf16 and
     per-row int8 storage, each against its plain version and torch.topk of
-    the full f32 scores, each driven once through its public function with
-    the counts at 0, and timed."""
+    the full f32 scores, two calls bit-identical, each driven once through
+    its public function with the counts at 0, and timed; then the four
+    redesigned scans at the other batch sizes (SCAN_BATCHES). Returns the
+    records by kernel, the B=16 one first."""
     from twotowermlretrieval_tpu_torch.ops.topk import (
         NEG_INF,
         fused_topk,
@@ -628,8 +744,11 @@ def check_int8_rows(docs_f32, n_valid: int, q, dev) -> dict:
 
     # kernel 6: the per-row int8 segment max
     shape = f"B={B} Npad={npad} n_valid={n_valid} H={H} int8 per row"
+    scan_layout("segmax_int8", B, torch.int8)
     got = segmax_int8(qb, values, scales, n_valid)
     want = segmax_int8_reference(qb, values, scales, n_valid)
+    check(torch.equal(got, segmax_int8(qb, values, scales, n_valid)),
+          f"segmax_int8 {shape}: two calls differ")
     err = (got - want).abs().max().item()
     check(err <= INT8_ATOL, f"segmax_int8 {shape}: off by {err}")
     check(bool((got[(n_valid + 127) // 128 :] == NEG_INF).all()), "segmax_int8: padding")
@@ -662,7 +781,12 @@ def check_int8_rows(docs_f32, n_valid: int, q, dev) -> dict:
          topk_stream_bound(B, H, npad, FANOUT, 1, scaled=True), full),
     ):
         kernel = topk_stream if name == "topk_stream" else topk_stream_int8
+        scan_layout(name, B, torch.bfloat16 if name == "topk_stream" else torch.int8, FANOUT)
         k_vals, k_ids = kernel(*args, FANOUT, n_valid)
+        # the blocks race on the shared thresholds; the result must not move
+        again = kernel(*args, FANOUT, n_valid)
+        check(torch.equal(k_vals, again[0]) and torch.equal(k_ids, again[1]),
+              f"{name}: two calls differ")
         r_vals, r_ids = plain()
         err = (k_vals - r_vals).abs().max().item()
         check(err <= tol, f"{name}: off its plain version by {err}")
@@ -682,15 +806,24 @@ def check_int8_rows(docs_f32, n_valid: int, q, dev) -> dict:
         recs[name] = rec
     for name, rec in recs.items():
         log(f"{name} {rec['shape']}: |diff| {rec['max_abs_err']:.3g}, {rec['launches']} launch "
-            f"from its public function; kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
-            f"ms, library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
-            f"({rec['bound_by']})")
-    del values, scales, docs, full, f_bf16
+            f"from its public function, two calls bit-identical; kernel {rec['ms']:.4f} ms, "
+            f"plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+    del full, f_bf16
     torch.cuda.empty_cache()
-    return recs
+    out = {name: [rec] for name, rec in recs.items()}
+    out["segmax"] = []  # its B=16 record is check_segmax's
+    for i, b in enumerate(SCAN_BATCHES):  # the other batch sizes over the same rows
+        for name, rec in check_scans_at(b, docs, values, scales, n_valid, dev, 40 + i).items():
+            out[name].append(rec)
+    del values, scales, docs
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_int8_kernels(dev) -> dict:
+    from twotowermlretrieval_tpu_torch.ops.topk import quantize_rows
+
     npad_serve = -(-PASSAGES // 8192) * 8192
     out = {"segmax_s8": []}
     with torch.inference_mode():
@@ -702,8 +835,15 @@ def phase_int8_kernels(dev) -> dict:
             docs[n_valid:] = 0.0
             out["segmax_s8"].append(check_segmax_s8(docs, n_valid, q, dev, timed))
             if npad == SCAN_ROWS:
-                for name, rec in check_int8_rows(docs, n_valid, q, dev).items():
-                    out[name] = [rec]
+                for name, recs in check_int8_rows(docs, n_valid, q, dev).items():
+                    out.setdefault(name, []).extend(recs)
+            else:  # the four redesigned scans at the served rows
+                values, scales = (torch.from_numpy(a).to(dev)
+                                  for a in quantize_rows(docs.cpu().numpy()))
+                for name, rec in check_scans_at(SERVE_ROWS, docs.bfloat16(), values, scales,
+                                                n_valid, dev, 45).items():
+                    out.setdefault(name, []).append(rec)
+                del values, scales
             del docs
             torch.cuda.empty_cache()
     return out
@@ -981,12 +1121,75 @@ def check_attention(B: int, T: int, in_dtype, seed: int, dev, hd: int = TF_HD) -
     return fwd, bwd
 
 
+def check_attention_f32(dev, B: int = 4, T: int = 512, hd: int = 64, seed: int = 36) -> tuple:
+    """Both attention kernels at f32 compute (full f32 products on the CUDA
+    cores) at hd=64 and T=512, past the 256 keys one stage of the f32
+    kernels holds: against their plain versions within ATTN_F32_REL of the
+    largest magnitude, two calls bit-identical, timed. Returns the
+    (forward, backward) records."""
+    from twotowermlretrieval_tpu_torch.ops.attention import (
+        attention_bound,
+        attention_bwd,
+        attention_bwd_reference,
+        attention_fwd,
+        attention_fwd_reference,
+        attention_plan,
+    )
+
+    R = B * TF_HEADS
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn((R, T, hd), generator=gen, device=dev) for _ in range(4))
+    lengths = torch.randint(1, T + 1, (R,), generator=gen, device=dev)
+    lengths[:3] = torch.tensor([0, 1, T], device=dev)
+    bias = torch.where(torch.arange(T, device=dev)[None, :] < lengths[:, None], 0.0, -1e9)
+    args, scale = (q, k, v, bias), float(1.0 / np.sqrt(hd))
+    out = attention_fwd(*args, scale, "float32")
+    grads = attention_bwd(*args, do, scale, "float32")
+    r_out = attention_fwd_reference(*args, scale, "float32")
+    r_grads = attention_bwd_reference(*args, do, scale, "float32")
+    fwd_err = (out - r_out).abs().max().item()
+    bwd_err = max((a - b).abs().max().item() for a, b in zip(grads, r_grads))
+    fwd_rel = fwd_err / r_out.abs().max().item()
+    bwd_rel = max((a - b).abs().max().item() / b.abs().max().item()
+                  for a, b in zip(grads, r_grads))
+    bitwise = (torch.equal(out, attention_fwd(*args, scale, "float32"))
+               and all(torch.equal(a, b)
+                       for a, b in zip(grads, attention_bwd(*args, do, scale, "float32"))))
+    shape = f"R={R} T={T} hd={hd} f32 in, f32 compute"
+    plan = attention_plan(T, hd, "float32")
+    log(f"attention {shape}: keys staged {plan['fwd']['kc']} at a time ({plan['fwd']['smem']} "
+        f"bytes forward, {plan['dkv']['smem']} backward); |fwd diff| {fwd_rel:.3g} of the scale, "
+        f"|bwd diff| {bwd_rel:.3g}")
+    check(all(bool(torch.isfinite(t).all()) for t in (out, *grads)),
+          f"attention {shape}: non-finite output")
+    check(fwd_rel <= ATTN_F32_REL and bwd_rel <= ATTN_F32_REL,
+          f"attention {shape}: off its plain version")
+    check(bitwise, f"attention {shape}: two calls differ")
+    recs = []
+    for backward, err, rel, kernel, plain in (
+            (False, fwd_err, fwd_rel, lambda: attention_fwd(*args, scale, "float32"),
+             lambda: attention_fwd_reference(*args, scale, "float32")),
+            (True, bwd_err, bwd_rel, lambda: attention_bwd(*args, do, scale, "float32"),
+             lambda: attention_bwd_reference(*args, do, scale, "float32"))):
+        rec = {"shape": shape, "max_abs_err": err, "rel_err": rel, "bitwise_repeatable": bitwise,
+               "ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=5, warmup=1)}
+        rec["bound_ms"], rec["bound_by"] = bound(*attention_bound(R, T, hd, 4, backward),
+                                                 PEAK_F32_FLOPS)
+        log(f"attention {'backward' if backward else 'forward'} {shape}: kernel "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.6f} "
+            f"ms ({rec['bound_by']}, at the f32 CUDA-core rate)")
+        recs.append(rec)
+    del out, grads, r_out, r_grads
+    torch.cuda.empty_cache()
+    return tuple(recs)
+
+
 def phase_attention_kernels(dev) -> dict:
     """The transformer's shapes: the doc tower in training (B=512, T=128,
     the main row), its query tower (T=32), one serving batch (16 rows,
     T=32) and two T=512 cases (hd=32, and hd=64 with V staged over K); each
     with f32 inputs (the f32 residual stream) and with bf16 inputs
-    (RESIDUAL_DTYPE bfloat16)."""
+    (RESIDUAL_DTYPE bfloat16); then f32 compute at hd=64, T=512."""
     fwd, bwd = [], []
     with torch.no_grad():
         for in_dtype in (torch.float32, torch.bfloat16):
@@ -996,6 +1199,9 @@ def phase_attention_kernels(dev) -> dict:
                 f, b = check_attention(B, T, in_dtype, 30 + i, dev, hd)
                 fwd.append(f)
                 bwd.append(b)
+        f, b = check_attention_f32(dev)
+        fwd.append(f)
+        bwd.append(b)
     return {"attention_fwd": fwd, "attention_bwd": bwd}
 
 
@@ -1698,7 +1904,8 @@ def main() -> int:
     try:
         phase_build()
         kern = phase_kernels(dev)
-        kern.update(phase_int8_kernels(dev))
+        for name, recs in phase_int8_kernels(dev).items():
+            kern.setdefault(name, []).extend(recs)
         kern["rnn_bwd"] = phase_bwd_kernels(dev)
         wide_fwd, wide_bwd = phase_wide_kernels(dev)
         kern["rnn_fwd"] += wide_fwd

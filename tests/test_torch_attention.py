@@ -116,8 +116,9 @@ def test_attention_plan_every_length(hd):
     the backward's first launch stage V over K only where both do not fit,
     and split a tile's keys over two warps only where one block fills the
     SM.
-    f32 compute keeps a row's K and V as f32: hd = 64 stops at T = 443
-    there."""
+    f32 compute stages a row's K and V as f32, the whole T up to 256 keys
+    and chunks of 256 beyond, so it too has a layout at every T up to 512
+    and every head width."""
     limit = 232_448
     row = _staged_row(hd)
     for T in range(1, MAX_T + 1):
@@ -141,12 +142,16 @@ def test_attention_plan_every_length(hd):
         assert kv["smem"] == 2 * kt * row + 2 * (2 * kt * row + -(-12 * kt // 16) * 16) \
             + 2 * -(-kt * (kt + 8) * 2 // 16) * 16 + -(-kt * 4 // 16) * 16 <= limit
         f32 = attention_plan(T, hd, "float32")
-        fits = (2 * T * hd + 3 * T) * 4 <= limit
-        assert (f32 is not None) == fits and (fits or (hd == 64 and T > 443))
+        assert f32 is not None and f32["route"] == "fma", T
+        kc = min(T, 256)
+        for name, vecs in (("fwd", 1), ("dq", 1), ("dkv", 3)):  # K, V (Q, dO) chunks, [T] vectors
+            assert f32[name]["kc"] == kc and f32[name]["rows"] == min(128, -(-T // 32) * 32)
+            assert f32[name]["smem"] == (2 * kc * hd + vecs * T) * 4 <= limit
     wide = attention_plan(512, 64, "bfloat16")  # V over K keeps 64-row tiles
     assert wide["fwd"]["rows"] == wide["dq"]["rows"] == 64 and wide["dq"]["kv_shared"]
     assert wide["fwd"]["ks"] == wide["dq"]["ks"] == 2
-    assert attention_plan(443, 64, "float32") is not None
+    assert attention_plan(443, 64, "float32")["fwd"]["kc"] == 256  # chunked past 256 keys
+    assert attention_plan(512, 64, "float32")["dkv"]["smem"] == (2 * 256 * 64 + 3 * 512) * 4
 
 
 def test_bf16_inputs_without_input_dtype_give_bf16_gradients():

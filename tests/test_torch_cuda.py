@@ -546,27 +546,97 @@ def _unit_rows(gen, n, h, dev):
     return x / x.norm(dim=1, keepdim=True)
 
 
+# Batch sizes around the kernels' n8 query tiles, widths with a k-tail
+# short of a 16-column step (8, 24, 40), and n_valid on, just before and
+# just after a segment boundary (8064 = 63 * 128).
+_SCAN_B = [1, 5, 8, 9, 16, 17, 32]
+_SCAN_H = [256, 8, 24, 40]
+_N_VALID = [8000, 8063, 8064, 8065]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B", [1, 5, 16, 32])
+@pytest.mark.parametrize("B", _SCAN_B)
 @pytest.mark.parametrize("with_cache", [False, True])
-def test_segmax_kernel_matches_plain_version(dev, dtype, B, with_cache):
-    """f32 sums of 256 products of unit-norm rows, in another order: they
+@pytest.mark.parametrize("H", _SCAN_H)
+def test_segmax_kernel_matches_plain_version(dev, dtype, B, with_cache, H):
+    """f32 sums of H products of unit-norm rows, in another order: they
     differ by at most about 2 * 256 * 2^-24 < 3e-5."""
-    gen = torch.Generator(device=dev).manual_seed(B)
-    docs = _unit_rows(gen, 8192, 256, dev).to(dtype)
-    q = _unit_rows(gen, B, 256, dev).to(dtype)
-    n_valid = 8000
-    before = segmax.launches
-    seg, cache = segmax(q, docs, n_valid, with_cache=with_cache)
-    assert segmax.launches == before + 1
-    r_seg, r_cache = segmax_reference(q, docs, n_valid, with_cache=with_cache)
-    torch.testing.assert_close(seg, r_seg, rtol=0, atol=3e-5)
-    assert (seg[(n_valid + 127) // 128 :] == NEG_INF).all()
-    if with_cache:
-        torch.testing.assert_close(cache, r_cache, rtol=0, atol=3e-5)
-        assert (cache[n_valid:] == NEG_INF).all()
+    gen = torch.Generator(device=dev).manual_seed(B + H)
+    docs = _unit_rows(gen, 8192, H, dev).to(dtype)
+    q = _unit_rows(gen, B, H, dev).to(dtype)
+    for n_valid in _N_VALID:
+        before = segmax.launches
+        seg, cache = segmax(q, docs, n_valid, with_cache=with_cache)
+        assert segmax.launches == before + 1
+        r_seg, r_cache = segmax_reference(q, docs, n_valid, with_cache=with_cache)
+        torch.testing.assert_close(seg, r_seg, rtol=0, atol=3e-5)
+        assert (seg[(n_valid + 127) // 128 :] == NEG_INF).all()
+        if with_cache:
+            torch.testing.assert_close(cache, r_cache, rtol=0, atol=3e-5)
+            assert (cache[n_valid:] == NEG_INF).all()
+        else:
+            assert cache is None
+
+
+def _int8_rows(d):
+    return (torch.from_numpy(a).to(d.device) for a in quantize_rows(d.cpu().numpy()))
+
+
+@pytest.mark.parametrize("storage", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("segments", [1, 2500])  # one; more than the resident blocks
+def test_segmax_one_segment_and_more_than_the_resident_blocks(dev, storage, segments):
+    """The persistent blocks walk every segment: one segment, and 2,500
+    (more than the card's blocks at once, at most 4 a SM), against the plain
+    version."""
+    gen = torch.Generator(device=dev).manual_seed(segments)
+    d = _unit_rows(gen, segments * 128, 48, dev)
+    q = _unit_rows(gen, 12, 48, dev)
+    n_valid = segments * 128 - 77
+    if storage == "int8":
+        values, scales = _int8_rows(d)
+        got = segmax_int8(q.bfloat16(), values, scales, n_valid)
+        want = segmax_int8_reference(q.bfloat16(), values, scales, n_valid)
+        torch.testing.assert_close(got, want, rtol=0, atol=4e-5)
     else:
-        assert cache is None
+        dt = getattr(torch, storage)
+        got, cache = segmax(q.to(dt), d.to(dt), n_valid, with_cache=True)
+        want, r_cache = segmax_reference(q.to(dt), d.to(dt), n_valid, with_cache=True)
+        torch.testing.assert_close(got, want, rtol=0, atol=3e-5)
+        torch.testing.assert_close(cache, r_cache, rtol=0, atol=3e-5)
+    assert got.shape == (segments, 12)
+
+
+def test_scan_kernels_are_bitwise_repeatable(dev):
+    """No atomics in a sum: two calls of segmax (bf16, f32, with its cache),
+    segmax_int8, topk_stream (bf16, f32) and topk_stream_int8 give the same
+    bits. The running top-k's blocks race on their shared thresholds (a
+    different set of candidates reaches launch 2 in each run), which must
+    not move its result: 1,100 tiles (past the 1,024 from which a pilot
+    seeds the thresholds), B=17, k=128, and a corpus of duplicated rows so
+    that keys tie in value across blocks; the result also holds the plain
+    version."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    d = _unit_rows(gen, 1100 * 128, 64, dev)
+    d[40_000:] = d[: d.shape[0] - 40_000].clone()  # every value twice, far apart
+    q = _unit_rows(gen, 17, 64, dev)
+    values, scales = _int8_rows(d)
+    qb = q.bfloat16()
+    calls = [
+        lambda: segmax(qb, d.bfloat16(), 138_000, with_cache=True),
+        lambda: segmax(q, d, 138_000, with_cache=True),
+        lambda: (segmax_int8(qb, values, scales, 138_000),),
+        lambda: topk_stream(qb, d.bfloat16(), 128, 139_000),
+        lambda: topk_stream(q, d, 128, 139_000),
+        lambda: topk_stream_int8(qb, values, scales, 128, 139_000),
+    ]
+    for call in calls:
+        first = call()
+        for _ in range(3):
+            assert all(torch.equal(a, b) for a, b in zip(first, call()))
+    for got, want in ((calls[3](), topk_stream_reference(qb, d.bfloat16(), 128, 139_000)),
+                      (calls[4](), topk_stream_reference(q, d, 128, 139_000)),
+                      (calls[5](), topk_stream_reference(qb, values, 128, 139_000, scales))):
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=4e-5)
 
 
 @pytest.mark.parametrize("phase2", ["rescore", "gather"])
@@ -664,21 +734,24 @@ def test_segmax_s8_wrapper_rejects_what_the_kernel_does_not_take(dev):
         segmax_s8(wide[:2], wide)  # integer scores no longer exact in f32
 
 
-@pytest.mark.parametrize("B", [1, 5, 16, 32])
-def test_segmax_int8_kernel_matches_plain_version(dev, B):
+@pytest.mark.parametrize("B", _SCAN_B)
+@pytest.mark.parametrize("H", [256, 16, 48])
+def test_segmax_int8_kernel_matches_plain_version(dev, B, H):
     """Exact products summed in f32 in another order, times the row scale:
     the sums of |q_i v_i| scale(row) are at most about 1 for unit rows, so
-    the two differ by at most about 2 * 256 * 2^-24 < 4e-5."""
-    gen = torch.Generator(device=dev).manual_seed(B)
-    d = _unit_rows(gen, 8192, 256, dev)
-    values, scales = (torch.from_numpy(a).to(dev) for a in quantize_rows(d.cpu().numpy()))
-    q = _unit_rows(gen, B, 256, dev).bfloat16()
-    before = segmax_int8.launches
-    got = segmax_int8(q, values, scales, 8000)
-    assert segmax_int8.launches == before + 1
-    want = segmax_int8_reference(q, values, scales, 8000)
-    torch.testing.assert_close(got, want, rtol=0, atol=4e-5)
-    assert (got[(8000 + 127) // 128 :] == NEG_INF).all()
+    the two differ by at most about 2 * 256 * 2^-24 < 4e-5. int8 rows are
+    16-byte multiples: H = 16 and 48 leave a stage mostly zero-filled."""
+    gen = torch.Generator(device=dev).manual_seed(B + H)
+    d = _unit_rows(gen, 8192, H, dev)
+    values, scales = _int8_rows(d)
+    q = _unit_rows(gen, B, H, dev).bfloat16()
+    for n_valid in _N_VALID:
+        before = segmax_int8.launches
+        got = segmax_int8(q, values, scales, n_valid)
+        assert segmax_int8.launches == before + 1
+        want = segmax_int8_reference(q, values, scales, n_valid)
+        torch.testing.assert_close(got, want, rtol=0, atol=4e-5)
+        assert (got[(n_valid + 127) // 128 :] == NEG_INF).all()
     vals, ids = fused_topk_segmax_int8(q, values, scales, k=50, n_valid=8000)
     full = (torch.matmul(q.float(), values.float().T) * scales)[:, :8000]
     torch.testing.assert_close(vals, torch.topk(full, 50).values, rtol=0, atol=4e-5)
@@ -686,58 +759,79 @@ def test_segmax_int8_kernel_matches_plain_version(dev, B):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
-@pytest.mark.parametrize("B,k", [(1, 1), (5, 50), (16, 128), (32, 7)])
-def test_topk_stream_kernel_matches_plain_version(dev, dtype, B, k):
+@pytest.mark.parametrize("B,k", [(1, 1), (5, 50), (8, 128), (9, 50), (16, 128), (17, 64),
+                                 (32, 7), (32, 128)])
+@pytest.mark.parametrize("H", [256, 16, 48])
+def test_topk_stream_kernel_matches_plain_version(dev, dtype, B, k, H):
     """The running top-k against the full product and a stable sort: the
     values within the summation-order tolerance (4e-5, as above), every id
     scoring its value, and -- where no two scores are that close -- the
-    same ids. 20,000 valid rows of 20,480 span several chunks."""
-    gen = torch.Generator(device=dev).manual_seed(B * 7 + k)
-    d = _unit_rows(gen, 20480, 256, dev)
-    q = _unit_rows(gen, B, 256, dev)
+    same ids. 20,480 rows span several chunks; n_valid on, just before and
+    just after a tile boundary (20,096 = 157 * 128)."""
+    gen = torch.Generator(device=dev).manual_seed(B * 7 + k + H)
+    d = _unit_rows(gen, 20480, H, dev)
+    q = _unit_rows(gen, B, H, dev)
     if dtype == torch.int8:
-        values, scales = (torch.from_numpy(a).to(dev) for a in quantize_rows(d.cpu().numpy()))
+        values, scales = _int8_rows(d)
         q = q.bfloat16()
         fn, args, counter = topk_stream_int8, (q, values, scales), topk_stream_int8
-        r_vals, r_ids = topk_stream_reference(q, values, k, 20000, scales)
         full = torch.matmul(q.float(), values.float().T) * scales
     else:
         docs, q = d.to(dtype), q.to(dtype)
         fn, args, counter = topk_stream, (q, docs), topk_stream
-        r_vals, r_ids = topk_stream_reference(q, docs, k, 20000)
         full = torch.matmul(q.float(), docs.float().T)
-    before = counter.launches
-    vals, ids = fn(*args, k, 20000)
-    assert counter.launches == before + 1
-    torch.testing.assert_close(vals, r_vals, rtol=0, atol=4e-5)
-    assert ((ids >= 0) & (ids < 20000)).all()
-    torch.testing.assert_close(full.gather(1, ids.long()), vals, rtol=0, atol=4e-5)
-    assert (vals[:, 1:] <= vals[:, :-1]).all()
-    top = torch.sort(full[:, :20000], dim=1, descending=True).values[:, : k + 1]
-    if (top[:, :-1] - top[:, 1:]).min().item() > 1e-4:  # no near-tie in or at the top k
-        assert torch.equal(ids, r_ids)
+    for n_valid in (20000, 20095, 20096, 20097):
+        r_vals, r_ids = topk_stream_reference(*args[:2], k, n_valid, *args[2:])
+        before = counter.launches
+        vals, ids = fn(*args, k, n_valid)
+        assert counter.launches == before + 1
+        torch.testing.assert_close(vals, r_vals, rtol=0, atol=4e-5)
+        assert ((ids >= 0) & (ids < n_valid)).all()
+        torch.testing.assert_close(full.gather(1, ids.long()), vals, rtol=0, atol=4e-5)
+        assert (vals[:, 1:] <= vals[:, :-1]).all()
+        top = torch.sort(full[:, :n_valid], dim=1, descending=True).values[:, : k + 1]
+        if (top[:, :-1] - top[:, 1:]).min().item() > 1e-4:  # no near-tie in or at the top k
+            assert torch.equal(ids, r_ids)
 
 
-def test_topk_stream_ties_and_short_corpus(dev):
-    """Bit-identical duplicate rows rank by id; fewer valid rows than k pad
-    with NEG_INF / -1; the public functions agree with the plain version."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
+def test_topk_stream_ties_and_short_corpus(dev, dtype):
+    """Bit-identical duplicate rows rank by id, also when they lie in
+    different blocks' chunks; fewer valid rows than k pad with NEG_INF / -1;
+    one tile; the public functions agree with the plain version; at B = 1,
+    9, 17 and 32 and H = 24 (48 for int8 rows: a k-tail)."""
     gen = torch.Generator(device=dev).manual_seed(5)
-    docs = _unit_rows(gen, 4096, 128, dev)
-    docs[3000] = docs[1000]
-    docs[2000] = docs[1000]
+    d = _unit_rows(gen, 300 * 128, 128, dev)
+    for dup in (1000, 20_000, 37_000):  # chunks apart
+        d[dup + 1] = d[1000]
+        d[dup] = d[1000]
     q = _unit_rows(gen, 4, 128, dev)
-    vals, ids = fused_topk(q, docs, k=128)
-    r_vals, r_ids = topk_stream_reference(q, docs, 128, 4096)
+
+    def search(q, d, k, n_valid=None):
+        """(kernel, plain version) of the public function."""
+        n = d.shape[0] if n_valid is None else n_valid
+        if dtype == torch.int8:
+            values, scales = _int8_rows(d)
+            return (fused_topk_int8(q.bfloat16(), values, scales, k=k, n_valid=n_valid),
+                    topk_stream_reference(q.bfloat16(), values, k, n, scales))
+        return (fused_topk(q.to(dtype), d.to(dtype), k=k, n_valid=n_valid),
+                topk_stream_reference(q.to(dtype), d.to(dtype), k, n))
+
+    (vals, ids), _ = search(q, d, 128)
     for row in ids.tolist():
-        pos = [row.index(i) for i in (1000, 2000, 3000) if i in row]
+        pos = [row.index(i) for i in (1000, 1001, 20_000, 20_001, 37_000, 37_001) if i in row]
         assert pos == sorted(pos)
-    vals, ids = fused_topk(q, docs, k=10, n_valid=3)
+    (vals, ids), _ = search(q, d, 10, n_valid=3)
     assert (ids[:, 3:] == -1).all() and (vals[:, 3:] <= NEG_INF).all()
     assert sorted(ids[0, :3].tolist()) == [0, 1, 2]
-    values, scales = (torch.from_numpy(a).to(dev) for a in quantize_rows(docs.cpu().numpy()))
-    vals, ids = fused_topk_int8(q, values, scales, k=20, n_valid=4000)
-    r_vals, _ = topk_stream_reference(q.bfloat16(), values, 20, 4000, scales)
-    torch.testing.assert_close(vals, r_vals, rtol=0, atol=4e-5)
+    tail = 48 if dtype == torch.int8 else 24  # int8 rows are 16-byte multiples
+    # one tile, then k-tails at B = 1, 9, 17, 32
+    for B, H, rows, n_valid in ((4, 128, 128, 100), (1, tail, 4096, 4000), (9, tail, 4096, 4000),
+                                (17, tail, 4096, 4000), (32, tail, 4096, 4000)):
+        qq, dd = _unit_rows(gen, B, H, dev), _unit_rows(gen, rows, H, dev)
+        (vals, ids), (r_vals, _) = search(qq, dd, 50, n_valid=n_valid)
+        torch.testing.assert_close(vals, r_vals, rtol=0, atol=4e-5)
+        assert ((ids >= 0) & (ids < n_valid)).all()
 
 
 def test_topk_stream_wrappers_reject_what_the_kernel_does_not_take(dev):
@@ -752,11 +846,14 @@ def test_topk_stream_wrappers_reject_what_the_kernel_does_not_take(dev):
         topk_stream(q, docs[:200], 10, 200)  # rows not a multiple of 128
     with pytest.raises(ValueError):
         topk_stream(q.float(), docs, 10, 256)  # dtypes differ
-    wide = torch.zeros((256, 1024), dtype=torch.bfloat16, device=dev)
-    with pytest.raises(RuntimeError, match="topk_stream_launch failed"):
-        topk_stream(wide[:32], wide, 10, 256)  # 32 query rows at H=1024: too much shared memory
-    vals, ids = topk_stream(wide[:16], wide, 10, 256)  # the refusal left no error behind
-    assert ids.tolist() == [list(range(10))] * 16
+    wide = torch.zeros((256, 2048), dtype=torch.bfloat16, device=dev)
+    before = topk_stream.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        topk_stream(wide[:32], wide, 128, 256)  # 32 query rows, k=128 at H=2048: no layout fits
+    assert topk_stream.launches == before
+    half = wide[:, :1024].contiguous()
+    vals, ids = topk_stream(half[:32], half, 10, 256)  # H=1024 fits now
+    assert ids.tolist() == [list(range(10))] * 32
     values = torch.zeros((256, 64), dtype=torch.int8, device=dev)
     scales = torch.ones(256, device=dev)
     with pytest.raises(ValueError):
@@ -765,6 +862,8 @@ def test_topk_stream_wrappers_reject_what_the_kernel_does_not_take(dev):
         topk_stream_int8(q, values, scales[:128], 10, 256)  # scales not per row
     with pytest.raises(ValueError):
         segmax_int8(torch.cat([q] * 9), values, scales, 256)
+    with pytest.raises(ValueError):
+        segmax_int8(q[:, :40], values[:, :40].contiguous(), scales, 256)  # int8 rows of 40 bytes
 
 
 # ---------------------------------------------------------------------------
@@ -842,6 +941,22 @@ def test_attention_tensor_core_kernels_every_shape(dev, T, hd, in_dtype):
                                atol=4 * _ATTN_REL["bfloat16"])
 
 
+@pytest.mark.parametrize("T", [444, 480, 512])
+def test_attention_f32_compute_hd64_long(dev, T):
+    """f32 compute at hd = 64 past the 256 keys one stage holds: forward and
+    backward against their plain versions at the f32 tolerance, rows of
+    length 0, 1 and T among them, two calls bit-identical."""
+    args, do = _attention_case(dev, 6, T, 64, torch.float32, seed=T)
+    scale = 0.125
+    out = attention_fwd(*args, scale, "float32")
+    grads = attention_bwd(*args, do, scale, "float32")
+    _close(out, attention_fwd_reference(*args, scale, "float32"), _ATTN_REL["float32"], "out")
+    for name, g, r in zip("qkv", grads, attention_bwd_reference(*args, do, scale, "float32")):
+        _close(g, r, _ATTN_REL["float32"], f"d{name}")
+    assert torch.equal(out, attention_fwd(*args, scale, "float32"))
+    assert all(torch.equal(a, b) for a, b in zip(grads, attention_bwd(*args, do, scale, "float32")))
+
+
 def test_attention_kernels_are_deterministic(dev):
     args, do = _attention_case(dev, 512, 128, 32, torch.float32, seed=3)
     a = attention_bwd(*args, do, 0.17, "bfloat16")
@@ -877,16 +992,13 @@ def test_attention_wrappers_reject_what_the_kernel_does_not_take(dev):
         attention_fwd(q, k.cpu(), v, bias, 0.2)
     with pytest.raises(ValueError):
         attention_bwd(q, k, v, bias, do[:, :8], 0.2)
-    # hd = 64 at T = 512: bf16 compute stages bf16 operands and takes it;
-    # f32 compute stages a row's K and V as f32 and refuses it, naming its limit
-    wide = torch.randn((1, 512, 64), device=dev)
-    wbias = torch.zeros((1, 512), device=dev)
-    out = attention_fwd(wide, wide, wide, wbias, 0.1)
-    _close(out, attention_fwd_reference(wide, wide, wide, wbias, 0.1), _ATTN_REL["bfloat16"], "out")
-    before = attention_fwd.launches
-    with pytest.raises(ValueError, match="shared memory.*T up to 443"):
-        attention_fwd(wide, wide, wide, wbias, 0.1, "float32")
-    assert attention_fwd.launches == before
+    # hd = 64 at T = 444 and 512: both compute dtypes take it (f32 compute
+    # stages its keys and values in chunks of 256)
+    for T in (444, 512):
+        (wq, wk, wv, wbias), wdo = _attention_case(dev, 3, T, 64, torch.float32, seed=T)
+        for cdt in ("bfloat16", "float32"):
+            out = attention_fwd(wq, wk, wv, wbias, 0.1, cdt)
+            _close(out, attention_fwd_reference(wq, wk, wv, wbias, 0.1, cdt), _ATTN_REL[cdt], "out")
 
 
 @pytest.mark.parametrize("fused", [True, None])

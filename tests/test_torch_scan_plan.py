@@ -1,0 +1,151 @@
+"""The layouts of the port's scan kernels, checked on the CPU.
+
+``ops/topk.py`` ``scan_plan`` picks the layout ``csrc/segmax.cu`` and launch 1
+of ``csrc/topk_stream.cu`` run with: for bf16 and per-row int8 corpora,
+tensor-core tiles fed by a ring of cp.async stages (``csrc/doc_mma.cuh``),
+for f32 the CUDA-core tiles of ``csrc/doc_tile.cuh``. Its shared-memory sizes
+mirror the .cu files region by region; these tests hold them for every batch
+size and the widths the wrappers take, and show that the wrappers refuse what
+the kernels do not take before any launch (on meta tensors: no card, no
+build).
+"""
+
+import pytest
+import torch
+
+from twotowermlretrieval_tpu_torch.ops import _build
+from twotowermlretrieval_tpu_torch.ops import topk as T
+
+LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
+SM = 233_472  # bytes a SM holds for its blocks, 1,024 of them reserved a block
+ELEM = {torch.bfloat16: 2, torch.float32: 4, torch.int8: 1}
+
+
+def _expected(B, H, storage, k):
+    """The layout, recomputed region by region from the .cu files."""
+    elem = ELEM[storage]
+    if (H * elem) % 16:
+        return None
+    lists = 0 if k is None else B * (2 * k + 128 + 1) * 8 + -(-4 * B // 16) * 16
+    most = 4 if k is None else 3  # the kernels' launch bounds
+    if storage == torch.float32:
+        bq = 8 if B <= 8 else 16 if B <= 16 else 32
+        smem = bq * (H + 4) * 4 + 128 * 144 + (4 * bq * 4 if k is None else lists)
+        if smem > LIMIT:
+            return None
+        return {"route": "fma", "bq": bq, "stages": 1, "smem": smem,
+                "blocks_per_sm": min(most, SM // (smem + 1024))}
+    nt = -(-B // 8)
+    chunks = -(-H * elem // 128)  # 128-byte stages of each row
+    qfrag = chunks * (128 // elem // 16) * nt * 32 * 8  # a uint2 a (k16 step, n tile, lane)
+    extra = 4 * nt * 8 * 4 if k is None else lists  # segmax: the 4 warps' column maxima
+    sizes = {s: s * 128 * 128 + qfrag + extra for s in (4, 3, 2)}
+    fits = [s for s in (4, 3, 2) if sizes[s] <= LIMIT]
+    if not fits:
+        return None
+    two = [s for s in fits if min(most, SM // (sizes[s] + 1024)) >= 2]
+    stages = (two or fits)[0]
+    return {"route": "mma", "nt": nt, "stages": stages, "smem": sizes[stages],
+            "k_tail": chunks * 128 // elem - H,
+            "blocks_per_sm": min(most, SM // (sizes[stages] + 1024))}
+
+
+@pytest.mark.parametrize("H", [8, 16, 24, 40, 256, 1024])
+@pytest.mark.parametrize("storage", [torch.bfloat16, torch.int8, torch.float32],
+                         ids=["bf16", "int8", "f32"])
+def test_scan_plan_every_batch_and_width(storage, H):
+    """Every B in 1..32 and k (segmax, and the running top-k at k 1, 50,
+    128): a layout exactly where one fits a block, its shared memory region
+    by region, the most stages that keep two blocks a SM, n8 query tiles
+    covering B, and the zero-padded k-tail inside the last stage."""
+    for B in range(1, 33):
+        for k in (None, 1, 50, 128):
+            plan, want = T.scan_plan(B, H, storage, k), _expected(B, H, storage, k)
+            assert (plan is None) == (want is None), (B, k)
+            if plan is None:
+                continue
+            for key, value in want.items():
+                assert plan[key] == value, (B, k, key)
+            assert plan["smem"] <= LIMIT and plan["blocks_per_sm"] >= 1
+            if plan["route"] == "mma":
+                assert 0 <= plan["k_tail"] < 128 // ELEM[storage]
+                assert plan["nt"] * 8 >= B > plan["nt"] * 8 - 8
+                assert 2 <= plan["stages"] <= 4
+
+
+def test_scan_plan_at_the_served_shape():
+    """H=256, B=16: the layouts the main path launches."""
+    seg = T.scan_plan(16, 256, torch.bfloat16)
+    assert (seg["route"], seg["stages"], seg["nt"], seg["k_tail"]) == ("mma", 4, 2, 0)
+    assert seg["smem"] == 4 * 16384 + 4 * 4 * 2 * 256 + 4 * 2 * 8 * 4
+    assert seg["blocks_per_sm"] == 3
+    top = T.scan_plan(16, 256, torch.bfloat16, 50)
+    assert top["smem"] == 4 * 16384 + 8192 + 16 * 229 * 8 + 64 and top["blocks_per_sm"] == 2
+    assert T.scan_plan(16, 256, torch.int8)["smem"] == seg["smem"]  # 2 stages of 128 columns
+    assert T.scan_plan(16, 256, torch.float32)["route"] == "fma"
+    # 32 rows at k=50 give up stages to keep two blocks a SM; at k=128 no
+    # layout keeps two, so they keep four stages
+    assert T.scan_plan(32, 256, torch.bfloat16, 50)["stages"] == 2
+    assert T.scan_plan(32, 256, torch.bfloat16, 128)["stages"] == 4
+
+
+def test_scan_wrappers_refuse_before_any_launch(monkeypatch):
+    """What the kernels do not take raises a ValueError before a build or a
+    launch: too many query rows, rows short of 16 bytes' multiple, a corpus
+    not in 128-row segments, k beyond 128, and layouts beyond a block's
+    shared memory."""
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    meta = {"device": "meta"}
+
+    def z(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, **meta)
+
+    before = (T.segmax.launches, T.segmax_int8.launches, T.topk_stream.launches,
+              T.topk_stream_int8.launches)
+    cases = [
+        (lambda: T.segmax(z(33, 64), z(256, 64), 256), "query rows"),
+        (lambda: T.segmax(z(4, 12), z(256, 12), 256), "16-byte"),
+        (lambda: T.segmax(z(4, 64), z(200, 64), 200), "Npad"),
+        (lambda: T.segmax(z(32, 4096), z(256, 4096), 256), "shared memory"),
+        (lambda: T.segmax(z(32, 2048, dtype=torch.float32),
+                          z(256, 2048, dtype=torch.float32), 256), "shared memory"),
+        (lambda: T.segmax_int8(z(4, 40), z(256, 40, dtype=torch.int8),
+                               z(256, dtype=torch.float32), 256), "16-byte"),
+        (lambda: T.segmax_int8(z(33, 64), z(256, 64, dtype=torch.int8),
+                               z(256, dtype=torch.float32), 256), "query rows"),
+        (lambda: T.topk_stream(z(4, 64), z(256, 64), 129, 256), "k in"),
+        (lambda: T.topk_stream(z(32, 2048), z(256, 2048), 128, 256), "shared memory"),
+        (lambda: T.topk_stream(z(4, 64), z(200, 64), 10, 200), "Npad"),
+        (lambda: T.topk_stream_int8(z(33, 64), z(256, 64, dtype=torch.int8),
+                                    z(256, dtype=torch.float32), 10, 256), "query rows"),
+    ]
+    for call, match in cases:
+        with pytest.raises(ValueError, match=match):
+            call()
+    after = (T.segmax.launches, T.segmax_int8.launches, T.topk_stream.launches,
+             T.topk_stream_int8.launches)
+    assert after == before
+    # a shape the kernels take gets past its plan, to the device check
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        T.segmax(z(16, 256), z(1024, 256), 1000)
+
+
+@pytest.mark.parametrize("B", [1, 7, 8, 16, 32])
+@pytest.mark.parametrize("tiles", [1, 576, 1023, 1024, 8192, 20000])
+def test_topk_stream_grid_covers_every_tile(B, tiles):
+    """Launch 1's blocks cover every tile once; a pilot over every 32nd
+    tile runs from 1,024 tiles and 8 query rows; the workspace holds the
+    larger launch's blocks."""
+    plan = T.scan_plan(B, 256, torch.bfloat16, 50)
+    g = T.topk_stream_grid(plan, B, tiles, sms=132)
+    most = plan["blocks_per_sm"] * 132
+    chunks = -(-tiles // g["per_chunk"])
+    assert chunks <= most and (chunks - 1) * g["per_chunk"] < tiles <= chunks * g["per_chunk"]
+    assert g["stride"] == (32 if tiles >= 1024 and B >= 8 else 1)
+    sample = -(-tiles // g["stride"])
+    pilot = -(-sample // g["pilot_per_chunk"])
+    assert pilot <= most and (pilot - 1) * g["pilot_per_chunk"] < sample
+    assert g["grid"] == max(chunks, pilot)

@@ -68,11 +68,12 @@
 // f32 compute keeps the CUDA-core kernels: TF32 tensor cores would round
 // the operands, and the JAX f32 path asks for HIGHEST precision. One block
 // per (row r, tile of up to 128 query rows) stages row r's keys and values
-// for the whole T in shared memory as f32 (so hd = 64 takes T up to 443);
-// each thread owns one query row and recomputes its scores from shared
-// memory in three passes (maximum, sum, output). The backward is the same
-// two launches as above, one thread per query (then key) row, every sum in
-// a fixed order.
+// in shared memory as f32, the whole T up to 256 keys and chunks of 256
+// beyond (staged again for each pass, so every T up to 512 fits at every
+// head width); each thread owns one query row and recomputes its scores
+// from shared memory in three passes (maximum, sum, output), each over the
+// keys in order. The backward is the same two launches as above, one thread
+// per query (then key) row, every sum in a fixed order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -159,37 +160,76 @@ __device__ __forceinline__ void store_row(const float (&src)[HD], float* __restr
   for (int d = 0; d < HD; ++d) dst[d] = src[d];
 }
 
+// Keys (or, in the backward's second launch, query rows) of the f32 kernels
+// staged in shared memory at a time: the whole T where T <= F32_KEYS, else
+// chunks of F32_KEYS, staged again for every pass over the keys. Each pass
+// still walks the keys in order 0 .. T-1, so the sums and their rounding
+// are those of one whole-T stage.
+constexpr int F32_KEYS = 256;
+
+// Shared memory of the f32 kernels (ops/attention.py attention_plan mirrors
+// it): two [kc][hd] f32 operands and `vecs` [T] f32 vectors.
+__host__ __device__ constexpr size_t f32_smem(int T, int hd, int vecs) {
+  return (2 * (size_t)(T < F32_KEYS ? T : F32_KEYS) * hd + (size_t)vecs * T) * sizeof(float);
+}
+
+// Rows c0 .. c0 + kc - 1 (at most T) of two [T][HD] operands into a_s and
+// b_s as f32; where one chunk holds the whole T, only its first call
+// (c0 = 0, first) stages. Every thread of the block calls it.
+template <typename TA, typename TB, int HD>
+__device__ __forceinline__ void stage_chunk(const TA* __restrict__ a, const TB* __restrict__ b,
+                                            int T, int c0, int kc, bool first, float* a_s,
+                                            float* b_s) {
+  if (kc >= T && !first) return;
+  const int n = (T - c0 < kc ? T - c0 : kc) * HD;
+  __syncthreads();  // the previous chunk's reads are complete
+  stage<TA>(a + (size_t)c0 * HD, n, a_s);
+  if (b != nullptr) stage<TB>(b + (size_t)c0 * HD, n, b_s);
+  __syncthreads();
+}
+
 template <typename TIn, int HD>
 __global__ void __launch_bounds__(TILE) attention_fwd_kernel(
     int T, float scale, const TIn* __restrict__ q, const TIn* __restrict__ k,
     const TIn* __restrict__ v, const float* __restrict__ bias, float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
-  float* k_s = smem;                  // [T][HD]
-  float* v_s = k_s + (size_t)T * HD;  // [T][HD]
-  float* b_s = v_s + (size_t)T * HD;  // [T]
+  const int kc = T < F32_KEYS ? T : F32_KEYS;
+  float* k_s = smem;                   // [kc][HD]
+  float* v_s = k_s + (size_t)kc * HD;  // [kc][HD]
+  float* b_s = v_s + (size_t)kc * HD;  // [T]
   const size_t r = blockIdx.x;
   const size_t base = r * T * HD;
-  stage<TIn>(k + base, T * HD, k_s);
-  stage<TIn>(v + base, T * HD, v_s);
   for (int j = threadIdx.x; j < T; j += blockDim.x) b_s[j] = bias[r * T + j];
-  __syncthreads();
   const int i = blockIdx.y * blockDim.x + threadIdx.x;
-  if (i >= T) return;
+  const bool live = i < T;  // rows past T stay for the barriers
 
   float qr[HD];
-  load_row<TIn, HD>(q + base + (size_t)i * HD, qr);
+  load_row<TIn, HD>(q + base + (size_t)(live ? i : 0) * HD, qr);
   float m = __int_as_float(0xff800000);  // -inf
-  for (int j = 0; j < T; ++j) m = fmaxf(m, score(dot<HD>(qr, k_s + j * HD), scale, b_s[j]));
+  for (int c0 = 0; c0 < T; c0 += kc) {
+    stage_chunk<TIn, TIn, HD>(k + base, v + base, T, c0, kc, c0 == 0, k_s, v_s);
+    const int n = T - c0 < kc ? T - c0 : kc;
+    for (int j = 0; j < n; ++j) m = fmaxf(m, score(dot<HD>(qr, k_s + j * HD), scale, b_s[c0 + j]));
+  }
   float l = 0.f;
-  for (int j = 0; j < T; ++j) l += expf(score(dot<HD>(qr, k_s + j * HD), scale, b_s[j]) - m);
+  for (int c0 = 0; c0 < T; c0 += kc) {
+    stage_chunk<TIn, TIn, HD>(k + base, v + base, T, c0, kc, false, k_s, v_s);
+    const int n = T - c0 < kc ? T - c0 : kc;
+    for (int j = 0; j < n; ++j)
+      l += expf(score(dot<HD>(qr, k_s + j * HD), scale, b_s[c0 + j]) - m);
+  }
   float o[HD];
 #pragma unroll
   for (int d = 0; d < HD; ++d) o[d] = 0.f;
-  for (int j = 0; j < T; ++j) {
-    const float e = expf(score(dot<HD>(qr, k_s + j * HD), scale, b_s[j]) - m);
-    axpy<HD>(__fdiv_rn(e, l), v_s + j * HD, o);
+  for (int c0 = 0; c0 < T; c0 += kc) {
+    stage_chunk<TIn, TIn, HD>(k + base, v + base, T, c0, kc, false, k_s, v_s);
+    const int n = T - c0 < kc ? T - c0 : kc;
+    for (int j = 0; j < n; ++j) {
+      const float e = expf(score(dot<HD>(qr, k_s + j * HD), scale, b_s[c0 + j]) - m);
+      axpy<HD>(__fdiv_rn(e, l), v_s + j * HD, o);
+    }
   }
-  store_row<HD>(o, out + base + (size_t)i * HD);
+  if (live) store_row<HD>(o, out + base + (size_t)i * HD);
 }
 
 // Backward, launch 1 (per query row): the row statistics and dq.
@@ -199,38 +239,57 @@ __global__ void __launch_bounds__(TILE) attention_bwd_dq_kernel(
     const TIn* __restrict__ v, const float* __restrict__ bias, const float* __restrict__ dout,
     float* __restrict__ dq, float* __restrict__ stats) {
   extern __shared__ __align__(16) float smem[];
-  float* k_s = smem;                  // [T][HD]
-  float* v_s = k_s + (size_t)T * HD;  // [T][HD]
-  float* b_s = v_s + (size_t)T * HD;  // [T]
+  const int kc = T < F32_KEYS ? T : F32_KEYS;
+  float* k_s = smem;                   // [kc][HD]
+  float* v_s = k_s + (size_t)kc * HD;  // [kc][HD]
+  float* b_s = v_s + (size_t)kc * HD;  // [T]
   const size_t r = blockIdx.x;
   const size_t base = r * T * HD;
-  stage<TIn>(k + base, T * HD, k_s);
-  stage<TIn>(v + base, T * HD, v_s);
   for (int j = threadIdx.x; j < T; j += blockDim.x) b_s[j] = bias[r * T + j];
-  __syncthreads();
   const int i = blockIdx.y * blockDim.x + threadIdx.x;
-  if (i >= T) return;
+  const bool live = i < T;  // rows past T stay for the barriers
+  const int li = live ? i : 0;
 
   float qr[HD], dor[HD];
-  load_row<TIn, HD>(q + base + (size_t)i * HD, qr);
-  load_row<float, HD>(dout + base + (size_t)i * HD, dor);
+  load_row<TIn, HD>(q + base + (size_t)li * HD, qr);
+  load_row<float, HD>(dout + base + (size_t)li * HD, dor);
   float m = __int_as_float(0xff800000);  // -inf
-  for (int j = 0; j < T; ++j) m = fmaxf(m, score(dot<HD>(qr, k_s + j * HD), scale, b_s[j]));
+  for (int c0 = 0; c0 < T; c0 += kc) {
+    stage_chunk<TIn, TIn, HD>(k + base, v + base, T, c0, kc, c0 == 0, k_s, v_s);
+    const int n = T - c0 < kc ? T - c0 : kc;
+    for (int j = 0; j < n; ++j) m = fmaxf(m, score(dot<HD>(qr, k_s + j * HD), scale, b_s[c0 + j]));
+  }
   float l = 0.f;
-  for (int j = 0; j < T; ++j) l += expf(score(dot<HD>(qr, k_s + j * HD), scale, b_s[j]) - m);
+  for (int c0 = 0; c0 < T; c0 += kc) {
+    stage_chunk<TIn, TIn, HD>(k + base, v + base, T, c0, kc, false, k_s, v_s);
+    const int n = T - c0 < kc ? T - c0 : kc;
+    for (int j = 0; j < n; ++j)
+      l += expf(score(dot<HD>(qr, k_s + j * HD), scale, b_s[c0 + j]) - m);
+  }
   float row = 0.f;  // rowsum(dp * p), p in f32
-  for (int j = 0; j < T; ++j) {
-    const float p = __fdiv_rn(expf(score(dot<HD>(qr, k_s + j * HD), scale, b_s[j]) - m), l);
-    row += dot<HD>(dor, v_s + j * HD) * p;
+  for (int c0 = 0; c0 < T; c0 += kc) {
+    stage_chunk<TIn, TIn, HD>(k + base, v + base, T, c0, kc, false, k_s, v_s);
+    const int n = T - c0 < kc ? T - c0 : kc;
+    for (int j = 0; j < n; ++j) {
+      const float p =
+          __fdiv_rn(expf(score(dot<HD>(qr, k_s + j * HD), scale, b_s[c0 + j]) - m), l);
+      row += dot<HD>(dor, v_s + j * HD) * p;
+    }
   }
   float g[HD];
 #pragma unroll
   for (int d = 0; d < HD; ++d) g[d] = 0.f;
-  for (int j = 0; j < T; ++j) {
-    const float p = __fdiv_rn(expf(score(dot<HD>(qr, k_s + j * HD), scale, b_s[j]) - m), l);
-    const float ds = dscore(p, dot<HD>(dor, v_s + j * HD), row, scale);
-    axpy<HD>(ds, k_s + j * HD, g);
+  for (int c0 = 0; c0 < T; c0 += kc) {
+    stage_chunk<TIn, TIn, HD>(k + base, v + base, T, c0, kc, false, k_s, v_s);
+    const int n = T - c0 < kc ? T - c0 : kc;
+    for (int j = 0; j < n; ++j) {
+      const float p =
+          __fdiv_rn(expf(score(dot<HD>(qr, k_s + j * HD), scale, b_s[c0 + j]) - m), l);
+      const float ds = dscore(p, dot<HD>(dor, v_s + j * HD), row, scale);
+      axpy<HD>(ds, k_s + j * HD, g);
+    }
   }
+  if (!live) return;
   store_row<HD>(g, dq + base + (size_t)i * HD);
   const size_t at = r * T + i, plane = (size_t)R * T;
   stats[at] = m;
@@ -245,38 +304,44 @@ __global__ void __launch_bounds__(TILE) attention_bwd_dkv_kernel(
     const TIn* __restrict__ v, const float* __restrict__ bias, const float* __restrict__ dout,
     float* __restrict__ dk, float* __restrict__ dv, const float* __restrict__ stats) {
   extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                    // [T][HD]
-  float* do_s = q_s + (size_t)T * HD;   // [T][HD]
-  float* m_s = do_s + (size_t)T * HD;   // [T] row maxima
-  float* l_s = m_s + T;                 // [T] row sums
-  float* row_s = l_s + T;               // [T] rowsum(dp * p)
+  const int kc = T < F32_KEYS ? T : F32_KEYS;  // query rows a chunk
+  float* q_s = smem;                     // [kc][HD]
+  float* do_s = q_s + (size_t)kc * HD;   // [kc][HD]
+  float* m_s = do_s + (size_t)kc * HD;   // [T] row maxima
+  float* l_s = m_s + T;                  // [T] row sums
+  float* row_s = l_s + T;                // [T] rowsum(dp * p)
   const size_t r = blockIdx.x;
   const size_t base = r * T * HD;
   const size_t plane = (size_t)R * T;
-  stage<TIn>(q + base, T * HD, q_s);
-  stage<float>(dout + base, T * HD, do_s);
   for (int i = threadIdx.x; i < T; i += blockDim.x) {
     m_s[i] = stats[r * T + i];
     l_s[i] = stats[plane + r * T + i];
     row_s[i] = stats[2 * plane + r * T + i];
   }
-  __syncthreads();
   const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  if (j >= T) return;
+  const bool live = j < T;  // rows past T stay for the barriers
+  const int lj = live ? j : 0;
 
   float kr[HD], vr[HD];
-  load_row<TIn, HD>(k + base + (size_t)j * HD, kr);
-  load_row<TIn, HD>(v + base + (size_t)j * HD, vr);
-  const float bj = bias[r * T + j];
+  load_row<TIn, HD>(k + base + (size_t)lj * HD, kr);
+  load_row<TIn, HD>(v + base + (size_t)lj * HD, vr);
+  const float bj = bias[r * T + lj];
   float gk[HD], gv[HD];
 #pragma unroll
   for (int d = 0; d < HD; ++d) gk[d] = gv[d] = 0.f;
-  for (int i = 0; i < T; ++i) {
-    const float p = __fdiv_rn(expf(score(dot<HD>(kr, q_s + i * HD), scale, bj) - m_s[i]), l_s[i]);
-    axpy<HD>(p, do_s + i * HD, gv);
-    const float ds = dscore(p, dot<HD>(vr, do_s + i * HD), row_s[i], scale);
-    axpy<HD>(ds, q_s + i * HD, gk);
+  for (int c0 = 0; c0 < T; c0 += kc) {
+    stage_chunk<TIn, float, HD>(q + base, dout + base, T, c0, kc, c0 == 0, q_s, do_s);
+    const int n = T - c0 < kc ? T - c0 : kc;
+    for (int ii = 0; ii < n; ++ii) {
+      const int i = c0 + ii;
+      const float p =
+          __fdiv_rn(expf(score(dot<HD>(kr, q_s + ii * HD), scale, bj) - m_s[i]), l_s[i]);
+      axpy<HD>(p, do_s + ii * HD, gv);
+      const float ds = dscore(p, dot<HD>(vr, do_s + ii * HD), row_s[i], scale);
+      axpy<HD>(ds, q_s + ii * HD, gk);
+    }
   }
+  if (!live) return;
   store_row<HD>(gk, dk + base + (size_t)j * HD);
   store_row<HD>(gv, dv + base + (size_t)j * HD);
 }
@@ -993,7 +1058,7 @@ int fwd(const Args& a) {
         static_cast<const TIn*>(a.k), static_cast<const TIn*>(a.v), a.bias, a.out);
   } else {
     auto kernel = attention_fwd_kernel<TIn, HD>;
-    const size_t smem = (2 * (size_t)a.T * HD + a.T) * sizeof(float);
+    const size_t smem = f32_smem(a.T, HD, 1);
     if (const int e = allow_smem(kernel, smem)) return e;
     const int threads = threads_for(a.T);
     const dim3 grid(a.R, (a.T + threads - 1) / threads);
@@ -1030,8 +1095,8 @@ int bwd(const Args& a) {
   } else {
     auto dq_kernel = attention_bwd_dq_kernel<TIn, HD>;
     auto dkv_kernel = attention_bwd_dkv_kernel<TIn, HD>;
-    const size_t dq_smem = (2 * (size_t)a.T * HD + a.T) * sizeof(float);
-    const size_t dkv_smem = (2 * (size_t)a.T * HD + 3 * (size_t)a.T) * sizeof(float);
+    const size_t dq_smem = f32_smem(a.T, HD, 1);
+    const size_t dkv_smem = f32_smem(a.T, HD, 3);
     if (const int e = allow_smem(dq_kernel, dq_smem)) return e;
     if (const int e = allow_smem(dkv_kernel, dkv_smem)) return e;
     const int threads = threads_for(a.T);
@@ -1088,9 +1153,8 @@ extern "C" {
 // bf16. hd in {8, 16, 32, 64}, 1 <= T <= 512. bf16 compute: rows query rows
 // a block (16 to 128, a multiple of 16), kv_shared (V staged over K) and ks
 // (1, or 2: each tile's keys split over two warps), from ops/attention.py
-// attention_plan; f32 compute ignores them and needs
-// 2 * T * hd + 3 * T floats of shared memory (hd = 64: T <= 443). A layout
-// beyond the SM's shared memory is refused. device: the CUDA ordinal the
+// attention_plan; f32 compute ignores them (f32_smem gives its shared
+// memory). A layout beyond the SM's shared memory is refused. device: the CUDA ordinal the
 // tensors live on (this library carries its own runtime, whose current
 // device is not PyTorch's). Returns cudaGetLastError() after the launch (0
 // on success).

@@ -1,0 +1,269 @@
+// Tensor-core scoring of 128-row tiles of the corpus against up to 32
+// queries, fed through a ring of cp.async stages. Shared by the bf16 and
+// per-row int8 scans of segmax.cu and topk_stream.cu (the f32 scans keep
+// doc_tile.cuh's CUDA-core sums: TF32 would round their operands).
+//
+// A block of 128 threads (4 warps) scores one tile of ROWS = 128 doc rows
+// at a time; warp w owns rows 32w .. 32w + 31 as two m16 tiles of
+// mma.sync.m16n8k16 (bf16 in, f32 accumulation), the queries are the n side
+// in NT = ceil(B / 8) n8 tiles. A bf16 times a bf16, and an int8 (exact in
+// bf16, |v| <= 127) times a bf16, is exact in f32, so only the order of the
+// f32 sums differs from a plain f32 product.
+//
+// Staging: a stage holds CHUNK = 128 bytes of each of the tile's 128 rows
+// (64 bf16 or 128 int8 columns, 16 KiB), copied with 16-byte cp.async,
+// eight threads a row. Bytes past the end of a row are zero-filled by the
+// copy (src-size 0), so a k-tail short of a whole stage (H = 8, 24, 40 ...)
+// multiplies zeros. Each thread reads whole 16-byte chunks of rows g and
+// g + 8 of an m tile (g = lane / 4, chunk t + 4i for the lane's t = lane %
+// 4), and a 16-byte chunk carries two k16 steps of bf16 (four of int8): the
+// k positions of the mma are a permutation of the columns, the same one for
+// the doc (A) and the query (B) fragments, so the sum is unchanged. The
+// lanes of one 8-lane phase read rows g and g + 1, which hit the same four
+// chunk positions unless the stage is swizzled: logical chunk c of row r
+// lies at physical chunk c ^ ((r & 1) << 2), so each phase covers all 32
+// banks.
+//
+// The query fragments (b0, b1 of every k16 step and n tile, in lane order)
+// are built once per block from device memory and kept in shared memory,
+// read back with one 8-byte load a lane: conflict-free, and free of the
+// register pressure of holding 16 k steps x 4 n tiles in every thread.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "recur_chain.cuh"
+
+namespace doc_mma {
+
+constexpr int ROWS = 128;   // rows of a tile (a whole 128-row segment)
+constexpr int WARPS = 4;    // two m16 tiles a warp
+constexpr int THREADS = WARPS * 32;
+constexpr int CHUNK = 128;  // bytes of each row a stage holds
+constexpr int STAGE_BYTES = ROWS * CHUNK;
+
+// k16 steps a stage carries: 4 over 64 bf16 columns, 8 over 128 int8 ones
+template <typename T> struct Steps;
+template <> struct Steps<__nv_bfloat16> { static constexpr int K = 4; };
+template <> struct Steps<int8_t> { static constexpr int K = 8; };
+
+__host__ __device__ constexpr int chunks_of(int row_bytes) {
+  return (row_bytes + CHUNK - 1) / CHUNK;
+}
+
+// Shared memory of the query fragments: a uint2 per (k16 step, n tile, lane).
+__host__ __device__ constexpr size_t qfrag_bytes(int nchunks, int ksteps, int nt) {
+  return (size_t)nchunks * ksteps * nt * 32 * 8;
+}
+
+__device__ __forceinline__ int swz(int row, int c) { return c ^ ((row & 1) << 2); }
+
+// 16 bytes to shared memory; src_bytes 0 zero-fills them
+__device__ __forceinline__ void cp_async16_zfill(void* smem_dst, const void* gmem_src,
+                                                 int src_bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
+               "r"(src_bytes));
+}
+
+// cp.async.wait_group with a count known only at run time (stages - 2)
+__device__ __forceinline__ void wait_stages(int pending) {
+  switch (pending) {
+    case 0: recur_chain::cp_async_wait<0>(); break;
+    case 1: recur_chain::cp_async_wait<1>(); break;
+    default: recur_chain::cp_async_wait<2>(); break;
+  }
+}
+
+// Stage chunk kc (bytes [kc * CHUNK, kc * CHUNK + CHUNK)) of rows row0 ..
+// row0 + 127 into buf. Every thread of the block calls it and then commits.
+__device__ __forceinline__ void stage(const unsigned char* __restrict__ docs, long long row0,
+                                      int kc, int row_bytes, unsigned char* buf) {
+#pragma unroll
+  for (int j = 0; j < ROWS * CHUNK / 16 / THREADS; ++j) {
+    const int i = j * THREADS + threadIdx.x;
+    const int r = i >> 3, c = i & 7;
+    const int off = kc * CHUNK + c * 16;
+    const unsigned char* src = docs + (size_t)(row0 + r) * row_bytes;
+    const bool in = off < row_bytes;
+    cp_async16_zfill(buf + r * CHUNK + swz(r, c) * 16, in ? src + off : src, in ? 16 : 0);
+  }
+}
+
+// q[n][col], q[n][col + 1] as a bf16 pair (zero past B rows and H columns)
+__device__ __forceinline__ uint32_t pack_bf16(const __nv_bfloat16* q, int n, int col, int B,
+                                              int H) {
+  const unsigned short lo = (n < B && col < H) ? __bfloat16_as_ushort(q[(size_t)n * H + col]) : 0;
+  const unsigned short hi =
+      (n < B && col + 1 < H) ? __bfloat16_as_ushort(q[(size_t)n * H + col + 1]) : 0;
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+// The first column a lane's k slots (2t, 2t + 1 | 2t + 8, 2t + 9) of k16
+// step m of a stage map to: four consecutive columns, the first two for
+// b0 (a0, a1), the last two for b1 (a2, a3).
+template <typename T>
+__device__ __forceinline__ int slot_col(int m, int t) {
+  if constexpr (sizeof(T) == 2) {
+    return 8 * (t + 4 * (m >> 1)) + 4 * (m & 1);  // chunk t + 4 (m / 2), half m % 2
+  } else {
+    return 16 * (t + 4 * (m >> 2)) + 4 * (m & 3);  // chunk t + 4 (m / 4), word m % 4
+  }
+}
+
+// Build the query fragments of q [B, H] bf16 into qf (zeros past B rows
+// and H columns). Every thread calls it; the caller's first barrier
+// orders it before any read.
+template <typename T>
+__device__ __forceinline__ void load_query_frags(const __nv_bfloat16* __restrict__ q, int B,
+                                                 int H, int nchunks, int nt, uint2* qf) {
+  constexpr int KS = Steps<T>::K;
+  constexpr int COLS = CHUNK / (int)sizeof(T);  // columns a stage holds
+  const int total = nchunks * KS * nt * 32;
+  for (int i = threadIdx.x; i < total; i += THREADS) {
+    const int lane = i & 31, j = (i >> 5) % nt, step = (i >> 5) / nt;
+    const int kc = step / KS, m = step % KS;
+    const int n = j * 8 + (lane >> 2);
+    const int col = kc * COLS + slot_col<T>(m, lane & 3);
+    qf[i] = make_uint2(pack_bf16(q, n, col, B, H), pack_bf16(q, n, col + 2, B, H));
+  }
+}
+
+// Four int8 values (one 32-bit word, lowest column first) as two bf16
+// pairs, exactly: each byte v becomes the float 2^23 + 128 + v (its bits
+// built with a byte permute), minus 2^23 + 128; |v| <= 127 fits bf16's 8
+// significant bits, so the bf16 is the float's top half.
+__device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t x = w ^ 0x80808080u;  // v + 128, unsigned
+  const float bias = 8388736.0f;        // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540)) - bias;
+  const float f1 = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7541)) - bias;
+  const float f2 = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7542)) - bias;
+  const float f3 = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7543)) - bias;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+// acc[st][j][e] += the warp's two m16 tiles (st) times n tile j over the
+// stage in buf; the stage's k16 steps past `steps` (a stage that is all
+// tail) are skipped, their columns being zeros anyway.
+template <typename T, int NT>
+__device__ __forceinline__ void score_stage(const unsigned char* buf, const uint2* qf_stage,
+                                            int steps, float (&acc)[2][NT][4]) {
+  constexpr int KS = Steps<T>::K;
+  constexpr int PER = sizeof(T) == 2 ? 2 : 4;  // k16 steps a 16-byte chunk carries
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < KS / PER; ++i) {
+    if (i * PER >= steps) break;
+    uint4 lo[2], hi[2];
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      const int r = warp * 32 + st * 16 + g;  // rows r and r + 8 share r's parity
+      const int c = swz(r, t + 4 * i);
+      lo[st] = *reinterpret_cast<const uint4*>(buf + r * CHUNK + c * 16);
+      hi[st] = *reinterpret_cast<const uint4*>(buf + (r + 8) * CHUNK + c * 16);
+    }
+#pragma unroll
+    for (int p = 0; p < PER; ++p) {
+      const int m = i * PER + p;
+      uint2 b[NT];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) b[j] = qf_stage[(m * NT + j) * 32 + lane];
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {
+        const uint32_t* L = reinterpret_cast<const uint32_t*>(&lo[st]);
+        const uint32_t* Hh = reinterpret_cast<const uint32_t*>(&hi[st]);
+        uint32_t a0, a1, a2, a3;
+        if constexpr (sizeof(T) == 2) {
+          a0 = L[2 * p];
+          a2 = L[2 * p + 1];
+          a1 = Hh[2 * p];
+          a3 = Hh[2 * p + 1];
+        } else {
+          int8x4_to_bf16(L[p], a0, a2);
+          int8x4_to_bf16(Hh[p], a1, a3);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          recur_chain::mma_bf16(acc[st][j], a0, a1, a2, a3, b[j].x, b[j].y);
+      }
+    }
+  }
+}
+
+// The doc row and query column of accumulator element e of acc[st][j] for
+// this thread, relative to the tile's first row.
+__device__ __forceinline__ int acc_row(int st, int e) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  return warp * 32 + st * 16 + (lane >> 2) + (e >= 2 ? 8 : 0);
+}
+__device__ __forceinline__ int acc_col(int j, int e) {
+  return j * 8 + 2 * (threadIdx.x & 3) + (e & 1);
+}
+
+// k16 steps of stage kc that hold real columns (the rest are zero-filled)
+template <typename T>
+__device__ __forceinline__ int live_steps(int kc, int row_bytes) {
+  const int bytes = row_bytes - kc * CHUNK;
+  const int chunks = bytes >= CHUNK ? 8 : (bytes + 15) / 16;
+  // the k16 steps of chunk group i cover chunks 0..3 (i = 0) and 4..7 (i = 1)
+  constexpr int PER = sizeof(T) == 2 ? 2 : 4;
+  return (chunks > 4 ? 2 : 1) * PER;
+}
+
+// Scores the block's `tiles` tiles of 128 rows (the i-th from row
+// row0_of(i)) against the query fragments qf, streaming each through a ring
+// of `stages` (2-4) buffers of STAGE_BYTES: the copies of the next stages
+// (across tile boundaries) are in flight while the current one is
+// multiplied, one barrier a stage. After a tile's last stage it calls
+// done(row0, acc) with the tile's f32 scores (acc_row / acc_col place
+// them). Every thread of the block calls it; done may hold barriers.
+template <typename T, int NT, typename RowOf, typename Done>
+__device__ __forceinline__ void scan_tiles(const T* __restrict__ docs, int H, int stages,
+                                           long long tiles, RowOf row0_of, unsigned char* ring,
+                                           const uint2* qf, Done done) {
+  constexpr int KS = Steps<T>::K;
+  const int row_bytes = H * (int)sizeof(T);
+  const int nck = chunks_of(row_bytes);
+  const long long items = tiles * nck;  // (tile, stage) pairs, in order
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(docs);
+  auto issue = [&](long long item) {
+    if (item < items)
+      stage(base, row0_of(item / nck), (int)(item % nck), row_bytes,
+            ring + (item % stages) * STAGE_BYTES);
+    recur_chain::cp_async_commit();  // an empty group past the end keeps the count
+  };
+  for (int p = 0; p < stages - 1; ++p) issue(p);
+  float acc[2][NT][4];
+  for (long long it = 0; it < items; ++it) {
+    wait_stages(stages - 2);  // this thread's copies of item it have landed
+    __syncthreads();          // everyone's have, and item it - 1's buffer is free
+    issue(it + stages - 1);
+    const int kc = (int)(it % nck);
+    if (kc == 0) {
+#pragma unroll
+      for (int st = 0; st < 2; ++st)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[st][j][e] = 0.0f;
+    }
+    score_stage<T, NT>(ring + (it % stages) * STAGE_BYTES, qf + (size_t)kc * KS * NT * 32,
+                       live_steps<T>(kc, row_bytes), acc);
+    if (kc == nck - 1) done(row0_of(it / nck), acc);
+  }
+  recur_chain::cp_async_wait<0>();
+}
+
+// Shared memory of the ring and the query fragments of a T scan at width H.
+template <typename T>
+__host__ __device__ constexpr size_t scan_smem(int stages, int H, int nt) {
+  return (size_t)stages * STAGE_BYTES + qfrag_bytes(chunks_of(H * (int)sizeof(T)), Steps<T>::K, nt);
+}
+
+}  // namespace doc_mma

@@ -2,7 +2,7 @@
 // rnn_bwd.cu): the cell codes and gate counts, the conversions between the
 // compute dtype and f32, and thin wrappers of the PTX both chains are built
 // from (cp.async, ldmatrix, mma.sync m16n8k16 bf16 with f32 accumulation).
-// attention.cu takes the PTX wrappers too.
+// attention.cu and doc_mma.cuh take the PTX wrappers too.
 
 #pragma once
 

@@ -15,17 +15,26 @@
 // What bounds it on Hopper: the bytes of the corpus. At 1,048,576 x 256
 // bf16 the scan reads 512 MiB, 0.16 ms at 3.35 TB/s (int8: 256 MiB and the
 // 4 MiB of scales, 0.081 ms), while the products (2*B*H per row) are far
-// below the card's rate; only [S, B] floats go back to memory.
+// below the card's tensor-core rate; only [S, B] floats go back to memory.
 //
-// Design (the simple, correct first version): a block of 128 threads owns
-// one segment at a time (grid-stride over segments) and scores it with
-// doc_tile.cuh (thread i owns doc row i, B sums in registers, rows staged
-// through shared memory), so the segment max is one block reduction and no
-// score tile ever leaves the chip. The int8 rows are converted to f32 in
-// registers (exact); the per-row scale multiplies the f32 sum, as the TPU
-// kernel does. Tensor-core products, TMA and double-buffered chunks are
-// later work.
+// bf16 and per-row int8 (segmax_mma_kernel): persistent blocks of 128
+// threads, as many a SM as shared memory allows (ops/topk.py scan_plan),
+// walk the segments (blockIdx.x, + gridDim.x, ...). Each segment is scored
+// on the tensor cores by doc_mma.cuh, one 128-byte column stage of its 128
+// rows at a time, through a ring of `stages` buffers fed by cp.async: the
+// copies of the next stages (across segment boundaries) are in flight while
+// the current one is multiplied, one barrier a stage. The row scale, the
+// mask and the cache store act on the accumulator fragments; the segment
+// max is a register reduction over each warp's 32 rows (then the lanes of
+// a column), then one across the 4 warps through shared memory. No
+// atomics: two calls give the same bits.
+//
+// f32 (segmax_fma_kernel) keeps CUDA-core sums (doc_tile.cuh): TF32 tensor
+// cores would round the operands, and the JAX f32 path asks for full f32
+// products. A block of 128 threads owns one segment at a time (thread i
+// row i, B sums in registers), so the segment max is one block reduction.
 
+#include "doc_mma.cuh"
 #include "doc_tile.cuh"
 
 namespace {
@@ -34,31 +43,25 @@ using doc_tile::ROWS;
 constexpr int SEG = ROWS;  // rows per segment == threads per block
 constexpr float NEG_INF = -3.0e38f;
 
-// T: storage dtype; TQ: query dtype; BQ: query rows held per thread (B <= BQ).
-template <typename T, typename TQ, int BQ>
-__global__ void __launch_bounds__(SEG) segmax_kernel(
-    int B, int H, long long S, long long n_valid,
-    const TQ* __restrict__ q, const T* __restrict__ docs, const float* __restrict__ scales,
-    float* __restrict__ segmax, float* __restrict__ cache) {
+// f32 scan: BQ query rows held per thread (B <= BQ).
+template <int BQ>
+__global__ void __launch_bounds__(SEG) segmax_fma_kernel(
+    int B, int H, long long S, long long n_valid, const float* __restrict__ q,
+    const float* __restrict__ docs, float* __restrict__ segmax, float* __restrict__ cache) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* q_s = reinterpret_cast<float*>(smem);                        // [BQ][H + 4]
   unsigned char* tile = smem + (size_t)BQ * (H + 4) * sizeof(float);  // [SEG][PITCH]
   float* red = reinterpret_cast<float*>(tile + doc_tile::TILE_BYTES); // [SEG/32][BQ]
 
-  doc_tile::load_queries<TQ, BQ>(B, H, q, q_s);
+  doc_tile::load_queries<float, BQ>(B, H, q, q_s);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (long long s = blockIdx.x; s < S; s += gridDim.x) {
     const long long seg_row0 = s * SEG;
     float acc[BQ];
-    doc_tile::score_tile<T, BQ>(H, docs, seg_row0, q_s, tile, acc);
+    doc_tile::score_tile<float, BQ>(H, docs, seg_row0, q_s, tile, acc);
 
     const long long row = seg_row0 + threadIdx.x;
-    if (scales != nullptr) {
-      const float sc = scales[row];
-#pragma unroll
-      for (int b = 0; b < BQ; ++b) acc[b] *= sc;
-    }
     if (row >= n_valid) {
 #pragma unroll
       for (int b = 0; b < BQ; ++b) acc[b] = NEG_INF;
@@ -89,74 +92,171 @@ __global__ void __launch_bounds__(SEG) segmax_kernel(
   }
 }
 
-template <typename T, typename TQ, int BQ>
-int launch(int B, int H, long long npad, long long n_valid, const void* q, const void* docs,
-           const float* scales, float* segmax, float* cache, cudaStream_t stream) {
-  auto kernel = segmax_kernel<T, TQ, BQ>;
-  const size_t smem =
-      (size_t)BQ * (H + 4) * sizeof(float) + doc_tile::TILE_BYTES + (SEG / 32) * BQ * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int device = 0, sms = 132;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const long long S = npad / SEG;
-  long long grid = (long long)sms * 4;
-  if (grid > S) grid = S;
-  kernel<<<(unsigned)grid, SEG, smem, stream>>>(B, H, S, n_valid, static_cast<const TQ*>(q),
-                                                static_cast<const T*>(docs), scales, segmax,
-                                                cache);
+size_t fma_smem(int BQ, int H) {
+  return (size_t)BQ * (H + 4) * sizeof(float) + doc_tile::TILE_BYTES +
+         (SEG / 32) * BQ * sizeof(float);
+}
+
+// Shared memory of segmax_mma_kernel: the ring, the query fragments and
+// the warps' column maxima (ops/topk.py scan_plan mirrors it).
+template <typename T, int NT>
+size_t mma_smem(int stages, int H) {
+  return doc_mma::scan_smem<T>(stages, H, NT) + (size_t)doc_mma::WARPS * NT * 8 * sizeof(float);
+}
+
+// bf16 (T = bf16) or per-row int8 (T = int8_t, scales [Npad]) docs, bf16
+// queries, NT = ceil(B / 8) n8 tiles of queries.
+template <typename T, int NT>
+__global__ void __launch_bounds__(doc_mma::THREADS, 4) segmax_mma_kernel(
+    int B, int H, long long S, long long n_valid, int stages, const __nv_bfloat16* __restrict__ q,
+    const T* __restrict__ docs, const float* __restrict__ scales, float* __restrict__ segmax,
+    float* __restrict__ cache) {
+  using namespace doc_mma;
+  constexpr int NC = NT * 8;  // query columns the fragments hold
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int nck = chunks_of(H * (int)sizeof(T));
+  unsigned char* ring = smem;  // [stages][ROWS][CHUNK]
+  uint2* qf = reinterpret_cast<uint2*>(smem + (size_t)stages * STAGE_BYTES);  // [nck * K][NT][32]
+  float* red = reinterpret_cast<float*>(qf + (size_t)nck * Steps<T>::K * NT * 32);  // [WARPS][NC]
+  load_query_frags<T>(q, B, H, nck, NT, qf);
+
+  const long long first = blockIdx.x, step = gridDim.x;
+  const long long segs = S > first ? (S - 1 - first) / step + 1 : 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  auto row0_of = [&](long long i) { return (first + i * step) * ROWS; };
+  auto done = [&](long long row0, float (&acc)[2][NT][4]) {
+    // the segment is scored: scale, mask, cache, maximum
+    float mx[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mx[j][0] = mx[j][1] = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // rows g and g + 8
+        const long long row = row0 + acc_row(st, 2 * h);
+        const float sc = scales != nullptr ? scales[row] : 1.0f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float v = acc[st][j][2 * h + c];
+            if (scales != nullptr) v *= sc;
+            if (row >= n_valid) v = NEG_INF;
+            const int col = acc_col(j, c);
+            if (cache != nullptr && col < B) cache[(size_t)row * B + col] = v;
+            mx[j][c] = fmaxf(mx[j][c], v);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          mx[j][c] = fmaxf(mx[j][c], __shfl_xor_sync(0xffffffffu, mx[j][c], off));
+    if (lane < 4) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        red[warp * NC + acc_col(j, 0)] = mx[j][0];
+        red[warp * NC + acc_col(j, 1)] = mx[j][1];
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < B) {
+      float m = red[threadIdx.x];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) m = fmaxf(m, red[w * NC + threadIdx.x]);
+      segmax[(row0 / ROWS) * B + threadIdx.x] = m;
+    }
+    // the next stage's barrier orders these reads of red before its writes
+  };
+  scan_tiles<T, NT>(docs, H, stages, segs, row0_of, ring, qf, done);
+}
+
+int allow_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) cudaGetLastError();  // the next launch must not report it
+  return (int)e;
+}
+
+template <int BQ>
+int launch_fma(int B, int H, long long npad, long long n_valid, int blocks, const void* q,
+               const void* docs, float* segmax, float* cache, cudaStream_t stream) {
+  auto kernel = segmax_fma_kernel<BQ>;
+  const size_t smem = fma_smem(BQ, H);
+  if (const int e = allow_smem((const void*)kernel, smem)) return e;
+  kernel<<<blocks, SEG, smem, stream>>>(B, H, npad / SEG, n_valid, static_cast<const float*>(q),
+                                        static_cast<const float*>(docs), segmax, cache);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename TQ>
-int dispatch_bq(int B, int H, long long npad, long long n_valid, const void* q, const void* docs,
-                const float* scales, float* segmax, float* cache, cudaStream_t stream) {
-  if (B <= 8)
-    return launch<T, TQ, 8>(B, H, npad, n_valid, q, docs, scales, segmax, cache, stream);
-  if (B <= 16)
-    return launch<T, TQ, 16>(B, H, npad, n_valid, q, docs, scales, segmax, cache, stream);
-  return launch<T, TQ, 32>(B, H, npad, n_valid, q, docs, scales, segmax, cache, stream);
+template <typename T, int NT>
+int launch_mma(int B, int H, long long npad, long long n_valid, int stages, int blocks,
+               const void* q, const void* docs, const float* scales, float* segmax, float* cache,
+               cudaStream_t stream) {
+  auto kernel = segmax_mma_kernel<T, NT>;
+  const size_t smem = mma_smem<T, NT>(stages, H);
+  if (smem > (size_t)recur_chain::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  if (const int e = allow_smem((const void*)kernel, smem)) return e;
+  kernel<<<blocks, doc_mma::THREADS, smem, stream>>>(
+      B, H, npad / SEG, n_valid, stages, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const T*>(docs), scales, segmax, cache);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_mma(int B, int H, long long npad, long long n_valid, int stages, int blocks,
+                 const void* q, const void* docs, const float* scales, float* segmax,
+                 float* cache, cudaStream_t s) {
+#define SEGMAX_MMA(NT) \
+  launch_mma<T, NT>(B, H, npad, n_valid, stages, blocks, q, docs, scales, segmax, cache, s)
+  switch ((B + 7) / 8) {
+    case 1: return SEGMAX_MMA(1);
+    case 2: return SEGMAX_MMA(2);
+    case 3: return SEGMAX_MMA(3);
+    default: return SEGMAX_MMA(4);
+  }
+#undef SEGMAX_MMA
 }
 
 }  // namespace
 
 extern "C" {
 
-// is_bf16: q and docs are bf16 (else f32). 1 <= B <= 32; H a multiple of
-// 8 (bf16) or 4 (f32); npad a multiple of 128; cache may be null.
-// device: the CUDA ordinal the tensors live on (this library carries its
-// own runtime, whose current device is not PyTorch's).
-// Returns cudaGetLastError() after the launch (0 on success).
-int segmax_launch(int device, int is_bf16, int B, int H, long long npad, long long n_valid,
-                  const void* q, const void* docs, float* segmax, float* cache, void* stream) {
-  if (B < 1 || B > 32 || npad % SEG != 0 || H % (is_bf16 ? 8 : 4) != 0)
+// storage: 0 f32 docs and queries, 1 bf16 docs and queries, 2 int8 docs
+// (per row, scales [npad] f32) with bf16 queries. 1 <= B <= 32; H a
+// multiple of 16 bytes' worth of the storage dtype; npad a multiple of 128;
+// cache [npad, B] f32 or null (not with int8). stages (2-4; bf16 and int8)
+// and blocks (the grid) come from ops/topk.py scan_plan; a layout beyond a
+// block's shared memory is refused. device: the CUDA ordinal the tensors
+// live on (this library carries its own runtime, whose current device is
+// not PyTorch's). Returns cudaGetLastError() after the launch (0 on
+// success).
+int segmax_launch(int device, int storage, int B, int H, long long npad, long long n_valid,
+                  int stages, int blocks, const void* q, const void* docs, const float* scales,
+                  float* segmax, float* cache, void* stream) {
+  const int elem = storage == 0 ? 4 : storage == 1 ? 2 : 1;
+  if (storage < 0 || storage > 2 || B < 1 || B > 32 || H < 1 || npad % SEG != 0 ||
+      (H * elem) % 16 != 0 || blocks < 1 || (storage == 2) != (scales != nullptr) ||
+      (storage == 2 && cache != nullptr) || (storage != 0 && (stages < 2 || stages > 4)))
     return (int)cudaErrorInvalidValue;
   if (npad == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch_bq<__nv_bfloat16, __nv_bfloat16>(B, H, npad, n_valid, q, docs, nullptr,
-                                                     segmax, cache, s);
-  return dispatch_bq<float, float>(B, H, npad, n_valid, q, docs, nullptr, segmax, cache, s);
-}
-
-// The per-row int8 index: q [B, H] bf16, docs [npad, H] int8, scales
-// [npad] f32. 1 <= B <= 32; H a multiple of 16; npad a multiple of 128.
-int segmax_int8_launch(int device, int B, int H, long long npad, long long n_valid,
-                       const void* q, const void* docs, const float* scales, float* segmax,
-                       void* stream) {
-  if (B < 1 || B > 32 || npad % SEG != 0 || H % 16 != 0 || scales == nullptr)
-    return (int)cudaErrorInvalidValue;
-  if (npad == 0) return 0;
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return (int)set;
-  return dispatch_bq<int8_t, __nv_bfloat16>(B, H, npad, n_valid, q, docs, scales, segmax,
-                                            nullptr, static_cast<cudaStream_t>(stream));
+  if (storage == 1)
+    return dispatch_mma<__nv_bfloat16>(B, H, npad, n_valid, stages, blocks, q, docs, nullptr,
+                                       segmax, cache, s);
+  if (storage == 2)
+    return dispatch_mma<int8_t>(B, H, npad, n_valid, stages, blocks, q, docs, scales, segmax,
+                                nullptr, s);
+  if (B <= 8) return launch_fma<8>(B, H, npad, n_valid, blocks, q, docs, segmax, cache, s);
+  if (B <= 16) return launch_fma<16>(B, H, npad, n_valid, blocks, q, docs, segmax, cache, s);
+  return launch_fma<32>(B, H, npad, n_valid, blocks, q, docs, segmax, cache, s);
 }
 
 const char* segmax_error_string(int err) {

@@ -23,10 +23,10 @@ sum runs in a fixed order without atomics). A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises. Under bf16 compute the
 kernels run every product on the tensor cores (mma.sync) over bf16 operands
 staged in shared memory, each score computed once and kept there as f32 for
-its query tile; :func:`attention_plan` picks the tiles. They take head
-widths 8, 16, 32 and 64 and every T up to 512. Under f32 compute the
-kernels keep full f32 products on the CUDA cores, one row's keys and values
-staged as f32, so hd = 64 takes T up to 443 there; the wrappers raise beyond.
+its query tile; :func:`attention_plan` picks the tiles. Under f32 compute the
+kernels keep full f32 products on the CUDA cores, a row's keys and values
+staged as f32 in chunks of up to 256 keys. Both take head widths 8, 16, 32
+and 64 and every T up to 512.
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ _INT = ctypes.c_int
 _COMMON = [_INT, _INT, _INT, _INT, _INT, _INT, ctypes.c_float, _INT, _INT, _INT]
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _TILE, _KEY_TILE = 128, 64  # bf16 compute: query rows (keys) a block at most, 16 a warp
+_F32_KEYS = 256  # f32 compute: keys (query rows) staged at a time, F32_KEYS in the .cu
 
 
 def _lib():
@@ -101,14 +102,16 @@ def attention_plan(T: int, hd: int, compute_dtype="bfloat16"):
     that a SM runs twice the warps; ``dkv`` (the second launch)
     takes ``rows`` keys a block (at most 64) and query tiles of as many
     rows. f32 compute (``route`` "fma"): one thread a row,
-    at most 128 a block, a row's K and V (or Q and dO) for the whole T in
-    shared memory as f32. ``smem``: bytes a block (``fwd_layout``,
-    ``dq_layout``, ``dkv_layout`` in csrc/attention.cu, region by region)."""
+    at most 128 a block, a row's K and V (or Q and dO) in shared memory as
+    f32, ``kc`` keys (query rows) at a time: the whole T up to 256, chunks
+    of 256 beyond. ``smem``: bytes a block (``fwd_layout``, ``dq_layout``,
+    ``dkv_layout`` and ``f32_smem`` in csrc/attention.cu, region by
+    region)."""
     if torch_dtype(compute_dtype) != torch.bfloat16:
-        rows = min(128, _up(T, 32))
-        plan = {"route": "fma", "fwd": {"rows": rows, "smem": (2 * T * hd + T) * 4},
-                "dq": {"rows": rows, "smem": (2 * T * hd + T) * 4},
-                "dkv": {"rows": rows, "smem": (2 * T * hd + 3 * T) * 4}}
+        rows, kc = min(128, _up(T, 32)), min(T, _F32_KEYS)
+        plan = {"route": "fma", "fwd": {"rows": rows, "kc": kc, "smem": (2 * kc * hd + T) * 4},
+                "dq": {"rows": rows, "kc": kc, "smem": (2 * kc * hd + T) * 4},
+                "dkv": {"rows": rows, "kc": kc, "smem": (2 * kc * hd + 3 * T) * 4}}
         return plan if all(plan[k]["smem"] <= _SMEM_LIMIT for k in ("fwd", "dq", "dkv")) else None
     Tp = _up(T, 16)
     row = (max(hd, 16) + 8) * 2  # a staged bf16 row, 16 bytes of pad

@@ -58,6 +58,11 @@ _MAX_KERNEL_B = 32
 _S8_SEGS = (32, 64, 128)  # segment widths the s8 kernel takes
 _S8_MAX_H = 1040  # 127 * 127 * H < 2^24: integer scores exact in f32
 _TOPK_MAX_K = 128  # keys the running top-k kernel keeps per query row
+# The running top-k first finds the top k of every 32nd tile (a pilot) and
+# starts every block's threshold at its k-th key: a block then admits few
+# keys and merges rarely. Its two extra launches pay where merges are dear,
+# with 8 query rows or more over 1,024 tiles or more; one query row loses.
+_PILOT_STRIDE, _PILOT_MIN_TILES, _PILOT_MIN_B = 32, 1024, 8
 _INV_127 = float(np.float32(1.0) / np.float32(127.0))  # exact in f32
 
 _VOIDP = ctypes.c_void_p
@@ -68,19 +73,19 @@ _LL = ctypes.c_longlong
 # ordinal and ends with the stream.
 _SIGNATURES = {
     "segmax": {
-        # device, is_bf16, B, H, npad, n_valid, q, docs, segmax, cache, stream
-        "segmax_launch": [_INT, _INT, _INT, _INT, _LL, _LL] + [_VOIDP] * 5,
-        # device, B, H, npad, n_valid, q, docs, scales, segmax, stream
-        "segmax_int8_launch": [_INT, _INT, _INT, _LL, _LL] + [_VOIDP] * 5,
+        # device, storage, B, H, npad, n_valid, stages, blocks,
+        # q, docs, scales, segmax, cache, stream
+        "segmax_launch": [_INT, _INT, _INT, _INT, _LL, _LL, _INT, _INT] + [_VOIDP] * 6,
     },
     "segmax_s8": {
         # device, B, H, npad, seg, q, docs, segmax, cache, stream
         "segmax_s8_launch": [_INT, _INT, _INT, _LL, _INT] + [_VOIDP] * 5,
     },
     "topk_stream": {
-        # device, storage, B, H, k, npad, n_valid, tiles_per_chunk,
-        # q, docs, scales, cand, vals, ids, stream
-        "topk_stream_launch": [_INT, _INT, _INT, _INT, _INT, _LL, _LL, _INT] + [_VOIDP] * 7,
+        # device, storage, B, H, k, npad, n_valid, tiles_per_chunk, stages,
+        # pilot_stride, pilot_tiles_per_chunk, q, docs, scales, thr, cand, vals, ids, stream
+        "topk_stream_launch": [_INT, _INT, _INT, _INT, _INT, _LL, _LL] + [_INT] * 4
+        + [_VOIDP] * 8,
     },
 }
 
@@ -234,6 +239,114 @@ def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the scans' layouts
+# ---------------------------------------------------------------------------
+
+_STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # the C launchers' codes
+_SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
+_SM_SMEM = 233_472  # bytes of shared memory a SM holds for its blocks
+_BLOCK_RESERVED = 1_024  # of which the card reserves this much a block
+_STAGE_BYTES = 128 * 128  # a stage of the ring: 128 bytes of each of a tile's 128 rows
+# the kernels' __launch_bounds__ minimum blocks a SM, which they keep
+# registers for: segmax four, the running top-k three (its merges hold more)
+_SEGMAX_BLOCKS_PER_SM, _TOPK_BLOCKS_PER_SM = 4, 3
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def scan_plan(B: int, H: int, storage: torch.dtype, k: int | None = None):
+    """The layout ``csrc/segmax.cu`` (``k`` None) or launch 1 of
+    ``csrc/topk_stream.cu`` (the running top-k with ``k`` keys a row)
+    takes for B query rows of width H over a ``storage`` corpus, or None
+    where none fits a block's shared memory.
+
+    bf16 and int8 (``route`` "mma", doc_mma.cuh): tensor-core tiles of 128
+    rows fed by a ring of ``stages`` cp.async buffers of 128 bytes a row
+    (4, 3 or 2), the query fragments of ``nt`` n8 tiles
+    over ``chunks`` stages of columns in shared memory, ``k_tail`` zero
+    columns past H in the last stage; the most stages that leave two blocks
+    a SM, else the most that fit. f32 (``route`` "fma", doc_tile.cuh):
+    one thread a row, ``bq`` query rows a thread. ``smem``: bytes a block,
+    region by region as the .cu files lay them out; ``blocks_per_sm``: the
+    blocks a SM holds by that (at most four for segmax, three for the
+    running top-k: what the kernels' launch bounds keep registers for)."""
+    elem = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[storage]
+    if not 1 <= B <= _MAX_KERNEL_B or H < 1 or (H * elem) % 16:
+        return None
+    # the running top-k's lists: kept [2][B][k], fresh [B][128], thresholds
+    # [B] (64-bit keys) and counts [B]
+    lists = 0 if k is None else B * (2 * k + 129) * 8 + _up(4 * B, 16)
+    if storage == torch.float32:
+        bq = 8 if B <= 8 else 16 if B <= 16 else 32
+        tile = 128 * 144  # a 128-byte column chunk of 128 rows, 16 bytes of pad a row
+        extra = 4 * bq * 4 if k is None else lists  # segmax: the 4 warps' maxima
+        plan = {"route": "fma", "bq": bq, "stages": 1, "k_tail": 0,
+                "smem": bq * (H + 4) * 4 + tile + extra}
+    else:
+        nt = -(-B // 8)
+        chunks = -(-H * elem // 128)
+        ksteps = 128 // elem // 16  # k16 steps a stage carries
+        qfrag = chunks * ksteps * nt * 32 * 8
+        extra = 4 * nt * 8 * 4 if k is None else lists
+        fits = [s for s in (4, 3, 2) if s * _STAGE_BYTES + qfrag + extra <= _SMEM_LIMIT]
+        if not fits:
+            return None
+        # the most stages that keep two blocks a SM (one merges or reduces
+        # while the other streams), else the most that fit
+        two = [s for s in fits if _per_sm(s * _STAGE_BYTES + qfrag + extra, k) >= 2]
+        stages = (two or fits)[0]
+        plan = {"route": "mma", "nt": nt, "chunks": chunks, "stages": stages,
+                "k_tail": chunks * 128 // elem - H, "query_frags": "shared memory",
+                "smem": stages * _STAGE_BYTES + qfrag + extra}
+    if plan["smem"] > _SMEM_LIMIT:
+        return None
+    plan["blocks_per_sm"] = _per_sm(plan["smem"], k)
+    return plan
+
+
+def _per_sm(smem: int, k: int | None = None) -> int:
+    """Blocks of ``smem`` bytes a SM holds at once, at most the kernel's
+    launch bounds (segmax: ``k`` None)."""
+    most = _SEGMAX_BLOCKS_PER_SM if k is None else _TOPK_BLOCKS_PER_SM
+    return min(most, _SM_SMEM // (smem + _BLOCK_RESERVED))
+
+
+def _plan_or_raise(fn: str, B: int, H: int, storage: torch.dtype, k: int | None = None):
+    plan = scan_plan(B, H, storage, k)
+    if plan is None:
+        raise ValueError(f"{fn}: no layout of the kernel fits a block's shared memory at "
+                         f"B={B} H={H} {storage}" + ("" if k is None else f" k={k}"))
+    return plan
+
+
+def _blocks(plan: dict, sms: int, work: int) -> int:
+    """Persistent blocks for ``work`` tiles: as many as ``sms`` SMs hold at
+    once by the plan, at most one a tile."""
+    return max(1, min(work, plan["blocks_per_sm"] * sms))
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def topk_stream_grid(plan: dict, B: int, tiles: int, sms: int) -> dict:
+    """The running top-k's launches over ``tiles`` 128-row tiles on a card
+    of ``sms`` SMs: ``per_chunk`` tiles a block of launch 1, and, where it
+    pays (``_PILOT_MIN_TILES`` tiles, ``_PILOT_MIN_B`` query rows), a pilot
+    over every ``stride``-th tile, ``pilot_per_chunk`` a block (stride 1: no
+    pilot); ``grid``: the larger launch's blocks (the workspace's rows)."""
+    per_chunk = -(-tiles // _blocks(plan, sms, tiles))
+    stride = _PILOT_STRIDE if tiles >= _PILOT_MIN_TILES and B >= _PILOT_MIN_B else 1
+    sample = -(-tiles // stride)  # the pilot's tiles
+    pilot_per_chunk = -(-sample // _blocks(plan, sms, sample))
+    grid = max(-(-tiles // per_chunk), -(-sample // pilot_per_chunk))
+    return {"per_chunk": per_chunk, "stride": stride, "pilot_per_chunk": pilot_per_chunk,
+            "grid": grid}
+
+
+# ---------------------------------------------------------------------------
 # phase-1 kernels and their plain versions
 # ---------------------------------------------------------------------------
 
@@ -262,14 +375,16 @@ def segmax(
         raise ValueError(f"the kernel takes 1..{_MAX_KERNEL_B} query rows, got {B}")
     if H % (8 if docs.dtype == torch.bfloat16 else 4):
         raise ValueError(f"the kernel needs 16-byte doc rows; H={H} with {docs.dtype}")
+    plan = _plan_or_raise("segmax", B, H, docs.dtype)
     q = q.contiguous()
     _require_cuda("segmax", q, docs)
     out = torch.empty((npad // _SEG, B), dtype=torch.float32, device=docs.device)
     cache = (
         torch.empty((npad, B), dtype=torch.float32, device=docs.device) if with_cache else None
     )
-    _launch("segmax", "segmax_launch", docs.device, int(docs.dtype == torch.bfloat16), B, H,
-            npad, int(n_valid), q.data_ptr(), docs.data_ptr(), out.data_ptr(), _ptr(cache))
+    _launch("segmax", "segmax_launch", docs.device, _STORAGE[docs.dtype], B, H, npad,
+            int(n_valid), plan["stages"], _blocks(plan, _sms(docs.device), npad // _SEG),
+            q.data_ptr(), docs.data_ptr(), None, out.data_ptr(), _ptr(cache))
     segmax.launches += 1
     return out, cache
 
@@ -316,11 +431,13 @@ def segmax_int8(
         raise ValueError(f"the kernel takes 1..{_MAX_KERNEL_B} query rows, got {B}")
     if H % 16:
         raise ValueError(f"the kernel needs 16-byte doc rows; H={H} with int8")
+    plan = _plan_or_raise("segmax_int8", B, H, torch.int8)
     q = q.contiguous()
     _require_cuda("segmax_int8", q, doc_values, doc_scales)
     out = torch.empty((npad // _SEG, B), dtype=torch.float32, device=q.device)
-    _launch("segmax", "segmax_int8_launch", q.device, B, H, npad, int(n_valid), q.data_ptr(),
-            doc_values.data_ptr(), doc_scales.data_ptr(), out.data_ptr())
+    _launch("segmax", "segmax_launch", q.device, _STORAGE[torch.int8], B, H, npad, int(n_valid),
+            plan["stages"], _blocks(plan, _sms(q.device), npad // _SEG), q.data_ptr(),
+            doc_values.data_ptr(), doc_scales.data_ptr(), out.data_ptr(), None)
     segmax_int8.launches += 1
     return out
 
@@ -661,7 +778,7 @@ def topk_segmented_int8(queries, doc_values, doc_scales, k: int = 50, segment: i
 # ---------------------------------------------------------------------------
 
 
-def _topk_stream_call(q, docs, scales, k: int, n_valid: int, storage: int):
+def _topk_stream_call(q, docs, scales, k: int, n_valid: int):
     """Launch ``csrc/topk_stream.cu`` (chunk kernel + merge kernel)."""
     B, H = q.shape
     npad = docs.shape[0]
@@ -673,18 +790,19 @@ def _topk_stream_call(q, docs, scales, k: int, n_valid: int, storage: int):
         raise ValueError(f"the kernel needs 16-byte doc rows; H={H} with {docs.dtype}")
     if npad % _SEG or not _SEG <= npad < 2 ** 31:
         raise ValueError(f"the kernel needs Npad a multiple of {_SEG} below 2^31, got {npad}")
+    plan = _plan_or_raise("topk_stream", B, H, docs.dtype, k)
     q = q.contiguous()
     _require_cuda("topk_stream", q, docs, *([] if scales is None else [scales]))
-    tiles = npad // _SEG
-    sms = torch.cuda.get_device_properties(docs.device).multi_processor_count
-    per_chunk = -(-tiles // min(tiles, 2 * sms))  # about two chunk blocks per SM
-    chunks = -(-tiles // per_chunk)
-    cand = torch.empty((chunks, B, k), dtype=torch.int64, device=docs.device)
+    grid = topk_stream_grid(plan, B, npad // _SEG, _sms(docs.device))
+    thr = torch.zeros((B,), dtype=torch.int64, device=docs.device)  # the shared thresholds
+    cand = torch.empty((grid["grid"], B, k), dtype=torch.int64, device=docs.device)
     vals = torch.empty((B, k), dtype=torch.float32, device=docs.device)
     ids = torch.empty((B, k), dtype=torch.int32, device=docs.device)
-    _launch("topk_stream", "topk_stream_launch", docs.device, storage, B, H, k, npad,
-            int(n_valid), per_chunk, q.data_ptr(), docs.data_ptr(), _ptr(scales),
-            cand.data_ptr(), vals.data_ptr(), ids.data_ptr())
+    _launch("topk_stream", "topk_stream_launch", docs.device, _STORAGE[docs.dtype], B, H, k,
+            npad, int(n_valid), grid["per_chunk"], plan["stages"], grid["stride"],
+            grid["pilot_per_chunk"],
+            q.data_ptr(), docs.data_ptr(), _ptr(scales), thr.data_ptr(), cand.data_ptr(),
+            vals.data_ptr(), ids.data_ptr())
     return vals, ids
 
 
@@ -701,7 +819,7 @@ def topk_stream(q: torch.Tensor, docs: torch.Tensor, k: int, n_valid: int):
         return topk_stream_reference(q, docs, k, n_valid)
     if docs.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"storage dtype must be bfloat16 or float32, got {docs.dtype}")
-    out = _topk_stream_call(q, docs, None, k, n_valid, int(docs.dtype == torch.bfloat16))
+    out = _topk_stream_call(q, docs, None, k, n_valid)
     topk_stream.launches += 1
     return out
 
@@ -723,7 +841,7 @@ def topk_stream_int8(q: torch.Tensor, doc_values: torch.Tensor, doc_scales: torc
         raise ValueError("doc_values must be [Npad, H] with [Npad] scales")
     if doc_values.device.type == "cpu":
         return topk_stream_reference(q, doc_values, k, n_valid, doc_scales)
-    out = _topk_stream_call(q, doc_values, doc_scales, k, n_valid, 2)
+    out = _topk_stream_call(q, doc_values, doc_scales, k, n_valid)
     topk_stream_int8.launches += 1
     return out
 
