@@ -53,16 +53,19 @@ clusters and cuDNN's time beside it), and the
 int8 and running top-k kernels (``csrc/segmax_s8.cu``, the per-row int8
 path of ``csrc/segmax.cu``, ``csrc/topk_stream.cu``) over 1,048,576 rows,
 each driven once through its public function with the counts at 0; the
-four scans redesigned for the tensor cores (``segmax``, ``segmax_int8``,
+five scans on the tensor cores (``segmax``, ``segmax_int8``, ``segmax_s8``,
 ``topk_stream``, ``topk_stream_int8``) also at B=1 and B=32 over the same
 1,048,576 rows and at B=16 over the served 73,728 rows, each with its
-layout logged (``ops/topk.py`` scan_plan), two calls held bit-identical and
-timed beside its library call; and the
-fused attention kernels (``csrc/attention.cu``) at the transformer's
+layout logged (``ops/topk.py`` scan_plan, s8_plan), two calls held
+bit-identical and timed beside its library call (``segmax_s8`` also with
+its score cache, against that variant's own bound); an int8 index at
+H=1536, past the 1040 columns below which the integer scores stay under
+2^24, searched through ``segmax_s8`` bit for bit as the plain versions; and
+the fused attention kernels (``csrc/attention.cu``) at the transformer's
 training and serving shapes and at T=512 (hd=32 and 64), each with its
 tiles logged, two calls held bit-identical and timed beside
 ``torch.nn.functional.scaled_dot_product_attention`` as a yardstick, and
-at f32 compute at hd=64, T=512. Step 5
+at f32 compute at hd=64, T=512 (SDPA on the f32 inputs, TF32 off). Step 5
 serves a second time as ``ttr-torch-serve --storage-dtype int8`` starts
 it: the s8 scan kernel on every dense search, the results against the
 port's int8 engine on the CPU and, bit for bit, against the two-phase path
@@ -168,6 +171,9 @@ TRAIN_DIR = ROOT / "_smoke_train"  # word table, checkpoints, artifacts; listed 
 ODD_H = 150
 ODD_TRIPLETS = 1000
 WIDE_H = 1024  # a wide GRU layer: the backward keeps one dhp row block
+# An int8 index past the 1040 columns below which 127 * 127 * H < 2^24 (a
+# tower of HIDDEN_DIM 1536 emits such embeddings), over a few thousand rows.
+WIDE_S8_H, WIDE_S8_ROWS = 1536, 6000
 
 # Fused attention, kernel against plain version on the same inputs, as a
 # share of the plain result's largest magnitude. A CPU run of the plain
@@ -229,6 +235,48 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_ms_device(fn, reps: int = 20) -> float:
+    """The card's own time for one call: the device time of every kernel
+    that ``reps`` calls ran, as torch.profiler traces them, over ``reps``.
+    time_ms's single calls also count the host's time to launch (tens of
+    us), during which the card waits; at small shapes that is most of it.
+    A profiling run leaves the card's tracing attached, which slows
+    every later launch from the host, so these run after every other
+    phase (``later_on_card``, ``phase_device_times``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(us > 0, "torch.profiler traced no device time")
+    return us / 1e3 / reps
+
+
+_ON_CARD_LATER = []  # (record, key, fn): time_ms_device(fn) goes to record[key] at the end
+
+
+def later_on_card(rec: dict, key: str, fn) -> None:
+    _ON_CARD_LATER.append((rec, key, fn))
+
+
+def phase_device_times() -> None:
+    """The device times queued by later_on_card, once every other phase
+    has run (the tensors they need stay alive until then); each record is
+    logged with them."""
+    for rec, key, fn in _ON_CARD_LATER:
+        rec[key] = time_ms_device(fn)
+    for rec in {id(r): r for r, _, _ in _ON_CARD_LATER}.values():
+        log(f"on the card (torch.profiler's device time), {rec['shape']}: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in rec.items() if k.endswith("device_ms")))
+    _ON_CARD_LATER.clear()
 
 
 def bound(nbytes: int, flops: int, peak: float = PEAK_BF16_FLOPS):
@@ -509,10 +557,10 @@ def read_counts() -> dict:
     return {name: fn.launches for name, (fn, _, _) in kernel_table().items()}
 
 
-def _unit_rows_f32(gen, n, dev, chunk=1 << 18):
-    out = torch.empty((n, H), dtype=torch.float32, device=dev)
+def _unit_rows_f32(gen, n, dev, chunk=1 << 18, width=H):
+    out = torch.empty((n, width), dtype=torch.float32, device=dev)
     for i in range(0, n, chunk):
-        x = torch.randn((min(chunk, n - i), H), generator=gen, device=dev)
+        x = torch.randn((min(chunk, n - i), width), generator=gen, device=dev)
         out[i : i + chunk] = x / x.norm(dim=1, keepdim=True)
     return out
 
@@ -627,13 +675,97 @@ def check_scans_at(B: int, docs, values, scales, n_valid: int, dev, seed: int) -
     return recs
 
 
-def check_segmax_s8(docs_f32, n_valid: int, q, dev, timed: bool) -> dict:
+def s8_layout(B: int, H: int) -> dict:
+    """Log the layout segmax_s8 launches at B query rows of width H
+    (``ops/topk.py`` s8_plan) and return it."""
+    from twotowermlretrieval_tpu_torch.ops.topk import s8_plan
+
+    plan = s8_plan(B, H)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"segmax_s8 layout, B={B} H={H} int8: s8 tensor cores, {plan['stages']} cp.async "
+        f"stages of 16 KiB, {plan['blocks_per_sm']} blocks a SM "
+        f"({plan['blocks_per_sm'] * sms} persistent), {plan['in_flight'] // 1024} KiB in flight "
+        f"a SM, query fragments in shared memory ({plan['nt']} n8 tiles), {plan['k_tail']} zero "
+        f"columns past H, {plan['smem']} bytes a block")
+    return plan
+
+
+def _int_mm_amax(values, q_i8, seg: int):
+    """The library yardstick of segmax_s8: cuBLASLt's int8 product (int32
+    out) and the segment max. _int_mm takes a multiple of 8 query columns,
+    so fewer rows are zero-padded to 8."""
+    B = q_i8.shape[0]
+    qt = torch.nn.functional.pad(q_i8, (0, 0, 0, (-B) % 8)).t()  # column-major [H, B8]
+    return lambda: torch._int_mm(values, qt).view(-1, seg, qt.shape[1]).amax(dim=1)
+
+
+def _check_s8_bitwise(q_i8, values, seg: int, what: str) -> None:
+    """segmax_s8's maxima, without and with the score cache, equal to the
+    plain version's in every bit, and two calls bit-identical."""
+    from twotowermlretrieval_tpu_torch.ops.topk import segmax_s8, segmax_s8_reference
+
+    for with_cache in (False, True):
+        got, cache = segmax_s8(q_i8, values, seg, with_cache=with_cache)
+        want, r_cache = segmax_s8_reference(q_i8, values, seg, with_cache=with_cache)
+        again = segmax_s8(q_i8, values, seg, with_cache=with_cache)
+        check(torch.equal(got, want) and (not with_cache or torch.equal(cache, r_cache)),
+              f"segmax_s8 {what} seg {seg} cache {with_cache}: not bitwise equal")
+        check(torch.equal(got, again[0]) and (not with_cache or torch.equal(cache, again[1])),
+              f"segmax_s8 {what} seg {seg} cache {with_cache}: two calls differ")
+
+
+def _time_s8(rec: dict, q_i8, values, seg: int) -> None:
+    """segmax_s8's times into rec: single calls (time_ms) now and the
+    card's own (time_ms_device) at the end of the run, without and with
+    the score cache, and _int_mm+amax's alike."""
+    from twotowermlretrieval_tpu_torch.ops.topk import segmax_s8
+
+    for key, fn in (("", lambda: segmax_s8(q_i8, values, seg)),
+                    ("cache_", lambda: segmax_s8(q_i8, values, seg, with_cache=True)),
+                    ("library_", _int_mm_amax(values, q_i8, seg))):
+        rec[f"{key}ms"] = time_ms(fn)
+        later_on_card(rec, f"{key}device_ms", fn)
+
+
+def _s8_times(rec: dict) -> str:
+    return (f"kernel {rec['ms']:.4f} ms (bound {rec['bound_ms']:.6f} {rec['bound_by']}), with "
+            f"the cache {rec['cache_ms']:.4f} (bound {rec['cache_bound_ms']:.6f}), _int_mm+amax "
+            f"{rec['library_ms']:.4f}")
+
+
+def check_s8_at(B: int, values, seed: int, dev) -> dict:
+    """segmax_s8 at B int8 query rows over ``values`` (a per-segment int8
+    index, seg 128): maxima and cache bitwise equal to the plain version,
+    two calls bit-identical, its layout logged, timed beside _int_mm+amax
+    and its bounds (without and with the cache)."""
+    from twotowermlretrieval_tpu_torch.ops.topk import quantize_query_rows, segmax_s8_bound
+
+    npad, width = values.shape
+    q_i8, _ = quantize_query_rows(_unit_rows_f32(torch.Generator(device=dev).manual_seed(seed),
+                                                 B, dev, width=width))
+    shape = f"B={B} Npad={npad} H={width} int8 seg 128"
+    plan = s8_layout(B, width)
+    _check_s8_bitwise(q_i8, values, 128, shape)
+    rec = {"shape": shape, "max_abs_err": 0.0, "bitwise_repeatable": True, "layout": plan}
+    _time_s8(rec, q_i8, values, 128)
+    rec["bound_ms"], rec["bound_by"] = bound(*segmax_s8_bound(B, width, npad, 128), PEAK_INT8_OPS)
+    rec["cache_bound_ms"], _ = bound(*segmax_s8_bound(B, width, npad, 128, with_cache=True),
+                                     PEAK_INT8_OPS)
+    log(f"segmax_s8 {shape}: bitwise equal to the plain version, two calls bit-identical; "
+        + _s8_times(rec))
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_segmax_s8(docs_f32, n_valid: int, q, dev, timed: bool, batches=()) -> list:
     """Kernel 5 over the rows of ``docs_f32`` (rows >= n_valid zero, as the
     index pads), quantized per segment on the host with the index's own
     quantize_segments: segment maxima and cache bitwise equal to the plain
     version at seg 128 and 64; the whole search with the kernel bitwise
     equal to the same search with the plain phase 1 and to the two-phase
-    path; top-50 recall against exact f32 search."""
+    path; top-50 recall against exact f32 search; then, over the seg-128
+    index, the kernel at each of ``batches`` query rows (check_s8_at).
+    Returns the records, the B=16 one first."""
     from twotowermlretrieval_tpu_torch.ops.topk import (
         fused_topk_segmax_s8,
         quantize_query_rows,
@@ -652,6 +784,7 @@ def check_segmax_s8(docs_f32, n_valid: int, q, dev, timed: bool) -> dict:
     full = torch.matmul(q, docs_f32[:n_valid].T)
     _, exact_ids = torch.topk(full, FANOUT)
     rec = {"shape": shape, "max_abs_err": 0.0}
+    recs = [rec]
 
     def err(a, b) -> float:
         return (a - b).abs().max().item() if a.numel() else 0.0
@@ -690,25 +823,28 @@ def check_segmax_s8(docs_f32, n_valid: int, q, dev, timed: bool) -> dict:
             f"f32 {recall:.4f}")
         check(recall >= 0.5, f"s8 {shape} seg {seg}: recall {recall}")
         if timed and seg == 128:
-            rec["ms"] = time_ms(lambda: segmax_s8(q_i8, values, seg))
-            rec["cache_ms"] = time_ms(lambda: segmax_s8(q_i8, values, seg, with_cache=True))
+            rec["layout"] = s8_layout(B, H)
+            _check_s8_bitwise(q_i8, values, seg, shape)
+            rec["bitwise_repeatable"] = True
+            _time_s8(rec, q_i8, values, seg)
             rec["plain_ms"] = time_ms(lambda: segmax_s8_reference(q_i8, values, seg),
                                       reps=5, warmup=1)
-            # one library call: cuBLASLt's int8 product (int32 out) + the segment max
-            qt = q_i8.t()  # column-major [H, B], as _int_mm takes it
-            rec["library_ms"] = time_ms(
-                lambda: torch._int_mm(values, qt).view(-1, seg, B).amax(dim=1))
+            # what the card reads at best: one int64 max over the same bytes
+            words = values.view(torch.int64)
+            later_on_card(rec, "read_device_ms", lambda: words.amax())
             rec["search_ms"] = time_ms(lambda: fused_topk_segmax_s8(
                 q, values, scales, k=FANOUT, n_valid=n_valid, seg=seg))
             nbytes, ops = segmax_s8_bound(B, H, npad, seg)
             rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, PEAK_INT8_OPS)
-            log(f"segmax_s8 {shape}: kernel {rec['ms']:.4f} ms (with the cache "
-                f"{rec['cache_ms']:.4f}), plain {rec['plain_ms']:.4f} ms, _int_mm+amax "
-                f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}); "
-                f"whole top-{FANOUT} {rec['search_ms']:.4f} ms")
+            rec["cache_bound_ms"], _ = bound(*segmax_s8_bound(B, H, npad, seg, with_cache=True),
+                                             PEAK_INT8_OPS)
+            log(f"segmax_s8 {shape}: two calls bit-identical; {_s8_times(rec)}; plain "
+                f"{rec['plain_ms']:.4f} ms; whole top-{FANOUT} {rec['search_ms']:.4f} ms")
+            for i, b in enumerate(batches):  # the other batch sizes over the same index
+                recs.append(check_s8_at(b, values, 50 + i, dev))
         del values, scales
     torch.cuda.empty_cache()
-    return rec
+    return recs
 
 
 def check_int8_rows(docs_f32, n_valid: int, q, dev) -> dict:
@@ -833,7 +969,8 @@ def phase_int8_kernels(dev) -> dict:
                                      (npad_serve, PASSAGES, True)):
             docs = _unit_rows_f32(gen, npad, dev)
             docs[n_valid:] = 0.0
-            out["segmax_s8"].append(check_segmax_s8(docs, n_valid, q, dev, timed))
+            out["segmax_s8"] += check_segmax_s8(docs, n_valid, q, dev, timed,
+                                                SCAN_BATCHES if npad == SCAN_ROWS else ())
             if npad == SCAN_ROWS:
                 for name, recs in check_int8_rows(docs, n_valid, q, dev).items():
                     out.setdefault(name, []).extend(recs)
@@ -1024,6 +1161,82 @@ def phase_wide_kernels(dev) -> tuple:
     return fwd, bwd
 
 
+def phase_wide_s8(dev) -> dict:
+    """An int8 index at H=WIDE_S8_H (the port's RetrievalIndex, as
+    ``ttr-torch-serve --storage-dtype int8`` builds it) over WIDE_S8_ROWS
+    rows: unit rows, and a block of 512 built to pass 2^24 (rows of a sign
+    pattern p times 0.01 but column 1, 0.01 r / 127, searched by a query of
+    p but column 1, 1 / 127: the integer scores 127 * 127 * 1535 + r round
+    to even in f32, so neighbouring r tie; the block's own segment scale
+    keeps it out of the other queries' results). A dense search of 32 queries launches segmax_s8
+    once and nothing else and equals the two-phase path (use_kernel=False)
+    bit for bit; the kernel's maxima and cache equal the plain version's at
+    B=16 and 32, two calls bit-identical; the fused search with either phase
+    2 equals the same search with the plain phase 1. Returns a record."""
+    from twotowermlretrieval_tpu_torch.ops.topk import (
+        fused_topk_segmax_s8,
+        quantize_query_rows,
+        s8_phase2,
+        segmax_s8,
+        segmax_s8_bound,
+        segmax_s8_reference,
+    )
+    from twotowermlretrieval_tpu_torch.serve.index import RetrievalIndex
+
+    rng = np.random.default_rng(60)
+    docs = rng.standard_normal((WIDE_S8_ROWS, WIDE_S8_H)).astype(np.float32)
+    docs /= np.linalg.norm(docs, axis=1, keepdims=True)
+    pattern = np.where(rng.random(WIDE_S8_H) < 0.5, -1.0, 1.0).astype(np.float32)
+    pattern[1] = 1.0
+    docs[:512] = 0.01 * pattern
+    docs[:512, 1] = 0.01 * rng.integers(0, 128, 512) / np.float32(127.0)
+    q = docs[1000:1032] + 0.02 * rng.standard_normal((32, WIDE_S8_H)).astype(np.float32)
+    q[0] = pattern
+    q[0, 1] = 1.0 / np.float32(127.0)
+    index = RetrievalIndex(docs, device=dev, storage_dtype="int8")
+    two_phase = RetrievalIndex(docs, device=dev, storage_dtype="int8", use_kernel=False)
+    shape = f"B=32 Npad={index._docs.shape[0]} n_valid={WIDE_S8_ROWS} H={WIDE_S8_H} int8 index"
+    zero_counts()
+    vals, ids = index.search(q, FANOUT)
+    launches = read_counts()
+    check(launches["segmax_s8"] == 1 and sum(launches.values()) == 1,
+          f"wide int8 search {shape} launched {launches}, expected segmax_s8 once")
+    r_vals, r_ids = two_phase.search(q, FANOUT)
+    check(np.array_equal(ids, r_ids) and np.array_equal(vals, r_vals),
+          f"wide int8 search {shape}: the kernel path differs from the two-phase path")
+    check(bool((ids[0] < 512).all()) and bool((ids[1:, 0] == np.arange(1001, 1032)).all()),
+          f"wide int8 search {shape}: the top ids are not the expected rows")
+    values, scales = index._docs, index._scales
+    with torch.inference_mode():
+        qt = torch.from_numpy(q).to(dev)
+        q_i8, q_scale = quantize_query_rows(qt)
+        for B in (16, 32):
+            _check_s8_bitwise(q_i8[:B], values, 128, f"{shape} B={B}")
+        top = float(segmax_s8(q_i8, values, 128)[0].max().item())
+        check(top > 2 ** 24, f"segmax_s8 {shape}: the largest score {top} does not pass 2^24")
+        for phase2 in ("rescore", "gather"):
+            f_vals, f_ids = fused_topk_segmax_s8(qt, values, scales, k=FANOUT,
+                                                 n_valid=WIDE_S8_ROWS, phase2=phase2)
+            maxima, cache = segmax_s8_reference(q_i8, values, 128, with_cache=phase2 == "gather")
+            p_vals, p_ids = s8_phase2(maxima, cache, q_i8, q_scale, values, scales, FANOUT,
+                                      WIDE_S8_ROWS, 128)
+            check(torch.equal(f_vals, p_vals) and torch.equal(f_ids, p_ids),
+                  f"wide int8 top-{FANOUT} {shape} ({phase2}): differs from the plain phase 1")
+        plan = s8_layout(32, WIDE_S8_H)
+        rec = {"shape": shape, "max_abs_err": 0.0, "bitwise_repeatable": True, "layout": plan,
+               "launches": launches, "largest_score": top,
+               "ms": time_ms(lambda: segmax_s8(q_i8, values, 128)),
+               "library_ms": time_ms(_int_mm_amax(values, q_i8, 128))}
+        rec["bound_ms"], rec["bound_by"] = bound(
+            *segmax_s8_bound(32, WIDE_S8_H, values.shape[0], 128), PEAK_INT8_OPS)
+    log(f"wide int8 index {shape}: one segmax_s8 launch a search, results equal the two-phase "
+        f"path bit for bit; kernel bitwise equal to the plain version at B=16 and 32 with and "
+        f"without the cache (largest score {top:.0f}, past 2^24); kernel {rec['ms']:.4f} ms, "
+        f"_int_mm+amax {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms")
+    torch.cuda.empty_cache()
+    return rec
+
+
 def check_attention(B: int, T: int, in_dtype, seed: int, dev, hd: int = TF_HD) -> tuple:
     """Both attention kernels at B rows of 8 heads (R = 8B), head width hd,
     bf16 compute, against their plain versions; rows of batch element 0 have
@@ -1125,8 +1338,12 @@ def check_attention_f32(dev, B: int = 4, T: int = 512, hd: int = 64, seed: int =
     """Both attention kernels at f32 compute (full f32 products on the CUDA
     cores) at hd=64 and T=512, past the 256 keys one stage of the f32
     kernels holds: against their plain versions within ATTN_F32_REL of the
-    largest magnitude, two calls bit-identical, timed. Returns the
-    (forward, backward) records."""
+    largest magnitude, two calls bit-identical, timed beside SDPA on the
+    same f32 inputs and additive mask with TF32 off (forward, and
+    forward+backward minus forward). Returns the (forward, backward)
+    records."""
+    import torch.nn.functional as F
+
     from twotowermlretrieval_tpu_torch.ops.attention import (
         attention_bound,
         attention_bwd,
@@ -1179,6 +1396,21 @@ def check_attention_f32(dev, B: int = 4, T: int = 512, hd: int = 64, seed: int =
             f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.6f} "
             f"ms ({rec['bound_by']}, at the f32 CUDA-core rate)")
         recs.append(rec)
+    # the yardstick: one library call on the same f32 inputs and additive mask
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for the f32 yardstick")
+    with torch.enable_grad():
+        ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias[:, None, :],
+                                                  scale=scale)
+
+        recs[0]["library_ms"] = time_ms(sdpa)
+        both = time_ms(lambda: torch.autograd.grad(sdpa(), (ql, kl, vl), do))
+    recs[1]["library_ms"] = both - recs[0]["library_ms"]
+    recs[1]["library_fwd_bwd_ms"] = both
+    log(f"attention {shape}: SDPA (f32, TF32 off) forward {recs[0]['library_ms']:.4f} ms, "
+        f"fwd+bwd - fwd {recs[1]['library_ms']:.4f} ms")
     del out, grads, r_out, r_grads
     torch.cuda.empty_cache()
     return tuple(recs)
@@ -1910,6 +2142,8 @@ def main() -> int:
         wide_fwd, wide_bwd = phase_wide_kernels(dev)
         kern["rnn_fwd"] += wide_fwd
         kern["rnn_bwd"] += wide_bwd
+        wide_s8 = phase_wide_s8(dev)
+        kern["segmax_s8"].append(wide_s8)
         kern.update(phase_attention_kernels(dev))
         export, corpus = phase_export(dev)
         served = phase_serve(dev, corpus[2])
@@ -1918,6 +2152,7 @@ def main() -> int:
         odd = phase_odd_width(dev, setup)
         del setup
         tf = phase_transformer(dev, corpus)
+        phase_device_times()
     finally:
         shutil.rmtree(ARTIFACTS, ignore_errors=True)
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
@@ -1931,7 +2166,7 @@ def main() -> int:
     # (fused_topk_segmax_int8, fused_topk, fused_topk_int8)
     phases = {"export": export["launches"], "serve": served["launches"],
               "serve_int8": served_int8["launches"], "train": trained["launches"],
-              "odd_width_serve": odd["launches"],
+              "odd_width_serve": odd["launches"], "wide_int8_index": wide_s8["launches"],
               "transformer_train": tf["launches"], "transformer_serve": tf["serve"]["launches"]}
     main_launches = {"rnn_fwd": served["launches"]["rnn_fwd"],
                      "segmax": served["launches"]["segmax"],

@@ -58,6 +58,7 @@ from twotowermlretrieval_tpu_torch.ops.topk import (
     topk_stream_int8,
     topk_stream_reference,
 )
+from twotowermlretrieval_tpu_torch.ops import topk as _topk
 from twotowermlretrieval_tpu_torch.utils.dtypes import resolve_device
 
 pytestmark = pytest.mark.cuda
@@ -684,21 +685,72 @@ def _s8_case(dev, B, N, H, seed, seg=128):
             torch.from_numpy(scales).to(dev))
 
 
+def _s8_random(dev, B, N, H, seed):
+    """Uniform int8 values in -127..127 (queries and rows), on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    q, d = (torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+            for shape in ((B, H), (N, H)))
+    return q.to(dev), d.to(dev)
+
+
 @pytest.mark.parametrize("seg", [32, 64, 128])
 @pytest.mark.parametrize("B", [1, 5, 16, 32])
 @pytest.mark.parametrize("with_cache", [False, True])
-def test_segmax_s8_kernel_equals_plain_version_bitwise(dev, seg, B, with_cache):
-    """Integer sums are exact in both (|score| < 2^24 at H=256), so the
-    segment maxima and the cache agree to the bit."""
-    _, q_i8, _, values, _ = _s8_case(dev, B, 8192, 256, seed=B + seg)
+@pytest.mark.parametrize("H", [256, 16, 48, 1056, 2048])
+def test_segmax_s8_kernel_equals_plain_version_bitwise(dev, seg, B, with_cache, H):
+    """Integer sums are exact in both, in any order, and each converts to
+    f32 once (the kernel after the segment max, the plain version before:
+    rounding is monotone), so the segment maxima and the cache agree to the
+    bit at every width, also past H=1040 where the scores pass 2^24 and
+    round. H=16 and 48 leave most of a stage zero-filled. Two calls give
+    the same bits."""
+    if H == 256:
+        _, q_i8, _, values, _ = _s8_case(dev, B, 8192, 256, seed=B + seg)
+    else:  # full-range values: |score| up to 127 * 127 * H
+        q_i8, values = _s8_random(dev, B, 8192 if H < 2048 else 4096, H, seed=B + seg + H)
     before = segmax_s8.launches
     got, cache = segmax_s8(q_i8, values, seg, with_cache=with_cache)
     assert segmax_s8.launches == before + 1
     want, r_cache = segmax_s8_reference(q_i8, values, seg, with_cache=with_cache)
-    assert got.shape == (8192 // seg, B) and torch.equal(got, want)
+    assert got.shape == (values.shape[0] // seg, B) and torch.equal(got, want)
     assert (cache is None) == (not with_cache)
     if with_cache:
         assert torch.equal(cache, r_cache)
+    again, again_cache = segmax_s8(q_i8, values, seg, with_cache=with_cache)
+    assert torch.equal(again, got) and (not with_cache or torch.equal(again_cache, cache))
+
+
+@pytest.mark.parametrize("B", [3, 16, 32])
+def test_segmax_s8_one_tile_and_a_partial_wave(dev, B):
+    """Npad of one 128-row tile (one block), and a corpus whose tiles end
+    part-way through the persistent blocks' last wave: bitwise equal to
+    the plain version at every segment width."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    wave = _topk.s8_plan(B, 256)["blocks_per_sm"] * sms
+    for tiles in (1, 2 * wave + wave // 3):
+        q_i8, values = _s8_random(dev, B, tiles * 128, 256, seed=tiles + B)
+        for seg in (32, 64, 128):
+            got, cache = segmax_s8(q_i8, values, seg, with_cache=True)
+            want, r_cache = segmax_s8_reference(q_i8, values, seg, with_cache=True)
+            assert torch.equal(got, want) and torch.equal(cache, r_cache), (tiles, seg)
+
+
+def test_segmax_s8_scores_past_2_24_round_as_the_plain_version(dev):
+    """Rows of 127 but one column r and queries of 127 but that column's
+    1: the integer scores 127 * 127 * (H - 1) + r pass 2^24 and round to
+    even in f32; the kernel's maxima and cache equal the plain version's
+    and the int64 product converted to f32."""
+    H = 2048
+    values = torch.full((1024, H), 127, dtype=torch.int8)
+    values[:, 1] = (torch.arange(1024) % 255 - 127).to(torch.int8)
+    q_i8 = torch.full((4, H), 127, dtype=torch.int8)
+    q_i8[:, 1] = 1
+    exact = (values.long() @ q_i8.long().T).float()
+    assert exact.max().item() > 2 ** 24
+    for seg in (32, 128):
+        got, cache = segmax_s8(q_i8.to(dev), values.to(dev), seg, with_cache=True)
+        assert torch.equal(cache.cpu(), exact)
+        assert torch.equal(got.cpu(), exact.reshape(-1, seg, 4).amax(dim=1))
 
 
 @pytest.mark.parametrize("phase2", ["rescore", "gather"])
@@ -717,6 +769,38 @@ def test_s8_search_on_the_card_equals_plain_phase1_and_two_phase(dev, phase2, se
     assert ((ids >= 0) & (ids < 20000)).all()
 
 
+@pytest.mark.parametrize("phase2", ["rescore", "gather"])
+def test_s8_search_past_1040_columns_equals_plain_phase1_and_two_phase(dev, phase2):
+    """At H=1056 the search with the kernel equals the same search with the
+    plain phase 1 (its re-score through the exact pieced product) and the
+    two-phase path, in every bit."""
+    q, q_i8, q_scale, values, scales = _s8_case(dev, 8, 8192, 1056, seed=3)
+    kw = dict(k=50, n_valid=8100)
+    before = segmax_s8.launches
+    vals, ids = fused_topk_segmax_s8(q, values, scales, phase2=phase2, **kw)
+    assert segmax_s8.launches == before + 1
+    maxima, cache = segmax_s8_reference(q_i8, values, 128, with_cache=phase2 == "gather")
+    r_vals, r_ids = s8_phase2(maxima, cache, q_i8, q_scale, values, scales, 50, 8100, 128)
+    assert torch.equal(ids, r_ids) and torch.equal(vals, r_vals)
+    t_vals, t_ids = topk_segmented_s8(q, values, scales, **kw)
+    assert torch.equal(ids, t_ids) and torch.equal(vals, t_vals)
+
+
+@pytest.mark.parametrize("H", [1040, 1056, 2080, 4096])
+def test_int_matmul_on_the_card_is_exact_past_1040(dev, H):
+    """The card's plain integer product (exact f32 pieces of at most 1040
+    columns summed in int32, converted once) equals the int64 product on
+    the CPU converted to f32, for every operand layout phase 2 and the
+    two-phase path use, with full-range values."""
+    q_i8, values = _s8_random(dev, 8, 512, H, seed=H)
+    exact = (values.cpu().long() @ q_i8.cpu().long().T).float()  # [512, 8]
+    assert torch.equal(_topk._int_matmul(values, q_i8.T).cpu(), exact)
+    assert torch.equal(_topk._int_matmul(q_i8, values.T).cpu(), exact.T)
+    blocks = values.reshape(8, 64, H)  # [B, rows, H] against each query row
+    got = _topk._int_matmul(blocks, q_i8[:, :, None])[..., 0]
+    assert torch.equal(got.cpu(), exact.reshape(8, 64, 8).diagonal(dim1=0, dim2=2).T)
+
+
 def test_segmax_s8_wrapper_rejects_what_the_kernel_does_not_take(dev):
     _, q_i8, _, values, _ = _s8_case(dev, 4, 256, 64, seed=0)
     with pytest.raises(ValueError):
@@ -729,9 +813,18 @@ def test_segmax_s8_wrapper_rejects_what_the_kernel_does_not_take(dev):
         segmax_s8(q_i8.float(), values)  # not int8
     with pytest.raises(ValueError):
         segmax_s8(q_i8.cpu(), values)  # devices differ
-    wide = torch.zeros((128, 1056), dtype=torch.int8, device=dev)
-    with pytest.raises(ValueError, match="1040"):
-        segmax_s8(wide[:2], wide)  # integer scores no longer exact in f32
+    # H=1056, past where the scores stay below 2^24: taken, the plain version's bits
+    wide_q, wide = _s8_random(dev, 2, 256, 1056, seed=1)
+    got, cache = segmax_s8(wide_q, wide, with_cache=True)
+    want, r_cache = segmax_s8_reference(wide_q, wide, with_cache=True)
+    assert torch.equal(got, want) and torch.equal(cache, r_cache)
+    # past the widest layout a block holds: refused before any launch, naming the limit
+    widest = _topk.s8_max_h(32)
+    too_wide = torch.zeros((128, widest + 16), dtype=torch.int8, device=dev)
+    before = segmax_s8.launches
+    with pytest.raises(ValueError, match=f"up to {widest}"):
+        segmax_s8(too_wide[:32], too_wide)
+    assert segmax_s8.launches == before
 
 
 @pytest.mark.parametrize("B", _SCAN_B)

@@ -3,11 +3,12 @@
 ``ops/topk.py`` ``scan_plan`` picks the layout ``csrc/segmax.cu`` and launch 1
 of ``csrc/topk_stream.cu`` run with: for bf16 and per-row int8 corpora,
 tensor-core tiles fed by a ring of cp.async stages (``csrc/doc_mma.cuh``),
-for f32 the CUDA-core tiles of ``csrc/doc_tile.cuh``. Its shared-memory sizes
-mirror the .cu files region by region; these tests hold them for every batch
-size and the widths the wrappers take, and show that the wrappers refuse what
-the kernels do not take before any launch (on meta tensors: no card, no
-build).
+for f32 the CUDA-core tiles of ``csrc/doc_tile.cuh``; ``s8_plan`` the layout of
+``csrc/segmax_s8.cu`` (s8 tensor-core tiles on the same ring). Their
+shared-memory sizes mirror the .cu files region by region; these tests hold
+them for every batch size and the widths the wrappers take, and show that the
+wrappers refuse what the kernels do not take before any launch (on meta
+tensors: no card, no build).
 """
 
 import pytest
@@ -73,6 +74,51 @@ def test_scan_plan_every_batch_and_width(storage, H):
                 assert 2 <= plan["stages"] <= 4
 
 
+def _expected_s8(B, H):
+    """segmax_s8.cu's layout, recomputed region by region (s8_smem): the
+    ring, a uint2 of query fragment a (k32 step, n8 tile, lane), 4 k32 steps
+    a 128-byte stage, and the 4 warps' int32 column maxima of two tiles; the
+    most blocks a SM (at most 4, the launch bounds), then the deepest ring
+    they leave room for."""
+    nt = -(-B // 8)
+    chunks = -(-H // 128)
+    fixed = chunks * 4 * nt * 32 * 8 + 2 * 4 * nt * 8 * 4
+    best = None
+    for stages in range(2, 9):
+        smem = stages * 128 * 128 + fixed
+        if smem > LIMIT:
+            break
+        per_sm = min(4, SM // (smem + 1024))
+        flight = per_sm * (stages - 1) * 128 * 128
+        if best is None or per_sm >= best["blocks_per_sm"]:
+            best = {"route": "mma-s8", "nt": nt, "chunks": chunks, "stages": stages,
+                    "k_tail": chunks * 128 - H, "smem": smem, "blocks_per_sm": per_sm,
+                    "in_flight": flight}
+    return best
+
+
+@pytest.mark.parametrize("H", [16, 48, 256, 1024, 1056, 2048, 4096])
+def test_s8_plan_every_batch_and_width(H):
+    """Every B in 1..32: a layout at every width up to 4096 (the widest
+    tower width the port trains, with margin), its shared memory region by
+    region, n8 query tiles covering B, the k-tail inside the last stage, and
+    the widest width it lays out at B (s8_max_h) just past H's."""
+    for B in range(1, 33):
+        plan, want = T.s8_plan(B, H), _expected_s8(B, H)
+        assert plan is not None and want is not None, B
+        for key, value in want.items():
+            assert plan[key] == value, (B, key)
+        assert plan["smem"] <= LIMIT and plan["blocks_per_sm"] >= 1
+        assert 2 <= plan["stages"] <= 8 and 0 <= plan["k_tail"] < 128
+        assert plan["nt"] * 8 >= B > plan["nt"] * 8 - 8
+        widest = T.s8_max_h(B)
+        assert widest >= 4096 and widest % 16 == 0
+        assert T.s8_plan(B, widest) is not None and T.s8_plan(B, widest + 16) is None
+        assert _expected_s8(B, widest + 16) is None
+    assert T.s8_plan(16, H + 8) is None  # not a multiple of 16
+    assert T.s8_plan(33, H) is None and T.s8_plan(0, H) is None
+
+
 def test_scan_plan_at_the_served_shape():
     """H=256, B=16: the layouts the main path launches."""
     seg = T.scan_plan(16, 256, torch.bfloat16)
@@ -92,8 +138,9 @@ def test_scan_plan_at_the_served_shape():
 def test_scan_wrappers_refuse_before_any_launch(monkeypatch):
     """What the kernels do not take raises a ValueError before a build or a
     launch: too many query rows, rows short of 16 bytes' multiple, a corpus
-    not in 128-row segments, k beyond 128, and layouts beyond a block's
-    shared memory."""
+    not in 128-row segments, k beyond 128, an s8 segment width the kernel
+    does not take, and layouts beyond a block's shared memory (the s8 one
+    naming its widest H)."""
     def no_build(name):
         raise AssertionError(f"built {name}")
 
@@ -103,8 +150,11 @@ def test_scan_wrappers_refuse_before_any_launch(monkeypatch):
     def z(*shape, dtype=torch.bfloat16):
         return torch.empty(shape, dtype=dtype, **meta)
 
+    def s8(B, H, npad=256, seg=128):
+        return lambda: T.segmax_s8(z(B, H, dtype=torch.int8), z(npad, H, dtype=torch.int8), seg)
+
     before = (T.segmax.launches, T.segmax_int8.launches, T.topk_stream.launches,
-              T.topk_stream_int8.launches)
+              T.topk_stream_int8.launches, T.segmax_s8.launches)
     cases = [
         (lambda: T.segmax(z(33, 64), z(256, 64), 256), "query rows"),
         (lambda: T.segmax(z(4, 12), z(256, 12), 256), "16-byte"),
@@ -121,16 +171,25 @@ def test_scan_wrappers_refuse_before_any_launch(monkeypatch):
         (lambda: T.topk_stream(z(4, 64), z(200, 64), 10, 200), "Npad"),
         (lambda: T.topk_stream_int8(z(33, 64), z(256, 64, dtype=torch.int8),
                                     z(256, dtype=torch.float32), 10, 256), "query rows"),
+        (s8(33, 64), "query rows"),
+        (s8(4, 40), "multiple of 16"),
+        (s8(4, 64, npad=256, seg=16), "seg in"),
+        (s8(4, 64, npad=192, seg=64), "Npad"),
+        (s8(32, T.s8_max_h(32) + 16), f"shared memory.*up to {T.s8_max_h(32)}"),
+        (s8(8, T.s8_max_h(8) + 128), f"up to {T.s8_max_h(8)} at B=8"),
     ]
     for call, match in cases:
         with pytest.raises(ValueError, match=match):
             call()
     after = (T.segmax.launches, T.segmax_int8.launches, T.topk_stream.launches,
-             T.topk_stream_int8.launches)
+             T.topk_stream_int8.launches, T.segmax_s8.launches)
     assert after == before
     # a shape the kernels take gets past its plan, to the device check
     with pytest.raises(ValueError, match="cpu or cuda"):
         T.segmax(z(16, 256), z(1024, 256), 1000)
+    for B, H in ((16, 256), (32, 1056), (32, 4096)):
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            s8(B, H)()
 
 
 @pytest.mark.parametrize("B", [1, 7, 8, 16, 32])

@@ -171,6 +171,52 @@ def test_s8_two_phase_equals_jax_bitwise(N, n_valid, seg):
     _assert_bitwise(fused, port)
 
 
+def _wide_s8_index(kind):
+    """H=1056 (past the 1040 where 127 * 127 * H reaches 2^24). "random":
+    unit rows. "rounding": rows of 1.0 but column 1, which is r / 127 for r
+    in 0..127, and queries of 1.0 but column 1, +-1 / 127: the integer
+    scores are 127 * 127 * 1055 +- r, past 2^24, where f32 keeps even
+    integers only, so neighbouring r round to one value (ties to even) and
+    the top k must break those ties toward the lower id."""
+    rng = np.random.default_rng(22)
+    if kind == "random":
+        q, d = _data(21, B=4, N=2048, H=1056)
+    else:
+        d = np.ones((2048, 1056), np.float32)
+        d[:, 1] = rng.integers(0, 128, 2048) / np.float32(127.0)
+        q = np.ones((2, 1056), np.float32)
+        q[:, 1] = np.array([1.0, -1.0], np.float32) / np.float32(127.0)
+    values, scales = quantize_segments(d)
+    return q, values, scales
+
+
+@pytest.mark.parametrize("phase2", ["rescore", "gather"])
+@pytest.mark.parametrize("kind", ["random", "rounding"])
+def test_s8_search_past_1040_columns_equals_jax_bitwise(kind, phase2):
+    """At H=1056 the port's s8 search equals JAX's fused_topk_segmax_s8
+    (interpret mode) and topk_segmented_s8 in every bit: both keep exact
+    integer sums and convert them once to f32, so scores past 2^24 round
+    alike, and the ties that rounding makes go to the lower id."""
+    q, values, scales = _wide_s8_index(kind)
+    if kind == "rounding":
+        q_i8, _ = quantize_query_rows(torch.from_numpy(q))
+        maxima, _ = segmax_s8(q_i8, torch.from_numpy(values))
+        assert maxima.max().item() > 2 ** 24
+    kw = dict(k=20, tile_n=1024, phase2=phase2)
+    port = _np(*fused_topk_segmax_s8(*_t(q, values, scales), **kw))
+    _assert_bitwise(port, jt.fused_topk_segmax_s8(
+        jnp.asarray(q), jnp.asarray(values), jnp.asarray(scales), interpret=True, **kw))
+    _assert_bitwise(port, jt.topk_segmented_s8(
+        jnp.asarray(q), jnp.asarray(values), jnp.asarray(scales), k=20))
+    _assert_bitwise(_np(*topk_segmented_s8(*_t(q, values, scales), k=20)), port)
+    if kind == "rounding":  # ties of equal value are in ascending id order
+        vals, ids = port
+        for v_row, i_row in zip(vals, ids):
+            for a in range(19):
+                assert v_row[a] > v_row[a + 1] or i_row[a] < i_row[a + 1]
+        assert any((v_row[:-1] == v_row[1:]).any() for v_row in vals)
+
+
 def test_s8_all_negative_scores_with_padding():
     """All real scores negative + zero padding rows: the unmasked phase-1
     maxima promote the padding segment, and the extra candidate segment

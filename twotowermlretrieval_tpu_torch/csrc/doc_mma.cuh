@@ -1,7 +1,8 @@
 // Tensor-core scoring of 128-row tiles of the corpus against up to 32
 // queries, fed through a ring of cp.async stages. Shared by the bf16 and
 // per-row int8 scans of segmax.cu and topk_stream.cu (the f32 scans keep
-// doc_tile.cuh's CUDA-core sums: TF32 would round their operands).
+// doc_tile.cuh's CUDA-core sums: TF32 would round their operands) and by
+// the s8 x s8 scan of segmax_s8.cu (below, "The s8 x s8 path").
 //
 // A block of 128 threads (4 warps) scores one tile of ROWS = 128 doc rows
 // at a time; warp w owns rows 32w .. 32w + 31 as two m16 tiles of
@@ -50,6 +51,18 @@ template <typename T> struct Steps;
 template <> struct Steps<__nv_bfloat16> { static constexpr int K = 4; };
 template <> struct Steps<int8_t> { static constexpr int K = 8; };
 
+// The s8 x s8 path (segmax_s8.cu): int8 rows times int8 queries on
+// mma.sync.m16n8k32 with int32 accumulators, exact in any order. Its
+// fragments hold the same bytes as the bf16 path's (a register is 4 bytes
+// of a row or of a query column, a step 32 bytes of k), so a stage carries
+// 4 k32 steps, a 16-byte chunk two of them, the lanes read the same
+// swizzled chunks, and the k permutation is the bf16 one counted in bytes.
+// S8 tags its doc rows (one byte a column); Acc is each path's accumulator.
+struct S8 { int8_t v; };
+template <> struct Steps<S8> { static constexpr int K = 4; };  // k32 steps
+template <typename T> struct Acc { using type = float; };
+template <> struct Acc<S8> { using type = int; };
+
 __host__ __device__ constexpr int chunks_of(int row_bytes) {
   return (row_bytes + CHUNK - 1) / CHUNK;
 }
@@ -69,11 +82,16 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem_dst, const void* gme
                "r"(src_bytes));
 }
 
-// cp.async.wait_group with a count known only at run time (stages - 2)
+// cp.async.wait_group with a count known only at run time (stages - 2;
+// the s8 scan's deeper rings up to 8 stages)
 __device__ __forceinline__ void wait_stages(int pending) {
   switch (pending) {
     case 0: recur_chain::cp_async_wait<0>(); break;
     case 1: recur_chain::cp_async_wait<1>(); break;
+    case 3: recur_chain::cp_async_wait<3>(); break;
+    case 4: recur_chain::cp_async_wait<4>(); break;
+    case 5: recur_chain::cp_async_wait<5>(); break;
+    case 6: recur_chain::cp_async_wait<6>(); break;
     default: recur_chain::cp_async_wait<2>(); break;
   }
 }
@@ -130,6 +148,40 @@ __device__ __forceinline__ void load_query_frags(const __nv_bfloat16* __restrict
     const int col = kc * COLS + slot_col<T>(m, lane & 3);
     qf[i] = make_uint2(pack_bf16(q, n, col, B, H), pack_bf16(q, n, col + 2, B, H));
   }
+}
+
+// The s8 query fragments of q [B, H] int8 into qf: for lane (g, t) of
+// k32 step m of stage kc and n tile j, the 4 bytes of query row j * 8 + g
+// at the columns of the doc's a0 (b0) and a2 (b1) words, slot_col<bf16>
+// counted in bytes (zeros past B rows and H columns; H is a multiple of 16,
+// so a word is wholly in or out). Every thread calls it; the caller's first
+// barrier orders it before any read.
+__device__ __forceinline__ void load_query_frags_s8(const int8_t* __restrict__ q, int B, int H,
+                                                    int nchunks, int nt, uint2* qf) {
+  constexpr int KS = Steps<S8>::K;
+  const int total = nchunks * KS * nt * 32;
+  for (int i = threadIdx.x; i < total; i += THREADS) {
+    const int lane = i & 31, j = (i >> 5) % nt, step = (i >> 5) / nt;
+    const int kc = step / KS, m = step % KS;
+    const int n = j * 8 + (lane >> 2);
+    const int col = kc * CHUNK + 2 * slot_col<__nv_bfloat16>(m, lane & 3);
+    const int8_t* row = q + (size_t)n * H;
+    const uint32_t w0 = (n < B && col < H) ? *reinterpret_cast<const uint32_t*>(row + col) : 0u;
+    const uint32_t w1 =
+        (n < B && col + 4 < H) ? *reinterpret_cast<const uint32_t*>(row + col + 4) : 0u;
+    qf[i] = make_uint2(w0, w1);
+  }
+}
+
+// d += a . b, one m16n8k32 tile: s8 operands, s32 accumulation (exact:
+// the sums stay far below 2^31)
+__device__ __forceinline__ void mma_s8(int* d, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // Four int8 values (one 32-bit word, lowest column first) as two bf16
@@ -196,6 +248,45 @@ __device__ __forceinline__ void score_stage(const unsigned char* buf, const uint
   }
 }
 
+// The s8 x s8 stage: acc[st][j][e] += the warp's two m16 tiles (st) times
+// n tile j, int32 sums. As the bf16 path: lane (g, t) reads 16-byte chunk
+// t + 4i of rows g and g + 8, whose words 2p and 2p + 1 are a0 / a1 and a2
+// / a3 of k32 step 2i + p; chunk group i = 1 is skipped where `steps`
+// (live_steps<S8>) leaves it all tail.
+template <typename T, int NT>
+__device__ __forceinline__ void score_stage(const unsigned char* buf, const uint2* qf_stage,
+                                            int steps, int (&acc)[2][NT][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (i * 2 >= steps) break;
+    uint4 lo[2], hi[2];
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      const int r = warp * 32 + st * 16 + g;
+      const int c = swz(r, t + 4 * i);
+      lo[st] = *reinterpret_cast<const uint4*>(buf + r * CHUNK + c * 16);
+      hi[st] = *reinterpret_cast<const uint4*>(buf + (r + 8) * CHUNK + c * 16);
+    }
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int m = i * 2 + p;
+      uint2 b[NT];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) b[j] = qf_stage[(m * NT + j) * 32 + lane];
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {
+        const uint32_t* L = reinterpret_cast<const uint32_t*>(&lo[st]);
+        const uint32_t* Hh = reinterpret_cast<const uint32_t*>(&hi[st]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          mma_s8(acc[st][j], L[2 * p], Hh[2 * p], L[2 * p + 1], Hh[2 * p + 1], b[j].x, b[j].y);
+      }
+    }
+  }
+}
+
 // The doc row and query column of accumulator element e of acc[st][j] for
 // this thread, relative to the tile's first row.
 __device__ __forceinline__ int acc_row(int st, int e) {
@@ -216,13 +307,20 @@ __device__ __forceinline__ int live_steps(int kc, int row_bytes) {
   return (chunks > 4 ? 2 : 1) * PER;
 }
 
+// k32 steps of stage kc of an s8 row: 2 a chunk group, as bf16's k16 steps
+template <>
+__device__ __forceinline__ int live_steps<S8>(int kc, int row_bytes) {
+  return live_steps<__nv_bfloat16>(kc, row_bytes);
+}
+
 // Scores the block's `tiles` tiles of 128 rows (the i-th from row
 // row0_of(i)) against the query fragments qf, streaming each through a ring
-// of `stages` (2-4) buffers of STAGE_BYTES: the copies of the next stages
+// of `stages` (2-4; the s8 scan's 2-8) buffers of STAGE_BYTES: the copies of the next stages
 // (across tile boundaries) are in flight while the current one is
 // multiplied, one barrier a stage. After a tile's last stage it calls
-// done(row0, acc) with the tile's f32 scores (acc_row / acc_col place
-// them). Every thread of the block calls it; done may hold barriers.
+// done(row0, acc) with the tile's scores (f32, int32 on the s8 path;
+// acc_row / acc_col place them). Every thread of the block calls it; done
+// may hold barriers.
 template <typename T, int NT, typename RowOf, typename Done>
 __device__ __forceinline__ void scan_tiles(const T* __restrict__ docs, int H, int stages,
                                            long long tiles, RowOf row0_of, unsigned char* ring,
@@ -239,7 +337,7 @@ __device__ __forceinline__ void scan_tiles(const T* __restrict__ docs, int H, in
     recur_chain::cp_async_commit();  // an empty group past the end keeps the count
   };
   for (int p = 0; p < stages - 1; ++p) issue(p);
-  float acc[2][NT][4];
+  typename Acc<T>::type acc[2][NT][4];
   for (long long it = 0; it < items; ++it) {
     wait_stages(stages - 2);  // this thread's copies of item it have landed
     __syncthreads();          // everyone's have, and item it - 1's buffer is free
@@ -251,7 +349,7 @@ __device__ __forceinline__ void scan_tiles(const T* __restrict__ docs, int H, in
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[st][j][e] = 0.0f;
+          for (int e = 0; e < 4; ++e) acc[st][j][e] = 0;
     }
     score_stage<T, NT>(ring + (it % stages) * STAGE_BYTES, qf + (size_t)kc * KS * NT * 32,
                        live_steps<T>(kc, row_bytes), acc);

@@ -1,7 +1,7 @@
-// Staging and scoring one 128-row tile of the corpus against a few queries.
-// The staging (stage_chunk) is shared by every scan (segmax.cu,
-// segmax_s8.cu, topk_stream.cu); the f32-sum scoring (score_tile) by the
-// float-sum scans (segmax.cu, topk_stream.cu).
+// Staging and scoring one 128-row tile of the corpus against a few queries,
+// for the f32 scans of segmax.cu and topk_stream.cu (stage_chunk, then the
+// f32-sum scoring score_tile); the bf16, int8 and s8 scans stage through
+// doc_mma.cuh's cp.async ring instead.
 //
 // A block of 128 threads owns a tile of 128 doc rows; thread i owns row i
 // and keeps its BQ sums in registers. The queries sit in shared memory as

@@ -16,7 +16,7 @@ raises) and a launch count:
 - :func:`segmax_s8` (``csrc/segmax_s8.cu``): phase 1 of int8 serving
   (:func:`fused_topk_segmax_s8`) over a corpus quantized per segment
   (:func:`quantize_segments`) with per-row int8 queries: exact integer
-  scores, integer segment maxima, no padding mask.
+  scores on s8 tensor-core tiles, integer segment maxima, no padding mask.
 - :func:`topk_stream` / :func:`topk_stream_int8` (``csrc/topk_stream.cu``):
   the running top-k behind :func:`fused_topk` / :func:`fused_topk_int8`.
 
@@ -27,10 +27,15 @@ beat that), so re-scoring (or gathering) those candidates and taking their
 top-k is exact. :func:`topk_segmented` and its int8 siblings are the
 two-phase path over a full [B, N] product, as the JAX package has them.
 
-The int8 paths keep the JAX package's arithmetic to the bit: integer
-scores are exact (int32 products on the CPU; f32 products with TF32 off on
-a card, exact while |sum| <= 127 * 127 * H < 2^24, i.e. H <= 1040), and
-the dequantizing multiplies run in the same order.
+The int8 paths keep the JAX package's arithmetic to the bit at every
+width: integer scores are exact (int32 sums in the s8 kernel and in the
+CPU's products; on a card the plain route sums exact f32 products of
+pieces of at most 1040 columns in int32, see :func:`_int_matmul`) and
+convert to f32 once, rounding to nearest even as XLA's convert does; the
+dequantizing multiplies run in the same order. The s8 kernel takes every
+H that is a multiple of 16 up to the widest layout that fits a block
+(:func:`s8_plan`: 6144 at 32 query rows) and refuses wider ones before
+any launch.
 
 Ties: ``lax.top_k`` breaks ties toward the lower index and ``torch.topk``
 on CUDA promises no order. Every selection here is a stable descending
@@ -43,6 +48,7 @@ bitwise tie at the k boundary resolves as there.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -56,7 +62,7 @@ _SEG = 128  # covering-segment width; int8 index files of the JAX package use it
 # memory); larger batches run one corpus pass per block of queries.
 _MAX_KERNEL_B = 32
 _S8_SEGS = (32, 64, 128)  # segment widths the s8 kernel takes
-_S8_MAX_H = 1040  # 127 * 127 * H < 2^24: integer scores exact in f32
+_F32_EXACT_H = 1040  # 127 * 127 * H < 2^24: an f32 product of int8 values is exact
 _TOPK_MAX_K = 128  # keys the running top-k kernel keeps per query row
 # The running top-k first finds the top k of every 32nd tile (a pilot) and
 # starts every block's threshold at its k-th key: a block then admits few
@@ -78,8 +84,8 @@ _SIGNATURES = {
         "segmax_launch": [_INT, _INT, _INT, _INT, _LL, _LL, _INT, _INT] + [_VOIDP] * 6,
     },
     "segmax_s8": {
-        # device, B, H, npad, seg, q, docs, segmax, cache, stream
-        "segmax_s8_launch": [_INT, _INT, _INT, _LL, _INT] + [_VOIDP] * 5,
+        # device, B, H, npad, seg, stages, blocks, q, docs, segmax, cache, stream
+        "segmax_s8_launch": [_INT, _INT, _INT, _LL, _INT, _INT, _INT] + [_VOIDP] * 5,
     },
     "topk_stream": {
         # device, storage, B, H, k, npad, n_valid, tiles_per_chunk, stages,
@@ -224,18 +230,28 @@ def quantize_query_rows(queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tens
 
 def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact integer product of int8 operands ``a`` [..., M, H] and ``b``
-    [..., H, N], as f32. ``torch.matmul`` of int8 CPU tensors wraps in
-    int8, so the CPU takes int32; a card takes f32 with TF32 off (as
-    ``resolve_device`` leaves it), exact while every partial sum stays below
-    2^24 (H <= 1040)."""
+    [..., H, N], converted once to f32 (round to nearest even, as XLA's
+    convert of the JAX package's int32 sums). ``torch.matmul`` of int8 CPU
+    tensors wraps in int8, so the CPU takes int32. A card takes f32
+    products with TF32 off (as ``resolve_device`` leaves it), exact while
+    every partial sum stays below 2^24, i.e. over at most 1040 columns:
+    wider operands are cut into pieces of at most 1040 columns, each piece's
+    exact f32 product is summed in int32 (|sum| <= 127 * 127 * H < 2^31),
+    and the sum is converted once."""
     if a.device.type == "cpu":
         return torch.matmul(a.int(), b.int()).float()
-    if a.shape[-1] > _S8_MAX_H:
-        raise ValueError(f"exact int8 scores on a card need H <= {_S8_MAX_H}, got {a.shape[-1]}")
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("exact int8 scores need TF32 off: torch.backends.cuda.matmul."
                            "allow_tf32 is set (resolve_device('cuda') clears it)")
-    return torch.matmul(a.float(), b.float())
+    H = a.shape[-1]
+    if H <= _F32_EXACT_H:
+        return torch.matmul(a.float(), b.float())
+    total = None
+    for k0 in range(0, H, _F32_EXACT_H):
+        part = torch.matmul(a[..., k0 : k0 + _F32_EXACT_H].float(),
+                            b[..., k0 : k0 + _F32_EXACT_H, :].float()).int()
+        total = part if total is None else total.add_(part)
+    return total.float()
 
 
 # ---------------------------------------------------------------------------
@@ -313,6 +329,58 @@ def _per_sm(smem: int, k: int | None = None) -> int:
     return min(most, _SM_SMEM // (smem + _BLOCK_RESERVED))
 
 
+# segmax_s8.cu: the deepest ring it takes, and its launch bounds' minimum
+# blocks a SM
+_S8_MAX_STAGES, _S8_BLOCKS_PER_SM = 8, 4
+
+
+@functools.lru_cache(maxsize=None)
+def s8_plan(B: int, H: int):
+    """The layout ``csrc/segmax_s8.cu`` takes for B int8 query rows of width
+    H, or None where none fits a block's shared memory (H past
+    :func:`s8_max_h`) or the kernel does not take the shape.
+
+    mma.sync m16n8k32 s8 tiles of 128 rows (doc_mma.cuh's s8 path) fed by a
+    ring of ``stages`` cp.async buffers of 128 bytes a row (2 to 8), the
+    query fragments of ``nt`` n8 tiles over ``chunks`` stages of columns in
+    shared memory, ``k_tail`` zero columns past H in the last stage. The
+    scan is bound by the bytes of the corpus. Each block waits at a barrier
+    a stage, so a SM keeps its bytes moving through those waits by holding
+    several blocks: the plan takes the most blocks a SM holds (at most what
+    the kernel's launch bounds keep registers for), then the deepest ring
+    that many blocks leave room for. ``in_flight``: the bytes a SM then
+    keeps in flight (the stages each block has issued beyond the one it
+    multiplies, times its blocks). ``smem``: bytes a block, region by
+    region as ``s8_smem`` in the .cu lays them out. Cached (every int8
+    search asks for it): the dict is shared, read it only."""
+    if not 1 <= B <= _MAX_KERNEL_B or H < 16 or H % 16:
+        return None
+    nt = -(-B // 8)
+    chunks = -(-H // 128)
+    qfrag = chunks * 4 * nt * 32 * 8  # a uint2 a (k32 step, n tile, lane)
+    red = 2 * 4 * nt * 8 * 4  # the 4 warps' integer column maxima of two tiles
+    best = None
+    for stages in range(2, _S8_MAX_STAGES + 1):
+        smem = stages * _STAGE_BYTES + qfrag + red
+        if smem > _SMEM_LIMIT:
+            break
+        per_sm = min(_S8_BLOCKS_PER_SM, _SM_SMEM // (smem + _BLOCK_RESERVED))
+        in_flight = per_sm * (stages - 1) * _STAGE_BYTES
+        if best is None or per_sm >= best["blocks_per_sm"]:
+            best = {"route": "mma-s8", "nt": nt, "chunks": chunks, "stages": stages,
+                    "k_tail": chunks * 128 - H, "smem": smem, "blocks_per_sm": per_sm,
+                    "in_flight": in_flight}
+    return best
+
+
+def s8_max_h(B: int) -> int:
+    """The widest H (a multiple of 16) that :func:`s8_plan` lays out at B
+    query rows: two stages beside the query fragments."""
+    nt = -(-B // 8)
+    chunks = (_SMEM_LIMIT - 2 * _STAGE_BYTES - 2 * 4 * nt * 8 * 4) // (4 * nt * 32 * 8)
+    return chunks * 128
+
+
 def _plan_or_raise(fn: str, B: int, H: int, storage: torch.dtype, k: int | None = None):
     plan = scan_plan(B, H, storage, k)
     if plan is None:
@@ -327,6 +395,7 @@ def _blocks(plan: dict, sms: int, work: int) -> int:
     return max(1, min(work, plan["blocks_per_sm"] * sms))
 
 
+@functools.lru_cache(maxsize=None)
 def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -460,9 +529,10 @@ def segmax_s8(
     [Npad, B] f32 scores or None). No padding mask.
 
     ``q_i8`` [B, H] and ``doc_values`` [Npad, H] int8. CUDA tensors launch
-    the kernel (1..32 query rows, H a multiple of 16 up to 1040, Npad a
-    multiple of 128, seg 32/64/128); CPU tensors run
-    :func:`segmax_s8_reference`."""
+    the kernel (1..32 query rows, H a multiple of 16 up to
+    :func:`s8_max_h` (6144 at 32 rows), Npad a multiple of 128, seg
+    32/64/128); CPU tensors run :func:`segmax_s8_reference`. Both give
+    the same bits at every width."""
     B, H = q_i8.shape
     npad = doc_values.shape[0]
     if doc_values.shape[1] != H or npad % seg:
@@ -476,15 +546,20 @@ def segmax_s8(
         return segmax_s8_reference(q_i8, doc_values, seg, with_cache)
     if not 1 <= B <= _MAX_KERNEL_B:
         raise ValueError(f"the kernel takes 1..{_MAX_KERNEL_B} query rows, got {B}")
-    if H % 16 or H > _S8_MAX_H:
-        raise ValueError(f"the kernel takes H a multiple of 16 up to {_S8_MAX_H}, got {H}")
+    if H < 16 or H % 16:
+        raise ValueError(f"the kernel takes H a multiple of 16, got {H}")
     if seg not in _S8_SEGS or npad % _SEG:
         raise ValueError(f"the kernel takes seg in {_S8_SEGS} and Npad % {_SEG} == 0")
+    plan = s8_plan(B, H)
+    if plan is None:
+        raise ValueError(f"segmax_s8: no layout of the kernel fits a block's shared memory at "
+                         f"B={B} H={H}: it takes H up to {s8_max_h(B)} at B={B}")
     q_i8 = q_i8.contiguous()
     _require_cuda("segmax_s8", q_i8, doc_values)
     out = torch.empty((npad // seg, B), dtype=torch.float32, device=q_i8.device)
     cache = torch.empty((npad, B), dtype=torch.float32, device=q_i8.device) if with_cache else None
-    _launch("segmax_s8", "segmax_s8_launch", q_i8.device, B, H, npad, seg, q_i8.data_ptr(),
+    _launch("segmax_s8", "segmax_s8_launch", q_i8.device, B, H, npad, seg, plan["stages"],
+            _blocks(plan, _sms(q_i8.device), npad // _SEG), q_i8.data_ptr(),
             doc_values.data_ptr(), out.data_ptr(), _ptr(cache))
     segmax_s8.launches += 1
     return out, cache
@@ -495,7 +570,9 @@ segmax_s8.launches = 0
 
 def segmax_s8_reference(q_i8, doc_values, seg: int = _SEG, with_cache: bool = False):
     """Plain PyTorch version of :func:`segmax_s8`: the exact integer
-    scores as f32, segment max, no mask."""
+    scores converted to f32 (:func:`_int_matmul`), segment max, no mask.
+    The kernel takes the max on the integers and converts after; rounding
+    is monotone, so both give the same bits."""
     scores = _int_matmul(doc_values, q_i8.T)  # [Npad, B]
     return scores.reshape(-1, seg, scores.shape[1]).amax(dim=1), (scores if with_cache else None)
 
