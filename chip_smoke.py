@@ -72,6 +72,30 @@ port's int8 engine on the CPU and, bit for bit, against the two-phase path
 on the card; then a boot with ``--autotune-retrieval`` persists its choice
 and a second boot applies it without timing.
 
+Step 3 also holds the repair of the bf16 and f32 scans' widths: 32 query
+rows at the widest tower widths the port trains (bf16 H=3360: ``segmax``,
+``segmax_int8`` and the running top-k at k=50 over bf16 and per-row int8
+rows; f32 H=3200: ``segmax`` and the running top-k) over 262,144 rows, each run in the fewest blocks of
+query rows whose layout fits (``ops/topk.py`` query_blocks), against its
+plain version, three queries bit for bit their own one-row launches, and
+past the widest width one row takes a ``ValueError`` before any launch;
+and one engine search of 32 coalesced queries over an index of width 3360
+(a one-layer RNN tower, 73,728 rows). The IVF index (``ops/ivf.py``, plain
+PyTorch on the card) is built over 1,048,576 x 256 clustered rows in bf16
+and int8 (timed), its nprobe picked at recall@50 >= 0.99 (int8: its
+quantization's floor), searched at B=1 and 16 beside the exact
+``fused_topk_segmax`` and, fully probed, held against the exact top-50.
+After step 5, ``ttr-torch-build-index --target-recall 0.99`` indexes the
+export and ``ttr-torch-serve --index-type ivf`` answers the five requests
+(their dense top-50 against the exact engine's). Last, after every timed
+phase (a profiling session slows every later launch from the host), three
+traces through the entry points' switches: GRU training with
+``profile_dir`` (a window that fills), config 5 over 24 steps (the run ends
+inside its window: the finalize path) and the server with ``profile_dir``
+and ``profile_requests`` 5; each trace must hold its kernels' device
+events, and the ten device operations with the most time, the device's
+busy share of the window and the three longest idle gaps are printed.
+
 The second-last line is the ``kernels`` record (JSON), the last line
 ``{"ok": true, "device": {...}}``. A failed check exits non-zero and prints
 neither, as does a run without a CUDA device or outside a checkout of the
@@ -206,6 +230,30 @@ TF_STEP_GRAD_REL = 2e-2
 # kernels and the plain versions differ in a sum's last bit, which can flip
 # a bf16 rounding that six blocks carry on into the query embedding.
 TF_SERVE_ATOL = EMBED_ATOL
+
+# 32 query rows at the widest tower widths the port trains (RNN towers:
+# H=3360 at bf16, 3200 at f32), past what one launch of the bf16/f32 scans
+# lays out: the wrappers run the fewest blocks of query rows that fit.
+WIDE_BF16_H, WIDE_F32_H = 3360, 3200
+WIDE_SCAN_ROWS = 262_144  # beside the served 73,728 rows of the wide engine search
+# f32 sums of about 3360 products of unit-norm rows in two orders differ by
+# at most about 2 * 3360 * 2^-24 < 4.5e-4 (SEGMAX_ATOL's argument at H=3360;
+# per-row int8 rows times bf16 queries alike).
+WIDE_ATOL = 4.5e-4
+# The IVF index over the scan phase's row count and width: a clustered
+# corpus (IVF_CENTRES Gaussian centres, noise of IVF_NOISE a column, unit
+# rows), built on the card with the default clusters and IVF_ITERS Lloyd
+# iterations, probed at the smallest nprobe reaching IVF_RECALL recall@50.
+IVF_CENTRES, IVF_NOISE, IVF_ITERS, IVF_RECALL = 1024, 0.05, 10, 0.99
+# int8 blocks can miss IVF_RECALL against the f32 oracle even at a full
+# probe (their per-slot quantization moves near-ties across the 50th
+# place; this corpus's full probe recalls about 0.984). Their floor:
+IVF_INT8_RECALL = 0.98
+# The traced config 5 run: the window opens at the first group of
+# STEPS_PER_DISPATCH (8) steps that starts at step 10 or later, so one of
+# 16 steps (two groups) never opens it; 24 steps open it at step 16 and end
+# inside it (the finalize path).
+TF_TRACED_TRAIN = 24 * TF_ROWS
 
 
 class SmokeFailure(Exception):
@@ -1583,7 +1631,8 @@ def _drive_server(requests, path=None, num_docs=None, **serve_kwargs):
         server.server_close()
         thread.join(timeout=30)
     launches = read_counts()
-    what = f"serve {Path(path).name} {serve_kwargs.get('storage_dtype', 'bfloat16')}"
+    what = (f"serve {Path(path).name} {serve_kwargs.get('storage_dtype', 'bfloat16')}"
+            f" {serve_kwargs.get('index_type', 'exact')}")
     log(f"{what}: startup {startup_s:.1f} s, request ms "
         f"{[round(ms, 3) for _, _, ms in responses]}, launches {launches}")
     check(status == 200 and json.loads(health) == {"status": "ok", "num_docs": num_docs},
@@ -2102,13 +2151,421 @@ def phase_transformer(dev, corpus) -> dict:
                      SearchEngine(res["artifacts_dir"], device="cpu"), TF_SERVE_ATOL)
     log(f"serve transformer: {len(requests)} /search responses match the CPU engine")
     return {"steps": steps, "launches": launches, "train_s": train_s, "first_step": first,
-            "routes": routes, "serve": served,
+            "routes": routes, "serve": served, "setup": (cfg, tok, table, datasets),
             "steady_steps_per_sec": res["steady_steps_per_sec"],
             "steady_examples_per_sec": res["steady_examples_per_sec"],
             "loss_first_last": [res["step_losses"][0], res["step_losses"][-1]]}
 
 
 # ---------------------------------------------------------------------------
+# 32 queries at the widest tower widths; the IVF index
+# ---------------------------------------------------------------------------
+
+
+def _int8_rows_on_card(docs):
+    """Per-row int8 quantization (``quantize_rows``'s arithmetic) on the card."""
+    scales = docs.abs().amax(dim=1) / 127.0
+    scales = torch.where(scales == 0, torch.ones_like(scales), scales)
+    values = torch.clamp(torch.round(docs / scales[:, None]), -127, 127).to(torch.int8)
+    return values, scales
+
+
+def _wide_case(name, kernel, plain, lib, nbytes_ops, storage, k, width, q, full, n_valid):
+    """One scan at B=32 and a width past one launch's layout: its launch
+    count (the blocks of ``query_blocks``), the result against the plain
+    version (WIDE_ATOL; the top-k's ids against the full f32 scores), three
+    queries each bit for bit their own one-row launch, and its times."""
+    from twotowermlretrieval_tpu_torch.ops import topk
+
+    counter = getattr(topk, name)
+    blocks = topk.query_blocks(name, 32, width, storage, k)
+    kind = {torch.bfloat16: "bf16", torch.float32: "f32", torch.int8: "int8 per row"}[storage]
+    shape = (f"B=32 Npad={WIDE_SCAN_ROWS} n_valid={n_valid} H={width} {kind}"
+             + ("" if k is None else f" k={k}"))
+    before = counter.launches
+    got = kernel(q)
+    launches = counter.launches - before
+    check(launches == len(blocks) > 1,
+          f"{name} {shape}: {launches} launches, expected the {len(blocks)} blocks "
+          f"{[b for _, b, _ in blocks]}")
+    got = (got,) if torch.is_tensor(got) else got
+    want = plain()
+    want = (want,) if torch.is_tensor(want) else want
+    err = (got[0] - want[0]).abs().max().item()
+    check(err <= WIDE_ATOL, f"{name} {shape}: off its plain version by {err}")
+    if k is not None:
+        err = max(err, _check_topk(f"{name} {shape}", got[0], got[1], full, n_valid, WIDE_ATOL))
+    for i in (0, 17, 31):
+        one = kernel(q[i : i + 1])
+        one = (one,) if torch.is_tensor(one) else one
+        same = (torch.equal(got[0][:, i], one[0][:, 0]) if k is None else
+                torch.equal(got[0][i], one[0][0]) and torch.equal(got[1][i], one[1][0]))
+        check(same, f"{name} {shape}: query {i} differs from its own one-row launch")
+    rec = {"shape": shape, "max_abs_err": err, "blocks": [b for _, b, _ in blocks],
+           "launches": launches, "ms": time_ms(lambda: kernel(q)),
+           "plain_ms": time_ms(plain, reps=5, warmup=1), "library_ms": time_ms(lib)}
+    rec["bound_ms"], rec["bound_by"] = bound(*nbytes_ops)
+    log(f"{name} {shape}: {launches} launches (blocks {rec['blocks']}), |diff| {err:.3g}, queries "
+        f"0, 17, 31 bit for bit their one-row launches; kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+    return rec
+
+
+def phase_wide_batches(dev) -> dict:
+    """segmax, segmax_int8 and the running top-k (k=50, over bf16 and
+    per-row int8 rows) at B=32 over WIDE_SCAN_ROWS rows at bf16
+    H=WIDE_BF16_H (all four) and f32 H=WIDE_F32_H (segmax, top-k): each in
+    the fewest blocks of query rows
+    whose layout fits, against its plain version; past the widest width
+    one query row takes, each wrapper raises before any launch. Returns
+    records by kernel name."""
+    from twotowermlretrieval_tpu_torch.ops import topk
+
+    recs = {"segmax": [], "segmax_int8": [], "topk_stream": [], "topk_stream_int8": []}
+    n_valid = WIDE_SCAN_ROWS - 1001
+    with torch.inference_mode():
+        for storage, width in ((torch.bfloat16, WIDE_BF16_H), (torch.float32, WIDE_F32_H)):
+            gen = torch.Generator(device=dev).manual_seed(width)
+            docs32 = _unit_rows_f32(gen, WIDE_SCAN_ROWS, dev, width=width)
+            q = _unit_rows_f32(gen, 32, dev, width=width).to(storage)
+            docs = docs32.to(storage)
+            full = torch.matmul(q.float(), docs.float().T)
+            nb = docs.element_size()
+            recs["segmax"].append(_wide_case(
+                "segmax", lambda qq: topk.segmax(qq, docs, n_valid)[0],
+                lambda: topk.segmax_reference(q, docs, n_valid)[0],
+                lambda: torch.matmul(docs, q.T).view(-1, 128, 32).amax(dim=1),
+                topk.segmax_bound(32, width, WIDE_SCAN_ROWS, nb), storage, None, width, q, None,
+                n_valid))
+            recs["topk_stream"].append(_wide_case(
+                "topk_stream", lambda qq: topk.topk_stream(qq, docs, FANOUT, n_valid),
+                lambda: topk.topk_stream_reference(q, docs, FANOUT, n_valid),
+                lambda: torch.topk(torch.matmul(q, docs[:n_valid].T).float(), FANOUT),
+                topk.topk_stream_bound(32, width, WIDE_SCAN_ROWS, FANOUT, nb), storage, FANOUT,
+                width, q, full, n_valid))
+            if storage == torch.bfloat16:
+                values, scales = _int8_rows_on_card(docs32)
+                recs["segmax_int8"].append(_wide_case(
+                    "segmax_int8", lambda qq: topk.segmax_int8(qq, values, scales, n_valid),
+                    lambda: topk.segmax_int8_reference(q, values, scales, n_valid),
+                    lambda: (torch.matmul(values.to(torch.bfloat16), q.T).float()
+                             * scales[:, None]).view(-1, 128, 32).amax(dim=1),
+                    topk.segmax_int8_bound(32, width, WIDE_SCAN_ROWS), torch.int8, None, width,
+                    q, None, n_valid))
+                full8 = torch.matmul(q.float(), values.float().T) * scales
+                recs["topk_stream_int8"].append(_wide_case(
+                    "topk_stream_int8",
+                    lambda qq: topk.topk_stream_int8(qq, values, scales, FANOUT, n_valid),
+                    lambda: topk.topk_stream_reference(q, values, FANOUT, n_valid, scales),
+                    lambda: torch.topk(torch.matmul(q, values[:n_valid].to(torch.bfloat16).T)
+                                       .float() * scales[:n_valid], FANOUT),
+                    topk.topk_stream_bound(32, width, WIDE_SCAN_ROWS, FANOUT, 1, scaled=True),
+                    torch.int8, FANOUT, width, q, full8, n_valid))
+                del values, scales, full8
+            del docs32, docs, full
+            torch.cuda.empty_cache()
+
+        # past the widest width a launch takes: a ValueError naming it, no launch
+        counts = read_counts()
+        for name, storage, k in (("segmax", torch.bfloat16, None), ("segmax", torch.float32, None),
+                                 ("segmax_int8", torch.int8, None),
+                                 ("topk_stream", torch.bfloat16, FANOUT)):
+            widest = topk.scan_max_h(storage, k)
+            width = widest + 16 // torch.tensor([], dtype=storage).element_size()
+            d = torch.zeros((256, width), dtype=storage, device=dev)
+            qq = torch.zeros((1, width), dtype=torch.bfloat16 if storage == torch.int8 else storage,
+                             device=dev)
+            call = {"segmax": lambda: topk.segmax(qq, d, 256),
+                    "segmax_int8": lambda: topk.segmax_int8(
+                        qq, d, torch.ones(256, device=dev), 256),
+                    "topk_stream": lambda: topk.topk_stream(qq, d, FANOUT, 256)}[name]
+            try:
+                call()
+                raised = ""
+            except ValueError as e:
+                raised = str(e)
+            check(f"up to {widest}" in raised,
+                  f"{name} at H={width} {storage}: expected a ValueError naming {widest}, got "
+                  f"{raised!r}")
+        check(read_counts() == counts, "a wrapper launched past its widest width")
+        log("wide batches: past the widest width one query row takes (bf16 "
+            f"{topk.scan_max_h(torch.bfloat16)}, f32 {topk.scan_max_h(torch.float32)}, "
+            f"int8 rows {topk.scan_max_h(torch.int8)}, bf16 top-{FANOUT} "
+            f"{topk.scan_max_h(torch.bfloat16, FANOUT)}) each wrapper raises before any launch")
+    return recs
+
+
+def phase_wide_engine(dev, corpus) -> dict:
+    """One engine search of 32 coalesced queries (the batch the engine's
+    micro-batcher hands ``_dense_batch``) over an index of width
+    WIDE_BF16_H: an artifact directory with a one-layer RNN tower of
+    HIDDEN_DIM 3360 (random weights from a seed) and PASSAGES random unit
+    embeddings beside phase 4's documents, served in bf16. The batch
+    launches rnn_fwd once and segmax once a block of query rows; its
+    results against the two-phase path on the same embeddings (one [B, N]
+    product in torch)."""
+    from twotowermlretrieval_tpu_torch.config import Config
+    from twotowermlretrieval_tpu_torch.models.two_tower import (
+        TwoTowerSpec,
+        encode_query,
+        init_two_tower,
+    )
+    from twotowermlretrieval_tpu_torch.ops.topk import query_blocks, topk_segmented
+    from twotowermlretrieval_tpu_torch.serve.engine import SearchEngine
+    from twotowermlretrieval_tpu_torch.utils.pytree import save_params_npz
+
+    word_to_idx, table, triplets = corpus
+    art = ARTIFACTS / "wide_rnn"
+    art.mkdir(parents=True, exist_ok=True)
+    cfg = Config(vocab_size=VOCAB, embed_dim=EMBED, hidden_dim=WIDE_BF16_H, rnn_type="RNN",
+                 num_layers=1, bidirectional=False)
+    cfg.to_json(art / "config.json")
+    save_params_npz(art / "model.npz", init_two_tower(
+        torch.Generator().manual_seed(3), TwoTowerSpec.from_config(cfg),
+        pretrained_embeddings=table))
+    for name in ("word_to_idx.pkl", "documents.pkl", "tfidf_artifacts.pkl"):
+        shutil.copy(ARTIFACTS / name, art / name)
+    rng = np.random.default_rng(61)
+    emb = rng.standard_normal((PASSAGES, WIDE_BF16_H), dtype=np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    np.save(art / "document_embeddings.npy", emb)
+    del emb
+    engine = SearchEngine(art, device=dev)
+    requests = [{"query": t[0], "fanout": FANOUT} for t in triplets[:32]]
+    zero_counts()
+    out = engine._dense_batch(requests)
+    launches = read_counts()
+    blocks = len(query_blocks("segmax", 32, WIDE_BF16_H, torch.bfloat16))
+    check(launches["rnn_fwd"] == 1 and launches["segmax"] == blocks == 2
+          and sum(launches.values()) == 3,
+          f"the wide engine batch launched {launches}, expected 1 rnn_fwd and {blocks} segmax")
+    enc = engine.inferencer.encoder
+    tokens, lengths = engine.inferencer.tokenizer.encode_batch(
+        [r["query"] for r in requests], enc.max_query_len)
+    with torch.inference_mode():
+        q = encode_query(enc.params, *enc.tensors(tokens, lengths), engine.inferencer.spec)
+        docs = engine.index._docs
+        qb = q.to(torch.bfloat16)
+        full = torch.matmul(qb.float(), docs.float().T)
+        r_vals, r_ids = topk_segmented(qb, docs, k=FANOUT, n_valid=PASSAGES)
+        vals = torch.from_numpy(np.stack([v for v, _ in out])).to(dev)
+        ids = torch.from_numpy(np.stack([i for _, i in out])).to(dev)
+        err = max((vals - r_vals).abs().max().item(),
+                  _check_topk("wide engine search", vals, ids, full, PASSAGES, WIDE_ATOL))
+    check(err <= WIDE_ATOL, f"wide engine search: off the two-phase path by {err}")
+    log(f"wide engine search: 32 coalesced queries over {docs.shape[0]} x {docs.shape[1]} bf16 "
+        f"rows, launches {launches}, |diff| against the two-phase path {err:.3g}")
+    engine.close()
+    del engine, docs, full
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": err}
+
+
+def _clustered_corpus(seed: int, n: int, width: int) -> np.ndarray:
+    """[n, width] f32 unit rows: IVF_CENTRES Gaussian centres (unit) plus
+    IVF_NOISE Gaussian noise a column, made in chunks from ``seed``."""
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((IVF_CENTRES, width), dtype=np.float32)
+    centres /= np.linalg.norm(centres, axis=1, keepdims=True)
+    out = np.empty((n, width), np.float32)
+    for i in range(0, n, 1 << 18):
+        m = min(1 << 18, n - i)
+        x = centres[rng.integers(0, IVF_CENTRES, m)]
+        x += IVF_NOISE * rng.standard_normal((m, width), dtype=np.float32)
+        out[i : i + m] = x / np.linalg.norm(x, axis=1, keepdims=True)
+    return out
+
+
+def phase_ivf(dev) -> dict:
+    """The IVF index over SCAN_ROWS x H clustered rows, on the card:
+    ``build_ivf`` in bf16 and int8 (default clusters, IVF_ITERS
+    iterations, timed), ``pick_nprobe`` at recall@50 >= IVF_RECALL,
+    ``ivf_search`` at B=1 and 16 at that nprobe timed with CUDA events
+    beside the exact ``fused_topk_segmax`` over the same rows, and the full
+    probe of the bf16 index equal to the exact top-50 (the ids' scores
+    within SEGMAX_ATOL of the full f32 product's and in its top 50)."""
+    from twotowermlretrieval_tpu_torch.ops import ivf
+    from twotowermlretrieval_tpu_torch.ops.topk import fused_topk_segmax
+
+    t0 = time.perf_counter()
+    docs = _clustered_corpus(70, SCAN_ROWS, H)
+    log(f"ivf corpus: {SCAN_ROWS} x {H} rows around {IVF_CENTRES} centres, "
+        f"{time.perf_counter() - t0:.1f} s on the host")
+    docs_bf16 = torch.from_numpy(docs).to(dev).to(torch.bfloat16)
+    rng = np.random.default_rng(71)
+    q_np = docs[rng.choice(SCAN_ROWS, 16, replace=False)] \
+        + IVF_NOISE * rng.standard_normal((16, H), dtype=np.float32)
+    q_np /= np.linalg.norm(q_np, axis=1, keepdims=True)
+    q = torch.from_numpy(q_np).to(dev)
+    rec = {"rows": SCAN_ROWS, "H": H}
+    for storage in ("bfloat16", "int8"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = ivf.build_ivf(docs, iters=IVF_ITERS, storage_dtype=storage, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(index.docs.is_cuda and index.centroids.is_cuda, "the IVF index left the card")
+        ids = index.ids
+        real = ids[ids >= 0]
+        check(real.numel() == SCAN_ROWS and torch.unique(real).numel() == SCAN_ROWS,
+              f"ivf {storage}: the blocks do not partition the corpus")
+        t0 = time.perf_counter()
+        nprobe, recall = ivf.pick_nprobe(index, docs, k=FANOUT, target_recall=IVF_RECALL)
+        pick_s = time.perf_counter() - t0
+        C = int(index.centroids.shape[0])
+        floor = IVF_RECALL if storage == "bfloat16" else IVF_INT8_RECALL
+        check(recall >= floor,
+              f"ivf {storage}: recall@{FANOUT} {recall} at nprobe {nprobe} of {C} is below "
+              f"{floor}")
+        r = {"build_s": build_s, "blocks": C, "cap": index.cap, "nprobe": nprobe,
+             "recall": recall, "pick_nprobe_s": pick_s}
+        for B in (1, 16):
+            r[f"search_ms_b{B}"] = time_ms(lambda: ivf.ivf_search(q[:B], index, FANOUT, nprobe))
+            r[f"exact_ms_b{B}"] = time_ms(
+                lambda: fused_topk_segmax(q[:B].to(torch.bfloat16), docs_bf16, k=FANOUT))
+        log(f"ivf {storage}: build {build_s:.2f} s ({C} blocks x cap {index.cap}, "
+            f"{IVF_ITERS} iterations), pick_nprobe {pick_s:.2f} s -> nprobe {nprobe} at "
+            f"recall@{FANOUT} {recall:.4f}; ivf_search {r['search_ms_b1']:.4f} ms (B=1), "
+            f"{r['search_ms_b16']:.4f} ms (B=16) against exact fused_topk_segmax "
+            f"{r['exact_ms_b1']:.4f} / {r['exact_ms_b16']:.4f} ms")
+        if storage == "bfloat16":
+            vals, got = ivf.ivf_search(q, index, FANOUT, C)
+            check(got.is_cuda, "ivf_search left the card")
+            full = torch.matmul(q.to(torch.bfloat16).float(), docs_bf16.float().T)
+            err = _check_topk("ivf full probe (bf16)", vals, got, full, SCAN_ROWS, SEGMAX_ATOL)
+            r["full_probe_err"] = err
+            log(f"ivf bf16 full probe (nprobe {C}): the exact top-{FANOUT}, |diff| {err:.3g}")
+            del full
+        rec[storage] = r
+        del index
+        torch.cuda.empty_cache()
+    del docs_bf16
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_serve_ivf(dev, triplets) -> dict:
+    """``ttr-torch-build-index --target-recall 0.99`` on phase 4's export,
+    then ``ttr-torch-serve --index-type ivf`` (the persisted nprobe) answers
+    the five requests: no segmax launch (the IVF route bypasses the scan
+    kernels), 2 rnn_fwd per dense search, and each dense top-50 against the
+    exact engine's on the same query embedding."""
+    from twotowermlretrieval_tpu_torch.serve.engine import SearchEngine
+    from twotowermlretrieval_tpu_torch.serve.index import load_retrieval_tuning
+    from twotowermlretrieval_tpu_torch.tools.build_index import main as build_index
+
+    t0 = time.perf_counter()
+    build_index([str(ARTIFACTS), "--target-recall", str(IVF_RECALL)])
+    build_s = time.perf_counter() - t0
+    tuning = load_retrieval_tuning(ARTIFACTS)
+    nprobe, measured = tuning["nprobe"], tuning["nprobe_recall"]["measured"]
+    check(tuning["nprobe_signature"]["backend"] == "cuda", "the index was not built on the card")
+    requests = _requests(triplets)
+    rec, engine = _drive_server(requests, index_type="ivf")
+    launches = rec["launches"]
+    dense = sum(1 for r in requests if r["alpha"] != 0.0)
+    check(engine.index.ivf is not None and engine.index.nprobe == nprobe
+          and engine.index.ivf.docs.is_cuda, "the IVF engine did not take the persisted nprobe")
+    check(launches["rnn_fwd"] == 2 * dense and sum(launches.values()) == 2 * dense,
+          f"ivf serving launched {launches}, expected 2 rnn_fwd per dense search only")
+    for code, body, _ in rec.pop("responses"):
+        check(code == 200 and all(math.isfinite(r["score"]) for r in body["results"]),
+              "ivf /search: a failed response")
+    exact = SearchEngine(ARTIFACTS, device=dev)
+    recalls = []
+    for r in requests:
+        if r["alpha"] == 0.0:
+            continue
+        e = exact.inferencer.get_query_embedding(r["query"])
+        _, got = engine.index.search(e, FANOUT)
+        _, want = exact.index.search(e, FANOUT)
+        recalls.append(len(set(got[0].tolist()) & set(want[0].tolist())) / FANOUT)
+    recall = float(np.mean(recalls))
+    log(f"serve ivf: ttr-torch-build-index {build_s:.1f} s -> nprobe {nprobe} (measured "
+        f"recall@{FANOUT} {measured:.4f}); request ms {[round(ms, 3) for ms in rec['request_ms']]}; "
+        f"dense top-{FANOUT} against the exact engine: recall {recalls}, mean {recall:.4f}")
+    check(recall >= measured, f"ivf serving recall {recall} below the measured {measured}")
+    exact.close()
+    engine.close()
+    rec.update({"nprobe": nprobe, "measured_recall": measured, "serving_recall": recalls,
+                "build_index_s": build_s})
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# traced runs (after every timed phase: a profiling session slows every
+# later host launch)
+# ---------------------------------------------------------------------------
+
+
+def _read_trace(log_dir, kernels, what: str) -> dict:
+    """The one trace under ``log_dir``: it exists and holds device events
+    of each of ``kernels`` (name substrings); logs the ten device
+    operations with the most total time, the device's busy share of the
+    window and the three longest idle gaps, and returns them."""
+    from twotowermlretrieval_tpu_torch.utils.profiling import trace_files, trace_summary
+
+    files = trace_files(log_dir)
+    check(len(files) == 1, f"{what}: {len(files)} trace files under {log_dir}")
+    s = trace_summary(files[0])
+    check(s["device_events"] > 0, f"{what}: the trace holds no device events")
+    names = [o["name"] for o in trace_summary(files[0], top=10_000)["device_ops"]]
+    for k in kernels:
+        check(any(k in n for n in names), f"{what}: no {k} device event in the trace")
+    log(f"{what} trace ({files[0].stat().st_size} bytes): span {s['span_ms']:.3f} ms, device "
+        f"busy {s['busy_ms']:.3f} ms = {100 * s['busy_share']:.2f}% of it, "
+        f"{s['device_events']} device events; longest idle gaps "
+        f"{[round(g, 3) for g in s['idle_gaps_ms']]} ms")
+    for o in s["device_ops"]:
+        log(f"{what}   {o['total_ms']:9.3f} ms {o['calls']:6d} x  {o['name'][:110]}")
+    return s
+
+
+def phase_traced(dev, setup, tf_setup, triplets) -> dict:
+    """Three traces through the entry points' own switches, each read back:
+    the GRU training driver with ``profile_dir`` (the window opens at the
+    first group starting at step 10 or later and fills before the run
+    ends: rnn_fwd and rnn_bwd device events), config 5 for one epoch of
+    TF_TRACED_TRAIN triplets (the window opens and the run ends inside it:
+    the finalize path; attention_fwd and attention_bwd), and the server
+    with ``profile_dir`` and ``profile_requests`` 5 over phase 4's export
+    (the window fills with the five requests: rnn_fwd and segmax)."""
+    from twotowermlretrieval_tpu_torch.train.loop import train_on_datasets
+
+    traces = TRAIN_DIR / "traces"
+    out = {}
+    cfg, tok, table, datasets = setup
+    zero_counts()
+    res = train_on_datasets(cfg, tok, table, datasets, output_root=traces / "gru_out",
+                            profile_dir=traces / "gru", device=dev)
+    window = res.get("profile_window", {})
+    check(window.get("filled") is True, f"traced GRU training: the window {window} did not fill")
+    out["gru_train"] = _read_trace(traces / "gru", ("rnn_fwd", "rnn_bwd"),
+                                   f"traced GRU training (steps {window.get('start_step')}-"
+                                   f"{window.get('stop_step')})")
+    out["gru_train"].update(launches=read_counts(), window=window)
+    cfg, tok, table, datasets = tf_setup
+    a = TRAIN_TRIPLETS + VAL_TRIPLETS + TEST_TRIPLETS  # the transformer phase's cut
+    datasets = {**datasets, "train": triplets[a : a + TF_TRACED_TRAIN]}
+    zero_counts()
+    res = train_on_datasets(cfg, tok, table, datasets, output_root=traces / "tf_out",
+                            profile_dir=traces / "tf", device=dev)
+    window = res.get("profile_window", {})
+    check(res["steps"] == TF_TRACED_TRAIN // TF_ROWS and window.get("filled") is False,
+          f"traced config 5: {res['steps']} steps, window {window}: expected the run to end "
+          f"inside it")
+    out["tf_train"] = _read_trace(traces / "tf", ("attention_fwd", "attention_bwd"),
+                                  f"traced config 5 (steps {window.get('start_step')}-"
+                                  f"{window.get('stop_step')} and the epoch's evaluation)")
+    out["tf_train"].update(launches=read_counts(), window=window)
+    requests = _requests(triplets)
+    rec, _ = _drive_server(requests, profile_dir=str(traces / "serve"), profile_requests=5)
+    out["serve"] = _read_trace(traces / "serve", ("rnn_fwd", "segmax"),
+                               "traced /search (5 requests)")
+    out["serve"]["launches"] = rec["launches"]
+    out["serve"]["request_ms"] = rec["request_ms"]
+    return out
 
 
 def main() -> int:
@@ -2144,15 +2601,21 @@ def main() -> int:
         kern["rnn_bwd"] += wide_bwd
         wide_s8 = phase_wide_s8(dev)
         kern["segmax_s8"].append(wide_s8)
+        for name, recs in phase_wide_batches(dev).items():
+            kern[name].extend(recs)
+        ivf = phase_ivf(dev)
         kern.update(phase_attention_kernels(dev))
         export, corpus = phase_export(dev)
         served = phase_serve(dev, corpus[2])
         served_int8 = phase_serve_int8(dev, corpus[2])
+        wide_engine = phase_wide_engine(dev, corpus)
+        served_ivf = phase_serve_ivf(dev, corpus[2])
         trained, setup = phase_train(dev, corpus)
         odd = phase_odd_width(dev, setup)
-        del setup
         tf = phase_transformer(dev, corpus)
         phase_device_times()
+        traced = phase_traced(dev, setup, tf.pop("setup"), corpus[2])
+        del setup
     finally:
         shutil.rmtree(ARTIFACTS, ignore_errors=True)
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
@@ -2167,7 +2630,11 @@ def main() -> int:
     phases = {"export": export["launches"], "serve": served["launches"],
               "serve_int8": served_int8["launches"], "train": trained["launches"],
               "odd_width_serve": odd["launches"], "wide_int8_index": wide_s8["launches"],
-              "transformer_train": tf["launches"], "transformer_serve": tf["serve"]["launches"]}
+              "transformer_train": tf["launches"], "transformer_serve": tf["serve"]["launches"],
+              "wide_engine_search": wide_engine["launches"], "serve_ivf": served_ivf["launches"],
+              "traced_train": traced["gru_train"]["launches"],
+              "traced_transformer_train": traced["tf_train"]["launches"],
+              "traced_serve": traced["serve"]["launches"]}
     main_launches = {"rnn_fwd": served["launches"]["rnn_fwd"],
                      "segmax": served["launches"]["segmax"],
                      "rnn_bwd": trained["launches"]["rnn_bwd"],
@@ -2208,6 +2675,15 @@ def main() -> int:
         f"steady {tf['steady_steps_per_sec']:.3f} steps/s, "
         f"{tf['steady_examples_per_sec']:.1f} examples/s; request ms "
         f"{[round(ms, 3) for ms in tf['serve']['request_ms']]} ({card})")
+    log(f"ivf over {ivf['rows']} x {ivf['H']}: {json.dumps(ivf)} ({card})")
+    log(f"serve ivf: nprobe {served_ivf['nprobe']}, measured recall "
+        f"{served_ivf['measured_recall']:.4f}, request ms "
+        f"{[round(ms, 3) for ms in served_ivf['request_ms']]} ({card})")
+    for what, t in traced.items():
+        log(f"traced {what}: device busy {100 * t['busy_share']:.2f}% of "
+            f"{t['span_ms']:.1f} ms; top device operations "
+            + ", ".join(f"{o['name'][:40]} {o['total_ms']:.3f} ms" for o in t["device_ops"][:3])
+            + f" ({card})")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -655,6 +655,46 @@ def test_fused_topk_on_the_card_matches_the_oracle(dev, phase2):
     torch.testing.assert_close(picked, vals, rtol=0, atol=3e-5)
 
 
+# 32 query rows at the widest tower widths (bf16 H=3360, f32 H=3200): the
+# wrappers run the fewest blocks whose layout fits, and each query's result
+# is bit for bit its own one-row launch.
+@pytest.mark.parametrize("dtype,H", [(torch.bfloat16, 3360), (torch.float32, 3200),
+                                     (torch.int8, 3360)])
+def test_wide_batches_run_in_blocks_bitwise(dev, dtype, H):
+    gen = torch.Generator(device=dev).manual_seed(H)
+    docs = _unit_rows(gen, 4096, H, dev)
+    q = _unit_rows(gen, 32, H, dev)
+    n_valid = 4000
+    if dtype == torch.int8:
+        values, scales = _int8_rows(docs)
+        qb = q.bfloat16()
+        scan = lambda qq: segmax_int8(qq, values, scales, n_valid)  # noqa: E731
+        plain = segmax_int8_reference(qb, values, scales, n_valid)
+        top = lambda qq: topk_stream_int8(qq, values, scales, 50, n_valid)  # noqa: E731
+        top_plain = topk_stream_reference(qb, values, 50, n_valid, scales)
+        counter, top_counter = segmax_int8, topk_stream_int8
+    else:
+        docs, qb = docs.to(dtype), q.to(dtype)
+        scan = lambda qq: segmax(qq, docs, n_valid)[0]  # noqa: E731
+        plain = segmax_reference(qb, docs, n_valid)[0]
+        top = lambda qq: topk_stream(qq, docs, 50, n_valid)  # noqa: E731
+        top_plain = topk_stream_reference(qb, docs, 50, n_valid)
+        counter, top_counter = segmax, topk_stream
+    before = (counter.launches, top_counter.launches)
+    seg = scan(qb)
+    vals, ids = top(qb)
+    storage = torch.int8 if dtype == torch.int8 else dtype
+    assert counter.launches - before[0] == len(_topk.query_blocks("segmax", 32, H, storage)) > 1
+    assert (top_counter.launches - before[1]
+            == len(_topk.query_blocks("topk_stream", 32, H, storage, 50)) > 1)
+    torch.testing.assert_close(seg, plain, rtol=0, atol=3e-5 * H / 256)
+    torch.testing.assert_close(vals, top_plain[0], rtol=0, atol=3e-5 * H / 256)
+    for i in (0, 13, 31):
+        assert torch.equal(seg[:, i], scan(qb[i : i + 1])[:, 0])
+        one_vals, one_ids = top(qb[i : i + 1])
+        assert torch.equal(vals[i], one_vals[0]) and torch.equal(ids[i], one_ids[0])
+
+
 def test_segmax_wrapper_rejects_what_the_kernel_does_not_take(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     docs = _unit_rows(gen, 256, 64, dev).to(torch.bfloat16)
@@ -939,14 +979,17 @@ def test_topk_stream_wrappers_reject_what_the_kernel_does_not_take(dev):
         topk_stream(q, docs[:200], 10, 200)  # rows not a multiple of 128
     with pytest.raises(ValueError):
         topk_stream(q.float(), docs, 10, 256)  # dtypes differ
-    wide = torch.zeros((256, 2048), dtype=torch.bfloat16, device=dev)
+    # past the widest width one query row takes at k=128, no layout fits
+    widest = _topk.scan_max_h(torch.bfloat16, 128)
+    wide = torch.zeros((256, widest + 8), dtype=torch.bfloat16, device=dev)
     before = topk_stream.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        topk_stream(wide[:32], wide, 128, 256)  # 32 query rows, k=128 at H=2048: no layout fits
+    with pytest.raises(ValueError, match=f"shared memory.*up to {widest}"):
+        topk_stream(wide[:1], wide, 128, 256)
     assert topk_stream.launches == before
-    half = wide[:, :1024].contiguous()
-    vals, ids = topk_stream(half[:32], half, 10, 256)  # H=1024 fits now
-    assert ids.tolist() == [list(range(10))] * 32
+    half = wide[:, :2048].contiguous()
+    vals, ids = topk_stream(half[:32], half, 128, 256)  # 32 rows, k=128 at H=2048: two launches
+    assert ids.tolist() == [list(range(128))] * 32
+    assert topk_stream.launches == before + 2
     values = torch.zeros((256, 64), dtype=torch.int8, device=dev)
     scales = torch.ones(256, device=dev)
     with pytest.raises(ValueError):
@@ -1126,3 +1169,40 @@ def test_transformer_tower_on_the_card_matches_the_cpu(dev, fused):
         res[where.type] = [out.detach().cpu()] + [g.cpu() for g in grads]
     for got, want in zip(res["cuda"], res["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the IVF index (plain PyTorch) on the card
+# ---------------------------------------------------------------------------
+
+
+def test_ivf_search_on_the_card_matches_the_cpu(dev):
+    """One index searched on the card and on the CPU: the same ids, scores
+    within 1e-5 relative (f32 sums of the same products in another order),
+    every result on the card; an index built on the card partitions the
+    corpus and, fully probed, returns the exact top-k."""
+    from twotowermlretrieval_tpu_torch.ops.ivf import build_ivf, ivf_search
+
+    rng = np.random.default_rng(5)
+    centres = rng.standard_normal((48, 64)).astype(np.float32)
+    docs = centres[rng.integers(0, 48, 20000)] + 0.3 * rng.standard_normal((20000, 64))
+    docs = (docs / np.linalg.norm(docs, axis=1, keepdims=True)).astype(np.float32)
+    q = torch.from_numpy(docs[:16] + 0.05).float()
+    for storage in ("float32", "bfloat16", "int8"):
+        cpu = build_ivf(docs, num_clusters=64, iters=4, storage_dtype=storage, device="cpu")
+        card = cpu.to(dev)
+        C = int(cpu.centroids.shape[0])
+        for nprobe in (1, 8, C):
+            c_vals, c_ids = ivf_search(q, cpu, 20, nprobe)
+            g_vals, g_ids = ivf_search(q.to(dev), card, 20, nprobe)
+            assert g_vals.is_cuda and g_ids.is_cuda
+            assert torch.equal(g_ids.cpu(), c_ids), (storage, nprobe)
+            torch.testing.assert_close(g_vals.cpu(), c_vals, rtol=1e-5, atol=0)
+    built = build_ivf(docs, num_clusters=64, iters=4, storage_dtype="float32", device=dev)
+    assert built.docs.is_cuda
+    real = built.ids[built.ids >= 0]
+    assert real.numel() == 20000 and torch.unique(real).numel() == 20000
+    vals, ids = ivf_search(q.to(dev), built, 20, int(built.centroids.shape[0]))
+    e_vals, e_ids = topk_oracle(q.to(dev), torch.from_numpy(docs).to(dev), 20)
+    assert torch.equal(ids.long(), e_ids)
+    torch.testing.assert_close(vals, e_vals, rtol=1e-5, atol=0)

@@ -102,9 +102,19 @@ def test_unported_options_point_at_roadmap():
     from twotowermlretrieval_tpu_torch.serve.index import RetrievalIndex
 
     docs = np.zeros((4, 8), np.float32)
-    for kw in ({"index_type": "ivf"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RetrievalIndex(docs, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RetrievalIndex(docs, device="cpu", mesh=object())
+    # the IVF index is ported: it builds, and searches its own rows
+    rng = np.random.default_rng(0)
+    docs = rng.standard_normal((300, 8)).astype(np.float32)
+    docs /= np.linalg.norm(docs, axis=1, keepdims=True)
+    index = RetrievalIndex(docs, device="cpu", index_type="ivf", num_clusters=8, nprobe=8)
+    assert index.ivf is not None and not index.kernel_on()
+    assert index.tuning_signature()["index_type"] == "ivf"
+    _, ids = index.search(docs[:5], k=3)
+    assert ids[:, 0].tolist() == [0, 1, 2, 3, 4]
+    with pytest.raises(ValueError, match="index_type"):
+        RetrievalIndex(docs, device="cpu", index_type="hnsw")
 
 
 def test_tfidf_copy_is_bit_identical():

@@ -153,21 +153,33 @@ def test_scan_wrappers_refuse_before_any_launch(monkeypatch):
     def s8(B, H, npad=256, seg=128):
         return lambda: T.segmax_s8(z(B, H, dtype=torch.int8), z(npad, H, dtype=torch.int8), seg)
 
+    # the widest widths take one query row a launch; 8 bytes of columns past
+    # them take none
+    wide_bf16 = T.scan_max_h(torch.bfloat16) + 8
+    wide_f32 = T.scan_max_h(torch.float32) + 4
+    wide_i8 = T.scan_max_h(torch.int8) + 16
+    wide_k = T.scan_max_h(torch.bfloat16, 128) + 8
+    wide_k8 = T.scan_max_h(torch.int8, 50) + 16
     before = (T.segmax.launches, T.segmax_int8.launches, T.topk_stream.launches,
               T.topk_stream_int8.launches, T.segmax_s8.launches)
     cases = [
         (lambda: T.segmax(z(33, 64), z(256, 64), 256), "query rows"),
         (lambda: T.segmax(z(4, 12), z(256, 12), 256), "16-byte"),
         (lambda: T.segmax(z(4, 64), z(200, 64), 200), "Npad"),
-        (lambda: T.segmax(z(32, 4096), z(256, 4096), 256), "shared memory"),
-        (lambda: T.segmax(z(32, 2048, dtype=torch.float32),
-                          z(256, 2048, dtype=torch.float32), 256), "shared memory"),
+        (lambda: T.segmax(z(32, wide_bf16), z(256, wide_bf16), 256),
+         f"shared memory.*up to {wide_bf16 - 8}"),
+        (lambda: T.segmax(z(1, wide_f32, dtype=torch.float32),
+                          z(256, wide_f32, dtype=torch.float32), 256), "shared memory"),
+        (lambda: T.segmax_int8(z(8, wide_i8), z(256, wide_i8, dtype=torch.int8),
+                               z(256, dtype=torch.float32), 256), "shared memory"),
         (lambda: T.segmax_int8(z(4, 40), z(256, 40, dtype=torch.int8),
                                z(256, dtype=torch.float32), 256), "16-byte"),
         (lambda: T.segmax_int8(z(33, 64), z(256, 64, dtype=torch.int8),
                                z(256, dtype=torch.float32), 256), "query rows"),
         (lambda: T.topk_stream(z(4, 64), z(256, 64), 129, 256), "k in"),
-        (lambda: T.topk_stream(z(32, 2048), z(256, 2048), 128, 256), "shared memory"),
+        (lambda: T.topk_stream(z(32, wide_k), z(256, wide_k), 128, 256), "shared memory"),
+        (lambda: T.topk_stream_int8(z(4, wide_k8), z(256, wide_k8, dtype=torch.int8),
+                                    z(256, dtype=torch.float32), 50, 256), "topk_stream_int8"),
         (lambda: T.topk_stream(z(4, 64), z(200, 64), 10, 200), "Npad"),
         (lambda: T.topk_stream_int8(z(33, 64), z(256, 64, dtype=torch.int8),
                                     z(256, dtype=torch.float32), 10, 256), "query rows"),
@@ -184,9 +196,28 @@ def test_scan_wrappers_refuse_before_any_launch(monkeypatch):
     after = (T.segmax.launches, T.segmax_int8.launches, T.topk_stream.launches,
              T.topk_stream_int8.launches, T.segmax_s8.launches)
     assert after == before
-    # a shape the kernels take gets past its plan, to the device check
+    # a shape the kernels take gets past its plan, to the device check; so
+    # do 32 rows at the widest tower widths (in blocks) and one row at the
+    # widest width a launch takes
     with pytest.raises(ValueError, match="cpu or cuda"):
         T.segmax(z(16, 256), z(1024, 256), 1000)
+    for B, H, dt, k in ((32, 3360, torch.bfloat16, 50), (32, 3200, torch.float32, 50),
+                        (1, wide_bf16 - 8, torch.bfloat16, None),
+                        (1, wide_f32 - 4, torch.float32, None),
+                        (1, wide_k - 8, torch.bfloat16, 128)):
+        if k is None:
+            call = lambda: T.segmax(z(B, H, dtype=dt), z(256, H, dtype=dt), 256)  # noqa: E731
+        else:
+            call = lambda: T.topk_stream(z(B, H, dtype=dt), z(256, H, dtype=dt), k, 256)  # noqa: E731
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            call()
+    for dt in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            T.segmax(z(32, 3360 if dt == torch.bfloat16 else 3200, dtype=dt),
+                     z(256, 3360 if dt == torch.bfloat16 else 3200, dtype=dt), 256)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        T.segmax_int8(z(32, 3360), z(256, 3360, dtype=torch.int8),
+                      z(256, dtype=torch.float32), 256)
     for B, H in ((16, 256), (32, 1056), (32, 4096)):
         with pytest.raises(ValueError, match="cpu or cuda"):
             s8(B, H)()
@@ -208,3 +239,58 @@ def test_topk_stream_grid_covers_every_tile(B, tiles):
     pilot = -(-sample // g["pilot_per_chunk"])
     assert pilot <= most and (pilot - 1) * g["pilot_per_chunk"] < sample
     assert g["grid"] == max(chunks, pilot)
+
+
+_TOWER_WIDTHS = {torch.bfloat16: range(8, 3361, 8), torch.float32: range(4, 3201, 4),
+                 torch.int8: range(16, 3361, 16)}
+
+
+@pytest.mark.parametrize("storage", [torch.bfloat16, torch.int8, torch.float32],
+                         ids=["bf16", "int8", "f32"])
+def test_query_blocks_every_batch_at_every_tower_width(storage):
+    """Every B in 1..32 at every width a tower of the port emits (bf16 and
+    per-row int8 up to the RNN's 3360, f32 up to 3200), for segmax and the
+    running top-k at k 50 and 128: the blocks cover B in order, each block's
+    plan is the one scan_plan gives it, their count is the fewest the widest
+    block that fits allows (query_block: the largest B whose plan fits), their
+    sizes differ by at most one, and a batch whose plan fits keeps one launch."""
+    for H in _TOWER_WIDTHS[storage]:
+        for k in (None, 50, 128):
+            most = T.query_block(H, storage, k)
+            assert 1 <= most <= 32, (H, k)
+            assert T.scan_plan(most, H, storage, k) is not None
+            assert most == 32 or T.scan_plan(most + 1, H, storage, k) is None
+            for B in range(1, 33):
+                blocks = T.query_blocks("scan", B, H, storage, k)
+                assert [f for f, _, _ in blocks] == [sum(b for _, b, _ in blocks[:i])
+                                                     for i in range(len(blocks))]
+                sizes = [b for _, b, _ in blocks]
+                assert sum(sizes) == B and max(sizes) - min(sizes) <= 1, (H, k, B)
+                assert len(blocks) == -(-B // most), (H, k, B)
+                for _, b, plan in blocks:
+                    assert plan == T.scan_plan(b, H, storage, k)
+                if T.scan_plan(B, H, storage, k) is not None:
+                    assert len(blocks) == 1
+
+
+def test_query_blocks_at_the_widest_towers():
+    """32 queries at the RNN tower's widths run in two blocks of 16 (bf16
+    H=3360: segmax and the running top-k at k=50; f32 H=3200 segmax) or
+    four of 8 (the f32 running top-k, whose lists and 16 f32 query rows
+    would not fit beside each other), while the served width keeps one
+    launch; past scan_max_h not even one row fits."""
+    for H, dt, k, want in ((3360, torch.bfloat16, None, [16, 16]),
+                           (3360, torch.bfloat16, 50, [16, 16]),
+                           (3200, torch.float32, None, [16, 16]),
+                           (3200, torch.float32, 50, [8, 8, 8, 8])):
+        assert [b for _, b, _ in T.query_blocks("scan", 32, H, dt, k)] == want, (H, dt, k)
+    assert len(T.query_blocks("scan", 32, 256, torch.bfloat16, 50)) == 1
+    for dt in (torch.bfloat16, torch.float32, torch.int8):
+        for k in (None, 50, 128):
+            widest = T.scan_max_h(dt, k)
+            step = 16 // ELEM[dt]
+            assert T.scan_plan(1, widest, dt, k) is not None
+            assert T.scan_plan(1, widest + step, dt, k) is None
+            assert T.query_block(widest + step, dt, k) == 0
+            with pytest.raises(ValueError, match=f"up to {widest}"):
+                T.query_blocks("scan", 1, widest + step, dt, k)

@@ -378,8 +378,9 @@ def test_batcher_copy_matches_jax(synth_config):
     assert len(a) == len(b)
 
 
-def test_train_defaults_to_cuda_and_unported_options_raise(corpus):
+def test_train_defaults_to_cuda_and_unported_options_raise(corpus, tmp_path):
     from twotowermlretrieval_tpu_torch.train.loop import train
+    from twotowermlretrieval_tpu_torch.utils.profiling import trace_files
 
     _, cfg = corpus
     if not torch.cuda.is_available():
@@ -388,8 +389,11 @@ def test_train_defaults_to_cuda_and_unported_options_raise(corpus):
     for kw, item in (({"mesh_data": 2}, "item 10"), ({"mesh_model": 2}, "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             train(cfg.replace(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train(cfg, device="cpu", profile_dir="p")
+    # --profile_dir is ported: a run of 16 steps ends inside the window that
+    # opens at step 10, and the trace is finalized with the run
+    res = train(cfg.replace(epochs=2), output_root=tmp_path / "out", device="cpu",
+                profile_dir=tmp_path / "prof")
+    assert res["steps"] == 16 and len(trace_files(tmp_path / "prof")) == 1
     for tower in ("rnn", "transformer"):
         with pytest.raises(NotImplementedError, match="item 10"):
             train(cfg.replace(tower_type=tower, shard_embedding_table=True), device="cpu")

@@ -148,6 +148,11 @@ def _block_queries(fn, queries, *args, **kwargs):
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
+def _cat_columns(parts):
+    """Join per-block [.., b] results along the query axis (one block: as is)."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
 def _pad_docs(docs: torch.Tensor, tile_n: int, *extra: Tuple[torch.Tensor, float]):
     """Zero-pad rows to a multiple of ``tile_n`` (a no-op for the serving
     index, which pads once); ``extra`` pairs (per-row or per-segment
@@ -381,12 +386,48 @@ def s8_max_h(B: int) -> int:
     return chunks * 128
 
 
-def _plan_or_raise(fn: str, B: int, H: int, storage: torch.dtype, k: int | None = None):
+@functools.lru_cache(maxsize=None)
+def query_block(H: int, storage: torch.dtype, k: int | None = None) -> int:
+    """The most query rows (at most 32) one launch of ``csrc/segmax.cu``
+    (``k`` None) or of the running top-k takes at width H over a
+    ``storage`` corpus: the largest B whose :func:`scan_plan` fits a
+    block's shared memory; 0 where not even one row fits (H past
+    :func:`scan_max_h`). A plan's bytes grow with B, so every smaller
+    batch fits too."""
+    return next((b for b in range(_MAX_KERNEL_B, 0, -1) if scan_plan(b, H, storage, k)), 0)
+
+
+@functools.lru_cache(maxsize=None)
+def scan_max_h(storage: torch.dtype, k: int | None = None) -> int:
+    """The widest H that :func:`scan_plan` lays out for one query row (the
+    widest any batch takes, in blocks of :func:`query_block` rows)."""
+    step = 16 // {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[storage]
+    lo, hi = 0, 1 << 16  # scan_plan(1, lo) fits (or lo is 0); hi does not
+    while hi - lo > step:
+        mid = (lo + hi) // 2 // step * step
+        lo, hi = (mid, hi) if scan_plan(1, mid, storage, k) else (lo, mid)
+    return lo
+
+
+def query_blocks(fn: str, B: int, H: int, storage: torch.dtype, k: int | None = None):
+    """The launches of a scan of B query rows (1..32) at width H: a list of
+    (first row, rows, plan), the fewest blocks whose plan fits, of near
+    equal size (one block where B rows fit). Each result column depends on
+    its query alone, so the blocked result is bit for bit the one-pass
+    result. Raises a ``ValueError`` naming the widest H before any launch
+    where not even one row fits."""
     plan = scan_plan(B, H, storage, k)
-    if plan is None:
+    if plan is not None:
+        return [(0, B, plan)]
+    most = query_block(H, storage, k)
+    if not most:
         raise ValueError(f"{fn}: no layout of the kernel fits a block's shared memory at "
-                         f"B={B} H={H} {storage}" + ("" if k is None else f" k={k}"))
-    return plan
+                         f"B={B} H={H} {storage}" + ("" if k is None else f" k={k}")
+                         + f": it takes H up to {scan_max_h(storage, k)}")
+    n = -(-B // most)
+    sizes = [B // n + (i < B % n) for i in range(n)]
+    starts = [sum(sizes[:i]) for i in range(n)]
+    return [(s, b, scan_plan(b, H, storage, k)) for s, b in zip(starts, sizes)]
 
 
 def _blocks(plan: dict, sms: int, work: int) -> int:
@@ -426,8 +467,9 @@ def segmax(
     """Phase 1: ([S, B] segment maxima, [Npad, B] scores or None).
 
     ``q`` [B, H] and ``docs`` [Npad, H] share the storage dtype; Npad is a
-    multiple of 128. CUDA tensors launch the kernel (at most 32 query rows),
-    CPU tensors run :func:`segmax_reference`."""
+    multiple of 128. CUDA tensors launch the kernel (1..32 query rows, one
+    launch a block of :func:`query_blocks`), CPU tensors run
+    :func:`segmax_reference`."""
     B, H = q.shape
     npad = docs.shape[0]
     if docs.shape[1] != H or npad % _SEG:
@@ -444,18 +486,22 @@ def segmax(
         raise ValueError(f"the kernel takes 1..{_MAX_KERNEL_B} query rows, got {B}")
     if H % (8 if docs.dtype == torch.bfloat16 else 4):
         raise ValueError(f"the kernel needs 16-byte doc rows; H={H} with {docs.dtype}")
-    plan = _plan_or_raise("segmax", B, H, docs.dtype)
+    blocks = query_blocks("segmax", B, H, docs.dtype)
     q = q.contiguous()
     _require_cuda("segmax", q, docs)
-    out = torch.empty((npad // _SEG, B), dtype=torch.float32, device=docs.device)
-    cache = (
-        torch.empty((npad, B), dtype=torch.float32, device=docs.device) if with_cache else None
-    )
-    _launch("segmax", "segmax_launch", docs.device, _STORAGE[docs.dtype], B, H, npad,
-            int(n_valid), plan["stages"], _blocks(plan, _sms(docs.device), npad // _SEG),
-            q.data_ptr(), docs.data_ptr(), None, out.data_ptr(), _ptr(cache))
-    segmax.launches += 1
-    return out, cache
+    outs, caches = [], []
+    for first, b, plan in blocks:
+        qb = q[first : first + b]
+        out = torch.empty((npad // _SEG, b), dtype=torch.float32, device=docs.device)
+        cache = (torch.empty((npad, b), dtype=torch.float32, device=docs.device)
+                 if with_cache else None)
+        _launch("segmax", "segmax_launch", docs.device, _STORAGE[docs.dtype], b, H, npad,
+                int(n_valid), plan["stages"], _blocks(plan, _sms(docs.device), npad // _SEG),
+                qb.data_ptr(), docs.data_ptr(), None, out.data_ptr(), _ptr(cache))
+        segmax.launches += 1
+        outs.append(out)
+        caches.append(cache)
+    return _cat_columns(outs), (_cat_columns(caches) if with_cache else None)
 
 
 segmax.launches = 0  # kernel launches, counted where the kernel is launched
@@ -483,8 +529,9 @@ def segmax_int8(
     ``(q . v) * scale`` per 128-row segment, rows >= ``n_valid`` NEG_INF.
 
     ``q`` [B, H] bf16, ``doc_values`` [Npad, H] int8, ``doc_scales``
-    [Npad] f32. CUDA tensors launch the kernel (at most 32 query rows),
-    CPU tensors run :func:`segmax_int8_reference`."""
+    [Npad] f32. CUDA tensors launch the kernel (1..32 query rows, one
+    launch a block of :func:`query_blocks`), CPU tensors run
+    :func:`segmax_int8_reference`."""
     B, H = q.shape
     npad = doc_values.shape[0]
     if doc_values.shape[1] != H or npad % _SEG or doc_scales.shape != (npad,):
@@ -500,15 +547,20 @@ def segmax_int8(
         raise ValueError(f"the kernel takes 1..{_MAX_KERNEL_B} query rows, got {B}")
     if H % 16:
         raise ValueError(f"the kernel needs 16-byte doc rows; H={H} with int8")
-    plan = _plan_or_raise("segmax_int8", B, H, torch.int8)
+    blocks = query_blocks("segmax_int8", B, H, torch.int8)
     q = q.contiguous()
     _require_cuda("segmax_int8", q, doc_values, doc_scales)
-    out = torch.empty((npad // _SEG, B), dtype=torch.float32, device=q.device)
-    _launch("segmax", "segmax_launch", q.device, _STORAGE[torch.int8], B, H, npad, int(n_valid),
-            plan["stages"], _blocks(plan, _sms(q.device), npad // _SEG), q.data_ptr(),
-            doc_values.data_ptr(), doc_scales.data_ptr(), out.data_ptr(), None)
-    segmax_int8.launches += 1
-    return out
+    outs = []
+    for first, b, plan in blocks:
+        qb = q[first : first + b]
+        out = torch.empty((npad // _SEG, b), dtype=torch.float32, device=q.device)
+        _launch("segmax", "segmax_launch", q.device, _STORAGE[torch.int8], b, H, npad,
+                int(n_valid), plan["stages"], _blocks(plan, _sms(q.device), npad // _SEG),
+                qb.data_ptr(), doc_values.data_ptr(), doc_scales.data_ptr(), out.data_ptr(),
+                None)
+        segmax_int8.launches += 1
+        outs.append(out)
+    return _cat_columns(outs)
 
 
 segmax_int8.launches = 0
@@ -855,8 +907,10 @@ def topk_segmented_int8(queries, doc_values, doc_scales, k: int = 50, segment: i
 # ---------------------------------------------------------------------------
 
 
-def _topk_stream_call(q, docs, scales, k: int, n_valid: int):
-    """Launch ``csrc/topk_stream.cu`` (chunk kernel + merge kernel)."""
+def _topk_stream_call(wrapper, q, docs, scales, k: int, n_valid: int):
+    """Launch ``csrc/topk_stream.cu`` (chunk kernel + merge kernel) once a
+    block of query rows (:func:`query_blocks`), counting each launch on
+    ``wrapper``."""
     B, H = q.shape
     npad = docs.shape[0]
     if not 1 <= B <= _MAX_KERNEL_B:
@@ -867,20 +921,27 @@ def _topk_stream_call(q, docs, scales, k: int, n_valid: int):
         raise ValueError(f"the kernel needs 16-byte doc rows; H={H} with {docs.dtype}")
     if npad % _SEG or not _SEG <= npad < 2 ** 31:
         raise ValueError(f"the kernel needs Npad a multiple of {_SEG} below 2^31, got {npad}")
-    plan = _plan_or_raise("topk_stream", B, H, docs.dtype, k)
+    blocks = query_blocks(wrapper.__name__, B, H, docs.dtype, k)
     q = q.contiguous()
-    _require_cuda("topk_stream", q, docs, *([] if scales is None else [scales]))
-    grid = topk_stream_grid(plan, B, npad // _SEG, _sms(docs.device))
-    thr = torch.zeros((B,), dtype=torch.int64, device=docs.device)  # the shared thresholds
-    cand = torch.empty((grid["grid"], B, k), dtype=torch.int64, device=docs.device)
-    vals = torch.empty((B, k), dtype=torch.float32, device=docs.device)
-    ids = torch.empty((B, k), dtype=torch.int32, device=docs.device)
-    _launch("topk_stream", "topk_stream_launch", docs.device, _STORAGE[docs.dtype], B, H, k,
-            npad, int(n_valid), grid["per_chunk"], plan["stages"], grid["stride"],
-            grid["pilot_per_chunk"],
-            q.data_ptr(), docs.data_ptr(), _ptr(scales), thr.data_ptr(), cand.data_ptr(),
-            vals.data_ptr(), ids.data_ptr())
-    return vals, ids
+    _require_cuda(wrapper.__name__, q, docs, *([] if scales is None else [scales]))
+    parts = []
+    for first, b, plan in blocks:
+        qb = q[first : first + b]
+        grid = topk_stream_grid(plan, b, npad // _SEG, _sms(docs.device))
+        thr = torch.zeros((b,), dtype=torch.int64, device=docs.device)  # the shared thresholds
+        cand = torch.empty((grid["grid"], b, k), dtype=torch.int64, device=docs.device)
+        vals = torch.empty((b, k), dtype=torch.float32, device=docs.device)
+        ids = torch.empty((b, k), dtype=torch.int32, device=docs.device)
+        _launch("topk_stream", "topk_stream_launch", docs.device, _STORAGE[docs.dtype], b, H,
+                k, npad, int(n_valid), grid["per_chunk"], plan["stages"], grid["stride"],
+                grid["pilot_per_chunk"],
+                qb.data_ptr(), docs.data_ptr(), _ptr(scales), thr.data_ptr(), cand.data_ptr(),
+                vals.data_ptr(), ids.data_ptr())
+        wrapper.launches += 1
+        parts.append((vals, ids))
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([v for v, _ in parts]), torch.cat([i for _, i in parts])
 
 
 def topk_stream(q: torch.Tensor, docs: torch.Tensor, k: int, n_valid: int):
@@ -888,17 +949,15 @@ def topk_stream(q: torch.Tensor, docs: torch.Tensor, k: int, n_valid: int):
     over rows < ``n_valid``, descending, ties to the lower id, NEG_INF /
     -1 beyond the valid rows. ``q`` and ``docs`` share the storage dtype
     (bf16 or f32); Npad is a multiple of 128. CUDA tensors launch the
-    kernel (1..32 query rows, k <= 128), CPU tensors run
-    :func:`topk_stream_reference`."""
+    kernel (1..32 query rows, one launch a block of :func:`query_blocks`;
+    k <= 128), CPU tensors run :func:`topk_stream_reference`."""
     if q.dtype != docs.dtype or q.device != docs.device or q.shape[1] != docs.shape[1]:
         raise ValueError("q and docs must share dtype, device and width")
     if docs.device.type == "cpu":
         return topk_stream_reference(q, docs, k, n_valid)
     if docs.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"storage dtype must be bfloat16 or float32, got {docs.dtype}")
-    out = _topk_stream_call(q, docs, None, k, n_valid)
-    topk_stream.launches += 1
-    return out
+    return _topk_stream_call(topk_stream, q, docs, None, k, n_valid)
 
 
 topk_stream.launches = 0
@@ -918,9 +977,7 @@ def topk_stream_int8(q: torch.Tensor, doc_values: torch.Tensor, doc_scales: torc
         raise ValueError("doc_values must be [Npad, H] with [Npad] scales")
     if doc_values.device.type == "cpu":
         return topk_stream_reference(q, doc_values, k, n_valid, doc_scales)
-    out = _topk_stream_call(q, doc_values, doc_scales, k, n_valid)
-    topk_stream_int8.launches += 1
-    return out
+    return _topk_stream_call(topk_stream_int8, q, doc_values, doc_scales, k, n_valid)
 
 
 topk_stream_int8.launches = 0

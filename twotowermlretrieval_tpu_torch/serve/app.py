@@ -406,6 +406,13 @@ def serve(artifacts_path: str, port: int = 8888, host: str = "0.0.0.0", **engine
     return server
 
 
+def _positive_int(s: str) -> int:
+    v = int(s)
+    if v < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
+    return v
+
+
 def main():
     parser = argparse.ArgumentParser(description="Two-tower hybrid search server (PyTorch/CUDA)")
     parser.add_argument("--artifacts", "-a", required=True)
@@ -422,12 +429,26 @@ def main():
                         choices=["float32", "bfloat16", "int8"],
                         help="corpus storage: bf16 halves the scan's bytes vs f32, "
                              "int8 (one scale per 128-row segment) halves them again")
+    parser.add_argument("--index-type", default="exact", choices=["exact", "ivf"],
+                        help="'ivf': the approximate IVF index, prebuilt "
+                             "(ivf_index.npz from ttr-torch-build-index) or clustered "
+                             "at startup")
+    parser.add_argument("--nprobe", type=int, default=None,
+                        help="IVF probe width (recall/latency trade-off); default: "
+                             "the value ttr-torch-build-index --target-recall persisted "
+                             "in retrieval_tuning.json for this corpus, else 16")
     parser.add_argument("--autotune-retrieval", action="store_true",
                         help="at startup, time the search variants (phase-2 "
                              "re-score vs score-cache gather, sorted vs unsorted "
                              "candidates, the two-phase path) on the live corpus, "
                              "serve with the fastest and persist the choice in "
                              "the artifact directory for later boots")
+    parser.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler trace (Chrome/Kineto JSON) of the "
+                             "first --profile-requests live searches to this directory")
+    parser.add_argument("--profile-requests", type=_positive_int, default=20,
+                        help="live searches the --profile-dir trace spans (>= 1; an "
+                             "unfilled window is finalized at shutdown)")
     parser.add_argument("--cache-size", type=int, default=0,
                         help="LRU response cache entries (0 = off)")
     parser.add_argument("--warmup", action=argparse.BooleanOptionalAction,
@@ -441,9 +462,13 @@ def main():
         device=args.device,
         batch_window_ms=args.batch_window_ms,
         storage_dtype=args.storage_dtype,
+        index_type=args.index_type,
+        nprobe=args.nprobe,
         warmup=args.warmup,
         cache_size=args.cache_size,
         autotune_retrieval=args.autotune_retrieval,
+        profile_dir=args.profile_dir,
+        profile_requests=args.profile_requests,
     )
 
     # graceful shutdown: docker stop / Ctrl-C finish in-flight requests

@@ -17,10 +17,19 @@ scan, bf16 or int8, and phase 2) ending in one host fetch of a packed
 index's search variants at boot and persists the winner with the
 artifacts; a later boot applies a persisted decision whose signature
 matches, without timing.
+
+``index_type="ivf"`` serves the approximate IVF index (``ops/ivf.py``):
+the prebuilt ``ivf_index.npz`` of the artifacts when there is one, else
+one clustered at boot; its probe width is an explicit ``nprobe``, else the
+one ``ttr-torch-build-index --target-recall`` persisted for this corpus,
+else 16. ``profile_dir`` writes a ``torch.profiler`` trace of the first
+``profile_requests`` live searches (cache hits do no device work and do
+not count); ``close()`` finalizes an unfilled window.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import OrderedDict
@@ -40,6 +49,7 @@ from twotowermlretrieval_tpu_torch.serve.index import (
 )
 from twotowermlretrieval_tpu_torch.serve.inferencer import QueryInferencer
 from twotowermlretrieval_tpu_torch.train.artifacts import load_artifacts
+from twotowermlretrieval_tpu_torch.utils.profiling import TraceWindow
 
 
 def _fused_encode_search(params, tokens, lengths, spec, k, index: RetrievalIndex):
@@ -102,11 +112,14 @@ class SearchEngine:
         device="cuda",
         storage_dtype: str = "bfloat16",
         batch_window_ms: float = 0.0,  # >0 enables request micro-batching
-        index_type: str = "exact",
+        index_type: str = "exact",  # 'exact' | 'ivf'
+        nprobe: Optional[int] = None,  # None: the persisted tuning's, else 16
         warmup: Optional[bool] = None,  # run every micro-batch bucket once up front
         cache_size: int = 0,  # >0 enables the LRU response cache
         use_kernel: Optional[bool] = None,  # None: the fused path where the index is on a card
         autotune_retrieval: bool = False,  # time the search variants at boot, persist the winner
+        profile_dir: Optional[str] = None,  # trace the first profile_requests live searches
+        profile_requests: int = 20,
     ):
         loaded = load_artifacts(artifacts_path, require_index=True)
         self.config = loaded.config
@@ -114,11 +127,20 @@ class SearchEngine:
         self.tfidf_vectorizer = loaded.tfidf_vectorizer
         self.tfidf_matrix = loaded.tfidf_matrix
         self.inferencer = QueryInferencer(artifacts_path, device=device)
+        tuning = load_retrieval_tuning(artifacts_path)
+        if nprobe is None:
+            # the value ttr-torch-build-index measured for this corpus's shape
+            sig = (tuning or {}).get("nprobe_signature", {})
+            shape_ok = (sig.get("num_docs") == int(loaded.doc_embeddings.shape[0])
+                        and sig.get("dim") == int(loaded.doc_embeddings.shape[1]))
+            persisted = (tuning or {}).get("nprobe")
+            nprobe = persisted if (persisted and shape_ok) else 16
         self.index = RetrievalIndex(
             loaded.doc_embeddings, storage_dtype=storage_dtype, device=device,
-            index_type=index_type, use_kernel=use_kernel,
+            index_type=index_type, use_kernel=use_kernel, nprobe=nprobe,
+            # a prebuilt index exported with the artifacts skips k-means at boot
+            ivf_index=loaded.ivf_index if index_type == "ivf" else None,
         )
-        tuning = load_retrieval_tuning(artifacts_path)
         if autotune_retrieval:
             self._autotune(artifacts_path)
         elif tuning and tuning.get("decision") and use_kernel is None:
@@ -148,6 +170,9 @@ class SearchEngine:
         self._device_lock = threading.Lock()
         self._searches = 0
         self._cache_hits = 0
+        # the trace starts at the first live search, after the warm-up
+        self._profile = (TraceWindow(profile_dir, int(profile_requests), what="live searches")
+                         if profile_dir else None)
         warmup = warmup if warmup is not None else batch_window_ms > 0
         if warmup:
             for bucket in self._BATCH_BUCKETS:
@@ -155,6 +180,8 @@ class SearchEngine:
 
     def _chosen(self) -> str:
         """The search variant the index serves with."""
+        if self.index.ivf is not None:
+            return f"ivf, nprobe={self.index.nprobe}"
         if not self.index.kernel_on():
             return "two-phase"
         return f"phase2={variant_name(self.index.phase2, self.index.sort_candidates)}"
@@ -166,7 +193,8 @@ class SearchEngine:
         timings = self.index.autotune()
         if not timings:
             print("retrieval autotune: no-op, the fused path is off for this index "
-                  "(use_kernel=False, or a CPU index); serving with the defaults")
+                  "(an IVF index, use_kernel=False, or a CPU index); serving with the "
+                  "defaults")
             return
         named = {variant_name(p, s): t * 1e3 for (p, s), t in timings.items()}
         save_retrieval_tuning(artifacts_path, {
@@ -179,7 +207,10 @@ class SearchEngine:
               + f" -> serving with {self._chosen()}")
 
     def close(self):
-        """End-of-life hook of the serving CLI (nothing to finalize yet)."""
+        """End-of-life hook of the serving CLI: finalize an unfilled
+        profiler window (the trace is only written at stop)."""
+        if self._profile is not None:
+            self._profile.close()
 
     def counters(self) -> Dict[str, int]:
         """Engine-level counters for the /metrics surface."""
@@ -241,10 +272,13 @@ class SearchEngine:
             self._searches += 1
             self._cache_hits += results is not None
         if results is None:
-            if alpha == 0.0:
-                results = self._keyword_search(query, top_k)
-            else:
-                results = self._hybrid_search(query, alpha, top_k, fanout)
+            # only live searches count against the profiler window
+            with self._profile.event() if self._profile is not None \
+                    else contextlib.nullcontext():
+                if alpha == 0.0:
+                    results = self._keyword_search(query, top_k)
+                else:
+                    results = self._hybrid_search(query, alpha, top_k, fanout)
             if self._cache is not None:
                 with self._cache_lock:
                     self._cache[key] = results

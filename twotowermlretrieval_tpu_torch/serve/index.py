@@ -19,7 +19,12 @@ times the phase-2 variants (and, on a CPU index, the two-phase path) on the
 live corpus and keeps the fastest; ``save_retrieval_tuning`` persists the
 decision with the artifacts, in the JAX package's file format.
 
-Not ported yet (ROADMAP): the IVF index and a device mesh.
+``index_type="ivf"`` keeps the approximate IVF index instead (``ops/ivf.py``:
+a prebuilt ``ivf_index``, or one clustered here with ``num_clusters``,
+blocks in the storage dtype): searches probe ``nprobe`` blocks in plain
+torch, bypassing the segment-max kernels and autotune.
+
+Not ported yet (ROADMAP): a device mesh.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from twotowermlretrieval_tpu_torch.ops.ivf import IVFIndex, build_ivf, ivf_search
 from twotowermlretrieval_tpu_torch.ops.topk import (
     fused_topk_segmax,
     fused_topk_segmax_s8,
@@ -88,11 +94,16 @@ class RetrievalIndex:
         storage_dtype: str = "bfloat16",  # 'float32' | 'bfloat16' | 'int8'
         device="cuda",
         mesh=None,
-        index_type: str = "exact",
+        index_type: str = "exact",  # 'exact' | 'ivf' (approximate, past the exact scan's corpora)
         use_kernel: Optional[bool] = None,  # None: the fused path where the index is on a card
+        nprobe: int = 16,  # ivf only: blocks probed a query
+        num_clusters: int = 0,  # ivf only: 0 = sqrt(N) heuristic
+        ivf_index: Optional[IVFIndex] = None,  # a prebuilt index (the artifacts' ivf_index.npz)
     ):
-        if index_type != "exact":
-            raise NotImplementedError("the IVF index is not ported yet (ROADMAP Queue 1, IVF)")
+        if ivf_index is not None:
+            index_type = "ivf"
+        if index_type not in ("exact", "ivf"):
+            raise ValueError(f"index_type must be 'exact' or 'ivf', got {index_type!r}")
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device serving is not ported yet (ROADMAP Queue 1, multi-device)"
@@ -110,6 +121,16 @@ class RetrievalIndex:
         self.use_kernel = use_kernel
         self.quantized = storage_dtype == "int8"
         self._n_valid = self.num_docs
+        self.ivf = None
+        if index_type == "ivf":
+            if ivf_index is None:
+                ivf_index = build_ivf(np.asarray(doc_embeddings, np.float32),
+                                      num_clusters=num_clusters, storage_dtype=storage_dtype,
+                                      device=self.device)
+            self.ivf = ivf_index.to(self.device)
+            self.nprobe = nprobe
+            self.quantized = ivf_index.scales is not None
+            return
         padded = _pad_rows(np.asarray(doc_embeddings, np.float32))
         # the card's scan kernels read 16-byte rows: other widths get zero
         # columns, which add nothing to any score (queries are padded alike)
@@ -125,12 +146,15 @@ class RetrievalIndex:
             self._docs = torch.from_numpy(padded).to(self.device).to(torch_dtype(storage_dtype))
 
     def kernel_on(self) -> bool:
-        """Whether searches take the fused path (its CUDA kernel on a card)."""
+        """Whether searches take the fused path (its CUDA kernel on a card);
+        never for an IVF index."""
+        if self.ivf is not None:
+            return False
         return self.use_kernel if self.use_kernel is not None else self.device.type == "cuda"
 
     def search(self, query_embeddings: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
-        """[B, H] queries -> ([B, k] scores, [B, k] doc ids), exact, sorted
-        descending."""
+        """[B, H] queries -> ([B, k] scores, [B, k] doc ids), sorted
+        descending (exact, or the IVF index's probe)."""
         q = np.atleast_2d(np.asarray(query_embeddings, np.float32))
         B = q.shape[0]
         pad = (-B) % _SUBLANE
@@ -145,6 +169,8 @@ class RetrievalIndex:
         f32, [Bp, k] int32) device tensors. The engine calls it right after
         the query encode, so encode and search run as one chain with one
         host fetch. The int8 path quantizes the f32 queries itself."""
+        if self.ivf is not None:
+            return ivf_search(q, self.ivf, k=min(k, self.num_docs), nprobe=self.nprobe)
         variant = self.phase2 if self.kernel_on() else "two_phase"
         return self._search_variant(q, min(k, self.num_docs), variant, self.sort_candidates)
 
@@ -169,7 +195,7 @@ class RetrievalIndex:
             "num_docs": self.num_docs,
             "dim": self.dim,
             "storage_dtype": self.storage_dtype,
-            "index_type": "exact",
+            "index_type": "exact" if self.ivf is None else "ivf",
             "backend": self.device.type,
         }
 

@@ -5,8 +5,10 @@ The same six files, in the same formats, as the JAX package's
 ``config.json`` (enriched with VOCAB_SIZE / EMBED_DIM), ``word_to_idx.pkl``,
 ``documents.pkl``, ``document_embeddings.npy`` and ``tfidf_artifacts.pkl``
 ({'vectorizer', 'matrix'}). A directory written by either package serves
-through the other's loader. The optional prebuilt IVF index
-(``ivf_index.npz``) comes with the IVF slice (ROADMAP).
+through the other's loader. With ``build_ivf_index`` a seventh file,
+``ivf_index.npz`` (``ops/ivf.py``, the JAX package's format), carries a
+prebuilt IVF index, so serving with ``--index-type ivf`` starts without
+k-means; :func:`load_artifacts` loads it when it is there.
 
 The TF-IDF pickle names its vectorizer's class by module path. The loader
 here maps the JAX package's path to this package's copy of the class (the
@@ -24,6 +26,7 @@ import numpy as np
 
 from twotowermlretrieval_tpu_torch.config import Config
 from twotowermlretrieval_tpu_torch.encoder import TextEncoder
+from twotowermlretrieval_tpu_torch.ops.ivf import IVF_INDEX_FILE, build_ivf, load_ivf, save_ivf
 from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec, params_from_jax
 from twotowermlretrieval_tpu_torch.ops.tfidf import TfidfVectorizer
 from twotowermlretrieval_tpu_torch.tokenizer import Tokenizer
@@ -62,10 +65,15 @@ def save_inference_artifacts(
     encoder: TextEncoder | None = None,
     tfidf_max_features: int = 20000,
     device="cuda",
+    build_ivf_index: bool = False,
+    ivf_storage_dtype: str = "bfloat16",
+    ivf_num_clusters: int = 0,
 ) -> Path:
     """Export the six-file serving contract. ``params`` is the port's tree
     of tensors (or numpy arrays); the documents are encoded by ``encoder``,
-    or by a doc-tower :class:`TextEncoder` on ``device``."""
+    or by a doc-tower :class:`TextEncoder` on ``device``. With
+    ``build_ivf_index``, also the IVF index of the embeddings, clustered on
+    ``device`` (``ivf_index.npz``)."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
 
@@ -101,6 +109,11 @@ def save_inference_artifacts(
     matrix = vectorizer.fit_transform(unique_docs)
     with open(output_dir / "tfidf_artifacts.pkl", "wb") as f:
         pickle.dump({"vectorizer": vectorizer, "matrix": matrix}, f)
+
+    if build_ivf_index:  # offline build, online load
+        index = build_ivf(np.asarray(doc_embeddings, np.float32), num_clusters=ivf_num_clusters,
+                          storage_dtype=ivf_storage_dtype, device=device)
+        save_ivf(output_dir / IVF_INDEX_FILE, index)
     return output_dir
 
 
@@ -113,12 +126,13 @@ class LoadedArtifacts(NamedTuple):
     doc_embeddings: np.ndarray
     tfidf_vectorizer: TfidfVectorizer
     tfidf_matrix: object  # scipy CSR
-    ivf_index: object = None  # the IVF slice is not ported yet
+    ivf_index: object = None  # the prebuilt ops.ivf.IVFIndex (CPU tensors), if exported
 
 
 def load_artifacts(artifacts_path: str | Path, require_index: bool = True) -> LoadedArtifacts:
     """Rehydrate an artifact directory. With ``require_index=False`` only
-    the model side (config, tokenizer, params) is loaded."""
+    the model side (config, tokenizer, params) is loaded. A prebuilt IVF
+    index loads onto the CPU; the serving index moves it to its device."""
     artifacts_path = Path(artifacts_path)
     if not artifacts_path.exists():
         raise FileNotFoundError(f"artifacts directory not found: {artifacts_path}")
@@ -133,7 +147,7 @@ def load_artifacts(artifacts_path: str | Path, require_index: bool = True) -> Lo
 
     documents: List[str] = []
     doc_embeddings = np.zeros((0, config.hidden_dim), np.float32)
-    vectorizer, matrix = None, None
+    vectorizer, matrix, ivf_index = None, None, None
     if require_index:
         with open(artifacts_path / "documents.pkl", "rb") as f:
             documents = pickle.load(f)
@@ -141,6 +155,8 @@ def load_artifacts(artifacts_path: str | Path, require_index: bool = True) -> Lo
         with open(artifacts_path / "tfidf_artifacts.pkl", "rb") as f:
             tfidf = _ArtifactUnpickler(f).load()
         vectorizer, matrix = tfidf["vectorizer"], tfidf["matrix"]
+        if (artifacts_path / IVF_INDEX_FILE).exists():
+            ivf_index = load_ivf(artifacts_path / IVF_INDEX_FILE)
 
     return LoadedArtifacts(
         config=config,
@@ -151,4 +167,5 @@ def load_artifacts(artifacts_path: str | Path, require_index: bool = True) -> Lo
         doc_embeddings=doc_embeddings,
         tfidf_vectorizer=vectorizer,
         tfidf_matrix=matrix,
+        ivf_index=ivf_index,
     )

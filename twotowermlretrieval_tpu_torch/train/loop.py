@@ -25,10 +25,12 @@ package's for the same seed.
 
 :func:`train` reads the datasets from parquet; :func:`train_on_datasets`
 is the part after that and takes the datasets as a dict of triplet lists.
-Both tower types train (the recurrent and the transformer tower). Not
-ported: a device mesh (``MESH_DATA``/``MESH_MODEL`` > 1) and a row-sharded
-embedding table (``SHARD_EMBEDDING_TABLE``), ROADMAP Queue 1 item 10, and
-``--profile_dir`` (item 8); each raises ``NotImplementedError``.
+Both tower types train (the recurrent and the transformer tower).
+``--profile_dir`` traces about 10 steady steps from step 10 with
+``torch.profiler`` (``utils/profiling.py``), as the JAX driver's window
+does. Not ported: a device mesh (``MESH_DATA``/``MESH_MODEL`` > 1) and a
+row-sharded embedding table (``SHARD_EMBEDDING_TABLE``), ROADMAP Queue 1
+item 10; each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ from twotowermlretrieval_tpu_torch.train.train_step import (
     merge_params,
 )
 from twotowermlretrieval_tpu_torch.utils.dtypes import resolve_device
+from twotowermlretrieval_tpu_torch.utils.profiling import trace
 
 # The data-position tag saved with checkpoints: it names the group yield
 # order of packed_groups (per-width buffering), the JAX driver's. A resume
@@ -79,7 +82,7 @@ def setup(config: Config):
     return config, tokenizer, table
 
 
-def _check_supported(config: Config, profile_dir) -> None:
+def _check_supported(config: Config) -> None:
     if config.mesh_data not in (-1, 1) or config.mesh_model != 1:
         raise NotImplementedError(
             f"a device mesh (MESH_DATA={config.mesh_data}, MESH_MODEL={config.mesh_model}) "
@@ -91,8 +94,6 @@ def _check_supported(config: Config, profile_dir) -> None:
             "a row-sharded embedding table (SHARD_EMBEDDING_TABLE) needs the mesh, not ported "
             "yet (ROADMAP Queue 1 item 10); use SHARD_EMBEDDING_TABLE false"
         )
-    if profile_dir is not None:
-        raise NotImplementedError("--profile_dir is not ported yet (ROADMAP Queue 1 item 8)")
 
 
 def packed_groups(batches, K: int) -> Iterator[Tuple[np.ndarray, int]]:
@@ -156,14 +157,14 @@ def train(
 ) -> Dict[str, Any]:
     """Train (or, with ``model_path``, only test-evaluate) from the
     config's parquet splits; see :func:`train_on_datasets`."""
-    _check_supported(config, profile_dir)
+    _check_supported(config)
     resolve_device(device)
     config, tokenizer, table = setup(config)
     datasets = TripletBuilder(config).load_datasets(subsample_ratio=config.subsample_ratio)
     return train_on_datasets(
         config, tokenizer, table, datasets, use_wandb=use_wandb, output_root=output_root,
         checkpoint_dir=checkpoint_dir, resume=resume, model_path=model_path,
-        run_name=run_name, device=device,
+        run_name=run_name, profile_dir=profile_dir, device=device,
     )
 
 
@@ -179,17 +180,23 @@ def train_on_datasets(
     resume: bool = False,
     model_path: Optional[str | Path] = None,
     run_name: Optional[str] = None,
+    profile_dir: Optional[str | Path] = None,
     device="cuda",
 ) -> Dict[str, Any]:
     """The driver after the datasets are loaded: ``datasets`` maps 'train',
     'validation' and 'test' to lists of (query, positive, negative)
     triplets; ``config`` and ``table`` come from :func:`setup`.
+    ``profile_dir``: write a trace there of the steps from the first group
+    that starts at step 10 or later (after the first group) until 10 more
+    steps are done; a run that ends inside the window finalizes it.
+    ``profile_window`` in the results then says where it started and
+    stopped and whether it filled.
 
     Returns the JAX driver's results (run name, throughput, per-epoch
     metrics, artifacts directory, test eval) plus ``steps``,
     ``step_losses`` (every step's loss, fetched once per epoch),
     ``steady_steps_per_sec`` and the final ``state``."""
-    _check_supported(config, None)
+    _check_supported(config)
     dev = resolve_device(device)
     if config.log_param_stats is None:
         config = config.replace(log_param_stats=use_wandb)
@@ -264,6 +271,7 @@ def train_on_datasets(
     step_losses = []
     step = state.step
     first_group_done = False
+    profile_ctx = profile_window = None
     compile_seconds = None
     steady_baseline = steady_steps_baseline = 0
     steps_run = 0
@@ -284,6 +292,12 @@ def train_on_datasets(
             batch_index = skip_batches
         for stack, n_real in groups:
             k = stack.shape[0]
+            if profile_dir is not None and profile_ctx is None and first_group_done \
+                    and step >= 10:
+                # about 10 steady steps, past the first group's build and launches
+                profile_ctx = trace(str(profile_dir))
+                profile_ctx.__enter__()
+                profile_window = {"start_step": step}
             t_group0 = None if first_group_done else time.time()
             crosses_log = step // config.log_every_steps != (step + k) // config.log_every_steps
             fn = train_step_hist if crosses_log else train_step
@@ -308,6 +322,11 @@ def train_on_datasets(
                 t_epoch_steady = time.time()
                 steady_baseline, steady_steps_baseline = examples_seen, steps_run
                 first_group_done = True
+            if profile_ctx is not None and step >= profile_window["start_step"] + 10:
+                sync()
+                profile_ctx.__exit__(None, None, None)
+                profile_ctx = profile_dir = None
+                profile_window.update(stop_step=step, filled=True)
             if step // config.log_every_steps != prev_step // config.log_every_steps:
                 host_metrics = _fetch(metrics)
                 loop_time = train_elapsed + (time.time() - t_epoch)
@@ -344,6 +363,12 @@ def train_on_datasets(
         if ckpt:
             ckpt.save(state, {"epoch": epoch + 1, "batch_index": 0, "grouping": _DATA_GROUPING})
 
+    if profile_ctx is not None:
+        # the run ended inside the window: finalize it so the trace is written
+        profile_ctx.__exit__(None, None, None)
+        profile_ctx = None
+        profile_window.update(stop_step=step, filled=False)
+
     results["train_seconds"] = time.time() - t_start  # wall, evals included
     results["train_loop_seconds"] = train_elapsed
     results["examples_per_sec"] = examples_seen / max(train_elapsed, 1e-9)
@@ -359,6 +384,8 @@ def train_on_datasets(
         )
     results["epochs"] = epoch_metrics_history
     results["state"] = state
+    if profile_window is not None:
+        results["profile_window"] = profile_window
 
     final_params = merge_params(state.trainable, state.frozen)
     output_dir = Path(output_root) / logger.run_name
@@ -384,7 +411,8 @@ def parse_args(argv=None):
     parser.add_argument("--checkpoint_dir", type=str, default=None)
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="not ported yet: raises NotImplementedError")
+                        help="write a torch.profiler trace (Chrome/Kineto JSON) of "
+                             "about 10 steps from step 10 here")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu (the kernels' plain versions)")
     return parser.parse_args(argv)
