@@ -39,6 +39,27 @@
    the CPU and against the torch attention route, checks 12 attention
    backward launches per step and the checkpoint, and serves its export
    over HTTP (6 attention forward and 1 segmax launches per dense search).
+8. Trains data parallel (``phase_data_parallel``): ``configs/msmarco_inbatch.json``
+   at full width (the reference towers, the in_batch loss over
+   cross-device negatives, TRIPLET_METRICS false, B=1024) as two ranks of
+   512 rows, each a process started from this script (``--dp-rank``), both
+   on the one card: NCCL refuses two ranks on one device, so the pair runs
+   over gloo with CUDA tensors on cuda:0, and every collective's bytes
+   cross the host. The first step at dropout 0 is held against one
+   process's over the same 1,024 rows on the card: the loss within 1e-5
+   relative, each gradient leaf's difference within 2e-2 of its norm (the
+   first-step check's envelope). After 8 steps at dropout 0.2 both ranks'
+   parameters and Adam moments are held bit for bit equal (a checksum of
+   every leaf, gathered), both ranks must have launched 4 ``rnn_bwd`` a
+   step and ``rnn_fwd``, and neither may have called a plain version. The
+   pair's steps/s and examples/s are printed beside one process's at
+   B=1024, with each step's gradient all-reduce time: two processes share
+   one card, so they show correctness, not scaling. Then
+   ``ttr-torch-train`` runs as torchrun starts a one-rank world (RANK 0,
+   WORLD_SIZE 1, NCCL on the card, MESH_DATA -1, so the single-device
+   path) for one epoch over parquet splits of the corpus. The ranks and the
+   run write their logs to files, are waited on for at most 300 s and
+   killed when one fails.
 
 Step 3 holds the forward kernel at four shapes (the query encode, the
 export, the training query and doc towers), each timed beside cuDNN's GRU,
@@ -106,6 +127,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -254,6 +276,29 @@ IVF_INT8_RECALL = 0.98
 # 16 steps (two groups) never opens it; 24 steps open it at step 16 and end
 # inside it (the finalize path).
 TF_TRACED_TRAIN = 24 * TF_ROWS
+# Data parallel: configs/msmarco_inbatch.json at full width (two 2-layer
+# bidirectional GRU towers, H=256, bf16, the in_batch loss over
+# cross-device negatives, B=1024) over two ranks of 512 rows, both on the
+# one card, over gloo (NCCL refuses two ranks on one device: "Duplicate
+# GPU detected"), on triplets after those the other phases take.
+DP_CONFIG = ROOT / "configs" / "msmarco_inbatch.json"
+DP_RANKS, DP_STEPS = 2, 8
+DP_DIR = TRAIN_DIR / "dp"
+DP_TRIPLETS = slice(15_000, 15_000 + (DP_STEPS + 1) * 1024)
+# The first step, two ranks against one process over the same 1024 rows
+# on the card, dropout off: the same kernels on the same rows, the sums
+# over the batch split in two and added by the all-reduce. The loss within
+# 1e-5 relative; each gradient leaf within STEP_GRAD_REL of its norm as
+# the norm of its difference (the card-vs-CPU check compares the norms
+# themselves, a weaker test, at the same 2e-2).
+DP_LOSS_REL = 1e-5
+DP_GRAD_REL = STEP_GRAD_REL
+DP_WAIT_S = 300
+# ttr-torch-train as torchrun starts a world of one (NCCL on the card):
+# one epoch of 8,192 triplets (one dispatch group of 8 steps a bucket
+# width), 1,024 validation and 64 test triplets, written as parquet.
+DP_NCCL_SPLITS = {"train": slice(25_000, 33_192), "validation": slice(33_192, 34_216),
+                  "test": slice(34_216, 34_280)}
 
 
 class SmokeFailure(Exception):
@@ -2158,6 +2203,307 @@ def phase_transformer(dev, corpus) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# data parallel: two ranks on the one card, and a one-rank NCCL world
+# ---------------------------------------------------------------------------
+
+
+def _dp_config(word_to_idx, table):
+    """configs/msmarco_inbatch.json with its paths pointed at DP_DIR, after
+    the driver's ``setup``; checks the values the phase stands for."""
+    from twotowermlretrieval_tpu_torch.config import Config
+    from twotowermlretrieval_tpu_torch.data.glove import save_embedding_artifacts
+    from twotowermlretrieval_tpu_torch.train.loop import setup
+
+    save_embedding_artifacts(DP_DIR, table, word_to_idx)
+    splits = {f"{key}_dataset_path": str(DP_DIR / f"ms_marco_{split}.parquet")
+              for key, split in (("train", "train"), ("val", "validation"), ("test", "test"))}
+    cfg = Config.from_json(DP_CONFIG).replace(
+        **splits, embeddings_path=str(DP_DIR / "embeddings.npy"),
+        word_to_idx_path=str(DP_DIR / "word_to_idx.pkl"), epochs=1)
+    check(cfg.hidden_dim == H and cfg.rnn_type == "GRU" and cfg.num_layers == 2
+          and cfg.bidirectional and cfg.compute_dtype == "bfloat16"
+          and cfg.loss_type == "in_batch" and not cfg.triplet_metrics
+          and cfg.cross_device_negatives and cfg.batch_size == DP_RANKS * 512
+          and cfg.mesh_data == -1 and cfg.mesh_model == 1 and cfg.dropout == 0.2,
+          "data parallel: configs/msmarco_inbatch.json")
+    return setup(cfg)
+
+
+def _dp_state(cfg, table, dev):
+    from twotowermlretrieval_tpu_torch.models.two_tower import (
+        TwoTowerSpec,
+        init_two_tower,
+        to_device,
+    )
+    from twotowermlretrieval_tpu_torch.train.train_step import create_train_state
+
+    params = init_two_tower(torch.Generator().manual_seed(cfg.seed),
+                            TwoTowerSpec.from_config(cfg), pretrained_embeddings=table)
+    return create_train_state(torch.Generator(device=dev).manual_seed(cfg.seed + 1),
+                              to_device(params, dev), cfg)
+
+
+def _dp_timed_steps(step, state, batches, mesh, dev) -> dict:
+    """DP_STEPS train steps over ``batches`` (this rank's rows of each),
+    timed together from a synchronized card to a synchronized card."""
+    from twotowermlretrieval_tpu_torch.parallel.mesh import put_global
+
+    rows = [put_global(b, mesh, dev) for b in batches]
+    real = sum(int(b[:, -1].sum()) for b in batches)  # global real rows
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    losses = []
+    for packed in rows:
+        state, m = step(state, packed)
+        losses.append(m["loss"])
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), "data parallel: a non-finite loss")
+    return {"steps_per_sec": len(batches) / seconds, "examples_per_sec": real / seconds,
+            "losses": losses}
+
+
+def dp_rank_main(rank: int, port: int, out: Path) -> int:
+    """One rank of phase_data_parallel's pair (``chip_smoke.py --dp-rank``):
+    gloo with CUDA tensors on cuda:0, the first step at dropout 0 (rank 0
+    saves its gradients), then DP_STEPS steps at the config's dropout with
+    the launch counts at 0 just before and read just after, each step's
+    gradient all-reduce timed, and every leaf's checksum held against the
+    other rank's."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from twotowermlretrieval_tpu_torch.config import Config
+    from twotowermlretrieval_tpu_torch.data.batching import unpack_batch
+    from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec
+    from twotowermlretrieval_tpu_torch.ops import rnn_scan
+    from twotowermlretrieval_tpu_torch.parallel.distributed import (
+        make_sharded_packed_train_step,
+        replicas_agree,
+        replicate_state,
+    )
+    from twotowermlretrieval_tpu_torch.parallel.mesh import (
+        initialize_multihost,
+        make_mesh,
+        put_global,
+    )
+    from twotowermlretrieval_tpu_torch.train.loop import setup
+    from twotowermlretrieval_tpu_torch.train.train_step import make_grad_step
+    from twotowermlretrieval_tpu_torch.utils.dtypes import resolve_device
+    from twotowermlretrieval_tpu_torch.utils.pytree import named_leaves
+
+    dev = resolve_device("cuda:0")  # raises without a card: a rank never runs on the CPU
+    initialize_multihost(f"127.0.0.1:{port}", num_processes=DP_RANKS, process_id=rank,
+                         device=dev, backend="gloo", timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(DP_RANKS, 1)
+        cfg, _, table = setup(Config.from_json(out / "config.json"))
+        spec = TwoTowerSpec.from_config(cfg)
+        batches = np.load(out / "batches.npz")
+        batches = [batches[f"b{i}"] for i in range(DP_STEPS + 1)]
+        state = replicate_state(_dp_state(cfg, table, dev), mesh)
+
+        # the plain versions count their calls: a card wrapper never runs them
+        plain = {"rnn_fwd": 0, "rnn_bwd": 0}
+        for name, attr in (("rnn_fwd", "rnn_layer_fwd_reference"), ("rnn_bwd", "_bwd_reference")):
+            def counted(*a, _fn=getattr(rnn_scan, attr), _name=name, **k):
+                plain[_name] += 1
+                return _fn(*a, **k)
+            setattr(rnn_scan, attr, counted)
+        # each step's gradient all-reduce: the largest of its all-reduces
+        # (the others: the gather's backward over [B, H], a few scalars)
+        reduce_ms = []
+        all_reduce = dist.all_reduce
+        grad_numel = sum(p.numel() for _, p in named_leaves(state.trainable))
+
+        def timed_all_reduce(t, *a, **k):
+            if t.numel() < grad_numel:
+                return all_reduce(t, *a, **k)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            work = all_reduce(t, *a, **k)
+            torch.cuda.synchronize(dev)
+            reduce_ms.append(1e3 * (time.perf_counter() - t0))
+            return work
+
+        dist.all_reduce = timed_all_reduce
+
+        cfg0 = cfg.replace(dropout=0.0)
+        zero_counts()
+        grads, m = make_grad_step(TwoTowerSpec.from_config(cfg0), cfg0, mesh.data_group)(
+            state, unpack_batch(put_global(batches[0], mesh, dev), cfg.max_query_len))
+        if rank == 0:
+            torch.save({"loss": float(m["loss"]), "grads": [g.cpu() for g in grads]},
+                       out / "first_step.pt")
+        del grads
+        reduce_ms.clear()
+        step = make_sharded_packed_train_step(spec, cfg, mesh, cfg.max_query_len)
+        run = _dp_timed_steps(step, state, batches[1:], mesh, dev)
+        launches = read_counts()
+        same = replicas_agree({"trainable": state.trainable, "frozen": state.frozen,
+                               "mu": state.opt_state["mu"], "nu": state.opt_state["nu"]},
+                              mesh)
+        result = {"rank": rank, "first_loss": float(m["loss"]), **run,
+                  "all_reduce_ms": reduce_ms, "launches": launches, "plain_calls": plain,
+                  "replicas_agree": same, "step": state.step,
+                  "backend": dist.get_backend(), "device": str(dev)}
+    finally:
+        dist.destroy_process_group()
+    (out / f"rank{rank}.json").write_text(json.dumps(result))
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_logged(cmds, logs, env, what: str) -> None:
+    """Start every command at once, each writing to its own log file (not
+    a pipe: a rank blocked on a full pipe would stall the other's
+    collectives), wait until all have ended, one has failed (the other
+    rank would wait in a collective) or DP_WAIT_S has passed, kill what is
+    left, and fail on any exit code but 0."""
+    procs = []
+    try:
+        for cmd, log in zip(cmds, logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, env=env,
+                                              cwd=ROOT))
+        deadline = time.monotonic() + DP_WAIT_S
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if all(c is not None for c in codes) or any(c for c in codes if c is not None):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for p, path in zip(procs, logs):
+        if p.returncode != 0:
+            for line in Path(path).read_text().splitlines()[-40:]:
+                log(f"{what} ({Path(path).name}): {line}")
+        check(p.returncode == 0, f"{what}: {Path(path).name} exited {p.returncode}")
+
+
+def _dp_nccl_train(triplets) -> dict:
+    """``ttr-torch-train`` (train/loop.py:main) as torchrun starts one rank:
+    RANK 0, WORLD_SIZE 1, NCCL on the card, MESH_DATA -1 (a 1x1 mesh: the
+    single-device path) with the phase's config (``DP_DIR/config.json``)
+    over parquet splits of the corpus."""
+    import pandas as pd
+
+    for split, cut in DP_NCCL_SPLITS.items():  # one passage a query: one triplet a row
+        rows = [{"query": q, "passages.passage_text": [p], "passages.is_selected": [1]}
+                for q, p, _ in triplets[cut]]
+        pd.DataFrame(rows).to_parquet(DP_DIR / f"ms_marco_{split}.parquet")
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    log_path = DP_DIR / "nccl_train.log"
+    t0 = time.perf_counter()
+    _run_logged([[sys.executable, "-m", "twotowermlretrieval_tpu_torch.train.loop",
+                  "--config", str(DP_DIR / "config.json"),
+                  "--output", str(DP_DIR / "nccl_artifacts")]], [log_path], env,
+                "ttr-torch-train under torchrun's variables")
+    seconds = time.perf_counter() - t0
+    text = log_path.read_text()
+    check("torch.distributed: backend nccl, rank 0 of 1" in text,
+          "ttr-torch-train: the NCCL world did not start")
+    finished = [line for line in text.splitlines() if line.startswith("training finished:")]
+    check(bool(finished), "ttr-torch-train: no 'training finished' line")
+    rate = float(finished[-1].split()[2])
+    check(rate > 0 and "artifacts:" in text, f"ttr-torch-train: {finished[-1]}")
+    log(f"ttr-torch-train, one NCCL rank (MESH_DATA -1, a 1x1 mesh): {finished[-1]}, "
+        f"{seconds:.1f} s with start, evaluation and export")
+    return {"examples_per_sec": rate, "seconds": seconds}
+
+
+def phase_data_parallel(dev, corpus) -> dict:
+    """configs/msmarco_inbatch.json over two ranks of 512 rows on the one
+    card (gloo with CUDA tensors; NCCL refuses two ranks on one device):
+    the first step against one process's over the same 1024 rows, both
+    ranks' parameters bit for bit equal after DP_STEPS steps at dropout
+    0.2, both ranks launching rnn_fwd and rnn_bwd and never the plain
+    versions; then ttr-torch-train in a one-rank NCCL world. The pair's
+    steps/s stand beside one process's at B=1024: two processes share one
+    card, so they measure correctness, not scaling."""
+    from twotowermlretrieval_tpu_torch.data.batching import TripletBatcher, pack_batch, unpack_batch
+    from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec
+    from twotowermlretrieval_tpu_torch.train.train_step import make_grad_step, make_train_step
+    from twotowermlretrieval_tpu_torch.utils.pytree import named_leaves
+
+    word_to_idx, table, triplets = corpus
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    cfg, tok, table = _dp_config(word_to_idx, table)
+    cfg.to_json(DP_DIR / "config.json")
+    batcher = TripletBatcher(triplets[DP_TRIPLETS], tok, cfg.batch_size, cfg.max_query_len,
+                             cfg.max_doc_len, length_buckets=cfg.length_buckets)
+    it = batcher.batches(seed=cfg.seed + 1000)
+    batches = [pack_batch(next(it)) for _ in range(DP_STEPS + 1)]
+    np.savez(DP_DIR / "batches.npz", **{f"b{i}": b for i, b in enumerate(batches)})
+
+    # one process over the same global batches
+    spec = TwoTowerSpec.from_config(cfg)
+    state = _dp_state(cfg, table, dev)
+    names = [n for n, _ in named_leaves(state.trainable)]
+    cfg0 = cfg.replace(dropout=0.0)
+    grads, m = make_grad_step(TwoTowerSpec.from_config(cfg0), cfg0)(
+        state, unpack_batch(torch.from_numpy(batches[0]).to(dev), cfg.max_query_len))
+    one_loss, one_grads = float(m["loss"]), [g.float().cpu() for g in grads]
+    del grads
+    raw = make_train_step(spec, cfg)
+    single = _dp_timed_steps(lambda st, p: raw(st, unpack_batch(p, cfg.max_query_len)), state,
+                             batches[1:], None, dev)
+    del state
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    port = _free_port()
+    _run_logged([[sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", str(r),
+                  "--dp-port", str(port), "--dp-dir", str(DP_DIR)] for r in range(DP_RANKS)],
+                [DP_DIR / f"rank{r}.log" for r in range(DP_RANKS)], dict(os.environ),
+                "data parallel")
+    pair_s = time.perf_counter() - t0
+    ranks = [json.loads((DP_DIR / f"rank{r}.json").read_text()) for r in range(DP_RANKS)]
+    first = torch.load(DP_DIR / "first_step.pt", weights_only=True)
+    loss_rel = abs(first["loss"] - one_loss) / abs(one_loss)
+    rels = {n: float(torch.linalg.vector_norm(g.float() - g1)
+                     / torch.linalg.vector_norm(g1).clamp_min(1e-30))
+            for n, g, g1 in zip(names, first["grads"], one_grads)}
+    worst = max(rels, key=rels.get)
+    log(f"data parallel first step, 2 ranks x 512 rows against 1 process x 1024 (dropout 0): "
+        f"loss {first['loss']:.7f} against {one_loss:.7f} ({loss_rel:.3g} relative); "
+        f"{len(rels)} gradient leaves, worst {worst} {rels[worst]:.3g} of its norm")
+    check(loss_rel <= DP_LOSS_REL, f"data parallel first step: loss off by {loss_rel:.3g}")
+    check(rels[worst] <= DP_GRAD_REL, f"data parallel first step: {worst} off by {rels[worst]}")
+    for r in ranks:
+        check(r["device"] == "cuda:0" and r["backend"] == "gloo" and r["step"] == DP_STEPS,
+              f"data parallel rank {r['rank']}: {r['device']} {r['backend']} step {r['step']}")
+        check(r["replicas_agree"], f"data parallel rank {r['rank']}: the replicas differ after "
+              f"{DP_STEPS} steps at dropout {cfg.dropout}")
+        launches = r["launches"]
+        check(launches["rnn_fwd"] > 0 and launches["rnn_bwd"] == 4 * (DP_STEPS + 1),
+              f"data parallel rank {r['rank']}: launches {launches}, expected 4 rnn_bwd a step")
+        check(r["plain_calls"] == {"rnn_fwd": 0, "rnn_bwd": 0},
+              f"data parallel rank {r['rank']}: the plain versions ran {r['plain_calls']}")
+    check(ranks[0]["losses"] == ranks[1]["losses"], "data parallel: the ranks' losses differ")
+    nccl = _dp_nccl_train(triplets)
+    return {"single": single, "pair": {k: ranks[0][k] for k in
+                                       ("steps_per_sec", "examples_per_sec")},
+            "all_reduce_ms": ranks[0]["all_reduce_ms"], "loss_rel": loss_rel,
+            "worst_grad_rel": rels[worst], "worst_leaf": worst, "pair_s": pair_s,
+            "launches": [r["launches"] for r in ranks], "nccl": nccl}
+
+
+# ---------------------------------------------------------------------------
 # 32 queries at the widest tower widths; the IVF index
 # ---------------------------------------------------------------------------
 
@@ -2568,12 +2914,16 @@ def phase_traced(dev, setup, tf_setup, triplets) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on a GPU",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    if argv[:1] == ["--dp-rank"]:  # one rank of phase_data_parallel's pair
+        args = dict(zip(argv[::2], argv[1::2]))
+        return dp_rank_main(int(args["--dp-rank"]), int(args["--dp-port"]),
+                            Path(args["--dp-dir"]))
     try:
         import twotowermlretrieval_tpu_torch as pkg
     except ImportError as e:
@@ -2613,6 +2963,7 @@ def main() -> int:
         trained, setup = phase_train(dev, corpus)
         odd = phase_odd_width(dev, setup)
         tf = phase_transformer(dev, corpus)
+        dp = phase_data_parallel(dev, corpus)
         phase_device_times()
         traced = phase_traced(dev, setup, tf.pop("setup"), corpus[2])
         del setup
@@ -2634,7 +2985,8 @@ def main() -> int:
               "wide_engine_search": wide_engine["launches"], "serve_ivf": served_ivf["launches"],
               "traced_train": traced["gru_train"]["launches"],
               "traced_transformer_train": traced["tf_train"]["launches"],
-              "traced_serve": traced["serve"]["launches"]}
+              "traced_serve": traced["serve"]["launches"],
+              **{f"data_parallel_rank{r}": c for r, c in enumerate(dp["launches"])}}
     main_launches = {"rnn_fwd": served["launches"]["rnn_fwd"],
                      "segmax": served["launches"]["segmax"],
                      "rnn_bwd": trained["launches"]["rnn_bwd"],
@@ -2675,6 +3027,15 @@ def main() -> int:
         f"steady {tf['steady_steps_per_sec']:.3f} steps/s, "
         f"{tf['steady_examples_per_sec']:.1f} examples/s; request ms "
         f"{[round(ms, 3) for ms in tf['serve']['request_ms']]} ({card})")
+    log(f"data parallel, configs/msmarco_inbatch.json, {DP_RANKS} ranks x 512 rows on one card "
+        f"over gloo: {dp['pair']['steps_per_sec']:.3f} steps/s, "
+        f"{dp['pair']['examples_per_sec']:.1f} examples/s; one process at B=1024: "
+        f"{dp['single']['steps_per_sec']:.3f} steps/s, {dp['single']['examples_per_sec']:.1f} "
+        f"examples/s; gradient all-reduce ms a step "
+        f"{[round(ms, 3) for ms in dp['all_reduce_ms']]}; first step against one process: "
+        f"loss {dp['loss_rel']:.3g} relative, worst leaf {dp['worst_leaf']} "
+        f"{dp['worst_grad_rel']:.3g}; one-rank NCCL ttr-torch-train "
+        f"{dp['nccl']['examples_per_sec']:.1f} examples/s ({card})")
     log(f"ivf over {ivf['rows']} x {ivf['H']}: {json.dumps(ivf)} ({card})")
     log(f"serve ivf: nprobe {served_ivf['nprobe']}, measured recall "
         f"{served_ivf['measured_recall']:.4f}, request ms "
@@ -2695,4 +3056,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -34,7 +34,7 @@ _IMPORT_CHECK = textwrap.dedent("""
                  if m == "jax" or m.startswith("jax.") or m == "jaxlib"
                  or m.startswith("jaxlib.") or m == "twotowermlretrieval_tpu"
                  or m.startswith("twotowermlretrieval_tpu."))
-    print(json.dumps({"modules": len(names), "bad": bad}))
+    print(json.dumps({"modules": names, "bad": bad}))
 """)
 
 
@@ -54,7 +54,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     module of the JAX package is loaded. The prefix test must not mistake
     twotowermlretrieval_tpu_torch for the JAX package."""
     res = _run_import_check()
-    assert res["modules"] >= 20
+    assert len(res["modules"]) >= 20
+    for name in ("mesh", "collectives", "distributed"):
+        assert f"twotowermlretrieval_tpu_torch.parallel.{name}" in res["modules"]
     assert res["bad"] == []
     assert "twotowermlretrieval_tpu_torch".startswith("twotowermlretrieval_tpu")
 

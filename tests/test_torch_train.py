@@ -48,6 +48,15 @@ from twotowermlretrieval_tpu_torch.utils.pytree import named_leaves
 VOCAB, EMBED, HIDDEN, B, TQ, TD, STEPS = 80, 12, 16, 16, 6, 10, 10
 
 
+@pytest.fixture
+def unused_tcp_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def _configs(**kw):
     base = dict(
         vocab_size=VOCAB, embed_dim=EMBED, hidden_dim=HIDDEN, rnn_type="GRU", num_layers=2,
@@ -175,7 +184,7 @@ def test_clip_and_adam_match_optax(target_norm):
 
 
 @pytest.mark.parametrize("loss_type", ["triplet", "in_batch", "triplet+in_batch"])
-def test_losses_and_their_grads_match_jax(loss_type):
+def test_losses_and_their_grads_match_jax(loss_type, unused_tcp_port):
     rng = np.random.default_rng(4)
     q, p, n = (rng.normal(size=(8, 5)).astype(np.float32) for _ in range(3))
     q /= np.linalg.norm(q, axis=1, keepdims=True)
@@ -196,8 +205,30 @@ def test_losses_and_their_grads_match_jax(loss_type):
     for t, g in zip((tq, tp, tn), jgrads):
         got = np.zeros_like(np.asarray(g)) if t.grad is None else t.grad.numpy()
         np.testing.assert_allclose(got, np.asarray(g), rtol=1e-5, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        losses.combined_loss(tq, tp, tn, loss_type, 0.5, 0.05, axis_name="data")
+    # the cross-device form in a world of one gloo rank: the plain form
+    import torch.distributed as dist
+
+    from twotowermlretrieval_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+
+    initialize_multihost(f"127.0.0.1:{unused_tcp_port}", num_processes=1, process_id=0,
+                         device="cpu")
+    try:
+        group = make_mesh(1, 1).data_group
+        assert dist.get_world_size(group) == 1
+        grads = [t.grad for t in (tq, tp, tn)]
+        for t in (tq, tp, tn):
+            t.grad = None
+        val1 = losses.combined_loss(tq, tp, tn, loss_type, 0.5, 0.05,
+                                    weights=torch.from_numpy(w), axis_name=group)
+        val1.backward()
+        assert val1.item() == val.item()
+        for t, g in zip((tq, tp, tn), grads):
+            if g is None:
+                assert t.grad is None
+            else:
+                np.testing.assert_allclose(t.grad.numpy(), g.numpy(), rtol=1e-6, atol=1e-8)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_cosine_guards_each_norm():
@@ -386,9 +417,11 @@ def test_train_defaults_to_cuda_and_unported_options_raise(corpus, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train(cfg)
-    for kw, item in (({"mesh_data": 2}, "item 10"), ({"mesh_model": 2}, "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            train(cfg.replace(**kw), device="cpu")
+    # a data axis of 2 in a lone process: more ranks than the world holds
+    with pytest.raises(ValueError, match="needs 2 ranks but the world holds 1"):
+        train(cfg.replace(mesh_data=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        train(cfg.replace(mesh_model=2), device="cpu")
     # --profile_dir is ported: a run of 16 steps ends inside the window that
     # opens at step 10, and the trace is finalized with the run
     res = train(cfg.replace(epochs=2), output_root=tmp_path / "out", device="cpu",

@@ -1,15 +1,23 @@
 """Checkpoint / resume for params + optimizer state + data-order position.
 
-The port of the JAX package's ``train/checkpoint.py`` for one process:
-every save writes the whole :class:`TrainState` (trainable and frozen
-params, Adam moments and count, step, the dropout generator's state) into
+The port of the JAX package's ``train/checkpoint.py``: every save writes
+the whole :class:`TrainState` (trainable and frozen params, Adam moments
+and count, step, the dropout generator's state) into
 ``step_XXXXXXXX/state.pt`` (``torch.save`` of CPU tensors), written to a
 temporary directory and renamed into place, plus the data-iterator
 position in ``step_XXXXXXXX.position.json``, written atomically, beside
 it. The newest ``max_to_keep`` steps are kept. Restore copies the values
 into a template state built with the same config, so they land on the
-template's device bit for bit. The JAX package's Orbax directories are a
-different format and are not read (ROADMAP Queue 1 item 8).
+template's device bit for bit.
+
+With a mesh (data parallel) the state is replicated: rank 0 writes, with
+a barrier of every rank before and after the rename (no rank saves a
+state the others have not reached, nor goes on before the step is in
+place), and every rank restores. The file holds no world size: a
+checkpoint restores into any number of ranks, or one process, with the
+same params, moments and data position (the position counts global
+batches). The JAX package's Orbax directories are a different format and
+are not read (ROADMAP, "Not queued": Orbax checkpoint interchange).
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from twotowermlretrieval_tpu_torch.train.train_step import TrainState
 from twotowermlretrieval_tpu_torch.utils.pytree import named_leaves
@@ -46,14 +55,28 @@ def _load_into(tree, flat: Dict[str, torch.Tensor], what: str) -> None:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str | Path, max_to_keep: int = 3):
+    def __init__(self, directory: str | Path, max_to_keep: int = 3, mesh=None):
+        """``mesh``: the data-parallel run's mesh (``parallel/mesh.py``);
+        ``None`` for one process."""
         self.directory = Path(directory).resolve()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.mesh = mesh
 
     def save(self, state: TrainState, data_position: Optional[Dict[str, Any]] = None) -> Path:
         step = int(state.step)
         path = self.directory / f"step_{step:08d}"
+        if self.mesh is None:
+            self._write(state, step, path, data_position)
+            return path
+        dist.barrier()
+        if self.mesh.is_lead:
+            self._write(state, step, path, data_position)
+        dist.barrier()
+        return path
+
+    def _write(self, state: TrainState, step: int, path: Path,
+               data_position: Optional[Dict[str, Any]]) -> None:
         payload = {
             "trainable": _flat(state.trainable),
             "frozen": _flat(state.frozen),
@@ -79,7 +102,6 @@ class CheckpointManager:
         tmp_pos.write_text(json.dumps(data_position or {}))
         os.replace(tmp_pos, pos_file)
         self._gc()
-        return path
 
     def restore(self, template: TrainState, step: Optional[int] = None
                 ) -> Tuple[TrainState, Dict[str, Any]]:

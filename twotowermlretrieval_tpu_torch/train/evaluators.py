@@ -24,9 +24,10 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from twotowermlretrieval_tpu_torch.data.batching import pack_batch, unpack_batch
+from twotowermlretrieval_tpu_torch.data.batching import pack_batch
 from twotowermlretrieval_tpu_torch.encoder import TextEncoder
 from twotowermlretrieval_tpu_torch.ops.topk import _stable_topk
+from twotowermlretrieval_tpu_torch.parallel.mesh import put_global
 
 Triplet = Tuple[str, str, str]
 
@@ -65,18 +66,20 @@ class BatchEvaluator:
     def __init__(self, top_k: Sequence[int] = (1, 5, 10)):
         self.top_k = tuple(top_k)
 
-    def evaluate(self, eval_step, state, batcher, device, max_query_len: int
+    def evaluate(self, eval_step, state, batcher, device, mesh=None
                  ) -> Tuple[Dict[str, float], float]:
-        """eval_step: fn (state, Batch of device tensors) -> (q_emb, pos_emb,
-        {'val_loss'}); batcher: TripletBatcher over the validation split.
-        Each batch goes to ``device`` as one packed buffer. Results stay on
-        the device and are fetched once. Returns (metrics, avg_val_loss)."""
+        """eval_step: fn (state, packed [B, W] buffer on the device) ->
+        (q_emb, pos_emb, {'val_loss'}) over the whole batch; batcher:
+        TripletBatcher over the validation split. Each batch goes to
+        ``device`` as one packed buffer (with a mesh, this rank's rows of
+        it: the data-parallel eval step gathers the embeddings). Results
+        stay on the device and are fetched once. Returns (metrics,
+        avg_val_loss)."""
         dev_q, dev_p, masks = [], [], []
         dev_loss = None
         for batch in batcher.batches(seed=None):
             masks.append(batch.example_mask.astype(bool))
-            packed = torch.from_numpy(pack_batch(batch)).to(device)
-            q, p, m = eval_step(state, unpack_batch(packed, max_query_len))
+            q, p, m = eval_step(state, put_global(pack_batch(batch), mesh, device))
             dev_q.append(q)
             dev_p.append(p)
             dev_loss = m["val_loss"] if dev_loss is None else dev_loss + m["val_loss"]

@@ -1,5 +1,5 @@
 """End-to-end training driver, behind ``ttr-torch-train``: the port of the
-JAX package's ``train/loop.py`` for one device.
+JAX package's ``train/loop.py``.
 
 Pipeline: tokenizer + GloVe table -> triplet datasets -> train steps ->
 per-epoch batch and corpus evaluation -> artifact export -> qualitative
@@ -28,9 +28,23 @@ is the part after that and takes the datasets as a dict of triplet lists.
 Both tower types train (the recurrent and the transformer tower).
 ``--profile_dir`` traces about 10 steady steps from step 10 with
 ``torch.profiler`` (``utils/profiling.py``), as the JAX driver's window
-does. Not ported: a device mesh (``MESH_DATA``/``MESH_MODEL`` > 1) and a
-row-sharded embedding table (``SHARD_EMBEDDING_TABLE``), ROADMAP Queue 1
-item 10; each raises ``NotImplementedError``.
+does.
+
+Data parallel: ``main`` starts the ``torch.distributed`` world from
+torchrun's variables (``parallel/mesh.py:initialize_multihost``; a lone
+process stays a world of one), so ``torchrun --nproc-per-node N -m
+twotowermlretrieval_tpu_torch.train.loop --config <json>`` trains over N
+ranks, one a card (``cuda:LOCAL_RANK``). ``MESH_DATA`` ranks (-1: the
+whole world) split each global batch (``BATCH_SIZE`` must divide by
+them); every rank builds the same batches and the same replicated state
+and runs the data-parallel step on its rows (``parallel/distributed.py``),
+and batch, corpus and test evaluation run through the mesh. The metric
+sinks, the export and the test printout are rank 0's; checkpoints are
+written by rank 0 and restored by every rank; throughput counts the
+global batch's real rows. A 1x1 mesh is the single-device path. Not
+ported: the model axis (``MESH_MODEL`` > 1) and a row-sharded embedding
+table (``SHARD_EMBEDDING_TABLE``), ROADMAP Queue 1 item 10 (10b); each
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,6 +56,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from twotowermlretrieval_tpu_torch.config import Config
 from twotowermlretrieval_tpu_torch.data.batching import TripletBatcher, pack_batch, unpack_batch
@@ -49,6 +64,14 @@ from twotowermlretrieval_tpu_torch.data.glove import load_embedding_table
 from twotowermlretrieval_tpu_torch.data.loader import TripletBuilder
 from twotowermlretrieval_tpu_torch.encoder import TextEncoder
 from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec, init_two_tower, to_device
+from twotowermlretrieval_tpu_torch.parallel.mesh import (
+    Mesh,
+    initialize_multihost,
+    mesh_shape,
+    put_global,
+    rank_device,
+    resolve_mesh,
+)
 from twotowermlretrieval_tpu_torch.tokenizer import Tokenizer
 from twotowermlretrieval_tpu_torch.train.artifacts import save_inference_artifacts
 from twotowermlretrieval_tpu_torch.train.checkpoint import CheckpointManager
@@ -83,17 +106,29 @@ def setup(config: Config):
 
 
 def _check_supported(config: Config) -> None:
-    if config.mesh_data not in (-1, 1) or config.mesh_model != 1:
+    if config.mesh_model != 1:
         raise NotImplementedError(
-            f"a device mesh (MESH_DATA={config.mesh_data}, MESH_MODEL={config.mesh_model}) "
-            "is not ported yet (ROADMAP Queue 1 item 10); use MESH_DATA 1 or -1 "
-            "and MESH_MODEL 1"
+            f"the model axis of the mesh (MESH_MODEL={config.mesh_model}) is not ported yet "
+            "(ROADMAP Queue 1 item 10, 10b); use MESH_MODEL 1"
         )
     if config.shard_embedding_table:
         raise NotImplementedError(
-            "a row-sharded embedding table (SHARD_EMBEDDING_TABLE) needs the mesh, not ported "
-            "yet (ROADMAP Queue 1 item 10); use SHARD_EMBEDDING_TABLE false"
+            "a row-sharded embedding table (SHARD_EMBEDDING_TABLE) needs the model axis, not "
+            "ported yet (ROADMAP Queue 1 item 10, 10b); use SHARD_EMBEDDING_TABLE false"
         )
+    data, _ = mesh_shape(config.mesh_data, config.mesh_model)  # raises past the world
+    if config.batch_size % data:
+        raise ValueError(
+            f"BATCH_SIZE={config.batch_size} must be divisible by the "
+            f"data mesh axis ({data})"
+        )
+
+
+def build_mesh(config: Config) -> Optional[Mesh]:
+    """The ('data', 'model') mesh of ``MESH_DATA`` x ``MESH_MODEL`` ranks,
+    or ``None`` for the single-device path (1x1). Every rank calls it."""
+    _check_supported(config)
+    return resolve_mesh(config.mesh_data, config.mesh_model)
 
 
 def packed_groups(batches, K: int) -> Iterator[Tuple[np.ndarray, int]]:
@@ -195,9 +230,14 @@ def train_on_datasets(
     Returns the JAX driver's results (run name, throughput, per-epoch
     metrics, artifacts directory, test eval) plus ``steps``,
     ``step_losses`` (every step's loss, fetched once per epoch),
-    ``steady_steps_per_sec`` and the final ``state``."""
-    _check_supported(config)
+    ``steady_steps_per_sec`` and the final ``state``. Under a mesh every
+    rank returns them but for the artifacts directory and the test eval,
+    which are rank 0's."""
+    mesh = build_mesh(config)
     dev = resolve_device(device)
+    if mesh is not None:
+        dev = rank_device(dev)
+    lead = mesh is None or mesh.is_lead
     if config.log_param_stats is None:
         config = config.replace(log_param_stats=use_wandb)
     if config.log_param_histograms is None:
@@ -213,8 +253,8 @@ def train_on_datasets(
         # eval-only mode: the saved weights, the test evaluator, nothing else
         from twotowermlretrieval_tpu_torch.utils.pytree import load_params_npz
 
-        logger = MetricLogger(use_wandb=use_wandb, wandb_config=config.to_dict(),
-                              run_name=run_name)
+        logger = MetricLogger(use_wandb=use_wandb and lead, stdout=lead,
+                              wandb_config=config.to_dict(), run_name=run_name)
         results = {
             "run_name": logger.run_name,
             "test_eval": TestEvaluator(seed=config.seed).evaluate(
@@ -229,10 +269,41 @@ def train_on_datasets(
     generator = torch.Generator(device=dev).manual_seed(config.seed + 1)
     state = create_train_state(generator, to_device(params, dev), config)
     del params
+    if mesh is not None:
+        from twotowermlretrieval_tpu_torch.parallel.distributed import (
+            MeshTextEncoder,
+            make_sharded_packed_eval_step,
+            make_sharded_packed_train_step,
+            replicate_state,
+        )
 
-    logger = MetricLogger(use_wandb=use_wandb, wandb_config=config.to_dict(), run_name=run_name)
+        state = replicate_state(state, mesh)
+
+    # only rank 0 owns the sinks: N ranks would print (and log to W&B) N-fold
+    logger = MetricLogger(use_wandb=use_wandb and lead, stdout=lead,
+                          wandb_config=config.to_dict(), run_name=run_name)
     results: Dict[str, Any] = {"run_name": logger.run_name}
-    eval_step = make_eval_step(spec, config)
+
+    def build_step(step_config):
+        """(state, packed [B(_local), W] rows on the device) -> (state, metrics)."""
+        if mesh is not None:
+            return make_sharded_packed_train_step(spec, step_config, mesh,
+                                                  step_config.max_query_len)
+        raw_step = make_train_step(spec, step_config)
+        return lambda st, packed: raw_step(st, unpack_batch(packed, step_config.max_query_len))
+
+    if mesh is not None:
+        eval_step = make_sharded_packed_eval_step(spec, config, mesh, config.max_query_len)
+        mesh_encoder = MeshTextEncoder(state, spec, tokenizer, mesh, dev,
+                                       batch_size=config.batch_size,
+                                       max_query_len=config.max_query_len,
+                                       max_doc_len=config.max_doc_len)
+    else:
+        raw_eval = make_eval_step(spec, config)
+
+        def eval_step(st, packed):
+            return raw_eval(st, unpack_batch(packed, config.max_query_len))
+
     batch_evaluator = BatchEvaluator()
     corpus_evaluator = CorpusEvaluator(seed=config.seed)
     train_batcher = TripletBatcher(
@@ -246,11 +317,10 @@ def train_on_datasets(
     K = max(1, int(config.steps_per_dispatch))
     # Histograms bucket every grad/param element; they are computed only in
     # groups that cross a log boundary, as in the JAX driver.
-    train_step = make_train_step(spec, config.replace(log_param_histograms=False))
-    train_step_hist = (make_train_step(spec, config) if config.log_param_histograms
-                       else train_step)
+    train_step = build_step(config.replace(log_param_histograms=False))
+    train_step_hist = build_step(config) if config.log_param_histograms else train_step
 
-    ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
+    ckpt = CheckpointManager(checkpoint_dir, mesh=mesh) if checkpoint_dir else None
     start_epoch, skip_batches = 0, 0
     if resume and ckpt and ckpt.latest_step() is not None:
         state, position = ckpt.restore(state)
@@ -301,9 +371,9 @@ def train_on_datasets(
             t_group0 = None if first_group_done else time.time()
             crosses_log = step // config.log_every_steps != (step + k) // config.log_every_steps
             fn = train_step_hist if crosses_log else train_step
-            packed = torch.from_numpy(stack).to(dev)
+            packed = put_global(stack, mesh, dev, axis=1)  # this rank's rows of each batch
             for i in range(k):
-                state, metrics = fn(state, unpack_batch(packed[i], config.max_query_len))
+                state, metrics = fn(state, packed[i])
                 epoch_losses.append(metrics["loss"])
                 scalars = _scalars(metrics)
                 running = (dict(scalars) if running is None
@@ -349,10 +419,12 @@ def train_on_datasets(
                      if running is not None else {})
 
         batch_metrics, avg_val_loss = batch_evaluator.evaluate(
-            eval_step, state, val_batcher, dev, config.max_query_len
+            eval_step, state, val_batcher, dev, mesh
         )
         corpus_metrics = corpus_evaluator.evaluate(
-            encoder_for(merge_params(state.trainable, state.frozen)), datasets["validation"]
+            mesh_encoder if mesh is not None
+            else encoder_for(merge_params(state.trainable, state.frozen)),
+            datasets["validation"],
         )
         log_data = {"epoch": epoch + 1, "avg_train_loss": avg_train.get("loss", 0.0),
                     "avg_val_loss": avg_val_loss}
@@ -387,16 +459,19 @@ def train_on_datasets(
     if profile_window is not None:
         results["profile_window"] = profile_window
 
-    final_params = merge_params(state.trainable, state.frozen)
-    output_dir = Path(output_root) / logger.run_name
-    export_encoder = encoder_for(final_params)
-    save_inference_artifacts(output_dir, final_params, config, tokenizer, datasets,
-                             encoder=export_encoder)
-    results["artifacts_dir"] = str(output_dir)
-    if datasets.get("test"):
-        results["test_eval"] = TestEvaluator(seed=config.seed).evaluate(
-            export_encoder, datasets["test"]
-        )
+    if lead:  # file writes and the printout are rank 0's
+        final_params = merge_params(state.trainable, state.frozen)
+        output_dir = Path(output_root) / logger.run_name
+        export_encoder = encoder_for(final_params)
+        save_inference_artifacts(output_dir, final_params, config, tokenizer, datasets,
+                                 encoder=export_encoder)
+        results["artifacts_dir"] = str(output_dir)
+        if datasets.get("test"):
+            results["test_eval"] = TestEvaluator(seed=config.seed).evaluate(
+                export_encoder, datasets["test"]
+            )
+    if mesh is not None:
+        dist.barrier()  # no rank leaves before the export is written
     logger.finish()
     return results
 
@@ -421,16 +496,21 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     config = Config.from_json(args.config)
-    results = train(
-        config,
-        use_wandb=args.wandb,
-        output_root=args.output,
-        checkpoint_dir=args.checkpoint_dir,
-        resume=args.resume,
-        model_path=args.model_path,
-        profile_dir=args.profile_dir,
-        device=args.device,
-    )
+    initialize_multihost(device=args.device)  # torchrun's world, if it started one
+    try:
+        results = train(
+            config,
+            use_wandb=args.wandb,
+            output_root=args.output,
+            checkpoint_dir=args.checkpoint_dir,
+            resume=args.resume,
+            model_path=args.model_path,
+            profile_dir=args.profile_dir,
+            device=args.device,
+        )
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     if "examples_per_sec" in results:
         print(f"training finished: {results['examples_per_sec']:.1f} examples/s")
     if "artifacts_dir" in results:

@@ -1,6 +1,6 @@
 """The training step: forward 3 towers -> loss -> grad -> clip -> Adam.
 
-The port of the JAX package's ``train/train_step.py`` for one device:
+The port of the JAX package's ``train/train_step.py``:
 
 - frozen embedding tables are partitioned out of the trained params, so
   they get no gradient and no Adam state (the reference's
@@ -17,6 +17,18 @@ State is a plain dataclass (trainable and frozen trees of tensors, the
 Adam moments, the step, the dropout generator). Unlike the JAX step,
 which returns a new state, :func:`make_train_step`'s function updates the
 parameters and moments in place and returns the same state object.
+
+The data-parallel step (``axis_name``, the ``data`` process group of the
+caller's mesh) runs on each rank over its rows of the global batch, with
+the state replicated: the losses and metrics are normalized over the
+global batch; the gradients and the metrics go through ONE all-reduce a
+step, then the gradients are divided by the rank count D (JAX's
+``pmean``), clipped by their plain global norm (every gradient is
+replicated) and applied by Adam, so every rank takes the same update.
+Dropout follows JAX's split-then-fold-in: each step draws one seed from
+the state's generator (the same draw on every rank, so the generator
+advances alike everywhere) and the rank seeds a device generator of its
+own from (that seed, its index).
 """
 
 from __future__ import annotations
@@ -24,14 +36,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from twotowermlretrieval_tpu_torch.data.batching import Batch
 from twotowermlretrieval_tpu_torch.models.losses import (
     combined_loss,
     triplet_loss_cosine,
-    weighted_mean,
 )
+from twotowermlretrieval_tpu_torch.parallel.collectives import axis_index, axis_size, psum_
 from twotowermlretrieval_tpu_torch.models.two_tower import (
     TwoTowerSpec,
     encode_document,
@@ -137,7 +150,10 @@ def apply_clip_and_adam(state: TrainState, grads, config) -> torch.Tensor:
 
 
 def _forward_and_metrics(params, batch: Batch, spec: TwoTowerSpec, config,
-                         generator: Optional[torch.Generator], train: bool):
+                         generator: Optional[torch.Generator], train: bool, axis_name=None):
+    """(loss, metric numerators, their denominator): each metric but the
+    loss is ``sums[name] / max(den, 1)``, a weighted mean over this rank's
+    rows; the data-parallel step sums both over the ranks first."""
     q = encode_query(params, batch.q_tokens, batch.q_len, spec, train=train,
                      generator=generator)
     B = batch.pos_tokens.shape[0]
@@ -159,31 +175,35 @@ def _forward_and_metrics(params, batch: Batch, spec: TwoTowerSpec, config,
     w = batch.example_mask
 
     loss = combined_loss(q, p, n if n is not None else p, config.loss_type, config.margin,
-                         config.temperature, weights=w)
+                         config.temperature, weights=w, axis_name=axis_name,
+                         gather_negatives=config.cross_device_negatives)
 
     with torch.no_grad():
+        def wsum(x):
+            return torch.sum(x * w)
+
         pos_sim = torch.sum(q * p, dim=-1)
-        metrics = {
-            "loss": loss.detach(),
-            "pos_similarity": weighted_mean(pos_sim, w),
-            "query_magnitude": weighted_mean(torch.linalg.vector_norm(q, dim=-1), w),
-            "doc_magnitude": weighted_mean(torch.linalg.vector_norm(p, dim=-1), w),
+        sums = {
+            "pos_similarity": wsum(pos_sim),
+            "query_magnitude": wsum(torch.linalg.vector_norm(q, dim=-1)),
+            "doc_magnitude": wsum(torch.linalg.vector_norm(p, dim=-1)),
         }
         if n is not None:
             neg_sim = torch.sum(q * n, dim=-1)
-            metrics["triplet_accuracy"] = weighted_mean((pos_sim > neg_sim).float(), w)
-            metrics["similarity_gap"] = weighted_mean(pos_sim - neg_sim, w)
-            metrics["neg_similarity"] = weighted_mean(neg_sim, w)
+            sums["triplet_accuracy"] = wsum((pos_sim > neg_sim).float())
+            sums["similarity_gap"] = wsum(pos_sim - neg_sim)
+            sums["neg_similarity"] = wsum(neg_sim)
         if "in_batch" in config.loss_type:
-            # top-1 retrieval accuracy over the in-batch similarity matrix
-            # (positive on the diagonal); padded columns excluded as in the loss
+            # top-1 retrieval accuracy over this rank's [B, B] in-batch
+            # similarity matrix (positive on the diagonal), as JAX's;
+            # padded columns excluded as in the loss
             logits = torch.matmul(q, p.T)
             eye = torch.eye(B, dtype=torch.bool, device=q.device)
             col_ok = (w > 0)[None, :] | eye
             logits = torch.where(col_ok, logits, torch.full_like(logits, -torch.inf))
             hit = (torch.argmax(logits, dim=-1) == torch.arange(B, device=q.device)).float()
-            metrics["in_batch_accuracy"] = weighted_mean(hit, w)
-    return loss, metrics
+            sums["in_batch_accuracy"] = wsum(hit)
+    return loss, sums, torch.sum(w)
 
 
 def _leaf_histogram(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -208,26 +228,77 @@ def _add_param_stats(metrics, names, grads, params, histograms: bool, norms: boo
             metrics[f"param_hist/{name}"], metrics[f"param_hist_max/{name}"] = _leaf_histogram(p)
 
 
-def make_train_step(spec: TwoTowerSpec, config, axis_name: Optional[str] = None):
+def _fold_in(generator: torch.Generator, index: int, cache: dict) -> torch.Generator:
+    """A generator on ``generator``'s device seeded from (one draw of
+    ``generator``, ``index``): the same draw on every rank, a different
+    stream on each."""
+    dev = generator.device
+    seed = int(torch.randint(0, 2 ** 62, (), generator=generator, device=dev))
+    mixed = np.random.SeedSequence([seed, index]).generate_state(2, np.uint32)
+    rank_gen = cache.get(dev)
+    if rank_gen is None:
+        rank_gen = cache[dev] = torch.Generator(device=dev)
+    return rank_gen.manual_seed(int(mixed[0]) << 31 ^ int(mixed[1]))
+
+
+def make_grad_step(spec: TwoTowerSpec, config, axis_name=None):
+    """``grad_step(state, batch) -> (grads, metrics)``: the train step up
+    to the clip, gradients in :func:`named_leaves` order. With
+    ``axis_name`` the gradients are the mean over the ranks and the
+    metrics global, through one all-reduce."""
+    rank_gens: dict = {}
+
+    def grad_step(state: TrainState, batch: Batch):
+        leaves = [p for _, p in named_leaves(state.trainable)]
+        generator = state.generator
+        if axis_name is not None:
+            # decorrelate dropout masks across ranks (the replicated
+            # generator would otherwise drop the same units of other rows)
+            generator = _fold_in(generator, axis_index(axis_name), rank_gens)
+        with torch.enable_grad():
+            params = merge_params(state.trainable, state.frozen)
+            loss, sums, den = _forward_and_metrics(params, batch, spec, config, generator,
+                                                   train=True, axis_name=axis_name)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+        loss = loss.detach()
+        if axis_name is not None:
+            with torch.no_grad():
+                # one all-reduce a step: the gradients, the per-rank loss
+                # (scaled by D, see weighted_mean), the metric sums and den
+                names = list(sums)
+                flat = torch.cat([g.reshape(-1).float() for g in grads]
+                                 + [torch.stack([loss] + [sums[k] for k in names] + [den])])
+                psum_(flat, axis_name)
+                D = axis_size(axis_name)
+                out, off = [], 0
+                for g in grads:
+                    out.append((flat[off : off + g.numel()] / D).view_as(g).to(g.dtype))
+                    off += g.numel()
+                grads = out
+                loss = flat[off] / D
+                sums = dict(zip(names, flat[off + 1 : off + 1 + len(names)]))
+                den = flat[-1]
+        metrics = {"loss": loss}
+        den = den.clamp_min(1.0)
+        metrics.update({k: v / den for k, v in sums.items()})
+        return grads, metrics
+
+    return grad_step
+
+
+def make_train_step(spec: TwoTowerSpec, config, axis_name=None):
     """The train-step function ``step(state, batch) -> (state, metrics)``.
     Metrics are scalar (or histogram) tensors on the device; nothing is
-    fetched to the host. ``axis_name`` (the data-parallel step) belongs to
-    the multi-device slice."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "the data-parallel train step is not ported yet (ROADMAP Queue 1 item 10)"
-        )
+    fetched to the host. ``axis_name``: the ``data`` process group of the
+    data-parallel step (``parallel/distributed.py``)."""
+    grad_step = make_grad_step(spec, config, axis_name)
 
     def train_step(state: TrainState, batch: Batch):
         named = named_leaves(state.trainable)
         names = [n for n, _ in named]
         leaves = [p for _, p in named]
-        with torch.enable_grad():
-            params = merge_params(state.trainable, state.frozen)
-            loss, metrics = _forward_and_metrics(params, batch, spec, config, state.generator,
-                                                 train=True)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+        grads, metrics = grad_step(state, batch)
         norms = bool(getattr(config, "log_param_stats", False))
         hists = bool(getattr(config, "log_param_histograms", False))
         if norms or hists:  # of the params before this step's update, as JAX's
@@ -239,14 +310,11 @@ def make_train_step(spec: TwoTowerSpec, config, axis_name: Optional[str] = None)
     return train_step
 
 
-def make_eval_step(spec: TwoTowerSpec, config, axis_name: Optional[str] = None):
+def make_eval_step(spec: TwoTowerSpec, config, axis_name=None):
     """Validation step: no dropout, no update. Returns (q_emb, pos_emb,
     {'val_loss'}); the validation loss is the triplet loss whatever the
-    training loss."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "the data-parallel eval step is not ported yet (ROADMAP Queue 1 item 10)"
-        )
+    training loss. With ``axis_name`` the embeddings are this rank's rows
+    and the loss is the global batch's."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch):
@@ -258,7 +326,10 @@ def make_eval_step(spec: TwoTowerSpec, config, axis_name: Optional[str] = None):
             torch.cat([batch.pos_len, batch.neg_len]), spec,
         )
         p, n = d[:B], d[B:]
-        loss = triplet_loss_cosine((q, p, n), config.margin, weights=batch.example_mask)
+        loss = triplet_loss_cosine((q, p, n), config.margin, weights=batch.example_mask,
+                                   axis_name=axis_name)
+        if axis_name is not None:
+            loss = psum_(loss, axis_name) / axis_size(axis_name)
         return q, p, {"val_loss": loss}
 
     return eval_step
