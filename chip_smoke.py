@@ -60,6 +60,25 @@
    path) for one epoch over parquet splits of the corpus. The ranks and the
    run write their logs to files, are waited on for at most 300 s and
    killed when one fails.
+9. Trains on the model axis (``phase_model_axis``): config 5 as written
+   (``configs/transformer_tp.json``: MESH_MODEL 2 and SHARD_EMBEDDING_TABLE
+   true, so a 1x2 mesh; heads, FFN columns and each tower's 400,000 x 100
+   table split in two) with FUSED_ATTENTION true, as two ranks on the one
+   card over gloo (``--tp-rank``, as the data-parallel pair). The first
+   step at dropout 0 over 512 rows, gradients gathered whole, is held
+   against one process holding the whole model: the loss within 1e-3
+   relative, each leaf within 2e-2 of its norm. Then 4 steps at dropout
+   0.1 through the training driver (``train_on_datasets``, evaluation and
+   export included), each step timed with its model-group all-reduces
+   (count, bytes, ms) and its launches: 12 ``attention_fwd`` and 12
+   ``attention_bwd`` a rank, at R = 512 x 4 local heads, and no
+   plain-version call. Both ranks' replicated leaves must be bit for bit
+   equal, each rank's shards its slice of the gathered tree; the pair's
+   ``model.npz`` must equal the gathered params, and one dense search over
+   it by the single-device engine launches 6 ``attention_fwd`` and 1
+   ``segmax``. Last, the GRU towers (``configs/msmarco_inbatch.json``,
+   B=1024) over a sharded, trained table: the first step against one
+   process's, ``rnn_fwd`` and ``rnn_bwd`` 4 each in each rank.
 
 Step 3 holds the forward kernel at four shapes (the query encode, the
 export, the training query and doc towers), each timed beside cuDNN's GRU,
@@ -299,6 +318,39 @@ DP_WAIT_S = 300
 # width), 1,024 validation and 64 test triplets, written as parquet.
 DP_NCCL_SPLITS = {"train": slice(25_000, 33_192), "validation": slice(33_192, 34_216),
                   "test": slice(34_216, 34_280)}
+# The model axis: config 5 as written (configs/transformer_tp.json: MESH_DATA
+# -1, MESH_MODEL 2, SHARD_EMBEDDING_TABLE true, so a 1x2 mesh: heads, FFN
+# columns and each tower's 400,000 x 100 table split in two) plus
+# FUSED_ATTENTION true, over two ranks on the one card over gloo (as the
+# data-parallel pair), on the triplets the transformer phase trains on:
+# TP_STEPS steps of B=512 through the training driver, 512 validation
+# triplets, no test split.
+TP_RANKS, TP_STEPS = 2, 4
+TP_DIR = TRAIN_DIR / "tp"
+# The first step, the pair against one process holding the whole model
+# over the same 512 rows on the card, dropout off. The pair splits the
+# out-projections' contractions in two and adds the halves in the
+# all-reduce: f32 sums in another order, whose last-bit changes can flip
+# the bf16 rounding of the next block's operands. A CPU rehearsal of this
+# comparison (plain versions, 6 blocks of H=64, 8 heads, FFN 1024, B=64,
+# a 3,000-row table) moved the loss by 4.1e-5 relative and the worst
+# gradient leaf by 4.4e-3 of its norm; the card, 4.26e-6 and 4.51e-3.
+# Envelope: 2e-4 relative on the loss (5x the rehearsal) and
+# STEP_GRAD_REL of each leaf's norm (4.4x).
+TP_LOSS_REL = 2e-4
+TP_GRAD_REL = STEP_GRAD_REL
+# The GRU towers with a sharded, trained table: configs/msmarco_inbatch.json
+# (B=1024) with FREEZE_EMBEDDINGS false, MESH_MODEL 2 and
+# SHARD_EMBEDDING_TABLE true; its first step against one process's. The
+# lookup is exact and the towers are replicated, so only the order of a
+# few f32 sums in the table's gradient differs: the rehearsal read 0 on
+# the loss and 4.5e-7 of the worst leaf's norm, the card 0 and 8.5e-7 to
+# 9.5e-7 (doc/embedding). Envelope: 1e-6 relative on the loss and 1e-5 of
+# each leaf's norm; a row the lookup sends to the wrong shard moves the
+# table's gradient by far more.
+GRU_ROWS = 1024
+TP_GRU_TRIPLETS = slice(15_000, 15_000 + 2 * GRU_ROWS)
+TP_GRU_LOSS_REL, TP_GRU_GRAD_REL = 1e-6, 1e-5
 
 
 class SmokeFailure(Exception):
@@ -343,12 +395,18 @@ def time_ms_device(fn, reps: int = 20) -> float:
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            break
+        # now and then a session hands back no device records (seen once
+        # in about ten runs on the H100): trace the same calls again
+        log(f"torch.profiler traced no device time in session {attempt + 1} of 3")
     check(us > 0, "torch.profiler traced no device time")
     return us / 1e3 / reps
 
@@ -601,6 +659,9 @@ def phase_kernels(dev) -> dict:
             check_rnn("GRU", 2 * TRAIN_ROWS, DOC_LEN, 8, dev, timed=True),  # train: doc tower
             check_rnn("LSTM", SERVE_ROWS, QUERY_LEN, 3, dev, timed=False),
             check_rnn("RNN", SERVE_ROWS, QUERY_LEN, 4, dev, timed=False),
+            # the model axis's GRU step (phase_model_axis): its query tower
+            # at B=1024 (its doc tower's shape is the export's, above)
+            check_rnn("GRU", GRU_ROWS, QUERY_LEN, 9, dev, timed=False),
         ]
         npad_serve = -(-PASSAGES // 8192) * 8192
         seg = [
@@ -1235,6 +1296,9 @@ def phase_bwd_kernels(dev) -> list:
         check_rnn_bwd_split(2 * TRAIN_ROWS, DOC_LEN, 16, dev),  # doc tower, split mode
         # the width the JAX package's split plan keeps on its kernel: one dhp row block
         check_rnn_bwd("GRU", TRAIN_ROWS, QUERY_LEN, 17, dev, timed=True, H=WIDE_H),
+        # the model axis's GRU step (phase_model_axis): both towers at B=1024
+        check_rnn_bwd("GRU", GRU_ROWS, QUERY_LEN, 18, dev, timed=False),
+        check_rnn_bwd("GRU", GRU_ROWS, DOC_LEN, 19, dev, timed=False),
     ]
 
 
@@ -1330,8 +1394,9 @@ def phase_wide_s8(dev) -> dict:
     return rec
 
 
-def check_attention(B: int, T: int, in_dtype, seed: int, dev, hd: int = TF_HD) -> tuple:
-    """Both attention kernels at B rows of 8 heads (R = 8B), head width hd,
+def check_attention(B: int, T: int, in_dtype, seed: int, dev, hd: int = TF_HD,
+                    heads: int = TF_HEADS) -> tuple:
+    """Both attention kernels at B rows of ``heads`` heads (R = B x heads), head width hd,
     bf16 compute, against their plain versions; rows of batch element 0 have
     length 0 (fully masked), 1 has length 1, 2 all of T. Timed beside SDPA
     with the same additive mask (forward, and forward+backward minus
@@ -1348,14 +1413,14 @@ def check_attention(B: int, T: int, in_dtype, seed: int, dev, hd: int = TF_HD) -
         attention_plan,
     )
 
-    R = B * TF_HEADS
+    R = B * heads
     gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, do = (torch.randn((R, T, hd), generator=gen, device=dev) for _ in range(4))
     q, k, v = (t.to(in_dtype) for t in (q, k, v))
     lengths = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
     lengths[:3] = torch.tensor([0, 1, T], device=dev)
     bias = torch.where(torch.arange(T, device=dev)[None, :] < lengths[:, None], 0.0, -1e9)
-    bias = bias.repeat_interleave(TF_HEADS, dim=0)  # [R, T], row b * heads + h
+    bias = bias.repeat_interleave(heads, dim=0)  # [R, T], row b * heads + h
     scale = float(1.0 / np.sqrt(hd))
     args = (q, k, v, bias)
     out = attention_fwd(*args, scale, "bfloat16")
@@ -1363,7 +1428,7 @@ def check_attention(B: int, T: int, in_dtype, seed: int, dev, hd: int = TF_HD) -
     r_out = attention_fwd_reference(*args, scale, "bfloat16")
     r_grads = attention_bwd_reference(*args, do, scale, "bfloat16")
     torch.cuda.synchronize()
-    shape = (f"R={R} (B={B} x {TF_HEADS} heads) T={T} hd={hd} "
+    shape = (f"R={R} (B={B} x {heads} heads) T={T} hd={hd} "
              f"{'bf16' if in_dtype == torch.bfloat16 else 'f32'} in, bf16 compute")
     plan = attention_plan(T, hd, "bfloat16")
     def tile(t):
@@ -1378,15 +1443,15 @@ def check_attention(B: int, T: int, in_dtype, seed: int, dev, hd: int = TF_HD) -
     fwd_rel = fwd_err / r_out.abs().max().item()
     bwd_rel = max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(grads, r_grads))
     # the fully masked rows attend uniformly: each output row is v's mean
-    uniform = v[:TF_HEADS].to(torch.bfloat16).float().mean(dim=1, keepdim=True)
-    masked_err = (out[:TF_HEADS] - uniform).abs().max().item()
+    uniform = v[:heads].to(torch.bfloat16).float().mean(dim=1, keepdim=True)
+    masked_err = (out[:heads] - uniform).abs().max().item()
     log(f"attention {shape}: |fwd diff| {fwd_err:.3g} ({fwd_rel:.3g} of the scale), "
         f"|bwd diff| {bwd_err:.3g} ({bwd_rel:.3g}), fully masked rows off uniform by "
         f"{masked_err:.3g}")
     check(all(bool(torch.isfinite(t).all()) for t in (out, *grads)),
           f"attention {shape}: non-finite output")
     check(fwd_rel <= ATTN_REL and bwd_rel <= ATTN_REL, f"attention {shape}: off its plain version")
-    check(masked_err <= 4 * ATTN_REL * v[:TF_HEADS].float().abs().max().item(),
+    check(masked_err <= 4 * ATTN_REL * v[:heads].float().abs().max().item(),
           f"attention {shape}: a fully masked row is not uniform")
     # no atomics, a fixed summation order: a second call gives the same bits
     bitwise = (torch.equal(out, attention_fwd(*args, scale, "bfloat16"))
@@ -1514,7 +1579,9 @@ def phase_attention_kernels(dev) -> dict:
     the main row), its query tower (T=32), one serving batch (16 rows,
     T=32) and two T=512 cases (hd=32, and hd=64 with V staged over K); each
     with f32 inputs (the f32 residual stream) and with bf16 inputs
-    (RESIDUAL_DTYPE bfloat16); then f32 compute at hd=64, T=512."""
+    (RESIDUAL_DTYPE bfloat16); then the model axis's (phase_model_axis:
+    each rank's TF_HEADS / TP_RANKS local heads of B=512 rows at T=128 and
+    T=32, f32 inputs); then f32 compute at hd=64, T=512."""
     fwd, bwd = [], []
     with torch.no_grad():
         for in_dtype in (torch.float32, torch.bfloat16):
@@ -1524,6 +1591,11 @@ def phase_attention_kernels(dev) -> dict:
                 f, b = check_attention(B, T, in_dtype, 30 + i, dev, hd)
                 fwd.append(f)
                 bwd.append(b)
+        for i, T in enumerate((DOC_LEN, QUERY_LEN)):
+            f, b = check_attention(TF_ROWS, T, torch.float32, 40 + i, dev, TF_HD,
+                                   heads=TF_HEADS // TP_RANKS)
+            fwd.append(f)
+            bwd.append(b)
         f, b = check_attention_f32(dev)
         fwd.append(f)
         bwd.append(b)
@@ -2504,6 +2576,399 @@ def phase_data_parallel(dev, corpus) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the model axis: config 5 as written over two ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+def _full_batch(cfg, tok, triplets) -> np.ndarray:
+    """The first packed batch of the epoch's order whose rows are all real
+    (a bucket's last batch is repeat-padded)."""
+    from twotowermlretrieval_tpu_torch.data.batching import TripletBatcher, pack_batch
+
+    batcher = TripletBatcher(triplets, tok, cfg.batch_size, cfg.max_query_len,
+                             cfg.max_doc_len, length_buckets=cfg.length_buckets)
+    for batch in batcher.batches(seed=cfg.seed + 1000):
+        packed = pack_batch(batch)
+        if packed[:, -1].all():
+            return packed
+    raise SmokeFailure(f"no full batch of {cfg.batch_size} rows")
+
+
+def _tp_configs(word_to_idx, table):
+    """(config 5 as written with FUSED_ATTENTION true and its paths at
+    TP_DIR, the GRU towers' sharded-table config, tokenizer, table), after
+    the driver's ``setup``; checks the values the phase stands for."""
+    from twotowermlretrieval_tpu_torch.config import Config
+    from twotowermlretrieval_tpu_torch.data.glove import save_embedding_artifacts
+    from twotowermlretrieval_tpu_torch.train.loop import setup
+
+    save_embedding_artifacts(TP_DIR, table, word_to_idx)
+    paths = dict(embeddings_path=str(TP_DIR / "embeddings.npy"),
+                 word_to_idx_path=str(TP_DIR / "word_to_idx.pkl"), epochs=1)
+    cfg, tok, table = setup(Config.from_json(TF_CONFIG).replace(fused_attention=True, **paths))
+    check(cfg.tower_type == "transformer" and cfg.hidden_dim == H and cfg.num_layers == 6
+          and cfg.num_heads == TF_HEADS and cfg.ffn_dim == 1024 and cfg.dropout == 0.1
+          and cfg.loss_type == "in_batch" and cfg.batch_size == TF_ROWS
+          and not cfg.freeze_embeddings and cfg.compute_dtype == "bfloat16"
+          and cfg.mesh_data == -1 and cfg.mesh_model == TP_RANKS and cfg.shard_embedding_table
+          and cfg.vocab_size == VOCAB and cfg.embed_dim == EMBED,
+          "model axis: config 5 (configs/transformer_tp.json) as written")
+    gru, _, _ = setup(Config.from_json(DP_CONFIG).replace(
+        freeze_embeddings=False, mesh_model=TP_RANKS, shard_embedding_table=True, **paths))
+    check(gru.tower_type == "rnn" and gru.hidden_dim == H and gru.batch_size == GRU_ROWS,
+          "model axis: configs/msmarco_inbatch.json")
+    return cfg, gru, tok, table
+
+
+def _whole_state(cfg, table, dev):
+    """The full deterministic init every rank builds (and the one process
+    holds): params from config.seed, the dropout stream from seed + 1."""
+    from twotowermlretrieval_tpu_torch.models.two_tower import (
+        TwoTowerSpec,
+        init_two_tower,
+        to_device,
+    )
+    from twotowermlretrieval_tpu_torch.train.train_step import create_train_state
+
+    params = init_two_tower(torch.Generator().manual_seed(cfg.seed),
+                            TwoTowerSpec.from_config(cfg), pretrained_embeddings=table)
+    return create_train_state(torch.Generator(device=dev).manual_seed(cfg.seed + 1),
+                              to_device(params, dev), cfg)
+
+
+def _one_process_first_step(cfg, table, packed, dev) -> dict:
+    """One process holding the whole model: the first step's loss and
+    gradients (by leaf path, on the host) over ``packed``, dropout off."""
+    from twotowermlretrieval_tpu_torch.data.batching import unpack_batch
+    from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec
+    from twotowermlretrieval_tpu_torch.train.train_step import make_grad_step
+    from twotowermlretrieval_tpu_torch.utils.pytree import named_leaves
+
+    cfg = cfg.replace(dropout=0.0, mesh_model=1, shard_embedding_table=False)
+    state = _whole_state(cfg, table, dev)
+    grads, m = make_grad_step(TwoTowerSpec.from_config(cfg), cfg)(
+        state, unpack_batch(torch.from_numpy(packed).to(dev), cfg.max_query_len))
+    paths = [p for p, _ in named_leaves(state.trainable)]
+    out = {"loss": float(m["loss"]), "grads": {p: g.float().cpu() for p, g in zip(paths, grads)}}
+    del state, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_first_step(cfg, table, packed, mesh, dev) -> dict:
+    """The pair's first step over ``packed`` (both ranks take every row:
+    the data axis holds one rank), dropout off: the loss, the gradients
+    gathered whole (by leaf path, on the host) and the launches."""
+    from twotowermlretrieval_tpu_torch.data.batching import unpack_batch
+    from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec
+    from twotowermlretrieval_tpu_torch.parallel.distributed import (
+        gather_params,
+        replicate_state,
+        rules_for,
+    )
+    from twotowermlretrieval_tpu_torch.parallel.mesh import put_global
+    from twotowermlretrieval_tpu_torch.train.train_step import make_grad_step
+    from twotowermlretrieval_tpu_torch.utils.pytree import named_leaves
+
+    cfg = cfg.replace(dropout=0.0)
+    rules = rules_for(cfg, mesh)
+    state = replicate_state(_whole_state(cfg, table, dev), mesh, rules)
+    zero_counts()
+    grads, m = make_grad_step(TwoTowerSpec.from_config(cfg), cfg, mesh.data_group,
+                              mesh.model_group)(
+        state, unpack_batch(put_global(packed, mesh, dev), cfg.max_query_len))
+    torch.cuda.synchronize(dev)
+    launches = read_counts()
+    paths = [p for p, _ in named_leaves(state.trainable)]
+    whole = gather_params(dict(zip(paths, grads)), rules, mesh.model_group)
+    out = {"loss": float(m["loss"]), "grads": {p: g.float().cpu() for p, g in whole.items()},
+           "launches": launches}
+    del state, grads, whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_main(rank: int, port: int, out: Path) -> int:
+    """One rank of phase_model_axis's pair (``chip_smoke.py --tp-rank``):
+    gloo with CUDA tensors on cuda:0, a 1x2 mesh. Config 5's first step at
+    dropout 0 (rank 0 saves the gathered gradients), then TP_STEPS steps
+    through the training driver (``train_on_datasets``), each step timed
+    with its launches and its model-group all-reduces (count, bytes, ms);
+    the replicated leaves' checksums against the other rank's, the sharded
+    leaves against this rank's slice of the gathered tree, the gathered
+    params saved for the export's check; last, the GRU towers' first step
+    over their sharded table."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from twotowermlretrieval_tpu_torch.config import Config
+    from twotowermlretrieval_tpu_torch.ops import attention, rnn_scan
+    from twotowermlretrieval_tpu_torch.parallel import distributed as parallel_distributed
+    from twotowermlretrieval_tpu_torch.parallel.distributed import (
+        gather_params,
+        rules_for,
+        shard_params,
+        state_agrees,
+    )
+    from twotowermlretrieval_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+    from twotowermlretrieval_tpu_torch.train.loop import setup, train_on_datasets
+    from twotowermlretrieval_tpu_torch.train.train_step import merge_params
+    from twotowermlretrieval_tpu_torch.utils.dtypes import resolve_device
+    from twotowermlretrieval_tpu_torch.utils.pytree import named_leaves
+
+    dev = resolve_device("cuda:0")  # raises without a card: a rank never runs on the CPU
+    initialize_multihost(f"127.0.0.1:{port}", num_processes=TP_RANKS, process_id=rank,
+                         device=dev, backend="gloo", timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(-1, TP_RANKS)
+        cfg, tok, table = setup(Config.from_json(out / "config.json"))
+        first = np.load(out / "first.npz")
+
+        # the plain versions count their calls: a card wrapper never runs them
+        plain = {"attention_fwd": 0, "attention_bwd": 0, "rnn_fwd": 0, "rnn_bwd": 0}
+        for module, name, attr in ((attention, "attention_fwd", "attention_fwd_reference"),
+                                   (attention, "attention_bwd", "attention_bwd_reference"),
+                                   (rnn_scan, "rnn_fwd", "rnn_layer_fwd_reference"),
+                                   (rnn_scan, "rnn_bwd", "_bwd_reference")):
+            def counted(*a, _fn=getattr(module, attr), _name=name, **k):
+                plain[_name] += 1
+                return _fn(*a, **k)
+            setattr(module, attr, counted)
+        # the model group's all-reduces while a step runs: bytes and ms
+        reduces, timing = [], [False]
+        all_reduce = dist.all_reduce
+
+        def timed_all_reduce(t, *a, **k):
+            # the driver builds its own mesh: on 1x2 the model group is the
+            # one group of two ranks a step reduces over
+            group = k.get("group")
+            if not timing[0] or group is None or dist.get_world_size(group) < TP_RANKS:
+                return all_reduce(t, *a, **k)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            work = all_reduce(t, *a, **k)
+            torch.cuda.synchronize(dev)
+            reduces.append((t.numel() * t.element_size(), 1e3 * (time.perf_counter() - t0)))
+            return work
+
+        dist.all_reduce = timed_all_reduce
+
+        first_tf = _tp_first_step(cfg, table, first["tf"], mesh, dev)
+        if rank == 0:
+            torch.save({k: first_tf[k] for k in ("loss", "grads")}, out / "tf_first.pt")
+        first_tf.pop("grads")
+
+        # the driver's steps, each timed with its launches and all-reduces
+        steps = []
+        make_step = parallel_distributed.make_sharded_packed_train_step
+
+        def timed_step_factory(*a, **k):
+            step = make_step(*a, **k)
+
+            def timed(state, packed):
+                torch.cuda.synchronize(dev)
+                before = read_counts()
+                reduces.clear()
+                timing[0] = True
+                t0 = time.perf_counter()
+                result = step(state, packed)
+                torch.cuda.synchronize(dev)
+                ms = 1e3 * (time.perf_counter() - t0)
+                timing[0] = False
+                after = read_counts()
+                steps.append({"ms": ms, "all_reduces": len(reduces),
+                              "all_reduce_bytes": sum(b for b, _ in reduces),
+                              "all_reduce_ms": sum(t for _, t in reduces),
+                              "launches": {n: after[n] - before[n] for n in after}})
+                return result
+
+            return timed
+
+        parallel_distributed.make_sharded_packed_train_step = timed_step_factory
+        datasets = json.loads((out / "datasets.json").read_text())
+        t0 = time.perf_counter()
+        res = train_on_datasets(cfg, tok, table, datasets, output_root=out / "artifacts",
+                                device=dev)
+        driver_s = time.perf_counter() - t0
+        parallel_distributed.make_sharded_packed_train_step = make_step
+        state = res["state"]
+        rules = rules_for(cfg, mesh)
+        replicated_agree = state_agrees(state, mesh, rules)
+        trees = {"trainable": state.trainable, "mu": state.opt_state["mu"],
+                 "nu": state.opt_state["nu"]}
+        split = sum(rules(p, t) is not None for tree in trees.values()
+                    for p, t in named_leaves(tree))
+        shards_match = True
+        for name, tree in trees.items():
+            gathered = gather_params(tree, rules, mesh.model_group)
+            cut = shard_params(gathered, rules, mesh.model_index, mesh.model)
+            shards_match &= all(torch.equal(a, b) for (_, a), (_, b)
+                                in zip(named_leaves(cut), named_leaves(tree)))
+            if name == "trainable":
+                params = gather_params(merge_params(state.trainable, state.frozen), rules,
+                                       mesh.model_group)
+                if rank == 0:
+                    torch.save({p: t.cpu() for p, t in named_leaves(params)},
+                               out / "tp_params.pt")
+                del params
+        del state, res["state"]
+        torch.cuda.empty_cache()
+
+        gru, _, _ = setup(Config.from_json(out / "gru_config.json"))
+        first_gru = _tp_first_step(gru, table, first["gru"], mesh, dev)
+        if rank == 0:
+            torch.save({k: first_gru[k] for k in ("loss", "grads")}, out / "gru_first.pt")
+        first_gru.pop("grads")
+        result = {"rank": rank, "first": first_tf, "gru_first": first_gru, "steps": steps,
+                  "step_losses": res["step_losses"], "driver_s": driver_s,
+                  "artifacts_dir": res.get("artifacts_dir"),
+                  "replicated_agree": replicated_agree, "shards_match": shards_match,
+                  "split_leaves": split,
+                  "replicated_leaves": sum(len(named_leaves(t)) for t in trees.values()) - split,
+                  "plain_calls": plain,
+                  "backend": dist.get_backend(), "device": str(dev)}
+    finally:
+        dist.destroy_process_group()
+    (out / f"rank{rank}.json").write_text(json.dumps(result))
+    return 0
+
+
+def _rank_cmds(flag: str, out: Path, ranks: int):
+    port = _free_port()
+    return [[sys.executable, str(ROOT / "chip_smoke.py"), f"--{flag}-rank", str(r),
+             f"--{flag}-port", str(port), f"--{flag}-dir", str(out)] for r in range(ranks)]
+
+
+def _first_step_against_one(what: str, pair: dict, one: dict, loss_rel: float,
+                            grad_rel: float) -> dict:
+    """The pair's first step against one process's: the loss relative, and
+    each gathered gradient leaf's difference as a share of its norm."""
+    rel_loss = abs(pair["loss"] - one["loss"]) / abs(one["loss"])
+    check(sorted(pair["grads"]) == sorted(one["grads"]), f"{what}: the gradient leaves differ")
+    rels = {n: float(torch.linalg.vector_norm(pair["grads"][n] - g)
+                     / torch.linalg.vector_norm(g).clamp_min(1e-30))
+            for n, g in one["grads"].items()}
+    worst = max(rels, key=rels.get)
+    log(f"{what}: loss {pair['loss']:.7f} against one process's {one['loss']:.7f} "
+        f"({rel_loss:.3g} relative); {len(rels)} gradient leaves, worst {worst} "
+        f"{rels[worst]:.3g} of its norm")
+    check(rel_loss <= loss_rel, f"{what}: loss off by {rel_loss:.3g}")
+    check(rels[worst] <= grad_rel, f"{what}: {worst} off by {rels[worst]}")
+    return {"loss_rel": rel_loss, "worst_grad_rel": rels[worst], "worst_leaf": worst}
+
+
+def phase_model_axis(dev, corpus) -> dict:
+    """Config 5 as written (MESH_MODEL 2, SHARD_EMBEDDING_TABLE true) over
+    two ranks on the one card, gloo with CUDA tensors: the first step
+    against one process holding the whole model; TP_STEPS steps through the
+    training driver at dropout 0.1, each with 12 attention_fwd and 12
+    attention_bwd launches a rank at R = B x 4 local heads, its
+    model-group all-reduces timed; both ranks' replicated leaves bit for
+    bit equal, each rank's shards its slice of the gathered tree; the
+    pair's export equal to the gathered params and searched once by the
+    single-device engine; then the GRU towers' first step over a sharded
+    table against one process's, rnn_fwd and rnn_bwd launched in each
+    rank. Two processes share one card: every all-reduce crosses the host,
+    so this measures correctness, not scaling."""
+    from twotowermlretrieval_tpu_torch.serve.engine import SearchEngine
+    from twotowermlretrieval_tpu_torch.utils.pytree import flatten_params, load_params_npz
+
+    word_to_idx, table, triplets = corpus
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    cfg, gru, tok, table = _tp_configs(word_to_idx, table)
+    cfg.to_json(TP_DIR / "config.json")
+    gru.to_json(TP_DIR / "gru_config.json")
+    a = TRAIN_TRIPLETS + VAL_TRIPLETS + TEST_TRIPLETS  # the transformer phase's triplets
+    b = a + TP_STEPS * TF_ROWS
+    datasets = {"train": triplets[a:b], "validation": triplets[b : b + TF_ROWS], "test": []}
+    (TP_DIR / "datasets.json").write_text(json.dumps(datasets))
+    packed = {"tf": _full_batch(cfg, tok, datasets["train"]),
+              "gru": _full_batch(gru, tok, triplets[TP_GRU_TRIPLETS])}
+    np.savez(TP_DIR / "first.npz", **packed)
+    one_tf = _one_process_first_step(cfg, table, packed["tf"], dev)
+    one_gru = _one_process_first_step(gru, table, packed["gru"], dev)
+
+    t0 = time.perf_counter()
+    _run_logged(_rank_cmds("tp", TP_DIR, TP_RANKS),
+                [TP_DIR / f"rank{r}.log" for r in range(TP_RANKS)], dict(os.environ),
+                "model axis")
+    pair_s = time.perf_counter() - t0
+    ranks = [json.loads((TP_DIR / f"rank{r}.json").read_text()) for r in range(TP_RANKS)]
+    first = _first_step_against_one(
+        "model axis first step, config 5 over 2 ranks against 1 process (B=512, dropout 0)",
+        torch.load(TP_DIR / "tf_first.pt", weights_only=True), one_tf, TP_LOSS_REL,
+        TP_GRAD_REL)
+    first_gru = _first_step_against_one(
+        "model axis first step, GRU towers over a sharded table against 1 process (B=1024)",
+        torch.load(TP_DIR / "gru_first.pt", weights_only=True), one_gru, TP_GRU_LOSS_REL,
+        TP_GRU_GRAD_REL)
+    for r in ranks:
+        who = f"model axis rank {r['rank']}"
+        check(r["device"] == "cuda:0" and r["backend"] == "gloo",
+              f"{who}: {r['device']} {r['backend']}")
+        check(len(r["steps"]) == TP_STEPS, f"{who}: {len(r['steps'])} steps")
+        for i, st in enumerate(r["steps"]):
+            n = st["launches"]
+            check(n["attention_fwd"] == 12 and n["attention_bwd"] == 12,
+                  f"{who}: step {i} launched {n}, expected 12 attention_fwd and 12 "
+                  "attention_bwd")
+        n = r["first"]["launches"]
+        check(n["attention_fwd"] == 12 and n["attention_bwd"] == 12,
+              f"{who}: the first step launched {n}")
+        n = r["gru_first"]["launches"]
+        check(n["rnn_fwd"] == 4 and n["rnn_bwd"] == 4,
+              f"{who}: the GRU first step launched {n}, expected 4 rnn_fwd and 4 rnn_bwd")
+        check(r["plain_calls"] == {k: 0 for k in r["plain_calls"]},
+              f"{who}: the plain versions ran {r['plain_calls']}")
+        check(r["replicated_agree"], f"{who}: the replicated leaves differ after {TP_STEPS} "
+              f"steps at dropout {cfg.dropout}")
+        check(r["shards_match"], f"{who}: a shard is not its slice of the gathered tree")
+        check(all(math.isfinite(x) for x in r["step_losses"]), f"{who}: a non-finite loss")
+    check(ranks[0]["step_losses"] == ranks[1]["step_losses"],
+          "model axis: the ranks' losses differ")
+    steps = ranks[0]["steps"]
+    for i, st in enumerate(steps):
+        log(f"model axis step {i}: {st['ms']:.1f} ms, {st['all_reduces']} model-group "
+            f"all-reduces of {st['all_reduce_bytes'] / 2 ** 30:.3f} GiB in "
+            f"{st['all_reduce_ms']:.1f} ms ({100 * st['all_reduce_ms'] / st['ms']:.1f}% of "
+            f"the step); rank 1 {ranks[1]['steps'][i]['ms']:.1f} ms")
+
+    # the pair's export: the gathered params, served by one process
+    export = Path(ranks[0]["artifacts_dir"])
+    check(ranks[1]["artifacts_dir"] is None, "model axis: rank 1 exported")
+    saved = torch.load(TP_DIR / "tp_params.pt", weights_only=True)
+    exported = flatten_params(load_params_npz(export / "model.npz"))
+    check(sorted(exported) == sorted(saved)
+          and all(np.array_equal(exported[k], saved[k].numpy()) for k in saved),
+          "model axis: model.npz is not the gathered params")
+    engine = SearchEngine(export, device=dev)
+    zero_counts()
+    hit = engine.search(" ".join(datasets["train"][0][0].split()[:4]), alpha=0.5)
+    served = read_counts()
+    check(served["attention_fwd"] == 6 and served["segmax"] == 1
+          and sum(served.values()) == 7,
+          f"model axis export: one dense search launched {served}, expected 6 "
+          "attention_fwd and 1 segmax")
+    check(bool(hit["results"]) and all(math.isfinite(x["score"]) for x in hit["results"]),
+          "model axis export: no finite result")
+    log(f"model axis: the pair took {pair_s:.1f} s (start, first steps, the driver's "
+        f"{TP_STEPS} steps with evaluation and export in {ranks[0]['driver_s']:.1f} s, the GRU "
+        f"step); losses {[round(x, 5) for x in ranks[0]['step_losses']]}; "
+        f"{ranks[0]['split_leaves']} sharded and {ranks[0]['replicated_leaves']} replicated "
+        f"leaves; the export ({len(exported)} leaves) searched: {served}")
+    del engine
+    torch.cuda.empty_cache()
+    return {"first": first, "gru_first": first_gru, "pair_s": pair_s,
+            "steps": [r["steps"] for r in ranks],
+            "launches": [{k: sum(st["launches"][k] for st in r["steps"])
+                          for k in r["steps"][0]["launches"]} for r in ranks],
+            "gru_launches": [r["gru_first"]["launches"] for r in ranks],
+            "export_search": served}
+
+
+# ---------------------------------------------------------------------------
 # 32 queries at the widest tower widths; the IVF index
 # ---------------------------------------------------------------------------
 
@@ -2924,6 +3389,10 @@ def main(argv) -> int:
         args = dict(zip(argv[::2], argv[1::2]))
         return dp_rank_main(int(args["--dp-rank"]), int(args["--dp-port"]),
                             Path(args["--dp-dir"]))
+    if argv[:1] == ["--tp-rank"]:  # one rank of phase_model_axis's pair
+        args = dict(zip(argv[::2], argv[1::2]))
+        return tp_rank_main(int(args["--tp-rank"]), int(args["--tp-port"]),
+                            Path(args["--tp-dir"]))
     try:
         import twotowermlretrieval_tpu_torch as pkg
     except ImportError as e:
@@ -2964,6 +3433,7 @@ def main(argv) -> int:
         odd = phase_odd_width(dev, setup)
         tf = phase_transformer(dev, corpus)
         dp = phase_data_parallel(dev, corpus)
+        tp = phase_model_axis(dev, corpus)
         phase_device_times()
         traced = phase_traced(dev, setup, tf.pop("setup"), corpus[2])
         del setup
@@ -2986,7 +3456,10 @@ def main(argv) -> int:
               "traced_train": traced["gru_train"]["launches"],
               "traced_transformer_train": traced["tf_train"]["launches"],
               "traced_serve": traced["serve"]["launches"],
-              **{f"data_parallel_rank{r}": c for r, c in enumerate(dp["launches"])}}
+              **{f"data_parallel_rank{r}": c for r, c in enumerate(dp["launches"])},
+              **{f"model_axis_rank{r}": c for r, c in enumerate(tp["launches"])},
+              **{f"model_axis_gru_rank{r}": c for r, c in enumerate(tp["gru_launches"])},
+              "model_axis_export_search": tp["export_search"]}
     main_launches = {"rnn_fwd": served["launches"]["rnn_fwd"],
                      "segmax": served["launches"]["segmax"],
                      "rnn_bwd": trained["launches"]["rnn_bwd"],
@@ -3036,6 +3509,12 @@ def main(argv) -> int:
         f"loss {dp['loss_rel']:.3g} relative, worst leaf {dp['worst_leaf']} "
         f"{dp['worst_grad_rel']:.3g}; one-rank NCCL ttr-torch-train "
         f"{dp['nccl']['examples_per_sec']:.1f} examples/s ({card})")
+    log(f"model axis, config 5 as written over {TP_RANKS} ranks on one card over gloo: first "
+        f"step against one process {json.dumps(tp['first'])}; GRU sharded table "
+        f"{json.dumps(tp['gru_first'])}; step ms "
+        f"{[round(st['ms'], 1) for st in tp['steps'][0]]}, model-group all-reduce ms a step "
+        f"{[round(st['all_reduce_ms'], 1) for st in tp['steps'][0]]} "
+        f"({tp['steps'][0][0]['all_reduces']} a step) ({card})")
     log(f"ivf over {ivf['rows']} x {ivf['H']}: {json.dumps(ivf)} ({card})")
     log(f"serve ivf: nprobe {served_ivf['nprobe']}, measured recall "
         f"{served_ivf['measured_recall']:.4f}, request ms "

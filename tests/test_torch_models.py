@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from twotowermlretrieval_tpu.config import Config as JaxConfig
 from twotowermlretrieval_tpu.models.rnn import RNNSpec as JaxRNNSpec
 from twotowermlretrieval_tpu.models.two_tower import TwoTowerSpec as JaxTwoTowerSpec
 from twotowermlretrieval_tpu.models.two_tower import encode_document as jax_encode_document
@@ -144,14 +145,28 @@ def test_seeded_init_is_deterministic():
 
 
 def test_spec_from_config_and_transformer_not_ported():
-    """Both tower types build from a config; what the transformer still
-    lacks, tensor parallelism and a sharded table, raises naming the
-    ROADMAP item."""
+    """Both tower types build from a config, with the mesh knobs too (JAX's
+    specs name the same axes); a spec that shards the table, called
+    without its process group, raises."""
     cfg = Config(vocab_size=V, embed_dim=E, hidden_dim=H)
     spec = TwoTowerSpec.from_config(cfg)
     assert spec.rnn.num_layers == 2 and spec.rnn.bidirectional and spec.hidden_dim == H
+    assert spec.rnn.embedding_axis is None
     tf = TwoTowerSpec.from_config(cfg.replace(tower_type="transformer"))
     assert tf.tower_type == "transformer" and tf.rnn is None and tf.hidden_dim == H
     for kw in ({"mesh_model": 2}, {"shard_embedding_table": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TwoTowerSpec.from_config(cfg.replace(tower_type="transformer", **kw))
+        for tower in ("rnn", "transformer"):
+            ours = TwoTowerSpec.from_config(cfg.replace(tower_type=tower, num_heads=2, **kw))
+            theirs = JaxTwoTowerSpec.from_config(JaxConfig(
+                vocab_size=V, embed_dim=E, hidden_dim=H, tower_type=tower, num_heads=2, **kw))
+            sub, jsub = (ours.rnn, theirs.rnn) if tower == "rnn" else (ours.transformer,
+                                                                       theirs.transformer)
+            assert sub.embedding_axis == jsub.embedding_axis
+            if tower == "transformer":
+                assert (sub.model_axis, sub.model_axis_size) == (jsub.model_axis,
+                                                                 jsub.model_axis_size)
+    sharded = TwoTowerSpec.from_config(cfg.replace(shard_embedding_table=True))
+    pparams = init_two_tower(torch.Generator().manual_seed(0), sharded)
+    tokens, lengths = _batch(4)
+    with pytest.raises(ValueError, match="model_group"):
+        encode_query(pparams, torch.from_numpy(tokens), torch.from_numpy(lengths), sharded)

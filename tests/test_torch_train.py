@@ -410,8 +410,14 @@ def test_batcher_copy_matches_jax(synth_config):
 
 
 def test_train_defaults_to_cuda_and_unported_options_raise(corpus, tmp_path):
+    """train() asks for the card unless told the CPU; the mesh knobs a lone
+    process cannot hold raise the mesh's ValueErrors; --profile_dir traces;
+    SHARD_EMBEDDING_TABLE is dropped without a model group, as in JAX."""
+    from pathlib import Path
+
     from twotowermlretrieval_tpu_torch.train.loop import train
     from twotowermlretrieval_tpu_torch.utils.profiling import trace_files
+    from twotowermlretrieval_tpu_torch.utils.pytree import load_params_npz
 
     _, cfg = corpus
     if not torch.cuda.is_available():
@@ -420,13 +426,23 @@ def test_train_defaults_to_cuda_and_unported_options_raise(corpus, tmp_path):
     # a data axis of 2 in a lone process: more ranks than the world holds
     with pytest.raises(ValueError, match="needs 2 ranks but the world holds 1"):
         train(cfg.replace(mesh_data=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # a model axis of 2 in a lone process: the world does not split over it
+    with pytest.raises(ValueError, match="not divisible by model=2"):
         train(cfg.replace(mesh_model=2), device="cpu")
     # --profile_dir is ported: a run of 16 steps ends inside the window that
     # opens at step 10, and the trace is finalized with the run
     res = train(cfg.replace(epochs=2), output_root=tmp_path / "out", device="cpu",
                 profile_dir=tmp_path / "prof")
     assert res["steps"] == 16 and len(trace_files(tmp_path / "prof")) == 1
+    # a lone process drops SHARD_EMBEDDING_TABLE, as the JAX driver does: the
+    # run is the one without it, step for step, and exports the whole table
     for tower in ("rnn", "transformer"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            train(cfg.replace(tower_type=tower, shard_embedding_table=True), device="cpu")
+        kw = dict(tower_type=tower, num_heads=2, ffn_dim=32, freeze_embeddings=False)
+        sharded = train(cfg.replace(shard_embedding_table=True, **kw),
+                        output_root=tmp_path / f"{tower}-sharded", device="cpu")
+        plain = train(cfg.replace(**kw), output_root=tmp_path / tower, device="cpu")
+        assert sharded["step_losses"] == plain["step_losses"] and sharded["steps"] == 8
+        whole = tuple(plain["state"].trainable["query"]["embedding"].shape)
+        assert tuple(sharded["state"].trainable["query"]["embedding"].shape) == whole
+        exported = load_params_npz(Path(sharded["artifacts_dir"]) / "model.npz")
+        assert exported["query"]["embedding"].shape == whole

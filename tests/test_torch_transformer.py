@@ -251,15 +251,29 @@ def test_port_init_has_the_jax_layout():
 
 
 def test_mesh_knobs_raise_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        TransformerSpec(**KW, model_axis="model", model_axis_size=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        TransformerSpec(**KW, embedding_axis="model")
+    """The mesh knobs build specs (the model axis is ported; its ranks are
+    held in tests/test_torch_model_axis.py); what raises is JAX's
+    divisibility of heads and FFN columns over the axis, and a
+    tensor-parallel spec called without its process group."""
+    tp = TransformerSpec(**KW, model_axis="model", model_axis_size=2)
+    assert tp.head_dim == 8 and TransformerSpec(**KW, embedding_axis="model").embedding_axis
+    with pytest.raises(ValueError, match=r"num_heads=2 must divide evenly over the model axis \(4\)"):
+        TransformerSpec(**KW, model_axis="model", model_axis_size=4)
+    with pytest.raises(ValueError, match=r"ffn_dim=31 must divide evenly over the model axis \(2\)"):
+        TransformerSpec(**{**KW, "ffn_dim": 31}, model_axis="model", model_axis_size=2)
+    for jkw in ({"model_axis_size": 4}, {"ffn_dim": 31, "model_axis_size": 2}):
+        with pytest.raises(ValueError, match="must divide evenly over the model axis"):
+            jax_transformer.TransformerSpec(**{**KW, **jkw}, model_axis="model")
+    tokens, lengths, _ = _batch(1)
+    with pytest.raises(ValueError, match="model_group"):
+        transformer_encode(params_from_jax(_jax_params()), torch.from_numpy(tokens),
+                           torch.from_numpy(lengths), tp)
     cfg = Config(vocab_size=V, embed_dim=E, hidden_dim=H, tower_type="transformer", num_heads=2)
     assert TwoTowerSpec.from_config(cfg).transformer.head_dim == 8
-    for kw in ({"mesh_model": 2}, {"shard_embedding_table": True}):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            TwoTowerSpec.from_config(cfg.replace(**kw))
+    spec = TwoTowerSpec.from_config(cfg.replace(mesh_model=2)).transformer
+    assert (spec.model_axis, spec.model_axis_size, spec.embedding_axis) == ("model", 2, None)
+    spec = TwoTowerSpec.from_config(cfg.replace(shard_embedding_table=True)).transformer
+    assert (spec.model_axis, spec.model_axis_size, spec.embedding_axis) == (None, 1, "model")
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,11 @@ Parameters are the JAX package's tree with torch tensors as leaves:
 ``{'embedding': [V, E], 'layers': ({'fwd'|'bwd': {'w_ih': [I, G*H],
 'w_hh': [H, G*H], 'b_ih': [G*H], 'b_hh': [G*H]}}, ...), 'projection':
 {'w': [2H, H], 'b': [H]}}``, weights stored [in, out] as in ``model.npz``.
+
+With ``embedding_axis`` set (``SHARD_EMBEDDING_TABLE`` on a mesh with a
+``model`` axis) ``params['embedding']`` is this rank's row block of the
+table and the lookup goes through :func:`parallel.embedding.
+sharded_embedding_lookup` over the ``model_group`` the caller passes.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from twotowermlretrieval_tpu_torch.parallel.embedding import embedding_lookup
 from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
     rnn_layer_bwd,
     rnn_layer_bwd_hoisted,
@@ -66,6 +72,8 @@ class RNNSpec:
     bidirectional: bool = False
     normalize_output: bool = True
     compute_dtype: str = "bfloat16"
+    # row-shard the table over this mesh axis; None: a plain gather
+    embedding_axis: Optional[str] = None
 
     def __post_init__(self):
         if self.rnn_type not in _GATES:
@@ -87,6 +95,7 @@ class RNNSpec:
             bidirectional=config.bidirectional,
             normalize_output=config.normalize_output,
             compute_dtype=config.compute_dtype,
+            embedding_axis="model" if config.shard_embedding_table else None,
         )
 
 
@@ -192,15 +201,18 @@ def rnn_encode(
     *,
     train: bool = False,
     generator: Optional[torch.Generator] = None,
+    model_group=None,
 ) -> torch.Tensor:
     """Encode token batches to [B, H] f32 embeddings on the params' device.
 
     ``train=True`` turns inter-layer dropout on (when ``spec.dropout > 0``
     and there is more than one layer); its masks are drawn from
-    ``generator``, which must live on the params' device."""
+    ``generator``, which must live on the params' device. ``model_group``:
+    the process group of ``spec.embedding_axis`` (a row-sharded table)."""
     cdt = torch_dtype(spec.compute_dtype)
     B, T = tokens.shape
-    x = params["embedding"][tokens.long()]  # [B, T, E] f32
+    x = embedding_lookup(params["embedding"], tokens, spec.embedding_axis,
+                         model_group)  # [B, T, E] f32
     lengths = lengths.to(x.device)
     mask2 = (torch.arange(T, device=x.device)[:, None] < lengths[None, :]).float()  # [T, B]
     directions = ("fwd", "bwd") if spec.bidirectional else ("fwd",)

@@ -27,10 +27,20 @@ What it keeps from the JAX tower:
   global generators only, and drawing from ``generator`` again would give
   other masks.
 
-Not ported: tensor parallelism over a mesh (``model_axis_size > 1``, the
-Megatron ``_copy_to_tp`` / ``_reduce_from_tp`` operators) and the
-row-sharded embedding table (``embedding_axis``); both raise and port with
-the mesh (ROADMAP Queue 1 item 10).
+Tensor parallelism over the mesh's ``model`` group (``model_axis_size``
+M > 1, config 5's ``MESH_MODEL``): each rank holds whole heads (qkv
+``[H, 3, H/M]``, bias ``[3, H/M]``) and a slice of the FFN columns
+(``ffn_in`` ``[H, F/M]``), and the row-split ``attn_out`` and ``ffn_out``
+weights (``[H/M, H]``, ``[F/M, H]``); the replicated activation entering
+each column-split product passes :func:`parallel.collectives.copy_to_tp`
+and each row-split product's partial sum :func:`~parallel.collectives.
+reduce_from_tp`, two sums a block forward and two backward, and the
+replicated out-projection biases are added once, after the sum. The
+process group is passed at call time (``model_group``); the spec only
+names the axis. With ``embedding_axis`` the table is this rank's row
+block (``parallel/embedding.py``). Dropout masks are [B, T, H] and drawn
+the same on every rank of a model group (their generators share a seed:
+``train/train_step.py:_fold_in`` keys on the data index only).
 """
 
 from __future__ import annotations
@@ -45,9 +55,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from twotowermlretrieval_tpu_torch.ops.attention import fused_attention, use_fused_attention
+from twotowermlretrieval_tpu_torch.parallel.collectives import copy_to_tp, reduce_from_tp
+from twotowermlretrieval_tpu_torch.parallel.embedding import embedding_lookup
 from twotowermlretrieval_tpu_torch.utils.dtypes import bernoulli_mask, matmul_f32, torch_dtype
-
-_MESH_TODO = "tensor parallelism and a sharded embedding table need the mesh (ROADMAP Queue 1 item 10)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,8 +85,13 @@ class TransformerSpec:
     def __post_init__(self):
         if self.hidden_dim % self.num_heads != 0:
             raise ValueError("hidden_dim must divide num_heads")
-        if self.model_axis_size > 1 or self.embedding_axis is not None:
-            raise NotImplementedError(_MESH_TODO)
+        if self.model_axis is not None and self.model_axis_size > 1:
+            if self.num_heads % self.model_axis_size:
+                raise ValueError(f"num_heads={self.num_heads} must divide evenly over the "
+                                 f"model axis ({self.model_axis_size})")
+            if self.ffn_dim % self.model_axis_size:
+                raise ValueError(f"ffn_dim={self.ffn_dim} must divide evenly over the "
+                                 f"model axis ({self.model_axis_size})")
 
     @property
     def head_dim(self) -> int:
@@ -185,8 +200,9 @@ def _dropout(x, mask, keep: float):
 
 
 def _attention(qkv, attn_bias, spec: TransformerSpec, cdt, rdt):
-    """Softmax attention over ``qkv`` [B, T, 3, H] (f32 sums, read in the
-    residual dtype) -> [B, T, H] f32, by the route the JAX policy picks."""
+    """Softmax attention over ``qkv`` [B, T, 3, H_local] (this rank's heads;
+    f32 sums, read in the residual dtype) -> [B, T, H_local] f32, by the
+    route the JAX policy picks."""
     B, T, _, n_out = qkv.shape
     hd = spec.head_dim
     nh = n_out // hd
@@ -210,12 +226,21 @@ def _attention(qkv, attn_bias, spec: TransformerSpec, cdt, rdt):
     return attn.transpose(1, 2).reshape(B, T, nh * hd)
 
 
-def _run_block(x, attn_bias, block, masks, spec: TransformerSpec):
+def _run_block(x, attn_bias, block, masks, spec: TransformerSpec, group=None):
+    """One pre-LN block; ``group``: the model group under tensor
+    parallelism (``None``: the whole block on this rank)."""
     cdt, rdt = torch_dtype(spec.compute_dtype), torch_dtype(spec.residual_dtype)
     B, T, _ = x.shape
     keep = 1.0 - spec.dropout
+
+    def enter(v):  # the replicated activation into a column-split product
+        return v if group is None else copy_to_tp(v, group)
+
+    def leave(v):  # a row-split product's partial sum
+        return v if group is None else reduce_from_tp(v, group)
+
     # --- attention sublayer (pre-LN) ---
-    y = _layer_norm(x, block["ln1"], out_dtype=rdt)
+    y = enter(_layer_norm(x, block["ln1"], out_dtype=rdt))
     w_qkv, b_qkv = block["qkv"]["w"], block["qkv"]["b"]
     if w_qkv.dim() == 2:
         # legacy checkpoint layout [H, 3H] / [3H], columns ordered q|k|v
@@ -224,12 +249,13 @@ def _run_block(x, attn_bias, block, masks, spec: TransformerSpec):
     n_out = w_qkv.shape[-1]
     qkv = matmul_f32(y, w_qkv.reshape(w_qkv.shape[0], 3 * n_out), cdt).reshape(B, T, 3, n_out)
     attn = _attention(qkv + b_qkv, attn_bias, spec, cdt, rdt)
-    attn = matmul_f32(attn.to(rdt), block["attn_out"]["w"], cdt) + block["attn_out"]["b"]
+    # the replicated bias is added once, after the sum
+    attn = leave(matmul_f32(attn.to(rdt), block["attn_out"]["w"], cdt)) + block["attn_out"]["b"]
     x = x + _dropout(attn.to(rdt), masks[0], keep).to(rdt)
     # --- FFN sublayer ---
-    y = _layer_norm(x, block["ln2"], out_dtype=rdt)
+    y = enter(_layer_norm(x, block["ln2"], out_dtype=rdt))
     h = F.gelu(_dense(y, block["ffn_in"], cdt), approximate="tanh").to(rdt)
-    y = matmul_f32(h, block["ffn_out"]["w"], cdt) + block["ffn_out"]["b"]
+    y = leave(matmul_f32(h, block["ffn_out"]["w"], cdt)) + block["ffn_out"]["b"]
     return x + _dropout(y.to(rdt), masks[1], keep).to(rdt)
 
 
@@ -241,23 +267,31 @@ def transformer_encode(
     *,
     train: bool = False,
     generator: Optional[torch.Generator] = None,
+    model_group=None,
 ) -> torch.Tensor:
     """Masked pre-LN transformer encoder -> masked mean-pool -> [B, H] f32
     on the params' device. ``train=True`` turns dropout on (when
     ``spec.dropout > 0``); its masks come from ``generator``, which must
-    live on the params' device."""
+    live on the params' device. ``model_group``: the process group of the
+    spec's model axis (tensor parallelism, a row-sharded table), where
+    ``params`` holds this rank's shards."""
     cdt, rdt = torch_dtype(spec.compute_dtype), torch_dtype(spec.residual_dtype)
     B, T = tokens.shape
     H = spec.hidden_dim
     use_dropout = train and spec.dropout > 0.0
     if use_dropout and generator is None:
         raise ValueError("a dropout generator is required when train=True and dropout > 0")
+    tp = spec.model_axis is not None and spec.model_axis_size > 1
+    if tp and model_group is None:
+        raise ValueError(f"the spec splits heads over {spec.model_axis!r} but no process "
+                         "group was passed (model_group)")
+    group = model_group if tp else None
     emb = params["embedding"]
     lengths = lengths.to(emb.device)
     valid = (torch.arange(T, device=emb.device)[None, :] < lengths[:, None]).float()  # [B, T]
     attn_bias = ((1.0 - valid) * -1e9)[:, None, None, :]  # [B, 1, 1, T]
 
-    x = emb[tokens.long().to(emb.device)]  # [B, T, E]
+    x = embedding_lookup(emb, tokens, spec.embedding_axis, model_group)  # [B, T, E]
     x = (_dense(x, params["input_proj"], cdt) + params["pos_embedding"][:T][None]).to(rdt)
     for block in params["blocks"]:
         masks = (None, None)
@@ -265,10 +299,12 @@ def transformer_encode(
             masks = tuple(bernoulli_mask(generator, 1.0 - spec.dropout, (B, T, H), x.device)
                           for _ in range(2))
         if spec.remat_blocks and torch.is_grad_enabled():
-            x = checkpoint(_run_block, x, attn_bias, block, masks, spec,
+            # the backward re-runs the block's forward sums, on every rank
+            # of the group in the same order
+            x = checkpoint(_run_block, x, attn_bias, block, masks, spec, group,
                            use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _run_block(x, attn_bias, block, masks, spec)
+            x = _run_block(x, attn_bias, block, masks, spec, group)
 
     x = _layer_norm(x, params["ln_final"], out_dtype=torch.float32)
     denom = valid.sum(dim=-1, keepdim=True).clamp_min(1.0)

@@ -70,15 +70,19 @@ def init_two_tower(
 
 
 def encode_query(params, tokens, lengths, spec: TwoTowerSpec, *, train=False,
-                 generator=None) -> torch.Tensor:
+                 generator=None, model_group=None) -> torch.Tensor:
+    """The query tower; ``model_group``: the process group of the spec's
+    model axis, where ``params`` holds this rank's shards."""
     encode_fn, sub = spec._encode_fn()
-    return encode_fn(params["query"], tokens, lengths, sub, train=train, generator=generator)
+    return encode_fn(params["query"], tokens, lengths, sub, train=train, generator=generator,
+                     model_group=model_group)
 
 
 def encode_document(params, tokens, lengths, spec: TwoTowerSpec, *, train=False,
-                    generator=None) -> torch.Tensor:
+                    generator=None, model_group=None) -> torch.Tensor:
     encode_fn, sub = spec._encode_fn()
-    return encode_fn(params["doc"], tokens, lengths, sub, train=train, generator=generator)
+    return encode_fn(params["doc"], tokens, lengths, sub, train=train, generator=generator,
+                     model_group=model_group)
 
 
 def two_tower_forward(
@@ -91,12 +95,15 @@ def two_tower_forward(
     *,
     train: bool = False,
     generator: Optional[torch.Generator] = None,
+    model_group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(query_emb, doc_emb); with dropout the query tower draws its masks
     from ``generator`` first, then the doc tower."""
     return (
-        encode_query(params, q_tokens, q_lengths, spec, train=train, generator=generator),
-        encode_document(params, d_tokens, d_lengths, spec, train=train, generator=generator),
+        encode_query(params, q_tokens, q_lengths, spec, train=train, generator=generator,
+                     model_group=model_group),
+        encode_document(params, d_tokens, d_lengths, spec, train=train, generator=generator,
+                        model_group=model_group),
     )
 
 

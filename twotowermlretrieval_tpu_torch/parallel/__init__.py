@@ -1,6 +1,7 @@
-"""Data parallelism over ``torch.distributed`` processes: the mesh
-(``mesh.py``), the collectives the losses and the step use
-(``collectives.py``) and the data-parallel steps and encoder
+"""Data and model parallelism over ``torch.distributed`` processes: the
+mesh (``mesh.py``), the collectives the losses, the towers and the step
+use (``collectives.py``), the row-sharded table lookup (``embedding.py``)
+and the sharding rules, the parallel steps and encoder
 (``distributed.py``, imported from there: it imports the train step,
 which imports the losses, which import ``collectives``)."""
 

@@ -7,8 +7,9 @@ over the chips one program sees; here each rank is a process of a
 - ``data``: the batch-split axis. A rank holds the whole replicated train
   state and takes a contiguous block of each global batch's rows, as
   JAX's ``P('data')`` splits them;
-- ``model``: the axis the model-parallel slice shards over (ROADMAP
-  Queue 1 item 10b); with one rank on it, it holds no group.
+- ``model``: the axis the transformer's heads and FFN columns and a
+  row-sharded embedding table are split over (``parallel/distributed.py``);
+  with one rank on it, it holds no group.
 
 Rank ``r`` sits at ``(r // model, r % model)``, the place JAX's
 ``devices.reshape(data, model)`` gives device ``r``. The world is started
@@ -54,6 +55,11 @@ class Mesh:
     @property
     def data_index(self) -> int:
         return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        """This rank's place on 'model': the shard it holds."""
+        return self.rank % self.model
 
     @property
     def is_lead(self) -> bool:

@@ -10,13 +10,15 @@ it. The newest ``max_to_keep`` steps are kept. Restore copies the values
 into a template state built with the same config, so they land on the
 template's device bit for bit.
 
-With a mesh (data parallel) the state is replicated: rank 0 writes, with
-a barrier of every rank before and after the rename (no rank saves a
-state the others have not reached, nor goes on before the step is in
-place), and every rank restores. The file holds no world size: a
-checkpoint restores into any number of ranks, or one process, with the
-same params, moments and data position (the position counts global
-batches). The JAX package's Orbax directories are a different format and
+With a mesh, rank 0 writes, with a barrier of every rank before and
+after the rename (no rank saves a state the others have not reached, nor
+goes on before the step is in place), and every rank restores. On a model
+axis the leaves the mesh's rules split (params and Adam moments) are
+first gathered over the model group, so the file holds the whole state in
+the one-process format; a restoring rank cuts its own shard from it. The
+file holds no mesh shape: a checkpoint restores into any mesh, or one
+process, with the same params, moments and data position (the position
+counts global batches), bit for bit. The JAX package's Orbax directories are a different format and
 are not read (ROADMAP, "Not queued": Orbax checkpoint interchange).
 """
 
@@ -31,6 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from twotowermlretrieval_tpu_torch.parallel.distributed import gather_params, shard_slice
 from twotowermlretrieval_tpu_torch.train.train_step import TrainState
 from twotowermlretrieval_tpu_torch.utils.pytree import named_leaves
 
@@ -41,13 +44,15 @@ def _flat(tree) -> Dict[str, torch.Tensor]:
     return {name: leaf.detach().cpu() for name, leaf in named_leaves(tree)}
 
 
-def _load_into(tree, flat: Dict[str, torch.Tensor], what: str) -> None:
+def _load_into(tree, flat: Dict[str, torch.Tensor], what: str, cut=None) -> None:
+    """Copy the saved leaves into ``tree``'s; ``cut(path, full)``: this
+    rank's shard of a saved full leaf."""
     leaves = named_leaves(tree)
     if sorted(flat) != sorted(name for name, _ in leaves):
         raise ValueError(f"checkpoint {what} does not match the state's structure")
     with torch.no_grad():
         for name, leaf in leaves:
-            src = flat[name]
+            src = flat[name] if cut is None else cut(name, flat[name])
             if src.shape != leaf.shape or src.dtype != leaf.dtype:
                 raise ValueError(f"checkpoint {what}/{name}: {src.shape} {src.dtype} "
                                  f"!= {leaf.shape} {leaf.dtype}")
@@ -55,13 +60,15 @@ def _load_into(tree, flat: Dict[str, torch.Tensor], what: str) -> None:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str | Path, max_to_keep: int = 3, mesh=None):
-        """``mesh``: the data-parallel run's mesh (``parallel/mesh.py``);
-        ``None`` for one process."""
+    def __init__(self, directory: str | Path, max_to_keep: int = 3, mesh=None, rules=None):
+        """``mesh``: the run's mesh (``parallel/mesh.py``); ``None`` for one
+        process. ``rules``: which leaves the mesh's model axis splits
+        (``parallel/distributed.py:rules_for``); ``None``: none."""
         self.directory = Path(directory).resolve()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.mesh = mesh
+        self.rules = rules
 
     def save(self, state: TrainState, data_position: Optional[Dict[str, Any]] = None) -> Path:
         step = int(state.step)
@@ -70,20 +77,30 @@ class CheckpointManager:
             self._write(state, step, path, data_position)
             return path
         dist.barrier()
+        trees = self._whole(state)  # a collective on a model axis
         if self.mesh.is_lead:
-            self._write(state, step, path, data_position)
+            self._write(state, step, path, data_position, trees)
         dist.barrier()
         return path
 
+    def _whole(self, state: TrainState) -> Dict[str, Any]:
+        """The state's trees with every split leaf gathered whole."""
+        trees = {"trainable": state.trainable, "frozen": state.frozen,
+                 "mu": state.opt_state["mu"], "nu": state.opt_state["nu"]}
+        if self.rules is None:
+            return trees
+        return {k: gather_params(t, self.rules, self.mesh.model_group) for k, t in trees.items()}
+
     def _write(self, state: TrainState, step: int, path: Path,
-               data_position: Optional[Dict[str, Any]]) -> None:
+               data_position: Optional[Dict[str, Any]], trees=None) -> None:
+        trees = trees or self._whole(state)
         payload = {
-            "trainable": _flat(state.trainable),
-            "frozen": _flat(state.frozen),
+            "trainable": _flat(trees["trainable"]),
+            "frozen": _flat(trees["frozen"]),
             "opt_state": {
                 "count": state.opt_state["count"].detach().cpu(),
-                "mu": _flat(state.opt_state["mu"]),
-                "nu": _flat(state.opt_state["nu"]),
+                "mu": _flat(trees["mu"]),
+                "nu": _flat(trees["nu"]),
             },
             "step": step,
             "generator": state.generator.get_state(),
@@ -106,13 +123,19 @@ class CheckpointManager:
     def restore(self, template: TrainState, step: Optional[int] = None
                 ) -> Tuple[TrainState, Dict[str, Any]]:
         """Copy a saved state into ``template`` (built by create_train_state
-        with the same config; it is updated in place and returned)."""
+        with the same config and, on a model axis, cut to this rank's
+        shards; it is updated in place and returned)."""
         path = self._step_path(step)
         payload = torch.load(path / STATE_FILE, map_location="cpu", weights_only=True)
-        _load_into(template.trainable, payload["trainable"], "trainable")
-        _load_into(template.frozen, payload["frozen"], "frozen")
-        _load_into(template.opt_state["mu"], payload["opt_state"]["mu"], "mu")
-        _load_into(template.opt_state["nu"], payload["opt_state"]["nu"], "nu")
+        cut = None
+        if self.rules is not None:
+            def cut(name, full):
+                return shard_slice(name, full, self.rules, self.mesh.model_index,
+                                   self.mesh.model)
+        _load_into(template.trainable, payload["trainable"], "trainable", cut)
+        _load_into(template.frozen, payload["frozen"], "frozen", cut)
+        _load_into(template.opt_state["mu"], payload["opt_state"]["mu"], "mu", cut)
+        _load_into(template.opt_state["nu"], payload["opt_state"]["nu"], "nu", cut)
         template.opt_state["count"].copy_(payload["opt_state"]["count"])
         template.step = int(payload["step"])
         template.generator.set_state(payload["generator"])

@@ -41,10 +41,21 @@ and runs the data-parallel step on its rows (``parallel/distributed.py``),
 and batch, corpus and test evaluation run through the mesh. The metric
 sinks, the export and the test printout are rank 0's; checkpoints are
 written by rank 0 and restored by every rank; throughput counts the
-global batch's real rows. A 1x1 mesh is the single-device path. Not
-ported: the model axis (``MESH_MODEL`` > 1) and a row-sharded embedding
-table (``SHARD_EMBEDDING_TABLE``), ROADMAP Queue 1 item 10 (10b); each
-raises ``NotImplementedError``.
+global batch's real rows. A 1x1 mesh is the single-device path.
+
+The model axis: ``MESH_MODEL`` M > 1 ranks a model group (the world is
+``MESH_DATA`` x M ranks; rank r at data index r // M). The transformer
+tower splits its heads and FFN columns over the group, and with
+``SHARD_EMBEDDING_TABLE`` each tower's table is split into M row blocks
+(``parallel/distributed.py``); every rank builds the whole init and keeps
+its shard. A recurrent tower with no sharded table runs replicated over
+the group, as in JAX. Without a model group ``SHARD_EMBEDDING_TABLE`` is
+dropped (a table in one block is the whole table). Checkpoints gather the
+shards into the one-process format and each rank restores its own; the
+export gathers the params over the group once and rank 0 writes the
+single-device artifact. Evaluation, the export's encoder and the
+eval-only mode encode through specs with no model axis where they run on
+one rank's whole params.
 """
 
 from __future__ import annotations
@@ -106,16 +117,6 @@ def setup(config: Config):
 
 
 def _check_supported(config: Config) -> None:
-    if config.mesh_model != 1:
-        raise NotImplementedError(
-            f"the model axis of the mesh (MESH_MODEL={config.mesh_model}) is not ported yet "
-            "(ROADMAP Queue 1 item 10, 10b); use MESH_MODEL 1"
-        )
-    if config.shard_embedding_table:
-        raise NotImplementedError(
-            "a row-sharded embedding table (SHARD_EMBEDDING_TABLE) needs the model axis, not "
-            "ported yet (ROADMAP Queue 1 item 10, 10b); use SHARD_EMBEDDING_TABLE false"
-        )
     data, _ = mesh_shape(config.mesh_data, config.mesh_model)  # raises past the world
     if config.batch_size % data:
         raise ValueError(
@@ -237,15 +238,22 @@ def train_on_datasets(
     dev = resolve_device(device)
     if mesh is not None:
         dev = rank_device(dev)
+    if config.shard_embedding_table and (mesh is None or mesh.model_group is None):
+        config = config.replace(shard_embedding_table=False)  # no 'model' axis to split over
     lead = mesh is None or mesh.is_lead
     if config.log_param_stats is None:
         config = config.replace(log_param_stats=use_wandb)
     if config.log_param_histograms is None:
         config = config.replace(log_param_histograms=use_wandb)
     spec = TwoTowerSpec.from_config(config)
+    # encoding on one rank's whole params (the export, the eval-only mode):
+    # no sharded lookup, no tensor-parallel sums
+    host_spec = TwoTowerSpec.from_config(config.replace(shard_embedding_table=False,
+                                                        mesh_model=1))
+    rules = None
 
     def encoder_for(params):
-        return TextEncoder(params, spec, tokenizer, batch_size=config.batch_size,
+        return TextEncoder(params, host_spec, tokenizer, batch_size=config.batch_size,
                            max_query_len=config.max_query_len,
                            max_doc_len=config.max_doc_len, device=dev)
 
@@ -272,12 +280,15 @@ def train_on_datasets(
     if mesh is not None:
         from twotowermlretrieval_tpu_torch.parallel.distributed import (
             MeshTextEncoder,
+            gather_params,
             make_sharded_packed_eval_step,
             make_sharded_packed_train_step,
             replicate_state,
+            rules_for,
         )
 
-        state = replicate_state(state, mesh)
+        rules = rules_for(config, mesh)
+        state = replicate_state(state, mesh, rules)
 
     # only rank 0 owns the sinks: N ranks would print (and log to W&B) N-fold
     logger = MetricLogger(use_wandb=use_wandb and lead, stdout=lead,
@@ -320,7 +331,7 @@ def train_on_datasets(
     train_step = build_step(config.replace(log_param_histograms=False))
     train_step_hist = build_step(config) if config.log_param_histograms else train_step
 
-    ckpt = CheckpointManager(checkpoint_dir, mesh=mesh) if checkpoint_dir else None
+    ckpt = CheckpointManager(checkpoint_dir, mesh=mesh, rules=rules) if checkpoint_dir else None
     start_epoch, skip_batches = 0, 0
     if resume and ckpt and ckpt.latest_step() is not None:
         state, position = ckpt.restore(state)
@@ -459,8 +470,10 @@ def train_on_datasets(
     if profile_window is not None:
         results["profile_window"] = profile_window
 
+    final_params = merge_params(state.trainable, state.frozen)
+    if mesh is not None:  # every rank takes part in the gather, once
+        final_params = gather_params(final_params, rules, mesh.model_group)
     if lead:  # file writes and the printout are rank 0's
-        final_params = merge_params(state.trainable, state.frozen)
         output_dir = Path(output_root) / logger.run_name
         export_encoder = encoder_for(final_params)
         save_inference_artifacts(output_dir, final_params, config, tokenizer, datasets,
@@ -513,6 +526,9 @@ def main(argv=None):
             dist.destroy_process_group()
     if "examples_per_sec" in results:
         print(f"training finished: {results['examples_per_sec']:.1f} examples/s")
+    if "steady_examples_per_sec" in results:  # past the first group's build and launches
+        print(f"steady: {results['steady_examples_per_sec']:.1f} examples/s, "
+              f"{results['steady_steps_per_sec']:.3f} steps/s")
     if "artifacts_dir" in results:
         print(f"artifacts: {results['artifacts_dir']}")
 

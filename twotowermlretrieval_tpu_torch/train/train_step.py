@@ -29,6 +29,17 @@ Dropout follows JAX's split-then-fold-in: each step draws one seed from
 the state's generator (the same draw on every rank, so the generator
 advances alike everywhere) and the rank seeds a device generator of its
 own from (that seed, its index).
+
+On the model axis (``model_group``; ``rules`` name the trainable leaves
+that hold only this rank's shard) the
+towers run their tensor-parallel or row-sharded forms over the model
+group; a sharded leaf's gradient has only its local shape, so the
+data-group all-reduce above is unchanged. The clip and ``grad_norm`` use
+:func:`global_norm_sharded`: a sharded leaf's square sum is summed over
+the model group, a replicated leaf counts once, so every rank of the
+group clips by the same factor. The per-leaf norms and histograms sum (or
+take the max) over the model group the same way. The ranks of a model
+group share their data index, so their dropout seeds, and masks, agree.
 """
 
 from __future__ import annotations
@@ -44,7 +55,13 @@ from twotowermlretrieval_tpu_torch.models.losses import (
     combined_loss,
     triplet_loss_cosine,
 )
-from twotowermlretrieval_tpu_torch.parallel.collectives import axis_index, axis_size, psum_
+from twotowermlretrieval_tpu_torch.parallel.collectives import (
+    axis_index,
+    axis_size,
+    pmax,
+    psum,
+    psum_,
+)
 from twotowermlretrieval_tpu_torch.models.two_tower import (
     TwoTowerSpec,
     encode_document,
@@ -114,18 +131,34 @@ def global_norm(leaves) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g)) for g in leaves))
 
 
+def global_norm_sharded(leaves, model_group=None, model_sharded=None) -> torch.Tensor:
+    """The global L2 norm of gradients some of which are shards over the
+    model group (``model_sharded[i]``): a sharded leaf's square sum is
+    summed over the group (one all-reduce for all of them), a replicated
+    leaf's counts once. Without a group, :func:`global_norm`. Every rank
+    adds the same terms in the same order, so all get the same bits."""
+    if model_group is None or not model_sharded or not any(model_sharded):
+        return global_norm(leaves)
+    squares = [torch.sum(torch.square(g)) for g in leaves]
+    summed = iter(psum(torch.stack([q for q, s in zip(squares, model_sharded) if s]),
+                       model_group))
+    return torch.sqrt(sum(next(summed) if s else q for q, s in zip(squares, model_sharded)))
+
+
 def clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
     """optax.clip_by_global_norm's factor: min(1, max_norm / max(|g|, 1e-16))."""
     return torch.clamp(max_norm / gnorm.clamp_min(1e-16), max=1.0)
 
 
 @torch.no_grad()
-def apply_clip_and_adam(state: TrainState, grads, config) -> torch.Tensor:
+def apply_clip_and_adam(state: TrainState, grads, config, model_group=None,
+                        model_sharded=None) -> torch.Tensor:
     """clip_by_global_norm(grad_clip_norm) then Adam(lr), in place on the
     state's params and moments, in optax's arithmetic. ``grads`` is the
     list of gradients in :func:`named_leaves` order. Returns the global
-    norm of ``grads`` (before the clip)."""
-    gnorm = global_norm(grads)
+    norm of ``grads`` (before the clip), over the model group's shards
+    (:func:`global_norm_sharded`)."""
+    gnorm = global_norm_sharded(grads, model_group, model_sharded)
     scale = clip_scale(gnorm, config.grad_clip_norm)
     opt = state.opt_state
     opt["count"] += 1
@@ -150,12 +183,13 @@ def apply_clip_and_adam(state: TrainState, grads, config) -> torch.Tensor:
 
 
 def _forward_and_metrics(params, batch: Batch, spec: TwoTowerSpec, config,
-                         generator: Optional[torch.Generator], train: bool, axis_name=None):
+                         generator: Optional[torch.Generator], train: bool, axis_name=None,
+                         model_group=None):
     """(loss, metric numerators, their denominator): each metric but the
     loss is ``sums[name] / max(den, 1)``, a weighted mean over this rank's
     rows; the data-parallel step sums both over the ranks first."""
     q = encode_query(params, batch.q_tokens, batch.q_len, spec, train=train,
-                     generator=generator)
+                     generator=generator, model_group=model_group)
     B = batch.pos_tokens.shape[0]
     # With a pure in-batch loss the explicit negative never reaches the
     # gradient; only the triplet metric set reads it. TRIPLET_METRICS=false
@@ -166,11 +200,12 @@ def _forward_and_metrics(params, batch: Batch, spec: TwoTowerSpec, config,
         d = encode_document(
             params, torch.cat([batch.pos_tokens, batch.neg_tokens]),
             torch.cat([batch.pos_len, batch.neg_len]), spec, train=train, generator=generator,
+            model_group=model_group,
         )
         p, n = d[:B], d[B:]
     else:
         p = encode_document(params, batch.pos_tokens, batch.pos_len, spec, train=train,
-                            generator=generator)
+                            generator=generator, model_group=model_group)
         n = None
     w = batch.example_mask
 
@@ -206,26 +241,42 @@ def _forward_and_metrics(params, batch: Batch, spec: TwoTowerSpec, config,
     return loss, sums, torch.sum(w)
 
 
-def _leaf_histogram(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _leaf_histogram(x: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fixed-bin histogram over [-absmax, absmax]: (counts [BINS] f32,
-    absmax), the JAX step's binning."""
+    absmax), the JAX step's binning. With ``group`` (a leaf sharded over
+    it) the absmax is the group's max and the counts its sum, so every
+    rank reports the whole leaf's histogram."""
     absmax = torch.max(torch.abs(x))
+    if group is not None:
+        absmax = pmax(absmax, group)
     scale = absmax.clamp_min(1e-30)
     idx = ((x.reshape(-1) + scale) * (HISTOGRAM_BINS / (2.0 * scale))).to(torch.int32)
     idx = idx.clamp(0, HISTOGRAM_BINS - 1).long()
     counts = torch.bincount(idx, minlength=HISTOGRAM_BINS).float()
+    if group is not None:
+        counts = psum_(counts, group)
     return counts, absmax
 
 
 @torch.no_grad()
-def _add_param_stats(metrics, names, grads, params, histograms: bool, norms: bool) -> None:
-    for name, g, p in zip(names, grads, params):
+def _add_param_stats(metrics, names, grads, params, histograms: bool, norms: bool,
+                     model_group=None, model_sharded=None) -> None:
+    """Per-leaf norms and histograms; a leaf sharded over ``model_group``
+    sums its squares (or counts) over the group."""
+    sharded = model_sharded or [False] * len(names)
+    for name, g, p, s in zip(names, grads, params, sharded):
+        group = model_group if s else None
         if norms:
-            metrics[f"grad_norm/{name}"] = torch.sqrt(torch.sum(torch.square(g)))
-            metrics[f"param_norm/{name}"] = torch.sqrt(torch.sum(torch.square(p)))
+            gs, ps = torch.sum(torch.square(g)), torch.sum(torch.square(p))
+            if group is not None:
+                gs, ps = psum_(torch.stack([gs, ps]), group)
+            metrics[f"grad_norm/{name}"] = torch.sqrt(gs)
+            metrics[f"param_norm/{name}"] = torch.sqrt(ps)
         if histograms:
-            metrics[f"grad_hist/{name}"], metrics[f"grad_hist_max/{name}"] = _leaf_histogram(g)
-            metrics[f"param_hist/{name}"], metrics[f"param_hist_max/{name}"] = _leaf_histogram(p)
+            metrics[f"grad_hist/{name}"], metrics[f"grad_hist_max/{name}"] = \
+                _leaf_histogram(g, group)
+            metrics[f"param_hist/{name}"], metrics[f"param_hist_max/{name}"] = \
+                _leaf_histogram(p, group)
 
 
 def _fold_in(generator: torch.Generator, index: int, cache: dict) -> torch.Generator:
@@ -241,11 +292,12 @@ def _fold_in(generator: torch.Generator, index: int, cache: dict) -> torch.Gener
     return rank_gen.manual_seed(int(mixed[0]) << 31 ^ int(mixed[1]))
 
 
-def make_grad_step(spec: TwoTowerSpec, config, axis_name=None):
+def make_grad_step(spec: TwoTowerSpec, config, axis_name=None, model_group=None):
     """``grad_step(state, batch) -> (grads, metrics)``: the train step up
     to the clip, gradients in :func:`named_leaves` order. With
     ``axis_name`` the gradients are the mean over the ranks and the
-    metrics global, through one all-reduce."""
+    metrics global, through one all-reduce. ``model_group``: the towers'
+    model axis (a sharded leaf's gradient is its shard's)."""
     rank_gens: dict = {}
 
     def grad_step(state: TrainState, batch: Batch):
@@ -258,7 +310,8 @@ def make_grad_step(spec: TwoTowerSpec, config, axis_name=None):
         with torch.enable_grad():
             params = merge_params(state.trainable, state.frozen)
             loss, sums, den = _forward_and_metrics(params, batch, spec, config, generator,
-                                                   train=True, axis_name=axis_name)
+                                                   train=True, axis_name=axis_name,
+                                                   model_group=model_group)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
         loss = loss.detach()
@@ -287,43 +340,52 @@ def make_grad_step(spec: TwoTowerSpec, config, axis_name=None):
     return grad_step
 
 
-def make_train_step(spec: TwoTowerSpec, config, axis_name=None):
+def make_train_step(spec: TwoTowerSpec, config, axis_name=None, model_group=None,
+                    rules=None):
     """The train-step function ``step(state, batch) -> (state, metrics)``.
     Metrics are scalar (or histogram) tensors on the device; nothing is
     fetched to the host. ``axis_name``: the ``data`` process group of the
-    data-parallel step (``parallel/distributed.py``)."""
-    grad_step = make_grad_step(spec, config, axis_name)
+    data-parallel step (``parallel/distributed.py``); ``model_group`` and
+    ``rules`` (``rules(path, leaf)``: the dimension of a trainable leaf
+    split over the group, or ``None``; ``parallel/distributed.py:rules_for``):
+    the model axis and which leaves are shards over it."""
+    grad_step = make_grad_step(spec, config, axis_name, model_group)
 
     def train_step(state: TrainState, batch: Batch):
         named = named_leaves(state.trainable)
         names = [n for n, _ in named]
         leaves = [p for _, p in named]
+        model_sharded = (None if model_group is None or rules is None
+                         else [rules(n, p) is not None for n, p in named])
         grads, metrics = grad_step(state, batch)
         norms = bool(getattr(config, "log_param_stats", False))
         hists = bool(getattr(config, "log_param_histograms", False))
         if norms or hists:  # of the params before this step's update, as JAX's
-            _add_param_stats(metrics, names, grads, leaves, hists, norms)
-        metrics["grad_norm"] = apply_clip_and_adam(state, grads, config)
+            _add_param_stats(metrics, names, grads, leaves, hists, norms, model_group,
+                             model_sharded)
+        metrics["grad_norm"] = apply_clip_and_adam(state, grads, config, model_group,
+                                                   model_sharded)
         state.step += 1
         return state, metrics
 
     return train_step
 
 
-def make_eval_step(spec: TwoTowerSpec, config, axis_name=None):
+def make_eval_step(spec: TwoTowerSpec, config, axis_name=None, model_group=None):
     """Validation step: no dropout, no update. Returns (q_emb, pos_emb,
     {'val_loss'}); the validation loss is the triplet loss whatever the
     training loss. With ``axis_name`` the embeddings are this rank's rows
-    and the loss is the global batch's."""
+    and the loss is the global batch's; ``model_group``: the towers' model
+    axis."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch):
         params = merge_params(state.trainable, state.frozen)
-        q = encode_query(params, batch.q_tokens, batch.q_len, spec)
+        q = encode_query(params, batch.q_tokens, batch.q_len, spec, model_group=model_group)
         B = batch.pos_tokens.shape[0]
         d = encode_document(
             params, torch.cat([batch.pos_tokens, batch.neg_tokens]),
-            torch.cat([batch.pos_len, batch.neg_len]), spec,
+            torch.cat([batch.pos_len, batch.neg_len]), spec, model_group=model_group,
         )
         p, n = d[:B], d[B:]
         loss = triplet_loss_cosine((q, p, n), config.margin, weights=batch.example_mask,
