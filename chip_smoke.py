@@ -80,6 +80,21 @@
    B=1024) over a sharded, trained table: the first step against one
    process's, ``rnn_fwd`` and ``rnn_bwd`` 4 each in each rank.
 
+10. Searches a corpus split over shards (``phase_sharded_serve``), D = 2
+   and 4 shards of the one card (a device list that repeats cuda:0):
+   BASELINE config 4's 1,048,576 x 256 rows in f32, bf16 and int8 through
+   ``RetrievalIndex(mesh=...)`` and per-row int8 through
+   ``distributed_topk_int8``, at B=1 and 16, each against one device's
+   search over the same rows (ids equal, s8 scores bit for bit, the others
+   within 1e-5 relative) with one scan launch a shard and nothing else;
+   ``segmax`` (bf16 rows, and f32 rows at B=16 and 1: its CUDA-core
+   kernel), ``segmax_s8`` and ``topk_stream_int8`` at each shard's shape
+   against their plain versions; the search's times at D = 1, 2, 4 split
+   into the scans, phase 2 and the merge; shards holding only padding; the
+   IVF index of step 3 over two shards against ``ivf_search``; and the
+   export served over two shards in bf16 and int8, each ``/search`` the
+   single-device engine's ranked docs.
+
 Step 3 holds the forward kernel at four shapes (the query encode, the
 export, the training query and doc towers), each timed beside cuDNN's GRU,
 its layout logged and two calls held bit-identical. Step 3 covers the
@@ -290,6 +305,14 @@ IVF_CENTRES, IVF_NOISE, IVF_ITERS, IVF_RECALL = 1024, 0.05, 10, 0.99
 # probe (their per-slot quantization moves near-ties across the 50th
 # place; this corpus's full probe recalls about 0.984). Their floor:
 IVF_INT8_RECALL = 0.98
+# Sharded search (phase_sharded_serve): the corpus split over D shards of
+# the one card, each search one scan launch a shard and a merge of the
+# [B, 50] lists. A CPU rehearsal of the phase (2 and 4 shards, the plain
+# versions) gave the single-device index's ids and its scores to the bit;
+# on the card every shard sums each score as one device does, so bf16 and
+# f32 scores are held within 1e-5 relative, and s8 bit for bit.
+SHARDS = (2, 4)
+SHARD_REL = 1e-5
 # The traced config 5 run: the window opens at the first group of
 # STEPS_PER_DISPATCH (8) steps that starts at step 10 or later, so one of
 # 16 steps (two groups) never opens it; 24 steps open it at step 16 and end
@@ -3195,7 +3218,8 @@ def phase_ivf(dev) -> dict:
     ``ivf_search`` at B=1 and 16 at that nprobe timed with CUDA events
     beside the exact ``fused_topk_segmax`` over the same rows, and the full
     probe of the bf16 index equal to the exact top-50 (the ids' scores
-    within SEGMAX_ATOL of the full f32 product's and in its top 50)."""
+    within SEGMAX_ATOL of the full f32 product's and in its top 50).
+    Returns the record and (the bf16 index, the 16 queries, its nprobe)."""
     from twotowermlretrieval_tpu_torch.ops import ivf
     from twotowermlretrieval_tpu_torch.ops.topk import fused_topk_segmax
 
@@ -3249,11 +3273,13 @@ def phase_ivf(dev) -> dict:
             log(f"ivf bf16 full probe (nprobe {C}): the exact top-{FANOUT}, |diff| {err:.3g}")
             del full
         rec[storage] = r
+        if storage == "bfloat16":  # phase_sharded_serve splits it over two shards
+            kept = (index, q, nprobe)
         del index
         torch.cuda.empty_cache()
     del docs_bf16
     torch.cuda.empty_cache()
-    return rec
+    return rec, kept
 
 
 def phase_serve_ivf(dev, triplets) -> dict:
@@ -3302,6 +3328,289 @@ def phase_serve_ivf(dev, triplets) -> dict:
     rec.update({"nprobe": nprobe, "measured_recall": measured, "serving_recall": recalls,
                 "build_index_s": build_s})
     return rec
+
+
+# ---------------------------------------------------------------------------
+# sharded search: the corpus split over D shards of the one card
+# ---------------------------------------------------------------------------
+
+
+def _score_rel(got, want) -> float:
+    """Largest |got - want| / |want| of two score arrays (equal padding
+    entries count 0)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    diff = np.abs(got - want)
+    return float((diff / np.maximum(np.abs(want), 1e-30)).max()) if diff.size else 0.0
+
+
+def _check_same_search(what, got, want, exact: bool) -> float:
+    """(vals, ids) pairs: ids equal, values bit for bit (``exact``) or
+    within SHARD_REL relative. Returns the relative difference."""
+    g_vals, g_ids = (np.asarray(t.cpu() if torch.is_tensor(t) else t) for t in got)
+    w_vals, w_ids = (np.asarray(t.cpu() if torch.is_tensor(t) else t) for t in want)
+    check(np.array_equal(g_ids, w_ids), f"{what}: ids differ from one device's")
+    rel = _score_rel(g_vals, w_vals)
+    check(np.array_equal(g_vals, w_vals) if exact else rel <= SHARD_REL,
+          f"{what}: scores off one device's by {rel} relative")
+    return rel
+
+
+def _shard_kernels(docs, f32, s8, values, scales, dev, seed: int) -> dict:
+    """The three kernels of the sharded path at one shard's shape (shard
+    0's tensors, SERVE_ROWS query rows; segmax over the f32 shard at B =
+    SERVE_ROWS and 1 too, whose f32 queries take its CUDA-core kernel),
+    each against its plain version (segmax within SEGMAX_ATOL, segmax_s8
+    bit for bit, topk_stream_int8 within INT8_ATOL with its ids against
+    the full f32 scores) and timed beside it, its library call and its
+    bound."""
+    from twotowermlretrieval_tpu_torch.ops.topk import (
+        quantize_query_rows,
+        segmax,
+        segmax_bound,
+        segmax_reference,
+        segmax_s8,
+        segmax_s8_bound,
+        segmax_s8_reference,
+        topk_stream_bound,
+        topk_stream_int8,
+        topk_stream_reference,
+    )
+
+    q = _unit_rows_f32(torch.Generator(device=dev).manual_seed(seed), SERVE_ROWS, dev)
+    qb, (q_i8, _) = q.bfloat16(), quantize_query_rows(q)
+    B, rows = SERVE_ROWS, docs.shape[0]
+
+    def f32_case(b):
+        qf = q[:b]
+        return ("segmax", lambda: segmax(qf, f32, rows)[0],
+                lambda: segmax_reference(qf, f32, rows)[0], SEGMAX_ATOL,
+                lambda: torch.matmul(f32, qf.T).view(-1, 128, b).amax(dim=1),
+                segmax_bound(b, H, rows, 4) + (PEAK_F32_FLOPS,), f"B={b} f32")
+
+    cases = [  # name, kernel, plain version, tolerance, library call, (bytes, ops, peak), what
+        ("segmax", lambda: segmax(qb, docs, rows)[0], lambda: segmax_reference(qb, docs, rows)[0],
+         SEGMAX_ATOL, lambda: torch.matmul(docs, qb.T).view(-1, 128, B).amax(dim=1),
+         segmax_bound(B, H, rows, 2) + (PEAK_BF16_FLOPS,), f"B={B} bf16"),
+        f32_case(B),
+        f32_case(1),
+        ("segmax_s8", lambda: segmax_s8(q_i8, s8)[0], lambda: segmax_s8_reference(q_i8, s8)[0],
+         0.0, _int_mm_amax(s8, q_i8, 128),
+         segmax_s8_bound(B, H, rows, 128) + (PEAK_INT8_OPS,), f"B={B} int8 seg 128"),
+        ("topk_stream_int8", lambda: topk_stream_int8(qb, values, scales, FANOUT, rows),
+         lambda: topk_stream_reference(qb, values, FANOUT, rows, scales), INT8_ATOL,
+         lambda: torch.topk(torch.matmul(qb, values.to(torch.bfloat16).T).float() * scales,
+                            FANOUT),
+         topk_stream_bound(B, H, rows, FANOUT, 1, scaled=True) + (PEAK_BF16_FLOPS,),
+         f"B={B} int8 per row k={FANOUT}"),
+    ]
+    recs = {}
+    for name, kernel, plain, tol, lib, (nbytes, ops, peak), what in cases:
+        shape = f"one shard: Npad={rows} H={H} {what}"
+        got, want = kernel(), plain()
+        got, want = ((t,) if torch.is_tensor(t) else t for t in (got, want))
+        err = (got[0] - want[0]).abs().max().item()
+        check(err <= tol, f"{name} {shape}: off its plain version by {err}")
+        if name == "topk_stream_int8":
+            full = torch.matmul(qb.float(), values.float().T) * scales
+            err = max(err, _check_topk(f"{name} {shape}", got[0], got[1], full, rows, tol))
+            del full
+        rec = {"shape": shape, "max_abs_err": err, "ms": time_ms(kernel),
+               "plain_ms": time_ms(plain, reps=5, warmup=1), "library_ms": time_ms(lib)}
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, peak)
+        log(f"{name} {shape}: |diff| {err:.3g}; kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+        recs.setdefault(name, []).append(rec)
+    return recs
+
+
+def _padding_only_shards(host, q, dev) -> None:
+    """Corpora over 4 shards whose tail shards hold only padding (20 rows
+    of bf16 and per-row int8, 8 a shard: the fourth is padding; 1,000 s8
+    rows, 1,024 a shard: three are): each search gives one device's ids
+    and scores, and a padding-only shard's own search on the kernel route
+    returns NEG_INF and id -1."""
+    from twotowermlretrieval_tpu_torch.ops.topk import (
+        NEG_INF,
+        fused_topk_int8,
+        fused_topk_segmax,
+        fused_topk_segmax_s8,
+        quantize_rows,
+    )
+    from twotowermlretrieval_tpu_torch.parallel.mesh import make_device_mesh
+    from twotowermlretrieval_tpu_torch.parallel.topk import (
+        distributed_topk_int8,
+        shard_corpus_int8,
+    )
+    from twotowermlretrieval_tpu_torch.serve.index import RetrievalIndex
+
+    mesh = make_device_mesh(4, 1, [dev] * 4)
+    q_np = q.cpu().numpy()
+    empty = []
+    for storage, rows in (("bfloat16", 20), ("int8", 1000)):
+        sharded = RetrievalIndex(host[:rows], storage, mesh=mesh)
+        k = min(FANOUT, rows)
+        _check_same_search(f"{rows} {storage} rows over 4 shards", sharded.search(q_np, k),
+                           RetrievalIndex(host[:rows], storage, device=dev).search(q_np, k),
+                           exact=storage == "int8")
+        last = sharded._docs[-1]
+        if storage == "int8":
+            empty.append(fused_topk_segmax_s8(q, last, sharded._scales[-1], k=k, n_valid=0))
+        else:
+            empty.append(fused_topk_segmax(q.bfloat16(), last, k=min(k, last.shape[0]),
+                                           n_valid=0))
+    values, scales, n = shard_corpus_int8(host[:20], mesh)
+    whole = [torch.from_numpy(a).to(dev) for a in quantize_rows(host[:20])]
+    _check_same_search("20 per-row int8 rows over 4 shards",
+                       distributed_topk_int8(q, values, scales, 20, mesh, n_valid=n),
+                       fused_topk_int8(q, *whole, k=20), exact=False)
+    empty.append(fused_topk_int8(q, values[-1], scales[-1], k=8, n_valid=0))
+    for vals, ids in empty:
+        check(bool((vals == NEG_INF).all() and (ids == -1).all()),
+              "a padding-only shard returned a candidate")
+    log("sharded search: shards of padding only (20 bf16 / per-row int8 rows, 1,000 s8 rows "
+        "over 4 shards) return NEG_INF and -1 on the kernel route; the searches equal one "
+        "device's")
+
+
+def phase_sharded_serve(dev, triplets, ivf_kept) -> dict:
+    """The corpus split over D in SHARDS shards of the one card (a device
+    list repeating cuda:0), BASELINE config 4's 1,048,576 x 256 unit rows:
+    ``RetrievalIndex(mesh=...)`` in f32, bf16 and int8 (``distributed_topk``,
+    ``distributed_topk_s8``) and ``distributed_topk_int8`` over per-row int8
+    rows, at B=1 and 16, each against one device's search over the same
+    rows (ids equal; s8 scores bit for bit, the others within SHARD_REL)
+    with the counts at 0: one scan launch a shard (``topk_stream_int8`` one
+    a block of query rows a shard) and nothing else. The three kernels at
+    each shard shape against their plain versions (``segmax`` over the
+    bf16 and the f32 shard); the search times at D
+    = 1, 2 and 4 (``tools/bench_sharded_search.py``: the scans, one shard's
+    search, the merge); shards of padding only; the phase-IVF index over
+    two shards against ``ivf_search``; then the export served over two
+    shards in bf16 and int8 (``serve(mesh=...)``), each response the
+    single-device engine's ranked docs."""
+    from twotowermlretrieval_tpu_torch.ops.ivf import ivf_search
+    from twotowermlretrieval_tpu_torch.ops.topk import fused_topk_int8, query_blocks, quantize_rows
+    from twotowermlretrieval_tpu_torch.parallel.ivf import distributed_ivf_search, shard_ivf
+    from twotowermlretrieval_tpu_torch.parallel.mesh import make_device_mesh
+    from twotowermlretrieval_tpu_torch.parallel.topk import (
+        distributed_topk_int8,
+        shard_corpus_int8,
+    )
+    from twotowermlretrieval_tpu_torch.serve.engine import SearchEngine
+    from twotowermlretrieval_tpu_torch.serve.index import RetrievalIndex
+    from twotowermlretrieval_tpu_torch.tools.bench_sharded_search import search_breakdown
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(80)
+    host = _unit_rows_f32(gen, SCAN_ROWS, dev).cpu().numpy()
+    q = _unit_rows_f32(gen, SERVE_ROWS, dev)
+    q_np = q.cpu().numpy()
+    scans = {"float32": "segmax", "bfloat16": "segmax", "int8": "segmax_s8"}
+    out = {"rows": SCAN_ROWS, "H": H, "searches": [], "times": [], "kernels": {}}
+    with torch.inference_mode():
+        whole_int8 = [torch.from_numpy(a).to(dev) for a in quantize_rows(host)]
+        one = {st: RetrievalIndex(host, st, device=dev) for st in scans}
+        for st in ("bfloat16", "int8"):
+            for B in (1, SERVE_ROWS):
+                out["times"].append({"storage": st, "shards": 1, "B": B,
+                                     **search_breakdown(one[st], q[:B])})
+        for D in SHARDS:
+            mesh = make_device_mesh(D, 1, [dev] * D)
+            sharded = {}
+            for st, name in scans.items():
+                sharded[st] = index = RetrievalIndex(host, st, mesh=mesh)
+                check(len(index._docs) == D and index.kernel_on()
+                      and all(t.is_cuda for t in index._docs), f"{st} over {D} shards: placed")
+                for B in (1, SERVE_ROWS):
+                    zero_counts()
+                    got = index.search(q_np[:B], FANOUT)
+                    counts = read_counts()
+                    check(counts[name] == D and sum(counts.values()) == D,
+                          f"{st} over {D} shards at B={B} launched {counts}, expected {D} {name}")
+                    rel = _check_same_search(f"{st} over {D} shards at B={B}", got,
+                                             one[st].search(q_np[:B], FANOUT), st == "int8")
+                    out["searches"].append({"storage": st, "shards": D, "B": B, "rel": rel,
+                                            "launches": counts[name]})
+                    if st != "float32":
+                        out["times"].append({"storage": st, "shards": D, "B": B,
+                                             **search_breakdown(index, q[:B])})
+            values, scales, n = shard_corpus_int8(host, mesh)
+            for B in (1, SERVE_ROWS):
+                zero_counts()
+                got = distributed_topk_int8(q[:B], values, scales, FANOUT, mesh, n_valid=n)
+                counts = read_counts()
+                want = D * len(query_blocks("topk_stream_int8", B, H, torch.int8, FANOUT))
+                check(counts["topk_stream_int8"] == want and sum(counts.values()) == want,
+                      f"per-row int8 over {D} shards at B={B} launched {counts}")
+                rel = _check_same_search(f"per-row int8 over {D} shards at B={B}", got,
+                                         fused_topk_int8(q[:B], *whole_int8, k=FANOUT), False)
+                out["searches"].append({"storage": "int8 per row", "shards": D, "B": B,
+                                        "rel": rel, "launches": counts["topk_stream_int8"]})
+                out["int8_rows_launches"] = counts  # the last: D=4, B=16
+            for name, recs in _shard_kernels(sharded["bfloat16"]._docs[0],
+                                             sharded["float32"]._docs[0], sharded["int8"]._docs[0],
+                                             values[0], scales[0], dev, 81 + D).items():
+                out["kernels"].setdefault(name, []).extend(recs)
+            del sharded, index, values, scales
+            torch.cuda.empty_cache()
+        for r in out["searches"]:
+            log(f"sharded {r['storage']} over {r['shards']} shards, B={r['B']}: {r['launches']} "
+                f"scan launches, ids equal one device's, scores off by {r['rel']:.3g} relative")
+        for t in out["times"]:
+            log(f"sharded {t['storage']} D={t['shards']} B={t['B']}: search "
+                f"{t['search_ms']:.4f} ms = scans {t['scan_ms']:.4f} + phase 2 "
+                f"{t['phase2_ms']:.4f} + merge {t['merge_ms']:.4f} (copies {t['copy_ms']:.4f}); "
+                f"one shard's search {t['shard_search_ms']:.4f} ms")
+        del one, whole_int8
+        torch.cuda.empty_cache()
+        _padding_only_shards(host, q, dev)
+
+        index, q_ivf, nprobe = ivf_kept
+        mesh = make_device_mesh(2, 1, [dev, dev])
+        sharded_ivf = shard_ivf(index, mesh)
+        rel = _check_same_search("the phase-IVF index over 2 shards",
+                                 distributed_ivf_search(q_ivf, sharded_ivf, FANOUT, nprobe, mesh),
+                                 ivf_search(q_ivf, index, FANOUT, nprobe), exact=False)
+        out["ivf"] = {"nprobe": nprobe, "rel": rel, "blocks": sharded_ivf.n_blocks,
+                      "ms": time_ms(lambda: distributed_ivf_search(q_ivf, sharded_ivf, FANOUT,
+                                                                   nprobe, mesh)),
+                      "one_device_ms": time_ms(lambda: ivf_search(q_ivf, index, FANOUT, nprobe))}
+        log(f"sharded IVF ({sharded_ivf.n_blocks} blocks over 2 shards, nprobe {nprobe}, B=16): "
+            f"ivf_search's ids, scores off by {rel:.3g} relative; {out['ivf']['ms']:.4f} ms "
+            f"against {out['ivf']['one_device_ms']:.4f} ms on one device")
+        del index, sharded_ivf
+    del host
+    torch.cuda.empty_cache()
+
+    requests = _requests(triplets)
+    dense = sum(1 for r in requests if r["alpha"] != 0.0)
+    for st, name in (("bfloat16", "segmax"), ("int8", "segmax_s8")):
+        rec, engine = _drive_server(requests, storage_dtype=st,
+                                    mesh=make_device_mesh(2, 1, [dev, dev]))
+        launches = rec["launches"]
+        check(len(engine.index._docs) == 2, "the server's index is not split over 2 shards")
+        check(launches["rnn_fwd"] == 2 * dense and launches[name] == 2 * dense
+              and sum(launches.values()) == 4 * dense,
+              f"{st} serving over 2 shards launched {launches}, expected 2 rnn_fwd and 2 {name} "
+              f"per dense search")
+        single = SearchEngine(ARTIFACTS, device=dev, storage_dtype=st)
+        for req, (code, body, _) in zip(requests, rec.pop("responses")):
+            want = single.search(req["query"], alpha=req["alpha"])["results"]
+            check(code == 200 and [r["doc"] for r in body["results"]] == [r["doc"] for r in want],
+                  f"{st} /search over 2 shards {req['query'][:30]!r}: not one device's docs")
+            _check_same_search(f"{st} /search over 2 shards",
+                               ([r["score"] for r in body["results"]], []),
+                               ([r["score"] for r in want], []), exact=st == "int8")
+        log(f"serve {st} over 2 shards: {len(requests)} /search responses return the "
+            f"single-device engine's ranked docs; request ms "
+            f"{[round(ms, 3) for ms in rec['request_ms']]}")
+        engine.close()
+        single.close()
+        out[f"serve_{st}"] = rec
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"sharded search phase: {out['phase_s']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3422,13 +3731,17 @@ def main(argv) -> int:
         kern["segmax_s8"].append(wide_s8)
         for name, recs in phase_wide_batches(dev).items():
             kern[name].extend(recs)
-        ivf = phase_ivf(dev)
+        ivf, ivf_kept = phase_ivf(dev)
         kern.update(phase_attention_kernels(dev))
         export, corpus = phase_export(dev)
         served = phase_serve(dev, corpus[2])
         served_int8 = phase_serve_int8(dev, corpus[2])
         wide_engine = phase_wide_engine(dev, corpus)
         served_ivf = phase_serve_ivf(dev, corpus[2])
+        sharded = phase_sharded_serve(dev, corpus[2], ivf_kept)
+        del ivf_kept
+        for name, recs in sharded.pop("kernels").items():
+            kern[name].extend(recs)
         trained, setup = phase_train(dev, corpus)
         odd = phase_odd_width(dev, setup)
         tf = phase_transformer(dev, corpus)
@@ -3445,9 +3758,10 @@ def main(argv) -> int:
     # each kernel's path, its counts read just after it ran: bf16 serving
     # for rnn_fwd and segmax, training for rnn_bwd, int8 serving for
     # segmax_s8, transformer serving for attention_fwd and transformer
-    # training for attention_bwd, and for the kernels no serving or
-    # training path reaches, one call of their public function
-    # (fused_topk_segmax_int8, fused_topk, fused_topk_int8)
+    # training for attention_bwd, the sharded per-row int8 search for
+    # topk_stream_int8, and for the kernels no serving or training path
+    # reaches, one call of their public function (fused_topk_segmax_int8,
+    # fused_topk)
     phases = {"export": export["launches"], "serve": served["launches"],
               "serve_int8": served_int8["launches"], "train": trained["launches"],
               "odd_width_serve": odd["launches"], "wide_int8_index": wide_s8["launches"],
@@ -3459,11 +3773,15 @@ def main(argv) -> int:
               **{f"data_parallel_rank{r}": c for r, c in enumerate(dp["launches"])},
               **{f"model_axis_rank{r}": c for r, c in enumerate(tp["launches"])},
               **{f"model_axis_gru_rank{r}": c for r, c in enumerate(tp["gru_launches"])},
-              "model_axis_export_search": tp["export_search"]}
+              "model_axis_export_search": tp["export_search"],
+              "sharded_serve": sharded["serve_bfloat16"]["launches"],
+              "sharded_serve_int8": sharded["serve_int8"]["launches"],
+              "sharded_topk_int8": sharded["int8_rows_launches"]}
     main_launches = {"rnn_fwd": served["launches"]["rnn_fwd"],
                      "segmax": served["launches"]["segmax"],
                      "rnn_bwd": trained["launches"]["rnn_bwd"],
                      "segmax_s8": served_int8["launches"]["segmax_s8"],
+                     "topk_stream_int8": sharded["int8_rows_launches"]["topk_stream_int8"],
                      "attention_fwd": tf["serve"]["launches"]["attention_fwd"],
                      "attention_bwd": tf["launches"]["attention_bwd"]}
     kernels = []
@@ -3516,6 +3834,10 @@ def main(argv) -> int:
         f"{[round(st['all_reduce_ms'], 1) for st in tp['steps'][0]]} "
         f"({tp['steps'][0][0]['all_reduces']} a step) ({card})")
     log(f"ivf over {ivf['rows']} x {ivf['H']}: {json.dumps(ivf)} ({card})")
+    log(f"sharded search over {sharded['rows']} x {sharded['H']} on one card: "
+        + "; ".join(f"{t['storage']} D={t['shards']} B={t['B']} {t['search_ms']:.4f} ms (scans "
+                    f"{t['scan_ms']:.4f}, merge {t['merge_ms']:.4f})" for t in sharded["times"])
+        + f"; IVF over 2 shards {sharded['ivf']['ms']:.4f} ms ({card})")
     log(f"serve ivf: nprobe {served_ivf['nprobe']}, measured recall "
         f"{served_ivf['measured_recall']:.4f}, request ms "
         f"{[round(ms, 3) for ms in served_ivf['request_ms']]} ({card})")

@@ -1206,3 +1206,76 @@ def test_ivf_search_on_the_card_matches_the_cpu(dev):
     e_vals, e_ids = topk_oracle(q.to(dev), torch.from_numpy(docs).to(dev), 20)
     assert torch.equal(ids.long(), e_ids)
     torch.testing.assert_close(vals, e_vals, rtol=1e-5, atol=0)
+
+
+def _sharded_docs(seed, n, h):
+    rng = np.random.default_rng(seed)
+    docs = rng.standard_normal((n, h)).astype(np.float32)
+    q = rng.standard_normal((16, h)).astype(np.float32)
+    return (docs / np.linalg.norm(docs, axis=1, keepdims=True)), q
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+def test_sharded_index_on_a_repeated_card_matches_one_device(dev, storage, D):
+    """A RetrievalIndex split over D shards of the one card (a device list
+    that repeats it) against the single-device index: the same ids, int8
+    scores bit for bit, bf16 and f32 within 1e-5 relative; each search
+    launches its scan kernel once a shard and no plain version runs."""
+    from twotowermlretrieval_tpu_torch.parallel.mesh import make_device_mesh
+    from twotowermlretrieval_tpu_torch.serve.index import RetrievalIndex
+
+    docs, q = _sharded_docs(40 + D, 70_000, 72)  # 72 columns: padded to 80 on the card
+    mesh = make_device_mesh(D, 1, [dev] * D)
+    one = RetrievalIndex(docs, storage, device=dev)
+    sharded = RetrievalIndex(docs, storage, mesh=mesh)
+    assert sharded.kernel_on() and all(t.is_cuda and t.shape[1] == 80 for t in sharded._docs)
+    kernel = segmax_s8 if storage == "int8" else segmax
+    for B in (1, 16):
+        kernel.launches = 0
+        vals, ids = sharded.search(q[:B], 50)
+        assert kernel.launches == D
+        o_vals, o_ids = one.search(q[:B], 50)
+        np.testing.assert_array_equal(ids, o_ids)
+        if storage == "int8":
+            np.testing.assert_array_equal(vals, o_vals)
+        else:
+            np.testing.assert_allclose(vals, o_vals, rtol=1e-5, atol=0)
+
+
+def test_sharded_scans_with_padding_only_shards(dev):
+    """Small corpora over 4 shards of the card, where the tail shards hold
+    only padding: each distributed search gives the single-device route's
+    ids (s8 scores bit for bit, bf16 and per-row int8 within 1e-5
+    relative), and a padding-only shard's own kernel search returns NEG_INF
+    and -1."""
+    from twotowermlretrieval_tpu_torch.parallel import topk as ptopk
+    from twotowermlretrieval_tpu_torch.parallel.mesh import make_device_mesh
+
+    mesh = make_device_mesh(4, 1, [dev] * 4)
+    docs, q = _sharded_docs(50, 1000, 64)
+    qt = torch.from_numpy(q).to(dev)
+    k = 20
+    small = docs[:20]  # 8 rows a shard: 8, 8, 4 and a shard of padding
+    shards, n = ptopk.shard_corpus(small, mesh, torch.bfloat16)
+    vals, ids = ptopk.distributed_topk(qt, shards, k, mesh, n_valid=n)
+    want = fused_topk_segmax(qt.bfloat16(), torch.from_numpy(small).to(dev).bfloat16(), k=k)
+    assert torch.equal(ids, want[1])
+    torch.testing.assert_close(vals, want[0], rtol=1e-5, atol=0)
+    e_vals, e_ids = fused_topk_segmax(qt.bfloat16(), shards[3], k=8, n_valid=0)
+    assert (e_vals == NEG_INF).all() and (e_ids == -1).all()
+    values, scales, n = ptopk.shard_corpus_int8(small, mesh)
+    vals, ids = ptopk.distributed_topk_int8(qt, values, scales, k, mesh, n_valid=n)
+    v, s = (torch.from_numpy(a).to(dev) for a in quantize_rows(small))
+    want = fused_topk_int8(qt, v, s, k=k)
+    assert torch.equal(ids, want[1])
+    torch.testing.assert_close(vals, want[0], rtol=1e-5, atol=0)
+    e_vals, e_ids = fused_topk_int8(qt, values[3], scales[3], k=8, n_valid=0)
+    assert (e_vals == NEG_INF).all() and (e_ids == -1).all()
+    values, seg_scales, n = ptopk.shard_corpus_s8(docs, mesh)  # 1024 rows a shard: 3 of padding
+    vals, ids = ptopk.distributed_topk_s8(qt, values, seg_scales, k, mesh, n_valid=n)
+    v, s = (torch.from_numpy(a).to(dev) for a in quantize_segments(np.pad(docs, ((0, 24), (0, 0)))))
+    want = fused_topk_segmax_s8(qt, v, s, k=k, n_valid=1000)
+    assert torch.equal(ids, want[1]) and torch.equal(vals, want[0])
+    e_vals, e_ids = fused_topk_segmax_s8(qt, values[2], seg_scales[2], k=k, n_valid=0)
+    assert (e_vals == NEG_INF).all() and (e_ids == -1).all()

@@ -55,7 +55,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     twotowermlretrieval_tpu_torch for the JAX package."""
     res = _run_import_check()
     assert len(res["modules"]) >= 20
-    for name in ("mesh", "collectives", "distributed"):
+    for name in ("mesh", "collectives", "distributed", "topk", "ivf"):
         assert f"twotowermlretrieval_tpu_torch.parallel.{name}" in res["modules"]
     assert res["bad"] == []
     assert "twotowermlretrieval_tpu_torch".startswith("twotowermlretrieval_tpu")
@@ -101,15 +101,19 @@ def test_cuda_request_without_a_card_raises():
 
 
 def test_unported_options_point_at_roadmap():
+    from twotowermlretrieval_tpu_torch.parallel.mesh import make_device_mesh
     from twotowermlretrieval_tpu_torch.serve.index import RetrievalIndex
 
-    docs = np.zeros((4, 8), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RetrievalIndex(docs, device="cpu", mesh=object())
-    # the IVF index is ported: it builds, and searches its own rows
     rng = np.random.default_rng(0)
     docs = rng.standard_normal((300, 8)).astype(np.float32)
     docs /= np.linalg.norm(docs, axis=1, keepdims=True)
+    # a mesh is ported: two shards on the CPU search as one device does
+    sharded = RetrievalIndex(docs, device="cpu", mesh=make_device_mesh(2, 1, ["cpu", "cpu"]))
+    one = RetrievalIndex(docs, device="cpu")
+    assert len(sharded._docs) == 2 and sharded.autotune() == {}
+    for got, want in zip(sharded.search(docs[:5], 10), one.search(docs[:5], 10)):
+        np.testing.assert_array_equal(got, want)
+    # the IVF index is ported: it builds, and searches its own rows
     index = RetrievalIndex(docs, device="cpu", index_type="ivf", num_clusters=8, nprobe=8)
     assert index.ivf is not None and not index.kernel_on()
     assert index.tuning_signature()["index_type"] == "ivf"

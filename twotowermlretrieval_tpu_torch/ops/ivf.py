@@ -218,29 +218,68 @@ def load_ivf(path, device="cpu") -> IVFIndex:
     return index.to(device)
 
 
-def _search_block(q: torch.Tensor, index: IVFIndex, k: int, nprobe: int):
+def probe_blocks(q: torch.Tensor, centroids: torch.Tensor, nprobe: int,
+                 n_blocks: Optional[int] = None) -> torch.Tensor:
+    """[B, nprobe] ids of the blocks whose centroids score highest (ties to
+    the lower block); blocks >= ``n_blocks`` (a sharded index's padding)
+    never."""
+    c_scores = torch.matmul(q, centroids.T)  # [B, C] f32
+    if n_blocks is not None and n_blocks < c_scores.shape[1]:
+        cols = torch.arange(c_scores.shape[1], device=c_scores.device)
+        c_scores = torch.where(cols < n_blocks, c_scores, torch.full_like(c_scores, _NEG))
+    return _stable_topk(c_scores, nprobe)[1]
+
+
+def score_blocks(q: torch.Tensor, docs: torch.Tensor, ids: torch.Tensor,
+                 scales: Optional[torch.Tensor], probe: torch.Tensor,
+                 own: Optional[torch.Tensor] = None):
+    """Scores of the probed blocks' slots: ([B, nprobe * cap] f32, their
+    [B, nprobe * cap] doc ids), padding slots (and, with ``own``, slots of
+    probe entries False there) -1 and NEG_INF."""
     B, H = q.shape
-    c_scores = torch.matmul(q, index.centroids.T)  # [B, C] f32
-    _, probe = _stable_topk(c_scores, nprobe)  # [B, nprobe]
-    blocks = index.docs[probe]  # [B, nprobe, cap, H] (gather)
-    flat_ids = index.ids[probe].reshape(B, -1)  # [B, nprobe * cap]
-    if index.scales is not None:
+    blocks = docs[probe]  # [B, nprobe, cap, H] (gather)
+    block_ids = ids[probe]  # [B, nprobe, cap]
+    if own is not None:
+        block_ids = torch.where(own[..., None], block_ids, torch.full_like(block_ids, -1))
+    flat_ids = block_ids.reshape(B, -1)
+    rows = blocks.reshape(B, -1, H).float()
+    if scales is not None:
         # int8 rows: f32 products (exact upcasts), then the slot's scale
-        rows = blocks.reshape(B, -1, H).float()
-        scores = torch.bmm(rows, q[:, :, None])[..., 0] * index.scales[probe].reshape(B, -1)
+        scores = torch.bmm(rows, q[:, :, None])[..., 0] * scales[probe].reshape(B, -1)
     else:
         # the storage dtype's products summed in f32: bf16 -> f32 is exact,
         # and a torch bf16 product would round every score to bf16
-        rows = blocks.reshape(B, -1, H).float()
-        scores = torch.bmm(rows, q.to(index.docs.dtype).float()[:, :, None])[..., 0]
-    scores = torch.where(flat_ids >= 0, scores, torch.full_like(scores, _NEG))
+        scores = torch.bmm(rows, q.to(docs.dtype).float()[:, :, None])[..., 0]
+    return torch.where(flat_ids >= 0, scores, torch.full_like(scores, _NEG)), flat_ids
+
+
+def topk_padded(scores: torch.Tensor, ids: torch.Tensor, k: int):
+    """Top-k of [B, n] candidates padded to [B, k] when n < k; ids -1 (and
+    scores -3e38) wherever a score is padding."""
     k_eff = min(k, scores.shape[1])
     vals, pos = _stable_topk(scores, k_eff)
-    out_ids = torch.gather(flat_ids, 1, pos)
-    if k_eff < k:  # fewer probed columns than k: pad to the promised shape
+    out_ids = torch.gather(ids, 1, pos)
+    if k_eff < k:  # fewer candidates than k: pad to the promised shape
         vals = torch.nn.functional.pad(vals, (0, k - k_eff), value=_NEG)
         out_ids = torch.nn.functional.pad(out_ids, (0, k - k_eff), value=-1)
     return vals, torch.where(vals <= _NEG, torch.full_like(out_ids, -1), out_ids)
+
+
+def _search_block(q: torch.Tensor, index: IVFIndex, k: int, nprobe: int):
+    probe = probe_blocks(q, index.centroids, nprobe)
+    return topk_padded(*score_blocks(q, index.docs, index.ids, index.scales, probe), k)
+
+
+def in_query_blocks(search_block, q: torch.Tensor, nprobe: int, cap: int, docs: torch.Tensor):
+    """``search_block(rows of q) -> ([b, k], [b, k])`` over blocks of query
+    rows whose gathered blocks (in ``docs``' dtype and as f32) stay within
+    ``_SEARCH_BYTES``, one query at least; the blocks' results joined."""
+    per_query = nprobe * cap * docs.shape[-1] * (docs.element_size() + 4)
+    rows = max(1, _SEARCH_BYTES // per_query)
+    parts = [search_block(q[i : i + rows]) for i in range(0, q.shape[0], rows)]
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([v for v, _ in parts]), torch.cat([i for _, i in parts])
 
 
 def ivf_search(queries: torch.Tensor, index: IVFIndex, k: int = 50,
@@ -249,15 +288,10 @@ def ivf_search(queries: torch.Tensor, index: IVFIndex, k: int = 50,
     int32 ORIGINAL doc ids), sorted descending; ids -1 (scores -3e38) where
     fewer than k real docs were probed. Queries run in blocks whose gather
     stays within ``_SEARCH_BYTES``."""
-    B = queries.shape[0]
     nprobe = min(nprobe, index.centroids.shape[0])
     q = queries.to(index.centroids.device).float()
-    per_query = nprobe * index.cap * index.docs.shape[-1] * (index.docs.element_size() + 4)
-    rows = max(1, _SEARCH_BYTES // per_query)
-    parts = [_search_block(q[i : i + rows], index, k, nprobe) for i in range(0, B, rows)]
-    if len(parts) == 1:
-        return parts[0]
-    return torch.cat([v for v, _ in parts]), torch.cat([i for _, i in parts])
+    return in_query_blocks(lambda rows: _search_block(rows, index, k, nprobe), q, nprobe,
+                           index.cap, index.docs)
 
 
 def pick_nprobe(

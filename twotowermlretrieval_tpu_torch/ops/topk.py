@@ -64,6 +64,8 @@ _MAX_KERNEL_B = 32
 _S8_SEGS = (32, 64, 128)  # segment widths the s8 kernel takes
 _F32_EXACT_H = 1040  # 127 * 127 * H < 2^24: an f32 product of int8 values is exact
 _TOPK_MAX_K = 128  # keys the running top-k kernel keeps per query row
+_ROW_TILE = 8192  # an index pads its rows once to this tile (the scans' tile_n)
+_COL_TILE = 16  # on a card, an index pads its embedding widths to this (16-byte int8 rows)
 # The running top-k first finds the top k of every 32nd tile (a pilot) and
 # starts every block's threshold at its k-th key: a block then admits few
 # keys and merges rarely. Its two extra launches pay where merges are dear,
@@ -132,6 +134,13 @@ def _require_cuda(fn: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{fn} runs on cpu or cuda tensors, not {t.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{fn}: every tensor must be contiguous and 16-byte aligned")
+
+
+def col_pad(H: int, device: torch.device) -> int:
+    """Zero columns an index appends to its H-wide rows on ``device``: the
+    card's scan kernels read 16-byte rows, and a zero column adds nothing
+    to any score (queries are padded alike)."""
+    return (-H) % _COL_TILE if device.type == "cuda" else 0
 
 
 def _stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

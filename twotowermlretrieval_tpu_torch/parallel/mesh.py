@@ -1,8 +1,10 @@
-"""The ('data', 'model') mesh over processes: one process per rank.
+"""The ('data', 'model') meshes: over processes for training, over the
+devices of one process for sharded search.
 
 The port of the JAX package's ``parallel/mesh.py``. JAX lays a device mesh
-over the chips one program sees; here each rank is a process of a
-``torch.distributed`` world, and the mesh is its process groups:
+over the chips one program sees. Here training takes one rank per process
+of a ``torch.distributed`` world (:class:`Mesh`), and the mesh is its
+process groups:
 
 - ``data``: the batch-split axis. A rank holds the whole replicated train
   state and takes a contiguous block of each global batch's rows, as
@@ -15,6 +17,14 @@ Rank ``r`` sits at ``(r // model, r % model)``, the place JAX's
 ``devices.reshape(data, model)`` gives device ``r``. The world is started
 by :func:`initialize_multihost` (NCCL for CUDA tensors, gloo for CPU
 ones); a process that never starts one is a world of one.
+
+Serving takes one process over a :class:`DeviceMesh`: the devices of a
+``data`` x ``model`` grid in row-major order, as JAX's serving mesh holds
+the chips one program sees. The corpus splits row-wise over ``data``, each
+shard held once, on the first device of its row (the ``model`` replicas
+of JAX compute the same lists); ``parallel/topk.py`` and
+``parallel/ivf.py`` search it. A device list may repeat a device, so D
+shards can share one card (or the CPU, as JAX's virtual CPU mesh).
 """
 
 from __future__ import annotations
@@ -22,11 +32,13 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from twotowermlretrieval_tpu_torch.utils.dtypes import resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -65,6 +77,57 @@ class Mesh:
     def is_lead(self) -> bool:
         """Rank 0, the one rank that writes files and owns the metric sinks."""
         return self.rank == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceMesh:
+    """A ``data`` x ``model`` grid of the devices one process drives;
+    ``devices`` in row-major order (device ``(d, m)`` at ``d * model +
+    m``), as JAX's ``devices.reshape(data, model)`` lays them."""
+
+    data: int
+    model: int
+    devices: Tuple[torch.device, ...]
+
+    @property
+    def shape(self) -> dict:
+        """Devices on each axis, as a JAX mesh's ``shape``."""
+        return {DATA_AXIS: self.data, MODEL_AXIS: self.model}
+
+    @property
+    def shard_devices(self) -> Tuple[torch.device, ...]:
+        """The device that holds each data shard: the first of its row."""
+        return self.devices[:: self.model]
+
+    @property
+    def lead(self) -> torch.device:
+        """The first device: queries, the query tower and the merge."""
+        return self.devices[0]
+
+
+def make_device_mesh(data: int = -1, model: int = 1,
+                     devices: Optional[Sequence] = None) -> DeviceMesh:
+    """The ('data', 'model') mesh over ``devices`` (default: every visible
+    card, ``cuda:0..n-1``); data=-1 takes every device not on 'model'. A
+    device may be named more than once. A CUDA device without a card
+    raises, as ``resolve_device`` does."""
+    if devices is None:
+        resolve_device("cuda")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devs = []
+    for d in devices:
+        dev = resolve_device(d)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        devs.append(dev)
+    n = len(devs)
+    if data == -1:
+        if n % model:
+            raise ValueError(f"{n} devices not divisible by model={model}")
+        data = n // model
+    if data < 1 or model < 1 or data * model != n:
+        raise ValueError(f"mesh {data}x{model} != {n} devices")
+    return DeviceMesh(data, model, tuple(devs))
 
 
 def world_size() -> int:

@@ -14,8 +14,9 @@ HTTP contract is unchanged (ref: frontend/main.py):
 Built on ``http.server.ThreadingHTTPServer``; the engine is thread-safe
 (read-only state after init, device work serialized by the engine). The
 engine runs on ``--device`` (default ``cuda``; a CUDA request without a card
-fails at startup). Missing-artifact startup failures exit(1) with a
-pointer to training, like the reference's guards.
+fails at startup); ``--mesh-data D`` splits the corpus row-wise over D
+devices (:func:`build_serving_mesh`). Missing-artifact startup failures
+exit(1) with a pointer to training, like the reference's guards.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
+
+import torch
 
 from twotowermlretrieval_tpu_torch.serve.engine import SearchEngine
 
@@ -456,6 +459,17 @@ def main():
                         help="run every micro-batch bucket once before "
                              "accepting requests (default: on when "
                              "--batch-window-ms > 0)")
+    parser.add_argument("--mesh-data", type=int, default=1,
+                        help="devices on the 'data' mesh axis: the corpus is "
+                             "row-sharded across them and every search runs "
+                             "the distributed top-k merge (BASELINE config "
+                             "4). -1 = all devices not on 'model'")
+    parser.add_argument("--mesh-model", type=int, default=1,
+                        help="devices on the 'model' mesh axis (reserved "
+                             "for sharded towers; corpus sharding uses "
+                             "'data'). The port holds each data shard once, "
+                             "on the first device of its row: the other "
+                             "'model' devices are reserved and hold nothing")
     args = parser.parse_args()
     server = serve(
         args.artifacts, port=args.port, host=args.host,
@@ -469,6 +483,7 @@ def main():
         autotune_retrieval=args.autotune_retrieval,
         profile_dir=args.profile_dir,
         profile_requests=args.profile_requests,
+        mesh=build_serving_mesh(args.mesh_data, args.mesh_model, args.device),
     )
 
     # graceful shutdown: docker stop / Ctrl-C finish in-flight requests
@@ -494,6 +509,31 @@ def main():
     server.RequestHandlerClass.engine.close()
     server.server_close()
     print("server stopped")
+
+
+def build_serving_mesh(mesh_data: int = 1, mesh_model: int = 1, device="cuda"):
+    """The ('data', 'model') serving mesh (``parallel/mesh.py``
+    ``DeviceMesh``), or None for the single-device path. On ``cuda`` it
+    takes the first data x model visible cards (data=-1: every card not on
+    'model') and raises a ValueError naming the count when fewer are
+    visible, as the JAX package's ``resolve_mesh``. On ``cpu`` every shard
+    is the CPU (the counterpart of JAX's virtual CPU mesh; data=-1 counts
+    the CPU once). The engine splits the corpus over 'data', each shard on
+    the first device of its row."""
+    from twotowermlretrieval_tpu_torch.parallel.mesh import make_device_mesh
+    from twotowermlretrieval_tpu_torch.utils.dtypes import resolve_device
+
+    dev = resolve_device(device)
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    data = mesh_data if mesh_data != -1 else max(n // mesh_model, 1)
+    if data * mesh_model <= 1:
+        return None
+    if dev.type == "cpu":
+        return make_device_mesh(data, mesh_model, [dev] * (data * mesh_model))
+    if data * mesh_model > n:
+        raise ValueError(f"mesh {data}x{mesh_model} needs {data * mesh_model} devices but "
+                         f"only {n} are visible")
+    return make_device_mesh(data, mesh_model, [f"cuda:{i}" for i in range(data * mesh_model)])
 
 
 if __name__ == "__main__":

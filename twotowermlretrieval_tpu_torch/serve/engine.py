@@ -22,7 +22,9 @@ matches, without timing.
 the prebuilt ``ivf_index.npz`` of the artifacts when there is one, else
 one clustered at boot; its probe width is an explicit ``nprobe``, else the
 one ``ttr-torch-build-index --target-recall`` persisted for this corpus,
-else 16. ``profile_dir`` writes a ``torch.profiler`` trace of the first
+else 16. With a ``mesh`` (``parallel/mesh.py`` ``DeviceMesh``) the index
+splits over its 'data' axis and the query tower and TF-IDF run on its lead
+device. ``profile_dir`` writes a ``torch.profiler`` trace of the first
 ``profile_requests`` live searches (cache hits do no device work and do
 not count); ``close()`` finalizes an unfilled window.
 """
@@ -110,6 +112,7 @@ class SearchEngine:
         self,
         artifacts_path: str | Path,
         device="cuda",
+        mesh=None,  # a DeviceMesh: the corpus splits over its devices (device: its lead)
         storage_dtype: str = "bfloat16",
         batch_window_ms: float = 0.0,  # >0 enables request micro-batching
         index_type: str = "exact",  # 'exact' | 'ivf'
@@ -126,6 +129,8 @@ class SearchEngine:
         self.documents = loaded.documents
         self.tfidf_vectorizer = loaded.tfidf_vectorizer
         self.tfidf_matrix = loaded.tfidf_matrix
+        if mesh is not None:
+            device = mesh.lead
         self.inferencer = QueryInferencer(artifacts_path, device=device)
         tuning = load_retrieval_tuning(artifacts_path)
         if nprobe is None:
@@ -136,7 +141,7 @@ class SearchEngine:
             persisted = (tuning or {}).get("nprobe")
             nprobe = persisted if (persisted and shape_ok) else 16
         self.index = RetrievalIndex(
-            loaded.doc_embeddings, storage_dtype=storage_dtype, device=device,
+            loaded.doc_embeddings, storage_dtype=storage_dtype, device=device, mesh=mesh,
             index_type=index_type, use_kernel=use_kernel, nprobe=nprobe,
             # a prebuilt index exported with the artifacts skips k-means at boot
             ivf_index=loaded.ivf_index if index_type == "ivf" else None,
@@ -180,7 +185,7 @@ class SearchEngine:
 
     def _chosen(self) -> str:
         """The search variant the index serves with."""
-        if self.index.ivf is not None:
+        if self.index.index_type == "ivf":
             return f"ivf, nprobe={self.index.nprobe}"
         if not self.index.kernel_on():
             return "two-phase"
@@ -193,8 +198,8 @@ class SearchEngine:
         timings = self.index.autotune()
         if not timings:
             print("retrieval autotune: no-op, the fused path is off for this index "
-                  "(an IVF index, use_kernel=False, or a CPU index); serving with the "
-                  "defaults")
+                  "(mesh serving, an IVF index, use_kernel=False, or a CPU index); "
+                  "serving with the defaults")
             return
         named = {variant_name(p, s): t * 1e3 for (p, s), t in timings.items()}
         save_retrieval_tuning(artifacts_path, {

@@ -1,7 +1,7 @@
 """Device-side exact retrieval index over raw document embeddings.
 
-The port of the JAX package's ``serve/index.py`` for one device and the
-exact index. The corpus embedding matrix lives in device memory, zero-padded
+The port of the JAX package's ``serve/index.py``. The corpus embedding
+matrix lives in device memory, zero-padded
 once to a multiple of the 8192-row tile: bf16 by default, or f32, or int8
 quantized with one scale per 128-row segment (``quantize_segments``, half
 the bytes of bf16). Every search is exact over the stored corpus, with the
@@ -24,7 +24,13 @@ a prebuilt ``ivf_index``, or one clustered here with ``num_clusters``,
 blocks in the storage dtype): searches probe ``nprobe`` blocks in plain
 torch, bypassing the segment-max kernels and autotune.
 
-Not ported yet (ROADMAP): a device mesh.
+With a ``mesh`` (``parallel/mesh.py`` ``DeviceMesh``) the corpus splits
+row-wise over its 'data' axis, each shard on its own device
+(``parallel/topk.py`` ``shard_corpus`` for bf16 and f32, ``shard_corpus_s8``
+for int8, ``parallel/ivf.py`` ``shard_ivf`` for IVF), and every search
+runs each shard's scan on its device and merges the lists on the lead
+device, where the queries live (BASELINE config 4). ``autotune()`` is a
+no-op there; a persisted decision still sets each shard's phase 2.
 """
 
 from __future__ import annotations
@@ -40,17 +46,24 @@ import torch
 
 from twotowermlretrieval_tpu_torch.ops.ivf import IVFIndex, build_ivf, ivf_search
 from twotowermlretrieval_tpu_torch.ops.topk import (
+    _ROW_TILE,
+    col_pad,
     fused_topk_segmax,
     fused_topk_segmax_s8,
     quantize_segments,
     topk_segmented,
     topk_segmented_s8,
 )
+from twotowermlretrieval_tpu_torch.parallel.ivf import distributed_ivf_search, shard_ivf
+from twotowermlretrieval_tpu_torch.parallel.topk import (
+    distributed_topk,
+    distributed_topk_s8,
+    shard_corpus,
+    shard_corpus_s8,
+)
 from twotowermlretrieval_tpu_torch.utils.dtypes import resolve_device, torch_dtype
 
 _SUBLANE = 8  # query batches are padded to a multiple of this
-_ROW_TILE = 8192  # corpus rows are padded once to this tile
-_COL_TILE = 16  # on a card, embedding widths are padded to this (the scans' 16-byte rows)
 
 RETRIEVAL_TUNING_FILE = "retrieval_tuning.json"
 
@@ -93,7 +106,7 @@ class RetrievalIndex:
         doc_embeddings: np.ndarray,  # [N, H] f32 (host)
         storage_dtype: str = "bfloat16",  # 'float32' | 'bfloat16' | 'int8'
         device="cuda",
-        mesh=None,
+        mesh=None,  # a parallel.mesh.DeviceMesh: the corpus splits over its 'data' axis
         index_type: str = "exact",  # 'exact' | 'ivf' (approximate, past the exact scan's corpora)
         use_kernel: Optional[bool] = None,  # None: the fused path where the index is on a card
         nprobe: int = 16,  # ivf only: blocks probed a query
@@ -104,11 +117,9 @@ class RetrievalIndex:
             index_type = "ivf"
         if index_type not in ("exact", "ivf"):
             raise ValueError(f"index_type must be 'exact' or 'ivf', got {index_type!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device serving is not ported yet (ROADMAP Queue 1, multi-device)"
-            )
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # with a mesh, queries (and the engine's towers) live on its lead device
+        self.device = resolve_device(device if mesh is None else mesh.lead)
         self.num_docs = int(doc_embeddings.shape[0])
         self.dim = int(doc_embeddings.shape[1])
         self.storage_dtype = storage_dtype
@@ -121,23 +132,29 @@ class RetrievalIndex:
         self.use_kernel = use_kernel
         self.quantized = storage_dtype == "int8"
         self._n_valid = self.num_docs
-        self.ivf = None
+        self.ivf = None  # an IVFIndex, or a ShardedIVF with a mesh
         if index_type == "ivf":
             if ivf_index is None:
                 ivf_index = build_ivf(np.asarray(doc_embeddings, np.float32),
                                       num_clusters=num_clusters, storage_dtype=storage_dtype,
                                       device=self.device)
-            self.ivf = ivf_index.to(self.device)
+            self.ivf = ivf_index.to(self.device) if mesh is None else shard_ivf(ivf_index, mesh)
             self.nprobe = nprobe
             self.quantized = ivf_index.scales is not None
             return
+        self._scales = None
+        if mesh is not None:
+            # shards padded to whole tiles (and, on cards, 16-byte rows) once
+            x = np.asarray(doc_embeddings, np.float32)
+            if self.quantized:
+                self._docs, self._scales, self._n_valid = shard_corpus_s8(x, mesh)
+            else:
+                self._docs, self._n_valid = shard_corpus(x, mesh, torch_dtype(storage_dtype))
+            return
         padded = _pad_rows(np.asarray(doc_embeddings, np.float32))
-        # the card's scan kernels read 16-byte rows: other widths get zero
-        # columns, which add nothing to any score (queries are padded alike)
-        self._col_pad = (-self.dim) % _COL_TILE if self.device.type == "cuda" else 0
+        self._col_pad = col_pad(self.dim, self.device)
         if self._col_pad:
             padded = np.pad(padded, ((0, 0), (0, self._col_pad)))
-        self._scales = None
         if self.quantized:
             values, seg_scales = quantize_segments(padded)
             self._docs = torch.from_numpy(values).to(self.device)
@@ -145,10 +162,14 @@ class RetrievalIndex:
         else:
             self._docs = torch.from_numpy(padded).to(self.device).to(torch_dtype(storage_dtype))
 
+    @property
+    def index_type(self) -> str:
+        return "exact" if self.ivf is None else "ivf"
+
     def kernel_on(self) -> bool:
-        """Whether searches take the fused path (its CUDA kernel on a card);
-        never for an IVF index."""
-        if self.ivf is not None:
+        """Whether searches take the fused path (its CUDA kernel on a card,
+        on every shard of a mesh of cards); never for an IVF index."""
+        if self.index_type == "ivf":
             return False
         return self.use_kernel if self.use_kernel is not None else self.device.type == "cuda"
 
@@ -168,11 +189,21 @@ class RetrievalIndex:
         """Device search: ``q`` [Bp, H] f32 on the index's device -> ([Bp, k]
         f32, [Bp, k] int32) device tensors. The engine calls it right after
         the query encode, so encode and search run as one chain with one
-        host fetch. The int8 path quantizes the f32 queries itself."""
+        host fetch. The int8 path quantizes the f32 queries itself. With a
+        mesh ``q`` is on its lead device, and so are the results."""
+        k = min(k, self.num_docs)
+        if self.ivf is not None and self.mesh is not None:
+            return distributed_ivf_search(q, self.ivf, k=k, nprobe=self.nprobe, mesh=self.mesh)
         if self.ivf is not None:
-            return ivf_search(q, self.ivf, k=min(k, self.num_docs), nprobe=self.nprobe)
+            return ivf_search(q, self.ivf, k=k, nprobe=self.nprobe)
+        if self.mesh is not None:
+            search = distributed_topk_s8 if self.quantized else distributed_topk
+            args = (self._docs, self._scales) if self.quantized else (self._docs,)
+            return search(q, *args, k=k, mesh=self.mesh, n_valid=self._n_valid,
+                          use_kernel=self.kernel_on(), phase2=self.phase2,
+                          sort_candidates=self.sort_candidates)
         variant = self.phase2 if self.kernel_on() else "two_phase"
-        return self._search_variant(q, min(k, self.num_docs), variant, self.sort_candidates)
+        return self._search_variant(q, k, variant, self.sort_candidates)
 
     def _search_variant(self, q: torch.Tensor, k: int, phase2: str, sort_candidates: bool):
         kw = dict(k=k, n_valid=self._n_valid)
@@ -195,7 +226,7 @@ class RetrievalIndex:
             "num_docs": self.num_docs,
             "dim": self.dim,
             "storage_dtype": self.storage_dtype,
-            "index_type": "exact" if self.ivf is None else "ivf",
+            "index_type": self.index_type,
             "backend": self.device.type,
         }
 
@@ -232,13 +263,14 @@ class RetrievalIndex:
         ``sort_candidates``) and, on a CPU index only, the two-phase path
         (sets ``use_kernel = False`` when it wins). A CUDA index times the
         four fused variants alone, so a timing never takes its searches off
-        the kernel. A no-op returning {} where the fused path is off. ``B``
+        the kernel. A no-op returning {} where the fused path is off, and
+        on a mesh (as in the JAX package). ``B``
         defaults to the engine's smallest encode batch (16 rows). Returns
         {(phase2, sort_candidates): seconds per call}.
 
         ``timer``: optional ``f(phase2, sort_candidates, B, k, iters) ->
         seconds`` override (tests inject canned values)."""
-        if not self.kernel_on():
+        if self.mesh is not None or not self.kernel_on():
             return {}
         k = min(k, self.num_docs)
         timer = timer or self._time_variant
