@@ -94,10 +94,25 @@
    IVF index of step 3 over two shards against ``ivf_search``; and the
    export served over two shards in bf16 and int8, each ``/search`` the
    single-device engine's ranked docs.
+11. Runs the rest of the JAX package's paths: the C++ batch tokenizer
+   (``native/``) must build with g++ here, and its ids and lengths over
+   the 70,000 passages and the JAX package's unicode rows equal the Python
+   path's (both timed); ``SimpleHybridRetriever`` fits the export of step 4
+   over every passage on the card (an f32 index: ``segmax``'s CUDA-core
+   route, then phase 2 at k = N), its five searches launch one ``segmax``
+   each, its dense k = N search is held against ``topk_oracle`` and the
+   kernel at the index's shape against its plain version; card and CPU
+   fits of 1,024 passages give the same top-10 within EMBED_ATOL; and
+   ``tools/e2e_demo.py --scale smoke`` runs as a child process (training,
+   the recall assertion, the inflation, ``ttr-torch-serve --storage-dtype
+   int8`` and the load test), its E2E_DEMO_RESULT line read with the
+   launches of each of its stages.
 
 Step 3 holds the forward kernel at four shapes (the query encode, the
 export, the training query and doc towers), each timed beside cuDNN's GRU,
-its layout logged and two calls held bit-identical. Step 3 covers the
+its layout logged and two calls held bit-identical, and both recurrent
+kernels at the training shapes with the history in f32 (TTMR_RNN_HISTORY=f32,
+whose first train step step 6 also holds card against CPU). Step 3 covers the
 backward kernel too (``csrc/rnn_bwd.cu``, both modes, each timed at the
 training shapes beside cuDNN's GRU backward, and at H=1024, where it keeps
 one dhp row block, with the layout it launches logged and two calls held
@@ -518,7 +533,10 @@ def _cudnn_layer(cell: str, H: int, dev):
     return make(2 * H, H, num_layers=1, bidirectional=True).to(dev, torch.float16)
 
 
-def check_rnn(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H) -> dict:
+def check_rnn(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H,
+              compact: bool = True) -> dict:
+    """The forward kernel against its plain version at bf16 compute, the
+    history in bf16 (``compact``) or f32 (TTMR_RNN_HISTORY=f32)."""
     from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
         rnn_fwd_bound,
         rnn_layer_fwd,
@@ -526,7 +544,7 @@ def check_rnn(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H) -> di
     )
 
     args = _rnn_inputs(cell, B, T, seed, dev, H)
-    kw = dict(compute_dtype="bfloat16", history_in_cdt=True)
+    kw = dict(compute_dtype="bfloat16", history_in_cdt=compact)
     outs, c_hist, fin = rnn_layer_fwd(cell, *args, **kw)
     r_outs, r_c, r_fin = rnn_layer_fwd_reference(cell, *args, **kw)
     # no atomics, a fixed summation order: a second call gives the same bits
@@ -542,7 +560,9 @@ def check_rnn(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H) -> di
     )
     finite = bool(torch.isfinite(fin).all()) and all(bool(torch.isfinite(o.float()).all()) for o in outs)
     zero_row = bool((fin[:, 0] == 0).all()) and all(bool((o[:, 0] == 0).all()) for o in outs)
-    shape = f"{cell} D=2 B={B} T={T} H={H} bf16"
+    shape = f"{cell} D=2 B={B} T={T} H={H} bf16" + ("" if compact else ", f32 history")
+    check(all(o.dtype == (torch.bfloat16 if compact else torch.float32) for o in outs),
+          f"rnn_fwd {shape}: history dtype {outs[0].dtype}")
     log(f"rnn_fwd {shape}: |h_final diff| {err_final:.3g}, |history diff| {err_hist:.3g}")
     check(finite, f"rnn_fwd {shape}: non-finite output")
     check(zero_row, f"rnn_fwd {shape}: a zero-length row is not exactly zero")
@@ -553,7 +573,7 @@ def check_rnn(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H) -> di
     log(f"rnn_fwd {shape}: two calls bit-identical in the history and h_final")
     rec = {"shape": shape, "max_abs_err": max(err_final, err_hist), "bitwise_repeatable": bitwise}
     if timed:
-        rec["design"] = _fwd_design(cell, B, T, dev, H)
+        rec["design"] = _fwd_design(cell, B, T, dev, H, compact)
         rec["ms"] = time_ms(lambda: rnn_layer_fwd(cell, *args, **kw))
         rec["plain_ms"] = time_ms(lambda: rnn_layer_fwd_reference(cell, *args, **kw),
                                   reps=5, warmup=1)
@@ -562,7 +582,7 @@ def check_rnn(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H) -> di
         layer = _cudnn_layer(cell, H, dev)
         x = torch.randn((T, B, 2 * H), device=dev, dtype=torch.float16)
         rec["library_ms"] = time_ms(lambda: layer(x))
-        nbytes, flops = rnn_fwd_bound(T, B, H, 2, _GATES[cell], 2, 2)
+        nbytes, flops = rnn_fwd_bound(T, B, H, 2, _GATES[cell], 2, 2 if compact else 4)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
         rec["step_us"] = rec["ms"] / T * 1e3
         log(f"rnn_fwd {shape}: kernel {rec['ms']:.4f} ms ({rec['step_us']:.2f} us a step), "
@@ -571,15 +591,16 @@ def check_rnn(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H) -> di
     return rec
 
 
-def _fwd_design(cell: str, B: int, T: int, dev, H=H) -> dict:
-    """The layout the forward kernel launches at this shape (bf16 compute
-    and history, both directions), logged with the number of clusters of
-    its size the card holds at once (read from the card), by which the
-    plan chose its rows."""
+def _fwd_design(cell: str, B: int, T: int, dev, H=H, compact: bool = True) -> dict:
+    """The layout the forward kernel launches at this shape (bf16 compute,
+    a bf16 or, not ``compact``, an f32 history, both directions), logged
+    with the number of clusters of its size the card holds at once (read
+    from the card), by which the plan chose its rows."""
     from twotowermlretrieval_tpu_torch.ops.rnn_scan import cluster_slots, fwd_plan
 
-    slots = cluster_slots("fwd", cell, "bfloat16", torch.bfloat16, dev)
-    plan = fwd_plan(cell, T, B, H, 2, "bfloat16", torch.bfloat16, slots)
+    hist = torch.bfloat16 if compact else torch.float32
+    slots = cluster_slots("fwd", cell, "bfloat16", hist, dev)
+    plan = fwd_plan(cell, T, B, H, 2, "bfloat16", hist, slots)
     w = ("resident" if plan["resident"]
          else f"streamed in chunks of {plan['kc']} rows every step")
     log(f"rnn_fwd design, {cell} B={B} T={T} H={H}: clusters of {plan['nc']} CTAs x "
@@ -685,6 +706,9 @@ def phase_kernels(dev) -> dict:
             # the model axis's GRU step (phase_model_axis): its query tower
             # at B=1024 (its doc tower's shape is the export's, above)
             check_rnn("GRU", GRU_ROWS, QUERY_LEN, 9, dev, timed=False),
+            # the training towers with the history in f32 (TTMR_RNN_HISTORY=f32)
+            check_rnn("GRU", TRAIN_ROWS, QUERY_LEN, 31, dev, timed=True, compact=False),
+            check_rnn("GRU", 2 * TRAIN_ROWS, DOC_LEN, 32, dev, timed=True, compact=False),
         ]
         npad_serve = -(-PASSAGES // 8192) * 8192
         seg = [
@@ -731,7 +755,9 @@ def zero_counts() -> None:
 
 def read_counts() -> dict:
     """Every kernel's launch count."""
-    return {name: fn.launches for name, (fn, _, _) in kernel_table().items()}
+    from twotowermlretrieval_tpu_torch.ops import launch_counts
+
+    return launch_counts()
 
 
 def _unit_rows_f32(gen, n, dev, chunk=1 << 18, width=H):
@@ -1163,16 +1189,17 @@ def phase_int8_kernels(dev) -> dict:
     return out
 
 
-def _bwd_inputs(cell, B, T, seed, dev, H=H):
-    """The forward's inputs, its bf16 history (from the forward kernel) and
-    random cotangents: bf16 for the history, f32 for h_final."""
+def _bwd_inputs(cell, B, T, seed, dev, H=H, compact: bool = True):
+    """The forward's inputs, its history (from the forward kernel; bf16, or
+    f32 where not ``compact``) and random cotangents: in the history's
+    dtype, f32 for h_final."""
     from twotowermlretrieval_tpu_torch.ops.rnn_scan import rnn_layer_fwd
 
     xps, mask, w_hh, b_hh = _rnn_inputs(cell, B, T, seed, dev, H)
     with torch.no_grad():
-        outs, c_hist, _ = rnn_layer_fwd(cell, xps, mask, w_hh, b_hh, "bfloat16", True)
+        outs, c_hist, _ = rnn_layer_fwd(cell, xps, mask, w_hh, b_hh, "bfloat16", compact)
     gen = torch.Generator(device=dev).manual_seed(seed + 100)
-    douts = [torch.randn((T, B, H), generator=gen, device=dev).to(torch.bfloat16)
+    douts = [torch.randn((T, B, H), generator=gen, device=dev).to(outs[0].dtype)
              for _ in range(2)]
     d_hfinal = torch.randn((2, B, H), generator=gen, device=dev)
     return xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal
@@ -1194,14 +1221,15 @@ def _cudnn_backward_ms(B, T, dev, H=H, cell="GRU") -> float:
     return both - fwd
 
 
-def _bwd_design(cell: str, B: int, T: int, dev, H=H) -> dict:
-    """The layout the backward kernel launches at this shape (bf16 compute
-    and history, both directions), logged with the card's count of
-    clusters of its size."""
+def _bwd_design(cell: str, B: int, T: int, dev, H=H, compact: bool = True) -> dict:
+    """The layout the backward kernel launches at this shape (bf16 compute,
+    a bf16 or, not ``compact``, an f32 history, both directions), logged
+    with the card's count of clusters of its size."""
     from twotowermlretrieval_tpu_torch.ops.rnn_scan import bwd_plan, cluster_slots
 
-    slots = cluster_slots("bwd", cell, "bfloat16", torch.bfloat16, dev)
-    plan = bwd_plan(cell, T, B, H, 2, "bfloat16", torch.bfloat16, slots)
+    hist = torch.bfloat16 if compact else torch.float32
+    slots = cluster_slots("bwd", cell, "bfloat16", hist, dev)
+    plan = bwd_plan(cell, T, B, H, 2, "bfloat16", hist, slots)
     w = ("resident" if plan["resident"]
          else f"streamed in chunks of {plan['kc']} columns every step")
     kp = -(-_GATES[cell] * plan["H"] // 16) * 16
@@ -1216,14 +1244,17 @@ def _bwd_design(cell: str, B: int, T: int, dev, H=H) -> dict:
     return plan
 
 
-def check_rnn_bwd(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H) -> dict:
+def check_rnn_bwd(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H,
+                  compact: bool = True) -> dict:
+    """The backward kernel against its plain version at bf16 compute, the
+    history in bf16 (``compact``) or f32 (TTMR_RNN_HISTORY=f32)."""
     from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
         rnn_bwd_bound,
         rnn_layer_bwd,
         rnn_layer_bwd_reference,
     )
 
-    args = _bwd_inputs(cell, B, T, seed, dev, H)
+    args = _bwd_inputs(cell, B, T, seed, dev, H, compact)
     kw = dict(compute_dtype="bfloat16")
     dxps, dw, db = rnn_layer_bwd(cell, *args, **kw)
     r_dxps, r_dw, r_db = rnn_layer_bwd_reference(cell, *args, **kw)
@@ -1236,7 +1267,7 @@ def check_rnn_bwd(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H) -
     w_rel, b_rel = _rel(dw, r_dw), _rel(db, r_db)
     finite = all(bool(torch.isfinite(t).all()) for t in (*dxps, dw, db))
     zero_row = all(bool((d[:, 0] == 0).all()) for d in dxps)  # row 0 has length 0
-    shape = f"{cell} D=2 B={B} T={T} H={H} bf16, bf16 history"
+    shape = f"{cell} D=2 B={B} T={T} H={H} bf16, {'bf16' if compact else 'f32'} history"
     log(f"rnn_bwd {shape}: |dxp diff| {dxp_err:.3g} (scale {dxp_scale:.3g}), "
         f"dW {w_rel:.3g}, db {b_rel:.3g} norm-relative")
     check(finite, f"rnn_bwd {shape}: non-finite output")
@@ -1249,12 +1280,12 @@ def check_rnn_bwd(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H) -
     rec = {"shape": shape, "max_abs_err": max_abs, "dxp_err_of_scale": dxp_err / dxp_scale,
            "dw_rel": w_rel, "db_rel": b_rel, "bitwise_repeatable": bitwise}
     if timed:
-        rec["design"] = _bwd_design(cell, B, T, dev, H)
+        rec["design"] = _bwd_design(cell, B, T, dev, H, compact)
         rec["ms"] = time_ms(lambda: rnn_layer_bwd(cell, *args, **kw))
         rec["plain_ms"] = time_ms(lambda: rnn_layer_bwd_reference(cell, *args, **kw),
                                   reps=3, warmup=1)
         rec["library_ms"] = _cudnn_backward_ms(B, T, dev, H, cell)
-        nbytes, flops = rnn_bwd_bound(T, B, H, 2, _GATES[cell], 2, 2)
+        nbytes, flops = rnn_bwd_bound(T, B, H, 2, _GATES[cell], 2, 2 if compact else 4)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
         rec["step_us"] = rec["ms"] / T * 1e3
         log(f"rnn_bwd {shape}: kernel {rec['ms']:.4f} ms ({rec['step_us']:.2f} us a step, the "
@@ -1322,6 +1353,9 @@ def phase_bwd_kernels(dev) -> list:
         # the model axis's GRU step (phase_model_axis): both towers at B=1024
         check_rnn_bwd("GRU", GRU_ROWS, QUERY_LEN, 18, dev, timed=False),
         check_rnn_bwd("GRU", GRU_ROWS, DOC_LEN, 19, dev, timed=False),
+        # the training towers with the history in f32 (TTMR_RNN_HISTORY=f32)
+        check_rnn_bwd("GRU", TRAIN_ROWS, QUERY_LEN, 33, dev, timed=True, compact=False),
+        check_rnn_bwd("GRU", 2 * TRAIN_ROWS, DOC_LEN, 34, dev, timed=True, compact=False),
     ]
 
 
@@ -1974,13 +2008,39 @@ def _first_step_card_vs_cpu(dev, cfg, params, packed, loss_atol: float, grad_rel
     return {"loss_err": loss_err, "worst_grad_norm_rel": rels[worst], "worst_leaf": worst}
 
 
-def phase_first_step(dev, cfg, tok, table, train_triplets) -> dict:
+def phase_first_step(dev, cfg, tok, table, train_triplets, what: str = "train") -> dict:
     from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec, init_two_tower
 
     params = init_two_tower(torch.Generator().manual_seed(cfg.seed),
                             TwoTowerSpec.from_config(cfg), pretrained_embeddings=table)
     return _first_step_card_vs_cpu(dev, cfg, params, _first_batch(cfg, tok, train_triplets),
-                                   STEP_LOSS_ATOL, STEP_GRAD_REL, "train")
+                                   STEP_LOSS_ATOL, STEP_GRAD_REL, what)
+
+
+def phase_first_step_f32_history(dev, cfg, tok, table, train_triplets) -> dict:
+    """The first step again with TTMR_RNN_HISTORY=f32 (the saved history
+    in f32 under bf16 compute: both recurrent kernels' f32-history
+    instantiations), card against CPU in the same envelope; 4 rnn_fwd and
+    4 rnn_bwd launches (two layers of each tower). The variable is read at
+    every call and restored after."""
+    from twotowermlretrieval_tpu_torch.models.rnn import history_in_cdt
+
+    old = os.environ.get("TTMR_RNN_HISTORY")
+    os.environ["TTMR_RNN_HISTORY"] = "f32"
+    try:
+        check(not history_in_cdt(cfg.compute_dtype), "TTMR_RNN_HISTORY=f32 keeps a bf16 history")
+        zero_counts()
+        first = phase_first_step(dev, cfg, tok, table, train_triplets, "train, f32 history")
+        launches = read_counts()
+    finally:
+        if old is None:
+            os.environ.pop("TTMR_RNN_HISTORY", None)
+        else:
+            os.environ["TTMR_RNN_HISTORY"] = old
+    check(launches["rnn_fwd"] == 4 and launches["rnn_bwd"] == 4,
+          f"train, f32 history: first step launched {launches}")
+    first["launches"] = launches
+    return first
 
 
 def _check_checkpoint(ckpt_dir, cfg, table, res, dev, what: str) -> None:
@@ -2049,6 +2109,7 @@ def phase_train(dev, corpus) -> dict:
     datasets = {"train": triplets[:a], "validation": triplets[a:b],
                 "test": triplets[b : b + TEST_TRIPLETS]}
     first = phase_first_step(dev, cfg, tok, table, datasets["train"])
+    first_f32 = phase_first_step_f32_history(dev, cfg, tok, table, datasets["train"])
 
     res, launches, train_s = _train_main_path(cfg, tok, table, datasets, TRAIN_DIR, dev, "train")
     steps, losses = res["steps"], res["step_losses"]
@@ -2066,6 +2127,7 @@ def phase_train(dev, corpus) -> dict:
           "train: the exported directory does not serve")
     log(f"train: the exported directory serves ({len(out)} results)")
     return {"steps": steps, "launches": launches, "train_s": train_s, "first_step": first,
+            "first_step_f32_history": first_f32,
             "steady_steps_per_sec": res["steady_steps_per_sec"],
             "steady_examples_per_sec": res["steady_examples_per_sec"],
             "loss_first_last": [losses[0], losses[-1]]}, (cfg, tok, table, datasets)
@@ -3614,6 +3676,241 @@ def phase_sharded_serve(dev, triplets, ivf_kept) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the rest of the JAX package: the native tokenizer, SimpleHybridRetriever,
+# the end-to-end demo
+# ---------------------------------------------------------------------------
+
+# The JAX package's native-tokenizer cases (tests/test_native.py): unicode
+# rows take the Python path inside encode_batch, truncation, punctuation.
+NATIVE_TEXTS = [
+    "The CAT, sat! on word1 word999 unknownzzz.",
+    "",
+    "c_d 42 ... ,,, ;;; ???",
+    "word1 " * 500,
+    "punctuation-only: !?.,;",
+    "naïve café résumé",
+    "mixed ascii and ünïcode words",
+    "word2\tword3\nword4\r\nword5",
+]
+
+
+def phase_native_tokenizer(corpus, card: str) -> dict:
+    """The C++ batch tokenizer (``native/``) builds with g++ on this machine
+    and gives the Python path's ids and lengths, to the bit, over the
+    export's 70,000 passages and the unicode rows at the doc tower's 128
+    tokens; both paths timed (host only)."""
+    from twotowermlretrieval_tpu_torch.native import library_path, native_available, native_error
+    from twotowermlretrieval_tpu_torch.tokenizer import Tokenizer
+
+    word_to_idx, _, triplets = corpus
+    t0 = time.perf_counter()
+    check(native_available(), f"native tokenizer unavailable: {native_error()}")
+    tok = Tokenizer(word_to_idx)
+    check(tok._get_native_vocab() is not None, "no native vocabulary")
+    build_s = time.perf_counter() - t0
+    texts = [p for t in triplets for p in t[1:]] + NATIVE_TEXTS
+    out, secs = {}, {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        out[native] = tok.encode_batch(texts, DOC_LEN, native=native)
+        secs[native] = time.perf_counter() - t0
+    same = all(np.array_equal(a, b) for a, b in zip(out[True], out[False]))
+    check(same, "native tokenizer: ids or lengths differ from the Python path's")
+    rec = {"texts": len(texts), "build_and_vocab_s": build_s,
+           "native_per_s": len(texts) / secs[True], "python_per_s": len(texts) / secs[False]}
+    log(f"native tokenizer ({library_path().name}, built and vocabulary of {len(word_to_idx)} "
+        f"words in {build_s:.2f} s): {len(texts)} texts at {DOC_LEN} tokens equal the Python "
+        f"path's; native {rec['native_per_s']:.0f} passages/s, Python "
+        f"{rec['python_per_s']:.0f} passages/s (host; {card})")
+    return rec
+
+
+# SimpleHybridRetriever, card against CPU: both fit the first HYBRID_CPU_DOCS
+# passages (one corpus batch of the doc tower; the CPU runs the plain
+# versions). The card alone fits all PASSAGES for the k = N search.
+HYBRID_CPU_DOCS = 1024
+
+
+def _same_pairs(got, want, tol: float) -> bool:
+    """(document, score) lists: scores within ``tol`` rank by rank, and a
+    document in another place only where a near-tie within ``tol`` can
+    have moved it."""
+    if len(got) != len(want):
+        return False
+    gs, ws = np.array([s for _, s in got]), np.array([s for _, s in want])
+    if len(gs) and np.abs(gs - ws).max() > tol:
+        return False
+    by_doc = dict(want)
+    for doc, score in got:
+        if doc in by_doc:
+            if abs(score - by_doc[doc]) > tol:
+                return False
+        elif score > ws[-1] + tol:  # only a near-tie at the boundary may cut it off
+            return False
+    return True
+
+
+def _check_full_ranking(vals, ids, q, docs, n: int, what: str) -> dict:
+    """A k = N search (one query row) against topk_oracle on the same f32
+    rows: every valid id exactly once, the values within SEGMAX_ATOL of
+    the oracle's rank by rank and of their own rows' scores, and an id
+    off the oracle's only where the two scores tie within 2 x
+    SEGMAX_ATOL."""
+    from twotowermlretrieval_tpu_torch.ops.topk import topk_oracle
+
+    o_vals, o_ids = topk_oracle(q, docs, n)
+    o_vals, o_ids = o_vals[0].cpu().numpy(), o_ids[0].cpu().numpy()
+    full = torch.matmul(docs, q[0]).cpu().numpy()
+    check(np.array_equal(np.sort(ids), np.arange(n)), f"{what}: the ids are not every row once")
+    err = max(float(np.abs(vals - o_vals).max()), float(np.abs(full[ids] - vals).max()))
+    off = ids != o_ids
+    gap = float(np.abs(full[ids[off]] - o_vals[off]).max()) if off.any() else 0.0
+    log(f"{what}: against topk_oracle over {n} rows: |value diff| {err:.3g}, "
+        f"{int(off.sum())} of {n} ranks hold another id (score gap {gap:.3g})")
+    check(err <= SEGMAX_ATOL, f"{what}: values off the oracle by {err}")
+    check(gap <= 2 * SEGMAX_ATOL, f"{what}: an id off the oracle's by {gap}")
+    return {"max_abs_err": err, "ids_off_oracle": int(off.sum())}
+
+
+def phase_simple_hybrid(dev, triplets) -> dict:
+    """``SimpleHybridRetriever`` (serve/simple_hybrid.py) over the export of
+    phase 4: fit on every passage on the card (an f32 index: ``segmax``'s
+    CUDA-core route), five queries with the counts at 0 (one ``segmax`` and
+    two ``rnn_fwd`` a search), the dense k = N search against
+    ``topk_oracle``, the kernel at the index's shape against its plain
+    version and timed; then card against CPU on HYBRID_CPU_DOCS passages:
+    the top-10 (document, score) of each query within EMBED_ATOL."""
+    from twotowermlretrieval_tpu_torch.ops.topk import segmax, segmax_bound, segmax_reference
+    from twotowermlretrieval_tpu_torch.serve.simple_hybrid import SimpleHybridRetriever
+
+    passages = [p for t in triplets for p in t[1:]]
+    queries = [r["query"] for r in _requests(triplets)]
+    t0 = time.perf_counter()
+    card = SimpleHybridRetriever(ARTIFACTS, device=dev)
+    card.fit(passages)
+    fit_s = time.perf_counter() - t0
+    index = card.index
+    check(index.kernel_on() and index._docs.dtype == torch.float32 and index.num_docs == PASSAGES,
+          "SimpleHybridRetriever: not an f32 index on the card's fused path")
+    zero_counts()
+    t0 = time.perf_counter()
+    results = [card.search(q) for q in queries]
+    search_s = time.perf_counter() - t0
+    launches = read_counts()
+    log(f"simple hybrid: fit {PASSAGES} passages on the card in {fit_s:.1f} s; "
+        f"{len(queries)} searches (k = N dense) in {search_s:.2f} s, launches {launches}")
+    check(launches["segmax"] == len(queries) and launches["rnn_fwd"] == 2 * len(queries),
+          f"simple hybrid: launched {launches}, expected 1 segmax and 2 rnn_fwd a search")
+    check(all(len(r) == 10 and all(math.isfinite(s) for _, s in r) for r in results),
+          "simple hybrid: a result list is not 10 finite scores")
+
+    # the dense k = N search against the oracle, and segmax at its shape
+    q_np = card.dense_retriever.get_query_embedding(queries[0])
+    n = index.num_docs
+    vals, ids = index.search(q_np[None], k=n)
+    q = torch.from_numpy(q_np)[None].to(dev)
+    rec = _check_full_ranking(vals[0], ids[0], q, index._docs[:n], n,
+                              f"simple hybrid dense k={n}")
+    qp = torch.nn.functional.pad(q, (0, 0, 0, 7))  # the index's 8 query rows
+    npad = index._docs.shape[0]
+    got, want = segmax(qp, index._docs, n)[0], segmax_reference(qp, index._docs, n)[0]
+    err = (got - want).abs().max().item()
+    check(err <= SEGMAX_ATOL, f"segmax at the hybrid index's shape: off by {err}")
+    rec.update(shape=f"B=8 (1 query) Npad={npad} n_valid={n} H={H} f32, "
+                     f"SimpleHybridRetriever k=N", launches=launches,
+               max_abs_err=max(rec["max_abs_err"], err))
+    rec["ms"] = time_ms(lambda: segmax(qp, index._docs, n))
+    rec["plain_ms"] = time_ms(lambda: segmax_reference(qp, index._docs, n), reps=5, warmup=1)
+    rec["library_ms"] = time_ms(
+        lambda: torch.matmul(index._docs, qp.T).view(-1, 128, 8).amax(dim=1))
+    rec["search_ms"] = time_ms(lambda: index.search(q_np[None], k=n), reps=5, warmup=1)
+    rec["bound_ms"], rec["bound_by"] = bound(*segmax_bound(8, H, npad, 4), PEAK_F32_FLOPS)
+    log(f"segmax {rec['shape']}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+        f"matmul+amax {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
+        f"({rec['bound_by']}); the whole k=N search with its host fetch "
+        f"{rec['search_ms']:.3f} ms")
+    del card, index, got, want
+    torch.cuda.empty_cache()
+
+    # card against CPU on the same documents
+    docs = passages[:HYBRID_CPU_DOCS]
+    pair = {}
+    for label, where in (("card", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        r = SimpleHybridRetriever(ARTIFACTS, device=where)
+        r.fit(docs)
+        pair[label] = [r.search(q) for q in queries]
+        log(f"simple hybrid on the {label}: fit {len(docs)} passages and {len(queries)} "
+            f"searches in {time.perf_counter() - t0:.1f} s")
+    worst = max(abs(a[1] - b[1]) for g, w in zip(pair["card"], pair["cpu"])
+                for a, b in zip(g, w))
+    log(f"simple hybrid, card against CPU over {len(docs)} passages: top-10 scores within "
+        f"{worst:.3g}")
+    for q, g, w in zip(queries, pair["card"], pair["cpu"]):
+        check(_same_pairs(g, w, EMBED_ATOL), f"simple hybrid {q[:30]!r}: card and CPU differ")
+    rec["card_vs_cpu"] = worst
+    return rec
+
+
+E2E_DIR = TRAIN_DIR / "e2e"  # removed with TRAIN_DIR at the end
+E2E_TIMEOUT_S = 600
+
+
+def phase_e2e_demo(dev, card: str) -> dict:
+    """``python -m twotowermlretrieval_tpu_torch.tools.e2e_demo --scale
+    smoke`` as a child process on this device (its server a child of it):
+    exit 0 within E2E_TIMEOUT_S, the recall assertion held, and its
+    E2E_DEMO_RESULT line read: p50/p99 at c=1 and c=8, examples/s, and
+    the kernel launches of its training, its inflation and its int8
+    server (segmax_s8 on every dense search). The demo's whole process
+    group is killed if it runs over."""
+    import signal
+
+    if E2E_DIR.exists():
+        shutil.rmtree(E2E_DIR)
+    E2E_DIR.mkdir(parents=True)
+    out_log = E2E_DIR.parent / "e2e_demo.log"
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "twotowermlretrieval_tpu_torch.tools.e2e_demo",
+           "--scale", "smoke", "--device", dev.type, "--out", str(E2E_DIR)]
+    t0 = time.perf_counter()
+    with open(out_log, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=E2E_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    secs = time.perf_counter() - t0
+    text = out_log.read_text()
+    if rc != 0:
+        print(text[-6000:], flush=True)
+    check(rc == 0, f"e2e demo: exit {rc} after {secs:.1f} s")
+    lines = [ln for ln in text.splitlines() if ln.startswith("E2E_DEMO_RESULT ")]
+    check(len(lines) == 1, "e2e demo: no E2E_DEMO_RESULT line")
+    res = json.loads(lines[0][len("E2E_DEMO_RESULT "):])
+    for ln in text.splitlines():
+        if ln.startswith("["):
+            log(f"e2e demo {ln}")
+    check(res["recall10_trained"] > res["recall10_random"] + 0.1,
+          f"e2e demo: recall {res['recall10_trained']} vs random {res['recall10_random']}")
+    launches = res["launches"]
+    check(launches["train"]["rnn_bwd"] > 0 and launches["train"]["rnn_fwd"] > 0
+          and launches["inflate"]["rnn_fwd"] > 0 and launches["serve"]["segmax_s8"] > 0
+          and launches["serve"]["rnn_fwd"] > 0,
+          f"e2e demo: a stage did not launch its kernels: {launches}")
+    res["child_seconds"] = secs
+    log(f"e2e demo (smoke scale, child process) in {secs:.1f} s: c=1 p50 {res['p50_ms_c1']} ms, "
+        f"p99 {res['p99_ms_c1']} ms; c=8 p50 {res['p50_ms_c8']} ms, p99 {res['p99_ms_c8']} ms, "
+        f"{res['req_per_s_c8']} req/s; {res['examples_per_sec']} examples/s; recall@10 "
+        f"{res['recall10_random']} -> {res['recall10_trained']}; launches {json.dumps(launches)} "
+        f"({card})")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # traced runs (after every timed phase: a profiling session slows every
 # later host launch)
 # ---------------------------------------------------------------------------
@@ -3734,10 +4031,13 @@ def main(argv) -> int:
         ivf, ivf_kept = phase_ivf(dev)
         kern.update(phase_attention_kernels(dev))
         export, corpus = phase_export(dev)
+        native = phase_native_tokenizer(corpus, card)
         served = phase_serve(dev, corpus[2])
         served_int8 = phase_serve_int8(dev, corpus[2])
         wide_engine = phase_wide_engine(dev, corpus)
         served_ivf = phase_serve_ivf(dev, corpus[2])
+        hybrid = phase_simple_hybrid(dev, corpus[2])
+        kern["segmax"].append(hybrid)
         sharded = phase_sharded_serve(dev, corpus[2], ivf_kept)
         del ivf_kept
         for name, recs in sharded.pop("kernels").items():
@@ -3747,6 +4047,7 @@ def main(argv) -> int:
         tf = phase_transformer(dev, corpus)
         dp = phase_data_parallel(dev, corpus)
         tp = phase_model_axis(dev, corpus)
+        e2e = phase_e2e_demo(dev, card)
         phase_device_times()
         traced = phase_traced(dev, setup, tf.pop("setup"), corpus[2])
         del setup
@@ -3776,7 +4077,10 @@ def main(argv) -> int:
               "model_axis_export_search": tp["export_search"],
               "sharded_serve": sharded["serve_bfloat16"]["launches"],
               "sharded_serve_int8": sharded["serve_int8"]["launches"],
-              "sharded_topk_int8": sharded["int8_rows_launches"]}
+              "sharded_topk_int8": sharded["int8_rows_launches"],
+              "train_f32_history_first_step": trained["first_step_f32_history"]["launches"],
+              "simple_hybrid": hybrid["launches"],
+              **{f"e2e_demo_{stage}": c for stage, c in e2e["launches"].items()}}
     main_launches = {"rnn_fwd": served["launches"]["rnn_fwd"],
                      "segmax": served["launches"]["segmax"],
                      "rnn_bwd": trained["launches"]["rnn_bwd"],
@@ -3808,7 +4112,14 @@ def main(argv) -> int:
         })
     log(f"serve int8: request ms {[round(ms, 3) for ms in served_int8['request_ms']]}, "
         f"autotune {json.dumps(served_int8['autotune_ms'])} ({card})")
-    log(f"train: first step card-vs-CPU {json.dumps(trained['first_step'])}; "
+    log(f"native tokenizer: {native['native_per_s']:.0f} passages/s against the Python path's "
+        f"{native['python_per_s']:.0f} ({card})")
+    log(f"simple hybrid: k=N dense search {hybrid['search_ms']:.3f} ms, segmax f32 "
+        f"{hybrid['ms']:.4f} ms; card against CPU top-10 within {hybrid['card_vs_cpu']:.3g} "
+        f"({card})")
+    log(f"e2e demo (smoke): {json.dumps({k: v for k, v in e2e.items() if k != 'launches'})}")
+    log(f"train: first step card-vs-CPU {json.dumps(trained['first_step'])}; with an f32 "
+        f"history {json.dumps(trained['first_step_f32_history'])}; "
         f"steady {trained['steady_steps_per_sec']:.3f} steps/s, "
         f"{trained['steady_examples_per_sec']:.1f} examples/s ({card})")
     routes = tf["routes"]

@@ -474,3 +474,43 @@ def test_http_health_and_metrics_match_jax(servers):
     jax_names = {line.split("{")[0].split(" ")[0] for line in _get(jax_url, "/metrics")[1].splitlines()
                  if line and not line.startswith("#")}
     assert metric_names == jax_names
+
+
+# ---------------------------------------------------------------------------
+# SimpleHybridRetriever: the library path against the JAX package's
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("doc_tower", [True, False], ids=["doc-tower", "query-tower"])
+def test_simple_hybrid_matches_jax(jax_artifacts_float32, datasets, doc_tower):
+    """Fit on the same documents (f32 index, k = N dense search), the same
+    documents in the same order and blended scores within 1e-5 (the f32
+    towers' sums in another order), up to ties within that."""
+    from twotowermlretrieval_tpu.serve.simple_hybrid import (
+        SimpleHybridRetriever as JaxSimpleHybridRetriever,
+    )
+    from twotowermlretrieval_tpu_torch.serve.simple_hybrid import SimpleHybridRetriever
+
+    docs = list(dict.fromkeys(p for trip in datasets["train"] for p in trip[1:]))[:150]
+    port = SimpleHybridRetriever(jax_artifacts_float32, doc_tower=doc_tower, device="cpu")
+    ref = JaxSimpleHybridRetriever(jax_artifacts_float32, doc_tower=doc_tower,
+                                   use_pallas=False)
+    port.fit(docs)
+    ref.fit(docs)
+    assert port.index.num_docs == len(docs) and port.index.storage_dtype == "float32"
+    for q in QUERIES:
+        got, want = port.search(q, top_k=10), ref.search(q, top_k=10)
+        assert len(got) == len(want) == 10
+        gs, ws = np.array([s for _, s in got]), np.array([s for _, s in want])
+        np.testing.assert_allclose(gs, ws, rtol=0, atol=1e-5)
+        for i, ((doc, _), (twin, _)) in enumerate(zip(got, want)):
+            if doc != twin:  # only a near-tie may swap places
+                assert abs(gs[i] - ws[i]) <= 1e-5 and any(
+                    abs(ws[j] - ws[i]) <= 2e-5 for j in range(10) if j != i), (q, i)
+
+
+def test_simple_hybrid_search_before_fit_raises(jax_artifacts_float32):
+    from twotowermlretrieval_tpu_torch.serve.simple_hybrid import SimpleHybridRetriever
+
+    with pytest.raises(RuntimeError, match="fit"):
+        SimpleHybridRetriever(jax_artifacts_float32, device="cpu").search("t0w1")

@@ -1,0 +1,236 @@
+"""The port's tools against the JAX package's: loadtest, prepare_embeddings,
+inspect_data and download_dataset give the JAX tools' output where it is
+deterministic; bench_rnn_variants and the e2e demo run on the CPU
+(``--device cpu``, the kernels' plain versions) at shrunk sizes."""
+
+import json
+import pickle
+import re
+import sys
+import threading
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+from twotowermlretrieval_tpu.tools import download_dataset as jax_download
+from twotowermlretrieval_tpu.tools import inspect_data as jax_inspect
+from twotowermlretrieval_tpu.tools import loadtest as jax_loadtest
+from twotowermlretrieval_tpu.tools import prepare_embeddings as jax_prepare
+from twotowermlretrieval_tpu_torch.tools import bench_rnn_variants as bench
+from twotowermlretrieval_tpu_torch.tools import download_dataset, e2e_demo, inspect_data
+from twotowermlretrieval_tpu_torch.tools import loadtest, prepare_embeddings
+
+
+def _run_main(monkeypatch, main, argv):
+    """A tool's ``main()`` that reads sys.argv itself."""
+    monkeypatch.setattr(sys, "argv", ["tool", *argv])
+    return main()
+
+
+# --------------------------------------------------------------------- loadtest
+
+
+@pytest.mark.parametrize("vals", [[], [3.0], [5.0, 1.0, 9.0, 2.0, 7.0], list(range(101))])
+def test_loadtest_percentile_and_summary_match_jax(vals):
+    lat = sorted(float(v) for v in vals)
+    for p in (0, 50, 90, 99, 100):
+        a, b = loadtest.percentile(lat, p), jax_loadtest.percentile(lat, p)
+        assert (np.isnan(a) and np.isnan(b)) or a == b
+    server = [v / 2 for v in vals]
+    if lat:  # an empty run's mean is 0 in both; its percentiles are nan
+        assert (loadtest.summarize(vals, server, ["e"], 1.5, 4)
+                == jax_loadtest.summarize(vals, server, ["e"], 1.5, 4))
+
+
+@pytest.fixture(scope="module")
+def cpu_server(synth_dir, tmp_path_factory):
+    """The port's server on the CPU over a small export of the port."""
+    from twotowermlretrieval_tpu.data.loader import TripletBuilder
+    from twotowermlretrieval_tpu.data.synthetic import synthetic_config
+    from twotowermlretrieval_tpu_torch.config import Config
+    from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec, init_two_tower
+    from twotowermlretrieval_tpu_torch.serve.app import serve
+    from twotowermlretrieval_tpu_torch.tokenizer import Tokenizer
+    from twotowermlretrieval_tpu_torch.train.artifacts import save_inference_artifacts
+
+    jcfg = synthetic_config(synth_dir, hidden_dim=16, num_layers=1, compute_dtype="float32")
+    tok = Tokenizer.from_pickle(jcfg.word_to_idx_path)
+    cfg = Config.from_dict(jcfg.replace(vocab_size=tok.vocab_size(), embed_dim=16).to_dict())
+    params = init_two_tower(torch.Generator().manual_seed(0), TwoTowerSpec.from_config(cfg))
+    out = tmp_path_factory.mktemp("port_export")
+    save_inference_artifacts(out, params, cfg, tok, TripletBuilder(jcfg).load_datasets(),
+                             device="cpu")
+    server = serve(str(out), port=0, host="127.0.0.1", device="cpu", storage_dtype="float32")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    yield f"http://127.0.0.1:{server.server_address[1]}"
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=10)
+
+
+@pytest.mark.parametrize("keep_alive", [False, True])
+def test_loadtest_run_load_against_port_server(cpu_server, keep_alive):
+    queries = ["t0w1 t0w2", "t3w4", "nothing known"]
+    lats, server_ms, errors, wall = loadtest.run_load(cpu_server, queries, 12, 3, 0.5,
+                                                      keep_alive=keep_alive)
+    assert errors == [] and len(lats) == len(server_ms) == 12 and wall > 0
+    summary = loadtest.summarize(lats, server_ms, errors, wall, 3)
+    assert summary["requests"] == 12 and summary["errors"] == 0
+    assert summary["client_ms"]["p50"] <= summary["client_ms"]["p99"]
+    assert "server_took_ms" in summary
+
+
+# ----------------------------------------------------------- prepare_embeddings
+
+
+@pytest.mark.parametrize("special", [False, True], ids=["plain", "add-special"])
+def test_prepare_embeddings_matches_jax(monkeypatch, tmp_path, special):
+    rng = np.random.default_rng(5)
+    words = ["the", ",", "cat", "naïve", "x_y", "42"]
+    glove = tmp_path / "glove.txt"
+    glove.write_text("".join(w + " " + " ".join(f"{v:.5f}" for v in rng.normal(size=6)) + "\n"
+                             for w in words), encoding="utf-8")
+    flag = ["--add_special"] if special else []
+    _run_main(monkeypatch, prepare_embeddings.main, [str(glove), "--out", str(tmp_path / "p"),
+                                                     *flag])
+    _run_main(monkeypatch, jax_prepare.main, [str(glove), "--out", str(tmp_path / "j"), *flag])
+    for name in ("embeddings.npy", "word_to_idx.pkl"):
+        assert (tmp_path / "p" / name).read_bytes() == (tmp_path / "j" / name).read_bytes()
+    with open(tmp_path / "p" / "word_to_idx.pkl", "rb") as f:
+        assert ("<UNK>" in pickle.load(f)) == special
+
+
+# ------------------------------------------------------------------ inspect_data
+
+
+@pytest.mark.parametrize("argv", [["--suggest-buckets", "3"],
+                                  ["--suggest-buckets", "2", "--max-rows", "50",
+                                   "--splits", "train,test,nosuch"]])
+def test_inspect_data_json_matches_jax(synth_dir, capsys, argv):
+    argv = ["--data-dir", str(synth_dir), "--json", *argv]
+    port = inspect_data.main(argv)
+    port_out = capsys.readouterr().out
+    ref = jax_inspect.main(argv)
+    jax_out = capsys.readouterr().out
+    assert port == ref and json.loads(port_out) == json.loads(jax_out)
+    assert port["bucket_suggestion"]["LENGTH_BUCKETS"]
+
+
+# -------------------------------------------------------------- download_dataset
+
+
+def test_download_synthetic_matches_jax(monkeypatch, tmp_path):
+    """--synthetic: the same parquet splits and table for the same
+    (default) seed. The hub branch needs the network and the ``datasets``
+    package; it is not run here."""
+    _run_main(monkeypatch, download_dataset.main,
+              ["--synthetic", "--num_queries", "40", "--out", str(tmp_path / "p")])
+    _run_main(monkeypatch, jax_download.main,
+              ["--synthetic", "--num_queries", "40", "--out", str(tmp_path / "j")])
+    names = sorted(p.name for p in (tmp_path / "j").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "p").iterdir())
+    for name in names:
+        a, b = tmp_path / "p" / name, tmp_path / "j" / name
+        if name.endswith(".parquet"):
+            pd.testing.assert_frame_equal(pd.read_parquet(a), pd.read_parquet(b))
+        else:
+            assert a.read_bytes() == b.read_bytes(), name
+
+
+# ------------------------------------------------------------- bench_rnn_variants
+
+
+@pytest.fixture
+def small_bench(monkeypatch):
+    """The bench at a CPU-sized shape (its logic unchanged)."""
+    monkeypatch.setattr(bench, "H", 16)
+    monkeypatch.setattr(bench, "SHAPES", {"query": (6, 8), "doc": (10, 16)})
+    monkeypatch.setattr(bench, "QUERY_LEN", 8)
+    monkeypatch.setattr(bench, "DOC_LEN", 12)
+    monkeypatch.setattr(bench, "VOCAB", 300)
+    windows = bench._alternating_windows
+    monkeypatch.setattr(bench, "_alternating_windows",
+                        lambda variants, run, n_long, n_rounds=7: windows(variants, run, 7, 2))
+
+
+def test_bench_rnn_kernels_mode_on_cpu(small_bench, capsys, monkeypatch):
+    res = bench.main(["--mode", "kernels", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 2 and set(res) == {"query", "doc"}
+    pat = re.compile(r"GRU (query|doc) \[T=\d+, rows=\d+\] bwd: combined ([\d.]+) ms \| "
+                     r"hoisted ([\d.]+) ms \| split ([\d.]+) ms")
+    # a time is a long window less the best short one, floored at 1e-9 s:
+    # on a busy CPU it can print as 0.000
+    for line in lines:
+        m = pat.fullmatch(line)
+        assert m and all(float(x) >= 0 for x in m.groups()[1:]), line
+    assert all(v > 0 for r in res.values() for v in r.values())
+
+
+def test_bench_rnn_history_mode_on_cpu(small_bench, capsys, monkeypatch):
+    """Both arms run in one process, each under its own setting: the
+    forward sees history_in_cdt False for f32 and True for cdt."""
+    from twotowermlretrieval_tpu_torch.models import rnn as port_rnn
+
+    seen = []
+    fwd = port_rnn.rnn_layer_fwd
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs["history_in_cdt"])
+        return fwd(*args, **kwargs)
+
+    monkeypatch.setattr(port_rnn, "rnn_layer_fwd", spy)
+    monkeypatch.setenv("TTMR_RNN_HISTORY", "unchanged")
+    per = bench.main(["--mode", "history", "--device", "cpu", "--batch", "8"])
+    lines = capsys.readouterr().out.splitlines()
+    assert [re.match(r"history \[(\w+), B=8\]: [\d.]+ ms/step", ln).group(1)
+            for ln in lines] == ["f32", "cdt"]
+    assert set(per) == {"f32", "cdt"} and all(len(v) == 2 for v in per.values())
+    assert True in seen and False in seen
+    import os
+
+    assert os.environ["TTMR_RNN_HISTORY"] == "unchanged"  # restored after each arm
+
+
+def test_bench_rnn_needs_a_card_unless_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        bench.main(["--mode", "kernels"])
+
+
+# ----------------------------------------------------------------------- e2e demo
+
+
+def test_e2e_demo_smoke_on_cpu(monkeypatch, tmp_path, capsys):
+    """The whole demo on the CPU: data, the lr=0 baseline and the trained
+    run (the recall assertion as written), the inflation, the int8 server
+    as a child process, the load test and the result line. The smoke scale
+    keeps its queries and tower; fewer filler documents and requests keep
+    the run short."""
+    smoke = dict(e2e_demo.SCALES["smoke"], corpus_docs=600, loadtest_requests=8)
+    monkeypatch.setitem(e2e_demo.SCALES, "smoke", smoke)
+    # one thread here and in the server child: the test runs beside other
+    # test processes, and oversubscribed cores slow the plain loops tenfold
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        e2e_demo.main(["--scale", "smoke", "--device", "cpu", "--out", str(tmp_path / "demo"),
+                       "--log", str(tmp_path / "log.md")])
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    line = next(ln for ln in out.splitlines() if ln.startswith("E2E_DEMO_RESULT "))
+    res = json.loads(line[len("E2E_DEMO_RESULT "):])
+    assert res["recall10_trained"] > res["recall10_random"] + 0.1
+    assert res["corpus_docs"] == 600 and res["scale"] == "smoke"
+    for key in ("p50_ms_c1", "p99_ms_c1", "p50_ms_c8", "p99_ms_c8", "req_per_s_c8"):
+        assert res[key] > 0
+    # the CPU runs the plain versions: no stage launched a kernel
+    assert set(res["launches"]) == {"train", "inflate", "serve"}
+    assert all(n == 0 for counts in res["launches"].values() for n in counts.values())
+    assert "device cpu" in res["device"]
+    assert "E2E_DEMO_RESULT" in (tmp_path / "log.md").read_text()

@@ -14,10 +14,12 @@ Each layer's time loop is :class:`_ScanLayer`, the counterpart of the JAX
 rnn_layer_bwd`, the ``csrc/rnn_bwd.cu`` kernel with the weight gradients
 accumulated inside it. ``TTMR_RNN_BWD_PLAN=hoisted`` swaps in the
 split-mode kernel with the weight gradient as one product outside, as in
-the JAX package. Hopper has no VMEM budget, so the JAX package's
-``'split'`` shape rule for wide towers has no counterpart: every width the
-kernels hold runs the combined kernel. Every layer runs at the kernels'
-width (``ops.rnn_scan.kernel_width``, H rounded up to 8): its weights are
+the JAX package, and ``TTMR_RNN_HISTORY`` picks the saved history's
+dtype (:func:`history_in_cdt`); both are read at every call. Hopper has
+no VMEM budget, so the JAX package's ``'split'`` shape rule for wide
+towers has no counterpart: every width the kernels hold runs the
+combined kernel. Every layer runs at the kernels' width
+(``ops.rnn_scan.kernel_width``, H rounded up to 8): its weights are
 zero-padded to it, so the input projection already yields the padded xp,
 both passes run at that width with nothing padded or sliced between them,
 and the outputs are sliced back to H; a width beyond the kernels' limits
@@ -185,6 +187,20 @@ class _ScanLayer(torch.autograd.Function):
         return (None, None, None, None, dw_hh.to(w_hh.dtype), db_hh.to(b_hh.dtype), *dxps)
 
 
+def history_in_cdt(compute_dtype) -> bool:
+    """Whether a layer saves its state history in the compute dtype (else
+    f32): ``TTMR_RNN_HISTORY`` as the JAX package reads it. Unset (or
+    empty): the compact history when compute is 16-bit, f32 otherwise;
+    ``"cdt"``: the compact history (a no-op under f32 compute); any other
+    value: f32. Read at every call: a change of the variable takes effect
+    on the next step (the JAX package reads it once, when a step is
+    traced)."""
+    env = os.environ.get("TTMR_RNN_HISTORY")
+    if env:
+        return env == "cdt"
+    return torch_dtype(compute_dtype).itemsize == 2
+
+
 def dropout_parts(parts, keep: float, generator: torch.Generator):
     """Inverted dropout on each per-direction part: x * Bernoulli(keep) /
     keep, one draw per part in order."""
@@ -219,9 +235,7 @@ def rnn_encode(
     use_dropout = train and spec.dropout > 0.0 and spec.num_layers > 1
     if use_dropout and generator is None:
         raise ValueError("a dropout generator is required when train=True and dropout > 0")
-    # Saved history in the compute dtype when that is 16-bit (the JAX
-    # package's default); the next layer rounds its input to cdt anyway.
-    hist = cdt.itemsize == 2
+    hist = history_in_cdt(spec.compute_dtype)
 
     # The layer input is carried as per-direction parts (the previous
     # layer's fwd/bwd outputs): the input projection contracts each part

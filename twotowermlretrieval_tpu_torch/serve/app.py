@@ -32,6 +32,7 @@ from pathlib import Path
 
 import torch
 
+from twotowermlretrieval_tpu_torch.ops import launch_counts
 from twotowermlretrieval_tpu_torch.serve.engine import SearchEngine
 
 _UI_CANDIDATES = (
@@ -508,6 +509,9 @@ def main():
         print(f"warning: {drain.inflight} request(s) still in flight at exit")
     server.RequestHandlerClass.engine.close()
     server.server_close()
+    # the kernels this process launched, for a caller that reads the log
+    # (tools/e2e_demo.py)
+    print(f"kernel launches: {json.dumps(launch_counts())}")
     print("server stopped")
 
 

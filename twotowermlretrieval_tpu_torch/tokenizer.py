@@ -6,9 +6,10 @@ port imports nothing from that package. Semantics: lowercase, regex
 the vocab if missing). Batches carry an explicit length channel; the pad id
 only fills dead slots and is never used to infer lengths.
 
-The C++ batch tokenizer of the JAX package is not ported yet (ROADMAP);
-``encode_batch`` always takes the Python path, whose results the native
-path reproduces exactly.
+``encode_batch`` takes the C++ batch tokenizer (``native/``) first, as the
+JAX package's does: rows with non-ASCII text, and machines where the
+library cannot build, take the Python path, whose results the native path
+reproduces exactly.
 """
 
 from __future__ import annotations
@@ -85,15 +86,37 @@ class Tokenizer:
         return word in self.word2idx
 
     # --- batch API ------------------------------------------------------------
+    def _get_native_vocab(self):
+        """The C++ vocabulary, built once; None where the library is
+        unavailable (``native.native_error()`` says why)."""
+        if not hasattr(self, "_native_vocab"):
+            from twotowermlretrieval_tpu_torch.native import native_available
+            from twotowermlretrieval_tpu_torch.native.batch_tokenizer import NativeVocab
+
+            self._native_vocab = (NativeVocab(self.word2idx, self.unk_token_id)
+                                  if native_available() else None)
+        return self._native_vocab
+
     def encode_batch(
-        self, texts: Sequence[str], max_len: int, pad_id: int = PAD_ID
+        self, texts: Sequence[str], max_len: int, pad_id: int = PAD_ID, native: bool = True
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Encode to a fixed-shape ``[B, max_len]`` int32 array + lengths.
 
         Sequences longer than ``max_len`` are truncated. Returns
         ``tokens`` int32 [B, max_len] and ``lengths`` int32 [B] (0 for
         texts without tokens; the towers encode those to exact zeros).
+        ``native``: the C++ tokenizer first (rows it flags as non-ASCII
+        are re-encoded here); False takes the Python path for every row.
         """
+        vocab = self._get_native_vocab() if native else None
+        if vocab is not None:
+            tokens, lengths, ok = vocab.encode_batch(texts, max_len, pad_id)
+            for row in np.nonzero(ok == 0)[0]:  # non-ASCII rows: exact unicode semantics
+                ids = self.encode(texts[row])[:max_len]
+                tokens[row, :] = pad_id
+                tokens[row, : len(ids)] = ids
+                lengths[row] = len(ids)
+            return tokens, lengths
         batch = np.full((len(texts), max_len), pad_id, dtype=np.int32)
         lengths = np.zeros((len(texts),), dtype=np.int32)
         for row, text in enumerate(texts):
