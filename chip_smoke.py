@@ -87,8 +87,8 @@
    ``distributed_topk_int8``, at B=1 and 16, each against one device's
    search over the same rows (ids equal, s8 scores bit for bit, the others
    within 1e-5 relative) with one scan launch a shard and nothing else;
-   ``segmax`` (bf16 rows, and f32 rows at B=16 and 1: its CUDA-core
-   kernel), ``segmax_s8`` and ``topk_stream_int8`` at each shard's shape
+   ``segmax`` (bf16 rows, and f32 rows at B=16 and 1: its f32 route of
+   three bf16 pieces a value), ``segmax_s8`` and ``topk_stream_int8`` at each shard's shape
    against their plain versions; the search's times at D = 1, 2, 4 split
    into the scans, phase 2 and the merge; shards holding only padding; the
    IVF index of step 3 over two shards against ``ivf_search``; and the
@@ -98,8 +98,8 @@
    (``native/``) must build with g++ here, and its ids and lengths over
    the 70,000 passages and the JAX package's unicode rows equal the Python
    path's (both timed); ``SimpleHybridRetriever`` fits the export of step 4
-   over every passage on the card (an f32 index: ``segmax``'s CUDA-core
-   route, then phase 2 at k = N), its five searches launch one ``segmax``
+   over every passage on the card (an f32 index: ``segmax``'s f32 route,
+   then phase 2 at k = N), its five searches launch one ``segmax``
    each, its dense k = N search is held against ``topk_oracle`` and the
    kernel at the index's shape against its plain version; card and CPU
    fits of 1,024 passages give the same top-10 within EMBED_ATOL; and
@@ -128,7 +128,10 @@ five scans on the tensor cores (``segmax``, ``segmax_int8``, ``segmax_s8``,
 1,048,576 rows and at B=16 over the served 73,728 rows, each with its
 layout logged (``ops/topk.py`` scan_plan, s8_plan), two calls held
 bit-identical and timed beside its library call (``segmax_s8`` also with
-its score cache, against that variant's own bound); an int8 index at
+its score cache, against that variant's own bound); ``segmax`` and
+``topk_stream`` over the f32 copy of the 1,048,576 rows at B=1, 16 and 32
+(the f32 route: each value split into three bf16 pieces, six products on
+the tensor cores) alike; an int8 index at
 H=1536, past the 1040 columns below which the integer scores stay under
 2^24, searched through ``segmax_s8`` bit for bit as the plain versions; and
 the fused attention kernels (``csrc/attention.cu``) at the transformer's
@@ -145,8 +148,9 @@ and a second boot applies it without timing.
 Step 3 also holds the repair of the bf16 and f32 scans' widths: 32 query
 rows at the widest tower widths the port trains (bf16 H=3360: ``segmax``,
 ``segmax_int8`` and the running top-k at k=50 over bf16 and per-row int8
-rows; f32 H=3200: ``segmax`` and the running top-k) over 262,144 rows, each run in the fewest blocks of
-query rows whose layout fits (``ops/topk.py`` query_blocks), against its
+rows; f32 H=3200: ``segmax`` and the running top-k) over 262,144 rows, each
+run in the fewest blocks of query rows whose layout fits (``ops/topk.py``
+query_blocks; one launch at f32), against its
 plain version, three queries bit for bit their own one-row launches, and
 past the widest width one row takes a ``ValueError`` before any launch;
 and one engine search of 32 coalesced queries over an index of width 3360
@@ -303,8 +307,9 @@ TF_STEP_GRAD_REL = 2e-2
 TF_SERVE_ATOL = EMBED_ATOL
 
 # 32 query rows at the widest tower widths the port trains (RNN towers:
-# H=3360 at bf16, 3200 at f32), past what one launch of the bf16/f32 scans
-# lays out: the wrappers run the fewest blocks of query rows that fit.
+# H=3360 at bf16, 3200 at f32): past what one launch of the bf16 scans lays
+# out the wrappers run the fewest blocks of query rows that fit; the f32
+# route takes them in one launch.
 WIDE_BF16_H, WIDE_F32_H = 3360, 3200
 WIDE_SCAN_ROWS = 262_144  # beside the served 73,728 rows of the wide engine search
 # f32 sums of about 3360 products of unit-norm rows in two orders differ by
@@ -790,23 +795,31 @@ def scan_layout(name: str, B: int, storage, k=None) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     what = f"{name} layout, B={B} H={H} {str(storage).split('.')[-1]}" + (
         "" if k is None else f" k={k}")
-    if plan["route"] == "mma":
+    if plan["query_frags"] == "ring":  # f32: three bf16 pieces, six products
+        log(f"{what}: tensor cores, f32 split into three bf16 pieces (six products), "
+            f"{plan['stages']} cp.async stages of {plan['stage_bytes']} bytes (16 KiB of rows, "
+            f"then the stage's query fragments, {plan['nt']} n8 tiles, from a "
+            f"{plan['query_frag_bytes']}-byte split a call), {plan['blocks_per_sm']} blocks a "
+            f"SM ({plan['blocks_per_sm'] * sms} persistent), {plan['k_tail']} zero columns "
+            f"past H, {plan['smem']} bytes a block")
+    else:
         log(f"{what}: tensor cores, {plan['stages']} cp.async stages of 16 KiB, "
             f"{plan['blocks_per_sm']} blocks a SM ({plan['blocks_per_sm'] * sms} persistent), "
             f"query fragments in shared memory ({plan['nt']} n8 tiles), {plan['k_tail']} zero "
             f"columns past H, {plan['smem']} bytes a block")
-    else:
-        log(f"{what}: CUDA-core sums, {plan['bq']} query rows a thread, "
-            f"{plan['blocks_per_sm']} blocks a SM, {plan['smem']} bytes a block")
     return plan
 
 
-def check_scans_at(B: int, docs, values, scales, n_valid: int, dev, seed: int) -> dict:
+def check_scans_at(B: int, docs, values, scales, n_valid: int, dev, seed: int,
+                   docs_f32=None) -> list:
     """The four redesigned scans (segmax over bf16 rows, segmax_int8, the
-    running top-k over bf16 and over per-row int8 rows) at B query rows:
-    each against its plain version (SEGMAX_ATOL / INT8_ATOL; the top-k's
-    ids against the full f32 scores), two calls bit-identical, its layout
-    logged, timed beside its library call. Returns a record per kernel."""
+    running top-k over bf16 and over per-row int8 rows; ``docs`` None: none
+    of them) and, given ``docs_f32``, segmax and the running top-k over
+    those f32 rows (the f32 route: three bf16 pieces a value, six products)
+    at B query rows: each against its plain version
+    (SEGMAX_ATOL / INT8_ATOL; the top-k's ids against the full f32 scores),
+    two calls bit-identical, its layout logged, timed beside its library
+    call and its bound. Returns (kernel name, record) pairs."""
     from twotowermlretrieval_tpu_torch.ops.topk import (
         NEG_INF,
         segmax,
@@ -821,38 +834,54 @@ def check_scans_at(B: int, docs, values, scales, n_valid: int, dev, seed: int) -
         topk_stream_reference,
     )
 
-    npad = docs.shape[0]
-    qb = _unit_rows(torch.Generator(device=dev).manual_seed(seed), B, dev)
-    f_bf16 = torch.matmul(qb.float(), docs.float().T)
-    f_int8 = torch.matmul(qb.float(), values.float().T) * scales
-    v16 = values[:n_valid].to(torch.bfloat16)
-    cases = {  # kernel, plain version, tolerance, library call, (bytes, flops), layout, full scores
-        "segmax": (lambda: segmax(qb, docs, n_valid)[0],
-                   lambda: segmax_reference(qb, docs, n_valid)[0], SEGMAX_ATOL,
-                   lambda: torch.matmul(docs, qb.T).view(-1, 128, B).amax(dim=1),
-                   segmax_bound(B, H, npad, 2), (torch.bfloat16, None), None),
-        "segmax_int8": (lambda: segmax_int8(qb, values, scales, n_valid),
-                        lambda: segmax_int8_reference(qb, values, scales, n_valid), INT8_ATOL,
-                        lambda: (torch.matmul(values.to(torch.bfloat16), qb.T).float()
-                                 * scales[:, None]).view(-1, 128, B).amax(dim=1),
-                        segmax_int8_bound(B, H, npad), (torch.int8, None), None),
-        "topk_stream": (lambda: topk_stream(qb, docs, FANOUT, n_valid),
-                        lambda: topk_stream_reference(qb, docs, FANOUT, n_valid), SEGMAX_ATOL,
-                        lambda: torch.topk(torch.matmul(qb, docs[:n_valid].T).float(), FANOUT),
-                        topk_stream_bound(B, H, npad, FANOUT, 2), (torch.bfloat16, FANOUT),
-                        f_bf16),
-        "topk_stream_int8": (lambda: topk_stream_int8(qb, values, scales, FANOUT, n_valid),
-                             lambda: topk_stream_reference(qb, values, FANOUT, n_valid, scales),
-                             INT8_ATOL,
-                             lambda: torch.topk(torch.matmul(qb, v16.T).float()
-                                                * scales[:n_valid], FANOUT),
-                             topk_stream_bound(B, H, npad, FANOUT, 1, scaled=True),
-                             (torch.int8, FANOUT), f_int8),
-    }
-    recs = {}
-    for name, (kernel, plain, tol, lib, nbytes_ops, (storage, k), full) in cases.items():
-        shape = f"B={B} Npad={npad} n_valid={n_valid} H={H} " + (
-            "bf16" if storage == torch.bfloat16 else "int8 per row") + (
+    npad = (docs_f32 if docs is None else docs).shape[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qb = _unit_rows(gen, B, dev)
+    cases = []  # name, kernel, plain version, tolerance, library call, (bytes, flops, peak),
+    #             (layout's storage, k), full scores
+    if docs is not None:
+        f_bf16 = torch.matmul(qb.float(), docs.float().T)
+        f_int8 = torch.matmul(qb.float(), values.float().T) * scales
+        v16 = values[:n_valid].to(torch.bfloat16)
+        cases += [
+            ("segmax", lambda: segmax(qb, docs, n_valid)[0],
+             lambda: segmax_reference(qb, docs, n_valid)[0], SEGMAX_ATOL,
+             lambda: torch.matmul(docs, qb.T).view(-1, 128, B).amax(dim=1),
+             segmax_bound(B, H, npad, 2) + (PEAK_BF16_FLOPS,), (torch.bfloat16, None), None),
+            ("segmax_int8", lambda: segmax_int8(qb, values, scales, n_valid),
+             lambda: segmax_int8_reference(qb, values, scales, n_valid), INT8_ATOL,
+             lambda: (torch.matmul(values.to(torch.bfloat16), qb.T).float()
+                      * scales[:, None]).view(-1, 128, B).amax(dim=1),
+             segmax_int8_bound(B, H, npad) + (PEAK_BF16_FLOPS,), (torch.int8, None), None),
+            ("topk_stream", lambda: topk_stream(qb, docs, FANOUT, n_valid),
+             lambda: topk_stream_reference(qb, docs, FANOUT, n_valid), SEGMAX_ATOL,
+             lambda: torch.topk(torch.matmul(qb, docs[:n_valid].T).float(), FANOUT),
+             topk_stream_bound(B, H, npad, FANOUT, 2) + (PEAK_BF16_FLOPS,),
+             (torch.bfloat16, FANOUT), f_bf16),
+            ("topk_stream_int8", lambda: topk_stream_int8(qb, values, scales, FANOUT, n_valid),
+             lambda: topk_stream_reference(qb, values, FANOUT, n_valid, scales), INT8_ATOL,
+             lambda: torch.topk(torch.matmul(qb, v16.T).float() * scales[:n_valid], FANOUT),
+             topk_stream_bound(B, H, npad, FANOUT, 1, scaled=True) + (PEAK_BF16_FLOPS,),
+             (torch.int8, FANOUT), f_int8),
+        ]
+    if docs_f32 is not None:
+        qf = _unit_rows_f32(gen, B, dev, width=docs_f32.shape[1])
+        f_f32 = torch.matmul(qf, docs_f32.T)
+        cases += [
+            ("segmax", lambda: segmax(qf, docs_f32, n_valid)[0],
+             lambda: segmax_reference(qf, docs_f32, n_valid)[0], SEGMAX_ATOL,
+             lambda: torch.matmul(docs_f32, qf.T).view(-1, 128, B).amax(dim=1),
+             segmax_bound(B, H, npad, 4) + (PEAK_F32_FLOPS,), (torch.float32, None), None),
+            ("topk_stream", lambda: topk_stream(qf, docs_f32, FANOUT, n_valid),
+             lambda: topk_stream_reference(qf, docs_f32, FANOUT, n_valid), SEGMAX_ATOL,
+             lambda: torch.topk(torch.matmul(qf, docs_f32[:n_valid].T), FANOUT),
+             topk_stream_bound(B, H, npad, FANOUT, 4) + (PEAK_F32_FLOPS,),
+             (torch.float32, FANOUT), f_f32),
+        ]
+    kinds = {torch.bfloat16: "bf16", torch.int8: "int8 per row", torch.float32: "f32"}
+    recs = []
+    for name, kernel, plain, tol, lib, (nbytes, ops, peak), (storage, k), full in cases:
+        shape = f"B={B} Npad={npad} n_valid={n_valid} H={H} {kinds[storage]}" + (
             "" if k is None else f" k={k}")
         plan = scan_layout(name, B, storage, k)
         got, again, want = kernel(), kernel(), plain()
@@ -868,12 +897,12 @@ def check_scans_at(B: int, docs, values, scales, n_valid: int, dev, seed: int) -
                   f"{name} {shape}: a padding segment is not NEG_INF")
         rec = {"shape": shape, "max_abs_err": err, "bitwise_repeatable": bitwise,
                "layout": plan, "ms": time_ms(kernel), "library_ms": time_ms(lib)}
-        rec["bound_ms"], rec["bound_by"] = bound(*nbytes_ops)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, peak)
         log(f"{name} {shape}: |diff| {err:.3g}, two calls bit-identical; kernel {rec['ms']:.4f} "
             f"ms, library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
             f"({rec['bound_by']})")
-        recs[name] = rec
-    del f_bf16, f_int8, v16
+        recs.append((name, rec))
+    del cases
     torch.cuda.empty_cache()
     return recs
 
@@ -1153,8 +1182,13 @@ def check_int8_rows(docs_f32, n_valid: int, q, dev) -> dict:
     out = {name: [rec] for name, rec in recs.items()}
     out["segmax"] = []  # its B=16 record is check_segmax's
     for i, b in enumerate(SCAN_BATCHES):  # the other batch sizes over the same rows
-        for name, rec in check_scans_at(b, docs, values, scales, n_valid, dev, 40 + i).items():
+        for name, rec in check_scans_at(b, docs, values, scales, n_valid, dev, 40 + i,
+                                        docs_f32=docs_f32):
             out[name].append(rec)
+    # the f32 route at the served batch over the same rows
+    for name, rec in check_scans_at(SERVE_ROWS, None, None, None, n_valid, dev, 43,
+                                    docs_f32=docs_f32):
+        out[name].append(rec)
     del values, scales, docs
     torch.cuda.empty_cache()
     return out
@@ -1181,7 +1215,7 @@ def phase_int8_kernels(dev) -> dict:
                 values, scales = (torch.from_numpy(a).to(dev)
                                   for a in quantize_rows(docs.cpu().numpy()))
                 for name, rec in check_scans_at(SERVE_ROWS, docs.bfloat16(), values, scales,
-                                                n_valid, dev, 45).items():
+                                                n_valid, dev, 45):
                     out.setdefault(name, []).append(rec)
                 del values, scales
             del docs
@@ -3067,10 +3101,12 @@ def _int8_rows_on_card(docs):
 
 
 def _wide_case(name, kernel, plain, lib, nbytes_ops, storage, k, width, q, full, n_valid):
-    """One scan at B=32 and a width past one launch's layout: its launch
-    count (the blocks of ``query_blocks``), the result against the plain
-    version (WIDE_ATOL; the top-k's ids against the full f32 scores), three
-    queries each bit for bit their own one-row launch, and its times."""
+    """One scan at B=32 and the widest tower's width: its launch count (the
+    blocks of ``query_blocks``: two at bf16 and int8, where one launch's
+    layout does not fit, one at f32, whose query fragments ride the ring),
+    the result against the plain version (WIDE_ATOL; the top-k's ids against
+    the full f32 scores), three queries each bit for bit their own one-row
+    launch, and its times."""
     from twotowermlretrieval_tpu_torch.ops import topk
 
     counter = getattr(topk, name)
@@ -3081,7 +3117,7 @@ def _wide_case(name, kernel, plain, lib, nbytes_ops, storage, k, width, q, full,
     before = counter.launches
     got = kernel(q)
     launches = counter.launches - before
-    check(launches == len(blocks) > 1,
+    check(launches == len(blocks) == (1 if storage == torch.float32 else 2),
           f"{name} {shape}: {launches} launches, expected the {len(blocks)} blocks "
           f"{[b for _, b, _ in blocks]}")
     got = (got,) if torch.is_tensor(got) else got
@@ -3100,8 +3136,10 @@ def _wide_case(name, kernel, plain, lib, nbytes_ops, storage, k, width, q, full,
     rec = {"shape": shape, "max_abs_err": err, "blocks": [b for _, b, _ in blocks],
            "launches": launches, "ms": time_ms(lambda: kernel(q)),
            "plain_ms": time_ms(plain, reps=5, warmup=1), "library_ms": time_ms(lib)}
-    rec["bound_ms"], rec["bound_by"] = bound(*nbytes_ops)
-    log(f"{name} {shape}: {launches} launches (blocks {rec['blocks']}), |diff| {err:.3g}, queries "
+    rec["bound_ms"], rec["bound_by"] = bound(
+        *nbytes_ops, PEAK_F32_FLOPS if storage == torch.float32 else PEAK_BF16_FLOPS)
+    log(f"{name} {shape}: {launches} launch(es) a call (blocks {rec['blocks']}), |diff| "
+        f"{err:.3g}, queries "
         f"0, 17, 31 bit for bit their one-row launches; kernel {rec['ms']:.4f} ms, plain "
         f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, bound "
         f"{rec['bound_ms']:.6f} ms ({rec['bound_by']})")
@@ -3112,10 +3150,10 @@ def phase_wide_batches(dev) -> dict:
     """segmax, segmax_int8 and the running top-k (k=50, over bf16 and
     per-row int8 rows) at B=32 over WIDE_SCAN_ROWS rows at bf16
     H=WIDE_BF16_H (all four) and f32 H=WIDE_F32_H (segmax, top-k): each in
-    the fewest blocks of query rows
-    whose layout fits, against its plain version; past the widest width
-    one query row takes, each wrapper raises before any launch. Returns
-    records by kernel name."""
+    the fewest blocks of query rows whose layout fits (one launch a call at
+    f32), against its plain version; past the widest width one query row
+    takes, each wrapper raises before any launch. Returns records by kernel
+    name."""
     from twotowermlretrieval_tpu_torch.ops import topk
 
     recs = {"segmax": [], "segmax_int8": [], "topk_stream": [], "topk_stream_int8": []}
@@ -3420,7 +3458,7 @@ def _check_same_search(what, got, want, exact: bool) -> float:
 def _shard_kernels(docs, f32, s8, values, scales, dev, seed: int) -> dict:
     """The three kernels of the sharded path at one shard's shape (shard
     0's tensors, SERVE_ROWS query rows; segmax over the f32 shard at B =
-    SERVE_ROWS and 1 too, whose f32 queries take its CUDA-core kernel),
+    SERVE_ROWS and 1 too, whose f32 queries take its f32 route),
     each against its plain version (segmax within SEGMAX_ATOL, segmax_s8
     bit for bit, topk_stream_int8 within INT8_ATOL with its ids against
     the full f32 scores) and timed beside it, its library call and its
@@ -3775,7 +3813,7 @@ def _check_full_ranking(vals, ids, q, docs, n: int, what: str) -> dict:
 def phase_simple_hybrid(dev, triplets) -> dict:
     """``SimpleHybridRetriever`` (serve/simple_hybrid.py) over the export of
     phase 4: fit on every passage on the card (an f32 index: ``segmax``'s
-    CUDA-core route), five queries with the counts at 0 (one ``segmax`` and
+    f32 route), five queries with the counts at 0 (one ``segmax`` and
     two ``rnn_fwd`` a search), the dense k = N search against
     ``topk_oracle``, the kernel at the index's shape against its plain
     version and timed; then card against CPU on HYBRID_CPU_DOCS passages:

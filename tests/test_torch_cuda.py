@@ -656,8 +656,9 @@ def test_fused_topk_on_the_card_matches_the_oracle(dev, phase2):
 
 
 # 32 query rows at the widest tower widths (bf16 H=3360, f32 H=3200): the
-# wrappers run the fewest blocks whose layout fits, and each query's result
-# is bit for bit its own one-row launch.
+# wrappers run the fewest blocks whose layout fits (one at f32, whose query
+# fragments ride the ring), and each query's result is bit for bit its own
+# one-row launch.
 @pytest.mark.parametrize("dtype,H", [(torch.bfloat16, 3360), (torch.float32, 3200),
                                      (torch.int8, 3360)])
 def test_wide_batches_run_in_blocks_bitwise(dev, dtype, H):
@@ -684,15 +685,76 @@ def test_wide_batches_run_in_blocks_bitwise(dev, dtype, H):
     seg = scan(qb)
     vals, ids = top(qb)
     storage = torch.int8 if dtype == torch.int8 else dtype
-    assert counter.launches - before[0] == len(_topk.query_blocks("segmax", 32, H, storage)) > 1
-    assert (top_counter.launches - before[1]
-            == len(_topk.query_blocks("topk_stream", 32, H, storage, 50)) > 1)
+    blocks = len(_topk.query_blocks("segmax", 32, H, storage))
+    top_blocks = len(_topk.query_blocks("topk_stream", 32, H, storage, 50))
+    assert counter.launches - before[0] == blocks
+    assert top_counter.launches - before[1] == top_blocks
+    assert (blocks, top_blocks) == ((1, 1) if dtype == torch.float32 else (2, 2))
     torch.testing.assert_close(seg, plain, rtol=0, atol=3e-5 * H / 256)
     torch.testing.assert_close(vals, top_plain[0], rtol=0, atol=3e-5 * H / 256)
     for i in (0, 13, 31):
         assert torch.equal(seg[:, i], scan(qb[i : i + 1])[:, 0])
         one_vals, one_ids = top(qb[i : i + 1])
         assert torch.equal(vals[i], one_vals[0]) and torch.equal(ids[i], one_ids[0])
+
+
+# The f32 route (three bf16 pieces a value, six products on the tensor
+# cores, the query fragments riding the ring) at the batch sizes around its
+# n8 query tiles and at widths from a k-tail inside one stage (8, 24, 40) to
+# the widest tower's (3200: 100 stages of 32 columns, one pass at B=32).
+@pytest.mark.parametrize("B", _SCAN_B)
+@pytest.mark.parametrize("H", [8, 24, 40, 256, 1024, 3200])
+def test_f32_route_matches_plain_version(dev, B, H):
+    """segmax (with its cache) and the running top-k at k=50 over f32 rows,
+    one launch each, against their plain versions (f32 products): a score
+    is within 2^-23 (1 + 2^-7) of the exact one for unit rows besides the
+    f32 sums' order, so 3e-5 (scaled by H / 256 past 256, as the wide
+    batches); n_valid at and around a segment boundary; the top-k's ids
+    score their values; two calls give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(B * 31 + H)
+    docs = _unit_rows(gen, 8192, H, dev)
+    q = _unit_rows(gen, B, H, dev)
+    atol = 3e-5 * max(1, H / 256)
+    assert _topk.scan_plan(B, H, torch.float32)["route"] == "mma"
+    full = torch.matmul(q, docs.T)
+    for n_valid in _N_VALID:
+        before = (segmax.launches, topk_stream.launches)
+        seg, cache = segmax(q, docs, n_valid, with_cache=True)
+        vals, ids = topk_stream(q, docs, 50, n_valid)
+        assert (segmax.launches, topk_stream.launches) == (before[0] + 1, before[1] + 1)
+        r_seg, r_cache = segmax_reference(q, docs, n_valid, with_cache=True)
+        torch.testing.assert_close(seg, r_seg, rtol=0, atol=atol)
+        torch.testing.assert_close(cache, r_cache, rtol=0, atol=atol)
+        assert (seg[(n_valid + 127) // 128 :] == NEG_INF).all()
+        assert (cache[n_valid:] == NEG_INF).all()
+        r_vals, _ = topk_stream_reference(q, docs, 50, n_valid)
+        torch.testing.assert_close(vals, r_vals, rtol=0, atol=atol)
+        assert ((ids >= 0) & (ids < n_valid)).all()
+        torch.testing.assert_close(full.gather(1, ids.long()), vals, rtol=0, atol=atol)
+        again = segmax(q, docs, n_valid, with_cache=True)
+        assert torch.equal(again[0], seg) and torch.equal(again[1], cache)
+        a_vals, a_ids = topk_stream(q, docs, 50, n_valid)
+        assert torch.equal(a_vals, vals) and torch.equal(a_ids, ids)
+
+
+@pytest.mark.parametrize("B", [8, 32])
+def test_f32_topk_stream_bitwise_over_1100_tiles(dev, B):
+    """The f32 running top-k over 1,100 tiles (a pilot seeds the shared
+    thresholds, and the blocks race on them) at H=256, k=50, over a corpus
+    of duplicated rows so that keys tie in value across blocks: three more
+    calls give the same bits, and the result holds the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(B)
+    d = _unit_rows(gen, 1100 * 128, 256, dev)
+    d[50_000:] = d[: d.shape[0] - 50_000].clone()
+    q = _unit_rows(gen, B, 256, dev)
+    assert _topk.topk_stream_grid(_topk.scan_plan(B, 256, torch.float32, 50), B, 1100,
+                                  sms=132)["stride"] == 32
+    first = topk_stream(q, d, 50, 140_000)
+    for _ in range(3):
+        again = topk_stream(q, d, 50, 140_000)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    r_vals, _ = topk_stream_reference(q, d, 50, 140_000)
+    torch.testing.assert_close(first[0], r_vals, rtol=0, atol=3e-5)
 
 
 def test_segmax_wrapper_rejects_what_the_kernel_does_not_take(dev):

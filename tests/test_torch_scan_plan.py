@@ -1,9 +1,10 @@
 """The layouts of the port's scan kernels, checked on the CPU.
 
 ``ops/topk.py`` ``scan_plan`` picks the layout ``csrc/segmax.cu`` and launch 1
-of ``csrc/topk_stream.cu`` run with: for bf16 and per-row int8 corpora,
-tensor-core tiles fed by a ring of cp.async stages (``csrc/doc_mma.cuh``),
-for f32 the CUDA-core tiles of ``csrc/doc_tile.cuh``; ``s8_plan`` the layout of
+of ``csrc/topk_stream.cu`` run with: tensor-core tiles fed by a ring of
+cp.async stages (``csrc/doc_mma.cuh``), the query fragments in shared memory
+for bf16 and per-row int8 corpora, and for f32 (three bf16 pieces a value)
+riding the ring beside each stage's rows; ``s8_plan`` the layout of
 ``csrc/segmax_s8.cu`` (s8 tensor-core tiles on the same ring). Their
 shared-memory sizes mirror the .cu files region by region; these tests hold
 them for every batch size and the widths the wrappers take, and show that the
@@ -29,26 +30,34 @@ def _expected(B, H, storage, k):
         return None
     lists = 0 if k is None else B * (2 * k + 128 + 1) * 8 + -(-4 * B // 16) * 16
     most = 4 if k is None else 3  # the kernels' launch bounds
-    if storage == torch.float32:
-        bq = 8 if B <= 8 else 16 if B <= 16 else 32
-        smem = bq * (H + 4) * 4 + 128 * 144 + (4 * bq * 4 if k is None else lists)
-        if smem > LIMIT:
-            return None
-        return {"route": "fma", "bq": bq, "stages": 1, "smem": smem,
-                "blocks_per_sm": min(most, SM // (smem + 1024))}
     nt = -(-B // 8)
     chunks = -(-H * elem // 128)  # 128-byte stages of each row
-    qfrag = chunks * (128 // elem // 16) * nt * 32 * 8  # a uint2 a (k16 step, n tile, lane)
     extra = 4 * nt * 8 * 4 if k is None else lists  # segmax: the 4 warps' column maxima
-    sizes = {s: s * 128 * 128 + qfrag + extra for s in (4, 3, 2)}
+    if storage == torch.float32:
+        # the fragments ride the ring: a stage's rows, then a uint2 a (k16
+        # step, piece, n tile, lane) of its 2 k16 steps and 3 bf16 pieces
+        stage, qfrag = 128 * 128 + 2 * 3 * nt * 32 * 8, 0
+    else:
+        # a uint2 a (k16 step, n tile, lane), resident
+        stage, qfrag = 128 * 128, chunks * (128 // elem // 16) * nt * 32 * 8
+    sizes = {s: s * stage + qfrag + extra for s in (4, 3, 2)}
     fits = [s for s in (4, 3, 2) if sizes[s] <= LIMIT]
     if not fits:
         return None
-    two = [s for s in fits if min(most, SM // (sizes[s] + 1024)) >= 2]
-    stages = (two or fits)[0]
-    return {"route": "mma", "nt": nt, "stages": stages, "smem": sizes[stages],
+    per_sm = {s: min(most, SM // (sizes[s] + 1024)) for s in fits}
+    if storage == torch.float32:  # the most blocks a SM, then the deepest ring
+        stages = max(fits, key=lambda s: (per_sm[s], s))
+    else:  # the most stages that keep two blocks a SM, else the most that fit
+        stages = ([s for s in fits if per_sm[s] >= 2] or fits)[0]
+    want = {"route": "mma", "nt": nt, "stages": stages, "smem": sizes[stages],
             "k_tail": chunks * 128 // elem - H,
             "blocks_per_sm": min(most, SM // (sizes[stages] + 1024))}
+    if storage == torch.float32:
+        want.update(query_frags="ring", stage_bytes=stage,
+                    query_frag_bytes=chunks * 2 * 3 * nt * 32 * 8)
+    else:
+        want["query_frags"] = "shared memory"
+    return want
 
 
 @pytest.mark.parametrize("H", [8, 16, 24, 40, 256, 1024])
@@ -57,8 +66,9 @@ def _expected(B, H, storage, k):
 def test_scan_plan_every_batch_and_width(storage, H):
     """Every B in 1..32 and k (segmax, and the running top-k at k 1, 50,
     128): a layout exactly where one fits a block, its shared memory region
-    by region, the most stages that keep two blocks a SM, n8 query tiles
-    covering B, and the zero-padded k-tail inside the last stage."""
+    by region, the most stages that keep two blocks a SM (f32: the most
+    blocks a SM, then the deepest ring), n8 query tiles covering B, and the
+    zero-padded k-tail inside the last stage."""
     for B in range(1, 33):
         for k in (None, 1, 50, 128):
             plan, want = T.scan_plan(B, H, storage, k), _expected(B, H, storage, k)
@@ -128,7 +138,10 @@ def test_scan_plan_at_the_served_shape():
     top = T.scan_plan(16, 256, torch.bfloat16, 50)
     assert top["smem"] == 4 * 16384 + 8192 + 16 * 229 * 8 + 64 and top["blocks_per_sm"] == 2
     assert T.scan_plan(16, 256, torch.int8)["smem"] == seg["smem"]  # 2 stages of 128 columns
-    assert T.scan_plan(16, 256, torch.float32)["route"] == "fma"
+    f32 = T.scan_plan(16, 256, torch.float32)
+    assert (f32["route"], f32["stages"], f32["nt"], f32["chunks"]) == ("mma", 2, 2, 8)
+    assert f32["smem"] == 2 * (16384 + 2 * 3 * 2 * 256) + 4 * 2 * 8 * 4  # no resident fragments
+    assert f32["blocks_per_sm"] == 4 and f32["query_frag_bytes"] == 8 * 2 * 3 * 2 * 256
     # 32 rows at k=50 give up stages to keep two blocks a SM; at k=128 no
     # layout keeps two, so they keep four stages
     assert T.scan_plan(32, 256, torch.bfloat16, 50)["stages"] == 2
@@ -169,7 +182,8 @@ def test_scan_wrappers_refuse_before_any_launch(monkeypatch):
         (lambda: T.segmax(z(32, wide_bf16), z(256, wide_bf16), 256),
          f"shared memory.*up to {wide_bf16 - 8}"),
         (lambda: T.segmax(z(1, wide_f32, dtype=torch.float32),
-                          z(256, wide_f32, dtype=torch.float32), 256), "shared memory"),
+                          z(256, wide_f32, dtype=torch.float32), 256),
+         f"takes B=1 H={wide_f32}.*up to {wide_f32 - 4}"),
         (lambda: T.segmax_int8(z(8, wide_i8), z(256, wide_i8, dtype=torch.int8),
                                z(256, dtype=torch.float32), 256), "shared memory"),
         (lambda: T.segmax_int8(z(4, 40), z(256, 40, dtype=torch.int8),
@@ -274,17 +288,23 @@ def test_query_blocks_every_batch_at_every_tower_width(storage):
 
 
 def test_query_blocks_at_the_widest_towers():
-    """32 queries at the RNN tower's widths run in two blocks of 16 (bf16
-    H=3360: segmax and the running top-k at k=50; f32 H=3200 segmax) or
-    four of 8 (the f32 running top-k, whose lists and 16 f32 query rows
-    would not fit beside each other), while the served width keeps one
-    launch; past scan_max_h not even one row fits."""
+    """32 queries at the RNN tower's widths run in two blocks of 16 at bf16
+    H=3360 (segmax and the running top-k at k=50), and in one launch at f32
+    H=3200 (segmax and the running top-k at k=50 and 128: the f32 query
+    fragments ride the ring, so its shared memory does not grow with H),
+    while the served width keeps one launch; past scan_max_h not even one
+    row fits."""
     for H, dt, k, want in ((3360, torch.bfloat16, None, [16, 16]),
                            (3360, torch.bfloat16, 50, [16, 16]),
-                           (3200, torch.float32, None, [16, 16]),
-                           (3200, torch.float32, 50, [8, 8, 8, 8])):
+                           (3200, torch.float32, None, [32]),
+                           (3200, torch.float32, 50, [32]),
+                           (3200, torch.float32, 128, [32])):
         assert [b for _, b, _ in T.query_blocks("scan", 32, H, dt, k)] == want, (H, dt, k)
     assert len(T.query_blocks("scan", 32, 256, torch.bfloat16, 50)) == 1
+    # the f32 route's widest widths stay at or above the CUDA-core route's
+    # it replaced (6,680 for segmax, 6,624 and 6,584 for the top-k at k=50, 128)
+    for k, before in ((None, 6680), (50, 6624), (128, 6584)):
+        assert T.scan_max_h(torch.float32, k) >= before
     for dt in (torch.bfloat16, torch.float32, torch.int8):
         for k in (None, 50, 128):
             widest = T.scan_max_h(dt, k)

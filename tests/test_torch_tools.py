@@ -1,7 +1,7 @@
 """The port's tools against the JAX package's: loadtest, prepare_embeddings,
 inspect_data and download_dataset give the JAX tools' output where it is
-deterministic; bench_rnn_variants and the e2e demo run on the CPU
-(``--device cpu``, the kernels' plain versions) at shrunk sizes."""
+deterministic; bench_rnn_variants, bench_f32_scans and the e2e demo run on
+the CPU (``--device cpu``, the kernels' plain versions) at shrunk sizes."""
 
 import json
 import pickle
@@ -18,6 +18,7 @@ from twotowermlretrieval_tpu.tools import download_dataset as jax_download
 from twotowermlretrieval_tpu.tools import inspect_data as jax_inspect
 from twotowermlretrieval_tpu.tools import loadtest as jax_loadtest
 from twotowermlretrieval_tpu.tools import prepare_embeddings as jax_prepare
+from twotowermlretrieval_tpu_torch.tools import bench_f32_scans
 from twotowermlretrieval_tpu_torch.tools import bench_rnn_variants as bench
 from twotowermlretrieval_tpu_torch.tools import download_dataset, e2e_demo, inspect_data
 from twotowermlretrieval_tpu_torch.tools import loadtest, prepare_embeddings
@@ -234,3 +235,21 @@ def test_e2e_demo_smoke_on_cpu(monkeypatch, tmp_path, capsys):
     assert all(n == 0 for counts in res["launches"].values() for n in counts.values())
     assert "device cpu" in res["device"]
     assert "E2E_DEMO_RESULT" in (tmp_path / "log.md").read_text()
+
+
+def test_bench_f32_scans_on_cpu(tmp_path):
+    """The f32 scans' harness with the plain versions: a record per shape
+    whose kernel and plain version are the same function (no difference,
+    the same ids, repeatable), then the served f32 top-50 at B=1 and 16."""
+    out = tmp_path / "f32.json"
+    assert bench_f32_scans.main(["--device", "cpu", "--out", str(out)]) == 0
+    recs = json.loads(out.read_text())
+    scans = [r for r in recs if "segmax_err" in r]
+    assert [(r["rows"], r["H"], r["B"]) for r in scans] == [(4096, 64, 1), (4096, 64, 16),
+                                                           (2048, 320, 32)]
+    for r in scans:
+        assert r["segmax_err"] == 0 and r["topk_err"] == 0 and r["topk_ids_equal_plain"] == 1
+        assert r["bitwise_repeatable"] and r["segmax_ms"] >= 0
+        assert r["card"] == "the host (plain versions)"
+    served = [r for r in recs if r.get("served_f32_top50")]
+    assert [r["B"] for r in served] == [1, 16] and all(r["ms_median"] > 0 for r in served)

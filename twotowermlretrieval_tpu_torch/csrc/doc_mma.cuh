@@ -1,8 +1,8 @@
 // Tensor-core scoring of 128-row tiles of the corpus against up to 32
-// queries, fed through a ring of cp.async stages. Shared by the bf16 and
-// per-row int8 scans of segmax.cu and topk_stream.cu (the f32 scans keep
-// doc_tile.cuh's CUDA-core sums: TF32 would round their operands) and by
-// the s8 x s8 scan of segmax_s8.cu (below, "The s8 x s8 path").
+// queries, fed through a ring of cp.async stages. Shared by the bf16,
+// per-row int8 and f32 scans of segmax.cu and topk_stream.cu (f32 below,
+// "The f32 path") and by the s8 x s8 scan of segmax_s8.cu ("The s8 x s8
+// path").
 //
 // A block of 128 threads (4 warps) scores one tile of ROWS = 128 doc rows
 // at a time; warp w owns rows 32w .. 32w + 31 as two m16 tiles of
@@ -12,7 +12,7 @@
 // f32 sums differs from a plain f32 product.
 //
 // Staging: a stage holds CHUNK = 128 bytes of each of the tile's 128 rows
-// (64 bf16 or 128 int8 columns, 16 KiB), copied with 16-byte cp.async,
+// (64 bf16, 128 int8 or 32 f32 columns, 16 KiB), copied with 16-byte cp.async,
 // eight threads a row. Bytes past the end of a row are zero-filled by the
 // copy (src-size 0), so a k-tail short of a whole stage (H = 8, 24, 40 ...)
 // multiplies zeros. Each thread reads whole 16-byte chunks of rows g and
@@ -29,12 +29,43 @@
 // are built once per block from device memory and kept in shared memory,
 // read back with one 8-byte load a lane: conflict-free, and free of the
 // register pressure of holding 16 k steps x 4 n tiles in every thread.
+//
+// The f32 path: f32 rows times f32 queries with the precision of an f32
+// product, as the JAX f32 scans ask (Precision.HIGHEST, which the TPU's
+// MXU computes from bf16 pieces in several passes). Every f32 value x
+// splits exactly into three bf16 pieces, x = hi + mid + lo: hi = bf16(x),
+// mid = bf16(x - hi), lo = x - hi - mid, each rounded to nearest even
+// (8 significant bits each and the signs of the remainders cover f32's
+// 24, and bf16 has f32's exponent range). The kernel takes the six
+// leading products, mid.mid, lo.hi, hi.lo, mid.hi, hi.mid, hi.hi (XLA's
+// six-pass HIGHEST), each one mma.sync m16n8k16 with f32 accumulation,
+// and drops mid.lo, lo.mid and lo.lo. |mid| <= 2^-8 (1 + 2^-8) |x| and
+// |lo| <= 2^-16 |x|, so the dropped terms of one product x.y are at most
+// (2^-23 (1 + 2^-8) + 2^-32) |x||y| < 2^-23 (1 + 2^-7) |x||y|. A score is
+// then within 2^-23 (1 + 2^-7) sum_k |x_k y_k| of the exact dot product,
+// plus the rounding of its f32 sum of 6H exact bf16 products (at most
+// 6H 2^-24 sum_k |x_k y_k| in any order, far less in practice): for unit
+// rows, within 1.21e-7 plus that rounding. ops/topk.py split_bf16x3 and
+// split_scores are the same arithmetic on the CPU.
+//
+// An f32 stage holds 32 columns of each row, two k16 steps: lane (g, t)
+// reads 16-byte chunk t + 4m of rows g and g + 8 (the bf16 path's swizzled
+// chunks), whose four floats are its k slots 2t, 2t + 1 (a0 / a1) and
+// 2t + 8, 2t + 9 (a2 / a3) of step m, and splits them in registers. The
+// query fragments hold the three pieces of each (k16 step, n tile, lane);
+// they are too large to stay resident at wide H (1,536 bytes a stage an n
+// tile), so a small launch (split_query_frags) writes them once a call to
+// device memory, and each stage of the ring carries its columns' fragments
+// after its 16 KiB of rows: the corpus is read once at every width, and
+// the shared memory a block needs does not grow with H.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "recur_chain.cuh"
 
@@ -46,10 +77,17 @@ constexpr int THREADS = WARPS * 32;
 constexpr int CHUNK = 128;  // bytes of each row a stage holds
 constexpr int STAGE_BYTES = ROWS * CHUNK;
 
-// k16 steps a stage carries: 4 over 64 bf16 columns, 8 over 128 int8 ones
+// k16 steps a stage carries: 4 over 64 bf16 columns, 8 over 128 int8 ones,
+// 2 over 32 f32 ones
 template <typename T> struct Steps;
 template <> struct Steps<__nv_bfloat16> { static constexpr int K = 4; };
 template <> struct Steps<int8_t> { static constexpr int K = 8; };
+template <> struct Steps<float> { static constexpr int K = 2; };
+
+// The f32 path: its values split into PIECES bf16 pieces, its query
+// fragments ride the ring.
+template <typename T> constexpr bool kSplit = std::is_same<T, float>::value;
+constexpr int PIECES = 3;
 
 // The s8 x s8 path (segmax_s8.cu): int8 rows times int8 queries on
 // mma.sync.m16n8k32 with int32 accumulators, exact in any order. Its
@@ -70,6 +108,14 @@ __host__ __device__ constexpr int chunks_of(int row_bytes) {
 // Shared memory of the query fragments: a uint2 per (k16 step, n tile, lane).
 __host__ __device__ constexpr size_t qfrag_bytes(int nchunks, int ksteps, int nt) {
   return (size_t)nchunks * ksteps * nt * 32 * 8;
+}
+
+// Bytes of one stage of the ring: 128 bytes of each of the tile's rows,
+// then on the f32 path the query fragments of the stage's columns (a uint2
+// per (k16 step, piece, n tile, lane)).
+template <typename T>
+__host__ __device__ constexpr int stage_bytes(int nt) {
+  return STAGE_BYTES + (kSplit<T> ? (int)qfrag_bytes(1, Steps<T>::K * PIECES, nt) : 0);
 }
 
 __device__ __forceinline__ int swz(int row, int c) { return c ^ ((row & 1) << 2); }
@@ -125,7 +171,9 @@ __device__ __forceinline__ uint32_t pack_bf16(const __nv_bfloat16* q, int n, int
 // b0 (a0, a1), the last two for b1 (a2, a3).
 template <typename T>
 __device__ __forceinline__ int slot_col(int m, int t) {
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (sizeof(T) == 4) {
+    return 4 * (t + 4 * m);  // chunk t + 4m
+  } else if constexpr (sizeof(T) == 2) {
     return 8 * (t + 4 * (m >> 1)) + 4 * (m & 1);  // chunk t + 4 (m / 2), half m % 2
   } else {
     return 16 * (t + 4 * (m >> 2)) + 4 * (m & 3);  // chunk t + 4 (m / 4), word m % 4
@@ -197,6 +245,116 @@ __device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_
   const float f3 = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7543)) - bias;
   lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
   hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+// The f32 path's split of two f32 values x (low half) and y (high half)
+// into three bf16 pairs, p[0] = hi, p[1] = mid, p[2] = lo: each piece is
+// what the pieces before it leave, rounded to nearest even (the remainders
+// are exact in f32), so hi + mid + lo is x (and y) exactly.
+__device__ __forceinline__ void split_bf16x3(float x, float y, uint32_t (&p)[PIECES]) {
+#pragma unroll
+  for (int i = 0; i < PIECES; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);  // .x the low half
+    p[i] = (uint32_t)__bfloat16_as_ushort(v.x) | ((uint32_t)__bfloat16_as_ushort(v.y) << 16);
+    x -= __uint_as_float(p[i] << 16);
+    y -= __uint_as_float(p[i] & 0xffff0000u);
+  }
+}
+
+// The f32 query fragments of q [B, H] f32 into qf in device memory (zeros
+// past B rows and H columns), for nchunks stages of 32 columns and NT n
+// tiles: for k16 step m of stage kc, piece p, n tile j and lane (g, t),
+// qf[(((kc * 2 + m) * PIECES + p) * NT + j) * 32 + lane] holds piece p of
+// query row j * 8 + g at the four columns of slot_col<float>(m, t) as its
+// b0 and b1, so stage kc's fragments are one contiguous run that rides the
+// ring beside the stage's rows. One thread a (step, n tile, lane); H is a
+// multiple of 4, so a lane's four columns are wholly in or out, and q rows
+// are 16-byte aligned.
+template <int NT>
+__global__ void __launch_bounds__(256) split_query_frags(const float* __restrict__ q, int B,
+                                                         int H, int nchunks,
+                                                         uint2* __restrict__ qf) {
+  constexpr int KS = Steps<float>::K;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nchunks * KS * NT * 32) return;
+  const int lane = i & 31, j = (i >> 5) % NT, step = (i >> 5) / NT;  // step = kc * KS + m
+  const int n = j * 8 + (lane >> 2);
+  const int col = (step / KS) * 32 + slot_col<float>(step % KS, lane & 3);
+  const float4 v = (n < B && col < H) ? *reinterpret_cast<const float4*>(q + (size_t)n * H + col)
+                                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  uint32_t b0[PIECES], b1[PIECES];
+  split_bf16x3(v.x, v.y, b0);
+  split_bf16x3(v.z, v.w, b1);
+#pragma unroll
+  for (int p = 0; p < PIECES; ++p)
+    qf[((size_t)(step * PIECES + p) * NT + j) * 32 + lane] = make_uint2(b0[p], b1[p]);
+}
+
+// Launch split_query_frags for an f32 scan at width H; returns
+// cudaGetLastError().
+template <int NT>
+int launch_split_query_frags(const float* q, int B, int H, uint2* qf, cudaStream_t stream) {
+  const int nchunks = chunks_of(H * (int)sizeof(float));
+  const int total = nchunks * Steps<float>::K * NT * 32;
+  split_query_frags<NT><<<(total + 255) / 256, 256, 0, stream>>>(q, B, H, nchunks, qf);
+  return (int)cudaGetLastError();
+}
+
+// Stage kc's query fragments (qf as split_query_frags wrote it) into dst,
+// after the stage's rows. Every thread of the block calls it, beside stage.
+template <int NT>
+__device__ __forceinline__ void stage_query_frags(const uint2* __restrict__ qf, int kc,
+                                                  unsigned char* dst) {
+  constexpr int BYTES = (int)qfrag_bytes(1, Steps<float>::K * PIECES, NT);
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(qf) + (size_t)kc * BYTES;
+  for (int i = threadIdx.x; i < BYTES / 16; i += THREADS)
+    cp_async16_zfill(dst + i * 16, src + i * 16, 16);
+}
+
+// The f32 stage: acc[st][j][e] += the warp's two m16 tiles (st) times n
+// tile j over the stage in buf, whose query fragments qf_stage follow its
+// rows. Each k16 step splits the lane's doc values, then runs the six
+// products, smallest first, each over every (st, j) before the next
+// (consecutive mma.sync to different accumulators). Steps past `steps`
+// (all tail) are skipped.
+template <int NT>
+__device__ __forceinline__ void score_stage_f32(const unsigned char* buf, const uint2* qf_stage,
+                                                int steps, float (&acc)[2][NT][4]) {
+  constexpr int KS = Steps<float>::K;
+  // (doc piece, query piece) of the six products, smallest first
+  constexpr int PA[6] = {1, 2, 0, 1, 0, 0};
+  constexpr int PB[6] = {1, 0, 2, 0, 1, 0};
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < KS; ++m) {
+    if (m >= steps) break;
+    uint32_t a[2][4][PIECES];  // [st][a0..a3][piece]
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      const int r = warp * 32 + st * 16 + g;  // rows r and r + 8 share r's parity
+      const int c = swz(r, t + 4 * m);
+      const float4 lo = *reinterpret_cast<const float4*>(buf + r * CHUNK + c * 16);
+      const float4 hi = *reinterpret_cast<const float4*>(buf + (r + 8) * CHUNK + c * 16);
+      split_bf16x3(lo.x, lo.y, a[st][0]);
+      split_bf16x3(hi.x, hi.y, a[st][1]);
+      split_bf16x3(lo.z, lo.w, a[st][2]);
+      split_bf16x3(hi.z, hi.w, a[st][3]);
+    }
+    uint2 b[NT][PIECES];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int p = 0; p < PIECES; ++p) b[j][p] = qf_stage[((m * PIECES + p) * NT + j) * 32 + lane];
+#pragma unroll
+    for (int s = 0; s < 6; ++s)
+#pragma unroll
+      for (int st = 0; st < 2; ++st)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          recur_chain::mma_bf16(acc[st][j], a[st][0][PA[s]], a[st][1][PA[s]], a[st][2][PA[s]],
+                                a[st][3][PA[s]], b[j][PB[s]].x, b[j][PB[s]].y);
+  }
 }
 
 // acc[st][j][e] += the warp's two m16 tiles (st) times n tile j over the
@@ -303,7 +461,7 @@ __device__ __forceinline__ int live_steps(int kc, int row_bytes) {
   const int bytes = row_bytes - kc * CHUNK;
   const int chunks = bytes >= CHUNK ? 8 : (bytes + 15) / 16;
   // the k16 steps of chunk group i cover chunks 0..3 (i = 0) and 4..7 (i = 1)
-  constexpr int PER = sizeof(T) == 2 ? 2 : 4;
+  constexpr int PER = sizeof(T) == 4 ? 1 : sizeof(T) == 2 ? 2 : 4;
   return (chunks > 4 ? 2 : 1) * PER;
 }
 
@@ -315,25 +473,30 @@ __device__ __forceinline__ int live_steps<S8>(int kc, int row_bytes) {
 
 // Scores the block's `tiles` tiles of 128 rows (the i-th from row
 // row0_of(i)) against the query fragments qf, streaming each through a ring
-// of `stages` (2-4; the s8 scan's 2-8) buffers of STAGE_BYTES: the copies of the next stages
-// (across tile boundaries) are in flight while the current one is
-// multiplied, one barrier a stage. After a tile's last stage it calls
-// done(row0, acc) with the tile's scores (f32, int32 on the s8 path;
-// acc_row / acc_col place them). Every thread of the block calls it; done
-// may hold barriers.
+// of `stages` (2-4; the s8 scan's 2-8) buffers of stage_bytes<T>: the
+// copies of the next stages (across tile boundaries) are in flight while
+// the current one is multiplied, one barrier a stage. qf: the fragments of
+// every stage, in shared memory; on the f32 path, in device memory
+// (split_query_frags), each stage's copied into its buffer of the ring
+// beside the rows. After a tile's last stage it calls done(row0, acc) with
+// the tile's scores (f32, int32 on the s8 path; acc_row / acc_col place
+// them). Every thread of the block calls it; done may hold barriers.
 template <typename T, int NT, typename RowOf, typename Done>
 __device__ __forceinline__ void scan_tiles(const T* __restrict__ docs, int H, int stages,
                                            long long tiles, RowOf row0_of, unsigned char* ring,
                                            const uint2* qf, Done done) {
   constexpr int KS = Steps<T>::K;
+  constexpr int SB = stage_bytes<T>(NT);
   const int row_bytes = H * (int)sizeof(T);
   const int nck = chunks_of(row_bytes);
   const long long items = tiles * nck;  // (tile, stage) pairs, in order
   const unsigned char* base = reinterpret_cast<const unsigned char*>(docs);
   auto issue = [&](long long item) {
-    if (item < items)
-      stage(base, row0_of(item / nck), (int)(item % nck), row_bytes,
-            ring + (item % stages) * STAGE_BYTES);
+    if (item < items) {
+      unsigned char* buf = ring + (item % stages) * SB;
+      stage(base, row0_of(item / nck), (int)(item % nck), row_bytes, buf);
+      if constexpr (kSplit<T>) stage_query_frags<NT>(qf, (int)(item % nck), buf + STAGE_BYTES);
+    }
     recur_chain::cp_async_commit();  // an empty group past the end keeps the count
   };
   for (int p = 0; p < stages - 1; ++p) issue(p);
@@ -351,17 +514,24 @@ __device__ __forceinline__ void scan_tiles(const T* __restrict__ docs, int H, in
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[st][j][e] = 0;
     }
-    score_stage<T, NT>(ring + (it % stages) * STAGE_BYTES, qf + (size_t)kc * KS * NT * 32,
-                       live_steps<T>(kc, row_bytes), acc);
+    const unsigned char* buf = ring + (it % stages) * SB;
+    if constexpr (kSplit<T>)
+      score_stage_f32<NT>(buf, reinterpret_cast<const uint2*>(buf + STAGE_BYTES),
+                          live_steps<T>(kc, row_bytes), acc);
+    else
+      score_stage<T, NT>(buf, qf + (size_t)kc * KS * NT * 32, live_steps<T>(kc, row_bytes), acc);
     if (kc == nck - 1) done(row0_of(it / nck), acc);
   }
   recur_chain::cp_async_wait<0>();
 }
 
-// Shared memory of the ring and the query fragments of a T scan at width H.
+// Shared memory of the ring and (but on the f32 path, whose fragments ride
+// the ring) the query fragments of a T scan at width H.
 template <typename T>
 __host__ __device__ constexpr size_t scan_smem(int stages, int H, int nt) {
-  return (size_t)stages * STAGE_BYTES + qfrag_bytes(chunks_of(H * (int)sizeof(T)), Steps<T>::K, nt);
+  return kSplit<T> ? (size_t)stages * stage_bytes<T>(nt)
+                   : (size_t)stages * STAGE_BYTES +
+                         qfrag_bytes(chunks_of(H * (int)sizeof(T)), Steps<T>::K, nt);
 }
 
 }  // namespace doc_mma

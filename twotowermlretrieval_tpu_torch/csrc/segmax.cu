@@ -2,7 +2,8 @@
 //
 // Replaces two TPU kernels of twotowermlretrieval_tpu/ops/topk.py:
 // - _segmax_kernel (called through fused_topk_segmax): queries q [B, H] and
-//   docs [Npad, H] in the storage dtype (bf16 or f32);
+//   docs [Npad, H] in the storage dtype (bf16 or f32; f32 at
+//   Precision.HIGHEST);
 // - _segmax_int8_kernel (called through fused_topk_segmax_int8): docs
 //   [Npad, H] int8 quantized per row with scales [Npad] f32, queries bf16;
 //   each score is multiplied by its row's scale after the sum.
@@ -14,10 +15,11 @@
 //
 // What bounds it on Hopper: the bytes of the corpus. At 1,048,576 x 256
 // bf16 the scan reads 512 MiB, 0.16 ms at 3.35 TB/s (int8: 256 MiB and the
-// 4 MiB of scales, 0.081 ms), while the products (2*B*H per row) are far
-// below the card's tensor-core rate; only [S, B] floats go back to memory.
+// 4 MiB of scales, 0.081 ms; f32: 1 GiB, 0.32 ms), while the products
+// (2*B*H per row; six bf16 products per f32 one) are far below the card's
+// tensor-core rate; only [S, B] floats go back to memory.
 //
-// bf16 and per-row int8 (segmax_mma_kernel): persistent blocks of 128
+// Every storage dtype (segmax_mma_kernel): persistent blocks of 128
 // threads, as many a SM as shared memory allows (ops/topk.py scan_plan),
 // walk the segments (blockIdx.x, + gridDim.x, ...). Each segment is scored
 // on the tensor cores by doc_mma.cuh, one 128-byte column stage of its 128
@@ -27,98 +29,48 @@
 // mask and the cache store act on the accumulator fragments; the segment
 // max is a register reduction over each warp's 32 rows (then the lanes of
 // a column), then one across the 4 warps through shared memory. No
-// atomics: two calls give the same bits.
-//
-// f32 (segmax_fma_kernel) keeps CUDA-core sums (doc_tile.cuh): TF32 tensor
-// cores would round the operands, and the JAX f32 path asks for full f32
-// products. A block of 128 threads owns one segment at a time (thread i
-// row i, B sums in registers), so the segment max is one block reduction.
+// atomics: two calls give the same bits. f32 rows are split into three
+// bf16 pieces in registers and scored with six products (doc_mma.cuh, "The
+// f32 path": within 2^-23 (1 + 2^-7) sum_k |q_k d_k| of the exact product
+// before the f32 sum's own rounding), their query fragments split once a
+// call by a first small launch and carried through the ring stage by
+// stage, so one pass over the corpus takes every width.
 
 #include "doc_mma.cuh"
-#include "doc_tile.cuh"
 
 namespace {
 
-using doc_tile::ROWS;
-constexpr int SEG = ROWS;  // rows per segment == threads per block
+using doc_mma::ROWS;
+constexpr int SEG = ROWS;  // rows per segment
 constexpr float NEG_INF = -3.0e38f;
 
-// f32 scan: BQ query rows held per thread (B <= BQ).
-template <int BQ>
-__global__ void __launch_bounds__(SEG) segmax_fma_kernel(
-    int B, int H, long long S, long long n_valid, const float* __restrict__ q,
-    const float* __restrict__ docs, float* __restrict__ segmax, float* __restrict__ cache) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);                        // [BQ][H + 4]
-  unsigned char* tile = smem + (size_t)BQ * (H + 4) * sizeof(float);  // [SEG][PITCH]
-  float* red = reinterpret_cast<float*>(tile + doc_tile::TILE_BYTES); // [SEG/32][BQ]
-
-  doc_tile::load_queries<float, BQ>(B, H, q, q_s);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (long long s = blockIdx.x; s < S; s += gridDim.x) {
-    const long long seg_row0 = s * SEG;
-    float acc[BQ];
-    doc_tile::score_tile<float, BQ>(H, docs, seg_row0, q_s, tile, acc);
-
-    const long long row = seg_row0 + threadIdx.x;
-    if (row >= n_valid) {
-#pragma unroll
-      for (int b = 0; b < BQ; ++b) acc[b] = NEG_INF;
-    }
-    if (cache != nullptr) {
-      float* dst = cache + (size_t)row * B;
-      // unrolled over the compile-time BQ so acc stays in registers
-#pragma unroll
-      for (int b = 0; b < BQ; ++b)
-        if (b < B) dst[b] = acc[b];
-    }
-#pragma unroll
-    for (int b = 0; b < BQ; ++b) {
-      float m = acc[b];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      if (lane == 0) red[warp * BQ + b] = m;
-    }
-    __syncthreads();
-    if (threadIdx.x < B) {
-      float m = red[threadIdx.x];
-#pragma unroll
-      for (int w = 1; w < SEG / 32; ++w) m = fmaxf(m, red[w * BQ + threadIdx.x]);
-      segmax[s * B + threadIdx.x] = m;
-    }
-    // the next segment's first __syncthreads (in score_tile) orders these
-    // reads of red before its writes
-  }
-}
-
-size_t fma_smem(int BQ, int H) {
-  return (size_t)BQ * (H + 4) * sizeof(float) + doc_tile::TILE_BYTES +
-         (SEG / 32) * BQ * sizeof(float);
-}
-
-// Shared memory of segmax_mma_kernel: the ring, the query fragments and
-// the warps' column maxima (ops/topk.py scan_plan mirrors it).
+// Shared memory of segmax_mma_kernel: the ring, the query fragments (but
+// f32's, which ride the ring) and the warps' column maxima (ops/topk.py
+// scan_plan mirrors it).
 template <typename T, int NT>
 size_t mma_smem(int stages, int H) {
   return doc_mma::scan_smem<T>(stages, H, NT) + (size_t)doc_mma::WARPS * NT * 8 * sizeof(float);
 }
 
-// bf16 (T = bf16) or per-row int8 (T = int8_t, scales [Npad]) docs, bf16
-// queries, NT = ceil(B / 8) n8 tiles of queries.
+// bf16 (T = bf16) or per-row int8 (T = int8_t, scales [Npad]) docs with
+// bf16 queries q, or f32 docs (T = float) with the query fragments qsplit
+// (split_query_frags); NT = ceil(B / 8) n8 tiles of queries.
 template <typename T, int NT>
 __global__ void __launch_bounds__(doc_mma::THREADS, 4) segmax_mma_kernel(
     int B, int H, long long S, long long n_valid, int stages, const __nv_bfloat16* __restrict__ q,
-    const T* __restrict__ docs, const float* __restrict__ scales, float* __restrict__ segmax,
-    float* __restrict__ cache) {
+    const uint2* __restrict__ qsplit, const T* __restrict__ docs,
+    const float* __restrict__ scales, float* __restrict__ segmax, float* __restrict__ cache) {
   using namespace doc_mma;
   constexpr int NC = NT * 8;  // query columns the fragments hold
   extern __shared__ __align__(128) unsigned char smem[];
   const int nck = chunks_of(H * (int)sizeof(T));
-  unsigned char* ring = smem;  // [stages][ROWS][CHUNK]
-  uint2* qf = reinterpret_cast<uint2*>(smem + (size_t)stages * STAGE_BYTES);  // [nck * K][NT][32]
-  float* red = reinterpret_cast<float*>(qf + (size_t)nck * Steps<T>::K * NT * 32);  // [WARPS][NC]
-  load_query_frags<T>(q, B, H, nck, NT, qf);
+  unsigned char* ring = smem;  // [stages][stage_bytes<T>(NT)]
+  unsigned char* after = smem + (size_t)stages * stage_bytes<T>(NT);
+  uint2* qf = reinterpret_cast<uint2*>(after);  // [nck * K][NT][32], but f32's ride the ring
+  float* red = reinterpret_cast<float*>(  // [WARPS][NC]
+      after + (kSplit<T> ? 0 : qfrag_bytes(nck, Steps<T>::K, NT)));
+  if constexpr (kSplit<T>) qf = const_cast<uint2*>(qsplit);
+  else load_query_frags<T>(q, B, H, nck, NT, qf);
 
   const long long first = blockIdx.x, step = gridDim.x;
   const long long segs = S > first ? (S - 1 - first) / step + 1 : 0;
@@ -183,37 +135,32 @@ int allow_smem(const void* kernel, size_t smem) {
   return (int)e;
 }
 
-template <int BQ>
-int launch_fma(int B, int H, long long npad, long long n_valid, int blocks, const void* q,
-               const void* docs, float* segmax, float* cache, cudaStream_t stream) {
-  auto kernel = segmax_fma_kernel<BQ>;
-  const size_t smem = fma_smem(BQ, H);
-  if (const int e = allow_smem((const void*)kernel, smem)) return e;
-  kernel<<<blocks, SEG, smem, stream>>>(B, H, npad / SEG, n_valid, static_cast<const float*>(q),
-                                        static_cast<const float*>(docs), segmax, cache);
-  return (int)cudaGetLastError();
-}
-
 template <typename T, int NT>
 int launch_mma(int B, int H, long long npad, long long n_valid, int stages, int blocks,
                const void* q, const void* docs, const float* scales, float* segmax, float* cache,
-               cudaStream_t stream) {
+               void* qf, cudaStream_t stream) {
   auto kernel = segmax_mma_kernel<T, NT>;
   const size_t smem = mma_smem<T, NT>(stages, H);
   if (smem > (size_t)recur_chain::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   if (const int e = allow_smem((const void*)kernel, smem)) return e;
+  if constexpr (doc_mma::kSplit<T>) {
+    const int e = doc_mma::launch_split_query_frags<NT>(static_cast<const float*>(q), B, H,
+                                                        static_cast<uint2*>(qf), stream);
+    if (e) return e;
+  }
   kernel<<<blocks, doc_mma::THREADS, smem, stream>>>(
-      B, H, npad / SEG, n_valid, stages, static_cast<const __nv_bfloat16*>(q),
-      static_cast<const T*>(docs), scales, segmax, cache);
+      B, H, npad / SEG, n_valid, stages,
+      doc_mma::kSplit<T> ? nullptr : static_cast<const __nv_bfloat16*>(q),
+      static_cast<const uint2*>(qf), static_cast<const T*>(docs), scales, segmax, cache);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_mma(int B, int H, long long npad, long long n_valid, int stages, int blocks,
                  const void* q, const void* docs, const float* scales, float* segmax,
-                 float* cache, cudaStream_t s) {
+                 float* cache, void* qf, cudaStream_t s) {
 #define SEGMAX_MMA(NT) \
-  launch_mma<T, NT>(B, H, npad, n_valid, stages, blocks, q, docs, scales, segmax, cache, s)
+  launch_mma<T, NT>(B, H, npad, n_valid, stages, blocks, q, docs, scales, segmax, cache, qf, s)
   switch ((B + 7) / 8) {
     case 1: return SEGMAX_MMA(1);
     case 2: return SEGMAX_MMA(2);
@@ -230,19 +177,21 @@ extern "C" {
 // storage: 0 f32 docs and queries, 1 bf16 docs and queries, 2 int8 docs
 // (per row, scales [npad] f32) with bf16 queries. 1 <= B <= 32; H a
 // multiple of 16 bytes' worth of the storage dtype; npad a multiple of 128;
-// cache [npad, B] f32 or null (not with int8). stages (2-4; bf16 and int8)
-// and blocks (the grid) come from ops/topk.py scan_plan; a layout beyond a
-// block's shared memory is refused. device: the CUDA ordinal the tensors
-// live on (this library carries its own runtime, whose current device is
-// not PyTorch's). Returns cudaGetLastError() after the launch (0 on
-// success).
+// cache [npad, B] f32 or null (not with int8). stages (2-4) and blocks (the
+// grid) come from ops/topk.py scan_plan; a layout beyond a block's shared
+// memory is refused. qf: f32 only, a workspace of ceil(H / 32) * 6 *
+// ceil(B / 8) * 256 bytes for the split query fragments (a first launch
+// writes them), else null. device: the CUDA ordinal the tensors live on
+// (this library carries its own runtime, whose current device is not
+// PyTorch's). Returns cudaGetLastError() after the launches (0 on success).
 int segmax_launch(int device, int storage, int B, int H, long long npad, long long n_valid,
                   int stages, int blocks, const void* q, const void* docs, const float* scales,
-                  float* segmax, float* cache, void* stream) {
+                  float* segmax, float* cache, void* qf, void* stream) {
   const int elem = storage == 0 ? 4 : storage == 1 ? 2 : 1;
   if (storage < 0 || storage > 2 || B < 1 || B > 32 || H < 1 || npad % SEG != 0 ||
       (H * elem) % 16 != 0 || blocks < 1 || (storage == 2) != (scales != nullptr) ||
-      (storage == 2 && cache != nullptr) || (storage != 0 && (stages < 2 || stages > 4)))
+      (storage == 2 && cache != nullptr) || (storage == 0) != (qf != nullptr) || stages < 2 ||
+      stages > 4)
     return (int)cudaErrorInvalidValue;
   if (npad == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
@@ -250,13 +199,12 @@ int segmax_launch(int device, int storage, int B, int H, long long npad, long lo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (storage == 1)
     return dispatch_mma<__nv_bfloat16>(B, H, npad, n_valid, stages, blocks, q, docs, nullptr,
-                                       segmax, cache, s);
+                                       segmax, cache, nullptr, s);
   if (storage == 2)
     return dispatch_mma<int8_t>(B, H, npad, n_valid, stages, blocks, q, docs, scales, segmax,
-                                nullptr, s);
-  if (B <= 8) return launch_fma<8>(B, H, npad, n_valid, blocks, q, docs, segmax, cache, s);
-  if (B <= 16) return launch_fma<16>(B, H, npad, n_valid, blocks, q, docs, segmax, cache, s);
-  return launch_fma<32>(B, H, npad, n_valid, blocks, q, docs, segmax, cache, s);
+                                nullptr, nullptr, s);
+  return dispatch_mma<float>(B, H, npad, n_valid, stages, blocks, q, docs, nullptr, segmax,
+                             cache, qf, s);
 }
 
 const char* segmax_error_string(int err) {

@@ -2,7 +2,7 @@
 //
 // Replaces two TPU kernels of twotowermlretrieval_tpu/ops/topk.py:
 // - _fused_topk_kernel (called through fused_topk): docs [Npad, H] f32 or
-//   bf16, queries q [B, H] in the same dtype;
+//   bf16, queries q [B, H] in the same dtype (f32 at Precision.HIGHEST);
 // - _fused_topk_int8_kernel (called through fused_topk_int8): docs int8
 //   quantized per row with scales [Npad] f32, queries bf16; each score is
 //   multiplied by its row's scale after the sum.
@@ -13,16 +13,19 @@
 //
 // What bounds it on Hopper: the bytes of the corpus (at 1,048,576 x 256,
 // 512 MiB in bf16, 0.16 ms at 3.35 TB/s; 260 MiB with the int8 scales,
-// 0.081 ms). The products, 2*B*H per row, are far below the card's rate.
+// 0.081 ms; 1 GiB in f32, 0.32 ms). The products, 2*B*H per row (six bf16
+// products per f32 one), are far below the card's rate.
 //
 // Every score is packed with its row id into one 64-bit key that orders by
 // value and then by the lower id, so all comparisons are one total order.
 // Launch 1 gives each of its persistent blocks (as many a SM as shared
 // memory allows, ops/topk.py scan_plan) a chunk of whole 128-row tiles.
-// bf16 and per-row int8 tiles are scored on the tensor cores through
-// doc_mma.cuh's ring of cp.async stages (the next stages' copies in flight
-// while one is multiplied); f32 tiles keep doc_tile.cuh's CUDA-core sums
-// (TF32 would round the operands). Per query row the block keeps its best k
+// Tiles are scored on the tensor cores through doc_mma.cuh's ring of
+// cp.async stages (the next stages' copies in flight while one is
+// multiplied): bf16 and per-row int8 rows as bf16, f32 rows split into
+// three bf16 pieces with six products (doc_mma.cuh, "The f32 path"), their
+// query fragments split once a call by a first small launch and carried
+// through the ring. Per query row the block keeps its best k
 // keys sorted in shared memory. A tile's key enters a list of new keys (a
 // shared counter) only if it is strictly above the row's threshold:
 // the larger of the block's own k-th key and a per-row threshold shared by
@@ -48,11 +51,10 @@
 // main pass admits few keys and merges rarely.
 
 #include "doc_mma.cuh"
-#include "doc_tile.cuh"
 
 namespace {
 
-using doc_tile::ROWS;
+using doc_mma::ROWS;
 typedef unsigned long long u64;
 
 constexpr int KP = 128;                 // keys launch 2 keeps per query row; k <= KP
@@ -307,62 +309,29 @@ struct Lists {
   }
 };
 
-// Launch 1, f32 storage: the k best keys of each chunk of tiles_per_chunk
-// tiles, per query row, into cand [chunks][B][k]; the tiles are every
-// stride-th of the corpus (1: all of them; a pilot's sample: more). Thread
-// i owns row i of a tile; BQ query rows held per thread (B <= BQ).
-template <int BQ>
-__global__ void __launch_bounds__(ROWS) topk_chunk_fma_kernel(
-    int B, int H, int k, long long npad, long long n_valid, int tiles_per_chunk, int stride,
-    const float* __restrict__ q, const float* __restrict__ docs, u64* __restrict__ thr,
-    u64* __restrict__ cand) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);  // [BQ][H + 4]
-  unsigned char* tile = reinterpret_cast<unsigned char*>(q_s + (size_t)BQ * (H + 4));
-  Lists lists;
-  lists.carve(tile + doc_tile::TILE_BYTES, B, k);
-  lists.init(B, k, thr);
-  doc_tile::load_queries<float, BQ>(B, H, q, q_s);
-
-  const long long ntiles = (npad / ROWS + stride - 1) / stride;  // tiles this launch scans
-  const long long begin = (long long)blockIdx.x * tiles_per_chunk;
-  const long long end = begin + tiles_per_chunk < ntiles ? begin + tiles_per_chunk : ntiles;
-  for (long long t = begin; t < end; ++t) {
-    const long long row0 = t * stride * ROWS;
-    float acc[BQ];
-    doc_tile::score_tile<float, BQ>(H, docs, row0, q_s, tile, acc);  // begins with a barrier
-    const long long row = row0 + threadIdx.x;
-    unsigned pass = 0;  // bit b: the key of query row b beats its threshold
-#pragma unroll
-    for (int b = 0; b < BQ; ++b)
-      pass |= (unsigned)lists.beats(b, make_key(acc[b], row), b < B && row < n_valid) << b;
-    if (pass) {
-#pragma unroll
-      for (int b = 0; b < BQ; ++b)
-        if (pass >> b & 1) lists.hold(b, make_key(acc[b], row));
-    }
-    lists.close_tile(B, k, thr);
-  }
-  __syncthreads();
-  lists.write(B, k, cand);
-}
-
-// Launch 1, bf16 or per-row int8 storage (scales [npad]): as above, each
-// tile scored on the tensor cores (doc_mma.cuh); NT = ceil(B / 8).
+// Launch 1: the k best keys of each chunk of tiles_per_chunk tiles, per
+// query row, into cand [chunks][B][k]; the tiles are every stride-th of the
+// corpus (1: all of them; a pilot's sample: more). Each tile is scored on
+// the tensor cores (doc_mma.cuh): bf16 (T = bf16) or per-row int8 (T =
+// int8_t, scales [npad]) rows with bf16 queries q, or f32 rows (T = float)
+// with the query fragments qsplit (split_query_frags); NT = ceil(B / 8).
 template <typename T, int NT>
 __global__ void __launch_bounds__(doc_mma::THREADS, 3) topk_chunk_mma_kernel(
     int B, int H, int k, long long npad, long long n_valid, int tiles_per_chunk, int stride,
-    int stages, const __nv_bfloat16* __restrict__ q, const T* __restrict__ docs,
-    const float* __restrict__ scales, u64* __restrict__ thr, u64* __restrict__ cand) {
+    int stages, const __nv_bfloat16* __restrict__ q, const uint2* __restrict__ qsplit,
+    const T* __restrict__ docs, const float* __restrict__ scales, u64* __restrict__ thr,
+    u64* __restrict__ cand) {
   using namespace doc_mma;
   extern __shared__ __align__(128) unsigned char smem[];
   const int nck = chunks_of(H * (int)sizeof(T));
-  unsigned char* ring = smem;  // [stages][ROWS][CHUNK]
-  uint2* qf = reinterpret_cast<uint2*>(smem + (size_t)stages * STAGE_BYTES);  // [nck * K][NT][32]
+  unsigned char* ring = smem;  // [stages][stage_bytes<T>(NT)]
+  unsigned char* after = smem + (size_t)stages * stage_bytes<T>(NT);
+  uint2* qf = reinterpret_cast<uint2*>(after);  // [nck * K][NT][32], but f32's ride the ring
   Lists lists;
-  lists.carve(reinterpret_cast<unsigned char*>(qf + (size_t)nck * Steps<T>::K * NT * 32), B, k);
+  lists.carve(after + (kSplit<T> ? 0 : qfrag_bytes(nck, Steps<T>::K, NT)), B, k);
   lists.init(B, k, thr);
-  load_query_frags<T>(q, B, H, nck, NT, qf);
+  if constexpr (kSplit<T>) qf = const_cast<uint2*>(qsplit);
+  else load_query_frags<T>(q, B, H, nck, NT, qf);
 
   const long long first = (long long)blockIdx.x * tiles_per_chunk;
   long long tiles = (npad / ROWS + stride - 1) / stride - first;  // of this launch's tiles
@@ -462,12 +431,8 @@ __global__ void __launch_bounds__(MERGE_THREADS) topk_merge_kernel(
   }
 }
 
-// Shared memory of launch 1 (ops/topk.py scan_plan mirrors both): f32, the
-// queries, the staged tile and the lists; bf16 and int8, the ring, the
-// query fragments and the lists.
-size_t fma_smem(int BQ, int B, int H, int k) {
-  return (size_t)BQ * (H + 4) * sizeof(float) + doc_tile::TILE_BYTES + Lists::bytes(B, k);
-}
+// Shared memory of launch 1 (ops/topk.py scan_plan mirrors it): the ring,
+// the query fragments (but f32's, which ride the ring) and the lists.
 template <typename T, int NT>
 size_t mma_smem(int stages, int B, int H, int k) {
   return doc_mma::scan_smem<T>(stages, H, NT) + Lists::bytes(B, k);
@@ -491,6 +456,7 @@ struct Args {
   u64 *thr, *cand;
   float* vals;
   int* ids;
+  uint2* qf;
   cudaStream_t stream;
   // blocks of a launch over every stride-th tile, tiles_per_chunk each
   int chunks(int per, int stride) const {
@@ -516,28 +482,21 @@ int run(const Args& a, Chunk chunk) {
   return 0;
 }
 
-template <int BQ>
-int launch_fma(const Args& a) {
-  auto kernel = topk_chunk_fma_kernel<BQ>;
-  const size_t smem = fma_smem(BQ, a.B, a.H, a.k);
-  if (const int e = allow_smem((const void*)kernel, smem)) return e;
-  return run(a, [&](int blocks, int per, int stride) {
-    kernel<<<blocks, ROWS, smem, a.stream>>>(a.B, a.H, a.k, a.npad, a.n_valid, per, stride,
-                                             static_cast<const float*>(a.q),
-                                             static_cast<const float*>(a.docs), a.thr, a.cand);
-  });
-}
-
 template <typename T, int NT>
 int launch_mma(const Args& a) {
   auto kernel = topk_chunk_mma_kernel<T, NT>;
   const size_t smem = mma_smem<T, NT>(a.stages, a.B, a.H, a.k);
   if (const int e = allow_smem((const void*)kernel, smem)) return e;
+  if constexpr (doc_mma::kSplit<T>) {
+    const int e = doc_mma::launch_split_query_frags<NT>(static_cast<const float*>(a.q), a.B,
+                                                        a.H, a.qf, a.stream);
+    if (e) return e;
+  }
   return run(a, [&](int blocks, int per, int stride) {
     kernel<<<blocks, doc_mma::THREADS, smem, a.stream>>>(
         a.B, a.H, a.k, a.npad, a.n_valid, per, stride, a.stages,
-        static_cast<const __nv_bfloat16*>(a.q), static_cast<const T*>(a.docs), a.scales, a.thr,
-        a.cand);
+        doc_mma::kSplit<T> ? nullptr : static_cast<const __nv_bfloat16*>(a.q), a.qf,
+        static_cast<const T*>(a.docs), a.scales, a.thr, a.cand);
   });
 }
 
@@ -559,37 +518,37 @@ extern "C" {
 // with scales [npad] f32 and bf16 queries. 1 <= B <= 32; 1 <= k <= 128;
 // H a multiple of 16 bytes' worth of the storage dtype; npad a multiple of
 // 128 below 2^31. tiles_per_chunk (the grid is ceil(npad / 128 /
-// tiles_per_chunk) blocks) and stages (2-4; bf16 and int8) come from
+// tiles_per_chunk) blocks) and stages (2-4) come from
 // ops/topk.py scan_plan, and a layout beyond a block's shared memory is
 // refused. pilot_stride > 1 first runs both launches over every
 // pilot_stride-th tile (pilot_tiles_per_chunk a block), whose k-th key
 // seeds the shared thresholds. thr: B 64-bit keys, zero; cand: a workspace
-// of the larger grid * B * k 64-bit keys. device: the CUDA ordinal the
+// of the larger grid * B * k 64-bit keys; qf: f32 only, a workspace of
+// ceil(H / 32) * 6 * ceil(B / 8) * 256 bytes for the split query fragments
+// (a first launch writes them), else null. device: the CUDA ordinal the
 // tensors live on. Returns cudaGetLastError() after the launches (0 on
 // success).
 int topk_stream_launch(int device, int storage, int B, int H, int k, long long npad,
                        long long n_valid, int tiles_per_chunk, int stages, int pilot_stride,
                        int pilot_tiles_per_chunk, const void* q, const void* docs,
                        const float* scales, void* thr, void* cand, float* vals, int* ids,
-                       void* stream) {
+                       void* qf, void* stream) {
   const int elem = storage == 0 ? 4 : storage == 1 ? 2 : 1;
   if (storage < 0 || storage > 2 || B < 1 || B > 32 || k < 1 || k > KP || H < 1 ||
       (H * elem) % 16 != 0 || npad < ROWS || npad % ROWS != 0 || npad >= (1ll << 31) ||
       tiles_per_chunk < 1 || pilot_stride < 1 ||
       (pilot_stride > 1 && pilot_tiles_per_chunk < 1) || (storage == 2) != (scales != nullptr) ||
-      (storage != 0 && (stages < 2 || stages > 4)))
+      (storage == 0) != (qf != nullptr) || stages < 2 || stages > 4)
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   const Args a{B, H, k, npad, n_valid, tiles_per_chunk, stages, pilot_stride,
                pilot_tiles_per_chunk, q, docs, scales,
                static_cast<u64*>(thr), static_cast<u64*>(cand), vals, ids,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<uint2*>(qf), static_cast<cudaStream_t>(stream)};
   if (storage == 1) return dispatch_mma<__nv_bfloat16>(a);
   if (storage == 2) return dispatch_mma<int8_t>(a);
-  if (B <= 8) return launch_fma<8>(a);
-  if (B <= 16) return launch_fma<16>(a);
-  return launch_fma<32>(a);
+  return dispatch_mma<float>(a);
 }
 
 const char* topk_stream_error_string(int err) {

@@ -9,7 +9,10 @@ raises) and a launch count:
   over a bf16/f32 corpus. Scores every doc row against the queries in the
   storage dtype with f32 sums, masks rows >= ``n_valid`` with ``NEG_INF``
   and keeps only the maximum of each 128-row segment ([S, B] f32), plus
-  optionally every masked score ([Npad, B] f32, ``phase2="gather"``).
+  optionally every masked score ([Npad, B] f32, ``phase2="gather"``). An
+  f32 corpus is scored on the tensor cores from three bf16 pieces of each
+  value (:func:`split_bf16x3`, :func:`split_scores`: the six leading
+  products, as XLA's HIGHEST precision takes them on the TPU).
 - :func:`segmax_int8` (``csrc/segmax.cu``): the same over a corpus
   quantized per row (:func:`quantize_rows`), each sum times its row's scale;
   phase 1 of :func:`fused_topk_segmax_int8`.
@@ -82,8 +85,8 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "segmax": {
         # device, storage, B, H, npad, n_valid, stages, blocks,
-        # q, docs, scales, segmax, cache, stream
-        "segmax_launch": [_INT, _INT, _INT, _INT, _LL, _LL, _INT, _INT] + [_VOIDP] * 6,
+        # q, docs, scales, segmax, cache, qf, stream
+        "segmax_launch": [_INT, _INT, _INT, _INT, _LL, _LL, _INT, _INT] + [_VOIDP] * 7,
     },
     "segmax_s8": {
         # device, B, H, npad, seg, stages, blocks, q, docs, segmax, cache, stream
@@ -91,9 +94,10 @@ _SIGNATURES = {
     },
     "topk_stream": {
         # device, storage, B, H, k, npad, n_valid, tiles_per_chunk, stages,
-        # pilot_stride, pilot_tiles_per_chunk, q, docs, scales, thr, cand, vals, ids, stream
+        # pilot_stride, pilot_tiles_per_chunk, q, docs, scales, thr, cand, vals, ids, qf,
+        # stream
         "topk_stream_launch": [_INT, _INT, _INT, _INT, _INT, _LL, _LL] + [_INT] * 4
-        + [_VOIDP] * 8,
+        + [_VOIDP] * 9,
     },
 }
 
@@ -195,6 +199,41 @@ def topk_oracle(queries: torch.Tensor, docs: torch.Tensor, k: int):
 
 
 # ---------------------------------------------------------------------------
+# the f32 route's arithmetic (csrc/doc_mma.cuh, "The f32 path"), on the CPU
+# ---------------------------------------------------------------------------
+
+# The products of bf16 pieces the f32 route takes, (doc piece, query piece)
+# with 0 = hi, 1 = mid, 2 = lo, smallest first: XLA's six-pass HIGHEST.
+# mid.lo, lo.mid and lo.lo are dropped.
+SPLIT_PRODUCTS = ((1, 1), (2, 0), (0, 2), (1, 0), (0, 1), (0, 0))
+# What the dropped products may cost a score, relative to sum_k |q_k d_k|:
+# |mid| <= 2^-8 (1 + 2^-8) |x| and |lo| <= 2^-16 |x| (the kernel's header).
+SPLIT_DROPPED_REL = 2.0 ** -23 * (1 + 2.0 ** -7)
+
+
+def split_bf16x3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The f32 route's split of ``x`` (f32) into three bf16 pieces (hi, mid,
+    lo): each rounds to nearest even what the pieces before it leave (the
+    remainders are exact in f32), so hi + mid + lo is ``x`` exactly (8
+    significant bits each and the remainders' signs cover f32's 24)."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
+
+
+def split_scores(q: torch.Tensor, docs: torch.Tensor) -> torch.Tensor:
+    """[B, N] f32 scores of ``q`` [B, H] against ``docs`` [N, H] (f32) as the
+    f32 route forms them: the :data:`SPLIT_PRODUCTS` of their bf16 pieces,
+    each product of bf16 values exact in f32, summed in f32 (the kernel sums
+    in another order). Within ``SPLIT_DROPPED_REL * sum_k |q_k d_k|`` of the
+    exact product, besides the f32 sums' rounding."""
+    qp, dp = split_bf16x3(q), split_bf16x3(docs)
+    return sum(torch.matmul(qp[j].float(), dp[i].float().T) for i, j in SPLIT_PRODUCTS)
+
+
+# ---------------------------------------------------------------------------
 # quantization (numpy on the host, bit for bit the JAX package's)
 # ---------------------------------------------------------------------------
 
@@ -280,6 +319,14 @@ _STAGE_BYTES = 128 * 128  # a stage of the ring: 128 bytes of each of a tile's 1
 # the kernels' __launch_bounds__ minimum blocks a SM, which they keep
 # registers for: segmax four, the running top-k three (its merges hold more)
 _SEGMAX_BLOCKS_PER_SM, _TOPK_BLOCKS_PER_SM = 4, 3
+# The f32 route (csrc/doc_mma.cuh): a stage of 128 bytes (32 f32 columns,
+# two k16 steps) carries its query fragments beside its rows, a uint2 a
+# (k16 step, one of three pieces, n8 tile, lane).
+_F32_QFRAG_STAGE = 2 * 3 * 32 * 8
+# Its shared memory does not grow with H; the plans stop at 65,536, about
+# 20 times the widest tower the port trains (the query fragments then take
+# 12 MiB of device memory at 32 rows).
+_F32_MAX_H = 1 << 16
 
 
 def _up(n: int, m: int) -> int:
@@ -292,46 +339,58 @@ def scan_plan(B: int, H: int, storage: torch.dtype, k: int | None = None):
     takes for B query rows of width H over a ``storage`` corpus, or None
     where none fits a block's shared memory.
 
-    bf16 and int8 (``route`` "mma", doc_mma.cuh): tensor-core tiles of 128
-    rows fed by a ring of ``stages`` cp.async buffers of 128 bytes a row
-    (4, 3 or 2), the query fragments of ``nt`` n8 tiles
-    over ``chunks`` stages of columns in shared memory, ``k_tail`` zero
-    columns past H in the last stage; the most stages that leave two blocks
-    a SM, else the most that fit. f32 (``route`` "fma", doc_tile.cuh):
-    one thread a row, ``bq`` query rows a thread. ``smem``: bytes a block,
-    region by region as the .cu files lay them out; ``blocks_per_sm``: the
-    blocks a SM holds by that (at most four for segmax, three for the
-    running top-k: what the kernels' launch bounds keep registers for)."""
+    Every storage dtype takes ``route`` "mma" (doc_mma.cuh): tensor-core
+    tiles of 128 rows fed by a ring of ``stages`` cp.async buffers of 128
+    bytes a row (4, 3 or 2), ``nt`` n8 tiles of queries, ``chunks`` stages
+    of columns a row, ``k_tail`` zero columns past H in the last stage.
+    bf16 and int8 take the most stages that leave two blocks a SM, else the
+    most that fit, and keep their query fragments in shared memory
+    (``query_frags``); f32 takes the most blocks a SM, then the deepest
+    ring they leave room for. f32 rows are split into three bf16 pieces in
+    registers; their query fragments (three pieces of each) are split once
+    a call into device memory (``query_frag_bytes``, the workspace the
+    wrapper allocates) and ride the ring, each stage's beside its rows
+    (``stage_bytes``), so an f32 plan's shared memory does not grow with H
+    and one pass takes every width up to ``_F32_MAX_H``. ``smem``: bytes a
+    block, region by region as the .cu files lay them out;
+    ``blocks_per_sm``: the blocks a SM holds by that (at most four for
+    segmax, three for the running top-k: what the kernels' launch bounds
+    keep registers for)."""
     elem = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[storage]
     if not 1 <= B <= _MAX_KERNEL_B or H < 1 or (H * elem) % 16:
         return None
     # the running top-k's lists: kept [2][B][k], fresh [B][128], thresholds
     # [B] (64-bit keys) and counts [B]
     lists = 0 if k is None else B * (2 * k + 129) * 8 + _up(4 * B, 16)
+    nt = -(-B // 8)
+    chunks = -(-H * elem // 128)
+    extra = 4 * nt * 8 * 4 if k is None else lists  # segmax: the 4 warps' column maxima
     if storage == torch.float32:
-        bq = 8 if B <= 8 else 16 if B <= 16 else 32
-        tile = 128 * 144  # a 128-byte column chunk of 128 rows, 16 bytes of pad a row
-        extra = 4 * bq * 4 if k is None else lists  # segmax: the 4 warps' maxima
-        plan = {"route": "fma", "bq": bq, "stages": 1, "k_tail": 0,
-                "smem": bq * (H + 4) * 4 + tile + extra}
-    else:
-        nt = -(-B // 8)
-        chunks = -(-H * elem // 128)
-        ksteps = 128 // elem // 16  # k16 steps a stage carries
-        qfrag = chunks * ksteps * nt * 32 * 8
-        extra = 4 * nt * 8 * 4 if k is None else lists
-        fits = [s for s in (4, 3, 2) if s * _STAGE_BYTES + qfrag + extra <= _SMEM_LIMIT]
-        if not fits:
+        if H > _F32_MAX_H:
             return None
+        stage, qfrag = _STAGE_BYTES + _F32_QFRAG_STAGE * nt, 0  # the fragments ride the ring
+    else:
+        ksteps = 128 // elem // 16  # k16 steps a stage carries
+        stage, qfrag = _STAGE_BYTES, chunks * ksteps * nt * 32 * 8
+    fits = [s for s in (4, 3, 2) if s * stage + qfrag + extra <= _SMEM_LIMIT]
+    if not fits:
+        return None
+    if storage == torch.float32:
+        # the most blocks a SM, then the deepest ring they leave room for
+        # (as s8_plan): on the card more blocks beat deeper rings here
+        stages = max(fits, key=lambda s: (_per_sm(s * stage + qfrag + extra, k), s))
+    else:
         # the most stages that keep two blocks a SM (one merges or reduces
         # while the other streams), else the most that fit
-        two = [s for s in fits if _per_sm(s * _STAGE_BYTES + qfrag + extra, k) >= 2]
+        two = [s for s in fits if _per_sm(s * stage + qfrag + extra, k) >= 2]
         stages = (two or fits)[0]
-        plan = {"route": "mma", "nt": nt, "chunks": chunks, "stages": stages,
-                "k_tail": chunks * 128 // elem - H, "query_frags": "shared memory",
-                "smem": stages * _STAGE_BYTES + qfrag + extra}
-    if plan["smem"] > _SMEM_LIMIT:
-        return None
+    plan = {"route": "mma", "nt": nt, "chunks": chunks, "stages": stages,
+            "k_tail": chunks * 128 // elem - H, "smem": stages * stage + qfrag + extra}
+    if storage == torch.float32:
+        plan.update(query_frags="ring", stage_bytes=stage,
+                    query_frag_bytes=chunks * _F32_QFRAG_STAGE * nt)
+    else:
+        plan["query_frags"] = "shared memory"
     plan["blocks_per_sm"] = _per_sm(plan["smem"], k)
     return plan
 
@@ -409,9 +468,10 @@ def query_block(H: int, storage: torch.dtype, k: int | None = None) -> int:
 @functools.lru_cache(maxsize=None)
 def scan_max_h(storage: torch.dtype, k: int | None = None) -> int:
     """The widest H that :func:`scan_plan` lays out for one query row (the
-    widest any batch takes, in blocks of :func:`query_block` rows)."""
+    widest any batch takes, in blocks of :func:`query_block` rows; f32:
+    ``_F32_MAX_H`` at every batch)."""
     step = 16 // {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[storage]
-    lo, hi = 0, 1 << 16  # scan_plan(1, lo) fits (or lo is 0); hi does not
+    lo, hi = 0, 2 * _F32_MAX_H  # scan_plan(1, lo) fits (or lo is 0); hi does not
     while hi - lo > step:
         mid = (lo + hi) // 2 // step * step
         lo, hi = (mid, hi) if scan_plan(1, mid, storage, k) else (lo, mid)
@@ -430,13 +490,22 @@ def query_blocks(fn: str, B: int, H: int, storage: torch.dtype, k: int | None = 
         return [(0, B, plan)]
     most = query_block(H, storage, k)
     if not most:
-        raise ValueError(f"{fn}: no layout of the kernel fits a block's shared memory at "
-                         f"B={B} H={H} {storage}" + ("" if k is None else f" k={k}")
+        why = ("takes" if storage == torch.float32
+               else "fits a block's shared memory at")
+        raise ValueError(f"{fn}: no layout of the kernel {why} B={B} H={H} {storage}"
+                         + ("" if k is None else f" k={k}")
                          + f": it takes H up to {scan_max_h(storage, k)}")
     n = -(-B // most)
     sizes = [B // n + (i < B % n) for i in range(n)]
     starts = [sum(sizes[:i]) for i in range(n)]
     return [(s, b, scan_plan(b, H, storage, k)) for s, b in zip(starts, sizes)]
+
+
+def _query_frag_workspace(plan: dict, device: torch.device) -> torch.Tensor | None:
+    """The device memory an f32 plan's split query fragments take (written
+    by the launch's first kernel), None for the other routes."""
+    nbytes = plan.get("query_frag_bytes")
+    return None if nbytes is None else torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
 def _blocks(plan: dict, sms: int, work: int) -> int:
@@ -504,9 +573,10 @@ def segmax(
         out = torch.empty((npad // _SEG, b), dtype=torch.float32, device=docs.device)
         cache = (torch.empty((npad, b), dtype=torch.float32, device=docs.device)
                  if with_cache else None)
+        qf = _query_frag_workspace(plan, docs.device)
         _launch("segmax", "segmax_launch", docs.device, _STORAGE[docs.dtype], b, H, npad,
                 int(n_valid), plan["stages"], _blocks(plan, _sms(docs.device), npad // _SEG),
-                qb.data_ptr(), docs.data_ptr(), None, out.data_ptr(), _ptr(cache))
+                qb.data_ptr(), docs.data_ptr(), None, out.data_ptr(), _ptr(cache), _ptr(qf))
         segmax.launches += 1
         outs.append(out)
         caches.append(cache)
@@ -566,7 +636,7 @@ def segmax_int8(
         _launch("segmax", "segmax_launch", q.device, _STORAGE[torch.int8], b, H, npad,
                 int(n_valid), plan["stages"], _blocks(plan, _sms(q.device), npad // _SEG),
                 qb.data_ptr(), doc_values.data_ptr(), doc_scales.data_ptr(), out.data_ptr(),
-                None)
+                None, None)
         segmax_int8.launches += 1
         outs.append(out)
     return _cat_columns(outs)
@@ -941,11 +1011,12 @@ def _topk_stream_call(wrapper, q, docs, scales, k: int, n_valid: int):
         cand = torch.empty((grid["grid"], b, k), dtype=torch.int64, device=docs.device)
         vals = torch.empty((b, k), dtype=torch.float32, device=docs.device)
         ids = torch.empty((b, k), dtype=torch.int32, device=docs.device)
+        qf = _query_frag_workspace(plan, docs.device)
         _launch("topk_stream", "topk_stream_launch", docs.device, _STORAGE[docs.dtype], b, H,
                 k, npad, int(n_valid), grid["per_chunk"], plan["stages"], grid["stride"],
                 grid["pilot_per_chunk"],
                 qb.data_ptr(), docs.data_ptr(), _ptr(scales), thr.data_ptr(), cand.data_ptr(),
-                vals.data_ptr(), ids.data_ptr())
+                vals.data_ptr(), ids.data_ptr(), _ptr(qf))
         wrapper.launches += 1
         parts.append((vals, ids))
     if len(parts) == 1:

@@ -125,3 +125,16 @@ class Tokenizer:
             if ids:
                 batch[row, : len(ids)] = ids
         return batch, lengths
+
+
+# Alias matching the reference class name (ref: backend/tokenizer.py:6) so
+# reference users find the familiar entry point.
+class PretrainedTokenizer(Tokenizer):
+    def __init__(self, word_to_idx_path: str | Path):
+        with open(word_to_idx_path, "rb") as f:
+            super().__init__(pickle.load(f))
+
+
+def lengths_to_mask(lengths: np.ndarray, max_len: int) -> np.ndarray:
+    """Boolean [B, max_len] validity mask from lengths (host-side helper)."""
+    return np.arange(max_len)[None, :] < np.asarray(lengths)[:, None]
