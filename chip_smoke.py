@@ -39,6 +39,10 @@
    the CPU and against the torch attention route, checks 12 attention
    backward launches per step and the checkpoint, and serves its export
    over HTTP (6 attention forward and 1 segmax launches per dense search).
+   Before the epoch, the same tower at COMPUTE_DTYPE float32 (the split
+   route of the attention kernels: six products of three bf16 pieces): its
+   first step against the CPU on 64 rows and, at B=512, against the torch
+   attention route, 12 forward and 12 backward launches on the split route.
 8. Trains data parallel (``phase_data_parallel``): ``configs/msmarco_inbatch.json``
    at full width (the reference towers, the in_batch loss over
    cross-device negatives, TRIPLET_METRICS false, B=1024) as two ranks of
@@ -138,7 +142,9 @@ the fused attention kernels (``csrc/attention.cu``) at the transformer's
 training and serving shapes and at T=512 (hd=32 and 64), each with its
 tiles logged, two calls held bit-identical and timed beside
 ``torch.nn.functional.scaled_dot_product_attention`` as a yardstick, and
-at f32 compute at hd=64, T=512 (SDPA on the f32 inputs, TF32 off). Step 5
+at f32 compute (the split route) at the same training and serving shapes,
+at hd=64 T=512 and with bf16 inputs, each beside SDPA on the same inputs
+(TF32 off), the bf16 route at its shape and its bound. Step 5
 serves a second time as ``ttr-torch-serve --storage-dtype int8`` starts
 it: the s8 scan kernel on every dense search, the results against the
 port's int8 engine on the CPU and, bit for bit, against the two-phase path
@@ -197,11 +203,14 @@ ROOT = Path(__file__).resolve().parent
 ARTIFACTS = ROOT / "_smoke_artifacts"  # listed in .gitignore; removed at the end
 
 # Published peaks of one H100 SXM: HBM3 bandwidth, the dense bf16 and int8
-# tensor-core rates and the f32 rate outside the tensor cores.
+# tensor-core rates. The scans over an f32 corpus take an f32-precision
+# product as six bf16 products on the tensor cores: a sixth of the bf16
+# rate. Attention at f32 compute counts its split products by operand
+# (attention_bound) and takes the bf16 rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
-PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
+PEAK_SPLIT_FLOPS = PEAK_BF16_FLOPS / 6
 
 # The reference model (configs/msmarco_reference.json, Config defaults).
 H = 256
@@ -281,9 +290,10 @@ WIDE_S8_H, WIDE_S8_ROWS = 1536, 6000
 # last-bit change of an f32 sum can move p or ds across a bf16 rounding
 # boundary. Tolerance: one bf16 ulp, 2^-8.
 ATTN_REL = 2 ** -8
-# f32 compute: full f32 products in another summation order. The same CPU
-# experiment at f32 compute differed by at most 5e-7 of the largest
-# magnitude; the card tests hold 1e-5.
+# f32 compute: f32-precision products (on the card, six products of three
+# bf16 pieces) in another summation order. The same CPU experiment at f32
+# compute differed by at most 5e-7 of the largest magnitude; the card tests
+# hold 1e-5.
 ATTN_F32_REL = 1e-5
 # The transformer tower of config 5, as configs/transformer_tp.json gives
 # it; its phase trains on the triplets after those the GRU phase takes.
@@ -301,6 +311,16 @@ TF_DIR = TRAIN_DIR / "transformer"
 # per leaf, as for the GRU towers.
 TF_STEP_LOSS_ATOL = 1e-3
 TF_STEP_GRAD_REL = 2e-2
+# The same at COMPUTE_DTYPE float32: the CPU run of that step (64 rows, a
+# 20,000-row table) with every product summed in float64 moved the loss by
+# 9.5e-7 and each per-leaf gradient norm by at most 6.2e-7 relative. The
+# lower-precision control, the same step at bf16 compute against it, moved
+# the loss by 3.6e-5 and the worst leaf by 7.2e-3 (the median leaf 1.8e-3).
+# Envelope between the two: 5e-6 on the loss, 1e-4 relative per leaf; the
+# control runs on the card too and must fall outside it. The B=512 step's
+# two routes at f32 compute are held to the same loss envelope.
+TF_F32_STEP_LOSS_ATOL = 5e-6
+TF_F32_STEP_GRAD_REL = 1e-4
 # Transformer /search scores, card against CPU engine: the attention
 # kernels and the plain versions differ in a sum's last bit, which can flip
 # a bf16 rounding that six blocks carry on into the query embedding.
@@ -501,10 +521,15 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     logs = _build.build_all()
     log(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
+    for name, text in logs.items():  # ptxas -v: each kernel's spills, then its registers
+        kernel, spill = "?", ""
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"{name}: {line.strip()}")
+            if "Function properties for" in line:
+                kernel = line.split("Function properties for")[1].strip()
+            elif "spill" in line:
+                spill = line.strip()
+            elif "Used" in line:
+                log(f"{name}: {kernel}: {spill}; {line.split(':', 1)[-1].strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -754,8 +779,12 @@ def kernel_table():
 
 
 def zero_counts() -> None:
+    from twotowermlretrieval_tpu_torch.ops import attention
+
     for fn, _, _ in kernel_table().values():
         fn.launches = 0
+    for fn in (attention.attention_fwd, attention.attention_bwd):
+        fn.by_route = dict.fromkeys(fn.by_route, 0)
 
 
 def read_counts() -> dict:
@@ -871,11 +900,11 @@ def check_scans_at(B: int, docs, values, scales, n_valid: int, dev, seed: int,
             ("segmax", lambda: segmax(qf, docs_f32, n_valid)[0],
              lambda: segmax_reference(qf, docs_f32, n_valid)[0], SEGMAX_ATOL,
              lambda: torch.matmul(docs_f32, qf.T).view(-1, 128, B).amax(dim=1),
-             segmax_bound(B, H, npad, 4) + (PEAK_F32_FLOPS,), (torch.float32, None), None),
+             segmax_bound(B, H, npad, 4) + (PEAK_SPLIT_FLOPS,), (torch.float32, None), None),
             ("topk_stream", lambda: topk_stream(qf, docs_f32, FANOUT, n_valid),
              lambda: topk_stream_reference(qf, docs_f32, FANOUT, n_valid), SEGMAX_ATOL,
              lambda: torch.topk(torch.matmul(qf, docs_f32[:n_valid].T), FANOUT),
-             topk_stream_bound(B, H, npad, FANOUT, 4) + (PEAK_F32_FLOPS,),
+             topk_stream_bound(B, H, npad, FANOUT, 4) + (PEAK_SPLIT_FLOPS,),
              (torch.float32, FANOUT), f_f32),
         ]
     kinds = {torch.bfloat16: "bf16", torch.int8: "int8 per row", torch.float32: "f32"}
@@ -1583,14 +1612,16 @@ def check_attention(B: int, T: int, in_dtype, seed: int, dev, hd: int = TF_HD,
     return fwd, bwd
 
 
-def check_attention_f32(dev, B: int = 4, T: int = 512, hd: int = 64, seed: int = 36) -> tuple:
-    """Both attention kernels at f32 compute (full f32 products on the CUDA
-    cores) at hd=64 and T=512, past the 256 keys one stage of the f32
-    kernels holds: against their plain versions within ATTN_F32_REL of the
-    largest magnitude, two calls bit-identical, timed beside SDPA on the
-    same f32 inputs and additive mask with TF32 off (forward, and
-    forward+backward minus forward). Returns the (forward, backward)
-    records."""
+def check_attention_f32(R: int, T: int, hd: int, in_dtype, seed: int, dev) -> tuple:
+    """Both attention kernels at f32 compute (the split route: every product
+    six mma.sync products of three bf16 pieces) at R rows of T keys and head
+    width hd: against their plain versions within ATTN_F32_REL of the
+    largest magnitude, a fully masked row uniform, two calls bit-identical;
+    timed beside their plain versions, the bf16 route on the same inputs,
+    SDPA on the same inputs and additive mask with TF32 off (forward, and
+    forward+backward minus forward) and their bound (each product as the bf16
+    products its split takes, by its operands' dtypes, at the bf16 rate).
+    Returns the (forward, backward) records."""
     import torch.nn.functional as F
 
     from twotowermlretrieval_tpu_torch.ops.attention import (
@@ -1602,15 +1633,18 @@ def check_attention_f32(dev, B: int = 4, T: int = 512, hd: int = 64, seed: int =
         attention_plan,
     )
 
-    R = B * TF_HEADS
     gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, do = (torch.randn((R, T, hd), generator=gen, device=dev) for _ in range(4))
+    q, k, v = (t.to(in_dtype) for t in (q, k, v))
     lengths = torch.randint(1, T + 1, (R,), generator=gen, device=dev)
     lengths[:3] = torch.tensor([0, 1, T], device=dev)
     bias = torch.where(torch.arange(T, device=dev)[None, :] < lengths[:, None], 0.0, -1e9)
     args, scale = (q, k, v, bias), float(1.0 / np.sqrt(hd))
+    before = attention_fwd.by_route["split"], attention_bwd.by_route["split"]
     out = attention_fwd(*args, scale, "float32")
     grads = attention_bwd(*args, do, scale, "float32")
+    split = (attention_fwd.by_route["split"] - before[0],
+             attention_bwd.by_route["split"] - before[1])
     r_out = attention_fwd_reference(*args, scale, "float32")
     r_grads = attention_bwd_reference(*args, do, scale, "float32")
     fwd_err = (out - r_out).abs().max().item()
@@ -1618,51 +1652,66 @@ def check_attention_f32(dev, B: int = 4, T: int = 512, hd: int = 64, seed: int =
     fwd_rel = fwd_err / r_out.abs().max().item()
     bwd_rel = max((a - b).abs().max().item() / b.abs().max().item()
                   for a, b in zip(grads, r_grads))
+    # row 0 has every key masked: it attends uniformly, each output row v's mean
+    masked_err = (out[0] - v[0].float().mean(dim=0, keepdim=True)).abs().max().item()
     bitwise = (torch.equal(out, attention_fwd(*args, scale, "float32"))
                and all(torch.equal(a, b)
                        for a, b in zip(grads, attention_bwd(*args, do, scale, "float32"))))
-    shape = f"R={R} T={T} hd={hd} f32 in, f32 compute"
+    shape = f"R={R} T={T} hd={hd} {'bf16' if in_dtype == torch.bfloat16 else 'f32'} in, f32 compute"
     plan = attention_plan(T, hd, "float32")
-    log(f"attention {shape}: keys staged {plan['fwd']['kc']} at a time ({plan['fwd']['smem']} "
-        f"bytes forward, {plan['dkv']['smem']} backward); |fwd diff| {fwd_rel:.3g} of the scale, "
-        f"|bwd diff| {bwd_rel:.3g}")
+    log(f"attention {shape}: split route, {plan['fwd']['rows']} query rows a block, keys in "
+        f"chunks of {plan['fwd']['kc']} ({plan['fwd']['smem']} bytes), then "
+        f"{plan['dkv']['rows']} keys a block ({plan['dkv']['smem']} bytes); |fwd diff| "
+        f"{fwd_rel:.3g} of the scale, |bwd diff| {bwd_rel:.3g}, the fully masked row off "
+        f"uniform by {masked_err:.3g}")
+    check(split == (1, 1),
+          f"attention {shape}: {split} launches on the split route, expected 1 and 1")
     check(all(bool(torch.isfinite(t).all()) for t in (out, *grads)),
           f"attention {shape}: non-finite output")
     check(fwd_rel <= ATTN_F32_REL and bwd_rel <= ATTN_F32_REL,
           f"attention {shape}: off its plain version")
+    check(masked_err <= 4 * ATTN_F32_REL * v[0].float().abs().max().item(),
+          f"attention {shape}: a fully masked row is not uniform")
     check(bitwise, f"attention {shape}: two calls differ")
+    del out, grads, r_out, r_grads
     recs = []
-    for backward, err, rel, kernel, plain in (
+    in_bytes = 2 if in_dtype == torch.bfloat16 else 4
+    for backward, err, rel, kernel, plain, bf16_route in (
             (False, fwd_err, fwd_rel, lambda: attention_fwd(*args, scale, "float32"),
-             lambda: attention_fwd_reference(*args, scale, "float32")),
+             lambda: attention_fwd_reference(*args, scale, "float32"),
+             lambda: attention_fwd(*args, scale, "bfloat16")),
             (True, bwd_err, bwd_rel, lambda: attention_bwd(*args, do, scale, "float32"),
-             lambda: attention_bwd_reference(*args, do, scale, "float32"))):
+             lambda: attention_bwd_reference(*args, do, scale, "float32"),
+             lambda: attention_bwd(*args, do, scale, "bfloat16"))):
         rec = {"shape": shape, "max_abs_err": err, "rel_err": rel, "bitwise_repeatable": bitwise,
-               "ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=5, warmup=1)}
-        rec["bound_ms"], rec["bound_by"] = bound(*attention_bound(R, T, hd, 4, backward),
-                                                 PEAK_F32_FLOPS)
-        log(f"attention {'backward' if backward else 'forward'} {shape}: kernel "
-            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.6f} "
-            f"ms ({rec['bound_by']}, at the f32 CUDA-core rate)")
+               "tiles": {"dq": plan["dq"], "dkv": plan["dkv"]} if backward else plan["fwd"],
+               "ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=5, warmup=1),
+               "bf16_route_ms": time_ms(bf16_route)}
+        rec["bound_ms"], rec["bound_by"] = bound(
+            *attention_bound(R, T, hd, in_bytes, backward, "float32"))
         recs.append(rec)
-    # the yardstick: one library call on the same f32 inputs and additive mask
+    # the yardstick: one library call on the same inputs and additive mask
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for the f32 yardstick")
+    mask = bias[:, None, :].to(in_dtype)
     with torch.enable_grad():
         ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
 
         def sdpa():
-            return F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias[:, None, :],
-                                                  scale=scale)
+            return F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, scale=scale)
 
         recs[0]["library_ms"] = time_ms(sdpa)
-        both = time_ms(lambda: torch.autograd.grad(sdpa(), (ql, kl, vl), do))
+        both = time_ms(lambda: torch.autograd.grad(sdpa(), (ql, kl, vl), do.to(in_dtype)))
     recs[1]["library_ms"] = both - recs[0]["library_ms"]
     recs[1]["library_fwd_bwd_ms"] = both
-    log(f"attention {shape}: SDPA (f32, TF32 off) forward {recs[0]['library_ms']:.4f} ms, "
-        f"fwd+bwd - fwd {recs[1]['library_ms']:.4f} ms")
-    del out, grads, r_out, r_grads
+    f, b = recs
+    log(f"attention {shape}: forward {f['ms']:.4f} ms (plain {f['plain_ms']:.4f}, bf16 route "
+        f"{f['bf16_route_ms']:.4f}, SDPA {f['library_ms']:.4f}, bound {f['bound_ms']:.6f} "
+        f"{f['bound_by']}); backward {b['ms']:.4f} ms (plain {b['plain_ms']:.4f}, bf16 route "
+        f"{b['bf16_route_ms']:.4f}, SDPA fwd+bwd - fwd {b['library_ms']:.4f}, bound "
+        f"{b['bound_ms']:.6f} {b['bound_by']}); bounds count each product's split bf16 "
+        f"products at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s")
     torch.cuda.empty_cache()
-    return tuple(recs)
+    return f, b
 
 
 def phase_attention_kernels(dev) -> dict:
@@ -1672,7 +1721,9 @@ def phase_attention_kernels(dev) -> dict:
     with f32 inputs (the f32 residual stream) and with bf16 inputs
     (RESIDUAL_DTYPE bfloat16); then the model axis's (phase_model_axis:
     each rank's TF_HEADS / TP_RANKS local heads of B=512 rows at T=128 and
-    T=32, f32 inputs); then f32 compute at hd=64, T=512."""
+    T=32, f32 inputs); then f32 compute (the split route) at the doc
+    tower's, the query tower's and a serving batch's shapes, at hd=64
+    T=512, and at the doc tower's with bf16 inputs."""
     fwd, bwd = [], []
     with torch.no_grad():
         for in_dtype in (torch.float32, torch.bfloat16):
@@ -1687,9 +1738,15 @@ def phase_attention_kernels(dev) -> dict:
                                    heads=TF_HEADS // TP_RANKS)
             fwd.append(f)
             bwd.append(b)
-        f, b = check_attention_f32(dev)
-        fwd.append(f)
-        bwd.append(b)
+        for i, (R, T, hd, in_dtype) in enumerate((
+                (TF_ROWS * TF_HEADS, DOC_LEN, TF_HD, torch.float32),
+                (TF_ROWS * TF_HEADS, QUERY_LEN, TF_HD, torch.float32),
+                (SERVE_ROWS * TF_HEADS, QUERY_LEN, TF_HD, torch.float32),
+                (4 * TF_HEADS, 512, 64, torch.float32),
+                (TF_ROWS * TF_HEADS, DOC_LEN, TF_HD, torch.bfloat16))):
+            f, b = check_attention_f32(R, T, hd, in_dtype, 50 + i, dev)
+            fwd.append(f)
+            bwd.append(b)
     return {"attention_fwd": fwd, "attention_bwd": bwd}
 
 
@@ -2007,39 +2064,61 @@ def _first_batch(cfg, tok, train_triplets) -> np.ndarray:
     return pack_batch(next(batcher.batches(seed=cfg.seed + 1000)))
 
 
+def _step_diff(got: dict, want: dict) -> tuple:
+    """|loss diff|, and the per-leaf gradient norm farthest from ``want``'s
+    with its relative difference."""
+    rels = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+            for k in want if k.startswith("grad_norm")}
+    worst = max(rels, key=rels.get)
+    return abs(got["loss"] - want["loss"]), worst, rels[worst], len(rels)
+
+
 def _first_step_card_vs_cpu(dev, cfg, params, packed, loss_atol: float, grad_rel: float,
-                            what: str) -> dict:
+                            what: str, control: str | None = None) -> dict:
     """One train step on the card and one on the CPU (plain versions) from
     the same initial state and packed batch, dropout off: the loss and
-    every per-leaf gradient norm within the stated envelope."""
+    every per-leaf gradient norm within the stated envelope. ``control``, a
+    lower compute dtype, runs the same step on the card at that dtype too,
+    which must fall outside the envelope against the CPU step."""
     from twotowermlretrieval_tpu_torch.data.batching import unpack_batch
     from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec, to_device
     from twotowermlretrieval_tpu_torch.train.train_step import create_train_state, make_train_step
 
     cfg = cfg.replace(dropout=0.0, log_param_stats=True)
-    step = make_train_step(TwoTowerSpec.from_config(cfg), cfg)
+    runs = [("card", dev, cfg), ("cpu", torch.device("cpu"), cfg)]
+    if control is not None:
+        runs.append(("control", dev, cfg.replace(compute_dtype=control)))
     out = {}
-    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+    for label, where, rcfg in runs:
+        step = make_train_step(TwoTowerSpec.from_config(rcfg), rcfg)
         state = create_train_state(torch.Generator(device=where).manual_seed(1),
-                                   to_device(params, where), cfg)
+                                   to_device(params, where), rcfg)
         t0 = time.perf_counter()
-        _, m = step(state, unpack_batch(torch.from_numpy(packed).to(where), cfg.max_query_len))
+        _, m = step(state, unpack_batch(torch.from_numpy(packed).to(where), rcfg.max_query_len))
         out[label] = {k: float(v) for k, v in m.items()}
-        log(f"{what} first step on the {label}: loss {out[label]['loss']:.6f}, "
-            f"{time.perf_counter() - t0:.1f} s")
-        del state
+        log(f"{what} first step on the {'cpu' if label == 'cpu' else 'card'} "
+            f"({'the control, ' if label == 'control' else ''}{rcfg.compute_dtype} compute): "
+            f"loss {out[label]['loss']:.6f}, {time.perf_counter() - t0:.1f} s")
+        del state, step
     card, cpu = out["card"], out["cpu"]
-    loss_err = abs(card["loss"] - cpu["loss"])
-    rels = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30)
-            for k in cpu if k.startswith("grad_norm")}
-    worst = max(rels, key=rels.get)
+    loss_err, worst, worst_rel, leaves = _step_diff(card, cpu)
     log(f"{what} first step, card against CPU: |loss diff| {loss_err:.3g}; gradient norms "
-        f"{len(rels)}, worst {worst} {rels[worst]:.3g} relative ({packed.shape[0]} rows, doc "
+        f"{leaves}, worst {worst} {worst_rel:.3g} relative ({packed.shape[0]} rows, doc "
         f"width {(packed.shape[1] - cfg.max_query_len - 4) // 2})")
     check(all(math.isfinite(v) for v in card.values()), f"{what} first step: a non-finite metric")
     check(loss_err <= loss_atol, f"{what} first step: loss off by {loss_err}")
-    check(rels[worst] <= grad_rel, f"{what} first step: {worst} off by {rels[worst]}")
-    return {"loss_err": loss_err, "worst_grad_norm_rel": rels[worst], "worst_leaf": worst}
+    check(worst_rel <= grad_rel, f"{what} first step: {worst} off by {worst_rel}")
+    res = {"loss_err": loss_err, "worst_grad_norm_rel": worst_rel, "worst_leaf": worst}
+    if control is not None:
+        c_loss, c_worst, c_rel, _ = _step_diff(out["control"], cpu)
+        log(f"{what} first step, the {control} control on the card against the CPU: |loss diff| "
+            f"{c_loss:.3g}, worst {c_worst} {c_rel:.3g} relative (envelope {loss_atol:.3g} and "
+            f"{grad_rel:.3g})")
+        check(c_loss > loss_atol or c_rel > grad_rel,
+              f"{what} first step: the envelope does not tell a {control} step from the CPU's")
+        res["control"] = {"compute_dtype": control, "loss_err": c_loss,
+                          "worst_grad_norm_rel": c_rel, "worst_leaf": c_worst}
+    return res
 
 
 def phase_first_step(dev, cfg, tok, table, train_triplets, what: str = "train") -> dict:
@@ -2294,20 +2373,22 @@ def _transformer_config(word_to_idx, table):
     return setup(cfg)
 
 
-def _routes_step(dev, cfg, params, packed) -> dict:
+def _routes_step(dev, cfg, params, packed, route: str = "mma") -> dict:
     """One full-batch train step from the same state through the attention
     kernels (FUSED_ATTENTION true) and through the torch route
     (FUSED_ATTENTION null), dropout off: the loss difference, and each
     route's step time (a second step, host clock around a synchronized
     step). The kernel route launches 12 forward and 12 backward
-    attention kernels per step."""
+    attention kernels per step, all on the kernels' ``route`` ("mma" at
+    bf16 compute, "split" at f32)."""
+    from twotowermlretrieval_tpu_torch.ops import attention
     from twotowermlretrieval_tpu_torch.data.batching import unpack_batch
     from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec, to_device
     from twotowermlretrieval_tpu_torch.train.train_step import create_train_state, make_train_step
 
     batch = unpack_batch(torch.from_numpy(packed).to(dev), cfg.max_query_len)
     out = {}
-    for route, fused in (("kernels", True), ("torch", None)):
+    for name, fused in (("kernels", True), ("torch", None)):
         rcfg = cfg.replace(dropout=0.0, fused_attention=fused)
         step = make_train_step(TwoTowerSpec.from_config(rcfg), rcfg)
         state = create_train_state(torch.Generator(device=dev).manual_seed(1),
@@ -2316,22 +2397,27 @@ def _routes_step(dev, cfg, params, packed) -> dict:
         _, m = step(state, batch)
         loss = float(m["loss"])
         counts = read_counts()
+        by_route = {"attention_fwd": dict(attention.attention_fwd.by_route),
+                    "attention_bwd": dict(attention.attention_bwd.by_route)}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step(state, batch)
         torch.cuda.synchronize()
-        out[route] = {"loss": loss, "step_ms": (time.perf_counter() - t0) * 1e3,
-                      "launches": counts}
+        out[name] = {"loss": loss, "step_ms": (time.perf_counter() - t0) * 1e3,
+                     "launches": counts, "by_route": by_route}
         del state, step
         torch.cuda.empty_cache()
     k, t = out["kernels"], out["torch"]
     out["loss_diff"] = abs(k["loss"] - t["loss"])
-    log(f"transformer first step at B={packed.shape[0]}: loss {k['loss']:.6f} through the "
-        f"kernels, {t['loss']:.6f} through the torch route (|diff| {out['loss_diff']:.3g}); "
-        f"second step {k['step_ms']:.1f} ms against {t['step_ms']:.1f} ms")
+    log(f"transformer ({cfg.compute_dtype} compute) first step at B={packed.shape[0]}: loss "
+        f"{k['loss']:.6f} through the kernels, {t['loss']:.6f} through the torch route (|diff| "
+        f"{out['loss_diff']:.3g}); second step {k['step_ms']:.1f} ms against "
+        f"{t['step_ms']:.1f} ms")
     check(k["launches"]["attention_fwd"] == 12 and k["launches"]["attention_bwd"] == 12,
           f"the kernel route's step launched {k['launches']}, expected 12 attention forward "
           f"and 12 backward")
+    check(all(k["by_route"][n][route] == 12 for n in ("attention_fwd", "attention_bwd")),
+          f"the kernel route's launches by route {k['by_route']}, expected 12 and 12 on {route}")
     check(t["launches"]["attention_fwd"] == 0 and t["launches"]["attention_bwd"] == 0,
           "the torch route launched an attention kernel")
     check(math.isfinite(k["loss"]) and math.isfinite(t["loss"]), "a non-finite first loss")
@@ -2360,6 +2446,19 @@ def phase_transformer(dev, corpus) -> dict:
     first = _first_step_card_vs_cpu(dev, cfg, params, packed[:TF_CPU_ROWS], TF_STEP_LOSS_ATOL,
                                     TF_STEP_GRAD_REL, "transformer")
     routes = _routes_step(dev, cfg, params, packed)
+    # the same tower at f32 compute: the attention kernels' split route
+    f32cfg = cfg.replace(compute_dtype="float32")
+    first_f32 = _first_step_card_vs_cpu(dev, f32cfg, params, packed[:TF_CPU_ROWS],
+                                        TF_F32_STEP_LOSS_ATOL, TF_F32_STEP_GRAD_REL,
+                                        "transformer f32", control="bfloat16")
+    routes_f32 = _routes_step(dev, f32cfg, params, packed, route="split")
+    # at B=512 the bf16 kernel route is the control: its loss against the f32 torch route's
+    routes_f32["control_loss_diff"] = abs(routes["kernels"]["loss"] - routes_f32["torch"]["loss"])
+    log(f"transformer at B={packed.shape[0]}: the split route's loss {routes_f32['loss_diff']:.3g} "
+        f"off the f32 torch route's (envelope {TF_F32_STEP_LOSS_ATOL:.3g}); the bf16 kernel "
+        f"route's {routes_f32['control_loss_diff']:.3g}")
+    check(routes_f32["loss_diff"] <= TF_F32_STEP_LOSS_ATOL,
+          f"transformer at f32 compute: the split route's loss off by {routes_f32['loss_diff']}")
     del params
 
     res, launches, train_s = _train_main_path(cfg, tok, table, datasets, TF_DIR, dev,
@@ -2387,7 +2486,8 @@ def phase_transformer(dev, corpus) -> dict:
                      SearchEngine(res["artifacts_dir"], device="cpu"), TF_SERVE_ATOL)
     log(f"serve transformer: {len(requests)} /search responses match the CPU engine")
     return {"steps": steps, "launches": launches, "train_s": train_s, "first_step": first,
-            "routes": routes, "serve": served, "setup": (cfg, tok, table, datasets),
+            "routes": routes, "first_step_f32": first_f32, "routes_f32": routes_f32,
+            "serve": served, "setup": (cfg, tok, table, datasets),
             "steady_steps_per_sec": res["steady_steps_per_sec"],
             "steady_examples_per_sec": res["steady_examples_per_sec"],
             "loss_first_last": [res["step_losses"][0], res["step_losses"][-1]]}
@@ -3137,7 +3237,7 @@ def _wide_case(name, kernel, plain, lib, nbytes_ops, storage, k, width, q, full,
            "launches": launches, "ms": time_ms(lambda: kernel(q)),
            "plain_ms": time_ms(plain, reps=5, warmup=1), "library_ms": time_ms(lib)}
     rec["bound_ms"], rec["bound_by"] = bound(
-        *nbytes_ops, PEAK_F32_FLOPS if storage == torch.float32 else PEAK_BF16_FLOPS)
+        *nbytes_ops, PEAK_SPLIT_FLOPS if storage == torch.float32 else PEAK_BF16_FLOPS)
     log(f"{name} {shape}: {launches} launch(es) a call (blocks {rec['blocks']}), |diff| "
         f"{err:.3g}, queries "
         f"0, 17, 31 bit for bit their one-row launches; kernel {rec['ms']:.4f} ms, plain "
@@ -3485,7 +3585,7 @@ def _shard_kernels(docs, f32, s8, values, scales, dev, seed: int) -> dict:
         return ("segmax", lambda: segmax(qf, f32, rows)[0],
                 lambda: segmax_reference(qf, f32, rows)[0], SEGMAX_ATOL,
                 lambda: torch.matmul(f32, qf.T).view(-1, 128, b).amax(dim=1),
-                segmax_bound(b, H, rows, 4) + (PEAK_F32_FLOPS,), f"B={b} f32")
+                segmax_bound(b, H, rows, 4) + (PEAK_SPLIT_FLOPS,), f"B={b} f32")
 
     cases = [  # name, kernel, plain version, tolerance, library call, (bytes, ops, peak), what
         ("segmax", lambda: segmax(qb, docs, rows)[0], lambda: segmax_reference(qb, docs, rows)[0],
@@ -3862,7 +3962,7 @@ def phase_simple_hybrid(dev, triplets) -> dict:
     rec["library_ms"] = time_ms(
         lambda: torch.matmul(index._docs, qp.T).view(-1, 128, 8).amax(dim=1))
     rec["search_ms"] = time_ms(lambda: index.search(q_np[None], k=n), reps=5, warmup=1)
-    rec["bound_ms"], rec["bound_by"] = bound(*segmax_bound(8, H, npad, 4), PEAK_F32_FLOPS)
+    rec["bound_ms"], rec["bound_by"] = bound(*segmax_bound(8, H, npad, 4), PEAK_SPLIT_FLOPS)
     log(f"segmax {rec['shape']}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
         f"matmul+amax {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
         f"({rec['bound_by']}); the whole k=N search with its host fetch "
@@ -4167,6 +4267,11 @@ def main(argv) -> int:
         f"steady {tf['steady_steps_per_sec']:.3f} steps/s, "
         f"{tf['steady_examples_per_sec']:.1f} examples/s; request ms "
         f"{[round(ms, 3) for ms in tf['serve']['request_ms']]} ({card})")
+    routes = tf["routes_f32"]
+    log(f"transformer at f32 compute: first step card-vs-CPU {json.dumps(tf['first_step_f32'])}; "
+        f"split kernel route against torch route: |loss diff| {routes['loss_diff']:.3g}, step "
+        f"{routes['kernels']['step_ms']:.1f} ms against {routes['torch']['step_ms']:.1f} ms "
+        f"({card})")
     log(f"data parallel, configs/msmarco_inbatch.json, {DP_RANKS} ranks x 512 rows on one card "
         f"over gloo: {dp['pair']['steps_per_sec']:.3f} steps/s, "
         f"{dp['pair']['examples_per_sec']:.1f} examples/s; one process at B=1024: "

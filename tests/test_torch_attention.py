@@ -21,6 +21,7 @@ import torch
 
 from twotowermlretrieval_tpu.ops.attention import fused_attention as jax_fused_attention
 from twotowermlretrieval_tpu.ops.attention import use_fused_attention as jax_use_fused_attention
+from twotowermlretrieval_tpu_torch.ops import attention as port_attention
 from twotowermlretrieval_tpu_torch.ops.attention import (
     HEAD_DIMS,
     MAX_T,
@@ -31,6 +32,7 @@ from twotowermlretrieval_tpu_torch.ops.attention import (
     fused_attention,
     use_fused_attention,
 )
+from twotowermlretrieval_tpu_torch.utils.dtypes import SPLIT_PRODUCTS, matmul_split, split_bf16x3
 
 _TOL = {"float32": dict(fwd=(1e-5, 1e-6), grad=(1e-4, 1e-5)), "bfloat16": 2 ** -8}
 
@@ -103,6 +105,70 @@ def test_plain_attention_matches_jax_kernel_long_and_ragged(R, T, hd):
     assert all(np.isfinite(x).all() for x in got)
 
 
+@pytest.mark.parametrize("R,T,hd", [(4, 33, 16), (3, 130, 64)])
+def test_split_products_match_jax_kernel_at_f32_compute(monkeypatch, R, T, hd):
+    """The f32-compute kernels' arithmetic on the CPU: the plain forward and
+    backward with every product a split product (``matmul_split``, the six
+    leading products of three bf16 pieces, in place of ``matmul_f32``)
+    against the JAX kernel at f32 compute, within the f32 tolerance."""
+    monkeypatch.setattr(port_attention, "matmul_f32", lambda a, b, cdt: matmul_split(a, b))
+    case = _case(R, T, hd, seed=R + T + hd)
+    got = _port(*case, "float32", np.float32)
+    _assert_close(got, _jax(*case, "float32", np.float32), "float32")
+    assert all(np.isfinite(x).all() for x in got)
+
+
+@pytest.mark.parametrize("which", ["left", "right", "both"])
+def test_split_products_of_zero_pieces_can_be_skipped(which):
+    """A bf16 operand's mid and lo pieces are zero, so the kernels skip the
+    products that take them (a bf16 input at f32 compute): summing only the
+    others, in the same order, gives ``matmul_split``'s result bit for bit."""
+    rng = np.random.default_rng(len(which))
+    a = torch.from_numpy(rng.standard_normal((24, 40)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((40, 17)).astype(np.float32))
+    if which in ("left", "both"):
+        a = a.bfloat16().float()
+    if which in ("right", "both"):
+        b = b.bfloat16().float()
+    ap, bp = split_bf16x3(a), split_bf16x3(b)
+    pieces_a = 1 if which in ("left", "both") else 3
+    pieces_b = 1 if which in ("right", "both") else 3
+    assert all(not p.float().any() for p in ap[pieces_a:] + bp[pieces_b:])
+    kept = [(i, j) for i, j in SPLIT_PRODUCTS if i < pieces_a and j < pieces_b]
+    assert len(kept) == {"left": 3, "right": 3, "both": 1}[which]
+    out = None
+    for i, j in kept:
+        term = torch.matmul(ap[i].float(), bp[j].float())
+        out = term if out is None else out + term
+    full = matmul_split(a, b)
+    assert (out != 0).all()
+    assert torch.equal(out.view(torch.int32), full.view(torch.int32))
+
+
+@pytest.mark.parametrize("R,T,hd,in_bytes,backward,cdt,ms,by", [
+    (32, 512, 64, 4, False, "float32", 0.013028, "operations"),
+    (32, 512, 64, 4, True, "float32", 0.032571, "operations"),
+    (4096, 128, 32, 4, False, "float32", 0.080756, "bytes"),
+    (4096, 128, 32, 4, True, "float32", 0.140853, "bytes"),
+    (4096, 128, 32, 2, False, "float32", 0.050707, "bytes"),
+    (4096, 128, 32, 2, True, "float32", 0.110805, "bytes"),
+    (32, 512, 64, 2, True, "bfloat16", 0.006906, "bytes"),
+])
+def test_attention_bound_counts_split_products(R, T, hd, in_bytes, backward, cdt, ms, by):
+    """The least time of a call on an H100 SXM (3.35 TB/s, 989 TFLOP/s of
+    bf16 products): at f32 compute each product counts its split's bf16
+    products, six for two f32 operands, three with one bf16 input, one
+    with two (S at bf16 inputs: forward 1 + 3, backward 1 + 3 + 3 + 6 + 3);
+    at bf16 compute one each."""
+    nbytes, ops = port_attention.attention_bound(R, T, hd, in_bytes, backward, cdt)
+    one = 2 * R * T * T * hd
+    products = {(4, False): 12, (4, True): 30, (2, False): 4, (2, True): 16}[in_bytes, backward]
+    assert ops == one * (products if cdt == "float32" else 2 + 3 * backward)
+    t_bytes, t_ops = nbytes / 3.35e12 * 1e3, ops / 989e12 * 1e3
+    assert max(t_bytes, t_ops) == pytest.approx(ms, rel=1e-4)
+    assert (t_bytes >= t_ops) == (by == "bytes")
+
+
 def _staged_row(hd):  # a bf16 row in shared memory: the hd depth padded to 16, 16 bytes more
     return (max(hd, 16) + 8) * 2
 
@@ -116,9 +182,12 @@ def test_attention_plan_every_length(hd):
     the backward's first launch stage V over K only where both do not fit,
     and split a tile's keys over two warps only where one block fills the
     SM.
-    f32 compute stages a row's K and V as f32, the whole T up to 256 keys
-    and chunks of 256 beyond, so it too has a layout at every T up to 512
-    and every head width."""
+    f32 compute (split products) streams K and V in chunks of up to 64
+    keys, each copied as f32 and split into three bf16 planes, beside query
+    tiles as large as fit with their f32 scores; its second launch keeps
+    three planes of each of K, V, Q and dO, and of P, then dS, in one
+    region. It too has a layout at
+    every T up to 512 and every head width."""
     limit = 232_448
     row = _staged_row(hd)
     for T in range(1, MAX_T + 1):
@@ -142,16 +211,31 @@ def test_attention_plan_every_length(hd):
         assert kv["smem"] == 2 * kt * row + 2 * (2 * kt * row + -(-12 * kt // 16) * 16) \
             + 2 * -(-kt * (kt + 8) * 2 // 16) * 16 + -(-kt * 4 // 16) * 16 <= limit
         f32 = attention_plan(T, hd, "float32")
-        assert f32 is not None and f32["route"] == "fma", T
-        kc = min(T, 256)
-        for name, vecs in (("fwd", 1), ("dq", 1), ("dkv", 3)):  # K, V (Q, dO) chunks, [T] vectors
-            assert f32[name]["kc"] == kc and f32[name]["rows"] == min(128, -(-T // 32) * 32)
-            assert f32[name]["smem"] == (2 * kc * hd + vecs * T) * 4 <= limit
+        assert f32 is not None and f32["route"] == "split", T
+        kc = min(64, Tp)
+        tops = [min(128, Tp)] + [r for r in (64, 32, 16) if r < min(128, Tp)]
+
+        def split_smem(rows):  # a chunk as copied (f32), its three planes, scores, bias
+            return kc * hd * 4 + 3 * kc * row + rows * Tp * 4 + Tp * 4
+
+        for p_ in (f32["fwd"], f32["dq"]):
+            assert p_["kc"] == kc and p_["rows"] in tops
+            assert p_["smem"] == split_smem(p_["rows"]) <= limit
+            # the largest query tile that fits
+            assert all(split_smem(r) > limit for r in tops if r > p_["rows"])
+        kt = f32["dkv"]["rows"]
+        assert kt == min(64, Tp)
+        # K, V, Q and dO planes, Q and dO as copied, two buffers of
+        # statistics, one region of P (then dS) planes, the bias
+        assert f32["dkv"]["smem"] == 4 * 3 * kt * row + 2 * kt * hd * 4 + 2 * 12 * kt \
+            + 3 * kt * (kt + 8) * 2 + 4 * kt <= limit
     wide = attention_plan(512, 64, "bfloat16")  # V over K keeps 64-row tiles
     assert wide["fwd"]["rows"] == wide["dq"]["rows"] == 64 and wide["dq"]["kv_shared"]
     assert wide["fwd"]["ks"] == wide["dq"]["ks"] == 2
-    assert attention_plan(443, 64, "float32")["fwd"]["kc"] == 256  # chunked past 256 keys
-    assert attention_plan(512, 64, "float32")["dkv"]["smem"] == (2 * 256 * 64 + 3 * 512) * 4
+    f32 = attention_plan(512, 64, "float32")  # eight chunks of 64 keys, 64-row tiles
+    assert (f32["fwd"]["rows"], f32["fwd"]["kc"], f32["fwd"]["smem"]) == (64, 64, 177_152)
+    assert f32["dkv"]["smem"] == 172_800
+    assert attention_plan(128, 32, "float32")["fwd"]["rows"] == 128  # config 5's doc tower
 
 
 def test_bf16_inputs_without_input_dtype_give_bf16_gradients():

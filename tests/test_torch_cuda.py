@@ -1139,11 +1139,64 @@ def test_attention_tensor_core_kernels_every_shape(dev, T, hd, in_dtype):
                                atol=4 * _ATTN_REL["bfloat16"])
 
 
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16], ids=["f32-in", "bf16-in"])
+@pytest.mark.parametrize("hd", [8, 32, 64])
+@pytest.mark.parametrize("T", [1, 33, 128, 130, 512])
+def test_attention_split_kernels_every_shape(dev, T, hd, in_dtype):
+    """f32 compute (the split tensor-core kernels: six products of three
+    bf16 pieces) at ragged and whole tiles and chunks up to T = 512, hd = 8
+    (depth padded to 16) to 64, f32 and bf16 inputs: one forward and one
+    backward launch a call on the split route, both within the f32
+    tolerance of their plain versions, row 0 (every key masked) uniform
+    over its T keys, two calls bit-identical."""
+    R = 5
+    args, do = _attention_case(dev, R, T, hd, in_dtype, seed=T * hd + 1)
+    scale = float(1.0 / np.sqrt(hd))
+    before = (attention_fwd.launches, attention_bwd.launches,
+              attention_fwd.by_route["split"], attention_bwd.by_route["split"])
+    outs = [attention_fwd(*args, scale, "float32") for _ in range(2)]
+    grads = [attention_bwd(*args, do, scale, "float32") for _ in range(2)]
+    assert (attention_fwd.launches, attention_bwd.launches, attention_fwd.by_route["split"],
+            attention_bwd.by_route["split"]) == tuple(n + 2 for n in before)
+    assert torch.equal(outs[0], outs[1])
+    assert all(torch.equal(x, y) for x, y in zip(grads[0], grads[1]))
+    _close(outs[0], attention_fwd_reference(*args, scale, "float32"), _ATTN_REL["float32"], "out")
+    for name, g, r in zip("qkv", grads[0], attention_bwd_reference(*args, do, scale, "float32")):
+        _close(g, r, _ATTN_REL["float32"], f"d{name}")
+    assert all(bool(torch.isfinite(t).all()) for t in (outs[0], *grads[0]))
+    v0 = args[2][0].float()
+    torch.testing.assert_close(outs[0][0], v0.mean(0).expand(T, hd), rtol=0,
+                               atol=4 * _ATTN_REL["float32"] * v0.abs().max().item())
+
+
+@pytest.mark.parametrize("hd", [8, 16, 32, 64])
+def test_attention_split_kernels_every_layout(dev, hd):
+    """Every layout attention_plan can pick at f32 compute for this head
+    width (query tile, chunk and key tile; one T each, the largest that
+    takes it) launches, and its forward and backward hold their plain
+    versions within the f32 tolerance."""
+    from twotowermlretrieval_tpu_torch.ops.attention import MAX_T, attention_plan
+
+    layouts = {}
+    for T in range(1, MAX_T + 1):
+        p = attention_plan(T, hd, "float32")
+        layouts[(p["fwd"]["rows"], p["fwd"]["kc"], p["dkv"]["rows"])] = T
+    assert len(layouts) >= 8
+    for T in layouts.values():
+        args, do = _attention_case(dev, 3, T, hd, torch.float32, seed=T + hd)
+        _close(attention_fwd(*args, 0.3, "float32"),
+               attention_fwd_reference(*args, 0.3, "float32"), _ATTN_REL["float32"], f"out T={T}")
+        for name, g, r in zip("qkv", attention_bwd(*args, do, 0.3, "float32"),
+                              attention_bwd_reference(*args, do, 0.3, "float32")):
+            _close(g, r, _ATTN_REL["float32"], f"d{name} T={T}")
+
+
 @pytest.mark.parametrize("T", [444, 480, 512])
 def test_attention_f32_compute_hd64_long(dev, T):
-    """f32 compute at hd = 64 past the 256 keys one stage holds: forward and
-    backward against their plain versions at the f32 tolerance, rows of
-    length 0, 1 and T among them, two calls bit-identical."""
+    """f32 compute at hd = 64 over seven and eight chunks of 64 keys (the
+    last one partial at T = 444 and 480): forward and backward against their
+    plain versions at the f32 tolerance, rows of length 0, 1 and T among
+    them, two calls bit-identical."""
     args, do = _attention_case(dev, 6, T, 64, torch.float32, seed=T)
     scale = 0.125
     out = attention_fwd(*args, scale, "float32")
@@ -1191,7 +1244,7 @@ def test_attention_wrappers_reject_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):
         attention_bwd(q, k, v, bias, do[:, :8], 0.2)
     # hd = 64 at T = 444 and 512: both compute dtypes take it (f32 compute
-    # stages its keys and values in chunks of 256)
+    # streams its keys and values in chunks of 64)
     for T in (444, 512):
         (wq, wk, wv, wbias), wdo = _attention_case(dev, 3, T, 64, torch.float32, seed=T)
         for cdt in ("bfloat16", "float32"):

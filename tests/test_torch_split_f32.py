@@ -3,8 +3,10 @@
 ``csrc/doc_mma.cuh`` scores an f32 corpus on the tensor cores: each f32 value
 splits into three bf16 pieces (hi, mid, lo) and a score takes the six leading
 products of the pieces, as XLA's HIGHEST precision does on the TPU's bf16
-units. ``ops/topk.py`` ``split_bf16x3`` and ``split_scores`` are that
-arithmetic in plain PyTorch. Here they are held against what the header
+units; ``csrc/attention.cu`` forms every product at f32 compute the same
+way. ``utils/dtypes.py`` ``split_bf16x3`` and ``matmul_split`` and
+``ops/topk.py`` ``split_scores`` are that arithmetic in plain PyTorch. Here
+they are held against what the header
 states: the pieces sum back to the input exactly, and a six-product score is
 within ``SPLIT_DROPPED_REL * sum_k |q_k d_k|`` (2^-23 (1 + 2^-7)) of the exact
 product, besides the rounding of an f32 sum, which at most ``n 2^-24 sum_k
@@ -20,12 +22,12 @@ import pytest
 import torch
 
 from twotowermlretrieval_tpu.ops.topk import fused_topk_segmax as jax_fused_topk_segmax
-from twotowermlretrieval_tpu_torch.ops.topk import (
+from twotowermlretrieval_tpu_torch.ops.topk import fused_topk_segmax, split_scores
+from twotowermlretrieval_tpu_torch.utils.dtypes import (
     SPLIT_DROPPED_REL,
     SPLIT_PRODUCTS,
-    fused_topk_segmax,
+    matmul_split,
     split_bf16x3,
-    split_scores,
 )
 
 U = 2.0 ** -24  # f32's unit roundoff
@@ -117,3 +119,23 @@ def test_split_scores_rank_as_jax_segmax(N, tile_n):
                                dim=1, descending=True, stable=True)
     np.testing.assert_array_equal(s_ids[:, :50].numpy(), np.asarray(j_ids))
     np.testing.assert_allclose(s_vals[:, :50].numpy(), np.asarray(j_vals), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("M,K,N", [(16, 8, 24), (33, 64, 130), (7, 512, 64)])
+def test_matmul_split_within_the_stated_bound(M, K, N):
+    """``matmul_split(a, b)`` (the f32 attention kernels' products) is
+    within SPLIT_DROPPED_REL * sum_k |a_k b_k| of the exact product, plus
+    the rounding of its f32 sums (six products of K terms each, then five
+    adds), over values of both signs and a spread of magnitudes; taking
+    hi.hi alone is far outside that bound."""
+    rng = np.random.default_rng(M * K + N)
+    a = (rng.standard_normal((M, K)) * np.exp2(rng.uniform(-4, 4, (M, K)))).astype(np.float32)
+    b = (rng.standard_normal((K, N)) * np.exp2(rng.uniform(-4, 4, (K, N)))).astype(np.float32)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    mass = np.abs(a).astype(np.float64) @ np.abs(b).astype(np.float64)
+    got = matmul_split(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    bound = (SPLIT_DROPPED_REL + (6 * K + 5) * U) * mass
+    assert (np.abs(got.numpy() - exact) <= bound).all()
+    hi_hi = split_bf16x3(torch.from_numpy(a))[0].double() @ split_bf16x3(torch.from_numpy(b))[0].double()
+    assert (np.abs(hi_hi.numpy() - exact) > SPLIT_DROPPED_REL * mass).any()

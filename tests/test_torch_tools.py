@@ -18,10 +18,10 @@ from twotowermlretrieval_tpu.tools import download_dataset as jax_download
 from twotowermlretrieval_tpu.tools import inspect_data as jax_inspect
 from twotowermlretrieval_tpu.tools import loadtest as jax_loadtest
 from twotowermlretrieval_tpu.tools import prepare_embeddings as jax_prepare
-from twotowermlretrieval_tpu_torch.tools import bench_f32_scans
+from twotowermlretrieval_tpu_torch.tools import bench_f32_attention, bench_f32_scans
 from twotowermlretrieval_tpu_torch.tools import bench_rnn_variants as bench
 from twotowermlretrieval_tpu_torch.tools import download_dataset, e2e_demo, inspect_data
-from twotowermlretrieval_tpu_torch.tools import loadtest, prepare_embeddings
+from twotowermlretrieval_tpu_torch.tools import loadtest, prepare_embeddings, smoke_phase_times
 
 
 def _run_main(monkeypatch, main, argv):
@@ -235,6 +235,55 @@ def test_e2e_demo_smoke_on_cpu(monkeypatch, tmp_path, capsys):
     assert all(n == 0 for counts in res["launches"].values() for n in counts.values())
     assert "device cpu" in res["device"]
     assert "E2E_DEMO_RESULT" in (tmp_path / "log.md").read_text()
+
+
+def test_bench_f32_attention_on_cpu(tmp_path, capsys):
+    """The f32 attention harness with the plain versions: a JSON line per
+    shape (the toy shapes, a bf16-input one among them) whose kernel and
+    plain version are the same function (no difference, repeatable), with
+    times, the bound (the split products counted by operand dtype) and the
+    library call; the --out list holds the same records."""
+    out = tmp_path / "attn.json"
+    assert bench_f32_attention.main(["--device", "cpu", "--out", str(out)]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    assert lines == json.loads(out.read_text())
+    assert [(r["R"], r["T"], r["hd"], r["input"]) for r in lines] == [
+        (16, 16, 8, "float32"), (8, 33, 16, "float32"), (8, 33, 16, "bfloat16")]
+    for r in lines:
+        assert r["fwd_rel_err"] == 0 and r["bwd_rel_err"] == 0 and r["bitwise_repeatable"]
+        assert r["compute"] == "float32" and r["card"] == "the host (plain versions)"
+        for key in ("fwd_ms", "bwd_ms", "bf16_compute_fwd_ms", "sdpa_fwd_ms", "fwd_bound_ms",
+                    "bwd_bound_ms"):
+            assert r[key] > 0, key
+        assert r["fwd_bound_by"] in ("bytes", "operations")
+    # bf16 inputs: half the input bytes, and fewer split products
+    f32_in, bf16_in = lines[1:]
+    for name in ("fwd", "bwd"):
+        assert bf16_in[f"{name}_bound_ms"] < f32_in[f"{name}_bound_ms"]
+
+
+def test_smoke_phase_times_compare(tmp_path, capsys):
+    """``--compare`` reads ``--kernel-phases`` files: each record both sides
+    hold, by phase, kernel and shape (a phase's lone record too), placed by
+    the new side's median against the base side's range; a record only one
+    side holds is left out."""
+    def write(name, segmax_ms, wide_ms, extra=False):
+        recs = {"phase_kernels": {"segmax": [{"shape": "B=16", "ms": segmax_ms},
+                                             {"shape": "B=1", "ms": 0.5}]},
+                "phase_wide_s8": {"shape": "B=32", "ms": wide_ms, "rows": [1, 2]}}
+        if extra:
+            recs["phase_kernels"]["segmax"].append({"shape": "B=32", "ms": 9.0})
+        path = tmp_path / name
+        path.write_text(json.dumps({"records": recs}))
+        return str(path)
+
+    base = [write("p1.json", 1.0, 2.0), write("p2.json", 1.2, 2.1)]
+    new = [write("c1.json", 1.3, 1.0, extra=True), write("c2.json", 1.4, 1.2)]
+    assert smoke_phase_times.main(["--compare", *base, "--", *new]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert json.loads(lines[-1]) == {"inside": 1, "faster": 1, "slower": 1}
+    assert [line.split()[0] for line in lines[:-1]] == ["inside", "slower", "faster"]
+    assert "new median 1.3500 ms base 1.0000-1.2000" in lines[1]
 
 
 def test_bench_f32_scans_on_cpu(tmp_path):

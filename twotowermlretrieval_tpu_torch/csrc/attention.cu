@@ -65,25 +65,54 @@
 // resumed training run relies on. ops/attention.py (attention_plan) picks
 // the tiles and mirrors the shared-memory layouts below.
 //
-// f32 compute keeps the CUDA-core kernels: TF32 tensor cores would round
-// the operands, and the JAX f32 path asks for HIGHEST precision. One block
-// per (row r, tile of up to 128 query rows) stages row r's keys and values
-// in shared memory as f32, the whole T up to 256 keys and chunks of 256
-// beyond (staged again for each pass, so every T up to 512 fits at every
-// head width); each thread owns one query row and recomputes its scores
-// from shared memory in three passes (maximum, sum, output), each over the
-// keys in order. The backward is the same two launches as above, one thread
-// per query (then key) row, every sum in a fixed order.
+// f32 compute (the JAX f32 path asks for Precision.HIGHEST, which the
+// TPU's MXU computes from bf16 pieces in several passes) runs the same
+// structure on the same tensor cores with split operands: every f32 value
+// x is three bf16 pieces, x = hi + mid + lo exactly (doc_mma.cuh, "The f32
+// path", which states the error bound), and every product sums the six
+// leading products of the pieces, mid.mid, lo.hi, hi.lo, mid.hi, hi.mid,
+// hi.hi, each on mma.sync m16n8k16 with f32 accumulators, each over every
+// tile of a group before the next (consecutive mma.sync to different
+// accumulators). A bf16 input's mid and lo are zero, and the products
+// that take them are skipped. Row r's keys and values stream through a
+// ring of chunks of up to 64 keys: each chunk is copied with cp.async
+// while the one before is used, then split once into three bf16 planes
+// ([key][hd + 8] each) that every warp reads through ldmatrix; each
+// score is computed once and kept in shared memory as f32, as above, and
+// only the chunks stream, so every T up to 512 fits at every head width
+// (query tiles of 16 to 128 rows, as large as fit beside their scores).
+// The query tile's fragments (Q, dO) split in registers
+// straight from device memory, P and dS in registers from the
+// accumulator layout (the A layout of a k16 step).
+// - Forward: K chunks (scores, maximum), the row sums in shared memory,
+//   V chunks (O += P V).
+// - Backward, launch 1: K chunks (scores), V chunks twice (dP for the row
+//   term, then, from the last chunk back, for dS) and K chunks again (dQ
+//   += dS K); launch 2 per key tile of up to 64, as above, K, V and each
+//   query tile's Q, dO and statistics copied with cp.async, P and then dS
+//   taking turns in one region of three bf16 planes (dV += P^T dO, then
+//   dK += dS^T Q).
+// The scale, bias, softmax and ds steps, the -inf past T, the uniform row
+// of a fully masked query and the fixed summation order are the bf16
+// route's. Six products make the operations six times the bf16 route's at
+// a sixth of its rate (164.8 TFLOP/s): bytes still bound R = 4096, T =
+// 128, hd = 32; operations bind T = 512, hd = 64 (0.013 ms forward, 0.033
+// backward at R = 32), where the route is latency-bound instead (one block
+// of 4 warps a SM beside 64 rows of T = 512 scores), so the kernels take
+// two blocks a SM wherever hd <= 32. ops/attention.py (attention_plan)
+// mirrors split_layout and dkv_split_layout below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "doc_mma.cuh"
 #include "recur_chain.cuh"
 
 namespace {
 
 using recur_chain::cp_async16;
+using recur_chain::cp_async4;
 using recur_chain::cp_async_commit;
 using recur_chain::cp_async_wait;
 using recur_chain::ldsm_x2_t;
@@ -91,12 +120,9 @@ using recur_chain::ldsm_x4;
 using recur_chain::ldsm_x4_t;
 using recur_chain::mma_bf16;
 
-constexpr int TILE = 128;  // f32 compute: query (or key) rows per block, one per thread
 constexpr int MAX_T = 512;
 constexpr int SMEM_LIMIT = recur_chain::SMEM_LIMIT;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // the score of one (query, key) pair: (dot * scale) + bias, each rounded
 __device__ __forceinline__ float score(float dot, float scale, float bias) {
@@ -106,244 +132,6 @@ __device__ __forceinline__ float score(float dot, float scale, float bias) {
 // p * (dp - row) * scale, each step rounded as the TPU kernel's
 __device__ __forceinline__ float dscore(float p, float dp, float row, float scale) {
   return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, row)), scale);
-}
-
-// ---------------------------------------------------------------------------
-// f32 compute: full f32 products on the CUDA cores
-// ---------------------------------------------------------------------------
-
-// n elements of src into dst as f32
-template <typename TIn>
-__device__ __forceinline__ void stage(const TIn* __restrict__ src, int n, float* dst) {
-  for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = to_f32(src[e]);
-}
-
-template <typename TIn, int HD>
-__device__ __forceinline__ void load_row(const TIn* __restrict__ src, float (&dst)[HD]) {
-#pragma unroll
-  for (int d = 0; d < HD; ++d) dst[d] = to_f32(src[d]);
-}
-
-// f32 dot product of a register row and a 16-byte aligned shared-memory
-// row, summed in the order d = 0..HD-1 (fmaf is symmetric in its first two
-// arguments, so dot(a, b) and dot(b, a) are the same float)
-template <int HD>
-__device__ __forceinline__ float dot(const float (&a)[HD], const float* __restrict__ b) {
-  float s = 0.f;
-#pragma unroll
-  for (int d = 0; d < HD; d += 4) {
-    const float4 w = *reinterpret_cast<const float4*>(b + d);
-    s = fmaf(a[d], w.x, s);
-    s = fmaf(a[d + 1], w.y, s);
-    s = fmaf(a[d + 2], w.z, s);
-    s = fmaf(a[d + 3], w.w, s);
-  }
-  return s;
-}
-
-// y += a * x over a shared-memory row x
-template <int HD>
-__device__ __forceinline__ void axpy(float a, const float* __restrict__ x, float (&y)[HD]) {
-#pragma unroll
-  for (int d = 0; d < HD; d += 4) {
-    const float4 w = *reinterpret_cast<const float4*>(x + d);
-    y[d] = fmaf(a, w.x, y[d]);
-    y[d + 1] = fmaf(a, w.y, y[d + 1]);
-    y[d + 2] = fmaf(a, w.z, y[d + 2]);
-    y[d + 3] = fmaf(a, w.w, y[d + 3]);
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ void store_row(const float (&src)[HD], float* __restrict__ dst) {
-#pragma unroll
-  for (int d = 0; d < HD; ++d) dst[d] = src[d];
-}
-
-// Keys (or, in the backward's second launch, query rows) of the f32 kernels
-// staged in shared memory at a time: the whole T where T <= F32_KEYS, else
-// chunks of F32_KEYS, staged again for every pass over the keys. Each pass
-// still walks the keys in order 0 .. T-1, so the sums and their rounding
-// are those of one whole-T stage.
-constexpr int F32_KEYS = 256;
-
-// Shared memory of the f32 kernels (ops/attention.py attention_plan mirrors
-// it): two [kc][hd] f32 operands and `vecs` [T] f32 vectors.
-__host__ __device__ constexpr size_t f32_smem(int T, int hd, int vecs) {
-  return (2 * (size_t)(T < F32_KEYS ? T : F32_KEYS) * hd + (size_t)vecs * T) * sizeof(float);
-}
-
-// Rows c0 .. c0 + kc - 1 (at most T) of two [T][HD] operands into a_s and
-// b_s as f32; where one chunk holds the whole T, only its first call
-// (c0 = 0, first) stages. Every thread of the block calls it.
-template <typename TA, typename TB, int HD>
-__device__ __forceinline__ void stage_chunk(const TA* __restrict__ a, const TB* __restrict__ b,
-                                            int T, int c0, int kc, bool first, float* a_s,
-                                            float* b_s) {
-  if (kc >= T && !first) return;
-  const int n = (T - c0 < kc ? T - c0 : kc) * HD;
-  __syncthreads();  // the previous chunk's reads are complete
-  stage<TA>(a + (size_t)c0 * HD, n, a_s);
-  if (b != nullptr) stage<TB>(b + (size_t)c0 * HD, n, b_s);
-  __syncthreads();
-}
-
-template <typename TIn, int HD>
-__global__ void __launch_bounds__(TILE) attention_fwd_kernel(
-    int T, float scale, const TIn* __restrict__ q, const TIn* __restrict__ k,
-    const TIn* __restrict__ v, const float* __restrict__ bias, float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  const int kc = T < F32_KEYS ? T : F32_KEYS;
-  float* k_s = smem;                   // [kc][HD]
-  float* v_s = k_s + (size_t)kc * HD;  // [kc][HD]
-  float* b_s = v_s + (size_t)kc * HD;  // [T]
-  const size_t r = blockIdx.x;
-  const size_t base = r * T * HD;
-  for (int j = threadIdx.x; j < T; j += blockDim.x) b_s[j] = bias[r * T + j];
-  const int i = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool live = i < T;  // rows past T stay for the barriers
-
-  float qr[HD];
-  load_row<TIn, HD>(q + base + (size_t)(live ? i : 0) * HD, qr);
-  float m = __int_as_float(0xff800000);  // -inf
-  for (int c0 = 0; c0 < T; c0 += kc) {
-    stage_chunk<TIn, TIn, HD>(k + base, v + base, T, c0, kc, c0 == 0, k_s, v_s);
-    const int n = T - c0 < kc ? T - c0 : kc;
-    for (int j = 0; j < n; ++j) m = fmaxf(m, score(dot<HD>(qr, k_s + j * HD), scale, b_s[c0 + j]));
-  }
-  float l = 0.f;
-  for (int c0 = 0; c0 < T; c0 += kc) {
-    stage_chunk<TIn, TIn, HD>(k + base, v + base, T, c0, kc, false, k_s, v_s);
-    const int n = T - c0 < kc ? T - c0 : kc;
-    for (int j = 0; j < n; ++j)
-      l += expf(score(dot<HD>(qr, k_s + j * HD), scale, b_s[c0 + j]) - m);
-  }
-  float o[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) o[d] = 0.f;
-  for (int c0 = 0; c0 < T; c0 += kc) {
-    stage_chunk<TIn, TIn, HD>(k + base, v + base, T, c0, kc, false, k_s, v_s);
-    const int n = T - c0 < kc ? T - c0 : kc;
-    for (int j = 0; j < n; ++j) {
-      const float e = expf(score(dot<HD>(qr, k_s + j * HD), scale, b_s[c0 + j]) - m);
-      axpy<HD>(__fdiv_rn(e, l), v_s + j * HD, o);
-    }
-  }
-  if (live) store_row<HD>(o, out + base + (size_t)i * HD);
-}
-
-// Backward, launch 1 (per query row): the row statistics and dq.
-template <typename TIn, int HD>
-__global__ void __launch_bounds__(TILE) attention_bwd_dq_kernel(
-    int R, int T, float scale, const TIn* __restrict__ q, const TIn* __restrict__ k,
-    const TIn* __restrict__ v, const float* __restrict__ bias, const float* __restrict__ dout,
-    float* __restrict__ dq, float* __restrict__ stats) {
-  extern __shared__ __align__(16) float smem[];
-  const int kc = T < F32_KEYS ? T : F32_KEYS;
-  float* k_s = smem;                   // [kc][HD]
-  float* v_s = k_s + (size_t)kc * HD;  // [kc][HD]
-  float* b_s = v_s + (size_t)kc * HD;  // [T]
-  const size_t r = blockIdx.x;
-  const size_t base = r * T * HD;
-  for (int j = threadIdx.x; j < T; j += blockDim.x) b_s[j] = bias[r * T + j];
-  const int i = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool live = i < T;  // rows past T stay for the barriers
-  const int li = live ? i : 0;
-
-  float qr[HD], dor[HD];
-  load_row<TIn, HD>(q + base + (size_t)li * HD, qr);
-  load_row<float, HD>(dout + base + (size_t)li * HD, dor);
-  float m = __int_as_float(0xff800000);  // -inf
-  for (int c0 = 0; c0 < T; c0 += kc) {
-    stage_chunk<TIn, TIn, HD>(k + base, v + base, T, c0, kc, c0 == 0, k_s, v_s);
-    const int n = T - c0 < kc ? T - c0 : kc;
-    for (int j = 0; j < n; ++j) m = fmaxf(m, score(dot<HD>(qr, k_s + j * HD), scale, b_s[c0 + j]));
-  }
-  float l = 0.f;
-  for (int c0 = 0; c0 < T; c0 += kc) {
-    stage_chunk<TIn, TIn, HD>(k + base, v + base, T, c0, kc, false, k_s, v_s);
-    const int n = T - c0 < kc ? T - c0 : kc;
-    for (int j = 0; j < n; ++j)
-      l += expf(score(dot<HD>(qr, k_s + j * HD), scale, b_s[c0 + j]) - m);
-  }
-  float row = 0.f;  // rowsum(dp * p), p in f32
-  for (int c0 = 0; c0 < T; c0 += kc) {
-    stage_chunk<TIn, TIn, HD>(k + base, v + base, T, c0, kc, false, k_s, v_s);
-    const int n = T - c0 < kc ? T - c0 : kc;
-    for (int j = 0; j < n; ++j) {
-      const float p =
-          __fdiv_rn(expf(score(dot<HD>(qr, k_s + j * HD), scale, b_s[c0 + j]) - m), l);
-      row += dot<HD>(dor, v_s + j * HD) * p;
-    }
-  }
-  float g[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) g[d] = 0.f;
-  for (int c0 = 0; c0 < T; c0 += kc) {
-    stage_chunk<TIn, TIn, HD>(k + base, v + base, T, c0, kc, false, k_s, v_s);
-    const int n = T - c0 < kc ? T - c0 : kc;
-    for (int j = 0; j < n; ++j) {
-      const float p =
-          __fdiv_rn(expf(score(dot<HD>(qr, k_s + j * HD), scale, b_s[c0 + j]) - m), l);
-      const float ds = dscore(p, dot<HD>(dor, v_s + j * HD), row, scale);
-      axpy<HD>(ds, k_s + j * HD, g);
-    }
-  }
-  if (!live) return;
-  store_row<HD>(g, dq + base + (size_t)i * HD);
-  const size_t at = r * T + i, plane = (size_t)R * T;
-  stats[at] = m;
-  stats[plane + at] = l;
-  stats[2 * plane + at] = row;
-}
-
-// Backward, launch 2 (per key row): dk and dv, summed over the query rows in order.
-template <typename TIn, int HD>
-__global__ void __launch_bounds__(TILE) attention_bwd_dkv_kernel(
-    int R, int T, float scale, const TIn* __restrict__ q, const TIn* __restrict__ k,
-    const TIn* __restrict__ v, const float* __restrict__ bias, const float* __restrict__ dout,
-    float* __restrict__ dk, float* __restrict__ dv, const float* __restrict__ stats) {
-  extern __shared__ __align__(16) float smem[];
-  const int kc = T < F32_KEYS ? T : F32_KEYS;  // query rows a chunk
-  float* q_s = smem;                     // [kc][HD]
-  float* do_s = q_s + (size_t)kc * HD;   // [kc][HD]
-  float* m_s = do_s + (size_t)kc * HD;   // [T] row maxima
-  float* l_s = m_s + T;                  // [T] row sums
-  float* row_s = l_s + T;                // [T] rowsum(dp * p)
-  const size_t r = blockIdx.x;
-  const size_t base = r * T * HD;
-  const size_t plane = (size_t)R * T;
-  for (int i = threadIdx.x; i < T; i += blockDim.x) {
-    m_s[i] = stats[r * T + i];
-    l_s[i] = stats[plane + r * T + i];
-    row_s[i] = stats[2 * plane + r * T + i];
-  }
-  const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool live = j < T;  // rows past T stay for the barriers
-  const int lj = live ? j : 0;
-
-  float kr[HD], vr[HD];
-  load_row<TIn, HD>(k + base + (size_t)lj * HD, kr);
-  load_row<TIn, HD>(v + base + (size_t)lj * HD, vr);
-  const float bj = bias[r * T + lj];
-  float gk[HD], gv[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) gk[d] = gv[d] = 0.f;
-  for (int c0 = 0; c0 < T; c0 += kc) {
-    stage_chunk<TIn, float, HD>(q + base, dout + base, T, c0, kc, c0 == 0, q_s, do_s);
-    const int n = T - c0 < kc ? T - c0 : kc;
-    for (int ii = 0; ii < n; ++ii) {
-      const int i = c0 + ii;
-      const float p =
-          __fdiv_rn(expf(score(dot<HD>(kr, q_s + ii * HD), scale, bj) - m_s[i]), l_s[i]);
-      axpy<HD>(p, do_s + ii * HD, gv);
-      const float ds = dscore(p, dot<HD>(vr, do_s + ii * HD), row_s[i], scale);
-      axpy<HD>(ds, q_s + ii * HD, gk);
-    }
-  }
-  if (!live) return;
-  store_row<HD>(gk, dk + base + (size_t)j * HD);
-  store_row<HD>(gv, dv + base + (size_t)j * HD);
 }
 
 // ---------------------------------------------------------------------------
@@ -698,7 +486,7 @@ __global__ void __launch_bounds__(256) attention_fwd_mma(int T, int rows, int kv
   using D = Dims<HD>;
   const int Tp = (T + 15) / 16 * 16;
   const FwdLayout L = fwd_layout<HD>(Tp, rows, kv_shared);
-  extern __shared__ __align__(16) unsigned char tsm[];  // (`smem` is the f32 kernels' float[])
+  extern __shared__ __align__(16) unsigned char tsm[];
   bf16* q_s = reinterpret_cast<bf16*>(tsm + L.q);
   bf16* k_s = reinterpret_cast<bf16*>(tsm + L.k);
   bf16* v_s = reinterpret_cast<bf16*>(tsm + L.v);
@@ -772,7 +560,7 @@ __global__ void __launch_bounds__(256) attention_bwd_dq_mma(
   using D = Dims<HD>;
   const int Tp = (T + 15) / 16 * 16;
   const DqLayout L = dq_layout<HD>(Tp, rows, kv_shared);
-  extern __shared__ __align__(16) unsigned char tsm[];  // (`smem` is the f32 kernels' float[])
+  extern __shared__ __align__(16) unsigned char tsm[];
   bf16* q_s = reinterpret_cast<bf16*>(tsm + L.q);
   bf16* d_s = reinterpret_cast<bf16*>(tsm + L.d);
   bf16* k_s = reinterpret_cast<bf16*>(tsm + L.k);
@@ -889,7 +677,7 @@ __global__ void __launch_bounds__(128) attention_bwd_dkv_mma(
     float* __restrict__ dk, float* __restrict__ dv, const float* __restrict__ stats) {
   using D = Dims<HD>;
   const DkvLayout L = dkv_layout<HD>(kt);
-  extern __shared__ __align__(16) unsigned char tsm[];  // (`smem` is the f32 kernels' float[])
+  extern __shared__ __align__(16) unsigned char tsm[];
   bf16* k_s = reinterpret_cast<bf16*>(tsm + L.k);
   bf16* v_s = reinterpret_cast<bf16*>(tsm + L.v);
   bf16* p_s = reinterpret_cast<bf16*>(tsm + L.p);    // [query][key] bf16
@@ -1005,6 +793,706 @@ __global__ void __launch_bounds__(128) attention_bwd_dkv_mma(
       }
   }
 }
+// ---------------------------------------------------------------------------
+// f32 compute: split bf16 products on the tensor cores
+// ---------------------------------------------------------------------------
+
+using doc_mma::PIECES;
+using doc_mma::split_bf16x3;
+
+// Keys a chunk of the key ring holds (forward and the backward's first
+// launch), and so the 16-key blocks of one group of products.
+constexpr int KC = 64;
+constexpr int GROUP = KC / 16;
+
+// bf16 pieces an input value has: three for an f32 (hi, mid, lo), one for
+// a bf16, whose mid and lo are zero (the products that take them are
+// skipped: adding +0 leaves an f32 sum's bits as they are)
+template <typename T> struct Pieces { static constexpr int N = PIECES; };
+template <> struct Pieces<bf16> { static constexpr int N = 1; };
+
+// The six products of a split product, (A piece, B piece) with 0 = hi,
+// 1 = mid, 2 = lo, smallest first (utils/dtypes.py SPLIT_PRODUCTS):
+// mid.mid, lo.hi, hi.lo, mid.hi, hi.mid, hi.hi
+__host__ __device__ constexpr int piece_a(int s) { return s == 0 || s == 3 ? 1 : s == 1 ? 2 : 0; }
+__host__ __device__ constexpr int piece_b(int s) { return s == 0 || s == 4 ? 1 : s == 2 ? 2 : 0; }
+// whether product s takes only pieces its operands have (PA and PB of them)
+template <int PA, int PB>
+__host__ __device__ constexpr bool live(int s) { return piece_a(s) < PA && piece_b(s) < PB; }
+
+// Shared memory of the forward and the backward's first launch
+// (ops/attention.py attention_plan mirrors it): one chunk of kc keys as
+// copied (f32-sized whatever the input dtype), its three bf16 planes
+// ([kc][LD] each), the tile's f32 scores [rows][Tp] and the bias [Tp].
+struct SplitLayout {
+  size_t raw, planes, s, b, total;
+  int kc;
+};
+template <int HD>
+__host__ __device__ SplitLayout split_layout(int Tp, int rows) {
+  constexpr int LD = Dims<HD>::LD;
+  SplitLayout L;
+  L.kc = Tp < KC ? Tp : KC;
+  size_t o = 0;
+  L.raw = o;
+  o += al16((size_t)L.kc * HD * 4);
+  L.planes = o;
+  o += al16((size_t)PIECES * L.kc * LD * 2);
+  L.s = o;
+  o += (size_t)rows * Tp * 4;
+  L.b = o;
+  o += al16((size_t)Tp * 4);
+  L.total = o;
+  return L;
+}
+
+// Shared memory of the backward's second launch, kt keys a block: K and V
+// (three planes each), one query tile's Q and dO as copied, two buffers of
+// row statistics (this tile's, the next one's), the tile's Q and dO planes
+// (where K and V, as copied, land first), one region of three planes
+// ([query][key], kt + 8 a row) holding P, then dS, and the key tile's bias.
+struct DkvSplitLayout {
+  size_t k, v, rq, rd, st, st_size, q, d, pd, b, total;
+};
+template <int HD>
+__host__ __device__ DkvSplitLayout dkv_split_layout(int kt) {
+  constexpr int LD = Dims<HD>::LD;
+  const size_t planes = al16((size_t)PIECES * kt * LD * 2);
+  DkvSplitLayout L;
+  L.st_size = al16((size_t)3 * kt * 4);
+  size_t o = 0;
+  L.k = o;
+  o += planes;
+  L.v = o;
+  o += planes;
+  L.rq = o;
+  o += al16((size_t)kt * HD * 4);
+  L.rd = o;
+  o += al16((size_t)kt * HD * 4);
+  L.st = o;
+  o += 2 * L.st_size;
+  L.q = o;
+  o += planes;
+  L.d = o;
+  o += planes;
+  L.pd = o;
+  o += al16((size_t)PIECES * kt * (kt + 8) * 2);
+  L.b = o;
+  o += al16((size_t)kt * 4);
+  L.total = o;
+  return L;
+}
+
+// Rows [0, n) of src [., HD] (shared or device memory) as bf16 pieces into
+// dst, piece p at dst + p * ps, each [n][LD]: rows past `valid` and the
+// columns past HD zero. An f32 value splits into hi, mid and lo
+// (doc_mma.cuh split_bf16x3); a bf16 one is its own hi (piece 0 only).
+template <typename TIn, int HD>
+__device__ __forceinline__ void split_rows(bf16* dst, size_t ps, const TIn* src, int n, int valid,
+                                           int tid, int nthreads) {
+  constexpr int LD = Dims<HD>::LD, G = Dims<HD>::HDK / 4;  // 4-column groups of a row
+  for (int idx = tid; idx < n * G; idx += nthreads) {
+    const int r = idx / G, c = (idx % G) * 4;
+    const bool ok = r < valid && c < HD;
+    bf16* d = dst + (size_t)r * LD + c;
+    if constexpr (sizeof(TIn) == 4) {
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (ok) x = *reinterpret_cast<const float4*>(src + (size_t)r * HD + c);
+      uint32_t lo[PIECES], hi[PIECES];
+      split_bf16x3(x.x, x.y, lo);
+      split_bf16x3(x.z, x.w, hi);
+#pragma unroll
+      for (int p = 0; p < PIECES; ++p)
+        *reinterpret_cast<uint2*>(d + p * ps) = make_uint2(lo[p], hi[p]);
+    } else {
+      uint2 x = make_uint2(0u, 0u);
+      if (ok) x = *reinterpret_cast<const uint2*>(src + (size_t)r * HD + c);
+      *reinterpret_cast<uint2*>(d) = x;
+    }
+  }
+}
+
+// A fragments of 16 rows (row 0 at src in device memory; rows past `valid`
+// zero) over the hd depth as bf16 pieces: a[p][ks] is piece p of k16 step
+// ks in the A layout (rows g and g + 8, columns 2t, 2t + 1 and 8 on), the
+// values load_a reads from the planes split_rows writes.
+template <typename TIn, int HD>
+__device__ __forceinline__ void load_a_split(uint32_t (&a)[Pieces<TIn>::N][Dims<HD>::KS][4],
+                                             const TIn* src, int valid, int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int ks = 0; ks < Dims<HD>::KS; ++ks) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = g + (j & 1) * 8, col = ks * 16 + (j >> 1) * 8 + 2 * t;
+      const bool ok = row < valid && col < HD;
+      if constexpr (sizeof(TIn) == 4) {
+        float2 x = make_float2(0.0f, 0.0f);
+        if (ok) x = *reinterpret_cast<const float2*>(src + (size_t)row * HD + col);
+        uint32_t p[PIECES];
+        split_bf16x3(x.x, x.y, p);
+#pragma unroll
+        for (int i = 0; i < PIECES; ++i) a[i][ks][j] = p[i];
+      } else {
+        a[0][ks][j] = ok ? *reinterpret_cast<const uint32_t*>(src + (size_t)row * HD + col) : 0u;
+      }
+    }
+  }
+}
+
+// the A fragments (three pieces) of one k16 step from a thread's 8 f32
+// values in the accumulator layout of two n8 tiles, which is the A layout
+__device__ __forceinline__ void split_a(uint32_t (&a)[PIECES][4], const float (&x)[8]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t p[PIECES];
+    split_bf16x3(x[2 * j], x[2 * j + 1], p);
+#pragma unroll
+    for (int i = 0; i < PIECES; ++i) a[i][j] = p[i];
+  }
+}
+
+// the three pieces of (x, y) at element `at` of three planes ps apart
+__device__ __forceinline__ void store_pieces(bf16* dst, size_t ps, size_t at, float x, float y) {
+  uint32_t p[PIECES];
+  split_bf16x3(x, y, p);
+#pragma unroll
+  for (int i = 0; i < PIECES; ++i) *reinterpret_cast<uint32_t*>(dst + i * ps + at) = p[i];
+}
+
+// acc[b][h] = A . B over the hd depth for the 16-key blocks b < nb of one
+// group, B's columns the staged rows from rowb on (piece p at rowb + p *
+// ps; K or V as [n][k]): the split products of A's PA pieces and B's PB,
+// each over every (b, h) before the next, so that consecutive mma.sync go
+// to different accumulators (up to 8 in flight).
+template <int HD, int PA, int PB>
+__device__ __forceinline__ void scores_group(float (&acc)[GROUP][2][4],
+                                             const uint32_t (&a)[PA][Dims<HD>::KS][4],
+                                             const bf16* rowb, size_t ps, int nb, int lane) {
+  constexpr int LD = Dims<HD>::LD;
+#pragma unroll
+  for (int b = 0; b < GROUP; ++b)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[b][h][e] = 0.0f;
+  const bf16* lrow = rowb + ((lane / 16) * 8 + lane % 8) * LD + ((lane / 8) % 2) * 8;
+#pragma unroll
+  for (int ks = 0; ks < Dims<HD>::KS; ++ks) {
+    uint32_t bf[GROUP][PB][4];
+#pragma unroll
+    for (int b = 0; b < GROUP; ++b) {
+      if (b < nb) {
+#pragma unroll
+        for (int p = 0; p < PB; ++p) ldsm_x4(bf[b][p], lrow + p * ps + b * 16 * LD + ks * 16);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < 6; ++s) {
+      if (!live<PA, PB>(s)) continue;
+      const int pa = piece_a(s) < PA ? piece_a(s) : 0, pb = piece_b(s) < PB ? piece_b(s) : 0;
+#pragma unroll
+      for (int b = 0; b < GROUP; ++b) {
+        if (b < nb) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            mma_bf16(acc[b][h], a[pa][ks][0], a[pa][ks][1], a[pa][ks][2], a[pa][ks][3],
+                     bf[b][pb][2 * h], bf[b][pb][2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+// o[n] += A . B for one k16 step: A's PA pieces given, B the 16 staged rows
+// from rowb on (piece p at rowb + p * ps) as [k][n], n over hd (V, K, dO
+// or Q); the split products, each over every n tile before the next
+template <int HD, int PA, int PB>
+__device__ __forceinline__ void acc_hd(float (&o)[Dims<HD>::NT][4], const uint32_t (&a)[PA][4],
+                                       const bf16* rowb, size_t ps, int lane) {
+  constexpr int LD = Dims<HD>::LD, NT = Dims<HD>::NT;
+  const bf16* lrow = rowb + (((lane / 8) % 2) * 8 + lane % 8) * LD;
+  uint32_t bf[PB][NT][2];
+#pragma unroll
+  for (int p = 0; p < PB; ++p) {
+    if constexpr (NT == 1) {
+      ldsm_x2_t(bf[p][0], lrow + p * ps);
+    } else {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t t[4];
+        ldsm_x4_t(t, lrow + p * ps + np * 16 + (lane / 16) * 8);
+        bf[p][2 * np][0] = t[0];
+        bf[p][2 * np][1] = t[1];
+        bf[p][2 * np + 1][0] = t[2];
+        bf[p][2 * np + 1][1] = t[3];
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < 6; ++s) {
+    if (!live<PA, PB>(s)) continue;
+    const int pa = piece_a(s) < PA ? piece_a(s) : 0, pb = piece_b(s) < PB ? piece_b(s) : 0;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      mma_bf16(o[n], a[pa][0], a[pa][1], a[pa][2], a[pa][3], bf[pb][n][0], bf[pb][n][1]);
+  }
+}
+
+// The key ring of the forward and the backward's first launch: chunks of
+// up to kc rows of K or V (one tensor a phase, each phase over every chunk
+// in turn, forward or backward) are copied with cp.async into `raw` while
+// the chunk before is in use, then split into the three planes every warp
+// reads. Bit p of `of_v` says phase p streams V (else K), bit p of `back`
+// that it runs from the last chunk to the first. Every thread of the block
+// calls issue(0) once, then next(i) for i = 0, 1, ... in turn.
+template <typename TIn, int HD>
+struct KeyRing {
+  const TIn* k;  // K and V at row r
+  const TIn* v;
+  unsigned of_v, back;
+  int T, kc, nc, steps;
+  unsigned char* raw;
+  bf16* planes;
+
+  __device__ size_t ps() const { return (size_t)kc * Dims<HD>::LD; }  // between two planes
+  __device__ int rows_of(int c) const { return min(kc, T - c * kc); }
+  __device__ bool is_v(int i) const { return (of_v >> (i / nc)) & 1u; }
+  __device__ int chunk(int i) const { return (back >> (i / nc)) & 1u ? nc - 1 - i % nc : i % nc; }
+  // a step whose chunk the planes hold already (the step before took it)
+  __device__ bool held(int i) const {
+    return i > 0 && is_v(i) == is_v(i - 1) && chunk(i) == chunk(i - 1);
+  }
+
+  __device__ void issue(int i) {
+    if (i < steps && !held(i)) {
+      const int c = chunk(i);
+      const char* s = reinterpret_cast<const char*>((is_v(i) ? v : k) + (size_t)c * kc * HD);
+      const int n = rows_of(c) * HD * (int)sizeof(TIn) / 16;
+      for (int e = threadIdx.x; e < n; e += blockDim.x) cp_async16(raw + e * 16, s + e * 16);
+    }
+    cp_async_commit();
+  }
+
+  __device__ void next(int i) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk i has landed; every warp is done with the planes
+    if (!held(i)) {
+      const int n = rows_of(chunk(i));
+      split_rows<TIn, HD>(planes, ps(), reinterpret_cast<const TIn*>(raw), (n + 15) / 16 * 16,
+                          n, threadIdx.x, blockDim.x);
+    }
+    __syncthreads();
+    issue(i + 1);  // `raw` is free again
+  }
+};
+
+// Forward at f32 compute, one block per (row r, tile of `rows` query rows,
+// 16 a warp): the warp's scores against each chunk of keys, kept in shared
+// memory as f32, then the row sums, then O += P V over the chunks of
+// values, p split in registers.
+// Both kernels are built for two blocks a SM at hd <= 32 (at most 128
+// registers a thread at 256 threads, so that one block's chunk waits and
+// barriers hide behind the other's products), one at hd = 64, where the
+// scores of T = 512 fill the SM's shared memory anyway.
+template <typename TIn, int HD>
+__global__ void __launch_bounds__(256, HD <= 32 ? 2 : 1) attention_fwd_split(int T, int rows, float scale,
+                                                           const TIn* __restrict__ q,
+                                                           const TIn* __restrict__ k,
+                                                           const TIn* __restrict__ v,
+                                                           const float* __restrict__ bias,
+                                                           float* __restrict__ out) {
+  using D = Dims<HD>;
+  constexpr int PI = Pieces<TIn>::N;
+  const int Tp = (T + 15) / 16 * 16;
+  const SplitLayout L = split_layout<HD>(Tp, rows);
+  extern __shared__ __align__(16) unsigned char tsm[];
+  float* s_s = reinterpret_cast<float*>(tsm + L.s);
+  float* b_s = reinterpret_cast<float*>(tsm + L.b);
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const size_t r = blockIdx.x, base = r * T * HD;
+  const int i0 = blockIdx.y * rows + warp * 16;  // the warp's first query row
+  const int nc = (T + L.kc - 1) / L.kc;
+  // K (scores), then V (O += P V)
+  KeyRing<TIn, HD> ring{k + base, v + base, 0b10u, 0u, T, L.kc, nc, 2 * nc,
+                        tsm + L.raw, reinterpret_cast<bf16*>(tsm + L.planes)};
+  ring.issue(0);
+  for (int j = tid; j < Tp; j += nt) b_s[j] = j < T ? bias[r * T + j] : neg_inf();
+
+  float* sw = s_s + (size_t)warp * Tp * 16;  // the warp's scores, 256 floats a 16-key block
+  float m[2] = {neg_inf(), neg_inf()}, l[2];
+  int i = 0;
+  {
+    uint32_t qa[PI][D::KS][4];
+    load_a_split<TIn, HD>(qa, q + base + (size_t)i0 * HD, T - i0, lane);
+    for (int c = 0; c < nc; ++c, ++i) {
+      ring.next(i);
+      const int nb = (ring.rows_of(c) + 15) / 16, kb0 = c * L.kc / 16;
+      float acc[GROUP][2][4];
+      scores_group<HD, PI, PI>(acc, qa, ring.planes, ring.ps(), nb, lane);
+#pragma unroll
+      for (int b = 0; b < GROUP; ++b) {
+        if (b < nb) {
+          float s[8];
+          scores16(s, acc[b], b_s, (kb0 + b) * 16 + tig * 2, scale);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) m[upper(e)] = fmaxf(m[upper(e)], s[e]);
+          put8(sw + ((kb0 + b) * 32 + lane) * 8, s);
+        }
+      }
+    }
+  }
+  m[0] = quad_max(m[0]);
+  m[1] = quad_max(m[1]);
+  sum_pass(sw, 0, Tp / 16, lane, m, l);
+
+  float o[D::NT][4] = {};
+  for (int c = 0; c < nc; ++c, ++i) {
+    ring.next(i);
+    const int nb = (ring.rows_of(c) + 15) / 16, kb0 = c * L.kc / 16;
+#pragma unroll
+    for (int b = 0; b < GROUP; ++b) {
+      if (b < nb) {
+        float ex[8], p[8];
+        uint32_t pa[PIECES][4];
+        get8(sw + ((kb0 + b) * 32 + lane) * 8, ex);
+        div8(p, ex, l);
+        split_a(pa, p);
+        acc_hd<HD, PIECES, PI>(o, pa, ring.planes + (size_t)b * 16 * D::LD, ring.ps(), lane);
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = i0 + gid + h * 8;
+    if (row < T)
+#pragma unroll
+      for (int n = 0; n < D::NT; ++n)
+        *reinterpret_cast<float2*>(out + base + (size_t)row * HD + n * 8 + tig * 2) =
+            make_float2(o[n][2 * h], o[n][2 * h + 1]);
+  }
+}
+
+// Backward at f32 compute, launch 1 (per query tile): the row statistics
+// and dq, the ring streaming K (scores), V twice (dP for the row term,
+// then for dS) and K again (dQ += dS K).
+template <typename TIn, int HD>
+__global__ void __launch_bounds__(256, HD <= 32 ? 2 : 1) attention_bwd_dq_split(
+    int R, int T, int rows, float scale, const TIn* __restrict__ q, const TIn* __restrict__ k,
+    const TIn* __restrict__ v, const float* __restrict__ bias, const float* __restrict__ dout,
+    float* __restrict__ dq, float* __restrict__ stats) {
+  using D = Dims<HD>;
+  constexpr int PI = Pieces<TIn>::N;
+  const int Tp = (T + 15) / 16 * 16;
+  const SplitLayout L = split_layout<HD>(Tp, rows);
+  extern __shared__ __align__(16) unsigned char tsm[];
+  float* s_s = reinterpret_cast<float*>(tsm + L.s);
+  float* b_s = reinterpret_cast<float*>(tsm + L.b);
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const size_t r = blockIdx.x, base = r * T * HD;
+  const int i0 = blockIdx.y * rows + warp * 16;
+  const int nc = (T + L.kc - 1) / L.kc;
+  // K (scores), V (dP, the row term), V from its last chunk back (dP, dS:
+  // the chunk the row term ended on is held), K (dQ += dS K)
+  KeyRing<TIn, HD> ring{k + base, v + base, 0b0110u, 0b0100u, T, L.kc, nc, 4 * nc,
+                        tsm + L.raw, reinterpret_cast<bf16*>(tsm + L.planes)};
+  ring.issue(0);
+  for (int j = tid; j < Tp; j += nt) b_s[j] = j < T ? bias[r * T + j] : neg_inf();
+
+  float* sw = s_s + (size_t)warp * Tp * 16;
+  float m[2] = {neg_inf(), neg_inf()}, l[2], row[2] = {0.0f, 0.0f};
+  int i = 0;
+  {
+    uint32_t qa[PI][D::KS][4];
+    load_a_split<TIn, HD>(qa, q + base + (size_t)i0 * HD, T - i0, lane);
+    for (int c = 0; c < nc; ++c, ++i) {
+      ring.next(i);
+      const int nb = (ring.rows_of(c) + 15) / 16, kb0 = c * L.kc / 16;
+      float acc[GROUP][2][4];
+      scores_group<HD, PI, PI>(acc, qa, ring.planes, ring.ps(), nb, lane);
+#pragma unroll
+      for (int b = 0; b < GROUP; ++b) {
+        if (b < nb) {
+          float s[8];
+          scores16(s, acc[b], b_s, (kb0 + b) * 16 + tig * 2, scale);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) m[upper(e)] = fmaxf(m[upper(e)], s[e]);
+          put8(sw + ((kb0 + b) * 32 + lane) * 8, s);
+        }
+      }
+    }
+  }
+  m[0] = quad_max(m[0]);
+  m[1] = quad_max(m[1]);
+  sum_pass(sw, 0, Tp / 16, lane, m, l);
+
+  {
+    uint32_t da[PIECES][D::KS][4];
+    load_a_split<float, HD>(da, dout + base + (size_t)i0 * HD, T - i0, lane);
+    // row = rowsum(dp * p), p in f32, kept in place of exp(s - m)
+    for (int c = 0; c < nc; ++c, ++i) {
+      ring.next(i);
+      const int nb = (ring.rows_of(c) + 15) / 16, kb0 = c * L.kc / 16;
+      float acc[GROUP][2][4];
+      scores_group<HD, PIECES, PI>(acc, da, ring.planes, ring.ps(), nb, lane);
+#pragma unroll
+      for (int b = 0; b < GROUP; ++b) {
+        if (b < nb) {
+          float ex[8], p[8];
+          float* slot = sw + ((kb0 + b) * 32 + lane) * 8;
+          get8(slot, ex);
+          div8(p, ex, l);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            row[upper(e)] = __fmaf_rn(acc[b][e / 4][e % 4], p[e], row[upper(e)]);
+          put8(slot, p);
+        }
+      }
+    }
+    row[0] = quad_sum(row[0]);
+    row[1] = quad_sum(row[1]);
+    // ds = p * (dp - row) * scale from dp once more, kept in place of p
+    for (int c = nc - 1; c >= 0; --c, ++i) {
+      ring.next(i);
+      const int nb = (ring.rows_of(c) + 15) / 16, kb0 = c * L.kc / 16;
+      float acc[GROUP][2][4];
+      scores_group<HD, PIECES, PI>(acc, da, ring.planes, ring.ps(), nb, lane);
+#pragma unroll
+      for (int b = 0; b < GROUP; ++b) {
+        if (b < nb) {
+          float p[8], ds[8];
+          float* slot = sw + ((kb0 + b) * 32 + lane) * 8;
+          get8(slot, p);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            ds[e] = dscore(p[e], acc[b][e / 4][e % 4], row[upper(e)], scale);
+          put8(slot, ds);
+        }
+      }
+    }
+  }
+
+  // dq += ds k, ds split in registers (the accumulator layout)
+  float g[D::NT][4] = {};
+  for (int c = 0; c < nc; ++c, ++i) {
+    ring.next(i);
+    const int nb = (ring.rows_of(c) + 15) / 16, kb0 = c * L.kc / 16;
+#pragma unroll
+    for (int b = 0; b < GROUP; ++b) {
+      if (b < nb) {
+        float ds[8];
+        uint32_t a[PIECES][4];
+        get8(sw + ((kb0 + b) * 32 + lane) * 8, ds);
+        split_a(a, ds);
+        acc_hd<HD, PIECES, PI>(g, a, ring.planes + (size_t)b * 16 * D::LD, ring.ps(), lane);
+      }
+    }
+  }
+  const size_t plane = (size_t)R * T;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = i0 + gid + h * 8;
+    if (qi < T) {
+#pragma unroll
+      for (int n = 0; n < D::NT; ++n)
+        *reinterpret_cast<float2*>(dq + base + (size_t)qi * HD + n * 8 + tig * 2) =
+            make_float2(g[n][2 * h], g[n][2 * h + 1]);
+      if (tig == 0) {
+        stats[r * T + qi] = m[h];
+        stats[plane + r * T + qi] = l[h];
+        stats[2 * plane + r * T + qi] = row[h];
+      }
+    }
+  }
+}
+
+// Backward at f32 compute, launch 2 (per tile of kt keys): dk and dv,
+// summed over the query tiles in order. K and V, then each query tile's Q,
+// dO and row statistics, are copied with cp.async (the next tile's while
+// this one is used); P and dS are recomputed with the roles, products and
+// order of launch 1 (so p is the p behind the stored statistics, bit for
+// bit) and take turns in one region of three planes: P for dV += P^T dO,
+// then dS for dK += dS^T Q.
+template <typename TIn, int HD>
+__global__ void __launch_bounds__(128) attention_bwd_dkv_split(
+    int R, int T, int kt, float scale, const TIn* __restrict__ q, const TIn* __restrict__ k,
+    const TIn* __restrict__ v, const float* __restrict__ bias, const float* __restrict__ dout,
+    float* __restrict__ dk, float* __restrict__ dv, const float* __restrict__ stats) {
+  using D = Dims<HD>;
+  constexpr int PI = Pieces<TIn>::N;
+  const DkvSplitLayout L = dkv_split_layout<HD>(kt);
+  extern __shared__ __align__(16) unsigned char tsm[];
+  bf16* k_s = reinterpret_cast<bf16*>(tsm + L.k);
+  bf16* v_s = reinterpret_cast<bf16*>(tsm + L.v);
+  bf16* q_s = reinterpret_cast<bf16*>(tsm + L.q);
+  bf16* d_s = reinterpret_cast<bf16*>(tsm + L.d);
+  bf16* pd_s = reinterpret_cast<bf16*>(tsm + L.pd);  // P, then dS: [query][key], three planes
+  unsigned char* rq = tsm + L.rq;
+  unsigned char* rd = tsm + L.rd;
+  float* b_s = reinterpret_cast<float*>(tsm + L.b);
+  const size_t kps = (size_t)kt * D::LD;  // from one plane of K, V, Q or dO to the next
+  const int pld = kt + 8;
+  const size_t pps = (size_t)kt * pld;  // from one plane of P or dS to the next
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const size_t r = blockIdx.x, base = r * T * HD, plane = (size_t)R * T;
+  const int j0 = blockIdx.y * kt, kvalid = min(kt, T - j0);
+  const int nblk = (T + kt - 1) / kt;  // query tiles of kt rows
+  // the statistics of query tile blk: [m, l, row][kt] f32
+  auto stats_of = [&](int blk) {
+    return reinterpret_cast<float*>(tsm + L.st + (size_t)(blk & 1) * L.st_size);
+  };
+
+  // query tile blk's Q and dO rows into rq and rd, its statistics into its
+  // buffer (rows past T: m = 0, l = 1, row = 0)
+  auto issue = [&](int blk) {
+    const int i0 = blk * kt, valid = min(kt, T - i0);
+    const char* sq = reinterpret_cast<const char*>(q + base + (size_t)i0 * HD);
+    const char* sd = reinterpret_cast<const char*>(dout + base + (size_t)i0 * HD);
+    const int nq = valid * HD * (int)sizeof(TIn) / 16, nd = valid * HD * 4 / 16;
+    for (int e = tid; e < nq; e += nt) cp_async16(rq + e * 16, sq + e * 16);
+    for (int e = tid; e < nd; e += nt) cp_async16(rd + e * 16, sd + e * 16);
+    float* sm = stats_of(blk);
+    for (int c = tid; c < kt; c += nt) {
+      if (c < valid) {
+        const size_t at = r * T + i0 + c;
+        cp_async4(sm + c, stats + at);
+        cp_async4(sm + kt + c, stats + plane + at);
+        cp_async4(sm + 2 * kt + c, stats + 2 * plane + at);
+      } else {
+        sm[c] = 0.0f;
+        sm[kt + c] = 1.0f;
+        sm[2 * kt + c] = 0.0f;
+      }
+    }
+    cp_async_commit();
+  };
+  {  // the key tile's K and V as copied, into the space of the Q and dO planes
+    const char* sk = reinterpret_cast<const char*>(k + base + (size_t)j0 * HD);
+    const char* sv = reinterpret_cast<const char*>(v + base + (size_t)j0 * HD);
+    const int n = kvalid * HD * (int)sizeof(TIn) / 16;
+    for (int e = tid; e < n; e += nt) {
+      cp_async16(tsm + L.q + e * 16, sk + e * 16);
+      cp_async16(tsm + L.d + e * 16, sv + e * 16);
+    }
+  }
+  issue(0);  // one group: K, V and query tile 0
+  for (int c = tid; c < kt; c += nt) b_s[c] = j0 + c < T ? bias[r * T + j0 + c] : neg_inf();
+  cp_async_wait<0>();
+  __syncthreads();
+  split_rows<TIn, HD>(k_s, kps, reinterpret_cast<const TIn*>(tsm + L.q), kt, kvalid, tid, nt);
+  split_rows<TIn, HD>(v_s, kps, reinterpret_cast<const TIn*>(tsm + L.d), kt, kvalid, tid, nt);
+
+  float gk[D::NT][4] = {}, gv[D::NT][4] = {};
+  // A = P^T or dS^T (keys x queries) from [query][key] planes: ldmatrix.trans
+  const int ar = (lane / 16) * 8 + lane % 8, ac = warp * 16 + ((lane / 8) % 2) * 8;
+#pragma unroll 1
+  for (int blk = 0; blk < nblk; ++blk) {
+    const int valid = min(kt, T - blk * kt);
+    cp_async_wait<0>();
+    __syncthreads();  // tile blk has landed; every warp is done with K and V as copied (blk 0)
+                      // and with tile blk - 1
+    split_rows<TIn, HD>(q_s, kps, reinterpret_cast<const TIn*>(rq), kt, valid, tid, nt);
+    split_rows<float, HD>(d_s, kps, reinterpret_cast<const float*>(rd), kt, valid, tid, nt);
+    __syncthreads();
+    if (blk + 1 < nblk) issue(blk + 1);  // rq, rd and the other statistics buffer are free
+
+    // P and dS of the warp's 16 queries against the key tile, as launch 1
+    // computes them (Q the A operand, K the B operand); P to shared memory
+    const int qr = warp * 16 + gid, nb = kt / 16;
+    float ds[GROUP][8];
+    {
+      const float* sm = stats_of(blk);
+      const float m[2] = {sm[qr], sm[qr + 8]};
+      const float l[2] = {sm[kt + qr], sm[kt + qr + 8]};
+      const float row[2] = {sm[2 * kt + qr], sm[2 * kt + qr + 8]};
+      float acc[GROUP][2][4], p[GROUP][8];
+      {
+        uint32_t qa[PI][D::KS][4];
+#pragma unroll
+        for (int pp = 0; pp < PI; ++pp) load_a<HD>(qa[pp], q_s + pp * kps + warp * 16 * D::LD, lane);
+        scores_group<HD, PI, PI>(acc, qa, k_s, kps, nb, lane);
+      }
+#pragma unroll
+      for (int b = 0; b < GROUP; ++b) {
+        if (b < nb) {
+          float s[8];
+          scores16(s, acc[b], b_s, b * 16 + tig * 2, scale);
+          probs8(p[b], s, m, l);
+        }
+      }
+      {
+        uint32_t da[PIECES][D::KS][4];
+#pragma unroll
+        for (int pp = 0; pp < PIECES; ++pp)
+          load_a<HD>(da[pp], d_s + pp * kps + warp * 16 * D::LD, lane);
+        scores_group<HD, PIECES, PI>(acc, da, v_s, kps, nb, lane);
+      }
+#pragma unroll
+      for (int b = 0; b < GROUP; ++b) {
+        if (b < nb) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            ds[b][e] = dscore(p[b][e], acc[b][e / 4][e % 4], row[upper(e)], scale);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const size_t at = (size_t)qr * pld + b * 16 + h * 8 + tig * 2;
+            store_pieces(pd_s, pps, at, p[b][4 * h], p[b][4 * h + 1]);
+            store_pieces(pd_s, pps, at + 8 * pld, p[b][4 * h + 2], p[b][4 * h + 3]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // dv += p^T do over this tile's queries, for the warp's 16 keys
+#pragma unroll 1
+    for (int ks = 0; ks < kt / 16; ++ks) {
+      uint32_t a[PIECES][4];
+#pragma unroll
+      for (int pp = 0; pp < PIECES; ++pp)
+        ldsm_x4_t(a[pp], pd_s + pp * pps + (ks * 16 + ar) * pld + ac);
+      acc_hd<HD, PIECES, PIECES>(gv, a, d_s + (size_t)ks * 16 * D::LD, kps, lane);
+    }
+    __syncthreads();  // every warp is done with P
+#pragma unroll
+    for (int b = 0; b < GROUP; ++b) {
+      if (b < nb) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const size_t at = (size_t)qr * pld + b * 16 + h * 8 + tig * 2;
+          store_pieces(pd_s, pps, at, ds[b][4 * h], ds[b][4 * h + 1]);
+          store_pieces(pd_s, pps, at + 8 * pld, ds[b][4 * h + 2], ds[b][4 * h + 3]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // dk += ds^T q over this tile's queries, for the warp's 16 keys
+#pragma unroll 1
+    for (int ks = 0; ks < kt / 16; ++ks) {
+      uint32_t a[PIECES][4];
+#pragma unroll
+      for (int pp = 0; pp < PIECES; ++pp)
+        ldsm_x4_t(a[pp], pd_s + pp * pps + (ks * 16 + ar) * pld + ac);
+      acc_hd<HD, PIECES, PI>(gk, a, q_s + (size_t)ks * 16 * D::LD, kps, lane);
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = j0 + warp * 16 + gid + h * 8;
+    if (j < T)
+#pragma unroll
+      for (int n = 0; n < D::NT; ++n) {
+        const size_t o = base + (size_t)j * HD + n * 8 + tig * 2;
+        *reinterpret_cast<float2*>(dk + o) = make_float2(gk[n][2 * h], gk[n][2 * h + 1]);
+        *reinterpret_cast<float2*>(dv + o) = make_float2(gv[n][2 * h], gv[n][2 * h + 1]);
+      }
+  }
+}
 
 struct Args {
   int R, T;
@@ -1013,7 +1501,7 @@ struct Args {
   const float *bias, *dout;
   float *out, *dq, *dk, *dv, *stats;
   cudaStream_t stream;
-  int rows, kv_shared, ks, kt;  // bf16 compute: the query tile, V over K, key halves, key tile
+  int rows, kv_shared, ks, kt;  // the query tile, V over K and key halves (bf16), the key tile
 };
 
 // Dynamic shared memory above 48 KB must be allowed first; a refusal (more
@@ -1025,12 +1513,6 @@ int allow_smem(Kernel kernel, size_t smem) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) cudaGetLastError();
   return (int)e;
-}
-
-// one thread per row of a tile: a warp multiple, at most TILE
-int threads_for(int T) {
-  const int t = (T + 31) / 32 * 32;
-  return t < TILE ? t : TILE;
 }
 
 // a tile of 16 to `most` rows, a multiple of 16 (one warp a 16 rows)
@@ -1057,14 +1539,16 @@ int fwd(const Args& a) {
         a.T, a.rows, a.kv_shared, a.ks, a.scale, static_cast<const TIn*>(a.q),
         static_cast<const TIn*>(a.k), static_cast<const TIn*>(a.v), a.bias, a.out);
   } else {
-    auto kernel = attention_fwd_kernel<TIn, HD>;
-    const size_t smem = f32_smem(a.T, HD, 1);
+    const int Tp = (a.T + 15) / 16 * 16;
+    if (!tile_ok(a.rows) || a.rows > Tp) return (int)cudaErrorInvalidValue;
+    const size_t smem = split_layout<HD>(Tp, a.rows).total;
+    if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    auto kernel = attention_fwd_split<TIn, HD>;
     if (const int e = allow_smem(kernel, smem)) return e;
-    const int threads = threads_for(a.T);
-    const dim3 grid(a.R, (a.T + threads - 1) / threads);
-    kernel<<<grid, threads, smem, a.stream>>>(a.T, a.scale, static_cast<const TIn*>(a.q),
-                                              static_cast<const TIn*>(a.k),
-                                              static_cast<const TIn*>(a.v), a.bias, a.out);
+    const dim3 grid(a.R, (a.T + a.rows - 1) / a.rows);
+    kernel<<<grid, a.rows * 2, smem, a.stream>>>(
+        a.T, a.rows, a.scale, static_cast<const TIn*>(a.q), static_cast<const TIn*>(a.k),
+        static_cast<const TIn*>(a.v), a.bias, a.out);
   }
   return (int)cudaGetLastError();
 }
@@ -1093,19 +1577,22 @@ int bwd(const Args& a) {
     dkv_kernel<<<dim3(a.R, (a.T + a.kt - 1) / a.kt), a.kt * 2, dkv_smem, a.stream>>>(
         a.R, a.T, a.kt, a.scale, q, k, v, a.bias, a.dout, a.dk, a.dv, a.stats);
   } else {
-    auto dq_kernel = attention_bwd_dq_kernel<TIn, HD>;
-    auto dkv_kernel = attention_bwd_dkv_kernel<TIn, HD>;
-    const size_t dq_smem = f32_smem(a.T, HD, 1);
-    const size_t dkv_smem = f32_smem(a.T, HD, 3);
+    const int Tp = (a.T + 15) / 16 * 16;
+    if (!tile_ok(a.rows) || a.rows > Tp || !tile_ok(a.kt, 64) || a.kt > Tp)
+      return (int)cudaErrorInvalidValue;
+    const size_t dq_smem = split_layout<HD>(Tp, a.rows).total;
+    const size_t dkv_smem = dkv_split_layout<HD>(a.kt).total;
+    if (dq_smem > (size_t)SMEM_LIMIT || dkv_smem > (size_t)SMEM_LIMIT)
+      return (int)cudaErrorInvalidValue;
+    auto dq_kernel = attention_bwd_dq_split<TIn, HD>;
+    auto dkv_kernel = attention_bwd_dkv_split<TIn, HD>;
     if (const int e = allow_smem(dq_kernel, dq_smem)) return e;
     if (const int e = allow_smem(dkv_kernel, dkv_smem)) return e;
-    const int threads = threads_for(a.T);
-    const dim3 grid(a.R, (a.T + threads - 1) / threads);
-    dq_kernel<<<grid, threads, dq_smem, a.stream>>>(a.R, a.T, a.scale, q, k, v, a.bias, a.dout,
-                                                    a.dq, a.stats);
+    dq_kernel<<<dim3(a.R, (a.T + a.rows - 1) / a.rows), a.rows * 2, dq_smem, a.stream>>>(
+        a.R, a.T, a.rows, a.scale, q, k, v, a.bias, a.dout, a.dq, a.stats);
     if (const cudaError_t e = cudaGetLastError()) return (int)e;
-    dkv_kernel<<<grid, threads, dkv_smem, a.stream>>>(a.R, a.T, a.scale, q, k, v, a.bias, a.dout,
-                                                      a.dk, a.dv, a.stats);
+    dkv_kernel<<<dim3(a.R, (a.T + a.kt - 1) / a.kt), a.kt * 2, dkv_smem, a.stream>>>(
+        a.R, a.T, a.kt, a.scale, q, k, v, a.bias, a.dout, a.dk, a.dv, a.stats);
   }
   return (int)cudaGetLastError();
 }
@@ -1150,11 +1637,12 @@ extern "C" {
 
 // q, k, v [R, T, hd] in bf16 (in_bf16) or f32, 16-byte aligned; bias [R, T]
 // f32; out [R, T, hd] f32; cdt_bf16 rounds every product's operands to
-// bf16. hd in {8, 16, 32, 64}, 1 <= T <= 512. bf16 compute: rows query rows
-// a block (16 to 128, a multiple of 16), kv_shared (V staged over K) and ks
-// (1, or 2: each tile's keys split over two warps), from ops/attention.py
-// attention_plan; f32 compute ignores them (f32_smem gives its shared
-// memory). A layout beyond the SM's shared memory is refused. device: the CUDA ordinal the
+// bf16, else every product is split (f32 compute). hd in {8, 16, 32, 64},
+// 1 <= T <= 512. rows: query rows a block (16 to 128, a multiple of 16),
+// from ops/attention.py attention_plan; bf16 compute also takes kv_shared
+// (V staged over K) and ks (1, or 2: each tile's keys split over two
+// warps), which f32 compute ignores. A layout beyond the SM's shared
+// memory is refused. device: the CUDA ordinal the
 // tensors live on (this library carries its own runtime, whose current
 // device is not PyTorch's). Returns cudaGetLastError() after the launch (0
 // on success).
@@ -1169,9 +1657,9 @@ int attention_fwd_launch(int device, int in_bf16, int cdt_bf16, int R, int T, in
 
 // As the forward, plus the output cotangent dout [R, T, hd] f32; writes dq,
 // dk, dv [R, T, hd] f32 and uses stats [3, R, T] f32 as scratch between its
-// two launches. bf16 compute: rows query rows a block of the first launch
-// (kv_shared: V staged over K, then K over V again; ks as the forward's),
-// kt keys (and query rows a staged tile) a block of the second.
+// two launches. rows: query rows a block of the first launch (bf16
+// compute, kv_shared: V staged over K, then K over V again; ks as the
+// forward's), kt keys (and query rows a staged tile) a block of the second.
 int attention_bwd_launch(int device, int in_bf16, int cdt_bf16, int R, int T, int hd, float scale,
                          int rows, int kv_shared, int ks, int kt, const void* q,
                          const void* k, const void* v, const void* bias, const void* dout,

@@ -10,4 +10,10 @@ from twotowermlretrieval_tpu_torch.models.two_tower import (  # noqa: F401
     encode_query,
     init_two_tower,
     params_from_jax,
+    two_tower_forward,
+)
+from twotowermlretrieval_tpu_torch.models.losses import (  # noqa: F401
+    combined_loss,
+    in_batch_softmax_loss,
+    triplet_loss_cosine,
 )

@@ -20,12 +20,15 @@ it: :func:`attention_fwd` (``csrc/attention.cu``, forward) and
 :func:`attention_bwd` (the same source, backward: a launch per query tile
 for dq and the row statistics, then one per key tile for dk and dv, so every
 sum runs in a fixed order without atomics). A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises. Under bf16 compute the
-kernels run every product on the tensor cores (mma.sync) over bf16 operands
-staged in shared memory, each score computed once and kept there as f32 for
-its query tile; :func:`attention_plan` picks the tiles. Under f32 compute the
-kernels keep full f32 products on the CUDA cores, a row's keys and values
-staged as f32 in chunks of up to 256 keys. Both take head widths 8, 16, 32
+version; a CUDA tensor launches the kernel or raises. Both compute dtypes
+run every product on the tensor cores (mma.sync), each score computed once
+and kept in shared memory as f32 for its query tile; :func:`attention_plan`
+picks the tiles. Under bf16 compute the operands are staged in bf16 (route
+"mma"). Under f32 compute (route "split") every product is a split product,
+the six leading products of the operands' three bf16 pieces summed in f32
+(:func:`~twotowermlretrieval_tpu_torch.utils.dtypes.matmul_split` is its
+arithmetic on the CPU), with a row's keys and values streamed through
+shared memory in chunks of up to 64 keys. Both take head widths 8, 16, 32
 and 64 and every T up to 512.
 """
 
@@ -37,7 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from twotowermlretrieval_tpu_torch.ops import _build
-from twotowermlretrieval_tpu_torch.utils.dtypes import matmul_f32, torch_dtype
+from twotowermlretrieval_tpu_torch.utils.dtypes import SPLIT_PRODUCTS, matmul_f32, torch_dtype
 
 HEAD_DIMS = (8, 16, 32, 64)  # head widths the kernels are built for
 MAX_T = 512  # the whole-T range of the TPU kernel's design
@@ -47,8 +50,9 @@ _INT = ctypes.c_int
 # device, in_bf16, cdt_bf16, R, T, hd, scale, and the tile's rows, kv_shared, ks
 _COMMON = [_INT, _INT, _INT, _INT, _INT, _INT, ctypes.c_float, _INT, _INT, _INT]
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
-_TILE, _KEY_TILE = 128, 64  # bf16 compute: query rows (keys) a block at most, 16 a warp
-_F32_KEYS = 256  # f32 compute: keys (query rows) staged at a time, F32_KEYS in the .cu
+_TILE, _KEY_TILE = 128, 64  # query rows (keys) a block at most, 16 a warp
+_KC = 64  # f32 compute: keys a chunk of the key ring, KC in the .cu
+_PIECES = 3  # bf16 pieces of an f32 value
 
 
 def _lib():
@@ -92,31 +96,44 @@ def _up(n: int, m: int) -> int:
 
 def attention_plan(T: int, hd: int, compute_dtype="bfloat16"):
     """The kernels' tiles and shared memory at (T, hd), or None where a
-    layout does not fit the SM. bf16 compute (``route`` "mma"): ``fwd``
-    and ``dq`` (the backward's first launch) take ``rows`` query rows a
-    block, 16 a warp, the largest of min(128, T rounded up to 16), 64, 32
-    and 16 that fits the block's scores [rows, T] f32 beside its staged
-    operands; both stage V over K (``kv_shared``; the backward then K over
-    V again for dq) where both do not fit, and split each tile's keys over
-    two warps (``ks`` 2) where one block fills the SM's shared memory, so
-    that a SM runs twice the warps; ``dkv`` (the second launch)
+    layout does not fit the SM. ``fwd`` and ``dq`` (the backward's first
+    launch) take ``rows`` query rows a block, 16 a warp, the largest of
+    min(128, T rounded up to 16), 64, 32 and 16 that fits the block's scores
+    [rows, T] f32 beside its staged operands; ``dkv`` (the second launch)
     takes ``rows`` keys a block (at most 64) and query tiles of as many
-    rows. f32 compute (``route`` "fma"): one thread a row,
-    at most 128 a block, a row's K and V (or Q and dO) in shared memory as
-    f32, ``kc`` keys (query rows) at a time: the whole T up to 256, chunks
-    of 256 beyond. ``smem``: bytes a block (``fwd_layout``, ``dq_layout``,
-    ``dkv_layout`` and ``f32_smem`` in csrc/attention.cu, region by
-    region)."""
-    if torch_dtype(compute_dtype) != torch.bfloat16:
-        rows, kc = min(128, _up(T, 32)), min(T, _F32_KEYS)
-        plan = {"route": "fma", "fwd": {"rows": rows, "kc": kc, "smem": (2 * kc * hd + T) * 4},
-                "dq": {"rows": rows, "kc": kc, "smem": (2 * kc * hd + T) * 4},
-                "dkv": {"rows": rows, "kc": kc, "smem": (2 * kc * hd + 3 * T) * 4}}
-        return plan if all(plan[k]["smem"] <= _SMEM_LIMIT for k in ("fwd", "dq", "dkv")) else None
+    rows. bf16 compute (``route`` "mma"): ``fwd`` and ``dq`` stage the whole
+    K and V in bf16, V over K (``kv_shared``; the backward then K over V
+    again for dq) where both do not fit, and split each tile's keys over
+    two warps (``ks`` 2) where one block fills the SM's shared memory, so
+    that a SM runs twice the warps. f32 compute (``route`` "split"): ``fwd``
+    and ``dq`` stream K and V in chunks of ``kc`` keys (at most 64), each
+    copied as f32 and split into three bf16 planes; ``dkv`` keeps its key
+    tile's K and V as three planes, and a query tile's Q and dO, and P then
+    dS in one region.
+    ``smem``: bytes a block (``fwd_layout``, ``dq_layout``, ``dkv_layout``,
+    ``split_layout`` and ``dkv_split_layout`` in csrc/attention.cu, region
+    by region)."""
     Tp = _up(T, 16)
     row = (max(hd, 16) + 8) * 2  # a staged bf16 row, 16 bytes of pad
     top = min(_TILE, Tp)
     cands = [top] + [r for r in (64, 32, 16) if r < top]
+    kt = min(_KEY_TILE, Tp)
+    if torch_dtype(compute_dtype) != torch.bfloat16:
+        kc = min(_KC, Tp)
+
+        # one chunk as copied (f32), its three planes, the f32 scores, the bias
+        def split_smem(rows):
+            return kc * hd * 4 + _PIECES * kc * row + rows * Tp * 4 + Tp * 4
+
+        rows = next((r for r in cands if split_smem(r) <= _SMEM_LIMIT), None)
+        # K, V, Q and dO planes, the query tile's Q and dO as copied, two
+        # buffers of statistics, one region of P (then dS) planes, the bias
+        dkv = {"rows": kt, "smem": 4 * _PIECES * kt * row + 2 * kt * hd * 4
+               + 2 * _up(12 * kt, 16) + _PIECES * kt * (kt + 8) * 2 + _up(4 * kt, 16)}
+        if rows is None or dkv["smem"] > _SMEM_LIMIT:
+            return None
+        tile = {"rows": rows, "kc": kc, "smem": split_smem(rows)}
+        return {"route": "split", "fwd": tile, "dq": dict(tile), "dkv": dkv}
 
     # the tile's query rows, its K and V (one of them where V goes over K),
     # its f32 scores, the bias and where two key halves meet (rows * 32)
@@ -135,7 +152,6 @@ def attention_plan(T: int, hd: int, compute_dtype="bfloat16"):
         return {"rows": r, "kv_shared": sh, "ks": 2 if split else 1, "smem": smem(r, sh)}
 
     fwd, dq = pick(fwd_smem), pick(dq_smem)
-    kt = min(_KEY_TILE, Tp)
     dkv = {"rows": kt, "smem": 2 * kt * row + 2 * (2 * kt * row + _up(3 * kt * 4, 16))
            + 2 * _up(kt * (kt + 8) * 2, 16) + _up(kt * 4, 16)}
     if fwd is None or dq is None or dkv["smem"] > _SMEM_LIMIT:
@@ -163,7 +179,7 @@ def _kernel_args(fn, q, k, v, bias, compute_dtype):
 
 
 def _tile_args(tile: dict):
-    """(rows, kv_shared, ks) of a plan's tile; the f32 kernels ignore them."""
+    """(rows, kv_shared, ks) of a plan's tile; the split route takes rows only."""
     return tile["rows"], int(tile.get("kv_shared", False)), tile.get("ks", 1)
 
 
@@ -195,10 +211,12 @@ def attention_fwd(q, k, v, bias, scale: float, compute_dtype="bfloat16") -> torc
     _launch("attention_fwd_launch", q.device, in_bf16, cdt_bf16, R, T, hd, float(scale),
             *_tile_args(plan["fwd"]), *[t.data_ptr() for t in ins], out.data_ptr())
     attention_fwd.launches += 1
+    attention_fwd.by_route[plan["route"]] += 1
     return out
 
 
 attention_fwd.launches = 0  # kernel launches, counted where the kernel is launched
+attention_fwd.by_route = {"mma": 0, "split": 0}  # the same launches by the plan's route
 
 
 def attention_bwd(
@@ -219,10 +237,12 @@ def attention_bwd(
             *_tile_args(plan["dq"]), plan["dkv"]["rows"],
             *[t.data_ptr() for t in (*ins, do, *grads, stats)])
     attention_bwd.launches += 1
+    attention_bwd.by_route[plan["route"]] += 1
     return tuple(grads)
 
 
 attention_bwd.launches = 0
+attention_bwd.by_route = {"mma": 0, "split": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -297,12 +317,25 @@ def use_fused_attention(T: int, hd: int, force: Optional[bool] = None) -> bool:
     return False
 
 
-def attention_bound(R: int, T: int, hd: int, in_bytes: int, backward: bool = False):
+def _bf16_products(a_bf16: bool, b_bf16: bool) -> int:
+    """The bf16 products one f32-compute product takes: SPLIT_PRODUCTS
+    less those of a bf16 operand's pieces past hi, which are zero."""
+    return sum(1 for i, j in SPLIT_PRODUCTS if (i == 0 or not a_bf16) and (j == 0 or not b_bf16))
+
+
+def attention_bound(R: int, T: int, hd: int, in_bytes: int, backward: bool = False,
+                    compute_dtype="bfloat16"):
     """Least work of one call: each input read once, each output written
-    once, and the products' operations (2 for the forward, 5 for the
-    backward, each 2*R*T*T*hd); the output cotangent is f32. Returns
-    (bytes, flops)."""
-    n = R * T * hd
+    once (the output cotangent is f32), and the products on the bf16 tensor
+    cores, each 2*R*T*T*hd operations: S = Q K^T and O = P V forward; S,
+    dP = dO V^T, dQ = dS K, dV = P^T dO and dK = dS^T Q backward. At f32
+    compute a product counts once for each bf16 product of its split, by
+    its operands' dtypes (P, dS and dO are f32). Returns (bytes, operations),
+    the operations at the bf16 rate."""
+    n, one = R * T * hd, 2 * R * T * T * hd
+    x = in_bytes == 2
+    mul = _bf16_products if torch_dtype(compute_dtype) == torch.float32 else (lambda a, b: 1)
     if backward:
-        return 3 * n * in_bytes + n * 4 + R * T * 4 + 3 * n * 4, 10 * R * T * T * hd
-    return 3 * n * in_bytes + R * T * 4 + n * 4, 4 * R * T * T * hd
+        ops = one * (mul(x, x) + 3 * mul(False, x) + mul(False, False))
+        return 3 * n * in_bytes + n * 4 + R * T * 4 + 3 * n * 4, ops
+    return 3 * n * in_bytes + R * T * 4 + n * 4, one * (mul(x, x) + mul(False, x))

@@ -11,8 +11,8 @@ raises) and a launch count:
   and keeps only the maximum of each 128-row segment ([S, B] f32), plus
   optionally every masked score ([Npad, B] f32, ``phase2="gather"``). An
   f32 corpus is scored on the tensor cores from three bf16 pieces of each
-  value (:func:`split_bf16x3`, :func:`split_scores`: the six leading
-  products, as XLA's HIGHEST precision takes them on the TPU).
+  value (:func:`split_scores`: the six leading products, as XLA's HIGHEST
+  precision takes them on the TPU).
 - :func:`segmax_int8` (``csrc/segmax.cu``): the same over a corpus
   quantized per row (:func:`quantize_rows`), each sum times its row's scale;
   phase 1 of :func:`fused_topk_segmax_int8`.
@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from twotowermlretrieval_tpu_torch.ops import _build
+from twotowermlretrieval_tpu_torch.utils.dtypes import matmul_split
 
 NEG_INF = float(-3.0e38)  # fits f32; safer than -inf for max/compare chains
 _SEG = 128  # covering-segment width; int8 index files of the JAX package use it too
@@ -202,35 +203,12 @@ def topk_oracle(queries: torch.Tensor, docs: torch.Tensor, k: int):
 # the f32 route's arithmetic (csrc/doc_mma.cuh, "The f32 path"), on the CPU
 # ---------------------------------------------------------------------------
 
-# The products of bf16 pieces the f32 route takes, (doc piece, query piece)
-# with 0 = hi, 1 = mid, 2 = lo, smallest first: XLA's six-pass HIGHEST.
-# mid.lo, lo.mid and lo.lo are dropped.
-SPLIT_PRODUCTS = ((1, 1), (2, 0), (0, 2), (1, 0), (0, 1), (0, 0))
-# What the dropped products may cost a score, relative to sum_k |q_k d_k|:
-# |mid| <= 2^-8 (1 + 2^-8) |x| and |lo| <= 2^-16 |x| (the kernel's header).
-SPLIT_DROPPED_REL = 2.0 ** -23 * (1 + 2.0 ** -7)
-
-
-def split_bf16x3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The f32 route's split of ``x`` (f32) into three bf16 pieces (hi, mid,
-    lo): each rounds to nearest even what the pieces before it leave (the
-    remainders are exact in f32), so hi + mid + lo is ``x`` exactly (8
-    significant bits each and the remainders' signs cover f32's 24)."""
-    x = x.float()
-    hi = x.to(torch.bfloat16)
-    rest = x - hi.float()
-    mid = rest.to(torch.bfloat16)
-    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
-
 
 def split_scores(q: torch.Tensor, docs: torch.Tensor) -> torch.Tensor:
     """[B, N] f32 scores of ``q`` [B, H] against ``docs`` [N, H] (f32) as the
-    f32 route forms them: the :data:`SPLIT_PRODUCTS` of their bf16 pieces,
-    each product of bf16 values exact in f32, summed in f32 (the kernel sums
-    in another order). Within ``SPLIT_DROPPED_REL * sum_k |q_k d_k|`` of the
-    exact product, besides the f32 sums' rounding."""
-    qp, dp = split_bf16x3(q), split_bf16x3(docs)
-    return sum(torch.matmul(qp[j].float(), dp[i].float().T) for i, j in SPLIT_PRODUCTS)
+    f32 route forms them: ``utils/dtypes.py``'s ``matmul_split`` with the
+    docs as the kernel's left operand."""
+    return matmul_split(docs, q.T).T
 
 
 # ---------------------------------------------------------------------------

@@ -7,12 +7,19 @@
   and multiplies in f32.
 - f32 compute means true f32 products: TF32 is switched off for both
   cuBLAS and cuDNN (:func:`set_matmul_precision`), the counterpart of
-  JAX's ``Precision.HIGHEST``.
+  JAX's ``Precision.HIGHEST``. The kernels' f32 routes (the scans over an
+  f32 corpus, attention at f32 compute) compute such products on the bf16
+  tensor cores as split products: each f32 operand as three bf16 pieces
+  (:func:`split_bf16x3`), the six leading products of the pieces
+  (:data:`SPLIT_PRODUCTS`) summed in f32. :func:`matmul_split` is that
+  arithmetic on the CPU.
 - Entry points run on ``cuda`` unless the caller asks for the CPU
   (:func:`resolve_device`); a CUDA request without a card raises.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -40,6 +47,43 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor, cdt: torch.dtype) -> torch.Tens
     The upcast of a bf16-rounded operand to f32 is exact, so this equals a
     bf16 x bf16 product with f32 accumulation, up to summation order."""
     return torch.matmul(a.to(cdt).float(), b.to(cdt).float())
+
+
+# The products of bf16 pieces a split product takes, (left piece, right
+# piece) with 0 = hi, 1 = mid, 2 = lo, smallest first: XLA's six-pass
+# HIGHEST. mid.lo, lo.mid and lo.lo are dropped.
+SPLIT_PRODUCTS = ((1, 1), (2, 0), (0, 2), (1, 0), (0, 1), (0, 0))
+# What the dropped products may cost a product's entry, relative to
+# sum_k |a_k b_k|: |mid| <= 2^-8 (1 + 2^-8) |x| and |lo| <= 2^-16 |x|
+# (csrc/doc_mma.cuh, "The f32 path").
+SPLIT_DROPPED_REL = 2.0 ** -23 * (1 + 2.0 ** -7)
+
+
+def split_bf16x3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The split of ``x`` (f32) into three bf16 pieces (hi, mid, lo): each
+    rounds to nearest even what the pieces before it leave (the remainders
+    are exact in f32), so hi + mid + lo is ``x`` exactly (8 significant
+    bits each and the remainders' signs cover f32's 24). A bf16 value's mid
+    and lo are zero."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
+
+
+def matmul_split(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the kernels' f32 routes form it: the
+    :data:`SPLIT_PRODUCTS` of the operands' bf16 pieces, each product of
+    bf16 values exact in f32, summed in f32 in that order (the kernels sum
+    in another order). Within ``SPLIT_DROPPED_REL * sum_k |a_k b_k|`` of
+    the exact product, besides the f32 sums' rounding."""
+    ap, bp = split_bf16x3(a), split_bf16x3(b)
+    out = None
+    for i, j in SPLIT_PRODUCTS:
+        term = torch.matmul(ap[i].float(), bp[j].float())
+        out = term if out is None else out + term
+    return out
 
 
 def bernoulli_mask(generator: torch.Generator, p: float, shape, device) -> torch.Tensor:
