@@ -632,12 +632,13 @@ def _fwd_design(cell: str, B: int, T: int, dev, H=H, compact: bool = True) -> di
     slots = cluster_slots("fwd", cell, "bfloat16", hist, dev)
     plan = fwd_plan(cell, T, B, H, 2, "bfloat16", hist, slots)
     w = ("resident" if plan["resident"]
-         else f"streamed in chunks of {plan['kc']} rows every step")
+         else f"streamed every step through a ring of {plan['wstages']} stages of "
+              f"{plan['kc']} rows")
     log(f"rnn_fwd design, {cell} B={B} T={T} H={H}: clusters of {plan['nc']} CTAs x "
         f"{plan['hc']} hidden columns, {plan['rows']} batch rows a cluster, "
         f"{plan['clusters']} clusters a direction ({2 * plan['clusters']} in all; the card "
         f"holds {plan['slots']} clusters of {plan['nc']} at once), W columns {w}, "
-        f"{plan['smem']} bytes of shared memory a CTA")
+        f"{plan['blocks']} h row block(s), {plan['smem']} bytes of shared memory a CTA")
     return plan
 
 
@@ -1294,7 +1295,8 @@ def _bwd_design(cell: str, B: int, T: int, dev, H=H, compact: bool = True) -> di
     slots = cluster_slots("bwd", cell, "bfloat16", hist, dev)
     plan = bwd_plan(cell, T, B, H, 2, "bfloat16", hist, slots)
     w = ("resident" if plan["resident"]
-         else f"streamed in chunks of {plan['kc']} columns every step")
+         else f"streamed every step in chunks of {plan['kc']} columns, through a ring of "
+              f"{plan['wstages']} stages of {plan['kw']} columns")
     kp = -(-_GATES[cell] * plan["H"] // 16) * 16
     x = ("whole" if plan["xc"] >= kp
          else f"exchanged in chunks of {plan['xc']} columns, a cluster barrier each")
@@ -1426,16 +1428,26 @@ def phase_wide_kernels(dev) -> tuple:
     """The widths the JAX package keeps on its Pallas kernels that clusters
     of 8 do not hold, at the query encode's B=16, T=32 (bf16, bf16
     history), each against its plain version and twice bit-identical, with
-    its layout (the cluster size and the card's count of such clusters) and
-    timed beside cuDNN: GRU H=1792 and LSTM H=1536 backward (the dhp row
-    block exchanged in chunks), RNN H=3072 both passes (W streamed).
-    Returns the (forward, backward) records."""
+    its layout (the cluster size and the card's count of such clusters, the
+    W ring's stages and the row blocks) and timed beside cuDNN: GRU H=1792
+    and LSTM H=1536 backward (the dhp row block exchanged in chunks), RNN
+    H=3072 both passes (W streamed through the ring). Then the widths a
+    user reaches by widening the reference towers (HIDDEN_DIM 512 or 1024),
+    where W streams or sits in clusters of 16: GRU H=512 and H=1024
+    forward at the training query tower's B=64, H=1024 at the query
+    encode's B=16, and the H=512 backward at B=64. Returns the (forward,
+    backward) records and the phase's launch counts."""
+    zero_counts()
     with torch.inference_mode():
-        fwd = [check_rnn("RNN", SERVE_ROWS, QUERY_LEN, 21, dev, timed=True, H=3072)]
+        fwd = [check_rnn("RNN", SERVE_ROWS, QUERY_LEN, 21, dev, timed=True, H=3072),
+               check_rnn("GRU", TRAIN_ROWS, QUERY_LEN, 25, dev, timed=True, H=512),
+               check_rnn("GRU", TRAIN_ROWS, QUERY_LEN, 26, dev, timed=True, H=1024),
+               check_rnn("GRU", SERVE_ROWS, QUERY_LEN, 27, dev, timed=True, H=1024)]
     bwd = [check_rnn_bwd("GRU", SERVE_ROWS, QUERY_LEN, 22, dev, timed=True, H=1792),
            check_rnn_bwd("LSTM", SERVE_ROWS, QUERY_LEN, 23, dev, timed=True, H=1536),
-           check_rnn_bwd("RNN", SERVE_ROWS, QUERY_LEN, 24, dev, timed=True, H=3072)]
-    return fwd, bwd
+           check_rnn_bwd("RNN", SERVE_ROWS, QUERY_LEN, 24, dev, timed=True, H=3072),
+           check_rnn_bwd("GRU", TRAIN_ROWS, QUERY_LEN, 28, dev, timed=True, H=512)]
+    return fwd, bwd, read_counts()
 
 
 def phase_wide_s8(dev) -> dict:
@@ -4159,7 +4171,7 @@ def main(argv) -> int:
         for name, recs in phase_int8_kernels(dev).items():
             kern.setdefault(name, []).extend(recs)
         kern["rnn_bwd"] = phase_bwd_kernels(dev)
-        wide_fwd, wide_bwd = phase_wide_kernels(dev)
+        wide_fwd, wide_bwd, wide_launches = phase_wide_kernels(dev)
         kern["rnn_fwd"] += wide_fwd
         kern["rnn_bwd"] += wide_bwd
         wide_s8 = phase_wide_s8(dev)
@@ -4204,6 +4216,7 @@ def main(argv) -> int:
     phases = {"export": export["launches"], "serve": served["launches"],
               "serve_int8": served_int8["launches"], "train": trained["launches"],
               "odd_width_serve": odd["launches"], "wide_int8_index": wide_s8["launches"],
+              "wide_kernels": wide_launches,
               "transformer_train": tf["launches"], "transformer_serve": tf["serve"]["launches"],
               "wide_engine_search": wide_engine["launches"], "serve_ivf": served_ivf["launches"],
               "traced_train": traced["gru_train"]["launches"],

@@ -58,6 +58,7 @@ from twotowermlretrieval_tpu_torch.ops.topk import (
     topk_stream_int8,
     topk_stream_reference,
 )
+from twotowermlretrieval_tpu_torch.ops import rnn_scan as _rnn_scan
 from twotowermlretrieval_tpu_torch.ops import topk as _topk
 from twotowermlretrieval_tpu_torch.utils.dtypes import resolve_device
 
@@ -146,10 +147,11 @@ def _check_fwd(got, want, cdt):
 
 
 # the widest forward layer of each cell and compute dtype (ops/rnn_scan.py;
-# clusters of 16 past what clusters of 8 hold)
-_FWD_WIDEST = {("GRU", "bfloat16"): 2976, ("GRU", "float32"): 2560,
-               ("LSTM", "bfloat16"): 2816, ("LSTM", "float32"): 2336,
-               ("RNN", "bfloat16"): 3360, ("RNN", "float32"): 3200}
+# clusters of 16 past what clusters of 8 hold, one h row block past what
+# two leave a ring of W for)
+_FWD_WIDEST = {("GRU", "bfloat16"): 4032, ("GRU", "float32"): 4064,
+               ("LSTM", "bfloat16"): 3520, ("LSTM", "float32"): 3520,
+               ("RNN", "bfloat16"): 4096, ("RNN", "float32"): 4096}
 
 
 @pytest.mark.parametrize("cdt", ["bfloat16", "float32"])
@@ -445,6 +447,117 @@ def test_rnn_widest_jax_widths_on_the_kernels(dev, cell, H, B):
     a, b = (rnn_layer_bwd(cell, *bargs, compute_dtype=cdt) for _ in range(2))
     assert (rnn_layer_fwd.launches, rnn_layer_bwd.launches) == (before[0] + 2, before[1] + 2)
     _check_bwd(a, rnn_layer_bwd_reference(cell, *bargs, compute_dtype=cdt), cdt)
+    for x, y in zip((*a[0], a[1], a[2]), (*b[0], b[1], b[2])):
+        assert torch.equal(x, y)
+
+
+# the widths a user reaches by widening the reference towers (HIDDEN_DIM
+# 512 or 1024), as chip_smoke.py's phase_wide_kernels runs them: W in a
+# ring of stages (or, GRU H=512 at B=64, resident in clusters of 16)
+_STREAMED = [("fwd", 512, 64), ("fwd", 1024, 64), ("fwd", 1024, 16), ("bwd", 512, 64)]
+
+
+@pytest.mark.parametrize("which,H,B", _STREAMED, ids=[f"{w}-H{h}-B{b}" for w, h, b in _STREAMED])
+def test_rnn_streamed_route_matches_plain_version(dev, which, H, B):
+    """GRU at bf16 with a bf16 history, T=32: one launch, the plain version
+    within the tolerances above, and the same bits twice."""
+    cdt = "bfloat16"
+    if which == "fwd":
+        args = _rnn_case(dev, "GRU", 2, 32, B, H, seed=H + B)
+        before = rnn_layer_fwd.launches
+        got = [rnn_layer_fwd("GRU", *args, compute_dtype=cdt, history_in_cdt=True)
+               for _ in range(2)]
+        assert rnn_layer_fwd.launches == before + 2
+        _check_fwd(got[0], rnn_layer_fwd_reference("GRU", *args, compute_dtype=cdt,
+                                                   history_in_cdt=True), cdt)
+        flat = [[*g[0], *g[1], g[2]] for g in got]
+    else:
+        args = _bwd_case(dev, "GRU", 2, 32, B, H, seed=H + B, cdt=cdt, history_in_cdt=True)
+        before = rnn_layer_bwd.launches
+        got = [rnn_layer_bwd("GRU", *args, compute_dtype=cdt) for _ in range(2)]
+        assert rnn_layer_bwd.launches == before + 2
+        _check_bwd(got[0], rnn_layer_bwd_reference("GRU", *args, compute_dtype=cdt), cdt)
+        flat = [[*g[0], g[1], g[2]] for g in got]
+    for x, y in zip(*flat):
+        assert torch.equal(x, y)
+
+
+def _ring_layouts(which, cell, T, B, H, cdt):
+    """The plan and every ring its pass could take at this shape: depths
+    from 1 (the backward's degenerate ring) or 2 up to what fits, the
+    forward at 32 and 64 rows a stage (16 and 32 at f32) with one and two
+    h row blocks, the backward at each piece width of the plan's chunk."""
+    hist = torch.bfloat16 if cdt == "bfloat16" else torch.float32
+    cb = 2 if cdt == "bfloat16" else 4
+    if which == "fwd":
+        plan = fwd_plan(cell, T, B, H, 2, cdt, hist)
+        out = []
+        for kc in ((32, 64) if cb == 2 else (16, 32)):
+            for blocks in (1, 2):
+                for s in range(2, 9):
+                    smem = _rnn_scan._fwd_smem_bytes(cell, plan["H"], cb, plan["rows"],
+                                                     plan["hc"], kc, s, blocks)
+                    if smem <= _rnn_scan._SMEM_LIMIT:
+                        out.append(dict(plan, kc=kc, resident=False, wstages=s, blocks=blocks,
+                                        smem=smem))
+        return plan, out
+    plan = bwd_plan(cell, T, B, H, 2, cdt, hist)
+    out = []
+    for kw in sorted({32, 64, 96, plan["kc"]}):
+        if kw > plan["kc"] or kw % (32 if cb == 2 else 16):
+            continue
+        for s in range(1, 9):
+            smem = _rnn_scan._bwd_smem_bytes(cell, plan["H"], cb, hist.itemsize, plan["rows"],
+                                             plan["hc"], plan["kc"], plan["stages"],
+                                             plan["blocks"], plan["xc"], s, kw)
+            if smem <= _rnn_scan._SMEM_LIMIT:
+                out.append(dict(plan, kw=kw, wstages=s, smem=smem))
+    return plan, out
+
+
+_RING_CASES = [("fwd", "bfloat16"), ("fwd", "float32"), ("bwd", "bfloat16"), ("bwd", "float32")]
+
+
+@pytest.mark.parametrize("which,cdt", _RING_CASES, ids=[f"{w}-{c}" for w, c in _RING_CASES])
+def test_rnn_ring_layouts_give_the_same_bits(dev, monkeypatch, which, cdt):
+    """GRU H=1024 B=16 T=6: the launcher's plan arguments at every depth of
+    the W ring (and the forward's stage rows and row blocks, the
+    backward's piece widths) give the bits of the plan's own layout: only
+    the moment each part of W arrives changes."""
+    plan, layouts = _ring_layouts(which, "GRU", 6, 16, 1024, cdt)
+    assert not plan["resident"] and len(layouts) >= 6
+    hist = cdt == "bfloat16"
+    if which == "fwd":
+        args = _rnn_case(dev, "GRU", 2, 6, 16, 1024, seed=3)
+
+        def run():
+            res = rnn_layer_fwd("GRU", *args, compute_dtype=cdt, history_in_cdt=hist)
+            return [*res[0], *res[1], res[2]]
+    else:
+        args = _bwd_case(dev, "GRU", 2, 6, 16, 1024, seed=3, cdt=cdt, history_in_cdt=hist)
+
+        def run():
+            res = rnn_layer_bwd("GRU", *args, compute_dtype=cdt)
+            return [*res[0], res[1], res[2]]
+    want = run()
+    for lay in layouts:
+        monkeypatch.setattr(_rnn_scan, f"{which}_plan", lambda *a, _lay=lay, **k: _lay)
+        got = run()
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), lay
+
+
+def test_rnn_widest_ring_is_bitwise_repeatable(dev):
+    """RNN H=3072 B=16 T=32 (clusters of 16, W in a ring with one h row
+    block forward and one dhp row block backward): two calls of each pass
+    give the same bits."""
+    cdt = "bfloat16"
+    args = _rnn_case(dev, "RNN", 2, 32, 16, 3072, seed=7)
+    a, b = (rnn_layer_fwd("RNN", *args, compute_dtype=cdt, history_in_cdt=True)
+            for _ in range(2))
+    for x, y in zip((*a[0], a[2]), (*b[0], b[2])):
+        assert torch.equal(x, y)
+    bargs = _bwd_case(dev, "RNN", 2, 32, 16, 3072, seed=8, cdt=cdt, history_in_cdt=True)
+    a, b = (rnn_layer_bwd("RNN", *bargs, compute_dtype=cdt) for _ in range(2))
     for x, y in zip((*a[0], a[1], a[2]), (*b[0], b[1], b[2])):
         assert torch.equal(x, y)
 

@@ -37,15 +37,21 @@ _CASES = [(c, d) for c in ("GRU", "LSTM", "RNN") for d in ("bfloat16", "float32"
 
 
 def _fwd_layout_ok(cell, H, cdt, plan) -> bool:
+    """The plan's fields hang together. Where W streams, its ring has at
+    least 2 stages of whole k32 steps at bf16 (16 rows at f32); where it
+    is resident, no ring and two h row blocks."""
     cb = torch.tensor([], dtype=getattr(torch, cdt)).element_size()
     Hk, nc, hc, R, kc = plan["H"], plan["nc"], plan["hc"], plan["rows"], plan["kc"]
     kp = -(-Hk // 32) * 32
     held = (R // 16) * (hc // 8) <= 32 and R % 16 == 0 if cb == 2 else R * hc <= 2048
+    ring = (plan["wstages"] == 0 and plan["blocks"] == 2 if plan["resident"]
+            else 2 <= plan["wstages"] <= 8 and plan["blocks"] in (1, 2))
     return (Hk >= H and Hk % 8 == 0 and Hk - H < 8 and 1 <= nc <= 16 and hc % 8 == 0
             and (nc <= 8 or H100_SXM_CLUSTER_SLOTS[nc] > 0)
-            and nc * hc >= Hk > (nc - 1) * hc and held and kc % 32 == 0
-            and plan["resident"] == (kc >= kp)
-            and plan["smem"] == _fwd_smem_bytes(cell, Hk, cb, R, hc, kc) <= _SMEM_LIMIT)
+            and nc * hc >= Hk > (nc - 1) * hc and held and kc % (32 if cb == 2 else 16) == 0
+            and plan["resident"] == (kc >= kp) and ring
+            and plan["smem"] == _fwd_smem_bytes(cell, Hk, cb, R, hc, kc, plan["wstages"],
+                                                plan["blocks"]) <= _SMEM_LIMIT)
 
 
 @pytest.mark.parametrize("cell,cdt", _CASES, ids=[f"{c}-{d}" for c, d in _CASES])
@@ -60,10 +66,11 @@ def test_fwd_plan_takes_every_width_up_to_1024(cell, cdt):
 
 
 # the widest forward layer of each cell and compute dtype (module docstring;
-# clusters of 16 past what clusters of 8 hold)
-_FWD_WIDEST = {("GRU", "bfloat16"): 2976, ("GRU", "float32"): 2560,
-               ("LSTM", "bfloat16"): 2816, ("LSTM", "float32"): 2336,
-               ("RNN", "bfloat16"): 3360, ("RNN", "float32"): 3200}
+# clusters of 16 past what clusters of 8 hold, one h row block past what
+# two leave a ring of W for)
+_FWD_WIDEST = {("GRU", "bfloat16"): 4032, ("GRU", "float32"): 4064,
+               ("LSTM", "bfloat16"): 3520, ("LSTM", "float32"): 3520,
+               ("RNN", "bfloat16"): 4096, ("RNN", "float32"): 4096}
 # the widest backward layer at an f32 history (bf16: the bf16 history too);
 # past one whole dhp row block the row block is exchanged in chunks, so the
 # limit is a CTA's units (16 x 8 tiles, 4096 at clusters of 16) or, for
@@ -113,7 +120,8 @@ def test_bwd_plan_with_padding_takes_every_width_up_to_its_limit(cell, cdt, hist
             assert plan["H"] % 4 == 0 and 0 <= plan["H"] - H < 4
             assert plan["smem"] == _bwd_smem_bytes(cell, plan["H"], cb, hb, plan["rows"],
                                                    plan["hc"], plan["kc"], plan["stages"],
-                                                   plan["blocks"], plan["xc"])
+                                                   plan["blocks"], plan["xc"], plan["wstages"],
+                                                   plan["kw"])
             assert plan["smem"] <= _SMEM_LIMIT
             kp = -(-_GATES[cell] * plan["H"] // 16) * 16
             chunked = plan["xc"] < kp
@@ -219,3 +227,139 @@ def test_zero_padding_is_exact_in_both_passes(cell, H):
         if not split:
             torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-6)
             torch.testing.assert_close(got[3], want[3], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("cell,cdt", _CASES, ids=[f"{c}-{d}" for c, d in _CASES])
+def test_streamed_forward_plans_keep_a_ring_up_to_the_limit(cell, cdt):
+    """Past 1024 and up to the widest layer, at a serving batch and the
+    export's, every forward layout holds together and, where W streams,
+    keeps a ring of at least 2 stages within shared memory."""
+    for B in (16, 1024):
+        for H in range(1032, _FWD_WIDEST[cell, cdt] + 1, 8):
+            plan = fwd_plan(cell, 32, B, H, 2, cdt)
+            assert plan is not None and _fwd_layout_ok(cell, H, cdt, plan), (B, H, plan)
+
+
+@pytest.mark.parametrize("cell,cdt,hist", list(_BWD_WIDEST),
+                         ids=[f"{c}-{d}-{h}" for c, d, h in _BWD_WIDEST])
+def test_streamed_backward_plans_keep_a_ring(cell, cdt, hist):
+    """Up to the widest layer, every backward layout that streams W keeps a
+    ring of whole pieces of the chunk that orders the sums: where the dhp
+    row block is exchanged whole, whole chunks, as many stages as fit (up
+    to 8); where it is exchanged in chunks, two stages of the widest piece
+    that leaves two (a multiple of 32 columns at bf16, 16 at f32), or
+    whole chunks where they fit twice. Resident layouts have no ring."""
+    hdt = torch.bfloat16 if hist == "bf16" else torch.float32
+    cb, hb = (2 if cdt == "bfloat16" else 4), hdt.itemsize
+    step = 32 if cb == 2 else 16
+    for B in (16, 1024):
+        for H in range(4, _BWD_WIDEST[cell, cdt, hist] + 1, 4):
+            plan = bwd_plan(cell, 32, B, H, 2, cdt, hdt)
+            if plan["resident"]:
+                assert plan["wstages"] == 0
+                continue
+            kw, kc, S = plan["kw"], plan["kc"], plan["wstages"]
+            kp = -(-_GATES[cell] * plan["H"] // 16) * 16
+
+            def smem(stages, width):
+                return _bwd_smem_bytes(cell, plan["H"], cb, hb, plan["rows"], plan["hc"], kc,
+                                       plan["stages"], plan["blocks"], plan["xc"], stages, width)
+
+            assert 1 <= S <= 8 and smem(S, kw) == plan["smem"] <= _SMEM_LIMIT, (B, H, plan)
+            if plan["xc"] >= kp or kw == kc:  # whole chunks, as many as fit
+                assert kw == kc and (S == 8 or smem(S + 1, kc) > _SMEM_LIMIT), (B, H, plan)
+            else:  # two of the widest piece
+                assert S == 2 and kw % step == 0
+                assert smem(2, kc) > _SMEM_LIMIT, (B, H, plan)
+                assert kw + step >= kc or smem(2, kw + step) > _SMEM_LIMIT, (B, H, plan)
+
+
+# the reference towers' layouts before the W ring (the port at the commit
+# that added it): H=256 at bf16 with a bf16 history, both passes
+_MAIN_FWD = {16: (8, 32, 16, 1, 256, True, 70528), 64: (8, 32, 32, 2, 256, True, 87424),
+             128: (8, 32, 32, 4, 256, True, 87424), 1024: (8, 32, 128, 8, 256, True, 188800)}
+_MAIN_BWD = {16: (8, 32, 16, 1, 768, True, 2, 2, 768, 8, 130176),
+             64: (8, 32, 32, 2, 768, True, 2, 2, 768, 11, 210688),
+             128: (8, 32, 32, 4, 768, True, 2, 2, 768, 11, 210688),
+             1024: (8, 32, 32, 32, 768, True, 2, 2, 768, 11, 210688)}
+
+
+@pytest.mark.parametrize("B", sorted(_MAIN_FWD))
+def test_main_path_layouts_are_unchanged(B):
+    """The reference towers (GRU H=256, bf16) keep W resident in both
+    passes, field for field the layouts they had before the ring, and every
+    cell at H=256 and bf16 holds W resident with no ring."""
+    f = fwd_plan("GRU", 32, B, 256, 2, "bfloat16", torch.bfloat16)
+    b = bwd_plan("GRU", 32, B, 256, 2, "bfloat16", torch.bfloat16)
+    assert tuple(f[k] for k in ("nc", "hc", "rows", "clusters", "kc", "resident",
+                                "smem")) == _MAIN_FWD[B]
+    assert tuple(b[k] for k in ("nc", "hc", "rows", "clusters", "kc", "resident", "stages",
+                                "blocks", "xc", "nsplit", "smem")) == _MAIN_BWD[B]
+    assert f["wstages"] == 0 and f["blocks"] == 2 and b["wstages"] == 0
+    for cell in ("GRU", "LSTM", "RNN"):
+        for hist in (torch.bfloat16, torch.float32):
+            f = fwd_plan(cell, 32, B, 256, 2, "bfloat16", hist)
+            b = bwd_plan(cell, 32, B, 256, 2, "bfloat16", hist)
+            assert f["resident"] and b["resident"] and f["wstages"] == b["wstages"] == 0
+
+
+# the chunk that orders the backward's sums where W streams, at the shapes
+# the streamed route was first timed (its bits are kept): (cell, H, B) -> kc
+_BWD_CHUNKS = {("GRU", 512, 64): 928, ("GRU", 1024, 64): 208, ("GRU", 1792, 16): 512,
+               ("LSTM", 1536, 16): 528, ("RNN", 3072, 16): 240}
+
+
+@pytest.mark.parametrize("cell,H,B", list(_BWD_CHUNKS), ids=[f"{c}-H{h}-B{b}" for c, h, b in _BWD_CHUNKS])
+def test_bwd_ring_pieces_keep_the_order_of_the_sums(cell, H, B):
+    """The chain product sends the k16 step at chunk offset 64m + 16j to
+    accumulator j. Walking a ring's pieces (kw columns of each kc chunk, a
+    multiple of 32 or the whole chunk, 32 columns a step pair) gives every
+    accumulator the same k16 steps in the same order as whole chunks did,
+    at every piece width, so dh keeps its bits whatever the ring."""
+    plan = bwd_plan(cell, 32, B, H, 2, "bfloat16", torch.bfloat16)
+    assert not plan["resident"] and plan["kc"] == _BWD_CHUNKS[cell, H, B]
+    kp = -(-_GATES[cell] * plan["H"] // 16) * 16
+    kc = plan["kc"]
+    whole = [[] for _ in range(4)]
+    for k0 in range(0, kp, kc):
+        klen = min(kc, kp - k0)
+        for kk in range(0, klen, 64):  # one chunk at a time, four steps in flight
+            for j in range(4):
+                if kk + 16 * j < klen:
+                    whole[j].append(k0 + kk + 16 * j)
+    assert sorted(sum(whole, [])) == list(range(0, kp, 16))
+    assert plan["kw"] in set(range(32, kc, 32)) | {kc}
+    for kw in sorted(set(range(32, kc, 32)) | {kc}):
+        pieces = [[] for _ in range(4)]
+        for k0 in range(0, kp, kc):
+            klen = min(kc, kp - k0)
+            for p0 in range(0, klen, kw):  # the ring's pieces, a step pair at a time
+                plen = min(kw, klen - p0)
+                for kk in range(0, plen, 32):
+                    hi = 2 if (p0 + kk) & 32 else 0
+                    pieces[hi].append(k0 + p0 + kk)
+                    if kk + 16 < plen:
+                        pieces[hi + 1].append(k0 + p0 + kk + 16)
+        assert pieces == whole, kw
+
+
+# (cell, H, B) -> (cluster size, W resident) at bf16 with the model's bf16
+# history: clusters of 16 where 8 would stream W and all of 16's clusters,
+# at the rows 8 take, fit on an H100 SXM at once (7 of 16, 15 of 8)
+_SIXTEEN = {("GRU", 512, 64): (16, True), ("GRU", 512, 96): (16, True),
+            ("GRU", 512, 112): (8, False), ("GRU", 512, 128): (8, False),
+            ("LSTM", 512, 64): (16, True), ("RNN", 1024, 16): (16, True),
+            ("GRU", 1024, 16): (16, False), ("GRU", 1024, 64): (16, False),
+            ("GRU", 1024, 1024): (8, False), ("GRU", 256, 64): (8, True)}
+
+
+@pytest.mark.parametrize("cell,H,B", list(_SIXTEEN), ids=[f"{c}-H{h}-B{b}" for c, h, b in _SIXTEEN])
+def test_fwd_plan_takes_clusters_of_16_in_one_wave(cell, H, B):
+    """The forward's cluster size: resident in clusters of 16 over a
+    streamed ring in clusters of 8 (GRU H=512 up to B=96), a ring in
+    clusters of 16 where its clusters fit at once (GRU H=1024 at B=16, 64),
+    clusters of 8 where 16 would take two waves (B=112 up), and the main
+    path's H=256 unchanged in clusters of 8."""
+    plan = fwd_plan(cell, 32, B, H, 2, "bfloat16", torch.bfloat16)
+    assert (plan["nc"], plan["resident"]) == _SIXTEEN[cell, H, B]
+    assert 2 * plan["clusters"] <= plan["slots"] or plan["nc"] == 8

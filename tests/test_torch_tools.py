@@ -18,7 +18,11 @@ from twotowermlretrieval_tpu.tools import download_dataset as jax_download
 from twotowermlretrieval_tpu.tools import inspect_data as jax_inspect
 from twotowermlretrieval_tpu.tools import loadtest as jax_loadtest
 from twotowermlretrieval_tpu.tools import prepare_embeddings as jax_prepare
-from twotowermlretrieval_tpu_torch.tools import bench_f32_attention, bench_f32_scans
+from twotowermlretrieval_tpu_torch.tools import (
+    bench_f32_attention,
+    bench_f32_scans,
+    bench_rnn_stream,
+)
 from twotowermlretrieval_tpu_torch.tools import bench_rnn_variants as bench
 from twotowermlretrieval_tpu_torch.tools import download_dataset, e2e_demo, inspect_data
 from twotowermlretrieval_tpu_torch.tools import loadtest, prepare_embeddings, smoke_phase_times
@@ -302,3 +306,37 @@ def test_bench_f32_scans_on_cpu(tmp_path):
         assert r["card"] == "the host (plain versions)"
     served = [r for r in recs if r.get("served_f32_top50")]
     assert [r["B"] for r in served] == [1, 16] and all(r["ms_median"] > 0 for r in served)
+
+
+def test_bench_rnn_stream_on_cpu(tmp_path, capsys):
+    """The streamed-W harness with the plain versions: a JSON line per toy
+    shape, both passes, whose kernel and plain version are the same
+    function (no difference, the same digest twice), with the plan, the
+    bound and the W bytes a CTA draws a step (none where W is resident);
+    --layouts times every layout of the wide shapes, the plan's own among
+    them, all with the plan's bits."""
+    out = tmp_path / "stream.json"
+    assert bench_rnn_stream.main(["--device", "cpu", "--layouts", "--out", str(out)]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    assert lines == json.loads(out.read_text())
+    assert [(r["pass"], r["cell"], r["H"]) for r in lines] == [
+        ("fwd", "GRU", 24), ("fwd", "LSTM", 40), ("bwd", "GRU", 24), ("bwd", "RNN", 16),
+        ("fwd", "GRU", 512), ("bwd", "GRU", 1024)]
+    for r in lines:
+        assert r["max_abs_err"] == 0 and r["bitwise_repeatable"] and len(r["digest"]) == 64
+        assert r["ms"] > 0 and r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations")
+        assert r["w_bytes_cta_step"] == (0 if r["plan"]["resident"] else
+                                         r["plan"]["hc"] * r["H"] * {"GRU": 3, "LSTM": 4,
+                                                                    "RNN": 1}[r["cell"]] * 2)
+        assert r["card"] == "the host (plain versions)" and r["cudnn_ms"] is None
+        assert ("layouts" in r) == (r["H"] > 256)
+    fwd, bwd = lines[4:]
+    assert fwd["plan"]["resident"] and fwd["plan"]["nc"] == 16  # resident in clusters of 16
+    assert not bwd["plan"]["resident"] and bwd["plan"]["wstages"] >= 1
+    for r in (fwd, bwd):
+        assert sum(lay["chosen"] for lay in r["layouts"]) == 1
+        assert all(lay["same_bits"] and lay["ms"] > 0 for lay in r["layouts"])
+    # the forward's clusters of 8 stream W through rings of every depth
+    eights = [lay["plan"] for lay in fwd["layouts"] if lay["plan"]["nc"] == 8]
+    assert eights and all(not p["resident"] and p["wstages"] >= 2 for p in eights)
+    assert {p["blocks"] for p in eights} == {1, 2}

@@ -1,8 +1,10 @@
 // Device helpers shared by the two recurrent kernels (rnn_fwd.cu and
 // rnn_bwd.cu): the cell codes and gate counts, the conversions between the
-// compute dtype and f32, and thin wrappers of the PTX both chains are built
-// from (cp.async, ldmatrix, mma.sync m16n8k16 bf16 with f32 accumulation).
-// attention.cu and doc_mma.cuh take the PTX wrappers too.
+// compute dtype and f32, thin wrappers of the PTX both chains are built
+// from (cp.async, ldmatrix, mma.sync m16n8k16 bf16 with f32 accumulation,
+// the cluster barrier's halves), and the ring both stream W through where
+// it does not fit (mbarriers, bulk copies, the turns in which the warps
+// copy). attention.cu and doc_mma.cuh take the PTX wrappers too.
 
 #pragma once
 
@@ -98,6 +100,93 @@ __device__ __forceinline__ void cluster_arrive() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// A ring of W stages in shared memory, filled by bulk copies (the copy
+// engine: cp.async.bulk, one thread a copy, completing on a "full"
+// mbarrier by its byte count) and released by the consuming warps (one
+// arrival each on an "empty" mbarrier). Stage g % S holds the g-th chunk a CTA consumes;
+// chunk g's full phase has parity (g / S) & 1, and chunk g + S may be
+// copied once chunk g's empty phase has completed.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// makes the barriers' initialisation visible to the copy engine and the cluster
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// one arrival that also announces `bytes` of copies the phase waits for
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// has the phase of this parity completed? (no waiting)
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// wait for the phase of this parity to complete. A wait that never ends
+// (a fault in the ring's bookkeeping) traps after 2^26 polls (seconds), so
+// the launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+#pragma unroll 1
+  for (unsigned spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (spins == (1u << 26)) __trap();
+  }
+}
+// one bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global memory into this CTA's shared memory, completing
+// on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The copies of a ring, shared round-robin by its consuming warps: as
+// chunk g begins, lane 0 of warp g % warps copies chunk g + S - 1 into the
+// stage chunk g - 1 used, once every warp has released chunk g - 1 (chunks
+// 0..S-2 are copied before the loop). Each copy's few mbarrier operations
+// cost a warp about as much as a chunk's product, so no warp carries them
+// all, and none waits long: a warp starting chunk g has released g - 1.
+// copy(x, stage, full) starts chunk x's copy into `stage` on `full`.
+template <typename Copy>
+__device__ __forceinline__ void ring_turn(int g, int S, int total, int warps, uint64_t* full,
+                                          uint64_t* empty, Copy copy) {
+  const int x = g + S - 1;
+  if (threadIdx.x % 32 == 0 && (int)(threadIdx.x / 32) == g % warps && x < total) {
+    if (x >= S) mbar_wait(empty + x % S, ((x / S) + 1) & 1);
+    copy(x, x % S, full + x % S);
+  }
+  __syncwarp();
 }
 
 // How many clusters of nc CTAs of `kernel` (threads each, a whole SM's

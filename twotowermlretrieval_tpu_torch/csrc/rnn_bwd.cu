@@ -81,8 +81,23 @@
 // cp.async ring into ldmatrix and mma.sync. f32 compute keeps full f32
 // products (FMA on the CUDA cores, no TF32) in the same structure. Where a
 // CTA's W rows do not fit beside the rest (wide layers), the chain streams
-// them through shared memory in chunks of KC columns each step. Where
-// even the two rounded dhp row blocks do not fit (GRU past H=816 at bf16,
+// them every step through a ring of S stages that runs on across steps,
+// as the forward's does (csrc/rnn_fwd.cu): the wrapper's scratch holds W
+// packed once per call (rnn_bwd_pack_w, one pass), so each stage is one
+// bulk copy (cp.async.bulk), the copies taken in turn by the warps and
+// completing on the stage's "full" mbarrier; every warp releases a stage
+// on its "empty" mbarrier, and no block barrier is left on the route. A
+// stage holds KW columns of a KC chunk: KC is where the four accumulators
+// of the chain product restart, so the sums keep the order they had with
+// one chunk buffer, and the pieces (multiples of 32 at bf16, starting on
+// the first or third accumulator) only change when each part of W
+// arrives. Each piece costs its warps about a microsecond beyond its
+// bytes, so pieces are whole chunks, as many stages as fit, where the row
+// block is exchanged whole; where it is exchanged in chunks, each behind a
+// cluster barrier, two stages of the widest piece that leaves two, so the
+// next piece lands during the barrier. Where no second stage fits beside
+// a whole chunk, the ring has one: each chunk's copy then waits for the
+// last reads of the one before. Where even the two rounded dhp row blocks do not fit (GRU past H=816 at bf16,
 // LSTM past 608), the chain keeps one and pays a second, split cluster
 // barrier a step: each CTA arrives after its product and waits before its
 // next push, so no push lands on a block a peer still reads. Where even one
@@ -400,16 +415,20 @@ struct ChainArgs {
   int R, hc, kp, kc, stages, blocks, xc;  // the plan (kp: G*H rounded up to 16; kc == kp: W
                                           // resident; blocks: dhp row blocks, 2 or 1; xc < kp:
                                           // the row block exchanged in chunks of xc columns)
+  int S, kw;              // streamed: the W ring's stages of kw columns (pieces of kc chunks)
   Ptrs p;
   const float* mask;      // [T][B]
   const void* w_hh;       // [D][H][GH] CT
+  const void* wpk;        // streamed: W packed by rnn_bwd_pack_w, [D][nc][pieces][hc][kw + pad]
   const float* hp;        // [D][T*B][GH] f32 (GRU, LSTM)
   const float* d_hfinal;  // [D][B][H]
   float* db_part;         // [D][clusters][GH] (split == 0)
 };
 
 // Byte offsets of one chain CTA's shared memory (ops/rnn_scan.py's
-// _bwd_smem_bytes mirrors the sizes): round(W) rows [hc][kc + pad], the
+// _bwd_smem_bytes mirrors the sizes): round(W) rows [hc][kp + pad] where
+// resident, else the ring's S stages of [hc][kw + pad] (and, last, their
+// full and empty barriers [2][S]), the
 // rounded dhp row blocks [blocks][R][kp + pad] (exchanged in chunks: two
 // chunk buffers [2][R][xc + pad] and the CTA's own rounded dhp [R][G][hc]),
 // the staging buffers, the dh (and dc) carry [R][hc] and the db partial
@@ -417,13 +436,13 @@ struct ChainArgs {
 // LSTM), h1 [R][hc] HT (GRU h_prev, LSTM c_prev, RNN h_t), dout [R][hc]
 // HT, mask [R] f32.
 struct ChainSmem {
-  size_t w, dhp, own, stage, dh, dc, db, total;
+  size_t w, dhp, own, stage, dh, dc, db, bar, total;
   size_t st_hp, st_xp, st_h1, st_do, st_m, st_size;
 };
 
 template <int CELL, typename CT, typename HT>
 __host__ __device__ ChainSmem chain_smem(int R, int hc, int kp, int kc, int stages,
-                                         int blocks, int xc) {
+                                         int blocks, int xc, int S, int kw) {
   constexpr int G = NumGates<CELL>::G;
   constexpr size_t padk = 16 / sizeof(CT);
   ChainSmem s;
@@ -441,7 +460,10 @@ __host__ __device__ ChainSmem chain_smem(int R, int hc, int kp, int kc, int stag
   s.st_size = o;
   o = 0;
   s.w = o;
-  o += a16((size_t)hc * (kc + padk) * sizeof(CT));
+  if (kc < kp)
+    o += (size_t)S * a16((size_t)hc * (kw + padk) * sizeof(CT));
+  else
+    o += a16((size_t)hc * (kc + padk) * sizeof(CT));
   const int xw = xc < kp ? xc : kp;  // the columns of a row block held at once
   s.dhp = o;
   o += a16((size_t)blocks * R * (xw + padk) * sizeof(CT));
@@ -455,6 +477,8 @@ __host__ __device__ ChainSmem chain_smem(int R, int hc, int kp, int kc, int stag
   if (CELL == kLSTM) o += a16((size_t)R * hc * 4);
   s.db = o;
   o += a16((size_t)G * R * hc * 4);
+  s.bar = o;
+  if (kc < kp) o += (size_t)16 * S;
   s.total = o;
   return s;
 }
@@ -482,7 +506,7 @@ __device__ __forceinline__ RowCopy row_copy(int bytes_per_row, int align_bits, i
 // the CTA's warps issue through the same four schedulers. CHUNKED (the
 // row block exchanged in chunks) is a template argument, so the whole-block
 // path compiles as if the chunked one did not exist.
-template <int CELL, typename CT, typename HT, bool CHUNKED>
+template <int CELL, typename CT, typename HT, bool CHUNKED, bool STREAM>
 __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainArgs a) {
   constexpr int G = NumGates<CELL>::G;
   constexpr bool kMma = sizeof(CT) == 2;
@@ -502,8 +526,9 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
   // chunked: the row block is exchanged xc columns at a time, each chunk
   // pushed, barriered and multiplied in turn (W streamed in the same chunks)
   constexpr bool chunked = CHUNKED;
-  const int wstride = kc + padk, dstride = (chunked ? a.xc : kp) + padk;
-  const bool resident = kc >= kp;
+  constexpr bool resident = !STREAM;  // the launcher's choice: kc >= kp
+  const int S = a.S, kw = a.kw;
+  const int wstride = (resident ? kc : kw) + padk, dstride = (chunked ? a.xc : kp) + padk;
 
   const CT* xp = static_cast<const CT*>(a.p.xp[e]);
   const HT* out = static_cast<const HT*>(a.p.out[e]);
@@ -514,20 +539,21 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
   const CT* w = static_cast<const CT*>(a.w_hh) + (size_t)e * H * GH;
   const float* hp = CELL == kRNN ? nullptr : a.hp + (size_t)e * T * B * GH;
 
-  const ChainSmem L = chain_smem<CELL, CT, HT>(R, hc, kp, kc, a.stages, a.blocks, a.xc);
+  const ChainSmem L = chain_smem<CELL, CT, HT>(R, hc, kp, kc, a.stages, a.blocks, a.xc, S, kw);
   const bool one_block = a.blocks == 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  CT* wbuf = reinterpret_cast<CT*>(smem + L.w);
+  CT* wbuf = reinterpret_cast<CT*>(smem + L.w);  // resident W, or the ring's stages
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar);  // [S], then empty [S]
+  uint64_t* empty = full + S;
   CT* dhpb = reinterpret_cast<CT*>(smem + L.dhp);
   CT* ownb = reinterpret_cast<CT*>(smem + L.own);  // chunked: [R][G][hc]
   float* dh_s = reinterpret_cast<float*>(smem + L.dh);
   float* dc_s = reinterpret_cast<float*>(smem + L.dc);
   float* dbacc = reinterpret_cast<float*>(smem + L.db);
 
-  // round(W)[j0 + n][k0 + k] -> wbuf[n][k] for n < hc, k < kc; zero past
-  // the owned columns and past G*H. Copies of 16 bytes where W's rows
-  // allow them (G*H a multiple of 8 at bf16), else 8 or 4: a streamed
-  // chunk is on every step's path.
+  // resident: round(W)[j0 + n][k] -> wbuf[n][k] for n < hc, k < kp; zero
+  // past the owned columns and past G*H. Copies of 16 bytes where W's rows
+  // allow them (G*H a multiple of 8 at bf16), else 8 or 4.
   const int wcw = copy_width(GH * (int)sizeof(CT));
   auto load_w = [&](int k0) {
     const int words = kc * (int)sizeof(CT) / wcw;
@@ -645,9 +671,48 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
   for (int i = tid; i < G * R * hc; i += NT) dbacc[i] = 0.0f;
   // rows past the batch and columns past G*H stay zero in every block
   for (int i = tid; i < a.blocks * R * dstride; i += NT) dhpb[i] = from_f<CT>(0.0f);
-  if (resident) load_w(0);
+  if constexpr (resident) {
+    load_w(0);
+  } else if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, CHAIN_WARPS);  // every warp releases every piece
+    }
+    mbar_init_fence();
+  }
   if (a.stages == 2) issue(0, 0);
   cluster.sync();  // every CTA of the cluster runs, buffers zeroed, before the first push
+
+  // streamed: a step multiplies np pieces of W, kw columns of a kc chunk at
+  // a time (ppc to a chunk; the last chunk may hold fewer); the CTA's
+  // piece x (of T * np, in the order they are multiplied) is its packed
+  // piece x % np, copied into stage x % S (pieces 0..S-2 before the loop,
+  // then one a turn, round-robin over the warps). A piece's copy is a
+  // whole stage.
+  const int ppc = (kc + kw - 1) / kw, nch = (kp + kc - 1) / kc;
+  const int np = (nch - 1) * ppc + (kp - (nch - 1) * kc + kw - 1) / kw, total = T * np;
+  const size_t stage_elems = (size_t)hc * wstride;
+  const CT* wsrc = resident ? nullptr
+                            : static_cast<const CT*>(a.wpk) + ((size_t)e * nc + q) * np * stage_elems;
+  auto copy_piece = [&](int x, int st, uint64_t* bar) {
+    const unsigned bytes = (unsigned)(stage_elems * sizeof(CT));
+    mbar_arrive_expect_tx(bar, bytes);
+    bulk_copy(wbuf + (size_t)st * stage_elems, wsrc + (size_t)(x % np) * stage_elems, bytes, bar);
+  };
+  if (!resident && tid == 0)
+    for (int x = 0; x < S - 1 && x < total; ++x) copy_piece(x, x, full + x);
+  // as piece g begins, one warp copies piece g + S - 1 (its turn in the
+  // round), and every warp waits for piece g; each releases it after its
+  // last read
+  auto piece_begin = [&](int g) -> const CT* {
+    ring_turn(g, S, total, CHAIN_WARPS, full, empty, copy_piece);
+    mbar_wait(full + g % S, (g / S) & 1);
+    return wbuf + (size_t)(g % S) * stage_elems;
+  };
+  auto piece_end = [&](int g) {
+    __syncwarp();
+    if (tid % 32 == 0) mbar_arrive(empty + g % S);
+  };
 
   const int warp = tid / 32, lane = tid % 32, gid = lane / 4, tig = lane % 4;
   for (int step = 0; step < T; ++step) {
@@ -811,15 +876,9 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
         for (int j = 0; j < 4; ++j)
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[u][j][i] = 0.0f;
-      for (int k0 = 0; k0 < kp; k0 += kc) {
-        const int klen = min(kc, kp - k0);
+      if constexpr (resident) {
         int aoff;
-        const CT* ablk = a_block(k0, aoff);
-        if (!resident) {
-          load_w(k0);
-          cp_async_wait<0>();
-          __syncthreads();
-        }
+        const CT* ablk = a_block(0, aoff);
 #pragma unroll
         for (int u = 0; u < UNITS_MAX; ++u) {
           const int slot = warp + u * CHAIN_WARPS;
@@ -827,7 +886,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
           const bool second = halves && slot >= units;
           if (slot < (halves ? 2 * units : units)) {
             const int mt = unit / ntn, nt = unit % ntn;
-            const int kb = second ? khalf : 0, ke = halves && !second ? khalf : klen;
+            const int kb = second ? khalf : 0, ke = halves && !second ? khalf : kp;
             // ldmatrix rows: A's 16 rows by two k halves, B's 8 rows (n) by four k quarters
             const CT* ap = ablk + (size_t)(mt * 16 + lane % 16) * dstride + aoff + (lane / 16) * 8;
             const CT* bp = wbuf + (size_t)(nt * 8 + lane % 8) * wstride + (lane / 8) * 8;
@@ -848,7 +907,47 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
             }
           }
         }
-        if (!resident) __syncthreads();  // the next chunk overwrites wbuf
+      } else {
+        // W streamed in pieces: the k16 step at chunk offset 64m + 16j goes
+        // to accumulator j, as it would with the whole chunk at once (a
+        // piece starts on a multiple of 32: accumulators 0 and 1, or 2 and 3)
+        int g = step * np;
+        for (int k0 = 0; k0 < kp; k0 += kc) {
+          const int klen = min(kc, kp - k0);
+          int aoff;
+          const CT* ablk = a_block(k0, aoff);
+#pragma unroll 1
+          for (int p0 = 0; p0 < klen; p0 += kw, ++g) {
+            const int plen = min(kw, klen - p0);
+            const CT* wk = piece_begin(g);
+#pragma unroll
+            for (int u = 0; u < UNITS_MAX; ++u) {
+              const int slot = warp + u * CHAIN_WARPS;
+              if (slot < units) {
+                const int mt = slot / ntn, nt = slot % ntn;
+                const CT* ap =
+                    ablk + (size_t)(mt * 16 + lane % 16) * dstride + aoff + p0 + (lane / 16) * 8;
+                const CT* bp = wk + (size_t)(nt * 8 + lane % 8) * wstride + (lane / 8) * 8;
+#pragma unroll 2
+                for (int kk = 0; kk < plen; kk += 32) {
+                  uint32_t a0[4], a1[4], b[4];  // b: B of the k16 steps at kk and kk + 16
+                  const bool two = kk + 16 < plen;
+                  ldsm_x4(a0, ap + kk);
+                  ldsm_x4(b, bp + kk);
+                  if (two) ldsm_x4(a1, ap + kk + 16);
+                  if (((p0 + kk) & 32) == 0) {
+                    mma_bf16(acc[u][0], a0[0], a0[1], a0[2], a0[3], b[0], b[1]);
+                    if (two) mma_bf16(acc[u][1], a1[0], a1[1], a1[2], a1[3], b[2], b[3]);
+                  } else {
+                    mma_bf16(acc[u][2], a0[0], a0[1], a0[2], a0[3], b[0], b[1]);
+                    if (two) mma_bf16(acc[u][3], a1[0], a1[1], a1[2], a1[3], b[2], b[3]);
+                  }
+                }
+              }
+            }
+            piece_end(g);
+          }
+        }
       }
       float* xpart = reinterpret_cast<float*>(smem + L.stage + (size_t)buf * L.st_size);
 #pragma unroll
@@ -885,28 +984,39 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
       float acc[OUTS_MAX];
 #pragma unroll
       for (int o = 0; o < OUTS_MAX; ++o) acc[o] = 0.0f;
-      for (int k0 = 0; k0 < kp; k0 += kc) {
-        const int klen = min(kc, kp - k0);
-        int aoff;
-        const CT* ablk = a_block(k0, aoff);
-        if (!resident) {
-          load_w(k0);
-          cp_async_wait<0>();
-          __syncthreads();
-        }
+      // over columns [c0, c0 + len) of the row block at ablk + aoff, W's
+      // from wk (its column c0 first)
+      auto product = [&](const CT* ablk, int aoff, const CT* wk, int c0, int len) {
 #pragma unroll
         for (int o = 0; o < OUTS_MAX; ++o) {
           const int pidx = tid + o * CHAIN_THREADS;
           if (pidx < nout) {
             const int r = pidx / own, c = pidx % own;
-            const float* ap = reinterpret_cast<const float*>(ablk) + (size_t)r * dstride + aoff;
-            const float* bp = reinterpret_cast<const float*>(wbuf) + (size_t)c * wstride;
+            const float* ap = reinterpret_cast<const float*>(ablk) + (size_t)r * dstride + aoff + c0;
+            const float* bp = reinterpret_cast<const float*>(wk) + (size_t)c * wstride;
             float s = acc[o];
-            for (int k = 0; k < klen; ++k) s = fmaf(ap[k], bp[k], s);
+            for (int k = 0; k < len; ++k) s = fmaf(ap[k], bp[k], s);
             acc[o] = s;
           }
         }
-        if (!resident) __syncthreads();
+      };
+      if constexpr (resident) {
+        int aoff;
+        const CT* ablk = a_block(0, aoff);
+        product(ablk, aoff, wbuf, 0, kp);
+      } else {
+        int g = step * np;
+        for (int k0 = 0; k0 < kp; k0 += kc) {
+          const int klen = min(kc, kp - k0);
+          int aoff;
+          const CT* ablk = a_block(k0, aoff);
+#pragma unroll 1
+          for (int p0 = 0; p0 < klen; p0 += kw, ++g) {
+            const CT* wk = piece_begin(g);
+            product(ablk, aoff, wk, p0, min(kw, klen - p0));
+            piece_end(g);
+          }
+        }
       }
 #pragma unroll
       for (int o = 0; o < OUTS_MAX; ++o) {
@@ -955,8 +1065,41 @@ __global__ void rnn_bwd_reduce_kernel(int D, int nsplit, int ncl, int nw, int nb
   }
 }
 
+// W [D][H][G*H] -> the streamed chain's packed W [D][nc][np][hc][kw + pad]:
+// piece i (chunk c = i / ppc, its pp = i % ppc-th piece of kw columns) of
+// CTA q holds round(W)[q*hc + n][c*kc + pp*kw + k] at row n, column k, and
+// zeros past the piece, past G*H, past the CTA's own rows and in the
+// padding, so that each piece is one contiguous copy.
+struct PackArgs {
+  int H, GH, nc, hc, kc, kp, kw, ppc, np, wstride, D;
+  const void* w;
+  void* wpk;
+};
+
+template <typename CT>
+__global__ void rnn_bwd_pack_w(PackArgs p) {
+  const size_t total = (size_t)p.D * p.nc * p.np * p.hc * p.wstride;
+  const CT* w = static_cast<const CT*>(p.w);
+  CT* dst = static_cast<CT*>(p.wpk);
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += (size_t)gridDim.x * blockDim.x) {
+    size_t r = idx / p.wstride;
+    const int k = (int)(idx - r * p.wstride);
+    const int n = (int)(r % p.hc);
+    r /= p.hc;
+    const int i = (int)(r % p.np);
+    r /= p.np;
+    const int q = (int)(r % p.nc), e = (int)(r / p.nc);
+    const int c = i / p.ppc, pp = i % p.ppc;
+    const int klen = min(p.kc, p.kp - c * p.kc), plen = min(p.kw, klen - pp * p.kw);
+    const int col = c * p.kc + pp * p.kw + k, j = q * p.hc + n;
+    const bool ok = k < plen && col < p.GH && n < p.hc && j < p.H;
+    dst[idx] = ok ? w[((size_t)e * p.H + j) * p.GH + col] : from_f<CT>(0.0f);
+  }
+}
+
 struct Plan {
-  int nc, R, hc, kc, stages, blocks, nsplit, xc;
+  int nc, R, hc, kc, stages, blocks, nsplit, xc, S, kw;
 };
 
 template <int CELL, typename CT>
@@ -965,6 +1108,11 @@ bool plan_ok(const Plan& pl, int H, int kp) {
       (pl.nc - 1) * pl.hc >= H || pl.R < 8 || pl.R % 8 || pl.kc < 16 || pl.kc % 16 ||
       (pl.stages != 1 && pl.stages != 2) || (pl.blocks != 1 && pl.blocks != 2) || pl.nsplit < 1 ||
       pl.xc < 16 || pl.xc % 16)
+    return false;
+  // streamed: pieces of kw columns of a kc chunk, whole k32 steps at bf16
+  // (or the whole chunk)
+  if (pl.kc < kp && (pl.S < 1 || pl.S > 8 || pl.kw < 16 || pl.kw % 16 || pl.kw > pl.kc ||
+                     (sizeof(CT) == 2 && pl.kw % 32 && pl.kw != pl.kc)))
     return false;
   // chunked exchange: two chunk buffers, W streamed in the same chunks
   if (pl.xc < kp && (pl.blocks != 2 || pl.kc != pl.xc)) return false;
@@ -975,17 +1123,29 @@ bool plan_ok(const Plan& pl, int H, int kp) {
 
 template <int CELL, typename CT, typename HT>
 int launch(int T, int B, int H, int D, int dir0, int split, const Plan& pl, const Ptrs& p,
-           const float* mask, const void* w_hh, const float* b_hh, const float* d_hfinal,
-           float* hp_ws, float* ws_w, float* ws_b, float* dw, float* db, cudaStream_t stream) {
+           const float* mask, const void* w_hh, void* wpk, long long wpk_elems,
+           const float* b_hh, const float* d_hfinal, float* hp_ws, float* ws_w, float* ws_b,
+           float* dw, float* db, cudaStream_t stream) {
   constexpr int G = NumGates<CELL>::G;
   const int GH = G * H, kp = (GH + 15) / 16 * 16;
   if (!plan_ok<CELL, CT>(pl, H, kp)) return (int)cudaErrorInvalidValue;
   const int kc = pl.kc < kp ? pl.kc : kp;
-  const ChainSmem L =
-      chain_smem<CELL, CT, HT>(pl.R, pl.hc, kp, kc, pl.stages, pl.blocks, pl.xc);
+  const bool streamed = kc < kp;
+  const ChainSmem L = chain_smem<CELL, CT, HT>(pl.R, pl.hc, kp, kc, pl.stages, pl.blocks, pl.xc,
+                                               pl.S, pl.kw);
   if (L.total > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const int ncl = (B + pl.R - 1) / pl.R;
   cudaError_t err;
+  PackArgs pk = {};
+  if (streamed) {  // the pieces' count, and the packed W's elements
+    const int padk = 16 / (int)sizeof(CT), ppc = (kc + pl.kw - 1) / pl.kw;
+    const int nch = (kp + kc - 1) / kc;
+    const int np = (nch - 1) * ppc + (kp - (nch - 1) * kc + pl.kw - 1) / pl.kw;
+    pk = {H, GH, pl.nc, pl.hc, kc, kp, pl.kw, ppc, np, pl.kw + padk, D, w_hh, wpk};
+    if (wpk == nullptr ||
+        wpk_elems != (long long)D * pl.nc * np * pl.hc * (pl.kw + padk))
+      return (int)cudaErrorInvalidValue;
+  }
 
   GemmArgs g = {};
   g.T = T;
@@ -1016,14 +1176,18 @@ int launch(int T, int B, int H, int D, int dir0, int split, const Plan& pl, cons
   c.stages = pl.stages;
   c.blocks = pl.blocks;
   c.xc = pl.xc < kp ? pl.xc : kp;
+  c.S = pl.S;
+  c.kw = pl.kw;
   c.p = p;
   c.mask = mask;
   c.w_hh = w_hh;
+  c.wpk = wpk;
   c.hp = hp_ws;
   c.d_hfinal = d_hfinal;
   c.db_part = ws_b;
-  auto kernel = pl.xc < kp ? rnn_bwd_chain_kernel<CELL, CT, HT, true>
-                           : rnn_bwd_chain_kernel<CELL, CT, HT, false>;
+  auto kernel = pl.xc < kp ? rnn_bwd_chain_kernel<CELL, CT, HT, true, true>
+                : streamed  ? rnn_bwd_chain_kernel<CELL, CT, HT, false, true>
+                            : rnn_bwd_chain_kernel<CELL, CT, HT, false, false>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
   if (pl.nc > 8 &&  // clusters of more than 8 CTAs are not portable: allowed per kernel
@@ -1042,6 +1206,11 @@ int launch(int T, int B, int H, int D, int dir0, int split, const Plan& pl, cons
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  if (streamed) {  // W packed piece by piece, one pass
+    const long long grid = wpk_elems / 256 + 1;
+    rnn_bwd_pack_w<CT><<<(int)(grid < 4096 ? grid : 4096), 256, 0, stream>>>(pk);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
   if ((err = cudaLaunchKernelEx(&cfg, kernel, c)) != cudaSuccess) return (int)err;
   if ((err = cudaGetLastError()) != cudaSuccess || split) return (int)err;
 
@@ -1090,7 +1259,8 @@ struct Launch {
 template <int CELL, typename CT, typename HT>
 struct Slots {
   static int run(int nc, int* out) {
-    return cluster_slots(rnn_bwd_chain_kernel<CELL, CT, HT, false>, nc, CHAIN_THREADS, out);
+    return cluster_slots(rnn_bwd_chain_kernel<CELL, CT, HT, false, false>, nc, CHAIN_THREADS,
+                         out);
   }
 };
 
@@ -1103,8 +1273,11 @@ extern "C" {
 // with cdt_bf16). dir0: absolute direction of entry 0. The plan (from
 // ops/rnn_scan.py bwd_plan): nc CTAs per cluster of hc hidden columns
 // each, rows batch rows per cluster, W rows streamed in chunks of kc
-// columns (kc >= G*H: resident), 1 or 2 staging buffers, 2 or 1 dhp row
-// blocks, nsplit slices of the weight-gradient product. hr0, hr1: the history in the compute dtype
+// columns (kc >= G*H: resident) through a ring of wstages stages of kw
+// columns each, 1 or 2 staging buffers, 2 or 1 dhp row blocks, nsplit
+// slices of the weight-gradient product. wpk: where W streams, scratch of
+// wpk_elems elements of the compute dtype for the packed W (bwd_plan's
+// layout; the launcher checks the count), else null. hr0, hr1: the history in the compute dtype
 // (the history itself when it is in that dtype already), the products'
 // operand. hp_ws: [D, T*B, G*H] f32 (GRU, LSTM). dhp0, dhp1: GRU's dhp
 // [T, B, G*H] in the compute dtype, in both modes (an output in split
@@ -1119,11 +1292,12 @@ extern "C" {
 // success).
 int rnn_bwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int split, int T, int B,
                    int H, int D, int dir0, int nc, int rows, int hc, int kc, int stages,
-                   int blocks, int nsplit, int xc, const void* xp0, const void* xp1,
-                   const float* mask,
+                   int blocks, int nsplit, int xc, int wstages, int kw, const void* xp0,
+                   const void* xp1, const float* mask,
                    const void* out0, const void* out1, const void* hr0, const void* hr1,
                    const void* c0, const void* c1,
-                   const void* dout0, const void* dout1, const void* w_hh, const float* b_hh,
+                   const void* dout0, const void* dout1, const void* w_hh, void* wpk,
+                   long long wpk_elems, const float* b_hh,
                    const float* d_hfinal, void* dxp0, void* dxp1, void* dhp0, void* dhp1,
                    float* hp_ws, float* ws_w, float* ws_b, float* dw, float* db,
                    void* stream) {
@@ -1134,9 +1308,9 @@ int rnn_bwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int split,
   if (set != cudaSuccess) return (int)set;
   const Ptrs p = {{xp0, xp1}, {out0, out1}, {hr0, hr1}, {c0, c1}, {dout0, dout1}, {dxp0, dxp1},
                   {dhp0, dhp1}};
-  const Plan pl = {nc, rows, hc, kc, stages, blocks, nsplit, xc};
+  const Plan pl = {nc, rows, hc, kc, stages, blocks, nsplit, xc, wstages, kw};
   return dispatch<Launch>(cell, cdt_bf16, hist_bf16, T, B, H, D, dir0, split, pl, p, mask, w_hh,
-                          b_hh, d_hfinal, hp_ws, ws_w, ws_b, dw, db,
+                          wpk, wpk_elems, b_hh, d_hfinal, hp_ws, ws_w, ws_b, dw, db,
                           static_cast<cudaStream_t>(stream));
 }
 

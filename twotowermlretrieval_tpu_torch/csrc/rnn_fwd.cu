@@ -22,15 +22,15 @@
 //
 // One thread-block cluster of NC CTAs (launched with the cluster
 // attribute; NC <= 8, the portable size, or up to 16 where 8 CTAs would
-// hold more columns than fit, allowed per kernel and only where the card
-// holds such clusters) walks all T steps for R batch rows of one direction. CTA q
+// hold more columns than fit or stream W that 16 split further, allowed
+// per kernel and only where the card holds such clusters) walks all T
+// steps for R batch rows of one direction. CTA q
 // owns HC hidden columns j in [q*HC, (q+1)*HC) and their G gate columns
 // g*H + j. It keeps round(W_hh)[:, own] resident in shared memory for all
 // T steps, stored [k][g*HC + c] (k-major, read as mma.sync's col-major B
-// operand through ldmatrix.trans): at H=256 bf16 and HC=32, 53 KB; where
-// it does not fit beside the rest (wide layers) it streams through shared
-// memory in chunks of KC rows every step. Every CTA holds the whole
-// rounded h row block [R][H] twice (double-buffered). One step:
+// operand through ldmatrix.trans): at H=256 bf16 and HC=32, 53 KB. Every
+// CTA holds the whole rounded h row block [R][H] twice (double-buffered).
+// One step:
 //   1. Each thread loads its own elements of this step's xp and mask into
 //      registers (the next step's rows of xp are prefetched to L2 one step
 //      ahead, so the loads overlap the product and hit L2).
@@ -56,10 +56,48 @@
 // order: two calls give the same bits, and a row of length 0 stays exactly
 // zero.
 //
-// The wrapper (ops/rnn_scan.py, fwd_plan) picks NC, HC, R and KC and knows
-// the shared-memory layout below (fwd_smem); the launcher refuses a plan
-// that does not fit. R is chosen by how many clusters of NC the card holds
-// at once (rnn_fwd_cluster_slots: cudaOccupancyMaxActiveClusters).
+// Wide layers (W streamed): where the CTA's columns of W do not fit beside
+// the rest, they stream through a ring of S stages of KC rows each, every
+// step. W does not depend on h, so nothing ties a copy to a step: the ring
+// runs on across steps, and while step t multiplies its last chunk, runs
+// its gate math and waits at the cluster barrier, step t+1's first chunks
+// are already on their way. What bounds this route is how fast an SM draws
+// W from L2 (a CTA reads its G*HC columns of all H rows every step: 1.2 MB
+// at RNN H=3072), and on an H100 that is about 100-130 GB/s an SM, or
+// 67 GB/s in clusters of 16, which fill a GPC and share its ~1 TB/s:
+//   - The wrapper packs W once per call, CTA-major and chunk-major
+//     ([D][NC][chunks][KC][G*HC + pad], the padding ldmatrix.trans reads
+//     expect, zeros past H and past the CTA's own columns): one pass over
+//     W by rnn_fwd_pack_w, so that every chunk is one contiguous block.
+//   - Each chunk is one bulk copy (cp.async.bulk, the copy engine: no
+//     consumer registers or instructions spent on addresses), completing
+//     on the stage's "full" mbarrier by its byte count; every warp arrives
+//     on the stage's "empty" mbarrier after its last read, and the stage
+//     is copied into again once all have. No block barrier. (Chosen over a
+//     TMA tensor map of W's own layout: its boxes would need a tensor-map
+//     encode call from outside the runtime API this library links, and a
+//     chunk of the packed W is one copy of any size.) The copies go round the warps (recur_chain.cuh ring_turn):
+//     a copy's barrier operations cost a warp about as much as a chunk's
+//     product, and one warp starting them all set the pace.
+//   - Each chunk costs its warps about a microsecond beyond its bytes
+//     whatever the ring's depth (the waits, the copy's start, the product's
+//     dependent mma.sync), so the plan takes the fewest, largest chunks:
+//     two stages of as many rows as fit, measured faster than deeper rings
+//     of smaller chunks at every shape timed (PERF.md section 6).
+//   - Room for the ring: where it saves chunks, the CTA keeps one h row
+//     block (as the backward's chain does) and splits a second cluster
+//     barrier a step: each CTA arrives once its product has read the block
+//     and waits before writing the next h into it and pushing it into its
+//     peers. At RNN H=3072 and R=16 that frees 98 KB.
+// Each product still runs over k in ascending order, in the same 16-wide
+// mma.sync steps into the same accumulators, so the results are those of
+// the resident route and of any KC or S, bit for bit.
+//
+// The wrapper (ops/rnn_scan.py, fwd_plan) picks NC, HC, R, KC, S and the
+// row blocks and knows the shared-memory layout below (fwd_smem); the
+// launcher refuses a plan that does not fit. R is chosen by how many
+// clusters of NC the card holds at once (rnn_fwd_cluster_slots:
+// cudaOccupancyMaxActiveClusters).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -82,9 +120,11 @@ constexpr int OUTS_MAX = 8;   // (row, column) elements per thread, f32
 struct FwdArgs {
   int T, B, H;         // H: a multiple of 8
   int R, hc, kp, kc;   // the plan; kp: H rounded up to 32; kc >= kp: W resident
+  int S, blocks;       // streamed: the W ring's stages; the h row blocks (2, or 1)
   const void* xp[2];   // [T][B][G*H] CT per direction
   const float* mask;   // [T][B]
   const void* w_hh;    // [D][H][G*H] CT
+  const void* wpk;     // streamed: W packed by rnn_fwd_pack_w, [D][nc][chunks][kc][wld] CT
   const float* b_hh;   // [D][G*H]
   void* out[2];        // [T][B][H] HT per direction
   void* cout[2];       // LSTM cell history, as out
@@ -92,30 +132,34 @@ struct FwdArgs {
 };
 
 // Byte offsets of one CTA's shared memory (ops/rnn_scan.py's
-// _fwd_smem_bytes mirrors the sizes): round(W)[:, own] as [kw][wld] (kw =
-// KC rows of k at a time, all kp when resident), the two rounded h row
-// blocks [2][R][hld], and the bias of the own gate columns [G][HC] f32.
+// _fwd_smem_bytes mirrors the sizes): round(W)[:, own] as [kp][wld] where
+// resident, else the ring's S stages of [kc][wld]; the rounded h row
+// blocks [blocks][R][hld] (two where resident); the bias of the own gate
+// columns [G][HC] f32; streamed, the ring's full and empty barriers [2][S].
 // The pads keep ldmatrix's eight 16-byte rows on distinct banks.
 struct FwdSmem {
-  size_t w, h, bias, total;
+  size_t w, h, bias, bar, total;
   int wld, hld;
 };
 
 template <int CELL, typename CT>
-__host__ __device__ FwdSmem fwd_smem(int R, int hc, int kp, int kc) {
+__host__ __device__ FwdSmem fwd_smem(int R, int hc, int kp, int kc, int S, int blocks) {
   constexpr int G = NumGates<CELL>::G;
   constexpr int EPW = 16 / sizeof(CT);  // elements per 16 bytes
   FwdSmem s;
   s.wld = G * hc + (sizeof(CT) == 2 && (G * hc / 8) % 2 == 1 ? 2 * EPW : EPW);
   s.hld = kp + EPW;
-  const int kw = kc < kp ? kc : kp;
+  const bool streamed = kc < kp;
+  const int kw = streamed ? kc : kp;
   size_t o = 0;
   s.w = o;
-  o += a16((size_t)kw * s.wld * sizeof(CT));
+  o += a16((size_t)kw * s.wld * sizeof(CT)) * (streamed ? S : 1);
   s.h = o;
-  o += a16((size_t)2 * R * s.hld * sizeof(CT));
+  o += a16((size_t)blocks * R * s.hld * sizeof(CT));
   s.bias = o;
   o += a16((size_t)G * hc * 4);
+  s.bar = o;
+  if (streamed) o += (size_t)16 * S;
   s.total = o;
   return s;
 }
@@ -152,7 +196,9 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 __device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
-template <int CELL, typename CT, typename HT>
+// STREAM: W streams through the ring (a template argument, so the
+// resident route compiles as if the ring did not exist)
+template <int CELL, typename CT, typename HT, bool STREAM>
 __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
   constexpr int G = NumGates<CELL>::G;
   constexpr bool kMma = sizeof(CT) == 2;
@@ -160,7 +206,9 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
   cg::cluster_group cluster = cg::this_cluster();
   const int T = a.T, B = a.B, H = a.H, GH = G * H;
   const int R = a.R, hc = a.hc, kp = a.kp, kc = a.kc < a.kp ? a.kc : a.kp;
-  const bool resident = kc >= kp;
+  constexpr bool resident = !STREAM;  // the launcher's choice: kc >= kp
+  const int S = a.S;
+  const bool one_block = STREAM && a.blocks == 1;  // one h row block, a second cluster barrier a step
   const int nc = (int)cluster.num_blocks();
   const int q = (int)cluster.block_rank();
   const int cl = blockIdx.x / nc;
@@ -176,15 +224,17 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
   const CT* w = static_cast<const CT*>(a.w_hh) + (size_t)d * H * GH;
   const float* bias = a.b_hh + (size_t)d * GH;
 
-  const FwdSmem L = fwd_smem<CELL, CT>(R, hc, kp, kc);
+  const FwdSmem L = fwd_smem<CELL, CT>(R, hc, kp, kc, S, a.blocks);
   const int wld = L.wld, hld = L.hld;
   extern __shared__ __align__(16) unsigned char smem[];
-  CT* wbuf = reinterpret_cast<CT*>(smem + L.w);
+  CT* wbuf = reinterpret_cast<CT*>(smem + L.w);  // resident W, or the ring's stages
   CT* hbuf = reinterpret_cast<CT*>(smem + L.h);
   float* bias_s = reinterpret_cast<float*>(smem + L.bias);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar);  // [S], then empty [S]
+  uint64_t* empty = full + S;
 
-  // round(W)[k0 + k][g*H + j0 + c] -> wbuf[k][g*hc + c] for k < kc, c < hc;
-  // zero past the owned columns and past H
+  // resident: round(W)[k][g*H + j0 + c] -> wbuf[k][g*hc + c] for k < kp,
+  // c < hc; zero past the owned columns and past H
   const int wpr = G * hc / EPW;  // 16-byte words of a wbuf row
   auto load_w = [&](int k0) {
 #pragma unroll 1
@@ -200,20 +250,42 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
     cp_async_commit();
   };
 
-  // both h row blocks start at zero; rows past the batch and columns past
+  // streamed: the CTA's chunk x (of T * nch, in the order they are
+  // multiplied) is its packed W chunk x % nch, copied into stage x % S
+  const int nch = (kp + kc - 1) / kc, total = T * nch;
+  const CT* wsrc =
+      resident ? nullptr : static_cast<const CT*>(a.wpk) + ((size_t)d * nc + q) * nch * kc * wld;
+  auto copy_chunk = [&](int x, int st, uint64_t* bar) {
+    const int c = x % nch;
+    const unsigned bytes = (unsigned)((size_t)min(kc, kp - c * kc) * wld * sizeof(CT));
+    mbar_arrive_expect_tx(bar, bytes);
+    bulk_copy(wbuf + (size_t)st * kc * wld, wsrc + (size_t)c * kc * wld, bytes, bar);
+  };
+
+  // the h row blocks start at zero; rows past the batch and columns past
   // H are never written and stay zero
   {
     uint4* hz = reinterpret_cast<uint4*>(hbuf);
-    const int words = (int)(2 * (size_t)R * hld * sizeof(CT) / 16);
+    const int words = (int)(a.blocks * (size_t)R * hld * sizeof(CT) / 16);
     for (int i = tid; i < words; i += THREADS) hz[i] = make_uint4(0u, 0u, 0u, 0u);
   }
   for (int i = tid; i < G * hc; i += THREADS) {
     const int g = i / hc, c = i % hc;
     bias_s[i] = c < own ? bias[g * H + j0 + c] : 0.0f;
   }
-  if (resident) load_w(0);
+  if constexpr (resident) {
+    load_w(0);
+  } else if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, WARPS);  // every warp releases every chunk
+    }
+    mbar_init_fence();
+  }
   cp_async_wait<0>();
   cluster.sync();  // every CTA of the cluster runs, its buffers ready, before the first push
+  if (!resident && tid == 0)  // the ring's first S - 1 chunks
+    for (int x = 0; x < S - 1 && x < total; ++x) copy_chunk(x, x, full + x);
 
   // the L2 prefetch of a step's xp rows: CTA q takes 1/nc of the cluster's
   // contiguous block [nrows][G*H], in 128-byte lines
@@ -228,6 +300,18 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
     for (size_t o = pf_begin + (size_t)tid * 128; o < pf_end; o += (size_t)THREADS * 128)
       prefetch_l2(base + o);
     if (q == 0 && tid * 32 < nrows) prefetch_l2(a.mask + (size_t)t * B + r0 + tid * 32);
+  };
+  // streamed: as chunk g begins, one warp copies chunk g + S - 1 (its turn
+  // in the round), and every warp waits for chunk g; each releases it after
+  // its last read
+  auto chunk_begin = [&](int g) -> const CT* {
+    ring_turn(g, S, total, WARPS, full, empty, copy_chunk);
+    mbar_wait(full + g % S, (g / S) & 1);
+    return wbuf + (size_t)(g % S) * kc * wld;
+  };
+  auto chunk_end = [&](int g) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + g % S);
   };
 
   if constexpr (kMma) {
@@ -264,8 +348,8 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
 #pragma unroll 1
     for (int step = 0; step < T; ++step) {
       const int t = d == 0 ? step : T - 1 - step;
-      const CT* cur = hbuf + (size_t)(step & 1) * R * hld;
-      CT* nxt = hbuf + (size_t)((step + 1) & 1) * R * hld;
+      const CT* cur = hbuf + (size_t)(one_block ? 0 : step & 1) * R * hld;
+      CT* nxt = hbuf + (size_t)(one_block ? 0 : (step + 1) & 1) * R * hld;
       if (step + 1 < T) prefetch_step(d == 0 ? t + 1 : t - 1);
       const size_t tb = (size_t)t * B;
 
@@ -285,7 +369,8 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
                               : 0u;
         }
 
-      // 2. the product, one accumulator per (unit, gate)
+      // 2. the product, one accumulator per (unit, gate), over rows
+      // [k0, k0 + klen) of W held at wk (its row k0 first)
       float acc[UNITS_MAX][G][4];
 #pragma unroll
       for (int i = 0; i < UNITS_MAX; ++i)
@@ -293,19 +378,12 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
         for (int g = 0; g < G; ++g)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.0f;
-#pragma unroll 1
-      for (int k0 = 0; k0 < kp; k0 += kc) {
-        const int klen = min(kc, kp - k0);
-        if (!resident) {
-          load_w(k0);
-          cp_async_wait<0>();
-          __syncthreads();
-        }
+      auto product = [&](const CT* wk, int k0, int klen) {
 #pragma unroll
         for (int i = 0; i < UNITS_MAX; ++i) {
           if (!on[i]) continue;
           const CT* ap = cur + arow[i] + k0;
-          const CT* bp = wbuf + (size_t)lane * wld + ucol[i];  // k rows kk + lane
+          const CT* bp = wk + (size_t)lane * wld + ucol[i];  // k rows kk + lane
 #pragma unroll 2
           for (int kk = 0; kk < klen; kk += 32) {
             uint32_t a0[4], a1[4];
@@ -320,10 +398,23 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
             }
           }
         }
-        if (!resident) __syncthreads();  // the next chunk overwrites wbuf
+      };
+      if constexpr (resident) {
+        product(wbuf, 0, kp);
+      } else {
+        int g = step * nch;
+#pragma unroll 1
+        for (int c = 0; c < nch; ++c, ++g) {
+          const CT* wk = chunk_begin(g);
+          product(wk, c * kc, min(kc, kp - c * kc));
+          chunk_end(g);
+        }
       }
+      if (one_block) cluster_arrive();  // this CTA no longer reads the row block
 
       // 3. gate math, history, and the rounded h into the next row block
+      // (one block: kept in registers until every peer has read the block)
+      __nv_bfloat162 hnew[UNITS_MAX][2];
 #pragma unroll
       for (int i = 0; i < UNITS_MAX; ++i) {
         if (!on[i]) continue;
@@ -344,8 +435,9 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
           for (int e = 0; e < 2; ++e)
             cell_update<CELL>(x[e], p[e], mk[i][hh], hcar[i][2 * hh + e], ccar[i][2 * hh + e]);
           const float h0 = hcar[i][2 * hh], h1 = hcar[i][2 * hh + 1];
-          *reinterpret_cast<__nv_bfloat162*>(nxt + (size_t)row * hld + j0 + col) =
-              __floats2bfloat162_rn(h0, h1);
+          hnew[i][hh] = __floats2bfloat162_rn(h0, h1);
+          if (!one_block)
+            *reinterpret_cast<__nv_bfloat162*>(nxt + (size_t)row * hld + j0 + col) = hnew[i][hh];
           if (row < nrows) {
             const size_t o = (tb + r0 + row) * H + j0 + col;
             if constexpr (sizeof(HT) == 4)
@@ -358,6 +450,17 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
                 *reinterpret_cast<__nv_bfloat162*>(cout + o) = __floats2bfloat162_rn(c0, c1);
             }
           }
+        }
+      }
+      if (one_block) {
+        cluster_wait();  // every CTA has read the block: the next h may go in
+#pragma unroll
+        for (int i = 0; i < UNITS_MAX; ++i) {
+          if (!on[i]) continue;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<__nv_bfloat162*>(nxt + (size_t)erow[i][hh] * hld + j0 + ucol[i] +
+                                               tig * 2) = hnew[i][hh];
         }
       }
       __syncwarp();
@@ -410,8 +513,8 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
 #pragma unroll 1
     for (int step = 0; step < T; ++step) {
       const int t = d == 0 ? step : T - 1 - step;
-      const CT* cur = hbuf + (size_t)(step & 1) * R * hld;
-      CT* nxt = hbuf + (size_t)((step + 1) & 1) * R * hld;
+      const CT* cur = hbuf + (size_t)(one_block ? 0 : step & 1) * R * hld;
+      CT* nxt = hbuf + (size_t)(one_block ? 0 : (step + 1) & 1) * R * hld;
       if (step + 1 < T) prefetch_step(d == 0 ? t + 1 : t - 1);
       const size_t tb = (size_t)t * B;
 
@@ -431,19 +534,12 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
       for (int o = 0; o < OUTS_MAX; ++o)
 #pragma unroll
         for (int g = 0; g < G; ++g) acc[o][g] = 0.0f;
-#pragma unroll 1
-      for (int k0 = 0; k0 < kp; k0 += kc) {
-        const int klen = min(kc, kp - k0);
-        if (!resident) {
-          load_w(k0);
-          cp_async_wait<0>();
-          __syncthreads();
-        }
+      auto product = [&](const CT* wk, int k0, int klen) {
 #pragma unroll
         for (int o = 0; o < OUTS_MAX; ++o) {
           if (er[o] >= R) continue;
           const float* hr = reinterpret_cast<const float*>(cur) + (size_t)er[o] * hld + k0;
-          const float* wc = reinterpret_cast<const float*>(wbuf) + ec[o];
+          const float* wc = reinterpret_cast<const float*>(wk) + ec[o];
           float s[G];
 #pragma unroll
           for (int g = 0; g < G; ++g) s[g] = acc[o][g];
@@ -456,8 +552,19 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
 #pragma unroll
           for (int g = 0; g < G; ++g) acc[o][g] = s[g];
         }
-        if (!resident) __syncthreads();
+      };
+      if constexpr (resident) {
+        product(wbuf, 0, kp);
+      } else {
+        int g = step * nch;
+#pragma unroll 1
+        for (int c = 0; c < nch; ++c, ++g) {
+          const CT* wk = chunk_begin(g);
+          product(wk, c * kc, min(kc, kp - c * kc));
+          chunk_end(g);
+        }
       }
+      if (one_block) cluster_arrive();  // this CTA no longer reads the row block
 
 #pragma unroll
       for (int o = 0; o < OUTS_MAX; ++o) {
@@ -469,7 +576,13 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
         const size_t ob = (tb + r0 + er[o]) * H + j0 + ec[o];
         out[ob] = from_f<HT>(hcar[o]);
         if constexpr (CELL == kLSTM) cout[ob] = from_f<HT>(ccar[o]);
-        reinterpret_cast<float*>(nxt)[(size_t)er[o] * hld + j0 + ec[o]] = hcar[o];
+        if (!one_block) reinterpret_cast<float*>(nxt)[(size_t)er[o] * hld + j0 + ec[o]] = hcar[o];
+      }
+      if (one_block) {
+        cluster_wait();  // every CTA has read the block: the next h may go in
+#pragma unroll
+        for (int o = 0; o < OUTS_MAX; ++o)
+          if (er[o] < R) reinterpret_cast<float*>(nxt)[(size_t)er[o] * hld + j0 + ec[o]] = hcar[o];
       }
       __syncthreads();
 #pragma unroll 1
@@ -492,30 +605,82 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
   }
 }
 
+// W [D][H][G*H] -> the streamed route's packed W [D][nc][nch][kc][wld]:
+// chunk c of CTA q holds round(W)[c*kc + k][g*H + q*hc + col] at row k,
+// column g*hc + col, and zeros past H, past the CTA's own columns and in
+// the padding, so that each chunk is one contiguous copy. 16-byte words:
+// a word never straddles a gate or the own columns (multiples of 8).
+struct PackArgs {
+  int H, G, nc, hc, kc, kp, nch, wld, D;
+  const void* w;
+  void* wpk;
+};
+
+template <typename CT>
+__global__ void rnn_fwd_pack_w(PackArgs p) {
+  constexpr int EPW = 16 / sizeof(CT);
+  const int wpr = p.wld / EPW, GH = p.G * p.H;
+  const size_t words = (size_t)p.D * p.nc * p.nch * p.kc * wpr;
+  const CT* w = static_cast<const CT*>(p.w);
+  uint4* dst = static_cast<uint4*>(p.wpk);
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < words;
+       idx += (size_t)gridDim.x * blockDim.x) {
+    size_t r = idx / wpr;
+    const int n = (int)(idx - r * wpr) * EPW;
+    const int k = (int)(r % p.kc);
+    r /= p.kc;
+    const int c = (int)(r % p.nch);
+    r /= p.nch;
+    const int q = (int)(r % p.nc), d = (int)(r / p.nc);
+    const int g = n / p.hc, col = n % p.hc, j0 = q * p.hc, row = c * p.kc + k;
+    const int own = max(0, min(p.hc, p.H - j0));
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (g < p.G && col < own && row < p.H)
+      v = *reinterpret_cast<const uint4*>(w + ((size_t)d * p.H + row) * GH + g * p.H + j0 + col);
+    dst[idx] = v;
+  }
+}
+
 struct Plan {
-  int nc, R, hc, kc;
+  int nc, R, hc, kc, S, blocks;
 };
 
 template <int CELL, typename CT>
-bool plan_ok(const Plan& pl, int H) {
+bool plan_ok(const Plan& pl, int H, int kp) {
+  constexpr int kstep = sizeof(CT) == 2 ? 32 : 16;  // the bf16 product's k32 steps
   if (H % 8 || pl.nc < 1 || pl.nc > 16 || pl.hc < 8 || pl.hc % 8 || pl.nc * pl.hc < H ||
-      (pl.nc - 1) * pl.hc >= H || pl.kc < 32 || pl.kc % 32)
+      (pl.nc - 1) * pl.hc >= H || pl.kc < kstep || pl.kc % kstep ||
+      (pl.kc < kp && (pl.S < 1 || pl.S > 8)) || (pl.blocks != 1 && pl.blocks != 2))
     return false;
   if (sizeof(CT) == 2)
     return pl.R >= 16 && pl.R % 16 == 0 && (pl.R / 16) * (pl.hc / 8) <= UNITS_MAX * WARPS;
   return pl.R >= 8 && pl.R % 8 == 0 && pl.R * pl.hc <= OUTS_MAX * THREADS;
 }
 
+// the packed W's elements of a streamed plan (rnn_fwd_pack_w's output)
+template <int CELL, typename CT>
+size_t packed_elems(const Plan& pl, int kp, int D) {
+  const FwdSmem L = fwd_smem<CELL, CT>(pl.R, pl.hc, kp, pl.kc, pl.S, pl.blocks);
+  const int nch = (kp + pl.kc - 1) / pl.kc;
+  return (size_t)D * pl.nc * nch * pl.kc * L.wld;
+}
+
 template <int CELL, typename CT, typename HT>
 int launch(int T, int B, int H, int D, const Plan& pl, const void* xp0, const void* xp1,
-           const float* mask, const void* w_hh, const float* b_hh, void* out0, void* out1,
-           void* c0, void* c1, float* h_final, cudaStream_t stream) {
+           const float* mask, const void* w_hh, void* wpk, long long wpk_elems,
+           const float* b_hh, void* out0, void* out1, void* c0, void* c1, float* h_final,
+           cudaStream_t stream) {
+  constexpr int G = NumGates<CELL>::G;
   const int kp = (H + 31) / 32 * 32;
-  if (!plan_ok<CELL, CT>(pl, H)) return (int)cudaErrorInvalidValue;
+  if (!plan_ok<CELL, CT>(pl, H, kp)) return (int)cudaErrorInvalidValue;
   const int kc = pl.kc < kp ? pl.kc : kp;
-  const FwdSmem L = fwd_smem<CELL, CT>(pl.R, pl.hc, kp, kc);
+  const bool streamed = kc < kp;
+  const FwdSmem L = fwd_smem<CELL, CT>(pl.R, pl.hc, kp, kc, pl.S, pl.blocks);
   if (L.total > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  auto kernel = rnn_fwd_kernel<CELL, CT, HT>;
+  if (streamed &&
+      (wpk == nullptr || wpk_elems != (long long)packed_elems<CELL, CT>(pl, kp, D)))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = streamed ? rnn_fwd_kernel<CELL, CT, HT, true> : rnn_fwd_kernel<CELL, CT, HT, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
@@ -523,6 +688,13 @@ int launch(int T, int B, int H, int D, const Plan& pl, const void* xp0, const vo
       (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
           cudaSuccess)
     return (int)err;
+  if (streamed) {  // W packed chunk by chunk, one pass
+    PackArgs p = {H, G, pl.nc, pl.hc, kc, kp, (kp + kc - 1) / kc, L.wld, D, w_hh, wpk};
+    const size_t words = (size_t)wpk_elems * sizeof(CT) / 16;
+    const int blocks = (int)(words / 256 + 1 < 4096 ? words / 256 + 1 : 4096);
+    rnn_fwd_pack_w<CT><<<blocks, 256, 0, stream>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
   const int ncl = (B + pl.R - 1) / pl.R;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(pl.nc * ncl, D, 1);
@@ -545,10 +717,13 @@ int launch(int T, int B, int H, int D, const Plan& pl, const void* xp0, const vo
   a.hc = pl.hc;
   a.kp = kp;
   a.kc = kc;
+  a.S = pl.S;
+  a.blocks = pl.blocks;
   a.xp[0] = xp0;
   a.xp[1] = xp1;
   a.mask = mask;
   a.w_hh = w_hh;
+  a.wpk = wpk;
   a.b_hh = b_hh;
   a.out[0] = out0;
   a.out[1] = out1;
@@ -588,7 +763,7 @@ struct Launch {
 template <int CELL, typename CT, typename HT>
 struct Slots {
   static int run(int nc, int* out) {
-    return cluster_slots(rnn_fwd_kernel<CELL, CT, HT>, nc, THREADS, out);
+    return cluster_slots(rnn_fwd_kernel<CELL, CT, HT, false>, nc, THREADS, out);
   }
 };
 
@@ -600,22 +775,27 @@ extern "C" {
 // hist_bf16: the state history is stored in bf16 (only with cdt_bf16).
 // H: a multiple of 8. The plan (from ops/rnn_scan.py fwd_plan): nc CTAs per
 // cluster (up to 16; more than 8 is allowed on the kernel) of hc hidden
-// columns each, rows batch rows per cluster, W rows
-// streamed in chunks of kc rows of k (kc >= H rounded up to 32: resident).
-// device: the CUDA ordinal the tensors live on (this library carries its
-// own runtime, whose current device is not PyTorch's).
-// Returns cudaGetLastError() after the launch (0 on success).
+// columns each, rows batch rows per cluster, W rows resident (kc >= H
+// rounded up to 32) or streamed through a ring of wstages stages of kc rows
+// each, blocks h row blocks (2, or 1). wpk: where W streams, scratch of
+// wpk_elems elements of the compute dtype for the packed W (fwd_plan's
+// layout; the launcher checks the count), else null. device: the CUDA
+// ordinal the tensors live on (this library carries its own runtime, whose
+// current device is not PyTorch's). Returns cudaGetLastError() after the
+// launches (0 on success).
 int rnn_fwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int T, int B, int H,
-                   int D, int nc, int rows, int hc, int kc, const void* xp0, const void* xp1,
-                   const float* mask, const void* w_hh, const float* b_hh, void* out0,
-                   void* out1, void* c0, void* c1, float* h_final, void* stream) {
+                   int D, int nc, int rows, int hc, int kc, int wstages, int blocks,
+                   const void* xp0, const void* xp1, const float* mask, const void* w_hh,
+                   void* wpk, long long wpk_elems, const float* b_hh, void* out0, void* out1,
+                   void* c0, void* c1, float* h_final, void* stream) {
   if (T <= 0 || B <= 0) return 0;
   if (D < 1 || D > 2 || cell < 0 || cell > 2) return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  const Plan pl = {nc, rows, hc, kc};
-  return dispatch<Launch>(cell, cdt_bf16, hist_bf16, T, B, H, D, pl, xp0, xp1, mask, w_hh, b_hh,
-                          out0, out1, c0, c1, h_final, static_cast<cudaStream_t>(stream));
+  const Plan pl = {nc, rows, hc, kc, wstages, blocks};
+  return dispatch<Launch>(cell, cdt_bf16, hist_bf16, T, B, H, D, pl, xp0, xp1, mask, w_hh, wpk,
+                          wpk_elems, b_hh, out0, out1, c0, c1, h_final,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // How many clusters of nc CTAs (one a whole SM's shared memory) the card

@@ -11,10 +11,12 @@ cell histories (else ``()``), and ``h_final`` [D, B, H] f32.
 On a CUDA tensor it launches ``csrc/rnn_fwd.cu``: one thread-block cluster
 of up to 8 CTAs (16 for wide layers) per (direction, block of batch rows) walks the whole time
 loop, each CTA keeping its hidden columns' slice of W_hh in shared memory
-(streamed through it for wide layers), the step's product on the tensor
-cores at bf16, and each step's rounded h exchanged through distributed
-shared memory with one cluster barrier a step. :func:`fwd_plan` picks the
-layout. On a CPU tensor it runs :func:`rnn_layer_fwd_reference`, the plain
+(for wide layers, streamed through a ring of stages that bulk copies keep
+full across steps, from a copy of W the wrapper's scratch holds packed
+chunk by chunk), the step's product on the tensor cores at bf16, and each
+step's rounded h exchanged through distributed shared memory with one
+cluster barrier a step (two where the CTA keeps one h row block to make
+room for the ring). :func:`fwd_plan` picks the layout. On a CPU tensor it runs :func:`rnn_layer_fwd_reference`, the plain
 PyTorch version of the same arithmetic. Both read xp rounded to the
 compute dtype, as the TPU kernel does (its caller casts xp before the
 call), and round h to the compute dtype before every step's product.
@@ -34,7 +36,8 @@ The backward runs in three parts (see the note in ``csrc/rnn_bwd.cu``):
 the gate recompute as one product before the time loop, the dh chain in
 thread-block clusters that keep their rows of W in shared memory, and the
 weight gradient as one product after it. :func:`bwd_plan` picks the
-layout; where a CTA's rows of W do not fit, the kernel streams them.
+layout; where a CTA's rows of W do not fit, the kernel streams them
+through a ring of stages, as the forward does.
 
 Widths. The forward kernel takes H a multiple of 8 and the backward H a
 multiple of 4; the wrappers zero-pad other widths (:func:`pad_layer`: a
@@ -43,10 +46,11 @@ nothing into the real units) and slice the results back. The model runs
 each layer at :func:`kernel_width` (``models/rnn.py``: its weights are
 padded, so the input projection yields the padded xp), so on its path
 neither wrapper pads. Both kernels run in clusters of up to 8 CTAs, and of
-up to 16 where 8 would hold more hidden columns than a CTA takes
-(:func:`cluster_slots` reads from the card how many clusters of each size
-it holds at once). The forward kernel takes every H up to 2976 (GRU), 2816
-(LSTM) and 3360 (RNN) at bf16 compute, and up to 2560, 2336 and 3200 at
+up to 16 where 8 would hold more hidden columns than a CTA takes (the
+forward also where 8 would stream W and 16 all fit on the card at once;
+:func:`cluster_slots` reads from the card how many clusters of each size
+it holds at once). The forward kernel takes every H up to 4032 (GRU), 3520
+(LSTM) and 4096 (RNN) at bf16 compute, and up to 4064, 3520 and 4096 at
 f32, streaming W where its columns do not fit; the backward every H up to
 4096 (LSTM at bf16: 3328 with an f32 history, 3584 with a bf16 one),
 exchanging its dhp row block in chunks where one whole block does not fit.
@@ -87,6 +91,7 @@ H100_SXM_CLUSTER_SLOTS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 1
 _FWD_MULTIPLE = 8  # the forward kernel's H: whole (16 x 8) units, 16-byte pushes of bf16 h
 _BWD_MULTIPLE = 4  # the backward kernel's H: its rows copied in 8-byte words
 _GEMM_TILE = {2: 128, 4: 64}  # output tile of the two chain-free products, by compute dtype size
+_RING_MAX = 8  # stages of a streamed W ring, at most
 
 
 def _up(n: int, m: int) -> int:
@@ -100,8 +105,9 @@ def _lib():
         lib.rnn_fwd_launch.argtypes = [
             _INT, _INT, _INT, _INT,  # device, cell, cdt_bf16, hist_bf16
             _INT, _INT, _INT, _INT,  # T, B, H, D
-            _INT, _INT, _INT, _INT,  # nc, rows, hc, kc
-            _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # xp0, xp1, mask, w_hh, b_hh
+            _INT, _INT, _INT, _INT, _INT, _INT,  # nc, rows, hc, kc, wstages, blocks
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # xp0, xp1, mask, w_hh
+            _VOIDP, ctypes.c_longlong, _VOIDP,  # wpk, wpk_elems, b_hh
             _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # out0, out1, c0, c1, h_final
             _VOIDP,  # stream
         ]
@@ -134,18 +140,66 @@ def _check_args(cell, xps, mask, w_hh, b_hh):
     return D, T, B, H, GH
 
 
-def _fwd_smem_bytes(cell: str, H: int, cdt_bytes: int, rows: int, hc: int, kc: int) -> int:
-    """Shared memory of one CTA of the forward kernel: ``kc`` rows of the
-    CTA's columns of round(W), the two rounded h row blocks and the bias
-    of its gate columns (``fwd_smem`` in csrc/rnn_fwd.cu, region by
-    region). H is the kernel's width, a multiple of 8."""
+def _fwd_wld(G: int, hc: int, cdt_bytes: int) -> int:
+    """Elements of a row of the forward's W in shared memory: the CTA's G
+    gate blocks of ``hc`` columns and the pad that keeps ldmatrix's eight
+    16-byte rows on distinct banks (``fwd_smem``'s wld in csrc/rnn_fwd.cu)."""
+    epw = 16 // cdt_bytes
+    return G * hc + (2 * epw if cdt_bytes == 2 and (G * hc // 8) % 2 else epw)
+
+
+def _fwd_smem_bytes(cell: str, H: int, cdt_bytes: int, rows: int, hc: int, kc: int,
+                    wstages: int = 0, blocks: int = 2) -> int:
+    """Shared memory of one CTA of the forward kernel: the CTA's columns of
+    round(W) (all ``kc`` >= H rows where resident; else a ring of
+    ``wstages`` stages of ``kc`` rows each with a full and an empty
+    barrier a stage, or, ``wstages`` 0, one buffer of ``kc`` rows),
+    ``blocks`` rounded h row blocks (2, or 1 with a second cluster barrier
+    a step) and the bias of its gate columns (``fwd_smem`` in
+    csrc/rnn_fwd.cu, region by region). H is the kernel's width, a
+    multiple of 8."""
     G = _GATES[cell]
     kp = _up(H, 32)
-    epw = 16 // cdt_bytes
-    wld = G * hc + (2 * epw if cdt_bytes == 2 and (G * hc // 8) % 2 else epw)
-    hld = kp + epw
-    return (_up(min(kc, kp) * wld * cdt_bytes, 16) + _up(2 * rows * hld * cdt_bytes, 16)
-            + _up(G * hc * 4, 16))
+    wld = _fwd_wld(G, hc, cdt_bytes)
+    hld = kp + 16 // cdt_bytes
+    ring = wstages if kc < kp and wstages else 0
+    w = _up(min(kc, kp) * wld * cdt_bytes, 16) * max(ring, 1) + 16 * ring
+    return w + _up(blocks * rows * hld * cdt_bytes, 16) + _up(G * hc * 4, 16)
+
+
+def _fwd_packed_elems(cell: str, plan: dict, D: int, cdt_bytes: int) -> int:
+    """Elements of the forward's packed W (``rnn_fwd_pack_w`` in
+    csrc/rnn_fwd.cu: [D][nc][chunks][kc][wld]) where the plan streams W,
+    else 0."""
+    if plan["resident"]:
+        return 0
+    kc = plan["kc"]
+    return (D * plan["nc"] * -(-_up(plan["H"], 32) // kc) * kc
+            * _fwd_wld(_GATES[cell], plan["hc"], cdt_bytes))
+
+
+def _fwd_layout(cell: str, Hk: int, cb: int, R: int, hc: int):
+    """The forward's layout at these rows and columns a CTA: (kc, wstages,
+    blocks, smem), W resident where it fits beside two h row blocks (kc =
+    H rounded up to 32, no ring), else streamed through a ring of two
+    stages of the most rows that fit (a multiple of 32 at bf16, 16 at
+    f32; as many more stages as the room holds, up to 8), with one h row
+    block where that makes the stages wider and so the chunks a step
+    fewer; None where no ring of two fits."""
+    kp = _up(Hk, 32)
+    smem = _fwd_smem_bytes(cell, Hk, cb, R, hc, kp)
+    if smem <= _SMEM_LIMIT:
+        return kp, 0, 2, smem
+    wrow = _fwd_wld(_GATES[cell], hc, cb) * cb
+    step = 32 if cb == 2 else 16
+    best = None
+    for blocks in (2, 1):
+        room = _SMEM_LIMIT - _fwd_smem_bytes(cell, Hk, cb, R, hc, 0, 0, blocks)
+        kc = min(kp - step, (room // 2 - 16) // wrow // step * step)
+        if kc >= step and (best is None or -(-kp // kc) < -(-kp // best[0])):
+            stages = min(_RING_MAX, room // (kc * wrow + 16))
+            best = (kc, stages, blocks, _fwd_smem_bytes(cell, Hk, cb, R, hc, kc, stages, blocks))
+    return best
 
 
 def _cluster_sizes(Hk: int, slots):
@@ -167,53 +221,68 @@ def fwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16"
     """The forward kernel's layout for one call, or None when none fits
     shared memory. ``H``: the kernel's width, the layer's rounded up to 8
     (the wrapper zero-pads). ``nc`` CTAs per cluster (at most 8, the
-    portable size; 16 where 8 hold more columns than fit), each owning
+    portable size; 16 where 8 hold more columns than fit, or would
+    stream W while 16 all fit at once), each owning
     ``hc`` hidden columns;
     ``rows`` batch rows per cluster (``clusters`` of them per direction);
-    ``kc`` rows of the CTA's columns of W held at a time (``resident``:
-    all of them, loaded once; else streamed every step); ``smem`` bytes per
-    CTA. There is no staging depth to choose: a step's xp goes to
-    registers, the next step's is prefetched to L2. ``rows`` is the
+    ``kc`` rows of the CTA's columns of W a stage holds (``resident``:
+    all of them, loaded once; else streamed every step through a ring of
+    ``wstages`` stages that the copies keep full across steps, 0 where
+    resident); ``blocks`` rounded h row blocks (2; 1 where a second
+    cluster barrier a step frees room for a ring of at least 3 stages that
+    two blocks do not leave); ``smem`` bytes per CTA. There is no staging
+    depth for xp: a step's xp goes to registers, the next step's is
+    prefetched to L2. ``rows`` is the
     smallest (at least 32 where the batch has them; 16 at bf16 or 8 at f32
     for smaller batches) whose clusters all fit on the card at once, else
     the largest: each further wave of clusters costs a whole time loop,
     while a step of four times the rows costs less than four steps.
+    Where W streams, the ring takes two stages of the most rows that fit
+    (:func:`_fwd_layout`): each chunk costs its warps about a microsecond
+    beyond its bytes whatever the ring's depth, so fewer, larger chunks
+    win. Where clusters of 8 would stream W or cannot hold the layer, and
+    clusters of 16 at the same rows all fit on the card at once, the plan
+    takes clusters of 16: each CTA then draws half the W a step, or holds
+    it (GRU and LSTM H=512 at B <= 96, RNN H=1024). On an H100 SXM
+    (``tools/bench_rnn_stream.py --layouts``, PERF.md section 6) that was
+    0.28-0.32 ms against 0.39-0.41 in clusters of 8 at GRU H=512 B=64 T=32,
+    0.46-0.48 against 0.68-0.77 at GRU H=1024 B=16, 0.67-0.70 against
+    1.00-1.03 at B=64, 1.18-1.27 against 2.50-2.60 at LSTM H=1536 B=16;
+    where 16 at those rows took two waves, clusters of 8 won (GRU H=512
+    B=128 T=128: 1.31-1.34 ms, against 1.71-1.82 in 16 and 1.50 in 16 at
+    twice the rows; GRU H=1024 B=1024 T=128: 18.5-18.6 against 22.8-23.1).
     ``slots``: how many clusters of each size the card holds at once (the
     H100 SXM's by default, the card's own from the wrapper).
     ``history_dtype`` changes no layout. The kernel checks the plan and
     refuses one that does not fit."""
     del T, history_dtype  # the layout depends on neither
-    G = _GATES[cell]
     Hk = _up(max(H, 1), 8)
     kp = _up(Hk, 32)
     cb = torch_dtype(compute_dtype).itemsize
-    epw = 16 // cb
     cands = (16, 32, 64, 128) if cb == 2 else (8, 16, 32, 64)
+    plans = []
     for nc, hc in _cluster_sizes(Hk, slots):
         if cb == 2:
             held = [R for R in cands if (R // 16) * (hc // 8) <= _UNITS_MAX]
         else:
             held = [R for R in cands if R * hc <= _OUTS_MAX]
-        wrow = (G * hc + (2 * epw if cb == 2 and (G * hc // 8) % 2 else epw)) * cb
-        layouts = []
-        for R in held:
-            smem = _fwd_smem_bytes(cell, Hk, cb, R, hc, kp)
-            kc = kp
-            if smem > _SMEM_LIMIT:  # stream W: the widest chunk that fits beside the rest
-                rest = _fwd_smem_bytes(cell, Hk, cb, R, hc, 0)
-                kc = min(kp - 32, (_SMEM_LIMIT - rest) // wrow // 32 * 32)
-                if kc < 32:
-                    continue
-                smem = _fwd_smem_bytes(cell, Hk, cb, R, hc, kc)
-            layouts.append((R, kc, smem))
+        if plans:  # where 8 stream W: 16 at the rows 8 took, all on the card at once
+            R = plans[0]["rows"]
+            if plans[0]["resident"] or R not in held or D * -(-B // R) > slots[nc]:
+                continue
+            held = [R]
+        layouts = [(R, *lay) for R in held
+                   for lay in [_fwd_layout(cell, Hk, cb, R, hc)] if lay is not None]
         if not layouts:
             continue
         least = cands[0] if B <= cands[0] else cands[1]
         big = [lay for lay in layouts if lay[0] >= least] or layouts[-1:]
-        R, kc, smem = next((lay for lay in big if D * -(-B // lay[0]) <= slots[nc]), big[-1])
-        return {"H": Hk, "nc": nc, "hc": hc, "rows": R, "clusters": -(-B // R), "kc": kc,
-                "resident": kc >= kp, "smem": smem, "slots": slots[nc]}
-    return None
+        R, kc, stages, blocks, smem = next(
+            (lay for lay in big if D * -(-B // lay[0]) <= slots[nc]), big[-1])
+        plans.append({"H": Hk, "nc": nc, "hc": hc, "rows": R, "clusters": -(-B // R), "kc": kc,
+                      "resident": kc >= kp, "wstages": stages, "blocks": blocks, "smem": smem,
+                      "slots": slots[nc]})
+    return plans[-1] if plans else None
 
 
 def kernel_width(H: int) -> int:
@@ -337,6 +406,9 @@ def rnn_layer_fwd(
         if cell == "LSTM" else []
     )
     h_final = torch.empty((D, B, H), dtype=torch.float32, device=dev)
+    # where W streams, the kernel's scratch for W packed chunk by chunk
+    n_pack = _fwd_packed_elems(cell, plan, D, cdt.itemsize)
+    wpk = torch.empty(n_pack, dtype=cdt, device=dev) if n_pack else None
 
     def ptr(ts, i):
         return ts[i].data_ptr() if i < len(ts) else None
@@ -347,8 +419,9 @@ def rnn_layer_fwd(
         err = lib.rnn_fwd_launch(
             torch.cuda.current_device(),  # the tensors' device (inside the with)
             _CELL_CODE[cell], int(cdt == torch.bfloat16), int(hist == torch.bfloat16),
-            T, B, H, D, plan["nc"], plan["rows"], plan["hc"], plan["kc"],
-            ptr(xs, 0), ptr(xs, 1), m.data_ptr(), w.data_ptr(), b.data_ptr(),
+            T, B, H, D, plan["nc"], plan["rows"], plan["hc"], plan["kc"], plan["wstages"],
+            plan["blocks"], ptr(xs, 0), ptr(xs, 1), m.data_ptr(), w.data_ptr(),
+            None if wpk is None else wpk.data_ptr(), n_pack, b.data_ptr(),
             ptr(outs, 0), ptr(outs, 1), ptr(c_hist, 0), ptr(c_hist, 1),
             h_final.data_ptr(), stream,
         )
@@ -443,10 +516,12 @@ def _bwd_lib():
             _INT, _INT, _INT, _INT, _INT,  # T, B, H, D, dir0
             _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,  # nc, rows, hc, kc, stages, blocks,
                                                              # nsplit, xc
+            _INT, _INT,  # wstages, kw
             _VOIDP, _VOIDP, _VOIDP,  # xp0, xp1, mask
             _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # out0, out1, hr0, hr1
             _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # c0, c1, dout0, dout1
-            _VOIDP, _VOIDP, _VOIDP,  # w_hh, b_hh, d_hfinal
+            _VOIDP, _VOIDP, ctypes.c_longlong,  # w_hh, wpk, wpk_elems
+            _VOIDP, _VOIDP,  # b_hh, d_hfinal
             _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # dxp0, dxp1, dhp0, dhp1
             _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # hp_ws, ws_w, ws_b, dw, db
             _VOIDP,  # stream
@@ -460,13 +535,16 @@ def _bwd_lib():
 
 
 def _bwd_smem_bytes(cell: str, H: int, cdt_bytes: int, hist_bytes: int, rows: int, hc: int,
-                    kc: int, stages: int, blocks: int = 2, xc: int = None) -> int:
+                    kc: int, stages: int, blocks: int = 2, xc: int = None, wstages: int = 0,
+                    kw: int = None) -> int:
     """Shared memory of one CTA of the backward's chain kernel: the CTA's
-    rows of round(W) (``kc`` columns of them at a time), ``blocks`` rounded
-    dhp row blocks (``xc`` columns of each held at once: where fewer than
-    G*H, the CTA's own rounded dhp too), the staging buffers, the dh (and
-    dc) carry and the db partial (``chain_smem`` in csrc/rnn_bwd.cu, region
-    by region)."""
+    rows of round(W) (all G*H columns where ``kc`` covers them; else a ring
+    of ``wstages`` stages of ``kw`` columns each with a full and an empty
+    barrier a stage, or, ``wstages`` 0, one buffer of ``kc`` columns),
+    ``blocks`` rounded dhp row blocks (``xc`` columns of each held at once:
+    where fewer than G*H, the CTA's own rounded dhp too), the staging
+    buffers, the dh (and dc) carry and the db partial (``chain_smem`` in
+    csrc/rnn_bwd.cu, region by region)."""
     G = _GATES[cell]
     kp = _up(G * H, 16)
     xw = kp if xc is None else min(xc, kp)
@@ -476,9 +554,63 @@ def _bwd_smem_bytes(cell: str, H: int, cdt_bytes: int, hist_bytes: int, rows: in
         stage += _up(G * rows * hc * 4, 16) + _up(G * rows * hc * cdt_bytes, 16)
     carries = 2 if cell == "LSTM" else 1
     own = _up(rows * G * hc * cdt_bytes, 16) if xw < kp else 0
-    return (_up(hc * (min(kc, kp) + padk) * cdt_bytes, 16)
-            + _up(blocks * rows * (xw + padk) * cdt_bytes, 16) + own + stages * stage
+    if kc < kp and wstages:
+        w = wstages * (_up(hc * (kw + padk) * cdt_bytes, 16) + 16)
+    else:
+        w = _up(hc * (min(kc, kp) + padk) * cdt_bytes, 16)
+    return (w + _up(blocks * rows * (xw + padk) * cdt_bytes, 16) + own + stages * stage
             + carries * _up(rows * hc * 4, 16) + _up(G * rows * hc * 4, 16))
+
+
+def _bwd_packed_elems(cell: str, plan: dict, D: int, cdt_bytes: int) -> int:
+    """Elements of the backward's packed W (``rnn_bwd_pack_w`` in
+    csrc/rnn_bwd.cu: [D][nc][pieces][hc][kw + pad]) where the plan streams
+    W, else 0."""
+    if plan["resident"]:
+        return 0
+    kp = _up(_GATES[cell] * plan["H"], 16)
+    kc, kw = plan["kc"], plan["kw"]
+    nch = -(-kp // kc)
+    pieces = (nch - 1) * -(-kc // kw) + -(-(kp - (nch - 1) * kc) // kw)
+    return D * plan["nc"] * pieces * plan["hc"] * (kw + 16 // cdt_bytes)
+
+
+def _bwd_ring(cell: str, H: int, cb: int, hb: int, rows: int, hc: int, kc: int, stages: int,
+              blocks: int, xc: int):
+    """The ring a streamed backward layout takes: (kw, wstages, stages,
+    blocks, smem). ``kc`` stays: it is where the chain product's four
+    accumulators restart, so it fixes the order of the sums. Each piece of
+    W costs its warps about a microsecond whatever its size, so pieces are
+    as wide as they can be: where the dhp row block is exchanged whole, a
+    stage holds a whole ``kc`` chunk and the ring as many as fit (one where
+    a second does not: each chunk's copy then waits for the last reads of
+    the one before); where it is exchanged in chunks, each with its own
+    cluster barrier, two stages of the widest piece that leaves two (a
+    multiple of 32 columns at bf16, 16 at f32), so that the next piece
+    lands while the CTAs meet at the barrier. Where the layout leaves no
+    room for the barriers, one staging buffer and then (whole-block
+    exchange) one row block make it; neither changes a result. None where
+    even that leaves no stage."""
+    padk = 16 // cb
+    chunked = xc < _up(_GATES[cell] * H, 16)
+
+    def stage(w):
+        return _up(hc * (w + padk) * cb, 16) + 16
+
+    tries = [(stages, blocks), (1, blocks)] + ([] if chunked else [(stages, 1), (1, 1)])
+    for st, bl in dict.fromkeys(tries):
+        rest = _bwd_smem_bytes(cell, H, cb, hb, rows, hc, 0, st, bl, xc) - _up(hc * padk * cb, 16)
+        room = _SMEM_LIMIT - rest
+        kw, wstages = kc, min(_RING_MAX, room // stage(kc))
+        if chunked:
+            step = 32 if cb == 2 else 16
+            two = [w for w in range(step, kc, step) if 2 * stage(w) <= room]
+            if wstages < 2 and two:
+                kw, wstages = two[-1], 2
+        if wstages >= 1:
+            return kw, wstages, st, bl, _bwd_smem_bytes(cell, H, cb, hb, rows, hc, kc, st, bl,
+                                                        xc, wstages, kw)
+    return None
 
 
 def bwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16",
@@ -487,8 +619,10 @@ def bwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16"
     shared memory. ``nc`` CTAs per cluster (at most 8; 16 where 8 do not
     fit and the card holds clusters of 16), each owning ``hc`` hidden
     columns; ``rows`` batch rows per cluster (``clusters`` of them per
-    direction); ``kc`` columns of the CTA's W rows held at a time
-    (``resident``: all of G*H, loaded once; else streamed every step);
+    direction); ``kc`` columns of the CTA's W rows a chunk (``resident``:
+    all of G*H, loaded once; else streamed every step through a ring of
+    ``wstages`` stages of ``kw`` columns, :func:`_bwd_ring`, 0 where
+    resident);
     ``stages`` staging buffers (2: a step's inputs load during the step
     before); ``blocks`` dhp row blocks (2, or 1 with a second cluster
     barrier a step); ``xc`` the columns of the row block exchanged at a
@@ -501,8 +635,10 @@ def bwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16"
     chunked exchange in clusters of 16, then of 8. Of the layouts that fit
     one of these, the one that streams W in the fewest chunks a step (1:
     resident), then the first of two row blocks before one, 32 rows before
-    16 and two staging buffers before one. ``slots``: as fwd_plan's. The
-    kernel checks the plan and refuses one that does not fit."""
+    16 and two staging buffers before one, sized as if one chunk buffer
+    held W (so ``kc``, which orders the sums, is what it was before the
+    ring). ``slots``: as fwd_plan's. The kernel checks the plan and
+    refuses one that does not fit."""
     G = _GATES[cell]
     H = _up(max(H, 1), _BWD_MULTIPLE)
     GH = G * H
@@ -555,12 +691,18 @@ def bwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16"
     if best is None:
         return None
     _, nc, hc, blocks, rows, kc, resident, stages, xc, smem = best
+    kw, wstages = kc, 0
+    if not resident:
+        ring = _bwd_ring(cell, H, cb, hb, rows, hc, kc, stages, blocks, xc)
+        if ring is None:
+            return None
+        kw, wstages, stages, blocks, smem = ring
     tile = _GEMM_TILE[cb]
     tiles = D * -(-H // tile) * -(-GH // tile)
     nsplit = max(1, min(-(-2 * _SMS // tiles), -(-T * B // 64)))
     return {"H": H, "nc": nc, "hc": hc, "rows": rows, "clusters": -(-B // rows), "kc": kc,
             "resident": resident, "stages": stages, "blocks": blocks, "xc": xc,
-            "nsplit": nsplit, "smem": smem, "slots": slots[nc]}
+            "nsplit": nsplit, "wstages": wstages, "kw": kw, "smem": smem, "slots": slots[nc]}
 
 
 def _check_bwd_args(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal):
@@ -750,6 +892,10 @@ def _bwd_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
         dw = torch.empty((D, H, GH), **f32)
         db = torch.empty((D, GH), **f32)
 
+    # where W streams, the chain's scratch for W packed piece by piece
+    n_pack = _bwd_packed_elems(cell, plan, D, cdt.itemsize)
+    wpk = torch.empty(n_pack, dtype=cdt, device=dev) if n_pack else None
+
     def ptr(x):
         return None if x is None else x.data_ptr()
 
@@ -763,11 +909,11 @@ def _bwd_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
             torch.cuda.current_device(), _CELL_CODE[cell], int(cdt == torch.bfloat16),
             int(hist == torch.bfloat16), int(split), T, B, H, D, dir0,
             plan["nc"], plan["rows"], plan["hc"], plan["kc"], plan["stages"], plan["blocks"],
-            plan["nsplit"], plan["xc"],
+            plan["nsplit"], plan["xc"], plan["wstages"], plan["kw"],
             at(xs, 0), at(xs, 1), m.data_ptr(),
             at(hs, 0), at(hs, 1), at(hr, 0), at(hr, 1), at(cs, 0), at(cs, 1),
             at(dos, 0), at(dos, 1),
-            w.data_ptr(), b.data_ptr(), dhf.data_ptr(),
+            w.data_ptr(), ptr(wpk), n_pack, b.data_ptr(), dhf.data_ptr(),
             at(dxps, 0), at(dxps, 1), at(dhps, 0), at(dhps, 1),
             ptr(hp_ws), ptr(ws_w), ptr(ws_b), ptr(dw), ptr(db), stream,
         )

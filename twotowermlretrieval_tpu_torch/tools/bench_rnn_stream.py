@@ -1,0 +1,352 @@
+#!/usr/bin/env python3
+"""Time the recurrent kernels where W streams through shared memory: the
+forward (``rnn_layer_fwd``) and the backward (``rnn_layer_bwd``) at widths
+whose W_hh columns a CTA cannot hold, beside the reference towers' width
+(H=256, W resident) as a control. Each record holds the plan, the
+CUDA-event median of single calls (the L2 is not flushed: the layer's W is
+read again every step anyway), the time a step, the W bytes one CTA draws a
+step and the rate that gives each SM, the least time the card could take
+(bytes at 3.35 TB/s or operations at 989 TFLOP/s), cuDNN's time for the
+same cell, width and batch (``nn.GRU`` / ``nn.LSTM`` / ``nn.RNN``, forward,
+and forward+backward minus forward, in bf16 where cuDNN takes it, else
+fp16), the largest difference from the plain version, and a SHA-256 of the
+outputs' bytes, so two checkouts' bits can be compared.
+
+    python3 twotowermlretrieval_tpu_torch/tools/bench_rnn_stream.py [CHECKOUT]
+        [--layouts] [--out FILE] [--device cuda]
+
+CHECKOUT: time that checkout's package (default: this one's), so that one
+call on one card can time two trees in turns (another commit unpacked
+beside this one with ``git archive``): only the public ``rnn_layer_fwd``,
+``rnn_layer_bwd``, their plain versions, the bounds and the plan functions
+are called. ``--layouts`` also times each streamed shape under every
+layout its pass can take (the W ring's depth and width, one or two row
+blocks, clusters of 8 or 16, and the forward's W resident in clusters of
+16 where it fits), the plan's own marked, each with its digest: it needs a
+checkout whose plans carry a ring (``wstages``). Each record is printed as
+a JSON line and, with ``--out``, written as a JSON list. ``--device cpu``
+runs the plain versions at toy sizes on the host clock: a check of the
+harness, whose times say nothing about a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA's data sheet)
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+GATES = {"GRU": 3, "LSTM": 4, "RNN": 1}
+# (pass, cell, H, B, T, compute dtype): the reference towers at twice their
+# width, a wide GRU at serving, training and export batches, the widest
+# layers the JAX package keeps on its kernels, the f32-compute route; the
+# reference towers themselves (W resident) as controls
+SHAPES = (
+    ("fwd", "GRU", 512, 64, 32, "bfloat16"), ("fwd", "GRU", 512, 128, 128, "bfloat16"),
+    ("fwd", "GRU", 1024, 16, 32, "bfloat16"), ("fwd", "GRU", 1024, 64, 32, "bfloat16"),
+    ("fwd", "GRU", 1024, 1024, 128, "bfloat16"), ("fwd", "LSTM", 1536, 16, 32, "bfloat16"),
+    ("fwd", "RNN", 3072, 16, 32, "bfloat16"), ("fwd", "GRU", 1024, 64, 32, "float32"),
+    ("bwd", "GRU", 512, 64, 32, "bfloat16"), ("bwd", "GRU", 1024, 64, 32, "bfloat16"),
+    ("bwd", "GRU", 1792, 16, 32, "bfloat16"), ("bwd", "LSTM", 1536, 16, 32, "bfloat16"),
+    ("bwd", "RNN", 3072, 16, 32, "bfloat16"),
+    ("fwd", "GRU", 256, 64, 32, "bfloat16"), ("fwd", "GRU", 256, 128, 128, "bfloat16"),
+    ("bwd", "GRU", 256, 64, 32, "bfloat16"), ("bwd", "GRU", 256, 128, 128, "bfloat16"),
+)
+CPU_SHAPES = (("fwd", "GRU", 24, 5, 6, "bfloat16"), ("fwd", "LSTM", 40, 3, 4, "float32"),
+              ("bwd", "GRU", 24, 5, 6, "bfloat16"), ("bwd", "RNN", 16, 3, 4, "bfloat16"),
+              ("fwd", "GRU", 512, 3, 2, "bfloat16"), ("bwd", "GRU", 1024, 3, 2, "bfloat16"))
+# the ring's widths and depths --layouts tries (with each layout's largest
+# depth that fits)
+LAYOUT_WIDTHS = (32, 64, 96, 128, 160, 192, 224, 256, 320, 384, 512)
+LAYOUT_DEPTHS = (1, 2, 3)
+
+
+def _import_port(checkout: Path):
+    sys.path.insert(0, str(checkout))
+    import twotowermlretrieval_tpu_torch as pkg
+
+    if Path(pkg.__file__).resolve().parent.parent != checkout:
+        raise SystemExit(f"the package came from {pkg.__file__}, not {checkout}")
+    from twotowermlretrieval_tpu_torch.ops import rnn_scan
+
+    return rnn_scan
+
+
+def _timer(torch, dev):
+    if dev.type == "cpu":
+        def time_ms(fn, reps=2, warmup=1):
+            for _ in range(warmup):
+                fn()
+            out = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                out.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(out)
+        return time_ms
+
+    def time_ms(fn, reps=15, warmup=3):
+        for _ in range(warmup):
+            fn()
+        out = []
+        for _ in range(reps):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        return statistics.median(out)
+    return time_ms
+
+
+def digest(torch, tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _inputs(torch, cell, H, B, T, cdt, dev, seed):
+    """Per-direction xp, ragged lengths (0, 1 and T among them), W_hh and
+    b_hh at torch.nn.GRU's init scale, in the compute dtype."""
+    G = GATES[cell]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lim = 1.0 / math.sqrt(H)
+    dt = getattr(torch, cdt)
+    xps = [(torch.randn((T, B, G * H), generator=gen, device=dev) * 0.5).to(dt)
+           for _ in range(2)]
+    lengths = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
+    lengths[: min(3, B)] = torch.tensor([0, 1, T][: min(3, B)], device=dev)
+    mask = (torch.arange(T, device=dev)[:, None] < lengths[None, :]).float()
+    w_hh = ((torch.rand((2, H, G * H), generator=gen, device=dev) * 2 - 1) * lim).to(dt)
+    b_hh = (torch.rand((2, G * H), generator=gen, device=dev) * 2 - 1) * lim
+    return xps, mask, w_hh, b_hh
+
+
+def _bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _cudnn_ms(torch, time_ms, cell, H, B, T, dev, backward: bool):
+    """cuDNN over one bidirectional layer of the cell (input width 2H, the
+    second layer's), in bf16 where cuDNN takes bf16, else fp16: the
+    forward, or forward+backward minus forward. Returns (ms, dtype name);
+    (None, None) on the host."""
+    if dev.type != "cuda":
+        return None, None
+    dt = torch.bfloat16
+    if not torch.backends.cudnn.is_acceptable(torch.empty(1, device=dev, dtype=dt)):
+        dt = torch.float16
+    make = {"GRU": torch.nn.GRU, "LSTM": torch.nn.LSTM, "RNN": torch.nn.RNN}[cell]
+    layer = make(2 * H, H, num_layers=1, bidirectional=True).to(dev, dt)
+    x = torch.randn((T, B, 2 * H), device=dev, dtype=dt, requires_grad=backward)
+    if not backward:
+        with torch.no_grad():
+            return time_ms(lambda: layer(x)), str(dt).replace("torch.", "")
+    g = torch.randn((T, B, 2 * H), device=dev, dtype=dt)
+    fwd = time_ms(lambda: layer(x))
+    both = time_ms(lambda: torch.autograd.backward(layer(x)[0], g))
+    return both - fwd, str(dt).replace("torch.", "")
+
+
+def _w_bytes_a_step(cell, plan, cb):
+    """W bytes one CTA draws from L2 a step: its G*hc columns of all H rows
+    (forward) or its hc rows of all G*H columns (backward); 0 where W is
+    resident."""
+    if plan["resident"]:
+        return 0
+    return plan["H"] * GATES[cell] * plan["hc"] * cb
+
+
+def _sizes_and_rows(rnn_scan, Hk, B, cb, slots, base):
+    """(cluster size and columns, rows) pairs --layouts tries: per cluster
+    size, the plan's rows, the least rows the plans take at this batch and
+    the fewest rows whose clusters (both directions) all fit on the card at
+    once, where a CTA holds them."""
+    cands = (16, 32, 64, 128) if cb == 2 else (8, 16, 32, 64)
+    least = cands[0] if B <= cands[0] else cands[1]
+    out = []
+    for nc, hc in rnn_scan._cluster_sizes(Hk, slots):
+        held = [R for R in cands if ((R // 16) * (hc // 8) <= 32 if cb == 2 else R * hc <= 2048)]
+        wave = [R for R in held if R >= least and 2 * -(-B // R) <= slots[nc]]
+        for R in sorted({base["rows"], least, *wave[:1]} & set(held)):
+            out.append(((nc, hc), R))
+    return out
+
+
+def _fwd_layouts(rnn_scan, cell, B, cdt, slots, base):
+    """Every forward layout --layouts times: per cluster size and rows
+    (:func:`_sizes_and_rows`), W resident where it fits, and each ring
+    width and depth with two or one h row blocks."""
+    cb = 2 if cdt == "bfloat16" else 4
+    Hk = base["H"]
+    kp = -(-Hk // 32) * 32
+    out = []
+    for (nc, hc), R in _sizes_and_rows(rnn_scan, Hk, B, cb, slots, base):
+        common = dict(base, nc=nc, hc=hc, rows=R, clusters=-(-B // R), slots=slots[nc])
+        smem = rnn_scan._fwd_smem_bytes(cell, Hk, cb, R, hc, kp)
+        if smem <= rnn_scan._SMEM_LIMIT:
+            out.append(dict(common, kc=kp, resident=True, wstages=0, blocks=2, smem=smem))
+        for blocks in (2, 1):
+            for kc in LAYOUT_WIDTHS:
+                if kc >= kp or (cb == 2 and kc % 32):
+                    continue
+                fits = [s for s in range(2, 9) if rnn_scan._fwd_smem_bytes(
+                    cell, Hk, cb, R, hc, kc, s, blocks) <= rnn_scan._SMEM_LIMIT]
+                if fits and blocks == 1 and rnn_scan._fwd_smem_bytes(
+                        cell, Hk, cb, R, hc, kc, fits[-1], 2) <= rnn_scan._SMEM_LIMIT:
+                    fits = fits[-1:]  # one block where two hold the same ring: its deepest
+                for s in sorted({d for d in LAYOUT_DEPTHS if d in fits} | set(fits[-1:])):
+                    out.append(dict(common, kc=kc, resident=False, wstages=s, blocks=blocks,
+                                    smem=rnn_scan._fwd_smem_bytes(cell, Hk, cb, R, hc, kc, s,
+                                                                  blocks)))
+    return out
+
+
+def _bwd_layouts(rnn_scan, cell, H, cdt, hist, slots, base):
+    """Every backward layout --layouts times: the plan's chunk kc kept (it
+    orders the sums), its staging buffers and row blocks, each piece width
+    and ring depth, per cluster size that holds the layer."""
+    if base["resident"]:
+        return []
+    cb = 2 if cdt == "bfloat16" else 4
+    Hk, R, kc = base["H"], base["rows"], base["kc"]
+    out = []
+    for nc, hc in rnn_scan._cluster_sizes(Hk, slots):
+        if (cb == 2 and (R // 16) * (hc // 8) > 32) or (cb == 4 and R * hc > 2048):
+            continue
+        for kw in sorted({w for w in LAYOUT_WIDTHS if w < kc} | {kc}):
+            if kw < kc and kw % (32 if cb == 2 else 16):
+                continue
+
+            def smem(s, _hc=hc, _kw=kw):
+                return rnn_scan._bwd_smem_bytes(cell, Hk, cb, hist.itemsize, R, _hc, kc,
+                                                base["stages"], base["blocks"], base["xc"], s,
+                                                _kw)
+            fits = [s for s in range(1, 9) if smem(s) <= rnn_scan._SMEM_LIMIT]
+            for s in sorted({d for d in LAYOUT_DEPTHS if d in fits} | set(fits[-1:])):
+                out.append(dict(base, nc=nc, hc=hc, slots=slots[nc], kw=kw, wstages=s,
+                                smem=smem(s)))
+    return out
+
+
+_PLAN_KEYS = ("nc", "hc", "rows", "clusters", "kc", "resident", "wstages", "blocks", "stages",
+              "xc", "kw", "nsplit", "smem", "slots")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("checkout", nargs="?", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--layouts", action="store_true")
+    ap.add_argument("--out")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    rnn_scan = _import_port(Path(args.checkout).resolve())
+    import torch
+
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("no CUDA device: pass --device cpu to check the harness")
+        torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products in the plain version
+        torch.backends.cudnn.allow_tf32 = False
+        card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              check=True).stdout.strip()
+    else:
+        card = "the host (plain versions)"
+    time_ms = _timer(torch, dev)
+    recs = []
+    for seed, (which, cell, H, B, T, cdt) in enumerate(SHAPES if dev.type == "cuda"
+                                                       else CPU_SHAPES):
+        G = GATES[cell]
+        cb = 2 if cdt == "bfloat16" else 4
+        hist = getattr(torch, cdt)  # the model's history: the compute dtype's
+        xps, mask, w_hh, b_hh = _inputs(torch, cell, H, B, T, cdt, dev, seed)
+        slots = (rnn_scan.cluster_slots(which, cell, cdt, hist, dev) if dev.type == "cuda"
+                 else rnn_scan.H100_SXM_CLUSTER_SLOTS)
+        plan_fn = rnn_scan.fwd_plan if which == "fwd" else rnn_scan.bwd_plan
+        plan = plan_fn(cell, T, B, H, 2, cdt, hist, slots)
+        rec = {"pass": which, "cell": cell, "H": H, "B": B, "T": T, "compute": cdt,
+               "history": cdt, "plan": {k: plan[k] for k in _PLAN_KEYS if k in plan}}
+        with torch.no_grad():
+            if which == "fwd":
+                def call():
+                    return rnn_scan.rnn_layer_fwd(cell, xps, mask, w_hh, b_hh, cdt, True)
+
+                def flat(res):
+                    return [*res[0], *res[1], res[2]]
+                plain = flat(rnn_scan.rnn_layer_fwd_reference(cell, xps, mask, w_hh, b_hh, cdt,
+                                                              True))
+                nbytes, flops = rnn_scan.rnn_fwd_bound(T, B, H, 2, G, cb, cb)
+            else:
+                # the history from the plain forward: the same in every checkout
+                outs, c_hist, _ = rnn_scan.rnn_layer_fwd_reference(cell, xps, mask, w_hh, b_hh,
+                                                                   cdt, True)
+                gen = torch.Generator(device=dev).manual_seed(seed + 100)
+                douts = [torch.randn((T, B, H), generator=gen, device=dev).to(hist)
+                         for _ in range(2)]
+                d_hfinal = torch.randn((2, B, H), generator=gen, device=dev)
+                bargs = (cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal, cdt)
+
+                def call():
+                    return rnn_scan.rnn_layer_bwd(*bargs)
+
+                def flat(res):
+                    return [*res[0], res[1], res[2]]
+                plain = flat(rnn_scan.rnn_layer_bwd_reference(*bargs))
+                nbytes, flops = rnn_scan.rnn_bwd_bound(T, B, H, 2, G, cb, cb)
+            got = flat(call())
+            rec["digest"] = digest(torch, got)
+            rec["bitwise_repeatable"] = digest(torch, flat(call())) == rec["digest"]
+            rec["max_abs_err"] = max((a.float() - b.float()).abs().max().item()
+                                     for a, b in zip(got, plain))
+            rec["ms"] = time_ms(call)
+        rec["step_us"] = rec["ms"] / T * 1e3
+        rec["w_bytes_cta_step"] = _w_bytes_a_step(cell, plan, cb)
+        rec["gb_s_per_sm"] = rec["w_bytes_cta_step"] / (rec["step_us"] * 1e-6) / 1e9
+        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops)
+        rec["cudnn_ms"], rec["cudnn_dtype"] = _cudnn_ms(torch, time_ms, cell, H, B, T, dev,
+                                                        which == "bwd")
+        if args.layouts and H > 256:
+            layouts = (_fwd_layouts(rnn_scan, cell, B, cdt, slots, plan)
+                       if which == "fwd" else _bwd_layouts(rnn_scan, cell, H, cdt, hist, slots,
+                                                           plan))
+            rec["layouts"] = []
+            for lay in layouts:
+                setattr(rnn_scan, f"{which}_plan", lambda *a, _lay=lay, **k: _lay)
+                try:
+                    with torch.no_grad():
+                        d = digest(torch, flat(call()))
+                        ms = time_ms(call, reps=10, warmup=2)
+                finally:
+                    setattr(rnn_scan, f"{which}_plan", plan_fn)
+                rec["layouts"].append({
+                    "plan": {k: lay[k] for k in _PLAN_KEYS if k in lay}, "ms": ms,
+                    "step_us": ms / T * 1e3,
+                    "chosen": all(lay.get(k) == plan.get(k) for k in _PLAN_KEYS),
+                    "same_bits": d == rec["digest"]})
+        rec["card"] = card
+        print(json.dumps(rec), flush=True)
+        recs.append(rec)
+        del xps, mask, w_hh, b_hh
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(recs, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
