@@ -155,10 +155,10 @@ Step 3 also holds the repair of the bf16 and f32 scans' widths: 32 query
 rows at the widest tower widths the port trains (bf16 H=3360: ``segmax``,
 ``segmax_int8`` and the running top-k at k=50 over bf16 and per-row int8
 rows; f32 H=3200: ``segmax`` and the running top-k) over 262,144 rows, each
-run in the fewest blocks of query rows whose layout fits (``ops/topk.py``
-query_blocks; one launch at f32), against its
-plain version, three queries bit for bit their own one-row launches, and
-past the widest width one row takes a ``ValueError`` before any launch;
+in one launch whose query fragments ride the ring (``ops/topk.py``
+scan_plan), against its plain version, three queries bit for bit their own
+one-row launches (at bf16 and int8 the resident route), and past the widest
+width a launch takes a ``ValueError`` before any launch;
 and one engine search of 32 coalesced queries over an index of width 3360
 (a one-layer RNN tower, 73,728 rows). The IVF index (``ops/ivf.py``, plain
 PyTorch on the card) is built over 1,048,576 x 256 clustered rows in bf16
@@ -327,9 +327,8 @@ TF_F32_STEP_GRAD_REL = 1e-4
 TF_SERVE_ATOL = EMBED_ATOL
 
 # 32 query rows at the widest tower widths the port trains (RNN towers:
-# H=3360 at bf16, 3200 at f32): past what one launch of the bf16 scans lays
-# out the wrappers run the fewest blocks of query rows that fit; the f32
-# route takes them in one launch.
+# H=3360 at bf16, 3200 at f32): one launch at every storage, the query
+# fragments riding the ring.
 WIDE_BF16_H, WIDE_F32_H = 3360, 3200
 WIDE_SCAN_ROWS = 262_144  # beside the served 73,728 rows of the wide engine search
 # f32 sums of about 3360 products of unit-norm rows in two orders differ by
@@ -825,13 +824,14 @@ def scan_layout(name: str, B: int, storage, k=None) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     what = f"{name} layout, B={B} H={H} {str(storage).split('.')[-1]}" + (
         "" if k is None else f" k={k}")
-    if plan["query_frags"] == "ring":  # f32: three bf16 pieces, six products
-        log(f"{what}: tensor cores, f32 split into three bf16 pieces (six products), "
-            f"{plan['stages']} cp.async stages of {plan['stage_bytes']} bytes (16 KiB of rows, "
-            f"then the stage's query fragments, {plan['nt']} n8 tiles, from a "
-            f"{plan['query_frag_bytes']}-byte split a call), {plan['blocks_per_sm']} blocks a "
-            f"SM ({plan['blocks_per_sm'] * sms} persistent), {plan['k_tail']} zero columns "
-            f"past H, {plan['smem']} bytes a block")
+    if plan["query_frags"] == "ring":
+        split = (" f32 split into three bf16 pieces (six products),"
+                 if storage == torch.float32 else "")
+        log(f"{what}: tensor cores,{split} {plan['stages']} cp.async stages of "
+            f"{plan['stage_bytes']} bytes (16 KiB of rows, then the stage's query fragments, "
+            f"{plan['nt']} n8 tiles, from {plan['query_frag_bytes']} bytes written once a "
+            f"call), {plan['blocks_per_sm']} blocks a SM ({plan['blocks_per_sm'] * sms} "
+            f"persistent), {plan['k_tail']} zero columns past H, {plan['smem']} bytes a block")
     else:
         log(f"{what}: tensor cores, {plan['stages']} cp.async stages of 16 KiB, "
             f"{plan['blocks_per_sm']} blocks a SM ({plan['blocks_per_sm'] * sms} persistent), "
@@ -3213,12 +3213,12 @@ def _int8_rows_on_card(docs):
 
 
 def _wide_case(name, kernel, plain, lib, nbytes_ops, storage, k, width, q, full, n_valid):
-    """One scan at B=32 and the widest tower's width: its launch count (the
-    blocks of ``query_blocks``: two at bf16 and int8, where one launch's
-    layout does not fit, one at f32, whose query fragments ride the ring),
-    the result against the plain version (WIDE_ATOL; the top-k's ids against
-    the full f32 scores), three queries each bit for bit their own one-row
-    launch, and its times."""
+    """One scan at B=32 and the widest tower's width: one launch a call
+    (``query_blocks``), its query fragments riding the ring, the result
+    against the plain version (WIDE_ATOL; the top-k's ids against the full
+    f32 scores), three queries each bit for bit their own one-row launch
+    (at bf16 and int8 a launch whose fragments stay resident in shared
+    memory: the two routes held against each other), and its times."""
     from twotowermlretrieval_tpu_torch.ops import topk
 
     counter = getattr(topk, name)
@@ -3229,9 +3229,12 @@ def _wide_case(name, kernel, plain, lib, nbytes_ops, storage, k, width, q, full,
     before = counter.launches
     got = kernel(q)
     launches = counter.launches - before
-    check(launches == len(blocks) == (1 if storage == torch.float32 else 2),
-          f"{name} {shape}: {launches} launches, expected the {len(blocks)} blocks "
-          f"{[b for _, b, _ in blocks]}")
+    check(launches == len(blocks) == 1 and blocks[0][2]["query_frags"] == "ring",
+          f"{name} {shape}: {launches} launches, expected 1 riding the ring; blocks "
+          f"{[(b, p['query_frags']) for _, b, p in blocks]}")
+    one_route = topk.scan_plan(1, width, storage, k)["query_frags"]
+    check(one_route == ("ring" if storage == torch.float32 else "shared memory"),
+          f"{name} {shape}: a one-row launch takes the {one_route} route")
     got = (got,) if torch.is_tensor(got) else got
     want = plain()
     want = (want,) if torch.is_tensor(want) else want
@@ -3246,13 +3249,15 @@ def _wide_case(name, kernel, plain, lib, nbytes_ops, storage, k, width, q, full,
                 torch.equal(got[0][i], one[0][0]) and torch.equal(got[1][i], one[1][0]))
         check(same, f"{name} {shape}: query {i} differs from its own one-row launch")
     rec = {"shape": shape, "max_abs_err": err, "blocks": [b for _, b, _ in blocks],
-           "launches": launches, "ms": time_ms(lambda: kernel(q)),
+           "layout": blocks[0][2], "launches": launches, "ms": time_ms(lambda: kernel(q)),
            "plain_ms": time_ms(plain, reps=5, warmup=1), "library_ms": time_ms(lib)}
     rec["bound_ms"], rec["bound_by"] = bound(
         *nbytes_ops, PEAK_SPLIT_FLOPS if storage == torch.float32 else PEAK_BF16_FLOPS)
-    log(f"{name} {shape}: {launches} launch(es) a call (blocks {rec['blocks']}), |diff| "
-        f"{err:.3g}, queries "
-        f"0, 17, 31 bit for bit their one-row launches; kernel {rec['ms']:.4f} ms, plain "
+    plan = blocks[0][2]
+    log(f"{name} {shape}: {launches} launch a call ({plan['stages']} stages of "
+        f"{plan['stage_bytes']} bytes, {plan['blocks_per_sm']} blocks a SM), |diff| "
+        f"{err:.3g}, queries 0, 17, 31 bit for bit their one-row launches ({one_route}); "
+        f"kernel {rec['ms']:.4f} ms, plain "
         f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, bound "
         f"{rec['bound_ms']:.6f} ms ({rec['bound_by']})")
     return rec
@@ -3262,10 +3267,9 @@ def phase_wide_batches(dev) -> dict:
     """segmax, segmax_int8 and the running top-k (k=50, over bf16 and
     per-row int8 rows) at B=32 over WIDE_SCAN_ROWS rows at bf16
     H=WIDE_BF16_H (all four) and f32 H=WIDE_F32_H (segmax, top-k): each in
-    the fewest blocks of query rows whose layout fits (one launch a call at
-    f32), against its plain version; past the widest width one query row
-    takes, each wrapper raises before any launch. Returns records by kernel
-    name."""
+    one launch a call, its query fragments riding the ring, against its
+    plain version; past the widest width a launch takes, each wrapper raises
+    before any launch. Returns records by kernel name."""
     from twotowermlretrieval_tpu_torch.ops import topk
 
     recs = {"segmax": [], "segmax_int8": [], "topk_stream": [], "topk_stream_int8": []}
@@ -3316,7 +3320,8 @@ def phase_wide_batches(dev) -> dict:
         counts = read_counts()
         for name, storage, k in (("segmax", torch.bfloat16, None), ("segmax", torch.float32, None),
                                  ("segmax_int8", torch.int8, None),
-                                 ("topk_stream", torch.bfloat16, FANOUT)):
+                                 ("topk_stream", torch.bfloat16, FANOUT),
+                                 ("topk_stream_int8", torch.int8, FANOUT)):
             widest = topk.scan_max_h(storage, k)
             width = widest + 16 // torch.tensor([], dtype=storage).element_size()
             d = torch.zeros((256, width), dtype=storage, device=dev)
@@ -3325,7 +3330,9 @@ def phase_wide_batches(dev) -> dict:
             call = {"segmax": lambda: topk.segmax(qq, d, 256),
                     "segmax_int8": lambda: topk.segmax_int8(
                         qq, d, torch.ones(256, device=dev), 256),
-                    "topk_stream": lambda: topk.topk_stream(qq, d, FANOUT, 256)}[name]
+                    "topk_stream": lambda: topk.topk_stream(qq, d, FANOUT, 256),
+                    "topk_stream_int8": lambda: topk.topk_stream_int8(
+                        qq, d, torch.ones(256, device=dev), FANOUT, 256)}[name]
             try:
                 call()
                 raised = ""
@@ -3335,10 +3342,11 @@ def phase_wide_batches(dev) -> dict:
                   f"{name} at H={width} {storage}: expected a ValueError naming {widest}, got "
                   f"{raised!r}")
         check(read_counts() == counts, "a wrapper launched past its widest width")
-        log("wide batches: past the widest width one query row takes (bf16 "
+        log("wide batches: past the widest width a launch takes (bf16 "
             f"{topk.scan_max_h(torch.bfloat16)}, f32 {topk.scan_max_h(torch.float32)}, "
             f"int8 rows {topk.scan_max_h(torch.int8)}, bf16 top-{FANOUT} "
-            f"{topk.scan_max_h(torch.bfloat16, FANOUT)}) each wrapper raises before any launch")
+            f"{topk.scan_max_h(torch.bfloat16, FANOUT)}, int8 rows top-{FANOUT} "
+            f"{topk.scan_max_h(torch.int8, FANOUT)}) each wrapper raises before any launch")
     return recs
 
 
@@ -3348,9 +3356,9 @@ def phase_wide_engine(dev, corpus) -> dict:
     WIDE_BF16_H: an artifact directory with a one-layer RNN tower of
     HIDDEN_DIM 3360 (random weights from a seed) and PASSAGES random unit
     embeddings beside phase 4's documents, served in bf16. The batch
-    launches rnn_fwd once and segmax once a block of query rows; its
-    results against the two-phase path on the same embeddings (one [B, N]
-    product in torch)."""
+    launches rnn_fwd once and segmax once (its query fragments riding the
+    ring); its results against the two-phase path on the same embeddings
+    (one [B, N] product in torch)."""
     from twotowermlretrieval_tpu_torch.config import Config
     from twotowermlretrieval_tpu_torch.models.two_tower import (
         TwoTowerSpec,
@@ -3383,8 +3391,8 @@ def phase_wide_engine(dev, corpus) -> dict:
     out = engine._dense_batch(requests)
     launches = read_counts()
     blocks = len(query_blocks("segmax", 32, WIDE_BF16_H, torch.bfloat16))
-    check(launches["rnn_fwd"] == 1 and launches["segmax"] == blocks == 2
-          and sum(launches.values()) == 3,
+    check(launches["rnn_fwd"] == 1 and launches["segmax"] == blocks == 1
+          and sum(launches.values()) == 2,
           f"the wide engine batch launched {launches}, expected 1 rnn_fwd and {blocks} segmax")
     enc = engine.inferencer.encoder
     tokens, lengths = engine.inferencer.tokenizer.encode_batch(

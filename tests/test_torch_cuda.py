@@ -768,10 +768,10 @@ def test_fused_topk_on_the_card_matches_the_oracle(dev, phase2):
     torch.testing.assert_close(picked, vals, rtol=0, atol=3e-5)
 
 
-# 32 query rows at the widest tower widths (bf16 H=3360, f32 H=3200): the
-# wrappers run the fewest blocks whose layout fits (one at f32, whose query
-# fragments ride the ring), and each query's result is bit for bit its own
-# one-row launch.
+# 32 query rows at the widest tower widths (bf16 and int8 H=3360, f32
+# H=3200): one launch each, the query fragments riding the ring, and each
+# query's result is bit for bit its own one-row launch (at bf16 and int8
+# one whose fragments stay resident in shared memory).
 @pytest.mark.parametrize("dtype,H", [(torch.bfloat16, 3360), (torch.float32, 3200),
                                      (torch.int8, 3360)])
 def test_wide_batches_run_in_blocks_bitwise(dev, dtype, H):
@@ -802,13 +802,53 @@ def test_wide_batches_run_in_blocks_bitwise(dev, dtype, H):
     top_blocks = len(_topk.query_blocks("topk_stream", 32, H, storage, 50))
     assert counter.launches - before[0] == blocks
     assert top_counter.launches - before[1] == top_blocks
-    assert (blocks, top_blocks) == ((1, 1) if dtype == torch.float32 else (2, 2))
+    assert (blocks, top_blocks) == (1, 1)
+    assert _topk.scan_plan(32, H, storage)["query_frags"] == "ring"
+    assert _topk.scan_plan(1, H, storage)["query_frags"] == (
+        "ring" if dtype == torch.float32 else "shared memory")
     torch.testing.assert_close(seg, plain, rtol=0, atol=3e-5 * H / 256)
     torch.testing.assert_close(vals, top_plain[0], rtol=0, atol=3e-5 * H / 256)
     for i in (0, 13, 31):
         assert torch.equal(seg[:, i], scan(qb[i : i + 1])[:, 0])
         one_vals, one_ids = top(qb[i : i + 1])
         assert torch.equal(vals[i], one_vals[0]) and torch.equal(ids[i], one_ids[0])
+
+
+# bf16 and per-row int8 scans under every layout they can take (the query
+# fragments resident in shared memory or riding the ring, each ring depth
+# that fits): the same words reach the same products in the same order, so
+# every layout gives the chosen plan's bits.
+@pytest.mark.parametrize("storage", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+@pytest.mark.parametrize("B", [1, 9, 32])
+@pytest.mark.parametrize("H", [48, 256, 1024])
+def test_every_fragment_route_gives_the_same_bits(dev, monkeypatch, storage, B, H):
+    gen = torch.Generator(device=dev).manual_seed(B * 7 + H)
+    docs = _unit_rows(gen, 4096, H, dev)
+    q = _unit_rows(gen, B, H, dev).bfloat16()
+    n_valid = 4000
+    if storage == torch.int8:
+        values, scales = _int8_rows(docs)
+        scan = lambda: segmax_int8(q, values, scales, n_valid)  # noqa: E731
+        top = lambda k: topk_stream_int8(q, values, scales, k, n_valid)  # noqa: E731
+        plain = segmax_int8_reference(q, values, scales, n_valid)
+    else:
+        docs = docs.bfloat16()
+        scan = lambda: segmax(q, docs, n_valid)[0]  # noqa: E731
+        top = lambda k: topk_stream(q, docs, k, n_valid)  # noqa: E731
+        plain = segmax_reference(q, docs, n_valid)[0]
+    want = {k: (scan() if k is None else top(k)) for k in (None, 50, 128)}
+    torch.testing.assert_close(want[None], plain, rtol=0, atol=4e-5 * max(1, H / 256))
+    plan_fn = _topk.scan_plan
+    for k in (None, 50, 128):
+        layouts = _topk.scan_layouts(B, H, storage, k)
+        assert {p["query_frags"] for p in layouts} == {"ring", "shared memory"}
+        for layout in layouts:
+            monkeypatch.setattr(_topk, "scan_plan", lambda *a, _p=layout, **kw: _p)
+            got = scan() if k is None else top(k)
+            monkeypatch.setattr(_topk, "scan_plan", plan_fn)
+            same = (torch.equal(got, want[k]) if k is None else
+                    torch.equal(got[0], want[k][0]) and torch.equal(got[1], want[k][1]))
+            assert same, (k, layout["query_frags"], layout["stages"])
 
 
 # The f32 route (three bf16 pieces a value, six products on the tensor
@@ -1154,17 +1194,17 @@ def test_topk_stream_wrappers_reject_what_the_kernel_does_not_take(dev):
         topk_stream(q, docs[:200], 10, 200)  # rows not a multiple of 128
     with pytest.raises(ValueError):
         topk_stream(q.float(), docs, 10, 256)  # dtypes differ
-    # past the widest width one query row takes at k=128, no layout fits
+    # past the widest width a launch takes at k=128, no layout
     widest = _topk.scan_max_h(torch.bfloat16, 128)
     wide = torch.zeros((256, widest + 8), dtype=torch.bfloat16, device=dev)
     before = topk_stream.launches
-    with pytest.raises(ValueError, match=f"shared memory.*up to {widest}"):
+    with pytest.raises(ValueError, match=f"k=128: it takes H up to {widest}"):
         topk_stream(wide[:1], wide, 128, 256)
     assert topk_stream.launches == before
     half = wide[:, :2048].contiguous()
-    vals, ids = topk_stream(half[:32], half, 128, 256)  # 32 rows, k=128 at H=2048: two launches
+    vals, ids = topk_stream(half[:32], half, 128, 256)  # 32 rows, k=128 at H=2048: one launch
     assert ids.tolist() == [list(range(128))] * 32
-    assert topk_stream.launches == before + 2
+    assert topk_stream.launches == before + 1
     values = torch.zeros((256, 64), dtype=torch.int8, device=dev)
     scales = torch.ones(256, device=dev)
     with pytest.raises(ValueError):

@@ -290,22 +290,37 @@ def test_smoke_phase_times_compare(tmp_path, capsys):
     assert "new median 1.3500 ms base 1.0000-1.2000" in lines[1]
 
 
-def test_bench_f32_scans_on_cpu(tmp_path):
-    """The f32 scans' harness with the plain versions: a record per shape
-    whose kernel and plain version are the same function (no difference,
-    the same ids, repeatable), then the served f32 top-50 at B=1 and 16."""
-    out = tmp_path / "f32.json"
-    assert bench_f32_scans.main(["--device", "cpu", "--out", str(out)]) == 0
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+def test_bench_f32_scans_on_cpu(tmp_path, storage):
+    """The scans' harness with the plain versions, at each --storage: a
+    record per shape whose kernel and plain version are the same function
+    (no difference, the same ids, repeatable), with the digests of its
+    outputs and its plan; --layouts times every layout, the
+    plan's own marked once, each with the record's digest; then, at f32,
+    the served f32 top-50 at B=1 and 16."""
+    out = tmp_path / "scans.json"
+    assert bench_f32_scans.main(["--device", "cpu", "--storage", storage, "--layouts",
+                                 "--out", str(out)]) == 0
     recs = json.loads(out.read_text())
     scans = [r for r in recs if "segmax_err" in r]
     assert [(r["rows"], r["H"], r["B"]) for r in scans] == [(4096, 64, 1), (4096, 64, 16),
                                                            (2048, 320, 32)]
     for r in scans:
         assert r["segmax_err"] == 0 and r["topk_err"] == 0 and r["topk_ids_equal_plain"] == 1
-        assert r["bitwise_repeatable"] and r["segmax_ms"] >= 0
+        assert r["bitwise_repeatable"] and r["segmax_ms"] >= 0 and r["storage"] == storage
         assert r["card"] == "the host (plain versions)"
+        assert len(r["segmax_digest"]) == len(r["topk_digest"]) == 64
+        assert [p["rows"] for p in r["segmax_plan"]] == [r["B"]]
+        for name, digest in (("segmax", r["segmax_digest"]), ("topk_stream", r["topk_digest"])):
+            lays = [x for x in recs if x.get("layout") == name and (x["H"], x["B"]) == (
+                r["H"], r["B"])]
+            assert sum(x["chosen"] for x in lays) == 1
+            assert all(x["digest"] == digest and x["ms"] > 0 for x in lays)
+            routes = {x["query_frags"] for x in lays}
+            assert routes == ({"ring"} if storage == "f32" else {"ring", "shared memory"})
     served = [r for r in recs if r.get("served_f32_top50")]
-    assert [r["B"] for r in served] == [1, 16] and all(r["ms_median"] > 0 for r in served)
+    assert [r["B"] for r in served] == ([1, 16] if storage == "f32" else [])
+    assert all(r["ms_median"] > 0 for r in served)
 
 
 def test_bench_rnn_stream_on_cpu(tmp_path, capsys):

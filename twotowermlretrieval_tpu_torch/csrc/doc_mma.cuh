@@ -26,9 +26,19 @@
 // banks.
 //
 // The query fragments (b0, b1 of every k16 step and n tile, in lane order)
-// are built once per block from device memory and kept in shared memory,
-// read back with one 8-byte load a lane: conflict-free, and free of the
-// register pressure of holding 16 k steps x 4 n tiles in every thread.
+// are read back with one 8-byte load a lane from shared memory:
+// conflict-free, and free of the register pressure of holding 16 k steps x
+// 4 n tiles in every thread. They take one of two routes (RING, a template
+// argument of scan_tiles, stage_bytes and scan_smem). Resident: each block
+// builds every stage's fragments once from device memory and keeps them,
+// which takes shared memory that grows with H and B (53 stages x 4 k16
+// steps x 4 n tiles x 256 bytes = 217,088 bytes at bf16 H=3360, B=32).
+// Riding the ring: a small launch (pack_query_frags) writes them once a
+// call to device memory in the same lane order, and each stage of the ring
+// carries its columns' fragments after its 16 KiB of rows (4 KiB at bf16,
+// 8 KiB at int8, four n tiles), so a block's shared memory does not grow
+// with H and the corpus is read once at every width. Both routes feed
+// score_stage the same words in the same order: the same bits.
 //
 // The f32 path: f32 rows times f32 queries with the precision of an f32
 // product, as the JAX f32 scans ask (Precision.HIGHEST, which the TPU's
@@ -84,10 +94,14 @@ template <> struct Steps<__nv_bfloat16> { static constexpr int K = 4; };
 template <> struct Steps<int8_t> { static constexpr int K = 8; };
 template <> struct Steps<float> { static constexpr int K = 2; };
 
-// The f32 path: its values split into PIECES bf16 pieces, its query
-// fragments ride the ring.
+// The f32 path: its values split into PIECES bf16 pieces; its query
+// fragments always ride the ring (three pieces each do not fit resident at
+// wide H).
 template <typename T> constexpr bool kSplit = std::is_same<T, float>::value;
 constexpr int PIECES = 3;
+// uint2 words of query fragment a (k16 step, n tile, lane): one, or one a
+// piece on the f32 path
+template <typename T> constexpr int kPieces = kSplit<T> ? PIECES : 1;
 
 // The s8 x s8 path (segmax_s8.cu): int8 rows times int8 queries on
 // mma.sync.m16n8k32 with int32 accumulators, exact in any order. Its
@@ -110,12 +124,19 @@ __host__ __device__ constexpr size_t qfrag_bytes(int nchunks, int ksteps, int nt
   return (size_t)nchunks * ksteps * nt * 32 * 8;
 }
 
-// Bytes of one stage of the ring: 128 bytes of each of the tile's rows,
-// then on the f32 path the query fragments of the stage's columns (a uint2
-// per (k16 step, piece, n tile, lane)).
+// Bytes of one stage's query fragments: a uint2 per (k16 step, piece, n
+// tile, lane).
 template <typename T>
+__host__ __device__ constexpr int frag_stage_bytes(int nt) {
+  return (int)qfrag_bytes(1, Steps<T>::K * kPieces<T>, nt);
+}
+
+// Bytes of one stage of the ring: 128 bytes of each of the tile's rows,
+// then, where the fragments ride the ring (RING), the stage's query
+// fragments.
+template <typename T, bool RING = kSplit<T>>
 __host__ __device__ constexpr int stage_bytes(int nt) {
-  return STAGE_BYTES + (kSplit<T> ? (int)qfrag_bytes(1, Steps<T>::K * PIECES, nt) : 0);
+  return STAGE_BYTES + (RING ? frag_stage_bytes<T>(nt) : 0);
 }
 
 __device__ __forceinline__ int swz(int row, int c) { return c ^ ((row & 1) << 2); }
@@ -180,22 +201,41 @@ __device__ __forceinline__ int slot_col(int m, int t) {
   }
 }
 
-// Build the query fragments of q [B, H] bf16 into qf (zeros past B rows
-// and H columns). Every thread calls it; the caller's first barrier
+// Query fragment i of q [B, H] bf16 for T rows (bf16, or int8 scored as
+// bf16): for k16 step m of stage kc, n tile j and lane (g, t), i = ((kc *
+// KS + m) * nt + j) * 32 + lane holds query row j * 8 + g at the four
+// columns of slot_col<T>(m, t) as b0 and b1 (zeros past B rows and H
+// columns). Stage kc's fragments are one contiguous run.
+template <typename T>
+__device__ __forceinline__ uint2 query_frag(const __nv_bfloat16* __restrict__ q, int B, int H,
+                                            int nt, int i) {
+  constexpr int KS = Steps<T>::K;
+  constexpr int COLS = CHUNK / (int)sizeof(T);  // columns a stage holds
+  const int lane = i & 31, j = (i >> 5) % nt, step = (i >> 5) / nt;
+  const int kc = step / KS, m = step % KS;
+  const int n = j * 8 + (lane >> 2);
+  const int col = kc * COLS + slot_col<T>(m, lane & 3);
+  return make_uint2(pack_bf16(q, n, col, B, H), pack_bf16(q, n, col + 2, B, H));
+}
+
+// Build the query fragments of q [B, H] bf16 into qf, resident (the
+// shared-memory route). Every thread calls it; the caller's first barrier
 // orders it before any read.
 template <typename T>
 __device__ __forceinline__ void load_query_frags(const __nv_bfloat16* __restrict__ q, int B,
                                                  int H, int nchunks, int nt, uint2* qf) {
-  constexpr int KS = Steps<T>::K;
-  constexpr int COLS = CHUNK / (int)sizeof(T);  // columns a stage holds
-  const int total = nchunks * KS * nt * 32;
-  for (int i = threadIdx.x; i < total; i += THREADS) {
-    const int lane = i & 31, j = (i >> 5) % nt, step = (i >> 5) / nt;
-    const int kc = step / KS, m = step % KS;
-    const int n = j * 8 + (lane >> 2);
-    const int col = kc * COLS + slot_col<T>(m, lane & 3);
-    qf[i] = make_uint2(pack_bf16(q, n, col, B, H), pack_bf16(q, n, col + 2, B, H));
-  }
+  const int total = nchunks * Steps<T>::K * nt * 32;
+  for (int i = threadIdx.x; i < total; i += THREADS) qf[i] = query_frag<T>(q, B, H, nt, i);
+}
+
+// The same fragments into qf in device memory, once a call, for a scan
+// whose fragments ride the ring: one thread a fragment.
+template <typename T, int NT>
+__global__ void __launch_bounds__(256) pack_query_frags(const __nv_bfloat16* __restrict__ q,
+                                                        int B, int H, int nchunks,
+                                                        uint2* __restrict__ qf) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < nchunks * Steps<T>::K * NT * 32) qf[i] = query_frag<T>(q, B, H, NT, i);
 }
 
 // The s8 query fragments of q [B, H] int8 into qf: for lane (g, t) of
@@ -290,22 +330,28 @@ __global__ void __launch_bounds__(256) split_query_frags(const float* __restrict
     qf[((size_t)(step * PIECES + p) * NT + j) * 32 + lane] = make_uint2(b0[p], b1[p]);
 }
 
-// Launch split_query_frags for an f32 scan at width H; returns
-// cudaGetLastError().
-template <int NT>
-int launch_split_query_frags(const float* q, int B, int H, uint2* qf, cudaStream_t stream) {
-  const int nchunks = chunks_of(H * (int)sizeof(float));
-  const int total = nchunks * Steps<float>::K * NT * 32;
-  split_query_frags<NT><<<(total + 255) / 256, 256, 0, stream>>>(q, B, H, nchunks, qf);
+// Write the query fragments of a T scan at width H whose fragments ride
+// the ring into qf, once a call: split_query_frags on the f32 path (q f32),
+// else pack_query_frags (q bf16). Returns cudaGetLastError().
+template <typename T, int NT>
+int launch_query_frags(const void* q, int B, int H, uint2* qf, cudaStream_t stream) {
+  const int nchunks = chunks_of(H * (int)sizeof(T));
+  const int total = nchunks * Steps<T>::K * NT * 32;
+  if constexpr (kSplit<T>)
+    split_query_frags<NT><<<(total + 255) / 256, 256, 0, stream>>>(
+        static_cast<const float*>(q), B, H, nchunks, qf);
+  else
+    pack_query_frags<T, NT><<<(total + 255) / 256, 256, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(q), B, H, nchunks, qf);
   return (int)cudaGetLastError();
 }
 
-// Stage kc's query fragments (qf as split_query_frags wrote it) into dst,
+// Stage kc's query fragments (qf as launch_query_frags wrote it) into dst,
 // after the stage's rows. Every thread of the block calls it, beside stage.
-template <int NT>
+template <typename T, int NT>
 __device__ __forceinline__ void stage_query_frags(const uint2* __restrict__ qf, int kc,
                                                   unsigned char* dst) {
-  constexpr int BYTES = (int)qfrag_bytes(1, Steps<float>::K * PIECES, NT);
+  constexpr int BYTES = frag_stage_bytes<T>(NT);
   const unsigned char* src = reinterpret_cast<const unsigned char*>(qf) + (size_t)kc * BYTES;
   for (int i = threadIdx.x; i < BYTES / 16; i += THREADS)
     cp_async16_zfill(dst + i * 16, src + i * 16, 16);
@@ -473,20 +519,22 @@ __device__ __forceinline__ int live_steps<S8>(int kc, int row_bytes) {
 
 // Scores the block's `tiles` tiles of 128 rows (the i-th from row
 // row0_of(i)) against the query fragments qf, streaming each through a ring
-// of `stages` (2-4; the s8 scan's 2-8) buffers of stage_bytes<T>: the
+// of `stages` (2-4; the s8 scan's 2-8) buffers of stage_bytes<T, RING>: the
 // copies of the next stages (across tile boundaries) are in flight while
 // the current one is multiplied, one barrier a stage. qf: the fragments of
-// every stage, in shared memory; on the f32 path, in device memory
-// (split_query_frags), each stage's copied into its buffer of the ring
-// beside the rows. After a tile's last stage it calls done(row0, acc) with
-// the tile's scores (f32, int32 on the s8 path; acc_row / acc_col place
-// them). Every thread of the block calls it; done may hold barriers.
-template <typename T, int NT, typename RowOf, typename Done>
+// every stage, resident in shared memory; where they ride the ring (RING,
+// always on the f32 path), in device memory (launch_query_frags), each
+// stage's copied into its buffer of the ring beside the rows. After a
+// tile's last stage it calls done(row0, acc) with the tile's scores (f32,
+// int32 on the s8 path; acc_row / acc_col place them). Every thread of the
+// block calls it; done may hold barriers.
+template <typename T, int NT, bool RING = kSplit<T>, typename RowOf, typename Done>
 __device__ __forceinline__ void scan_tiles(const T* __restrict__ docs, int H, int stages,
                                            long long tiles, RowOf row0_of, unsigned char* ring,
                                            const uint2* qf, Done done) {
+  static_assert(RING || !kSplit<T>, "the f32 path's query fragments ride the ring");
   constexpr int KS = Steps<T>::K;
-  constexpr int SB = stage_bytes<T>(NT);
+  constexpr int SB = stage_bytes<T, RING>(NT);
   const int row_bytes = H * (int)sizeof(T);
   const int nck = chunks_of(row_bytes);
   const long long items = tiles * nck;  // (tile, stage) pairs, in order
@@ -495,7 +543,7 @@ __device__ __forceinline__ void scan_tiles(const T* __restrict__ docs, int H, in
     if (item < items) {
       unsigned char* buf = ring + (item % stages) * SB;
       stage(base, row0_of(item / nck), (int)(item % nck), row_bytes, buf);
-      if constexpr (kSplit<T>) stage_query_frags<NT>(qf, (int)(item % nck), buf + STAGE_BYTES);
+      if constexpr (RING) stage_query_frags<T, NT>(qf, (int)(item % nck), buf + STAGE_BYTES);
     }
     recur_chain::cp_async_commit();  // an empty group past the end keeps the count
   };
@@ -515,23 +563,24 @@ __device__ __forceinline__ void scan_tiles(const T* __restrict__ docs, int H, in
           for (int e = 0; e < 4; ++e) acc[st][j][e] = 0;
     }
     const unsigned char* buf = ring + (it % stages) * SB;
+    const uint2* qf_stage = RING ? reinterpret_cast<const uint2*>(buf + STAGE_BYTES)
+                                 : qf + (size_t)kc * KS * NT * 32;
     if constexpr (kSplit<T>)
-      score_stage_f32<NT>(buf, reinterpret_cast<const uint2*>(buf + STAGE_BYTES),
-                          live_steps<T>(kc, row_bytes), acc);
+      score_stage_f32<NT>(buf, qf_stage, live_steps<T>(kc, row_bytes), acc);
     else
-      score_stage<T, NT>(buf, qf + (size_t)kc * KS * NT * 32, live_steps<T>(kc, row_bytes), acc);
+      score_stage<T, NT>(buf, qf_stage, live_steps<T>(kc, row_bytes), acc);
     if (kc == nck - 1) done(row0_of(it / nck), acc);
   }
   recur_chain::cp_async_wait<0>();
 }
 
-// Shared memory of the ring and (but on the f32 path, whose fragments ride
-// the ring) the query fragments of a T scan at width H.
-template <typename T>
+// Shared memory of the ring and (unless they ride it: RING) the resident
+// query fragments of a T scan at width H.
+template <typename T, bool RING = kSplit<T>>
 __host__ __device__ constexpr size_t scan_smem(int stages, int H, int nt) {
-  return kSplit<T> ? (size_t)stages * stage_bytes<T>(nt)
-                   : (size_t)stages * STAGE_BYTES +
-                         qfrag_bytes(chunks_of(H * (int)sizeof(T)), Steps<T>::K, nt);
+  return RING ? (size_t)stages * stage_bytes<T, true>(nt)
+              : (size_t)stages * STAGE_BYTES +
+                    qfrag_bytes(chunks_of(H * (int)sizeof(T)), Steps<T>::K, nt);
 }
 
 }  // namespace doc_mma

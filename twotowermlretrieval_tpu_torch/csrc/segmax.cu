@@ -34,7 +34,13 @@
 // f32 path": within 2^-23 (1 + 2^-7) sum_k |q_k d_k| of the exact product
 // before the f32 sum's own rounding), their query fragments split once a
 // call by a first small launch and carried through the ring stage by
-// stage, so one pass over the corpus takes every width.
+// stage, so one pass over the corpus takes every width. bf16 and per-row
+// int8 scans keep their query fragments resident in shared memory where
+// that fits beside two blocks a SM (the served width), and elsewhere take
+// the same ring route (RING): packed once a call by a first small launch
+// (doc_mma.cuh pack_query_frags) and carried beside each stage's rows, so
+// 32 queries at every tower width take one pass, bit for bit the resident
+// route's scores.
 
 #include "doc_mma.cuh"
 
@@ -44,32 +50,35 @@ using doc_mma::ROWS;
 constexpr int SEG = ROWS;  // rows per segment
 constexpr float NEG_INF = -3.0e38f;
 
-// Shared memory of segmax_mma_kernel: the ring, the query fragments (but
-// f32's, which ride the ring) and the warps' column maxima (ops/topk.py
-// scan_plan mirrors it).
-template <typename T, int NT>
+// Shared memory of segmax_mma_kernel: the ring, the query fragments
+// (unless they ride the ring: RING) and the warps' column maxima
+// (ops/topk.py scan_plan mirrors it).
+template <typename T, int NT, bool RING>
 size_t mma_smem(int stages, int H) {
-  return doc_mma::scan_smem<T>(stages, H, NT) + (size_t)doc_mma::WARPS * NT * 8 * sizeof(float);
+  return doc_mma::scan_smem<T, RING>(stages, H, NT) +
+         (size_t)doc_mma::WARPS * NT * 8 * sizeof(float);
 }
 
 // bf16 (T = bf16) or per-row int8 (T = int8_t, scales [Npad]) docs with
-// bf16 queries q, or f32 docs (T = float) with the query fragments qsplit
-// (split_query_frags); NT = ceil(B / 8) n8 tiles of queries.
-template <typename T, int NT>
+// bf16 queries q, or f32 docs (T = float); NT = ceil(B / 8) n8 tiles of
+// queries. RING (always with f32): the query fragments qring in device
+// memory (launch_query_frags) ride the ring; else each block builds them
+// from q into shared memory.
+template <typename T, int NT, bool RING>
 __global__ void __launch_bounds__(doc_mma::THREADS, 4) segmax_mma_kernel(
     int B, int H, long long S, long long n_valid, int stages, const __nv_bfloat16* __restrict__ q,
-    const uint2* __restrict__ qsplit, const T* __restrict__ docs,
+    const uint2* __restrict__ qring, const T* __restrict__ docs,
     const float* __restrict__ scales, float* __restrict__ segmax, float* __restrict__ cache) {
   using namespace doc_mma;
   constexpr int NC = NT * 8;  // query columns the fragments hold
   extern __shared__ __align__(128) unsigned char smem[];
   const int nck = chunks_of(H * (int)sizeof(T));
-  unsigned char* ring = smem;  // [stages][stage_bytes<T>(NT)]
-  unsigned char* after = smem + (size_t)stages * stage_bytes<T>(NT);
-  uint2* qf = reinterpret_cast<uint2*>(after);  // [nck * K][NT][32], but f32's ride the ring
+  unsigned char* ring = smem;  // [stages][stage_bytes<T, RING>(NT)]
+  unsigned char* after = smem + (size_t)stages * stage_bytes<T, RING>(NT);
+  uint2* qf = reinterpret_cast<uint2*>(after);  // [nck * K][NT][32], unless they ride the ring
   float* red = reinterpret_cast<float*>(  // [WARPS][NC]
-      after + (kSplit<T> ? 0 : qfrag_bytes(nck, Steps<T>::K, NT)));
-  if constexpr (kSplit<T>) qf = const_cast<uint2*>(qsplit);
+      after + (RING ? 0 : qfrag_bytes(nck, Steps<T>::K, NT)));
+  if constexpr (RING) qf = const_cast<uint2*>(qring);
   else load_query_frags<T>(q, B, H, nck, NT, qf);
 
   const long long first = blockIdx.x, step = gridDim.x;
@@ -124,7 +133,7 @@ __global__ void __launch_bounds__(doc_mma::THREADS, 4) segmax_mma_kernel(
     }
     // the next stage's barrier orders these reads of red before its writes
   };
-  scan_tiles<T, NT>(docs, H, stages, segs, row0_of, ring, qf, done);
+  scan_tiles<T, NT, RING>(docs, H, stages, segs, row0_of, ring, qf, done);
 }
 
 int allow_smem(const void* kernel, size_t smem) {
@@ -135,17 +144,16 @@ int allow_smem(const void* kernel, size_t smem) {
   return (int)e;
 }
 
-template <typename T, int NT>
+template <typename T, int NT, bool RING>
 int launch_mma(int B, int H, long long npad, long long n_valid, int stages, int blocks,
                const void* q, const void* docs, const float* scales, float* segmax, float* cache,
                void* qf, cudaStream_t stream) {
-  auto kernel = segmax_mma_kernel<T, NT>;
-  const size_t smem = mma_smem<T, NT>(stages, H);
+  auto kernel = segmax_mma_kernel<T, NT, RING>;
+  const size_t smem = mma_smem<T, NT, RING>(stages, H);
   if (smem > (size_t)recur_chain::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   if (const int e = allow_smem((const void*)kernel, smem)) return e;
-  if constexpr (doc_mma::kSplit<T>) {
-    const int e = doc_mma::launch_split_query_frags<NT>(static_cast<const float*>(q), B, H,
-                                                        static_cast<uint2*>(qf), stream);
+  if constexpr (RING) {
+    const int e = doc_mma::launch_query_frags<T, NT>(q, B, H, static_cast<uint2*>(qf), stream);
     if (e) return e;
   }
   kernel<<<blocks, doc_mma::THREADS, smem, stream>>>(
@@ -155,12 +163,13 @@ int launch_mma(int B, int H, long long npad, long long n_valid, int stages, int 
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool RING>
 int dispatch_mma(int B, int H, long long npad, long long n_valid, int stages, int blocks,
                  const void* q, const void* docs, const float* scales, float* segmax,
                  float* cache, void* qf, cudaStream_t s) {
-#define SEGMAX_MMA(NT) \
-  launch_mma<T, NT>(B, H, npad, n_valid, stages, blocks, q, docs, scales, segmax, cache, qf, s)
+#define SEGMAX_MMA(NT)                                                                    \
+  launch_mma<T, NT, RING>(B, H, npad, n_valid, stages, blocks, q, docs, scales, segmax, cache, \
+                          qf, s)
   switch ((B + 7) / 8) {
     case 1: return SEGMAX_MMA(1);
     case 2: return SEGMAX_MMA(2);
@@ -168,6 +177,19 @@ int dispatch_mma(int B, int H, long long npad, long long n_valid, int stages, in
     default: return SEGMAX_MMA(4);
   }
 #undef SEGMAX_MMA
+}
+
+// bf16 and int8 rows: RING where the wrapper passes a workspace for the
+// packed query fragments
+template <typename T>
+int dispatch_route(int B, int H, long long npad, long long n_valid, int stages, int blocks,
+                 const void* q, const void* docs, const float* scales, float* segmax,
+                 float* cache, void* qf, cudaStream_t s) {
+  return qf != nullptr
+             ? dispatch_mma<T, true>(B, H, npad, n_valid, stages, blocks, q, docs, scales, segmax,
+                                     cache, qf, s)
+             : dispatch_mma<T, false>(B, H, npad, n_valid, stages, blocks, q, docs, scales,
+                                      segmax, cache, qf, s);
 }
 
 }  // namespace
@@ -179,18 +201,21 @@ extern "C" {
 // multiple of 16 bytes' worth of the storage dtype; npad a multiple of 128;
 // cache [npad, B] f32 or null (not with int8). stages (2-4) and blocks (the
 // grid) come from ops/topk.py scan_plan; a layout beyond a block's shared
-// memory is refused. qf: f32 only, a workspace of ceil(H / 32) * 6 *
-// ceil(B / 8) * 256 bytes for the split query fragments (a first launch
-// writes them), else null. device: the CUDA ordinal the tensors live on
-// (this library carries its own runtime, whose current device is not
-// PyTorch's). Returns cudaGetLastError() after the launches (0 on success).
+// memory is refused. qf: a workspace for the query fragments that ride the
+// ring (a first launch writes them): f32 always, ceil(H / 32) * 6 * ceil(B
+// / 8) * 256 bytes (three split pieces); bf16 and int8 where the plan's
+// fragments ride the ring, ceil(H * elem / 128) * (4 bf16, 8 int8) *
+// ceil(B / 8) * 256 bytes; null where they stay resident. device: the CUDA
+// ordinal the tensors live on (this library carries its own runtime, whose
+// current device is not PyTorch's). Returns cudaGetLastError() after the
+// launches (0 on success).
 int segmax_launch(int device, int storage, int B, int H, long long npad, long long n_valid,
                   int stages, int blocks, const void* q, const void* docs, const float* scales,
                   float* segmax, float* cache, void* qf, void* stream) {
   const int elem = storage == 0 ? 4 : storage == 1 ? 2 : 1;
   if (storage < 0 || storage > 2 || B < 1 || B > 32 || H < 1 || npad % SEG != 0 ||
       (H * elem) % 16 != 0 || blocks < 1 || (storage == 2) != (scales != nullptr) ||
-      (storage == 2 && cache != nullptr) || (storage == 0) != (qf != nullptr) || stages < 2 ||
+      (storage == 2 && cache != nullptr) || (storage == 0 && qf == nullptr) || stages < 2 ||
       stages > 4)
     return (int)cudaErrorInvalidValue;
   if (npad == 0) return 0;
@@ -198,13 +223,13 @@ int segmax_launch(int device, int storage, int B, int H, long long npad, long lo
   if (set != cudaSuccess) return (int)set;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (storage == 1)
-    return dispatch_mma<__nv_bfloat16>(B, H, npad, n_valid, stages, blocks, q, docs, nullptr,
-                                       segmax, cache, nullptr, s);
+    return dispatch_route<__nv_bfloat16>(B, H, npad, n_valid, stages, blocks, q, docs, nullptr,
+                                         segmax, cache, qf, s);
   if (storage == 2)
-    return dispatch_mma<int8_t>(B, H, npad, n_valid, stages, blocks, q, docs, scales, segmax,
-                                nullptr, nullptr, s);
-  return dispatch_mma<float>(B, H, npad, n_valid, stages, blocks, q, docs, nullptr, segmax,
-                             cache, qf, s);
+    return dispatch_route<int8_t>(B, H, npad, n_valid, stages, blocks, q, docs, scales, segmax,
+                                  nullptr, qf, s);
+  return dispatch_mma<float, true>(B, H, npad, n_valid, stages, blocks, q, docs, nullptr, segmax,
+                                   cache, qf, s);
 }
 
 const char* segmax_error_string(int err) {

@@ -25,7 +25,10 @@
 // multiplied): bf16 and per-row int8 rows as bf16, f32 rows split into
 // three bf16 pieces with six products (doc_mma.cuh, "The f32 path"), their
 // query fragments split once a call by a first small launch and carried
-// through the ring. Per query row the block keeps its best k
+// through the ring; bf16 and int8 query fragments stay resident in shared
+// memory where that fits beside two blocks a SM, else ride the ring too
+// (RING: packed once a call by the first launch), so 32 queries at every
+// tower width take one pass. Per query row the block keeps its best k
 // keys sorted in shared memory. A tile's key enters a list of new keys (a
 // shared counter) only if it is strictly above the row's threshold:
 // the larger of the block's own k-th key and a per-row threshold shared by
@@ -313,24 +316,26 @@ struct Lists {
 // query row, into cand [chunks][B][k]; the tiles are every stride-th of the
 // corpus (1: all of them; a pilot's sample: more). Each tile is scored on
 // the tensor cores (doc_mma.cuh): bf16 (T = bf16) or per-row int8 (T =
-// int8_t, scales [npad]) rows with bf16 queries q, or f32 rows (T = float)
-// with the query fragments qsplit (split_query_frags); NT = ceil(B / 8).
-template <typename T, int NT>
+// int8_t, scales [npad]) rows with bf16 queries q, or f32 rows (T =
+// float); NT = ceil(B / 8). RING (always with f32): the query fragments
+// qring in device memory (launch_query_frags) ride the ring; else each
+// block builds them from q into shared memory.
+template <typename T, int NT, bool RING>
 __global__ void __launch_bounds__(doc_mma::THREADS, 3) topk_chunk_mma_kernel(
     int B, int H, int k, long long npad, long long n_valid, int tiles_per_chunk, int stride,
-    int stages, const __nv_bfloat16* __restrict__ q, const uint2* __restrict__ qsplit,
+    int stages, const __nv_bfloat16* __restrict__ q, const uint2* __restrict__ qring,
     const T* __restrict__ docs, const float* __restrict__ scales, u64* __restrict__ thr,
     u64* __restrict__ cand) {
   using namespace doc_mma;
   extern __shared__ __align__(128) unsigned char smem[];
   const int nck = chunks_of(H * (int)sizeof(T));
-  unsigned char* ring = smem;  // [stages][stage_bytes<T>(NT)]
-  unsigned char* after = smem + (size_t)stages * stage_bytes<T>(NT);
-  uint2* qf = reinterpret_cast<uint2*>(after);  // [nck * K][NT][32], but f32's ride the ring
+  unsigned char* ring = smem;  // [stages][stage_bytes<T, RING>(NT)]
+  unsigned char* after = smem + (size_t)stages * stage_bytes<T, RING>(NT);
+  uint2* qf = reinterpret_cast<uint2*>(after);  // [nck * K][NT][32], unless they ride the ring
   Lists lists;
-  lists.carve(after + (kSplit<T> ? 0 : qfrag_bytes(nck, Steps<T>::K, NT)), B, k);
+  lists.carve(after + (RING ? 0 : qfrag_bytes(nck, Steps<T>::K, NT)), B, k);
   lists.init(B, k, thr);
-  if constexpr (kSplit<T>) qf = const_cast<uint2*>(qsplit);
+  if constexpr (RING) qf = const_cast<uint2*>(qring);
   else load_query_frags<T>(q, B, H, nck, NT, qf);
 
   const long long first = (long long)blockIdx.x * tiles_per_chunk;
@@ -376,7 +381,7 @@ __global__ void __launch_bounds__(doc_mma::THREADS, 3) topk_chunk_mma_kernel(
     }
     lists.close_tile(B, k, thr);
   };
-  scan_tiles<T, NT>(docs, H, stages, tiles, row0_of, ring, qf, done);
+  scan_tiles<T, NT, RING>(docs, H, stages, tiles, row0_of, ring, qf, done);
   __syncthreads();
   lists.write(B, k, cand);
 }
@@ -432,10 +437,10 @@ __global__ void __launch_bounds__(MERGE_THREADS) topk_merge_kernel(
 }
 
 // Shared memory of launch 1 (ops/topk.py scan_plan mirrors it): the ring,
-// the query fragments (but f32's, which ride the ring) and the lists.
-template <typename T, int NT>
+// the query fragments (unless they ride the ring: RING) and the lists.
+template <typename T, int NT, bool RING>
 size_t mma_smem(int stages, int B, int H, int k) {
-  return doc_mma::scan_smem<T>(stages, H, NT) + Lists::bytes(B, k);
+  return doc_mma::scan_smem<T, RING>(stages, H, NT) + Lists::bytes(B, k);
 }
 
 int allow_smem(const void* kernel, size_t smem) {
@@ -482,14 +487,13 @@ int run(const Args& a, Chunk chunk) {
   return 0;
 }
 
-template <typename T, int NT>
+template <typename T, int NT, bool RING>
 int launch_mma(const Args& a) {
-  auto kernel = topk_chunk_mma_kernel<T, NT>;
-  const size_t smem = mma_smem<T, NT>(a.stages, a.B, a.H, a.k);
+  auto kernel = topk_chunk_mma_kernel<T, NT, RING>;
+  const size_t smem = mma_smem<T, NT, RING>(a.stages, a.B, a.H, a.k);
   if (const int e = allow_smem((const void*)kernel, smem)) return e;
-  if constexpr (doc_mma::kSplit<T>) {
-    const int e = doc_mma::launch_split_query_frags<NT>(static_cast<const float*>(a.q), a.B,
-                                                        a.H, a.qf, a.stream);
+  if constexpr (RING) {
+    const int e = doc_mma::launch_query_frags<T, NT>(a.q, a.B, a.H, a.qf, a.stream);
     if (e) return e;
   }
   return run(a, [&](int blocks, int per, int stride) {
@@ -500,14 +504,21 @@ int launch_mma(const Args& a) {
   });
 }
 
-template <typename T>
+template <typename T, bool RING>
 int dispatch_mma(const Args& a) {
   switch ((a.B + 7) / 8) {
-    case 1: return launch_mma<T, 1>(a);
-    case 2: return launch_mma<T, 2>(a);
-    case 3: return launch_mma<T, 3>(a);
-    default: return launch_mma<T, 4>(a);
+    case 1: return launch_mma<T, 1, RING>(a);
+    case 2: return launch_mma<T, 2, RING>(a);
+    case 3: return launch_mma<T, 3, RING>(a);
+    default: return launch_mma<T, 4, RING>(a);
   }
+}
+
+// bf16 and int8 rows: RING where the wrapper passes a workspace for the
+// packed query fragments
+template <typename T>
+int dispatch_route(const Args& a) {
+  return a.qf != nullptr ? dispatch_mma<T, true>(a) : dispatch_mma<T, false>(a);
 }
 
 }  // namespace
@@ -523,11 +534,13 @@ extern "C" {
 // refused. pilot_stride > 1 first runs both launches over every
 // pilot_stride-th tile (pilot_tiles_per_chunk a block), whose k-th key
 // seeds the shared thresholds. thr: B 64-bit keys, zero; cand: a workspace
-// of the larger grid * B * k 64-bit keys; qf: f32 only, a workspace of
-// ceil(H / 32) * 6 * ceil(B / 8) * 256 bytes for the split query fragments
-// (a first launch writes them), else null. device: the CUDA ordinal the
-// tensors live on. Returns cudaGetLastError() after the launches (0 on
-// success).
+// of the larger grid * B * k 64-bit keys; qf: a workspace for the query
+// fragments that ride the ring (a first launch writes them): f32 always,
+// ceil(H / 32) * 6 * ceil(B / 8) * 256 bytes (three split pieces); bf16 and
+// int8 where the plan's fragments ride the ring, ceil(H * elem / 128) * (4
+// bf16, 8 int8) * ceil(B / 8) * 256 bytes; null where they stay resident.
+// device: the CUDA ordinal the tensors live on. Returns cudaGetLastError()
+// after the launches (0 on success).
 int topk_stream_launch(int device, int storage, int B, int H, int k, long long npad,
                        long long n_valid, int tiles_per_chunk, int stages, int pilot_stride,
                        int pilot_tiles_per_chunk, const void* q, const void* docs,
@@ -538,7 +551,7 @@ int topk_stream_launch(int device, int storage, int B, int H, int k, long long n
       (H * elem) % 16 != 0 || npad < ROWS || npad % ROWS != 0 || npad >= (1ll << 31) ||
       tiles_per_chunk < 1 || pilot_stride < 1 ||
       (pilot_stride > 1 && pilot_tiles_per_chunk < 1) || (storage == 2) != (scales != nullptr) ||
-      (storage == 0) != (qf != nullptr) || stages < 2 || stages > 4)
+      (storage == 0 && qf == nullptr) || stages < 2 || stages > 4)
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
@@ -546,9 +559,9 @@ int topk_stream_launch(int device, int storage, int B, int H, int k, long long n
                pilot_tiles_per_chunk, q, docs, scales,
                static_cast<u64*>(thr), static_cast<u64*>(cand), vals, ids,
                static_cast<uint2*>(qf), static_cast<cudaStream_t>(stream)};
-  if (storage == 1) return dispatch_mma<__nv_bfloat16>(a);
-  if (storage == 2) return dispatch_mma<int8_t>(a);
-  return dispatch_mma<float>(a);
+  if (storage == 1) return dispatch_route<__nv_bfloat16>(a);
+  if (storage == 2) return dispatch_route<int8_t>(a);
+  return dispatch_mma<float, true>(a);
 }
 
 const char* topk_stream_error_string(int err) {

@@ -162,11 +162,6 @@ def _block_queries(fn, queries, *args, **kwargs):
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
-def _cat_columns(parts):
-    """Join per-block [.., b] results along the query axis (one block: as is)."""
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-
-
 def _pad_docs(docs: torch.Tensor, tile_n: int, *extra: Tuple[torch.Tensor, float]):
     """Zero-pad rows to a multiple of ``tile_n`` (a no-op for the serving
     index, which pads once); ``extra`` pairs (per-row or per-segment
@@ -290,6 +285,7 @@ def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # the C launchers' codes
+_ELEM = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _SM_SMEM = 233_472  # bytes of shared memory a SM holds for its blocks
 _BLOCK_RESERVED = 1_024  # of which the card reserves this much a block
@@ -297,80 +293,108 @@ _STAGE_BYTES = 128 * 128  # a stage of the ring: 128 bytes of each of a tile's 1
 # the kernels' __launch_bounds__ minimum blocks a SM, which they keep
 # registers for: segmax four, the running top-k three (its merges hold more)
 _SEGMAX_BLOCKS_PER_SM, _TOPK_BLOCKS_PER_SM = 4, 3
-# The f32 route (csrc/doc_mma.cuh): a stage of 128 bytes (32 f32 columns,
-# two k16 steps) carries its query fragments beside its rows, a uint2 a
-# (k16 step, one of three pieces, n8 tile, lane).
-_F32_QFRAG_STAGE = 2 * 3 * 32 * 8
-# Its shared memory does not grow with H; the plans stop at 65,536, about
-# 20 times the widest tower the port trains (the query fragments then take
-# 12 MiB of device memory at 32 rows).
-_F32_MAX_H = 1 << 16
+# Query fragments (csrc/doc_mma.cuh): a uint2 a (k16 step, n8 tile, lane),
+# three of them (bf16 pieces) on the f32 route, whose stage of 128 bytes
+# holds 32 columns (two k16 steps); bf16 stages hold four k16 steps, int8 ones
+# eight.
+_FRAG_PIECES = {torch.float32: 3, torch.bfloat16: 1, torch.int8: 1}
+# Where the fragments ride the ring (always at f32), a block's shared memory
+# does not grow with H; the plans stop at 65,536, about 20 times the widest
+# tower the port trains (the fragments then take 12 MiB of device memory at
+# 32 f32 rows, 4 MiB at bf16 or int8).
+_RING_MAX_H = 1 << 16
+# bf16 and int8 fragments stay resident in shared memory where that leaves
+# this many blocks a SM (or as many as the ring route would): one block
+# reduces or merges while another streams.
+_RESIDENT_MIN_BLOCKS = 2
 
 
 def _up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def _frag_stage_bytes(storage: torch.dtype, nt: int) -> int:
+    """Bytes of one stage's query fragments (``frag_stage_bytes`` in
+    csrc/doc_mma.cuh)."""
+    return 128 // _ELEM[storage] // 16 * _FRAG_PIECES[storage] * nt * 32 * 8
+
+
+def scan_layouts(B: int, H: int, storage: torch.dtype, k: int | None = None) -> list:
+    """Every layout ``csrc/segmax.cu`` (``k`` None) or launch 1 of
+    ``csrc/topk_stream.cu`` (the running top-k with ``k`` keys a row) can
+    take for B query rows of width H over a ``storage`` corpus: each route of
+    the query fragments (``query_frags``: "shared memory", resident, for bf16
+    and int8; "ring", riding the ring beside each stage's rows, for every
+    storage) and each ring depth (``stages`` 4, 3, 2) that fits a block's
+    shared memory, as plans (see :func:`scan_plan`), with ``blocks_per_sm``
+    the most a SM holds by their bytes. Empty where the kernels do not take
+    the shape."""
+    elem = _ELEM[storage]
+    if not 1 <= B <= _MAX_KERNEL_B or not 1 <= H <= _RING_MAX_H or (H * elem) % 16:
+        return []
+    nt = -(-B // 8)
+    chunks = -(-H * elem // 128)
+    # the running top-k's lists: kept [2][B][k], fresh [B][128], thresholds
+    # [B] (64-bit keys) and counts [B]; segmax: the 4 warps' column maxima
+    extra = 4 * nt * 8 * 4 if k is None else B * (2 * k + 129) * 8 + _up(4 * B, 16)
+    frag = _frag_stage_bytes(storage, nt)
+    routes = [("ring", _STAGE_BYTES + frag, 0)]
+    if storage != torch.float32:
+        routes.insert(0, ("shared memory", _STAGE_BYTES, chunks * frag))
+    out = []
+    for route, stage, resident in routes:
+        for stages in (4, 3, 2):
+            smem = stages * stage + resident + extra
+            if smem > _SMEM_LIMIT:
+                continue
+            plan = {"route": "mma", "nt": nt, "chunks": chunks, "stages": stages,
+                    "k_tail": chunks * 128 // elem - H, "smem": smem, "query_frags": route}
+            if route == "ring":
+                plan.update(stage_bytes=stage, query_frag_bytes=chunks * frag)
+            plan["blocks_per_sm"] = _per_sm(smem, k)
+            out.append(plan)
+    return out
+
+
 def scan_plan(B: int, H: int, storage: torch.dtype, k: int | None = None):
     """The layout ``csrc/segmax.cu`` (``k`` None) or launch 1 of
     ``csrc/topk_stream.cu`` (the running top-k with ``k`` keys a row)
     takes for B query rows of width H over a ``storage`` corpus, or None
-    where none fits a block's shared memory.
+    where the kernels do not take the shape (H past ``_RING_MAX_H``).
 
     Every storage dtype takes ``route`` "mma" (doc_mma.cuh): tensor-core
-    tiles of 128 rows fed by a ring of ``stages`` cp.async buffers of 128
-    bytes a row (4, 3 or 2), ``nt`` n8 tiles of queries, ``chunks`` stages
-    of columns a row, ``k_tail`` zero columns past H in the last stage.
-    bf16 and int8 take the most stages that leave two blocks a SM, else the
-    most that fit, and keep their query fragments in shared memory
-    (``query_frags``); f32 takes the most blocks a SM, then the deepest
-    ring they leave room for. f32 rows are split into three bf16 pieces in
-    registers; their query fragments (three pieces of each) are split once
-    a call into device memory (``query_frag_bytes``, the workspace the
-    wrapper allocates) and ride the ring, each stage's beside its rows
-    (``stage_bytes``), so an f32 plan's shared memory does not grow with H
-    and one pass takes every width up to ``_F32_MAX_H``. ``smem``: bytes a
-    block, region by region as the .cu files lay them out;
-    ``blocks_per_sm``: the blocks a SM holds by that (at most four for
-    segmax, three for the running top-k: what the kernels' launch bounds
+    tiles of 128 rows fed by a ring of ``stages`` cp.async buffers (4, 3 or
+    2), ``nt`` n8 tiles of queries, ``chunks`` stages of columns a row,
+    ``k_tail`` zero columns past H in the last stage. The query fragments
+    take one of two routes (``query_frags``). bf16 and int8 keep them
+    resident in shared memory ("shared memory") where that leaves
+    ``_RESIDENT_MIN_BLOCKS`` blocks a SM (or as many as the ring route
+    would); elsewhere, and always at f32 (whose rows are split into three
+    bf16 pieces in registers, its fragments three pieces each), they are
+    written once a call into device memory (``query_frag_bytes``, the
+    workspace the wrapper allocates) and ride the ring, each stage's beside
+    its 16 KiB of rows (``stage_bytes``): the plan's shared memory then does
+    not grow with H, so one launch takes 32 query rows at every width up to
+    ``_RING_MAX_H``. Both routes give the same bits. The ring route takes
+    the most blocks a SM, then the deepest ring they leave room for (on the
+    card more blocks beat deeper rings there); the resident route the most
+    stages that keep two blocks a SM, else the most that fit (the served
+    width's layouts; ``tools/bench_f32_scans.py --layouts`` times the
+    others). ``smem``: bytes a block, region by region as the .cu files lay
+    them out; ``blocks_per_sm``: the blocks a SM holds by that (at most four
+    for segmax, three for the running top-k: what the kernels' launch bounds
     keep registers for)."""
-    elem = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[storage]
-    if not 1 <= B <= _MAX_KERNEL_B or H < 1 or (H * elem) % 16:
+    layouts = scan_layouts(B, H, storage, k)
+    ring = [p for p in layouts if p["query_frags"] == "ring"]
+    if not ring:
         return None
-    # the running top-k's lists: kept [2][B][k], fresh [B][128], thresholds
-    # [B] (64-bit keys) and counts [B]
-    lists = 0 if k is None else B * (2 * k + 129) * 8 + _up(4 * B, 16)
-    nt = -(-B // 8)
-    chunks = -(-H * elem // 128)
-    extra = 4 * nt * 8 * 4 if k is None else lists  # segmax: the 4 warps' column maxima
-    if storage == torch.float32:
-        if H > _F32_MAX_H:
-            return None
-        stage, qfrag = _STAGE_BYTES + _F32_QFRAG_STAGE * nt, 0  # the fragments ride the ring
-    else:
-        ksteps = 128 // elem // 16  # k16 steps a stage carries
-        stage, qfrag = _STAGE_BYTES, chunks * ksteps * nt * 32 * 8
-    fits = [s for s in (4, 3, 2) if s * stage + qfrag + extra <= _SMEM_LIMIT]
-    if not fits:
-        return None
-    if storage == torch.float32:
-        # the most blocks a SM, then the deepest ring they leave room for
-        # (as s8_plan): on the card more blocks beat deeper rings here
-        stages = max(fits, key=lambda s: (_per_sm(s * stage + qfrag + extra, k), s))
-    else:
-        # the most stages that keep two blocks a SM (one merges or reduces
-        # while the other streams), else the most that fit
-        two = [s for s in fits if _per_sm(s * stage + qfrag + extra, k) >= 2]
-        stages = (two or fits)[0]
-    plan = {"route": "mma", "nt": nt, "chunks": chunks, "stages": stages,
-            "k_tail": chunks * 128 // elem - H, "smem": stages * stage + qfrag + extra}
-    if storage == torch.float32:
-        plan.update(query_frags="ring", stage_bytes=stage,
-                    query_frag_bytes=chunks * _F32_QFRAG_STAGE * nt)
-    else:
-        plan["query_frags"] = "shared memory"
-    plan["blocks_per_sm"] = _per_sm(plan["smem"], k)
-    return plan
+    ring = max(ring, key=lambda p: (p["blocks_per_sm"], p["stages"]))
+    resident = [p for p in layouts if p["query_frags"] == "shared memory"]
+    if resident:  # listed from the most stages down
+        resident = next((p for p in resident if p["blocks_per_sm"] >= 2), resident[0])
+        if resident["blocks_per_sm"] >= min(_RESIDENT_MIN_BLOCKS, ring["blocks_per_sm"]):
+            return resident
+    return ring
 
 
 def _per_sm(smem: int, k: int | None = None) -> int:
@@ -433,23 +457,11 @@ def s8_max_h(B: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def query_block(H: int, storage: torch.dtype, k: int | None = None) -> int:
-    """The most query rows (at most 32) one launch of ``csrc/segmax.cu``
-    (``k`` None) or of the running top-k takes at width H over a
-    ``storage`` corpus: the largest B whose :func:`scan_plan` fits a
-    block's shared memory; 0 where not even one row fits (H past
-    :func:`scan_max_h`). A plan's bytes grow with B, so every smaller
-    batch fits too."""
-    return next((b for b in range(_MAX_KERNEL_B, 0, -1) if scan_plan(b, H, storage, k)), 0)
-
-
-@functools.lru_cache(maxsize=None)
 def scan_max_h(storage: torch.dtype, k: int | None = None) -> int:
-    """The widest H that :func:`scan_plan` lays out for one query row (the
-    widest any batch takes, in blocks of :func:`query_block` rows; f32:
-    ``_F32_MAX_H`` at every batch)."""
-    step = 16 // {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[storage]
-    lo, hi = 0, 2 * _F32_MAX_H  # scan_plan(1, lo) fits (or lo is 0); hi does not
+    """The widest H that :func:`scan_plan` lays out (at every batch: a ring
+    plan's shared memory does not grow with H)."""
+    step = 16 // _ELEM[storage]
+    lo, hi = 0, 2 * _RING_MAX_H  # scan_plan(1, lo) fits (or lo is 0); hi does not
     while hi - lo > step:
         mid = (lo + hi) // 2 // step * step
         lo, hi = (mid, hi) if scan_plan(1, mid, storage, k) else (lo, mid)
@@ -458,30 +470,22 @@ def scan_max_h(storage: torch.dtype, k: int | None = None) -> int:
 
 def query_blocks(fn: str, B: int, H: int, storage: torch.dtype, k: int | None = None):
     """The launches of a scan of B query rows (1..32) at width H: a list of
-    (first row, rows, plan), the fewest blocks whose plan fits, of near
-    equal size (one block where B rows fit). Each result column depends on
-    its query alone, so the blocked result is bit for bit the one-pass
-    result. Raises a ``ValueError`` naming the widest H before any launch
-    where not even one row fits."""
+    (first row, rows, plan). Every B up to 32 takes one launch at every
+    width up to :func:`scan_max_h` (its query fragments riding the ring
+    where they do not stay resident). Raises a ``ValueError`` naming the
+    widest H before any launch past it."""
     plan = scan_plan(B, H, storage, k)
-    if plan is not None:
-        return [(0, B, plan)]
-    most = query_block(H, storage, k)
-    if not most:
-        why = ("takes" if storage == torch.float32
-               else "fits a block's shared memory at")
-        raise ValueError(f"{fn}: no layout of the kernel {why} B={B} H={H} {storage}"
+    if plan is None:
+        raise ValueError(f"{fn}: no layout of the kernel takes B={B} H={H} {storage}"
                          + ("" if k is None else f" k={k}")
                          + f": it takes H up to {scan_max_h(storage, k)}")
-    n = -(-B // most)
-    sizes = [B // n + (i < B % n) for i in range(n)]
-    starts = [sum(sizes[:i]) for i in range(n)]
-    return [(s, b, scan_plan(b, H, storage, k)) for s, b in zip(starts, sizes)]
+    return [(0, B, plan)]
 
 
 def _query_frag_workspace(plan: dict, device: torch.device) -> torch.Tensor | None:
-    """The device memory an f32 plan's split query fragments take (written
-    by the launch's first kernel), None for the other routes."""
+    """The device memory of a plan's query fragments where they ride the
+    ring (written by the launch's first kernel), None where they stay
+    resident."""
     nbytes = plan.get("query_frag_bytes")
     return None if nbytes is None else torch.empty(nbytes, dtype=torch.uint8, device=device)
 
@@ -523,8 +527,8 @@ def segmax(
     """Phase 1: ([S, B] segment maxima, [Npad, B] scores or None).
 
     ``q`` [B, H] and ``docs`` [Npad, H] share the storage dtype; Npad is a
-    multiple of 128. CUDA tensors launch the kernel (1..32 query rows, one
-    launch a block of :func:`query_blocks`), CPU tensors run
+    multiple of 128. CUDA tensors launch the kernel (1..32 query rows in one
+    launch, :func:`query_blocks`), CPU tensors run
     :func:`segmax_reference`."""
     B, H = q.shape
     npad = docs.shape[0]
@@ -542,23 +546,17 @@ def segmax(
         raise ValueError(f"the kernel takes 1..{_MAX_KERNEL_B} query rows, got {B}")
     if H % (8 if docs.dtype == torch.bfloat16 else 4):
         raise ValueError(f"the kernel needs 16-byte doc rows; H={H} with {docs.dtype}")
-    blocks = query_blocks("segmax", B, H, docs.dtype)
+    ((_, _, plan),) = query_blocks("segmax", B, H, docs.dtype)
     q = q.contiguous()
     _require_cuda("segmax", q, docs)
-    outs, caches = [], []
-    for first, b, plan in blocks:
-        qb = q[first : first + b]
-        out = torch.empty((npad // _SEG, b), dtype=torch.float32, device=docs.device)
-        cache = (torch.empty((npad, b), dtype=torch.float32, device=docs.device)
-                 if with_cache else None)
-        qf = _query_frag_workspace(plan, docs.device)
-        _launch("segmax", "segmax_launch", docs.device, _STORAGE[docs.dtype], b, H, npad,
-                int(n_valid), plan["stages"], _blocks(plan, _sms(docs.device), npad // _SEG),
-                qb.data_ptr(), docs.data_ptr(), None, out.data_ptr(), _ptr(cache), _ptr(qf))
-        segmax.launches += 1
-        outs.append(out)
-        caches.append(cache)
-    return _cat_columns(outs), (_cat_columns(caches) if with_cache else None)
+    out = torch.empty((npad // _SEG, B), dtype=torch.float32, device=docs.device)
+    cache = torch.empty((npad, B), dtype=torch.float32, device=docs.device) if with_cache else None
+    qf = _query_frag_workspace(plan, docs.device)
+    _launch("segmax", "segmax_launch", docs.device, _STORAGE[docs.dtype], B, H, npad,
+            int(n_valid), plan["stages"], _blocks(plan, _sms(docs.device), npad // _SEG),
+            q.data_ptr(), docs.data_ptr(), None, out.data_ptr(), _ptr(cache), _ptr(qf))
+    segmax.launches += 1
+    return out, cache
 
 
 segmax.launches = 0  # kernel launches, counted where the kernel is launched
@@ -586,8 +584,8 @@ def segmax_int8(
     ``(q . v) * scale`` per 128-row segment, rows >= ``n_valid`` NEG_INF.
 
     ``q`` [B, H] bf16, ``doc_values`` [Npad, H] int8, ``doc_scales``
-    [Npad] f32. CUDA tensors launch the kernel (1..32 query rows, one
-    launch a block of :func:`query_blocks`), CPU tensors run
+    [Npad] f32. CUDA tensors launch the kernel (1..32 query rows in one
+    launch, :func:`query_blocks`), CPU tensors run
     :func:`segmax_int8_reference`."""
     B, H = q.shape
     npad = doc_values.shape[0]
@@ -604,20 +602,17 @@ def segmax_int8(
         raise ValueError(f"the kernel takes 1..{_MAX_KERNEL_B} query rows, got {B}")
     if H % 16:
         raise ValueError(f"the kernel needs 16-byte doc rows; H={H} with int8")
-    blocks = query_blocks("segmax_int8", B, H, torch.int8)
+    ((_, _, plan),) = query_blocks("segmax_int8", B, H, torch.int8)
     q = q.contiguous()
     _require_cuda("segmax_int8", q, doc_values, doc_scales)
-    outs = []
-    for first, b, plan in blocks:
-        qb = q[first : first + b]
-        out = torch.empty((npad // _SEG, b), dtype=torch.float32, device=q.device)
-        _launch("segmax", "segmax_launch", q.device, _STORAGE[torch.int8], b, H, npad,
-                int(n_valid), plan["stages"], _blocks(plan, _sms(q.device), npad // _SEG),
-                qb.data_ptr(), doc_values.data_ptr(), doc_scales.data_ptr(), out.data_ptr(),
-                None, None)
-        segmax_int8.launches += 1
-        outs.append(out)
-    return _cat_columns(outs)
+    out = torch.empty((npad // _SEG, B), dtype=torch.float32, device=q.device)
+    qf = _query_frag_workspace(plan, q.device)
+    _launch("segmax", "segmax_launch", q.device, _STORAGE[torch.int8], B, H, npad,
+            int(n_valid), plan["stages"], _blocks(plan, _sms(q.device), npad // _SEG),
+            q.data_ptr(), doc_values.data_ptr(), doc_scales.data_ptr(), out.data_ptr(),
+            None, _ptr(qf))
+    segmax_int8.launches += 1
+    return out
 
 
 segmax_int8.launches = 0
@@ -965,9 +960,8 @@ def topk_segmented_int8(queries, doc_values, doc_scales, k: int = 50, segment: i
 
 
 def _topk_stream_call(wrapper, q, docs, scales, k: int, n_valid: int):
-    """Launch ``csrc/topk_stream.cu`` (chunk kernel + merge kernel) once a
-    block of query rows (:func:`query_blocks`), counting each launch on
-    ``wrapper``."""
+    """Launch ``csrc/topk_stream.cu`` (chunk kernel + merge kernel) once,
+    counting the launch on ``wrapper``."""
     B, H = q.shape
     npad = docs.shape[0]
     if not 1 <= B <= _MAX_KERNEL_B:
@@ -978,28 +972,21 @@ def _topk_stream_call(wrapper, q, docs, scales, k: int, n_valid: int):
         raise ValueError(f"the kernel needs 16-byte doc rows; H={H} with {docs.dtype}")
     if npad % _SEG or not _SEG <= npad < 2 ** 31:
         raise ValueError(f"the kernel needs Npad a multiple of {_SEG} below 2^31, got {npad}")
-    blocks = query_blocks(wrapper.__name__, B, H, docs.dtype, k)
+    ((_, _, plan),) = query_blocks(wrapper.__name__, B, H, docs.dtype, k)
     q = q.contiguous()
     _require_cuda(wrapper.__name__, q, docs, *([] if scales is None else [scales]))
-    parts = []
-    for first, b, plan in blocks:
-        qb = q[first : first + b]
-        grid = topk_stream_grid(plan, b, npad // _SEG, _sms(docs.device))
-        thr = torch.zeros((b,), dtype=torch.int64, device=docs.device)  # the shared thresholds
-        cand = torch.empty((grid["grid"], b, k), dtype=torch.int64, device=docs.device)
-        vals = torch.empty((b, k), dtype=torch.float32, device=docs.device)
-        ids = torch.empty((b, k), dtype=torch.int32, device=docs.device)
-        qf = _query_frag_workspace(plan, docs.device)
-        _launch("topk_stream", "topk_stream_launch", docs.device, _STORAGE[docs.dtype], b, H,
-                k, npad, int(n_valid), grid["per_chunk"], plan["stages"], grid["stride"],
-                grid["pilot_per_chunk"],
-                qb.data_ptr(), docs.data_ptr(), _ptr(scales), thr.data_ptr(), cand.data_ptr(),
-                vals.data_ptr(), ids.data_ptr(), _ptr(qf))
-        wrapper.launches += 1
-        parts.append((vals, ids))
-    if len(parts) == 1:
-        return parts[0]
-    return torch.cat([v for v, _ in parts]), torch.cat([i for _, i in parts])
+    grid = topk_stream_grid(plan, B, npad // _SEG, _sms(docs.device))
+    thr = torch.zeros((B,), dtype=torch.int64, device=docs.device)  # the shared thresholds
+    cand = torch.empty((grid["grid"], B, k), dtype=torch.int64, device=docs.device)
+    vals = torch.empty((B, k), dtype=torch.float32, device=docs.device)
+    ids = torch.empty((B, k), dtype=torch.int32, device=docs.device)
+    qf = _query_frag_workspace(plan, docs.device)
+    _launch("topk_stream", "topk_stream_launch", docs.device, _STORAGE[docs.dtype], B, H, k,
+            npad, int(n_valid), grid["per_chunk"], plan["stages"], grid["stride"],
+            grid["pilot_per_chunk"], q.data_ptr(), docs.data_ptr(), _ptr(scales),
+            thr.data_ptr(), cand.data_ptr(), vals.data_ptr(), ids.data_ptr(), _ptr(qf))
+    wrapper.launches += 1
+    return vals, ids
 
 
 def topk_stream(q: torch.Tensor, docs: torch.Tensor, k: int, n_valid: int):
@@ -1007,8 +994,8 @@ def topk_stream(q: torch.Tensor, docs: torch.Tensor, k: int, n_valid: int):
     over rows < ``n_valid``, descending, ties to the lower id, NEG_INF /
     -1 beyond the valid rows. ``q`` and ``docs`` share the storage dtype
     (bf16 or f32); Npad is a multiple of 128. CUDA tensors launch the
-    kernel (1..32 query rows, one launch a block of :func:`query_blocks`;
-    k <= 128), CPU tensors run :func:`topk_stream_reference`."""
+    kernel (1..32 query rows in one launch, :func:`query_blocks`; k <=
+    128), CPU tensors run :func:`topk_stream_reference`."""
     if q.dtype != docs.dtype or q.device != docs.device or q.shape[1] != docs.shape[1]:
         raise ValueError("q and docs must share dtype, device and width")
     if docs.device.type == "cpu":

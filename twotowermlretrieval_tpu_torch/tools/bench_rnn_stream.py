@@ -9,8 +9,9 @@ step and the rate that gives each SM, the least time the card could take
 (bytes at 3.35 TB/s or operations at 989 TFLOP/s), cuDNN's time for the
 same cell, width and batch (``nn.GRU`` / ``nn.LSTM`` / ``nn.RNN``, forward,
 and forward+backward minus forward, in bf16 where cuDNN takes it, else
-fp16), the largest difference from the plain version, and a SHA-256 of the
-outputs' bytes, so two checkouts' bits can be compared.
+fp16; at f32 compute also cuDNN in f32 with TF32 off, the same function as
+the kernels'), the largest difference from the plain version, and a SHA-256
+of the outputs' bytes, so two checkouts' bits can be compared.
 
     python3 twotowermlretrieval_tpu_torch/tools/bench_rnn_stream.py [CHECKOUT]
         [--layouts] [--out FILE] [--device cuda]
@@ -46,8 +47,9 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 GATES = {"GRU": 3, "LSTM": 4, "RNN": 1}
 # (pass, cell, H, B, T, compute dtype): the reference towers at twice their
 # width, a wide GRU at serving, training and export batches, the widest
-# layers the JAX package keeps on its kernels, the f32-compute route; the
-# reference towers themselves (W resident) as controls
+# layers the JAX package keeps on its kernels, the f32-compute route (both
+# passes, and the reference towers' training shapes); the reference towers
+# themselves (W resident) as controls
 SHAPES = (
     ("fwd", "GRU", 512, 64, 32, "bfloat16"), ("fwd", "GRU", 512, 128, 128, "bfloat16"),
     ("fwd", "GRU", 1024, 16, 32, "bfloat16"), ("fwd", "GRU", 1024, 64, 32, "bfloat16"),
@@ -58,6 +60,9 @@ SHAPES = (
     ("bwd", "RNN", 3072, 16, 32, "bfloat16"),
     ("fwd", "GRU", 256, 64, 32, "bfloat16"), ("fwd", "GRU", 256, 128, 128, "bfloat16"),
     ("bwd", "GRU", 256, 64, 32, "bfloat16"), ("bwd", "GRU", 256, 128, 128, "bfloat16"),
+    ("bwd", "GRU", 1024, 64, 32, "float32"),
+    ("fwd", "GRU", 256, 64, 32, "float32"), ("fwd", "GRU", 256, 128, 128, "float32"),
+    ("bwd", "GRU", 256, 64, 32, "float32"), ("bwd", "GRU", 256, 128, 128, "float32"),
 )
 CPU_SHAPES = (("fwd", "GRU", 24, 5, 6, "bfloat16"), ("fwd", "LSTM", 40, 3, 4, "float32"),
               ("bwd", "GRU", 24, 5, 6, "bfloat16"), ("bwd", "RNN", 16, 3, 4, "bfloat16"),
@@ -137,14 +142,14 @@ def _bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _cudnn_ms(torch, time_ms, cell, H, B, T, dev, backward: bool):
+def _cudnn_ms(torch, time_ms, cell, H, B, T, dev, backward: bool, f32: bool = False):
     """cuDNN over one bidirectional layer of the cell (input width 2H, the
-    second layer's), in bf16 where cuDNN takes bf16, else fp16: the
-    forward, or forward+backward minus forward. Returns (ms, dtype name);
-    (None, None) on the host."""
+    second layer's), in bf16 where cuDNN takes bf16, else fp16 (``f32``:
+    in f32, TF32 off as ``main`` sets it): the forward, or forward+backward
+    minus forward. Returns (ms, dtype name); (None, None) on the host."""
     if dev.type != "cuda":
         return None, None
-    dt = torch.bfloat16
+    dt = torch.float32 if f32 else torch.bfloat16
     if not torch.backends.cudnn.is_acceptable(torch.empty(1, device=dev, dtype=dt)):
         dt = torch.float16
     make = {"GRU": torch.nn.GRU, "LSTM": torch.nn.LSTM, "RNN": torch.nn.RNN}[cell]
@@ -318,6 +323,9 @@ def main(argv=None) -> int:
         rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops)
         rec["cudnn_ms"], rec["cudnn_dtype"] = _cudnn_ms(torch, time_ms, cell, H, B, T, dev,
                                                         which == "bwd")
+        if cdt == "float32":
+            rec["cudnn_f32_ms"] = _cudnn_ms(torch, time_ms, cell, H, B, T, dev, which == "bwd",
+                                            f32=True)[0]
         if args.layouts and H > 256:
             layouts = (_fwd_layouts(rnn_scan, cell, B, cdt, slots, plan)
                        if which == "fwd" else _bwd_layouts(rnn_scan, cell, H, cdt, hist, slots,
