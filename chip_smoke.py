@@ -261,6 +261,15 @@ S8_SEGS = (128, 64)  # the index's segment width, and a narrower one
 # scale on dxp, 2e-3 norm-relative on dW and db.
 BWD_DXP_REL = 2 ** -7
 BWD_W_REL = 2e-3
+# Both recurrent kernels at f32 compute (COMPUTE_DTYPE float32): f32-precision
+# products, on the card as split bf16 products (csrc/recur_chain.cuh: within
+# 2^-23 (1 + 2^-7) sum |a_k b_k| of the exact product, an f32 sum's own
+# rounding), summed in another order than the plain version's f32 products;
+# tests/test_torch_cuda.py's f32 tolerances: atol 1e-4 on the forward's
+# history and h_final over up to 128 steps; dxp within 1e-4 + 1e-4 |plain|,
+# dW and db within 1e-3 + 1e-4 |plain| (sums over T*B outer products).
+RNN_F32_ATOL = 1e-4
+BWD_F32_RTOL, BWD_F32_DXP_ATOL, BWD_F32_W_ATOL = 1e-4, 1e-4, 1e-3
 # The first train step, card against CPU (plain versions), from the same
 # state and batch with dropout off: the same CPU experiment on a whole
 # bf16 step (H=256, B=64, doc width 64) moved the loss by 6e-7 and each
@@ -268,6 +277,18 @@ BWD_W_REL = 2e-3
 # norm is small). Envelope: 1e-3 on the loss, 2e-2 relative per leaf.
 STEP_LOSS_ATOL = 1e-3
 STEP_GRAD_REL = 2e-2
+# The same at COMPUTE_DTYPE float32 (both recurrent kernels' split products):
+# python3 -m twotowermlretrieval_tpu_torch.tools.f32_step_envelope ran the
+# f32 step on the CPU (64 rows, doc width 128, a 20,000-row table) with
+# every torch.matmul summed in float64: the loss moved by 0 and each
+# per-leaf gradient norm by at most 6.7e-7 relative (a bias vector; the
+# recurrent products as split products, 5.9e-7). The bf16 control against
+# the f32 step moved the loss by 4.6e-5 and the worst leaf by 2.6e-3 (the
+# median leaf 3.2e-4). Envelope between the two, as for config 5 at f32:
+# 5e-6 on the loss, 1e-4 relative per leaf; the control runs on the card
+# and must fall outside it.
+GRU_F32_STEP_LOSS_ATOL = 5e-6
+GRU_F32_STEP_GRAD_REL = 1e-4
 # The training phase: the reference configuration at full width, on
 # in-memory triplets cut from the export corpus.
 TRAIN_TRIPLETS, VAL_TRIPLETS, TEST_TRIPLETS = 2112, 320, 48
@@ -538,42 +559,48 @@ def phase_build() -> None:
 _GATES = {"GRU": 3, "LSTM": 4, "RNN": 1}
 
 
-def _rnn_inputs(cell, B, T, seed, dev, H=H):
-    """Per-direction xp (bf16, as the kernel reads it), ragged lengths with
-    0, 1 and T among them, W_hh and b_hh at torch.nn.GRU's init scale."""
+def _rnn_inputs(cell, B, T, seed, dev, H=H, compute="bfloat16"):
+    """Per-direction xp (in the compute dtype, as the kernel reads it),
+    ragged lengths with 0, 1 and T among them, W_hh and b_hh at
+    torch.nn.GRU's init scale."""
     G = _GATES[cell]
+    dt = getattr(torch, compute)
     gen = torch.Generator(device=dev).manual_seed(seed)
     lim = 1.0 / math.sqrt(H)
-    xps = [(torch.randn((T, B, G * H), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    xps = [(torch.randn((T, B, G * H), generator=gen, device=dev) * 0.5).to(dt)
            for _ in range(2)]
     lengths = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
     lengths[:3] = torch.tensor([0, 1, T], device=dev)
     mask = (torch.arange(T, device=dev)[:, None] < lengths[None, :]).float()
-    w_hh = ((torch.rand((2, H, G * H), generator=gen, device=dev) * 2 - 1) * lim).to(torch.bfloat16)
+    w_hh = ((torch.rand((2, H, G * H), generator=gen, device=dev) * 2 - 1) * lim).to(dt)
     b_hh = (torch.rand((2, G * H), generator=gen, device=dev) * 2 - 1) * lim
     return xps, mask, w_hh, b_hh
 
 
-def _cudnn_layer(cell: str, H: int, dev):
+def _cudnn_layer(cell: str, H: int, dev, dtype=torch.float16):
     """One bidirectional cuDNN layer of the cell (input width 2H, the second
-    layer's), fp16: cuDNN's RNN takes fp16 on every version; bytes and
-    tensor-core rate are bf16's."""
+    layer's), fp16 by default: cuDNN's RNN takes fp16 on every version;
+    bytes and tensor-core rate are bf16's. At f32 compute the f32 layer
+    (TF32 off: resolve_device turned it off) computes the kernels' function."""
     make = {"GRU": torch.nn.GRU, "LSTM": torch.nn.LSTM, "RNN": torch.nn.RNN}[cell]
-    return make(2 * H, H, num_layers=1, bidirectional=True).to(dev, torch.float16)
+    return make(2 * H, H, num_layers=1, bidirectional=True).to(dev, dtype)
 
 
 def check_rnn(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H,
-              compact: bool = True) -> dict:
+              compact: bool = True, compute: str = "bfloat16") -> dict:
     """The forward kernel against its plain version at bf16 compute, the
-    history in bf16 (``compact``) or f32 (TTMR_RNN_HISTORY=f32)."""
+    history in bf16 (``compact``) or f32 (TTMR_RNN_HISTORY=f32), or at f32
+    compute (an f32 history; the split products, RNN_F32_ATOL), timed
+    there beside cuDNN's f32 layer."""
     from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
         rnn_fwd_bound,
         rnn_layer_fwd,
         rnn_layer_fwd_reference,
     )
 
-    args = _rnn_inputs(cell, B, T, seed, dev, H)
-    kw = dict(compute_dtype="bfloat16", history_in_cdt=compact)
+    f32 = compute == "float32"
+    args = _rnn_inputs(cell, B, T, seed, dev, H, compute)
+    kw = dict(compute_dtype=compute, history_in_cdt=compact)
     outs, c_hist, fin = rnn_layer_fwd(cell, *args, **kw)
     r_outs, r_c, r_fin = rnn_layer_fwd_reference(cell, *args, **kw)
     # no atomics, a fixed summation order: a second call gives the same bits
@@ -582,58 +609,67 @@ def check_rnn(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H,
     torch.cuda.synchronize()
     err_final = (fin - r_fin).abs().max().item()
     err_hist = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs, r_outs))
-    # the LSTM cell state may exceed 1: one bf16 ulp relative
+    # the LSTM cell state may exceed 1: one bf16 ulp relative (f32: atol)
+    c_tol = (RNN_F32_ATOL, 0.0) if f32 else (RNN_HIST_ATOL, 2 ** -7)
     c_ok = all(
-        ((a.float() - b.float()).abs() <= RNN_HIST_ATOL + 2 ** -7 * b.float().abs()).all().item()
+        ((a.float() - b.float()).abs() <= c_tol[0] + c_tol[1] * b.float().abs()).all().item()
         for a, b in zip(c_hist, r_c)
     )
     finite = bool(torch.isfinite(fin).all()) and all(bool(torch.isfinite(o.float()).all()) for o in outs)
     zero_row = bool((fin[:, 0] == 0).all()) and all(bool((o[:, 0] == 0).all()) for o in outs)
-    shape = f"{cell} D=2 B={B} T={T} H={H} bf16" + ("" if compact else ", f32 history")
-    check(all(o.dtype == (torch.bfloat16 if compact else torch.float32) for o in outs),
-          f"rnn_fwd {shape}: history dtype {outs[0].dtype}")
+    hist = torch.bfloat16 if compact and not f32 else torch.float32
+    shape = (f"{cell} D=2 B={B} T={T} H={H} " + ("f32 compute" if f32 else "bf16")
+             + ("" if compact or f32 else ", f32 history"))
+    check(all(o.dtype == hist for o in outs), f"rnn_fwd {shape}: history dtype {outs[0].dtype}")
     log(f"rnn_fwd {shape}: |h_final diff| {err_final:.3g}, |history diff| {err_hist:.3g}")
     check(finite, f"rnn_fwd {shape}: non-finite output")
     check(zero_row, f"rnn_fwd {shape}: a zero-length row is not exactly zero")
-    check(err_final <= RNN_FINAL_ATOL, f"rnn_fwd {shape}: h_final off by {err_final}")
-    check(err_hist <= RNN_HIST_ATOL, f"rnn_fwd {shape}: history off by {err_hist}")
+    check(err_final <= (RNN_F32_ATOL if f32 else RNN_FINAL_ATOL),
+          f"rnn_fwd {shape}: h_final off by {err_final}")
+    check(err_hist <= (RNN_F32_ATOL if f32 else RNN_HIST_ATOL),
+          f"rnn_fwd {shape}: history off by {err_hist}")
     check(c_ok, f"rnn_fwd {shape}: LSTM cell history off")
     check(bitwise, f"rnn_fwd {shape}: two calls differ")
     log(f"rnn_fwd {shape}: two calls bit-identical in the history and h_final")
     rec = {"shape": shape, "max_abs_err": max(err_final, err_hist), "bitwise_repeatable": bitwise}
     if timed:
-        rec["design"] = _fwd_design(cell, B, T, dev, H, compact)
+        rec["design"] = _fwd_design(cell, B, T, dev, H, compact, compute)
         rec["ms"] = time_ms(lambda: rnn_layer_fwd(cell, *args, **kw))
         rec["plain_ms"] = time_ms(lambda: rnn_layer_fwd_reference(cell, *args, **kw),
                                   reps=5, warmup=1)
         # One cuDNN call over the same layer, which also computes the input
-        # projection
-        layer = _cudnn_layer(cell, H, dev)
-        x = torch.randn((T, B, 2 * H), device=dev, dtype=torch.float16)
+        # projection: fp16, or f32 with TF32 off at f32 compute
+        ldt = torch.float32 if f32 else torch.float16
+        layer = _cudnn_layer(cell, H, dev, ldt)
+        x = torch.randn((T, B, 2 * H), device=dev, dtype=ldt)
         rec["library_ms"] = time_ms(lambda: layer(x))
-        nbytes, flops = rnn_fwd_bound(T, B, H, 2, _GATES[cell], 2, 2 if compact else 4)
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+        cb = 4 if f32 else 2
+        nbytes, flops = rnn_fwd_bound(T, B, H, 2, _GATES[cell], cb, hist.itemsize)
+        # f32 compute: each product as the six bf16 products of its split
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops,
+                                                 PEAK_SPLIT_FLOPS if f32 else PEAK_BF16_FLOPS)
         rec["step_us"] = rec["ms"] / T * 1e3
         log(f"rnn_fwd {shape}: kernel {rec['ms']:.4f} ms ({rec['step_us']:.2f} us a step), "
-            f"plain {rec['plain_ms']:.4f} ms, cuDNN {cell} {rec['library_ms']:.4f} ms, bound "
-            f"{rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+            f"plain {rec['plain_ms']:.4f} ms, cuDNN {cell} {str(ldt)[6:]} "
+            f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms ({rec['bound_by']})")
     return rec
 
 
-def _fwd_design(cell: str, B: int, T: int, dev, H=H, compact: bool = True) -> dict:
-    """The layout the forward kernel launches at this shape (bf16 compute,
-    a bf16 or, not ``compact``, an f32 history, both directions), logged
-    with the number of clusters of its size the card holds at once (read
-    from the card), by which the plan chose its rows."""
+def _fwd_design(cell: str, B: int, T: int, dev, H=H, compact: bool = True,
+                compute: str = "bfloat16") -> dict:
+    """The layout the forward kernel launches at this shape (bf16 compute
+    with a bf16 or, not ``compact``, an f32 history, or f32 compute; both
+    directions), logged with the number of clusters of its size the card
+    holds at once (read from the card), by which the plan chose its rows."""
     from twotowermlretrieval_tpu_torch.ops.rnn_scan import cluster_slots, fwd_plan
 
-    hist = torch.bfloat16 if compact else torch.float32
-    slots = cluster_slots("fwd", cell, "bfloat16", hist, dev)
-    plan = fwd_plan(cell, T, B, H, 2, "bfloat16", hist, slots)
+    hist = torch.bfloat16 if compact and compute == "bfloat16" else torch.float32
+    slots = cluster_slots("fwd", cell, compute, hist, dev)
+    plan = fwd_plan(cell, T, B, H, 2, compute, hist, slots)
     w = ("resident" if plan["resident"]
          else f"streamed every step through a ring of {plan['wstages']} stages of "
-              f"{plan['kc']} rows")
-    log(f"rnn_fwd design, {cell} B={B} T={T} H={H}: clusters of {plan['nc']} CTAs x "
+              f"{plan['kc']} rows") + (" as its bf16 pieces" if plan.get("wsplit") else "")
+    log(f"rnn_fwd design, {cell} B={B} T={T} H={H} {compute}: clusters of {plan['nc']} CTAs x "
         f"{plan['hc']} hidden columns, {plan['rows']} batch rows a cluster, "
         f"{plan['clusters']} clusters a direction ({2 * plan['clusters']} in all; the card "
         f"holds {plan['slots']} clusters of {plan['nc']} at once), W columns {w}, "
@@ -1253,15 +1289,15 @@ def phase_int8_kernels(dev) -> dict:
     return out
 
 
-def _bwd_inputs(cell, B, T, seed, dev, H=H, compact: bool = True):
+def _bwd_inputs(cell, B, T, seed, dev, H=H, compact: bool = True, compute="bfloat16"):
     """The forward's inputs, its history (from the forward kernel; bf16, or
-    f32 where not ``compact``) and random cotangents: in the history's
-    dtype, f32 for h_final."""
+    f32 where not ``compact`` or at f32 compute) and random cotangents: in
+    the history's dtype, f32 for h_final."""
     from twotowermlretrieval_tpu_torch.ops.rnn_scan import rnn_layer_fwd
 
-    xps, mask, w_hh, b_hh = _rnn_inputs(cell, B, T, seed, dev, H)
+    xps, mask, w_hh, b_hh = _rnn_inputs(cell, B, T, seed, dev, H, compute)
     with torch.no_grad():
-        outs, c_hist, _ = rnn_layer_fwd(cell, xps, mask, w_hh, b_hh, "bfloat16", compact)
+        outs, c_hist, _ = rnn_layer_fwd(cell, xps, mask, w_hh, b_hh, compute, compact)
     gen = torch.Generator(device=dev).manual_seed(seed + 100)
     douts = [torch.randn((T, B, H), generator=gen, device=dev).to(outs[0].dtype)
              for _ in range(2)]
@@ -1273,34 +1309,36 @@ def _rel(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def _cudnn_backward_ms(B, T, dev, H=H, cell="GRU") -> float:
+def _cudnn_backward_ms(B, T, dev, H=H, cell="GRU", dtype=torch.float16) -> float:
     """cuDNN's backward of one bidirectional layer of the cell (input width
-    2H, fp16): forward+backward minus forward, each timed alone."""
-    layer = _cudnn_layer(cell, H, dev)
-    x = torch.randn((T, B, 2 * H), device=dev, dtype=torch.float16, requires_grad=True)
-    g = torch.randn((T, B, 2 * H), device=dev, dtype=torch.float16)
+    2H, fp16, or f32 with TF32 off): forward+backward minus forward, each
+    timed alone."""
+    layer = _cudnn_layer(cell, H, dev, dtype)
+    x = torch.randn((T, B, 2 * H), device=dev, dtype=dtype, requires_grad=True)
+    g = torch.randn((T, B, 2 * H), device=dev, dtype=dtype)
     with torch.enable_grad():
         fwd = time_ms(lambda: layer(x))
         both = time_ms(lambda: torch.autograd.backward(layer(x)[0], g))
     return both - fwd
 
 
-def _bwd_design(cell: str, B: int, T: int, dev, H=H, compact: bool = True) -> dict:
-    """The layout the backward kernel launches at this shape (bf16 compute,
-    a bf16 or, not ``compact``, an f32 history, both directions), logged
-    with the card's count of clusters of its size."""
+def _bwd_design(cell: str, B: int, T: int, dev, H=H, compact: bool = True,
+                compute: str = "bfloat16") -> dict:
+    """The layout the backward kernel launches at this shape (bf16 compute
+    with a bf16 or, not ``compact``, an f32 history, or f32 compute; both
+    directions), logged with the card's count of clusters of its size."""
     from twotowermlretrieval_tpu_torch.ops.rnn_scan import bwd_plan, cluster_slots
 
-    hist = torch.bfloat16 if compact else torch.float32
-    slots = cluster_slots("bwd", cell, "bfloat16", hist, dev)
-    plan = bwd_plan(cell, T, B, H, 2, "bfloat16", hist, slots)
+    hist = torch.bfloat16 if compact and compute == "bfloat16" else torch.float32
+    slots = cluster_slots("bwd", cell, compute, hist, dev)
+    plan = bwd_plan(cell, T, B, H, 2, compute, hist, slots)
     w = ("resident" if plan["resident"]
          else f"streamed every step in chunks of {plan['kc']} columns, through a ring of "
               f"{plan['wstages']} stages of {plan['kw']} columns")
     kp = -(-_GATES[cell] * plan["H"] // 16) * 16
     x = ("whole" if plan["xc"] >= kp
          else f"exchanged in chunks of {plan['xc']} columns, a cluster barrier each")
-    log(f"rnn_bwd design, {cell} B={B} T={T} H={H}: clusters of {plan['nc']} CTAs x "
+    log(f"rnn_bwd design, {cell} B={B} T={T} H={H} {compute}: clusters of {plan['nc']} CTAs x "
         f"{plan['hc']} hidden columns (the card holds {plan['slots']} at once), "
         f"{plan['rows']} batch rows a cluster, {plan['clusters']} clusters a direction, W rows "
         f"{w}, {plan['stages']} staging buffers, {plan['blocks']} dhp row block(s) {x}, "
@@ -1309,18 +1347,26 @@ def _bwd_design(cell: str, B: int, T: int, dev, H=H, compact: bool = True) -> di
     return plan
 
 
+def _over(a, b, atol: float, rtol: float) -> float:
+    """The largest excess of |a - b| over atol + rtol |b| (<= 0: within)."""
+    return ((a.float() - b.float()).abs() - atol - rtol * b.float().abs()).max().item()
+
+
 def check_rnn_bwd(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H,
-                  compact: bool = True) -> dict:
+                  compact: bool = True, compute: str = "bfloat16") -> dict:
     """The backward kernel against its plain version at bf16 compute, the
-    history in bf16 (``compact``) or f32 (TTMR_RNN_HISTORY=f32)."""
+    history in bf16 (``compact``) or f32 (TTMR_RNN_HISTORY=f32), or at f32
+    compute (the split products; BWD_F32_* tolerances), timed there beside
+    cuDNN's f32 backward."""
     from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
         rnn_bwd_bound,
         rnn_layer_bwd,
         rnn_layer_bwd_reference,
     )
 
-    args = _bwd_inputs(cell, B, T, seed, dev, H, compact)
-    kw = dict(compute_dtype="bfloat16")
+    f32 = compute == "float32"
+    args = _bwd_inputs(cell, B, T, seed, dev, H, compact, compute)
+    kw = dict(compute_dtype=compute)
     dxps, dw, db = rnn_layer_bwd(cell, *args, **kw)
     r_dxps, r_dw, r_db = rnn_layer_bwd_reference(cell, *args, **kw)
     # no atomics: a second call gives the same bits (resume relies on it)
@@ -1332,31 +1378,43 @@ def check_rnn_bwd(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H,
     w_rel, b_rel = _rel(dw, r_dw), _rel(db, r_db)
     finite = all(bool(torch.isfinite(t).all()) for t in (*dxps, dw, db))
     zero_row = all(bool((d[:, 0] == 0).all()) for d in dxps)  # row 0 has length 0
-    shape = f"{cell} D=2 B={B} T={T} H={H} bf16, {'bf16' if compact else 'f32'} history"
+    hist = "f32" if f32 or not compact else "bf16"
+    shape = f"{cell} D=2 B={B} T={T} H={H} " + (
+        "f32 compute" if f32 else f"bf16, {hist} history")
     log(f"rnn_bwd {shape}: |dxp diff| {dxp_err:.3g} (scale {dxp_scale:.3g}), "
         f"dW {w_rel:.3g}, db {b_rel:.3g} norm-relative")
     check(finite, f"rnn_bwd {shape}: non-finite output")
     check(zero_row, f"rnn_bwd {shape}: a zero-length row has a gate cotangent")
-    check(dxp_err <= BWD_DXP_REL * dxp_scale, f"rnn_bwd {shape}: dxp off by {dxp_err}")
-    check(w_rel <= BWD_W_REL and b_rel <= BWD_W_REL, f"rnn_bwd {shape}: dW/db off")
+    if f32:
+        over = max(max(_over(a, b, BWD_F32_DXP_ATOL, BWD_F32_RTOL) for a, b in zip(dxps, r_dxps)),
+                   _over(dw, r_dw, BWD_F32_W_ATOL, BWD_F32_RTOL),
+                   _over(db, r_db, BWD_F32_W_ATOL, BWD_F32_RTOL))
+        check(over <= 0, f"rnn_bwd {shape}: dxp/dW/db beyond atol + rtol |plain| by {over}")
+    else:
+        check(dxp_err <= BWD_DXP_REL * dxp_scale, f"rnn_bwd {shape}: dxp off by {dxp_err}")
+        check(w_rel <= BWD_W_REL and b_rel <= BWD_W_REL, f"rnn_bwd {shape}: dW/db off")
     check(bitwise, f"rnn_bwd {shape}: two calls differ")
     log(f"rnn_bwd {shape}: two calls bit-identical in dxp, dW and db")
     max_abs = max(dxp_err, (dw - r_dw).abs().max().item(), (db - r_db).abs().max().item())
     rec = {"shape": shape, "max_abs_err": max_abs, "dxp_err_of_scale": dxp_err / dxp_scale,
            "dw_rel": w_rel, "db_rel": b_rel, "bitwise_repeatable": bitwise}
     if timed:
-        rec["design"] = _bwd_design(cell, B, T, dev, H, compact)
+        rec["design"] = _bwd_design(cell, B, T, dev, H, compact, compute)
         rec["ms"] = time_ms(lambda: rnn_layer_bwd(cell, *args, **kw))
         rec["plain_ms"] = time_ms(lambda: rnn_layer_bwd_reference(cell, *args, **kw),
                                   reps=3, warmup=1)
-        rec["library_ms"] = _cudnn_backward_ms(B, T, dev, H, cell)
-        nbytes, flops = rnn_bwd_bound(T, B, H, 2, _GATES[cell], 2, 2 if compact else 4)
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+        ldt = torch.float32 if f32 else torch.float16
+        rec["library_ms"] = _cudnn_backward_ms(B, T, dev, H, cell, ldt)
+        nbytes, flops = rnn_bwd_bound(T, B, H, 2, _GATES[cell], 4 if f32 else 2,
+                                      2 if compact and not f32 else 4)
+        # f32 compute: each product as the six bf16 products of its split
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops,
+                                                 PEAK_SPLIT_FLOPS if f32 else PEAK_BF16_FLOPS)
         rec["step_us"] = rec["ms"] / T * 1e3
         log(f"rnn_bwd {shape}: kernel {rec['ms']:.4f} ms ({rec['step_us']:.2f} us a step, the "
             f"two products included), plain {rec['plain_ms']:.4f} ms, cuDNN {cell} backward "
-            f"(fwd+bwd - fwd, fp16) {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
-            f"({rec['bound_by']})")
+            f"(fwd+bwd - fwd, {str(ldt)[6:]}) {rec['library_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.6f} ms ({rec['bound_by']})")
     return rec
 
 
@@ -1422,6 +1480,25 @@ def phase_bwd_kernels(dev) -> list:
         check_rnn_bwd("GRU", TRAIN_ROWS, QUERY_LEN, 33, dev, timed=True, compact=False),
         check_rnn_bwd("GRU", 2 * TRAIN_ROWS, DOC_LEN, 34, dev, timed=True, compact=False),
     ]
+
+
+def phase_f32_kernels(dev) -> tuple:
+    """Both recurrent kernels at f32 compute (COMPUTE_DTYPE float32: every
+    product a split bf16 product on the tensor cores) at the reference
+    towers' training shapes (GRU H=256, B=64 T=32 and B=128 T=128, W
+    resident) and at GRU H=1024 B=64 T=32 (W streamed), each against its
+    plain version, twice bit-identical, timed beside cuDNN's f32 layer with
+    TF32 off and the split-priced bound. Returns the (forward, backward)
+    records and the phase's launch counts."""
+    shapes = [(TRAIN_ROWS, QUERY_LEN, H, 41), (2 * TRAIN_ROWS, DOC_LEN, H, 42),
+              (TRAIN_ROWS, QUERY_LEN, WIDE_H, 43)]
+    zero_counts()
+    with torch.inference_mode():
+        fwd = [check_rnn("GRU", B, T, seed, dev, timed=True, H=h, compute="float32")
+               for B, T, h, seed in shapes]
+    bwd = [check_rnn_bwd("GRU", B, T, seed + 10, dev, timed=True, H=h, compute="float32")
+           for B, T, h, seed in shapes]
+    return fwd, bwd, read_counts()
 
 
 def phase_wide_kernels(dev) -> tuple:
@@ -2168,6 +2245,28 @@ def phase_first_step_f32_history(dev, cfg, tok, table, train_triplets) -> dict:
     return first
 
 
+def phase_first_step_f32(dev, cfg, tok, table, train_triplets) -> dict:
+    """The reference GRU model's first step at COMPUTE_DTYPE float32 (both
+    recurrent kernels' split-product route), card against CPU in the f32
+    envelope (GRU_F32_STEP_*), with the bf16 step on the card as the control
+    that must fall outside it; 4 rnn_fwd and 4 rnn_bwd launches at each
+    compute dtype (two layers of each tower)."""
+    from twotowermlretrieval_tpu_torch.models.two_tower import TwoTowerSpec, init_two_tower
+
+    f32cfg = cfg.replace(compute_dtype="float32")
+    params = init_two_tower(torch.Generator().manual_seed(cfg.seed),
+                            TwoTowerSpec.from_config(f32cfg), pretrained_embeddings=table)
+    zero_counts()
+    first = _first_step_card_vs_cpu(dev, f32cfg, params, _first_batch(f32cfg, tok, train_triplets),
+                                    GRU_F32_STEP_LOSS_ATOL, GRU_F32_STEP_GRAD_REL, "train f32",
+                                    control="bfloat16")
+    launches = read_counts()
+    check(launches["rnn_fwd"] == 8 and launches["rnn_bwd"] == 8,
+          f"train f32: first step and its control launched {launches}")
+    first["launches"] = launches
+    return first
+
+
 def _check_checkpoint(ckpt_dir, cfg, table, res, dev, what: str) -> None:
     """The epoch-end checkpoint restores bit for bit on the card."""
     from twotowermlretrieval_tpu_torch.models.two_tower import (
@@ -2235,6 +2334,7 @@ def phase_train(dev, corpus) -> dict:
                 "test": triplets[b : b + TEST_TRIPLETS]}
     first = phase_first_step(dev, cfg, tok, table, datasets["train"])
     first_f32 = phase_first_step_f32_history(dev, cfg, tok, table, datasets["train"])
+    first_f32c = phase_first_step_f32(dev, cfg, tok, table, datasets["train"])
 
     res, launches, train_s = _train_main_path(cfg, tok, table, datasets, TRAIN_DIR, dev, "train")
     steps, losses = res["steps"], res["step_losses"]
@@ -2252,7 +2352,7 @@ def phase_train(dev, corpus) -> dict:
           "train: the exported directory does not serve")
     log(f"train: the exported directory serves ({len(out)} results)")
     return {"steps": steps, "launches": launches, "train_s": train_s, "first_step": first,
-            "first_step_f32_history": first_f32,
+            "first_step_f32_history": first_f32, "first_step_f32": first_f32c,
             "steady_steps_per_sec": res["steady_steps_per_sec"],
             "steady_examples_per_sec": res["steady_examples_per_sec"],
             "loss_first_last": [losses[0], losses[-1]]}, (cfg, tok, table, datasets)
@@ -4182,6 +4282,9 @@ def main(argv) -> int:
         wide_fwd, wide_bwd, wide_launches = phase_wide_kernels(dev)
         kern["rnn_fwd"] += wide_fwd
         kern["rnn_bwd"] += wide_bwd
+        f32_fwd, f32_bwd, f32_launches = phase_f32_kernels(dev)
+        kern["rnn_fwd"] += f32_fwd
+        kern["rnn_bwd"] += f32_bwd
         wide_s8 = phase_wide_s8(dev)
         kern["segmax_s8"].append(wide_s8)
         for name, recs in phase_wide_batches(dev).items():
@@ -4224,7 +4327,7 @@ def main(argv) -> int:
     phases = {"export": export["launches"], "serve": served["launches"],
               "serve_int8": served_int8["launches"], "train": trained["launches"],
               "odd_width_serve": odd["launches"], "wide_int8_index": wide_s8["launches"],
-              "wide_kernels": wide_launches,
+              "wide_kernels": wide_launches, "f32_kernels": f32_launches,
               "transformer_train": tf["launches"], "transformer_serve": tf["serve"]["launches"],
               "wide_engine_search": wide_engine["launches"], "serve_ivf": served_ivf["launches"],
               "traced_train": traced["gru_train"]["launches"],
@@ -4238,6 +4341,7 @@ def main(argv) -> int:
               "sharded_serve_int8": sharded["serve_int8"]["launches"],
               "sharded_topk_int8": sharded["int8_rows_launches"],
               "train_f32_history_first_step": trained["first_step_f32_history"]["launches"],
+              "train_f32_first_step": trained["first_step_f32"]["launches"],
               "simple_hybrid": hybrid["launches"],
               **{f"e2e_demo_{stage}": c for stage, c in e2e["launches"].items()}}
     main_launches = {"rnn_fwd": served["launches"]["rnn_fwd"],
@@ -4278,7 +4382,8 @@ def main(argv) -> int:
         f"({card})")
     log(f"e2e demo (smoke): {json.dumps({k: v for k, v in e2e.items() if k != 'launches'})}")
     log(f"train: first step card-vs-CPU {json.dumps(trained['first_step'])}; with an f32 "
-        f"history {json.dumps(trained['first_step_f32_history'])}; "
+        f"history {json.dumps(trained['first_step_f32_history'])}; at f32 compute "
+        f"{json.dumps(trained['first_step_f32'])}; "
         f"steady {trained['steady_steps_per_sec']:.3f} steps/s, "
         f"{trained['steady_examples_per_sec']:.1f} examples/s ({card})")
     routes = tf["routes"]

@@ -482,24 +482,67 @@ def test_rnn_streamed_route_matches_plain_version(dev, which, H, B):
         assert torch.equal(x, y)
 
 
+# f32 compute (split products) where W streams: GRU H=1024 at the training
+# query tower's B=64 (clusters of 8), and in clusters of 16 at B=16 (GRU
+# H=1024 forward; the LSTM H=1536 backward's row block exchanged in
+# chunks; RNN H=3072 both passes at 8 rows a cluster)
+_F32_STREAMED = [("fwd", "GRU", 1024, 64), ("bwd", "GRU", 1024, 64), ("fwd", "GRU", 1024, 16),
+                 ("bwd", "LSTM", 1536, 16), ("fwd", "RNN", 3072, 16), ("bwd", "RNN", 3072, 16)]
+
+
+@pytest.mark.parametrize("which,cell,H,B", _F32_STREAMED,
+                         ids=[f"{w}-{c}-H{h}-B{b}" for w, c, h, b in _F32_STREAMED])
+def test_rnn_f32_split_route_where_w_streams(dev, which, cell, H, B):
+    """At f32 compute, T=12: one launch, the plain version within the f32
+    tolerances above, the same bits twice, and the zero-length row 0
+    exactly zero (no state, no gate cotangent)."""
+    cdt = "float32"
+    plan = (fwd_plan if which == "fwd" else bwd_plan)(cell, 12, B, H, 2, cdt, torch.float32)
+    assert not plan["resident"] and (B > 16 or plan["nc"] == 16)
+    if which == "fwd":
+        args = _rnn_case(dev, cell, 2, 12, B, H, seed=H + B)
+        before = rnn_layer_fwd.launches
+        got = [rnn_layer_fwd(cell, *args, compute_dtype=cdt) for _ in range(2)]
+        assert rnn_layer_fwd.launches == before + 2
+        _check_fwd(got[0], rnn_layer_fwd_reference(cell, *args, compute_dtype=cdt), cdt)
+        outs, _, fin = got[0]
+        assert (fin[:, 0] == 0).all() and all((o[:, 0] == 0).all() for o in outs)
+        flat = [[*g[0], *g[1], g[2]] for g in got]
+    else:
+        args = _bwd_case(dev, cell, 2, 12, B, H, seed=H + B, cdt=cdt)
+        before = rnn_layer_bwd.launches
+        got = [rnn_layer_bwd(cell, *args, compute_dtype=cdt) for _ in range(2)]
+        assert rnn_layer_bwd.launches == before + 2
+        _check_bwd(got[0], rnn_layer_bwd_reference(cell, *args, compute_dtype=cdt), cdt)
+        assert all((d[:, 0] == 0).all() for d in got[0][0])
+        flat = [[*g[0], g[1], g[2]] for g in got]
+    for x, y in zip(*flat):
+        assert torch.equal(x, y)
+
+
 def _ring_layouts(which, cell, T, B, H, cdt):
     """The plan and every ring its pass could take at this shape: depths
     from 1 (the backward's degenerate ring) or 2 up to what fits, the
-    forward at 32 and 64 rows a stage (16 and 32 at f32) with one and two
-    h row blocks, the backward at each piece width of the plan's chunk."""
+    forward at 32 and 64 rows a stage with one and two h row blocks (at
+    f32 with W in its bf16 pieces at 16 to 64 rows, the odd multiples of
+    16 ending on a k16 step, and at 16 and 32 rows with W f32: both forms
+    form the same products in the same order), the backward at each piece
+    width of the plan's chunk."""
     hist = torch.bfloat16 if cdt == "bfloat16" else torch.float32
     cb = 2 if cdt == "bfloat16" else 4
     if which == "fwd":
         plan = fwd_plan(cell, T, B, H, 2, cdt, hist)
         out = []
-        for kc in ((32, 64) if cb == 2 else (16, 32)):
-            for blocks in (1, 2):
-                for s in range(2, 9):
-                    smem = _rnn_scan._fwd_smem_bytes(cell, plan["H"], cb, plan["rows"],
-                                                     plan["hc"], kc, s, blocks)
-                    if smem <= _rnn_scan._SMEM_LIMIT:
-                        out.append(dict(plan, kc=kc, resident=False, wstages=s, blocks=blocks,
-                                        smem=smem))
+        forms = [(False, (32, 64))] if cb == 2 else [(True, (16, 32, 48, 64)), (False, (16, 32))]
+        for wsplit, widths in forms:
+            for kc in widths:
+                for blocks in (1, 2):
+                    for s in range(2, 9):
+                        smem = _rnn_scan._fwd_smem_bytes(cell, plan["H"], cb, plan["rows"],
+                                                         plan["hc"], kc, s, blocks, wsplit)
+                        if smem <= _rnn_scan._SMEM_LIMIT:
+                            out.append(dict(plan, kc=kc, resident=False, wstages=s,
+                                            blocks=blocks, smem=smem, wsplit=wsplit))
         return plan, out
     plan = bwd_plan(cell, T, B, H, 2, cdt, hist)
     out = []

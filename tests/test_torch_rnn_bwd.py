@@ -33,6 +33,7 @@ from twotowermlretrieval_tpu_torch.models.two_tower import to_device
 from twotowermlretrieval_tpu_torch.ops.rnn_scan import (
     _bwd_reference,
     rnn_bwd_bound,
+    rnn_fwd_bound,
     rnn_layer_bwd,
     rnn_layer_bwd_hoisted,
     rnn_layer_bwd_reference,
@@ -176,6 +177,35 @@ def test_bwd_bound_counts():
     _, flops_split = rnn_bwd_bound(128, 128, 256, 2, 3, 2, 2, split=True)
     _, flops_rnn = rnn_bwd_bound(128, 128, 256, 2, 1, 2, 2)
     assert flops_split == 4 * 128 * 2 * 128 * 256 * 768 and flops_rnn == 4 * 128 * 2 * 128 * 256 * 256
+
+
+# (pass, T, B, H) -> (bound ms, by, bytes ms) at f32 compute, GRU D=2: an
+# f32-precision product counts as the six bf16 products of its split,
+# priced at the bf16 rate (164.8 TFLOP/s in all)
+_F32_BOUNDS = {("fwd", 32, 64, 1024): (0.156339, "operations", 0.027711),
+               ("bwd", 32, 64, 1024): (0.469016, "operations", 0.055263),
+               ("fwd", 32, 64, 256): (0.009771, "operations", 0.005521),
+               ("bwd", 32, 64, 256): (0.029313, "operations", 0.011001),
+               ("fwd", 128, 128, 256): (0.078169, "operations", 0.040634),
+               ("bwd", 128, 128, 256): (0.234508, "operations", 0.081170)}
+
+
+@pytest.mark.parametrize("which,T,B,H", list(_F32_BOUNDS),
+                         ids=[f"{w}-T{t}-B{b}-H{h}" for w, t, b, h in _F32_BOUNDS])
+def test_f32_bound_prices_split_products(which, T, B, H):
+    """The bench tool's bound at f32 compute (chip_smoke.py prices it the
+    same way): the operations of rnn_fwd_bound / rnn_bwd_bound at a sixth of
+    the bf16 rate, beside their bytes at 3.35 TB/s; at bf16 compute the
+    same counts at the bf16 rate."""
+    from twotowermlretrieval_tpu_torch.tools.bench_rnn_stream import _bound
+
+    fn = rnn_fwd_bound if which == "fwd" else rnn_bwd_bound
+    nbytes, flops = fn(T, B, H, 2, 3, 4, 4)
+    ms, by, bytes_ms = _F32_BOUNDS[which, T, B, H]
+    got_ms, got_by = _bound(nbytes, flops, split=True)
+    assert (round(got_ms, 6), got_by) == (ms, by)
+    assert round(nbytes / 3.35e12 * 1e3, 6) == bytes_ms
+    assert _bound(nbytes, flops)[0] == max(nbytes / 3.35e12, flops / 989e12) * 1e3
 
 
 # ---------------------------------------------------------------------------

@@ -37,21 +37,25 @@ _CASES = [(c, d) for c in ("GRU", "LSTM", "RNN") for d in ("bfloat16", "float32"
 
 
 def _fwd_layout_ok(cell, H, cdt, plan) -> bool:
-    """The plan's fields hang together. Where W streams, its ring has at
-    least 2 stages of whole k32 steps at bf16 (16 rows at f32); where it
-    is resident, no ring and two h row blocks."""
+    """The plan's fields hang together. A CTA holds at most 32 (16 x 8)
+    units (8 rows, at f32, count as one unit's). Where W streams, its ring
+    has at least 2 stages of whole k32 steps at bf16 (k16 steps at f32);
+    where it is resident, no ring and two h row blocks. The pieces only at
+    f32."""
     cb = torch.tensor([], dtype=getattr(torch, cdt)).element_size()
     Hk, nc, hc, R, kc = plan["H"], plan["nc"], plan["hc"], plan["rows"], plan["kc"]
+    wsplit = plan["wsplit"]
     kp = -(-Hk // 32) * 32
-    held = (R // 16) * (hc // 8) <= 32 and R % 16 == 0 if cb == 2 else R * hc <= 2048
+    held = -(-R // 16) * (hc // 8) <= 32 and (R % 16 == 0 or (cb == 4 and R == 8))
     ring = (plan["wstages"] == 0 and plan["blocks"] == 2 if plan["resident"]
             else 2 <= plan["wstages"] <= 8 and plan["blocks"] in (1, 2))
     return (Hk >= H and Hk % 8 == 0 and Hk - H < 8 and 1 <= nc <= 16 and hc % 8 == 0
             and (nc <= 8 or H100_SXM_CLUSTER_SLOTS[nc] > 0)
-            and nc * hc >= Hk > (nc - 1) * hc and held and kc % (32 if cb == 2 else 16) == 0
+            and nc * hc >= Hk > (nc - 1) * hc and held
+            and kc % (32 if cb == 2 else 16) == 0 and (cb == 4 or not wsplit)
             and plan["resident"] == (kc >= kp) and ring
             and plan["smem"] == _fwd_smem_bytes(cell, Hk, cb, R, hc, kc, plan["wstages"],
-                                                plan["blocks"]) <= _SMEM_LIMIT)
+                                                plan["blocks"], wsplit) <= _SMEM_LIMIT)
 
 
 @pytest.mark.parametrize("cell,cdt", _CASES, ids=[f"{c}-{d}" for c, d in _CASES])
@@ -301,6 +305,46 @@ def test_main_path_layouts_are_unchanged(B):
             f = fwd_plan(cell, 32, B, 256, 2, "bfloat16", hist)
             b = bwd_plan(cell, 32, B, 256, 2, "bfloat16", hist)
             assert f["resident"] and b["resident"] and f["wstages"] == b["wstages"] == 0
+
+
+def test_f32_backward_takes_clusters_of_16_where_8_stream_w():
+    """At f32 compute, where clusters of 8 would stream W, the backward's
+    whole-block layouts try clusters of 16 first (each CTA draws half of W
+    a step: GRU H=1024 B=64 T=32 took 7.15-7.49 ms in clusters of 16 against
+    10.56 in 8 on an H100, PERF.md section 6); the reference towers keep W
+    resident in clusters of 8, and bf16 keeps its layouts."""
+    wide = bwd_plan("GRU", 32, 64, 1024, 2, "float32", torch.float32)
+    assert (wide["nc"], wide["hc"], wide["rows"], wide["resident"], wide["xc"]) == \
+        (16, 64, 8, False, 3 * 1024)
+    for B in (64, 128):
+        main = bwd_plan("GRU", 32, B, 256, 2, "float32", torch.float32)
+        assert (main["nc"], main["rows"], main["resident"], main["blocks"]) == (8, 16, True, 2)
+    bf16 = bwd_plan("GRU", 32, 64, 1024, 2, "bfloat16", torch.bfloat16)
+    assert (bf16["nc"], bf16["hc"], bf16["rows"]) == (8, 128, 16)
+
+
+# the forward's f32 layouts where W streams: (cell, H, B) -> (rows, kc,
+# wsplit). W in its pieces in stages of any multiple of 16 rows, 32 at GRU
+# H=1024 and 48 at RNN H=3072 (8 rows a CTA: 16, which the units allow,
+# leave no ring of pieces beside the f32 h row block); in pieces of 16
+# rows where f32 W would take 16 too; f32 where the pieces' stages would
+# hold 16 rows and f32's 32, and where no ring of pieces fits
+_F32_FWD_RINGS = {("GRU", 1024, 64): (16, 32, True), ("RNN", 3072, 16): (8, 48, True),
+                  ("GRU", 3072, 16): (8, 16, True), ("LSTM", 1024, 64): (16, 32, False),
+                  ("GRU", 4064, 16): (8, 16, False)}
+
+
+@pytest.mark.parametrize("cell,H,B", list(_F32_FWD_RINGS),
+                         ids=[f"{c}-H{h}-B{b}" for c, h, b in _F32_FWD_RINGS])
+def test_f32_forward_w_form_follows_the_sweep(cell, H, B):
+    """At f32 compute the forward holds W as its bf16 pieces or as f32 as
+    the --layouts sweep on an H100 ordered them (PERF.md section 6): the
+    pieces 1.25x faster in stages of 32 rows than f32 in 48 (GRU H=1024
+    B=64), 1.11x in 48 against 64 (RNN H=3072 B=16), 1.04-1.08x slower in
+    16 against 32."""
+    plan = fwd_plan(cell, 32, B, H, 2, "float32", torch.float32)
+    assert not plan["resident"] and plan["wstages"] >= 2
+    assert (plan["rows"], plan["kc"], plan["wsplit"]) == _F32_FWD_RINGS[cell, H, B]
 
 
 # the chunk that orders the backward's sums where W streams, at the shapes

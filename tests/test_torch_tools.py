@@ -328,8 +328,8 @@ def test_bench_rnn_stream_on_cpu(tmp_path, capsys):
     shape, both passes, whose kernel and plain version are the same
     function (no difference, the same digest twice), with the plan, the
     bound and the W bytes a CTA draws a step (none where W is resident);
-    --layouts times every layout of the wide shapes, the plan's own among
-    them, all with the plan's bits."""
+    --layouts times every layout of the wide shapes and of the f32 ones,
+    the plan's own among them, all with the plan's bits."""
     out = tmp_path / "stream.json"
     assert bench_rnn_stream.main(["--device", "cpu", "--layouts", "--out", str(out)]) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
@@ -344,7 +344,11 @@ def test_bench_rnn_stream_on_cpu(tmp_path, capsys):
                                          r["plan"]["hc"] * r["H"] * {"GRU": 3, "LSTM": 4,
                                                                     "RNN": 1}[r["cell"]] * 2)
         assert r["card"] == "the host (plain versions)" and r["cudnn_ms"] is None
-        assert ("layouts" in r) == (r["H"] > 256)
+        # every f32 shape is swept, W held f32 or in its bf16 pieces
+        assert ("layouts" in r) == (r["H"] > 256 or r["compute"] == "float32")
+        if r["compute"] == "float32":
+            assert {lay["plan"]["wsplit"] for lay in r["layouts"]} == {False, True}
+            assert all(lay["same_bits"] for lay in r["layouts"])
     fwd, bwd = lines[4:]
     assert fwd["plan"]["resident"] and fwd["plan"]["nc"] == 16  # resident in clusters of 16
     assert not bwd["plan"]["resident"] and bwd["plan"]["wstages"] >= 1

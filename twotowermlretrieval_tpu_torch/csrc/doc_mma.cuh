@@ -94,11 +94,11 @@ template <> struct Steps<__nv_bfloat16> { static constexpr int K = 4; };
 template <> struct Steps<int8_t> { static constexpr int K = 8; };
 template <> struct Steps<float> { static constexpr int K = 2; };
 
-// The f32 path: its values split into PIECES bf16 pieces; its query
-// fragments always ride the ring (three pieces each do not fit resident at
-// wide H).
+// The f32 path: its values split into PIECES bf16 pieces
+// (recur_chain.cuh split_bf16x3); its query fragments always ride the ring
+// (three pieces each do not fit resident at wide H).
 template <typename T> constexpr bool kSplit = std::is_same<T, float>::value;
-constexpr int PIECES = 3;
+using recur_chain::PIECES;
 // uint2 words of query fragment a (k16 step, n tile, lane): one, or one a
 // piece on the f32 path
 template <typename T> constexpr int kPieces = kSplit<T> ? PIECES : 1;
@@ -287,19 +287,7 @@ __device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_
   hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
-// The f32 path's split of two f32 values x (low half) and y (high half)
-// into three bf16 pairs, p[0] = hi, p[1] = mid, p[2] = lo: each piece is
-// what the pieces before it leave, rounded to nearest even (the remainders
-// are exact in f32), so hi + mid + lo is x (and y) exactly.
-__device__ __forceinline__ void split_bf16x3(float x, float y, uint32_t (&p)[PIECES]) {
-#pragma unroll
-  for (int i = 0; i < PIECES; ++i) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);  // .x the low half
-    p[i] = (uint32_t)__bfloat16_as_ushort(v.x) | ((uint32_t)__bfloat16_as_ushort(v.y) << 16);
-    x -= __uint_as_float(p[i] << 16);
-    y -= __uint_as_float(p[i] & 0xffff0000u);
-  }
-}
+using recur_chain::split_bf16x3;
 
 // The f32 query fragments of q [B, H] f32 into qf in device memory (zeros
 // past B rows and H columns), for nchunks stages of 32 columns and NT n

@@ -2,9 +2,11 @@
 // rnn_bwd.cu): the cell codes and gate counts, the conversions between the
 // compute dtype and f32, thin wrappers of the PTX both chains are built
 // from (cp.async, ldmatrix, mma.sync m16n8k16 bf16 with f32 accumulation,
-// the cluster barrier's halves), and the ring both stream W through where
-// it does not fit (mbarriers, bulk copies, the turns in which the warps
-// copy). attention.cu and doc_mma.cuh take the PTX wrappers too.
+// the cluster barrier's halves), the ring both stream W through where it
+// does not fit (mbarriers, bulk copies, the turns in which the warps
+// copy), and the split products that carry every product at f32 compute
+// (split_bf16x3, mma_split, the f32 fragments). attention.cu and
+// doc_mma.cuh take the PTX wrappers and the split too.
 
 #pragma once
 
@@ -91,6 +93,104 @@ __device__ __forceinline__ void ldsm_x2_t(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
                : "r"(a));
+}
+
+// ---------------------------------------------------------------------------
+// Split products: an f32-precision product on the bf16 tensor cores
+// ---------------------------------------------------------------------------
+// Every f32 value x splits exactly into three bf16 pieces, x = hi + mid +
+// lo: hi = bf16(x), mid = bf16(x - hi), lo = x - hi - mid, each rounded to
+// nearest even (8 significant bits each and the signs of the remainders
+// cover f32's 24; bf16 has f32's exponent range). A product takes the six
+// leading products of the pieces, mid.mid, lo.hi, hi.lo, mid.hi, hi.mid,
+// hi.hi, smallest first (XLA's six-pass HIGHEST; utils/dtypes.py
+// SPLIT_PRODUCTS), each one mma.sync m16n8k16 with f32 accumulation, and
+// drops mid.lo, lo.mid and lo.lo: each entry is within 2^-23 (1 + 2^-7)
+// sum_k |a_k b_k| of the exact product, plus its f32 sums' rounding
+// (doc_mma.cuh, "The f32 path", gives the bound).
+constexpr int PIECES = 3;
+
+// The split of two f32 values x (low half) and y (high half) into three
+// bf16 pairs, p[0] = hi, p[1] = mid, p[2] = lo: each piece is what the
+// pieces before it leave, rounded to nearest even (the remainders are
+// exact in f32), so hi + mid + lo is x (and y) exactly.
+__device__ __forceinline__ void split_bf16x3(float x, float y, uint32_t (&p)[PIECES]) {
+#pragma unroll
+  for (int i = 0; i < PIECES; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);  // .x the low half
+    p[i] = (uint32_t)__bfloat16_as_ushort(v.x) | ((uint32_t)__bfloat16_as_ushort(v.y) << 16);
+    x -= __uint_as_float(p[i] << 16);
+    y -= __uint_as_float(p[i] & 0xffff0000u);
+  }
+}
+
+// the pieces of (x, y) into register j of each piece's fragment
+template <int N>
+__device__ __forceinline__ void split_into(float x, float y, uint32_t (&f)[PIECES][N], int j) {
+  uint32_t p[PIECES];
+  split_bf16x3(x, y, p);
+#pragma unroll
+  for (int i = 0; i < PIECES; ++i) f[i][j] = p[i];
+}
+
+// The six products of a split product, (A piece, B piece) with 0 = hi,
+// 1 = mid, 2 = lo, smallest first: mid.mid, lo.hi, hi.lo, mid.hi, hi.mid,
+// hi.hi
+__host__ __device__ constexpr int split_a(int s) { return s == 0 || s == 3 ? 1 : s == 1 ? 2 : 0; }
+__host__ __device__ constexpr int split_b(int s) { return s == 0 || s == 4 ? 1 : s == 2 ? 2 : 0; }
+
+// d += a . b as a split product: one m16n8k16 tile, each operand's
+// fragment in its three pieces
+__device__ __forceinline__ void mma_split(float* d, const uint32_t (&a)[PIECES][4],
+                                          const uint32_t (&b)[PIECES][2]) {
+#pragma unroll
+  for (int s = 0; s < 6; ++s)
+    mma_bf16(d, a[split_a(s)][0], a[split_a(s)][1], a[split_a(s)][2], a[split_a(s)][3],
+             b[split_b(s)][0], b[split_b(s)][1]);
+}
+
+// The A fragment (16 rows x k16, row-major) of f32 rows in shared memory,
+// split: row r's k = 0 at a + r * ld (ld even, a 8-byte aligned). Lane
+// (g, t) holds rows g and g + 8 at k = 2t, 2t + 1 and 2t + 8, 2t + 9.
+// Where `half`, the tile has 8 rows: rows 8-15 are zeros, never read.
+__device__ __forceinline__ void a_frag_f32(const float* a, int ld, bool half,
+                                           uint32_t (&f)[PIECES][4]) {
+  const int lane = threadIdx.x & 31;
+  const float* r = a + (size_t)(lane >> 2) * ld + 2 * (lane & 3);
+  const float2 x0 = *reinterpret_cast<const float2*>(r);
+  const float2 x2 = *reinterpret_cast<const float2*>(r + 8);
+  split_into(x0.x, x0.y, f, 0);
+  split_into(x2.x, x2.y, f, 2);
+  if (half) {
+#pragma unroll
+    for (int i = 0; i < PIECES; ++i) f[i][1] = f[i][3] = 0u;
+  } else {
+    const float2 x1 = *reinterpret_cast<const float2*>(r + 8 * ld);
+    const float2 x3 = *reinterpret_cast<const float2*>(r + 8 * ld + 8);
+    split_into(x1.x, x1.y, f, 1);
+    split_into(x3.x, x3.y, f, 3);
+  }
+}
+
+// The B fragment (k16 x 8 columns) of an f32 operand stored k-major in
+// shared memory, [k][n] (B[k][n] at b[k * ld + n]), split. Lane (g, t)
+// holds column g at k = 2t, 2t + 1 and 2t + 8, 2t + 9.
+__device__ __forceinline__ void b_frag_f32_kn(const float* b, int ld, uint32_t (&f)[PIECES][2]) {
+  const int lane = threadIdx.x & 31;
+  const float* c = b + (size_t)(2 * (lane & 3)) * ld + (lane >> 2);
+  split_into(c[0], c[ld], f, 0);
+  split_into(c[8 * ld], c[9 * ld], f, 1);
+}
+
+// The same of an f32 operand stored n-major, [n][k] (B[k][n] at
+// b[n * ld + k], ld even, b 8-byte aligned)
+__device__ __forceinline__ void b_frag_f32_nk(const float* b, int ld, uint32_t (&f)[PIECES][2]) {
+  const int lane = threadIdx.x & 31;
+  const float* c = b + (size_t)(lane >> 2) * ld + 2 * (lane & 3);
+  const float2 x0 = *reinterpret_cast<const float2*>(c);
+  const float2 x1 = *reinterpret_cast<const float2*>(c + 8);
+  split_into(x0.x, x0.y, f, 0);
+  split_into(x1.x, x1.y, f, 1);
 }
 
 // the two halves of a cluster barrier: arrive (release) and wait (acquire),

@@ -77,9 +77,20 @@
 //    clusters' db partials. No atomics anywhere: every call gives the same
 //    bits, which resume relies on.
 //
-// Both products (bf16) stream 128 x 128 tiles through a three-stage
-// cp.async ring into ldmatrix and mma.sync. f32 compute keeps full f32
-// products (FMA on the CUDA cores, no TF32) in the same structure. Where a
+// Both products stream 128 x 128 tiles through a three-stage cp.async ring
+// into ldmatrix and mma.sync. f32 compute (the JAX kernel's
+// Precision.HIGHEST) takes every product on the same tensor cores as split
+// products (recur_chain.cuh: three bf16 pieces a value, the six leading
+// products of the pieces): a small launch (split_planes) writes the hi,
+// mid and lo planes of each product's operands once a call into the
+// wrapper's workspace, the ring carries all three, and each k16 step takes
+// six mma.sync products; the chain keeps W and the dhp row block f32 in
+// shared memory and splits each k16 step's fragments in registers (f32 at
+// 8 rows: the m16 tile's rows 8-15 absent, never read). The chain's W held
+// as three bf16 planes instead, split once a call (the same pieces, the
+// same bits), ran 1.07-1.08x slower in its best layout at GRU H=1024 B=64
+// and H=256 B=64 on an H100, level at H=256 B=128 (PERF.md section 6):
+// its 6 bytes a value against 4 leave narrower chunks of W. Where a
 // CTA's W rows do not fit beside the rest (wide layers), the chain streams
 // them every step through a ring of S stages that runs on across steps,
 // as the forward's does (csrc/rnn_fwd.cu): the wrapper's scratch holds W
@@ -129,8 +140,7 @@ using namespace recur_chain;
 
 constexpr int CHAIN_THREADS = 256;
 constexpr int CHAIN_WARPS = CHAIN_THREADS / 32;
-constexpr int UNITS_MAX = 4;  // (16 x 8) chain-product tiles per warp, bf16
-constexpr int OUTS_MAX = 8;   // chain-product outputs per thread, f32
+constexpr int UNITS_MAX = 4;  // (16 x 8) chain-product tiles per warp
 
 struct Ptrs {
   const void* xp[2];
@@ -148,8 +158,9 @@ struct Ptrs {
 
 struct GemmArgs {
   int T, B, H, GH, dir0, nsplit, klen;  // klen: rows of T*B per slice (MODE 1), a multiple of the K tile
-  const void* hr[2];   // the state history rounded to CT, per direction
-  const void* rhs[2];  // [K][GH] in CT per direction: W_hh (MODE 0), the rounded dhp (MODE 1)
+  const void* hr[2];   // the state history rounded to bf16 (or its pieces), per direction
+  const void* rhs[2];  // [K][GH] bf16 (or pieces) per direction: W_hh (MODE 0), dhp (MODE 1)
+  size_t hr_plane, rhs_plane;  // split products: elements from one piece to the next
   const float* bias;   // [D][GH] (MODE 0)
   float* c;            // MODE 0: hp [D][T*B][GH]; MODE 1: partials [D][S][H][GH]
 };
@@ -163,30 +174,35 @@ struct GemmArgs {
 // q + B (direction 1), zero where that falls outside [0, T*B): the
 // shifted history is read in place.
 
-// bf16: 128 x 128 tiles, 8 warps of 64 x 32, K in tiles of 32 through a
+// 128 x 128 tiles, 8 warps of 64 x 32, K in tiles of 32 through a
 // three-stage cp.async ring (8-byte copies: rows are 8-byte aligned for
 // any H divisible by 4; out-of-range rows and the shift's edge are
 // zero-filled). Every operand is copied in its global layout and ldmatrix
 // (.trans where the layout is k-major) forms the mma.sync fragments; rows
 // are padded by 16 bytes, so the ldmatrix reads are free of bank conflicts.
+// P: the bf16 pieces of each operand, 1 at bf16 compute; 3 at f32 (each
+// operand split beforehand into its hi, mid and lo planes by split_planes,
+// the ring carrying all three, and each k16 step taking the six products
+// of recur_chain.cuh, smallest first, over the warp's 16 tiles in turn).
 constexpr int TM = 128, TN = 128, TK = 32, TSTAGES = 3, TTHREADS = 256;
 constexpr int A_LD_MK = TK + 8;  // A as [m][k] (MODE 0: history rows)
 constexpr int A_LD_KM = TM + 8;  // A as [k][m] (MODE 1: history rows)
 constexpr int B_LD = TN + 8;     // B as [k][n]
 constexpr int A_TILE = TM * A_LD_MK > TK * A_LD_KM ? TM * A_LD_MK : TK * A_LD_KM;
 constexpr int B_TILE = TK * B_LD;
-constexpr int GEMM_BF16_SMEM = TSTAGES * (A_TILE + B_TILE) * 2;
+constexpr int gemm_smem(int P) { return TSTAGES * P * (A_TILE + B_TILE) * 2; }
+constexpr int KSLICE = 64;  // a weight-gradient slice's rows of T*B: a multiple of this
 
 __device__ __forceinline__ void cp_async8_zfill(void* smem_dst, const void* src, bool valid) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 8 : 0));
 }
-template <int MODE>
-__global__ void __launch_bounds__(TTHREADS) rnn_bwd_gemm_bf16(GemmArgs a) {
+template <int MODE, int P>
+__global__ void __launch_bounds__(TTHREADS) rnn_bwd_gemm(GemmArgs a) {
   extern __shared__ __align__(16) unsigned char gsm[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(gsm);  // [TSTAGES][A_TILE]
-  __nv_bfloat16* Bs = As + TSTAGES * A_TILE;                  // [TSTAGES][B_TILE]
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(gsm);  // [TSTAGES][P][A_TILE]
+  __nv_bfloat16* Bs = As + TSTAGES * P * A_TILE;              // [TSTAGES][P][B_TILE]
   const int B = a.B, H = a.H, GH = a.GH, TB = a.T * a.B;
   const int e = blockIdx.z / a.nsplit, s = blockIdx.z % a.nsplit;
   const int shift = a.dir0 + e == 0 ? -B : B;
@@ -194,31 +210,34 @@ __global__ void __launch_bounds__(TTHREADS) rnn_bwd_gemm_bf16(GemmArgs a) {
   const int k_begin = MODE == 0 ? 0 : s * a.klen;
   const int k_end = MODE == 0 ? H : min(TB, k_begin + a.klen);
   const int m0 = blockIdx.x * TM, n0 = blockIdx.y * TN;
-  const __nv_bfloat16* hr = static_cast<const __nv_bfloat16*>(a.hr[e]);
-  const __nv_bfloat16* rhs = static_cast<const __nv_bfloat16*>(a.rhs[e]);
   const int tid = threadIdx.x;
 
   auto load_tile = [&](int k0, int st) {
-    __nv_bfloat16* as = As + st * A_TILE;
-    __nv_bfloat16* bs = Bs + st * B_TILE;
 #pragma unroll
-    for (int i = 0; i < TM * TK / 4 / TTHREADS; ++i) {
-      const int c = tid + i * TTHREADS;
-      if (MODE == 0) {  // 128 rows m of 8 four-element chunks along k
-        const int ml = c / 8, kl = (c % 8) * 4;
-        const int q = m0 + ml, k = k0 + kl, src = q + shift;
-        const bool ok = q < M && k < k_end && src >= 0 && src < TB;
-        cp_async8_zfill(as + ml * A_LD_MK + kl, ok ? hr + (size_t)src * H + k : hr, ok);
-      } else {  // 32 rows k of 32 chunks along m
-        const int kl = c / 32, ml = (c % 32) * 4;
-        const int q = k0 + kl, m = m0 + ml, src = q + shift;
-        const bool ok = q < k_end && m < M && src >= 0 && src < TB;
-        cp_async8_zfill(as + kl * A_LD_KM + ml, ok ? hr + (size_t)src * H + m : hr, ok);
+    for (int p = 0; p < P; ++p) {
+      const __nv_bfloat16* hr = static_cast<const __nv_bfloat16*>(a.hr[e]) + p * a.hr_plane;
+      const __nv_bfloat16* rhs = static_cast<const __nv_bfloat16*>(a.rhs[e]) + p * a.rhs_plane;
+      __nv_bfloat16* as = As + (st * P + p) * A_TILE;
+      __nv_bfloat16* bs = Bs + (st * P + p) * B_TILE;
+#pragma unroll
+      for (int i = 0; i < TM * TK / 4 / TTHREADS; ++i) {
+        const int c = tid + i * TTHREADS;
+        if (MODE == 0) {  // 128 rows m of 8 four-element chunks along k
+          const int ml = c / 8, kl = (c % 8) * 4;
+          const int q = m0 + ml, k = k0 + kl, src = q + shift;
+          const bool ok = q < M && k < k_end && src >= 0 && src < TB;
+          cp_async8_zfill(as + ml * A_LD_MK + kl, ok ? hr + (size_t)src * H + k : hr, ok);
+        } else {  // 32 rows k of 32 chunks along m
+          const int kl = c / 32, ml = (c % 32) * 4;
+          const int q = k0 + kl, m = m0 + ml, src = q + shift;
+          const bool ok = q < k_end && m < M && src >= 0 && src < TB;
+          cp_async8_zfill(as + kl * A_LD_KM + ml, ok ? hr + (size_t)src * H + m : hr, ok);
+        }
+        const int kl = c / 32, nl = (c % 32) * 4;  // B: 32 rows k of 32 chunks along n
+        const int k = k0 + kl, n = n0 + nl;
+        const bool ok = k < k_end && n < GH;
+        cp_async8_zfill(bs + kl * B_LD + nl, ok ? rhs + (size_t)k * GH + n : rhs, ok);
       }
-      const int kl = c / 32, nl = (c % 32) * 4;  // B: 32 rows k of 32 chunks along n
-      const int k = k0 + kl, n = n0 + nl;
-      const bool ok = k < k_end && n < GH;
-      cp_async8_zfill(bs + kl * B_LD + nl, ok ? rhs + (size_t)k * GH + n : rhs, ok);
     }
   };
 
@@ -244,33 +263,42 @@ __global__ void __launch_bounds__(TTHREADS) rnn_bwd_gemm_bf16(GemmArgs a) {
     const int nx = kt + TSTAGES - 1;
     if (nx < nk) load_tile(k_begin + nx * TK, nx % TSTAGES);
     cp_async_commit();
-    const __nv_bfloat16* as = As + (kt % TSTAGES) * A_TILE;
-    const __nv_bfloat16* bs = Bs + (kt % TSTAGES) * B_TILE;
 #pragma unroll
     for (int ks = 0; ks < TK; ks += 16) {
-      uint32_t af[4][4], bfr[4][2];
+      uint32_t af[4][P][4], bfr[4][P][2];
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        if (MODE == 0)
-          ldsm_x4(af[mt], as + (wm + mt * 16 + lane % 16) * A_LD_MK + ks + (lane / 16) * 8);
-        else
-          ldsm_x4_t(af[mt], as + (ks + (lm / 2) * 8 + lr) * A_LD_KM + wm + mt * 16 + (lm % 2) * 8);
+      for (int p = 0; p < P; ++p) {
+        const __nv_bfloat16* as = As + ((kt % TSTAGES) * P + p) * A_TILE;
+        const __nv_bfloat16* bs = Bs + ((kt % TSTAGES) * P + p) * B_TILE;
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          if (MODE == 0)
+            ldsm_x4(af[mt][p], as + (wm + mt * 16 + lane % 16) * A_LD_MK + ks + (lane / 16) * 8);
+          else
+            ldsm_x4_t(af[mt][p],
+                      as + (ks + (lm / 2) * 8 + lr) * A_LD_KM + wm + mt * 16 + (lm % 2) * 8);
+        }
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t t4[4];
+          ldsm_x4_t(t4, bs + (ks + (lm % 2) * 8 + lr) * B_LD + wn + np * 16 + (lm / 2) * 8);
+          bfr[2 * np][p][0] = t4[0];
+          bfr[2 * np][p][1] = t4[1];
+          bfr[2 * np + 1][p][0] = t4[2];
+          bfr[2 * np + 1][p][1] = t4[3];
+        }
       }
+      // P = 1: the one product; P = 3: the six of the split, each over the 16 tiles
 #pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t t4[4];
-        ldsm_x4_t(t4, bs + (ks + (lm % 2) * 8 + lr) * B_LD + wn + np * 16 + (lm / 2) * 8);
-        bfr[2 * np][0] = t4[0];
-        bfr[2 * np][1] = t4[1];
-        bfr[2 * np + 1][0] = t4[2];
-        bfr[2 * np + 1][1] = t4[3];
+      for (int sp = 0; sp < (P == 1 ? 1 : 6); ++sp) {
+        const int pa = P == 1 ? 0 : split_a(sp), pb = P == 1 ? 0 : split_b(sp);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_bf16(acc[mt][nt], af[mt][pa][0], af[mt][pa][1], af[mt][pa][2], af[mt][pa][3],
+                     bfr[nt][pb][0], bfr[nt][pb][1]);
       }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc[mt][nt], af[mt][0], af[mt][1], af[mt][2], af[mt][3], bfr[nt][0],
-                   bfr[nt][1]);
     }
   }
   cp_async_wait<0>();
@@ -294,115 +322,38 @@ __global__ void __launch_bounds__(TTHREADS) rnn_bwd_gemm_bf16(GemmArgs a) {
       }
 }
 
-// f32 (full f32 products, no TF32): 64 x 64 tiles, K in tiles of 64 read
-// as 4-vectors along each operand's contiguous axis into registers while
-// the current tile is multiplied; each thread FMAs an 8 x 4 block.
-constexpr int GM = 64, GN = 64, GK = 64, GEMM_THREADS = 128;
-constexpr int GEMM_VECS = GM * GK / 4 / GEMM_THREADS;  // 4-vectors of A (and B) a thread loads per tile
-
-template <int MODE>
-__global__ void __launch_bounds__(GEMM_THREADS) rnn_bwd_gemm_f32(GemmArgs a) {
-  constexpr int LDF = GM + 4;  // [k][m] and [k][n] tiles
-  __shared__ __align__(16) float As[GK * LDF], Bs[GK * LDF];
-  const int B = a.B, H = a.H, GH = a.GH, TB = a.T * a.B;
-  const int e = blockIdx.z / a.nsplit, s = blockIdx.z % a.nsplit;
-  const int shift = a.dir0 + e == 0 ? -B : B;
-  const int M = MODE == 0 ? TB : H;
-  const int k_begin = MODE == 0 ? 0 : s * a.klen;
-  const int k_end = MODE == 0 ? H : min(TB, k_begin + a.klen);
-  const int m0 = blockIdx.x * GM, n0 = blockIdx.y * GN;
-  const float* hr = static_cast<const float*>(a.hr[e]);
-  const float* rhs = static_cast<const float*>(a.rhs[e]);
-  const int tid = threadIdx.x;
-
-  // vector v = tid + i * GEMM_THREADS of a tile: (x, y) = (4 * (v % 16), v / 16);
-  // A's vectors run along k (MODE 0) or m (MODE 1), B's along n
-  float4 ra[GEMM_VECS], rb[GEMM_VECS];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < GEMM_VECS; ++i) {
-      const int v = tid + i * GEMM_THREADS;
-      const int x = (v % 16) * 4, y = v / 16;
-      const int q = MODE == 0 ? m0 + y : k0 + y;  // the T*B row
-      const int col = MODE == 0 ? k0 + x : m0 + x;
-      const int src = q + shift;
-      const bool ok = q < (MODE == 0 ? M : k_end) && col < (MODE == 0 ? k_end : M) && src >= 0 &&
-                      src < TB;
-      ra[i] = ok ? *reinterpret_cast<const float4*>(hr + (size_t)src * H + col)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-      const int kb = k0 + y, n = n0 + x;
-      rb[i] = (kb < k_end && n < GH) ? *reinterpret_cast<const float4*>(rhs + (size_t)kb * GH + n)
-                                     : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < GEMM_VECS; ++i) {
-      const int v = tid + i * GEMM_THREADS;
-      const int x = (v % 16) * 4, y = v / 16;
-      if (MODE == 0) {
-        As[(x + 0) * LDF + y] = ra[i].x;
-        As[(x + 1) * LDF + y] = ra[i].y;
-        As[(x + 2) * LDF + y] = ra[i].z;
-        As[(x + 3) * LDF + y] = ra[i].w;
-      } else {
-        *reinterpret_cast<float4*>(As + y * LDF + x) = ra[i];
-      }
-      *reinterpret_cast<float4*>(Bs + y * LDF + x) = rb[i];
-    }
-  };
-
-  const int tm = tid / 16, tn = tid % 16;  // the thread's 8 x 4 outputs
-  float acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
-  load(k_begin);
-  for (int k0 = k_begin; k0 < k_end; k0 += GK) {
-    __syncthreads();  // nobody reads the previous tile any more
-    store();
-    __syncthreads();
-    if (k0 + GK < k_end) load(k0 + GK);
-#pragma unroll 4
-    for (int k = 0; k < GK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(As + k * LDF + tm * 8);
-      const float4 a1 = *reinterpret_cast<const float4*>(As + k * LDF + tm * 8 + 4);
-      const float4 b4 = *reinterpret_cast<const float4*>(Bs + k * LDF + tn * 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r * 4 + c] = fmaf(av[r], bv[c], acc[r * 4 + c]);
-    }
-  }
-
-  float* out = a.c + (MODE == 0 ? (size_t)e * M * GH : ((size_t)e * a.nsplit + s) * M * GH);
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int m = m0 + tm * 8 + r, n = n0 + tn * 4 + c;
-      if (m < M && n < GH)
-        out[(size_t)m * GH + n] = MODE == 0 ? acc[r * 4 + c] + a.bias[(size_t)e * GH + n]
-                                            : acc[r * 4 + c];
-    }
-}
-
-// one of the two products over all D directions (and nsplit slices)
-template <int MODE, typename CT>
+// one of the two products over all D directions (and nsplit slices), P
+// pieces an operand
+template <int MODE, int P>
 cudaError_t gemm(const GemmArgs& g, int D, cudaStream_t stream) {
   const int M = MODE == 0 ? g.T * g.B : g.H;
-  if (sizeof(CT) == 2) {
-    auto kernel = rnn_bwd_gemm_bf16<MODE>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           GEMM_BF16_SMEM);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((M + TM - 1) / TM, (g.GH + TN - 1) / TN, D * g.nsplit);
-    kernel<<<grid, TTHREADS, GEMM_BF16_SMEM, stream>>>(g);
-  } else {
-    const dim3 grid((M + GM - 1) / GM, (g.GH + GN - 1) / GN, D * g.nsplit);
-    rnn_bwd_gemm_f32<MODE><<<grid, GEMM_THREADS, 0, stream>>>(g);
+  auto kernel = rnn_bwd_gemm<MODE, P>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gemm_smem(P));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + TM - 1) / TM, (g.GH + TN - 1) / TN, D * g.nsplit);
+  kernel<<<grid, TTHREADS, gemm_smem(P), stream>>>(g);
+  return cudaGetLastError();
+}
+
+// x [n] f32 (n even, x 8-byte aligned) -> out [3][n] bf16: the hi, mid and
+// lo planes of its values (recur_chain.cuh split_bf16x3), the f32 route's
+// GEMM operands, written once a call
+__global__ void split_planes(const float* __restrict__ x, size_t n, __nv_bfloat16* __restrict__ out) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n / 2;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const float2 v = reinterpret_cast<const float2*>(x)[i];
+    uint32_t p[PIECES];
+    split_bf16x3(v.x, v.y, p);
+#pragma unroll
+    for (int k = 0; k < PIECES; ++k) reinterpret_cast<uint32_t*>(out + k * n)[i] = p[k];
   }
+}
+
+cudaError_t split_pieces(const void* x, size_t n, __nv_bfloat16* out, cudaStream_t stream) {
+  const size_t blocks = (n / 2 + 255) / 256;
+  split_planes<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+      static_cast<const float*>(x), n, out);
   return cudaGetLastError();
 }
 
@@ -509,7 +460,7 @@ __device__ __forceinline__ RowCopy row_copy(int bytes_per_row, int align_bits, i
 template <int CELL, typename CT, typename HT, bool CHUNKED, bool STREAM>
 __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainArgs a) {
   constexpr int G = NumGates<CELL>::G;
-  constexpr bool kMma = sizeof(CT) == 2;
+  constexpr bool kSplit = sizeof(CT) == 4;  // f32 compute: split products
   constexpr int padk = 16 / sizeof(CT);
   constexpr int NT = CHAIN_THREADS;
   cg::cluster_group cluster = cg::this_cluster();
@@ -861,14 +812,17 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
       aoff = 0;
       return buf;
     };
-    if constexpr (kMma) {
-      // (16 x 8) output tiles, one warp each; with fewer tiles than half the
-      // warps (and W resident), two warps share a tile, each taking half of
-      // k: the second half's sums pass through this step's staging buffer
-      // (read by now) and are added in a fixed order
-      const int ntn = hc / 8, units = (R / 16) * ntn;
+    {
+      // (16 x 8) output tiles, one warp each (f32 at 8 rows: the tile's
+      // rows 8-15 absent); with fewer tiles than half the warps (and W
+      // resident), two warps share a tile, each taking half of k: the second
+      // half's sums pass through this step's staging buffer (read by now) and
+      // are added in a fixed order. f32: each k16 step's fragments split in
+      // registers, six products (recur_chain.cuh mma_split).
+      const int ntn = hc / 8, units = ((R + 15) / 16) * ntn;
       const bool halves = resident && 2 * units <= CHAIN_WARPS;
       const int khalf = (kp / 16 + 1) / 2 * 16;
+      const bool half = R < 16;
       float acc[UNITS_MAX][4][4];  // four accumulators: four k16 steps in flight
 #pragma unroll
       for (int u = 0; u < UNITS_MAX; ++u)
@@ -876,6 +830,21 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
         for (int j = 0; j < 4; ++j)
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[u][j][i] = 0.0f;
+      // f32: acc[u][j] += the k16 steps of columns [k0, k1) of the row block
+      // at ap (its column 0) times W's at bp, step k going to accumulator
+      // ((k - kz) / 16) % 4
+      auto split_steps = [&](float (&au)[4][4], const CT* ap, const CT* bp, int k0, int k1,
+                             int kz) {
+        const float* a32 = reinterpret_cast<const float*>(ap);
+        const float* b32 = reinterpret_cast<const float*>(bp);
+#pragma unroll 2
+        for (int kk = k0; kk < k1; kk += 16) {
+          uint32_t af[PIECES][4], bf[PIECES][2];
+          a_frag_f32(a32 + kk, dstride, half, af);
+          b_frag_f32_nk(b32 + kk, wstride, bf);
+          mma_split(au[((kk - kz) >> 4) & 3], af, bf);
+        }
+      };
       if constexpr (resident) {
         int aoff;
         const CT* ablk = a_block(0, aoff);
@@ -887,6 +856,11 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
           if (slot < (halves ? 2 * units : units)) {
             const int mt = unit / ntn, nt = unit % ntn;
             const int kb = second ? khalf : 0, ke = halves && !second ? khalf : kp;
+            if constexpr (kSplit) {
+              split_steps(acc[u], ablk + (size_t)mt * 16 * dstride + aoff,
+                          wbuf + (size_t)nt * 8 * wstride, kb, ke, kb);
+              continue;
+            }
             // ldmatrix rows: A's 16 rows by two k halves, B's 8 rows (n) by four k quarters
             const CT* ap = ablk + (size_t)(mt * 16 + lane % 16) * dstride + aoff + (lane / 16) * 8;
             const CT* bp = wbuf + (size_t)(nt * 8 + lane % 8) * wstride + (lane / 8) * 8;
@@ -910,7 +884,8 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
       } else {
         // W streamed in pieces: the k16 step at chunk offset 64m + 16j goes
         // to accumulator j, as it would with the whole chunk at once (a
-        // piece starts on a multiple of 32: accumulators 0 and 1, or 2 and 3)
+        // piece starts on a multiple of 32 at bf16: accumulators 0 and 1,
+        // or 2 and 3)
         int g = step * np;
         for (int k0 = 0; k0 < kp; k0 += kc) {
           const int klen = min(kc, kp - k0);
@@ -925,6 +900,12 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
               const int slot = warp + u * CHAIN_WARPS;
               if (slot < units) {
                 const int mt = slot / ntn, nt = slot % ntn;
+                if constexpr (kSplit) {
+                  // the piece's column 0 is the chunk's column p0
+                  split_steps(acc[u], ablk + (size_t)mt * 16 * dstride + aoff + p0,
+                              wk + (size_t)nt * 8 * wstride, 0, plen, -p0);
+                  continue;
+                }
                 const CT* ap =
                     ablk + (size_t)(mt * 16 + lane % 16) * dstride + aoff + p0 + (lane / 16) * 8;
                 const CT* bp = wk + (size_t)(nt * 8 + lane % 8) * wstride + (lane / 8) * 8;
@@ -959,7 +940,8 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int r = mt * 16 + gid + (i >= 2 ? 8 : 0), c = nt * 8 + tig * 2 + (i & 1);
-            xpart[r * hc + c] = (acc[u][0][i] + acc[u][1][i]) + (acc[u][2][i] + acc[u][3][i]);
+            if (r < R)
+              xpart[r * hc + c] = (acc[u][0][i] + acc[u][1][i]) + (acc[u][2][i] + acc[u][3][i]);
           }
         }
       }
@@ -972,6 +954,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int r = mt * 16 + gid + (i >= 2 ? 8 : 0), c = nt * 8 + tig * 2 + (i & 1);
+            if (r >= R) continue;
             float v = (acc[u][0][i] + acc[u][1][i]) + (acc[u][2][i] + acc[u][3][i]);
             if (halves) v += xpart[r * hc + c];
             if (c < own) dh_s[r * hc + c] += v;
@@ -979,50 +962,6 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
         }
       }
       if (halves) __syncthreads();  // the next step's copies overwrite the staging buffer
-    } else {
-      const int nout = R * own;
-      float acc[OUTS_MAX];
-#pragma unroll
-      for (int o = 0; o < OUTS_MAX; ++o) acc[o] = 0.0f;
-      // over columns [c0, c0 + len) of the row block at ablk + aoff, W's
-      // from wk (its column c0 first)
-      auto product = [&](const CT* ablk, int aoff, const CT* wk, int c0, int len) {
-#pragma unroll
-        for (int o = 0; o < OUTS_MAX; ++o) {
-          const int pidx = tid + o * CHAIN_THREADS;
-          if (pidx < nout) {
-            const int r = pidx / own, c = pidx % own;
-            const float* ap = reinterpret_cast<const float*>(ablk) + (size_t)r * dstride + aoff + c0;
-            const float* bp = reinterpret_cast<const float*>(wk) + (size_t)c * wstride;
-            float s = acc[o];
-            for (int k = 0; k < len; ++k) s = fmaf(ap[k], bp[k], s);
-            acc[o] = s;
-          }
-        }
-      };
-      if constexpr (resident) {
-        int aoff;
-        const CT* ablk = a_block(0, aoff);
-        product(ablk, aoff, wbuf, 0, kp);
-      } else {
-        int g = step * np;
-        for (int k0 = 0; k0 < kp; k0 += kc) {
-          const int klen = min(kc, kp - k0);
-          int aoff;
-          const CT* ablk = a_block(k0, aoff);
-#pragma unroll 1
-          for (int p0 = 0; p0 < klen; p0 += kw, ++g) {
-            const CT* wk = piece_begin(g);
-            product(ablk, aoff, wk, p0, min(kw, klen - p0));
-            piece_end(g);
-          }
-        }
-      }
-#pragma unroll
-      for (int o = 0; o < OUTS_MAX; ++o) {
-        const int pidx = tid + o * CHAIN_THREADS;
-        if (pidx < nout) dh_s[(pidx / own) * hc + pidx % own] += acc[o];
-      }
     }
     if (one_block) cluster_arrive();  // this CTA no longer reads its row block
   }
@@ -1116,16 +1055,28 @@ bool plan_ok(const Plan& pl, int H, int kp) {
     return false;
   // chunked exchange: two chunk buffers, W streamed in the same chunks
   if (pl.xc < kp && (pl.blocks != 2 || pl.kc != pl.xc)) return false;
-  if (sizeof(CT) == 2)
-    return pl.R % 16 == 0 && (pl.R / 16) * (pl.hc / 8) <= UNITS_MAX * CHAIN_WARPS;
-  return pl.R * pl.hc <= OUTS_MAX * CHAIN_THREADS;
+  // whole m16 tiles of rows (f32 also 8 rows, half a tile)
+  const bool rows = pl.R % 16 == 0 || (sizeof(CT) == 4 && pl.R == 8);
+  return rows && ((pl.R + 15) / 16) * (pl.hc / 8) <= UNITS_MAX * CHAIN_WARPS;
+}
+
+// bf16 elements of the split products' workspace (f32 compute): the
+// pieces of the history [D][3][T*B*H], of W_hh [D][3][H*G*H] (GRU, LSTM:
+// the gate recompute) and, for the weight gradient, of its dhp
+// [D][3][T*B*G*H]
+size_t split_elems(int cell, int T, int B, int H, int D, int split) {
+  const int G = cell == kGRU ? 3 : cell == kLSTM ? 4 : 1;
+  const size_t TB = (size_t)T * B, GH = (size_t)G * H;
+  return 3 * (size_t)D * (TB * H + (cell != kRNN ? H * GH : 0) + (split ? 0 : TB * GH));
 }
 
 template <int CELL, typename CT, typename HT>
 int launch(int T, int B, int H, int D, int dir0, int split, const Plan& pl, const Ptrs& p,
            const float* mask, const void* w_hh, void* wpk, long long wpk_elems,
            const float* b_hh, const float* d_hfinal, float* hp_ws, float* ws_w, float* ws_b,
-           float* dw, float* db, cudaStream_t stream) {
+           float* dw, float* db, void* split_ws, long long split_ws_elems, cudaStream_t stream) {
+  constexpr bool kSplit = sizeof(CT) == 4;  // f32 compute: split products
+  constexpr int P = kSplit ? PIECES : 1;
   constexpr int G = NumGates<CELL>::G;
   const int GH = G * H, kp = (GH + 15) / 16 * 16;
   if (!plan_ok<CELL, CT>(pl, H, kp)) return (int)cudaErrorInvalidValue;
@@ -1147,20 +1098,44 @@ int launch(int T, int B, int H, int D, int dir0, int split, const Plan& pl, cons
       return (int)cudaErrorInvalidValue;
   }
 
+  // f32: the GEMMs' operands split into their pieces, each once a call
+  const size_t TB = (size_t)T * B;
+  __nv_bfloat16* ws = static_cast<__nv_bfloat16*>(split_ws);
+  __nv_bfloat16* hr_pieces = ws;                                  // [D][3][T*B*H]
+  __nv_bfloat16* w_pieces = hr_pieces + 3 * D * TB * H;          // [D][3][H*GH]
+  __nv_bfloat16* rhs_pieces = w_pieces + (CELL != kRNN ? 3 * (size_t)D * H * GH : 0);
+  if (kSplit) {
+    if (ws == nullptr || split_ws_elems != (long long)split_elems(CELL, T, B, H, D, split))
+      return (int)cudaErrorInvalidValue;
+    for (int e = 0; e < D; ++e) {
+      if ((err = split_pieces(p.hr[e], TB * H, hr_pieces + 3 * e * TB * H, stream)) != cudaSuccess)
+        return (int)err;
+      if (CELL != kRNN &&
+          (err = split_pieces(static_cast<const float*>(w_hh) + (size_t)e * H * GH, (size_t)H * GH,
+                         w_pieces + 3 * e * (size_t)H * GH, stream)) != cudaSuccess)
+        return (int)err;
+    }
+  }
+
   GemmArgs g = {};
   g.T = T;
   g.B = B;
   g.H = H;
   g.GH = GH;
   g.dir0 = dir0;
-  for (int e = 0; e < 2; ++e) g.hr[e] = p.hr[e];
+  for (int e = 0; e < 2; ++e)
+    g.hr[e] = kSplit ? (e < D ? hr_pieces + 3 * e * TB * H : nullptr) : p.hr[e];
+  g.hr_plane = kSplit ? TB * H : 0;
   if (CELL != kRNN) {  // the gate recompute, all T*B rows at once
     g.nsplit = 1;
     g.klen = H;
-    for (int e = 0; e < D; ++e) g.rhs[e] = static_cast<const CT*>(w_hh) + (size_t)e * H * GH;
+    for (int e = 0; e < D; ++e)
+      g.rhs[e] = kSplit ? static_cast<const void*>(w_pieces + 3 * e * (size_t)H * GH)
+                        : static_cast<const void*>(static_cast<const CT*>(w_hh) + (size_t)e * H * GH);
+    g.rhs_plane = kSplit ? (size_t)H * GH : 0;
     g.bias = b_hh;
     g.c = hp_ws;
-    if ((err = gemm<0, CT>(g, D, stream)) != cudaSuccess) return (int)err;
+    if ((err = gemm<0, P>(g, D, stream)) != cudaSuccess) return (int)err;
   }
 
   ChainArgs c = {};
@@ -1216,11 +1191,20 @@ int launch(int T, int B, int H, int D, int dir0, int split, const Plan& pl, cons
 
   // the weight gradient over T*B rows in nsplit slices, then the fixed-order sums
   g.nsplit = pl.nsplit;
-  g.klen = ((T * B + pl.nsplit - 1) / pl.nsplit + GK - 1) / GK * GK;  // a multiple of TK too
-  for (int e = 0; e < D; ++e) g.rhs[e] = CELL == kGRU ? p.dhp[e] : p.dxp[e];
+  g.klen = ((T * B + pl.nsplit - 1) / pl.nsplit + KSLICE - 1) / KSLICE * KSLICE;
+  for (int e = 0; e < D; ++e) {
+    const void* rhs = CELL == kGRU ? p.dhp[e] : p.dxp[e];
+    if (kSplit) {
+      __nv_bfloat16* pieces = rhs_pieces + 3 * e * TB * GH;
+      if ((err = split_pieces(rhs, TB * GH, pieces, stream)) != cudaSuccess) return (int)err;
+      rhs = pieces;
+    }
+    g.rhs[e] = rhs;
+  }
+  g.rhs_plane = kSplit ? TB * GH : 0;
   g.bias = nullptr;
   g.c = ws_w;
-  if ((err = gemm<1, CT>(g, D, stream)) != cudaSuccess) return (int)err;
+  if ((err = gemm<1, P>(g, D, stream)) != cudaSuccess) return (int)err;
   const int nw = H * GH, nb = GH;
   const int total = D * (nw + nb);
   int blocks = (total + 255) / 256;
@@ -1284,7 +1268,9 @@ extern "C" {
 // mode, the weight-gradient product's operand otherwise).
 // split: 0 also computes dw [D, H, G*H] and db [D, G*H] through ws_w
 // [D, nsplit, H, G*H] and ws_b [D, ceil(B/rows), G*H] f32; 1 touches
-// neither. Per-direction pointers the call does not use may be null. xc:
+// neither. split_ws: at f32 compute, scratch of split_ws_elems bf16
+// elements for the GEMMs' operands in pieces (rnn_bwd_split_elems; the
+// launcher checks the count), else null. Per-direction pointers the call does not use may be null. xc:
 // the columns of the dhp row block exchanged at a time (>= G*H: all; else
 // in chunks, with kc == xc and two blocks). nc > 8 asks for clusters of
 // more than 8 CTAs, which the launch allows. device: the CUDA ordinal the
@@ -1300,7 +1286,7 @@ int rnn_bwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int split,
                    long long wpk_elems, const float* b_hh,
                    const float* d_hfinal, void* dxp0, void* dxp1, void* dhp0, void* dhp1,
                    float* hp_ws, float* ws_w, float* ws_b, float* dw, float* db,
-                   void* stream) {
+                   void* split_ws, long long split_ws_elems, void* stream) {
   if (T <= 0 || B <= 0) return 0;
   if (H % 4 != 0 || D < 1 || D > 2 || dir0 < 0 || dir0 + D > 2 || cell < 0 || cell > 2)
     return (int)cudaErrorInvalidValue;
@@ -1311,7 +1297,7 @@ int rnn_bwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int split,
   const Plan pl = {nc, rows, hc, kc, stages, blocks, nsplit, xc, wstages, kw};
   return dispatch<Launch>(cell, cdt_bf16, hist_bf16, T, B, H, D, dir0, split, pl, p, mask, w_hh,
                           wpk, wpk_elems, b_hh, d_hfinal, hp_ws, ws_w, ws_b, dw, db,
-                          static_cast<cudaStream_t>(stream));
+                          split_ws, split_ws_elems, static_cast<cudaStream_t>(stream));
 }
 
 // How many clusters of nc chain CTAs (one a whole SM's shared memory) the
@@ -1322,6 +1308,11 @@ int rnn_bwd_cluster_slots(int device, int cell, int cdt_bf16, int hist_bf16, int
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   return dispatch<Slots>(cell, cdt_bf16, hist_bf16, nc, out);
+}
+
+// the bf16 elements of split_ws a call at f32 compute needs
+long long rnn_bwd_split_elems(int cell, int T, int B, int H, int D, int split) {
+  return (long long)split_elems(cell, T, B, H, D, split);
 }
 
 const char* rnn_bwd_error_string(int err) {

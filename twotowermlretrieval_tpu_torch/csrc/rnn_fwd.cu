@@ -50,11 +50,31 @@
 //      at step t.
 // No block-wide barrier on the resident path: everything but the cluster
 // barrier is warp-local. Every index map is worked out before the loop.
-// f32 compute keeps full f32 products (FMA on the CUDA cores, no TF32) in
-// the same structure, a thread owning up to 8 (row, column) elements, with
-// one block barrier before its push. No atomics and a fixed summation
-// order: two calls give the same bits, and a row of length 0 stays exactly
-// zero.
+// f32 compute (the JAX kernel's Precision.HIGHEST) runs the same units on
+// the same tensor cores as split products (recur_chain.cuh), six
+// mma.sync products a gate and k16 step, smallest first. W is split once
+// a call into its three bf16 pieces, held as three planes (WP: split as
+// it is loaded where resident, by rnn_fwd_pack_w_split where it streams,
+// in stages of any multiple of 16 rows) and read by ldmatrix like bf16 W;
+// where the planes do not keep the layout (f32 W resident where they
+// would stream, or in stages of 32 rows or more where theirs would hold
+// 16, and the widest layers, where two stages of 16 rows of planes do not
+// fit beside the f32 h row block), W stays f32 and each k16 step's B
+// fragment is split in registers. Both forms form the same
+// products in the same order: the same bits. The planes cost 6 bytes a
+// value against f32's 4, yet ran 1.02-1.42x faster in every layout timed
+// on an H100 (PERF.md section 6): the step is bound by the splits'
+// instructions, not W's bytes.
+// The h row block stays f32, each k16 step's A fragment split in
+// registers (a unit on the rows of the warp's unit before it takes that
+// one's): three bf16 planes of it, split once by the thread that writes
+// h, would take 6 bytes a value, and at H=1024 and 32 rows one such
+// block is 197 KB. A unit's rows are 16, or 8 at f32 where a CTA holds no
+// more (the m16 tile's rows 8-15 then zeros, never read); a row of h is
+// pushed as two 16-byte words, and at f32 a step's xp is read after the
+// product, whose fragments need the registers. No atomics and a fixed
+// summation order: two calls give the same bits, and a row of length 0
+// stays exactly zero.
 //
 // Wide layers (W streamed): where the CTA's columns of W do not fit beside
 // the rest, they stream through a ring of S stages of KC rows each, every
@@ -104,6 +124,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "recur_chain.cuh"
 
 namespace cg = cooperative_groups;
@@ -114,8 +136,7 @@ using namespace recur_chain;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int UNITS_MAX = 4;  // (16 rows x 8 columns) units per warp, bf16 (G tiles each)
-constexpr int OUTS_MAX = 8;   // (row, column) elements per thread, f32
+constexpr int UNITS_MAX = 4;  // (16 rows x 8 columns) units per warp (G tiles each)
 
 struct FwdArgs {
   int T, B, H;         // H: a multiple of 8
@@ -125,6 +146,7 @@ struct FwdArgs {
   const float* mask;   // [T][B]
   const void* w_hh;    // [D][H][G*H] CT
   const void* wpk;     // streamed: W packed by rnn_fwd_pack_w, [D][nc][chunks][kc][wld] CT
+                       // (WP: rnn_fwd_pack_w_split, [D][nc][chunks][3][kc][wld] bf16)
   const float* b_hh;   // [D][G*H]
   void* out[2];        // [T][B][H] HT per direction
   void* cout[2];       // LSTM cell history, as out
@@ -133,7 +155,8 @@ struct FwdArgs {
 
 // Byte offsets of one CTA's shared memory (ops/rnn_scan.py's
 // _fwd_smem_bytes mirrors the sizes): round(W)[:, own] as [kp][wld] where
-// resident, else the ring's S stages of [kc][wld]; the rounded h row
+// resident, else the ring's S stages of [kc][wld] (WP: three bf16 planes
+// of each, [3][kp or kc][wld]); the rounded h row
 // blocks [blocks][R][hld] (two where resident); the bias of the own gate
 // columns [G][HC] f32; streamed, the ring's full and empty barriers [2][S].
 // The pads keep ldmatrix's eight 16-byte rows on distinct banks.
@@ -142,18 +165,25 @@ struct FwdSmem {
   int wld, hld;
 };
 
-template <int CELL, typename CT>
+// WP (f32 compute): W held as its three bf16 pieces, [PIECES][rows][wld]
+// a stage (or resident), instead of f32
+template <typename CT, bool WP> struct WElem { using type = CT; };
+template <> struct WElem<float, true> { using type = __nv_bfloat16; };
+
+template <int CELL, typename CT, bool WP = false>
 __host__ __device__ FwdSmem fwd_smem(int R, int hc, int kp, int kc, int S, int blocks) {
   constexpr int G = NumGates<CELL>::G;
   constexpr int EPW = 16 / sizeof(CT);  // elements per 16 bytes
+  using WT = typename WElem<CT, WP>::type;
+  constexpr int WEPW = 16 / sizeof(WT), WPL = WP ? PIECES : 1;
   FwdSmem s;
-  s.wld = G * hc + (sizeof(CT) == 2 && (G * hc / 8) % 2 == 1 ? 2 * EPW : EPW);
+  s.wld = G * hc + (sizeof(WT) == 2 && (G * hc / 8) % 2 == 1 ? 2 * WEPW : WEPW);
   s.hld = kp + EPW;
   const bool streamed = kc < kp;
   const int kw = streamed ? kc : kp;
   size_t o = 0;
   s.w = o;
-  o += a16((size_t)kw * s.wld * sizeof(CT)) * (streamed ? S : 1);
+  o += a16((size_t)WPL * kw * s.wld * sizeof(WT)) * (streamed ? S : 1);
   s.h = o;
   o += a16((size_t)blocks * R * s.hld * sizeof(CT));
   s.bias = o;
@@ -193,16 +223,35 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
-__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+// Two neighbouring columns of the compute dtype: a bf16 pair in one
+// register (bf16), or a float2 (f32)
+template <typename CT> struct Pair { using type = __nv_bfloat162; };
+template <> struct Pair<float> { using type = float2; };
+__device__ __forceinline__ float pair_lo(float2 v) { return v.x; }
+__device__ __forceinline__ float pair_hi(float2 v) { return v.y; }
+__device__ __forceinline__ float pair_lo(__nv_bfloat162 v) { return __low2float(v); }
+__device__ __forceinline__ float pair_hi(__nv_bfloat162 v) { return __high2float(v); }
+template <typename P> __device__ __forceinline__ P pair_of(float x, float y);
+template <> __device__ __forceinline__ float2 pair_of<float2>(float x, float y) {
+  return make_float2(x, y);
+}
+template <> __device__ __forceinline__ __nv_bfloat162 pair_of<__nv_bfloat162>(float x, float y) {
+  return __floats2bfloat162_rn(x, y);
+}
 
 // STREAM: W streams through the ring (a template argument, so the
-// resident route compiles as if the ring did not exist)
-template <int CELL, typename CT, typename HT, bool STREAM>
+// resident route compiles as if the ring did not exist); WP: f32 compute
+// with W held as its bf16 pieces
+template <int CELL, typename CT, typename HT, bool STREAM, bool WP>
 __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
   constexpr int G = NumGates<CELL>::G;
-  constexpr bool kMma = sizeof(CT) == 2;
+  constexpr bool kSplit = sizeof(CT) == 4;  // f32 compute: split products
   constexpr int EPW = 16 / sizeof(CT);
+  constexpr int ROW_WORDS = 8 / EPW;  // 16-byte words of a unit row's 8 columns
+  using XPair = typename Pair<CT>::type;  // two columns of xp
+  using HPair = typename Pair<CT>::type;  // two columns of the h row block
+  using WT = typename WElem<CT, WP>::type;  // W's elements in shared memory
+  constexpr int WPL = WP ? PIECES : 1;      // W's planes
   cg::cluster_group cluster = cg::this_cluster();
   const int T = a.T, B = a.B, H = a.H, GH = G * H;
   const int R = a.R, hc = a.hc, kp = a.kp, kc = a.kc < a.kp ? a.kc : a.kp;
@@ -224,10 +273,11 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
   const CT* w = static_cast<const CT*>(a.w_hh) + (size_t)d * H * GH;
   const float* bias = a.b_hh + (size_t)d * GH;
 
-  const FwdSmem L = fwd_smem<CELL, CT>(R, hc, kp, kc, S, a.blocks);
+  const FwdSmem L = fwd_smem<CELL, CT, WP>(R, hc, kp, kc, S, a.blocks);
   const int wld = L.wld, hld = L.hld;
   extern __shared__ __align__(16) unsigned char smem[];
-  CT* wbuf = reinterpret_cast<CT*>(smem + L.w);  // resident W, or the ring's stages
+  WT* wbuf = reinterpret_cast<WT*>(smem + L.w);  // resident W, or the ring's stages
+  const size_t pstride = (size_t)(resident ? kp : kc) * wld;  // WP: elements of a plane
   CT* hbuf = reinterpret_cast<CT*>(smem + L.h);
   float* bias_s = reinterpret_cast<float*>(smem + L.bias);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar);  // [S], then empty [S]
@@ -237,11 +287,29 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
   // c < hc; zero past the owned columns and past H
   const int wpr = G * hc / EPW;  // 16-byte words of a wbuf row
   auto load_w = [&](int k0) {
+    if constexpr (WP) {  // split in registers, each piece into its plane
+      const int ppr = G * hc / 2;  // column pairs of a row
+#pragma unroll 1
+      for (int idx = tid; idx < kc * ppr; idx += THREADS) {
+        const int k = idx / ppr, n = (idx % ppr) * 2;
+        const int g = n / hc, c = n % hc;
+        const float2 v = c < own && k0 + k < H
+                             ? *reinterpret_cast<const float2*>(w + (size_t)(k0 + k) * GH + g * H +
+                                                                j0 + c)
+                             : make_float2(0.0f, 0.0f);
+        uint32_t pc[PIECES];
+        split_bf16x3(v.x, v.y, pc);
+#pragma unroll
+        for (int pl = 0; pl < PIECES; ++pl)
+          *reinterpret_cast<uint32_t*>(wbuf + pl * pstride + (size_t)k * wld + n) = pc[pl];
+      }
+      return;
+    }
 #pragma unroll 1
     for (int idx = tid; idx < kc * wpr; idx += THREADS) {
       const int k = idx / wpr, n = (idx % wpr) * EPW;
       const int g = n / hc, c = n % hc;
-      CT* dst = wbuf + (size_t)k * wld + n;
+      WT* dst = wbuf + (size_t)k * wld + n;
       if (c < own && k0 + k < H)
         cp_async16(dst, w + (size_t)(k0 + k) * GH + g * H + j0 + c);
       else
@@ -252,14 +320,17 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
 
   // streamed: the CTA's chunk x (of T * nch, in the order they are
   // multiplied) is its packed W chunk x % nch, copied into stage x % S
+  // (WP: a chunk is its three planes of kc rows, the rows past kp zeros)
   const int nch = (kp + kc - 1) / kc, total = T * nch;
-  const CT* wsrc =
-      resident ? nullptr : static_cast<const CT*>(a.wpk) + ((size_t)d * nc + q) * nch * kc * wld;
+  const size_t cstride = (size_t)WPL * kc * wld;  // elements of a packed chunk
+  const WT* wsrc =
+      resident ? nullptr : static_cast<const WT*>(a.wpk) + ((size_t)d * nc + q) * nch * cstride;
   auto copy_chunk = [&](int x, int st, uint64_t* bar) {
     const int c = x % nch;
-    const unsigned bytes = (unsigned)((size_t)min(kc, kp - c * kc) * wld * sizeof(CT));
+    const unsigned bytes =
+        (unsigned)((WP ? cstride : (size_t)min(kc, kp - c * kc) * wld) * sizeof(WT));
     mbar_arrive_expect_tx(bar, bytes);
-    bulk_copy(wbuf + (size_t)st * kc * wld, wsrc + (size_t)c * kc * wld, bytes, bar);
+    bulk_copy(wbuf + (size_t)st * cstride, wsrc + (size_t)c * cstride, bytes, bar);
   };
 
   // the h row blocks start at zero; rows past the batch and columns past
@@ -304,58 +375,65 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
   // streamed: as chunk g begins, one warp copies chunk g + S - 1 (its turn
   // in the round), and every warp waits for chunk g; each releases it after
   // its last read
-  auto chunk_begin = [&](int g) -> const CT* {
+  auto chunk_begin = [&](int g) -> const WT* {
     ring_turn(g, S, total, WARPS, full, empty, copy_chunk);
     mbar_wait(full + g % S, (g / S) & 1);
-    return wbuf + (size_t)(g % S) * kc * wld;
+    return wbuf + (size_t)(g % S) * cstride;
   };
   auto chunk_end = [&](int g) {
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + g % S);
   };
 
-  if constexpr (kMma) {
-    const int gid = lane / 4, tig = lane % 4;
-    const int ntn = hc / 8, units = (R / 16) * ntn;
-    // this warp's units: u = warp + i * WARPS, rows mt*16.., columns nt*8..;
-    // units past the owned columns or the existing rows stay off
-    bool on[UNITS_MAX];
-    int ucol[UNITS_MAX];       // the unit's first column within the CTA (nt * 8)
-    int arow[UNITS_MAX];       // ldmatrix A row offset: (mt*16 + lane%16) * hld + (lane/16)*8
-    int prow[UNITS_MAX];       // the unit's row this lane pushes: mt*16 + lane%16
-    int erow[UNITS_MAX][2];    // the rows of this lane's elements: mt*16 + gid (+8)
-    size_t xoff[UNITS_MAX][2]; // xp offset of those rows' elements at t = 0, gate 0
+  const int gid = lane / 4, tig = lane % 4;
+  const int ntn = hc / 8, units = ((R + 15) / 16) * ntn;
+  const bool half = R < 16;  // f32 at 8 rows: each m16 tile's rows 8-15 are absent
+  // this warp's units: u = warp + i * WARPS, rows mt*16.., columns nt*8..;
+  // units past the owned columns or the existing rows stay off
+  bool on[UNITS_MAX];
+  int ucol[UNITS_MAX];       // the unit's first column within the CTA (nt * 8)
+  int arow[UNITS_MAX];       // bf16: ldmatrix A row offset, (mt*16 + lane%16) * hld + (lane/16)*8;
+                             // f32: the tile's first row, mt*16 * hld
+  int prow[UNITS_MAX];       // the unit's row this lane pushes: mt*16 + lane%16
+  int erow[UNITS_MAX][2];    // the rows of this lane's elements: mt*16 + gid (+8)
+  size_t xoff[UNITS_MAX][2]; // xp offset of those rows' elements at t = 0, gate 0
+  bool same_rows[UNITS_MAX]; // f32: on the m16 tile of the unit before it, which is on
 #pragma unroll
-    for (int i = 0; i < UNITS_MAX; ++i) {
-      const int u = warp + i * WARPS;
-      const int mt = u / ntn, nt = u % ntn;
-      on[i] = u < units && nt * 8 < own && mt * 16 < nrows;
-      ucol[i] = nt * 8;
-      arow[i] = (mt * 16 + lane % 16) * hld + (lane / 16) * 8;
-      prow[i] = mt * 16 + lane % 16;
+  for (int i = 0; i < UNITS_MAX; ++i) {
+    const int u = warp + i * WARPS;
+    const int mt = u / ntn, nt = u % ntn;
+    on[i] = u < units && nt * 8 < own && mt * 16 < nrows;
+    same_rows[i] = i > 0 && on[i - 1] && (u - WARPS) / ntn == mt;
+    ucol[i] = nt * 8;
+    arow[i] = kSplit ? mt * 16 * hld : (mt * 16 + lane % 16) * hld + (lane / 16) * 8;
+    prow[i] = mt * 16 + lane % 16;
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        erow[i][hh] = mt * 16 + gid + hh * 8;
-        xoff[i][hh] = (size_t)(r0 + erow[i][hh]) * GH + j0 + nt * 8 + tig * 2;
-      }
+    for (int hh = 0; hh < 2; ++hh) {
+      erow[i][hh] = mt * 16 + gid + hh * 8;
+      xoff[i][hh] = (size_t)(r0 + erow[i][hh]) * GH + j0 + nt * 8 + tig * 2;
     }
-    float hcar[UNITS_MAX][4], ccar[UNITS_MAX][4];
+  }
+  float hcar[UNITS_MAX][4], ccar[UNITS_MAX][4];
 #pragma unroll
-    for (int i = 0; i < UNITS_MAX; ++i)
+  for (int i = 0; i < UNITS_MAX; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) hcar[i][e] = ccar[i][e] = 0.0f;
+    for (int e = 0; e < 4; ++e) hcar[i][e] = ccar[i][e] = 0.0f;
 
 #pragma unroll 1
-    for (int step = 0; step < T; ++step) {
-      const int t = d == 0 ? step : T - 1 - step;
-      const CT* cur = hbuf + (size_t)(one_block ? 0 : step & 1) * R * hld;
-      CT* nxt = hbuf + (size_t)(one_block ? 0 : (step + 1) & 1) * R * hld;
-      if (step + 1 < T) prefetch_step(d == 0 ? t + 1 : t - 1);
-      const size_t tb = (size_t)t * B;
+  for (int step = 0; step < T; ++step) {
+    const int t = d == 0 ? step : T - 1 - step;
+    const CT* cur = hbuf + (size_t)(one_block ? 0 : step & 1) * R * hld;
+    CT* nxt = hbuf + (size_t)(one_block ? 0 : (step + 1) & 1) * R * hld;
+    if (step + 1 < T) prefetch_step(d == 0 ? t + 1 : t - 1);
+    const size_t tb = (size_t)t * B;
 
-      // 1. this step's xp (bf16 pairs) and mask of the thread's elements
-      uint32_t xr[UNITS_MAX][G][2];
-      float mk[UNITS_MAX][2];
+    // 1. this step's xp (pairs of columns) and mask of the thread's
+    // elements, from L2 (prefetched a step ahead): at bf16 before the
+    // product, so the loads overlap it; at f32 after it, where the split
+    // fragments need the registers the pairs would hold
+    XPair xr[UNITS_MAX][G][2];
+    float mk[UNITS_MAX][2];
+    auto load_x = [&]() {
 #pragma unroll
       for (int i = 0; i < UNITS_MAX; ++i)
 #pragma unroll
@@ -364,26 +442,91 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
           mk[i][hh] = ok ? __ldg(a.mask + tb + r0 + erow[i][hh]) : 0.0f;
 #pragma unroll
           for (int g = 0; g < G; ++g)
-            xr[i][g][hh] = ok ? __ldg(reinterpret_cast<const unsigned int*>(
+            xr[i][g][hh] = ok ? __ldg(reinterpret_cast<const XPair*>(
                                     xp + tb * GH + xoff[i][hh] + (size_t)g * H))
-                              : 0u;
+                              : XPair{};
         }
+    };
+    if constexpr (!kSplit) load_x();
 
-      // 2. the product, one accumulator per (unit, gate), over rows
-      // [k0, k0 + klen) of W held at wk (its row k0 first)
-      float acc[UNITS_MAX][G][4];
+    // 2. the product, one accumulator per (unit, gate), over rows
+    // [k0, k0 + klen) of W held at wk (its row k0 first)
+    float acc[UNITS_MAX][G][4];
 #pragma unroll
-      for (int i = 0; i < UNITS_MAX; ++i)
+    for (int i = 0; i < UNITS_MAX; ++i)
 #pragma unroll
-        for (int g = 0; g < G; ++g)
+      for (int g = 0; g < G; ++g)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.0f;
-      auto product = [&](const CT* wk, int k0, int klen) {
+        for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.0f;
+    auto product = [&](const WT* wk, int k0, int klen) {
+      if constexpr (WP) {
+        // f32, W in its pieces: A split in registers as below, B's pieces
+        // by ldmatrix from their planes, k32 steps and a last k16 step
+        // where klen is an odd multiple of 16 (the same products in the
+        // same order, so the same bits)
+        const float* ap = reinterpret_cast<const float*>(cur) + k0;
+        auto steps = [&](int kk, auto two_steps) {  // k16 steps at kk (and kk + 16)
+          constexpr bool two = decltype(two_steps)::value;
+          uint32_t af[2][PIECES][4];
+#pragma unroll
+          for (int i = 0; i < UNITS_MAX; ++i) {
+            if (!on[i]) continue;
+            if (!same_rows[i]) {
+              a_frag_f32(ap + arow[i] + kk, hld, half, af[0]);
+              if constexpr (two) a_frag_f32(ap + arow[i] + kk + 16, hld, half, af[1]);
+            }
+            const WT* bp = wk + (size_t)(kk + lane) * wld + ucol[i];  // k rows kk + lane
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              uint32_t bq[PIECES][4], b0[PIECES][2], b1[PIECES][2];
+#pragma unroll
+              for (int pl = 0; pl < PIECES; ++pl) {
+                if constexpr (two) {
+                  ldsm_x4_t(bq[pl], bp + pl * pstride + g * hc);
+                  b0[pl][0] = bq[pl][0];
+                  b0[pl][1] = bq[pl][1];
+                  b1[pl][0] = bq[pl][2];
+                  b1[pl][1] = bq[pl][3];
+                } else {  // rows kk..kk+15: the addresses of lanes 0-15
+                  ldsm_x2_t(b0[pl], bp + pl * pstride + g * hc);
+                }
+              }
+              mma_split(acc[i][g], af[0], b0);
+              if constexpr (two) mma_split(acc[i][g], af[1], b1);
+            }
+          }
+        };
+        int kk = 0;
+#pragma unroll 1
+        for (; kk + 32 <= klen; kk += 32) steps(kk, std::true_type{});
+        if (kk < klen) steps(kk, std::false_type{});
+      } else if constexpr (kSplit) {
+        // f32: each k16 step's fragments split in registers, six products a
+        // gate; k16 steps outer, so a unit on the rows of the unit before it
+        // (the same m16 tile) takes that unit's split A fragment
+        const float* ap = reinterpret_cast<const float*>(cur) + k0;
+        const float* bp = reinterpret_cast<const float*>(wk);
+#pragma unroll 1
+        for (int kk = 0; kk < klen; kk += 16) {
+          uint32_t af[PIECES][4];
+#pragma unroll
+          for (int i = 0; i < UNITS_MAX; ++i) {
+            if (!on[i]) continue;
+            if (!same_rows[i]) a_frag_f32(ap + arow[i] + kk, hld, half, af);
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              uint32_t bf[PIECES][2];
+              b_frag_f32_kn(bp + (size_t)kk * wld + g * hc + ucol[i], wld, bf);
+              mma_split(acc[i][g], af, bf);
+            }
+          }
+        }
+      } else {
 #pragma unroll
         for (int i = 0; i < UNITS_MAX; ++i) {
           if (!on[i]) continue;
           const CT* ap = cur + arow[i] + k0;
-          const CT* bp = wk + (size_t)lane * wld + ucol[i];  // k rows kk + lane
+          const WT* bp = wk + (size_t)lane * wld + ucol[i];  // k rows kk + lane
 #pragma unroll 2
           for (int kk = 0; kk < klen; kk += 32) {
             uint32_t a0[4], a1[4];
@@ -398,210 +541,109 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
             }
           }
         }
-      };
-      if constexpr (resident) {
-        product(wbuf, 0, kp);
-      } else {
-        int g = step * nch;
+      }
+    };
+    if constexpr (resident) {
+      product(wbuf, 0, kp);
+    } else {
+      int g = step * nch;
 #pragma unroll 1
-        for (int c = 0; c < nch; ++c, ++g) {
-          const CT* wk = chunk_begin(g);
-          product(wk, c * kc, min(kc, kp - c * kc));
-          chunk_end(g);
-        }
+      for (int c = 0; c < nch; ++c, ++g) {
+        const WT* wk = chunk_begin(g);
+        product(wk, c * kc, min(kc, kp - c * kc));
+        chunk_end(g);
       }
-      if (one_block) cluster_arrive();  // this CTA no longer reads the row block
-
-      // 3. gate math, history, and the rounded h into the next row block
-      // (one block: kept in registers until every peer has read the block)
-      __nv_bfloat162 hnew[UNITS_MAX][2];
-#pragma unroll
-      for (int i = 0; i < UNITS_MAX; ++i) {
-        if (!on[i]) continue;
-        const int col = ucol[i] + tig * 2;  // within the CTA
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int row = erow[i][hh];
-          float x[2][G], p[2][G];
-#pragma unroll
-          for (int g = 0; g < G; ++g) {
-            const float2 bv = *reinterpret_cast<const float2*>(bias_s + g * hc + col);
-            x[0][g] = bf16_lo(xr[i][g][hh]);
-            x[1][g] = bf16_hi(xr[i][g][hh]);
-            p[0][g] = acc[i][g][2 * hh] + bv.x;
-            p[1][g] = acc[i][g][2 * hh + 1] + bv.y;
-          }
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            cell_update<CELL>(x[e], p[e], mk[i][hh], hcar[i][2 * hh + e], ccar[i][2 * hh + e]);
-          const float h0 = hcar[i][2 * hh], h1 = hcar[i][2 * hh + 1];
-          hnew[i][hh] = __floats2bfloat162_rn(h0, h1);
-          if (!one_block)
-            *reinterpret_cast<__nv_bfloat162*>(nxt + (size_t)row * hld + j0 + col) = hnew[i][hh];
-          if (row < nrows) {
-            const size_t o = (tb + r0 + row) * H + j0 + col;
-            if constexpr (sizeof(HT) == 4)
-              *reinterpret_cast<float2*>(out + o) = make_float2(h0, h1);
-            if constexpr (CELL == kLSTM) {
-              const float c0 = ccar[i][2 * hh], c1 = ccar[i][2 * hh + 1];
-              if constexpr (sizeof(HT) == 4)
-                *reinterpret_cast<float2*>(cout + o) = make_float2(c0, c1);
-              else
-                *reinterpret_cast<__nv_bfloat162*>(cout + o) = __floats2bfloat162_rn(c0, c1);
-            }
-          }
-        }
-      }
-      if (one_block) {
-        cluster_wait();  // every CTA has read the block: the next h may go in
-#pragma unroll
-        for (int i = 0; i < UNITS_MAX; ++i) {
-          if (!on[i]) continue;
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh)
-            *reinterpret_cast<__nv_bfloat162*>(nxt + (size_t)erow[i][hh] * hld + j0 + ucol[i] +
-                                               tig * 2) = hnew[i][hh];
-        }
-      }
-      __syncwarp();
-
-      // 4. push the units' rows into every peer's next row block; lanes
-      // 0-15 and 16-31 take every other peer
-#pragma unroll
-      for (int i = 0; i < UNITS_MAX; ++i) {
-        if (!on[i] || prow[i] >= nrows) continue;
-        CT* src = nxt + (size_t)prow[i] * hld + j0 + ucol[i];
-        const uint4 v = *reinterpret_cast<const uint4*>(src);
-#pragma unroll 1
-        for (int pr = 1 + lane / 16; pr < nc; pr += 2) {
-          const int peer = q + pr < nc ? q + pr : q + pr - nc;
-          *reinterpret_cast<uint4*>(cluster.map_shared_rank(src, peer)) = v;
-        }
-        if constexpr (sizeof(HT) == 2)  // the bf16 history is the rounded h itself
-          if (lane < 16)
-            *reinterpret_cast<uint4*>(out + (tb + r0 + prow[i]) * H + j0 + ucol[i]) = v;
-      }
-      cluster.sync();  // 5. release the pushes, acquire the peers'
     }
+    if (one_block) cluster_arrive();  // this CTA no longer reads the row block
+    if constexpr (kSplit) load_x();
 
+    // 3. gate math, history, and h (bf16: rounded) into the next row block
+    // (one block: kept in registers until every peer has read the block)
+    HPair hnew[UNITS_MAX][2];
 #pragma unroll
     for (int i = 0; i < UNITS_MAX; ++i) {
       if (!on[i]) continue;
+      const int col = ucol[i] + tig * 2;  // within the CTA
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        if (erow[i][hh] < nrows) {
-          float* hf = a.h_final + ((size_t)d * B + r0 + erow[i][hh]) * H + j0 + ucol[i] + tig * 2;
-          *reinterpret_cast<float2*>(hf) = make_float2(hcar[i][2 * hh], hcar[i][2 * hh + 1]);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = erow[i][hh];
+        float x[2][G], p[2][G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float2 bv = *reinterpret_cast<const float2*>(bias_s + g * hc + col);
+          x[0][g] = pair_lo(xr[i][g][hh]);
+          x[1][g] = pair_hi(xr[i][g][hh]);
+          p[0][g] = acc[i][g][2 * hh] + bv.x;
+          p[1][g] = acc[i][g][2 * hh + 1] + bv.y;
         }
-    }
-  } else {
-    // f32: elements p = tid + o * THREADS in row-major order over (row, owned column)
-    const int nout = nrows * own;
-    int er[OUTS_MAX], ec[OUTS_MAX];
 #pragma unroll
-    for (int o = 0; o < OUTS_MAX; ++o) {
-      const int p = tid + o * THREADS;
-      er[o] = p < nout ? p / own : R;  // R: no element
-      ec[o] = p < nout ? p % own : 0;
-    }
-    // the push: 16-byte words of the own columns of the existing rows
-    const int pwords = own / EPW;
-    float hcar[OUTS_MAX], ccar[OUTS_MAX];
-#pragma unroll
-    for (int o = 0; o < OUTS_MAX; ++o) hcar[o] = ccar[o] = 0.0f;
-
-#pragma unroll 1
-    for (int step = 0; step < T; ++step) {
-      const int t = d == 0 ? step : T - 1 - step;
-      const CT* cur = hbuf + (size_t)(one_block ? 0 : step & 1) * R * hld;
-      CT* nxt = hbuf + (size_t)(one_block ? 0 : (step + 1) & 1) * R * hld;
-      if (step + 1 < T) prefetch_step(d == 0 ? t + 1 : t - 1);
-      const size_t tb = (size_t)t * B;
-
-      float xv[OUTS_MAX][G], mk[OUTS_MAX];
-#pragma unroll
-      for (int o = 0; o < OUTS_MAX; ++o) {
-        const bool ok = er[o] < R;
-        const size_t xo = (tb + r0 + er[o]) * GH + j0 + ec[o];
-        mk[o] = ok ? __ldg(a.mask + tb + r0 + er[o]) : 0.0f;
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-          xv[o][g] = ok ? to_f(__ldg(xp + xo + (size_t)g * H)) : 0.0f;
-      }
-
-      float acc[OUTS_MAX][G];
-#pragma unroll
-      for (int o = 0; o < OUTS_MAX; ++o)
-#pragma unroll
-        for (int g = 0; g < G; ++g) acc[o][g] = 0.0f;
-      auto product = [&](const CT* wk, int k0, int klen) {
-#pragma unroll
-        for (int o = 0; o < OUTS_MAX; ++o) {
-          if (er[o] >= R) continue;
-          const float* hr = reinterpret_cast<const float*>(cur) + (size_t)er[o] * hld + k0;
-          const float* wc = reinterpret_cast<const float*>(wk) + ec[o];
-          float s[G];
-#pragma unroll
-          for (int g = 0; g < G; ++g) s[g] = acc[o][g];
-#pragma unroll 4
-          for (int k = 0; k < klen; ++k) {
-            const float hk = hr[k];
-#pragma unroll
-            for (int g = 0; g < G; ++g) s[g] = fmaf(hk, wc[(size_t)k * wld + g * hc], s[g]);
+        for (int e = 0; e < 2; ++e)
+          cell_update<CELL>(x[e], p[e], mk[i][hh], hcar[i][2 * hh + e], ccar[i][2 * hh + e]);
+        const float h0 = hcar[i][2 * hh], h1 = hcar[i][2 * hh + 1];
+        hnew[i][hh] = pair_of<HPair>(h0, h1);
+        if (!one_block && row < R)
+          *reinterpret_cast<HPair*>(nxt + (size_t)row * hld + j0 + col) = hnew[i][hh];
+        if (row < nrows) {
+          const size_t o = (tb + r0 + row) * H + j0 + col;
+          if constexpr (sizeof(HT) == 4)
+            *reinterpret_cast<float2*>(out + o) = make_float2(h0, h1);
+          if constexpr (CELL == kLSTM) {
+            const float c0 = ccar[i][2 * hh], c1 = ccar[i][2 * hh + 1];
+            if constexpr (sizeof(HT) == 4)
+              *reinterpret_cast<float2*>(cout + o) = make_float2(c0, c1);
+            else
+              *reinterpret_cast<__nv_bfloat162*>(cout + o) = __floats2bfloat162_rn(c0, c1);
           }
-#pragma unroll
-          for (int g = 0; g < G; ++g) acc[o][g] = s[g];
-        }
-      };
-      if constexpr (resident) {
-        product(wbuf, 0, kp);
-      } else {
-        int g = step * nch;
-#pragma unroll 1
-        for (int c = 0; c < nch; ++c, ++g) {
-          const CT* wk = chunk_begin(g);
-          product(wk, c * kc, min(kc, kp - c * kc));
-          chunk_end(g);
         }
       }
-      if (one_block) cluster_arrive();  // this CTA no longer reads the row block
-
-#pragma unroll
-      for (int o = 0; o < OUTS_MAX; ++o) {
-        if (er[o] >= R) continue;
-        float p[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) p[g] = acc[o][g] + bias_s[g * hc + ec[o]];
-        cell_update<CELL>(xv[o], p, mk[o], hcar[o], ccar[o]);
-        const size_t ob = (tb + r0 + er[o]) * H + j0 + ec[o];
-        out[ob] = from_f<HT>(hcar[o]);
-        if constexpr (CELL == kLSTM) cout[ob] = from_f<HT>(ccar[o]);
-        if (!one_block) reinterpret_cast<float*>(nxt)[(size_t)er[o] * hld + j0 + ec[o]] = hcar[o];
-      }
-      if (one_block) {
-        cluster_wait();  // every CTA has read the block: the next h may go in
-#pragma unroll
-        for (int o = 0; o < OUTS_MAX; ++o)
-          if (er[o] < R) reinterpret_cast<float*>(nxt)[(size_t)er[o] * hld + j0 + ec[o]] = hcar[o];
-      }
-      __syncthreads();
-#pragma unroll 1
-      for (int idx = tid; idx < nrows * pwords; idx += THREADS) {
-        const int r = idx / pwords, wd = idx - r * pwords;
-        CT* src = nxt + (size_t)r * hld + j0 + wd * EPW;
-        const uint4 v = *reinterpret_cast<const uint4*>(src);
-#pragma unroll 1
-        for (int pr = 1; pr < nc; ++pr) {
-          const int peer = q + pr < nc ? q + pr : q + pr - nc;
-          *reinterpret_cast<uint4*>(cluster.map_shared_rank(src, peer)) = v;
-        }
-      }
-      cluster.sync();
     }
+    if (one_block) {
+      cluster_wait();  // every CTA has read the block: the next h may go in
+#pragma unroll
+      for (int i = 0; i < UNITS_MAX; ++i) {
+        if (!on[i]) continue;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          if (erow[i][hh] < R)
+            *reinterpret_cast<HPair*>(nxt + (size_t)erow[i][hh] * hld + j0 + ucol[i] +
+                                      tig * 2) = hnew[i][hh];
+      }
+    }
+    __syncwarp();
+
+    // 4. push the units' rows (8 columns: one 16-byte word at bf16, two at
+    // f32) into every peer's next row block; lanes 0-15 and 16-31 take
+    // every other peer
+#pragma unroll
+    for (int i = 0; i < UNITS_MAX; ++i) {
+      if (!on[i] || prow[i] >= nrows) continue;
+      CT* src = nxt + (size_t)prow[i] * hld + j0 + ucol[i];
+      uint4 v[ROW_WORDS];
+#pragma unroll
+      for (int w = 0; w < ROW_WORDS; ++w) v[w] = reinterpret_cast<const uint4*>(src)[w];
+#pragma unroll 1
+      for (int pr = 1 + lane / 16; pr < nc; pr += 2) {
+        const int peer = q + pr < nc ? q + pr : q + pr - nc;
+        uint4* dst = reinterpret_cast<uint4*>(cluster.map_shared_rank(src, peer));
+#pragma unroll
+        for (int w = 0; w < ROW_WORDS; ++w) dst[w] = v[w];
+      }
+      if constexpr (sizeof(HT) == 2)  // the bf16 history is the rounded h itself
+        if (lane < 16)
+          *reinterpret_cast<uint4*>(out + (tb + r0 + prow[i]) * H + j0 + ucol[i]) = v[0];
+    }
+    cluster.sync();  // 5. release the pushes, acquire the peers'
+  }
 
 #pragma unroll
-    for (int o = 0; o < OUTS_MAX; ++o)
-      if (er[o] < R) a.h_final[((size_t)d * B + r0 + er[o]) * H + j0 + ec[o]] = hcar[o];
+  for (int i = 0; i < UNITS_MAX; ++i) {
+    if (!on[i]) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      if (erow[i][hh] < nrows) {
+        float* hf = a.h_final + ((size_t)d * B + r0 + erow[i][hh]) * H + j0 + ucol[i] + tig * 2;
+        *reinterpret_cast<float2*>(hf) = make_float2(hcar[i][2 * hh], hcar[i][2 * hh + 1]);
+      }
   }
 }
 
@@ -641,28 +683,76 @@ __global__ void rnn_fwd_pack_w(PackArgs p) {
   }
 }
 
+// f32, W in its pieces: W [D][H][G*H] f32 -> [D][nc][nch][PIECES][kc][wld]
+// bf16, chunk c of CTA q holding the hi, mid and lo planes of its kc rows
+// as rnn_fwd_pack_w lays out one, zeros past H (a chunk is copied whole)
+__global__ void rnn_fwd_pack_w_split(PackArgs p) {
+  const int ppr = p.wld / 2, GH = p.G * p.H;
+  const size_t pairs = (size_t)p.D * p.nc * p.nch * p.kc * ppr;
+  const float* w = static_cast<const float*>(p.w);
+  uint32_t* dst = static_cast<uint32_t*>(p.wpk);
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < pairs;
+       idx += (size_t)gridDim.x * blockDim.x) {
+    size_t r = idx / ppr;
+    const int n = (int)(idx - r * ppr) * 2;
+    const int k = (int)(r % p.kc);
+    r /= p.kc;  // the chunk, (d * nc + q) * nch + c
+    const int c = (int)(r % p.nch), q = (int)(r / p.nch % p.nc), d = (int)(r / p.nch / p.nc);
+    const int g = n / p.hc, col = n % p.hc, j0 = q * p.hc, row = c * p.kc + k;
+    const int own = max(0, min(p.hc, p.H - j0));
+    float2 v = make_float2(0.0f, 0.0f);
+    if (g < p.G && col < own && row < p.H)
+      v = *reinterpret_cast<const float2*>(w + ((size_t)d * p.H + row) * GH + g * p.H + j0 + col);
+    uint32_t pc[PIECES];
+    split_bf16x3(v.x, v.y, pc);
+    const size_t base = r * PIECES * p.kc * ppr + (size_t)k * ppr + n / 2;
+#pragma unroll
+    for (int pl = 0; pl < PIECES; ++pl) dst[base + (size_t)pl * p.kc * ppr] = pc[pl];
+  }
+}
+
 struct Plan {
-  int nc, R, hc, kc, S, blocks;
+  int nc, R, hc, kc, S, blocks, wsplit;  // wsplit: f32, W in its bf16 pieces
 };
 
 template <int CELL, typename CT>
 bool plan_ok(const Plan& pl, int H, int kp) {
-  constexpr int kstep = sizeof(CT) == 2 ? 32 : 16;  // the bf16 product's k32 steps
+  // the bf16 product's k32 steps, the split product's k16 steps
+  constexpr int kstep = sizeof(CT) == 2 ? 32 : 16;
   if (H % 8 || pl.nc < 1 || pl.nc > 16 || pl.hc < 8 || pl.hc % 8 || pl.nc * pl.hc < H ||
       (pl.nc - 1) * pl.hc >= H || pl.kc < kstep || pl.kc % kstep ||
       (pl.kc < kp && (pl.S < 1 || pl.S > 8)) || (pl.blocks != 1 && pl.blocks != 2))
     return false;
-  if (sizeof(CT) == 2)
-    return pl.R >= 16 && pl.R % 16 == 0 && (pl.R / 16) * (pl.hc / 8) <= UNITS_MAX * WARPS;
-  return pl.R >= 8 && pl.R % 8 == 0 && pl.R * pl.hc <= OUTS_MAX * THREADS;
+  // W in its pieces only at f32
+  if (pl.wsplit && sizeof(CT) != 4) return false;
+  // whole m16 tiles of rows (f32 also 8 rows, half a tile)
+  const bool rows = pl.R % 16 == 0 || (sizeof(CT) == 4 && pl.R == 8);
+  return pl.R >= 8 && rows && ((pl.R + 15) / 16) * (pl.hc / 8) <= UNITS_MAX * WARPS;
 }
 
-// the packed W's elements of a streamed plan (rnn_fwd_pack_w's output)
+template <int CELL, typename CT>
+FwdSmem plan_smem(const Plan& pl, int kp, int kc) {
+  return pl.wsplit ? fwd_smem<CELL, CT, true>(pl.R, pl.hc, kp, kc, pl.S, pl.blocks)
+                   : fwd_smem<CELL, CT, false>(pl.R, pl.hc, kp, kc, pl.S, pl.blocks);
+}
+
+// the packed W's elements of a streamed plan (rnn_fwd_pack_w's output; in
+// its pieces, rnn_fwd_pack_w_split's, bf16)
 template <int CELL, typename CT>
 size_t packed_elems(const Plan& pl, int kp, int D) {
-  const FwdSmem L = fwd_smem<CELL, CT>(pl.R, pl.hc, kp, pl.kc, pl.S, pl.blocks);
+  const FwdSmem L = plan_smem<CELL, CT>(pl, kp, pl.kc);
   const int nch = (kp + pl.kc - 1) / pl.kc;
-  return (size_t)D * pl.nc * nch * pl.kc * L.wld;
+  return (size_t)D * pl.nc * nch * (pl.wsplit ? PIECES : 1) * pl.kc * L.wld;
+}
+
+template <int CELL, typename CT, typename HT>
+auto pick_kernel(bool streamed, bool wsplit) {
+  if constexpr (sizeof(CT) == 4)
+    if (wsplit)
+      return streamed ? rnn_fwd_kernel<CELL, CT, HT, true, true>
+                      : rnn_fwd_kernel<CELL, CT, HT, false, true>;
+  return streamed ? rnn_fwd_kernel<CELL, CT, HT, true, false>
+                  : rnn_fwd_kernel<CELL, CT, HT, false, false>;
 }
 
 template <int CELL, typename CT, typename HT>
@@ -675,12 +765,12 @@ int launch(int T, int B, int H, int D, const Plan& pl, const void* xp0, const vo
   if (!plan_ok<CELL, CT>(pl, H, kp)) return (int)cudaErrorInvalidValue;
   const int kc = pl.kc < kp ? pl.kc : kp;
   const bool streamed = kc < kp;
-  const FwdSmem L = fwd_smem<CELL, CT>(pl.R, pl.hc, kp, kc, pl.S, pl.blocks);
+  const FwdSmem L = plan_smem<CELL, CT>(pl, kp, kc);
   if (L.total > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   if (streamed &&
       (wpk == nullptr || wpk_elems != (long long)packed_elems<CELL, CT>(pl, kp, D)))
     return (int)cudaErrorInvalidValue;
-  auto kernel = streamed ? rnn_fwd_kernel<CELL, CT, HT, true> : rnn_fwd_kernel<CELL, CT, HT, false>;
+  auto kernel = pick_kernel<CELL, CT, HT>(streamed, pl.wsplit);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
@@ -690,9 +780,12 @@ int launch(int T, int B, int H, int D, const Plan& pl, const void* xp0, const vo
     return (int)err;
   if (streamed) {  // W packed chunk by chunk, one pass
     PackArgs p = {H, G, pl.nc, pl.hc, kc, kp, (kp + kc - 1) / kc, L.wld, D, w_hh, wpk};
-    const size_t words = (size_t)wpk_elems * sizeof(CT) / 16;
+    const size_t words = (size_t)wpk_elems * (pl.wsplit ? 2 : sizeof(CT)) / 16;
     const int blocks = (int)(words / 256 + 1 < 4096 ? words / 256 + 1 : 4096);
-    rnn_fwd_pack_w<CT><<<blocks, 256, 0, stream>>>(p);
+    if (pl.wsplit)
+      rnn_fwd_pack_w_split<<<blocks, 256, 0, stream>>>(p);
+    else
+      rnn_fwd_pack_w<CT><<<blocks, 256, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   const int ncl = (B + pl.R - 1) / pl.R;
@@ -763,7 +856,7 @@ struct Launch {
 template <int CELL, typename CT, typename HT>
 struct Slots {
   static int run(int nc, int* out) {
-    return cluster_slots(rnn_fwd_kernel<CELL, CT, HT, false>, nc, THREADS, out);
+    return cluster_slots(rnn_fwd_kernel<CELL, CT, HT, false, false>, nc, THREADS, out);
   }
 };
 
@@ -777,22 +870,25 @@ extern "C" {
 // cluster (up to 16; more than 8 is allowed on the kernel) of hc hidden
 // columns each, rows batch rows per cluster, W rows resident (kc >= H
 // rounded up to 32) or streamed through a ring of wstages stages of kc rows
-// each, blocks h row blocks (2, or 1). wpk: where W streams, scratch of
-// wpk_elems elements of the compute dtype for the packed W (fwd_plan's
-// layout; the launcher checks the count), else null. device: the CUDA
+// each, blocks h row blocks (2, or 1); wsplit (f32 compute): W held in
+// shared memory as its three bf16 pieces instead of f32. wpk: where W
+// streams, scratch of wpk_elems elements of the compute dtype (wsplit:
+// bf16) for the packed W (fwd_plan's layout; the launcher checks the
+// count), else null. device: the CUDA
 // ordinal the tensors live on (this library carries its own runtime, whose
 // current device is not PyTorch's). Returns cudaGetLastError() after the
 // launches (0 on success).
 int rnn_fwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int T, int B, int H,
                    int D, int nc, int rows, int hc, int kc, int wstages, int blocks,
-                   const void* xp0, const void* xp1, const float* mask, const void* w_hh,
+                   int wsplit, const void* xp0, const void* xp1, const float* mask,
+                   const void* w_hh,
                    void* wpk, long long wpk_elems, const float* b_hh, void* out0, void* out1,
                    void* c0, void* c1, float* h_final, void* stream) {
   if (T <= 0 || B <= 0) return 0;
   if (D < 1 || D > 2 || cell < 0 || cell > 2) return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  const Plan pl = {nc, rows, hc, kc, wstages, blocks};
+  const Plan pl = {nc, rows, hc, kc, wstages, blocks, wsplit};
   return dispatch<Launch>(cell, cdt_bf16, hist_bf16, T, B, H, D, pl, xp0, xp1, mask, w_hh, wpk,
                           wpk_elems, b_hh, out0, out1, c0, c1, h_final,
                           static_cast<cudaStream_t>(stream));

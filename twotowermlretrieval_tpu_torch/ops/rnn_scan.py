@@ -13,8 +13,9 @@ of up to 8 CTAs (16 for wide layers) per (direction, block of batch rows) walks 
 loop, each CTA keeping its hidden columns' slice of W_hh in shared memory
 (for wide layers, streamed through a ring of stages that bulk copies keep
 full across steps, from a copy of W the wrapper's scratch holds packed
-chunk by chunk), the step's product on the tensor cores at bf16, and each
-step's rounded h exchanged through distributed shared memory with one
+chunk by chunk), the step's product on the tensor cores (at f32 compute
+as split products: three bf16 pieces a value, six products), and each
+step's h exchanged through distributed shared memory with one
 cluster barrier a step (two where the CTA keeps one h row block to make
 room for the ring). :func:`fwd_plan` picks the layout. On a CPU tensor it runs :func:`rnn_layer_fwd_reference`, the plain
 PyTorch version of the same arithmetic. Both read xp rounded to the
@@ -35,7 +36,9 @@ of them run :func:`_bwd_reference`'s plain loop.
 The backward runs in three parts (see the note in ``csrc/rnn_bwd.cu``):
 the gate recompute as one product before the time loop, the dh chain in
 thread-block clusters that keep their rows of W in shared memory, and the
-weight gradient as one product after it. :func:`bwd_plan` picks the
+weight gradient as one product after it, each on the tensor cores (at
+f32 compute as split products, the two GEMMs' operands split into their
+bf16 pieces once a call). :func:`bwd_plan` picks the
 layout; where a CTA's rows of W do not fit, the kernel streams them
 through a ring of stages, as the forward does.
 
@@ -80,8 +83,16 @@ _INT = ctypes.c_int
 
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 _SMS = 132  # streaming multiprocessors of an H100 SXM
-_UNITS_MAX = 4 * 8  # (16 x 8) output units of a bf16 chain product one CTA holds (4 per warp)
-_OUTS_MAX = 8 * 256  # outputs of the f32 chain product one CTA holds (8 per thread)
+# (16 x 8) output units of a chain product one CTA holds (4 per warp), at
+# either compute dtype; a CTA of 8 rows (f32) holds units of 8 rows
+_UNITS_MAX = 4 * 8
+# The forward at f32: rows x columns a CTA takes at most, a choice within
+# the units it holds. The f32 h row block grows with the rows, and where W
+# streams its room is the ring's: at RNN H=3072 B=16 T=32 on an H100
+# (--layouts, PERF.md section 6) 16 rows a CTA, which the units allow,
+# left W f32 stages of 16 rows and took 8.05-8.22 ms, 8 rows 4.15 with W
+# in pieces in stages of 48.
+_F32_ROWS_COLS = 8 * 256
 # Clusters of nc one-CTA-per-SM blocks an H100 SXM (H100 80GB HBM3) holds at
 # once, by cluster size: cudaOccupancyMaxActiveClusters of both recurrent
 # kernels there, not 132 / nc (a cluster stays within one GPC). The plans'
@@ -90,12 +101,18 @@ H100_SXM_CLUSTER_SLOTS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 1
                           9: 9, 10: 7, 11: 7, 12: 7, 13: 7, 14: 7, 15: 7, 16: 7}
 _FWD_MULTIPLE = 8  # the forward kernel's H: whole (16 x 8) units, 16-byte pushes of bf16 h
 _BWD_MULTIPLE = 4  # the backward kernel's H: its rows copied in 8-byte words
-_GEMM_TILE = {2: 128, 4: 64}  # output tile of the two chain-free products, by compute dtype size
+_GEMM_TILE = 128  # output tile of the two chain-free products
 _RING_MAX = 8  # stages of a streamed W ring, at most
 
 
 def _up(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+def _units(rows: int, hc: int) -> int:
+    """The (16 x 8) output units of a CTA of ``rows`` rows and ``hc``
+    columns (8 rows count as one unit's)."""
+    return -(-rows // 16) * (hc // 8)
 
 
 def _lib():
@@ -105,7 +122,7 @@ def _lib():
         lib.rnn_fwd_launch.argtypes = [
             _INT, _INT, _INT, _INT,  # device, cell, cdt_bf16, hist_bf16
             _INT, _INT, _INT, _INT,  # T, B, H, D
-            _INT, _INT, _INT, _INT, _INT, _INT,  # nc, rows, hc, kc, wstages, blocks
+            _INT, _INT, _INT, _INT, _INT, _INT, _INT,  # nc, rows, hc, kc, wstages, blocks, wsplit
             _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # xp0, xp1, mask, w_hh
             _VOIDP, ctypes.c_longlong, _VOIDP,  # wpk, wpk_elems, b_hh
             _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # out0, out1, c0, c1, h_final
@@ -140,66 +157,90 @@ def _check_args(cell, xps, mask, w_hh, b_hh):
     return D, T, B, H, GH
 
 
-def _fwd_wld(G: int, hc: int, cdt_bytes: int) -> int:
+def _fwd_wld(G: int, hc: int, cdt_bytes: int, wsplit: bool = False) -> int:
     """Elements of a row of the forward's W in shared memory: the CTA's G
     gate blocks of ``hc`` columns and the pad that keeps ldmatrix's eight
-    16-byte rows on distinct banks (``fwd_smem``'s wld in csrc/rnn_fwd.cu)."""
-    epw = 16 // cdt_bytes
-    return G * hc + (2 * epw if cdt_bytes == 2 and (G * hc // 8) % 2 else epw)
+    16-byte rows on distinct banks (``fwd_smem``'s wld in csrc/rnn_fwd.cu;
+    ``wsplit``: W in its bf16 pieces, laid out as bf16)."""
+    wb = 2 if wsplit else cdt_bytes
+    epw = 16 // wb
+    return G * hc + (2 * epw if wb == 2 and (G * hc // 8) % 2 else epw)
 
 
 def _fwd_smem_bytes(cell: str, H: int, cdt_bytes: int, rows: int, hc: int, kc: int,
-                    wstages: int = 0, blocks: int = 2) -> int:
+                    wstages: int = 0, blocks: int = 2, wsplit: bool = False) -> int:
     """Shared memory of one CTA of the forward kernel: the CTA's columns of
     round(W) (all ``kc`` >= H rows where resident; else a ring of
     ``wstages`` stages of ``kc`` rows each with a full and an empty
-    barrier a stage, or, ``wstages`` 0, one buffer of ``kc`` rows),
+    barrier a stage, or, ``wstages`` 0, one buffer of ``kc`` rows; with
+    ``wsplit``, f32 compute, as three bf16 planes),
     ``blocks`` rounded h row blocks (2, or 1 with a second cluster barrier
     a step) and the bias of its gate columns (``fwd_smem`` in
     csrc/rnn_fwd.cu, region by region). H is the kernel's width, a
     multiple of 8."""
     G = _GATES[cell]
     kp = _up(H, 32)
-    wld = _fwd_wld(G, hc, cdt_bytes)
+    wld = _fwd_wld(G, hc, cdt_bytes, wsplit)
+    wrow = wld * (3 * 2 if wsplit else cdt_bytes)
     hld = kp + 16 // cdt_bytes
     ring = wstages if kc < kp and wstages else 0
-    w = _up(min(kc, kp) * wld * cdt_bytes, 16) * max(ring, 1) + 16 * ring
+    w = _up(min(kc, kp) * wrow, 16) * max(ring, 1) + 16 * ring
     return w + _up(blocks * rows * hld * cdt_bytes, 16) + _up(G * hc * 4, 16)
 
 
 def _fwd_packed_elems(cell: str, plan: dict, D: int, cdt_bytes: int) -> int:
     """Elements of the forward's packed W (``rnn_fwd_pack_w`` in
-    csrc/rnn_fwd.cu: [D][nc][chunks][kc][wld]) where the plan streams W,
-    else 0."""
+    csrc/rnn_fwd.cu: [D][nc][chunks][kc][wld]; ``wsplit``,
+    ``rnn_fwd_pack_w_split``: [D][nc][chunks][3][kc][wld] bf16) where the
+    plan streams W, else 0."""
     if plan["resident"]:
         return 0
-    kc = plan["kc"]
-    return (D * plan["nc"] * -(-_up(plan["H"], 32) // kc) * kc
-            * _fwd_wld(_GATES[cell], plan["hc"], cdt_bytes))
+    kc, wsplit = plan["kc"], plan.get("wsplit", False)
+    return (D * plan["nc"] * -(-_up(plan["H"], 32) // kc) * (3 if wsplit else 1) * kc
+            * _fwd_wld(_GATES[cell], plan["hc"], cdt_bytes, wsplit))
 
 
 def _fwd_layout(cell: str, Hk: int, cb: int, R: int, hc: int):
     """The forward's layout at these rows and columns a CTA: (kc, wstages,
-    blocks, smem), W resident where it fits beside two h row blocks (kc =
-    H rounded up to 32, no ring), else streamed through a ring of two
-    stages of the most rows that fit (a multiple of 32 at bf16, 16 at
-    f32; as many more stages as the room holds, up to 8), with one h row
-    block where that makes the stages wider and so the chunks a step
-    fewer; None where no ring of two fits."""
+    blocks, smem, wsplit), W resident where it fits beside two h row
+    blocks (kc = H rounded up to 32, no ring), else streamed through a ring
+    of two stages of the most rows that fit (a multiple of 32 at bf16, 16
+    at f32; as many more stages as the room holds, up to 8), with one h
+    row block where that makes the stages wider and so the chunks a step
+    fewer; None where no ring of two fits. At f32 compute W is held as its
+    three bf16 pieces (``wsplit``: split once a call, not every step)
+    wherever they keep the layout's kind (resident, or a ring of two
+    stages), else as f32, and as f32 where the pieces' stages would hold
+    16 rows and f32's 32 or more. On an H100 (the --layouts sweep, PERF.md
+    section 6) the pieces ran 1.02-1.42x faster than f32 in each of the
+    155 layouts that took both at the same stage rows, 1.25x faster in
+    stages of 32 rows than f32 in stages of 48, 1.11x in stages of 48
+    against 64, and 1.04-1.08x slower in stages of 16 against 32. f32 W
+    also stays where it is resident and the pieces would stream, and at
+    the widest layers, where two stages of 16 rows in pieces (6 bytes a
+    value against 4) do not fit beside the f32 h row block."""
     kp = _up(Hk, 32)
-    smem = _fwd_smem_bytes(cell, Hk, cb, R, hc, kp)
-    if smem <= _SMEM_LIMIT:
-        return kp, 0, 2, smem
-    wrow = _fwd_wld(_GATES[cell], hc, cb) * cb
     step = 32 if cb == 2 else 16
-    best = None
-    for blocks in (2, 1):
-        room = _SMEM_LIMIT - _fwd_smem_bytes(cell, Hk, cb, R, hc, 0, 0, blocks)
-        kc = min(kp - step, (room // 2 - 16) // wrow // step * step)
-        if kc >= step and (best is None or -(-kp // kc) < -(-kp // best[0])):
-            stages = min(_RING_MAX, room // (kc * wrow + 16))
-            best = (kc, stages, blocks, _fwd_smem_bytes(cell, Hk, cb, R, hc, kc, stages, blocks))
-    return best
+    forms = (True, False) if cb == 4 else (False,)
+    for wsplit in forms:
+        smem = _fwd_smem_bytes(cell, Hk, cb, R, hc, kp, wsplit=wsplit)
+        if smem <= _SMEM_LIMIT:
+            return kp, 0, 2, smem, wsplit
+    rings = []
+    for wsplit in forms:
+        wrow = _fwd_wld(_GATES[cell], hc, cb, wsplit) * (6 if wsplit else cb)
+        best = None
+        for blocks in (2, 1):
+            room = _SMEM_LIMIT - _fwd_smem_bytes(cell, Hk, cb, R, hc, 0, 0, blocks)
+            kc = min(kp - step, (room // 2 - 16) // wrow // step * step)
+            if kc >= step and (best is None or -(-kp // kc) < -(-kp // best[0])):
+                stages = min(_RING_MAX, room // (kc * wrow + 16))
+                best = (kc, stages, blocks,
+                        _fwd_smem_bytes(cell, Hk, cb, R, hc, kc, stages, blocks, wsplit), wsplit)
+        rings.append(best)
+    if cb == 4 and rings[0] is not None and (rings[0][0] > 16 or rings[1][0] < 32):
+        return rings[0]
+    return rings[-1]
 
 
 def _cluster_sizes(Hk: int, slots):
@@ -228,7 +269,8 @@ def fwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16"
     ``kc`` rows of the CTA's columns of W a stage holds (``resident``:
     all of them, loaded once; else streamed every step through a ring of
     ``wstages`` stages that the copies keep full across steps, 0 where
-    resident); ``blocks`` rounded h row blocks (2; 1 where a second
+    resident); ``wsplit``: at f32 compute, W held as its three bf16
+    pieces (:func:`_fwd_layout`); ``blocks`` rounded h row blocks (2; 1 where a second
     cluster barrier a step frees room for a ring of at least 3 stages that
     two blocks do not leave); ``smem`` bytes per CTA. There is no staging
     depth for xp: a step's xp goes to registers, the next step's is
@@ -262,10 +304,8 @@ def fwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16"
     cands = (16, 32, 64, 128) if cb == 2 else (8, 16, 32, 64)
     plans = []
     for nc, hc in _cluster_sizes(Hk, slots):
-        if cb == 2:
-            held = [R for R in cands if (R // 16) * (hc // 8) <= _UNITS_MAX]
-        else:
-            held = [R for R in cands if R * hc <= _OUTS_MAX]
+        held = [R for R in cands if _units(R, hc) <= _UNITS_MAX
+                and (cb == 2 or R * hc <= _F32_ROWS_COLS)]
         if plans:  # where 8 stream W: 16 at the rows 8 took, all on the card at once
             R = plans[0]["rows"]
             if plans[0]["resident"] or R not in held or D * -(-B // R) > slots[nc]:
@@ -277,11 +317,11 @@ def fwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16"
             continue
         least = cands[0] if B <= cands[0] else cands[1]
         big = [lay for lay in layouts if lay[0] >= least] or layouts[-1:]
-        R, kc, stages, blocks, smem = next(
+        R, kc, stages, blocks, smem, wsplit = next(
             (lay for lay in big if D * -(-B // lay[0]) <= slots[nc]), big[-1])
         plans.append({"H": Hk, "nc": nc, "hc": hc, "rows": R, "clusters": -(-B // R), "kc": kc,
                       "resident": kc >= kp, "wstages": stages, "blocks": blocks, "smem": smem,
-                      "slots": slots[nc]})
+                      "slots": slots[nc], "wsplit": wsplit})
     return plans[-1] if plans else None
 
 
@@ -408,7 +448,9 @@ def rnn_layer_fwd(
     h_final = torch.empty((D, B, H), dtype=torch.float32, device=dev)
     # where W streams, the kernel's scratch for W packed chunk by chunk
     n_pack = _fwd_packed_elems(cell, plan, D, cdt.itemsize)
-    wpk = torch.empty(n_pack, dtype=cdt, device=dev) if n_pack else None
+    wsplit = plan.get("wsplit", False)
+    wpk = (torch.empty(n_pack, dtype=torch.bfloat16 if wsplit else cdt, device=dev)
+           if n_pack else None)
 
     def ptr(ts, i):
         return ts[i].data_ptr() if i < len(ts) else None
@@ -420,7 +462,7 @@ def rnn_layer_fwd(
             torch.cuda.current_device(),  # the tensors' device (inside the with)
             _CELL_CODE[cell], int(cdt == torch.bfloat16), int(hist == torch.bfloat16),
             T, B, H, D, plan["nc"], plan["rows"], plan["hc"], plan["kc"], plan["wstages"],
-            plan["blocks"], ptr(xs, 0), ptr(xs, 1), m.data_ptr(), w.data_ptr(),
+            plan["blocks"], int(wsplit), ptr(xs, 0), ptr(xs, 1), m.data_ptr(), w.data_ptr(),
             None if wpk is None else wpk.data_ptr(), n_pack, b.data_ptr(),
             ptr(outs, 0), ptr(outs, 1), ptr(c_hist, 0), ptr(c_hist, 1),
             h_final.data_ptr(), stream,
@@ -444,7 +486,8 @@ def rnn_layer_fwd_reference(
     history_in_cdt: bool = False,
 ):
     """Plain PyTorch version of the kernel: a Python loop over time, the
-    directions' products in f32 on operands rounded to the compute dtype."""
+    directions' products in f32 (:func:`_mm`) on operands rounded to the
+    compute dtype."""
     D, T, B, H, GH = _check_args(cell, xps, mask, w_hh, b_hh)
     cdt = torch_dtype(compute_dtype)
     hist = cdt if history_in_cdt else torch.float32
@@ -463,7 +506,7 @@ def rnn_layer_fwd_reference(
             xp = xs[d][t]
             m = m_all[t][:, None]
             h_prev = h[d]
-            hp = torch.matmul(h_prev.to(cdt).float(), w[d]) + b[d]
+            hp = _mm(h_prev.to(cdt).float(), w[d]) + b[d]
             if cell == "GRU":
                 r = torch.sigmoid(xp[:, :H] + hp[:, :H])
                 z = torch.sigmoid(xp[:, H : 2 * H] + hp[:, H : 2 * H])
@@ -524,8 +567,11 @@ def _bwd_lib():
             _VOIDP, _VOIDP,  # b_hh, d_hfinal
             _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # dxp0, dxp1, dhp0, dhp1
             _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # hp_ws, ws_w, ws_b, dw, db
+            _VOIDP, ctypes.c_longlong,  # split_ws, split_ws_elems
             _VOIDP,  # stream
         ]
+        lib.rnn_bwd_split_elems.restype = ctypes.c_longlong
+        lib.rnn_bwd_split_elems.argtypes = [_INT] * 6  # cell, T, B, H, D, split
         lib.rnn_bwd_error_string.restype = ctypes.c_char_p
         lib.rnn_bwd_error_string.argtypes = [_INT]
         lib.rnn_bwd_cluster_slots.restype = _INT
@@ -649,12 +695,18 @@ def bwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16"
     rows_all = (32, 16) if cb == 2 else (16, 8)
     if B <= rows_all[1]:
         rows_all = rows_all[1:]
+    whole = sizes
+    if cb == 4 and len(sizes) > 1 and _bwd_smem_bytes(
+            cell, H, cb, hb, rows_all[-1], sizes[0][1], kp, 1, 1) > _SMEM_LIMIT:
+        # f32: where clusters of 8 would stream W, clusters of 16 first, each
+        # CTA drawing half of W a step (the --layouts sweep at GRU H=1024 B=64
+        # T=32 on an H100: 7.15-7.49 ms against 10.56, PERF.md section 6)
+        whole = sizes[::-1]
     best = None
-    for chunked, (nc, hc) in [(False, x) for x in sizes] + [(True, x) for x in sizes[::-1]]:
+    for chunked, (nc, hc) in [(False, x) for x in whole] + [(True, x) for x in sizes[::-1]]:
         for blocks in ((2,) if chunked else (2, 1)):
             for rows in rows_all:
-                held = (rows // 16) * (hc // 8) if cb == 2 else rows * hc
-                if held > (_UNITS_MAX if cb == 2 else _OUTS_MAX):
+                if _units(rows, hc) > _UNITS_MAX:
                     continue
                 for resident in ((False,) if chunked else (True, False)):
                     for stages in (2, 1):
@@ -697,8 +749,7 @@ def bwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16"
         if ring is None:
             return None
         kw, wstages, stages, blocks, smem = ring
-    tile = _GEMM_TILE[cb]
-    tiles = D * -(-H // tile) * -(-GH // tile)
+    tiles = D * -(-H // _GEMM_TILE) * -(-GH // _GEMM_TILE)
     nsplit = max(1, min(-(-2 * _SMS // tiles), -(-T * B // 64)))
     return {"H": H, "nc": nc, "hc": hc, "rows": rows, "clusters": -(-B // rows), "kc": kc,
             "resident": resident, "stages": stages, "blocks": blocks, "xc": xc,
@@ -721,7 +772,10 @@ def _check_bwd_args(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal):
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The plain backward's f32 products (operands already rounded)."""
+    """The plain versions' f32 products, forward and backward (operands
+    already rounded). At f32 compute the kernels form them as split
+    products; a test puts ``utils/dtypes.py`` ``matmul_split`` here to run
+    that arithmetic on the CPU."""
     return torch.matmul(a, b)
 
 
@@ -895,6 +949,11 @@ def _bwd_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
     # where W streams, the chain's scratch for W packed piece by piece
     n_pack = _bwd_packed_elems(cell, plan, D, cdt.itemsize)
     wpk = torch.empty(n_pack, dtype=cdt, device=dev) if n_pack else None
+    lib = _bwd_lib()
+    # f32 compute: the GEMMs' operands in their bf16 pieces, written once a call
+    n_split = (lib.rnn_bwd_split_elems(_CELL_CODE[cell], T, B, H, D, int(split))
+               if cdt == torch.float32 else 0)
+    split_ws = torch.empty(n_split, dtype=torch.bfloat16, device=dev) if n_split else None
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -902,7 +961,6 @@ def _bwd_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
     def at(ts, i):
         return ts[i].data_ptr() if i < len(ts) else None
 
-    lib = _bwd_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rnn_bwd_launch(
@@ -915,7 +973,7 @@ def _bwd_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
             at(dos, 0), at(dos, 1),
             w.data_ptr(), ptr(wpk), n_pack, b.data_ptr(), dhf.data_ptr(),
             at(dxps, 0), at(dxps, 1), at(dhps, 0), at(dhps, 1),
-            ptr(hp_ws), ptr(ws_w), ptr(ws_b), ptr(dw), ptr(db), stream,
+            ptr(hp_ws), ptr(ws_w), ptr(ws_b), ptr(dw), ptr(db), ptr(split_ws), n_split, stream,
         )
     if err:
         raise RuntimeError(f"rnn_bwd kernel launch failed: {lib.rnn_bwd_error_string(err).decode()}")

@@ -6,7 +6,8 @@ whose W_hh columns a CTA cannot hold, beside the reference towers' width
 CUDA-event median of single calls (the L2 is not flushed: the layer's W is
 read again every step anyway), the time a step, the W bytes one CTA draws a
 step and the rate that gives each SM, the least time the card could take
-(bytes at 3.35 TB/s or operations at 989 TFLOP/s), cuDNN's time for the
+(bytes at 3.35 TB/s or operations at 989 TFLOP/s; an f32-compute product
+counts as the six bf16 products of its split, 164.8 TFLOP/s), cuDNN's time for the
 same cell, width and batch (``nn.GRU`` / ``nn.LSTM`` / ``nn.RNN``, forward,
 and forward+backward minus forward, in bf16 where cuDNN takes it, else
 fp16; at f32 compute also cuDNN in f32 with TF32 off, the same function as
@@ -14,7 +15,7 @@ the kernels'), the largest difference from the plain version, and a SHA-256
 of the outputs' bytes, so two checkouts' bits can be compared.
 
     python3 twotowermlretrieval_tpu_torch/tools/bench_rnn_stream.py [CHECKOUT]
-        [--layouts] [--out FILE] [--device cuda]
+        [--layouts | --phases] [--out FILE] [--device cuda]
 
 CHECKOUT: time that checkout's package (default: this one's), so that one
 call on one card can time two trees in turns (another commit unpacked
@@ -24,10 +25,18 @@ are called. ``--layouts`` also times each streamed shape under every
 layout its pass can take (the W ring's depth and width, one or two row
 blocks, clusters of 8 or 16, and the forward's W resident in clusters of
 16 where it fits), the plan's own marked, each with its digest: it needs a
-checkout whose plans carry a ring (``wstages``). Each record is printed as
-a JSON line and, with ``--out``, written as a JSON list. ``--device cpu``
-runs the plain versions at toy sizes on the host clock: a check of the
-harness, whose times say nothing about a card.
+checkout whose plans carry a ring (``wstages``). At f32 compute it times
+every shape so, the backward under whole layouts (rows, the dhp row block
+whole or in chunks, W resident or streamed, staging buffers), whose sums
+may differ from the plan's. Each record is printed as
+a JSON line and, with ``--out``, written as a JSON list. ``--phases``
+instead splits single calls at f32 compute (``PHASE_SHAPES``) into their
+launches by torch.profiler's device time: the forward's W packing and
+time loop; the backward's operand split, gate recompute, W packing, dh
+chain, weight gradient and fixed-order sum, each the mean over
+``PHASE_CALLS`` calls. ``--device cpu`` runs the plain versions at toy
+sizes on the host clock: a check of the harness, whose times say nothing
+about a card.
 """
 
 from __future__ import annotations
@@ -44,12 +53,18 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA's data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+# an f32-precision product on the tensor cores: the six bf16 products of
+# its operands' split (utils/dtypes.py SPLIT_PRODUCTS)
+SPLIT_FLOPS = BF16_FLOPS / 6
 GATES = {"GRU": 3, "LSTM": 4, "RNN": 1}
-# (pass, cell, H, B, T, compute dtype): the reference towers at twice their
-# width, a wide GRU at serving, training and export batches, the widest
-# layers the JAX package keeps on its kernels, the f32-compute route (both
-# passes, and the reference towers' training shapes); the reference towers
-# themselves (W resident) as controls
+# (pass, cell, H, B, T, compute dtype[, history dtype]): the reference
+# towers at twice their width, a wide GRU at serving, training and export
+# batches, the widest layers the JAX package keeps on its kernels, the
+# f32-compute route (both passes, the reference towers' training shapes,
+# and a wide forward where 8 rows a CTA, half an m16 tile, leave W a
+# wider ring than 16); the reference towers themselves (W resident) as
+# controls, with the compute dtype's history and (TTMR_RNN_HISTORY=f32)
+# an f32 one
 SHAPES = (
     ("fwd", "GRU", 512, 64, 32, "bfloat16"), ("fwd", "GRU", 512, 128, 128, "bfloat16"),
     ("fwd", "GRU", 1024, 16, 32, "bfloat16"), ("fwd", "GRU", 1024, 64, 32, "bfloat16"),
@@ -63,7 +78,16 @@ SHAPES = (
     ("bwd", "GRU", 1024, 64, 32, "float32"),
     ("fwd", "GRU", 256, 64, 32, "float32"), ("fwd", "GRU", 256, 128, 128, "float32"),
     ("bwd", "GRU", 256, 64, 32, "float32"), ("bwd", "GRU", 256, 128, 128, "float32"),
+    ("fwd", "RNN", 3072, 16, 32, "float32"),
+    ("fwd", "GRU", 256, 64, 32, "bfloat16", "float32"),
+    ("fwd", "GRU", 256, 128, 128, "bfloat16", "float32"),
+    ("bwd", "GRU", 256, 64, 32, "bfloat16", "float32"),
+    ("bwd", "GRU", 256, 128, 128, "bfloat16", "float32"),
 )
+# --phases: single f32-compute calls split into their launches
+PHASE_SHAPES = (("fwd", "GRU", 1024, 64, 32, "float32"), ("bwd", "GRU", 1024, 64, 32, "float32"),
+                ("fwd", "GRU", 256, 128, 128, "float32"), ("bwd", "GRU", 256, 128, 128, "float32"))
+PHASE_CALLS = 5
 CPU_SHAPES = (("fwd", "GRU", 24, 5, 6, "bfloat16"), ("fwd", "LSTM", 40, 3, 4, "float32"),
               ("bwd", "GRU", 24, 5, 6, "bfloat16"), ("bwd", "RNN", 16, 3, 4, "bfloat16"),
               ("fwd", "GRU", 512, 3, 2, "bfloat16"), ("bwd", "GRU", 1024, 3, 2, "bfloat16"))
@@ -137,9 +161,67 @@ def _inputs(torch, cell, H, B, T, cdt, dev, seed):
     return xps, mask, w_hh, b_hh
 
 
-def _bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+def _bound(nbytes, flops, split=False):
+    """(ms, "bytes" | "operations"): the larger of the bytes at the memory
+    rate and the operations at the bf16 rate, or (``split``: f32 compute)
+    a sixth of it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (SPLIT_FLOPS if split else BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# torch.profiler's kernel names -> the phase of a call they run
+_PHASES = (("pack_w", "W packing"), ("split", "operand split"), ("gemm_f32<0", "gate recompute"),
+           ("gemm_f32<1", "weight gradient"), ("gemm<0", "gate recompute"),
+           ("gemm<1", "weight gradient"), ("gemm_bf16<0", "gate recompute"),
+           ("gemm_bf16<1", "weight gradient"), ("chain", "dh chain"),
+           ("reduce", "fixed-order sum"), ("rnn_fwd_kernel", "time loop"))
+
+
+def _phase_of(name: str) -> str:
+    return next((label for key, label in _PHASES if key in name), name[:60])
+
+
+def _phases(torch, rnn_scan, dev, card):
+    """PHASE_SHAPES' single calls split into their launches (device ms a
+    call, by torch.profiler) beside the CUDA-event median of the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    time_ms = _timer(torch, dev)
+    recs = []
+    for seed, (which, cell, H, B, T, cdt) in enumerate(PHASE_SHAPES):
+        xps, mask, w_hh, b_hh = _inputs(torch, cell, H, B, T, cdt, dev, seed)
+        if which == "fwd":
+            def call():
+                return rnn_scan.rnn_layer_fwd(cell, xps, mask, w_hh, b_hh, cdt, True)
+        else:
+            outs, c_hist, _ = rnn_scan.rnn_layer_fwd_reference(cell, xps, mask, w_hh, b_hh,
+                                                               cdt, True)
+            gen = torch.Generator(device=dev).manual_seed(seed + 100)
+            douts = [torch.randn((T, B, H), generator=gen, device=dev).to(outs[0].dtype)
+                     for _ in range(2)]
+            d_hfinal = torch.randn((2, B, H), generator=gen, device=dev)
+
+            def call():
+                return rnn_scan.rnn_layer_bwd(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts,
+                                              d_hfinal, cdt)
+        with torch.no_grad():
+            ms = time_ms(call)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(PHASE_CALLS):
+                    call()
+                torch.cuda.synchronize()
+        parts = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+                label = _phase_of(e.key)
+                parts[label] = parts.get(label, 0.0) + e.self_device_time_total / 1e3 / PHASE_CALLS
+        rec = {"pass": which, "cell": cell, "H": H, "B": B, "T": T, "compute": cdt, "ms": ms,
+               "device_ms": sum(parts.values()), "phases_ms": parts, "card": card}
+        print(json.dumps(rec), flush=True)
+        recs.append(rec)
+    return recs
 
 
 def _cudnn_ms(torch, time_ms, cell, H, B, T, dev, backward: bool, f32: bool = False):
@@ -182,29 +264,38 @@ def _sizes_and_rows(rnn_scan, Hk, B, cb, slots, base):
     least = cands[0] if B <= cands[0] else cands[1]
     out = []
     for nc, hc in rnn_scan._cluster_sizes(Hk, slots):
-        held = [R for R in cands if ((R // 16) * (hc // 8) <= 32 if cb == 2 else R * hc <= 2048)]
+        held = [R for R in cands if _units(R, hc) <= 32]
         wave = [R for R in held if R >= least and 2 * -(-B // R) <= slots[nc]]
-        for R in sorted({base["rows"], least, *wave[:1]} & set(held)):
+        for R in sorted({base["rows"], least, cands[0], *wave[:1]} & set(held)):
             out.append(((nc, hc), R))
     return out
+
+
+def _units(R, hc):
+    """The (16 x 8) output units of a chain CTA of R rows and hc columns
+    (8 rows count as one unit's); a CTA holds 32."""
+    return -(-R // 16) * (hc // 8)
 
 
 def _fwd_layouts(rnn_scan, cell, B, cdt, slots, base):
     """Every forward layout --layouts times: per cluster size and rows
     (:func:`_sizes_and_rows`), W resident where it fits, and each ring
-    width and depth with two or one h row blocks."""
+    width and depth with two or one h row blocks; at f32 each with W f32
+    and again in its bf16 pieces (``wsplit``) where that fits."""
     cb = 2 if cdt == "bfloat16" else 4
     Hk = base["H"]
     kp = -(-Hk // 32) * 32
     out = []
     for (nc, hc), R in _sizes_and_rows(rnn_scan, Hk, B, cb, slots, base):
         common = dict(base, nc=nc, hc=hc, rows=R, clusters=-(-B // R), slots=slots[nc])
+        if "wsplit" in base:  # W f32 here; its pieces below
+            common["wsplit"] = False
         smem = rnn_scan._fwd_smem_bytes(cell, Hk, cb, R, hc, kp)
         if smem <= rnn_scan._SMEM_LIMIT:
             out.append(dict(common, kc=kp, resident=True, wstages=0, blocks=2, smem=smem))
         for blocks in (2, 1):
-            for kc in LAYOUT_WIDTHS:
-                if kc >= kp or (cb == 2 and kc % 32):
+            for kc in LAYOUT_WIDTHS if cb == 2 else (16, 48) + LAYOUT_WIDTHS:
+                if kc >= kp:
                     continue
                 fits = [s for s in range(2, 9) if rnn_scan._fwd_smem_bytes(
                     cell, Hk, cb, R, hc, kc, s, blocks) <= rnn_scan._SMEM_LIMIT]
@@ -215,6 +306,12 @@ def _fwd_layouts(rnn_scan, cell, B, cdt, slots, base):
                     out.append(dict(common, kc=kc, resident=False, wstages=s, blocks=blocks,
                                     smem=rnn_scan._fwd_smem_bytes(cell, Hk, cb, R, hc, kc, s,
                                                                   blocks)))
+    if cb == 4 and "wsplit" in base:  # f32: each layout again with W in its bf16 pieces
+        for lay in list(out):
+            smem = rnn_scan._fwd_smem_bytes(cell, Hk, cb, lay["rows"], lay["hc"], lay["kc"],
+                                            lay["wstages"], lay["blocks"], True)
+            if smem <= rnn_scan._SMEM_LIMIT:
+                out.append(dict(lay, wsplit=True, smem=smem))
     return out
 
 
@@ -228,7 +325,7 @@ def _bwd_layouts(rnn_scan, cell, H, cdt, hist, slots, base):
     Hk, R, kc = base["H"], base["rows"], base["kc"]
     out = []
     for nc, hc in rnn_scan._cluster_sizes(Hk, slots):
-        if (cb == 2 and (R // 16) * (hc // 8) > 32) or (cb == 4 and R * hc > 2048):
+        if _units(R, hc) > 32:
             continue
         for kw in sorted({w for w in LAYOUT_WIDTHS if w < kc} | {kc}):
             if kw < kc and kw % (32 if cb == 2 else 16):
@@ -245,14 +342,65 @@ def _bwd_layouts(rnn_scan, cell, H, cdt, hist, slots, base):
     return out
 
 
+def _bwd_f32_layouts(rnn_scan, cell, B, hist, slots, base):
+    """Every backward layout at f32 compute --layouts times (whose sums
+    may differ from the plan's, unlike the bf16 rings): per cluster size
+    and rows (32, 16, 8 where a CTA holds them), the dhp row block whole
+    (two blocks or one; W resident, or streamed in the widest chunks that
+    fit and its ring) or exchanged in the widest chunks that fit, with one
+    or two staging buffers."""
+    Hk, hb = base["H"], hist.itemsize
+    kp = -(-GATES[cell] * Hk // 16) * 16
+    lim = rnn_scan._SMEM_LIMIT
+
+    def smem(R, hc, kc, st, bl, xc, S=0, kw=None):
+        return rnn_scan._bwd_smem_bytes(cell, Hk, 4, hb, R, hc, kc, st, bl, xc, S, kw)
+
+    out = []
+    for nc, hc in rnn_scan._cluster_sizes(Hk, slots):
+        for R in (32, 16, 8):
+            if _units(R, hc) > 32:
+                continue
+            common = dict(base, nc=nc, hc=hc, rows=R, clusters=-(-B // R), slots=slots[nc])
+            for chunked in (False, True):
+                for bl in ((2,) if chunked else (2, 1)):
+                    for resident in ((False,) if chunked else (True, False)):
+                        for st in (2, 1):
+                            if chunked:
+                                xc = kp - 16
+                                while xc >= 16 and smem(R, hc, xc, st, 2, xc) > lim:
+                                    xc -= 16
+                                kc = xc
+                            elif resident:
+                                xc = kc = kp
+                            else:
+                                xc, kc = kp, kp - 16
+                                while kc >= 16 and smem(R, hc, kc, st, bl, xc) > lim:
+                                    kc -= 16
+                            if kc < 16 or smem(R, hc, kc, st, bl, xc) > lim:
+                                continue
+                            if resident:
+                                out.append(dict(common, kc=kc, xc=xc, resident=True, stages=st,
+                                                blocks=bl, wstages=0, kw=kc,
+                                                smem=smem(R, hc, kc, st, bl, xc)))
+                                continue
+                            ring = rnn_scan._bwd_ring(cell, Hk, 4, hb, R, hc, kc, st, bl, xc)
+                            if ring is not None:
+                                kw, S, st2, bl2, sm = ring
+                                out.append(dict(common, kc=kc, xc=xc, resident=False, stages=st2,
+                                                blocks=bl2, wstages=S, kw=kw, smem=sm))
+    return [dict(t) for t in {tuple(sorted(d.items())) for d in out}]
+
+
 _PLAN_KEYS = ("nc", "hc", "rows", "clusters", "kc", "resident", "wstages", "blocks", "stages",
-              "xc", "kw", "nsplit", "smem", "slots")
+              "xc", "kw", "nsplit", "smem", "slots", "wsplit")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("checkout", nargs="?", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--layouts", action="store_true")
+    ap.add_argument("--phases", action="store_true")
     ap.add_argument("--out")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -270,34 +418,45 @@ def main(argv=None) -> int:
                               check=True).stdout.strip()
     else:
         card = "the host (plain versions)"
+    if args.phases:
+        if dev.type != "cuda":
+            raise SystemExit("--phases reads the card's own time: it needs a CUDA device")
+        recs = _phases(torch, rnn_scan, dev, card)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(recs, indent=1))
+        return 0
     time_ms = _timer(torch, dev)
     recs = []
-    for seed, (which, cell, H, B, T, cdt) in enumerate(SHAPES if dev.type == "cuda"
-                                                       else CPU_SHAPES):
+    for seed, shape in enumerate(SHAPES if dev.type == "cuda" else CPU_SHAPES):
+        which, cell, H, B, T, cdt, *hdt = shape
         G = GATES[cell]
         cb = 2 if cdt == "bfloat16" else 4
-        hist = getattr(torch, cdt)  # the model's history: the compute dtype's
+        # the history: the compute dtype's (the model's), unless the shape names another
+        hist = getattr(torch, hdt[0] if hdt else cdt)
+        compact = hist == getattr(torch, cdt)
         xps, mask, w_hh, b_hh = _inputs(torch, cell, H, B, T, cdt, dev, seed)
         slots = (rnn_scan.cluster_slots(which, cell, cdt, hist, dev) if dev.type == "cuda"
                  else rnn_scan.H100_SXM_CLUSTER_SLOTS)
         plan_fn = rnn_scan.fwd_plan if which == "fwd" else rnn_scan.bwd_plan
         plan = plan_fn(cell, T, B, H, 2, cdt, hist, slots)
         rec = {"pass": which, "cell": cell, "H": H, "B": B, "T": T, "compute": cdt,
-               "history": cdt, "plan": {k: plan[k] for k in _PLAN_KEYS if k in plan}}
+               "history": str(hist).replace("torch.", ""),
+               "plan": {k: plan[k] for k in _PLAN_KEYS if k in plan}}
         with torch.no_grad():
             if which == "fwd":
                 def call():
-                    return rnn_scan.rnn_layer_fwd(cell, xps, mask, w_hh, b_hh, cdt, True)
+                    return rnn_scan.rnn_layer_fwd(cell, xps, mask, w_hh, b_hh, cdt, compact)
 
                 def flat(res):
                     return [*res[0], *res[1], res[2]]
                 plain = flat(rnn_scan.rnn_layer_fwd_reference(cell, xps, mask, w_hh, b_hh, cdt,
-                                                              True))
-                nbytes, flops = rnn_scan.rnn_fwd_bound(T, B, H, 2, G, cb, cb)
+                                                              compact))
+                nbytes, flops = rnn_scan.rnn_fwd_bound(T, B, H, 2, G, cb, hist.itemsize)
             else:
                 # the history from the plain forward: the same in every checkout
                 outs, c_hist, _ = rnn_scan.rnn_layer_fwd_reference(cell, xps, mask, w_hh, b_hh,
-                                                                   cdt, True)
+                                                                   cdt, compact)
                 gen = torch.Generator(device=dev).manual_seed(seed + 100)
                 douts = [torch.randn((T, B, H), generator=gen, device=dev).to(hist)
                          for _ in range(2)]
@@ -310,7 +469,7 @@ def main(argv=None) -> int:
                 def flat(res):
                     return [*res[0], res[1], res[2]]
                 plain = flat(rnn_scan.rnn_layer_bwd_reference(*bargs))
-                nbytes, flops = rnn_scan.rnn_bwd_bound(T, B, H, 2, G, cb, cb)
+                nbytes, flops = rnn_scan.rnn_bwd_bound(T, B, H, 2, G, cb, hist.itemsize)
             got = flat(call())
             rec["digest"] = digest(torch, got)
             rec["bitwise_repeatable"] = digest(torch, flat(call())) == rec["digest"]
@@ -320,16 +479,19 @@ def main(argv=None) -> int:
         rec["step_us"] = rec["ms"] / T * 1e3
         rec["w_bytes_cta_step"] = _w_bytes_a_step(cell, plan, cb)
         rec["gb_s_per_sm"] = rec["w_bytes_cta_step"] / (rec["step_us"] * 1e-6) / 1e9
-        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops)
+        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops, split=cdt == "float32")
         rec["cudnn_ms"], rec["cudnn_dtype"] = _cudnn_ms(torch, time_ms, cell, H, B, T, dev,
                                                         which == "bwd")
         if cdt == "float32":
             rec["cudnn_f32_ms"] = _cudnn_ms(torch, time_ms, cell, H, B, T, dev, which == "bwd",
                                             f32=True)[0]
-        if args.layouts and H > 256:
-            layouts = (_fwd_layouts(rnn_scan, cell, B, cdt, slots, plan)
-                       if which == "fwd" else _bwd_layouts(rnn_scan, cell, H, cdt, hist, slots,
-                                                           plan))
+        if args.layouts and (H > 256 or cdt == "float32"):
+            if which == "fwd":
+                layouts = _fwd_layouts(rnn_scan, cell, B, cdt, slots, plan)
+            elif cdt == "float32":
+                layouts = _bwd_f32_layouts(rnn_scan, cell, B, hist, slots, plan)
+            else:
+                layouts = _bwd_layouts(rnn_scan, cell, H, cdt, hist, slots, plan)
             rec["layouts"] = []
             for lay in layouts:
                 setattr(rnn_scan, f"{which}_plan", lambda *a, _lay=lay, **k: _lay)

@@ -8,11 +8,11 @@
 - f32 compute means true f32 products: TF32 is switched off for both
   cuBLAS and cuDNN (:func:`set_matmul_precision`), the counterpart of
   JAX's ``Precision.HIGHEST``. The kernels' f32 routes (the scans over an
-  f32 corpus, attention at f32 compute) compute such products on the bf16
-  tensor cores as split products: each f32 operand as three bf16 pieces
-  (:func:`split_bf16x3`), the six leading products of the pieces
-  (:data:`SPLIT_PRODUCTS`) summed in f32. :func:`matmul_split` is that
-  arithmetic on the CPU.
+  f32 corpus, attention at f32 compute, both recurrent kernels at f32
+  compute) compute such products on the bf16 tensor cores as split
+  products: each f32 operand as three bf16 pieces (:func:`split_bf16x3`),
+  the six leading products of the pieces (:data:`SPLIT_PRODUCTS`) summed
+  in f32. :func:`matmul_split` is that arithmetic on the CPU.
 - Entry points run on ``cuda`` unless the caller asks for the CPU
   (:func:`resolve_device`); a CUDA request without a card raises.
 """
