@@ -114,7 +114,11 @@
 
 Step 3 holds the forward kernel at four shapes (the query encode, the
 export, the training query and doc towers), each timed beside cuDNN's GRU,
-its layout logged and two calls held bit-identical, and both recurrent
+its layout, route and waves logged and two calls held bit-identical, the
+large batches timed (B=1024: the in-batch query tower, both towers'
+backward, and GRU H=1024 T=128, a wide layer's export; the in-batch
+query tower's large-batch layout must give the cluster route's bits),
+and both recurrent
 kernels at the training shapes with the history in f32 (TTMR_RNN_HISTORY=f32,
 whose first train step step 6 also holds card against CPU). Step 3 covers the
 backward kernel too (``csrc/rnn_bwd.cu``, both modes, each timed at the
@@ -631,9 +635,9 @@ def check_rnn(cell: str, B: int, T: int, seed: int, dev, timed: bool, H=H,
     check(c_ok, f"rnn_fwd {shape}: LSTM cell history off")
     check(bitwise, f"rnn_fwd {shape}: two calls differ")
     log(f"rnn_fwd {shape}: two calls bit-identical in the history and h_final")
-    rec = {"shape": shape, "max_abs_err": max(err_final, err_hist), "bitwise_repeatable": bitwise}
+    rec = {"shape": shape, "max_abs_err": max(err_final, err_hist), "bitwise_repeatable": bitwise,
+           "design": _fwd_design(cell, B, T, dev, H, compact, compute)}
     if timed:
-        rec["design"] = _fwd_design(cell, B, T, dev, H, compact, compute)
         rec["ms"] = time_ms(lambda: rnn_layer_fwd(cell, *args, **kw))
         rec["plain_ms"] = time_ms(lambda: rnn_layer_fwd_reference(cell, *args, **kw),
                                   reps=5, warmup=1)
@@ -659,9 +663,12 @@ def _fwd_design(cell: str, B: int, T: int, dev, H=H, compact: bool = True,
                 compute: str = "bfloat16") -> dict:
     """The layout the forward kernel launches at this shape (bf16 compute
     with a bf16 or, not ``compact``, an f32 history, or f32 compute; both
-    directions), logged with the number of clusters of its size the card
-    holds at once (read from the card), by which the plan chose its rows."""
-    from twotowermlretrieval_tpu_torch.ops.rnn_scan import cluster_slots, fwd_plan
+    directions), logged with its route (the cluster route, or the
+    large-batch layout: 6 units a warp, W resident, one h row block), the
+    number of clusters of its size the card holds at once (read from the
+    card), by which the plan chose its rows, and its waves (each a whole
+    time loop)."""
+    from twotowermlretrieval_tpu_torch.ops.rnn_scan import cluster_slots, fwd_plan, fwd_waves
 
     hist = torch.bfloat16 if compact and compute == "bfloat16" else torch.float32
     slots = cluster_slots("fwd", cell, compute, hist, dev)
@@ -669,12 +676,14 @@ def _fwd_design(cell: str, B: int, T: int, dev, H=H, compact: bool = True,
     w = ("resident" if plan["resident"]
          else f"streamed every step through a ring of {plan['wstages']} stages of "
               f"{plan['kc']} rows") + (" as its bf16 pieces" if plan.get("wsplit") else "")
-    log(f"rnn_fwd design, {cell} B={B} T={T} H={H} {compute}: clusters of {plan['nc']} CTAs x "
+    route, waves = "large-batch" if plan["wide"] else "cluster", fwd_waves(plan, 2)
+    log(f"rnn_fwd design, {cell} B={B} T={T} H={H} {compute}: route {route}, {waves} wave(s); "
+        f"clusters of {plan['nc']} CTAs x "
         f"{plan['hc']} hidden columns, {plan['rows']} batch rows a cluster, "
         f"{plan['clusters']} clusters a direction ({2 * plan['clusters']} in all; the card "
         f"holds {plan['slots']} clusters of {plan['nc']} at once), W columns {w}, "
         f"{plan['blocks']} h row block(s), {plan['smem']} bytes of shared memory a CTA")
-    return plan
+    return dict(plan, route=route, waves=waves)
 
 
 def _unit_rows(gen, n, dev, chunk=1 << 18):
@@ -771,7 +780,7 @@ def phase_kernels(dev) -> dict:
             check_rnn("RNN", SERVE_ROWS, QUERY_LEN, 4, dev, timed=False),
             # the model axis's GRU step (phase_model_axis): its query tower
             # at B=1024 (its doc tower's shape is the export's, above)
-            check_rnn("GRU", GRU_ROWS, QUERY_LEN, 9, dev, timed=False),
+            check_rnn("GRU", GRU_ROWS, QUERY_LEN, 9, dev, timed=True),
             # the training towers with the history in f32 (TTMR_RNN_HISTORY=f32)
             check_rnn("GRU", TRAIN_ROWS, QUERY_LEN, 31, dev, timed=True, compact=False),
             check_rnn("GRU", 2 * TRAIN_ROWS, DOC_LEN, 32, dev, timed=True, compact=False),
@@ -1474,8 +1483,8 @@ def phase_bwd_kernels(dev) -> list:
         # the width the JAX package's split plan keeps on its kernel: one dhp row block
         check_rnn_bwd("GRU", TRAIN_ROWS, QUERY_LEN, 17, dev, timed=True, H=WIDE_H),
         # the model axis's GRU step (phase_model_axis): both towers at B=1024
-        check_rnn_bwd("GRU", GRU_ROWS, QUERY_LEN, 18, dev, timed=False),
-        check_rnn_bwd("GRU", GRU_ROWS, DOC_LEN, 19, dev, timed=False),
+        check_rnn_bwd("GRU", GRU_ROWS, QUERY_LEN, 18, dev, timed=True),
+        check_rnn_bwd("GRU", GRU_ROWS, DOC_LEN, 19, dev, timed=True),
         # the training towers with the history in f32 (TTMR_RNN_HISTORY=f32)
         check_rnn_bwd("GRU", TRAIN_ROWS, QUERY_LEN, 33, dev, timed=True, compact=False),
         check_rnn_bwd("GRU", 2 * TRAIN_ROWS, DOC_LEN, 34, dev, timed=True, compact=False),
@@ -1525,6 +1534,39 @@ def phase_wide_kernels(dev) -> tuple:
            check_rnn_bwd("RNN", SERVE_ROWS, QUERY_LEN, 24, dev, timed=True, H=3072),
            check_rnn_bwd("GRU", TRAIN_ROWS, QUERY_LEN, 28, dev, timed=True, H=512)]
     return fwd, bwd, read_counts()
+
+
+def phase_large_batch(dev) -> tuple:
+    """The forward at the export batch of a wide GRU (H=1024, B=1024,
+    T=128; W streams, the cluster route) against its plain version, twice
+    bit-identical and timed beside cuDNN; and the in-batch query tower
+    (GRU H=256, B=1024, T=32), whose large-batch layout (160 rows a
+    cluster, one wave) must give the bits of the cluster route forced to
+    the plan it had before (128 rows, two waves). Returns the record and
+    the phase's launch counts (the comparison's launches included)."""
+    from twotowermlretrieval_tpu_torch.ops import rnn_scan
+
+    zero_counts()
+    with torch.inference_mode():
+        rec = check_rnn("GRU", GRU_ROWS, DOC_LEN, 29, dev, timed=True, H=WIDE_H)
+        args = _rnn_inputs("GRU", GRU_ROWS, QUERY_LEN, 9, dev, H, "bfloat16")
+        kw = dict(compute_dtype="bfloat16", history_in_cdt=True)
+        check(_fwd_design("GRU", GRU_ROWS, QUERY_LEN, dev)["route"] == "large-batch",
+              f"rnn_fwd GRU B={GRU_ROWS} T={QUERY_LEN}: not the large-batch layout")
+        outs, _, fin = rnn_scan.rnn_layer_fwd("GRU", *args, **kw)
+        plan_fn = rnn_scan.fwd_plan
+        rnn_scan.fwd_plan = lambda cell, T, B, H, D, cdt, hist, slots: rnn_scan._cluster_plan(
+            cell, B, rnn_scan.kernel_width(H), D, 2, slots)
+        try:
+            c_outs, _, c_fin = rnn_scan.rnn_layer_fwd("GRU", *args, **kw)
+        finally:
+            rnn_scan.fwd_plan = plan_fn
+        same = torch.equal(fin, c_fin) and all(torch.equal(a, b) for a, b in zip(outs, c_outs))
+    shape = f"GRU B={GRU_ROWS} T={QUERY_LEN} H={H}"
+    check(same, f"rnn_fwd {shape}: the large-batch layout's bits differ from the cluster route's")
+    log(f"rnn_fwd {shape}: the large-batch layout gives the cluster route's bits")
+    rec["query_tower_same_bits_as_cluster_route"] = same
+    return rec, read_counts()
 
 
 def phase_wide_s8(dev) -> dict:
@@ -4282,6 +4324,8 @@ def main(argv) -> int:
         wide_fwd, wide_bwd, wide_launches = phase_wide_kernels(dev)
         kern["rnn_fwd"] += wide_fwd
         kern["rnn_bwd"] += wide_bwd
+        large_fwd, large_launches = phase_large_batch(dev)
+        kern["rnn_fwd"].append(large_fwd)
         f32_fwd, f32_bwd, f32_launches = phase_f32_kernels(dev)
         kern["rnn_fwd"] += f32_fwd
         kern["rnn_bwd"] += f32_bwd
@@ -4327,7 +4371,8 @@ def main(argv) -> int:
     phases = {"export": export["launches"], "serve": served["launches"],
               "serve_int8": served_int8["launches"], "train": trained["launches"],
               "odd_width_serve": odd["launches"], "wide_int8_index": wide_s8["launches"],
-              "wide_kernels": wide_launches, "f32_kernels": f32_launches,
+              "wide_kernels": wide_launches, "large_batch": large_launches,
+              "f32_kernels": f32_launches,
               "transformer_train": tf["launches"], "transformer_serve": tf["serve"]["launches"],
               "wide_engine_search": wide_engine["launches"], "serve_ivf": served_ivf["launches"],
               "traced_train": traced["gru_train"]["launches"],

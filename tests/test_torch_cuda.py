@@ -605,6 +605,55 @@ def test_rnn_widest_ring_is_bitwise_repeatable(dev):
         assert torch.equal(x, y)
 
 
+# The forward's large-batch layout (bf16, B >= 256, W resident;
+# ops/rnn_scan.py fwd_plan): GRU, LSTM and RNN H=256 at the export batch
+# (160 rows a cluster, one wave) and GRU H=384 (80 rows, two waves); GRU
+# H=1024 (W streams) keeps the cluster route; batches that leave the last
+# cluster ragged
+_LARGE_BATCH = [("GRU", 256, 1000, 12, True), ("GRU", 1024, 1000, 6, False),
+                ("LSTM", 256, 1024, 8, True), ("RNN", 256, 1000, 8, True),
+                ("GRU", 384, 1024, 6, True)]
+
+
+def _cluster_route_plan(cell, T, B, H, D, compute_dtype="bfloat16", history_dtype=None,
+                        slots=_rnn_scan.H100_SXM_CLUSTER_SLOTS):
+    """fwd_plan's cluster route alone: the plan before the large-batch
+    layout, at every shape."""
+    cb = _rnn_scan.torch_dtype(compute_dtype).itemsize
+    return _rnn_scan._cluster_plan(cell, B, _rnn_scan.kernel_width(H), D, cb, slots)
+
+
+def _flat_fwd(res):
+    return [*res[0], *res[1], res[2]]
+
+
+@pytest.mark.parametrize("history_in_cdt", [True, False])
+@pytest.mark.parametrize("cell,H,B,T,wide", _LARGE_BATCH,
+                         ids=[f"{c}-H{h}-B{b}" for c, h, b, _, _ in _LARGE_BATCH])
+def test_rnn_fwd_large_batch_layouts(dev, monkeypatch, cell, H, B, T, wide, history_in_cdt):
+    """The large batches launch the kernel once a call, hold the plain
+    version at _check_fwd's tolerances, give the same bits twice, keep a
+    zero-length row at zero, and give the bits of the cluster route forced
+    to the plan it had before the large-batch layout: each product still
+    runs over k in ascending order, in 16-wide mma.sync steps into one
+    accumulator."""
+    hist = torch.bfloat16 if history_in_cdt else torch.float32
+    slots = _rnn_scan.cluster_slots("fwd", cell, "bfloat16", hist, dev)
+    assert fwd_plan(cell, T, B, H, 2, "bfloat16", hist, slots)["wide"] == wide
+    args = _rnn_case(dev, cell, 2, T, B, H, seed=B + H)
+    kw = dict(compute_dtype="bfloat16", history_in_cdt=history_in_cdt)
+    before = rnn_layer_fwd.launches
+    got = rnn_layer_fwd(cell, *args, **kw)
+    assert rnn_layer_fwd.launches == before + 1
+    again = rnn_layer_fwd(cell, *args, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(_flat_fwd(got), _flat_fwd(again)))
+    _check_fwd(got, rnn_layer_fwd_reference(cell, *args, **kw), "bfloat16")
+    assert (got[2][:, 0] == 0).all() and all((o[:, 0] == 0).all() for o in got[0])
+    monkeypatch.setattr(_rnn_scan, "fwd_plan", _cluster_route_plan)
+    parent = rnn_layer_fwd(cell, *args, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(_flat_fwd(got), _flat_fwd(parent)))
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}

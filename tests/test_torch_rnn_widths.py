@@ -38,24 +38,29 @@ _CASES = [(c, d) for c in ("GRU", "LSTM", "RNN") for d in ("bfloat16", "float32"
 
 def _fwd_layout_ok(cell, H, cdt, plan) -> bool:
     """The plan's fields hang together. A CTA holds at most 32 (16 x 8)
-    units (8 rows, at f32, count as one unit's). Where W streams, its ring
-    has at least 2 stages of whole k32 steps at bf16 (k16 steps at f32);
-    where it is resident, no ring and two h row blocks. The pieces only at
-    f32."""
+    units (8 rows, at f32, count as one unit's), 48 in the large-batch
+    layout (``wide``, bf16 and W resident only). Where W streams, its ring
+    has at least 2 stages of whole k32 steps at bf16 (k16 steps at f32)
+    and one or two h row blocks; where it is resident, no ring and two h
+    row blocks (the large-batch layout: one). The pieces only at f32."""
     cb = torch.tensor([], dtype=getattr(torch, cdt)).element_size()
     Hk, nc, hc, R, kc = plan["H"], plan["nc"], plan["hc"], plan["rows"], plan["kc"]
-    wsplit = plan["wsplit"]
+    wsplit, wide, blocks = plan["wsplit"], plan["wide"], plan["blocks"]
     kp = -(-Hk // 32) * 32
-    held = -(-R // 16) * (hc // 8) <= 32 and (R % 16 == 0 or (cb == 4 and R == 8))
-    ring = (plan["wstages"] == 0 and plan["blocks"] == 2 if plan["resident"]
-            else 2 <= plan["wstages"] <= 8 and plan["blocks"] in (1, 2))
+    held = (-(-R // 16) * (hc // 8) <= (48 if wide else 32)
+            and (R % 16 == 0 or (cb == 4 and R == 8)))
+    if plan["resident"]:
+        ring = plan["wstages"] == 0 and blocks == (1 if wide else 2)
+    else:
+        ring = 2 <= plan["wstages"] <= 8 and blocks in (1, 2) and not wide
     return (Hk >= H and Hk % 8 == 0 and Hk - H < 8 and 1 <= nc <= 16 and hc % 8 == 0
             and (nc <= 8 or H100_SXM_CLUSTER_SLOTS[nc] > 0)
             and nc * hc >= Hk > (nc - 1) * hc and held
             and kc % (32 if cb == 2 else 16) == 0 and (cb == 4 or not wsplit)
+            and (cb == 2 or not wide)
             and plan["resident"] == (kc >= kp) and ring
             and plan["smem"] == _fwd_smem_bytes(cell, Hk, cb, R, hc, kc, plan["wstages"],
-                                                plan["blocks"], wsplit) <= _SMEM_LIMIT)
+                                                blocks, wsplit) <= _SMEM_LIMIT)
 
 
 @pytest.mark.parametrize("cell,cdt", _CASES, ids=[f"{c}-{d}" for c, d in _CASES])
@@ -279,9 +284,14 @@ def test_streamed_backward_plans_keep_a_ring(cell, cdt, hist):
 
 
 # the reference towers' layouts before the W ring (the port at the commit
-# that added it): H=256 at bf16 with a bf16 history, both passes
-_MAIN_FWD = {16: (8, 32, 16, 1, 256, True, 70528), 64: (8, 32, 32, 2, 256, True, 87424),
-             128: (8, 32, 32, 4, 256, True, 87424), 1024: (8, 32, 128, 8, 256, True, 188800)}
+# that added it): H=256 at bf16 with a bf16 history, both passes; the
+# forward at B=1024 in the large-batch layout since it came: 160 rows a
+# cluster, 7 clusters a direction, one h row block, one wave (before them
+# 128 rows, 8 clusters a direction, two blocks, two waves of the 15 an
+# H100 SXM holds)
+_MAIN_FWD = {16: (8, 32, 16, 1, 256, True, 2, 70528), 64: (8, 32, 32, 2, 256, True, 2, 87424),
+             128: (8, 32, 32, 4, 256, True, 2, 87424),
+             1024: (8, 32, 160, 7, 256, True, 1, 138112)}
 _MAIN_BWD = {16: (8, 32, 16, 1, 768, True, 2, 2, 768, 8, 130176),
              64: (8, 32, 32, 2, 768, True, 2, 2, 768, 11, 210688),
              128: (8, 32, 32, 4, 768, True, 2, 2, 768, 11, 210688),
@@ -291,15 +301,16 @@ _MAIN_BWD = {16: (8, 32, 16, 1, 768, True, 2, 2, 768, 8, 130176),
 @pytest.mark.parametrize("B", sorted(_MAIN_FWD))
 def test_main_path_layouts_are_unchanged(B):
     """The reference towers (GRU H=256, bf16) keep W resident in both
-    passes, field for field the layouts they had before the ring, and every
-    cell at H=256 and bf16 holds W resident with no ring."""
+    passes, field for field the layouts they had before the ring (the
+    forward at B=1024: the large-batch layout's), and every cell at H=256
+    and bf16 holds W resident with no ring."""
     f = fwd_plan("GRU", 32, B, 256, 2, "bfloat16", torch.bfloat16)
     b = bwd_plan("GRU", 32, B, 256, 2, "bfloat16", torch.bfloat16)
-    assert tuple(f[k] for k in ("nc", "hc", "rows", "clusters", "kc", "resident",
+    assert tuple(f[k] for k in ("nc", "hc", "rows", "clusters", "kc", "resident", "blocks",
                                 "smem")) == _MAIN_FWD[B]
     assert tuple(b[k] for k in ("nc", "hc", "rows", "clusters", "kc", "resident", "stages",
                                 "blocks", "xc", "nsplit", "smem")) == _MAIN_BWD[B]
-    assert f["wstages"] == 0 and f["blocks"] == 2 and b["wstages"] == 0
+    assert f["wstages"] == 0 and b["wstages"] == 0
     for cell in ("GRU", "LSTM", "RNN"):
         for hist in (torch.bfloat16, torch.float32):
             f = fwd_plan(cell, 32, B, 256, 2, "bfloat16", hist)

@@ -113,6 +113,21 @@
 // mma.sync steps into the same accumulators, so the results are those of
 // the resident route and of any KC or S, bit for bit.
 //
+// Large batches (bf16; the plan's "wide" layouts, W resident): the card
+// holds 15 clusters of 8 at once, and a CTA of 4 units a warp at most 128
+// rows at H=256, so the export batch of 1024 rows took two waves, each a
+// whole time loop. These layouts hold UNITS_WIDE = 6 units a warp (a
+// template parameter; 8 spilled registers and ran slower); a warp loads
+// its units' xp after the product (LSTM: each unit's before its gate
+// math), where the accumulators need the registers. A CTA keeps one h row
+// block (the second cluster barrier above): 160 rows at H=256, 7 clusters
+// a direction, one wave. The product is unchanged: each output still runs
+// over k in ascending order in the same 16-wide mma.sync steps into one
+// accumulator, so these layouts give the cluster route's bits. (Where W
+// streams, h carried beside W through L2 in three waves of 48 rows ran
+// level with the cluster route's five of 32 at GRU H=1024 B=1024, so W
+// streams in the cluster route only.)
+//
 // The wrapper (ops/rnn_scan.py, fwd_plan) picks NC, HC, R, KC, S and the
 // row blocks and knows the shared-memory layout below (fwd_smem); the
 // launcher refuses a plan that does not fit. R is chosen by how many
@@ -136,7 +151,8 @@ using namespace recur_chain;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int UNITS_MAX = 4;  // (16 rows x 8 columns) units per warp (G tiles each)
+constexpr int UNITS_MAX = 4;   // (16 rows x 8 columns) units per warp (G tiles each)
+constexpr int UNITS_WIDE = 6;  // the same, in the large-batch layouts
 
 struct FwdArgs {
   int T, B, H;         // H: a multiple of 8
@@ -241,9 +257,12 @@ template <> __device__ __forceinline__ __nv_bfloat162 pair_of<__nv_bfloat162>(fl
 
 // STREAM: W streams through the ring (a template argument, so the
 // resident route compiles as if the ring did not exist); WP: f32 compute
-// with W held as its bf16 pieces
-template <int CELL, typename CT, typename HT, bool STREAM, bool WP>
+// with W held as its bf16 pieces; U: the (16 x 8) units a warp holds at
+// most (UNITS_WIDE: the large-batch layouts, bf16 with W resident)
+template <int CELL, typename CT, typename HT, bool STREAM, bool WP, int U = UNITS_MAX>
 __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
+  static_assert(U == UNITS_MAX || (!STREAM && !WP && sizeof(CT) == 2),
+                "the large-batch layouts: bf16, W resident");
   constexpr int G = NumGates<CELL>::G;
   constexpr bool kSplit = sizeof(CT) == 4;  // f32 compute: split products
   constexpr int EPW = 16 / sizeof(CT);
@@ -257,7 +276,7 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
   const int R = a.R, hc = a.hc, kp = a.kp, kc = a.kc < a.kp ? a.kc : a.kp;
   constexpr bool resident = !STREAM;  // the launcher's choice: kc >= kp
   const int S = a.S;
-  const bool one_block = STREAM && a.blocks == 1;  // one h row block, a second cluster barrier a step
+  const bool one_block = a.blocks == 1;  // one h row block, a second cluster barrier a step
   const int nc = (int)cluster.num_blocks();
   const int q = (int)cluster.block_rank();
   const int cl = blockIdx.x / nc;
@@ -389,33 +408,32 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
   const int ntn = hc / 8, units = ((R + 15) / 16) * ntn;
   const bool half = R < 16;  // f32 at 8 rows: each m16 tile's rows 8-15 are absent
   // this warp's units: u = warp + i * WARPS, rows mt*16.., columns nt*8..;
-  // units past the owned columns or the existing rows stay off
-  bool on[UNITS_MAX];
-  int ucol[UNITS_MAX];       // the unit's first column within the CTA (nt * 8)
-  int arow[UNITS_MAX];       // bf16: ldmatrix A row offset, (mt*16 + lane%16) * hld + (lane/16)*8;
-                             // f32: the tile's first row, mt*16 * hld
-  int prow[UNITS_MAX];       // the unit's row this lane pushes: mt*16 + lane%16
-  int erow[UNITS_MAX][2];    // the rows of this lane's elements: mt*16 + gid (+8)
-  size_t xoff[UNITS_MAX][2]; // xp offset of those rows' elements at t = 0, gate 0
-  bool same_rows[UNITS_MAX]; // f32: on the m16 tile of the unit before it, which is on
+  // units past the owned columns or the existing rows stay off. A unit
+  // keeps only its tile's first row and column; the offsets are worked out
+  // from them where they are used (held per unit, they cost registers: on
+  // an H100 LSTM's f32 kernels spilled 156-228 B a thread with them, 12-60
+  // without, and LSTM H=1536 B=16 ran 1.2x faster, PERF.md section 6)
+  int mt16[U], ucol[U];  // the unit's first row and first column within the CTA
+  bool on[U];
 #pragma unroll
-  for (int i = 0; i < UNITS_MAX; ++i) {
+  for (int i = 0; i < U; ++i) {
     const int u = warp + i * WARPS;
     const int mt = u / ntn, nt = u % ntn;
     on[i] = u < units && nt * 8 < own && mt * 16 < nrows;
-    same_rows[i] = i > 0 && on[i - 1] && (u - WARPS) / ntn == mt;
+    mt16[i] = mt * 16;
     ucol[i] = nt * 8;
-    arow[i] = kSplit ? mt * 16 * hld : (mt * 16 + lane % 16) * hld + (lane / 16) * 8;
-    prow[i] = mt * 16 + lane % 16;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      erow[i][hh] = mt * 16 + gid + hh * 8;
-      xoff[i][hh] = (size_t)(r0 + erow[i][hh]) * GH + j0 + nt * 8 + tig * 2;
-    }
   }
-  float hcar[UNITS_MAX][4], ccar[UNITS_MAX][4];
+  // bf16: the ldmatrix A row offset; f32: the tile's first row
+  auto arow = [&](int i) {
+    return kSplit ? mt16[i] * hld : (mt16[i] + lane % 16) * hld + (lane / 16) * 8;
+  };
+  // f32: on the m16 tile of the unit before it, which is on
+  auto same_rows = [&](int i) { return i > 0 && on[i - 1] && mt16[i - 1] == mt16[i]; };
+  auto erow = [&](int i, int hh) { return mt16[i] + gid + hh * 8; };  // this lane's elements' rows
+  auto prow = [&](int i) { return mt16[i] + lane % 16; };  // the row this lane pushes
+  float hcar[U][4], ccar[U][4];
 #pragma unroll
-  for (int i = 0; i < UNITS_MAX; ++i)
+  for (int i = 0; i < U; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) hcar[i][e] = ccar[i][e] = 0.0f;
 
@@ -429,31 +447,38 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
 
     // 1. this step's xp (pairs of columns) and mask of the thread's
     // elements, from L2 (prefetched a step ahead): at bf16 before the
-    // product, so the loads overlap it; at f32 after it, where the split
-    // fragments need the registers the pairs would hold
-    XPair xr[UNITS_MAX][G][2];
-    float mk[UNITS_MAX][2];
+    // product, so the loads overlap it; at f32, and where a warp holds more
+    // than UNITS_MAX units, after it, where the split fragments or the
+    // accumulators need the registers the pairs would hold (LSTM's four
+    // gates with more than UNITS_MAX units: each unit's just before its
+    // gate math)
+    constexpr bool x_after = kSplit || U > UNITS_MAX, x_unit = U > UNITS_MAX && CELL == kLSTM;
+    XPair xr[U][G][2];
+    float mk[U][2];
+    auto load_unit_x = [&](int i) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = erow(i, hh);
+        const bool ok = on[i] && row < nrows;
+        mk[i][hh] = ok ? __ldg(a.mask + tb + r0 + row) : 0.0f;
+        const CT* xrow = xp + (tb + r0 + row) * GH + j0 + ucol[i] + tig * 2;
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          xr[i][g][hh] = ok ? __ldg(reinterpret_cast<const XPair*>(xrow + (size_t)g * H))
+                            : XPair{};
+      }
+    };
     auto load_x = [&]() {
 #pragma unroll
-      for (int i = 0; i < UNITS_MAX; ++i)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const bool ok = on[i] && erow[i][hh] < nrows;
-          mk[i][hh] = ok ? __ldg(a.mask + tb + r0 + erow[i][hh]) : 0.0f;
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-            xr[i][g][hh] = ok ? __ldg(reinterpret_cast<const XPair*>(
-                                    xp + tb * GH + xoff[i][hh] + (size_t)g * H))
-                              : XPair{};
-        }
+      for (int i = 0; i < U; ++i) load_unit_x(i);
     };
-    if constexpr (!kSplit) load_x();
+    if constexpr (!x_after) load_x();
 
     // 2. the product, one accumulator per (unit, gate), over rows
     // [k0, k0 + klen) of W held at wk (its row k0 first)
-    float acc[UNITS_MAX][G][4];
+    float acc[U][G][4];
 #pragma unroll
-    for (int i = 0; i < UNITS_MAX; ++i)
+    for (int i = 0; i < U; ++i)
 #pragma unroll
       for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -469,11 +494,11 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
           constexpr bool two = decltype(two_steps)::value;
           uint32_t af[2][PIECES][4];
 #pragma unroll
-          for (int i = 0; i < UNITS_MAX; ++i) {
+          for (int i = 0; i < U; ++i) {
             if (!on[i]) continue;
-            if (!same_rows[i]) {
-              a_frag_f32(ap + arow[i] + kk, hld, half, af[0]);
-              if constexpr (two) a_frag_f32(ap + arow[i] + kk + 16, hld, half, af[1]);
+            if (!same_rows(i)) {
+              a_frag_f32(ap + arow(i) + kk, hld, half, af[0]);
+              if constexpr (two) a_frag_f32(ap + arow(i) + kk + 16, hld, half, af[1]);
             }
             const WT* bp = wk + (size_t)(kk + lane) * wld + ucol[i];  // k rows kk + lane
 #pragma unroll
@@ -510,9 +535,9 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
         for (int kk = 0; kk < klen; kk += 16) {
           uint32_t af[PIECES][4];
 #pragma unroll
-          for (int i = 0; i < UNITS_MAX; ++i) {
+          for (int i = 0; i < U; ++i) {
             if (!on[i]) continue;
-            if (!same_rows[i]) a_frag_f32(ap + arow[i] + kk, hld, half, af);
+            if (!same_rows(i)) a_frag_f32(ap + arow(i) + kk, hld, half, af);
 #pragma unroll
             for (int g = 0; g < G; ++g) {
               uint32_t bf[PIECES][2];
@@ -523,9 +548,9 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < UNITS_MAX; ++i) {
+        for (int i = 0; i < U; ++i) {
           if (!on[i]) continue;
-          const CT* ap = cur + arow[i] + k0;
+          const CT* ap = cur + arow(i) + k0;
           const WT* bp = wk + (size_t)lane * wld + ucol[i];  // k rows kk + lane
 #pragma unroll 2
           for (int kk = 0; kk < klen; kk += 32) {
@@ -555,18 +580,19 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
       }
     }
     if (one_block) cluster_arrive();  // this CTA no longer reads the row block
-    if constexpr (kSplit) load_x();
+    if constexpr (x_after && !x_unit) load_x();
 
     // 3. gate math, history, and h (bf16: rounded) into the next row block
     // (one block: kept in registers until every peer has read the block)
-    HPair hnew[UNITS_MAX][2];
+    HPair hnew[U][2];
 #pragma unroll
-    for (int i = 0; i < UNITS_MAX; ++i) {
+    for (int i = 0; i < U; ++i) {
       if (!on[i]) continue;
+      if constexpr (x_unit) load_unit_x(i);
       const int col = ucol[i] + tig * 2;  // within the CTA
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const int row = erow[i][hh];
+        const int row = erow(i, hh);
         float x[2][G], p[2][G];
 #pragma unroll
         for (int g = 0; g < G; ++g) {
@@ -600,13 +626,13 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
     if (one_block) {
       cluster_wait();  // every CTA has read the block: the next h may go in
 #pragma unroll
-      for (int i = 0; i < UNITS_MAX; ++i) {
+      for (int i = 0; i < U; ++i) {
         if (!on[i]) continue;
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh)
-          if (erow[i][hh] < R)
-            *reinterpret_cast<HPair*>(nxt + (size_t)erow[i][hh] * hld + j0 + ucol[i] +
-                                      tig * 2) = hnew[i][hh];
+          if (erow(i, hh) < R)
+            *reinterpret_cast<HPair*>(nxt + (size_t)erow(i, hh) * hld + j0 + ucol[i] + tig * 2) =
+                hnew[i][hh];
       }
     }
     __syncwarp();
@@ -615,9 +641,9 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
     // f32) into every peer's next row block; lanes 0-15 and 16-31 take
     // every other peer
 #pragma unroll
-    for (int i = 0; i < UNITS_MAX; ++i) {
-      if (!on[i] || prow[i] >= nrows) continue;
-      CT* src = nxt + (size_t)prow[i] * hld + j0 + ucol[i];
+    for (int i = 0; i < U; ++i) {
+      if (!on[i] || prow(i) >= nrows) continue;
+      CT* src = nxt + (size_t)prow(i) * hld + j0 + ucol[i];
       uint4 v[ROW_WORDS];
 #pragma unroll
       for (int w = 0; w < ROW_WORDS; ++w) v[w] = reinterpret_cast<const uint4*>(src)[w];
@@ -630,18 +656,18 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
       }
       if constexpr (sizeof(HT) == 2)  // the bf16 history is the rounded h itself
         if (lane < 16)
-          *reinterpret_cast<uint4*>(out + (tb + r0 + prow[i]) * H + j0 + ucol[i]) = v[0];
+          *reinterpret_cast<uint4*>(out + (tb + r0 + prow(i)) * H + j0 + ucol[i]) = v[0];
     }
     cluster.sync();  // 5. release the pushes, acquire the peers'
   }
 
 #pragma unroll
-  for (int i = 0; i < UNITS_MAX; ++i) {
+  for (int i = 0; i < U; ++i) {
     if (!on[i]) continue;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh)
-      if (erow[i][hh] < nrows) {
-        float* hf = a.h_final + ((size_t)d * B + r0 + erow[i][hh]) * H + j0 + ucol[i] + tig * 2;
+      if (erow(i, hh) < nrows) {
+        float* hf = a.h_final + ((size_t)d * B + r0 + erow(i, hh)) * H + j0 + ucol[i] + tig * 2;
         *reinterpret_cast<float2*>(hf) = make_float2(hcar[i][2 * hh], hcar[i][2 * hh + 1]);
       }
   }
@@ -713,21 +739,29 @@ __global__ void rnn_fwd_pack_w_split(PackArgs p) {
 
 struct Plan {
   int nc, R, hc, kc, S, blocks, wsplit;  // wsplit: f32, W in its bf16 pieces
+  int wide;  // the large-batch layouts: UNITS_WIDE units a warp (bf16, W resident)
 };
 
 template <int CELL, typename CT>
 bool plan_ok(const Plan& pl, int H, int kp) {
   // the bf16 product's k32 steps, the split product's k16 steps
   constexpr int kstep = sizeof(CT) == 2 ? 32 : 16;
+  const bool streamed = pl.kc < kp;
   if (H % 8 || pl.nc < 1 || pl.nc > 16 || pl.hc < 8 || pl.hc % 8 || pl.nc * pl.hc < H ||
       (pl.nc - 1) * pl.hc >= H || pl.kc < kstep || pl.kc % kstep ||
-      (pl.kc < kp && (pl.S < 1 || pl.S > 8)) || (pl.blocks != 1 && pl.blocks != 2))
+      (streamed && (pl.S < 1 || pl.S > 8)))
     return false;
-  // W in its pieces only at f32
-  if (pl.wsplit && sizeof(CT) != 4) return false;
+  // W in its pieces only at f32; the large-batch layouts only at bf16 with
+  // W resident
+  if ((pl.wsplit && sizeof(CT) != 4) || (pl.wide && (sizeof(CT) != 2 || streamed)))
+    return false;
+  // h rows: two blocks, or one (a second cluster barrier a step) where W
+  // streams and in the large-batch layouts
+  if (pl.blocks != 2 && !(pl.blocks == 1 && (streamed || pl.wide))) return false;
   // whole m16 tiles of rows (f32 also 8 rows, half a tile)
   const bool rows = pl.R % 16 == 0 || (sizeof(CT) == 4 && pl.R == 8);
-  return pl.R >= 8 && rows && ((pl.R + 15) / 16) * (pl.hc / 8) <= UNITS_MAX * WARPS;
+  const int units = pl.wide ? UNITS_WIDE : UNITS_MAX;
+  return pl.R >= 8 && rows && ((pl.R + 15) / 16) * (pl.hc / 8) <= units * WARPS;
 }
 
 template <int CELL, typename CT>
@@ -746,11 +780,14 @@ size_t packed_elems(const Plan& pl, int kp, int D) {
 }
 
 template <int CELL, typename CT, typename HT>
-auto pick_kernel(bool streamed, bool wsplit) {
-  if constexpr (sizeof(CT) == 4)
+auto pick_kernel(bool streamed, bool wsplit, bool wide) {
+  if constexpr (sizeof(CT) == 4) {
     if (wsplit)
       return streamed ? rnn_fwd_kernel<CELL, CT, HT, true, true>
                       : rnn_fwd_kernel<CELL, CT, HT, false, true>;
+  } else {
+    if (wide) return rnn_fwd_kernel<CELL, CT, HT, false, false, UNITS_WIDE>;
+  }
   return streamed ? rnn_fwd_kernel<CELL, CT, HT, true, false>
                   : rnn_fwd_kernel<CELL, CT, HT, false, false>;
 }
@@ -770,7 +807,7 @@ int launch(int T, int B, int H, int D, const Plan& pl, const void* xp0, const vo
   if (streamed &&
       (wpk == nullptr || wpk_elems != (long long)packed_elems<CELL, CT>(pl, kp, D)))
     return (int)cudaErrorInvalidValue;
-  auto kernel = pick_kernel<CELL, CT, HT>(streamed, pl.wsplit);
+  auto kernel = pick_kernel<CELL, CT, HT>(streamed, pl.wsplit, pl.wide);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
@@ -871,7 +908,9 @@ extern "C" {
 // columns each, rows batch rows per cluster, W rows resident (kc >= H
 // rounded up to 32) or streamed through a ring of wstages stages of kc rows
 // each, blocks h row blocks (2, or 1); wsplit (f32 compute): W held in
-// shared memory as its three bf16 pieces instead of f32. wpk: where W
+// shared memory as its three bf16 pieces instead of f32; wide (bf16, W
+// resident, one h row block): the large-batch layouts, UNITS_WIDE units a
+// warp. wpk: where W
 // streams, scratch of wpk_elems elements of the compute dtype (wsplit:
 // bf16) for the packed W (fwd_plan's layout; the launcher checks the
 // count), else null. device: the CUDA
@@ -880,7 +919,7 @@ extern "C" {
 // launches (0 on success).
 int rnn_fwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int T, int B, int H,
                    int D, int nc, int rows, int hc, int kc, int wstages, int blocks,
-                   int wsplit, const void* xp0, const void* xp1, const float* mask,
+                   int wsplit, int wide, const void* xp0, const void* xp1, const float* mask,
                    const void* w_hh,
                    void* wpk, long long wpk_elems, const float* b_hh, void* out0, void* out1,
                    void* c0, void* c1, float* h_final, void* stream) {
@@ -888,7 +927,7 @@ int rnn_fwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int T, int
   if (D < 1 || D > 2 || cell < 0 || cell > 2) return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  const Plan pl = {nc, rows, hc, kc, wstages, blocks, wsplit};
+  const Plan pl = {nc, rows, hc, kc, wstages, blocks, wsplit, wide};
   return dispatch<Launch>(cell, cdt_bf16, hist_bf16, T, B, H, D, pl, xp0, xp1, mask, w_hh, wpk,
                           wpk_elems, b_hh, out0, out1, c0, c1, h_final,
                           static_cast<cudaStream_t>(stream));

@@ -17,7 +17,8 @@ chunk by chunk), the step's product on the tensor cores (at f32 compute
 as split products: three bf16 pieces a value, six products), and each
 step's h exchanged through distributed shared memory with one
 cluster barrier a step (two where the CTA keeps one h row block to make
-room for the ring). :func:`fwd_plan` picks the layout. On a CPU tensor it runs :func:`rnn_layer_fwd_reference`, the plain
+room for the ring). At bf16 and large batches, where W stays resident,
+it takes more rows a CTA in fewer waves. :func:`fwd_plan` picks the layout. On a CPU tensor it runs :func:`rnn_layer_fwd_reference`, the plain
 PyTorch version of the same arithmetic. Both read xp rounded to the
 compute dtype, as the TPU kernel does (its caller casts xp before the
 call), and round h to the compute dtype before every step's product.
@@ -86,6 +87,11 @@ _SMS = 132  # streaming multiprocessors of an H100 SXM
 # (16 x 8) output units of a chain product one CTA holds (4 per warp), at
 # either compute dtype; a CTA of 8 rows (f32) holds units of 8 rows
 _UNITS_MAX = 4 * 8
+# The forward's large-batch layouts (bf16, W resident): 6 units a warp
+# (8 spilled registers and ran slower on an H100), up to 256 rows
+_UNITS_WIDE = 6 * 8
+_WIDE_ROWS = tuple(range(16, 257, 16))
+_WIDE_BATCH = 256  # the least batch they take (every smaller batch keeps its plan)
 # The forward at f32: rows x columns a CTA takes at most, a choice within
 # the units it holds. The f32 h row block grows with the rows, and where W
 # streams its room is the ring's: at RNN H=3072 B=16 T=32 on an H100
@@ -123,6 +129,7 @@ def _lib():
             _INT, _INT, _INT, _INT,  # device, cell, cdt_bf16, hist_bf16
             _INT, _INT, _INT, _INT,  # T, B, H, D
             _INT, _INT, _INT, _INT, _INT, _INT, _INT,  # nc, rows, hc, kc, wstages, blocks, wsplit
+            _INT,  # wide
             _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # xp0, xp1, mask, w_hh
             _VOIDP, ctypes.c_longlong, _VOIDP,  # wpk, wpk_elems, b_hh
             _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # out0, out1, c0, c1, h_final
@@ -200,6 +207,13 @@ def _fwd_packed_elems(cell: str, plan: dict, D: int, cdt_bytes: int) -> int:
             * _fwd_wld(_GATES[cell], plan["hc"], cdt_bytes, wsplit))
 
 
+def fwd_waves(plan: dict, D: int) -> int:
+    """How many times the card runs the whole time loop: the plan's
+    clusters, both directions, over the clusters of its size the card
+    holds at once."""
+    return -(-D * plan["clusters"] // plan["slots"])
+
+
 def _fwd_layout(cell: str, Hk: int, cb: int, R: int, hc: int):
     """The forward's layout at these rows and columns a CTA: (kc, wstages,
     blocks, smem, wsplit), W resident where it fits beside two h row
@@ -243,6 +257,33 @@ def _fwd_layout(cell: str, Hk: int, cb: int, R: int, hc: int):
     return rings[-1]
 
 
+def _wide_plan(cell: str, B: int, Hk: int, D: int, slots):
+    """The large-batch plan (bf16, W resident; :func:`fwd_plan`): over the
+    cluster sizes and the rows a CTA of 6 units a warp holds (multiples of
+    16 up to 256 and the batch) with W resident beside one h row block (a
+    second cluster barrier a step), the fewest waves; then clusters of 8
+    before 16; then the fewest rows. On an H100 (--layouts, PERF.md
+    section 6) one h row block ran level with two or faster in each of
+    three sweeps at GRU H=256 B=1024 T=128. None where W resident fits at
+    no rows."""
+    kp = _up(Hk, 32)
+    best = None
+    for nc, hc in _cluster_sizes(Hk, slots):
+        for R in _WIDE_ROWS:
+            if _units(R, hc) > _UNITS_WIDE or R > _up(B, 16):
+                break
+            smem = _fwd_smem_bytes(cell, Hk, 2, R, hc, kp, 0, 1)
+            if smem > _SMEM_LIMIT:
+                break
+            plan = {"H": Hk, "nc": nc, "hc": hc, "rows": R, "clusters": -(-B // R), "kc": kp,
+                    "resident": True, "wstages": 0, "blocks": 1, "smem": smem,
+                    "slots": slots[nc], "wsplit": False, "wide": True}
+            key = (fwd_waves(plan, D), nc, R)
+            if best is None or key < best[0]:
+                best = (key, plan)
+    return None if best is None else best[1]
+
+
 def _cluster_sizes(Hk: int, slots):
     """The cluster sizes a plan tries in turn, with each CTA's columns: at
     most 8 CTAs (the portable size), then at most 16 where 8 hold more
@@ -255,6 +296,34 @@ def _cluster_sizes(Hk: int, slots):
         if (not out or nc > out[-1][0]) and slots.get(nc, 0) > 0:
             out.append((nc, hc))
     return out
+
+
+def _cluster_plan(cell: str, B: int, Hk: int, D: int, cb: int, slots):
+    """:func:`fwd_plan`'s cluster route (4 units a warp, every CTA keeping
+    the whole h row block), or None."""
+    kp = _up(Hk, 32)
+    cands = (16, 32, 64, 128) if cb == 2 else (8, 16, 32, 64)
+    plans = []
+    for nc, hc in _cluster_sizes(Hk, slots):
+        held = [R for R in cands if _units(R, hc) <= _UNITS_MAX
+                and (cb == 2 or R * hc <= _F32_ROWS_COLS)]
+        if plans:  # where 8 stream W: 16 at the rows 8 took, all on the card at once
+            R = plans[0]["rows"]
+            if plans[0]["resident"] or R not in held or D * -(-B // R) > slots[nc]:
+                continue
+            held = [R]
+        layouts = [(R, *lay) for R in held
+                   for lay in [_fwd_layout(cell, Hk, cb, R, hc)] if lay is not None]
+        if not layouts:
+            continue
+        least = cands[0] if B <= cands[0] else cands[1]
+        big = [lay for lay in layouts if lay[0] >= least] or layouts[-1:]
+        R, kc, stages, blocks, smem, wsplit = next(
+            (lay for lay in big if D * -(-B // lay[0]) <= slots[nc]), big[-1])
+        plans.append({"H": Hk, "nc": nc, "hc": hc, "rows": R, "clusters": -(-B // R), "kc": kc,
+                      "resident": kc >= kp, "wstages": stages, "blocks": blocks, "smem": smem,
+                      "slots": slots[nc], "wsplit": wsplit, "wide": False})
+    return plans[-1] if plans else None
 
 
 def fwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16",
@@ -293,36 +362,31 @@ def fwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16"
     where 16 at those rows took two waves, clusters of 8 won (GRU H=512
     B=128 T=128: 1.31-1.34 ms, against 1.71-1.82 in 16 and 1.50 in 16 at
     twice the rows; GRU H=1024 B=1024 T=128: 18.5-18.6 against 22.8-23.1).
+    Large batches (bf16, B >= 256): where that plan keeps W resident and
+    takes more than one wave (a CTA of 4 units a warp holds at most 128
+    rows at H=256), the large-batch layout (:func:`_wide_plan`: 6 units a
+    warp, W resident beside one h row block; ``wide``) takes over where it
+    needs fewer waves. GRU H=256 B=1024 then takes 160 rows a cluster, 14
+    clusters of 8 in one wave (two before). Where W streams (GRU H=1024
+    B=1024: 32 rows, five waves) the plan stays the cluster route's: h
+    carried beside W through L2 in three waves of 48 rows ran level with
+    it, and 8 units a warp (64 rows) spilled registers and ran slower
+    (PERF.md section 6).
     ``slots``: how many clusters of each size the card holds at once (the
     H100 SXM's by default, the card's own from the wrapper).
     ``history_dtype`` changes no layout. The kernel checks the plan and
     refuses one that does not fit."""
     del T, history_dtype  # the layout depends on neither
     Hk = _up(max(H, 1), 8)
-    kp = _up(Hk, 32)
     cb = torch_dtype(compute_dtype).itemsize
-    cands = (16, 32, 64, 128) if cb == 2 else (8, 16, 32, 64)
-    plans = []
-    for nc, hc in _cluster_sizes(Hk, slots):
-        held = [R for R in cands if _units(R, hc) <= _UNITS_MAX
-                and (cb == 2 or R * hc <= _F32_ROWS_COLS)]
-        if plans:  # where 8 stream W: 16 at the rows 8 took, all on the card at once
-            R = plans[0]["rows"]
-            if plans[0]["resident"] or R not in held or D * -(-B // R) > slots[nc]:
-                continue
-            held = [R]
-        layouts = [(R, *lay) for R in held
-                   for lay in [_fwd_layout(cell, Hk, cb, R, hc)] if lay is not None]
-        if not layouts:
-            continue
-        least = cands[0] if B <= cands[0] else cands[1]
-        big = [lay for lay in layouts if lay[0] >= least] or layouts[-1:]
-        R, kc, stages, blocks, smem, wsplit = next(
-            (lay for lay in big if D * -(-B // lay[0]) <= slots[nc]), big[-1])
-        plans.append({"H": Hk, "nc": nc, "hc": hc, "rows": R, "clusters": -(-B // R), "kc": kc,
-                      "resident": kc >= kp, "wstages": stages, "blocks": blocks, "smem": smem,
-                      "slots": slots[nc], "wsplit": wsplit})
-    return plans[-1] if plans else None
+    plan = _cluster_plan(cell, B, Hk, D, cb, slots)
+    if plan is None:
+        return None
+    if cb == 2 and B >= _WIDE_BATCH and plan["resident"] and fwd_waves(plan, D) > 1:
+        wide = _wide_plan(cell, B, Hk, D, slots)
+        if wide is not None and fwd_waves(wide, D) < fwd_waves(plan, D):
+            return wide
+    return plan
 
 
 def kernel_width(H: int) -> int:
@@ -462,9 +526,9 @@ def rnn_layer_fwd(
             torch.cuda.current_device(),  # the tensors' device (inside the with)
             _CELL_CODE[cell], int(cdt == torch.bfloat16), int(hist == torch.bfloat16),
             T, B, H, D, plan["nc"], plan["rows"], plan["hc"], plan["kc"], plan["wstages"],
-            plan["blocks"], int(wsplit), ptr(xs, 0), ptr(xs, 1), m.data_ptr(), w.data_ptr(),
-            None if wpk is None else wpk.data_ptr(), n_pack, b.data_ptr(),
-            ptr(outs, 0), ptr(outs, 1), ptr(c_hist, 0), ptr(c_hist, 1),
+            plan["blocks"], int(wsplit), int(plan["wide"]), ptr(xs, 0), ptr(xs, 1),
+            m.data_ptr(), w.data_ptr(), None if wpk is None else wpk.data_ptr(), n_pack,
+            b.data_ptr(), ptr(outs, 0), ptr(outs, 1), ptr(c_hist, 0), ptr(c_hist, 1),
             h_final.data_ptr(), stream,
         )
     if err:

@@ -24,7 +24,8 @@ beside this one with ``git archive``): only the public ``rnn_layer_fwd``,
 are called. ``--layouts`` also times each streamed shape under every
 layout its pass can take (the W ring's depth and width, one or two row
 blocks, clusters of 8 or 16, and the forward's W resident in clusters of
-16 where it fits), the plan's own marked, each with its digest: it needs a
+16 where it fits; where the plan is a large-batch layout, those instead:
+``_wide_layouts``), the plan's own marked, each with its digest: it needs a
 checkout whose plans carry a ring (``wstages``). At f32 compute it times
 every shape so, the backward under whole layouts (rows, the dhp row block
 whole or in chunks, W resident or streamed, staging buffers), whose sums
@@ -36,7 +37,13 @@ time loop; the backward's operand split, gate recompute, W packing, dh
 chain, weight gradient and fixed-order sum, each the mean over
 ``PHASE_CALLS`` calls. ``--device cpu`` runs the plain versions at toy
 sizes on the host clock: a check of the harness, whose times say nothing
-about a card.
+about a card. Each record
+also gives its plan's waves: ceil(2 x clusters / the clusters of its size
+the card holds at once), each wave a whole time loop; a backward record at
+B >= 256 also gives the chain's shared memory a CTA at larger row blocks
+(``smem_by_rows``: 2 staging buffers, W resident and two dhp row blocks,
+as its plan at 32 rows; and the dhp row block exchanged in 64-column
+chunks), the rows that bound it.
 """
 
 from __future__ import annotations
@@ -83,6 +90,17 @@ SHAPES = (
     ("fwd", "GRU", 256, 128, 128, "bfloat16", "float32"),
     ("bwd", "GRU", 256, 64, 32, "bfloat16", "float32"),
     ("bwd", "GRU", 256, 128, 128, "bfloat16", "float32"),
+    # the large batches: the reference towers' export (T=128) and in-batch
+    # training (T=32) batch of 1024, both passes, and a wide GRU's export
+    ("fwd", "GRU", 256, 1024, 128, "bfloat16"), ("fwd", "GRU", 256, 1024, 32, "bfloat16"),
+    ("bwd", "GRU", 256, 1024, 128, "bfloat16"), ("bwd", "GRU", 256, 1024, 32, "bfloat16"),
+    ("fwd", "GRU", 512, 1024, 128, "bfloat16"),
+    # more of the forward's large-batch layouts (W resident, one h row
+    # block): the other cells at the export batch, the widest GRU they take
+    # at B=512 and 1024, twice the export batch, and RNN at B=256
+    ("fwd", "LSTM", 256, 1024, 32, "bfloat16"), ("fwd", "RNN", 256, 1024, 32, "bfloat16"),
+    ("fwd", "GRU", 384, 512, 32, "bfloat16"), ("fwd", "GRU", 384, 1024, 32, "bfloat16"),
+    ("fwd", "GRU", 256, 2048, 32, "bfloat16"), ("fwd", "RNN", 640, 256, 32, "bfloat16"),
 )
 # --phases: single f32-compute calls split into their launches
 PHASE_SHAPES = (("fwd", "GRU", 1024, 64, 32, "float32"), ("bwd", "GRU", 1024, 64, 32, "float32"),
@@ -315,6 +333,32 @@ def _fwd_layouts(rnn_scan, cell, B, cdt, slots, base):
     return out
 
 
+def _wide_layouts(rnn_scan, cell, B, slots, base):
+    """The forward's large-batch layouts --layouts times (bf16, W resident;
+    a checkout that has them): per cluster size, the fewest and the most
+    rows a CTA of the large-batch units holds at that size's fewest waves,
+    each beside two or one h row blocks where it fits."""
+    Hk = base["H"]
+    kp = -(-Hk // 32) * 32
+    out = []
+    for nc, hc in rnn_scan._cluster_sizes(Hk, slots):
+        rows = [R for R in range(16, 257, 16)
+                if _units(R, hc) <= rnn_scan._UNITS_WIDE and R <= -(-B // 16) * 16]
+        if not rows:
+            continue
+        waves = {R: -(-2 * -(-B // R) // slots[nc]) for R in rows}
+        least = min(waves.values())
+        at = [R for R in rows if waves[R] == least]
+        for R in sorted({at[0], at[-1]}):
+            for blocks in (2, 1):
+                smem = rnn_scan._fwd_smem_bytes(cell, Hk, 2, R, hc, kp, 0, blocks)
+                if smem <= rnn_scan._SMEM_LIMIT:
+                    out.append(dict(base, nc=nc, hc=hc, rows=R, clusters=-(-B // R),
+                                    slots=slots[nc], wsplit=False, wide=True, kc=kp,
+                                    resident=True, wstages=0, blocks=blocks, smem=smem))
+    return out
+
+
 def _bwd_layouts(rnn_scan, cell, H, cdt, hist, slots, base):
     """Every backward layout --layouts times: the plan's chunk kc kept (it
     orders the sums), its staging buffers and row blocks, each piece width
@@ -393,7 +437,22 @@ def _bwd_f32_layouts(rnn_scan, cell, B, hist, slots, base):
 
 
 _PLAN_KEYS = ("nc", "hc", "rows", "clusters", "kc", "resident", "wstages", "blocks", "stages",
-              "xc", "kw", "nsplit", "smem", "slots", "wsplit")
+              "xc", "kw", "nsplit", "smem", "slots", "wsplit", "wide")
+
+
+def _bwd_smem_by_rows(rnn_scan, cell, plan, cb, hb):
+    """The backward chain's shared memory a CTA at the plan's columns and
+    larger row blocks: {rows: [whole dhp row block, W resident, two
+    blocks and two staging buffers; the row block exchanged in chunks of
+    64 columns, W streamed in the same chunks]}, beside the limit."""
+    Hk, hc = plan["H"], plan["hc"]
+    out = {}
+    for R in (32, 48, 64, 96, 128, 160):
+        whole = rnn_scan._bwd_smem_bytes(cell, Hk, cb, hb, R, hc, 1 << 30, 2, 2)
+        chunked = rnn_scan._bwd_smem_bytes(cell, Hk, cb, hb, R, hc, 64, 2, 2, 64)
+        out[R] = [whole, chunked]
+    out["limit"] = rnn_scan._SMEM_LIMIT
+    return out
 
 
 def main(argv=None) -> int:
@@ -442,7 +501,10 @@ def main(argv=None) -> int:
         plan = plan_fn(cell, T, B, H, 2, cdt, hist, slots)
         rec = {"pass": which, "cell": cell, "H": H, "B": B, "T": T, "compute": cdt,
                "history": str(hist).replace("torch.", ""),
-               "plan": {k: plan[k] for k in _PLAN_KEYS if k in plan}}
+               "plan": {k: plan[k] for k in _PLAN_KEYS if k in plan},
+               "waves": -(-2 * plan["clusters"] // plan["slots"])}
+        if which == "bwd" and B >= 256:
+            rec["smem_by_rows"] = _bwd_smem_by_rows(rnn_scan, cell, plan, cb, hist.itemsize)
         with torch.no_grad():
             if which == "fwd":
                 def call():
@@ -485,8 +547,11 @@ def main(argv=None) -> int:
         if cdt == "float32":
             rec["cudnn_f32_ms"] = _cudnn_ms(torch, time_ms, cell, H, B, T, dev, which == "bwd",
                                             f32=True)[0]
-        if args.layouts and (H > 256 or cdt == "float32"):
-            if which == "fwd":
+        wide = which == "fwd" and plan.get("wide", False)
+        if args.layouts and (H > 256 or cdt == "float32" or wide):
+            if wide:
+                layouts = _wide_layouts(rnn_scan, cell, B, slots, plan)
+            elif which == "fwd":
                 layouts = _fwd_layouts(rnn_scan, cell, B, cdt, slots, plan)
             elif cdt == "float32":
                 layouts = _bwd_f32_layouts(rnn_scan, cell, B, hist, slots, plan)
@@ -503,6 +568,7 @@ def main(argv=None) -> int:
                     setattr(rnn_scan, f"{which}_plan", plan_fn)
                 rec["layouts"].append({
                     "plan": {k: lay[k] for k in _PLAN_KEYS if k in lay}, "ms": ms,
+                    "waves": -(-2 * lay["clusters"] // lay["slots"]),
                     "step_us": ms / T * 1e3,
                     "chosen": all(lay.get(k) == plan.get(k) for k in _PLAN_KEYS),
                     "same_bits": d == rec["digest"]})

@@ -1,7 +1,7 @@
 """Run a checkout's ``chip_smoke.py`` with each of its phases timed.
 
     python3 twotowermlretrieval_tpu_torch/tools/smoke_phase_times.py [CHECKOUT] [--out FILE]
-        [--kernel-phases]
+        [--kernel-phases | --export]
 
 Loads ``CHECKOUT/chip_smoke.py`` (default: this checkout's), wraps every
 module-level ``phase_*`` function so that its wall time is logged to
@@ -15,7 +15,10 @@ card to see which phases take a difference in the script's total.
 (:data:`KERNEL_PHASES`, each on the first card) and adds their records
 (every kernel check's times, bounds and errors) to FILE under
 ``"records"``: run two checkouts in turns to compare unchanged kernels'
-times within one call.
+times within one call. ``--export`` runs only the build and the export
+(``phase_export``: 70,000 passages through the reference model's doc
+tower, 1024 a batch) and adds its record (``export_s``, the launches):
+run two checkouts in turns to compare the export's seconds.
 
     python3 .../smoke_phase_times.py --compare BASE.json... -- NEW.json...
 
@@ -86,6 +89,9 @@ def main(argv) -> int:
     kernel_phases = "--kernel-phases" in args
     if kernel_phases:
         args.remove("--kernel-phases")
+    export = "--export" in args
+    if export:
+        args.remove("--export")
     out = None
     if "--out" in args:
         i = args.index("--out")
@@ -112,7 +118,7 @@ def main(argv) -> int:
         setattr(smoke, name, timed(name, getattr(smoke, name)))
     result = {"checkout": str(root), "phases": times}
     try:
-        if not kernel_phases:
+        if not kernel_phases and not export:
             return smoke.main([])
         import torch
 
@@ -120,7 +126,13 @@ def main(argv) -> int:
         dev = torch.device("cuda")
         smoke.phase_build()
         result["card"] = smoke.card_line()
-        result["records"] = {name: _plain(getattr(smoke, name)(dev)) for name in KERNEL_PHASES}
+        if export:
+            result["export"] = _plain(smoke.phase_export(dev)[0])
+            print(f"[phase-times] export {json.dumps(result['export'])}", file=sys.stderr,
+                  flush=True)
+        else:
+            result["records"] = {name: _plain(getattr(smoke, name)(dev))
+                                 for name in KERNEL_PHASES}
         return 0
     finally:
         if out is not None:
