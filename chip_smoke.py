@@ -1335,25 +1335,30 @@ def _bwd_design(cell: str, B: int, T: int, dev, H=H, compact: bool = True,
                 compute: str = "bfloat16") -> dict:
     """The layout the backward kernel launches at this shape (bf16 compute
     with a bf16 or, not ``compact``, an f32 history, or f32 compute; both
-    directions), logged with the card's count of clusters of its size."""
-    from twotowermlretrieval_tpu_torch.ops.rnn_scan import bwd_plan, cluster_slots
+    directions), logged with its route (the cluster route, or the
+    large-batch layout: W resident, one dhp row block, nothing staged), the
+    card's count of clusters of its size and its waves (each a whole time
+    loop)."""
+    from twotowermlretrieval_tpu_torch.ops.rnn_scan import bwd_plan, bwd_waves, cluster_slots
 
     hist = torch.bfloat16 if compact and compute == "bfloat16" else torch.float32
     slots = cluster_slots("bwd", cell, compute, hist, dev)
     plan = bwd_plan(cell, T, B, H, 2, compute, hist, slots)
+    route, waves = "large-batch" if plan["wide"] else "cluster", bwd_waves(plan, 2)
     w = ("resident" if plan["resident"]
          else f"streamed every step in chunks of {plan['kc']} columns, through a ring of "
               f"{plan['wstages']} stages of {plan['kw']} columns")
     kp = -(-_GATES[cell] * plan["H"] // 16) * 16
     x = ("whole" if plan["xc"] >= kp
          else f"exchanged in chunks of {plan['xc']} columns, a cluster barrier each")
-    log(f"rnn_bwd design, {cell} B={B} T={T} H={H} {compute}: clusters of {plan['nc']} CTAs x "
+    log(f"rnn_bwd design, {cell} B={B} T={T} H={H} {compute}: route {route}, {waves} wave(s); "
+        f"clusters of {plan['nc']} CTAs x "
         f"{plan['hc']} hidden columns (the card holds {plan['slots']} at once), "
         f"{plan['rows']} batch rows a cluster, {plan['clusters']} clusters a direction, W rows "
         f"{w}, {plan['stages']} staging buffers, {plan['blocks']} dhp row block(s) {x}, "
         f"{plan['smem']} bytes of shared memory a CTA; weight gradient in "
         f"{plan['nsplit']} slices of T*B")
-    return plan
+    return dict(plan, route=route, waves=waves)
 
 
 def _over(a, b, atol: float, rtol: float) -> float:
@@ -1542,8 +1547,14 @@ def phase_large_batch(dev) -> tuple:
     bit-identical and timed beside cuDNN; and the in-batch query tower
     (GRU H=256, B=1024, T=32), whose large-batch layout (160 rows a
     cluster, one wave) must give the bits of the cluster route forced to
-    the plan it had before (128 rows, two waves). Returns the record and
-    the phase's launch counts (the comparison's launches included)."""
+    the plan it had before (128 rows, two waves). Then the backward of both
+    in-batch towers (GRU H=256 B=1024, T=32 and T=128: the large-batch
+    layout, 96 rows a cluster, two waves) against its plain version, twice
+    bit-identical, and in both modes bit for bit the cluster route forced
+    to the plan it had before (32 rows, five waves); and split mode at
+    T=128 against its plain version, timed. Returns the forward's record,
+    the backward's records (the unsplit ones timed in phase_bwd_kernels)
+    and the phase's launch counts (the comparisons' launches included)."""
     from twotowermlretrieval_tpu_torch.ops import rnn_scan
 
     zero_counts()
@@ -1566,7 +1577,48 @@ def phase_large_batch(dev) -> tuple:
     check(same, f"rnn_fwd {shape}: the large-batch layout's bits differ from the cluster route's")
     log(f"rnn_fwd {shape}: the large-batch layout gives the cluster route's bits")
     rec["query_tower_same_bits_as_cluster_route"] = same
-    return rec, read_counts()
+    bwd = [_large_batch_bwd(T, seed, dev) for T, seed in ((QUERY_LEN, 35), (DOC_LEN, 36))]
+    # split mode (row 4) in the same layout at the in-batch doc tower's shape, timed
+    bwd.append(check_rnn_bwd_split(GRU_ROWS, DOC_LEN, 37, dev))
+    return rec, bwd, read_counts()
+
+
+def _large_batch_bwd(T: int, seed: int, dev) -> dict:
+    """The backward at GRU H=256 B=GRU_ROWS (``check_rnn_bwd``: against its
+    plain version, twice bit-identical) in its large-batch layout, and its
+    outputs in both modes (dxp, dW and db; dxp and dhp) against the cluster
+    route forced to the plan it had before (``_bwd_wide_plan`` finding
+    none); each call's route, rows and waves logged."""
+    from twotowermlretrieval_tpu_torch.ops import rnn_scan
+
+    design = _bwd_design("GRU", GRU_ROWS, T, dev)
+    shape = f"GRU B={GRU_ROWS} T={T} H={H}"
+    check(design["route"] == "large-batch", f"rnn_bwd {shape}: not the large-batch layout")
+    rec = check_rnn_bwd("GRU", GRU_ROWS, T, seed, dev, timed=False)
+    args = _bwd_inputs("GRU", GRU_ROWS, T, seed, dev)
+    kw = dict(compute_dtype="bfloat16")
+
+    def both_modes():
+        dxps, dw, db = rnn_scan.rnn_layer_bwd("GRU", *args, **kw)
+        s_dxps, s_dhps = rnn_scan._bwd_hoisted_call("GRU", *args, **kw)
+        return [*dxps, dw, db, *s_dxps, *s_dhps]
+
+    got = both_modes()
+    wide_fn = rnn_scan._bwd_wide_plan
+    rnn_scan._bwd_wide_plan = lambda *a, **k: None
+    try:
+        cluster = _bwd_design("GRU", GRU_ROWS, T, dev)
+        parent = both_modes()
+    finally:
+        rnn_scan._bwd_wide_plan = wide_fn
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, parent))
+    check(same, f"rnn_bwd {shape}: the large-batch layout's bits differ from the cluster route's")
+    log(f"rnn_bwd {shape}: the large-batch layout ({design['rows']} rows, {design['waves']} "
+        f"waves) gives the bits of the cluster route ({cluster['rows']} rows, "
+        f"{cluster['waves']} waves) in dxp, dW, db and split mode's dxp and dhp")
+    return dict(rec, route=design["route"], rows=design["rows"], waves=design["waves"],
+                cluster_route_waves=cluster["waves"], same_bits_as_cluster_route=same)
 
 
 def phase_wide_s8(dev) -> dict:
@@ -4324,8 +4376,9 @@ def main(argv) -> int:
         wide_fwd, wide_bwd, wide_launches = phase_wide_kernels(dev)
         kern["rnn_fwd"] += wide_fwd
         kern["rnn_bwd"] += wide_bwd
-        large_fwd, large_launches = phase_large_batch(dev)
+        large_fwd, large_bwd, large_launches = phase_large_batch(dev)
         kern["rnn_fwd"].append(large_fwd)
+        kern["rnn_bwd"] += large_bwd
         f32_fwd, f32_bwd, f32_launches = phase_f32_kernels(dev)
         kern["rnn_fwd"] += f32_fwd
         kern["rnn_bwd"] += f32_bwd

@@ -654,6 +654,58 @@ def test_rnn_fwd_large_batch_layouts(dev, monkeypatch, cell, H, B, T, wide, hist
     assert all(torch.equal(x, y) for x, y in zip(_flat_fwd(got), _flat_fwd(parent)))
 
 
+# The backward's large-batch layout (bf16, B >= 256, W resident, one dhp
+# row block, nothing staged; ops/rnn_scan.py bwd_plan) at H=256: every
+# cell at B=256, 512, 1000 (the last cluster ragged) and 1024, with T=1, 32
+# and 128 among them, and both history dtypes (LSTM's cluster route took
+# 16 rows and split k between two warps: the layout keeps that order)
+_LARGE_BWD = [("GRU", 256, 32, True), ("GRU", 512, 128, True), ("GRU", 1000, 1, True),
+              ("GRU", 1024, 128, True), ("GRU", 1024, 32, False), ("LSTM", 256, 128, True),
+              ("LSTM", 512, 1, False), ("LSTM", 1000, 32, True), ("LSTM", 1024, 32, True),
+              ("RNN", 256, 1, True), ("RNN", 512, 32, False), ("RNN", 1000, 128, True),
+              ("RNN", 1024, 32, True)]
+
+
+def _flat_bwd(res):
+    return [*res[0], res[1], res[2]]
+
+
+@pytest.mark.parametrize("cell,B,T,history_in_cdt", _LARGE_BWD,
+                         ids=[f"{c}-B{b}-T{t}-{'bf16' if h else 'f32'}"
+                              for c, b, t, h in _LARGE_BWD])
+def test_rnn_bwd_large_batch_layout(dev, monkeypatch, cell, B, T, history_in_cdt):
+    """The large-batch layout launches the kernel once a call in both modes,
+    holds the plain version at _check_bwd's tolerances (split mode: dxp and
+    dhp within 2^-7 of their scale), gives the same bits twice, keeps a
+    zero-length row at zero, and gives the bits of the cluster route forced
+    to the plan it had before (_bwd_wide_plan patched to find none) in every
+    output: dxp, GRU's dhp, dW and db."""
+    hist = torch.bfloat16 if history_in_cdt else torch.float32
+    slots = _rnn_scan.cluster_slots("bwd", cell, "bfloat16", hist, dev)
+    plan = bwd_plan(cell, T, B, 256, 2, "bfloat16", hist, slots)
+    assert plan["wide"] and plan["stages"] == 0 and plan["rows"] % 32 == 0
+    args = _bwd_case(dev, cell, 2, T, B, 256, seed=B + T, cdt="bfloat16",
+                     history_in_cdt=history_in_cdt)
+    kw = dict(compute_dtype="bfloat16")
+    before = rnn_layer_bwd.launches
+    got = rnn_layer_bwd(cell, *args, **kw)
+    split = _bwd_hoisted_call(cell, *args, **kw)
+    assert rnn_layer_bwd.launches == before + 2
+    again = rnn_layer_bwd(cell, *args, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(_flat_bwd(got), _flat_bwd(again)))
+    _check_bwd(got, rnn_layer_bwd_reference(cell, *args, **kw), "bfloat16")
+    r_dxps, r_dhps, _, _ = _bwd_reference(cell, *args, "bfloat16", split=True)
+    for a, b in zip(split[0] + split[1], r_dxps + r_dhps):
+        assert (a.float() - b.float()).abs().max() <= 2 ** -7 * b.float().abs().max()
+    assert all((d[:, 0] == 0).all() for d in got[0])
+    monkeypatch.setattr(_rnn_scan, "_bwd_wide_plan", lambda *a, **k: None)
+    assert not bwd_plan(cell, T, B, 256, 2, "bfloat16", hist, slots)["wide"]
+    parent = rnn_layer_bwd(cell, *args, **kw)
+    p_split = _bwd_hoisted_call(cell, *args, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(_flat_bwd(got), _flat_bwd(parent)))
+    assert all(torch.equal(x, y) for x, y in zip(split[0] + split[1], p_split[0] + p_split[1]))
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}

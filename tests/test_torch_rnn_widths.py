@@ -153,7 +153,7 @@ def test_every_width_jax_keeps_on_its_kernels_has_both_plans(cell, cdt):
     model's history dtype (bf16 under bf16 compute, f32 under f32), so a
     card runs it on the hand-written kernels. The main path's H=256 keeps
     its layouts: clusters of 8 and, at bf16, W resident and two dhp row
-    blocks."""
+    blocks (one at B=1024, the backward's large-batch layout)."""
     G = _GATES[cell]
     cb = 2 if cdt == "bfloat16" else 4
     hist = torch.bfloat16 if cdt == "bfloat16" else torch.float32
@@ -172,7 +172,8 @@ def test_every_width_jax_keeps_on_its_kernels_has_both_plans(cell, cdt):
         main_b = bwd_plan(cell, 32, B, 256, 2, cdt, hist)
         assert main_f["nc"] == 8 and main_b["nc"] == 8
         if cdt == "bfloat16":  # the main path's compute dtype
-            assert main_f["resident"] and main_b["resident"] and main_b["blocks"] == 2
+            assert main_f["resident"] and main_b["resident"] and main_b["wide"] == (B == 1024)
+            assert main_b["blocks"] == (1 if main_b["wide"] else 2)
             assert main_b["xc"] == G * 256
     assert covered >= 4 * 7  # every cell keeps H=128..896 on its kernels at every B
 
@@ -288,21 +289,24 @@ def test_streamed_backward_plans_keep_a_ring(cell, cdt, hist):
 # forward at B=1024 in the large-batch layout since it came: 160 rows a
 # cluster, 7 clusters a direction, one h row block, one wave (before them
 # 128 rows, 8 clusters a direction, two blocks, two waves of the 15 an
-# H100 SXM holds)
+# H100 SXM holds); the backward at B=1024 in its large-batch layout since
+# it came: 96 rows a cluster, 11 clusters a direction, nothing staged, one
+# dhp row block, two waves (before them 32 rows, 32 clusters, two staging
+# buffers and two blocks, five waves)
 _MAIN_FWD = {16: (8, 32, 16, 1, 256, True, 2, 70528), 64: (8, 32, 32, 2, 256, True, 2, 87424),
              128: (8, 32, 32, 4, 256, True, 2, 87424),
              1024: (8, 32, 160, 7, 256, True, 1, 138112)}
 _MAIN_BWD = {16: (8, 32, 16, 1, 768, True, 2, 2, 768, 8, 130176),
              64: (8, 32, 32, 2, 768, True, 2, 2, 768, 11, 210688),
              128: (8, 32, 32, 4, 768, True, 2, 2, 768, 11, 210688),
-             1024: (8, 32, 32, 32, 768, True, 2, 2, 768, 11, 210688)}
+             1024: (8, 32, 96, 11, 768, True, 0, 1, 768, 11, 222496)}
 
 
 @pytest.mark.parametrize("B", sorted(_MAIN_FWD))
 def test_main_path_layouts_are_unchanged(B):
     """The reference towers (GRU H=256, bf16) keep W resident in both
-    passes, field for field the layouts they had before the ring (the
-    forward at B=1024: the large-batch layout's), and every cell at H=256
+    passes, field for field the layouts they had before the ring (at
+    B=1024: the large-batch layouts'), and every cell at H=256
     and bf16 holds W resident with no ring."""
     f = fwd_plan("GRU", 32, B, 256, 2, "bfloat16", torch.bfloat16)
     b = bwd_plan("GRU", 32, B, 256, 2, "bfloat16", torch.bfloat16)

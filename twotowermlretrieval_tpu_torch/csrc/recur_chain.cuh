@@ -38,6 +38,11 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
+// a hint that the 128-byte line at p is read soon: into L2 now
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
 __device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src));
@@ -198,6 +203,12 @@ __device__ __forceinline__ void b_frag_f32_nk(const float* b, int ld, uint32_t (
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
+// an arrive that orders none of this thread's memory operations: for a CTA
+// that only read the shared memory the wait guards, whose reads have all
+// returned (their values consumed) before it arrives
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
@@ -269,6 +280,30 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
           "r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// this CTA's shared memory at p, as the cluster address of the same offset
+// in CTA `rank`'s shared memory
+__device__ __forceinline__ unsigned peer_addr(const void* p, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+// one bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from this CTA's shared memory to a peer's (cluster addresses of the
+// destination and of the peer's mbarrier it completes on)
+__device__ __forceinline__ void bulk_copy_to_peer(unsigned dst, const void* src, unsigned bytes,
+                                                  unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "r"(smem_addr(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// orders this thread's writes to shared memory before later reads of the
+// copy engine (a bulk copy's source)
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // The copies of a ring, shared round-robin by its consuming warps: as

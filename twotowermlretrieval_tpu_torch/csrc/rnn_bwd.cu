@@ -120,10 +120,51 @@
 // barrier, then the chunk's product with W streamed in the same chunks. A
 // push for chunk n lands on the buffer of chunk n - 2, which every CTA
 // finished reading before the barrier of chunk n - 1; the accumulators
-// run across the chunks, so the sums keep their order. The wrapper
-// (ops/rnn_scan.py, bwd_plan) picks NC, R, KC, XC, the staging depth, the
-// row blocks and S, and knows the shared-memory layout below; the
-// launcher refuses a plan that does not fit.
+// run across the chunks, so the sums keep their order.
+//
+// Large batches (bf16, B >= 256; template argument WE): a cluster of at
+// most 32 rows keeps W resident beside two row blocks and two staging
+// buffers (210,688 of 232,448 bytes at GRU H=256), so B=1024 takes 64
+// clusters, five waves of the card's 15 clusters of 8, each a whole time
+// loop. The large-batch layout keeps W resident beside one row block and
+// stages nothing, so a CTA takes 64-256 rows (GRU H=256 B=1024: 96 rows, 11
+// clusters a direction, two waves). At those rows every part of a step
+// grows with the rows (the instrumented build at GRU H=256 on an H100,
+// PERF.md section 6: the cluster route's step 7.4 us at 32 rows; the same
+// design at 96 rows 19.9, its push alone 5.5, about 24 GB/s of stores to
+// the peers an SM), so the step is rebuilt around the copy engine:
+// - the row block is nc regions [R][wide_ld], one a CTA's G*hc columns, so
+//   the exchange is one bulk copy shared -> peer shared a peer
+//   (cp.async.bulk ... shared::cluster.shared::cta), completing on the
+//   peer's mbarrier; no thread pushes and no barrier waits for the data;
+//   the product walks k in the order of the whole row block, each k16
+//   step's 16 columns in one region, found through a table of offsets;
+// - a CTA writes its region only once every peer has finished the last
+//   product (the cluster barrier's wait, before the gate math), so no copy
+//   still reads it;
+// - each gate-math thread takes quads of four neighbouring columns of a
+//   row: it loads their hp, xp, h_prev, dout and mask from L2 a word a
+//   quad (the next step's rows prefetched to L2 a step ahead, a share a
+//   CTA, once the step's first loads are out), the next quad's loads beside
+//   the math of the one before, writes dxp, dhp and its region a word a
+//   quad, and keeps their db partials in registers (after the loop they
+//   pass through shared memory laid over W and the row block);
+// - each warp runs its units' products in turn, each once its part of 32
+//   rows is in (tiles of four units sharing each A fragment, or the units
+//   of a warp interleaved, ran no faster: the first held the gate math back
+//   through its registers, the second waited longer for the parts).
+// Its sums keep the order of the cluster-route layout it stands in for, so
+// it gives that layout's bits: a db partial per db_rows (16 or 32) rows,
+// the partials summed in row order, and where that layout's product split k
+// between two warps (halves), the two halves in turn, each in its own four
+// accumulators.
+// The instrumented build (-DRNN_BWD_PHASES, a library of its own that
+// tools/bench_rnn_stream.py --step-phases asks for) adds the PHASES
+// kernels: thread 0's clock64() cycles of each phase of a step. The
+// wrapper (ops/rnn_scan.py, bwd_plan) picks NC, R, KC, XC, the staging
+// depth, the row blocks, S and the large-batch layout, and knows the
+// shared-memory layout below; the launcher refuses a plan that does not
+// fit.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -141,6 +182,27 @@ using namespace recur_chain;
 constexpr int CHAIN_THREADS = 256;
 constexpr int CHAIN_WARPS = CHAIN_THREADS / 32;
 constexpr int UNITS_MAX = 4;  // (16 x 8) chain-product tiles per warp
+// The large-batch layout: a thread's (row, column) elements of a step's
+// gate math (a template argument WE: R * hc / CHAIN_THREADS rounded up to
+// a multiple of WIDE_BATCH, at most 16, since a CTA's units hold R * hc <=
+// UNITS_MAX * CHAIN_WARPS * 128), each keeping its G db partials in
+// registers. A batch is a quad of WIDE_BATCH neighbouring columns of a row,
+// its inputs loaded while the quad before runs its math.
+constexpr int WIDE_BATCH = 4;
+constexpr int WIDE_EPT_MAX = UNITS_MAX * CHAIN_WARPS * 16 * 8 / CHAIN_THREADS;
+
+// The large-batch layout's row block: one region a CTA, [R][xld] of its
+// G * hc columns (each CTA's copy of a peer's part of a region is one bulk
+// copy), rows padded so that ldmatrix's eight 16-byte rows fall on
+// distinct banks
+__host__ __device__ constexpr int wide_ld(int G, int hc) {
+  return G * hc + ((G * hc / 8) % 2 ? 16 : 8);
+}
+// The instrumented build (-DRNN_BWD_PHASES; never the shipped library):
+// per CTA, the clock64() cycles of the time loop's phases, its whole
+// loop's cycles and its %globaltimer nanoseconds
+enum Phase { kInputs, kGate, kPushWait, kPush, kBarrier, kProduct, kPhases };
+constexpr int PHASE_WORDS = kPhases + 2;
 
 struct Ptrs {
   const void* xp[2];
@@ -373,7 +435,9 @@ struct ChainArgs {
   const void* wpk;        // streamed: W packed by rnn_bwd_pack_w, [D][nc][pieces][hc][kw + pad]
   const float* hp;        // [D][T*B][GH] f32 (GRU, LSTM)
   const float* d_hfinal;  // [D][B][H]
-  float* db_part;         // [D][clusters][GH] (split == 0)
+  float* db_part;         // [D][parts][GH] (split == 0): a partial per db_rows rows
+  int db_rows, khalf;     // the sums' order (below): rows a db partial, where k splits
+  long long* phases;      // the instrumented build's [D][grid.x][PHASE_WORDS], else null
 };
 
 // Byte offsets of one chain CTA's shared memory (ops/rnn_scan.py's
@@ -385,7 +449,12 @@ struct ChainArgs {
 // the staging buffers, the dh (and dc) carry [R][hc] and the db partial
 // [G][R][hc], all f32 but W and dhp. One staging buffer: hp [G][R][hc] f32 and xp [G][R][hc] CT (GRU,
 // LSTM), h1 [R][hc] HT (GRU h_prev, LSTM c_prev, RNN h_t), dout [R][hc]
-// HT, mask [R] f32.
+// HT, mask [R] f32. No staging buffer (stages 0) is the large-batch
+// layout: its row block is nc regions [R][wide_ld] (one a CTA) and each
+// k16 step's offsets in them (int4), and it has an mbarrier a part of 32
+// rows; the gate math reads its inputs from L2 and keeps the db partial in
+// registers, which, after the loop, pass through [G][R][hc] f32 laid over
+// W and the row block.
 struct ChainSmem {
   size_t w, dhp, own, stage, dh, dc, db, bar, total;
   size_t st_hp, st_xp, st_h1, st_do, st_m, st_size;
@@ -393,7 +462,7 @@ struct ChainSmem {
 
 template <int CELL, typename CT, typename HT>
 __host__ __device__ ChainSmem chain_smem(int R, int hc, int kp, int kc, int stages,
-                                         int blocks, int xc, int S, int kw) {
+                                         int blocks, int xc, int S, int kw, int nc) {
   constexpr int G = NumGates<CELL>::G;
   constexpr size_t padk = 16 / sizeof(CT);
   ChainSmem s;
@@ -417,7 +486,10 @@ __host__ __device__ ChainSmem chain_smem(int R, int hc, int kp, int kc, int stag
     o += a16((size_t)hc * (kc + padk) * sizeof(CT));
   const int xw = xc < kp ? xc : kp;  // the columns of a row block held at once
   s.dhp = o;
-  o += a16((size_t)blocks * R * (xw + padk) * sizeof(CT));
+  if (stages)
+    o += a16((size_t)blocks * R * (xw + padk) * sizeof(CT));
+  else  // the large-batch layout: a region a CTA, then the k16 steps' offsets
+    o += a16((size_t)nc * R * wide_ld(G, hc) * sizeof(CT)) + (size_t)kp / 16 * 16;
   s.own = o;
   if (xw < kp) o += a16((size_t)R * G * hc * sizeof(CT));
   s.stage = o;
@@ -427,10 +499,11 @@ __host__ __device__ ChainSmem chain_smem(int R, int hc, int kp, int kc, int stag
   s.dc = o;
   if (CELL == kLSTM) o += a16((size_t)R * hc * 4);
   s.db = o;
-  o += a16((size_t)G * R * hc * 4);
+  if (stages) o += a16((size_t)G * R * hc * 4);
   s.bar = o;
   if (kc < kp) o += (size_t)16 * S;
-  s.total = o;
+  if (!stages) o += a16((size_t)8 * (R / 32));  // the large-batch layout's parts' mbarriers
+  s.total = stages || o >= a16((size_t)G * R * hc * 4) ? o : a16((size_t)G * R * hc * 4);
   return s;
 }
 
@@ -452,13 +525,116 @@ __device__ __forceinline__ RowCopy row_copy(int bytes_per_row, int align_bits, i
   return c;
 }
 
+// The gate math of one (row, column) element of a step: from the mask m,
+// dh_t = dh + dout, h1 (GRU h_prev, LSTM c_prev, RNN h_t), each gate's hp
+// and xp (GRU, LSTM) and LSTM's dc carry, the gate cotangents dxv and dhp
+// (they differ in GRU's candidate third) and the next dh (and dc) carry.
+// Both layouts run it, so both give the same bits.
+template <int CELL>
+__device__ __forceinline__ void gate_math(float m, float dh_t, float h1, const float* hpv,
+                                          const float* xpv, float& dc, float* dxv, float* dhp,
+                                          float& dh) {
+  constexpr int G = NumGates<CELL>::G;
+  const float dh_new = dh_t * m;
+  const float dh_direct = dh_t * (1.0f - m);
+  if constexpr (CELL == kGRU) {
+    const float h_prev = h1;
+    const float h_r = hpv[0], h_z = hpv[1], h_n = hpv[2];
+    const float rg = sigmoid(xpv[0] + h_r);
+    const float zg = sigmoid(xpv[1] + h_z);
+    const float ng = tanhf(xpv[2] + rg * h_n);
+    const float dz = dh_new * (h_prev - ng);
+    const float dn_pre = dh_new * (1.0f - zg) * (1.0f - ng * ng);
+    const float dr_pre = dn_pre * h_n * rg * (1.0f - rg);
+    const float dz_pre = dz * zg * (1.0f - zg);
+    dxv[0] = dr_pre;
+    dxv[1] = dz_pre;
+    dxv[2] = dn_pre;
+    dhp[0] = dr_pre;
+    dhp[1] = dz_pre;
+    dhp[2] = dn_pre * rg;
+    dh = dh_new * zg + dh_direct;
+  } else if constexpr (CELL == kLSTM) {
+    const float c_prev = h1;
+    const float dc_t = dc;
+    float dc_new = dc_t * m;
+    const float dc_direct = dc_t * (1.0f - m);
+    const float ig = sigmoid(xpv[0] + hpv[0]);
+    const float fg = sigmoid(xpv[1] + hpv[1]);
+    const float gg = tanhf(xpv[2] + hpv[2]);
+    const float og = sigmoid(xpv[3] + hpv[3]);
+    const float c_new = fg * c_prev + ig * gg;
+    const float tanh_c = tanhf(c_new);
+    const float d_o = dh_new * tanh_c;
+    dc_new = dc_new + dh_new * og * (1.0f - tanh_c * tanh_c);
+    dxv[0] = dc_new * gg * ig * (1.0f - ig);
+    dxv[1] = dc_new * c_prev * fg * (1.0f - fg);
+    dxv[2] = dc_new * ig * (1.0f - gg * gg);
+    dxv[3] = d_o * og * (1.0f - og);
+#pragma unroll
+    for (int g = 0; g < G; ++g) dhp[g] = dxv[g];
+    dc = dc_new * fg + dc_direct;
+    dh = dh_direct;
+  } else {
+    // h_new equals the saved output wherever m == 1, and dh_new is 0
+    // wherever m == 0
+    const float h_t = h1;
+    dxv[0] = dh_new * (1.0f - h_t * h_t);
+    dhp[0] = dxv[0];
+    dh = dh_direct;
+  }
+}
+
+// Four neighbouring values of a row (a quad: 16 bytes of f32, 8 of bf16),
+// loaded as one word and widened to f32, or rounded and stored as one
+template <typename T> struct QuadWord { using type = float4; };
+template <> struct QuadWord<__nv_bfloat16> { using type = uint2; };
+__device__ __forceinline__ void quad_to_f(const float4& v, float (&o)[4]) {
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+__device__ __forceinline__ void quad_to_f(const uint2& v, float (&o)[4]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+  o[0] = __low2float(p[0]);
+  o[1] = __high2float(p[0]);
+  o[2] = __low2float(p[1]);
+  o[3] = __high2float(p[1]);
+}
+template <typename T>
+__device__ __forceinline__ void load_quad(const T* p, float (&o)[4]) {
+  quad_to_f(__ldg(reinterpret_cast<const typename QuadWord<T>::type*>(p)), o);
+}
+template <typename T>
+__device__ __forceinline__ void store_quad(T* p, const float (&v)[4]) {
+  typename QuadWord<T>::type w;
+  T* e = reinterpret_cast<T*>(&w);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) e[i] = from_f<T>(v[i]);
+  *reinterpret_cast<typename QuadWord<T>::type*>(p) = w;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 // Every index map below is fixed for the whole loop and worked out before
 // it: a step spends its instructions on copies and arithmetic, since all of
 // the CTA's warps issue through the same four schedulers. CHUNKED (the
 // row block exchanged in chunks) is a template argument, so the whole-block
-// path compiles as if the chunked one did not exist.
-template <int CELL, typename CT, typename HT, bool CHUNKED, bool STREAM>
+// path compiles as if the chunked one did not exist. WE > 0 is the
+// large-batch layout (bf16, W resident, nothing staged; wide_step below),
+// WE its gate-math elements a thread. Its sums keep the order of the
+// layout it stands in for (db_rows, khalf), so it gives that layout's
+// bits. PHASES (the instrumented build only) times the loop's phases.
+template <int CELL, typename CT, typename HT, bool CHUNKED, bool STREAM, int WE = 0,
+          bool PHASES = false>
 __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainArgs a) {
+  constexpr bool WIDE = WE > 0;
+  static_assert(WE <= WIDE_EPT_MAX && WE % WIDE_BATCH == 0, "whole batches of a CTA's units");
   constexpr int G = NumGates<CELL>::G;
   constexpr bool kSplit = sizeof(CT) == 4;  // f32 compute: split products
   constexpr int padk = 16 / sizeof(CT);
@@ -468,7 +644,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
   const int R = a.R, hc = a.hc, kp = a.kp, kc = a.kc;
   const int nc = (int)cluster.num_blocks();
   const int q = (int)cluster.block_rank();
-  const int cl = blockIdx.x / nc, ncl = gridDim.x / nc;
+  const int cl = blockIdx.x / nc;
   const int e = blockIdx.y, dabs = a.dir0 + e;
   const int r0 = cl * R, j0 = q * hc;
   const int own = max(0, min(hc, H - j0));  // hidden columns this CTA owns (a multiple of 4)
@@ -490,7 +666,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
   const CT* w = static_cast<const CT*>(a.w_hh) + (size_t)e * H * GH;
   const float* hp = CELL == kRNN ? nullptr : a.hp + (size_t)e * T * B * GH;
 
-  const ChainSmem L = chain_smem<CELL, CT, HT>(R, hc, kp, kc, a.stages, a.blocks, a.xc, S, kw);
+  const ChainSmem L = chain_smem<CELL, CT, HT>(R, hc, kp, kc, a.stages, a.blocks, a.xc, S, kw, nc);
   const bool one_block = a.blocks == 1;
   extern __shared__ __align__(16) unsigned char smem[];
   CT* wbuf = reinterpret_cast<CT*>(smem + L.w);  // resident W, or the ring's stages
@@ -500,7 +676,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
   CT* ownb = reinterpret_cast<CT*>(smem + L.own);  // chunked: [R][G][hc]
   float* dh_s = reinterpret_cast<float*>(smem + L.dh);
   float* dc_s = reinterpret_cast<float*>(smem + L.dc);
-  float* dbacc = reinterpret_cast<float*>(smem + L.db);
+  float* dbacc = reinterpret_cast<float*>(smem + L.db);  // WIDE: after the loop
 
   // resident: round(W)[j0 + n][k] -> wbuf[n][k] for n < hc, k < kp; zero
   // past the owned columns and past G*H. Copies of 16 bytes where W's rows
@@ -567,6 +743,9 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
 
   // gate math: pairs (row, owned column) tid, tid + NT, ... in row-major order
   const int gm_r = tid / own, gm_c = tid % own, gm_dr = NT / own, gm_dc = NT % own;
+  // the large-batch layout's: quads (row, 4 owned columns) tid, tid + NT, ...
+  const int wq_r = tid / (own / 4), wq_c = tid % (own / 4) * 4, wq_dr = NT / (own / 4),
+            wq_dc = NT % (own / 4) * 4;
   // the push: words of `pw` bytes (16 on the main path; 8 always divide:
   // own and H are multiples of 4, j0 of 8) of the CTA's G column ranges;
   // pu_tpr threads per row, rows pu_r, pu_r + pu_rstep, ...
@@ -619,9 +798,33 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
     dh_s[i] = (r < nrows && c < own) ? a.d_hfinal[((size_t)e * B + r0 + r) * H + j0 + c] : 0.0f;
     if constexpr (CELL == kLSTM) dc_s[i] = 0.0f;
   }
-  for (int i = tid; i < G * R * hc; i += NT) dbacc[i] = 0.0f;
+  if constexpr (!WIDE)
+    for (int i = tid; i < G * R * hc; i += NT) dbacc[i] = 0.0f;
   // rows past the batch and columns past G*H stay zero in every block
-  for (int i = tid; i < a.blocks * R * dstride; i += NT) dhpb[i] = from_f<CT>(0.0f);
+  const int xld = wide_ld(G, hc);  // the large-batch layout's region rows
+  const int blk_elems = WIDE ? nc * R * xld : a.blocks * R * dstride;
+  for (int i = tid; i < blk_elems; i += NT) dhpb[i] = from_f<CT>(0.0f);
+  // the large-batch layout: each k16 step's offset in the regions, with
+  // the next three's (a step lies in one region: H and hc are multiples of
+  // 16; column k = g*H + qq*hc + c is region qq's column g*hc + c), and the
+  // exchange's mbarrier a part of 32 rows
+  int4* koff4 = reinterpret_cast<int4*>(dhpb + blk_elems);
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(smem + L.bar);
+  if constexpr (WIDE) {
+    for (int s = tid; s < kp / 16; s += NT) {
+      int o[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = (s + i) * 16, j = k % H;
+        o[i] = k < GH ? j / hc * R * xld + k / H * hc + j % hc : 0;
+      }
+      koff4[s] = make_int4(o[0], o[1], o[2], o[3]);
+    }
+    if (tid == 0) {
+      for (int p = 0; p < R / 32; ++p) mbar_init(xbar + p, 1);
+      mbar_init_fence();
+    }
+  }
   if constexpr (resident) {
     load_w(0);
   } else if (tid == 0) {
@@ -632,6 +835,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
     mbar_init_fence();
   }
   if (a.stages == 2) issue(0, 0);
+  if constexpr (WIDE) cp_async_wait<0>();  // W (nothing is staged)
   cluster.sync();  // every CTA of the cluster runs, buffers zeroed, before the first push
 
   // streamed: a step multiplies np pieces of W, kw columns of a kc chunk at
@@ -665,10 +869,261 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
     if (tid % 32 == 0) mbar_arrive(empty + g % S);
   };
 
+  // the large-batch layout: the L2 prefetch of a step's inputs, CTA q
+  // taking 1/nc of each of the cluster's contiguous blocks of nrows rows,
+  // in 128-byte lines
+  auto prefetch_rows = [&](const void* base, size_t row_bytes) {
+    const size_t bytes = (size_t)nrows * row_bytes;
+    const size_t slice = ((bytes + nc - 1) / nc + 127) / 128 * 128, begin = (size_t)q * slice;
+    const size_t end = begin + slice < bytes ? begin + slice : bytes;
+#pragma unroll 1
+    for (size_t o = begin + (size_t)tid * 128; o < end; o += (size_t)NT * 128)
+      prefetch_l2(static_cast<const unsigned char*>(base) + o);
+  };
+  auto prefetch_step = [&](int step) {
+    const int t = dabs == 0 ? T - 1 - step : step;
+    const size_t row0 = (size_t)t * B + r0;
+    if constexpr (CELL != kRNN) {
+      prefetch_rows(hp + row0 * GH, (size_t)GH * 4);
+      prefetch_rows(xp + row0 * GH, (size_t)GH * sizeof(CT));
+      if (step != T - 1)
+        prefetch_rows((CELL == kGRU ? out : chist) + ((size_t)(dabs == 0 ? t - 1 : t + 1) * B + r0) * H,
+                      (size_t)H * sizeof(HT));
+    } else {
+      prefetch_rows(out + row0 * H, (size_t)H * sizeof(HT));
+    }
+    prefetch_rows(dout + row0 * H, (size_t)H * sizeof(HT));
+    if (q == 0 && tid * 32 < nrows) prefetch_l2(a.mask + row0 + tid * 32);
+  };
+  // the large-batch layout's db partials: element k of this thread's
+  // gate math (row and column as gm_r, gm_c walk them), gate g
+  float dbr[WIDE ? WE : 1][G];
+#pragma unroll
+  for (int k = 0; k < (WIDE ? WE : 1); ++k)
+#pragma unroll
+    for (int g = 0; g < G; ++g) dbr[k][g] = 0.0f;
+  if constexpr (WIDE) prefetch_step(0);
+
+  // PHASES: thread 0 adds each phase's clock64() cycles; every phase ends
+  // at a block-wide point (a barrier, or one added here), so its view is
+  // the CTA's
+  long long ph_acc[kPhases], ph_last = 0, ph_t0 = 0;
+  unsigned long long ns0 = 0;
+  auto stamp = [&](int p) {
+    if constexpr (PHASES) {
+      if (tid == 0) {
+        const long long now = clock64();
+        ph_acc[p] += now - ph_last;
+        ph_last = now;
+      }
+    }
+  };
+  if constexpr (PHASES) {
+    for (int p = 0; p < kPhases; ++p) ph_acc[p] = 0;
+    ph_t0 = ph_last = clock64();
+    ns0 = global_ns();
+  }
+
   const int warp = tid / 32, lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  // The large-batch layout's step (WIDE; the kernel's note): the inputs'
+  // first quad loaded; every peer done with the last product (so with our
+  // copies into it, and our region is free); the gate math into this CTA's
+  // region, each quad's math beside the next quad's loads, and as each
+  // part of 32 rows is complete, one bulk copy of it to each peer,
+  // completing on the peer's mbarrier of that part; then each unit's
+  // product once its part is in, the A fragments found region by region,
+  // each k16 step into the accumulator it had in the
+  // cluster route (k in two halves where that route split it). So the
+  // copies of a part fly while the next part's gate math and the first
+  // parts' products run.
+  auto wide_step = [&](int step, int t, bool first) {
+    if constexpr (WIDE) {
+      constexpr int NB = WE / WIDE_BATCH;
+      const size_t row_t = (size_t)t * B + r0;
+      const HT* h1src = CELL == kRNN ? out + row_t * H
+                        : (CELL == kGRU ? out : chist) +
+                              ((size_t)(first ? t : dabs == 0 ? t - 1 : t + 1) * B + r0) * H;
+      CT* mine = dhpb + (size_t)q * R * xld;
+      // a batch is one quad (WIDE_BATCH = 4 columns of a row) a thread:
+      // quad i = tid + b * NT of the R x own/4 quads, in row-major order
+      float ihp[2][4][G], ixp[2][4][G], ih1[2][4], ido[2][4], im[2];
+      int ir[2], ic[2];
+      int r = wq_r, c = wq_c;
+      auto load = [&](int bb) {
+        ir[bb] = r;
+        ic[bb] = c;
+        if (r < nrows) {
+          const size_t x0 = (row_t + r) * GH + j0 + c;
+          if constexpr (CELL != kRNN) {
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              float v[4], x[4];
+              load_quad(hp + x0 + (size_t)g * H, v);
+              load_quad(xp + x0 + (size_t)g * H, x);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                ihp[bb][e][g] = v[e];
+                ixp[bb][e][g] = x[e];
+              }
+            }
+          }
+          if (CELL != kRNN && first) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) ih1[bb][e] = 0.0f;
+          } else {
+            load_quad(h1src + (size_t)r * H + j0 + c, ih1[bb]);
+          }
+          load_quad(dout + (row_t + r) * H + j0 + c, ido[bb]);
+          im[bb] = __ldg(a.mask + row_t + r);
+        }
+        c += wq_dc;
+        r += wq_dr;
+        if (c >= own) {
+          c -= own;
+          ++r;
+        }
+      };
+      auto compute = [&](int bb, int k0) {
+        const int rr = ir[bb], cc = ic[bb];
+        if (rr < nrows) {
+          const int j = j0 + cc, sc = rr * hc + cc;
+          const size_t tb = row_t + rr;
+          float dxv[G][4], dhp[G][4], dhn[4], dc[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float dx1[G], dh1[G];
+            dc[e] = CELL == kLSTM ? dc_s[sc + e] : 0.0f;
+            gate_math<CELL>(im[bb], dh_s[sc + e] + ido[bb][e], ih1[bb][e], ihp[bb][e], ixp[bb][e],
+                            dc[e], dx1, dh1, dhn[e]);
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              dxv[g][e] = dx1[g];
+              dhp[g][e] = dh1[g];
+              dbr[k0 + e][g] += dh1[g];
+            }
+          }
+          *reinterpret_cast<float4*>(dh_s + sc) = make_float4(dhn[0], dhn[1], dhn[2], dhn[3]);
+          if constexpr (CELL == kLSTM)
+            *reinterpret_cast<float4*>(dc_s + sc) = make_float4(dc[0], dc[1], dc[2], dc[3]);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            store_quad(dxp + tb * GH + g * H + j, dxv[g]);
+            if constexpr (CELL == kGRU) store_quad(dhp_out + tb * GH + g * H + j, dhp[g]);
+            store_quad(mine + rr * xld + g * hc + cc, dhp[g]);
+          }
+        }
+      };
+      // part p: rows [32p, 32p + 32) of the cluster's nrows, on xbar[p]
+      const int nparts = (nrows + 31) / 32;
+      auto part_bytes = [&](int p) {
+        const int rows = min(32, nrows - 32 * p);
+        return (unsigned)((rows > 0 ? rows : 0) * xld * sizeof(CT));
+      };
+
+      load(0);
+      __syncthreads();  // the last product's dh is in
+      stamp(kInputs);
+      if (step > 0) cluster_wait();
+      stamp(kPushWait);
+      if (tid == 0)
+        for (int p = 0; p < R / 32; ++p) mbar_arrive_expect_tx(xbar + p, (nc - 1) * part_bytes(p));
+      int sent = 0;  // parts whose copies are out
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        if (b + 1 < NB) load((b + 1) & 1);
+        compute(b & 1, b * WIDE_BATCH);
+        // the next step's rows to L2, once this step's first loads are out
+        // (ahead of them they held those loads back)
+        if (b == 0 && step + 1 < T) prefetch_step(step + 1);
+        fence_proxy_async_smem();  // the region's writes, before the copies read them
+        __syncthreads();
+        stamp(kGate);
+        // the rows every thread has finished: their parts go to the peers
+        const int done = min(nrows, (b + 1) * NT / (own / 4));
+        // a peer's copy from lane 0 of warp pr % CHAIN_WARPS: the warps start
+        // them side by side (a warp's lanes started theirs in turn)
+        for (; sent < nparts && min(32 * sent + 32, nrows) <= done; ++sent)
+          if (lane == 0)
+            for (int pr = warp == 0 ? CHAIN_WARPS : warp; pr < nc; pr += CHAIN_WARPS) {
+              const int peer = q + pr < nc ? q + pr : q + pr - nc;
+              const CT* src = mine + (size_t)32 * sent * xld;
+              bulk_copy_to_peer(peer_addr(src, peer), src, part_bytes(sent),
+                                peer_addr(xbar + sent, peer));
+            }
+        stamp(kPush);
+      }
+
+      const int ntn = hc / 8, units = (R / 16) * ntn;
+      // au[j] += the k16 steps kb + 64m + 16j < ke of the unit's A rows (row
+      // offset ro, and the lane's 8 columns of the step) against its W
+      // columns at bp, as the resident product below adds them; a k64
+      // chunk's four steps' region offsets are one 16-byte read of koff4
+      auto ksteps = [&](float (&au)[4][4], int ro, const CT* bp, int kb, int ke) {
+        for (int kk = kb; kk < ke; kk += 64) {
+          const int4 ko = koff4[kk / 16];
+          uint32_t a0[4], a1[4], a2[4], a3[4], b01[4], b23[4];
+          ldsm_x4(a0, dhpb + ko.x + ro);
+          ldsm_x4(b01, bp + kk);  // B of the k16 steps at kk and kk + 16
+          if (kk + 16 < ke) ldsm_x4(a1, dhpb + ko.y + ro);
+          if (kk + 32 < ke) {
+            ldsm_x4(a2, dhpb + ko.z + ro);
+            ldsm_x4(b23, bp + kk + 32);
+          }
+          if (kk + 48 < ke) ldsm_x4(a3, dhpb + ko.w + ro);
+          mma_bf16(au[0], a0[0], a0[1], a0[2], a0[3], b01[0], b01[1]);
+          if (kk + 16 < ke) mma_bf16(au[1], a1[0], a1[1], a1[2], a1[3], b01[2], b01[3]);
+          if (kk + 32 < ke) mma_bf16(au[2], a2[0], a2[1], a2[2], a2[3], b23[0], b23[1]);
+          if (kk + 48 < ke) mma_bf16(au[3], a3[0], a3[1], a3[2], a3[3], b23[2], b23[3]);
+        }
+      };
+#pragma unroll 1
+      for (int u = 0; u < UNITS_MAX; ++u) {
+        const int slot = warp + u * CHAIN_WARPS;
+        if (slot >= units) break;
+        const int mt = slot / ntn, nt = slot % ntn, ro = (mt * 16 + lane % 16) * xld + lane / 16 * 8;
+        const CT* bp = wbuf + (size_t)(nt * 8 + lane % 8) * wstride + (lane / 8) * 8;
+        stamp(kProduct);
+        mbar_wait(xbar + mt / 2, step & 1);  // the unit's part is in from every peer
+        stamp(kBarrier);
+        float au[4][4], first_half[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) au[j][i] = 0.0f;
+        ksteps(au, ro, bp, 0, a.khalf ? a.khalf : kp);
+        if (a.khalf) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            first_half[i] = (au[0][i] + au[1][i]) + (au[2][i] + au[3][i]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) au[j][i] = 0.0f;
+          }
+          ksteps(au, ro, bp, a.khalf, kp);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int rr = mt * 16 + gid + (i >= 2 ? 8 : 0), cc = nt * 8 + tig * 2 + (i & 1);
+          float v = (au[0][i] + au[1][i]) + (au[2][i] + au[3][i]);
+          if (a.khalf) v = first_half[i] + v;
+          if (rr < R && cc < own) dh_s[rr * hc + cc] += v;
+        }
+      }
+      if constexpr (PHASES) __syncthreads();
+      stamp(kProduct);
+      // this CTA no longer reads the regions (the peers may copy into them):
+      // relaxed, since a release would first wait for the step's stores of
+      // dxp and dhp to reach memory, which no peer reads
+      cluster_arrive_relaxed();
+    }
+  };
+
   for (int step = 0; step < T; ++step) {
     const int t = dabs == 0 ? T - 1 - step : step;
     const bool first = step == T - 1;  // the direction's first position
+    if constexpr (WIDE) {
+      wide_step(step, t, first);
+      continue;
+    }
     int buf = 0;
     if (a.stages == 2) {
       buf = step & 1;
@@ -683,6 +1138,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
       cp_async_wait<0>();
     }
     __syncthreads();
+    stamp(kInputs);
     const unsigned char* st = smem + L.stage + (size_t)buf * L.st_size;
     const float* hp_st = reinterpret_cast<const float*>(st + L.st_hp);
     const CT* xp_st = reinterpret_cast<const CT*>(st + L.st_xp);
@@ -696,57 +1152,19 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
     for (int r = gm_r, c = gm_c; r < nrows;) {
       const int j = j0 + c, sc = r * hc + c;
       const size_t tb = (size_t)t * B + r0 + r;
-      const float m = m_st[r];
-      const float dh_t = dh_s[sc] + to_f(do_st[sc]);
-      const float dh_new = dh_t * m;
-      const float dh_direct = dh_t * (1.0f - m);
-      float dxv[G], dhp[G];
-      if constexpr (CELL == kGRU) {
-        const float h_prev = first ? 0.0f : to_f(h1_st[sc]);
-        const float h_r = hp_st[sc], h_z = hp_st[RH + sc], h_n = hp_st[2 * RH + sc];
-        const float rg = sigmoid(to_f(xp_st[sc]) + h_r);
-        const float zg = sigmoid(to_f(xp_st[RH + sc]) + h_z);
-        const float ng = tanhf(to_f(xp_st[2 * RH + sc]) + rg * h_n);
-        const float dz = dh_new * (h_prev - ng);
-        const float dn_pre = dh_new * (1.0f - zg) * (1.0f - ng * ng);
-        const float dr_pre = dn_pre * h_n * rg * (1.0f - rg);
-        const float dz_pre = dz * zg * (1.0f - zg);
-        dxv[0] = dr_pre;
-        dxv[1] = dz_pre;
-        dxv[2] = dn_pre;
-        dhp[0] = dr_pre;
-        dhp[1] = dz_pre;
-        dhp[2] = dn_pre * rg;
-        dh_s[sc] = dh_new * zg + dh_direct;
-      } else if constexpr (CELL == kLSTM) {
-        const float c_prev = first ? 0.0f : to_f(h1_st[sc]);
-        const float dc_t = dc_s[sc];
-        float dc_new = dc_t * m;
-        const float dc_direct = dc_t * (1.0f - m);
-        const float ig = sigmoid(to_f(xp_st[sc]) + hp_st[sc]);
-        const float fg = sigmoid(to_f(xp_st[RH + sc]) + hp_st[RH + sc]);
-        const float gg = tanhf(to_f(xp_st[2 * RH + sc]) + hp_st[2 * RH + sc]);
-        const float og = sigmoid(to_f(xp_st[3 * RH + sc]) + hp_st[3 * RH + sc]);
-        const float c_new = fg * c_prev + ig * gg;
-        const float tanh_c = tanhf(c_new);
-        const float d_o = dh_new * tanh_c;
-        dc_new = dc_new + dh_new * og * (1.0f - tanh_c * tanh_c);
-        dxv[0] = dc_new * gg * ig * (1.0f - ig);
-        dxv[1] = dc_new * c_prev * fg * (1.0f - fg);
-        dxv[2] = dc_new * ig * (1.0f - gg * gg);
-        dxv[3] = d_o * og * (1.0f - og);
+      float hpv[G], xpv[G], dxv[G], dhp[G], dhn;
+      if constexpr (CELL != kRNN) {
 #pragma unroll
-        for (int g = 0; g < G; ++g) dhp[g] = dxv[g];
-        dc_s[sc] = dc_new * fg + dc_direct;
-        dh_s[sc] = dh_direct;
-      } else {
-        // h_new equals the saved output wherever m == 1, and dh_new is 0
-        // wherever m == 0
-        const float h_t = to_f(h1_st[sc]);
-        dxv[0] = dh_new * (1.0f - h_t * h_t);
-        dhp[0] = dxv[0];
-        dh_s[sc] = dh_direct;
+        for (int g = 0; g < G; ++g) {
+          hpv[g] = hp_st[g * RH + sc];
+          xpv[g] = to_f(xp_st[g * RH + sc]);
+        }
       }
+      const float h1 = CELL != kRNN && first ? 0.0f : to_f(h1_st[sc]);
+      float dc = CELL == kLSTM ? dc_s[sc] : 0.0f;
+      gate_math<CELL>(m_st[r], dh_s[sc] + to_f(do_st[sc]), h1, hpv, xpv, dc, dxv, dhp, dhn);
+      dh_s[sc] = dhn;
+      if constexpr (CELL == kLSTM) dc_s[sc] = dc;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         dxp[tb * GH + g * H + j] = from_f<CT>(dxv[g]);
@@ -765,8 +1183,10 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
       }
     }
     __syncthreads();
+    stamp(kGate);
     // one row block: every peer has finished the last step's product on it
     if (one_block && step > 0) cluster_wait();
+    stamp(kPushWait);
 
     // push this CTA's columns of the row block into every peer's copy: each
     // word is read once and stored to every peer (chunked: in the product)
@@ -795,7 +1215,10 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
           }
         }
     }
+    if constexpr (PHASES) __syncthreads();
+    stamp(kPush);
     if (!chunked) cluster.sync();  // release the pushes, acquire the peers'
+    stamp(kBarrier);
 
     // the chain: dh[:, own] += round(dhp)[R, kp] . round(W)^T[kp, own]; the
     // A operand from the row block at column k0 (chunked: chunk buffer
@@ -963,23 +1386,58 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) rnn_bwd_chain_kernel(ChainAr
       }
       if (halves) __syncthreads();  // the next step's copies overwrite the staging buffer
     }
+    if constexpr (PHASES) __syncthreads();
+    stamp(kProduct);
     if (one_block) cluster_arrive();  // this CTA no longer reads its row block
+  }
+  if constexpr (PHASES) {
+    if (tid == 0) {
+      long long* o = a.phases + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * PHASE_WORDS;
+      for (int p = 0; p < kPhases; ++p) o[p] = ph_acc[p];
+      o[kPhases] = clock64() - ph_t0;
+      o[kPhases + 1] = (long long)(global_ns() - ns0);
+    }
   }
   if (one_block) cluster_wait();  // no peer pushes into this CTA any more
 
-  if (!a.split) {  // db partial of this cluster's rows, summed over r in order
+  if (!a.split) {  // db partials of db_rows rows each, each summed over r in order
     __syncthreads();
-    for (int idx = tid; idx < G * own; idx += CHAIN_THREADS) {
-      const int g = idx / own, c = idx % own;
+    if constexpr (WIDE) {
+      // the registers' partials through [G][R][hc] over W and the row block
+      float* dbs = reinterpret_cast<float*>(smem);
+      int r = wq_r, c = wq_c;
+#pragma unroll
+      for (int b = 0; b < WE / 4; ++b) {
+        if (r < R)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int g = 0; g < G; ++g) dbs[(g * R + r) * hc + c + e] = dbr[4 * b + e][g];
+        c += wq_dc;
+        r += wq_dr;
+        if (c >= own) {
+          c -= own;
+          ++r;
+        }
+      }
+      __syncthreads();
+      dbacc = dbs;
+    }
+    const int dr = WIDE ? a.db_rows : R, groups = R / dr, parts = (B + dr - 1) / dr;
+    for (int idx = tid; idx < groups * G * own; idx += CHAIN_THREADS) {
+      const int gi = idx / (G * own), g = idx % (G * own) / own, c = idx % own;
+      const int part = cl * groups + gi;
+      if (part >= parts) continue;
       float s = 0.0f;
-      for (int r = 0; r < R; ++r) s += dbacc[(g * R + r) * hc + c];
-      a.db_part[((size_t)e * ncl + cl) * GH + g * H + j0 + c] = s;
+      for (int r = 0; r < dr; ++r) s += dbacc[(g * R + gi * dr + r) * hc + c];
+      a.db_part[((size_t)e * parts + part) * GH + g * H + j0 + c] = s;
     }
   }
 }
 
 // dw[e][i] = sum over slices s (in order) of part[e][s][i]; db[e][k] = sum
-// over clusters (in order) of db_part[e][cl][k].
+// over the db partials (in order: a cluster's, or each db_rows rows' of the
+// large-batch layout) of db_part[e][cl][k].
 __global__ void rnn_bwd_reduce_kernel(int D, int nsplit, int ncl, int nw, int nb,
                                       const float* __restrict__ part,
                                       const float* __restrict__ db_part, float* __restrict__ dw,
@@ -1039,15 +1497,28 @@ __global__ void rnn_bwd_pack_w(PackArgs p) {
 
 struct Plan {
   int nc, R, hc, kc, stages, blocks, nsplit, xc, S, kw;
+  int wide, db_rows, khalf;  // the large-batch layout and the order of its sums
 };
 
 template <int CELL, typename CT>
 bool plan_ok(const Plan& pl, int H, int kp) {
   if (pl.nc < 1 || pl.nc > 16 || pl.hc < 8 || pl.hc % 8 || pl.nc * pl.hc < H ||
       (pl.nc - 1) * pl.hc >= H || pl.R < 8 || pl.R % 8 || pl.kc < 16 || pl.kc % 16 ||
-      (pl.stages != 1 && pl.stages != 2) || (pl.blocks != 1 && pl.blocks != 2) || pl.nsplit < 1 ||
+      pl.stages < 0 || pl.stages > 2 || (pl.blocks != 1 && pl.blocks != 2) || pl.nsplit < 1 ||
       pl.xc < 16 || pl.xc % 16)
     return false;
+  // the large-batch layout (and only it stages nothing): bf16, H and hc
+  // multiples of 16 (each k16 step in one region; quads of columns), W
+  // resident, the whole row block once, rows in whole db partials of 16 or
+  // 32 rows and k split where the layout it stands in for split it
+  if (pl.wide)
+    return sizeof(CT) == 2 && H % 16 == 0 && pl.hc % 16 == 0 && pl.stages == 0 && pl.kc >= kp &&
+           pl.xc >= kp &&
+           pl.blocks == 1 &&
+           pl.R % 32 == 0 && (pl.db_rows == 16 || pl.db_rows == 32) && pl.R % pl.db_rows == 0 &&
+           pl.khalf >= 0 && pl.khalf < kp && pl.khalf % 16 == 0 &&
+           (pl.R / 16) * (pl.hc / 8) <= UNITS_MAX * CHAIN_WARPS;
+  if (pl.stages == 0 || pl.db_rows != pl.R || pl.khalf) return false;
   // streamed: pieces of kw columns of a kc chunk, whole k32 steps at bf16
   // (or the whole chunk)
   if (pl.kc < kp && (pl.S < 1 || pl.S > 8 || pl.kw < 16 || pl.kw % 16 || pl.kw > pl.kc ||
@@ -1070,11 +1541,34 @@ size_t split_elems(int cell, int T, int B, int H, int D, int split) {
   return 3 * (size_t)D * (TB * H + (cell != kRNN ? H * GH : 0) + (split ? 0 : TB * GH));
 }
 
+// the chain kernel a plan runs (PH: the instrumented one)
+// (we: the large-batch layout's elements a thread, else 0)
+template <int CELL, typename CT, typename HT, bool PH>
+auto pick_chain(bool chunked, bool streamed, int we) {
+  if (chunked) return rnn_bwd_chain_kernel<CELL, CT, HT, true, true, 0, PH>;
+  if (streamed) return rnn_bwd_chain_kernel<CELL, CT, HT, false, true, 0, PH>;
+  if constexpr (sizeof(CT) == 2) {
+    if (we == 8) return rnn_bwd_chain_kernel<CELL, CT, HT, false, false, 8, PH>;
+    if (we == 12) return rnn_bwd_chain_kernel<CELL, CT, HT, false, false, 12, PH>;
+    if (we == 16) return rnn_bwd_chain_kernel<CELL, CT, HT, false, false, 16, PH>;
+  }
+  return rnn_bwd_chain_kernel<CELL, CT, HT, false, false, 0, PH>;
+}
+
+// the large-batch layout's gate-math elements a thread at R rows of hc
+// columns: R * hc / CHAIN_THREADS rounded up to whole batches, at least 8
+__host__ __device__ constexpr int wide_elems(int R, int hc) {
+  return (R * hc + CHAIN_THREADS * WIDE_BATCH - 1) / (CHAIN_THREADS * WIDE_BATCH) * WIDE_BATCH < 8
+             ? 8
+             : (R * hc + CHAIN_THREADS * WIDE_BATCH - 1) / (CHAIN_THREADS * WIDE_BATCH) * WIDE_BATCH;
+}
+
 template <int CELL, typename CT, typename HT>
 int launch(int T, int B, int H, int D, int dir0, int split, const Plan& pl, const Ptrs& p,
            const float* mask, const void* w_hh, void* wpk, long long wpk_elems,
            const float* b_hh, const float* d_hfinal, float* hp_ws, float* ws_w, float* ws_b,
-           float* dw, float* db, void* split_ws, long long split_ws_elems, cudaStream_t stream) {
+           float* dw, float* db, void* split_ws, long long split_ws_elems, long long* phases,
+           cudaStream_t stream) {
   constexpr bool kSplit = sizeof(CT) == 4;  // f32 compute: split products
   constexpr int P = kSplit ? PIECES : 1;
   constexpr int G = NumGates<CELL>::G;
@@ -1083,9 +1577,10 @@ int launch(int T, int B, int H, int D, int dir0, int split, const Plan& pl, cons
   const int kc = pl.kc < kp ? pl.kc : kp;
   const bool streamed = kc < kp;
   const ChainSmem L = chain_smem<CELL, CT, HT>(pl.R, pl.hc, kp, kc, pl.stages, pl.blocks, pl.xc,
-                                               pl.S, pl.kw);
+                                               pl.S, pl.kw, pl.nc);
   if (L.total > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const int ncl = (B + pl.R - 1) / pl.R;
+  const int nparts = (B + pl.db_rows - 1) / pl.db_rows;  // db partials a direction
   cudaError_t err;
   PackArgs pk = {};
   if (streamed) {  // the pieces' count, and the packed W's elements
@@ -1160,9 +1655,18 @@ int launch(int T, int B, int H, int D, int dir0, int split, const Plan& pl, cons
   c.hp = hp_ws;
   c.d_hfinal = d_hfinal;
   c.db_part = ws_b;
-  auto kernel = pl.xc < kp ? rnn_bwd_chain_kernel<CELL, CT, HT, true, true>
-                : streamed  ? rnn_bwd_chain_kernel<CELL, CT, HT, false, true>
-                            : rnn_bwd_chain_kernel<CELL, CT, HT, false, false>;
+  c.db_rows = pl.db_rows;
+  c.khalf = pl.khalf;
+  c.phases = phases;
+  const int we = pl.wide ? wide_elems(pl.R, pl.hc) : 0;
+  auto kernel = pick_chain<CELL, CT, HT, false>(pl.xc < kp, streamed, we);
+  if (phases != nullptr) {
+#ifdef RNN_BWD_PHASES
+    kernel = pick_chain<CELL, CT, HT, true>(pl.xc < kp, streamed, we);
+#else
+    return (int)cudaErrorInvalidValue;  // only the instrumented build times phases
+#endif
+  }
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
   if (pl.nc > 8 &&  // clusters of more than 8 CTAs are not portable: allowed per kernel
@@ -1209,8 +1713,8 @@ int launch(int T, int B, int H, int D, int dir0, int split, const Plan& pl, cons
   const int total = D * (nw + nb);
   int blocks = (total + 255) / 256;
   if (blocks > 4096) blocks = 4096;
-  rnn_bwd_reduce_kernel<<<blocks, 256, 0, stream>>>(D, pl.nsplit, ncl, nw, nb, ws_w, ws_b, dw,
-                                                     db);
+  rnn_bwd_reduce_kernel<<<blocks, 256, 0, stream>>>(D, pl.nsplit, nparts, nw, nb, ws_w, ws_b,
+                                                     dw, db);
   return (int)cudaGetLastError();
 }
 
@@ -1273,12 +1777,18 @@ extern "C" {
 // launcher checks the count), else null. Per-direction pointers the call does not use may be null. xc:
 // the columns of the dhp row block exchanged at a time (>= G*H: all; else
 // in chunks, with kc == xc and two blocks). nc > 8 asks for clusters of
-// more than 8 CTAs, which the launch allows. device: the CUDA ordinal the
-// tensors live on. Returns cudaGetLastError() after the launches (0 on
-// success).
+// more than 8 CTAs, which the launch allows. wide: the large-batch layout
+// (bf16, W resident, stages 0, one row block), whose db partials each sum
+// db_rows rows (ws_b [D, ceil(B/db_rows), G*H]; else db_rows == rows) and
+// whose product sums k below khalf and from it apart (0: not split), the
+// order of the layout it stands in for. phases: null, or (only in a build
+// with -DRNN_BWD_PHASES) [D][nc * clusters][PHASE_WORDS] int64 for the
+// chain's phase times. device: the CUDA ordinal the tensors live on.
+// Returns cudaGetLastError() after the launches (0 on success).
 int rnn_bwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int split, int T, int B,
                    int H, int D, int dir0, int nc, int rows, int hc, int kc, int stages,
-                   int blocks, int nsplit, int xc, int wstages, int kw, const void* xp0,
+                   int blocks, int nsplit, int xc, int wstages, int kw, int wide, int db_rows,
+                   int khalf, const void* xp0,
                    const void* xp1, const float* mask,
                    const void* out0, const void* out1, const void* hr0, const void* hr1,
                    const void* c0, const void* c1,
@@ -1286,7 +1796,7 @@ int rnn_bwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int split,
                    long long wpk_elems, const float* b_hh,
                    const float* d_hfinal, void* dxp0, void* dxp1, void* dhp0, void* dhp1,
                    float* hp_ws, float* ws_w, float* ws_b, float* dw, float* db,
-                   void* split_ws, long long split_ws_elems, void* stream) {
+                   void* split_ws, long long split_ws_elems, long long* phases, void* stream) {
   if (T <= 0 || B <= 0) return 0;
   if (H % 4 != 0 || D < 1 || D > 2 || dir0 < 0 || dir0 + D > 2 || cell < 0 || cell > 2)
     return (int)cudaErrorInvalidValue;
@@ -1294,10 +1804,10 @@ int rnn_bwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int split,
   if (set != cudaSuccess) return (int)set;
   const Ptrs p = {{xp0, xp1}, {out0, out1}, {hr0, hr1}, {c0, c1}, {dout0, dout1}, {dxp0, dxp1},
                   {dhp0, dhp1}};
-  const Plan pl = {nc, rows, hc, kc, stages, blocks, nsplit, xc, wstages, kw};
+  const Plan pl = {nc, rows, hc, kc, stages, blocks, nsplit, xc, wstages, kw, wide, db_rows, khalf};
   return dispatch<Launch>(cell, cdt_bf16, hist_bf16, T, B, H, D, dir0, split, pl, p, mask, w_hh,
                           wpk, wpk_elems, b_hh, d_hfinal, hp_ws, ws_w, ws_b, dw, db,
-                          split_ws, split_ws_elems, static_cast<cudaStream_t>(stream));
+                          split_ws, split_ws_elems, phases, static_cast<cudaStream_t>(stream));
 }
 
 // How many clusters of nc chain CTAs (one a whole SM's shared memory) the

@@ -235,10 +235,6 @@ __device__ __forceinline__ void cell_update(const float* x, const float* p, floa
   h = m * h_new + (1.0f - m) * h;
 }
 
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
-
 // Two neighbouring columns of the compute dtype: a bf16 pair in one
 // register (bf16), or a float2 (f32)
 template <typename CT> struct Pair { using type = __nv_bfloat162; };

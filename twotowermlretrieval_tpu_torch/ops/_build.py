@@ -8,7 +8,10 @@ launch builds (``load``), or :func:`build_all` builds every source at once,
 one nvcc process per source, all started together.
 
 The build directory defaults to ``_build/`` inside the package (listed in
-``.gitignore``); ``TTR_TORCH_BUILD_DIR`` overrides it.
+``.gitignore``); ``TTR_TORCH_BUILD_DIR`` overrides it. A variant built with
+preprocessor ``defines`` (``load("rnn_bwd", ("RNN_BWD_PHASES",))``, the
+instrumented backward a timing tool asks for) is a library of its own
+beside the shipped one.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def build_dir() -> Path:
@@ -49,24 +52,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _target(name: str) -> Path:
+def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _target(name: str, defines: Tuple[str, ...] = ()) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return build_dir() / f"{name}_{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str) -> Tuple[Path, Path, subprocess.Popen] | None:
-    so = _target(name)
+def _start(name: str, defines: Tuple[str, ...] = ()) -> Tuple[Path, Path, subprocess.Popen] | None:
+    so = _target(name, defines)
     if so.exists():
         return None
     so.parent.mkdir(parents=True, exist_ok=True)
     # per-process temporary name: concurrent builds never publish a
     # half-written library
     tmp = so.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return so, tmp, proc
 
@@ -102,16 +109,17 @@ def build_all() -> Dict[str, str]:
         return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built on first use."""
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The kernel library ``name`` (compiled with ``-D`` each of
+    ``defines``), built on first use."""
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get((name, defines))
         if lib is None:
-            job = _start(name)
+            job = _start(name, defines)
             if job is not None:
                 _finish(name, job)
-            lib = ctypes.CDLL(str(_target(name)))
-            _libs[name] = lib
+            lib = ctypes.CDLL(str(_target(name, defines)))
+            _libs[name, defines] = lib
         return lib
 
 

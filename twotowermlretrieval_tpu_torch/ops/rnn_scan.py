@@ -41,7 +41,9 @@ weight gradient as one product after it, each on the tensor cores (at
 f32 compute as split products, the two GEMMs' operands split into their
 bf16 pieces once a call). :func:`bwd_plan` picks the
 layout; where a CTA's rows of W do not fit, the kernel streams them
-through a ring of stages, as the forward does.
+through a ring of stages, as the forward does. At bf16 and large batches,
+where W stays resident, it takes more rows a cluster in fewer waves,
+summing in the order of the layout it stands in for.
 
 Widths. The forward kernel takes H a multiple of 8 and the backward H a
 multiple of 4; the wrappers zero-pad other widths (:func:`pad_layer`: a
@@ -92,6 +94,9 @@ _UNITS_MAX = 4 * 8
 _UNITS_WIDE = 6 * 8
 _WIDE_ROWS = tuple(range(16, 257, 16))
 _WIDE_BATCH = 256  # the least batch they take (every smaller batch keeps its plan)
+# The backward's large-batch layouts: rows a cluster, whole db partials of
+# the 32 (or 16) rows the cluster route sums apart
+_WIDE_BWD_ROWS = tuple(range(64, 257, 32))
 # The forward at f32: rows x columns a CTA takes at most, a choice within
 # the units it holds. The f32 h row block grows with the rows, and where W
 # streams its room is the ring's: at RNN H=3072 B=16 T=32 on an H100
@@ -614,8 +619,15 @@ def rnn_fwd_bound(T: int, B: int, H: int, D: int, G: int, cdt_bytes: int, hist_b
 # backward
 # ---------------------------------------------------------------------------
 
-def _bwd_lib():
-    lib = _build.load("rnn_bwd")
+# the instrumented build of the backward (csrc/rnn_bwd.cu, RNN_BWD_PHASES):
+# the chain's phase times, for tools/bench_rnn_stream.py --step-phases
+BWD_PHASES = ("RNN_BWD_PHASES",)
+BWD_PHASE_NAMES = ("inputs", "gate math", "push wait", "push", "barrier", "product")
+BWD_PHASE_WORDS = len(BWD_PHASE_NAMES) + 2  # the phases' cycles, the loop's cycles and ns
+
+
+def _bwd_lib(defines=()):
+    lib = _build.load("rnn_bwd", defines)
     if not getattr(lib, "_ttr_bound", False):
         lib.rnn_bwd_launch.restype = _INT
         lib.rnn_bwd_launch.argtypes = [
@@ -624,6 +636,7 @@ def _bwd_lib():
             _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,  # nc, rows, hc, kc, stages, blocks,
                                                              # nsplit, xc
             _INT, _INT,  # wstages, kw
+            _INT, _INT, _INT,  # wide, db_rows, khalf
             _VOIDP, _VOIDP, _VOIDP,  # xp0, xp1, mask
             _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # out0, out1, hr0, hr1
             _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # c0, c1, dout0, dout1
@@ -632,7 +645,7 @@ def _bwd_lib():
             _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # dxp0, dxp1, dhp0, dhp1
             _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # hp_ws, ws_w, ws_b, dw, db
             _VOIDP, ctypes.c_longlong,  # split_ws, split_ws_elems
-            _VOIDP,  # stream
+            _VOIDP, _VOIDP,  # phases, stream
         ]
         lib.rnn_bwd_split_elems.restype = ctypes.c_longlong
         lib.rnn_bwd_split_elems.argtypes = [_INT] * 6  # cell, T, B, H, D, split
@@ -654,7 +667,12 @@ def _bwd_smem_bytes(cell: str, H: int, cdt_bytes: int, hist_bytes: int, rows: in
     ``blocks`` rounded dhp row blocks (``xc`` columns of each held at once:
     where fewer than G*H, the CTA's own rounded dhp too), the staging
     buffers, the dh (and dc) carry and the db partial (``chain_smem`` in
-    csrc/rnn_bwd.cu, region by region)."""
+    csrc/rnn_bwd.cu, region by region). ``stages`` 0 is the large-batch
+    layout (bf16): its row block is a region [rows][:func:`_wide_ld`] of
+    each of the ceil(H / hc) CTAs' columns and each k16 step's offsets in
+    them (int32 x 4), and it has an mbarrier a part of 32 rows; no staging
+    and no db partial (in registers; after the loop it passes through
+    [G][rows][hc] f32 laid over W and the row block)."""
     G = _GATES[cell]
     kp = _up(G * H, 16)
     xw = kp if xc is None else min(xc, kp)
@@ -668,8 +686,20 @@ def _bwd_smem_bytes(cell: str, H: int, cdt_bytes: int, hist_bytes: int, rows: in
         w = wstages * (_up(hc * (kw + padk) * cdt_bytes, 16) + 16)
     else:
         w = _up(hc * (min(kc, kp) + padk) * cdt_bytes, 16)
+    db = _up(G * rows * hc * 4, 16)
+    if not stages:  # the large-batch layout
+        regions = _up(-(-H // hc) * rows * _wide_ld(G, hc) * cdt_bytes, 16) + kp // 16 * 16
+        bars = _up(8 * (rows // 32), 16)  # an mbarrier a part of 32 rows
+        return max(w + regions + carries * _up(rows * hc * 4, 16) + bars, db)
     return (w + _up(blocks * rows * (xw + padk) * cdt_bytes, 16) + own + stages * stage
-            + carries * _up(rows * hc * 4, 16) + _up(G * rows * hc * 4, 16))
+            + carries * _up(rows * hc * 4, 16) + db)
+
+
+def _wide_ld(G: int, hc: int) -> int:
+    """Elements of a row of a CTA's region in the backward's large-batch
+    layout: its G*hc columns and the pad that keeps ldmatrix's eight
+    16-byte rows on distinct banks (``wide_ld`` in csrc/rnn_bwd.cu)."""
+    return G * hc + (16 if (G * hc // 8) % 2 else 8)
 
 
 def _bwd_packed_elems(cell: str, plan: dict, D: int, cdt_bytes: int) -> int:
@@ -723,6 +753,49 @@ def _bwd_ring(cell: str, H: int, cb: int, hb: int, rows: int, hc: int, kc: int, 
     return None
 
 
+def bwd_waves(plan: dict, D: int) -> int:
+    """How many times the card runs the backward's whole time loop: the
+    plan's clusters, both directions, over the clusters of its size the
+    card holds at once."""
+    return -(-D * plan["clusters"] // plan["slots"])
+
+
+def _bwd_wide_plan(cell: str, B: int, H: int, D: int, hb: int, slots, base: dict):
+    """The backward's large-batch layout in place of ``base``, a cluster-route
+    plan with W resident and the row block exchanged whole (bf16, H a
+    multiple of 16; :func:`bwd_plan`): over the cluster sizes whose CTAs
+    take a multiple of 16 columns and the rows a CTA's units hold
+    (multiples of 32 from 64), W resident beside one dhp row block in
+    per-CTA regions exchanged by bulk copies, and no staging
+    buffer (stages 0; the gate math reads its inputs from L2 and keeps the
+    db partial in registers), the fewest waves; then clusters of 8 before
+    16; then the fewest rows. Its sums keep ``base``'s order, so it
+    gives ``base``'s bits: a db partial per ``db_rows`` = ``base``'s rows,
+    and where ``base``'s product split k between two warps (``halves`` in
+    csrc/rnn_bwd.cu), the two halves summed apart (``khalf``, where the
+    second starts; 0 where ``base`` did not split). None where no such
+    layout fits."""
+    kp = _up(_GATES[cell] * H, 16)
+    # csrc/rnn_bwd.cu's halves: two of its 8 warps a unit where they hold twice the units
+    halves = 2 * _units(base["rows"], base["hc"]) <= 8
+    khalf = (kp // 16 + 1) // 2 * 16 if halves else 0
+    best = None
+    for nc, hc in _cluster_sizes(H, slots):
+        for R in _WIDE_BWD_ROWS:
+            if hc % 16 or _units(R, hc) > _UNITS_MAX or R > _up(B, 32):
+                break
+            smem = _bwd_smem_bytes(cell, H, 2, hb, R, hc, kp, 0, 1)
+            if smem > _SMEM_LIMIT:
+                break
+            plan = dict(base, nc=nc, hc=hc, rows=R, clusters=-(-B // R), stages=0, blocks=1,
+                        smem=smem, slots=slots[nc], wide=True, db_rows=base["rows"],
+                        khalf=khalf)
+            key = (bwd_waves(plan, D), nc, R)
+            if best is None or key < best[0]:
+                best = (key, plan)
+    return None if best is None else best[1]
+
+
 def bwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16",
              history_dtype=torch.float32, slots=H100_SXM_CLUSTER_SLOTS):
     """The backward kernel's layout for one call, or None when none fits
@@ -747,8 +820,15 @@ def bwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16"
     resident), then the first of two row blocks before one, 32 rows before
     16 and two staging buffers before one, sized as if one chunk buffer
     held W (so ``kc``, which orders the sums, is what it was before the
-    ring). ``slots``: as fwd_plan's. The kernel checks the plan and
-    refuses one that does not fit."""
+    ring). Large batches (bf16, B >= 256): where that plan keeps W resident
+    and the row block whole and takes more than one wave (32 rows a
+    cluster at most, so GRU H=256 B=1024 takes five), the large-batch
+    layout (:func:`_bwd_wide_plan`; ``wide``, with ``db_rows`` and
+    ``khalf``) takes over where it needs fewer waves: GRU H=256 B=1024
+    then takes 96 rows a cluster, 11 clusters of 8 a direction, two waves.
+    Every other plan is that route's, with ``wide`` False. ``slots``: as
+    fwd_plan's. The kernel checks the plan and refuses one that does not
+    fit."""
     G = _GATES[cell]
     H = _up(max(H, 1), _BWD_MULTIPLE)
     GH = G * H
@@ -815,9 +895,16 @@ def bwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16"
         kw, wstages, stages, blocks, smem = ring
     tiles = D * -(-H // _GEMM_TILE) * -(-GH // _GEMM_TILE)
     nsplit = max(1, min(-(-2 * _SMS // tiles), -(-T * B // 64)))
-    return {"H": H, "nc": nc, "hc": hc, "rows": rows, "clusters": -(-B // rows), "kc": kc,
+    plan = {"H": H, "nc": nc, "hc": hc, "rows": rows, "clusters": -(-B // rows), "kc": kc,
             "resident": resident, "stages": stages, "blocks": blocks, "xc": xc,
-            "nsplit": nsplit, "wstages": wstages, "kw": kw, "smem": smem, "slots": slots[nc]}
+            "nsplit": nsplit, "wstages": wstages, "kw": kw, "smem": smem, "slots": slots[nc],
+            "wide": False}
+    if (cb == 2 and B >= _WIDE_BATCH and H % 16 == 0 and resident and xc >= kp
+            and bwd_waves(plan, D) > 1):
+        wide = _bwd_wide_plan(cell, B, H, D, hb, slots, plan)
+        if wide is not None and bwd_waves(wide, D) < bwd_waves(plan, D):
+            return wide
+    return plan
 
 
 def _check_bwd_args(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal):
@@ -944,9 +1031,12 @@ def _bwd_reference(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
 
 
 def _bwd_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
-              compute_dtype, split: bool, dir0: int = 0):
+              compute_dtype, split: bool, dir0: int = 0, phases=None):
     """Launch the backward kernel on CUDA tensors, or run its plain version
-    on CPU tensors; returns what :func:`_bwd_reference` returns."""
+    on CPU tensors; returns what :func:`_bwd_reference` returns. ``phases``
+    (a timing tool's): an int64 tensor of D * nc * clusters *
+    BWD_PHASE_WORDS on the card, which the instrumented build fills with
+    the chain's phase times."""
     D, T, B, H, GH = _check_bwd_args(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal)
     if dir0 not in (0, 1) or dir0 + D > 2:
         raise ValueError(f"dir0={dir0} with {D} directions")
@@ -973,7 +1063,8 @@ def _bwd_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
         w, b, xs = pad_layer(cell, Hk, w_hh, b_hh, xps)
         hs, cs, dos = ([pad_units(x, 1, H, Hk) for x in ts] for ts in (outs, c_hist, douts))
         dxps, dhps, dw, db = _bwd_call(cell, xs, mask, w, b, hs, cs, dos,
-                                       pad_units(d_hfinal, 1, H, Hk), compute_dtype, split, dir0)
+                                       pad_units(d_hfinal, 1, H, Hk), compute_dtype, split, dir0,
+                                       phases)
 
         def cut(x):
             return x.unflatten(-1, (G, Hk))[..., :H].flatten(-2)
@@ -1006,14 +1097,16 @@ def _bwd_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
         ws_w = ws_b = dw = db = None
     else:
         ws_w = torch.empty((D, plan["nsplit"], H, GH), **f32)
-        ws_b = torch.empty((D, plan["clusters"], GH), **f32)
+        # a db partial per cluster (large-batch layout: per db_rows rows)
+        ws_b = torch.empty((D, -(-B // (plan["db_rows"] if plan["wide"] else plan["rows"])), GH),
+                           **f32)
         dw = torch.empty((D, H, GH), **f32)
         db = torch.empty((D, GH), **f32)
 
     # where W streams, the chain's scratch for W packed piece by piece
     n_pack = _bwd_packed_elems(cell, plan, D, cdt.itemsize)
     wpk = torch.empty(n_pack, dtype=cdt, device=dev) if n_pack else None
-    lib = _bwd_lib()
+    lib = _bwd_lib(() if phases is None else BWD_PHASES)
     # f32 compute: the GEMMs' operands in their bf16 pieces, written once a call
     n_split = (lib.rnn_bwd_split_elems(_CELL_CODE[cell], T, B, H, D, int(split))
                if cdt == torch.float32 else 0)
@@ -1031,13 +1124,15 @@ def _bwd_call(cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal,
             torch.cuda.current_device(), _CELL_CODE[cell], int(cdt == torch.bfloat16),
             int(hist == torch.bfloat16), int(split), T, B, H, D, dir0,
             plan["nc"], plan["rows"], plan["hc"], plan["kc"], plan["stages"], plan["blocks"],
-            plan["nsplit"], plan["xc"], plan["wstages"], plan["kw"],
+            plan["nsplit"], plan["xc"], plan["wstages"], plan["kw"], int(plan["wide"]),
+            plan["db_rows"] if plan["wide"] else plan["rows"], plan["khalf"] if plan["wide"] else 0,
             at(xs, 0), at(xs, 1), m.data_ptr(),
             at(hs, 0), at(hs, 1), at(hr, 0), at(hr, 1), at(cs, 0), at(cs, 1),
             at(dos, 0), at(dos, 1),
             w.data_ptr(), ptr(wpk), n_pack, b.data_ptr(), dhf.data_ptr(),
             at(dxps, 0), at(dxps, 1), at(dhps, 0), at(dhps, 1),
-            ptr(hp_ws), ptr(ws_w), ptr(ws_b), ptr(dw), ptr(db), ptr(split_ws), n_split, stream,
+            ptr(hp_ws), ptr(ws_w), ptr(ws_b), ptr(dw), ptr(db), ptr(split_ws), n_split,
+            ptr(phases), stream,
         )
     if err:
         raise RuntimeError(f"rnn_bwd kernel launch failed: {lib.rnn_bwd_error_string(err).decode()}")

@@ -15,7 +15,7 @@ the kernels'), the largest difference from the plain version, and a SHA-256
 of the outputs' bytes, so two checkouts' bits can be compared.
 
     python3 twotowermlretrieval_tpu_torch/tools/bench_rnn_stream.py [CHECKOUT]
-        [--layouts | --phases] [--out FILE] [--device cuda]
+        [--layouts | --phases | --step-phases] [--out FILE] [--device cuda]
 
 CHECKOUT: time that checkout's package (default: this one's), so that one
 call on one card can time two trees in turns (another commit unpacked
@@ -25,17 +25,30 @@ are called. ``--layouts`` also times each streamed shape under every
 layout its pass can take (the W ring's depth and width, one or two row
 blocks, clusters of 8 or 16, and the forward's W resident in clusters of
 16 where it fits; where the plan is a large-batch layout, those instead:
-``_wide_layouts``), the plan's own marked, each with its digest: it needs a
+``_wide_layouts``, and for the backward ``_bwd_wide_layouts``), the plan's
+own marked, each with its digest: it needs a
 checkout whose plans carry a ring (``wstages``). At f32 compute it times
 every shape so, the backward under whole layouts (rows, the dhp row block
 whole or in chunks, W resident or streamed, staging buffers), whose sums
 may differ from the plan's. Each record is printed as
 a JSON line and, with ``--out``, written as a JSON list. ``--phases``
-instead splits single calls at f32 compute (``PHASE_SHAPES``) into their
-launches by torch.profiler's device time: the forward's W packing and
+instead splits single calls (``PHASE_SHAPES``: at f32 compute, and the
+in-batch doc tower's bf16 backward) into their launches by torch.profiler's
+device time: the forward's W packing and
 time loop; the backward's operand split, gate recompute, W packing, dh
 chain, weight gradient and fixed-order sum, each the mean over
-``PHASE_CALLS`` calls. ``--device cpu`` runs the plain versions at toy
+``PHASE_CALLS`` calls. ``--step-phases`` instead splits the backward's
+time loop (``STEP_PHASE_SHAPES``, bf16) into the phases of a step, from the
+instrumented build of ``csrc/rnn_bwd.cu`` (``-DRNN_BWD_PHASES``: clock64()
+stamps of CTA thread 0 at block-wide points, a library of its own beside
+the shipped one): its inputs (the staging wait; the large-batch
+layout's L2 prefetch and first loads), the gate math, the wait for the
+peers' last product (one row block), the push (the large-batch layout:
+starting its bulk copies), the cluster barrier (the large-batch layout:
+the wait for the peers' copies) and the product,
+each in us a step, for the plan and for the cluster route forced (the
+plan before the large-batch layout), beside both calls' CUDA-event time;
+this checkout only. ``--device cpu`` runs the plain versions at toy
 sizes on the host clock: a check of the harness, whose times say nothing
 about a card. Each record
 also gives its plan's waves: ceil(2 x clusters / the clusters of its size
@@ -101,11 +114,20 @@ SHAPES = (
     ("fwd", "LSTM", 256, 1024, 32, "bfloat16"), ("fwd", "RNN", 256, 1024, 32, "bfloat16"),
     ("fwd", "GRU", 384, 512, 32, "bfloat16"), ("fwd", "GRU", 384, 1024, 32, "bfloat16"),
     ("fwd", "GRU", 256, 2048, 32, "bfloat16"), ("fwd", "RNN", 640, 256, 32, "bfloat16"),
+    # the backward's large-batch layouts: one rank of two (B=512) and of
+    # four (B=256) of in-batch training, and the other cells at B=1024
+    ("bwd", "GRU", 256, 512, 128, "bfloat16"), ("bwd", "GRU", 256, 256, 32, "bfloat16"),
+    ("bwd", "LSTM", 256, 1024, 32, "bfloat16"), ("bwd", "RNN", 256, 1024, 32, "bfloat16"),
 )
-# --phases: single f32-compute calls split into their launches
+# --phases: single calls split into their launches: at f32 compute, and
+# the in-batch doc tower's backward at bf16 (B=1024 T=128)
 PHASE_SHAPES = (("fwd", "GRU", 1024, 64, 32, "float32"), ("bwd", "GRU", 1024, 64, 32, "float32"),
-                ("fwd", "GRU", 256, 128, 128, "float32"), ("bwd", "GRU", 256, 128, 128, "float32"))
+                ("fwd", "GRU", 256, 128, 128, "float32"), ("bwd", "GRU", 256, 128, 128, "float32"),
+                ("bwd", "GRU", 256, 1024, 128, "bfloat16"))
 PHASE_CALLS = 5
+# --step-phases: (cell, H, B, T) of the backward at bf16 with a bf16 history,
+# the reference towers' training query shape and the in-batch doc tower's
+STEP_PHASE_SHAPES = (("GRU", 256, 64, 32), ("GRU", 256, 1024, 128))
 CPU_SHAPES = (("fwd", "GRU", 24, 5, 6, "bfloat16"), ("fwd", "LSTM", 40, 3, 4, "float32"),
               ("bwd", "GRU", 24, 5, 6, "bfloat16"), ("bwd", "RNN", 16, 3, 4, "bfloat16"),
               ("fwd", "GRU", 512, 3, 2, "bfloat16"), ("bwd", "GRU", 1024, 3, 2, "bfloat16"))
@@ -359,6 +381,77 @@ def _wide_layouts(rnn_scan, cell, B, slots, base):
     return out
 
 
+def _bwd_wide_layouts(rnn_scan, cell, B, hist, slots, base):
+    """The backward's large-batch layouts --layouts times (bf16, W
+    resident, one dhp row block, nothing staged; a checkout that has
+    them): per cluster size, every row count of ``_WIDE_BWD_ROWS`` a CTA
+    holds, each with the plan's order of the sums (so the bits stay)."""
+    Hk = base["H"]
+    kp = -(-GATES[cell] * Hk // 16) * 16
+    out = []
+    for nc, hc in rnn_scan._cluster_sizes(Hk, slots):
+        for R in rnn_scan._WIDE_BWD_ROWS:
+            smem = rnn_scan._bwd_smem_bytes(cell, Hk, 2, hist.itemsize, R, hc, kp, 0, 1)
+            if (hc % 16 or _units(R, hc) > 32 or R > -(-B // 32) * 32
+                    or smem > rnn_scan._SMEM_LIMIT):
+                break
+            out.append(dict(base, nc=nc, hc=hc, rows=R, clusters=-(-B // R), slots=slots[nc],
+                            smem=smem))
+    return out
+
+
+def _step_phases(torch, rnn_scan, dev, card):
+    """STEP_PHASE_SHAPES' backward time loops split into a step's phases
+    (module docstring), for the plan and the cluster route forced."""
+    time_ms = _timer(torch, dev)
+    names = rnn_scan.BWD_PHASE_NAMES
+    recs = []
+    for seed, (cell, H, B, T) in enumerate(STEP_PHASE_SHAPES):
+        cdt = "bfloat16"
+        xps, mask, w_hh, b_hh = _inputs(torch, cell, H, B, T, cdt, dev, seed)
+        outs, c_hist, _ = rnn_scan.rnn_layer_fwd_reference(cell, xps, mask, w_hh, b_hh, cdt,
+                                                           True)
+        gen = torch.Generator(device=dev).manual_seed(seed + 100)
+        douts = [torch.randn((T, B, H), generator=gen, device=dev).to(outs[0].dtype)
+                 for _ in range(2)]
+        d_hfinal = torch.randn((2, B, H), generator=gen, device=dev)
+        bargs = (cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal, cdt)
+        slots = rnn_scan.cluster_slots("bwd", cell, cdt, torch.bfloat16, dev)
+        wide_fn = rnn_scan._bwd_wide_plan
+        for route in ("plan", "cluster route"):
+            if route == "cluster route":
+                rnn_scan._bwd_wide_plan = lambda *a, **k: None
+            try:
+                plan = rnn_scan.bwd_plan(cell, T, B, H, 2, cdt, torch.bfloat16, slots)
+                buf = torch.zeros(2 * plan["nc"] * plan["clusters"] * rnn_scan.BWD_PHASE_WORDS,
+                                  dtype=torch.int64, device=dev)
+                with torch.no_grad():
+                    ms = time_ms(lambda: rnn_scan.rnn_layer_bwd(*bargs))
+                    ms_phased = time_ms(lambda: rnn_scan._bwd_call(*bargs, split=False,
+                                                                   phases=buf))
+                    buf.zero_()
+                    rnn_scan._bwd_call(*bargs, split=False, phases=buf)
+                    torch.cuda.synchronize()
+            finally:
+                rnn_scan._bwd_wide_plan = wide_fn
+            words = buf.view(-1, rnn_scan.BWD_PHASE_WORDS).double().cpu()
+            cycles, loop, ns = words[:, :len(names)], words[:, len(names)], words[:, -1]
+            ns_a_cycle = ns / loop  # each CTA's own clock over its loop
+            us = (cycles * ns_a_cycle[:, None]).mean(dim=0) / T / 1e3
+            rec = {"cell": cell, "H": H, "B": B, "T": T, "compute": cdt, "history": cdt,
+                   "route": route, "plan": {k: plan[k] for k in _PLAN_KEYS if k in plan},
+                   "waves": -(-2 * plan["clusters"] // plan["slots"]), "ms": ms,
+                   "ms_instrumented": ms_phased,
+                   "loop_us_a_step": float(ns.mean() / T / 1e3),
+                   "phases_us_a_step": {n: float(v) for n, v in zip(names, us)},
+                   "phases_share": {n: float(v) for n, v in
+                                    zip(names, (cycles / loop[:, None]).mean(dim=0))},
+                   "sm_ghz": float((loop / ns).mean()), "card": card}
+            print(json.dumps(rec), flush=True)
+            recs.append(rec)
+    return recs
+
+
 def _bwd_layouts(rnn_scan, cell, H, cdt, hist, slots, base):
     """Every backward layout --layouts times: the plan's chunk kc kept (it
     orders the sums), its staging buffers and row blocks, each piece width
@@ -437,7 +530,7 @@ def _bwd_f32_layouts(rnn_scan, cell, B, hist, slots, base):
 
 
 _PLAN_KEYS = ("nc", "hc", "rows", "clusters", "kc", "resident", "wstages", "blocks", "stages",
-              "xc", "kw", "nsplit", "smem", "slots", "wsplit", "wide")
+              "xc", "kw", "nsplit", "smem", "slots", "wsplit", "wide", "db_rows", "khalf")
 
 
 def _bwd_smem_by_rows(rnn_scan, cell, plan, cb, hb):
@@ -460,6 +553,7 @@ def main(argv=None) -> int:
     ap.add_argument("checkout", nargs="?", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--layouts", action="store_true")
     ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--step-phases", action="store_true")
     ap.add_argument("--out")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -477,10 +571,11 @@ def main(argv=None) -> int:
                               check=True).stdout.strip()
     else:
         card = "the host (plain versions)"
-    if args.phases:
+    if args.phases or args.step_phases:
         if dev.type != "cuda":
-            raise SystemExit("--phases reads the card's own time: it needs a CUDA device")
-        recs = _phases(torch, rnn_scan, dev, card)
+            raise SystemExit("--phases and --step-phases read the card's own time: they need a "
+                             "CUDA device")
+        recs = (_phases if args.phases else _step_phases)(torch, rnn_scan, dev, card)
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(recs, indent=1))
@@ -547,9 +642,11 @@ def main(argv=None) -> int:
         if cdt == "float32":
             rec["cudnn_f32_ms"] = _cudnn_ms(torch, time_ms, cell, H, B, T, dev, which == "bwd",
                                             f32=True)[0]
-        wide = which == "fwd" and plan.get("wide", False)
+        wide = plan.get("wide", False)
         if args.layouts and (H > 256 or cdt == "float32" or wide):
-            if wide:
+            if wide and which == "bwd":
+                layouts = _bwd_wide_layouts(rnn_scan, cell, B, hist, slots, plan)
+            elif wide:
                 layouts = _wide_layouts(rnn_scan, cell, B, slots, plan)
             elif which == "fwd":
                 layouts = _fwd_layouts(rnn_scan, cell, B, cdt, slots, plan)
