@@ -664,7 +664,8 @@ def _fwd_design(cell: str, B: int, T: int, dev, H=H, compact: bool = True,
     """The layout the forward kernel launches at this shape (bf16 compute
     with a bf16 or, not ``compact``, an f32 history, or f32 compute; both
     directions), logged with its route (the cluster route, or the
-    large-batch layout: 6 units a warp, W resident, one h row block), the
+    large-batch layout: 6 units a warp, W resident, the h row block as one
+    region a CTA exchanged by bulk copies), the
     number of clusters of its size the card holds at once (read from the
     card), by which the plan chose its rows, and its waves (each a whole
     time loop)."""
@@ -677,12 +678,14 @@ def _fwd_design(cell: str, B: int, T: int, dev, H=H, compact: bool = True,
          else f"streamed every step through a ring of {plan['wstages']} stages of "
               f"{plan['kc']} rows") + (" as its bf16 pieces" if plan.get("wsplit") else "")
     route, waves = "large-batch" if plan["wide"] else "cluster", fwd_waves(plan, 2)
+    block = (f"the h row block as {plan['regions']} regions of {plan['xld']} columns, one bulk "
+             f"copy a peer a step" if plan["wide"] else f"{plan['blocks']} h row block(s)")
     log(f"rnn_fwd design, {cell} B={B} T={T} H={H} {compute}: route {route}, {waves} wave(s); "
         f"clusters of {plan['nc']} CTAs x "
         f"{plan['hc']} hidden columns, {plan['rows']} batch rows a cluster, "
         f"{plan['clusters']} clusters a direction ({2 * plan['clusters']} in all; the card "
         f"holds {plan['slots']} clusters of {plan['nc']} at once), W columns {w}, "
-        f"{plan['blocks']} h row block(s), {plan['smem']} bytes of shared memory a CTA")
+        f"{block}, {plan['smem']} bytes of shared memory a CTA")
     return dict(plan, route=route, waves=waves)
 
 
@@ -1545,9 +1548,11 @@ def phase_large_batch(dev) -> tuple:
     """The forward at the export batch of a wide GRU (H=1024, B=1024,
     T=128; W streams, the cluster route) against its plain version, twice
     bit-identical and timed beside cuDNN; and the in-batch query tower
-    (GRU H=256, B=1024, T=32), whose large-batch layout (160 rows a
-    cluster, one wave) must give the bits of the cluster route forced to
-    the plan it had before (128 rows, two waves). Then the backward of both
+    (GRU H=256, B=1024, T=32) and RNN and LSTM at its shape, whose
+    large-batch layout (160 rows a cluster, one wave; 8 regions exchanged
+    by bulk copies) must give the bits of the cluster route forced to the
+    plan it had before (128 rows, two waves; RNN and LSTM also against
+    their plain versions, twice bit-identical). Then the backward of both
     in-batch towers (GRU H=256 B=1024, T=32 and T=128: the large-batch
     layout, 96 rows a cluster, two waves) against its plain version, twice
     bit-identical, and in both modes bit for bit the cluster route forced
@@ -1560,27 +1565,48 @@ def phase_large_batch(dev) -> tuple:
     zero_counts()
     with torch.inference_mode():
         rec = check_rnn("GRU", GRU_ROWS, DOC_LEN, 29, dev, timed=True, H=WIDE_H)
-        args = _rnn_inputs("GRU", GRU_ROWS, QUERY_LEN, 9, dev, H, "bfloat16")
-        kw = dict(compute_dtype="bfloat16", history_in_cdt=True)
-        check(_fwd_design("GRU", GRU_ROWS, QUERY_LEN, dev)["route"] == "large-batch",
-              f"rnn_fwd GRU B={GRU_ROWS} T={QUERY_LEN}: not the large-batch layout")
-        outs, _, fin = rnn_scan.rnn_layer_fwd("GRU", *args, **kw)
-        plan_fn = rnn_scan.fwd_plan
-        rnn_scan.fwd_plan = lambda cell, T, B, H, D, cdt, hist, slots: rnn_scan._cluster_plan(
-            cell, B, rnn_scan.kernel_width(H), D, 2, slots)
-        try:
-            c_outs, _, c_fin = rnn_scan.rnn_layer_fwd("GRU", *args, **kw)
-        finally:
-            rnn_scan.fwd_plan = plan_fn
-        same = torch.equal(fin, c_fin) and all(torch.equal(a, b) for a, b in zip(outs, c_outs))
-    shape = f"GRU B={GRU_ROWS} T={QUERY_LEN} H={H}"
-    check(same, f"rnn_fwd {shape}: the large-batch layout's bits differ from the cluster route's")
-    log(f"rnn_fwd {shape}: the large-batch layout gives the cluster route's bits")
-    rec["query_tower_same_bits_as_cluster_route"] = same
+        same = {cell: _large_batch_fwd(cell, seed, dev)
+                for cell, seed in (("GRU", 9), ("RNN", 38), ("LSTM", 39))}
+    rec["query_tower_same_bits_as_cluster_route"] = same["GRU"]
+    rec["rnn_lstm_same_bits_as_cluster_route"] = same["RNN"] and same["LSTM"]
     bwd = [_large_batch_bwd(T, seed, dev) for T, seed in ((QUERY_LEN, 35), (DOC_LEN, 36))]
     # split mode (row 4) in the same layout at the in-batch doc tower's shape, timed
     bwd.append(check_rnn_bwd_split(GRU_ROWS, DOC_LEN, 37, dev))
     return rec, bwd, read_counts()
+
+
+def _large_batch_fwd(cell: str, seed: int, dev) -> bool:
+    """The forward at H=256 B=GRU_ROWS T=QUERY_LEN (the in-batch query
+    tower's shape) in its large-batch layout (RNN and LSTM also against
+    their plain versions, ``check_rnn``), all its outputs against the
+    cluster route forced to the plan it had before; each call's route,
+    rows, waves and regions logged."""
+    from twotowermlretrieval_tpu_torch.ops import rnn_scan
+
+    shape = f"{cell} B={GRU_ROWS} T={QUERY_LEN} H={H}"
+    design = _fwd_design(cell, GRU_ROWS, QUERY_LEN, dev)
+    check(design["route"] == "large-batch", f"rnn_fwd {shape}: not the large-batch layout")
+    if cell != "GRU":  # the GRU query tower's shape is held against its plain version in phase_kernels
+        check_rnn(cell, GRU_ROWS, QUERY_LEN, seed, dev, timed=False)
+    args = _rnn_inputs(cell, GRU_ROWS, QUERY_LEN, seed, dev, H, "bfloat16")
+    kw = dict(compute_dtype="bfloat16", history_in_cdt=True)
+    got = rnn_scan.rnn_layer_fwd(cell, *args, **kw)
+    plan_fn = rnn_scan.fwd_plan
+    rnn_scan.fwd_plan = lambda c, T, B, Hk, D, cdt, hist, slots: rnn_scan._cluster_plan(
+        c, B, rnn_scan.kernel_width(Hk), D, 2, slots)
+    try:
+        cluster = _fwd_design(cell, GRU_ROWS, QUERY_LEN, dev)
+        parent = rnn_scan.rnn_layer_fwd(cell, *args, **kw)
+    finally:
+        rnn_scan.fwd_plan = plan_fn
+    same = all(torch.equal(a, b) for a, b in zip((*got[0], *got[1], got[2]),
+                                                 (*parent[0], *parent[1], parent[2])))
+    check(same, f"rnn_fwd {shape}: the large-batch layout's bits differ from the cluster route's")
+    log(f"rnn_fwd {shape}: the large-batch layout ({design['rows']} rows, {design['waves']} "
+        f"wave(s), {design['regions']} regions) gives the bits of the cluster route "
+        f"({cluster['rows']} rows, {cluster['waves']} waves) in the history"
+        + (", the cell history" if cell == "LSTM" else "") + " and h_final")
+    return same
 
 
 def _large_batch_bwd(T: int, seed: int, dev) -> dict:

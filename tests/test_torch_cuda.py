@@ -607,12 +607,18 @@ def test_rnn_widest_ring_is_bitwise_repeatable(dev):
 
 # The forward's large-batch layout (bf16, B >= 256, W resident;
 # ops/rnn_scan.py fwd_plan): GRU, LSTM and RNN H=256 at the export batch
-# (160 rows a cluster, one wave) and GRU H=384 (80 rows, two waves); GRU
-# H=1024 (W streams) keeps the cluster route; batches that leave the last
-# cluster ragged
+# (160 rows a cluster, one wave; T=1, 8, 12, 32 and 128) and GRU H=384
+# (80 rows, two waves); at B=512 GRU H=264 (7 CTAs of 40 columns, so a
+# region of zeros past them), LSTM H=320 and RNN H=376 (48 columns: the
+# regions' swizzle over two rows' words), and RNN H=520 at B=256 (72
+# columns, 9 units a CTA's row of tiles); GRU H=1024 (W streams) keeps the
+# cluster route; batches that leave the last cluster ragged
 _LARGE_BATCH = [("GRU", 256, 1000, 12, True), ("GRU", 1024, 1000, 6, False),
                 ("LSTM", 256, 1024, 8, True), ("RNN", 256, 1000, 8, True),
-                ("GRU", 384, 1024, 6, True)]
+                ("GRU", 384, 1024, 6, True), ("GRU", 256, 1024, 128, True),
+                ("LSTM", 256, 1000, 1, True), ("RNN", 256, 1024, 32, True),
+                ("GRU", 264, 512, 32, True), ("LSTM", 320, 512, 1, True),
+                ("RNN", 376, 512, 128, True), ("RNN", 520, 256, 32, True)]
 
 
 def _cluster_route_plan(cell, T, B, H, D, compute_dtype="bfloat16", history_dtype=None,
@@ -636,7 +642,7 @@ def test_rnn_fwd_large_batch_layouts(dev, monkeypatch, cell, H, B, T, wide, hist
     zero-length row at zero, and give the bits of the cluster route forced
     to the plan it had before the large-batch layout: each product still
     runs over k in ascending order, in 16-wide mma.sync steps into one
-    accumulator."""
+    accumulator, whatever the regions and the order of a warp's units."""
     hist = torch.bfloat16 if history_in_cdt else torch.float32
     slots = _rnn_scan.cluster_slots("fwd", cell, "bfloat16", hist, dev)
     assert fwd_plan(cell, T, B, H, 2, "bfloat16", hist, slots)["wide"] == wide

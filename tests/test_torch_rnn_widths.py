@@ -42,7 +42,8 @@ def _fwd_layout_ok(cell, H, cdt, plan) -> bool:
     layout (``wide``, bf16 and W resident only). Where W streams, its ring
     has at least 2 stages of whole k32 steps at bf16 (k16 steps at f32)
     and one or two h row blocks; where it is resident, no ring and two h
-    row blocks (the large-batch layout: one). The pieces only at f32."""
+    row blocks (the large-batch layout: one, as regions). The pieces only
+    at f32."""
     cb = torch.tensor([], dtype=getattr(torch, cdt)).element_size()
     Hk, nc, hc, R, kc = plan["H"], plan["nc"], plan["hc"], plan["rows"], plan["kc"]
     wsplit, wide, blocks = plan["wsplit"], plan["wide"], plan["blocks"]
@@ -60,7 +61,7 @@ def _fwd_layout_ok(cell, H, cdt, plan) -> bool:
             and (cb == 2 or not wide)
             and plan["resident"] == (kc >= kp) and ring
             and plan["smem"] == _fwd_smem_bytes(cell, Hk, cb, R, hc, kc, plan["wstages"],
-                                                blocks, wsplit) <= _SMEM_LIMIT)
+                                                blocks, wsplit, wide) <= _SMEM_LIMIT)
 
 
 @pytest.mark.parametrize("cell,cdt", _CASES, ids=[f"{c}-{d}" for c, d in _CASES])
@@ -287,7 +288,9 @@ def test_streamed_backward_plans_keep_a_ring(cell, cdt, hist):
 # the reference towers' layouts before the W ring (the port at the commit
 # that added it): H=256 at bf16 with a bf16 history, both passes; the
 # forward at B=1024 in the large-batch layout since it came: 160 rows a
-# cluster, 7 clusters a direction, one h row block, one wave (before them
+# cluster, 7 clusters a direction, one h row block (since its rebuild as
+# 8 swizzled regions exchanged by bulk copies beside the warps' xp slots,
+# 175,632 bytes; 138,112 as one padded block), one wave (before them
 # 128 rows, 8 clusters a direction, two blocks, two waves of the 15 an
 # H100 SXM holds); the backward at B=1024 in its large-batch layout since
 # it came: 96 rows a cluster, 11 clusters a direction, nothing staged, one
@@ -295,7 +298,7 @@ def test_streamed_backward_plans_keep_a_ring(cell, cdt, hist):
 # buffers and two blocks, five waves)
 _MAIN_FWD = {16: (8, 32, 16, 1, 256, True, 2, 70528), 64: (8, 32, 32, 2, 256, True, 2, 87424),
              128: (8, 32, 32, 4, 256, True, 2, 87424),
-             1024: (8, 32, 160, 7, 256, True, 1, 138112)}
+             1024: (8, 32, 160, 7, 256, True, 1, 175632)}
 _MAIN_BWD = {16: (8, 32, 16, 1, 768, True, 2, 2, 768, 8, 130176),
              64: (8, 32, 32, 2, 768, True, 2, 2, 768, 11, 210688),
              128: (8, 32, 32, 4, 768, True, 2, 2, 768, 11, 210688),

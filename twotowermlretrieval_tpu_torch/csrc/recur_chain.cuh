@@ -80,17 +80,23 @@ __device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1, uin
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+// ldmatrix x4 (and .trans) at a shared-memory address (a 32-bit offset in
+// the shared window), for callers that work their addresses out as such
+__device__ __forceinline__ void ldsm_x4_at(uint32_t* r, unsigned a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
 }
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void ldsm_x4_t_at(uint32_t* r, unsigned a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  ldsm_x4_at(r, static_cast<unsigned>(__cvta_generic_to_shared(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  ldsm_x4_t_at(r, static_cast<unsigned>(__cvta_generic_to_shared(p)));
 }
 // two 8x8 matrices (the addresses of lanes 0-15), transposed
 __device__ __forceinline__ void ldsm_x2_t(uint32_t* r, const void* p) {
@@ -196,6 +202,14 @@ __device__ __forceinline__ void b_frag_f32_nk(const float* b, int ld, uint32_t (
   const float2 x1 = *reinterpret_cast<const float2*>(c + 8);
   split_into(x0.x, x0.y, f, 0);
   split_into(x1.x, x1.y, f, 1);
+}
+
+// the card's global timer, in nanoseconds (the instrumented builds' clock
+// beside clock64())
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
 
 // the two halves of a cluster barrier: arrive (release) and wait (acquire),

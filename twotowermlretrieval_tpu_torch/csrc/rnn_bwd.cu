@@ -615,12 +615,6 @@ __device__ __forceinline__ void store_quad(T* p, const float (&v)[4]) {
   *reinterpret_cast<typename QuadWord<T>::type*>(p) = w;
 }
 
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 // Every index map below is fixed for the whole loop and worked out before
 // it: a step spends its instructions on copies and arithmetic, since all of
 // the CTA's warps issue through the same four schedulers. CHUNKED (the

@@ -117,16 +117,40 @@
 // holds 15 clusters of 8 at once, and a CTA of 4 units a warp at most 128
 // rows at H=256, so the export batch of 1024 rows took two waves, each a
 // whole time loop. These layouts hold UNITS_WIDE = 6 units a warp (a
-// template parameter; 8 spilled registers and ran slower); a warp loads
-// its units' xp after the product (LSTM: each unit's before its gate
-// math), where the accumulators need the registers. A CTA keeps one h row
-// block (the second cluster barrier above): 160 rows at H=256, 7 clusters
-// a direction, one wave. The product is unchanged: each output still runs
-// over k in ascending order in the same 16-wide mma.sync steps into one
-// accumulator, so these layouts give the cluster route's bits. (Where W
-// streams, h carried beside W through L2 in three waves of 48 rows ran
-// level with the cluster route's five of 32 at GRU H=1024 B=1024, so W
-// streams in the cluster route only.)
+// template parameter, WIDE; 8 spilled registers and ran slower): 160 rows
+// at H=256, 7 clusters a direction, one wave. At those rows the
+// instrumented build (-DRNN_FWD_PHASES, PERF.md section 6) found the
+// cluster route's exchange (each warp's 16-byte stores into every peer,
+// about 24 GB/s an SM, then a cluster barrier) and the xp loads after the
+// product a third of the step, so the step is built around the copy engine:
+// - the h row block is NC regions [R][HC], one a CTA's columns (and one of
+//   zeros where the CTAs' columns stop short of kp), their 16-byte words
+//   swizzled instead of padded (swz), so a region holds nothing but h;
+// - a CTA writes its region once every peer has finished the last product
+//   (a relaxed cluster arrive after the product, the wait before the gate
+//   math), then sends it to each peer in one bulk copy (cp.async.bulk
+//   shared::cluster.shared::cta), completing on the peer's mbarrier; no
+//   thread pushes and no barrier waits for the data;
+// - the product waits for that mbarrier and walks each unit's k in
+//   ascending order, the A fragments found through a table of each k32
+//   step's offsets in the regions (koff);
+// - each warp's units' xp and mask go to its slots of shared memory by
+//   cp.async while the product runs.
+// (Sending each region in parts as their units' gate math ends, with an
+// mbarrier a part, ran no faster with two parts and slower with more: a
+// bulk copy of a few KB costs about as much as one of 10 KB; so did k
+// outer in the product with a warp's units on one column group sharing
+// each B fragment, PERF.md section 6.) Each output still runs over k in
+// ascending order in the same 16-wide mma.sync steps into one accumulator,
+// so these layouts give the cluster route's bits. (Where W streams, h
+// carried beside W through L2 in three waves of 48 rows ran level with the
+// cluster route's five of 32 at GRU H=1024 B=1024, so W streams in the
+// cluster route only.)
+//
+// The instrumented build (-DRNN_FWD_PHASES, a library of its own that
+// tools/bench_rnn_stream.py --step-phases asks for) adds the PHASES
+// kernels (bf16, W resident): thread 0's clock64() cycles of each phase of
+// a step; the shipped library never has them.
 //
 // The wrapper (ops/rnn_scan.py, fwd_plan) picks NC, HC, R, KC, S and the
 // row blocks and knows the shared-memory layout below (fwd_smem); the
@@ -153,6 +177,19 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int UNITS_MAX = 4;   // (16 rows x 8 columns) units per warp (G tiles each)
 constexpr int UNITS_WIDE = 6;  // the same, in the large-batch layouts
+// the large-batch layouts' kernel for at most 5 units a warp (GRU, LSTM
+// and RNN H=256 B=1024: 160 rows, 40 units a CTA): a sixth unit's
+// accumulators, never used there, spilled registers at LSTM and GRU
+constexpr int UNITS_WIDE_FEW = 5;
+// The instrumented build (-DRNN_FWD_PHASES; never the shipped library):
+// per CTA, thread 0's clock64() cycles of each phase of the time loop, the
+// whole loop's cycles and its %globaltimer nanoseconds. kPeers: the wait
+// for every peer to have read the one h row block; kPush: the pushes (the
+// large-batch layout: starting its bulk copies); kBarrier: the cluster
+// barrier that ends a step (the large-batch layout: the waits for the
+// peers' copies)
+enum Phase { kInputs, kProduct, kPeers, kGate, kPush, kBarrier, kPhases };
+constexpr int PHASE_WORDS = kPhases + 2;
 
 struct FwdArgs {
   int T, B, H;         // H: a multiple of 8
@@ -167,6 +204,7 @@ struct FwdArgs {
   void* out[2];        // [T][B][H] HT per direction
   void* cout[2];       // LSTM cell history, as out
   float* h_final;      // [D][B][H]
+  long long* phases;   // the instrumented build's [D][grid.x][PHASE_WORDS], else null
 };
 
 // Byte offsets of one CTA's shared memory (ops/rnn_scan.py's
@@ -176,8 +214,16 @@ struct FwdArgs {
 // blocks [blocks][R][hld] (two where resident); the bias of the own gate
 // columns [G][HC] f32; streamed, the ring's full and empty barriers [2][S].
 // The pads keep ldmatrix's eight 16-byte rows on distinct banks.
+// The large-batch layouts (regions > 0) hold the h row block as `regions`
+// regions [R][HC] instead, one a CTA's columns (and, where the cluster's
+// columns stop short of kp, one of zeros), their 16-byte words swizzled
+// in place of a pad (the kernel's swz), so that a region is one bulk copy
+// of nothing but h; after the bias, each k32 step's four k8 offsets in the
+// regions (int4); each warp's slots of its units' step xp [6][16][G x 8,
+// padded to an odd number of 16-byte words] and mask [6][16] f32; then the
+// exchange's mbarrier (every peer's region in).
 struct FwdSmem {
-  size_t w, h, bias, bar, total;
+  size_t w, h, bias, koff, xs, xm, bar, total;
   int wld, hld;
 };
 
@@ -187,7 +233,8 @@ template <typename CT, bool WP> struct WElem { using type = CT; };
 template <> struct WElem<float, true> { using type = __nv_bfloat16; };
 
 template <int CELL, typename CT, bool WP = false>
-__host__ __device__ FwdSmem fwd_smem(int R, int hc, int kp, int kc, int S, int blocks) {
+__host__ __device__ FwdSmem fwd_smem(int R, int hc, int kp, int kc, int S, int blocks,
+                                     int regions = 0) {
   constexpr int G = NumGates<CELL>::G;
   constexpr int EPW = 16 / sizeof(CT);  // elements per 16 bytes
   using WT = typename WElem<CT, WP>::type;
@@ -201,11 +248,19 @@ __host__ __device__ FwdSmem fwd_smem(int R, int hc, int kp, int kc, int S, int b
   s.w = o;
   o += a16((size_t)WPL * kw * s.wld * sizeof(WT)) * (streamed ? S : 1);
   s.h = o;
-  o += a16((size_t)blocks * R * s.hld * sizeof(CT));
+  o += regions ? a16((size_t)regions * R * hc * sizeof(CT))
+               : a16((size_t)blocks * R * s.hld * sizeof(CT));
   s.bias = o;
   o += a16((size_t)G * hc * 4);
+  s.koff = o;
+  if (regions) o += (size_t)kp / 32 * 16;
+  s.xs = o;  // the warps' slots: WARPS x UNITS_WIDE units x 16 rows of G x 8 xp
+  if (regions) o += a16((size_t)THREADS / 32 * 6 * 16 * (G * 8 + (G % 2 ? 0 : 8)) * sizeof(CT));
+  s.xm = o;  // and of 16 mask values
+  if (regions) o += a16((size_t)THREADS / 32 * 6 * 16 * 4);
   s.bar = o;
   if (streamed) o += (size_t)16 * S;
+  if (regions) o += 16;
   s.total = o;
   return s;
 }
@@ -254,11 +309,14 @@ template <> __device__ __forceinline__ __nv_bfloat162 pair_of<__nv_bfloat162>(fl
 // STREAM: W streams through the ring (a template argument, so the
 // resident route compiles as if the ring did not exist); WP: f32 compute
 // with W held as its bf16 pieces; U: the (16 x 8) units a warp holds at
-// most (UNITS_WIDE: the large-batch layouts, bf16 with W resident)
-template <int CELL, typename CT, typename HT, bool STREAM, bool WP, int U = UNITS_MAX>
+// most (UNITS_WIDE: the large-batch layouts, bf16 with W resident);
+// PHASES: the instrumented build's timing of a step (bf16, W resident)
+template <int CELL, typename CT, typename HT, bool STREAM, bool WP, int U = UNITS_MAX,
+          bool PHASES = false>
 __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
   static_assert(U == UNITS_MAX || (!STREAM && !WP && sizeof(CT) == 2),
                 "the large-batch layouts: bf16, W resident");
+  static_assert(!PHASES || (!STREAM && !WP && sizeof(CT) == 2), "timed: bf16, W resident");
   constexpr int G = NumGates<CELL>::G;
   constexpr bool kSplit = sizeof(CT) == 4;  // f32 compute: split products
   constexpr int EPW = 16 / sizeof(CT);
@@ -288,7 +346,12 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
   const CT* w = static_cast<const CT*>(a.w_hh) + (size_t)d * H * GH;
   const float* bias = a.b_hh + (size_t)d * GH;
 
-  const FwdSmem L = fwd_smem<CELL, CT, WP>(R, hc, kp, kc, S, a.blocks);
+  // the large-batch layouts (WIDE): the h row block as regions (fwd_smem),
+  // one a CTA's columns, and one of zeros where the cluster's columns stop
+  // short of kp
+  constexpr bool WIDE = U > UNITS_MAX;
+  const int nreg = WIDE ? nc + (nc * hc < kp) : 0;
+  const FwdSmem L = fwd_smem<CELL, CT, WP>(R, hc, kp, kc, S, a.blocks, nreg);
   const int wld = L.wld, hld = L.hld;
   extern __shared__ __align__(16) unsigned char smem[];
   WT* wbuf = reinterpret_cast<WT*>(smem + L.w);  // resident W, or the ring's stages
@@ -297,6 +360,15 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
   float* bias_s = reinterpret_cast<float*>(smem + L.bias);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar);  // [S], then empty [S]
   uint64_t* empty = full + S;
+  // WIDE: each k32 step's offsets in the regions; the exchange's mbarrier
+  // (every peer's region in); this CTA's region; this warp's slots of its
+  // units' xp and mask
+  int4* koff = reinterpret_cast<int4*>(smem + L.koff);
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(smem + L.bar);
+  CT* mine = WIDE ? hbuf + (size_t)q * R * hc : hbuf;
+  const int xrow = G * 8 + (G % 2 ? 0 : 8);  // a slot row's elements: odd 16-byte words
+  CT* xslot = reinterpret_cast<CT*>(smem + L.xs) + (size_t)(tid / 32) * U * 16 * xrow;
+  float* mslot = reinterpret_cast<float*>(smem + L.xm) + (tid / 32) * U * 16;
 
   // resident: round(W)[k][g*H + j0 + c] -> wbuf[k][g*hc + c] for k < kp,
   // c < hc; zero past the owned columns and past H
@@ -352,8 +424,27 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
   // H are never written and stay zero
   {
     uint4* hz = reinterpret_cast<uint4*>(hbuf);
-    const int words = (int)(a.blocks * (size_t)R * hld * sizeof(CT) / 16);
+    const int words = WIDE ? (int)((L.bias - L.h) / 16)
+                           : (int)(a.blocks * (size_t)R * hld * sizeof(CT) / 16);
     for (int i = tid; i < words; i += THREADS) hz[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  if constexpr (WIDE) {
+    // each k32 step's four k8 column groups k: region k / hc (the zero
+    // region past the cluster's columns) times R * hc elements, shifted
+    // left 6, with the group's chunk k % hc / 8 (< 64) in the low bits
+    for (int st = tid; st < kp / 32; st += THREADS) {
+      int o[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = st * 32 + i * 8, rg = min(k / hc, nc);
+        o[i] = ((rg * R * hc) << 6) | (rg < nc ? k % hc / 8 : 0);
+      }
+      koff[st] = make_int4(o[0], o[1], o[2], o[3]);
+    }
+    if (tid == 0) {
+      mbar_init(xbar, 1);  // thread 0's arrival, and the copies' bytes
+      mbar_init_fence();
+    }
   }
   for (int i = tid; i < G * hc; i += THREADS) {
     const int g = i / hc, c = i % hc;
@@ -427,11 +518,49 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
   auto same_rows = [&](int i) { return i > 0 && on[i - 1] && mt16[i - 1] == mt16[i]; };
   auto erow = [&](int i, int hh) { return mt16[i] + gid + hh * 8; };  // this lane's elements' rows
   auto prow = [&](int i) { return mt16[i] + lane % 16; };  // the row this lane pushes
+  // WIDE: a region row's 16-byte words (chunks of 8 columns) are
+  // swizzled, chunk c of row r at c ^ swz(r). A row of n = HC / 8 chunks,
+  // n = p * odd with p the largest power of two (at most 8) dividing n,
+  // puts 8 neighbouring rows on 8 / p distinct 16-byte bank groups p times
+  // over; the swizzle's p values tell those apart, so an ldmatrix's eight
+  // rows (and the gate math's stores) fall on distinct banks. It depends
+  // on r % 16 alone (a unit's first row is a multiple of 16). The bytes of
+  // a region's copy: the rows that exist. A lane's A row (its unit's rows
+  // add to it) and B row, as shared-window addresses.
+  const int swp = WIDE ? min(8, (hc / 8) & -(hc / 8)) : 1;
+  const int sw_sh = swp == 1 ? 3 : swp == 2 ? 2 : swp == 4 ? 1 : 0, sw_m = swp - 1;
+  auto swz = [&](int r) { return (r >> sw_sh) & sw_m; };
+  const unsigned region_bytes = WIDE ? (unsigned)(nrows * hc * sizeof(CT)) : 0u;
+  const unsigned a_lane = WIDE ? smem_addr(hbuf) + (lane % 16) * hc * 2 : 0u;
+  const unsigned b_lane = WIDE ? smem_addr(wbuf) + lane * wld * 2 : 0u;
+  const int a_sw = swz(lane % 16);
   float hcar[U][4], ccar[U][4];
 #pragma unroll
   for (int i = 0; i < U; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) hcar[i][e] = ccar[i][e] = 0.0f;
+  long long ph_acc[kPhases], ph_last = 0, ph_t0 = 0;
+  unsigned long long ns0 = 0;
+  auto stamp = [&](int p) {
+    if constexpr (PHASES) {
+      if (tid == 0) {
+        const long long now = clock64();
+        ph_acc[p] += now - ph_last;
+        ph_last = now;
+      }
+    }
+  };
+  auto sync_stamp = [&](int p) {
+    if constexpr (PHASES) {
+      __syncthreads();
+      stamp(p);
+    }
+  };
+  if constexpr (PHASES) {
+    for (int p = 0; p < kPhases; ++p) ph_acc[p] = 0;
+    ph_t0 = ph_last = clock64();
+    ns0 = global_ns();
+  }
 
 #pragma unroll 1
   for (int step = 0; step < T; ++step) {
@@ -440,6 +569,137 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
     CT* nxt = hbuf + (size_t)(one_block ? 0 : (step + 1) & 1) * R * hld;
     if (step + 1 < T) prefetch_step(d == 0 ? t + 1 : t - 1);
     const size_t tb = (size_t)t * B;
+    if constexpr (WIDE) {
+      // The large-batch layouts' step (the kernel's note): the xp and mask
+      // of the warp's units to its slots while the product runs; every
+      // peer's region in; the product, unit by unit; a relaxed arrival once
+      // this CTA has read the regions, and the wait for every CTA's; the
+      // gate math, each unit's h into this CTA's region; the region to
+      // every peer
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        if (!on[i]) continue;
+        CT* xs = xslot + (size_t)i * 16 * xrow;
+        for (int c = lane; c < 16 * G; c += 32) {
+          const int row = c / G, g = c - row * G;
+          if (mt16[i] + row < nrows)
+            cp_async16(xs + row * xrow + g * 8,
+                       xp + (tb + r0 + mt16[i] + row) * GH + (size_t)g * H + j0 + ucol[i]);
+        }
+        if (lane < 16 && mt16[i] + lane < nrows)
+          cp_async4(mslot + i * 16 + lane, a.mask + tb + r0 + mt16[i] + lane);
+      }
+      cp_async_commit();
+      stamp(kInputs);
+      if (step > 0) mbar_wait(xbar, (step - 1) & 1);  // every peer's region
+      stamp(kBarrier);
+      // each unit over k in ascending order, two k16 steps a k32 step into
+      // its accumulators (the cluster route's order, so its bits), the A
+      // fragments found region by region (koff: this lane's two k8 groups
+      // of the step, offset by the unit's rows)
+      float acc[U][G][4];
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.0f;
+        if (!on[i]) continue;
+        const unsigned ro = a_lane + mt16[i] * hc * 2, bo = b_lane + ucol[i] * 2;
+#pragma unroll 2
+        for (int kk = 0; kk < kp; kk += 32) {
+          const int4 ko = koff[kk / 32];
+          const int v0 = lane < 16 ? ko.x : ko.y, v1 = lane < 16 ? ko.z : ko.w;
+          uint32_t a0[4], a1[4];
+          ldsm_x4_at(a0, ro + ((v0 >> 6) + (((v0 & 63) ^ a_sw) << 3)) * 2);
+          ldsm_x4_at(a1, ro + ((v1 >> 6) + (((v1 & 63) ^ a_sw) << 3)) * 2);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            uint32_t b[4];  // B of the k16 steps at kk and kk + 16
+            ldsm_x4_t_at(b, bo + (kk * wld + g * hc) * 2);
+            mma_bf16(acc[i][g], a0[0], a0[1], a0[2], a0[3], b[0], b[1]);
+            mma_bf16(acc[i][g], a1[0], a1[1], a1[2], a1[3], b[2], b[3]);
+          }
+        }
+      }
+      stamp(kProduct);
+      // the next step's copies: thread 0's arrival on the exchange's
+      // mbarrier with the bytes they bring (its wait above saw the phase
+      // before), ahead of the arrival that lets the peers send; relaxed,
+      // since a release would first wait for the history's stores, which
+      // no peer reads
+      if (tid == 0 && step + 1 < T) mbar_arrive_expect_tx(xbar, (nc - 1) * region_bytes);
+      cluster_arrive_relaxed();  // this CTA no longer reads the regions
+      cp_async_wait<0>();        // the warp's xp and mask in its slots
+      __syncwarp();
+      stamp(kInputs);
+      cluster_wait();  // every CTA has read the regions: the next h may go in
+      stamp(kPeers);
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        if (!on[i]) continue;
+        const int col = ucol[i] + tig * 2;  // within the CTA
+        const CT* xs = xslot + (size_t)i * 16 * xrow + tig * 2;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int rr = gid + hh * 8, row = mt16[i] + rr;  // within the unit, the CTA
+          const bool ok = row < nrows;
+          const float m = ok ? mslot[i * 16 + rr] : 0.0f;
+          float x[2][G], pv[2][G];
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const XPair xv =
+                ok ? *reinterpret_cast<const XPair*>(xs + rr * xrow + g * 8) : XPair{};
+            const float2 bv = *reinterpret_cast<const float2*>(bias_s + g * hc + col);
+            x[0][g] = pair_lo(xv);
+            x[1][g] = pair_hi(xv);
+            pv[0][g] = acc[i][g][2 * hh] + bv.x;
+            pv[1][g] = acc[i][g][2 * hh + 1] + bv.y;
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            cell_update<CELL>(x[e], pv[e], m, hcar[i][2 * hh + e], ccar[i][2 * hh + e]);
+          const float h0 = hcar[i][2 * hh], h1 = hcar[i][2 * hh + 1];
+          // its region, the unit's word swizzled
+          *reinterpret_cast<HPair*>(mine + row * hc + (((ucol[i] >> 3) ^ swz(row)) << 3) +
+                                    tig * 2) = pair_of<HPair>(h0, h1);
+          if (ok) {
+            const size_t o = (tb + r0 + row) * H + j0 + col;
+            if constexpr (sizeof(HT) == 4)
+              *reinterpret_cast<float2*>(out + o) = make_float2(h0, h1);
+            if constexpr (CELL == kLSTM) {
+              const float c0 = ccar[i][2 * hh], c1 = ccar[i][2 * hh + 1];
+              if constexpr (sizeof(HT) == 4)
+                *reinterpret_cast<float2*>(cout + o) = make_float2(c0, c1);
+              else
+                *reinterpret_cast<__nv_bfloat162*>(cout + o) = __floats2bfloat162_rn(c0, c1);
+            }
+          }
+        }
+        __syncwarp();
+        if constexpr (sizeof(HT) == 2) {  // the bf16 history: the rounded h, a row word
+          const int r = prow(i);
+          if (lane < 16 && r < nrows)
+            *reinterpret_cast<uint4*>(out + (tb + r0 + r) * H + j0 + ucol[i]) =
+                *reinterpret_cast<const uint4*>(mine + r * hc + (((ucol[i] >> 3) ^ swz(r)) << 3));
+        }
+      }
+      stamp(kGate);
+      // the region to every peer but at the last step: one bulk copy a peer
+      // (the copy engine, shared -> peer shared), started by lanes of warp
+      // 0 side by side, completing on the peer's mbarrier; the barrier
+      // also orders every warp's writes before the next product
+      if (step + 1 < T) {
+        fence_proxy_async_smem();  // the region's writes, before the copies read them
+        __syncthreads();
+        if (warp == 0 && lane > 0 && lane < nc) {
+          const int peer = q + lane < nc ? q + lane : q + lane - nc;
+          bulk_copy_to_peer(peer_addr(mine, peer), mine, region_bytes, peer_addr(xbar, peer));
+        }
+      }
+      stamp(kPush);
+      continue;
+    }
 
     // 1. this step's xp (pairs of columns) and mask of the thread's
     // elements, from L2 (prefetched a step ahead): at bf16 before the
@@ -469,6 +729,7 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
       for (int i = 0; i < U; ++i) load_unit_x(i);
     };
     if constexpr (!x_after) load_x();
+    sync_stamp(kInputs);
 
     // 2. the product, one accumulator per (unit, gate), over rows
     // [k0, k0 + klen) of W held at wk (its row k0 first)
@@ -575,8 +836,10 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
         chunk_end(g);
       }
     }
+    sync_stamp(kProduct);
     if (one_block) cluster_arrive();  // this CTA no longer reads the row block
     if constexpr (x_after && !x_unit) load_x();
+    sync_stamp(kInputs);
 
     // 3. gate math, history, and h (bf16: rounded) into the next row block
     // (one block: kept in registers until every peer has read the block)
@@ -619,8 +882,10 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
         }
       }
     }
+    sync_stamp(kGate);
     if (one_block) {
       cluster_wait();  // every CTA has read the block: the next h may go in
+      stamp(kPeers);
 #pragma unroll
       for (int i = 0; i < U; ++i) {
         if (!on[i]) continue;
@@ -654,7 +919,17 @@ __global__ void __launch_bounds__(THREADS, 1) rnn_fwd_kernel(FwdArgs a) {
         if (lane < 16)
           *reinterpret_cast<uint4*>(out + (tb + r0 + prow(i)) * H + j0 + ucol[i]) = v[0];
     }
+    sync_stamp(kPush);
     cluster.sync();  // 5. release the pushes, acquire the peers'
+    stamp(kBarrier);
+  }
+  if constexpr (PHASES) {
+    if (tid == 0) {
+      long long* o = a.phases + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * PHASE_WORDS;
+      for (int p = 0; p < kPhases; ++p) o[p] = ph_acc[p];
+      o[kPhases] = clock64() - ph_t0;
+      o[kPhases + 1] = (long long)(global_ns() - ns0);
+    }
   }
 
 #pragma unroll
@@ -752,8 +1027,8 @@ bool plan_ok(const Plan& pl, int H, int kp) {
   if ((pl.wsplit && sizeof(CT) != 4) || (pl.wide && (sizeof(CT) != 2 || streamed)))
     return false;
   // h rows: two blocks, or one (a second cluster barrier a step) where W
-  // streams and in the large-batch layouts
-  if (pl.blocks != 2 && !(pl.blocks == 1 && (streamed || pl.wide))) return false;
+  // streams; the large-batch layouts: one, as regions
+  if (pl.wide ? pl.blocks != 1 : pl.blocks != 2 && !(pl.blocks == 1 && streamed)) return false;
   // whole m16 tiles of rows (f32 also 8 rows, half a tile)
   const bool rows = pl.R % 16 == 0 || (sizeof(CT) == 4 && pl.R == 8);
   const int units = pl.wide ? UNITS_WIDE : UNITS_MAX;
@@ -762,8 +1037,9 @@ bool plan_ok(const Plan& pl, int H, int kp) {
 
 template <int CELL, typename CT>
 FwdSmem plan_smem(const Plan& pl, int kp, int kc) {
+  const int regions = pl.wide ? pl.nc + (pl.nc * pl.hc < kp) : 0;  // the kernel's nreg
   return pl.wsplit ? fwd_smem<CELL, CT, true>(pl.R, pl.hc, kp, kc, pl.S, pl.blocks)
-                   : fwd_smem<CELL, CT, false>(pl.R, pl.hc, kp, kc, pl.S, pl.blocks);
+                   : fwd_smem<CELL, CT, false>(pl.R, pl.hc, kp, kc, pl.S, pl.blocks, regions);
 }
 
 // the packed W's elements of a streamed plan (rnn_fwd_pack_w's output; in
@@ -775,14 +1051,25 @@ size_t packed_elems(const Plan& pl, int kp, int D) {
   return (size_t)D * pl.nc * nch * (pl.wsplit ? PIECES : 1) * pl.kc * L.wld;
 }
 
+// few: the large-batch layouts at most UNITS_WIDE_FEW units a warp
 template <int CELL, typename CT, typename HT>
-auto pick_kernel(bool streamed, bool wsplit, bool wide) {
+auto pick_kernel(bool streamed, bool wsplit, bool wide, bool few, bool phased) {
+  (void)phased;
+#ifdef RNN_FWD_PHASES
+  if constexpr (sizeof(CT) == 2)
+    if (phased && !streamed)
+      return !wide ? rnn_fwd_kernel<CELL, CT, HT, false, false, UNITS_MAX, true>
+             : few ? rnn_fwd_kernel<CELL, CT, HT, false, false, UNITS_WIDE_FEW, true>
+                   : rnn_fwd_kernel<CELL, CT, HT, false, false, UNITS_WIDE, true>;
+#endif
   if constexpr (sizeof(CT) == 4) {
     if (wsplit)
       return streamed ? rnn_fwd_kernel<CELL, CT, HT, true, true>
                       : rnn_fwd_kernel<CELL, CT, HT, false, true>;
   } else {
-    if (wide) return rnn_fwd_kernel<CELL, CT, HT, false, false, UNITS_WIDE>;
+    if (wide)
+      return few ? rnn_fwd_kernel<CELL, CT, HT, false, false, UNITS_WIDE_FEW>
+                 : rnn_fwd_kernel<CELL, CT, HT, false, false, UNITS_WIDE>;
   }
   return streamed ? rnn_fwd_kernel<CELL, CT, HT, true, false>
                   : rnn_fwd_kernel<CELL, CT, HT, false, false>;
@@ -792,7 +1079,7 @@ template <int CELL, typename CT, typename HT>
 int launch(int T, int B, int H, int D, const Plan& pl, const void* xp0, const void* xp1,
            const float* mask, const void* w_hh, void* wpk, long long wpk_elems,
            const float* b_hh, void* out0, void* out1, void* c0, void* c1, float* h_final,
-           cudaStream_t stream) {
+           long long* phases, cudaStream_t stream) {
   constexpr int G = NumGates<CELL>::G;
   const int kp = (H + 31) / 32 * 32;
   if (!plan_ok<CELL, CT>(pl, H, kp)) return (int)cudaErrorInvalidValue;
@@ -803,7 +1090,15 @@ int launch(int T, int B, int H, int D, const Plan& pl, const void* xp0, const vo
   if (streamed &&
       (wpk == nullptr || wpk_elems != (long long)packed_elems<CELL, CT>(pl, kp, D)))
     return (int)cudaErrorInvalidValue;
-  auto kernel = pick_kernel<CELL, CT, HT>(streamed, pl.wsplit, pl.wide);
+  // phases: only the instrumented build times a step, and only at bf16 with W resident
+#ifdef RNN_FWD_PHASES
+  if (phases != nullptr && (sizeof(CT) != 2 || streamed)) return (int)cudaErrorInvalidValue;
+#else
+  if (phases != nullptr) return (int)cudaErrorInvalidValue;
+#endif
+  const int units = (pl.R + 15) / 16 * (pl.hc / 8);  // (16 x 8) units a CTA
+  auto kernel = pick_kernel<CELL, CT, HT>(streamed, pl.wsplit, pl.wide,
+                                          units <= UNITS_WIDE_FEW * WARPS, phases != nullptr);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
@@ -856,6 +1151,7 @@ int launch(int T, int B, int H, int D, const Plan& pl, const void* xp0, const vo
   a.cout[0] = c0;
   a.cout[1] = c1;
   a.h_final = h_final;
+  a.phases = phases;
   if ((err = cudaLaunchKernelEx(&cfg, kernel, a)) != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -909,7 +1205,9 @@ extern "C" {
 // warp. wpk: where W
 // streams, scratch of wpk_elems elements of the compute dtype (wsplit:
 // bf16) for the packed W (fwd_plan's layout; the launcher checks the
-// count), else null. device: the CUDA
+// count), else null. phases: null, or (only in a build with
+// -DRNN_FWD_PHASES, at bf16 with W resident) [D][nc * clusters][PHASE_WORDS]
+// int64 for the time loop's phase times. device: the CUDA
 // ordinal the tensors live on (this library carries its own runtime, whose
 // current device is not PyTorch's). Returns cudaGetLastError() after the
 // launches (0 on success).
@@ -918,14 +1216,14 @@ int rnn_fwd_launch(int device, int cell, int cdt_bf16, int hist_bf16, int T, int
                    int wsplit, int wide, const void* xp0, const void* xp1, const float* mask,
                    const void* w_hh,
                    void* wpk, long long wpk_elems, const float* b_hh, void* out0, void* out1,
-                   void* c0, void* c1, float* h_final, void* stream) {
+                   void* c0, void* c1, float* h_final, long long* phases, void* stream) {
   if (T <= 0 || B <= 0) return 0;
   if (D < 1 || D > 2 || cell < 0 || cell > 2) return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   const Plan pl = {nc, rows, hc, kc, wstages, blocks, wsplit, wide};
   return dispatch<Launch>(cell, cdt_bf16, hist_bf16, T, B, H, D, pl, xp0, xp1, mask, w_hh, wpk,
-                          wpk_elems, b_hh, out0, out1, c0, c1, h_final,
+                          wpk_elems, b_hh, out0, out1, c0, c1, h_final, phases,
                           static_cast<cudaStream_t>(stream));
 }
 

@@ -18,7 +18,8 @@ as split products: three bf16 pieces a value, six products), and each
 step's h exchanged through distributed shared memory with one
 cluster barrier a step (two where the CTA keeps one h row block to make
 room for the ring). At bf16 and large batches, where W stays resident,
-it takes more rows a CTA in fewer waves. :func:`fwd_plan` picks the layout. On a CPU tensor it runs :func:`rnn_layer_fwd_reference`, the plain
+it takes more rows a CTA in fewer waves, each CTA's h sent to its peers
+by the copy engine. :func:`fwd_plan` picks the layout. On a CPU tensor it runs :func:`rnn_layer_fwd_reference`, the plain
 PyTorch version of the same arithmetic. Both read xp rounded to the
 compute dtype, as the TPU kernel does (its caller casts xp before the
 call), and round h to the compute dtype before every step's product.
@@ -71,6 +72,7 @@ finds no plan.)
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -126,8 +128,20 @@ def _units(rows: int, hc: int) -> int:
     return -(-rows // 16) * (hc // 8)
 
 
-def _lib():
-    lib = _build.load("rnn_fwd")
+# the instrumented build of the forward (csrc/rnn_fwd.cu, RNN_FWD_PHASES):
+# the time loop's phase times at bf16 with W resident, for
+# tools/bench_rnn_stream.py --step-phases. "peers' reads": the wait for
+# every peer to have read the one h row block; "push": the pushes (the
+# large-batch layout: starting its bulk copies); "barrier": the cluster
+# barrier that ends a step (the large-batch layout: the waits for the
+# peers' copies)
+FWD_PHASES = ("RNN_FWD_PHASES",)
+FWD_PHASE_NAMES = ("inputs", "product", "peers' reads", "gate math", "push", "barrier")
+FWD_PHASE_WORDS = len(FWD_PHASE_NAMES) + 2  # the phases' cycles, the loop's cycles and ns
+
+
+def _lib(defines=()):
+    lib = _build.load("rnn_fwd", defines)
     if not getattr(lib, "_ttr_bound", False):
         lib.rnn_fwd_launch.restype = _INT
         lib.rnn_fwd_launch.argtypes = [
@@ -138,7 +152,7 @@ def _lib():
             _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # xp0, xp1, mask, w_hh
             _VOIDP, ctypes.c_longlong, _VOIDP,  # wpk, wpk_elems, b_hh
             _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,  # out0, out1, c0, c1, h_final
-            _VOIDP,  # stream
+            _VOIDP, _VOIDP,  # phases, stream
         ]
         lib.rnn_fwd_error_string.restype = ctypes.c_char_p
         lib.rnn_fwd_error_string.argtypes = [_INT]
@@ -180,7 +194,8 @@ def _fwd_wld(G: int, hc: int, cdt_bytes: int, wsplit: bool = False) -> int:
 
 
 def _fwd_smem_bytes(cell: str, H: int, cdt_bytes: int, rows: int, hc: int, kc: int,
-                    wstages: int = 0, blocks: int = 2, wsplit: bool = False) -> int:
+                    wstages: int = 0, blocks: int = 2, wsplit: bool = False,
+                    wide: bool = False) -> int:
     """Shared memory of one CTA of the forward kernel: the CTA's columns of
     round(W) (all ``kc`` >= H rows where resident; else a ring of
     ``wstages`` stages of ``kc`` rows each with a full and an empty
@@ -188,8 +203,13 @@ def _fwd_smem_bytes(cell: str, H: int, cdt_bytes: int, rows: int, hc: int, kc: i
     ``wsplit``, f32 compute, as three bf16 planes),
     ``blocks`` rounded h row blocks (2, or 1 with a second cluster barrier
     a step) and the bias of its gate columns (``fwd_smem`` in
-    csrc/rnn_fwd.cu, region by region). H is the kernel's width, a
-    multiple of 8."""
+    csrc/rnn_fwd.cu, region by region). ``wide``: the large-batch layouts'
+    h row block instead, as :func:`_fwd_regions` regions [rows][hc] (no
+    pad: their words are swizzled), each k32 step's k8 offsets in them
+    (int32 x 4), each warp's slots of its units' step xp (6 units of 16
+    rows of G x 8, padded to an odd number of 16-byte words) and mask (f32),
+    and the exchange's mbarrier. H is the kernel's width, a multiple of
+    8."""
     G = _GATES[cell]
     kp = _up(H, 32)
     wld = _fwd_wld(G, hc, cdt_bytes, wsplit)
@@ -197,7 +217,22 @@ def _fwd_smem_bytes(cell: str, H: int, cdt_bytes: int, rows: int, hc: int, kc: i
     hld = kp + 16 // cdt_bytes
     ring = wstages if kc < kp and wstages else 0
     w = _up(min(kc, kp) * wrow, 16) * max(ring, 1) + 16 * ring
+    if wide:
+        regions = _fwd_regions(H, hc)
+        slots = 8 * 6 * 16  # warps x units x rows
+        xrow = G * 8 + (0 if G % 2 else 8)
+        return (w + _up(regions * rows * hc * cdt_bytes, 16) + _up(G * hc * 4, 16)
+                + kp // 32 * 16 + _up(slots * xrow * cdt_bytes, 16) + _up(slots * 4, 16)
+                + 16)
     return w + _up(blocks * rows * hld * cdt_bytes, 16) + _up(G * hc * 4, 16)
+
+
+def _fwd_regions(H: int, hc: int) -> int:
+    """The regions of the large-batch layouts' h row block: one a CTA's
+    ``hc`` columns, and one of zeros where the CTAs' columns stop short of
+    H rounded up to 32 (the product's k32 steps read them there)."""
+    nc = -(-H // hc)
+    return nc + (nc * hc < _up(H, 32))
 
 
 def _fwd_packed_elems(cell: str, plan: dict, D: int, cdt_bytes: int) -> int:
@@ -265,24 +300,41 @@ def _fwd_layout(cell: str, Hk: int, cb: int, R: int, hc: int):
 def _wide_plan(cell: str, B: int, Hk: int, D: int, slots):
     """The large-batch plan (bf16, W resident; :func:`fwd_plan`): over the
     cluster sizes and the rows a CTA of 6 units a warp holds (multiples of
-    16 up to 256 and the batch) with W resident beside one h row block (a
-    second cluster barrier a step), the fewest waves; then clusters of 8
-    before 16; then the fewest rows. On an H100 (--layouts, PERF.md
-    section 6) one h row block ran level with two or faster in each of
-    three sweeps at GRU H=256 B=1024 T=128. None where W resident fits at
-    no rows."""
+    16 up to 256 and the batch) with W resident beside one h row block (as
+    ``regions`` regions [rows][``xld``], one a CTA's columns, exchanged by
+    bulk copies: csrc/rnn_fwd.cu) and the warps' slots of the step's xp,
+    the fewest waves; then clusters of 8 before 16; then the fewest rows.
+    None where W resident fits at no rows. Worked out once a shape
+    (:func:`_planned`)."""
+    return _planned(_wide_plan_of, cell, B, Hk, D, slots)
+
+
+def _planned(fn, *args):
+    """``fn(*args[:-1], slots)`` through its cache (``fn`` takes the
+    slots as sorted items), as a fresh dict: the search runs in Python, and
+    at every call it held the card idle before short launches (PERF.md
+    section 6)."""
+    *head, slots = args
+    plan = fn(*head, tuple(sorted(slots.items())))
+    return None if plan is None else dict(plan)
+
+
+@functools.lru_cache(maxsize=4096)
+def _wide_plan_of(cell: str, B: int, Hk: int, D: int, slot_items):
+    slots = dict(slot_items)
     kp = _up(Hk, 32)
     best = None
     for nc, hc in _cluster_sizes(Hk, slots):
         for R in _WIDE_ROWS:
             if _units(R, hc) > _UNITS_WIDE or R > _up(B, 16):
                 break
-            smem = _fwd_smem_bytes(cell, Hk, 2, R, hc, kp, 0, 1)
+            smem = _fwd_smem_bytes(cell, Hk, 2, R, hc, kp, 0, 1, wide=True)
             if smem > _SMEM_LIMIT:
                 break
             plan = {"H": Hk, "nc": nc, "hc": hc, "rows": R, "clusters": -(-B // R), "kc": kp,
                     "resident": True, "wstages": 0, "blocks": 1, "smem": smem,
-                    "slots": slots[nc], "wsplit": False, "wide": True}
+                    "slots": slots[nc], "wsplit": False, "wide": True,
+                    "regions": _fwd_regions(Hk, hc), "xld": hc}
             key = (fwd_waves(plan, D), nc, R)
             if best is None or key < best[0]:
                 best = (key, plan)
@@ -305,7 +357,13 @@ def _cluster_sizes(Hk: int, slots):
 
 def _cluster_plan(cell: str, B: int, Hk: int, D: int, cb: int, slots):
     """:func:`fwd_plan`'s cluster route (4 units a warp, every CTA keeping
-    the whole h row block), or None."""
+    the whole h row block), or None; worked out once a shape."""
+    return _planned(_cluster_plan_of, cell, B, Hk, D, cb, slots)
+
+
+@functools.lru_cache(maxsize=4096)
+def _cluster_plan_of(cell: str, B: int, Hk: int, D: int, cb: int, slot_items):
+    slots = dict(slot_items)
     kp = _up(Hk, 32)
     cands = (16, 32, 64, 128) if cb == 2 else (8, 16, 32, 64)
     plans = []
@@ -370,8 +428,9 @@ def fwd_plan(cell: str, T: int, B: int, H: int, D: int, compute_dtype="bfloat16"
     Large batches (bf16, B >= 256): where that plan keeps W resident and
     takes more than one wave (a CTA of 4 units a warp holds at most 128
     rows at H=256), the large-batch layout (:func:`_wide_plan`: 6 units a
-    warp, W resident beside one h row block; ``wide``) takes over where it
-    needs fewer waves. GRU H=256 B=1024 then takes 160 rows a cluster, 14
+    warp, W resident beside the h row block as ``regions`` regions of
+    ``xld`` columns, one a CTA's, exchanged by bulk copies, and the step's
+    xp; ``wide``) takes over where it needs fewer waves. GRU H=256 B=1024 then takes 160 rows a cluster, 14
     clusters of 8 in one wave (two before). Where W streams (GRU H=1024
     B=1024: 32 rows, five waves) the plan stays the cluster route's: h
     carried beside W through L2 in three waves of 48 rows ran level with
@@ -473,8 +532,13 @@ def rnn_layer_fwd(
     b_hh: torch.Tensor,
     compute_dtype="bfloat16",
     history_in_cdt: bool = False,
+    *,
+    phases=None,
 ) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...], torch.Tensor]:
-    """One recurrent layer over all directions (see the module docstring)."""
+    """One recurrent layer over all directions (see the module docstring).
+    ``phases`` (a timing tool's): an int64 tensor of D * nc * clusters *
+    FWD_PHASE_WORDS on the card, which the instrumented build fills with
+    the time loop's phase times (bf16 compute, W resident)."""
     D, T, B, H, GH = _check_args(cell, xps, mask, w_hh, b_hh)
     dev = xps[0].device
     for name, t in (("xps", xps[-1]), ("mask", mask), ("w_hh", w_hh), ("b_hh", b_hh)):
@@ -493,7 +557,8 @@ def rnn_layer_fwd(
     Hk = kernel_width(H)
     if Hk != H:  # the kernel's width: the zero-padded layer, its results sliced back
         w, b, xs = pad_layer(cell, Hk, w_hh, b_hh, xps)
-        outs, c_hist, h_final = rnn_layer_fwd(cell, xs, mask, w, b, compute_dtype, history_in_cdt)
+        outs, c_hist, h_final = rnn_layer_fwd(cell, xs, mask, w, b, compute_dtype, history_in_cdt,
+                                              phases=phases)
         return (tuple(o[..., :H] for o in outs), tuple(c[..., :H] for c in c_hist),
                 h_final[..., :H])
     hist = cdt if history_in_cdt else torch.float32
@@ -504,6 +569,11 @@ def rnn_layer_fwd(
             f"rnn_layer_fwd: no layout of the forward kernel fits shared memory at {cell} "
             f"H={H} {cdt}; it takes H up to "
             f"{_widest(fwd_plan, cell, T, B, D, cdt, hist, slots)}")
+    if phases is not None and (phases.dtype != torch.int64 or phases.device != dev or
+                               phases.numel() != D * plan["nc"] * plan["clusters"]
+                               * FWD_PHASE_WORDS):
+        raise ValueError("phases must be int64 on the tensors' device, "
+                         f"{D} x {plan['nc'] * plan['clusters']} x {FWD_PHASE_WORDS} words")
     # the kernel reads xp in the compute dtype, as the TPU kernel does
     xs = [_operand(x, cdt) for x in xps]
     w = _operand(w_hh, cdt)
@@ -524,7 +594,7 @@ def rnn_layer_fwd(
     def ptr(ts, i):
         return ts[i].data_ptr() if i < len(ts) else None
 
-    lib = _lib()
+    lib = _lib(() if phases is None else FWD_PHASES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rnn_fwd_launch(
@@ -534,7 +604,7 @@ def rnn_layer_fwd(
             plan["blocks"], int(wsplit), int(plan["wide"]), ptr(xs, 0), ptr(xs, 1),
             m.data_ptr(), w.data_ptr(), None if wpk is None else wpk.data_ptr(), n_pack,
             b.data_ptr(), ptr(outs, 0), ptr(outs, 1), ptr(c_hist, 0), ptr(c_hist, 1),
-            h_final.data_ptr(), stream,
+            h_final.data_ptr(), None if phases is None else phases.data_ptr(), stream,
         )
     if err:
         raise RuntimeError(f"rnn_fwd kernel launch failed: {lib.rnn_fwd_error_string(err).decode()}")

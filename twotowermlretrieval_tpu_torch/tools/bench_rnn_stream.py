@@ -15,7 +15,8 @@ the kernels'), the largest difference from the plain version, and a SHA-256
 of the outputs' bytes, so two checkouts' bits can be compared.
 
     python3 twotowermlretrieval_tpu_torch/tools/bench_rnn_stream.py [CHECKOUT]
-        [--layouts | --phases | --step-phases] [--out FILE] [--device cuda]
+        [--layouts | --phases | --step-phases | --device-times] [--out FILE]
+        [--device cuda]
 
 CHECKOUT: time that checkout's package (default: this one's), so that one
 call on one card can time two trees in turns (another commit unpacked
@@ -37,18 +38,29 @@ in-batch doc tower's bf16 backward) into their launches by torch.profiler's
 device time: the forward's W packing and
 time loop; the backward's operand split, gate recompute, W packing, dh
 chain, weight gradient and fixed-order sum, each the mean over
-``PHASE_CALLS`` calls. ``--step-phases`` instead splits the backward's
-time loop (``STEP_PHASE_SHAPES``, bf16) into the phases of a step, from the
-instrumented build of ``csrc/rnn_bwd.cu`` (``-DRNN_BWD_PHASES``: clock64()
-stamps of CTA thread 0 at block-wide points, a library of its own beside
-the shipped one): its inputs (the staging wait; the large-batch
+``PHASE_CALLS`` calls. ``--step-phases`` instead splits both passes'
+time loops (``STEP_PHASE_SHAPES``, bf16) into the phases of a step, from the
+instrumented builds of ``csrc/rnn_bwd.cu`` and ``csrc/rnn_fwd.cu``
+(``-DRNN_BWD_PHASES``, ``-DRNN_FWD_PHASES``: clock64() stamps of CTA
+thread 0 at block-wide points, libraries of their own beside the shipped
+ones): the backward's inputs (the staging wait; the large-batch
 layout's L2 prefetch and first loads), the gate math, the wait for the
 peers' last product (one row block), the push (the large-batch layout:
 starting its bulk copies), the cluster barrier (the large-batch layout:
-the wait for the peers' copies) and the product,
+the wait for the peers' copies) and the product; the forward's inputs
+(xp and the mask), the product, the wait for the peers' reads of the
+one h row block, the gate math with its history writes, the push (the
+large-batch layout: its bulk copies' start) and the barrier (the
+large-batch layout: the waits for the peers' copies),
 each in us a step, for the plan and for the cluster route forced (the
-plan before the large-batch layout), beside both calls' CUDA-event time;
-this checkout only. ``--device cpu`` runs the plain versions at toy
+plan before the large-batch layout), beside both calls' CUDA-event time
+and the plain call's device time by torch.profiler (taken after the
+phases: a profiling session slows later launches);
+this checkout only. ``--device-times`` instead gives each large-batch
+forward shape of ``SHAPES`` (B >= 256) its call's CUDA-event time beside
+the card's own time of its launches (torch.profiler, taken after the event
+times), so that the host's work before a launch is told apart from the
+kernel's; any checkout. ``--device cpu`` runs the plain versions at toy
 sizes on the host clock: a check of the harness, whose times say nothing
 about a card. Each record
 also gives its plan's waves: ceil(2 x clusters / the clusters of its size
@@ -125,9 +137,15 @@ PHASE_SHAPES = (("fwd", "GRU", 1024, 64, 32, "float32"), ("bwd", "GRU", 1024, 64
                 ("fwd", "GRU", 256, 128, 128, "float32"), ("bwd", "GRU", 256, 128, 128, "float32"),
                 ("bwd", "GRU", 256, 1024, 128, "bfloat16"))
 PHASE_CALLS = 5
-# --step-phases: (cell, H, B, T) of the backward at bf16 with a bf16 history,
-# the reference towers' training query shape and the in-batch doc tower's
-STEP_PHASE_SHAPES = (("GRU", 256, 64, 32), ("GRU", 256, 1024, 128))
+# --step-phases: (pass, cell, H, B, T) at bf16 with a bf16 history: the
+# backward at the reference towers' training query shape and the in-batch
+# doc tower's; the forward at the served query (B=16), the training query
+# (B=64), the export and in-batch doc tower (B=1024 T=128), and the other
+# cells at the export batch
+STEP_PHASE_SHAPES = (("bwd", "GRU", 256, 64, 32), ("bwd", "GRU", 256, 1024, 128),
+                     ("fwd", "GRU", 256, 16, 32), ("fwd", "GRU", 256, 64, 32),
+                     ("fwd", "GRU", 256, 1024, 128), ("fwd", "RNN", 256, 1024, 32),
+                     ("fwd", "LSTM", 256, 1024, 32))
 CPU_SHAPES = (("fwd", "GRU", 24, 5, 6, "bfloat16"), ("fwd", "LSTM", 40, 3, 4, "float32"),
               ("bwd", "GRU", 24, 5, 6, "bfloat16"), ("bwd", "RNN", 16, 3, 4, "bfloat16"),
               ("fwd", "GRU", 512, 3, 2, "bfloat16"), ("bwd", "GRU", 1024, 3, 2, "bfloat16"))
@@ -356,28 +374,29 @@ def _fwd_layouts(rnn_scan, cell, B, cdt, slots, base):
 
 
 def _wide_layouts(rnn_scan, cell, B, slots, base):
-    """The forward's large-batch layouts --layouts times (bf16, W resident;
-    a checkout that has them): per cluster size, the fewest and the most
-    rows a CTA of the large-batch units holds at that size's fewest waves,
-    each beside two or one h row blocks where it fits."""
+    """The forward's large-batch layouts --layouts times (bf16, W resident,
+    the h row block as one region a CTA; a checkout that has them): per
+    cluster size, every row count a CTA of the large-batch units holds
+    whose clusters take that size's fewest waves."""
     Hk = base["H"]
     kp = -(-Hk // 32) * 32
     out = []
     for nc, hc in rnn_scan._cluster_sizes(Hk, slots):
         rows = [R for R in range(16, 257, 16)
-                if _units(R, hc) <= rnn_scan._UNITS_WIDE and R <= -(-B // 16) * 16]
+                if _units(R, hc) <= rnn_scan._UNITS_WIDE and R <= -(-B // 16) * 16
+                and rnn_scan._fwd_smem_bytes(cell, Hk, 2, R, hc, kp, 0, 1, wide=True)
+                <= rnn_scan._SMEM_LIMIT]
         if not rows:
             continue
         waves = {R: -(-2 * -(-B // R) // slots[nc]) for R in rows}
-        least = min(waves.values())
-        at = [R for R in rows if waves[R] == least]
-        for R in sorted({at[0], at[-1]}):
-            for blocks in (2, 1):
-                smem = rnn_scan._fwd_smem_bytes(cell, Hk, 2, R, hc, kp, 0, blocks)
-                if smem <= rnn_scan._SMEM_LIMIT:
-                    out.append(dict(base, nc=nc, hc=hc, rows=R, clusters=-(-B // R),
-                                    slots=slots[nc], wsplit=False, wide=True, kc=kp,
-                                    resident=True, wstages=0, blocks=blocks, smem=smem))
+        for R in rows:
+            if waves[R] == min(waves.values()):
+                out.append(dict(base, nc=nc, hc=hc, rows=R, clusters=-(-B // R),
+                                slots=slots[nc], wsplit=False, wide=True, kc=kp,
+                                resident=True, wstages=0, blocks=1,
+                                regions=rnn_scan._fwd_regions(Hk, hc), xld=hc,
+                                smem=rnn_scan._fwd_smem_bytes(cell, Hk, 2, R, hc, kp, 0, 1,
+                                                              wide=True)))
     return out
 
 
@@ -400,46 +419,98 @@ def _bwd_wide_layouts(rnn_scan, cell, B, hist, slots, base):
     return out
 
 
-def _step_phases(torch, rnn_scan, dev, card):
-    """STEP_PHASE_SHAPES' backward time loops split into a step's phases
-    (module docstring), for the plan and the cluster route forced."""
+def _device_ms(torch, call, calls=PHASE_CALLS):
+    """The card's time of one call: torch.profiler's device time of its
+    launches, the mean over ``calls`` calls (the CUDA-event time of a call
+    also holds the host's work before its launches, where the card waits)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / calls
+
+
+def _device_times(torch, rnn_scan, dev, card):
+    """--device-times (module docstring)."""
     time_ms = _timer(torch, dev)
-    names = rnn_scan.BWD_PHASE_NAMES
-    recs = []
-    for seed, (cell, H, B, T) in enumerate(STEP_PHASE_SHAPES):
+    shapes = [(seed, s) for seed, s in enumerate(SHAPES) if s[0] == "fwd" and s[3] >= 256
+              and len(s) == 6 and s[5] == "bfloat16"]
+    calls, recs = [], []
+    for seed, (_, cell, H, B, T, cdt) in shapes:
+        xps, mask, w_hh, b_hh = _inputs(torch, cell, H, B, T, cdt, dev, seed)
+
+        def call(_a=(cell, xps, mask, w_hh, b_hh, cdt, True)):
+            return rnn_scan.rnn_layer_fwd(*_a)
+        with torch.no_grad():
+            rec = {"pass": "fwd", "cell": cell, "H": H, "B": B, "T": T, "compute": cdt,
+                   "ms": time_ms(call), "card": card}
+        calls.append(call)
+        recs.append(rec)
+    for rec, call in zip(recs, calls):  # a profiling session slows every later launch
+        with torch.no_grad():
+            rec["device_ms"] = _device_ms(torch, call)
+        print(json.dumps(rec), flush=True)
+    return recs
+
+
+def _step_phases(torch, rnn_scan, dev, card):
+    """STEP_PHASE_SHAPES' time loops split into a step's phases (module
+    docstring), for the plan and for the cluster route forced."""
+    time_ms = _timer(torch, dev)
+    recs, later = [], []
+    for seed, (which, cell, H, B, T) in enumerate(STEP_PHASE_SHAPES):
         cdt = "bfloat16"
         xps, mask, w_hh, b_hh = _inputs(torch, cell, H, B, T, cdt, dev, seed)
-        outs, c_hist, _ = rnn_scan.rnn_layer_fwd_reference(cell, xps, mask, w_hh, b_hh, cdt,
-                                                           True)
-        gen = torch.Generator(device=dev).manual_seed(seed + 100)
-        douts = [torch.randn((T, B, H), generator=gen, device=dev).to(outs[0].dtype)
-                 for _ in range(2)]
-        d_hfinal = torch.randn((2, B, H), generator=gen, device=dev)
-        bargs = (cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal, cdt)
-        slots = rnn_scan.cluster_slots("bwd", cell, cdt, torch.bfloat16, dev)
-        wide_fn = rnn_scan._bwd_wide_plan
+        if which == "fwd":
+            names, nwords = rnn_scan.FWD_PHASE_NAMES, rnn_scan.FWD_PHASE_WORDS
+            plan_fn, wide_name = rnn_scan.fwd_plan, "_wide_plan"
+            fargs = (cell, xps, mask, w_hh, b_hh, cdt, True)
+
+            def call(phases=None, _a=fargs):
+                return rnn_scan.rnn_layer_fwd(*_a, phases=phases)
+        else:
+            names, nwords = rnn_scan.BWD_PHASE_NAMES, rnn_scan.BWD_PHASE_WORDS
+            plan_fn, wide_name = rnn_scan.bwd_plan, "_bwd_wide_plan"
+            outs, c_hist, _ = rnn_scan.rnn_layer_fwd_reference(cell, xps, mask, w_hh, b_hh,
+                                                               cdt, True)
+            gen = torch.Generator(device=dev).manual_seed(seed + 100)
+            douts = [torch.randn((T, B, H), generator=gen, device=dev).to(outs[0].dtype)
+                     for _ in range(2)]
+            d_hfinal = torch.randn((2, B, H), generator=gen, device=dev)
+            bargs = (cell, xps, mask, w_hh, b_hh, outs, c_hist, douts, d_hfinal, cdt)
+
+            def call(phases=None, _a=bargs):
+                if phases is None:
+                    return rnn_scan.rnn_layer_bwd(*_a)
+                return rnn_scan._bwd_call(*_a, split=False, phases=phases)
+        slots = rnn_scan.cluster_slots(which, cell, cdt, torch.bfloat16, dev)
+        wide_fn = getattr(rnn_scan, wide_name)
         for route in ("plan", "cluster route"):
             if route == "cluster route":
-                rnn_scan._bwd_wide_plan = lambda *a, **k: None
+                setattr(rnn_scan, wide_name, lambda *a, **k: None)
             try:
-                plan = rnn_scan.bwd_plan(cell, T, B, H, 2, cdt, torch.bfloat16, slots)
-                buf = torch.zeros(2 * plan["nc"] * plan["clusters"] * rnn_scan.BWD_PHASE_WORDS,
+                plan = plan_fn(cell, T, B, H, 2, cdt, torch.bfloat16, slots)
+                buf = torch.zeros(2 * plan["nc"] * plan["clusters"] * nwords,
                                   dtype=torch.int64, device=dev)
                 with torch.no_grad():
-                    ms = time_ms(lambda: rnn_scan.rnn_layer_bwd(*bargs))
-                    ms_phased = time_ms(lambda: rnn_scan._bwd_call(*bargs, split=False,
-                                                                   phases=buf))
+                    ms = time_ms(call)
+                    ms_phased = time_ms(lambda: call(buf))
                     buf.zero_()
-                    rnn_scan._bwd_call(*bargs, split=False, phases=buf)
+                    call(buf)
                     torch.cuda.synchronize()
             finally:
-                rnn_scan._bwd_wide_plan = wide_fn
-            words = buf.view(-1, rnn_scan.BWD_PHASE_WORDS).double().cpu()
+                setattr(rnn_scan, wide_name, wide_fn)
+            words = buf.view(-1, nwords).double().cpu()
             cycles, loop, ns = words[:, :len(names)], words[:, len(names)], words[:, -1]
             ns_a_cycle = ns / loop  # each CTA's own clock over its loop
             us = (cycles * ns_a_cycle[:, None]).mean(dim=0) / T / 1e3
-            rec = {"cell": cell, "H": H, "B": B, "T": T, "compute": cdt, "history": cdt,
-                   "route": route, "plan": {k: plan[k] for k in _PLAN_KEYS if k in plan},
+            rec = {"pass": which, "cell": cell, "H": H, "B": B, "T": T, "compute": cdt,
+                   "history": cdt, "route": route,
+                   "plan": {k: plan[k] for k in _PLAN_KEYS if k in plan},
                    "waves": -(-2 * plan["clusters"] // plan["slots"]), "ms": ms,
                    "ms_instrumented": ms_phased,
                    "loop_us_a_step": float(ns.mean() / T / 1e3),
@@ -447,8 +518,18 @@ def _step_phases(torch, rnn_scan, dev, card):
                    "phases_share": {n: float(v) for n, v in
                                     zip(names, (cycles / loop[:, None]).mean(dim=0))},
                    "sm_ghz": float((loop / ns).mean()), "card": card}
-            print(json.dumps(rec), flush=True)
             recs.append(rec)
+            later.append((rec, call, wide_name, wide_fn, route))
+    # the device times last: a profiling session slows every later launch
+    for rec, call, wide_name, wide_fn, route in later:
+        if route == "cluster route":
+            setattr(rnn_scan, wide_name, lambda *a, **k: None)
+        try:
+            with torch.no_grad():
+                rec["device_ms"] = _device_ms(torch, call)
+        finally:
+            setattr(rnn_scan, wide_name, wide_fn)
+        print(json.dumps(rec), flush=True)
     return recs
 
 
@@ -530,7 +611,8 @@ def _bwd_f32_layouts(rnn_scan, cell, B, hist, slots, base):
 
 
 _PLAN_KEYS = ("nc", "hc", "rows", "clusters", "kc", "resident", "wstages", "blocks", "stages",
-              "xc", "kw", "nsplit", "smem", "slots", "wsplit", "wide", "db_rows", "khalf")
+              "xc", "kw", "nsplit", "smem", "slots", "wsplit", "wide", "db_rows", "khalf",
+              "regions", "xld")
 
 
 def _bwd_smem_by_rows(rnn_scan, cell, plan, cb, hb):
@@ -554,6 +636,7 @@ def main(argv=None) -> int:
     ap.add_argument("--layouts", action="store_true")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--step-phases", action="store_true")
+    ap.add_argument("--device-times", action="store_true")
     ap.add_argument("--out")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -571,11 +654,12 @@ def main(argv=None) -> int:
                               check=True).stdout.strip()
     else:
         card = "the host (plain versions)"
-    if args.phases or args.step_phases:
+    if args.phases or args.step_phases or args.device_times:
         if dev.type != "cuda":
-            raise SystemExit("--phases and --step-phases read the card's own time: they need a "
-                             "CUDA device")
-        recs = (_phases if args.phases else _step_phases)(torch, rnn_scan, dev, card)
+            raise SystemExit("--phases, --step-phases and --device-times read the card's own "
+                             "time: they need a CUDA device")
+        mode = _phases if args.phases else _step_phases if args.step_phases else _device_times
+        recs = mode(torch, rnn_scan, dev, card)
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(recs, indent=1))
