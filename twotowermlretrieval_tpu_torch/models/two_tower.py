@@ -21,6 +21,7 @@ from twotowermlretrieval_tpu_torch.models.transformer import (
     init_transformer_encoder,
     transformer_encode,
 )
+from twotowermlretrieval_tpu_torch.utils.profiling import annotate
 from twotowermlretrieval_tpu_torch.utils.pytree import unflatten_params
 
 
@@ -74,15 +75,17 @@ def encode_query(params, tokens, lengths, spec: TwoTowerSpec, *, train=False,
     """The query tower; ``model_group``: the process group of the spec's
     model axis, where ``params`` holds this rank's shards."""
     encode_fn, sub = spec._encode_fn()
-    return encode_fn(params["query"], tokens, lengths, sub, train=train, generator=generator,
-                     model_group=model_group)
+    with annotate("ttr.tower.query"):
+        return encode_fn(params["query"], tokens, lengths, sub, train=train,
+                         generator=generator, model_group=model_group)
 
 
 def encode_document(params, tokens, lengths, spec: TwoTowerSpec, *, train=False,
                     generator=None, model_group=None) -> torch.Tensor:
     encode_fn, sub = spec._encode_fn()
-    return encode_fn(params["doc"], tokens, lengths, sub, train=train, generator=generator,
-                     model_group=model_group)
+    with annotate("ttr.tower.doc"):
+        return encode_fn(params["doc"], tokens, lengths, sub, train=train,
+                         generator=generator, model_group=model_group)
 
 
 def two_tower_forward(

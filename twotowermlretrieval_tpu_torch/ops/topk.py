@@ -59,6 +59,7 @@ import torch
 
 from twotowermlretrieval_tpu_torch.ops import _build
 from twotowermlretrieval_tpu_torch.utils.dtypes import matmul_split
+from twotowermlretrieval_tpu_torch.utils.profiling import annotate
 
 NEG_INF = float(-3.0e38)  # fits f32; safer than -inf for max/compare chains
 _SEG = 128  # covering-segment width; int8 index files of the JAX package use it too
@@ -748,16 +749,17 @@ def _segmax_phase2(segmax_sb, q, docs_padded, n_valid, k, *, scales=None, sc_ful
                    sort_candidates=False):
     """Pick the k winning segments per row, gather or re-score them (times
     the per-row dequant ``scales`` of the int8 corpus), final top-k."""
-    S = segmax_sb.shape[0]
-    k_seg = min(k, S)
-    seg_idx = _select_segments(segmax_sb.T, k_seg, sort_candidates)  # [B, k_seg]
-    if sc_full is not None:
-        scores = _gather_cached_scores(sc_full, seg_idx, _SEG)
-    else:
-        scores = _rescore(q, docs_padded, seg_idx)
-    if scales is not None:
-        scores = scores * scales.reshape(S, _SEG)[seg_idx]
-    return _candidate_union_topk(scores, seg_idx, _SEG, n_valid, k)
+    with annotate("ttr.search.phase2"):
+        S = segmax_sb.shape[0]
+        k_seg = min(k, S)
+        seg_idx = _select_segments(segmax_sb.T, k_seg, sort_candidates)  # [B, k_seg]
+        if sc_full is not None:
+            scores = _gather_cached_scores(sc_full, seg_idx, _SEG)
+        else:
+            scores = _rescore(q, docs_padded, seg_idx)
+        if scales is not None:
+            scores = scores * scales.reshape(S, _SEG)[seg_idx]
+        return _candidate_union_topk(scores, seg_idx, _SEG, n_valid, k)
 
 
 def s8_phase2(segmax_sb, cache, q_i8, q_scale, doc_values, seg_scales, k, n_valid, seg,
@@ -773,21 +775,22 @@ def s8_phase2(segmax_sb, cache, q_i8, q_scale, doc_values, seg_scales, k, n_vali
     re-scores them under the same quantized metric, dequantizes in the JAX
     package's order (``scores * seg_scale * q_scale``) and masks by
     ``n_valid``."""
-    S = segmax_sb.shape[0]
-    s_valid = (n_valid + seg - 1) // seg
-    maxima = segmax_sb * seg_scales[:, None]  # [S, B]
-    rows = torch.arange(S, device=maxima.device)[:, None]
-    maxima = torch.where(rows < s_valid, maxima, torch.full_like(maxima, NEG_INF))
-    k_seg = min(k + 1, S)
-    seg_idx = _select_segments(maxima.T, k_seg, sort_candidates)  # [B, k_seg]
-    if cache is not None:
-        scores_f = _gather_cached_scores(cache, seg_idx, seg)
-    else:
-        blocks = _winning_rows(doc_values, seg_idx, seg)  # [B, k_seg*seg, H] int8
-        scores_f = _int_matmul(blocks, q_i8[:, :, None])[..., 0]
-        scores_f = scores_f.reshape(q_i8.shape[0], k_seg, seg)
-    scores = scores_f * seg_scales[seg_idx][..., None] * q_scale[:, :, None]
-    return _candidate_union_topk(scores, seg_idx, seg, n_valid, k)
+    with annotate("ttr.search.phase2"):
+        S = segmax_sb.shape[0]
+        s_valid = (n_valid + seg - 1) // seg
+        maxima = segmax_sb * seg_scales[:, None]  # [S, B]
+        rows = torch.arange(S, device=maxima.device)[:, None]
+        maxima = torch.where(rows < s_valid, maxima, torch.full_like(maxima, NEG_INF))
+        k_seg = min(k + 1, S)
+        seg_idx = _select_segments(maxima.T, k_seg, sort_candidates)  # [B, k_seg]
+        if cache is not None:
+            scores_f = _gather_cached_scores(cache, seg_idx, seg)
+        else:
+            blocks = _winning_rows(doc_values, seg_idx, seg)  # [B, k_seg*seg, H] int8
+            scores_f = _int_matmul(blocks, q_i8[:, :, None])[..., 0]
+            scores_f = scores_f.reshape(q_i8.shape[0], k_seg, seg)
+        scores = scores_f * seg_scales[seg_idx][..., None] * q_scale[:, :, None]
+        return _candidate_union_topk(scores, seg_idx, seg, n_valid, k)
 
 
 # ---------------------------------------------------------------------------

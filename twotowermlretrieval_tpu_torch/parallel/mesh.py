@@ -39,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from twotowermlretrieval_tpu_torch.utils.dtypes import resolve_device
+from twotowermlretrieval_tpu_torch.utils.profiling import annotate
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -219,7 +220,8 @@ def put_global(array: np.ndarray, mesh: Optional[Mesh], device, axis: int = 0) -
     a mesh, the whole array."""
     index = [slice(None)] * array.ndim
     index[axis] = local_rows(array.shape[axis], mesh)
-    return torch.from_numpy(np.ascontiguousarray(array[tuple(index)])).to(device)
+    with annotate("ttr.data.copy"):
+        return torch.from_numpy(np.ascontiguousarray(array[tuple(index)])).to(device)
 
 
 def replicate_to_host(tree, mesh: Optional[Mesh] = None):

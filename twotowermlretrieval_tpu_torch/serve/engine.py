@@ -51,7 +51,7 @@ from twotowermlretrieval_tpu_torch.serve.index import (
 )
 from twotowermlretrieval_tpu_torch.serve.inferencer import QueryInferencer
 from twotowermlretrieval_tpu_torch.train.artifacts import load_artifacts
-from twotowermlretrieval_tpu_torch.utils.profiling import TraceWindow
+from twotowermlretrieval_tpu_torch.utils.profiling import TraceWindow, annotate
 
 
 def _fused_encode_search(params, tokens, lengths, spec, k, index: RetrievalIndex):
@@ -243,13 +243,17 @@ class SearchEngine:
         rows = max(bucket, 16)
         padded = queries + [queries[0]] * (rows - len(queries))
         encoder = self.inferencer.encoder
-        tokens, lengths = self.inferencer.tokenizer.encode_batch(padded, encoder.max_query_len)
+        tokenizer = self.inferencer.tokenizer
+        with annotate("ttr.search.tokenize"):
+            tokens, lengths = tokenizer.encode_batch(padded, encoder.max_query_len)
         kk = min(fanout, self.index.num_docs)
         with self._device_lock, torch.inference_mode():
             buf = _fused_encode_search(
                 encoder.params, *encoder.tensors(tokens, lengths),
                 spec=self.inferencer.spec, k=kk, index=self.index,
-            ).cpu().numpy()
+            )
+            with annotate("ttr.search.fetch"):
+                buf = buf.cpu().numpy()
         scores, ids = buf[:, :kk], buf[:, kk:].view(np.int32)
         return [
             (scores[i, : r["fanout"]], ids[i, : r["fanout"]])
@@ -327,14 +331,15 @@ class SearchEngine:
         dense_scores, doc_ids = dense_scores[valid], doc_ids[valid]
         if doc_ids.size == 0:
             return []
-        query_tfidf = self.tfidf_vectorizer.transform([query])
-        if query_tfidf.nnz > 0:
-            doc_rows = self.tfidf_matrix[doc_ids]
-            tfidf_scores = np.nan_to_num(cosine_similarity(query_tfidf, doc_rows)[0])
-        else:
-            tfidf_scores = np.zeros(len(doc_ids))
-        final = hybrid_blend(dense_scores, tfidf_scores, alpha)
-        order = np.argsort(final)[::-1][:top_k]
+        with annotate("ttr.search.blend"):
+            query_tfidf = self.tfidf_vectorizer.transform([query])
+            if query_tfidf.nnz > 0:
+                doc_rows = self.tfidf_matrix[doc_ids]
+                tfidf_scores = np.nan_to_num(cosine_similarity(query_tfidf, doc_rows)[0])
+            else:
+                tfidf_scores = np.zeros(len(doc_ids))
+            final = hybrid_blend(dense_scores, tfidf_scores, alpha)
+            order = np.argsort(final)[::-1][:top_k]
         return [
             {
                 "doc": self.documents[doc_ids[i]],

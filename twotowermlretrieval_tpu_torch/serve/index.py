@@ -62,6 +62,7 @@ from twotowermlretrieval_tpu_torch.parallel.topk import (
     shard_corpus_s8,
 )
 from twotowermlretrieval_tpu_torch.utils.dtypes import resolve_device, torch_dtype
+from twotowermlretrieval_tpu_torch.utils.profiling import annotate
 
 _SUBLANE = 8  # query batches are padded to a multiple of this
 
@@ -192,18 +193,20 @@ class RetrievalIndex:
         host fetch. The int8 path quantizes the f32 queries itself. With a
         mesh ``q`` is on its lead device, and so are the results."""
         k = min(k, self.num_docs)
-        if self.ivf is not None and self.mesh is not None:
-            return distributed_ivf_search(q, self.ivf, k=k, nprobe=self.nprobe, mesh=self.mesh)
-        if self.ivf is not None:
-            return ivf_search(q, self.ivf, k=k, nprobe=self.nprobe)
-        if self.mesh is not None:
-            search = distributed_topk_s8 if self.quantized else distributed_topk
-            args = (self._docs, self._scales) if self.quantized else (self._docs,)
-            return search(q, *args, k=k, mesh=self.mesh, n_valid=self._n_valid,
-                          use_kernel=self.kernel_on(), phase2=self.phase2,
-                          sort_candidates=self.sort_candidates)
-        variant = self.phase2 if self.kernel_on() else "two_phase"
-        return self._search_variant(q, k, variant, self.sort_candidates)
+        with annotate("ttr.search.scan"):
+            if self.ivf is not None and self.mesh is not None:
+                return distributed_ivf_search(q, self.ivf, k=k, nprobe=self.nprobe,
+                                              mesh=self.mesh)
+            if self.ivf is not None:
+                return ivf_search(q, self.ivf, k=k, nprobe=self.nprobe)
+            if self.mesh is not None:
+                search = distributed_topk_s8 if self.quantized else distributed_topk
+                args = (self._docs, self._scales) if self.quantized else (self._docs,)
+                return search(q, *args, k=k, mesh=self.mesh, n_valid=self._n_valid,
+                              use_kernel=self.kernel_on(), phase2=self.phase2,
+                              sort_candidates=self.sort_candidates)
+            variant = self.phase2 if self.kernel_on() else "two_phase"
+            return self._search_variant(q, k, variant, self.sort_candidates)
 
     def _search_variant(self, q: torch.Tensor, k: int, phase2: str, sort_candidates: bool):
         kw = dict(k=k, n_valid=self._n_valid)

@@ -99,7 +99,7 @@ from twotowermlretrieval_tpu_torch.train.train_step import (
     merge_params,
 )
 from twotowermlretrieval_tpu_torch.utils.dtypes import resolve_device
-from twotowermlretrieval_tpu_torch.utils.profiling import trace
+from twotowermlretrieval_tpu_torch.utils.profiling import annotate, trace
 
 # The data-position tag saved with checkpoints: it names the group yield
 # order of packed_groups (per-width buffering), the JAX driver's. A resume
@@ -136,23 +136,35 @@ def packed_groups(batches, K: int) -> Iterator[Tuple[np.ndarray, int]]:
     """Stack K same-shape packed buffers into ([k, B, W] array,
     real-example count) pairs, buffering per width as the JAX driver does,
     so the yield order (and so the order of the steps) is the same. The
-    count excludes repeat-padded rows."""
+    count excludes repeat-padded rows. A group's host work (drawing and
+    packing its batches, the stack) is one ``ttr.data.pack`` span, closed
+    before the group is handed on; one more finds the stream's end."""
     pending: Dict[tuple, list] = {}
 
     def flush(buf):
         stack = np.stack(buf)
         return stack, int(stack[:, :, -1].sum())  # last column = example_mask
 
-    for b in batches:
-        p = pack_batch(b)
-        buf = pending.setdefault(p.shape, [])
-        buf.append(p)
-        if len(buf) == K:
-            yield flush(buf)
-            pending[p.shape] = []
+    batches = iter(batches)
+    while True:
+        with annotate("ttr.data.pack"):
+            group = None
+            for b in batches:
+                p = pack_batch(b)
+                buf = pending.setdefault(p.shape, [])
+                buf.append(p)
+                if len(buf) == K:
+                    group = flush(buf)
+                    pending[p.shape] = []
+                    break
+        if group is None:
+            break
+        yield group
     for buf in pending.values():
         if buf:
-            yield flush(buf)
+            with annotate("ttr.data.pack"):
+                group = flush(buf)
+            yield group
 
 
 def _skip_group_batches(groups, n: int):

@@ -67,6 +67,7 @@ from twotowermlretrieval_tpu_torch.models.two_tower import (
     encode_document,
     encode_query,
 )
+from twotowermlretrieval_tpu_torch.utils.profiling import annotate
 from twotowermlretrieval_tpu_torch.utils.pytree import named_leaves, tree_map
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -309,14 +310,16 @@ def make_grad_step(spec: TwoTowerSpec, config, axis_name=None, model_group=None)
             generator = _fold_in(generator, axis_index(axis_name), rank_gens)
         with torch.enable_grad():
             params = merge_params(state.trainable, state.frozen)
-            loss, sums, den = _forward_and_metrics(params, batch, spec, config, generator,
-                                                   train=True, axis_name=axis_name,
-                                                   model_group=model_group)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+            with annotate("ttr.train.forward"):
+                loss, sums, den = _forward_and_metrics(params, batch, spec, config, generator,
+                                                       train=True, axis_name=axis_name,
+                                                       model_group=model_group)
+            with annotate("ttr.train.backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
         loss = loss.detach()
         if axis_name is not None:
-            with torch.no_grad():
+            with torch.no_grad(), annotate("ttr.train.allreduce"):
                 # one all-reduce a step: the gradients, the per-rank loss
                 # (scaled by D, see weighted_mean), the metric sums and den
                 names = list(sums)
@@ -352,20 +355,22 @@ def make_train_step(spec: TwoTowerSpec, config, axis_name=None, model_group=None
     grad_step = make_grad_step(spec, config, axis_name, model_group)
 
     def train_step(state: TrainState, batch: Batch):
-        named = named_leaves(state.trainable)
-        names = [n for n, _ in named]
-        leaves = [p for _, p in named]
-        model_sharded = (None if model_group is None or rules is None
-                         else [rules(n, p) is not None for n, p in named])
-        grads, metrics = grad_step(state, batch)
-        norms = bool(getattr(config, "log_param_stats", False))
-        hists = bool(getattr(config, "log_param_histograms", False))
-        if norms or hists:  # of the params before this step's update, as JAX's
-            _add_param_stats(metrics, names, grads, leaves, hists, norms, model_group,
-                             model_sharded)
-        metrics["grad_norm"] = apply_clip_and_adam(state, grads, config, model_group,
-                                                   model_sharded)
-        state.step += 1
+        with annotate("ttr.train.step"):
+            named = named_leaves(state.trainable)
+            names = [n for n, _ in named]
+            leaves = [p for _, p in named]
+            model_sharded = (None if model_group is None or rules is None
+                             else [rules(n, p) is not None for n, p in named])
+            grads, metrics = grad_step(state, batch)
+            norms = bool(getattr(config, "log_param_stats", False))
+            hists = bool(getattr(config, "log_param_histograms", False))
+            with annotate("ttr.train.optimizer"):
+                if norms or hists:  # of the params before this step's update, as JAX's
+                    _add_param_stats(metrics, names, grads, leaves, hists, norms, model_group,
+                                     model_sharded)
+                metrics["grad_norm"] = apply_clip_and_adam(state, grads, config, model_group,
+                                                           model_sharded)
+            state.step += 1
         return state, metrics
 
     return train_step

@@ -1,5 +1,5 @@
-"""Tracing and step timing: the port of the JAX package's
-``utils/profiling.py`` on ``torch.profiler``.
+"""Tracing: the port of the JAX package's ``utils/profiling.py`` on
+``torch.profiler``.
 
 - :func:`trace`: a context manager around ``torch.profiler.profile`` that
   records CPU activity, plus CUDA activity (CUPTI: every kernel on the card,
@@ -7,7 +7,10 @@
   present, and writes a Chrome/Kineto trace (``<host>_<pid>.<ts>.pt.trace.json``)
   under ``log_dir``: open it in Perfetto or ``chrome://tracing``, no
   TensorBoard needed;
-- :func:`annotate`: a named region inside a trace (``record_function``);
+- :func:`annotate`: the program's span, a named region inside a trace
+  (``record_function``) while a ``torch.profiler`` session records, and a
+  shared no-op context otherwise. The port's spans are named ``ttr.*``
+  (the table in ``PERF.md`` §3 says where each opens);
 - :class:`TraceWindow`: a trace spanning the first ``n`` events of a
   workload (the server's live searches, each on a request thread of its
   own). A ``torch.profiler`` session belongs to the thread that started
@@ -15,11 +18,6 @@
   for every thread's CPU operations (``profile_all_threads``, where the
   installed torch has it; CUDA activity is the whole process's in any
   case);
-- :class:`StepTimer`: host-side per-step timing with a dispatch/blocked
-  split. ``dispatch_ms`` is the time to enqueue the step (host work),
-  ``blocked_ms`` the time the host then waits for the card
-  (``torch.cuda.synchronize``; nothing on the CPU, where a step runs
-  synchronously and all of it counts as dispatch);
 - :func:`trace_summary`: what a written trace says of the card: the device
   operations with the most total time, the busy share of the window (the
   union of device intervals over the trace's span) and the longest idle
@@ -32,11 +30,11 @@ import contextlib
 import json
 import queue
 import threading
-import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # the Kineto trace's categories of work on the card
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -74,8 +72,22 @@ def trace(log_dir: str):
         _stop(prof)
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named region inside a trace."""
+    """A named span: ``with annotate("ttr.train.step"): ...``.
+
+    While no ``torch.profiler`` session records, one check of a flag and
+    the shared no-op context, nothing else. While one records, a
+    ``record_function``, so the span shares the trace's clock with the
+    card's kernels and the runtime calls that launched them. The flag is
+    the process's, not the thread's: the span also records on the threads
+    of a session that profiles every thread (``TraceWindow``) and on the
+    autograd engine's thread, which inherits the caller's profiler state.
+    """
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
     return torch.profiler.record_function(name)
 
 
@@ -187,57 +199,6 @@ class TraceWindow:
             print(f"profiler: trace written to {self._dir}", flush=True)
         except Exception as e:  # noqa: BLE001 — never fail the workload
             print(f"profiler: stop failed ({type(e).__name__}: {e})", flush=True)
-
-
-def _cuda_device(obj) -> Optional[torch.device]:
-    """The device of the first CUDA tensor in ``obj`` (nested tuples,
-    lists and dict values), or None."""
-    if isinstance(obj, torch.Tensor):
-        return obj.device if obj.device.type == "cuda" else None
-    items = obj.values() if isinstance(obj, dict) else obj if isinstance(obj, (tuple, list)) \
-        else ()
-    return next((d for d in map(_cuda_device, items) if d is not None), None)
-
-
-class StepTimer:
-    """Host-side dispatch/blocked timing of a step that launches work on
-    the card asynchronously."""
-
-    def __init__(self, window: int = 100):
-        self.window = window
-        self.dispatch_ms: List[float] = []
-        self.blocked_ms: List[float] = []
-
-    def run(self, fn, *args, block_on=None):
-        """Call ``fn(*args)``; returns its outputs. ``block_on``: the
-        tensors whose device to wait for (default: the outputs)."""
-        t0 = time.perf_counter()
-        out = fn(*args)
-        t1 = time.perf_counter()
-        dev = _cuda_device(block_on if block_on is not None else out)
-        if dev is not None:
-            torch.cuda.synchronize(dev)
-        t2 = time.perf_counter()
-        self.dispatch_ms.append((t1 - t0) * 1000)
-        self.blocked_ms.append((t2 - t1) * 1000)
-        if len(self.dispatch_ms) > self.window:
-            self.dispatch_ms.pop(0)
-            self.blocked_ms.pop(0)
-        return out
-
-    def summary(self) -> Dict[str, float]:
-        import numpy as np
-
-        if not self.dispatch_ms:
-            return {}
-        d, b = np.asarray(self.dispatch_ms), np.asarray(self.blocked_ms)
-        return {
-            "dispatch_ms_p50": float(np.percentile(d, 50)),
-            "blocked_ms_p50": float(np.percentile(b, 50)),
-            "step_ms_p50": float(np.percentile(d + b, 50)),
-            "step_ms_p99": float(np.percentile(d + b, 99)),
-            "host_bound_fraction": float(d.sum() / max((d + b).sum(), 1e-9)),
-        }
 
 
 def trace_files(log_dir) -> List[Path]:
