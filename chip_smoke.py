@@ -25,8 +25,8 @@
    triplets through the port's training driver (the function behind
    ``ttr-torch-train`` after its parquet reading), and checks: the first
    step on the card against the CPU (plain versions) within a stated
-   envelope, a finite loss at every step, exactly 4 backward launches per
-   step, a bit-exact checkpoint round trip on the card, and that the
+   envelope, a finite loss at every step, exactly 4 backward launches and 2
+   clip-and-Adam launches per step, a bit-exact checkpoint round trip on the card, and that the
    exported directory serves. Prints the steady steps/s and examples/s.
    Then the same configuration at HIDDEN_DIM 150, a width off the kernels'
    multiples: its first step against the CPU and an export of a small
@@ -148,7 +148,14 @@ tiles logged, two calls held bit-identical and timed beside
 ``torch.nn.functional.scaled_dot_product_attention`` as a yardstick, and
 at f32 compute (the split route) at the same training and serving shapes,
 at hd=64 T=512 and with bf16 inputs, each beside SDPA on the same inputs
-(TF32 off), the bf16 route at its shape and its bound. Step 5
+(TF32 off), the bf16 route at its shape and its bound; and the clip and
+Adam (``csrc/adam.cu``, ``check_adam``) at the GRU towers' trainable leaves
+(``configs/msmarco_inbatch.json``, the table frozen) and config 5's (both
+400,000 x 100 tables trainable), 3 updates through the kernel against 3
+through the plain loop on the card from the same state and gradients:
+every bit of the params and moments equal below the clip, within
+ADAM_RTOL / ADAM_ATOL above it, 2 launches an update, timed beside the
+loop against its bytes bound. Step 5
 serves a second time as ``ttr-torch-serve --storage-dtype int8`` starts
 it: the s8 scan kernel on every dense search, the results against the
 port's int8 engine on the CPU and, bit for bit, against the two-phase path
@@ -293,6 +300,16 @@ STEP_GRAD_REL = 2e-2
 # and must fall outside it.
 GRU_F32_STEP_LOSS_ATOL = 5e-6
 GRU_F32_STEP_GRAD_REL = 1e-4
+# The clip and Adam kernel against the plain loop on the card (check_adam):
+# ADAM_STEPS updates from one state with the same gradients, scaled to a
+# global norm below the clip (1.0 in both configs) and above it. Below it
+# the scale is exactly 1 and the kernel's elementwise arithmetic is the
+# loop's, rounding for rounding: every bit equal. Above it the norm's sums
+# run in another order, so the scale may differ in its last bit: the
+# tolerances test_clip_and_adam_match_optax holds the loop to against optax.
+ADAM_STEPS = 3
+ADAM_NORMS = {"below_clip": 0.5, "above_clip": 5.0}
+ADAM_RTOL, ADAM_ATOL = 1e-6, 1e-7
 # The training phase: the reference configuration at full width, on
 # in-memory triplets cut from the export corpus.
 TRAIN_TRIPLETS, VAL_TRIPLETS, TEST_TRIPLETS = 2112, 320, 48
@@ -799,7 +816,7 @@ def phase_kernels(dev) -> dict:
 # Every kernel of the port: its launch counter (the wrapper's attribute),
 # its source and the TPU kernel it replaces.
 def kernel_table():
-    from twotowermlretrieval_tpu_torch.ops import attention, rnn_scan, topk
+    from twotowermlretrieval_tpu_torch.ops import adam, attention, rnn_scan, topk
 
     return {
         "rnn_fwd": (rnn_scan.rnn_layer_fwd, "twotowermlretrieval_tpu_torch/csrc/rnn_fwd.cu",
@@ -823,6 +840,8 @@ def kernel_table():
         "attention_bwd": (attention.attention_bwd,
                           "twotowermlretrieval_tpu_torch/csrc/attention.cu",
                           "twotowermlretrieval_tpu/ops/attention.py:80"),
+        # replaces no TPU kernel: XLA fuses the JAX package's optax update
+        "adam": (adam.clip_and_adam, "twotowermlretrieval_tpu_torch/csrc/adam.cu", None),
     }
 
 
@@ -1959,6 +1978,86 @@ def phase_attention_kernels(dev) -> dict:
     return {"attention_fwd": fwd, "attention_bwd": bwd}
 
 
+def check_adam(name: str, dev) -> dict:
+    """``csrc/adam.cu`` at a training leaf set of ``tools/bench_adam.py``
+    ("gru" or "config5"): for each of ADAM_NORMS, ADAM_STEPS updates through
+    the kernel and through the plain loop on the card (``adam.table_for``
+    forced to None) from one state with the same gradients; 2 launches an
+    update. Then a call of each timed on the state above the clip, and the
+    kernel's device time queued for the end."""
+    from twotowermlretrieval_tpu_torch.ops import adam
+    from twotowermlretrieval_tpu_torch.tools.bench_adam import BYTES_PER_ELEMENT, leaf_params
+    from twotowermlretrieval_tpu_torch.train.train_step import (
+        apply_clip_and_adam,
+        create_train_state,
+    )
+    from twotowermlretrieval_tpu_torch.utils.pytree import named_leaves
+
+    params, cfg = leaf_params(name, dev)
+    check(cfg.grad_clip_norm == 1.0, f"adam {name}: the config clips at {cfg.grad_clip_norm}")
+    real = adam.table_for
+
+    def loop_update(state, grads):
+        adam.table_for = lambda *a, **k: None
+        try:
+            return apply_clip_and_adam(state, grads, cfg)
+        finally:
+            adam.table_for = real
+
+    def leaves(state):
+        return [(f"{tree} {n}", x.detach())
+                for tree, t in (("param", state.trainable), ("mu", state.opt_state["mu"]),
+                                ("nu", state.opt_state["nu"]))
+                for n, x in named_leaves(t)]
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    worst = 0.0
+    for regime, norm in ADAM_NORMS.items():
+        kernel = create_train_state(torch.Generator(device=dev), params, cfg)
+        loop = create_train_state(torch.Generator(device=dev), params, cfg)
+        zero_counts()
+        for _ in range(ADAM_STEPS):
+            grads = [torch.randn(p.shape, generator=gen, device=dev)
+                     for _, p in named_leaves(kernel.trainable)]
+            total = torch.sqrt(sum((g * g).sum() for g in grads))
+            grads = [g * (norm / total) for g in grads]
+            got = float(apply_clip_and_adam(kernel, grads, cfg))
+            want = float(loop_update(loop, grads))
+            check(abs(got - want) <= ADAM_RTOL * want,
+                  f"adam {name} {regime}: the norm {got} against the loop's {want}")
+        launches = read_counts()["adam"]
+        check(launches == 2 * ADAM_STEPS and int(kernel.opt_state["count"]) == ADAM_STEPS,
+              f"adam {name} {regime}: {launches} launches for {ADAM_STEPS} updates, count "
+              f"{int(kernel.opt_state['count'])}")
+        for (what, x), (_, y) in zip(leaves(kernel), leaves(loop)):
+            if regime == "below_clip":
+                check(torch.equal(x, y), f"adam {name} below the clip: {what} differs from the "
+                      f"card loop's")
+            else:
+                diff = (x - y).abs()
+                check(bool((diff <= ADAM_ATOL + ADAM_RTOL * y.abs()).all()),
+                      f"adam {name} above the clip: {what} off the card loop's by "
+                      f"{float(diff.max()):.3g}")
+                worst = max(worst, float(diff.max()))
+    elements = sum(p.numel() for _, p in named_leaves(kernel.trainable))
+    shape = f"{name}: {len(named_leaves(kernel.trainable))} leaves, {elements} elements"
+    rec = {"shape": shape, "max_abs_err": worst, "launches": launches,
+           "ms": time_ms(lambda: apply_clip_and_adam(kernel, grads, cfg)),
+           "plain_ms": time_ms(lambda: loop_update(loop, grads)),
+           "library_ms": None}  # no library call clips by the global norm then runs optax's Adam
+    rec["bound_ms"], rec["bound_by"] = bound(BYTES_PER_ELEMENT * elements, 0)
+    later_on_card(rec, "device_ms", lambda: apply_clip_and_adam(kernel, grads, cfg))
+    log(f"adam {shape}: below the clip bit for bit the card loop, above it within "
+        f"{worst:.3g}; {launches} launches for {ADAM_STEPS} updates; {rec['ms']:.4f} ms a call, "
+        f"the loop {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms (bytes)")
+    return rec
+
+
+def phase_adam(dev) -> list:
+    """The clip and Adam at both training leaf sets (``check_adam``)."""
+    return [check_adam("gru", dev), check_adam("config5", dev)]
+
+
 # ---------------------------------------------------------------------------
 # phase 4: a synthetic artifact directory at full width
 # ---------------------------------------------------------------------------
@@ -2461,6 +2560,8 @@ def phase_train(dev, corpus) -> dict:
     check(steps >= 32, f"train: only {steps} steps")
     check(launches["rnn_bwd"] == 4 * steps, f"train: {launches['rnn_bwd']} rnn_bwd launches "
           f"for {steps} steps, expected 4 per step")
+    check(launches["adam"] == 2 * steps, f"train: {launches['adam']} clip-and-Adam launches "
+          f"for {steps} steps, expected 2 per step")
 
     # the exported directory serves through the port's engine on the card
     engine = SearchEngine(res["artifacts_dir"], device=dev)
@@ -2704,6 +2805,8 @@ def phase_transformer(dev, corpus) -> dict:
           f"transformer train: {launches['attention_fwd']} attention_fwd launches")
     check(launches["rnn_fwd"] == 0 and launches["rnn_bwd"] == 0,
           "transformer train: a recurrent kernel was launched")
+    check(launches["adam"] == 2 * steps, f"transformer train: {launches['adam']} clip-and-Adam "
+          f"launches for {steps} steps, expected 2 per step")
 
     requests = _requests(datasets["train"])
     served, _ = _drive_server(requests, path=res["artifacts_dir"],
@@ -4414,6 +4517,7 @@ def main(argv) -> int:
             kern[name].extend(recs)
         ivf, ivf_kept = phase_ivf(dev)
         kern.update(phase_attention_kernels(dev))
+        kern["adam"] = phase_adam(dev)
         export, corpus = phase_export(dev)
         native = phase_native_tokenizer(corpus, card)
         served = phase_serve(dev, corpus[2])
@@ -4474,7 +4578,8 @@ def main(argv) -> int:
                      "segmax_s8": served_int8["launches"]["segmax_s8"],
                      "topk_stream_int8": sharded["int8_rows_launches"]["topk_stream_int8"],
                      "attention_fwd": tf["serve"]["launches"]["attention_fwd"],
-                     "attention_bwd": tf["launches"]["attention_bwd"]}
+                     "attention_bwd": tf["launches"]["attention_bwd"],
+                     "adam": trained["launches"]["adam"]}
     kernels = []
     for name, (_, source, replaces) in kernel_table().items():
         recs = kern[name]

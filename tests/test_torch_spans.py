@@ -313,3 +313,30 @@ def test_the_metric_readers_read_the_spans_and_none_without_them(tmp_path):
     host_only.write_text(json.dumps({"traceEvents": [e for e in _window()
                                                      if e["cat"] == "user_annotation"]}))
     assert per_step(_Ctx(host_only), lambda sp, steps: 1.0) is None
+
+
+def test_the_optimizer_launch_count_reads_what_the_optimizer_spans_launched(tmp_path):
+    """``optimizer_launches.train``: the device operations launched inside
+    ``ttr.train.optimizer`` a step (the step count's add and the kernel's
+    two passes here), not the backward's; None without spans."""
+    from benchmarks.harness.runner import load_metric
+
+    ev = []
+    for s, t0 in enumerate((0, 1000)):
+        c = 100 * s
+        ev += [_x("ttr.train.step", t0, 900, "user_annotation"),
+               _x("ttr.train.backward", t0 + 100, 300, "user_annotation"),
+               _x("ttr.train.optimizer", t0 + 600, 200, "user_annotation"),
+               _x("cudaLaunchKernel", t0 + 150, 5, "cuda_runtime", correlation=c + 1),
+               _x("k_bwd", t0 + 160, 50, "kernel", tid=7, correlation=c + 1)]
+        for j, name in enumerate(("k_count_add", "adam_squares_kernel", "adam_update_kernel")):
+            ev += [_x("cudaLaunchKernel", t0 + 610 + 20 * j, 5, "cuda_runtime",
+                      correlation=c + 10 + j),
+                   _x(name, t0 + 700 + 20 * j, 10, "kernel", tid=7, correlation=c + 10 + j)]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    read = load_metric("optimizer_launches.train").read
+    assert read(_Ctx(path)) == 3.0
+    bare = tmp_path / "bare.json"
+    bare.write_text(json.dumps({"traceEvents": [e for e in ev if not e["name"].startswith("ttr.")]}))
+    assert read(_Ctx(bare)) is None

@@ -26,7 +26,7 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("rnn_fwd", "rnn_bwd", "segmax", "segmax_s8", "topk_stream", "attention")
+SOURCES = ("rnn_fwd", "rnn_bwd", "segmax", "segmax_s8", "topk_stream", "attention", "adam")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -9,7 +9,8 @@ The port of the JAX package's ``train/train_step.py``:
   min(1, max_norm / max(|g|, 1e-16))`` (not ``torch.nn.utils.
   clip_grad_norm_``, which adds 1e-6 to the norm);
 - Adam is optax's with its defaults (b1 0.9, b2 0.999, eps 1e-8 added
-  after the square root, bias-corrected), ``-lr`` times the update;
+  after the square root, bias-corrected), ``-lr`` times the update; on a
+  card the clip and Adam are one multi-tensor kernel (``ops/adam.py``);
 - the metric set is the JAX step's, ``grad_norm`` taken before the clip;
   per-leaf norms and fixed-bin histograms when the config asks for them.
 
@@ -67,6 +68,7 @@ from twotowermlretrieval_tpu_torch.models.two_tower import (
     encode_document,
     encode_query,
 )
+from twotowermlretrieval_tpu_torch.ops import adam
 from twotowermlretrieval_tpu_torch.utils.profiling import annotate
 from twotowermlretrieval_tpu_torch.utils.pytree import named_leaves, tree_map
 
@@ -81,6 +83,8 @@ class TrainState:
     opt_state: Dict[str, Any]  # {'count': int32 scalar, 'mu': tree, 'nu': tree}
     step: int
     generator: torch.Generator  # the dropout stream, on the params' device
+    # ops/adam.py's table of these leaves, made at the first update on a card
+    leaf_table: Any = dataclasses.field(default=None, repr=False, compare=False)
 
 
 def partition_params(params: Dict[str, Any], freeze_embeddings: bool):
@@ -158,17 +162,30 @@ def apply_clip_and_adam(state: TrainState, grads, config, model_group=None,
     state's params and moments, in optax's arithmetic. ``grads`` is the
     list of gradients in :func:`named_leaves` order. Returns the global
     norm of ``grads`` (before the clip), over the model group's shards
-    (:func:`global_norm_sharded`)."""
+    (:func:`global_norm_sharded`).
+
+    Leaves on a card take ``csrc/adam.cu`` (``ops/adam.py``): the same
+    arithmetic in two launches, the step count and the norm read on the
+    card, so nothing synchronizes; it takes f32 contiguous leaves and
+    raises ``ValueError`` for others. Leaves on the CPU take the loop
+    below."""
+    opt = state.opt_state
+    named = named_leaves(state.trainable)
+    params = [p for _, p in named]
+    mus = [m for _, m in named_leaves(opt["mu"])]
+    nus = [v for _, v in named_leaves(opt["nu"])]
+    state.leaf_table = adam.table_for(params, mus, nus, state.leaf_table, [n for n, _ in named])
+    if state.leaf_table is not None:
+        opt["count"] += 1
+        return adam.clip_and_adam(state.leaf_table, grads, opt["count"], config.grad_clip_norm,
+                                  config.lr, model_sharded if model_group is not None else None,
+                                  lambda t: psum_(t, model_group))
     gnorm = global_norm_sharded(grads, model_group, model_sharded)
     scale = clip_scale(gnorm, config.grad_clip_norm)
-    opt = state.opt_state
     opt["count"] += 1
     count = opt["count"].float()
     bc1 = 1.0 - torch.pow(torch.tensor(ADAM_B1, device=count.device), count)
     bc2 = 1.0 - torch.pow(torch.tensor(ADAM_B2, device=count.device), count)
-    params = [p for _, p in named_leaves(state.trainable)]
-    mus = [m for _, m in named_leaves(opt["mu"])]
-    nus = [v for _, v in named_leaves(opt["nu"])]
     for p, g, mu, nu in zip(params, grads, mus, nus):
         g = g * scale
         mu.mul_(ADAM_B1).add_((1.0 - ADAM_B1) * g)  # (1-b1) g + b1 mu, as optax
